@@ -1,0 +1,39 @@
+// Philox4x32-10 (Salmon et al. 2011), the port's random stream.
+//
+// The same rounds, key schedule and stream layout as the plain-torch
+// version in ops/philox.py; a kernel and its plain version draw identical
+// words for identical counters.  Written by hand rather than taken from
+// curand_kernel.h so that the plain version needs to reproduce nothing
+// but these ten rounds.
+//
+// Counter: (walker_index, split, offset_lo, offset_hi).  Key: the 64-bit
+// seed.  Word 0: stretch z uniform.  Word 1: accept uniform.  Word 2:
+// random-pair partner uniform.  Word 0 at walker_index = ROLL_LANE: the
+// split's roll shift uniform.
+#pragma once
+
+#include <cstdint>
+
+#define EMCEE_ROLL_LANE 0xFFFFFFFFu
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// 24 random bits as a float32 in [0, 1), exact (as jax.random.uniform).
+__device__ __forceinline__ float philox_uniform(uint32_t w) {
+  return static_cast<float>(w >> 8) * 5.9604644775390625e-08f;  // 2^-24
+}

@@ -1,0 +1,138 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library with a plain C interface, which
+is loaded with ``ctypes``.  That keeps PyTorch's headers out of the
+build (seconds, where ``torch.utils.cpp_extension.load`` takes minutes).
+Libraries go to ``build/kernels/`` beside the package (the directory is
+git-ignored); each file name carries a hash of its sources and flags, so
+an edited source is rebuilt and never mixed with a stale library.
+
+Nothing is built when this module is imported: a kernel is built on its
+first use, or all of them at once by :func:`build_all`, which starts one
+``nvcc`` per source in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["KERNELS", "build_all", "build_dir", "library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_HEADERS = ("philox.cuh",)
+
+#: kernel name -> (source file, C entry point)
+KERNELS = {
+    "stretch_propose": ("stretch_propose.cu", "emcee_stretch_propose"),
+    "accept_select": ("accept_select.cu", "emcee_accept_select"),
+}
+
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "stretch_propose": [
+        _P, _P, _P,  # coords, q, factor
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split nsplits
+        ctypes.c_int,  # pair_mode
+        ctypes.c_float, ctypes.c_float, _P,  # a, a - 1, scale
+        ctypes.c_float,  # ndim_global - 1
+        _P, _P, _P,  # u_z, u_pair, u_shift
+        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        _P,  # stream
+    ],
+    "accept_select": [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
+        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        _P,  # stream
+    ],
+}
+
+
+def build_dir() -> Path:
+    """``build/kernels/`` at the root of the checkout."""
+    return _PKG.parent / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
+            "CUDA kernels are built on first use on a machine with the "
+            "CUDA toolkit"
+        )
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = KERNELS[name][0]
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for f in (src,) + _HEADERS:
+        h.update((_CSRC / f).read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile every missing kernel library, one ``nvcc`` per source, all
+    started together.  Returns ``{name: ptxas report}`` for the kernels
+    built by this call (empty when all were built already).  Raises if
+    any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    todo = [n for n in names if not _lib_path(n).is_file()]
+    if not todo:
+        return {}
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / KERNELS[n][0])]
+        procs[n] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp,
+            out,
+        )
+    reports, failed = {}, []
+    for n, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{n} (exit {p.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[n] = log
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+@functools.cache
+def library(name: str):
+    """The bound C entry point of kernel ``name`` (built if missing)."""
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    fn = getattr(lib, KERNELS[name][1])
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,0 +1,155 @@
+"""K1: the stretch proposal, as a CUDA kernel and as plain PyTorch.
+
+Held against ``emcee_tpu/moves/stretch.py:59-84``
+(``StretchMove.get_proposal``, both pair modes) and the fused draw of
+``emcee_tpu/moves/red_blue.py:138-148``.  The kernel is
+``csrc/stretch_propose.cu``; its note says what bounds it on the card.
+
+The ensemble lives in one contiguous ``(nwalkers, ndim)`` buffer whose
+split groups are the contiguous row blocks ``[j*ng, (j+1)*ng)``.  The
+group being updated is block ``split``; its complement is every other
+row, in row order, which is the order of ``jnp.concatenate(c_parts)``
+in the JAX package.
+
+Uniforms come from the Philox stream at ``(seed, offset)`` (see
+``ops/philox.py``), or are injected: ``u_z`` (ng,), and ``u_shift`` (0-d)
+for roll pairs or ``u_pair`` (ng,) for random pairs.  Injection is the
+parity mode, the counterpart of ``get_proposal(extra=)`` in the JAX
+package.
+
+:func:`stretch_propose` launches the kernel for a CUDA tensor and uses
+:func:`stretch_propose_plain` for a CPU tensor; it never falls back from
+one to the other.  ``stretch_propose.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .philox import roll_shift, to_uniform, walker_words
+
+__all__ = ["PAIR_MODES", "stretch_propose", "stretch_propose_plain"]
+
+#: pair mode name -> the kernel's code for it
+PAIR_MODES = {"roll": 0, "random": 1}
+
+
+def _partner_rows(ng, nc, split, pair_mode, shift, u_pair, device):
+    if pair_mode == "roll":
+        r = (torch.arange(ng, device=device) + shift) % nc
+    else:
+        r = torch.clamp((u_pair.to(torch.float32) * nc).to(torch.int64),
+                        max=nc - 1)
+    # Complement index -> ensemble row: skip the split's own block.
+    return torch.where(r >= split * ng, r + ng, r)
+
+
+def stretch_propose_plain(coords, split, nsplits, *, a, scale=None,
+                          ndim_global, pair_mode, seed=0, offset=0,
+                          u_z=None, u_pair=None, u_shift=None):
+    """Plain PyTorch K1: returns ``(q (ng, ndim), factor (ng,))``."""
+    nw, _ = coords.shape
+    ng = nw // nsplits
+    nc = nw - ng
+    lo = split * ng
+    if u_z is None:
+        w0, _, w2, _ = walker_words(ng, split, seed, offset, coords.device)
+        u_z = to_uniform(w0, coords.dtype)
+        u_pair = to_uniform(w2, coords.dtype)
+        shift = roll_shift(seed, split, offset, nc)
+    elif pair_mode == "roll":
+        shift = (u_shift.to(torch.float32) * nc).to(torch.int64)
+    else:
+        shift = None
+    rows = _partner_rows(ng, nc, split, pair_mode, shift, u_pair,
+                         coords.device)
+    cr = coords.index_select(0, rows)
+    s = coords[lo:lo + ng]
+    if scale is None:
+        a_eff, am1 = a, a - 1.0
+    else:
+        a_eff = 1.0 + (a - 1.0) * scale
+        am1 = a_eff - 1.0
+    t = am1 * u_z + 1.0
+    z = t * t / a_eff
+    factor = (ndim_global - 1.0) * torch.log(z)
+    q = cr - (cr - s) * z[:, None]
+    return q, factor
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_f32(name, t, device, shape=None):
+    if t is None:
+        return
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(
+            f"{name} must be float32 on {device}, got {t.dtype} on "
+            f"{t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def stretch_propose(coords, split, nsplits, *, a, scale=None, ndim_global,
+                    pair_mode, seed=0, offset=0, u_z=None, u_pair=None,
+                    u_shift=None):
+    """K1 on the tensor's device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Returns ``(q, factor)``."""
+    kw = dict(a=a, scale=scale, ndim_global=ndim_global,
+              pair_mode=pair_mode, seed=seed, offset=offset, u_z=u_z,
+              u_pair=u_pair, u_shift=u_shift)
+    if coords.device.type == "cpu":
+        return stretch_propose_plain(coords, split, nsplits, **kw)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {coords.device}")
+    if pair_mode not in PAIR_MODES:
+        raise ValueError(f"unknown pair_mode: {pair_mode!r}")
+    if coords.dim() != 2:
+        raise ValueError("coords must be (nwalkers, ndim)")
+    nw, nd = coords.shape
+    if nsplits < 2 or nw % nsplits or not 0 <= split < nsplits:
+        raise ValueError(f"bad split {split} of {nsplits} for {nw} walkers")
+    if nw * nd >= 2**31:
+        raise ValueError("ensemble too large for int32 indexing")
+    ng = nw // nsplits
+    dev = coords.device
+    _check_f32("coords", coords, dev)
+    _check_f32("scale", scale, dev, ())
+    if u_z is not None:
+        _check_f32("u_z", u_z, dev, (ng,))
+        if pair_mode == "roll":
+            if u_shift is None:
+                raise ValueError("roll mode with injected u_z needs u_shift")
+            _check_f32("u_shift", u_shift, dev, ())
+        else:
+            if u_pair is None:
+                raise ValueError("random mode with injected u_z needs u_pair")
+            _check_f32("u_pair", u_pair, dev, (ng,))
+    from ._build import library
+
+    q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
+    factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("stretch_propose")(
+            coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
+            ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+            float(a), float(a - 1.0), _ptr(scale), float(ndim_global - 1.0),
+            _ptr(u_z), _ptr(u_pair), _ptr(u_shift),
+            int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stretch_propose kernel launch failed: CUDA "
+                           f"error {err}")
+    stretch_propose.launches += 1
+    return q, factor
+
+
+stretch_propose.launches = 0
