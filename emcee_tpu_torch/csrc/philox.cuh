@@ -8,13 +8,17 @@
 //
 // Counter: (walker_index, split, offset_lo, offset_hi).  Key: the 64-bit
 // seed.  Word 0: stretch z uniform.  Word 1: accept uniform.  Word 2:
-// random-pair partner uniform.  Word 0 at walker_index = ROLL_LANE: the
-// split's roll shift uniform.
+// random-pair partner uniform.  Words 0 and 2 in a DE proposal: the
+// walker's Box-Muller normal.  Split word PAIR_BLOCK | split: the DE and
+// snooker random-pair picks (words 0-2) and snooker role permutation
+// (word 3).  walker_index = ROLL_LANE: the split's roll draws (the host
+// computes them on the main path; see ops/philox.py).
 #pragma once
 
 #include <cstdint>
 
 #define EMCEE_ROLL_LANE 0xFFFFFFFFu
+#define EMCEE_PAIR_BLOCK 0x80000000u
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
@@ -36,4 +40,14 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 // 24 random bits as a float32 in [0, 1), exact (as jax.random.uniform).
 __device__ __forceinline__ float philox_uniform(uint32_t w) {
   return static_cast<float>(w >> 8) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+// A standard normal by Box-Muller: sqrt(-2 log(1 - u0)) cos(2 pi u2), each
+// operation rounded once, as ops/philox.py box_muller computes it; logf and
+// cosf are the accurate libdevice functions (no --use_fast_math).
+__device__ __forceinline__ float philox_normal(uint32_t w0, uint32_t w2) {
+  const float r = __fsqrt_rn(
+      __fmul_rn(-2.0f, logf(__fsub_rn(1.0f, philox_uniform(w0)))));
+  return __fmul_rn(r, cosf(__fmul_rn(6.28318548202514648f,
+                                     philox_uniform(w2))));
 }

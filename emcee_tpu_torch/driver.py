@@ -2,8 +2,9 @@
 
 The counterpart of ``emcee_tpu/driver.py``: ``shim_thin`` (``:32``),
 ``parse_moves`` (``:140``) and ``chunk_schedule`` (``:174-212``), plus
-the per-proposal move choice of a weighted list, drawn from the port's
-Philox stream on the host (no device work, no sync).
+the move choice of a weighted list, per proposal or per
+``mixture_block`` block, drawn from the port's Philox stream on the host
+(no device work, no sync).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import warnings
 
 import numpy as np
 
-from .ops.philox import MOVE_LANE, uniform_scalar
+from .ops.philox import MOVE_BLOCK, MOVE_LANE, uniform_scalar
 
 __all__ = ["choose_move", "chunk_schedule", "parse_moves", "shim_thin"]
 
@@ -58,20 +59,22 @@ def parse_moves(moves, default_move_factory):
     return parsed, weights / np.sum(weights)
 
 
-def choose_move(weights, seed, offset):
+def choose_move(weights, seed, offset, block=False):
     """Index of the move that proposal ``offset`` runs: the weighted
-    choice by the uniform at counter ``(MOVE_LANE, 0, offset)``."""
+    choice by the uniform at counter ``(MOVE_LANE, 0, offset)``.  With
+    ``block``, the choice of a ``mixture_block`` block whose first
+    proposal is ``offset``, from its own counter ``(MOVE_LANE,
+    MOVE_BLOCK, offset)``."""
     if len(weights) == 1:
         return 0
-    u = uniform_scalar(seed, MOVE_LANE, 0, offset)
+    u = uniform_scalar(seed, MOVE_LANE, MOVE_BLOCK if block else 0, offset)
     idx = int(np.searchsorted(np.cumsum(weights), u, side="right"))
     return min(idx, len(weights) - 1)
 
 
-def chunk_schedule(nsteps, max_chunk):
-    """Split ``nsteps`` kept steps into chunk sizes, preferring an equal
-    divisor of ``nsteps`` close to ``max_chunk`` (``mixture_block`` is not
-    ported yet, ROADMAP P7)."""
+def _schedule_sizes(nsteps, max_chunk):
+    """Split ``nsteps`` into chunk sizes, preferring an equal divisor of
+    ``nsteps`` close to ``max_chunk``."""
     if nsteps <= max_chunk:
         return [nsteps]
     for d in range(max_chunk, max(1, max_chunk // 2), -1):
@@ -81,3 +84,25 @@ def chunk_schedule(nsteps, max_chunk):
     if nsteps % max_chunk:
         sizes.append(nsteps % max_chunk)
     return sizes
+
+
+def chunk_schedule(nsteps, max_chunk, mixture_block=1):
+    """Chunk sizes for ``nsteps`` kept steps.
+
+    With an active ``mixture_block`` (> 1) the chunks are whole multiples
+    of the block, so the blocked move choice engages (a chunk that is not
+    a multiple falls back to one choice per proposal); at most one ragged
+    tail chunk takes the fallback.  When ``max_chunk`` allows fewer kept
+    steps than one block, a chunk still holds one whole block.
+    """
+    blk = int(mixture_block)
+    if blk > 1:
+        nb, rem = divmod(nsteps, blk)
+        if nb == 0:
+            return [nsteps]
+        sizes = [s * blk
+                 for s in _schedule_sizes(nb, max(1, max_chunk // blk))]
+        if rem:
+            sizes.append(rem)
+        return sizes
+    return _schedule_sizes(nsteps, max_chunk)

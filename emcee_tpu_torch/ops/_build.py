@@ -33,6 +33,8 @@ _HEADERS = ("philox.cuh",)
 KERNELS = {
     "stretch_propose": ("stretch_propose.cu", "emcee_stretch_propose"),
     "accept_select": ("accept_select.cu", "emcee_accept_select"),
+    "de_propose": ("de_propose.cu", "emcee_de_propose"),
+    "snooker_propose": ("snooker_propose.cu", "emcee_snooker_propose"),
 }
 
 _FLAGS = [
@@ -56,6 +58,28 @@ _ARGTYPES = {
     "accept_select": [
         _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
+        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        _P,  # stream
+    ],
+    "de_propose": [
+        _P, _P, _P,  # coords, q, factor
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split nsplits
+        ctypes.c_int,  # pair_mode
+        ctypes.c_float, _P, ctypes.c_float,  # gamma0, scale, sigma
+        _P, _P, _P, _P,  # z, u_shift, idx_a, idx_b
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s1, s2, vec4
+        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        _P,  # stream
+    ],
+    "snooker_propose": [
+        _P, _P, _P,  # coords, q, factor
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split nsplits
+        ctypes.c_int,  # pair_mode
+        ctypes.c_float, _P, ctypes.c_float,  # gammas, scale, ndim_global - 1
+        _P, _P, _P,  # u4, idx, perm
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # role groups
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # role shifts
+        ctypes.c_int,  # vec4
         ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
         _P,  # stream
     ],

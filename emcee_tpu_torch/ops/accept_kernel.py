@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ._wrap import check_f32, check_rows, launch, ptr
 from .philox import to_uniform, walker_words
-from .stretch_kernel import _check_f32, _ptr
 
 __all__ = ["accept_select", "accept_select_plain"]
 
@@ -64,21 +64,13 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
         return accept_select_plain(*args, **kw)
     if coords.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {coords.device}")
-    if coords.dim() != 2:
-        raise ValueError("coords must be (nwalkers, ndim)")
-    nw, nd = coords.shape
-    if nsplits < 2 or nw % nsplits or not 0 <= split < nsplits:
-        raise ValueError(f"bad split {split} of {nsplits} for {nw} walkers")
-    if nw * nd >= 2**31:
-        raise ValueError("ensemble too large for int32 indexing")
-    ng = nw // nsplits
+    nw, nd, ng = check_rows(coords, split, nsplits)
     dev = coords.device
-    _check_f32("coords", coords, dev)
-    _check_f32("log_prob", log_prob, dev, (nw,))
-    _check_f32("q", q, dev, (ng, nd))
-    _check_f32("factor", factor, dev, (ng,))
-    _check_f32("lp_q", lp_q, dev, (ng,))
-    _check_f32("log_u", log_u, dev, (ng,))
+    check_f32("log_prob", log_prob, dev, (nw,))
+    check_f32("q", q, dev, (ng, nd))
+    check_f32("factor", factor, dev, (ng,))
+    check_f32("lp_q", lp_q, dev, (ng,))
+    check_f32("log_u", log_u, dev, (ng,))
     if (accepted.device != dev or accepted.dtype != torch.bool
             or tuple(accepted.shape) != (nw,) or not accepted.is_contiguous()):
         raise ValueError(f"accepted must be a contiguous ({nw},) bool "
@@ -88,20 +80,13 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
             or tuple(count.shape) != (nw,) or not count.is_contiguous()):
         raise ValueError(f"count must be a contiguous ({nw},) int32 tensor "
                          f"on {dev}")
-    from ._build import library
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("accept_select")(
-            q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
-            coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
-            _ptr(count), _ptr(log_u), ng, nd, split,
-            int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"accept_select kernel launch failed: CUDA "
-                           f"error {err}")
+    launch(
+        "accept_select", dev,
+        q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
+        coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
+        ptr(count), ptr(log_u), ng, nd, split,
+        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+    )
     accept_select.launches += 1
     return accepted[split * ng:(split + 1) * ng]
 

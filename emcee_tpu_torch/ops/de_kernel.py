@@ -1,0 +1,150 @@
+"""K5a: the differential-evolution proposal, as a CUDA kernel and as plain
+PyTorch.
+
+Held against ``emcee_tpu/moves/de.py:45-85`` (``DEMove.get_proposal``,
+both pair modes).  The kernel is ``csrc/de_propose.cu``; its note says
+what bounds it on the card.  K5a writes only ``q`` and a zero
+``factor``; K2 (``ops/accept_kernel.py``) does the rest, unchanged.
+
+As for K1, the ensemble lives in one contiguous ``(nwalkers, ndim)``
+buffer whose split groups are the row blocks ``[j*ng, (j+1)*ng)``; the
+complement of block ``split`` is every other row, in row order (the
+order of ``jnp.concatenate(c_parts)``), read in place.
+
+Randomness comes from the Philox stream at ``(seed, offset)`` (see
+``ops/philox.py``), or is injected (the parity mode):
+
+* ``z`` ``(ng,)``: the walkers' standard normals (JAX: the first ``ng``
+  of ``jax.random.normal(key, (ng + 2,))`` in roll mode, the
+  ``key_g`` draw in random mode);
+* roll mode: ``u_shift`` ``(2,)``, the two shift uniforms (JAX:
+  ``norm.cdf`` of the last two normals);
+* random mode: ``idx_a``, ``idx_b`` ``(ng,)`` int32, the two raw picks
+  (JAX: the two ``randint`` draws, before ``j`` is moved past ``i``).
+
+:func:`de_propose` launches the kernel for a CUDA tensor and uses
+:func:`de_propose_plain` for a CPU tensor; it never falls back from one
+to the other.  ``de_propose.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._wrap import (
+    PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows,
+    complement_rows, launch, ptr, vec4_ok)
+from .philox import (
+    PAIR_BLOCK, ROLL_LANE, box_muller, to_uniform, uniforms_scalar,
+    walker_words)
+
+__all__ = ["de_gamma0", "de_propose", "de_propose_plain", "de_roll_shifts"]
+
+
+def de_gamma0(gamma0, ndim_global):
+    """The mean stretch ``gamma0`` as float32, by default ``2.38 /
+    sqrt(2 ndim)`` ("pure magic", ``de.py:49-52``), each operation
+    rounded to float32 as the JAX package computes it."""
+    if gamma0 is not None:
+        return float(np.float32(gamma0))
+    return float(np.float32(2.38) / np.sqrt(np.float32(2.0 * ndim_global)))
+
+
+def de_roll_shifts(u1, u2, nc):
+    """The two distinct roll shifts ``(s1, s2)`` from two uniforms, in
+    float32 arithmetic as the kernel and ``de.py:65-67`` compute them."""
+    s1 = int(np.float32(u1) * np.float32(nc)) % nc
+    d = 1 + int(np.float32(u2) * np.float32(nc - 1))
+    return s1, (s1 + d) % nc
+
+
+def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
+                     pair_mode, seed=0, offset=0, z=None, u_shift=None,
+                     idx_a=None, idx_b=None):
+    """Plain PyTorch K5a: returns ``(q (ng, ndim), factor (ng,))``.
+    ``gamma0`` is the float32 value of :func:`de_gamma0`."""
+    nw, _ = coords.shape
+    ng = nw // nsplits
+    nc = nw - ng
+    lo = split * ng
+    dev = coords.device
+    if z is None:
+        w0, _, w2, _ = walker_words(ng, split, seed, offset, dev)
+        z = box_muller(w0, w2, coords.dtype)
+    lanes = torch.arange(ng, device=dev)
+    if pair_mode == "roll":
+        if u_shift is None:
+            u1, u2 = uniforms_scalar(seed, ROLL_LANE, split, offset)[:2]
+        else:
+            u1, u2 = (float(u) for u in u_shift)
+        s1, s2 = de_roll_shifts(u1, u2, nc)
+        a, b = (lanes + s1) % nc, (lanes + s2) % nc
+    else:
+        if idx_a is None:
+            w = walker_words(ng, PAIR_BLOCK | split, seed, offset, dev)
+            a = torch.clamp((to_uniform(w[0]) * nc).to(torch.int64),
+                            max=nc - 1)
+            b = torch.clamp((to_uniform(w[1]) * (nc - 1)).to(torch.int64),
+                            max=nc - 2)
+        else:
+            a, b = idx_a.to(torch.int64), idx_b.to(torch.int64)
+        b = torch.where(b >= a, b + 1, b)
+    ca = coords.index_select(0, complement_rows(a, split, ng))
+    cb = coords.index_select(0, complement_rows(b, split, ng))
+    s = coords[lo:lo + ng]
+    # Python floats rounded to float32 first, as the kernel receives them.
+    gamma0, sigma = float(np.float32(gamma0)), float(np.float32(sigma))
+    g = gamma0 if scale is None else gamma0 * scale
+    gamma = g * (1.0 + sigma * z)
+    q = s + gamma[:, None] * (cb - ca)
+    return q, torch.zeros(ng, dtype=coords.dtype, device=dev)
+
+
+def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
+               pair_mode, seed=0, offset=0, z=None, u_shift=None,
+               idx_a=None, idx_b=None):
+    """K5a on the tensor's device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Returns ``(q, factor)``."""
+    kw = dict(gamma0=gamma0, sigma=sigma, scale=scale, pair_mode=pair_mode,
+              seed=seed, offset=offset, z=z, u_shift=u_shift, idx_a=idx_a,
+              idx_b=idx_b)
+    if coords.device.type == "cpu":
+        return de_propose_plain(coords, split, nsplits, **kw)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no K5a kernel for device {coords.device}")
+    check_pair_mode(pair_mode)
+    nw, nd, ng = check_rows(coords, split, nsplits)
+    nc = nw - ng
+    dev = coords.device
+    check_f32("scale", scale, dev, ())
+    check_f32("z", z, dev, (ng,))
+    s1 = s2 = 0
+    if pair_mode == "roll":
+        if u_shift is not None:
+            check_f32("u_shift", u_shift, dev, (2,))
+        else:
+            u1, u2 = uniforms_scalar(seed, ROLL_LANE, split, offset)[:2]
+            s1, s2 = de_roll_shifts(u1, u2, nc)
+    elif (idx_a is None) != (idx_b is None):
+        raise ValueError("inject both idx_a and idx_b, or neither")
+    elif idx_a is not None:
+        check_i32("idx_a", idx_a, dev, (ng,))
+        check_i32("idx_b", idx_b, dev, (ng,))
+    roll = pair_mode == "roll"
+    q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
+    factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+    launch(
+        "de_propose", dev,
+        coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
+        ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+        float(gamma0), ptr(scale), float(sigma), ptr(z),
+        ptr(u_shift if roll else None), ptr(None if roll else idx_a),
+        ptr(None if roll else idx_b), s1, s2, int(vec4_ok(nd, coords, q)),
+        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+    )
+    de_propose.launches += 1
+    return q, factor
+
+
+de_propose.launches = 0

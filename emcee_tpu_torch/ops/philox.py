@@ -17,8 +17,19 @@ Stream layout (shared with the kernels):
 * word 0: the stretch ``z`` uniform; word 1: the accept uniform;
   word 2: the random-pair partner uniform; word 3 at split slot
   ``nsplits``: the sort key of the shuffled split's permutation;
-* word 0 at counter ``(ROLL_LANE, split, ...)``: the roll shift uniform;
-  word 0 at counter ``(MOVE_LANE, 0, ...)``: the weighted-move choice.
+* words 0 and 2, in a DE proposal (K5a): the walker's Gaussian jitter
+  ``z``, by Box-Muller (:func:`box_muller`).  K1 never runs in the same
+  proposal, so its use of those words does not collide;
+* counter ``(walker_index, PAIR_BLOCK | split, ...)``: the random-pair
+  partner uniforms of the DE and snooker moves, words 0 and 1 (DE's two
+  complement picks) or 0, 1, 2 (the snooker's three picks) and 3 (the
+  snooker's role permutation);
+* counter ``(ROLL_LANE, split, ...)``: the split's roll draws, computed
+  on the host: word 0 the stretch shift; words 0 and 1 DE's two shifts;
+  words 0-3 the snooker's role permutation and three shifts;
+* counter ``(MOVE_LANE, 0, ...)``, word 0: the weighted-move choice of a
+  proposal; ``(MOVE_LANE, 1, ...)``, word 0: the choice of a
+  ``mixture_block`` block, at the offset of the block's first proposal.
 
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
@@ -33,6 +44,9 @@ __all__ = [
     "MASK32",
     "ROLL_LANE",
     "MOVE_LANE",
+    "MOVE_BLOCK",
+    "PAIR_BLOCK",
+    "box_muller",
     "philox4x32",
     "philox4x32_scalar",
     "philox4x32_torch",
@@ -41,12 +55,19 @@ __all__ = [
     "split_offset",
     "to_uniform",
     "uniform_scalar",
+    "uniforms_scalar",
     "walker_words",
 ]
 
 MASK32 = 0xFFFFFFFF
 ROLL_LANE = 0xFFFFFFFF
 MOVE_LANE = 0xFFFFFFFE
+#: split slot of the mixture_block choice on MOVE_LANE
+MOVE_BLOCK = 1
+#: high bit of the split word: the random-pair partner counter block
+PAIR_BLOCK = 0x80000000
+#: 2 pi rounded to float32, as the kernels' Box-Muller uses it
+TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -81,12 +102,17 @@ def philox4x32_scalar(counter, key):
     return c
 
 
-def uniform_scalar(seed, lane, split, offset, word=0):
-    """One uniform of the stream, computed on the host (no device work,
-    no sync): the roll shift and the weighted-move choice."""
+def uniforms_scalar(seed, lane, split, offset):
+    """The four uniforms of one counter, computed on the host (no device
+    work, no sync): the roll draws and the weighted-move choice."""
     lo, hi = split_offset(offset)
-    w = philox4x32_scalar((lane, split, lo, hi), split_key(seed))[word]
-    return (w >> 8) * 2.0**-24
+    words = philox4x32_scalar((lane, split, lo, hi), split_key(seed))
+    return [(w >> 8) * 2.0**-24 for w in words]
+
+
+def uniform_scalar(seed, lane, split, offset, word=0):
+    """One uniform of :func:`uniforms_scalar`."""
+    return uniforms_scalar(seed, lane, split, offset)[word]
 
 
 def roll_shift(seed, split, offset, nc):
@@ -169,3 +195,11 @@ def walker_words(n, split, seed, offset, device):
 def to_uniform(word, dtype=torch.float32):
     """Map a uint32 word (int64 tensor) to a uniform in [0, 1)."""
     return (word >> 8).to(dtype) * 2.0**-24
+
+
+def box_muller(w0, w2, dtype=torch.float32):
+    """A standard normal from two words: ``sqrt(-2 log(1 - u0)) *
+    cos(2 pi u2)``, one float32 operation at a time as the kernels
+    compute it (``1 - u0`` lies in ``(0, 1]``, so the log is finite)."""
+    r = torch.sqrt(-2.0 * torch.log(1.0 - to_uniform(w0, dtype)))
+    return r * torch.cos(TWO_PI_F32 * to_uniform(w2, dtype))

@@ -1,0 +1,164 @@
+"""K5b: the DE-snooker proposal, as a CUDA kernel and as plain PyTorch.
+
+Held against ``emcee_tpu/moves/de_snooker.py:78-139``
+(``DESnookerMove._draw_roll``, ``_draw_random`` and ``get_proposal``).
+The kernel is ``csrc/snooker_propose.cu``; its note says what bounds it
+on the card.
+
+Per walker, three picks from the other split groups take the roles
+``(z, z1, z2)``; then ``delta = s - z``, ``u = delta / |delta|``,
+``q = s + u * gammas * (u . (z1 - z2))`` and the Metropolis factor
+``(ndim - 1) (log|norm + gp| - log norm)``.  The groups are the
+contiguous row blocks of the ensemble buffer, read in place.
+
+Randomness comes from the Philox stream at ``(seed, offset)`` (see
+``ops/philox.py``), or is injected (the parity mode):
+
+* roll mode: ``u4`` ``(4,)``, the role-permutation uniform and the three
+  shift uniforms (the JAX package's ``extra`` layout, ``de_snooker.py:81``);
+* random mode (``nsplits=4``): ``idx`` ``(3, ng)`` int32, one pick in
+  each other group, and ``perm`` ``(ng,)`` int32, the row of ``PERMS3``
+  (JAX: the three ``randint`` draws and the permutation ``randint``).
+
+:func:`snooker_propose` launches the kernel for a CUDA tensor and uses
+:func:`snooker_propose_plain` for a CPU tensor; it never falls back from
+one to the other.  ``snooker_propose.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import torch
+
+from ._wrap import (
+    PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows, launch,
+    ptr, vec4_ok)
+from .philox import (
+    PAIR_BLOCK, ROLL_LANE, to_uniform, uniforms_scalar, walker_words)
+
+__all__ = ["PERMS3", "role_rows", "roll_picks", "snooker_propose",
+           "snooker_propose_plain"]
+
+#: the 3! role permutations, in ``itertools.permutations`` order
+PERMS3 = tuple(itertools.permutations(range(3)))
+
+
+def _pick_group(k, split, nsplits):
+    """Group of pick ``k``: part ``k % (nsplits - 1)`` of the complement,
+    skipping block ``split`` (``de_snooker.py:84``)."""
+    g = k % (nsplits - 1)
+    return g + (g >= split)
+
+
+def roll_picks(u4, split, nsplits, ng):
+    """``[(group, shift)]`` of the roles ``(z, z1, z2)`` from the four roll
+    uniforms, in float32 arithmetic as the kernel and
+    ``de_snooker.py:84-98`` compute them.  With ``nsplits=2`` the three
+    picks keep their order (no role shuffle, ``:89-94``)."""
+    picks = [(_pick_group(k, split, nsplits),
+              int(np.float32(u4[1 + k]) * np.float32(ng))) for k in range(3)]
+    if nsplits == 2:
+        return picks
+    p = min(int(np.float32(u4[0]) * np.float32(6)), 5)
+    return [picks[k] for k in PERMS3[p]]
+
+
+def role_rows(ng, split, nsplits, pair_mode, device, seed=0, offset=0,
+              u4=None, idx=None, perm=None):
+    """Ensemble rows ``(ng,)`` of the roles ``z``, ``z1``, ``z2``, from the
+    stream or from the injected draws."""
+    lanes = torch.arange(ng, device=device)
+    if pair_mode == "roll":
+        if u4 is None:
+            u4 = uniforms_scalar(seed, ROLL_LANE, split, offset)
+        else:
+            u4 = [float(u) for u in u4]
+        return [g * ng + (lanes + sh) % ng
+                for g, sh in roll_picks(u4, split, nsplits, ng)]
+    if idx is None:
+        w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
+        idx = [torch.clamp((to_uniform(w[k]) * ng).to(torch.int64),
+                           max=ng - 1) for k in range(3)]
+        perm = torch.clamp((to_uniform(w[3]) * 6).to(torch.int64), max=5)
+    order = torch.tensor(PERMS3, device=device)[perm.to(torch.int64)]
+    picks = torch.stack(
+        [_pick_group(k, split, nsplits) * ng + idx[k].to(torch.int64)
+         for k in range(3)], dim=1)
+    return [picks.gather(1, order[:, r:r + 1])[:, 0] for r in range(3)]
+
+
+def snooker_propose_plain(coords, split, nsplits, *, gammas, scale=None,
+                          ndim_global, pair_mode, seed=0, offset=0, u4=None,
+                          idx=None, perm=None):
+    """Plain PyTorch K5b: returns ``(q (ng, ndim), factor (ng,))``."""
+    nw, _ = coords.shape
+    ng = nw // nsplits
+    lo = split * ng
+    rows = role_rows(ng, split, nsplits, pair_mode, coords.device, seed,
+                     offset, u4, idx, perm)
+    z, z1, z2 = (coords.index_select(0, r) for r in rows)
+    s = coords[lo:lo + ng]
+    # gammas rounded to float32 first, as the kernel receives it.
+    gammas = float(np.float32(gammas))
+    gam = gammas if scale is None else gammas * scale
+    delta = s - z
+    norm = torch.sqrt(torch.sum(delta**2, dim=-1))
+    u = delta / norm[:, None]
+    proj = torch.sum(u * (z1 - z2), dim=-1)
+    gp = gam * proj
+    q = s + u * gp[:, None]
+    metropolis = torch.log(torch.abs(norm + gp)) - torch.log(norm)
+    return q, (ndim_global - 1.0) * metropolis
+
+
+def snooker_propose(coords, split, nsplits, *, gammas, scale=None,
+                    ndim_global, pair_mode, seed=0, offset=0, u4=None,
+                    idx=None, perm=None):
+    """K5b on the tensor's device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Returns ``(q, factor)``."""
+    kw = dict(gammas=gammas, scale=scale, ndim_global=ndim_global,
+              pair_mode=pair_mode, seed=seed, offset=offset, u4=u4, idx=idx,
+              perm=perm)
+    if coords.device.type == "cpu":
+        return snooker_propose_plain(coords, split, nsplits, **kw)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no K5b kernel for device {coords.device}")
+    check_pair_mode(pair_mode)
+    _, nd, ng = check_rows(coords, split, nsplits)
+    if nsplits != 4 and not (pair_mode == "roll" and nsplits == 2):
+        raise ValueError("K5b needs nsplits=4 (or 2 in roll mode)")
+    dev = coords.device
+    check_f32("scale", scale, dev, ())
+    picks = [(0, 0)] * 3
+    if pair_mode == "roll":
+        if u4 is not None:
+            check_f32("u4", u4, dev, (4,))
+        else:
+            picks = roll_picks(uniforms_scalar(seed, ROLL_LANE, split, offset),
+                               split, nsplits, ng)
+    elif (idx is None) != (perm is None):
+        raise ValueError("inject both idx and perm, or neither")
+    elif idx is not None:
+        check_i32("idx", idx, dev, (3, ng))
+        check_i32("perm", perm, dev, (ng,))
+    q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
+    factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+    roll = pair_mode == "roll"
+    launch(
+        "snooker_propose", dev,
+        coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
+        ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+        float(gammas), ptr(scale), float(ndim_global - 1.0),
+        ptr(u4 if roll else None), ptr(None if roll else idx),
+        ptr(None if roll else perm),
+        *(g for g, _ in picks), *(sh for _, sh in picks),
+        int(vec4_ok(nd, coords, q)),
+        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+    )
+    snooker_propose.launches += 1
+    return q, factor
+
+
+snooker_propose.launches = 0

@@ -26,12 +26,12 @@ from __future__ import annotations
 
 import torch
 
+from ._wrap import (
+    PAIR_MODES, check_f32, check_pair_mode, check_rows, complement_rows,
+    launch, ptr)
 from .philox import roll_shift, to_uniform, walker_words
 
 __all__ = ["PAIR_MODES", "stretch_propose", "stretch_propose_plain"]
-
-#: pair mode name -> the kernel's code for it
-PAIR_MODES = {"roll": 0, "random": 1}
 
 
 def _partner_rows(ng, nc, split, pair_mode, shift, u_pair, device):
@@ -40,8 +40,7 @@ def _partner_rows(ng, nc, split, pair_mode, shift, u_pair, device):
     else:
         r = torch.clamp((u_pair.to(torch.float32) * nc).to(torch.int64),
                         max=nc - 1)
-    # Complement index -> ensemble row: skip the split's own block.
-    return torch.where(r >= split * ng, r + ng, r)
+    return complement_rows(r, split, ng)
 
 
 def stretch_propose_plain(coords, split, nsplits, *, a, scale=None,
@@ -77,25 +76,6 @@ def stretch_propose_plain(coords, split, nsplits, *, a, scale=None,
     return q, factor
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _check_f32(name, t, device, shape=None):
-    if t is None:
-        return
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(
-            f"{name} must be float32 on {device}, got {t.dtype} on "
-            f"{t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-
-
 def stretch_propose(coords, split, nsplits, *, a, scale=None, ndim_global,
                     pair_mode, seed=0, offset=0, u_z=None, u_pair=None,
                     u_shift=None):
@@ -108,46 +88,30 @@ def stretch_propose(coords, split, nsplits, *, a, scale=None, ndim_global,
         return stretch_propose_plain(coords, split, nsplits, **kw)
     if coords.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {coords.device}")
-    if pair_mode not in PAIR_MODES:
-        raise ValueError(f"unknown pair_mode: {pair_mode!r}")
-    if coords.dim() != 2:
-        raise ValueError("coords must be (nwalkers, ndim)")
-    nw, nd = coords.shape
-    if nsplits < 2 or nw % nsplits or not 0 <= split < nsplits:
-        raise ValueError(f"bad split {split} of {nsplits} for {nw} walkers")
-    if nw * nd >= 2**31:
-        raise ValueError("ensemble too large for int32 indexing")
-    ng = nw // nsplits
+    check_pair_mode(pair_mode)
+    _, nd, ng = check_rows(coords, split, nsplits)
     dev = coords.device
-    _check_f32("coords", coords, dev)
-    _check_f32("scale", scale, dev, ())
+    check_f32("scale", scale, dev, ())
     if u_z is not None:
-        _check_f32("u_z", u_z, dev, (ng,))
+        check_f32("u_z", u_z, dev, (ng,))
         if pair_mode == "roll":
             if u_shift is None:
                 raise ValueError("roll mode with injected u_z needs u_shift")
-            _check_f32("u_shift", u_shift, dev, ())
+            check_f32("u_shift", u_shift, dev, ())
         else:
             if u_pair is None:
                 raise ValueError("random mode with injected u_z needs u_pair")
-            _check_f32("u_pair", u_pair, dev, (ng,))
-    from ._build import library
-
+            check_f32("u_pair", u_pair, dev, (ng,))
     q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
     factor = torch.empty((ng,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("stretch_propose")(
-            coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
-            ng, nd, split, nsplits, PAIR_MODES[pair_mode],
-            float(a), float(a - 1.0), _ptr(scale), float(ndim_global - 1.0),
-            _ptr(u_z), _ptr(u_pair), _ptr(u_shift),
-            int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"stretch_propose kernel launch failed: CUDA "
-                           f"error {err}")
+    launch(
+        "stretch_propose", dev,
+        coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
+        ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+        float(a), float(a - 1.0), ptr(scale), float(ndim_global - 1.0),
+        ptr(u_z), ptr(u_pair), ptr(u_shift),
+        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+    )
     stretch_propose.launches += 1
     return q, factor
 

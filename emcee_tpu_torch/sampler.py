@@ -47,7 +47,6 @@ _NOT_PORTED = {
     "param_axis": (None, "P13"),
     "host_callback": (False, "P12"),
     "io_dtype": (None, "P10"),
-    "mixture_block": (1, "P7"),
 }
 
 #: bytes of one chunk's device staging buffer (as io_chunk_bytes in the
@@ -96,6 +95,8 @@ class EnsembleSampler:
         vectorize: see ``log_prob_fn``.
         seed: int seed of the sampler's Philox stream (used when an
             initial state carries no ``random_state``).
+        mixture_block: with several moves, draw the move once per block
+            of this many kept steps instead of once per proposal.
         max_chunk_steps: optional cap on kept steps per chunk.
         device: where the walkers live; ``None`` means ``"cuda"``, and
             there is no silent fallback to the CPU.
@@ -128,7 +129,7 @@ class EnsembleSampler:
             pool=pool, blobs_dtype=blobs_dtype,
             parameter_names=parameter_names, prng=prng, mesh=mesh,
             param_axis=param_axis, host_callback=host_callback,
-            io_dtype=io_dtype, mixture_block=mixture_block,
+            io_dtype=io_dtype,
         )
         for name, (default, item) in _NOT_PORTED.items():
             if given[name] != default:
@@ -152,6 +153,14 @@ class EnsembleSampler:
         )
         if self._max_chunk_steps is not None and self._max_chunk_steps < 1:
             raise ValueError("max_chunk_steps must be >= 1")
+        # mixture_block > 1: draw the move once per block of that many
+        # kept steps instead of once per proposal (JAX sampler.py:
+        # 291-298); a chunk whose length is not a block multiple (e.g.
+        # the generator's one-step chunks) falls back to one draw per
+        # proposal.
+        self._mixture_block = int(mixture_block)
+        if self._mixture_block < 1:
+            raise ValueError("mixture_block must be >= 1")
 
         self.log_prob_fn = log_prob_fn
         self._compute_log_prob = wrap_log_prob_fn(
@@ -316,6 +325,10 @@ class EnsembleSampler:
             cap = min(cap, max(1, _CHUNK_BYTES // row))
         return cap
 
+    def _chunk_schedule(self, nsteps, max_chunk):
+        blk = self._mixture_block if len(self._moves) > 1 else 1
+        return chunk_schedule(nsteps, max_chunk, blk)
+
     def _chunk_rows(self, nkeep):
         """Where a chunk's kept steps go: ``(coords, log_prob, accepted)``
         of shapes ``(nkeep, nwalkers, ndim)``, ``(nkeep, nwalkers)`` and
@@ -345,9 +358,16 @@ class EnsembleSampler:
         :meth:`_chunk_rows`) each kept step's coords, log_prob and
         acceptance land in row ``k`` of its three tensors."""
         seed, offset = state.random_state
+        blk = self._mixture_block
+        blocked = len(self._moves) > 1 and blk > 1 and nkeep % blk == 0
         for k in range(nkeep):
+            if blocked and k % blk == 0:
+                # One move for the next blk kept steps (JAX sampler.py:
+                # 829-878), from the block's own counter.
+                i_blk = choose_move(self._weights, seed, offset, block=True)
             for _ in range(thin_by):
-                i = choose_move(self._weights, seed, offset)
+                i = i_blk if blocked else choose_move(
+                    self._weights, seed, offset)
                 move = self._moves[i]
                 state, accepted, c = move.propose(
                     (seed, offset), state, self._model, carries[i], acc_count
@@ -478,7 +498,7 @@ class EnsembleSampler:
             self.nwalkers, dtype=torch.int32, device=self.device
         )
         t0 = time.perf_counter()
-        for n in chunk_schedule(nsteps, self._auto_chunk(store)):
+        for n in self._chunk_schedule(nsteps, self._auto_chunk(store)):
             state, carries = self._advance(
                 state, carries, n, thin_by, store, tune, acc_count
             )

@@ -26,7 +26,8 @@ def test_import_leaves_no_jax_or_emcee_tpu():
         "import sys\n"
         "import emcee_tpu_torch, emcee_tpu_torch.sampler, "
         "emcee_tpu_torch.convert, emcee_tpu_torch.ops._build, "
-        "emcee_tpu_torch.ops.autocorr, emcee_tpu_torch.backends\n"
+        "emcee_tpu_torch.ops.autocorr, emcee_tpu_torch.backends, "
+        "emcee_tpu_torch.ops.de_kernel, emcee_tpu_torch.ops.snooker_kernel\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'emcee_tpu') or m.startswith(('jax.', 'jaxlib.', 'emcee_tpu.')))\n"
         "print(bad)\n"
