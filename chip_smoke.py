@@ -11,32 +11,46 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
 1. builds every kernel (one ``nvcc`` per source, in parallel);
 2. holds K1 (stretch proposal) and K2 (accept/select) against their plain
    PyTorch versions at the main path's shapes, with injected uniforms and
-   with the in-kernel Philox stream, in both pair modes, and one whole
-   proposal of the kernel path against the plain path;
+   with the in-kernel Philox stream (host offset and device offset word),
+   in both pair modes, and one whole proposal of the kernel path against
+   the plain path;
 3. runs the main path (1e5 walkers, 5-D unit Gaussian, blocked/roll
-   stretch move) with ``store=False`` and checks that every proposal went
-   through K1 and K2;
+   stretch move) with ``store=False``: every proposal a replay of K3, the
+   chunk program's CUDA graphs, and no timed run records a graph or calls
+   a kernel wrapper;
 4. stores 100 kept steps at ``thin_by=20`` into the host ``Backend`` and
    into ``DeviceBackend`` (each beside the same proposals unstored) and
    estimates tau, walker-steps/s and ESS/s; then profiles a window of the
-   main path (device time by kernel, device idle share);
+   main path: device time by kernel, the device idle share, host time per
+   replay, and each kernel's launches as the profiler counts them, held
+   to exactly 2 x K1 and 2 x K2 per proposal;
 5. runs the reference defaults (``StretchMove()``) at full width;
 7. holds K5a (DE proposal) and K5b (DE-snooker proposal) against their
    plain versions at workload 3's shapes (ng = 5000, ndim = 100), both
    pair modes, snooker with nsplits 2 and 4, injected draws and the
-   in-kernel Philox stream; K2 at ndim = 100; and one whole proposal of
-   each move on the kernel path against the plain path;
+   in-kernel Philox stream (host offset and device offset word); K2 at
+   ndim = 100; and one whole proposal of each move on the kernel path
+   against the plain path;
 8. runs workload 3 (``benchmarks/workload3.py:57-77``: 1e4 walkers, 100-D
    correlated Gaussian, DE 0.8 + snooker 0.2, roll, blocked) with
    ``store=False``, with ``mixture_block=4``, and stored into
-   ``DeviceBackend`` (256 kept x ``thin_by=16``) for tau and ESS/s, and
-   checks that every proposal went through K5a or K5b and then K2; then
-   profiles a window of it;
+   ``DeviceBackend`` (256 kept x ``thin_by=16``) for tau and ESS/s; then
+   profiles a window of it, with the profiler's launches held to exactly
+   2 x K5a per DE proposal, 2 x K5b per snooker proposal and 2 x K2 per
+   proposal;
 6. times each kernel and its plain version alone with CUDA events (K2
    also at ndim = 100), and both paths on the plain versions for
-   reference.
+   reference;
+9. K3: from the same state and seed, the graph-replayed chain equals the
+   eager per-proposal chain (the sampler's private ``_use_graphs``
+   switch) on the main path, ``StretchMove()``, the host ``Backend``,
+   ``DeviceBackend``, ``tune=True`` and workload 3 with
+   ``mixture_block`` 1 and 4 (coords, log_prob, acceptance counts,
+   random_state); eager and graph rates in turns (eager, graph, graph,
+   eager); K3's replay and host times; and a log-prob that synchronizes
+   with the host is refused with an error.
 
-Phases run in the order 0-5, 7, 8, 6.  Every phase raises on failure.
+Phases run in the order 0-5, 7, 8, 6, 9.  Every phase raises on failure.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -169,6 +183,59 @@ def device_ms(kernels, kname):
     return sum(us for _, us in hits) / sum(c for c, _ in hits) * 1e-3
 
 
+def profiled_counts(kernels):
+    """``{wrapper name: launches}`` of every kernel, as the profiler
+    counted them in a window (graph replays included)."""
+    return {name: sum(c for key, (c, _) in kernels.items()
+                      if f"{name}_kernel" in key)
+            for _, name in KERNELS}
+
+
+def warm_graphs(smp):
+    """Record every graph of a sampler's chunk program now (each move,
+    every size up to ``MAX_GRAPH``), so that no later run records one;
+    recording does not move the chain."""
+    from emcee_tpu_torch.chunk_graph import MAX_GRAPH
+
+    for i in range(len(smp._moves)):
+        size = 1
+        while size <= MAX_GRAPH:
+            smp._program.graph(i, size, False)
+            size *= 2
+
+
+def drive(smp, state, n, **kw):
+    """``run_mcmc`` with its launch checks; returns ``(state, seconds)``.
+
+    On the graph path, a run of a sampler whose chunk program exists
+    records no graph and calls no kernel wrapper: every proposal is a
+    replay.  On the eager path (``_use_graphs`` off), the wrappers'
+    counters show a proposal kernel twice and K2 twice per proposal."""
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    prog = smp._program
+    ngraphs = None if prog is None else len(prog.graphs)
+    before, r0 = launch_counts(), ChunkProgram.replays
+    t0 = time.perf_counter()
+    out = smp.run_mcmc(state, n, **kw)
+    dt = time.perf_counter() - t0
+    rose = {k: v - before[k] for k, v in launch_counts().items()}
+    n_prop = n * kw.get("thin_by", 1)
+    if smp._use_graphs:
+        if ChunkProgram.replays == r0:
+            raise AssertionError("a graph-path run replayed no graph")
+        if ngraphs is not None and smp._program is prog and (
+                any(rose.values()) or len(prog.graphs) != ngraphs):
+            raise AssertionError(f"a run after recording called kernel "
+                                 f"wrappers {rose} or recorded a graph")
+    elif (rose["stretch_propose"] + rose["de_propose"]
+          + rose["snooker_propose"] != 2 * n_prop
+          or rose["accept_select"] != 2 * n_prop):
+        raise AssertionError(f"eager run: launches rose by {rose} for "
+                             f"{n_prop} proposals")
+    return out, dt
+
+
 def workload3_target(np, torch, dev, nw=NW3, nd=ND3):
     """``benchmarks/workload3.py:57-69,118-121``: the 100-D correlated
     Gaussian ``lp = -1/2 |x W|^2`` with ``W = chol(inv(cov))``, and a
@@ -193,6 +260,22 @@ def workload3_moves(moves):
     return [(moves.DEMove(pair_mode="roll", randomize_split=False), 0.8),
             (moves.DESnookerMove(pair_mode="roll", nsplits=2,
                                  randomize_split=False), 0.2)]
+
+
+def same_from_device_offset(torch, fn, args, kw, want):
+    """Call kernel wrapper ``fn`` with ``kw``'s int offset held as a
+    device word plus an increment (as a CUDA graph's proposals read it)
+    and raise unless it returns exactly ``want``.  No-op for injected
+    draws (no ``offset`` in ``kw``)."""
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    if "offset" not in kw:
+        return
+    dev = args[0].device
+    word = torch.tensor(kw["offset"] - 3, dtype=torch.int64, device=dev)
+    got = fn(*args, **{**kw, "offset": DeviceOffset(word, 3)})
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{fn.__name__}: device offset draws differ")
 
 
 def acceptance_flips(torch, log_u, lnp_k, lnp_p):
@@ -239,11 +322,14 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                 args = (coords, split, 2)
                 kw = dict(gamma0=g0, pair_mode=pair_mode, **kw)
                 q, f = dk.de_propose(*args, **kw)
+                same_from_device_offset(torch, dk.de_propose, args, kw,
+                                        (q, f))
                 qp, fp = dk.de_propose_plain(*args, **kw)
                 errs["de_propose"] = max(errs["de_propose"], max_err(q, qp),
                                          max_err(f, fp))
         log(f"phase 7: K5a {pair_mode}: q max abs err "
-            f"{errs['de_propose']:.3g} (tolerance {RTOL:g})")
+            f"{errs['de_propose']:.3g} (tolerance {RTOL:g}); device-offset "
+            f"draws identical")
 
     gauss = wrap_log_prob_fn(gaussian, vectorize=True)
     n_flip_all = 0
@@ -269,6 +355,8 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                 kw = dict(gammas=1.7, ndim_global=nd, pair_mode=pair_mode,
                           **kw)
                 q, f = snk.snooker_propose(*args, **kw)
+                same_from_device_offset(torch, snk.snooker_propose, args, kw,
+                                        (q, f))
                 qp, fp = snk.snooker_propose_plain(*args, **kw)
                 e = max(max_err(q, qp, SN_RTOL, SN_ATOL),
                         max_err(f, fp, 0.0, SN_F_ATOL))
@@ -298,6 +386,15 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
             outs.append((cc, ll, acc, cnt))
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
             raise AssertionError("K2 at ndim 100: kernel and plain disagree")
+        if "offset" in k2kw:
+            cc, ll = coords.clone(), lp.clone()
+            acc = torch.zeros(nw, dtype=torch.bool, device=dev)
+            cnt = torch.ones(nw, dtype=torch.int32, device=dev)
+            same_from_device_offset(
+                torch, lambda *a, **kw: (ak.accept_select(*a, **kw), cc, ll,
+                                         acc, cnt),
+                (q, f, lp_q, cc, ll, 0, 2, acc, cnt), k2kw,
+                (outs[0][2][:ng],) + outs[0])
     log(f"phase 7: K2 at ndim {nd}: identical "
         f"({int(outs[0][2][:ng].sum())} of {ng} accepted)")
 
@@ -338,67 +435,73 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
             f"{float(acc_k.float().mean()):.3f}), coords max abs err {e:.3g}")
 
 
-def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000,
-           profile=True):
-    """Workload 3 through the port's entry points.  Returns a dict of its
-    numbers and the launch counts of the timed ``store=False`` run."""
+def move_seq(smp, state, n, thin_by=1, store=True):
+    """The move index of every proposal the next ``run_mcmc(state, n)``
+    of ``smp`` runs, from the host-known sequence of each chunk."""
+    from emcee_tpu_torch.driver import move_sequence
+
+    rs = getattr(state, "random_state", None) or smp.random_state
+    seq = []
+    for k in smp._chunk_schedule(n, smp._auto_chunk(store)):
+        seq += move_sequence(smp._weights, rs[0], rs[1] + len(seq), k,
+                             thin_by, smp._mixture_block).tolist()
+    return seq
+
+
+def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000):
+    """Workload 3 through the port's entry points, every proposal a graph
+    replay.  Returns a dict of its numbers and the wrapper launch counts
+    of its runs (K3's recordings and their warm-ups)."""
     from emcee_tpu_torch import EnsembleSampler, moves
     from emcee_tpu_torch.autocorr import integrated_time
     from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     log_prob, p0 = workload3_target(np, torch, dev, nw, nd)
     mix = workload3_moves(moves)
     out = {}
+    for _, fn in wrappers().values():
+        fn.launches = 0
 
     def run3(smp, state, n, **kw):
-        """run_mcmc with the counts set to 0 just before and read just
-        after: every proposal ran K5a or K5b twice, then K2 twice."""
-        for _, fn in wrappers().values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        st = smp.run_mcmc(state, n, **kw)
-        dt = time.perf_counter() - t0
-        c = launch_counts()
-        n_prop = n * kw.get("thin_by", 1)
-        if (c["de_propose"] + c["snooker_propose"] != 2 * n_prop
-                or c["accept_select"] != 2 * n_prop
-                or c["stretch_propose"] != 0):
-            raise AssertionError(f"workload 3: launches {c} for {n_prop} "
-                                 "proposals")
-        return st, dt, c
+        seq = move_seq(smp, state, n, kw.get("thin_by", 1),
+                       kw.get("store", True))
+        st, dt = drive(smp, state, n, **kw)
+        return st, dt, seq.count(0) / len(seq)
 
-    def check(st, label, dt, n_prop, c):
+    def check(st, label, dt, n_prop, share):
         mean_lp = float(st.log_prob.mean())
         if not -0.8 * nd < mean_lp < -0.2 * nd:  # workload3.py:201
             raise AssertionError(f"{label}: mean log-prob {mean_lp}")
         ws = n_prop * nw / dt
-        share = c["de_propose"] / (2 * n_prop)
         log(f"phase 8: {label}: {n_prop} proposals x {nw} walkers in "
             f"{dt:.3f} s: {ws:.4e} walker-steps/s {card}; mean lp "
             f"{mean_lp:.3f}; DE / snooker share of proposals {share:.4f} / "
-            f"{1 - share:.4f}; launches {c}")
+            f"{1 - share:.4f}")
         return ws
 
     smp = EnsembleSampler(nw, nd, log_prob, vectorize=True, seed=0,
                           moves=mix, device=dev)
     st, _, _ = run3(smp, p0, 200, store=False, skip_initial_state_check=True)
-    st, dt, c = run3(smp, None, n_timed, store=False)
+    warm_graphs(smp)
+    st, dt, share = run3(smp, None, n_timed, store=False)
     out["acceptance"] = float(smp.last_run_stats.acceptance_fraction.mean())
-    out["ws"] = check(st, "store=False", dt, n_timed, c)
-    out["launches"] = c
+    out["ws"] = check(st, "store=False", dt, n_timed, share)
     log(f"phase 8: store=False acceptance {out['acceptance']:.4f}")
 
     # mixture_block=4 against 1 in turns (1, 4, 4, 1): host time spreads
     # between and within calls, so the two compare only side by side.
     smp_b = EnsembleSampler(nw, nd, log_prob, vectorize=True, seed=3,
                             moves=mix, mixture_block=4, device=dev)
-    st_b, dt, c = run3(smp_b, st, n_timed, store=False,
-                       skip_initial_state_check=True)
-    ws_b = [check(st_b, "mixture_block=4", dt, n_timed, c)]
-    st_b, dt, c = run3(smp_b, None, n_timed, store=False)
-    ws_b.append(check(st_b, "mixture_block=4, again", dt, n_timed, c))
-    st, dt, c = run3(smp, None, n_timed, store=False)
-    ws_1 = [out["ws"], check(st, "store=False, again", dt, n_timed, c)]
+    st_b, _, _ = run3(smp_b, st, 40, store=False,
+                      skip_initial_state_check=True)
+    warm_graphs(smp_b)
+    st_b, dt, share = run3(smp_b, None, n_timed, store=False)
+    ws_b = [check(st_b, "mixture_block=4", dt, n_timed, share)]
+    st_b, dt, share = run3(smp_b, None, n_timed, store=False)
+    ws_b.append(check(st_b, "mixture_block=4, again", dt, n_timed, share))
+    st, dt, share = run3(smp, None, n_timed, store=False)
+    ws_1 = [out["ws"], check(st, "store=False, again", dt, n_timed, share)]
     out["ws_pairs"] = (ws_1, ws_b)
     log(f"phase 8: mixture_block=4 / 1, in turns: "
         f"{(ws_b[0] + ws_b[1]) / (ws_1[0] + ws_1[1]):.4f}")
@@ -407,8 +510,12 @@ def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000,
     smp_d = EnsembleSampler(nw, nd, log_prob, vectorize=True, seed=4,
                             moves=mix, backend=DeviceBackend(),
                             device=dev)
-    st, dt, c = run3(smp_d, st, kept, thin_by=thin_by,
-                     skip_initial_state_check=True)
+    st, _, _ = run3(smp_d, st, 2, thin_by=thin_by,
+                    skip_initial_state_check=True)
+    warm_graphs(smp_d)
+    smp_d.reset()
+    st, dt, share = run3(smp_d, st, kept, thin_by=thin_by,
+                         skip_initial_state_check=True)
     chain = smp_d.backend.chain
     if tuple(chain.shape[1:]) != (nw, nd) or smp_d.iteration != kept:
         raise AssertionError(f"DeviceBackend chain {tuple(chain.shape)}")
@@ -418,7 +525,7 @@ def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000,
         raise AssertionError("DeviceBackend chain is not finite")
     tau = float(np.max(integrated_time(sub, quiet=True))) * thin_by
     span = kept * thin_by
-    out["ws_stored"] = check(st, "DeviceBackend stored", dt, span, c)
+    out["ws_stored"] = check(st, "DeviceBackend stored", dt, span, share)
     out["tau"] = tau
     out["ess"] = out["ws_stored"] / tau
     log(f"phase 8: DeviceBackend {kept} kept x thin_by {thin_by}: tau "
@@ -427,29 +534,216 @@ def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000,
         f"{span >= 30 * tau}")
     del chain, smp_d
 
-    out["dev_ms"] = {}
-    out["state"] = st
-    out["sampler"] = smp
-    if not profile:
-        return out
-    n_prof = 200
+    # A profiled window: the profiler's launches must be exactly those of
+    # the host-known move sequence, inside the replayed graphs.
+    n_prof = 1000
+    seq = move_seq(smp, None, n_prof, store=False)
+    r0 = ChunkProgram.replays
     wall, kernels = profile_window(
-        torch, lambda: run3(smp, None, n_prof, store=False))
-    if kernels:
-        busy = sum(us for _, us in kernels.values()) * 1e-6
-        out["idle"] = 1 - busy / wall
-        for kname in ("de_propose", "snooker_propose", "accept_select"):
-            out["dev_ms"][kname] = device_ms(kernels, kname)
-        log(f"phase 8: profiled {n_prof} proposals: wall {wall:.4f} s, "
-            f"device busy {busy:.4f} s, idle share {out['idle']:.4f} {card}")
-        for key, (cnt, us) in sorted(kernels.items(),
-                                     key=lambda kv: -kv[1][1])[:10]:
-            log(f"  {us / cnt:9.2f} us x {cnt:6d}  {key[:90]}")
-    else:
-        log("phase 8: the profiler saw no device time; device time and "
-            "idle share not measured")
+        torch, lambda: drive(smp, None, n_prof, store=False))
+    n_replays = ChunkProgram.replays - r0
+    counts = profiled_counts(kernels)
+    n_de = seq.count(0)
+    want = {"stretch_propose": 0, "accept_select": 2 * n_prof,
+            "de_propose": 2 * n_de, "snooker_propose": 2 * (n_prof - n_de)}
+    if counts != want:
+        raise AssertionError(f"workload 3: profiled launches {counts}, "
+                             f"expected {want}")
+    busy = sum(us for _, us in kernels.values()) * 1e-6
+    out["idle"] = 1 - busy / wall
+    out["busy_us_per_prop"] = busy / n_prof * 1e6
+    out["host_us_per_replay"] = wall / n_replays * 1e6
+    out["dev_ms"] = {k: device_ms(kernels, k)
+                     for k in ("de_propose", "snooker_propose",
+                               "accept_select")}
+    log(f"phase 8: profiled {n_prof} proposals ({n_replays} replays): wall "
+        f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
+        f"{out['idle']:.4f}, device {out['busy_us_per_prop']:.2f} us per "
+        f"proposal {card}; profiled launches {counts} (exactly the move "
+        f"sequence's)")
+    for key, (cnt, us) in sorted(kernels.items(),
+                                 key=lambda kv: -kv[1][1])[:10]:
+        log(f"  {us / cnt:9.2f} us x {cnt:6d}  {key[:90]}")
+    out["launches"] = launch_counts()
+    out["state"] = st
     return out
 
+
+def phase9(torch, np, dev, card, bytes_per_prop, busy_us_per_prop):
+    """K3: graph-replayed chains against the eager per-proposal chain,
+    rates in turns, K3's own times, and the refusal of a log-prob that
+    synchronizes with the host.  Returns K3's row of the kernel table."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.chunk_graph import MAX_GRAPH
+
+    log_prob3, p03 = workload3_target(np, torch, dev)
+    p0 = np.random.default_rng(1).normal(size=(NW, ND)).astype(np.float32)
+
+    def roll(**kw):
+        return moves.StretchMove(randomize_split=False, pair_mode="roll",
+                                 **kw)
+
+    def main_path(mv, backend=None):
+        return lambda: EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=5, moves=mv, device=dev,
+            backend=None if backend is None else backend())
+
+    def workload3(blk):
+        return lambda: EnsembleSampler(
+            NW3, ND3, log_prob3, vectorize=True, seed=6, mixture_block=blk,
+            moves=workload3_moves(moves), device=dev)
+
+    # -- the graph chain equals the eager chain ---------------------------
+    err = 0.0
+    for label, make, start, n, kw in (
+            ("main path, store=False", main_path(roll()), p0, 128,
+             dict(store=False)),
+            ("StretchMove(), store=False", main_path(moves.StretchMove()),
+             p0, 100, dict(store=False)),
+            ("main path, host Backend", main_path(roll()), p0, 10,
+             dict(thin_by=10)),
+            ("main path, DeviceBackend", main_path(roll(), DeviceBackend),
+             p0, 10, dict(thin_by=10)),
+            ("tune=True, tune_target=0.3", main_path(roll(tune_target=0.3)),
+             p0, 100, dict(store=False, tune=True)),
+            ("workload 3, mixture_block=1", workload3(1), p03, 100,
+             dict(store=False)),
+            ("workload 3, mixture_block=4", workload3(4), p03, 100,
+             dict(store=False))):
+        ends = []
+        for graphs in (False, True):
+            smp = make()
+            smp._use_graphs = graphs
+            end, _ = drive(smp, start, n, skip_initial_state_check=True, **kw)
+            ends.append((smp, end))
+        (e, a), (g, b) = ends
+        same_acc = torch.equal(e.last_run_stats.accepted,
+                               g.last_run_stats.accepted)
+        if a.random_state != b.random_state or not same_acc:
+            raise AssertionError(f"K3 {label}: random_state "
+                                 f"{a.random_state} / {b.random_state}, "
+                                 f"acceptance counts equal: {same_acc}")
+        if kw.get("store", True):
+            for name in ("chain", "log_prob"):
+                if not np.array_equal(e.get_value(name), g.get_value(name)):
+                    raise AssertionError(f"K3 {label}: stored {name} differs")
+            if not np.array_equal(e.backend.accepted, g.backend.accepted):
+                raise AssertionError(f"K3 {label}: stored acceptance differs")
+        for ce, cg in zip(e._move_carries, g._move_carries):
+            if isinstance(ce, dict) and not all(
+                    torch.equal(ce[k], cg[k]) for k in ce):
+                raise AssertionError(f"K3 {label}: tuning carries differ")
+        diff = max(float((a.coords - b.coords).abs().max()),
+                   float((a.log_prob - b.log_prob).abs().max()))
+        if diff and not label.startswith("workload 3"):
+            raise AssertionError(f"K3 {label}: chains differ by {diff}")
+        err = max(err, diff)
+        note = ("bit for bit" if not diff else
+                f"coords/log_prob max abs diff {diff:.3g} (the cuBLAS "
+                "matmul under capture), acceptance counts identical")
+        log(f"phase 9: K3 {label}: {n * kw.get('thin_by', 1)} proposals, "
+            f"graph chain equals eager chain {note}; random_state "
+            f"{b.random_state}")
+
+    # -- eager and graph rates in turns (eager, graph, graph, eager) ------
+    k3 = {}
+    for label, make, start, kw, n_e, n_g in (
+            ("main path, store=False", main_path(roll()), p0,
+             dict(store=False), 500, 4000),
+            ("main path, host Backend", main_path(roll()), p0,
+             dict(thin_by=20), 50, 100),
+            ("main path, DeviceBackend", main_path(roll(), DeviceBackend),
+             p0, dict(thin_by=20), 50, 100),
+            ("workload 3, store=False, mixture_block=1", workload3(1), p03,
+             dict(store=False), 300, 2000),
+            ("workload 3, store=False, mixture_block=4", workload3(4), p03,
+             dict(store=False), 300, 2000)):
+        smps = {}
+        for graphs in (False, True):
+            smp = smps[graphs] = make()
+            smp._use_graphs = graphs
+            drive(smp, start, 4, skip_initial_state_check=True, **kw)
+        warm_graphs(smps[True])
+        rates = {False: [], True: []}
+        for graphs in (False, True, True, False):
+            smp = smps[graphs]
+            n = n_g if graphs else n_e
+            if kw.get("store", True):
+                smp.reset()
+            _, dt = drive(smp, None, n, **kw)
+            rates[graphs].append(n * kw.get("thin_by", 1) * smp.nwalkers
+                                 / dt)
+        ratio = sum(rates[True]) / sum(rates[False])
+        log(f"phase 9: {label}: walker-steps/s in turns eager "
+            f"{rates[False][0]:.4e}, graph {rates[True][0]:.4e}, graph "
+            f"{rates[True][1]:.4e}, eager {rates[False][1]:.4e}; graph / "
+            f"eager {ratio:.4f} {card}")
+        k3[label] = (rates, smps[True])
+
+    # -- K3's own times, on the main path's graphs -------------------------
+    prog = k3["main path, store=False"][1]._program
+    g_big, g_one = prog.graph(0, MAX_GRAPH, False), prog.graph(0, 1, False)
+    ms_big = cuda_ms(torch, g_big.replay, reps=30)
+    ms_one = cuda_ms(torch, g_one.replay, reps=200)
+    eager_ms = cuda_ms(torch, lambda: prog.program(prog.ws, 0, MAX_GRAPH,
+                                                   False), reps=3)
+
+    def host_us(graph, reps=100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            graph.replay()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    prog3 = k3["workload 3, store=False, mixture_block=1"][1]._program
+    host = {"main 1": host_us(g_one), f"main {MAX_GRAPH}": host_us(g_big),
+            "workload 3 1": host_us(prog3.graph(0, 1, False))}
+    log(f"phase 9: K3 replay of {MAX_GRAPH} main-path proposals "
+        f"{ms_big * 1e3:.2f} us ({ms_big / MAX_GRAPH * 1e3:.2f} us per "
+        f"proposal), of 1 proposal {ms_one * 1e3:.2f} us; the same "
+        f"{MAX_GRAPH} proposals eagerly {eager_ms * 1e3:.2f} us {card}")
+    log(f"phase 9: K3 host time per replay (enqueue, back to back): "
+        + ", ".join(f"{k} proposals {v:.2f} us" for k, v in host.items()))
+
+    # -- a log-prob that synchronizes with the host is refused ------------
+    def syncing(x):
+        lp = -0.5 * (x**2).sum(-1)
+        if bool(torch.isnan(lp).any()):  # a host sync
+            raise ValueError("NaN")
+        return lp
+
+    n_ref = min(1024, NW)
+    smp = EnsembleSampler(n_ref, ND, syncing, vectorize=True, seed=0,
+                          moves=roll(), device=dev)
+    try:
+        smp.run_mcmc(p0[:n_ref], 2, store=False)
+    except RuntimeError as exc:
+        msg = str(exc)
+        if "CUDA graph" not in msg or "synchronize" not in msg:
+            raise AssertionError(f"refusal without its cause: {msg}")
+    else:
+        raise AssertionError("a log-prob that synchronizes was not refused")
+    torch.cuda.synchronize()
+    if torch.cuda.current_stream() != torch.cuda.default_stream():
+        raise AssertionError("a failed recording left its stream current")
+    log(f"phase 9: a log-prob that synchronizes is refused: "
+        f"{msg.splitlines()[0][:300]}")
+
+    bound_ms = MAX_GRAPH * bytes_per_prop / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "chunk_graph", "route": "cuda",
+        "source": "emcee_tpu_torch/chunk_graph.py",
+        "replaces": "emcee_tpu/sampler.py:783", "launches": None,
+        "max_abs_err": err, "ms": ms_big, "plain_ms": eager_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "proposals_per_replay": MAX_GRAPH, "ms_one_proposal": ms_one,
+        "kernels_device_ms": MAX_GRAPH * busy_us_per_prop * 1e-3,
+        "host_us_per_replay": host,
+        "rates_in_turns": {k: v[0] for k, v in k3.items()},
+    }
 
 
 def main() -> int:
@@ -466,6 +760,7 @@ def main() -> int:
     from emcee_tpu_torch import EnsembleSampler, State, moves
     from emcee_tpu_torch.autocorr import integrated_time
     from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
     from emcee_tpu_torch.model import Model, wrap_log_prob_fn
     from emcee_tpu_torch.ops import _build
     from emcee_tpu_torch.ops import accept_kernel as ak
@@ -540,6 +835,9 @@ def main() -> int:
                        dict(seed=seed, offset=offset)):
                 q, f = sk.stretch_propose(coords, split, ns,
                                           pair_mode=pair_mode, **kw, **k1)
+                same_from_device_offset(
+                    torch, sk.stretch_propose, (coords, split, ns),
+                    dict(pair_mode=pair_mode, **kw, **k1), (q, f))
                 qp, fp = sk.stretch_propose_plain(
                     coords, split, ns, pair_mode=pair_mode, **kw, **k1)
                 e = max(max_err(q, qp), max_err(f, fp))
@@ -562,12 +860,23 @@ def main() -> int:
                             raise AssertionError(
                                 f"K2 {pair_mode} split {split}: kernel and "
                                 "plain disagree")
+                    if "offset" in k2kw:
+                        c, l = coords.clone(), lp.clone()
+                        acc = torch.zeros(NW, dtype=torch.bool, device=dev)
+                        cnt = torch.ones(NW, dtype=torch.int32, device=dev)
+                        same_from_device_offset(
+                            torch, lambda *a, **kw: (
+                                ak.accept_select(*a, **kw), c, l, acc, cnt),
+                            (qp, fp, lp_q, c, l, split, ns, acc, cnt), k2kw,
+                            (outs[0][2][split * ng:(split + 1) * ng],)
+                            + outs[0])
                     errs["accept_select"] = max(
                         errs["accept_select"],
                         *(float((a - b).abs().max())
                           for a, b in zip(outs[0][:2], outs[1][:2])))
         log(f"phase 2: K1/K2 {pair_mode}: partners identical; q/factor "
-            f"max abs err {errs['stretch_propose']:.3g}; K2 identical")
+            f"max abs err {errs['stretch_propose']:.3g}; K2 identical; "
+            f"device-offset draws identical")
 
     # One whole proposal, kernel path against plain path.
     model = Model(wrap_log_prob_fn(gaussian, vectorize=True), NW, ND)
@@ -589,32 +898,21 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 3. main path, store=False -----------------------------------------
+    # The counts are set to 0 just before the main path and read after it
+    # (phase 4): the wrappers count the launches of K3's recordings (and
+    # their eager warm-ups), K3 its replays.
     for _, fn in wrappers().values():
         fn.launches = 0
+    ChunkProgram.replays = 0
     mv = moves.StretchMove(randomize_split=False, pair_mode="roll")
     sampler = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=0,
                               moves=mv)
     p0 = np.random.default_rng(1).normal(size=(NW, ND)).astype(np.float32)
-
-    def launches():
-        return sk.stretch_propose.launches, ak.accept_select.launches
-
-    def run_checked(smp, state, n, **kw):
-        before = launches()
-        out = smp.run_mcmc(state, n, **kw)
-        n_prop = n * kw.get("thin_by", 1)
-        rose = tuple(b - a for a, b in zip(before, launches()))
-        if rose != (2 * n_prop, 2 * n_prop):
-            raise AssertionError(f"launches rose by {rose}, expected "
-                                 f"{2 * n_prop} each")
-        return out
-
-    st = run_checked(sampler, p0, 500, store=False,
-                     skip_initial_state_check=True)
+    st, _ = drive(sampler, p0, 500, store=False,
+                  skip_initial_state_check=True)
+    warm_graphs(sampler)
     n_main = 4000
-    t0 = time.perf_counter()
-    st = run_checked(sampler, None, n_main, store=False)
-    dt = time.perf_counter() - t0
+    st, dt = drive(sampler, None, n_main, store=False)
     mean_lp = float(st.log_prob.mean())
     acc = sampler.last_run_stats.acceptance_fraction.mean()
     if not -0.7 * ND < mean_lp < -0.3 * ND:
@@ -624,7 +922,8 @@ def main() -> int:
     ws = n_main * NW / dt
     log(f"phase 3: store=False {n_main} proposals x {NW} walkers in "
         f"{dt:.3f} s: {ws:.4e} walker-steps/s {card}; mean lp "
-        f"{mean_lp:.4f}, acceptance {acc:.4f}")
+        f"{mean_lp:.4f}, acceptance {acc:.4f}; graphs recorded "
+        f"{len(sampler._program.graphs)}")
     # -- 4. storage --------------------------------------------------------
     thin_by, kept = 20, 100
     stored = {}
@@ -632,18 +931,15 @@ def main() -> int:
                                                DeviceBackend())):
         smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=1,
                               moves=mv, backend=backend)
-        st = run_checked(smp, st, kept, thin_by=thin_by,
-                         skip_initial_state_check=True)
+        st, _ = drive(smp, st, kept, thin_by=thin_by,
+                      skip_initial_state_check=True)
+        warm_graphs(smp)
         smp.reset()
         # The same proposals unstored, just before, for the cost of storing.
-        t0 = time.perf_counter()
-        st = run_checked(smp, st, kept * thin_by, store=False,
-                         skip_initial_state_check=True)
-        dt_free = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        st = run_checked(smp, st, kept, thin_by=thin_by,
-                         skip_initial_state_check=True)  # as bench.py:203
-        dt_store = time.perf_counter() - t0
+        st, dt_free = drive(smp, st, kept * thin_by, store=False,
+                            skip_initial_state_check=True)
+        st, dt_store = drive(smp, st, kept, thin_by=thin_by,
+                             skip_initial_state_check=True)  # bench.py:203
         chain = smp.get_chain()
         if chain.shape != (kept, NW, ND) or not np.isfinite(chain).all():
             raise AssertionError(f"{label}: chain {chain.shape}")
@@ -670,36 +966,51 @@ def main() -> int:
             f"{dt_free / dt_store:.4f}")
     # The phase-3 sampler re-timed now: whether a slower stored phase is
     # the host drifting over the call or something of the new samplers.
-    t0 = time.perf_counter()
-    run_checked(sampler, None, kept * thin_by, store=False)
+    _, dt = drive(sampler, None, kept * thin_by, store=False)
     log(f"phase 4: the phase-3 sampler re-timed, unstored: "
-        f"{kept * thin_by * NW / (time.perf_counter() - t0):.4e} "
-        f"walker-steps/s {card}")
+        f"{kept * thin_by * NW / dt:.4e} walker-steps/s {card}")
 
     # Where the time goes: device time by kernel over a profiled window
-    # of the main path, and the device's idle share.  It comes after every
-    # timed run, so that no timed run follows the profiler.
-    n_prof = 200
+    # of the main path, the device's idle share, and each kernel's
+    # launches as the profiler counts them inside the replayed graphs.
+    # It comes after every timed run, so that no timed run follows the
+    # profiler.
+    n_prof = 1280  # twenty replays of the 64-proposal graph
+    r0 = ChunkProgram.replays
     wall, kernels = profile_window(
-        torch, lambda: run_checked(sampler, None, n_prof, store=False))
+        torch, lambda: drive(sampler, None, n_prof, store=False))
+    n_replays = ChunkProgram.replays - r0
     busy = sum(us for _, us in kernels.values()) * 1e-6
     dev_ms = {k: device_ms(kernels, k)
               for k in ("stretch_propose", "accept_select")}
-    if kernels:
-        log(f"phase 4: profiled {n_prof} proposals: wall {wall:.4f} s, "
-            f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f} "
-            f"{card}")
-        for key, (c, us) in sorted(kernels.items(),
-                                   key=lambda kv: -kv[1][1])[:8]:
-            log(f"  {us / c:9.2f} us x {c:6d}  {key[:90]}")
-    else:
-        log("phase 4: the profiler saw no device time; device time and "
-            "idle share not measured")
-    main_launches = launches()
+    counts = profiled_counts(kernels)
+    want = {"stretch_propose": 2 * n_prof, "accept_select": 2 * n_prof,
+            "de_propose": 0, "snooker_propose": 0}
+    if counts != want:
+        raise AssertionError(f"profiled launches {counts}, expected {want} "
+                             f"for {n_prof} proposals")
+    main_prof = dict(idle=1 - busy / wall, busy_us_per_prop=busy / n_prof
+                     * 1e6, host_us_per_replay=wall / n_replays * 1e6)
+    log(f"phase 4: profiled {n_prof} proposals ({n_replays} replays): wall "
+        f"{wall:.4f} s, device busy {busy:.4f} s, idle share "
+        f"{main_prof['idle']:.4f}, device {main_prof['busy_us_per_prop']:.2f}"
+        f" us per proposal {card}; profiled launches {counts} (exactly 2 x "
+        f"K1 and 2 x K2 per proposal)")
+    for key, (c, us) in sorted(kernels.items(),
+                               key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {us / c:9.2f} us x {c:6d}  {key[:90]}")
+    main_launches = launch_counts()
+    main_replays = ChunkProgram.replays
+    if not (main_launches["stretch_propose"] and main_launches[
+            "accept_select"] and main_replays):
+        raise AssertionError(f"main path launches {main_launches}, "
+                             f"replays {main_replays}")
+    log(f"phase 4: main path (phases 3-4): wrapper launches {main_launches} "
+        f"(recordings and their warm-ups), K3 replays {main_replays}")
 
     # -- 5. reference defaults at full width -------------------------------
     smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=2)
-    out = run_checked(smp, st, 20, store=False)
+    out, _ = drive(smp, st, 20, store=False)
     acc5 = smp.last_run_stats.acceptance_fraction.mean()
     if not (torch.isfinite(out.coords).all() and 0.2 < acc5 < 0.8):
         raise AssertionError(f"defaults run: acceptance {acc5}")
@@ -772,6 +1083,39 @@ def main() -> int:
                 q, f, lp_q, work[0], work[1], 0, ns, work[2], work[3],
                 **k2), reps=20)),
     }
+    # Each kernel's device time with its offset as a host int and as a
+    # device word plus an increment (as the graphs launch it), profiled
+    # side by side over eager launches of the same inputs.
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    def offset_cost(fn, args, kw, reps=100):
+        word = torch.tensor(kw["offset"] - 3, dtype=torch.int64, device=dev)
+        out = []
+        for off in (kw["offset"], DeviceOffset(word, 3)):
+            _, kernels = profile_window(torch, lambda: [
+                fn(*args, **{**kw, "offset": off}) for _ in range(reps)])
+            out.append(device_ms(kernels, fn.__name__))
+        return out
+
+    offset_ms = {
+        "stretch_propose": offset_cost(sk.stretch_propose,
+                                       (coords, 0, ns), k1),
+        "accept_select": offset_cost(
+            ak.accept_select,
+            (q, f, lp_q, work[0], work[1], 0, ns, work[2], work[3]), k2),
+        "accept_select_nd100": offset_cost(
+            ak.accept_select,
+            (q3, f3, lp_q3, work3[0], work3[1], 0, 2, work3[2], work3[3]),
+            k2),
+        "de_propose": offset_cost(dk.de_propose, (coords3, 0, 2), k5a),
+        "snooker_propose": offset_cost(snk.snooker_propose,
+                                       (coords3, 0, 2), k5b),
+    }
+    for kname, (ms_h, ms_d) in offset_ms.items():
+        log(f"phase 6: {kname}: device {ms_h * 1e3:.2f} us/launch with a "
+            f"host offset, {ms_d * 1e3:.2f} us with a device offset word "
+            f"(eager launches, profiled) {card}")
+
     # Least work each function must do: each input read once, each
     # output written once; integer and float operations counted at the
     # float32 rate.  K1 reads s and one partner row per walker and writes
@@ -826,10 +1170,12 @@ def main() -> int:
         return (max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
-    # K1 and K2 launches are the main path's (phases 3-4); K5a and K5b
-    # launches are workload 3's timed store=False run (phase 8).
-    launches_of = {"stretch_propose": main_launches[0],
-                   "accept_select": main_launches[1],
+    # K1 and K2 launches are the main path's (phases 3-4), K5a and K5b
+    # launches workload 3's (phase 8): the wrappers' counts, i.e. the
+    # launches recorded into K3's graphs and their eager warm-ups; the
+    # profiled windows count the replayed launches.
+    launches_of = {"stretch_propose": main_launches["stretch_propose"],
+                   "accept_select": main_launches["accept_select"],
                    "de_propose": w3["launches"]["de_propose"],
                    "snooker_propose": w3["launches"]["snooker_propose"]}
     rows = []
@@ -844,7 +1190,8 @@ def main() -> int:
             "replaces": meta[kname][1], "launches": launches_of[kname],
             "max_abs_err": errs[kname], "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": None, "ms_host_offset": offset_ms[kname][0],
+            "ms_device_offset": offset_ms[kname][1],
         }
         log(f"phase 6: {kname}: device {ms * 1e3:.2f} us/launch, "
             f"{call_ms * 1e3:.2f} us per back-to-back call, plain "
@@ -858,15 +1205,19 @@ def main() -> int:
             row.update(
                 launches_workload3=w3["launches"]["accept_select"],
                 ms_nd100=ms, call_ms_nd100=call_ms, plain_ms_nd100=plain_ms,
-                bound_ms_nd100=b_ms, bound_by_nd100=b_by)
+                bound_ms_nd100=b_ms, bound_by_nd100=b_by,
+                ms_host_offset_nd100=offset_ms["accept_select_nd100"][0],
+                ms_device_offset_nd100=offset_ms["accept_select_nd100"][1])
             log(f"phase 6: accept_select at ndim {ND3}: device "
                 f"{ms * 1e3:.2f} us/launch, {call_ms * 1e3:.2f} us per "
                 f"back-to-back call, plain {plain_ms * 1e3:.2f} us, bound "
                 f"{b_ms * 1e3:.3f} us ({nbytes} bytes, {b_by}) {card}")
         rows.append(row)
 
-    # The main path on the plain versions, for reference only.
+    # The main path on the plain versions, for reference only (eager: the
+    # plain versions are not recorded into graphs).
     smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=0, moves=mv)
+    smp._use_graphs = False
     with plain_kernels():
         smp.run_mcmc(p0, 20, store=False, skip_initial_state_check=True)
         n_plain = 200
@@ -878,6 +1229,7 @@ def main() -> int:
     # Workload 3 on the plain versions, for reference only.
     smp = EnsembleSampler(NW3, ND3, log_prob3, vectorize=True, seed=0,
                           moves=workload3_moves(moves))
+    smp._use_graphs = False
     with plain_kernels():
         smp.run_mcmc(w3["state"], 5, store=False,
                      skip_initial_state_check=True)
@@ -888,6 +1240,26 @@ def main() -> int:
     log(f"phase 6: plain-version workload 3 (reference only): "
         f"{n_plain3 * NW3 / dt_plain3:.4e} walker-steps/s {card}")
 
+    # -- 9. K3 -------------------------------------------------------------
+    # The bytes one main-path proposal must move: per split K1, the
+    # log-prob (read q, write lp) and K2 (at phase 6's acceptance).
+    lp_bytes = 4 * (ng * ND + ng)
+    per_prop = 2 * (bounds["stretch_propose"][0] + lp_bytes
+                    + bounds["accept_select"][0])
+    k3 = phase9(torch, np, dev, card, per_prop, main_prof["busy_us_per_prop"])
+    k3["launches"] = main_replays
+    k3["idle_share"] = {"main path": main_prof["idle"],
+                        "workload 3": w3["idle"]}
+    k3["host_us_per_replay_profiled"] = {
+        "main path": main_prof["host_us_per_replay"],
+        "workload 3": w3["host_us_per_replay"]}
+    rows.append(k3)
+    log(f"phase 9: K3: {k3['launches']} replays on the main path; replay "
+        f"of {k3['proposals_per_replay']} proposals {k3['ms'] * 1e3:.2f} "
+        f"us against its kernels' device time "
+        f"{k3['kernels_device_ms'] * 1e3:.2f} us and a byte bound of "
+        f"{k3['bound_ms'] * 1e3:.2f} us {card}")
+
     log(f"summary: main path {ws:.4e} walker-steps/s; stored "
         f"{stored['Backend'][0]:.4e} (Backend) / "
         f"{stored['DeviceBackend'][0]:.4e} (DeviceBackend) walker-steps/s; "
@@ -897,8 +1269,7 @@ def main() -> int:
     log(f"summary: workload 3 {w1a:.4e} / {w1b:.4e} walker-steps/s "
         f"(mixture_block=4: {w4a:.4e} / {w4b:.4e}; DeviceBackend stored "
         f"{w3['ws_stored']:.4e}), tau {w3['tau']:.2f} proposals, ESS/s "
-        f"{w3['ess']:.4e}, idle share "
-        f"{w3.get('idle', float('nan')):.4f} {card}")
+        f"{w3['ess']:.4e}, idle share {w3['idle']:.4f} {card}")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -41,8 +41,8 @@ __global__ void accept_select_kernel(
     const float* __restrict__ lp_q, float* __restrict__ coords,
     float* __restrict__ log_prob, bool* __restrict__ accepted,
     int32_t* __restrict__ count, const float* __restrict__ log_u, int ng,
-    int nd, int split, uint32_t k0, uint32_t k1, uint32_t off_lo,
-    uint32_t off_hi) {
+    int nd, int split, uint32_t k0, uint32_t k1,
+    const long long* __restrict__ offset_dev, unsigned long long offset_inc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ng) return;
 
@@ -50,10 +50,9 @@ __global__ void accept_select_kernel(
   if (log_u != nullptr) {
     lu = log_u[i];
   } else {
-    const uint4 w = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(split),
-                   off_lo, off_hi),
-        k0, k1);
+    const uint4 w = philox_at(static_cast<uint32_t>(i),
+                              static_cast<uint32_t>(split),
+                              philox_offset(offset_dev, offset_inc), k0, k1);
     lu = logf(philox_uniform(w.y));
   }
   const int64_t row = static_cast<int64_t>(split) * ng + i;
@@ -74,19 +73,20 @@ __global__ void accept_select_kernel(
 
 // Plain C entry point, bound with ctypes (ops/accept_kernel.py).  Every
 // pointer is a device pointer; log_u == nullptr selects the in-kernel
-// Philox stream; count == nullptr skips the acceptance count.  Returns
-// cudaGetLastError() after the launch.
+// Philox stream, at offset *offset_dev + offset (offset alone when
+// offset_dev is null); count == nullptr skips the acceptance count.
+// Returns cudaGetLastError() after the launch.
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
-    int nd, int split, unsigned long long seed, unsigned long long offset,
-    void* stream) {
+    int nd, int split, unsigned long long seed, const long long* offset_dev,
+    unsigned long long offset, void* stream) {
   const int blocks = (ng + kThreads - 1) / kThreads;
   accept_select_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       q, factor, lp_q, coords, log_prob, accepted,
       reinterpret_cast<int32_t*>(count), log_u, ng, nd, split,
       static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-      static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+      offset_dev, offset);
   return static_cast<int>(cudaGetLastError());
 }

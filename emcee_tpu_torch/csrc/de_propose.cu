@@ -12,8 +12,8 @@
 //   z        = Box-Muller of Philox words 0 and 2 at (i, split, offset)
 //                                                          [or injected]
 //   roll:    u1, u2 = Philox words 0, 1 at (ROLL_LANE, split, offset)
-//                     (drawn on the host, passed as the shifts s1, s2;
-//                      or injected as two uniforms)
+//                     (every thread draws the same block; or injected as
+//                      two uniforms)
 //            s1 = int(u1 nc) % nc, d = 1 + int(u2 (nc - 1)),
 //            s2 = (s1 + d) % nc
 //            a  = (i + s1) % nc, b = (i + s2) % nc
@@ -63,32 +63,39 @@ __global__ void de_propose_kernel(
     int pair_mode, float gamma0, const float* __restrict__ scale,
     float sigma, const float* __restrict__ z_in,
     const float* __restrict__ u_shift, const int* __restrict__ idx_a,
-    const int* __restrict__ idx_b, int s1, int s2, uint32_t k0,
-    uint32_t k1, uint32_t off_lo, uint32_t off_hi) {
+    const int* __restrict__ idx_b, uint32_t k0, uint32_t k1,
+    const long long* __restrict__ offset_dev, unsigned long long offset_inc) {
   const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= ng) return;  // uniform across the warp
 
   const uint32_t ui = static_cast<uint32_t>(i);
   const uint32_t us = static_cast<uint32_t>(split);
+  const uint64_t off = philox_offset(offset_dev, offset_inc);
   float z;
   if (z_in != nullptr) {
     z = z_in[i];
   } else {
-    const uint4 w = philox4x32_10(make_uint4(ui, us, off_lo, off_hi), k0, k1);
+    const uint4 w = philox_at(ui, us, off, k0, k1);
     z = philox_normal(w.x, w.z);
   }
 
   int a, b;
   if (pair_mode == 0) {
+    float u1, u2;
     if (u_shift != nullptr) {
-      s1 = static_cast<int>(__fmul_rn(u_shift[0], static_cast<float>(nc))) %
-           nc;
-      const int d =
-          1 + static_cast<int>(
-                  __fmul_rn(u_shift[1], static_cast<float>(nc - 1)));
-      s2 = (s1 + d) % nc;
+      u1 = u_shift[0];
+      u2 = u_shift[1];
+    } else {
+      const uint4 w = philox_at(EMCEE_ROLL_LANE, us, off, k0, k1);
+      u1 = philox_uniform(w.x);
+      u2 = philox_uniform(w.y);
     }
+    const int s1 =
+        static_cast<int>(__fmul_rn(u1, static_cast<float>(nc))) % nc;
+    const int d =
+        1 + static_cast<int>(__fmul_rn(u2, static_cast<float>(nc - 1)));
+    const int s2 = (s1 + d) % nc;
     a = (i + s1) % nc;
     b = (i + s2) % nc;
   } else {
@@ -96,8 +103,7 @@ __global__ void de_propose_kernel(
       a = idx_a[i];
       b = idx_b[i];
     } else {
-      const uint4 w = philox4x32_10(
-          make_uint4(ui, us | EMCEE_PAIR_BLOCK, off_lo, off_hi), k0, k1);
+      const uint4 w = philox_at(ui, us | EMCEE_PAIR_BLOCK, off, k0, k1);
       a = min(static_cast<int>(
                   __fmul_rn(philox_uniform(w.x), static_cast<float>(nc))),
               nc - 1);
@@ -145,24 +151,25 @@ __global__ void de_propose_kernel(
 
 // Plain C entry point, bound with ctypes (ops/de_kernel.py).  Every pointer
 // is a device pointer.  z == nullptr selects the in-kernel Philox normal;
-// in roll mode u_shift (two uniforms) overrides the host shifts s1, s2; in
-// random mode idx_a/idx_b (the raw picks, before b is moved past a)
+// in roll mode u_shift (two uniforms) overrides the in-kernel shift draw;
+// in random mode idx_a/idx_b (the raw picks, before b is moved past a)
 // override the in-kernel partner draw.  scale == nullptr means untuned.
+// The Philox offset is *offset_dev + offset (offset alone when offset_dev
+// is null).
 // vec4 != 0 promises ndim % 4 == 0 and 16-byte aligned coords and q.
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_de_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float gamma0, const float* scale,
     float sigma, const float* z, const float* u_shift, const int* idx_a,
-    const int* idx_b, int s1, int s2, int vec4, unsigned long long seed,
-    unsigned long long offset, void* stream) {
+    const int* idx_b, int vec4, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset, void* stream) {
   const int nc = (nsplits - 1) * ng;
   const int blocks = (ng + kWarpsPerBlock - 1) / kWarpsPerBlock;
   auto kernel = vec4 ? de_propose_kernel<true> : de_propose_kernel<false>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nc, pair_mode, gamma0, scale, sigma,
-      z, u_shift, idx_a, idx_b, s1, s2, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), static_cast<uint32_t>(offset),
-      static_cast<uint32_t>(offset >> 32));
+      z, u_shift, idx_a, idx_b, static_cast<uint32_t>(seed),
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
   return static_cast<int>(cudaGetLastError());
 }

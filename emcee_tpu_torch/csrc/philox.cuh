@@ -11,8 +11,14 @@
 // random-pair partner uniform.  Words 0 and 2 in a DE proposal: the
 // walker's Box-Muller normal.  Split word PAIR_BLOCK | split: the DE and
 // snooker random-pair picks (words 0-2) and snooker role permutation
-// (word 3).  walker_index = ROLL_LANE: the split's roll draws (the host
-// computes them on the main path; see ops/philox.py).
+// (word 3).  walker_index = ROLL_LANE: the split's roll draws, which
+// every thread of a kernel computes for itself (one Philox block).
+//
+// The offset is a device word plus an increment: a kernel recorded into a
+// CUDA graph reads the chain's proposal counter from device memory
+// (offset_dev, advanced by the graph itself) and adds the proposal's place
+// in the graph (offset), so every replay draws fresh numbers.  A null
+// offset_dev means the offset is the increment alone.
 #pragma once
 
 #include <cstdint>
@@ -35,6 +41,22 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
     c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
   }
   return c;
+}
+
+// The proposal offset: *offset_dev + inc, or inc when offset_dev is null.
+__device__ __forceinline__ uint64_t philox_offset(
+    const long long* __restrict__ offset_dev, unsigned long long inc) {
+  return (offset_dev != nullptr ? static_cast<uint64_t>(*offset_dev) : 0ull) +
+         inc;
+}
+
+// The four Philox words at counter (lane, split, offset).
+__device__ __forceinline__ uint4 philox_at(uint32_t lane, uint32_t split,
+                                           uint64_t offset, uint32_t k0,
+                                           uint32_t k1) {
+  return philox4x32_10(make_uint4(lane, split, static_cast<uint32_t>(offset),
+                                  static_cast<uint32_t>(offset >> 32)),
+                       k0, k1);
 }
 
 // 24 random bits as a float32 in [0, 1), exact (as jax.random.uniform).

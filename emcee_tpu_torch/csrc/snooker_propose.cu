@@ -8,13 +8,14 @@
 // Per walker i of split group `split` (ng walkers per group, groups the
 // contiguous row blocks of the ensemble buffer), three picks from the
 // other groups take the roles (z, z1, z2):
-//   roll:    four uniforms at (ROLL_LANE, split, offset), drawn on the host
-//            (or injected): u0 picks the role permutation (nsplits = 4
+//   roll:    four uniforms at (ROLL_LANE, split, offset), one Philox block
+//            that every thread draws (or injected): u0 picks the role
+//            permutation (nsplits = 4
 //            only; with nsplits = 2 the three picks come from shifts of the
 //            one complement and keep their order), u1..u3 the shifts
 //            sh_k = int(u_k ng) of pick k, which lies in group
 //            g_k = (k % (nsplits-1)) skipping `split`, row g_k ng +
-//            (i + sh_k) % ng.  The host passes each role's group and shift.
+//            (i + sh_k) % ng.
 //   random:  (nsplits = 4) Philox words 0..2 at (i, PAIR_BLOCK | split,
 //            offset) give idx_k = min(int(u_k ng), ng - 1) in group g_k,
 //            word 3 the walker's permutation min(int(u3 6), 5) [or
@@ -125,34 +126,40 @@ __global__ void snooker_propose_kernel(
     float* __restrict__ factor, int ng, int nd, int split, int nsplits,
     int pair_mode, float gammas, const float* __restrict__ scale,
     float ndim_m1, const float* __restrict__ u4,
-    const int* __restrict__ idx, const int* __restrict__ perm, int grp0,
-    int grp1, int grp2, int sh0, int sh1, int sh2, uint32_t k0, uint32_t k1,
-    uint32_t off_lo, uint32_t off_hi) {
+    const int* __restrict__ idx, const int* __restrict__ perm, uint32_t k0,
+    uint32_t k1, const long long* __restrict__ offset_dev,
+    unsigned long long offset_inc) {
   using T = typename Row<kVec4>::T;
   const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= ng) return;  // uniform across the warp
 
   // Ensemble rows of the roles z, z1, z2.
+  const uint64_t off = philox_offset(offset_dev, offset_inc);
   int64_t rows[3];
   if (pair_mode == 0) {
-    int grp[3] = {grp0, grp1, grp2};
-    int sh[3] = {sh0, sh1, sh2};
+    float u[4];
     if (u4 != nullptr) {
-      int order[3] = {0, 1, 2};
-      if (nsplits > 2) {
-        const int p = min(static_cast<int>(__fmul_rn(u4[0], 6.0f)), 5);
-        for (int r = 0; r < 3; ++r) order[r] = kPerms3[p][r];
-      }
-      for (int r = 0; r < 3; ++r) {
-        const int k = order[r];
-        grp[r] = pick_group(k, split, nsplits);
-        sh[r] = static_cast<int>(
-            __fmul_rn(u4[1 + k], static_cast<float>(ng)));
-      }
+      for (int k = 0; k < 4; ++k) u[k] = u4[k];
+    } else {
+      const uint4 w = philox_at(EMCEE_ROLL_LANE, static_cast<uint32_t>(split),
+                                off, k0, k1);
+      u[0] = philox_uniform(w.x);
+      u[1] = philox_uniform(w.y);
+      u[2] = philox_uniform(w.z);
+      u[3] = philox_uniform(w.w);
+    }
+    int order[3] = {0, 1, 2};
+    if (nsplits > 2) {
+      const int p = min(static_cast<int>(__fmul_rn(u[0], 6.0f)), 5);
+      for (int r = 0; r < 3; ++r) order[r] = kPerms3[p][r];
     }
     for (int r = 0; r < 3; ++r) {
-      rows[r] = static_cast<int64_t>(grp[r]) * ng + (i + sh[r]) % ng;
+      const int k = order[r];
+      const int sh =
+          static_cast<int>(__fmul_rn(u[1 + k], static_cast<float>(ng)));
+      rows[r] = static_cast<int64_t>(pick_group(k, split, nsplits)) * ng +
+                (i + sh) % ng;
     }
   } else {
     int pick[3], p;
@@ -160,11 +167,10 @@ __global__ void snooker_propose_kernel(
       for (int k = 0; k < 3; ++k) pick[k] = idx[k * ng + i];
       p = perm[i];
     } else {
-      const uint4 w = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(i),
-                     static_cast<uint32_t>(split) | EMCEE_PAIR_BLOCK, off_lo,
-                     off_hi),
-          k0, k1);
+      const uint4 w =
+          philox_at(static_cast<uint32_t>(i),
+                    static_cast<uint32_t>(split) | EMCEE_PAIR_BLOCK, off, k0,
+                    k1);
       const uint32_t wk[3] = {w.x, w.y, w.z};
       for (int k = 0; k < 3; ++k) {
         pick[k] = min(static_cast<int>(__fmul_rn(philox_uniform(wk[k]),
@@ -215,25 +221,25 @@ __global__ void snooker_propose_kernel(
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/snooker_kernel.py).  Every
-// pointer is a device pointer.  Roll mode: the host passes each role's
-// group (grp0..2) and shift (sh0..2), or u4 (four uniforms) overrides them.
-// Random mode: idx (3, ng) and perm (ng,) override the in-kernel Philox
-// picks.  scale == nullptr means untuned.  vec4 != 0 promises
+// pointer is a device pointer.  Roll mode: u4 (four uniforms) overrides
+// the in-kernel draw of the role permutation and shifts.  Random mode: idx
+// (3, ng) and perm (ng,) override the in-kernel Philox picks.  The Philox
+// offset is *offset_dev + offset (offset alone when offset_dev is null).
+// scale == nullptr means untuned.  vec4 != 0 promises
 // ndim % 4 == 0 and 16-byte aligned coords and q.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int emcee_snooker_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float gammas, const float* scale,
     float ndim_m1, const float* u4, const int* idx, const int* perm,
-    int grp0, int grp1, int grp2, int sh0, int sh1, int sh2, int vec4,
-    unsigned long long seed, unsigned long long offset, void* stream) {
+    int vec4, unsigned long long seed, const long long* offset_dev,
+    unsigned long long offset, void* stream) {
   const int blocks = (ng + kWarpsPerBlock - 1) / kWarpsPerBlock;
   auto kernel =
       vec4 ? snooker_propose_kernel<true> : snooker_propose_kernel<false>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nsplits, pair_mode, gammas, scale,
-      ndim_m1, u4, idx, perm, grp0, grp1, grp2, sh0, sh1, sh2,
-      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-      static_cast<uint32_t>(offset), static_cast<uint32_t>(offset >> 32));
+      ndim_m1, u4, idx, perm, static_cast<uint32_t>(seed),
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,8 @@ __global__ void stretch_propose_kernel(
     int pair_mode, float a, float am1, const float* __restrict__ scale,
     float ndim_m1, const float* __restrict__ u_z,
     const float* __restrict__ u_pair, const float* __restrict__ u_shift,
-    uint32_t k0, uint32_t k1, uint32_t off_lo, uint32_t off_hi) {
+    uint32_t k0, uint32_t k1, const long long* __restrict__ offset_dev,
+    unsigned long long offset_inc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ng) return;
 
@@ -62,17 +63,14 @@ __global__ void stretch_propose_kernel(
     up = pair_mode ? u_pair[i] : 0.0f;
     if (!pair_mode) us = *u_shift;
   } else {
-    const uint4 w = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(split),
-                   off_lo, off_hi),
-        k0, k1);
+    const uint64_t off = philox_offset(offset_dev, offset_inc);
+    const uint4 w = philox_at(static_cast<uint32_t>(i),
+                              static_cast<uint32_t>(split), off, k0, k1);
     uz = philox_uniform(w.x);
     up = philox_uniform(w.z);
     if (!pair_mode) {
-      const uint4 ws = philox4x32_10(
-          make_uint4(EMCEE_ROLL_LANE, static_cast<uint32_t>(split), off_lo,
-                     off_hi),
-          k0, k1);
+      const uint4 ws = philox_at(EMCEE_ROLL_LANE,
+                                 static_cast<uint32_t>(split), off, k0, k1);
       us = philox_uniform(ws.x);
     }
   }
@@ -112,21 +110,21 @@ __global__ void stretch_propose_kernel(
 // Plain C entry point, bound with ctypes (ops/stretch_kernel.py).  Every
 // pointer is a device pointer; u_z == nullptr selects the in-kernel
 // Philox stream, otherwise u_z (and u_pair for random mode, u_shift for
-// roll mode) are injected.  scale == nullptr means untuned.  Returns
-// cudaGetLastError() after the launch.
+// roll mode) are injected.  scale == nullptr means untuned.  The Philox
+// offset is *offset_dev + offset (offset alone when offset_dev is null).
+// Returns cudaGetLastError() after the launch.
 extern "C" int emcee_stretch_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float a, float am1, const float* scale,
     float ndim_m1, const float* u_z, const float* u_pair,
     const float* u_shift, unsigned long long seed,
-    unsigned long long offset, void* stream) {
+    const long long* offset_dev, unsigned long long offset, void* stream) {
   const int nc = (nsplits - 1) * ng;
   const int blocks = (ng + kThreads - 1) / kThreads;
   stretch_propose_kernel<<<blocks, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nc, pair_mode, a, am1, scale,
       ndim_m1, u_z, u_pair, u_shift, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), static_cast<uint32_t>(offset),
-      static_cast<uint32_t>(offset >> 32));
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@ The counterpart of ``emcee_tpu/driver.py``: ``shim_thin`` (``:32``),
 ``parse_moves`` (``:140``) and ``chunk_schedule`` (``:174-212``), plus
 the move choice of a weighted list, per proposal or per
 ``mixture_block`` block, drawn from the port's Philox stream on the host
-(no device work, no sync).
+(no device work, no sync), and :func:`chunk_replays`, which turns a
+chunk into the host-known runs of one move that the chunk program
+(``chunk_graph.py``) replays.
 """
 
 from __future__ import annotations
@@ -12,10 +14,13 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
-from .ops.philox import MOVE_BLOCK, MOVE_LANE, uniform_scalar
+from .ops.philox import (
+    MASK32, MOVE_BLOCK, MOVE_LANE, philox4x32, split_key, uniform_scalar)
 
-__all__ = ["choose_move", "chunk_schedule", "parse_moves", "shim_thin"]
+__all__ = ["choose_move", "chunk_replays", "chunk_schedule", "move_sequence",
+           "parse_moves", "shim_thin"]
 
 
 def shim_thin(n, thin):
@@ -64,12 +69,57 @@ def choose_move(weights, seed, offset, block=False):
     choice by the uniform at counter ``(MOVE_LANE, 0, offset)``.  With
     ``block``, the choice of a ``mixture_block`` block whose first
     proposal is ``offset``, from its own counter ``(MOVE_LANE,
-    MOVE_BLOCK, offset)``."""
+    MOVE_BLOCK, offset)``.  The scalar reference of :func:`move_sequence`,
+    which draws a whole chunk's choices at once."""
     if len(weights) == 1:
         return 0
     u = uniform_scalar(seed, MOVE_LANE, MOVE_BLOCK if block else 0, offset)
     idx = int(np.searchsorted(np.cumsum(weights), u, side="right"))
     return min(idx, len(weights) - 1)
+
+
+def _choose_moves(weights, seed, offsets, block):
+    """:func:`choose_move` for an array of offsets at once: the same
+    Philox words, uniforms and weighted choice, vectorized on the host."""
+    p = torch.as_tensor(np.asarray(offsets, dtype=np.int64))
+    w = philox4x32(MOVE_LANE, MOVE_BLOCK if block else 0, p & MASK32,
+                   (p >> 32) & MASK32, split_key(seed))[0]
+    u = (w >> 8).numpy().astype(np.float64) * 2.0**-24
+    idx = np.searchsorted(np.cumsum(weights), u, side="right")
+    return np.minimum(idx, len(weights) - 1)
+
+
+def move_sequence(weights, seed, offset, nkeep, thin_by, mixture_block=1):
+    """The move index of each of a chunk's ``nkeep * thin_by`` proposals,
+    the first at ``offset``, as :func:`choose_move` gives them: with
+    ``mixture_block`` > 1 and ``nkeep`` a multiple of it, one choice per
+    block of ``mixture_block`` kept steps (JAX ``sampler.py:829-878``);
+    otherwise one per proposal.  A numpy int array."""
+    n = nkeep * thin_by
+    if len(weights) == 1:
+        return np.zeros(n, dtype=np.int64)
+    blk = int(mixture_block)
+    if blk > 1 and nkeep % blk == 0:
+        per = blk * thin_by
+        starts = offset + np.arange(0, n, per, dtype=np.int64)
+        return np.repeat(_choose_moves(weights, seed, starts, True), per)
+    return _choose_moves(weights, seed,
+                         offset + np.arange(n, dtype=np.int64), False)
+
+
+def chunk_replays(seq, cut=None):
+    """Runs ``[(move, count), ...]`` of equal moves in ``seq``, each cut
+    where a multiple of ``cut`` proposals ends (a kept step, when the
+    chunk is stored), so that every run lies inside one kept step."""
+    seq = np.asarray(seq)
+    p = np.arange(len(seq))
+    new = np.ones(len(seq), dtype=bool)
+    new[1:] = seq[1:] != seq[:-1]
+    if cut is not None:
+        new |= p % cut == 0
+    starts = np.flatnonzero(new)
+    ends = np.append(starts[1:], len(seq))
+    return [(int(seq[a]), int(b - a)) for a, b in zip(starts, ends)]
 
 
 def _schedule_sizes(nsteps, max_chunk):

@@ -2,15 +2,18 @@
 
 The counterpart of ``emcee_tpu/moves/base.py:38-151``:
 
-* ``propose(rng, state, model, carry, acc_count=None) -> (state,
-  accepted, carry)``, where ``rng`` is the proposal's ``(seed, offset)``
-  (the JAX key's place) and ``accepted`` is a ``(nwalkers,)`` bool
-  tensor.  Red-blue moves update ``state``'s tensors in place and add
+* ``propose(rng, state, model, carry, acc_count=None, accepted=None)
+  -> (state, accepted, carry)``, where ``rng`` is the proposal's
+  ``(seed, offset)`` (the JAX key's place; ``offset`` an int or a
+  :class:`~..ops.philox.DeviceOffset`) and ``accepted`` is a
+  ``(nwalkers,)`` bool tensor, written into the given buffer when there
+  is one.  Red-blue moves update ``state``'s tensors in place and add
   the acceptance to ``acc_count`` when it is given;
 * per-move adaptive state lives in ``carry``, a small dict of 0-d
-  tensors made by ``init_carry`` and threaded through the run loop, so
-  tuning never needs a host sync;
-* ``tune(carry, state, accepted, model=None) -> carry``.
+  tensors made by ``init_carry``, so tuning never needs a host sync;
+* ``tune(carry, state, accepted, model=None) -> carry`` updates the
+  carry's tensors in place (and returns it), so a proposal recorded into
+  a CUDA graph reads and writes the same carry at every replay.
 """
 
 from __future__ import annotations
@@ -29,15 +32,14 @@ __all__ = [
 
 
 def robbins_monro_step(carry, err, rate):
-    """One Robbins-Monro update of the ``{log_adj, t}`` carry: nudge
-    ``log_adj`` by ``err`` with a ``rate / sqrt(1 + t)`` step."""
+    """One Robbins-Monro update of the ``{log_adj, t}`` carry, in place:
+    nudge ``log_adj`` by ``err`` with a ``rate / sqrt(1 + t)`` step."""
     t = carry["t"]
     lr = rate / torch.sqrt(1.0 + t.to(torch.float32))
-    return {
-        **carry,
-        "log_adj": torch.clamp(carry["log_adj"] + lr * err, -10.0, 10.0),
-        "t": t + 1,
-    }
+    carry["log_adj"].copy_(
+        torch.clamp(carry["log_adj"] + lr * err, -10.0, 10.0))
+    t.add_(1)
+    return carry
 
 
 def robbins_monro_tune(carry, accepted, target, rate, model=None):
@@ -91,8 +93,8 @@ class Move:
         """Per-move carried state (default: none)."""
         return ()
 
-    def propose(self, rng, state, model, carry,
-                acc_count=None) -> Tuple[Any, torch.Tensor, Any]:
+    def propose(self, rng, state, model, carry, acc_count=None,
+                accepted=None) -> Tuple[Any, torch.Tensor, Any]:
         raise NotImplementedError
 
     def tune(self, carry, state, accepted, model=None) -> Any:

@@ -12,10 +12,12 @@ into the ensemble buffer).
   its rows in place.  No gather, no scatter, no sort.
 * ``randomize_split=True`` (shuffled, the reference default): group
   membership is a permutation drawn from the ``(seed, offset)`` stream
-  (a stable argsort of Philox word 3, so the CPU and the card draw the
-  same one); the ensemble is gathered into contiguous buffers in group
-  order, the blocked engine runs on them, and the rows are scattered
-  back.  Group j is ``perm[j::nsplits]``, as in the JAX package.
+  (a stable argsort of Philox word 3, computed on the walkers' device
+  from the offset, which may be a device word, so the CPU and the card
+  draw the same one and nothing waits for the host); the ensemble is
+  gathered into contiguous buffers in group order, the blocked engine
+  runs on them, and the rows are scattered back.  Group j is
+  ``perm[j::nsplits]``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -77,7 +79,8 @@ class RedBlueMove(ScaleTunable, Move):
             "The proposal must be implemented by subclasses"
         )
 
-    def propose(self, rng, state, model, carry, acc_count=None):
+    def propose(self, rng, state, model, carry, acc_count=None,
+                accepted=None):
         nwalkers, ndim = state.coords.shape
         nglobal = model.nwalkers or nwalkers
         if nglobal < 2 * model.global_ndim(ndim) and not self.live_dangerously:
@@ -94,10 +97,11 @@ class RedBlueMove(ScaleTunable, Move):
         scale = self._tuned_scale(carry, state.coords.dtype)
         if self.randomize_split:
             return self._propose_shuffled(
-                rng, state, model, carry, ng, scale, acc_count
+                rng, state, model, carry, ng, scale, acc_count, accepted
             )
         return self._propose_blocked(
-            rng, state, model, carry, ng, scale, acc_count
+            rng, state, model, carry, ng, scale, acc_count,
+            accepted=accepted,
         )
 
     def _inner(self, rng, coords, log_prob, split, model, accepted,
@@ -116,14 +120,17 @@ class RedBlueMove(ScaleTunable, Move):
         )
 
     def _propose_blocked(self, rng, state, model, carry, ng, scale=None,
-                         acc_count=None, log_acc_u=None, extra_u=None):
+                         acc_count=None, log_acc_u=None, extra_u=None,
+                         accepted=None):
         """Fixed contiguous-block membership; ``log_acc_u``
         ``(nsplits, ng)`` and ``extra_u`` ``(nsplits, n_extra)`` inject
-        the uniforms (parity mode), as in the JAX package."""
-        accepted = torch.empty(
-            state.coords.shape[0], dtype=torch.bool,
-            device=state.coords.device,
-        )
+        the uniforms (parity mode), as in the JAX package.  ``accepted``:
+        the ``(nwalkers,)`` bool buffer K2 writes (a new one if None)."""
+        if accepted is None:
+            accepted = torch.empty(
+                state.coords.shape[0], dtype=torch.bool,
+                device=state.coords.device,
+            )
         for split in range(self.nsplits):
             self._inner(
                 rng, state.coords, state.log_prob, split, model, accepted,
@@ -135,7 +142,7 @@ class RedBlueMove(ScaleTunable, Move):
         return state, accepted, carry
 
     def _propose_shuffled(self, rng, state, model, carry, ng, scale=None,
-                          acc_count=None):
+                          acc_count=None, accepted=None):
         """Random membership: gather into group order, run the blocked
         engine, scatter back."""
         coords, log_prob = state.coords, state.log_prob
@@ -154,5 +161,7 @@ class RedBlueMove(ScaleTunable, Move):
         log_prob.index_copy_(0, order, buf.log_prob)
         if acc_count is not None:
             acc_count.index_copy_(0, order, count)
-        accepted = torch.empty_like(acc_buf).index_copy_(0, order, acc_buf)
+        if accepted is None:
+            accepted = torch.empty_like(acc_buf)
+        accepted.index_copy_(0, order, acc_buf)
         return state, accepted, carry

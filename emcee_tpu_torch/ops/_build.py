@@ -52,13 +52,13 @@ _ARGTYPES = {
         ctypes.c_float, ctypes.c_float, _P,  # a, a - 1, scale
         ctypes.c_float,  # ndim_global - 1
         _P, _P, _P,  # u_z, u_pair, u_shift
-        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
     "accept_select": [
         _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
-        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
     "de_propose": [
@@ -67,8 +67,8 @@ _ARGTYPES = {
         ctypes.c_int,  # pair_mode
         ctypes.c_float, _P, ctypes.c_float,  # gamma0, scale, sigma
         _P, _P, _P, _P,  # z, u_shift, idx_a, idx_b
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s1, s2, vec4
-        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        ctypes.c_int,  # vec4
+        ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
     "snooker_propose": [
@@ -77,10 +77,8 @@ _ARGTYPES = {
         ctypes.c_int,  # pair_mode
         ctypes.c_float, _P, ctypes.c_float,  # gammas, scale, ndim_global - 1
         _P, _P, _P,  # u4, idx, perm
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # role groups
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # role shifts
         ctypes.c_int,  # vec4
-        ctypes.c_ulonglong, ctypes.c_ulonglong,  # seed, offset
+        ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
 }

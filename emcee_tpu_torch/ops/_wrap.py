@@ -1,14 +1,21 @@
 """What every kernel wrapper shares: its argument checks, the complement
-row map, and the launch on the current stream.
+row map, the Philox key and offset arguments, and the launch on the
+current stream.
 
 A wrapper checks device, type, shape and contiguity before it launches,
 and raises on what its kernel does not take; the launch returns the C
 entry point's ``cudaGetLastError()``, and a refused launch raises here.
+The checks run on the host when a wrapper is called: once per recording
+when the call is recorded into a CUDA graph, never per replay.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .philox import DeviceOffset
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
 
 #: pair mode name -> the kernels' code for it
 PAIR_MODES = {"roll": 0, "random": 1}
@@ -71,6 +78,19 @@ def complement_rows(r, split, ng):
     """Complement index -> ensemble row: skip block ``split``'s rows, as
     the kernels do in place (``r + (r >= split*ng)*ng``)."""
     return torch.where(r >= split * ng, r + ng, r)
+
+
+def rng_args(seed, offset, device):
+    """The kernels' last three arguments before the stream: the 64-bit
+    seed, the device offset word's pointer (None for an int offset) and
+    the increment added to it."""
+    if isinstance(offset, DeviceOffset):
+        w = offset.word
+        if w.device != device or w.dtype != torch.int64 or w.dim() != 0:
+            raise ValueError(f"the offset word must be a 0-d int64 tensor "
+                             f"on {device}")
+        return int(seed) & _MASK64, w.data_ptr(), int(offset.inc) & _MASK64
+    return int(seed) & _MASK64, None, int(offset) & _MASK64
 
 
 def launch(name, device, *args):

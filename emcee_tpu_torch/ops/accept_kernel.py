@@ -12,9 +12,10 @@ of the ensemble per split.  ``accepted`` ``(nwalkers,)`` bool receives
 the block's acceptance, and the optional int32 ``count`` ``(nwalkers,)``
 adds it, so acceptance accumulates on the device.
 
-The accept uniform is Philox word 1 at ``(walker, split, offset)``, or
-the injected ``log_u`` (ng,) (the parity mode: ``RedBlueMove._inner``'s
-``log_u`` argument in the JAX package).
+The accept uniform is Philox word 1 at ``(walker, split, offset)``
+(``offset`` an int or a ``DeviceOffset``), or the injected ``log_u``
+(ng,) (the parity mode: ``RedBlueMove._inner``'s ``log_u`` argument in
+the JAX package).
 
 :func:`accept_select` launches the kernel for CUDA tensors and uses
 :func:`accept_select_plain` for CPU tensors; it never falls back from one
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ._wrap import check_f32, check_rows, launch, ptr
+from ._wrap import check_f32, check_rows, launch, ptr, rng_args
 from .philox import to_uniform, walker_words
 
 __all__ = ["accept_select", "accept_select_plain"]
@@ -84,8 +85,7 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
-        ptr(count), ptr(log_u), ng, nd, split,
-        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+        ptr(count), ptr(log_u), ng, nd, split, *rng_args(seed, offset, dev),
     )
     accept_select.launches += 1
     return accepted[split * ng:(split + 1) * ng]

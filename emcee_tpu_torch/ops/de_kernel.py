@@ -12,7 +12,9 @@ complement of block ``split`` is every other row, in row order (the
 order of ``jnp.concatenate(c_parts)``), read in place.
 
 Randomness comes from the Philox stream at ``(seed, offset)`` (see
-``ops/philox.py``), or is injected (the parity mode):
+``ops/philox.py``; ``offset`` is an int or a ``DeviceOffset``, and the
+roll shifts come from the split's ``ROLL_LANE`` counter, drawn by the
+kernel itself), or is injected (the parity mode):
 
 * ``z`` ``(ng,)``: the walkers' standard normals (JAX: the first ``ng``
   of ``jax.random.normal(key, (ng + 2,))`` in roll mode, the
@@ -34,10 +36,9 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows,
-    complement_rows, launch, ptr, vec4_ok)
+    complement_rows, launch, ptr, rng_args, vec4_ok)
 from .philox import (
-    PAIR_BLOCK, ROLL_LANE, box_muller, to_uniform, uniforms_scalar,
-    walker_words)
+    PAIR_BLOCK, box_muller, roll_uniforms, to_uniform, walker_words)
 
 __all__ = ["de_gamma0", "de_propose", "de_propose_plain", "de_roll_shifts"]
 
@@ -52,10 +53,13 @@ def de_gamma0(gamma0, ndim_global):
 
 
 def de_roll_shifts(u1, u2, nc):
-    """The two distinct roll shifts ``(s1, s2)`` from two uniforms, in
-    float32 arithmetic as the kernel and ``de.py:65-67`` compute them."""
-    s1 = int(np.float32(u1) * np.float32(nc)) % nc
-    d = 1 + int(np.float32(u2) * np.float32(nc - 1))
+    """The two distinct roll shifts ``(s1, s2)``, 0-d int64 tensors, from
+    two uniforms (float32 tensors or numbers), in float32 arithmetic as
+    the kernel and ``de.py:65-67`` compute them."""
+    u1 = torch.as_tensor(u1, dtype=torch.float32)
+    u2 = torch.as_tensor(u2, dtype=torch.float32, device=u1.device)
+    s1 = (u1 * nc).to(torch.int64) % nc
+    d = 1 + (u2 * (nc - 1)).to(torch.int64)
     return s1, (s1 + d) % nc
 
 
@@ -75,10 +79,8 @@ def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
     lanes = torch.arange(ng, device=dev)
     if pair_mode == "roll":
         if u_shift is None:
-            u1, u2 = uniforms_scalar(seed, ROLL_LANE, split, offset)[:2]
-        else:
-            u1, u2 = (float(u) for u in u_shift)
-        s1, s2 = de_roll_shifts(u1, u2, nc)
+            u_shift = roll_uniforms(seed, split, offset, dev)
+        s1, s2 = de_roll_shifts(u_shift[0], u_shift[1], nc)
         a, b = (lanes + s1) % nc, (lanes + s2) % nc
     else:
         if idx_a is None:
@@ -114,18 +116,12 @@ def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
     if coords.device.type != "cuda":
         raise ValueError(f"no K5a kernel for device {coords.device}")
     check_pair_mode(pair_mode)
-    nw, nd, ng = check_rows(coords, split, nsplits)
-    nc = nw - ng
+    _, nd, ng = check_rows(coords, split, nsplits)
     dev = coords.device
     check_f32("scale", scale, dev, ())
     check_f32("z", z, dev, (ng,))
-    s1 = s2 = 0
     if pair_mode == "roll":
-        if u_shift is not None:
-            check_f32("u_shift", u_shift, dev, (2,))
-        else:
-            u1, u2 = uniforms_scalar(seed, ROLL_LANE, split, offset)[:2]
-            s1, s2 = de_roll_shifts(u1, u2, nc)
+        check_f32("u_shift", u_shift, dev, (2,))
     elif (idx_a is None) != (idx_b is None):
         raise ValueError("inject both idx_a and idx_b, or neither")
     elif idx_a is not None:
@@ -140,8 +136,8 @@ def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
         ng, nd, split, nsplits, PAIR_MODES[pair_mode],
         float(gamma0), ptr(scale), float(sigma), ptr(z),
         ptr(u_shift if roll else None), ptr(None if roll else idx_a),
-        ptr(None if roll else idx_b), s1, s2, int(vec4_ok(nd, coords, q)),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+        ptr(None if roll else idx_b), int(vec4_ok(nd, coords, q)),
+        *rng_args(seed, offset, dev),
     )
     de_propose.launches += 1
     return q, factor

@@ -13,7 +13,11 @@ Stream layout (shared with the kernels):
 * counter: ``(walker_index, split, offset_lo, offset_hi)``, where
   ``walker_index`` is the walker's row inside its split group and
   ``offset`` is the proposal number of the chain (advanced by one per
-  proposal on the host);
+  proposal).  An offset is a Python int, or a :class:`DeviceOffset`: a
+  0-d int64 device word plus an increment, which is how a proposal
+  recorded into a CUDA graph reads the chain's counter (the graph
+  advances the word, so every replay draws fresh numbers); both give the
+  same words for the same value;
 * word 0: the stretch ``z`` uniform; word 1: the accept uniform;
   word 2: the random-pair partner uniform; word 3 at split slot
   ``nsplits``: the sort key of the shuffled split's permutation;
@@ -24,12 +28,15 @@ Stream layout (shared with the kernels):
   partner uniforms of the DE and snooker moves, words 0 and 1 (DE's two
   complement picks) or 0, 1, 2 (the snooker's three picks) and 3 (the
   snooker's role permutation);
-* counter ``(ROLL_LANE, split, ...)``: the split's roll draws, computed
-  on the host: word 0 the stretch shift; words 0 and 1 DE's two shifts;
-  words 0-3 the snooker's role permutation and three shifts;
+* counter ``(ROLL_LANE, split, ...)``: the split's roll draws, which the
+  kernels compute in every thread and the plain versions as 0-d tensors
+  (:func:`roll_uniforms`): word 0 the stretch shift; words 0 and 1 DE's
+  two shifts; words 0-3 the snooker's role permutation and three shifts;
 * counter ``(MOVE_LANE, 0, ...)``, word 0: the weighted-move choice of a
   proposal; ``(MOVE_LANE, 1, ...)``, word 0: the choice of a
-  ``mixture_block`` block, at the offset of the block's first proposal.
+  ``mixture_block`` block, at the offset of the block's first proposal;
+  both are computed on the host (:func:`uniform_scalar`), so a chunk's
+  move sequence is known before it runs.
 
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
@@ -37,10 +44,13 @@ exact in float32, as ``jax.random.uniform`` draws them.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 __all__ = [
+    "DeviceOffset",
     "MASK32",
     "ROLL_LANE",
     "MOVE_LANE",
@@ -51,6 +61,7 @@ __all__ = [
     "philox4x32_scalar",
     "philox4x32_torch",
     "roll_shift",
+    "roll_uniforms",
     "split_key",
     "split_offset",
     "to_uniform",
@@ -74,14 +85,28 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _ROUNDS = 10
 
 
+class DeviceOffset(NamedTuple):
+    """The offset ``word + inc``: ``word`` is a 0-d int64 tensor on the
+    walkers' device (the chain's proposal counter), ``inc`` a Python int
+    fixed when the work is recorded."""
+
+    word: torch.Tensor
+    inc: int = 0
+
+
 def split_key(seed: int):
     """The two 32-bit key words of a 64-bit seed."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     return seed & MASK32, seed >> 32
 
 
-def split_offset(offset: int):
-    """The two 32-bit counter words of a 64-bit proposal offset."""
+def split_offset(offset):
+    """The two 32-bit counter words of a 64-bit proposal offset: Python
+    ints, or 0-d int64 tensors for a :class:`DeviceOffset` (computed on
+    its device, no sync)."""
+    if isinstance(offset, DeviceOffset):
+        v = offset.word + offset.inc
+        return v & MASK32, (v >> 32) & MASK32
     offset = int(offset) & 0xFFFFFFFFFFFFFFFF
     return offset & MASK32, offset >> 32
 
@@ -115,11 +140,22 @@ def uniform_scalar(seed, lane, split, offset, word=0):
     return uniforms_scalar(seed, lane, split, offset)[word]
 
 
-def roll_shift(seed, split, offset, nc):
-    """The roll partner shift of one split: ``int(u * nc)`` in float32
-    arithmetic, as the kernel and ``moves/stretch.py:74`` compute it."""
-    u = np.float32(uniform_scalar(seed, ROLL_LANE, split, offset))
-    return int(u * np.float32(nc))
+def roll_uniforms(seed, split, offset, device):
+    """The four uniforms at counter ``(ROLL_LANE, split, offset)`` as a
+    ``(4,)`` float32 tensor on ``device``: the split's roll draws, as the
+    kernels compute them."""
+    lane = torch.full((), ROLL_LANE, dtype=torch.int64, device=device)
+    lo, hi = split_offset(offset)
+    return to_uniform(torch.stack(philox4x32(lane, split, lo, hi,
+                                             split_key(seed))))
+
+
+def roll_shift(seed, split, offset, nc, device="cpu"):
+    """The roll partner shift of one split, a 0-d int64 tensor:
+    ``int(u * nc)`` in float32 arithmetic, as the kernel and
+    ``moves/stretch.py:74`` compute it."""
+    u = roll_uniforms(seed, split, offset, device)[0]
+    return (u * nc).to(torch.int64)
 
 
 def _mulhilo(m, b):
@@ -154,10 +190,13 @@ def philox4x32_torch(c0, c1, c2, c3, key):
     mul = torch.stack((c0, c2))
     out = torch.stack((c1, c3))
     lead = (2,) + (1,) * (mul.dim() - 1)
-    m = torch.tensor((_M0, _M1), dtype=torch.int64, device=mul.device)
-    keys = torch.tensor(list(_round_keys(key)), dtype=torch.int64,
-                        device=mul.device)
-    m = m.view(lead)
+    # The constants are made on the device by arithmetic, not copied from
+    # the host, so the rounds can be recorded into a CUDA graph.
+    lane = torch.arange(2, dtype=torch.int64, device=mul.device)
+    m = (_M0 + (_M1 - _M0) * lane).view(lead)
+    k0, k1 = (int(w) & MASK32 for w in key)
+    r = torch.arange(_ROUNDS, dtype=torch.int64, device=mul.device)
+    keys = torch.stack(((k0 + _W0 * r) & MASK32, (k1 + _W1 * r) & MASK32), 1)
     for r in range(_ROUNDS):
         hi, lo = _mulhilo(m, mul)
         # c0' = hi(M1 c2) ^ c1 ^ k0, c2' = hi(M0 c0) ^ c3 ^ k1,
@@ -170,23 +209,28 @@ def philox4x32(c0, c1, c2, c3, key):
     """Plain Philox4x32-10, elementwise over broadcast counters.
 
     Each counter word is an int64 tensor (or Python int) holding a value
-    in ``[0, 2**32)``; ``key`` is a pair of Python ints.  Returns the four
-    output words as int64 tensors of the broadcast shape, on the
-    tensors' device, from :func:`philox4x32_torch`, which is held
-    against :func:`philox4x32_scalar`.
+    in ``[0, 2**32)``; at least one is a tensor.  ``key`` is a pair of
+    Python ints.  Returns the four output words as int64 tensors of the
+    broadcast shape, on the tensors' device, from
+    :func:`philox4x32_torch`, which is held against
+    :func:`philox4x32_scalar`.  A Python int becomes a device fill, never
+    a host-to-device copy.
     """
-    ref = next(c for c in (c0, c1, c2, c3) if isinstance(c, torch.Tensor))
-    words = torch.broadcast_tensors(
-        *(
-            torch.as_tensor(c, dtype=torch.int64, device=ref.device)
-            for c in (c0, c1, c2, c3)
-        )
-    )
+    tensors = [c for c in (c0, c1, c2, c3) if isinstance(c, torch.Tensor)]
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    dev = tensors[0].device
+    words = [
+        c.to(torch.int64).expand(shape) if isinstance(c, torch.Tensor)
+        else torch.full(shape, int(c) & MASK32, dtype=torch.int64,
+                        device=dev)
+        for c in (c0, c1, c2, c3)
+    ]
     return philox4x32_torch(*words, key)
 
 
 def walker_words(n, split, seed, offset, device):
-    """The four Philox words of walker lanes ``0..n-1`` at ``split``."""
+    """The four Philox words of walker lanes ``0..n-1`` at ``split``;
+    ``offset`` is an int or a :class:`DeviceOffset`."""
     lo, hi = split_offset(offset)
     lanes = torch.arange(n, dtype=torch.int64, device=device)
     return philox4x32(lanes, split, lo, hi, split_key(seed))

@@ -12,7 +12,9 @@ Per walker, three picks from the other split groups take the roles
 contiguous row blocks of the ensemble buffer, read in place.
 
 Randomness comes from the Philox stream at ``(seed, offset)`` (see
-``ops/philox.py``), or is injected (the parity mode):
+``ops/philox.py``; ``offset`` is an int or a ``DeviceOffset``, and the
+roll picks come from the split's ``ROLL_LANE`` counter, drawn by the
+kernel itself), or is injected (the parity mode):
 
 * roll mode: ``u4`` ``(4,)``, the role-permutation uniform and the three
   shift uniforms (the JAX package's ``extra`` layout, ``de_snooker.py:81``);
@@ -34,9 +36,8 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows, launch,
-    ptr, vec4_ok)
-from .philox import (
-    PAIR_BLOCK, ROLL_LANE, to_uniform, uniforms_scalar, walker_words)
+    ptr, rng_args, vec4_ok)
+from .philox import PAIR_BLOCK, roll_uniforms, to_uniform, walker_words
 
 __all__ = ["PERMS3", "role_rows", "roll_picks", "snooker_propose",
            "snooker_propose_plain"]
@@ -53,16 +54,18 @@ def _pick_group(k, split, nsplits):
 
 
 def roll_picks(u4, split, nsplits, ng):
-    """``[(group, shift)]`` of the roles ``(z, z1, z2)`` from the four roll
-    uniforms, in float32 arithmetic as the kernel and
+    """``(groups, shifts)``, two ``(3,)`` int64 tensors, of the roles
+    ``(z, z1, z2)`` from the four roll uniforms (a float32 tensor or
+    numbers), in float32 arithmetic as the kernel and
     ``de_snooker.py:84-98`` compute them.  With ``nsplits=2`` the three
     picks keep their order (no role shuffle, ``:89-94``)."""
-    picks = [(_pick_group(k, split, nsplits),
-              int(np.float32(u4[1 + k]) * np.float32(ng))) for k in range(3)]
-    if nsplits == 2:
-        return picks
-    p = min(int(np.float32(u4[0]) * np.float32(6)), 5)
-    return [picks[k] for k in PERMS3[p]]
+    u4 = torch.as_tensor(u4, dtype=torch.float32)
+    k = torch.arange(3, device=u4.device)
+    if nsplits > 2:
+        p = torch.clamp((u4[0] * 6).to(torch.int64), max=5)
+        k = torch.tensor(PERMS3, device=u4.device)[p]
+    g = k % (nsplits - 1)
+    return g + (g >= split).to(torch.int64), (u4[1 + k] * ng).to(torch.int64)
 
 
 def role_rows(ng, split, nsplits, pair_mode, device, seed=0, offset=0,
@@ -72,11 +75,9 @@ def role_rows(ng, split, nsplits, pair_mode, device, seed=0, offset=0,
     lanes = torch.arange(ng, device=device)
     if pair_mode == "roll":
         if u4 is None:
-            u4 = uniforms_scalar(seed, ROLL_LANE, split, offset)
-        else:
-            u4 = [float(u) for u in u4]
-        return [g * ng + (lanes + sh) % ng
-                for g, sh in roll_picks(u4, split, nsplits, ng)]
+            u4 = roll_uniforms(seed, split, offset, device)
+        groups, shifts = roll_picks(u4, split, nsplits, ng)
+        return [groups[r] * ng + (lanes + shifts[r]) % ng for r in range(3)]
     if idx is None:
         w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
         idx = [torch.clamp((to_uniform(w[k]) * ng).to(torch.int64),
@@ -131,13 +132,8 @@ def snooker_propose(coords, split, nsplits, *, gammas, scale=None,
         raise ValueError("K5b needs nsplits=4 (or 2 in roll mode)")
     dev = coords.device
     check_f32("scale", scale, dev, ())
-    picks = [(0, 0)] * 3
     if pair_mode == "roll":
-        if u4 is not None:
-            check_f32("u4", u4, dev, (4,))
-        else:
-            picks = roll_picks(uniforms_scalar(seed, ROLL_LANE, split, offset),
-                               split, nsplits, ng)
+        check_f32("u4", u4, dev, (4,))
     elif (idx is None) != (perm is None):
         raise ValueError("inject both idx and perm, or neither")
     elif idx is not None:
@@ -152,10 +148,8 @@ def snooker_propose(coords, split, nsplits, *, gammas, scale=None,
         ng, nd, split, nsplits, PAIR_MODES[pair_mode],
         float(gammas), ptr(scale), float(ndim_global - 1.0),
         ptr(u4 if roll else None), ptr(None if roll else idx),
-        ptr(None if roll else perm),
-        *(g for g, _ in picks), *(sh for _, sh in picks),
-        int(vec4_ok(nd, coords, q)),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+        ptr(None if roll else perm), int(vec4_ok(nd, coords, q)),
+        *rng_args(seed, offset, dev),
     )
     snooker_propose.launches += 1
     return q, factor

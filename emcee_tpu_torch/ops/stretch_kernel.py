@@ -12,7 +12,8 @@ row, in row order, which is the order of ``jnp.concatenate(c_parts)``
 in the JAX package.
 
 Uniforms come from the Philox stream at ``(seed, offset)`` (see
-``ops/philox.py``), or are injected: ``u_z`` (ng,), and ``u_shift`` (0-d)
+``ops/philox.py``; ``offset`` is an int or a ``DeviceOffset``), or are
+injected: ``u_z`` (ng,), and ``u_shift`` (0-d)
 for roll pairs or ``u_pair`` (ng,) for random pairs.  Injection is the
 parity mode, the counterpart of ``get_proposal(extra=)`` in the JAX
 package.
@@ -28,7 +29,7 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_pair_mode, check_rows, complement_rows,
-    launch, ptr)
+    launch, ptr, rng_args)
 from .philox import roll_shift, to_uniform, walker_words
 
 __all__ = ["PAIR_MODES", "stretch_propose", "stretch_propose_plain"]
@@ -55,7 +56,7 @@ def stretch_propose_plain(coords, split, nsplits, *, a, scale=None,
         w0, _, w2, _ = walker_words(ng, split, seed, offset, coords.device)
         u_z = to_uniform(w0, coords.dtype)
         u_pair = to_uniform(w2, coords.dtype)
-        shift = roll_shift(seed, split, offset, nc)
+        shift = roll_shift(seed, split, offset, nc, coords.device)
     elif pair_mode == "roll":
         shift = (u_shift.to(torch.float32) * nc).to(torch.int64)
     else:
@@ -109,8 +110,7 @@ def stretch_propose(coords, split, nsplits, *, a, scale=None, ndim_global,
         coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
         ng, nd, split, nsplits, PAIR_MODES[pair_mode],
         float(a), float(a - 1.0), ptr(scale), float(ndim_global - 1.0),
-        ptr(u_z), ptr(u_pair), ptr(u_shift),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, int(offset) & 0xFFFFFFFFFFFFFFFF,
+        ptr(u_z), ptr(u_pair), ptr(u_shift), *rng_args(seed, offset, dev),
     )
     stretch_propose.launches += 1
     return q, factor

@@ -8,15 +8,18 @@ getters.  Arguments of the JAX sampler that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Where the JAX package compiles a chunk of kept steps into one
-``lax.scan`` (``sampler.py:783-925``), the port runs a Python loop over
-proposals that only enqueues device work: per split, K1, the user's
-log-prob and K2.  The loop never waits for the device: the Philox offset
-advances as a host integer, the weighted move choice is computed on the
-host from the same stream, acceptance counts add up on the device (in
-K2), and with ``store=True`` each kept step is one slice copy per field:
-into a :class:`~.backends.DeviceBackend`'s own chain rows, or into a
-device staging buffer that reaches a host :class:`~.backends.Backend`
-with one device-to-host copy per chunk.
+``lax.scan`` (``sampler.py:783-925``), the port runs the chunk through
+K3, :class:`~.chunk_graph.ChunkProgram`: on a CUDA device every proposal
+(per split, K1, the user's log-prob and K2) runs inside a replayed CUDA
+graph; on the CPU the same per-proposal function runs eagerly.  Nothing
+waits for the device: the Philox offset advances on the device inside
+the graphs and as a host integer beside them, the weighted move choice
+is computed on the host from the same stream, acceptance counts add up
+on the device (in K2), and with ``store=True`` each kept step is one
+slice copy per field after the replay that ends it: into a
+:class:`~.backends.DeviceBackend`'s own chain rows, or into a device
+staging buffer that reaches a host :class:`~.backends.Backend` with one
+device-to-host copy per chunk.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ import torch
 
 from . import moves as _moves_mod
 from .backends import Backend
-from .driver import choose_move, chunk_schedule, parse_moves, shim_thin
+from .chunk_graph import ChunkProgram
+from .driver import (
+    chunk_replays, chunk_schedule, move_sequence, parse_moves, shim_thin)
 from .model import Model, wrap_log_prob_fn
 from .state import State, as_state, resolve_device, walkers_independent
 
@@ -176,6 +181,12 @@ class EnsembleSampler:
         self._previous_state = None
         self._move_carries = None
         self.last_run_stats = None
+        # K3 (chunk_graph.py): the workspace and recorded graphs of the
+        # chain's seed, made at the first run.  _use_graphs is the
+        # private switch to the eager loop on the card, the reference
+        # that tests and chip_smoke.py hold the graphs against.
+        self._program = None
+        self._use_graphs = self.device.type == "cuda"
         if self.backend.initialized:
             if self.backend.shape != (self.nwalkers, self.ndim):
                 raise ValueError(
@@ -267,9 +278,10 @@ class EnsembleSampler:
 
     def _prepare_state(self, initial_state, skip_initial_state_check,
                        trusted=False):
-        """A fresh working copy of the initial state on the device.
-        ``trusted``: the sampler's own resume anchor, whose checks
-        already passed."""
+        """The checked initial state on the device (the chunk program
+        copies it into its workspace, so the caller's tensors are never
+        written).  ``trusted``: the sampler's own resume anchor, whose
+        checks already passed."""
         state = as_state(initial_state)
         if state.blobs is not None:
             raise NotImplementedError(
@@ -300,7 +312,7 @@ class EnsembleSampler:
                 raise ValueError("incompatible input dimensions")
             if not trusted and bool(torch.isnan(log_prob).any()):
                 raise ValueError("The initial log_prob was NaN")
-        return State(coords.clone(), log_prob.clone(), None, rs)
+        return State(coords, log_prob, None, rs)
 
     # ------------------------------------------------------------------
     # The run loop
@@ -352,35 +364,19 @@ class EnsembleSampler:
         )
         return rows[..., :nd], rows[..., nd], rows[..., nd + 1], rows
 
-    def _run_chunk(self, state, carries, nkeep, thin_by, out, tune,
-                   acc_count):
-        """Advance ``nkeep * thin_by`` proposals; with ``out`` (from
-        :meth:`_chunk_rows`) each kept step's coords, log_prob and
-        acceptance land in row ``k`` of its three tensors."""
+    def _start(self, state, carries):
+        """The chunk program of ``state``'s seed, loaded with the state and
+        the carries; a program recorded for another seed is dropped."""
         seed, offset = state.random_state
-        blk = self._mixture_block
-        blocked = len(self._moves) > 1 and blk > 1 and nkeep % blk == 0
-        for k in range(nkeep):
-            if blocked and k % blk == 0:
-                # One move for the next blk kept steps (JAX sampler.py:
-                # 829-878), from the block's own counter.
-                i_blk = choose_move(self._weights, seed, offset, block=True)
-            for _ in range(thin_by):
-                i = i_blk if blocked else choose_move(
-                    self._weights, seed, offset)
-                move = self._moves[i]
-                state, accepted, c = move.propose(
-                    (seed, offset), state, self._model, carries[i], acc_count
-                )
-                if tune:
-                    c = move.tune(c, state, accepted, self._model)
-                carries = carries[:i] + (c,) + carries[i + 1:]
-                offset += 1
-            if out is not None:
-                out[0][k].copy_(state.coords)
-                out[1][k].copy_(state.log_prob)
-                out[2][k].copy_(accepted)
-        return state._replace(random_state=(seed, offset)), carries
+        prog = self._program
+        if prog is None or prog.seed != seed:
+            prog = self._program = ChunkProgram(
+                self._moves, self._model, seed, state.coords, state.log_prob,
+                carries,
+            )
+        prog.load(state.coords, state.log_prob, offset, carries)
+        self._move_carries = prog.ws.carries
+        return prog, offset
 
     def _save_chunk(self, out, random_state):
         coords, log_prob, accepted, rows = out
@@ -394,23 +390,32 @@ class EnsembleSampler:
             random_state,
         )
 
-    def _advance(self, state, carries, nkeep, thin_by, store, tune,
-                 acc_count):
-        """Run one chunk, store it, and move the resume anchors to a
-        snapshot of its final state, so the anchors always match what the
-        backend holds."""
+    def _advance(self, prog, offset, nkeep, thin_by, store, tune):
+        """Run one chunk of ``nkeep * thin_by`` proposals from ``offset``
+        through the chunk program, store it, and move the resume anchors
+        to a snapshot of its final state, so the anchors always match what
+        the backend holds.  Returns the next offset."""
+        ws = prog.ws
         out = self._chunk_rows(nkeep) if store else None
-        state, carries = self._run_chunk(
-            state, carries, nkeep, thin_by, out, tune, acc_count
-        )
+        seq = move_sequence(self._weights, prog.seed, offset, nkeep, thin_by,
+                            self._mixture_block)
+        done = 0
+        for i, n in chunk_replays(seq, thin_by if store else None):
+            prog.run(i, n, tune, self._use_graphs)
+            done += n
+            if store and done % thin_by == 0:
+                k = done // thin_by - 1
+                out[0][k].copy_(ws.coords)
+                out[1][k].copy_(ws.log_prob)
+                out[2][k].copy_(ws.accepted)
+        offset += nkeep * thin_by
+        rs = (prog.seed, offset)
         if store:
-            self._save_chunk(out, state.random_state)
-        self._previous_state = state._replace(
-            coords=state.coords.clone(), log_prob=state.log_prob.clone()
-        )
-        self._move_carries = carries
-        self._rng = state.random_state
-        return state, carries
+            self._save_chunk(out, rs)
+        self._previous_state = State(ws.coords.clone(), ws.log_prob.clone(),
+                                     None, rs)
+        self._rng = rs
+        return offset
 
     @staticmethod
     def _check_progress(progress):
@@ -444,14 +449,13 @@ class EnsembleSampler:
             raise ValueError("Invalid thinning argument")
 
         state = self._prepare_state(initial_state, skip_initial_state_check)
-        carries = self._move_carries or self._init_carries()
+        prog, offset = self._start(
+            state, self._move_carries or self._init_carries())
         if store:
             self.backend.grow(iterations, None)
         i = 0
         while iterations is None or i < iterations:
-            state, carries = self._advance(
-                state, carries, 1, thin_by, store, tune, None
-            )
+            offset = self._advance(prog, offset, 1, thin_by, store, tune)
             i += 1
             yield self._previous_state
 
@@ -491,17 +495,14 @@ class EnsembleSampler:
         if nsteps == 0:
             self._previous_state = None
             return None
-        carries = self._move_carries or self._init_carries()
+        prog, offset = self._start(
+            state, self._move_carries or self._init_carries())
+        prog.ws.count.zero_()
         if store:
             self.backend.grow(nsteps, None)
-        acc_count = torch.zeros(
-            self.nwalkers, dtype=torch.int32, device=self.device
-        )
         t0 = time.perf_counter()
         for n in self._chunk_schedule(nsteps, self._auto_chunk(store)):
-            state, carries = self._advance(
-                state, carries, n, thin_by, store, tune, acc_count
-            )
+            offset = self._advance(prog, offset, n, thin_by, store, tune)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_run_stats = RunStats(
@@ -509,6 +510,6 @@ class EnsembleSampler:
             nproposals=nsteps * thin_by,
             nwalkers=self.nwalkers,
             walltime_s=time.perf_counter() - t0,
-            accepted=acc_count,
+            accepted=prog.ws.count.clone(),
         )
         return self._previous_state

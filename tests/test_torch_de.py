@@ -94,7 +94,7 @@ def test_roll_shifts_are_distinct_and_cover_the_complement():
     rng = np.random.default_rng(2)
     seen = set()
     for u1, u2 in rng.uniform(size=(400, 2)).astype(np.float32):
-        s1, s2 = de_roll_shifts(u1, u2, nc)
+        s1, s2 = (int(s) for s in de_roll_shifts(u1, u2, nc))
         assert 0 <= s1 < nc and 0 <= s2 < nc and s1 != s2
         seen.add((s1, s2))
     assert de_roll_shifts(np.float32(1 - 2**-24), 0.0, nc)[0] < nc

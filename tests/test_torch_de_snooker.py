@@ -93,12 +93,16 @@ def test_k5b_matches_jax_get_proposal(pair_mode, nsplits, gammas, scale):
 def test_roll_picks():
     """Role groups and shifts: nsplits=2 keeps the pick order in the one
     other group; nsplits=4 permutes one pick from each other group."""
+    def pairs(*args):
+        groups, shifts = roll_picks(*args)
+        return list(zip(groups.tolist(), shifts.tolist()))
+
     u4 = [0.99, 0.0, 0.5, 0.75]
-    assert roll_picks(u4, 0, 2, 8) == [(1, 0), (1, 4), (1, 6)]
-    assert roll_picks(u4, 1, 2, 8) == [(0, 0), (0, 4), (0, 6)]
+    assert pairs(u4, 0, 2, 8) == [(1, 0), (1, 4), (1, 6)]
+    assert pairs(u4, 1, 2, 8) == [(0, 0), (0, 4), (0, 6)]
     picks = [(0, 0), (2, 4), (3, 6)]  # split 1 of 4
-    assert roll_picks(u4, 1, 4, 8) == [picks[k] for k in PERMS3[5]]
-    assert roll_picks([0.0] + u4[1:], 1, 4, 8) == picks
+    assert pairs(u4, 1, 4, 8) == [picks[k] for k in PERMS3[5]]
+    assert pairs([0.0] + u4[1:], 1, 4, 8) == picks
     assert len(PERMS3) == 6 and len(set(PERMS3)) == 6
 
 
