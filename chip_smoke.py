@@ -13,7 +13,11 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    PyTorch versions at the main path's shapes, with injected uniforms and
    with the in-kernel Philox stream (host offset and device offset word),
    in both pair modes, and one whole proposal of the kernel path against
-   the plain path;
+   the plain path; sweeps K1 and K2 over edge shapes (ndim 1, 3, 5, 8;
+   a split size no tile divides; nsplits 2-4, spans that are not 16-byte
+   aligned; all, none, NaN and +-inf acceptance; with and without a count
+   buffer), bit for bit; and holds 64 graph-replayed main-path proposals
+   against the same 64 run eagerly on the plain versions, bit for bit;
 3. runs the main path (1e5 walkers, 5-D unit Gaussian, blocked/roll
    stretch move) with ``store=False``: every proposal a replay of K3, the
    chunk program's CUDA graphs, and no timed run records a graph or calls
@@ -29,8 +33,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    plain versions at workload 3's shapes (ng = 5000, ndim = 100), both
    pair modes, snooker with nsplits 2 and 4, injected draws and the
    in-kernel Philox stream (host offset and device offset word); K2 at
-   ndim = 100; and one whole proposal of each move on the kernel path
-   against the plain path;
+   ndim = 100; the edge-shape sweep of K1 and K2 at ndim 100 and 129; and
+   one whole proposal of each move on the kernel path against the plain
+   path;
 8. runs workload 3 (``benchmarks/workload3.py:57-77``: 1e4 walkers, 100-D
    correlated Gaussian, DE 0.8 + snooker 0.2, roll, blocked) with
    ``store=False``, with ``mixture_block=4``, and stored into
@@ -39,8 +44,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    2 x K5a per DE proposal, 2 x K5b per snooker proposal and 2 x K2 per
    proposal;
 6. times each kernel and its plain version alone with CUDA events (K2
-   also at ndim = 100), and both paths on the plain versions for
-   reference;
+   also at ndim = 100), K1 and K2 over tiles of 16-256 walkers with K2's
+   two variants (q staged in shared memory or read directly) at both
+   shapes, and both paths on the plain versions for reference;
 9. K3: from the same state and seed, the graph-replayed chain equals the
    eager per-proposal chain (the sampler's private ``_use_graphs``
    switch) on the main path, ``StretchMove()``, the host ``Backend``,
@@ -74,6 +80,10 @@ RTOL = ATOL = 1e-6
 # sums, the factor ((ndim - 1) = 99 times a log difference) to 1e-4.
 SN_RTOL = SN_ATOL = 1e-5
 SN_F_ATOL = 1e-4
+#: walkers per split in the edge-shape sweep of K1 and K2: no tile divides it
+SWEEP_NG = 5003
+#: tiles of K1's and K2's timing sweep (phase 6)
+SWEEP_TILES = (16, 32, 64, 128, 256)
 #: (module under emcee_tpu_torch.ops, wrapper) of every kernel
 KERNELS = (("stretch_kernel", "stretch_propose"),
            ("accept_kernel", "accept_select"),
@@ -183,6 +193,21 @@ def device_ms(kernels, kname):
     return sum(us for _, us in hits) / sum(c for c, _ in hits) * 1e-3
 
 
+def profiled_ms(torch, fn, kname, tries=3):
+    """Mean device ms per launch of ``kname`` over a profiled window of
+    ``fn``.  The profiler now and then records no launch at all in a
+    window of eager launches; such a window is run again, up to
+    ``tries`` times, and said so."""
+    for _ in range(tries):
+        _, kernels = profile_window(torch, fn)
+        ms = device_ms(kernels, kname)
+        if ms is not None:
+            return ms
+        log(f"  the profiler recorded no {kname} launch; window run again")
+    raise AssertionError(f"the profiler recorded no {kname} launch in "
+                         f"{tries} windows")
+
+
 def profiled_counts(kernels):
     """``{wrapper name: launches}`` of every kernel, as the profiler
     counted them in a window (graph replays included)."""
@@ -276,6 +301,198 @@ def same_from_device_offset(torch, fn, args, kw, want):
     got = fn(*args, **{**kw, "offset": DeviceOffset(word, 3)})
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"{fn.__name__}: device offset draws differ")
+
+
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` whose base is 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def edge_sweep(torch, dev, nds, ng=SWEEP_NG):
+    """K1 and K2 against their plain versions, bit for bit (``torch.equal``),
+    over edge shapes: ndim in ``nds``; ``ng`` walkers per split, which no
+    tile divides; nsplits 2, 3 and 4, every split (at odd ndim most
+    splits' spans are not 16-byte aligned); both pair modes; injected
+    uniforms (K1 tuned), and the in-kernel Philox at a host offset and at
+    a device offset word.  K2 runs on each K1 proposal without and with a
+    count buffer, and on ``lp_q`` that is the proposal's, that accepts
+    every walker, none, or that holds NaN and +-inf; each time both as
+    its wrapper launches it (q staged in shared memory) and in its direct
+    variant (q read from device memory).  Then both kernels once more on
+    a ``coords`` and a ``q`` whose bases are not 16-byte aligned.
+    Returns the number of comparisons."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import stretch_kernel as sk
+    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    seed, offset = 24680, (1 << 33) + 5  # the offset's high word is set
+    word = torch.tensor(offset - 3, dtype=torch.int64, device=dev)
+    scale = torch.tensor(0.7, device=dev)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        n_cmp += 1
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"edge sweep, {what}: kernel and plain "
+                                 "version differ")
+
+    def lp_variants(q):
+        special = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                               device=dev)
+        mixed = gaussian(q).clone()
+        mixed[::3] = special.repeat(-(-q.shape[0] // 9))[:mixed[::3].numel()]
+        return (("proposal's lp_q", gaussian(q)),
+                ("all accepted", torch.full_like(mixed, float("inf"))),
+                ("none accepted", torch.full_like(mixed, -float("inf"))),
+                ("NaN and +-inf in lp_q", mixed))
+
+    def direct(q, f, lp_q, c, l, split, ns, acc, cnt, seed=0, offset=0,
+               log_u=None):
+        """K2 with q read from device memory (no staging)."""
+        plan = tile_plan(q.shape[0], c.shape[1], split,
+                         device_sm_count(c.device), c.data_ptr(),
+                         q.data_ptr())
+        ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, seed, offset,
+                   log_u)
+
+    # The wrapper (staged wherever it can), the direct variant, the plain
+    # version.
+    k2_fns = (ak.accept_select, direct, ak.accept_select_plain)
+
+    def k2(q, f, coords, lp, split, ns, what, copy, **kw):
+        nw = coords.shape[0]
+        for label, lp_q in lp_variants(q):
+            for counted in (False, True):
+                outs = []
+                for fn in k2_fns:
+                    c, l = copy(coords), copy(lp)
+                    acc = torch.zeros(nw, dtype=torch.bool, device=dev)
+                    cnt = (torch.arange(nw, dtype=torch.int32, device=dev)
+                           if counted else None)
+                    fn(q, f, lp_q, c, l, split, ns, acc, cnt, **kw)
+                    outs.append((c, l, acc) + ((cnt,) if counted else ()))
+                for got in outs[:-1]:
+                    same(got, outs[-1], f"K2 {what}, {label}, "
+                         f"count={counted}")
+
+    def case(coords, split, ns, nd, pair_mode, copy=torch.clone,
+             draws=("injected", "host offset", "device offset")):
+        lp = gaussian(coords)
+        inj = (dict(u_shift=torch.rand((), device=dev, generator=gen))
+               if pair_mode == "roll" else
+               dict(u_pair=torch.rand(ng, device=dev, generator=gen)))
+        for draw in draws:
+            if draw == "injected":
+                kw = dict(u_z=torch.rand(ng, device=dev, generator=gen),
+                          scale=scale, **inj)
+                k2kw = dict(log_u=torch.log(
+                    torch.rand(ng, device=dev, generator=gen)))
+            else:
+                off = offset if draw == "host offset" else DeviceOffset(
+                    word, 3)
+                kw = k2kw = dict(seed=seed, offset=off)
+            what = (f"ndim {nd}, nsplits {ns}, split {split}, {pair_mode}, "
+                    f"{draw}")
+            args = (coords, split, ns)
+            k1kw = dict(a=2.0, ndim_global=nd, pair_mode=pair_mode, **kw)
+            q, f = sk.stretch_propose(*args, **k1kw)
+            same((q, f), sk.stretch_propose_plain(*args, **k1kw), f"K1 {what}")
+            k2(copy(q), f, coords, lp, split, ns, what, copy, **k2kw)
+
+    for nd in nds:
+        for ns in (2, 3, 4):
+            coords = torch.randn(ng * ns, nd, device=dev, generator=gen)
+            for split in range(ns):
+                for pair_mode in ("roll", "random"):
+                    case(coords, split, ns, nd, pair_mode)
+        coords = misaligned(torch, torch.randn(ng * 3, nd, device=dev,
+                                               generator=gen))
+        for pair_mode in ("roll", "random"):
+            case(coords, 1, 3, nd, pair_mode, lambda t: misaligned(torch, t),
+                 draws=("host offset",))
+    return n_cmp
+
+
+def graph_vs_plain_chain(torch, np, dev, n=64, nw=NW, nd=ND):
+    """``n`` graph-replayed main-path proposals against the same ``n``
+    run eagerly on the plain versions, from one state and seed: coords,
+    log_prob, acceptance counts and random_state must be identical."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    p0 = np.random.default_rng(2).normal(size=(nw, nd)).astype(np.float32)
+    ends = []
+    for plain in (False, True):
+        smp = EnsembleSampler(
+            nw, nd, gaussian, vectorize=True, seed=8, device=dev,
+            moves=moves.StretchMove(randomize_split=False, pair_mode="roll"))
+        smp._use_graphs = not plain
+        with plain_kernels() if plain else contextlib.nullcontext():
+            st = smp.run_mcmc(p0, n, store=False,
+                              skip_initial_state_check=True)
+        ends.append((st, smp.last_run_stats.accepted))
+    (a, acc_a), (b, acc_b) = ends
+    if not (torch.equal(a.coords, b.coords)
+            and torch.equal(a.log_prob, b.log_prob)
+            and torch.equal(acc_a, acc_b)
+            and a.random_state == b.random_state):
+        raise AssertionError(f"{n} graph-replayed proposals differ from "
+                             "the plain versions' eager chain")
+    return float(acc_a.float().mean()) / n
+
+
+def tile_sweep(torch, coords, q, f, lp_q, work, nsplits, seed, offset,
+               reps=100):
+    """K1's and K2's device us per launch for split 0 at every tile of
+    ``SWEEP_TILES``: K1 in roll mode on ``coords``; K2 on the proposal
+    ``(q, f, lp_q)`` with each tile's q span bulk-copied to shared memory
+    ("K2 staged", where it fits) and read from device memory ("K2
+    direct"), each launch on a fresh copy of ``work`` (coords, log_prob,
+    accepted, count).  Eager launches, profiled; the tiles are swept up,
+    then down, and the two passes averaged.  Returns ``{tile: {name:
+    us}}`` and the plan's tile."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import stretch_kernel as sk
+    from emcee_tpu_torch.ops._wrap import (
+        SMEM_LIMIT, STATIC_SMEM, device_sm_count, tile_plan)
+
+    ng, nd = q.shape
+    plan = tile_plan(ng, nd, 0, device_sm_count(coords.device),
+                     coords.data_ptr(), q.data_ptr(), stage=True)
+    qk, fk = torch.empty_like(q), torch.empty_like(f)
+    k1kw = dict(a=2.0, scale=None, ndim_global=nd, pair_mode="roll",
+                seed=seed, offset=offset, u_z=None, u_pair=None,
+                u_shift=None)
+    bufs = [w.clone() for w in work]
+
+    def k2(p):
+        for b, w in zip(bufs, work):
+            b.copy_(w)
+        ak._launch(p, q, f, lp_q, bufs[0], bufs[1], 0, bufs[2], bufs[3],
+                   seed, offset, None)
+
+    got = {}
+    for tile in SWEEP_TILES + SWEEP_TILES[::-1]:
+        grid = -(-ng // tile)
+        p = plan._replace(tile=tile, grid=grid, stage=0, smem=0)
+        runs = {"K1": ("stretch_propose", lambda: sk._launch(
+                    p, coords, qk, fk, 0, nsplits, **k1kw)),
+                "K2 direct": ("accept_select", lambda: k2(p))}
+        if 4 * tile * nd <= SMEM_LIMIT - STATIC_SMEM:
+            ps = p._replace(stage=1, smem=4 * tile * nd)
+            runs["K2 staged"] = ("accept_select", lambda: k2(ps))
+        for name, (kname, fn) in runs.items():
+            got.setdefault(tile, {}).setdefault(name, []).append(
+                profiled_ms(torch, lambda: [fn() for _ in range(reps)],
+                            kname) * 1e3)
+    return ({t: {k: sum(v) / len(v) for k, v in d.items()}
+             for t, d in got.items()}, plan.tile)
 
 
 def acceptance_flips(torch, log_u, lnp_k, lnp_p):
@@ -397,6 +614,11 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                 (outs[0][2][:ng],) + outs[0])
     log(f"phase 7: K2 at ndim {nd}: identical "
         f"({int(outs[0][2][:ng].sum())} of {ng} accepted)")
+    t0 = time.perf_counter()
+    n_cmp = edge_sweep(torch, dev, (100, 129))
+    log(f"phase 7: edge-shape sweep, ndim 100, 129, ng {SWEEP_NG}, nsplits "
+        f"2-4: {n_cmp} comparisons of K1/K2 with their plain versions, all "
+        f"identical ({time.perf_counter() - t0:.1f} s)")
 
     # One whole proposal of each move, kernel path against plain path.
     model = Model(gauss, nw, nd)
@@ -895,6 +1117,15 @@ def main() -> int:
         log(f"phase 2: whole proposal ({mv.pair_mode}, randomize_split="
             f"{mv.randomize_split}): acceptance identical "
             f"({float(acc_k.float().mean()):.3f}), coords max abs err {e:.3g}")
+    t0 = time.perf_counter()
+    n_cmp = edge_sweep(torch, dev, (1, 3, 5, 8))
+    log(f"phase 2: edge-shape sweep, ndim 1, 3, 5, 8, ng {SWEEP_NG}, "
+        f"nsplits 2-4: {n_cmp} comparisons of K1/K2 with their plain "
+        f"versions, all identical ({time.perf_counter() - t0:.1f} s)")
+    acc64 = graph_vs_plain_chain(torch, np, dev)
+    log(f"phase 2: 64 graph-replayed main-path proposals equal the same 64 "
+        f"run eagerly on the plain versions, bit for bit (acceptance "
+        f"{acc64:.4f})")
     torch.cuda.synchronize()
 
     # -- 3. main path, store=False -----------------------------------------
@@ -1055,6 +1286,18 @@ def main() -> int:
     ak.accept_select(q3, f3, lp_q3, *[w.clone() for w in work3[:2]], 0, 2,
                      work3[2], work3[3], **k2)
     n_acc3 = int(work3[2][:ng3].sum())
+    # K1 and K2 over tiles, and K2's two variants, at both shapes, on the
+    # inputs of the bounds below (before the timings update them in place).
+    sweeps = {
+        "nd5": tile_sweep(torch, coords, q, f, lp_q, work, ns, **k2),
+        "nd100": tile_sweep(torch, coords3, q3, f3, lp_q3, work3, 2, **k2),
+    }
+    for shape, (us, tile) in sweeps.items():
+        for t, row in us.items():
+            log(f"phase 6: tile sweep {shape}, tile {t:3d}"
+                f"{' (the plan)' if t == tile else ''}: device us/launch "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sorted(row.items()))
+                + f" {card}")
     times = {
         "de_propose": (
             cuda_ms(torch, lambda: dk.de_propose(coords3, 0, 2, **k5a)),
@@ -1092,9 +1335,9 @@ def main() -> int:
         word = torch.tensor(kw["offset"] - 3, dtype=torch.int64, device=dev)
         out = []
         for off in (kw["offset"], DeviceOffset(word, 3)):
-            _, kernels = profile_window(torch, lambda: [
-                fn(*args, **{**kw, "offset": off}) for _ in range(reps)])
-            out.append(device_ms(kernels, fn.__name__))
+            out.append(profiled_ms(torch, lambda: [
+                fn(*args, **{**kw, "offset": off}) for _ in range(reps)],
+                fn.__name__))
         return out
 
     offset_ms = {
@@ -1193,6 +1436,13 @@ def main() -> int:
             "library_ms": None, "ms_host_offset": offset_ms[kname][0],
             "ms_device_offset": offset_ms[kname][1],
         }
+        if kname in ("stretch_propose", "accept_select"):
+            part = "K1" if kname == "stretch_propose" else "K2"
+            row["redesigned"] = "PR 4"
+            row["tile_sweep_us"] = {
+                shape: {t: {k: v for k, v in r.items() if k.startswith(part)}
+                        for t, r in us.items()}
+                for shape, (us, _) in sweeps.items()}
         log(f"phase 6: {kname}: device {ms * 1e3:.2f} us/launch, "
             f"{call_ms * 1e3:.2f} us per back-to-back call, plain "
             f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({nbytes} "
@@ -1207,7 +1457,10 @@ def main() -> int:
                 ms_nd100=ms, call_ms_nd100=call_ms, plain_ms_nd100=plain_ms,
                 bound_ms_nd100=b_ms, bound_by_nd100=b_by,
                 ms_host_offset_nd100=offset_ms["accept_select_nd100"][0],
-                ms_device_offset_nd100=offset_ms["accept_select_nd100"][1])
+                ms_device_offset_nd100=offset_ms["accept_select_nd100"][1],
+                **{f"ms_{v}_{shape}": us[tile][f"K2 {v}"] * 1e-3
+                   for shape, (us, tile) in sweeps.items()
+                   for v in ("staged", "direct")})
             log(f"phase 6: accept_select at ndim {ND3}: device "
                 f"{ms * 1e3:.2f} us/launch, {call_ms * 1e3:.2f} us per "
                 f"back-to-back call, plain {plain_ms * 1e3:.2f} us, bound "

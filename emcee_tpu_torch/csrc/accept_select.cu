@@ -1,4 +1,4 @@
-// K2: the fused accept/select write-back.
+// K2: the fused accept/select write-back, tiled.
 //
 // Replaces the XLA-fused chain of emcee_tpu/moves/red_blue.py:196-204
 // (RedBlueMove._inner: Metropolis compare and select) and :323-344 (the
@@ -14,18 +14,48 @@
 //           count[lo+i] += 1                             (count optional)
 //   accepted[lo+i] = acc
 //
-// What bounds it on an H100: bytes, and launch latency at the main path's
-// size.  Per walker it reads 3 floats and writes one bool; an accepted
-// walker also reads its ndim floats of q, writes ndim + 1 floats and
-// updates one int: about 2 MB in all for ng = 50000, ndim = 5 at an
-// acceptance of one half.  The design writes the selected rows in place
-// into the ensemble buffer, so no selected copy is made and rejected rows
-// and their counts are not touched at all; the accept uniform is
-// recomputed from the counter in
-// registers (never stored), and the per-walker acceptance count is
-// accumulated here on the device so the sampler's loop needs no extra
-// launch and no host sync for it.  One thread owns one walker, so the
-// count needs no atomics.
+// What bounds it on an H100: bytes, and latency.  Per walker it reads 3
+// floats and writes one bool; an accepted walker also reads its ndim
+// floats of q, writes ndim + 1 floats and updates one int: about 2 MB for
+// ng = 50000, ndim = 5 and 1.4 MB for ng = 5000, ndim = 100 at the paths'
+// acceptance, i.e. 0.6 and 0.4 us at 3.35 TB/s.  The arithmetic (one
+// Philox block and one logf per walker) is far below the card's rates.
+// There is no matrix product here, so no tensor-core (wgmma) work exists.
+//
+// The first design gave one thread a walker and its whole row: at ndim 100
+// the grid had 20 blocks on 132 SMs, each warp store touched 32 rows 400
+// bytes apart, and the q row was read only after the accept decision (two
+// dependent trips to memory).  The tiled design:
+//   * A block owns a tile of `tile` consecutive walkers (ops/_wrap.py
+//     tile_plan picks it so that the grid has two blocks or more for every
+//     SM: 16 at ndim 100, 128 at ndim 5, the fastest of a sweep).
+//   * Phase A, one thread per walker: the accept uniform in registers
+//     (never stored), lnpdiff, acc; `accepted`, and for accepted walkers
+//     log_prob and count, written at once; acc kept in shared memory.
+//   * Phase B, after one __syncthreads: the tile's q rows and its rows of
+//     coords are two contiguous spans of tile*ndim floats.  The block
+//     copies them as one flat stream, 16-byte float4 stores where the
+//     destination is aligned and scalar stores for the head and tail, each
+//     element masked by the acc of its walker e / ndim: a float4 whose
+//     walkers are all rejected is neither read nor written, one that
+//     straddles an accepted and a rejected row is stored element by
+//     element.  A rejected row is never written.
+//   * kVec (both spans 16-byte aligned, decided by the plan): the source is
+//     read as float4 too; otherwise element by element (coalesced).
+//   * kStage: at block start one thread issues the tile's q span (its
+//     16-byte multiple; the rest of the last tile is read in phase B) as a
+//     TMA bulk copy (cp.async.bulk) into shared memory, completed on an
+//     mbarrier.  It overlaps the Philox draw and the three lp loads, so
+//     phase B's source is on chip and the second dependent trip to memory
+//     goes away, at the price of reading the rejected rows of q too.
+//   * The variant kept: staged, wherever it can be (a 16-byte aligned q,
+//     4 rows that fit in shared memory).  On the H100 it beat reading the
+//     accepted rows' float4s from device memory after the decision at both
+//     shapes (chip_smoke.py phase 6, PERF.md): the saved dependent trip
+//     outweighs the extra bytes.  The direct variant serves the rest.
+//
+// One thread owns a walker's acc, log_prob and count, so nothing needs
+// atomics; every element of coords is written by at most one thread.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,39 +64,143 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // TILE_MAX in ops/_wrap.py
 
-__global__ void accept_select_kernel(
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <bool kVec, bool kStage>
+__global__ void __launch_bounds__(kThreads) accept_select_kernel(
     const float* __restrict__ q, const float* __restrict__ factor,
     const float* __restrict__ lp_q, float* __restrict__ coords,
     float* __restrict__ log_prob, bool* __restrict__ accepted,
     int32_t* __restrict__ count, const float* __restrict__ log_u, int ng,
-    int nd, int split, uint32_t k0, uint32_t k1,
+    int nd, int split, int tile, uint32_t k0, uint32_t k1,
     const long long* __restrict__ offset_dev, unsigned long long offset_inc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= ng) return;
+  __shared__ bool s_acc[kThreads];
+  __shared__ uint64_t s_bar;
+  extern __shared__ float4 s_q4[];  // kStage: the tile's q span
 
-  float lu;
-  if (log_u != nullptr) {
-    lu = log_u[i];
-  } else {
-    const uint4 w = philox_at(static_cast<uint32_t>(i),
-                              static_cast<uint32_t>(split),
-                              philox_offset(offset_dev, offset_inc), k0, k1);
-    lu = logf(philox_uniform(w.y));
+  const int t = threadIdx.x;
+  const int t0 = blockIdx.x * tile;
+  const int cnt = min(tile, ng - t0);
+  const int n = cnt * nd;
+  const int64_t lo = static_cast<int64_t>(split) * ng;
+  const float* src = q + static_cast<int64_t>(t0) * nd;
+  float* dst = coords + (lo + t0) * nd;
+  // The staged prefix: a multiple of 16 bytes from a 16-byte aligned src.
+  const int n_staged = kStage ? (n & ~3) : 0;
+
+  if (kStage && t == 0 && n_staged > 0) {
+    const uint32_t bar = smem_addr(&s_bar);
+    const uint32_t bytes = static_cast<uint32_t>(n_staged) * 4u;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(s_q4)),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
   }
-  const int64_t row = static_cast<int64_t>(split) * ng + i;
-  const float lpq = lp_q[i];
-  const float lnpdiff = __fsub_rn(__fadd_rn(factor[i], lpq), log_prob[row]);
-  const bool acc = lu < lnpdiff;
-  if (acc) {
-    const float* src = q + static_cast<int64_t>(i) * nd;
-    float* dst = coords + row * nd;
-    for (int d = 0; d < nd; ++d) dst[d] = src[d];
-    log_prob[row] = lpq;
-    if (count != nullptr) count[row] += 1;
+
+  // -- phase A: one thread per walker -------------------------------------
+  if (t < cnt) {
+    const int i = t0 + t;
+    float lu;
+    if (log_u != nullptr) {
+      lu = log_u[i];
+    } else {
+      const uint4 w = philox_at(static_cast<uint32_t>(i),
+                                static_cast<uint32_t>(split),
+                                philox_offset(offset_dev, offset_inc), k0, k1);
+      lu = logf(philox_uniform(w.y));
+    }
+    const int64_t row = lo + i;
+    const float lpq = lp_q[i];
+    const float lnpdiff = __fsub_rn(__fadd_rn(factor[i], lpq), log_prob[row]);
+    const bool acc = lu < lnpdiff;
+    if (acc) {
+      log_prob[row] = lpq;
+      if (count != nullptr) count[row] += 1;
+    }
+    accepted[row] = acc;
+    s_acc[t] = acc;
   }
-  accepted[row] = acc;
+  __syncthreads();
+  if (kStage && n_staged > 0) mbar_wait(smem_addr(&s_bar), 0);
+
+  // -- phase B: the tile's rows as one flat, masked stream ----------------
+  const float* s_q = reinterpret_cast<const float*>(s_q4);
+  auto load = [&](int e) {
+    return (kStage && e < n_staged) ? s_q[e] : src[e];
+  };
+  // Scalar head up to the first 16-byte aligned element of dst (none
+  // when kVec), float4 body, scalar tail.
+  const int head =
+      kVec ? 0
+           : min(n, static_cast<int>(
+                        (4u - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3u)) &
+                        3u));
+  const int n4 = (n - head) >> 2;
+  for (int e = t; e < head; e += kThreads) {
+    if (s_acc[e / nd]) dst[e] = load(e);
+  }
+  for (int e = head + 4 * n4 + t; e < n; e += kThreads) {
+    if (s_acc[e / nd]) dst[e] = load(e);
+  }
+  for (int k = t; k < n4; k += kThreads) {
+    const int e = head + 4 * k;
+    int w = e / nd;
+    int d = e - w * nd;
+    bool m[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m[j] = s_acc[w];
+      if (++d == nd) {
+        d = 0;
+        ++w;
+      }
+    }
+    if (!(m[0] | m[1] | m[2] | m[3])) continue;
+    float4 v;
+    if (kVec) {
+      // head == 0, so e + 3 < 4 * n4 == n_staged when staged.
+      v = kStage ? s_q4[e >> 2] : reinterpret_cast<const float4*>(src)[e >> 2];
+    } else {
+      v.x = m[0] ? load(e) : 0.0f;
+      v.y = m[1] ? load(e + 1) : 0.0f;
+      v.z = m[2] ? load(e + 2) : 0.0f;
+      v.w = m[3] ? load(e + 3) : 0.0f;
+    }
+    if (m[0] & m[1] & m[2] & m[3]) {
+      *reinterpret_cast<float4*>(dst + e) = v;
+    } else {
+      if (m[0]) dst[e] = v.x;
+      if (m[1]) dst[e + 1] = v.y;
+      if (m[2]) dst[e + 2] = v.z;
+      if (m[3]) dst[e + 3] = v.w;
+    }
+  }
 }
 
 }  // namespace
@@ -75,17 +209,24 @@ __global__ void accept_select_kernel(
 // pointer is a device pointer; log_u == nullptr selects the in-kernel
 // Philox stream, at offset *offset_dev + offset (offset alone when
 // offset_dev is null); count == nullptr skips the acceptance count.
+// tile, grid, vec, stage and smem are the launch plan of ops/_wrap.py
+// tile_plan: vec != 0 promises that every tile's spans of q and coords
+// are 16-byte aligned, stage != 0 that every tile's q span is, and smem
+// is the dynamic shared memory (4 * tile * nd when staged, else 0).
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
-    int nd, int split, unsigned long long seed, const long long* offset_dev,
+    int nd, int split, int tile, int grid, int vec, int stage, int smem,
+    unsigned long long seed, const long long* offset_dev,
     unsigned long long offset, void* stream) {
-  const int blocks = (ng + kThreads - 1) / kThreads;
-  accept_select_kernel<<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = vec ? (stage ? accept_select_kernel<true, true>
+                             : accept_select_kernel<true, false>)
+                    : (stage ? accept_select_kernel<false, true>
+                             : accept_select_kernel<false, false>);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q, factor, lp_q, coords, log_prob, accepted,
-      reinterpret_cast<int32_t*>(count), log_u, ng, nd, split,
+      reinterpret_cast<int32_t*>(count), log_u, ng, nd, split, tile,
       static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
       offset_dev, offset);
   return static_cast<int>(cudaGetLastError());

@@ -52,12 +52,14 @@ _ARGTYPES = {
         ctypes.c_float, ctypes.c_float, _P,  # a, a - 1, scale
         ctypes.c_float,  # ndim_global - 1
         _P, _P, _P,  # u_z, u_pair, u_shift
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plan: tile grid vec
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
     "accept_select": [
         _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
+        *[ctypes.c_int] * 5,  # plan: tile grid vec stage smem
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],

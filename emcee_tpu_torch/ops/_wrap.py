@@ -1,6 +1,6 @@
 """What every kernel wrapper shares: its argument checks, the complement
-row map, the Philox key and offset arguments, and the launch on the
-current stream.
+row map, the Philox key and offset arguments, K1's and K2's launch plan,
+and the launch on the current stream.
 
 A wrapper checks device, type, shape and contiguity before it launches,
 and raises on what its kernel does not take; the launch returns the C
@@ -11,11 +11,29 @@ when the call is recorded into a CUDA graph, never per replay.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .philox import DeviceOffset
 
 _MASK64 = 0xFFFFFFFFFFFFFFFF
+
+#: the largest tile of K1 and K2, and K2's threads per block (kThreads /
+#: kTileMax in csrc/accept_select.cu and csrc/stretch_propose.cu)
+TILE_MAX = 256
+#: the smallest tile: 4 walkers, so that every tile's span of rows starts
+#: a multiple of 4 floats after the split's first row
+TILE_MIN = 4
+#: the plan's grid has at least this many blocks for every SM where the
+#: split allows it
+BLOCKS_PER_SM = 2
+#: shared memory a block may use without an opt-in attribute
+SMEM_LIMIT = 48 * 1024
+#: an upper bound on K1's and K2's static shared memory (per-walker arrays
+#: of TILE_MAX entries, a shift word, an mbarrier)
+STATIC_SMEM = 4096
 
 #: pair mode name -> the kernels' code for it
 PAIR_MODES = {"roll": 0, "random": 1}
@@ -72,6 +90,61 @@ def vec4_ok(nd, *tensors):
     """Whether 16-byte ``float4`` row accesses are valid: ``ndim % 4 == 0``
     and every buffer 16-byte aligned."""
     return nd % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+class TilePlan(NamedTuple):
+    """How K1 and K2 cut a split into blocks; the fields are the C entry
+    points' arguments, in this order."""
+
+    tile: int  #: consecutive walkers per block
+    grid: int  #: blocks, ``ceil(ng / tile)``
+    vec: int  #: 1: every tile's rows in ``coords`` and in ``q`` are 16-byte aligned spans
+    stage: int  #: 1: K2 bulk-copies each tile's ``q`` span to shared memory
+    smem: int  #: dynamic shared memory per block, bytes
+
+
+@functools.cache
+def sm_count(index):
+    """The number of SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sm_count(device):
+    index = device.index
+    return sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def tile_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, stage=False):
+    """The launch plan of K1 or K2 for block ``split`` of ``ng`` walkers
+    of ``nd`` floats on a card of ``n_sm`` SMs, with ``coords`` and ``q``
+    at byte addresses ``coords_ptr`` and ``q_ptr``.
+
+    The tile is the largest power of two from ``TILE_MAX`` down to
+    ``TILE_MIN`` whose grid still has ``BLOCKS_PER_SM`` blocks for every
+    SM (and, when ``stage`` asks for ``q`` in shared memory, whose ``q``
+    span fits beside the static arrays under ``SMEM_LIMIT``; staging is
+    dropped where even ``TILE_MIN`` rows do not fit).  On the H100 that
+    gives 128 walkers at ndim 5 (ng 50000, 391 blocks) and 16 at ndim 100
+    (ng 5000, 313 blocks), the fastest tiles of a sweep over 16-256 for
+    both kernels at both shapes (``PERF.md``).  Tile ``b`` holds walkers
+    ``[b*tile, min((b+1)*tile, ng))``; its rows are the ``coords`` floats
+    from ``(split*ng + b*tile)*nd`` and the ``q`` floats from
+    ``b*tile*nd``, so both spans of every tile start 16-byte aligned
+    exactly when both bases are and ``split*ng*nd % 4 == 0`` (``tile*nd``
+    is a multiple of 4): that is ``vec``.  Staging takes a 16-byte
+    aligned ``q`` base (a bulk copy's source)."""
+    cap = TILE_MAX
+    if stage:
+        fit = (SMEM_LIMIT - STATIC_SMEM) // (4 * nd)
+        stage = fit >= TILE_MIN and q_ptr % 16 == 0
+        while stage and cap > fit:
+            cap //= 2
+    tile = cap
+    while tile > TILE_MIN and -(-ng // tile) < BLOCKS_PER_SM * n_sm:
+        tile //= 2
+    vec = coords_ptr % 16 == 0 and q_ptr % 16 == 0 and split * ng * nd % 4 == 0
+    return TilePlan(tile, -(-ng // tile), int(vec), int(stage),
+                    4 * tile * nd if stage else 0)
 
 
 def complement_rows(r, split, ng):

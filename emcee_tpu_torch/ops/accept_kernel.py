@@ -3,7 +3,22 @@
 Held against ``emcee_tpu/moves/red_blue.py:196-204`` (``_inner``: the
 Metropolis compare and select) and ``:323-344`` (the write-back of the
 selected rows into the ensemble).  The kernel is
-``csrc/accept_select.cu``; its note says what bounds it on the card.
+``csrc/accept_select.cu``.  It is bound by bytes and latency (no matrix
+product, no tensor-core work): about 2 MB per launch at the main path's
+shape and 1.4 MB at workload 3's, a few microseconds at most.  A block
+owns a tile of consecutive walkers (``_wrap.tile_plan``): one thread per
+walker decides, then the block writes the accepted rows of the tile as
+one flat, masked float4 stream.
+
+Of the kernel's two variants the wrapper takes the staged one wherever
+it can: each tile's q span comes into shared memory by one TMA bulk
+copy issued at block start, overlapping the accept decision's loads.
+On the H100 it was faster than reading q from device memory after the
+decision at both the main path's shape (ndim 5) and workload 3's (ndim
+100), though it reads the rejected rows too (``chip_smoke.py`` phase 6;
+the times are in ``PERF.md``).  The direct variant serves where staging
+cannot: a q that is not 16-byte aligned, or rows too wide for even 4 of
+them to fit in shared memory.
 
 The JAX package returns new arrays; here the selected rows are written
 in place into block ``split`` of the ensemble buffers ``coords``
@@ -26,7 +41,8 @@ from __future__ import annotations
 
 import torch
 
-from ._wrap import check_f32, check_rows, launch, ptr, rng_args
+from ._wrap import (
+    check_f32, check_rows, device_sm_count, launch, ptr, rng_args, tile_plan)
 from .philox import to_uniform, walker_words
 
 __all__ = ["accept_select", "accept_select_plain"]
@@ -81,14 +97,25 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
             or tuple(count.shape) != (nw,) or not count.is_contiguous()):
         raise ValueError(f"count must be a contiguous ({nw},) int32 tensor "
                          f"on {dev}")
+    plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
+                     q.data_ptr(), stage=True)
+    _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
+            seed, offset, log_u)
+    accept_select.launches += 1
+    return accepted[split * ng:(split + 1) * ng]
+
+
+def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
+            seed, offset, log_u):
+    """Launch K2 with launch plan ``plan`` on checked arguments."""
+    dev = coords.device
     launch(
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
-        ptr(count), ptr(log_u), ng, nd, split, *rng_args(seed, offset, dev),
+        ptr(count), ptr(log_u), q.shape[0], coords.shape[1], split, *plan,
+        *rng_args(seed, offset, dev),
     )
-    accept_select.launches += 1
-    return accepted[split * ng:(split + 1) * ng]
 
 
 accept_select.launches = 0

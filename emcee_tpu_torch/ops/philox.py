@@ -28,8 +28,9 @@ Stream layout (shared with the kernels):
   partner uniforms of the DE and snooker moves, words 0 and 1 (DE's two
   complement picks) or 0, 1, 2 (the snooker's three picks) and 3 (the
   snooker's role permutation);
-* counter ``(ROLL_LANE, split, ...)``: the split's roll draws, which the
-  kernels compute in every thread and the plain versions as 0-d tensors
+* counter ``(ROLL_LANE, split, ...)``: the split's roll draws, which K1
+  computes once per block, K5a/K5b in every thread, and the plain
+  versions as 0-d tensors
   (:func:`roll_uniforms`): word 0 the stretch shift; words 0 and 1 DE's
   two shifts; words 0-3 the snooker's role permutation and three shifts;
 * counter ``(MOVE_LANE, 0, ...)``, word 0: the weighted-move choice of a

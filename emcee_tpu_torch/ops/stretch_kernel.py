@@ -3,7 +3,13 @@
 Held against ``emcee_tpu/moves/stretch.py:59-84``
 (``StretchMove.get_proposal``, both pair modes) and the fused draw of
 ``emcee_tpu/moves/red_blue.py:138-148``.  The kernel is
-``csrc/stretch_propose.cu``; its note says what bounds it on the card.
+``csrc/stretch_propose.cu``.  It is bound by bytes and latency (no
+matrix product, no tensor-core work): 3.2 MB per launch at the main
+path's shape.  A block owns a tile of consecutive walkers
+(``_wrap.tile_plan``): each walker's thread draws its words, z and the
+factor; one spare lane per block makes the split's roll draw; then the
+block streams the tile's own rows and q as float4 spans and reads the
+partner rows with neighbouring threads on neighbouring addresses.
 
 The ensemble lives in one contiguous ``(nwalkers, ndim)`` buffer whose
 split groups are the contiguous row blocks ``[j*ng, (j+1)*ng)``.  The
@@ -29,7 +35,7 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_pair_mode, check_rows, complement_rows,
-    launch, ptr, rng_args)
+    device_sm_count, launch, ptr, rng_args, tile_plan)
 from .philox import roll_shift, to_uniform, walker_words
 
 __all__ = ["PAIR_MODES", "stretch_propose", "stretch_propose_plain"]
@@ -105,15 +111,25 @@ def stretch_propose(coords, split, nsplits, *, a, scale=None, ndim_global,
             check_f32("u_pair", u_pair, dev, (ng,))
     q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
     factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+    plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
+                     q.data_ptr())
+    _launch(plan, coords, q, factor, split, nsplits, **kw)
+    stretch_propose.launches += 1
+    return q, factor
+
+
+def _launch(plan, coords, q, factor, split, nsplits, *, a, scale,
+            ndim_global, pair_mode, seed, offset, u_z, u_pair, u_shift):
+    """Launch K1 with launch plan ``plan`` on checked arguments."""
+    dev = coords.device
     launch(
         "stretch_propose", dev,
         coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
-        ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+        q.shape[0], coords.shape[1], split, nsplits, PAIR_MODES[pair_mode],
         float(a), float(a - 1.0), ptr(scale), float(ndim_global - 1.0),
-        ptr(u_z), ptr(u_pair), ptr(u_shift), *rng_args(seed, offset, dev),
+        ptr(u_z), ptr(u_pair), ptr(u_shift), plan.tile, plan.grid, plan.vec,
+        *rng_args(seed, offset, dev),
     )
-    stretch_propose.launches += 1
-    return q, factor
 
 
 stretch_propose.launches = 0
