@@ -30,12 +30,17 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    to exactly 2 x K1 and 2 x K2 per proposal;
 5. runs the reference defaults (``StretchMove()``) at full width;
 7. holds K5a (DE proposal) and K5b (DE-snooker proposal) against their
-   plain versions at workload 3's shapes (ng = 5000, ndim = 100), both
-   pair modes, snooker with nsplits 2 and 4, injected draws and the
-   in-kernel Philox stream (host offset and device offset word); K2 at
-   ndim = 100; the edge-shape sweep of K1 and K2 at ndim 100 and 129; and
-   one whole proposal of each move on the kernel path against the plain
-   path;
+   plain versions bit for bit at workload 3's shapes (ng = 5000,
+   ndim = 100), both pair modes, snooker with nsplits 2 and 4, injected
+   draws and the in-kernel Philox stream (host offset and device offset
+   word); K2 at ndim = 100; the edge-shape sweep of K1 and K2 at ndim 100
+   and 129; the edge-shape sweep of K5a and K5b (ndim 1-129, a split size
+   no tile divides, nsplits 2-4, both pair modes, injected / host offset
+   / device offset draws, scale unset and set, bases that are not 16-byte
+   aligned, K5a's staged variant, K5b's warps taking walkers in turn),
+   bit for bit; one whole proposal of each move on the kernel path
+   against the plain path, bit for bit; and 64 graph-replayed workload-3
+   proposals against the same 64 run eagerly on the plain versions;
 8. runs workload 3 (``benchmarks/workload3.py:57-77``: 1e4 walkers, 100-D
    correlated Gaussian, DE 0.8 + snooker 0.2, roll, blocked) with
    ``store=False``, with ``mixture_block=4``, and stored into
@@ -46,7 +51,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
 6. times each kernel and its plain version alone with CUDA events (K2
    also at ndim = 100), K1 and K2 over tiles of 16-256 walkers with K2's
    two variants (q staged in shared memory or read directly) at both
-   shapes, and both paths on the plain versions for reference;
+   shapes, K5a (its two variants: own rows read directly or staged by a
+   bulk copy) and K5b over tiles of 4-64 at workload 3's shape, and both
+   paths on the plain versions for reference;
 9. K3: from the same state and seed, the graph-replayed chain equals the
    eager per-proposal chain (the sampler's private ``_use_graphs``
    switch) on the main path, ``StretchMove()``, the host ``Backend``,
@@ -76,14 +83,15 @@ NW3, ND3 = 10_000, 100  # workload 3 (benchmarks/workload3.py:28-29)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-6
-# K5b sums a row in another order than torch.sum: q to rounding of the
-# sums, the factor ((ndim - 1) = 99 times a log difference) to 1e-4.
-SN_RTOL = SN_ATOL = 1e-5
-SN_F_ATOL = 1e-4
-#: walkers per split in the edge-shape sweep of K1 and K2: no tile divides it
+#: walkers per split in the edge-shape sweeps: no tile divides it
 SWEEP_NG = 5003
+#: ndims of K5a's and K5b's edge-shape sweep (phase 7)
+K5_SWEEP_NDS = (1, 3, 5, 8, 100, 129)
 #: tiles of K1's and K2's timing sweep (phase 6)
 SWEEP_TILES = (16, 32, 64, 128, 256)
+#: tiles of K5a's and K5b's timing sweep (phase 6; K5b's cap is 16)
+K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
+                  "snooker_propose": (4, 8, 16)}
 #: (module under emcee_tpu_torch.ops, wrapper) of every kernel
 KERNELS = (("stretch_kernel", "stretch_propose"),
            ("accept_kernel", "accept_select"),
@@ -420,18 +428,14 @@ def edge_sweep(torch, dev, nds, ng=SWEEP_NG):
     return n_cmp
 
 
-def graph_vs_plain_chain(torch, np, dev, n=64, nw=NW, nd=ND):
-    """``n`` graph-replayed main-path proposals against the same ``n``
-    run eagerly on the plain versions, from one state and seed: coords,
-    log_prob, acceptance counts and random_state must be identical."""
-    from emcee_tpu_torch import EnsembleSampler, moves
-
-    p0 = np.random.default_rng(2).normal(size=(nw, nd)).astype(np.float32)
+def graph_vs_plain_chain(torch, make, p0, n=64):
+    """``n`` graph-replayed proposals of the sampler ``make()`` builds
+    against the same ``n`` run eagerly on the plain versions, from one
+    state and seed: coords, log_prob, acceptance counts and random_state
+    must be identical.  Returns the acceptance fraction."""
     ends = []
     for plain in (False, True):
-        smp = EnsembleSampler(
-            nw, nd, gaussian, vectorize=True, seed=8, device=dev,
-            moves=moves.StretchMove(randomize_split=False, pair_mode="roll"))
+        smp = make()
         smp._use_graphs = not plain
         with plain_kernels() if plain else contextlib.nullcontext():
             st = smp.run_mcmc(p0, n, store=False,
@@ -445,6 +449,129 @@ def graph_vs_plain_chain(torch, np, dev, n=64, nw=NW, nd=ND):
         raise AssertionError(f"{n} graph-replayed proposals differ from "
                              "the plain versions' eager chain")
     return float(acc_a.float().mean()) / n
+
+
+def k5_edge_sweep(torch, dev, nds=K5_SWEEP_NDS, ng=SWEEP_NG):
+    """K5a and K5b against their plain versions, bit for bit
+    (``torch.equal``), over edge shapes: ndim in ``nds``; ``ng`` walkers
+    per split, which no tile divides; K5a with nsplits 2, 3 and 4, K5b
+    with nsplits 4 and, in roll mode, 2, every split; both pair modes;
+    injected draws (the roll uniforms of the last split at the top of
+    their range), and the in-kernel Philox at a host offset and at a
+    device offset word; ``scale`` unset and set.  Each case runs the
+    wrapper's launch and, through ``_launch``, a ``q`` whose base is not
+    16-byte aligned, K5a's other variant (its own rows bulk-copied to
+    shared memory) and K5b with fewer warps than walkers (each warp takes
+    walkers in turn).  Then both kernels once more on a ``coords`` whose
+    base is not 16-byte aligned.  Returns the number of comparisons."""
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import snooker_kernel as snk
+    from emcee_tpu_torch.ops._wrap import de_plan, device_sm_count
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    seed, offset = 13579, (1 << 33) + 7  # the offset's high word is set
+    word = torch.tensor(offset - 3, dtype=torch.int64, device=dev)
+    scale = torch.tensor(0.7, device=dev)
+    top = 1.0 - 2.0**-24
+    n_sm = device_sm_count(dev)
+    n_cmp = 0
+
+    def launches(mod, kind, coords, split, ns, kw):
+        """``(label, (q, factor))`` of every launch path of one case."""
+        nd = coords.shape[1]
+        snooker = kind == "snooker"
+        out = [("wrapper", getattr(mod, f"{kind}_propose")(
+            coords, split, ns, **kw))]
+        q_odd = misaligned(torch, torch.empty(ng, nd, device=dev))
+        plans = [("q base not aligned", q_odd, de_plan(
+            ng, nd, split, n_sm, coords.data_ptr(), q_odd.data_ptr(),
+            snooker=snooker))]
+        q = torch.empty(ng, nd, device=dev)
+        plan = de_plan(ng, nd, split, n_sm, coords.data_ptr(), q.data_ptr(),
+                       snooker=snooker, stage=not snooker)
+        if snooker:
+            plans.append(("2 warps, walkers in turn", q,
+                          plan._replace(threads=64)))
+        elif plan.stage:
+            plans.append(("own rows staged", q, plan))
+        for label, qb, p in plans:
+            f = torch.empty(ng, device=dev)
+            mod._launch(p, coords, qb, f, split, ns, **kw)
+            out.append((label, (qb, f)))
+        return out
+
+    def case(mod, kind, coords, split, ns, pair_mode, inj, base,
+             draws=("injected", "host offset", "device offset")):
+        nonlocal n_cmp
+        for draw in draws:
+            for sc in (None, scale):
+                kw = dict(base, pair_mode=pair_mode, scale=sc, seed=0,
+                          offset=0)
+                if draw == "injected":
+                    kw.update(inj)
+                else:
+                    kw.update(seed=seed, offset=offset if draw ==
+                              "host offset" else DeviceOffset(word, 3))
+                want = getattr(mod, f"{kind}_propose_plain")(
+                    coords, split, ns, **kw)
+                for label, got in launches(mod, kind, coords, split, ns,
+                                           kw):
+                    n_cmp += 1
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(
+                            f"K5 edge sweep, {kind}, ndim "
+                            f"{coords.shape[1]}, nsplits {ns}, split "
+                            f"{split}, {pair_mode}, {draw}, scale "
+                            f"{sc is not None}, {label}: kernel and plain "
+                            "version differ")
+
+    def de_inj(ns, split, pair_mode):
+        nc = (ns - 1) * ng
+        z = dict(z=torch.randn(ng, device=dev, generator=gen))
+        if pair_mode == "roll":
+            u = (torch.full((2,), top, device=dev) if split == ns - 1
+                 else torch.rand(2, device=dev, generator=gen))
+            return dict(z, u_shift=u, idx_a=None, idx_b=None)
+        ri = dict(device=dev, generator=gen, dtype=torch.int32)
+        return dict(z, u_shift=None,
+                    idx_a=torch.randint(0, nc, (ng,), **ri),
+                    idx_b=torch.randint(0, nc - 1, (ng,), **ri))
+
+    def sn_inj(ns, split, pair_mode):
+        if pair_mode == "roll":
+            u = torch.rand(4, device=dev, generator=gen)
+            if split == ns - 1:
+                u[1:] = top
+            return dict(u4=u, idx=None, perm=None)
+        ri = dict(device=dev, generator=gen, dtype=torch.int32)
+        return dict(u4=None, idx=torch.randint(0, ng, (3, ng), **ri),
+                    perm=torch.randint(0, 6, (ng,), **ri))
+
+    for nd in nds:
+        de_base = dict(gamma0=dk.de_gamma0(None, nd), sigma=0.1, z=None,
+                       u_shift=None, idx_a=None, idx_b=None)
+        sn_base = dict(gammas=1.7, ndim_global=nd, u4=None, idx=None,
+                       perm=None)
+        for ns in (2, 3, 4):
+            coords = torch.randn(ng * ns, nd, device=dev, generator=gen)
+            for split in range(ns):
+                for pair_mode in ("roll", "random"):
+                    case(dk, "de", coords, split, ns, pair_mode,
+                         de_inj(ns, split, pair_mode), de_base)
+                    if ns == 4 or (ns == 2 and pair_mode == "roll"):
+                        case(snk, "snooker", coords, split, ns, pair_mode,
+                             sn_inj(ns, split, pair_mode), sn_base)
+        for ns in (2, 4):
+            coords = misaligned(torch, torch.randn(ng * ns, nd, device=dev,
+                                                   generator=gen))
+            for pair_mode in ("roll", "random"):
+                case(dk, "de", coords, 1, ns, pair_mode, {}, de_base,
+                     draws=("host offset",))
+                if ns == 4 or pair_mode == "roll":
+                    case(snk, "snooker", coords, 1, ns, pair_mode, {},
+                         sn_base, draws=("host offset",))
+    return n_cmp
 
 
 def tile_sweep(torch, coords, q, f, lp_q, work, nsplits, seed, offset,
@@ -495,21 +622,81 @@ def tile_sweep(torch, coords, q, f, lp_q, work, nsplits, seed, offset,
              for t, d in got.items()}, plan.tile)
 
 
-def acceptance_flips(torch, log_u, lnp_k, lnp_p):
-    """Walkers whose acceptance differs between two lnpdiff vectors; each
-    must lie within the two's largest disagreement of the threshold.
-    Returns ``(flips, margin)``."""
-    margin = float((lnp_k - lnp_p).abs().max())
-    flips = (log_u < lnp_k) != (log_u < lnp_p)
-    if bool(((lnp_p - log_u).abs()[flips] > margin).any()):
-        raise AssertionError("acceptance differs away from the threshold")
-    return int(flips.sum()), margin
+def identical(got, want, what):
+    """Raise unless every tensor of ``got`` equals its ``want`` exactly
+    (``torch.equal``); returns the max abs error, 0.0."""
+    if not all(a.equal(b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
-def phase7(torch, dev, errs, nw=NW3, nd=ND3):
+def k5_tile_sweep(torch, coords, seed, offset, reps=100):
+    """K5a's and K5b's device us per launch for split 0 of ``coords``
+    (nsplits 2, roll mode, the in-kernel Philox) at every tile of
+    ``K5_SWEEP_TILES``: K5a direct (its own rows read from device memory)
+    and staged (bulk-copied to shared memory, where they fit), K5b with
+    one warp per walker.  Eager launches, profiled; the tiles are swept
+    up, then down, and the two passes averaged.  Returns ``{tile: {name:
+    us}}`` and the plans' tiles ``{kernel: tile}``."""
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import snooker_kernel as snk
+    from emcee_tpu_torch.ops._wrap import (
+        DE_THREADS, SMEM_LIMIT, STATIC_SMEM, de_plan, device_sm_count)
+
+    nw, nd = coords.shape
+    ng = nw // 2
+    dev = coords.device
+    n_sm = device_sm_count(dev)
+    q, f = torch.empty(ng, nd, device=dev), torch.empty(ng, device=dev)
+    de_kw = dict(gamma0=dk.de_gamma0(None, nd), sigma=1e-5, scale=None,
+                 pair_mode="roll", seed=seed, offset=offset, z=None,
+                 u_shift=None, idx_a=None, idx_b=None)
+    sn_kw = dict(gammas=1.7, scale=None, ndim_global=nd, pair_mode="roll",
+                 seed=seed, offset=offset, u4=None, idx=None, perm=None)
+    plans = {"de_propose": de_plan(ng, nd, 0, n_sm, coords.data_ptr(),
+                                   q.data_ptr(), stage=True),
+             "snooker_propose": de_plan(ng, nd, 0, n_sm, coords.data_ptr(),
+                                        q.data_ptr(), snooker=True)}
+
+    def runs(tile):
+        out = {}
+        grid = -(-ng // tile)
+        if tile in K5_SWEEP_TILES["de_propose"]:
+            pd = plans["de_propose"]._replace(
+                tile=tile, grid=grid, stage=0, smem=0,
+                threads=max(DE_THREADS, 32 * -(-tile // 32) + 32))
+            out["K5a direct"] = ("de_propose", lambda: dk._launch(
+                pd, coords, q, f, 0, 2, **de_kw))
+            if (plans["de_propose"].stage
+                    and 4 * tile * nd <= SMEM_LIMIT - STATIC_SMEM):
+                ps = pd._replace(stage=1, smem=4 * tile * nd)
+                out["K5a staged"] = ("de_propose", lambda: dk._launch(
+                    ps, coords, q, f, 0, 2, **de_kw))
+        if tile in K5_SWEEP_TILES["snooker_propose"]:
+            pb = plans["snooker_propose"]._replace(tile=tile, grid=grid,
+                                                   threads=32 * tile)
+            out["K5b"] = ("snooker_propose", lambda: snk._launch(
+                pb, coords, q, f, 0, 2, **sn_kw))
+        return out
+
+    tiles = sorted(set().union(*K5_SWEEP_TILES.values()))
+    got = {}
+    for tile in tiles + tiles[::-1]:
+        for name, (kname, fn) in runs(tile).items():
+            got.setdefault(tile, {}).setdefault(name, []).append(
+                profiled_ms(torch, lambda: [fn() for _ in range(reps)],
+                            kname) * 1e3)
+    return ({t: {k: sum(v) / len(v) for k, v in d.items()}
+             for t, d in got.items()},
+            {k: p.tile for k, p in plans.items()})
+
+
+def phase7(torch, np, dev, errs, nw=NW3, nd=ND3):
     """K5a, K5b and K2 at workload 3's shapes against their plain
-    versions, then one whole proposal of each move."""
-    from emcee_tpu_torch import State, moves
+    versions, bit for bit; the K1/K2 and K5a/K5b edge-shape sweeps at
+    large ndim; one whole proposal of each move; and 64 graph-replayed
+    workload-3 proposals against the plain versions' eager chain."""
+    from emcee_tpu_torch import EnsembleSampler, State, moves
     from emcee_tpu_torch.model import Model, wrap_log_prob_fn
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops import de_kernel as dk
@@ -541,20 +728,16 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                 q, f = dk.de_propose(*args, **kw)
                 same_from_device_offset(torch, dk.de_propose, args, kw,
                                         (q, f))
-                qp, fp = dk.de_propose_plain(*args, **kw)
-                errs["de_propose"] = max(errs["de_propose"], max_err(q, qp),
-                                         max_err(f, fp))
-        log(f"phase 7: K5a {pair_mode}: q max abs err "
-            f"{errs['de_propose']:.3g} (tolerance {RTOL:g}); device-offset "
-            f"draws identical")
+                errs["de_propose"] = max(errs["de_propose"], identical(
+                    (q, f), dk.de_propose_plain(*args, **kw),
+                    f"K5a {pair_mode} split {split}"))
+        log(f"phase 7: K5a {pair_mode}: identical to the plain version "
+            f"(torch.equal); device-offset draws identical")
 
-    gauss = wrap_log_prob_fn(gaussian, vectorize=True)
-    n_flip_all = 0
     for pair_mode, nsplits in (("roll", 2), ("roll", 4), ("random", 4)):
         ngs = ng  # 5000 walkers per split: 2e4 walkers with nsplits=4
         c = coords if nsplits == 2 else torch.randn(
             ngs * nsplits, nd, device=dev, generator=gen)
-        lp = gaussian(c)
         for split in range(nsplits):
             if pair_mode == "roll":
                 inj = dict(u4=torch.rand(4, device=dev, generator=gen))
@@ -564,8 +747,6 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                                       generator=gen, dtype=torch.int32),
                     perm=torch.randint(0, 6, (ngs,), device=dev,
                                        generator=gen, dtype=torch.int32))
-            log_u = torch.log(torch.rand(ngs, device=dev, generator=gen))
-            lp_s = lp[split * ngs:(split + 1) * ngs]
             for kw in (dict(**inj), dict(scale=scale, **inj),
                        dict(seed=seed, offset=offset)):
                 args = (c, split, nsplits)
@@ -574,18 +755,12 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                 q, f = snk.snooker_propose(*args, **kw)
                 same_from_device_offset(torch, snk.snooker_propose, args, kw,
                                         (q, f))
-                qp, fp = snk.snooker_propose_plain(*args, **kw)
-                e = max(max_err(q, qp, SN_RTOL, SN_ATOL),
-                        max_err(f, fp, 0.0, SN_F_ATOL))
-                errs["snooker_propose"] = max(errs["snooker_propose"], e)
-                n_flip, margin = acceptance_flips(
-                    torch, log_u, f + gauss(q)[0] - lp_s,
-                    fp + gauss(qp)[0] - lp_s)
-                n_flip_all += n_flip
-        log(f"phase 7: K5b {pair_mode} nsplits={nsplits}: q/factor max abs "
-            f"err {errs['snooker_propose']:.3g} (tolerance {SN_ATOL:g} / "
-            f"{SN_F_ATOL:g}); acceptance flips so far {n_flip_all}, each "
-            f"within the lnpdiff disagreement (last {margin:.3g})")
+                errs["snooker_propose"] = max(
+                    errs["snooker_propose"], identical(
+                        (q, f), snk.snooker_propose_plain(*args, **kw),
+                        f"K5b {pair_mode} nsplits {nsplits} split {split}"))
+        log(f"phase 7: K5b {pair_mode} nsplits={nsplits}: identical to the "
+            f"plain version (torch.equal); device-offset draws identical")
 
     # K2 at ndim = 100, on a snooker proposal.
     q, f = snk.snooker_propose(coords, 0, 2, gammas=1.7, ndim_global=nd,
@@ -620,8 +795,15 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
         f"2-4: {n_cmp} comparisons of K1/K2 with their plain versions, all "
         f"identical ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    n_cmp = k5_edge_sweep(torch, dev)
+    log(f"phase 7: K5 edge-shape sweep, ndim "
+        f"{', '.join(map(str, K5_SWEEP_NDS))}, ng {SWEEP_NG}: {n_cmp} "
+        f"comparisons of K5a/K5b with their plain versions, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # One whole proposal of each move, kernel path against plain path.
-    model = Model(gauss, nw, nd)
+    model = Model(wrap_log_prob_fn(gaussian, vectorize=True), nw, nd)
     lp = gaussian(coords)
     for mv in (moves.DEMove(pair_mode="roll", randomize_split=False),
                moves.DEMove(sigma=0.3),
@@ -635,26 +817,22 @@ def phase7(torch, dev, errs, nw=NW3, nd=ND3):
                 (5, 9), State(coords.clone(), lp.clone()), model, ())
         name = (f"{type(mv).__name__}({mv.pair_mode}, nsplits={mv.nsplits}, "
                 f"randomize_split={mv.randomize_split})")
-        n_flip = int((acc_k != acc_p).sum())
-        if isinstance(mv, moves.DEMove):
-            if n_flip:
-                raise AssertionError(f"{name}: acceptance differs")
-            e = max(max_err(st_k.coords, st_p.coords),
-                    max_err(st_k.log_prob, st_p.log_prob))
-            note = "acceptance identical"
-        else:
-            # A flipped walker changes its own row and, in later splits,
-            # at most the few walkers that pick it.
-            tol = SN_ATOL + SN_RTOL * st_p.coords.abs()
-            bad = int(((st_k.coords - st_p.coords).abs() > tol).any(1).sum())
-            if n_flip > max(2, nw // 1000) or bad > 8 * n_flip:
-                raise AssertionError(f"{name}: {n_flip} acceptance flips, "
-                                     f"{bad} rows differ")
-            ok = ((st_k.coords - st_p.coords).abs() <= tol).all(1)
-            e = float((st_k.coords - st_p.coords).abs()[ok].max())
-            note = f"{n_flip} acceptance flips, {bad} rows beyond tolerance"
-        log(f"phase 7: whole proposal {name}: {note} (acceptance "
-            f"{float(acc_k.float().mean()):.3f}), coords max abs err {e:.3g}")
+        if not (torch.equal(acc_k, acc_p) and torch.equal(
+                st_k.coords, st_p.coords) and torch.equal(st_k.log_prob,
+                                                          st_p.log_prob)):
+            raise AssertionError(f"whole proposal {name}: kernel path and "
+                                 "plain path differ")
+        log(f"phase 7: whole proposal {name}: identical to the plain path "
+            f"(acceptance {float(acc_k.float().mean()):.3f})")
+
+    # 64 graph-replayed proposals of workload 3 against the plain chain.
+    log_prob3, p03 = workload3_target(np, torch, dev)
+    acc64 = graph_vs_plain_chain(torch, lambda: EnsembleSampler(
+        NW3, ND3, log_prob3, vectorize=True, seed=9, device=dev,
+        moves=workload3_moves(moves)), p03)
+    log(f"phase 7: 64 graph-replayed workload-3 proposals equal the same "
+        f"64 run eagerly on the plain versions, bit for bit (acceptance "
+        f"{acc64:.4f})")
 
 
 def move_seq(smp, state, n, thin_by=1, store=True):
@@ -1122,7 +1300,11 @@ def main() -> int:
     log(f"phase 2: edge-shape sweep, ndim 1, 3, 5, 8, ng {SWEEP_NG}, "
         f"nsplits 2-4: {n_cmp} comparisons of K1/K2 with their plain "
         f"versions, all identical ({time.perf_counter() - t0:.1f} s)")
-    acc64 = graph_vs_plain_chain(torch, np, dev)
+    p0 = np.random.default_rng(2).normal(size=(NW, ND)).astype(np.float32)
+    acc64 = graph_vs_plain_chain(torch, lambda: EnsembleSampler(
+        NW, ND, gaussian, vectorize=True, seed=8, device=dev,
+        moves=moves.StretchMove(randomize_split=False, pair_mode="roll")),
+        p0)
     log(f"phase 2: 64 graph-replayed main-path proposals equal the same 64 "
         f"run eagerly on the plain versions, bit for bit (acceptance "
         f"{acc64:.4f})")
@@ -1249,13 +1431,13 @@ def main() -> int:
         f"{acc5:.4f}")
 
     # -- 7. K5a / K5b against their plain versions ---------------------------
+    # Float32 matmuls in full float32 on the card (workload 3's x @ W).
+    torch.backends.cuda.matmul.allow_tf32 = False
     errs.update(de_propose=0.0, snooker_propose=0.0)
-    phase7(torch, dev, errs)
+    phase7(torch, np, dev, errs)
     torch.cuda.synchronize()
 
     # -- 8. workload 3 -------------------------------------------------------
-    # Float32 matmuls in full float32 on the card (the log-prob's x @ W).
-    torch.backends.cuda.matmul.allow_tf32 = False
     w3 = phase8(torch, np, dev, card)
 
     # -- 6. per-kernel times -----------------------------------------------
@@ -1298,6 +1480,16 @@ def main() -> int:
                 f"{' (the plan)' if t == tile else ''}: device us/launch "
                 + ", ".join(f"{k} {v:.3f}" for k, v in sorted(row.items()))
                 + f" {card}")
+    # K5a (direct, the kept variant, and staged) and K5b over tiles, at
+    # workload 3's shape.
+    k5_us, k5_tiles = k5_tile_sweep(torch, coords3, **k2)
+    for t, row in k5_us.items():
+        plan_of = [k for k, v in k5_tiles.items() if v == t]
+        log(f"phase 6: K5 tile sweep nd100, tile {t:3d}"
+            f"{f' (the plan of {plan_of})' if plan_of else ''}: device "
+            f"us/launch " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in sorted(row.items()))
+            + f" {card}")
     times = {
         "de_propose": (
             cuda_ms(torch, lambda: dk.de_propose(coords3, 0, 2, **k5a)),
@@ -1436,6 +1628,19 @@ def main() -> int:
             "library_ms": None, "ms_host_offset": offset_ms[kname][0],
             "ms_device_offset": offset_ms[kname][1],
         }
+        if kname in ("de_propose", "snooker_propose"):
+            part = "K5a" if kname == "de_propose" else "K5b"
+            row["redesigned"] = "PR 5"
+            row["tile_sweep_us"] = {
+                "nd100": {t: {k: v for k, v in r.items()
+                              if k.startswith(part)}
+                          for t, r in k5_us.items()
+                          if any(k.startswith(part) for k in r)}}
+            if kname == "de_propose":
+                at = k5_us[k5_tiles[kname]]
+                row.update(variant="staged",
+                           ms_staged_eager=at["K5a staged"] * 1e-3,
+                           ms_direct_eager=at["K5a direct"] * 1e-3)
         if kname in ("stretch_propose", "accept_select"):
             part = "K1" if kname == "stretch_propose" else "K2"
             row["redesigned"] = "PR 4"

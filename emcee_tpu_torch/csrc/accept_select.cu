@@ -60,28 +60,12 @@
 
 #include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // TILE_MAX in ops/_wrap.py
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 template <bool kVec, bool kStage>
 __global__ void __launch_bounds__(kThreads) accept_select_kernel(
@@ -106,21 +90,8 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
   const int n_staged = kStage ? (n & ~3) : 0;
 
   if (kStage && t == 0 && n_staged > 0) {
-    const uint32_t bar = smem_addr(&s_bar);
-    const uint32_t bytes = static_cast<uint32_t>(n_staged) * 4u;
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-        "r"(bytes)
-        : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(s_q4)),
-        "l"(src), "r"(bytes), "r"(bar)
-        : "memory");
+    bulk_copy_to_shared(s_q4, src, static_cast<uint32_t>(n_staged) * 4u,
+                        &s_bar);
   }
 
   // -- phase A: one thread per walker -------------------------------------
@@ -147,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     s_acc[t] = acc;
   }
   __syncthreads();
-  if (kStage && n_staged > 0) mbar_wait(smem_addr(&s_bar), 0);
+  if (kStage && n_staged > 0) bulk_copy_wait(&s_bar);
 
   // -- phase B: the tile's rows as one flat, masked stream ----------------
   const float* s_q = reinterpret_cast<const float*>(s_q4);

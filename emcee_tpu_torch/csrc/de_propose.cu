@@ -1,4 +1,4 @@
-// K5a: the fused differential-evolution proposal.
+// K5a: the fused differential-evolution proposal, tiled.
 //
 // Replaces the XLA-fused chain of emcee_tpu/moves/de.py:45-85
 // (DEMove.get_proposal, roll branch :56-71 and random branch :72-83).  As
@@ -12,8 +12,7 @@
 //   z        = Box-Muller of Philox words 0 and 2 at (i, split, offset)
 //                                                          [or injected]
 //   roll:    u1, u2 = Philox words 0, 1 at (ROLL_LANE, split, offset)
-//                     (every thread draws the same block; or injected as
-//                      two uniforms)
+//                     [or injected as two uniforms]
 //            s1 = int(u1 nc) % nc, d = 1 + int(u2 (nc - 1)),
 //            s2 = (s1 + d) % nc
 //            a  = (i + s1) % nc, b = (i + s2) % nc
@@ -27,67 +26,173 @@
 //
 // What bounds it on an H100: bytes.  Per walker it reads s and two
 // complement rows and writes q: at the workload-3 shape (ng = 5000,
-// ndim = 100) about 6 MB, ~1.8 us at 3.35 TB/s; the arithmetic (one
-// Philox, one logf, one cosf per walker, three flops per element) is far
-// below the float32 rate.  The design answers the bytes: one warp owns one
-// walker, so the lanes read and write a row together (coalesced, 16-byte
-// float4 accesses when ndim % 4 == 0 and the rows are aligned), the
-// walker's normal is computed in registers from the counter (every lane of
-// the warp computes the same value in lock step, so no shuffle is needed),
-// and the complement is addressed in place through K1's row map
-// r + (r >= split*ng)*ng: no torch.cat of the other groups.
+// ndim = 100) the function must move 6 MB (each input byte once), ~1.8 us
+// at 3.35 TB/s.  The arithmetic (one or two Philox blocks, one logf and
+// one cosf per walker, three flops per element) is far below the float32
+// rate, and there is no matrix product, so no tensor-core (wgmma) work
+// exists.
+//
+// The first design gave one warp a walker: every lane of the warp repeated
+// the walker's scalar work in lock step (the offset word, its Philox block
+// and Box-Muller, a second Philox block for the split's roll draw -- the
+// same value in all 5000 warps -- four runtime integer modulos), some 400
+// warp instructions before the first row load, and at ndim 100 only 25 of
+// the 32 lanes had a float4 to move.  The tiled design (K1's):
+//   * A block owns a tile of `tile` consecutive walkers (ops/_wrap.py
+//     de_plan: four blocks or more for every SM; 8 at workload 3's shape,
+//     the fastest tile of a sweep over 4-64) and has `threads` threads,
+//     at least one warp more than the tile.
+//   * Phase A, one thread per walker: the offset word, the walker's Philox
+//     block, Box-Muller and gamma (into shared memory), the zero factor,
+//     and in random mode its own Philox block for the two partner rows
+//     (into shared memory).  The first lane of the last warp, which holds
+//     no walker, makes the split's roll draw once per block beside them
+//     and puts s1 and s2 in shared memory.
+//   * Phase B, after one __syncthreads: a flat loop over the tile's
+//     tile*ndim elements.  The own rows s and the output q are contiguous
+//     spans.  In roll mode consecutive walkers take consecutive complement
+//     rows for both partners, so each partner span is contiguous except at
+//     the wrap at nc and the jump over the split's own block; the wrap is
+//     one compare and subtract ((i + s1) < 2 nc), equal to the modulo for
+//     every shift.  In random mode each element reads its walker's partner
+//     rows from shared memory.  Where ndim % 4 == 0 and both bases are
+//     16-byte aligned (kVec, from the plan) every row -- partner rows
+//     included, which start at arbitrary rows -- is 16-byte aligned, so all
+//     four streams are float4; otherwise every access is a scalar,
+//     coalesced one.
+//   * kStage: at block start the spare lane issues the tile's s span (its
+//     16-byte multiple) as one TMA bulk copy (cp.async.bulk) into shared
+//     memory, completed on an mbarrier, so the load runs while phase A
+//     draws; phase B reads s from shared memory and has only the two
+//     partner rows to fetch from device memory.  The variant kept is the
+//     staged one, wherever it can be (a 16-byte aligned span that fits in
+//     shared memory): at workload 3's shape on the H100 it beat reading s
+//     directly in phase B in every turn (chip_smoke.py phase 6, PERF.md).
+//     The direct variant serves the rest.
 //
 // Arithmetic uses the _rn intrinsics so that nvcc cannot contract a
 // multiply and an add into an FMA: every rounding matches the plain
-// PyTorch version (ops/de_kernel.py).
+// PyTorch version (ops/de_kernel.py), bit for bit; logf and cosf are the
+// accurate libdevice functions (no --use_fast_math).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kTileMax = 256;         // TILE_MAX in ops/_wrap.py
+constexpr int kThreadsMax = kTileMax + 32;
 
 __device__ __forceinline__ float de_elem(float s, float ca, float cb,
                                          float gamma) {
   return __fadd_rn(s, __fmul_rn(gamma, __fsub_rn(cb, ca)));
 }
 
-template <bool kVec4>
-__global__ void de_propose_kernel(
+// Complement index r -> ensemble row: the split's own rows are skipped.
+__device__ __forceinline__ int complement_row(int r, int lo, int ng) {
+  return r + (r >= lo ? ng : 0);
+}
+
+// The partner rows (ra, rb) of tile walker w: random mode from shared
+// memory; roll mode (t0 + w + shift) % nc, where t0 + w < ng <= nc and
+// shift < nc, so the modulo is one compare and subtract.
+__device__ __forceinline__ void partner_rows(int w, int pair_mode,
+                                             const int* s_ra,
+                                             const int* s_rb, int t0, int s1,
+                                             int s2, int nc, int lo, int ng,
+                                             int& ra, int& rb) {
+  if (pair_mode) {
+    ra = s_ra[w];
+    rb = s_rb[w];
+    return;
+  }
+  int a = t0 + w + s1;
+  int b = t0 + w + s2;
+  a -= (a >= nc) ? nc : 0;
+  b -= (b >= nc) ? nc : 0;
+  ra = complement_row(a, lo, ng);
+  rb = complement_row(b, lo, ng);
+}
+
+template <bool kVec, bool kStage>
+__global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
     const float* __restrict__ coords, float* __restrict__ q,
-    float* __restrict__ factor, int ng, int nd, int split, int nc,
+    float* __restrict__ factor, int ng, int nd, int split, int nc, int tile,
     int pair_mode, float gamma0, const float* __restrict__ scale,
     float sigma, const float* __restrict__ z_in,
     const float* __restrict__ u_shift, const int* __restrict__ idx_a,
     const int* __restrict__ idx_b, uint32_t k0, uint32_t k1,
     const long long* __restrict__ offset_dev, unsigned long long offset_inc) {
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= ng) return;  // uniform across the warp
+  __shared__ float s_gamma[kTileMax];
+  __shared__ int s_ra[kTileMax];  // random mode: the partner rows
+  __shared__ int s_rb[kTileMax];
+  __shared__ int s_shift[2];      // roll mode: s1, s2
+  __shared__ uint64_t s_bar;
+  extern __shared__ float4 s_own4[];  // kStage: the tile's s span
 
-  const uint32_t ui = static_cast<uint32_t>(i);
-  const uint32_t us = static_cast<uint32_t>(split);
-  const uint64_t off = philox_offset(offset_dev, offset_inc);
-  float z;
-  if (z_in != nullptr) {
-    z = z_in[i];
-  } else {
-    const uint4 w = philox_at(ui, us, off, k0, k1);
-    z = philox_normal(w.x, w.z);
+  const int t = threadIdx.x;
+  const int spare = blockDim.x - 32;  // first lane of the last warp
+  const int t0 = blockIdx.x * tile;
+  const int cnt = min(tile, ng - t0);
+  const int n = cnt * nd;
+  const int lo = split * ng;
+  const float* own = coords + static_cast<int64_t>(lo + t0) * nd;
+  float* out = q + static_cast<int64_t>(t0) * nd;
+  // The staged prefix: a multiple of 16 bytes from a 16-byte aligned span.
+  const int n_staged = kStage ? (n & ~3) : 0;
+
+  if (kStage && t == spare && n_staged > 0) {
+    bulk_copy_to_shared(s_own4, own, static_cast<uint32_t>(n_staged) * 4u,
+                        &s_bar);
   }
 
-  int a, b;
-  if (pair_mode == 0) {
+  // -- phase A: one thread per walker; the spare lane's roll draw -------
+  if (t < cnt) {
+    const int i = t0 + t;
+    const uint64_t off = philox_offset(offset_dev, offset_inc);
+    float z;
+    if (z_in != nullptr) {
+      z = z_in[i];
+    } else {
+      const uint4 w = philox_at(static_cast<uint32_t>(i),
+                                static_cast<uint32_t>(split), off, k0, k1);
+      z = philox_normal(w.x, w.z);
+    }
+    const float g = scale != nullptr ? __fmul_rn(gamma0, *scale) : gamma0;
+    s_gamma[t] = __fmul_rn(g, __fadd_rn(1.0f, __fmul_rn(sigma, z)));
+    factor[i] = 0.0f;
+    if (pair_mode) {
+      int a, b;
+      if (idx_a != nullptr) {
+        a = idx_a[i];
+        b = idx_b[i];
+      } else {
+        const uint4 w = philox_at(
+            static_cast<uint32_t>(i),
+            static_cast<uint32_t>(split) | EMCEE_PAIR_BLOCK, off, k0, k1);
+        a = min(static_cast<int>(
+                    __fmul_rn(philox_uniform(w.x), static_cast<float>(nc))),
+                nc - 1);
+        b = min(static_cast<int>(__fmul_rn(philox_uniform(w.y),
+                                           static_cast<float>(nc - 1))),
+                nc - 2);
+      }
+      b += (b >= a) ? 1 : 0;
+      s_ra[t] = complement_row(a, lo, ng);
+      s_rb[t] = complement_row(b, lo, ng);
+    }
+  } else if (t == spare && !pair_mode) {
     float u1, u2;
     if (u_shift != nullptr) {
       u1 = u_shift[0];
       u2 = u_shift[1];
     } else {
-      const uint4 w = philox_at(EMCEE_ROLL_LANE, us, off, k0, k1);
+      const uint4 w =
+          philox_at(EMCEE_ROLL_LANE, static_cast<uint32_t>(split),
+                    philox_offset(offset_dev, offset_inc), k0, k1);
       u1 = philox_uniform(w.x);
       u2 = philox_uniform(w.y);
     }
@@ -95,56 +200,49 @@ __global__ void de_propose_kernel(
         static_cast<int>(__fmul_rn(u1, static_cast<float>(nc))) % nc;
     const int d =
         1 + static_cast<int>(__fmul_rn(u2, static_cast<float>(nc - 1)));
-    const int s2 = (s1 + d) % nc;
-    a = (i + s1) % nc;
-    b = (i + s2) % nc;
-  } else {
-    if (idx_a != nullptr) {
-      a = idx_a[i];
-      b = idx_b[i];
-    } else {
-      const uint4 w = philox_at(ui, us | EMCEE_PAIR_BLOCK, off, k0, k1);
-      a = min(static_cast<int>(
-                  __fmul_rn(philox_uniform(w.x), static_cast<float>(nc))),
-              nc - 1);
-      b = min(static_cast<int>(__fmul_rn(philox_uniform(w.y),
-                                         static_cast<float>(nc - 1))),
-              nc - 2);
-    }
-    b += (b >= a) ? 1 : 0;
+    s_shift[0] = s1;
+    s_shift[1] = (s1 + d) % nc;
   }
-  // Complement index -> ensemble row: the split's own rows are skipped.
-  const int lo = split * ng;
-  const int64_t row_a = a + (a >= lo ? ng : 0);
-  const int64_t row_b = b + (b >= lo ? ng : 0);
+  __syncthreads();
+  if (kStage && n_staged > 0) bulk_copy_wait(&s_bar);
 
-  const float g = scale != nullptr ? __fmul_rn(gamma0, *scale) : gamma0;
-  const float gamma = __fmul_rn(g, __fadd_rn(1.0f, __fmul_rn(sigma, z)));
-
-  const int64_t row_s = static_cast<int64_t>(lo) + i;
-  if (kVec4) {
-    const int n4 = nd >> 2;
-    const float4* s4 = reinterpret_cast<const float4*>(coords + row_s * nd);
-    const float4* a4 = reinterpret_cast<const float4*>(coords + row_a * nd);
-    const float4* b4 = reinterpret_cast<const float4*>(coords + row_b * nd);
-    float4* q4 = reinterpret_cast<float4*>(q + static_cast<int64_t>(i) * nd);
-    for (int d = lane; d < n4; d += 32) {
-      const float4 s = s4[d], ca = a4[d], cb = b4[d];
-      q4[d] = make_float4(de_elem(s.x, ca.x, cb.x, gamma),
-                          de_elem(s.y, ca.y, cb.y, gamma),
-                          de_elem(s.z, ca.z, cb.z, gamma),
-                          de_elem(s.w, ca.w, cb.w, gamma));
+  // -- phase B: the tile's elements as one flat stream ----------------------
+  const int s1 = pair_mode ? 0 : s_shift[0];
+  const int s2 = pair_mode ? 0 : s_shift[1];
+  if (kVec) {
+    // ndim % 4 == 0: a float4 never straddles two rows, and n % 4 == 0.
+    const float4* own4 = reinterpret_cast<const float4*>(own);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int k = t; k < (n >> 2); k += blockDim.x) {
+      const int e = 4 * k;
+      const int w = e / nd;
+      const int d = e - w * nd;
+      int ra, rb;
+      partner_rows(w, pair_mode, s_ra, s_rb, t0, s1, s2, nc, lo, ng, ra, rb);
+      const float4 s = kStage ? s_own4[k] : own4[k];
+      const float4 ca = *reinterpret_cast<const float4*>(
+          coords + static_cast<int64_t>(ra) * nd + d);
+      const float4 cb = *reinterpret_cast<const float4*>(
+          coords + static_cast<int64_t>(rb) * nd + d);
+      const float gamma = s_gamma[w];
+      out4[k] = make_float4(de_elem(s.x, ca.x, cb.x, gamma),
+                            de_elem(s.y, ca.y, cb.y, gamma),
+                            de_elem(s.z, ca.z, cb.z, gamma),
+                            de_elem(s.w, ca.w, cb.w, gamma));
     }
   } else {
-    const float* s_row = coords + row_s * nd;
-    const float* a_row = coords + row_a * nd;
-    const float* b_row = coords + row_b * nd;
-    float* q_row = q + static_cast<int64_t>(i) * nd;
-    for (int d = lane; d < nd; d += 32) {
-      q_row[d] = de_elem(s_row[d], a_row[d], b_row[d], gamma);
+    const float* s_own = reinterpret_cast<const float*>(s_own4);
+    for (int e = t; e < n; e += blockDim.x) {
+      const int w = e / nd;
+      const int d = e - w * nd;
+      int ra, rb;
+      partner_rows(w, pair_mode, s_ra, s_rb, t0, s1, s2, nc, lo, ng, ra, rb);
+      const float s = (kStage && e < n_staged) ? s_own[e] : own[e];
+      out[e] = de_elem(s, coords[static_cast<int64_t>(ra) * nd + d],
+                       coords[static_cast<int64_t>(rb) * nd + d],
+                       s_gamma[w]);
     }
   }
-  if (lane == 0) factor[i] = 0.0f;
 }
 
 }  // namespace
@@ -155,21 +253,27 @@ __global__ void de_propose_kernel(
 // in random mode idx_a/idx_b (the raw picks, before b is moved past a)
 // override the in-kernel partner draw.  scale == nullptr means untuned.
 // The Philox offset is *offset_dev + offset (offset alone when offset_dev
-// is null).
-// vec4 != 0 promises ndim % 4 == 0 and 16-byte aligned coords and q.
+// is null).  tile, grid, threads, vec, stage and smem are the launch plan
+// of ops/_wrap.py de_plan: threads >= 32 * ceil(tile / 32) + 32; vec != 0
+// promises ndim % 4 == 0 and 16-byte aligned coords and q; stage != 0
+// that every tile's span of own rows is 16-byte aligned, and smem is its
+// dynamic shared memory (4 * tile * nd when staged, else 0).
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_de_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float gamma0, const float* scale,
     float sigma, const float* z, const float* u_shift, const int* idx_a,
-    const int* idx_b, int vec4, unsigned long long seed,
-    const long long* offset_dev, unsigned long long offset, void* stream) {
+    const int* idx_b, int tile, int grid, int threads, int vec, int stage,
+    int smem, unsigned long long seed, const long long* offset_dev,
+    unsigned long long offset, void* stream) {
   const int nc = (nsplits - 1) * ng;
-  const int blocks = (ng + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  auto kernel = vec4 ? de_propose_kernel<true> : de_propose_kernel<false>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, q, factor, ng, nd, split, nc, pair_mode, gamma0, scale, sigma,
-      z, u_shift, idx_a, idx_b, static_cast<uint32_t>(seed),
+  auto kernel = vec ? (stage ? de_propose_kernel<true, true>
+                             : de_propose_kernel<true, false>)
+                    : (stage ? de_propose_kernel<false, true>
+                             : de_propose_kernel<false, false>);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      coords, q, factor, ng, nd, split, nc, tile, pair_mode, gamma0, scale,
+      sigma, z, u_shift, idx_a, idx_b, static_cast<uint32_t>(seed),
       static_cast<uint32_t>(seed >> 32), offset_dev, offset);
   return static_cast<int>(cudaGetLastError());
 }

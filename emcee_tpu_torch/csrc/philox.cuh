@@ -12,7 +12,7 @@
 // walker's Box-Muller normal.  Split word PAIR_BLOCK | split: the DE and
 // snooker random-pair picks (words 0-2) and snooker role permutation
 // (word 3).  walker_index = ROLL_LANE: the split's roll draws (one Philox
-// block), made once per block in K1 and still in every thread in K5a/K5b.
+// block), made once per block, by one lane, in K1, K5a and K5b.
 //
 // The offset is a device word plus an increment: a kernel recorded into a
 // CUDA graph reads the chain's proposal counter from device memory

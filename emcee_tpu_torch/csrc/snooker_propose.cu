@@ -1,4 +1,4 @@
-// K5b: the fused DE-snooker proposal.
+// K5b: the fused DE-snooker proposal, tiled.
 //
 // Replaces the XLA-fused chain of emcee_tpu/moves/de_snooker.py:78-139
 // (DESnookerMove._draw_roll, _draw_random and get_proposal).  As for K1,
@@ -8,11 +8,10 @@
 // Per walker i of split group `split` (ng walkers per group, groups the
 // contiguous row blocks of the ensemble buffer), three picks from the
 // other groups take the roles (z, z1, z2):
-//   roll:    four uniforms at (ROLL_LANE, split, offset), one Philox block
-//            that every thread draws (or injected): u0 picks the role
-//            permutation (nsplits = 4
-//            only; with nsplits = 2 the three picks come from shifts of the
-//            one complement and keep their order), u1..u3 the shifts
+//   roll:    four uniforms at (ROLL_LANE, split, offset) [or injected]:
+//            u0 picks the role permutation (nsplits = 4 only; with
+//            nsplits = 2 the three picks come from shifts of the one
+//            complement and keep their order), u1..u3 the shifts
 //            sh_k = int(u_k ng) of pick k, which lies in group
 //            g_k = (k % (nsplits-1)) skipping `split`, row g_k ng +
 //            (i + sh_k) % ng.
@@ -28,19 +27,56 @@
 //
 // What bounds it on an H100: bytes.  Per walker it reads s and three rows
 // and writes q and factor: at the workload-3 shape (ng = 5000,
-// ndim = 100) the function must move about 6 MB (each input byte once),
-// ~1.8 us at 3.35 TB/s; about ten flops per element are far below the
-// float32 rate.  The design: one warp owns one walker, so the lanes read a
-// row together (coalesced, 16-byte float4 accesses when ndim % 4 == 0 and
-// the rows are aligned); the two sums are warp shuffles (no shared memory,
-// no second launch); the three passes over a row (norm, projection,
-// update) read it again from L1, not from HBM; the complement is read in
-// place, with no gather of the picks into a (3, ng, ndim) stack.
+// ndim = 100) the function must move 6 MB (each input byte once), ~1.8 us
+// at 3.35 TB/s; about ten flops per element are far below the float32
+// rate, and there is no matrix product, so no tensor-core (wgmma) work
+// exists.  What keeps it from that bound is latency: each walker's row
+// passes through two reductions, behind a trip to memory, and each
+// element through a correctly rounded division and two logs.
 //
-// The sums run in another order than torch.sum, so q and factor match the
-// plain version (ops/snooker_kernel.py) to rounding, not bit for bit; each
-// element's own arithmetic uses the _rn intrinsics (no FMA contraction),
-// and logf is the accurate libdevice function.
+// The first design gave one warp a walker and repeated the walker's
+// scalar work in every lane (a Philox block for the split's roll draw,
+// the role permutation, six runtime modulos), then made three passes
+// over the rows: pass 2 loaded z1 and z2 only after the first reduction,
+// a second serial trip to memory, and passes 2 and 3 each divided
+// (s - z) by the norm again.  The tiled design:
+//   * A block owns a tile of `tile` consecutive walkers (ops/_wrap.py
+//     de_plan: four blocks or more for every SM; 8 at workload 3's shape,
+//     the fastest tile of a sweep over 4-16) and has `threads` threads
+//     (the plan gives one warp per walker).
+//   * Phase A: in random mode one thread per walker draws its Philox
+//     block and puts its three role rows in shared memory; in roll mode
+//     thread 0 makes the split's roll draw once per block and puts the
+//     three roles' group bases and shifts there.  The modulos become
+//     compare and subtract.
+//   * Phase B, after one __syncthreads: each warp takes walkers of the
+//     tile in turn.  For a walker, a lane first issues the loads of its
+//     first chunk of all four rows (s, z, z1, z2: one float4 each, or four
+//     scalars), kept in registers, and only then reduces.  A row of at
+//     most 128 floats is that one chunk (kOneChunk: no loops, 35-40
+//     registers, so every warp of workload 3 is resident at once; the
+//     general kernel needs ~60); longer rows read their further chunks
+//     again (from L1) in each pass.  u = (s - z) / norm is computed once
+//     per element and reused in the projection and in the update.  Lane 0
+//     writes the factor.
+//   * The division: __fdiv_rn per element took a quarter of the kernel's
+//     time on the H100.  The divisor is the row's norm, so its reciprocal
+//     is taken once, in double, and each quotient is x * (1 / norm) in
+//     double rounded to float, which is exactly __fdiv_rn's value (see
+//     div_by).
+//   * kVec (ndim % 4 == 0 and both bases 16-byte aligned, from the plan):
+//     every row is 16-byte aligned and a chunk is one float4; otherwise a
+//     chunk is four scalar loads, the last one padded.
+//
+// The sum order is fixed and depends on ndim alone: lane l owns the
+// 4-float chunks l, l+32, l+64, ... of the row (the last may be partial,
+// its missing terms +0.0); a chunk sums as ((a+b)+c)+d; a lane adds its
+// chunks in order to +0.0; the lanes combine by the __shfl_xor_sync
+// butterfly 16, 8, 4, 2, 1.  Nothing in it depends on the tile, the grid,
+// the SM count or alignment.  The plain version (ops/snooker_kernel.py
+// row_sum) sums in the same order, so q and factor match it bit for bit.
+// Each element's own arithmetic uses the _rn intrinsics (no FMA
+// contraction), and logf is the accurate libdevice function.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -49,14 +85,42 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kTileMax = 16;  // SNOOKER_TILE_MAX in ops/_wrap.py
+constexpr int kThreadsMax = 32 * kTileMax;
 
-// The 3! role permutations, in itertools.permutations order (_PERMS3).
-__constant__ int kPerms3[6][3] = {{0, 1, 2}, {0, 2, 1}, {1, 0, 2},
-                                  {1, 2, 0}, {2, 0, 1}, {2, 1, 0}};
+// The 3! role permutations in itertools.permutations order (PERMS3),
+// packed: role r of permutation p is bits 6p + 2r .. +1.
+constexpr uint64_t kPerms3 =
+    (0ull | 1ull << 2 | 2ull << 4) << 0 |   // (0, 1, 2)
+    (0ull | 2ull << 2 | 1ull << 4) << 6 |   // (0, 2, 1)
+    (1ull | 0ull << 2 | 2ull << 4) << 12 |  // (1, 0, 2)
+    (1ull | 2ull << 2 | 0ull << 4) << 18 |  // (1, 2, 0)
+    (2ull | 0ull << 2 | 1ull << 4) << 24 |  // (2, 0, 1)
+    (2ull | 1ull << 2 | 0ull << 4) << 30;   // (2, 1, 0)
 
-// Sum over the 32 lanes of a warp; every lane gets the total.
+__device__ __forceinline__ int perm_role(int p, int r) {
+  return static_cast<int>((kPerms3 >> (6 * p + 2 * r)) & 3u);
+}
+
+__device__ __forceinline__ int sel3(int k, int a, int b, int c) {
+  return k == 0 ? a : (k == 1 ? b : c);
+}
+
+__device__ __forceinline__ float sel3(int k, float a, float b, float c) {
+  return k == 0 ? a : (k == 1 ? b : c);
+}
+
+// The group base of pick k (0..2): part k % (nsplits - 1) of the
+// complement, skipping block `split`, times ng.
+__device__ __forceinline__ int pick_base(int k, int split, int nsplits,
+                                         int ng) {
+  int g = k;
+  while (g >= nsplits - 1) g -= nsplits - 1;
+  return (g + (g >= split ? 1 : 0)) * ng;
+}
+
+// Sum over the 32 lanes of a warp, butterfly 16, 8, 4, 2, 1; every lane
+// gets the total.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -65,156 +129,239 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The group of pick k (0..2): part k % (nsplits - 1) of the complement,
-// skipping block `split`.
-__device__ __forceinline__ int pick_group(int k, int split, int nsplits) {
-  const int g = k % (nsplits - 1);
-  return g + (g >= split ? 1 : 0);
+// Chunk c of a row: floats 4c .. 4c+3, the ones past nd read as 0.
+template <bool kVec>
+__device__ __forceinline__ float4 load_chunk(const float* row, int c,
+                                             int nd) {
+  if (kVec) return reinterpret_cast<const float4*>(row)[c];
+  const int e = 4 * c;
+  return make_float4(row[e], e + 1 < nd ? row[e + 1] : 0.0f,
+                     e + 2 < nd ? row[e + 2] : 0.0f,
+                     e + 3 < nd ? row[e + 3] : 0.0f);
 }
 
-// The element type of a row, and its count, in the float4 or the scalar
-// view.
-template <bool kVec4>
-struct Row;
+template <bool kVec>
+__device__ __forceinline__ void store_chunk(float* row, int c, int nd,
+                                            float4 v) {
+  if (kVec) {
+    reinterpret_cast<float4*>(row)[c] = v;
+    return;
+  }
+  const int e = 4 * c;
+  row[e] = v.x;
+  if (e + 1 < nd) row[e + 1] = v.y;
+  if (e + 2 < nd) row[e + 2] = v.z;
+  if (e + 3 < nd) row[e + 3] = v.w;
+}
 
-template <>
-struct Row<true> {
-  using T = float4;
-  static __device__ __forceinline__ int n(int nd) { return nd >> 2; }
-};
-
-template <>
-struct Row<false> {
-  using T = float;
-  static __device__ __forceinline__ int n(int nd) { return nd; }
-};
+// A chunk's sum ((a+b)+c)+d of its terms, the terms of floats past nd
+// (nv valid) +0.0.
+__device__ __forceinline__ float chunk_sum(float a, float b, float c,
+                                           float d, int nv) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(a, nv > 1 ? b : 0.0f),
+                             nv > 2 ? c : 0.0f),
+                   nv > 3 ? d : 0.0f);
+}
 
 __device__ __forceinline__ float sq_diff(float s, float z) {
   const float d = __fsub_rn(s, z);
   return __fmul_rn(d, d);
 }
-__device__ __forceinline__ float sq_diff(float4 s, float4 z) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(sq_diff(s.x, z.x), sq_diff(s.y, z.y)),
-                             sq_diff(s.z, z.z)),
-                   sq_diff(s.w, z.w));
-}
-__device__ __forceinline__ float proj_term(float s, float z, float z1,
-                                           float z2, float norm) {
-  return __fmul_rn(__fdiv_rn(__fsub_rn(s, z), norm), __fsub_rn(z1, z2));
-}
-__device__ __forceinline__ float proj_term(float4 s, float4 z, float4 z1,
-                                           float4 z2, float norm) {
-  return __fadd_rn(
-      __fadd_rn(__fadd_rn(proj_term(s.x, z.x, z1.x, z2.x, norm),
-                          proj_term(s.y, z.y, z1.y, z2.y, norm)),
-                proj_term(s.z, z.z, z1.z, z2.z, norm)),
-      proj_term(s.w, z.w, z1.w, z2.w, norm));
-}
-__device__ __forceinline__ float update(float s, float z, float norm,
-                                        float gp) {
-  return __fadd_rn(s, __fmul_rn(__fdiv_rn(__fsub_rn(s, z), norm), gp));
-}
-__device__ __forceinline__ float4 update(float4 s, float4 z, float norm,
-                                         float gp) {
-  return make_float4(update(s.x, z.x, norm, gp), update(s.y, z.y, norm, gp),
-                     update(s.z, z.z, norm, gp), update(s.w, z.w, norm, gp));
+
+__device__ __forceinline__ float norm_terms(float4 s, float4 z, int nv) {
+  return chunk_sum(sq_diff(s.x, z.x), sq_diff(s.y, z.y), sq_diff(s.z, z.z),
+                   sq_diff(s.w, z.w), nv);
 }
 
-template <bool kVec4>
-__global__ void snooker_propose_kernel(
+// x / y rounded to the nearest float, __fdiv_rn's value, from r = 1 / y
+// in double, computed once for a row.  x r in double is within 2^-52
+// (relative) of x / y, and a quotient of two floats lies at least 2^-50
+// (relative) from every midpoint of two floats (it is never one), so
+// rounding x r to float gives the correctly rounded quotient wherever that
+// is a normal float or x is zero; elsewhere (y zero, infinite or NaN, a
+// result out of the normal range) __fdiv_rn itself.
+__device__ __forceinline__ float div_by(float x, float y, double r) {
+  const float f = __double2float_rn(__dmul_rn(static_cast<double>(x), r));
+  const float a = fabsf(f);
+  return (a >= 0x1p-125f && a < 0x1p127f) || x == 0.0f ? f
+                                                       : __fdiv_rn(x, y);
+}
+
+// u = (s - z) / norm, element by element; r = 1 / norm in double.
+__device__ __forceinline__ float4 unit(float4 s, float4 z, float norm,
+                                       double r) {
+  return make_float4(div_by(__fsub_rn(s.x, z.x), norm, r),
+                     div_by(__fsub_rn(s.y, z.y), norm, r),
+                     div_by(__fsub_rn(s.z, z.z), norm, r),
+                     div_by(__fsub_rn(s.w, z.w), norm, r));
+}
+
+__device__ __forceinline__ float proj_terms(float4 u, float4 z1, float4 z2,
+                                            int nv) {
+  return chunk_sum(__fmul_rn(u.x, __fsub_rn(z1.x, z2.x)),
+                   __fmul_rn(u.y, __fsub_rn(z1.y, z2.y)),
+                   __fmul_rn(u.z, __fsub_rn(z1.z, z2.z)),
+                   __fmul_rn(u.w, __fsub_rn(z1.w, z2.w)), nv);
+}
+
+__device__ __forceinline__ float4 update(float4 s, float4 u, float gp) {
+  return make_float4(__fadd_rn(s.x, __fmul_rn(u.x, gp)),
+                     __fadd_rn(s.y, __fmul_rn(u.y, gp)),
+                     __fadd_rn(s.z, __fmul_rn(u.z, gp)),
+                     __fadd_rn(s.w, __fmul_rn(u.w, gp)));
+}
+
+template <bool kVec, bool kOneChunk>
+__global__ void __launch_bounds__(kThreadsMax) snooker_propose_kernel(
     const float* __restrict__ coords, float* __restrict__ q,
     float* __restrict__ factor, int ng, int nd, int split, int nsplits,
-    int pair_mode, float gammas, const float* __restrict__ scale,
+    int tile, int pair_mode, float gammas, const float* __restrict__ scale,
     float ndim_m1, const float* __restrict__ u4,
     const int* __restrict__ idx, const int* __restrict__ perm, uint32_t k0,
     uint32_t k1, const long long* __restrict__ offset_dev,
     unsigned long long offset_inc) {
-  using T = typename Row<kVec4>::T;
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= ng) return;  // uniform across the warp
+  __shared__ int s_rows[3][kTileMax];  // random mode: rows of z, z1, z2
+  __shared__ int s_base[3];            // roll mode: the roles' group bases
+  __shared__ int s_sh[3];              //   and shifts
 
-  // Ensemble rows of the roles z, z1, z2.
-  const uint64_t off = philox_offset(offset_dev, offset_inc);
-  int64_t rows[3];
-  if (pair_mode == 0) {
+  const int t = threadIdx.x;
+  const int t0 = blockIdx.x * tile;
+  const int cnt = min(tile, ng - t0);
+
+  // -- phase A ------------------------------------------------------------
+  if (pair_mode) {
+    if (t < cnt) {
+      const int i = t0 + t;
+      int p0, p1, p2, p;
+      if (idx != nullptr) {
+        p0 = idx[i];
+        p1 = idx[ng + i];
+        p2 = idx[2 * ng + i];
+        p = perm[i];
+      } else {
+        const uint4 w = philox_at(
+            static_cast<uint32_t>(i),
+            static_cast<uint32_t>(split) | EMCEE_PAIR_BLOCK,
+            philox_offset(offset_dev, offset_inc), k0, k1);
+        const float ngf = static_cast<float>(ng);
+        p0 = min(static_cast<int>(__fmul_rn(philox_uniform(w.x), ngf)),
+                 ng - 1);
+        p1 = min(static_cast<int>(__fmul_rn(philox_uniform(w.y), ngf)),
+                 ng - 1);
+        p2 = min(static_cast<int>(__fmul_rn(philox_uniform(w.z), ngf)),
+                 ng - 1);
+        p = min(static_cast<int>(__fmul_rn(philox_uniform(w.w), 6.0f)), 5);
+      }
+      const int r0 = pick_base(0, split, nsplits, ng) + p0;
+      const int r1 = pick_base(1, split, nsplits, ng) + p1;
+      const int r2 = pick_base(2, split, nsplits, ng) + p2;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        s_rows[r][t] = sel3(perm_role(p, r), r0, r1, r2);
+      }
+    }
+  } else if (t == 0) {
     float u[4];
     if (u4 != nullptr) {
+#pragma unroll
       for (int k = 0; k < 4; ++k) u[k] = u4[k];
     } else {
-      const uint4 w = philox_at(EMCEE_ROLL_LANE, static_cast<uint32_t>(split),
-                                off, k0, k1);
+      const uint4 w =
+          philox_at(EMCEE_ROLL_LANE, static_cast<uint32_t>(split),
+                    philox_offset(offset_dev, offset_inc), k0, k1);
       u[0] = philox_uniform(w.x);
       u[1] = philox_uniform(w.y);
       u[2] = philox_uniform(w.z);
       u[3] = philox_uniform(w.w);
     }
-    int order[3] = {0, 1, 2};
-    if (nsplits > 2) {
-      const int p = min(static_cast<int>(__fmul_rn(u[0], 6.0f)), 5);
-      for (int r = 0; r < 3; ++r) order[r] = kPerms3[p][r];
-    }
+    const int p =
+        nsplits > 2 ? min(static_cast<int>(__fmul_rn(u[0], 6.0f)), 5) : 0;
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
-      const int k = order[r];
-      const int sh =
-          static_cast<int>(__fmul_rn(u[1 + k], static_cast<float>(ng)));
-      rows[r] = static_cast<int64_t>(pick_group(k, split, nsplits)) * ng +
-                (i + sh) % ng;
-    }
-  } else {
-    int pick[3], p;
-    if (idx != nullptr) {
-      for (int k = 0; k < 3; ++k) pick[k] = idx[k * ng + i];
-      p = perm[i];
-    } else {
-      const uint4 w =
-          philox_at(static_cast<uint32_t>(i),
-                    static_cast<uint32_t>(split) | EMCEE_PAIR_BLOCK, off, k0,
-                    k1);
-      const uint32_t wk[3] = {w.x, w.y, w.z};
-      for (int k = 0; k < 3; ++k) {
-        pick[k] = min(static_cast<int>(__fmul_rn(philox_uniform(wk[k]),
-                                                 static_cast<float>(ng))),
-                      ng - 1);
-      }
-      p = min(static_cast<int>(__fmul_rn(philox_uniform(w.w), 6.0f)), 5);
-    }
-    for (int r = 0; r < 3; ++r) {
-      const int k = kPerms3[p][r];
-      rows[r] = static_cast<int64_t>(pick_group(k, split, nsplits)) * ng +
-                pick[k];
+      const int k = perm_role(p, r);
+      s_base[r] = pick_base(k, split, nsplits, ng);
+      // int(u ng) <= ng, so (i + sh) % ng is one compare and subtract.
+      s_sh[r] = static_cast<int>(
+          __fmul_rn(sel3(k, u[1], u[2], u[3]), static_cast<float>(ng)));
     }
   }
+  __syncthreads();
 
-  const int n = Row<kVec4>::n(nd);
-  const int64_t row_s = static_cast<int64_t>(split) * ng + i;
-  const T* s_row = reinterpret_cast<const T*>(coords + row_s * nd);
-  const T* z_row = reinterpret_cast<const T*>(coords + rows[0] * nd);
-  const T* z1_row = reinterpret_cast<const T*>(coords + rows[1] * nd);
-  const T* z2_row = reinterpret_cast<const T*>(coords + rows[2] * nd);
-  T* q_row = reinterpret_cast<T*>(q + static_cast<int64_t>(i) * nd);
-
-  float acc = 0.0f;
-  for (int d = lane; d < n; d += 32) {
-    acc = __fadd_rn(acc, sq_diff(s_row[d], z_row[d]));
-  }
-  const float norm = __fsqrt_rn(warp_sum(acc));
-
-  acc = 0.0f;
-  for (int d = lane; d < n; d += 32) {
-    acc = __fadd_rn(acc, proj_term(s_row[d], z_row[d], z1_row[d], z2_row[d],
-                                   norm));
-  }
-  const float proj = warp_sum(acc);
+  // -- phase B: each warp takes walkers of the tile in turn ---------------
+  const int lane = t & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int n_ch = (nd + 3) >> 2;  // 4-float chunks of a row
   const float gam = scale != nullptr ? __fmul_rn(gammas, *scale) : gammas;
-  const float gp = __fmul_rn(gam, proj);
+  auto n_valid = [&](int c) { return kVec ? 4 : min(4, nd - 4 * c); };
+  for (int w = t >> 5; w < cnt; w += n_warps) {  // uniform across the warp
+    const int i = t0 + w;
+    int rz, r1, r2;
+    if (pair_mode) {
+      rz = s_rows[0][w];
+      r1 = s_rows[1][w];
+      r2 = s_rows[2][w];
+    } else {
+      auto roll_row = [&](int r) {
+        int x = i + s_sh[r];
+        x -= (x >= ng) ? ng : 0;
+        return s_base[r] + x;
+      };
+      rz = roll_row(0);
+      r1 = roll_row(1);
+      r2 = roll_row(2);
+    }
+    // nwalkers * ndim < 2**31 (the wrapper checks), so int offsets.
+    const float* s_row = coords + (split * ng + i) * nd;
+    const float* z_row = coords + rz * nd;
+    const float* z1_row = coords + r1 * nd;
+    const float* z2_row = coords + r2 * nd;
+    float* q_row = q + i * nd;
 
-  for (int d = lane; d < n; d += 32) {
-    q_row[d] = update(s_row[d], z_row[d], norm, gp);
-  }
-  if (lane == 0) {
-    factor[i] = __fmul_rn(
-        ndim_m1, __fsub_rn(logf(fabsf(__fadd_rn(norm, gp))), logf(norm)));
+    // The lane's first chunk of all four rows, loaded before any sum.
+    const bool has0 = lane < n_ch;
+    float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), z0 = s0, a0 = s0,
+           b0 = s0;
+    if (has0) {
+      s0 = load_chunk<kVec>(s_row, lane, nd);
+      z0 = load_chunk<kVec>(z_row, lane, nd);
+      a0 = load_chunk<kVec>(z1_row, lane, nd);
+      b0 = load_chunk<kVec>(z2_row, lane, nd);
+    }
+
+    float acc = 0.0f;
+    if (has0) acc = __fadd_rn(acc, norm_terms(s0, z0, n_valid(lane)));
+    for (int c = lane + 32; !kOneChunk && c < n_ch; c += 32) {
+      acc = __fadd_rn(acc, norm_terms(load_chunk<kVec>(s_row, c, nd),
+                                      load_chunk<kVec>(z_row, c, nd),
+                                      n_valid(c)));
+    }
+    const float norm = __fsqrt_rn(warp_sum(acc));
+    const double r_norm = 1.0 / static_cast<double>(norm);
+
+    const float4 u0 = unit(s0, z0, norm, r_norm);
+    acc = 0.0f;
+    if (has0) acc = __fadd_rn(acc, proj_terms(u0, a0, b0, n_valid(lane)));
+    for (int c = lane + 32; !kOneChunk && c < n_ch; c += 32) {
+      const float4 u = unit(load_chunk<kVec>(s_row, c, nd),
+                            load_chunk<kVec>(z_row, c, nd), norm, r_norm);
+      acc = __fadd_rn(acc, proj_terms(u, load_chunk<kVec>(z1_row, c, nd),
+                                      load_chunk<kVec>(z2_row, c, nd),
+                                      n_valid(c)));
+    }
+    const float gp = __fmul_rn(gam, warp_sum(acc));
+
+    if (has0) store_chunk<kVec>(q_row, lane, nd, update(s0, u0, gp));
+    for (int c = lane + 32; !kOneChunk && c < n_ch; c += 32) {
+      const float4 s = load_chunk<kVec>(s_row, c, nd);
+      store_chunk<kVec>(q_row, c, nd,
+                        update(s, unit(s, load_chunk<kVec>(z_row, c, nd),
+                                       norm, r_norm),
+                               gp));
+    }
+    if (lane == 0) {
+      factor[i] = __fmul_rn(
+          ndim_m1, __fsub_rn(logf(fabsf(__fadd_rn(norm, gp))), logf(norm)));
+    }
   }
 }
 
@@ -225,21 +372,25 @@ __global__ void snooker_propose_kernel(
 // the in-kernel draw of the role permutation and shifts.  Random mode: idx
 // (3, ng) and perm (ng,) override the in-kernel Philox picks.  The Philox
 // offset is *offset_dev + offset (offset alone when offset_dev is null).
-// scale == nullptr means untuned.  vec4 != 0 promises
-// ndim % 4 == 0 and 16-byte aligned coords and q.  Returns
-// cudaGetLastError() after the launch.
+// scale == nullptr means untuned.  tile, grid, threads and vec are the
+// launch plan of ops/_wrap.py de_plan (threads a multiple of 32, tile <=
+// 16); vec != 0 promises ndim % 4 == 0 and 16-byte aligned coords and q.
+// Returns cudaGetLastError() after the launch.
 extern "C" int emcee_snooker_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float gammas, const float* scale,
     float ndim_m1, const float* u4, const int* idx, const int* perm,
-    int vec4, unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, void* stream) {
-  const int blocks = (ng + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  auto kernel =
-      vec4 ? snooker_propose_kernel<true> : snooker_propose_kernel<false>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, q, factor, ng, nd, split, nsplits, pair_mode, gammas, scale,
-      ndim_m1, u4, idx, perm, static_cast<uint32_t>(seed),
+    int tile, int grid, int threads, int vec, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset, void* stream) {
+  // A row of at most 128 floats is one chunk per lane, held in registers.
+  const bool one = nd <= 128;
+  auto kernel = vec ? (one ? snooker_propose_kernel<true, true>
+                           : snooker_propose_kernel<true, false>)
+                    : (one ? snooker_propose_kernel<false, true>
+                           : snooker_propose_kernel<false, false>);
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      coords, q, factor, ng, nd, split, nsplits, tile, pair_mode, gammas,
+      scale, ndim_m1, u4, idx, perm, static_cast<uint32_t>(seed),
       static_cast<uint32_t>(seed >> 32), offset_dev, offset);
   return static_cast<int>(cudaGetLastError());
 }

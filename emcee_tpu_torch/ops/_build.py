@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "build_all", "build_dir", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_HEADERS = ("philox.cuh",)
+_HEADERS = ("bulk_copy.cuh", "philox.cuh")
 
 #: kernel name -> (source file, C entry point)
 KERNELS = {
@@ -69,7 +69,7 @@ _ARGTYPES = {
         ctypes.c_int,  # pair_mode
         ctypes.c_float, _P, ctypes.c_float,  # gamma0, scale, sigma
         _P, _P, _P, _P,  # z, u_shift, idx_a, idx_b
-        ctypes.c_int,  # vec4
+        *[ctypes.c_int] * 6,  # plan: tile grid threads vec stage smem
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
@@ -79,7 +79,7 @@ _ARGTYPES = {
         ctypes.c_int,  # pair_mode
         ctypes.c_float, _P, ctypes.c_float,  # gammas, scale, ndim_global - 1
         _P, _P, _P,  # u4, idx, perm
-        ctypes.c_int,  # vec4
+        *[ctypes.c_int] * 4,  # plan: tile grid threads vec
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],

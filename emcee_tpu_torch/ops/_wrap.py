@@ -1,6 +1,7 @@
 """What every kernel wrapper shares: its argument checks, the complement
-row map, the Philox key and offset arguments, K1's and K2's launch plan,
-and the launch on the current stream.
+row map, the Philox key and offset arguments, the launch plans of K1 and
+K2 (``tile_plan``) and of K5a and K5b (``de_plan``), and the launch on
+the current stream.
 
 A wrapper checks device, type, shape and contiguity before it launches,
 and raises on what its kernel does not take; the launch returns the C
@@ -31,9 +32,20 @@ TILE_MIN = 4
 BLOCKS_PER_SM = 2
 #: shared memory a block may use without an opt-in attribute
 SMEM_LIMIT = 48 * 1024
-#: an upper bound on K1's and K2's static shared memory (per-walker arrays
-#: of TILE_MAX entries, a shift word, an mbarrier)
+#: an upper bound on the static shared memory of K1, K2, K5a and K5b
+#: (per-walker arrays of at most 3 x TILE_MAX words, shift words, an
+#: mbarrier)
 STATIC_SMEM = 4096
+#: K5a's and K5b's grid has at least this many blocks for every SM where
+#: the split allows it (the fastest tile of a sweep at workload 3's shape,
+#: PERF.md)
+K5_BLOCKS_PER_SM = 4
+#: K5a's threads per block (one warp more where the tile needs it:
+#: csrc/de_propose.cu kThreadsMax)
+DE_THREADS = 256
+#: the largest tile of K5b, which has one warp per walker (kTileMax in
+#: csrc/snooker_propose.cu)
+SNOOKER_TILE_MAX = 16
 
 #: pair mode name -> the kernels' code for it
 PAIR_MODES = {"roll": 0, "random": 1}
@@ -84,12 +96,6 @@ def check_rows(coords, split, nsplits):
 def check_pair_mode(pair_mode):
     if pair_mode not in PAIR_MODES:
         raise ValueError(f"unknown pair_mode: {pair_mode!r}")
-
-
-def vec4_ok(nd, *tensors):
-    """Whether 16-byte ``float4`` row accesses are valid: ``ndim % 4 == 0``
-    and every buffer 16-byte aligned."""
-    return nd % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 class TilePlan(NamedTuple):
@@ -145,6 +151,58 @@ def tile_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, stage=False):
     vec = coords_ptr % 16 == 0 and q_ptr % 16 == 0 and split * ng * nd % 4 == 0
     return TilePlan(tile, -(-ng // tile), int(vec), int(stage),
                     4 * tile * nd if stage else 0)
+
+
+class DEPlan(NamedTuple):
+    """How K5a and K5b cut a split into blocks; the fields are the C entry
+    points' arguments, in this order (K5b takes the first four)."""
+
+    tile: int  #: consecutive walkers per block
+    grid: int  #: blocks, ``ceil(ng / tile)``
+    threads: int  #: threads per block
+    vec: int  #: 1: ``ndim % 4 == 0`` and both bases 16-byte aligned (every row is)
+    stage: int  #: 1: K5a bulk-copies each tile's own rows to shared memory
+    smem: int  #: dynamic shared memory per block, bytes
+
+
+def de_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, snooker=False,
+            stage=False):
+    """The launch plan of K5a (or K5b, ``snooker``) for block ``split`` of
+    ``ng`` walkers of ``nd`` floats on a card of ``n_sm`` SMs, with
+    ``coords`` and ``q`` at byte addresses ``coords_ptr`` and ``q_ptr``.
+
+    The tile is the largest power of two from the cap (``TILE_MAX`` for
+    K5a, ``SNOOKER_TILE_MAX`` for K5b) down to ``TILE_MIN`` whose grid
+    still has ``K5_BLOCKS_PER_SM`` blocks for every SM: 8 at workload 3's
+    shape (ng 5000, ndim 100, 625 blocks) for both, the fastest tile of
+    a sweep over 4-64 on the H100 (``PERF.md``).  K5a's block has ``DE_THREADS``
+    threads, or one warp more than the tile where that is more; its last
+    warp's first lane makes the roll draw.  K5b's block has one warp per
+    walker.  ``vec``: the partner rows of both kernels start at arbitrary
+    rows, so every row must be 16-byte aligned: ``ndim % 4 == 0`` and both
+    bases aligned.  ``stage`` (K5a only, where asked): each tile's own
+    rows, the ``coords`` floats from ``(split*ng + b*tile)*nd``, are
+    bulk-copied to shared memory; that takes a 16-byte aligned ``coords``
+    base and ``split*ng*nd % 4 == 0`` (``tile*nd`` is a multiple of 4),
+    and a span that fits beside the static arrays under ``SMEM_LIMIT``
+    (the tile is halved until it does; staging is dropped where even
+    ``TILE_MIN`` rows do not fit)."""
+    cap = SNOOKER_TILE_MAX if snooker else TILE_MAX
+    stage = (stage and not snooker and coords_ptr % 16 == 0
+             and split * ng * nd % 4 == 0)
+    if stage:
+        fit = (SMEM_LIMIT - STATIC_SMEM) // (4 * nd)
+        stage = fit >= TILE_MIN
+        while stage and cap > fit:
+            cap //= 2
+    tile = cap
+    while tile > TILE_MIN and -(-ng // tile) < K5_BLOCKS_PER_SM * n_sm:
+        tile //= 2
+    threads = (32 * tile if snooker
+               else max(DE_THREADS, 32 * -(-tile // 32) + 32))
+    vec = nd % 4 == 0 and coords_ptr % 16 == 0 and q_ptr % 16 == 0
+    return DEPlan(tile, -(-ng // tile), threads, int(vec), int(stage),
+                  4 * tile * nd if stage else 0)
 
 
 def complement_rows(r, split, ng):

@@ -2,9 +2,21 @@
 PyTorch.
 
 Held against ``emcee_tpu/moves/de.py:45-85`` (``DEMove.get_proposal``,
-both pair modes).  The kernel is ``csrc/de_propose.cu``; its note says
-what bounds it on the card.  K5a writes only ``q`` and a zero
-``factor``; K2 (``ops/accept_kernel.py``) does the rest, unchanged.
+both pair modes).  The kernel is ``csrc/de_propose.cu``.  It is bound by
+bytes (6 MB per launch at workload 3's shape; no matrix product, so no
+tensor-core work), and tiled as K1 is (``_wrap.de_plan``): a block owns
+a tile of consecutive walkers; one thread per walker draws its normal
+and gamma (and in random mode its partner rows) into shared memory, one
+spare lane per block makes the split's roll draw; then the block streams
+the tile's own rows, both partner spans and ``q`` as float4 where every
+row is 16-byte aligned.  Of the two variants measured on the card, the
+one kept bulk-copies each tile's own rows into shared memory by TMA at
+block start, overlapping phase A; the other reads them directly
+(``PERF.md``).  K5a writes only
+``q`` and a zero ``factor``; K2 (``ops/accept_kernel.py``) does the
+rest.  The kernel uses the same Philox counters and the same
+one-rounding-per-operation arithmetic as :func:`de_propose_plain`, so
+the two agree bit for bit.
 
 As for K1, the ensemble lives in one contiguous ``(nwalkers, ndim)``
 buffer whose split groups are the row blocks ``[j*ng, (j+1)*ng)``; the
@@ -36,7 +48,7 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows,
-    complement_rows, launch, ptr, rng_args, vec4_ok)
+    complement_rows, de_plan, device_sm_count, launch, ptr, rng_args)
 from .philox import (
     PAIR_BLOCK, box_muller, roll_uniforms, to_uniform, walker_words)
 
@@ -127,20 +139,29 @@ def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
     elif idx_a is not None:
         check_i32("idx_a", idx_a, dev, (ng,))
         check_i32("idx_b", idx_b, dev, (ng,))
-    roll = pair_mode == "roll"
     q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
     factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+    # The staged variant wherever it can be (PERF.md).
+    plan = de_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
+                   q.data_ptr(), stage=True)
+    _launch(plan, coords, q, factor, split, nsplits, **kw)
+    de_propose.launches += 1
+    return q, factor
+
+
+def _launch(plan, coords, q, factor, split, nsplits, *, gamma0, sigma,
+            scale, pair_mode, seed, offset, z, u_shift, idx_a, idx_b):
+    """Launch K5a with launch plan ``plan`` on checked arguments."""
+    dev = coords.device
+    roll = pair_mode == "roll"
     launch(
         "de_propose", dev,
         coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
-        ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+        q.shape[0], coords.shape[1], split, nsplits, PAIR_MODES[pair_mode],
         float(gamma0), ptr(scale), float(sigma), ptr(z),
         ptr(u_shift if roll else None), ptr(None if roll else idx_a),
-        ptr(None if roll else idx_b), int(vec4_ok(nd, coords, q)),
-        *rng_args(seed, offset, dev),
+        ptr(None if roll else idx_b), *plan, *rng_args(seed, offset, dev),
     )
-    de_propose.launches += 1
-    return q, factor
 
 
 de_propose.launches = 0

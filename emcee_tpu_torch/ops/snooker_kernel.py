@@ -2,14 +2,23 @@
 
 Held against ``emcee_tpu/moves/de_snooker.py:78-139``
 (``DESnookerMove._draw_roll``, ``_draw_random`` and ``get_proposal``).
-The kernel is ``csrc/snooker_propose.cu``; its note says what bounds it
-on the card.
+The kernel is ``csrc/snooker_propose.cu``.  It is bound by bytes (6 MB
+per launch at workload 3's shape; no matrix product, so no tensor-core
+work) and by the latency of its two row reductions.  It is tiled
+(``_wrap.de_plan``): a block owns a tile of consecutive walkers; one
+thread per walker (random mode) or one lane per block (roll mode) finds
+the role rows; then one warp per walker loads its chunk of all four rows
+before the first reduction, and reuses ``u = (s - z) / norm`` in the
+projection and the update.
 
 Per walker, three picks from the other split groups take the roles
 ``(z, z1, z2)``; then ``delta = s - z``, ``u = delta / |delta|``,
 ``q = s + u * gammas * (u . (z1 - z2))`` and the Metropolis factor
 ``(ndim - 1) (log|norm + gp| - log norm)``.  The groups are the
-contiguous row blocks of the ensemble buffer, read in place.
+contiguous row blocks of the ensemble buffer, read in place.  Both row
+sums run in one fixed order that depends on ``ndim`` alone
+(:func:`row_sum`), in the kernel and in :func:`snooker_propose_plain`,
+so the two agree bit for bit.
 
 Randomness comes from the Philox stream at ``(seed, offset)`` (see
 ``ops/philox.py``; ``offset`` is an int or a ``DeviceOffset``, and the
@@ -35,11 +44,11 @@ import numpy as np
 import torch
 
 from ._wrap import (
-    PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows, launch,
-    ptr, rng_args, vec4_ok)
+    PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows, de_plan,
+    device_sm_count, launch, ptr, rng_args)
 from .philox import PAIR_BLOCK, roll_uniforms, to_uniform, walker_words
 
-__all__ = ["PERMS3", "role_rows", "roll_picks", "snooker_propose",
+__all__ = ["PERMS3", "role_rows", "roll_picks", "row_sum", "snooker_propose",
            "snooker_propose_plain"]
 
 #: the 3! role permutations, in ``itertools.permutations`` order
@@ -90,6 +99,28 @@ def role_rows(ng, split, nsplits, pair_mode, device, seed=0, offset=0,
     return [picks.gather(1, order[:, r:r + 1])[:, 0] for r in range(3)]
 
 
+def row_sum(terms):
+    """The sum over the last axis of ``terms`` ``(n, ndim)``, in the
+    kernel's order, which depends on ``ndim`` alone: lane ``l`` of a warp
+    owns the 4-float chunks ``l, l+32, l+64, ...`` of the row (the terms
+    are padded with +0.0 to a multiple of 128); a chunk sums as
+    ``((a+b)+c)+d``; a lane adds its chunks in order to +0.0; the 32 lanes
+    combine by the xor butterfly 16, 8, 4, 2, 1 (lane ``l`` adds lane
+    ``l ^ o``; float addition commutes, so the halves below add the same
+    pairs)."""
+    n, nd = terms.shape
+    m = -(-nd // 128)
+    t = torch.nn.functional.pad(terms, (0, 128 * m - nd)).view(n, m, 32, 4)
+    chunks = ((t[..., 0] + t[..., 1]) + t[..., 2]) + t[..., 3]
+    acc = torch.zeros_like(chunks[:, 0])
+    for k in range(m):
+        acc = acc + chunks[:, k]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
 def snooker_propose_plain(coords, split, nsplits, *, gammas, scale=None,
                           ndim_global, pair_mode, seed=0, offset=0, u4=None,
                           idx=None, perm=None):
@@ -105,9 +136,9 @@ def snooker_propose_plain(coords, split, nsplits, *, gammas, scale=None,
     gammas = float(np.float32(gammas))
     gam = gammas if scale is None else gammas * scale
     delta = s - z
-    norm = torch.sqrt(torch.sum(delta**2, dim=-1))
+    norm = torch.sqrt(row_sum(delta * delta))
     u = delta / norm[:, None]
-    proj = torch.sum(u * (z1 - z2), dim=-1)
+    proj = row_sum(u * (z1 - z2))
     gp = gam * proj
     q = s + u * gp[:, None]
     metropolis = torch.log(torch.abs(norm + gp)) - torch.log(norm)
@@ -141,18 +172,27 @@ def snooker_propose(coords, split, nsplits, *, gammas, scale=None,
         check_i32("perm", perm, dev, (ng,))
     q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
     factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+    plan = de_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
+                   q.data_ptr(), snooker=True)
+    _launch(plan, coords, q, factor, split, nsplits, **kw)
+    snooker_propose.launches += 1
+    return q, factor
+
+
+def _launch(plan, coords, q, factor, split, nsplits, *, gammas, scale,
+            ndim_global, pair_mode, seed, offset, u4, idx, perm):
+    """Launch K5b with launch plan ``plan`` on checked arguments."""
+    dev = coords.device
     roll = pair_mode == "roll"
     launch(
         "snooker_propose", dev,
         coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
-        ng, nd, split, nsplits, PAIR_MODES[pair_mode],
+        q.shape[0], coords.shape[1], split, nsplits, PAIR_MODES[pair_mode],
         float(gammas), ptr(scale), float(ndim_global - 1.0),
         ptr(u4 if roll else None), ptr(None if roll else idx),
-        ptr(None if roll else perm), int(vec4_ok(nd, coords, q)),
+        ptr(None if roll else perm), *plan[:4],
         *rng_args(seed, offset, dev),
     )
-    snooker_propose.launches += 1
-    return q, factor
 
 
 snooker_propose.launches = 0
