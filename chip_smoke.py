@@ -77,11 +77,16 @@ import logging
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 NW, ND = 100_000, 5
 NW3, ND3 = 10_000, 100  # workload 3 (benchmarks/workload3.py:28-29)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM special-function results (exp2, log2, rcp, ...): 132 SMs x 16
+# per clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 1.98 GHz boost clock.
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 RTOL = ATOL = 1e-6
 #: walkers per split in the edge-shape sweeps: no tile divides it
 SWEEP_NG = 5003
@@ -224,26 +229,27 @@ def profiled_counts(kernels):
             for _, name in KERNELS}
 
 
-def warm_graphs(smp):
+def warm_graphs(smp, top=None):
     """Record every graph of a sampler's chunk program now (each move,
-    every size up to ``MAX_GRAPH``), so that no later run records one;
-    recording does not move the chain."""
+    every size up to ``top``, by default ``MAX_GRAPH``), so that no later
+    run records one; recording does not move the chain."""
     from emcee_tpu_torch.chunk_graph import MAX_GRAPH
 
     for i in range(len(smp._moves)):
         size = 1
-        while size <= MAX_GRAPH:
+        while size <= (top or MAX_GRAPH):
             smp._program.graph(i, size, False)
             size *= 2
 
 
-def drive(smp, state, n, **kw):
+def drive(smp, state, n, per_proposal=None, **kw):
     """``run_mcmc`` with its launch checks; returns ``(state, seconds)``.
 
     On the graph path, a run of a sampler whose chunk program exists
     records no graph and calls no kernel wrapper: every proposal is a
     replay.  On the eager path (``_use_graphs`` off), the wrappers'
-    counters show a proposal kernel twice and K2 twice per proposal."""
+    counters show a proposal kernel twice and K2 twice per proposal, or
+    ``per_proposal``'s ``{wrapper: launches per proposal}`` (others 0)."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     prog = smp._program
@@ -261,12 +267,100 @@ def drive(smp, state, n, **kw):
                 any(rose.values()) or len(prog.graphs) != ngraphs):
             raise AssertionError(f"a run after recording called kernel "
                                  f"wrappers {rose} or recorded a graph")
+    elif per_proposal is not None:
+        want = {k: per_proposal.get(k, 0) * n_prop for k in rose}
+        if rose != want:
+            raise AssertionError(f"eager run: launches rose by {rose} for "
+                                 f"{n_prop} proposals, expected {want}")
     elif (rose["stretch_propose"] + rose["de_propose"]
           + rose["snooker_propose"] != 2 * n_prop
           or rose["accept_select"] != 2 * n_prop):
         raise AssertionError(f"eager run: launches rose by {rose} for "
                              f"{n_prop} proposals")
     return out, dt
+
+
+def storage_split(torch, np, dev, k, reps=5):
+    """One chunk of ``k`` kept main-path steps on its way from the card
+    into the host ``Backend`` by the port's route, timed piece by piece
+    on the host clock (each piece ends in a synchronize; the median of
+    ``reps``): the rows, converted to float64 on the card (contiguous
+    coords and log_prob, bool acceptance), copied to pinned memory, and
+    ``Backend.save_chunk``'s write of those rows.  Returns ms per kept
+    step of each."""
+    from emcee_tpu_torch.backends import Backend
+
+    rows = torch.randn(k, NW, ND + 2, device=dev)
+    f64 = (rows[..., :ND].double(), rows[..., ND].double(),
+           rows[..., ND + 1] > 0)
+    pinned64 = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in f64)
+    host64 = tuple(t.numpy() for t in pinned64)
+    backend = Backend()
+    backend.reset(NW, ND)
+    backend.grow(k * (reps + 1), None)
+
+    def copy64():
+        for p, t in zip(pinned64, f64):
+            p.copy_(t, non_blocking=True)
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out)) / k * 1e3
+
+    copy64()
+    torch.cuda.synchronize()
+    return {"f64_copy_pinned": timed(copy64),
+            "f64_write": timed(lambda: backend.save_chunk(
+                *host64[:2], None, host64[2], (0, 0)))}
+
+
+def stored_rates(torch, np, dev, card, mv, state, plans=((20, 100),
+                                                         (1, 400))):
+    """The main path stored into the host ``Backend`` at each ``(thin_by,
+    kept)`` of ``plans``, each beside the same proposals unstored just
+    before (for the cost of storing), graphs recorded first; and the
+    split of one chunk's storage (:func:`storage_split`) at the chunk
+    size the sampler picks.  Returns ``({thin_by: (stored, unstored)
+    walker-steps/s}, {thin_by: split}, state)``."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    rates, splits = {}, {}
+    for thin_by, kept in plans:
+        smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=1,
+                              moves=mv)
+        # A first stored run of the same size records the graphs and
+        # allocates the storage buffers.
+        state, _ = drive(smp, state, kept, thin_by=thin_by,
+                         skip_initial_state_check=True)
+        warm_graphs(smp)
+        smp.reset()
+        state, dt_free = drive(smp, state, kept * thin_by, store=False,
+                               skip_initial_state_check=True)
+        state, dt_store = drive(smp, state, kept, thin_by=thin_by,
+                                skip_initial_state_check=True)
+        chain = smp.get_chain()
+        if chain.shape != (kept, NW, ND) or not np.isfinite(chain).all():
+            raise AssertionError(f"stored chain {chain.shape}")
+        n = kept * thin_by * NW
+        rates[thin_by] = (n / dt_store, n / dt_free)
+        k = smp._chunk_schedule(kept, smp._auto_chunk(True))[0]
+        splits[thin_by] = dict(storage_split(torch, np, dev, k), chunk=k)
+        log(f"phase 4: host Backend, thin_by {thin_by}, {kept} kept: "
+            f"stored {n / dt_store:.4e} walker-steps/s, the same "
+            f"proposals unstored {n / dt_free:.4e} {card}; one chunk of "
+            f"{k} kept steps, ms per kept step: "
+            + ", ".join(f"{key} {v:.4f}" for key, v in splits[thin_by].items()
+                        if key != "chunk")
+            + f"; device time per kept step "
+            f"{thin_by * NW / (n / dt_free) * 1e3:.4f} ms")
+    return rates, splits, state
 
 
 def workload3_target(np, torch, dev, nw=NW3, nd=ND3):
@@ -320,6 +414,90 @@ def misaligned(torch, t):
     return out
 
 
+def lp_variants(torch, q):
+    """``(label, lp_q)`` of K2's edge cases for a proposal ``q``: its own
+    log-prob, one that accepts every walker, none, and one that holds NaN
+    and +-inf."""
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                           device=q.device)
+    mixed = gaussian(q).clone()
+    mixed[::3] = special.repeat(-(-q.shape[0] // 9))[:mixed[::3].numel()]
+    return (("proposal's lp_q", gaussian(q)),
+            ("all accepted", torch.full_like(mixed, float("inf"))),
+            ("none accepted", torch.full_like(mixed, -float("inf"))),
+            ("NaN and +-inf in lp_q", mixed))
+
+
+def k2_direct(q, f, lp_q, c, l, split, ns, acc, cnt, seed=0, offset=0,
+              log_u=None):
+    """K2 with q read from device memory (no staging)."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
+
+    plan = tile_plan(q.shape[0], c.shape[1], split,
+                     device_sm_count(c.device), c.data_ptr(), q.data_ptr())
+    ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, seed, offset, log_u)
+
+
+def k2_whole_sweep(torch, dev, nds, ngs=(SWEEP_NG, 4096)):
+    """K2 at ``nsplits=1`` (split 0 is the whole ensemble, ``ng =
+    nwalkers``, as ``MHMove`` and ``GaussianMove`` launch it) against its
+    plain version, bit for bit (``torch.equal``): ndim in ``nds``; ``ng``
+    in ``ngs`` (5003, which no tile divides, and 4096); ``coords``, ``q``
+    and ``log_prob`` with 16-byte aligned bases and with bases 4 bytes
+    past one; ``lp_q`` the proposal's, all / none accepted, NaN and
+    +-inf; with and without a count; injected ``log_u``, a host offset
+    and a device offset word; as the wrapper launches it (q staged in
+    shared memory where it can be) and in the direct variant.  Returns
+    the number of comparisons."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    seed, offset = 97531, (1 << 33) + 9
+    word = torch.tensor(offset - 3, dtype=torch.int64, device=dev)
+    n_cmp = 0
+    for nd in nds:
+        for ng in ngs:
+            for copy in (torch.clone, lambda t: misaligned(torch, t)):
+                coords = copy(torch.randn(ng, nd, device=dev, generator=gen))
+                q = copy(coords + 0.5 * torch.randn(ng, nd, device=dev,
+                                                    generator=gen))
+                f = torch.randn(ng, device=dev, generator=gen) * 0.1
+                lp = copy(gaussian(coords))
+                draws = (
+                    ("injected", dict(log_u=torch.log(torch.rand(
+                        ng, device=dev, generator=gen)))),
+                    ("host offset", dict(seed=seed, offset=offset)),
+                    ("device offset", dict(seed=seed, offset=DeviceOffset(
+                        word, 3))))
+                for label, lp_q in lp_variants(torch, q):
+                    for draw, kw in draws:
+                        for counted in (False, True):
+                            outs = []
+                            for fn in (ak.accept_select, k2_direct,
+                                       ak.accept_select_plain):
+                                c, l = copy(coords), copy(lp)
+                                acc = torch.zeros(ng, dtype=torch.bool,
+                                                  device=dev)
+                                cnt = (torch.arange(ng, dtype=torch.int32,
+                                                    device=dev)
+                                       if counted else None)
+                                fn(q, f, lp_q, c, l, 0, 1, acc, cnt, **kw)
+                                outs.append((c, l, acc) + (
+                                    (cnt,) if counted else ()))
+                            for got in outs[:-1]:
+                                n_cmp += 1
+                                if not all(torch.equal(a, b) for a, b in
+                                           zip(got, outs[-1])):
+                                    raise AssertionError(
+                                        f"K2 nsplits=1, ndim {nd}, ng {ng},"
+                                        f" {label}, {draw}, count="
+                                        f"{counted}: kernel and plain "
+                                        "version differ")
+    return n_cmp
+
+
 def edge_sweep(torch, dev, nds, ng=SWEEP_NG):
     """K1 and K2 against their plain versions, bit for bit (``torch.equal``),
     over edge shapes: ndim in ``nds``; ``ng`` walkers per split, which no
@@ -335,7 +513,6 @@ def edge_sweep(torch, dev, nds, ng=SWEEP_NG):
     Returns the number of comparisons."""
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops import stretch_kernel as sk
-    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
     from emcee_tpu_torch.ops.philox import DeviceOffset
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -351,32 +528,13 @@ def edge_sweep(torch, dev, nds, ng=SWEEP_NG):
             raise AssertionError(f"edge sweep, {what}: kernel and plain "
                                  "version differ")
 
-    def lp_variants(q):
-        special = torch.tensor([float("nan"), float("inf"), -float("inf")],
-                               device=dev)
-        mixed = gaussian(q).clone()
-        mixed[::3] = special.repeat(-(-q.shape[0] // 9))[:mixed[::3].numel()]
-        return (("proposal's lp_q", gaussian(q)),
-                ("all accepted", torch.full_like(mixed, float("inf"))),
-                ("none accepted", torch.full_like(mixed, -float("inf"))),
-                ("NaN and +-inf in lp_q", mixed))
-
-    def direct(q, f, lp_q, c, l, split, ns, acc, cnt, seed=0, offset=0,
-               log_u=None):
-        """K2 with q read from device memory (no staging)."""
-        plan = tile_plan(q.shape[0], c.shape[1], split,
-                         device_sm_count(c.device), c.data_ptr(),
-                         q.data_ptr())
-        ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, seed, offset,
-                   log_u)
-
     # The wrapper (staged wherever it can), the direct variant, the plain
     # version.
-    k2_fns = (ak.accept_select, direct, ak.accept_select_plain)
+    k2_fns = (ak.accept_select, k2_direct, ak.accept_select_plain)
 
     def k2(q, f, coords, lp, split, ns, what, copy, **kw):
         nw = coords.shape[0]
-        for label, lp_q in lp_variants(q):
+        for label, lp_q in lp_variants(torch, q):
             for counted in (False, True):
                 outs = []
                 for fn in k2_fns:
@@ -790,6 +948,11 @@ def phase7(torch, np, dev, errs, nw=NW3, nd=ND3):
     log(f"phase 7: K2 at ndim {nd}: identical "
         f"({int(outs[0][2][:ng].sum())} of {ng} accepted)")
     t0 = time.perf_counter()
+    n_cmp = k2_whole_sweep(torch, dev, (100, 129))
+    log(f"phase 7: K2 at nsplits=1 (ng = nwalkers 5003 and 4096, ndim 100, "
+        f"129): {n_cmp} comparisons with its plain version, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     n_cmp = edge_sweep(torch, dev, (100, 129))
     log(f"phase 7: edge-shape sweep, ndim 100, 129, ng {SWEEP_NG}, nsplits "
         f"2-4: {n_cmp} comparisons of K1/K2 with their plain versions, all "
@@ -932,6 +1095,7 @@ def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000):
         f"{tau:.2f} proposals (max over a [:, :512, :16] subset), ESS/s "
         f"{out['ess']:.4e} {card}; span {span} >= 30 tau: "
         f"{span >= 30 * tau}")
+    out["chain"] = chain[:kept, :1000, :16].clone()
     del chain, smp_d
 
     # A profiled window: the profiler's launches must be exactly those of
@@ -1146,6 +1310,376 @@ def phase9(torch, np, dev, card, bytes_per_prop, busy_us_per_prop):
     }
 
 
+def d2h_bytes(torch, fn, path):
+    """Run ``fn`` under ``torch.profiler`` and return the largest
+    device-to-host copy of the trace, in bytes (the trace is written to
+    ``path``), and ``fn``'s result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    sizes = [int(e.get("args", {}).get("bytes", 0)) for e in events
+             if "DtoH" in e.get("name", "") or "Device -> Pageable"
+             in e.get("name", "") or "Device -> Pinned" in e.get("name", "")]
+    return max(sizes, default=0), out
+
+
+def diagnostics(torch, np, dev, card, chains, trace_path):
+    """Geyer tau, ``ess`` and ``rhat`` on device chains (tensors ``(n_t,
+    n_w, n_d)``): the device path against the float64 host path on the
+    same chain, to float32 tolerance (rtol 1e-4), each timed; the
+    profiler shows no device-to-host copy larger than the walker-averaged
+    ACF.  Returns ``{label: {...}}``."""
+    from emcee_tpu_torch.autocorr import ess, integrated_time, rhat
+
+    fns = (("tau (Geyer)", lambda x: integrated_time(
+               x, method="geyer", quiet=True)),
+           ("ess (Geyer)", lambda x: ess(x, method="geyer", quiet=True)),
+           ("rhat", rhat))
+    out = {}
+    for label, chain in chains.items():
+        host = chain.double().cpu().numpy()
+        n_t, _, n_d = chain.shape
+        row = {"shape": list(chain.shape)}
+        for name, fn in fns:
+            fn(chain)  # warm-up: cuFFT plans, sort buffers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(chain)
+            t_dev = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = fn(host)
+            t_host = time.perf_counter() - t0
+            if not np.allclose(got, want, rtol=1e-4, atol=0.0,
+                               equal_nan=True):
+                raise AssertionError(f"{label} {name}: device {got} vs "
+                                     f"host {want}")
+            err = float(np.nanmax(np.abs(got - want)))
+            big, _ = d2h_bytes(torch, lambda: fn(chain), trace_path)
+            if big > n_t * n_d * 8:
+                raise AssertionError(f"{label} {name}: a {big}-byte "
+                                     "device-to-host copy")
+            row[name] = dict(device_s=t_dev, host_s=t_host, max_abs_err=err,
+                             largest_d2h_bytes=big, value=got.tolist())
+            log(f"phase 10: {label} {tuple(chain.shape)}: {name} "
+                f"{np.array2string(got[:5], precision=4)}"
+                f"{' ...' if n_d > 5 else ''} on the card in {t_dev:.4f} s, "
+                f"the float64 host path {t_host:.4f} s, max abs diff "
+                f"{err:.3g}; largest device-to-host copy {big} bytes "
+                f"(ACF {n_t * n_d * 4}) {card}")
+        out[label] = row
+    return out
+
+
+def phase10(torch, np, dev, card, chains):
+    """This slice's paths at full width (1e5 walkers, the main path's
+    5-D unit Gaussian): each new move through K3's graphs, its graph
+    chain against the plain versions' eager chain bit for bit (64
+    proposals, KDE 8), its acceptance, mean log-prob, walker-steps/s
+    graph vs eager in turns, and K2's launches per proposal as the
+    profiler counts them; KDE's peak memory; the diagnostics on the
+    device chains of phases 4 and 8; one ``run_until_converged`` into a
+    ``DeviceBackend``.  Returns the numbers and the K6 / K7 rows."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.moves import kde as kde_mod
+    from emcee_tpu_torch.moves.kde import kde_logpdf
+    from emcee_tpu_torch.moves.walk import cholesky_or_nan, cov
+    from emcee_tpu_torch.ops.philox import normals
+
+    p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
+    full = 0.25 * (np.eye(ND) + 0.5 * np.ones((ND, ND)))
+
+    def mh_proposal(rng, x):
+        seed, offset = rng
+        z = normals(x.shape[0], x.shape[1], seed, offset, x.device)
+        return x + 0.5 * z, torch.zeros(x.shape[0], device=x.device)
+
+    configs = (
+        ("GaussianMove(0.5)", lambda: moves.GaussianMove(0.5), 64, 1),
+        ("GaussianMove(0.5, mode='random')",
+         lambda: moves.GaussianMove(0.5, mode="random"), 64, 1),
+        ("GaussianMove(0.5, mode='sequential')",
+         lambda: moves.GaussianMove(0.5, mode="sequential"), 64, 1),
+        ("GaussianMove(full cov)", lambda: moves.GaussianMove(full), 64, 1),
+        ("MHMove(Philox normals)", lambda: moves.MHMove(mh_proposal), 64,
+         1),
+        ("WalkMove()", moves.WalkMove, 64, 2),
+        ("WalkMove(s=16)", lambda: moves.WalkMove(s=16), 64, 2),
+        ("KDEMove()", moves.KDEMove, 8, 2),
+    )
+    out = {"moves": {}}
+    # K7's calls, counted on the card: the move's log-density adds one to
+    # a device word at each call, and the add is recorded into the
+    # graphs, so every replayed call counts too.
+    k7_calls = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def counted_logpdf(*args, **kw):
+        k7_calls.add_(1)
+        return kde_logpdf(*args, **kw)
+
+    kde_mod.kde_logpdf = counted_logpdf
+    try:
+        for config in configs:
+            out["moves"][config[0]] = phase10_move(
+                torch, np, dev, card, p0, config, k7_calls)
+    finally:
+        kde_mod.kde_logpdf = kde_logpdf
+    kde_launches = out["moves"]["KDEMove()"]["k7_calls"]
+
+    # K7 alone at the KDE proposal's shape: one log-density of ng rows
+    # under ng kernels, blocked (the port) and as one ng x nc matrix (the
+    # JAX package's formula), on the inputs of one split.
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ng = NW // 2
+    torch.cuda.empty_cache()  # the one-matrix formula needs ~40 GB
+    x = torch.randn(ng, ND, device=dev, generator=gen)
+    c = torch.randn(ng, ND, device=dev, generator=gen)
+    chol = cholesky_or_nan(ng ** (-2.0 / (ND + 4)) * cov(c))
+    got = kde_logpdf(x, c, chol)
+    ms_k7 = cuda_ms(torch, lambda: kde_logpdf(x, c, chol), reps=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    whole = kde_logpdf(x, c, chol, block_bytes=1 << 62)
+    peak_whole = torch.cuda.max_memory_allocated()
+    ms_whole = cuda_ms(torch, lambda: kde_logpdf(x, c, chol,
+                                                 block_bytes=1 << 62), reps=5)
+    err_k7 = float((got - whole).abs().max())
+    del whole
+    # Bound: what the function needs.  Bytes: x, c and the factor read
+    # once, ng log-densities written once (the ng x nc matrix is the
+    # route's, not the function's).  Operations, per pair of a row and a
+    # kernel: the cross term (2 ND), the squared distance (3), the scale
+    # (1), logsumexp's max, subtract and sum (3) at the float32 rate,
+    # and one exponential at the special-function rate.
+    pairs = ng * ng
+    k7_bytes = 4 * (2 * ng * ND + ND * ND + ng)
+    times7 = {"bytes": k7_bytes / HBM_BYTES_PER_S * 1e3,
+              "operations": max(pairs * (2 * ND + 7) / F32_OPS_PER_S,
+                                pairs / SFU_OPS_PER_S) * 1e3}
+    k7_by = max(times7, key=times7.get)
+    # The matrix written once and read once, as the blocked and the
+    # one-matrix routes move it.
+    materialised_ms = 2 * pairs * 4 / HBM_BYTES_PER_S * 1e3
+    out["k7"] = {
+        "name": "kde_logpdf", "route": "cuda",
+        "source": "emcee_tpu_torch/moves/kde.py",
+        "replaces": "emcee_tpu/moves/kde.py:88", "launches": kde_launches,
+        "max_abs_err": err_k7, "ms": ms_k7, "plain_ms": ms_whole,
+        "bound_ms": times7[k7_by], "bound_by": k7_by, "library_ms": None,
+        "bound_ms_bytes": times7["bytes"],
+        "bound_ms_operations": times7["operations"],
+        "matrix_bytes_ms": materialised_ms,
+        "note": "plain torch (triangular solves, one matmul in row blocks, "
+                "logsumexp); plain_ms is the unblocked JAX formula; "
+                "launches are the KDE run's calls, counted on the card",
+        "peak_memory_bytes_unblocked": peak_whole}
+    log(f"phase 10: K7 kde_logpdf at {ng} x {ng} x {ND}: {ms_k7:.3f} ms "
+        f"blocked, {ms_whole:.3f} ms as one matrix (peak "
+        f"{peak_whole / 2**30:.2f} GiB), max abs diff {err_k7:.3g}; bound "
+        f"{times7[k7_by]:.3f} ms ({k7_by}; bytes {times7['bytes']:.4f} ms); "
+        f"the matrix written and read once {materialised_ms:.3f} ms; "
+        f"{kde_launches} calls in the KDE run (device counter) {card}")
+    del x, c, got
+    return phase10_rest(torch, np, dev, card, chains, p0, out)
+
+
+def phase10_move(torch, np, dev, card, p0, config, k7_calls):
+    """One move of phase 10 (see :func:`phase10`); returns its row."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    label, make_move, n, k2_per = config
+
+    def make():
+        return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=12,
+                               device=dev, moves=make_move())
+
+    kde = label.startswith("KDE")
+    if kde:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    acc_chain = graph_vs_plain_chain(torch, make, p0, n=n)
+    # K7's calls are counted from here to the last profiled window.
+    k7_calls.zero_()
+    smps = {}
+    per = {"accept_select": k2_per}
+    for graphs in (False, True):
+        smp = smps[graphs] = make()
+        smp._use_graphs = graphs
+        drive(smp, p0, n, per_proposal=per, store=False,
+              skip_initial_state_check=True)
+    # KDE is profiled in windows of one proposal (below): record that
+    # graph too, so no timed or profiled run records one.
+    n_prof = 1 if kde else n
+    smps[True]._program.graph(0, n_prof, False)
+    # A KDE proposal is ~0.2 s on the card: two per turn.
+    n_timed = 2 if kde else n
+    if n_timed != n:
+        smps[True]._program.graph(0, n_timed, False)
+    rates = {False: [], True: []}
+    for graphs in (False, True, True, False):
+        _, dt = drive(smps[graphs], None, n_timed, per_proposal=per,
+                      store=False)
+        rates[graphs].append(n_timed * NW / dt)
+    smp = smps[True]
+    st = smp._previous_state
+    mean_lp = float(st.log_prob.mean())
+    acc = float(smp.last_run_stats.acceptance_fraction.mean())
+    if not -3.5 < mean_lp < -1.5:  # bench.py:161
+        raise AssertionError(f"{label}: mean log-prob {mean_lp}")
+    # K2's launches by the profiler, each window checked on its own.  A
+    # KDE proposal is ~2000 kernels, so KDE takes four windows of one
+    # proposal, each also holding K7's device count to 4 (two splits,
+    # two log-densities).  Each window's kernel events are printed.
+    busy_us, events = 0.0, []
+    for _ in range(4 if kde else 1):
+        k7_before = int(k7_calls)
+        wall, kernels = profile_window(
+            torch, lambda: drive(smp, None, n_prof, store=False))
+        counts = profiled_counts(kernels)
+        want = {"stretch_propose": 0, "accept_select": k2_per * n_prof,
+                "de_propose": 0, "snooker_propose": 0}
+        k7_window = int(k7_calls) - k7_before
+        events.append(sum(c for c, _ in kernels.values()))
+        if counts != want or k7_window != (4 * n_prof if kde else 0):
+            raise AssertionError(
+                f"{label}: profiled launches {counts}, expected {want}; "
+                f"K7 calls {k7_window}; {events[-1]} kernel events")
+        busy_us += sum(us for _, us in kernels.values())
+    row = dict(acceptance=acc, acceptance_64=acc_chain, mean_lp=mean_lp,
+               rates=rates, k2_per_proposal=k2_per,
+               profiled_windows=len(events), kernel_events=events,
+               device_us_per_proposal=busy_us / (n_prof * len(events)),
+               k7_calls=int(k7_calls), seconds=time.perf_counter() - t_all)
+    if kde:
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"phase 10: {label}: {n} graph-replayed proposals equal the "
+        f"plain versions' eager chain, bit for bit; acceptance "
+        f"{acc:.4f}, mean lp {mean_lp:.4f}; walker-steps/s in turns "
+        f"eager {rates[False][0]:.4e}, graph {rates[True][0]:.4e}, graph "
+        f"{rates[True][1]:.4e}, eager {rates[False][1]:.4e}; device "
+        f"{row['device_us_per_proposal']:.1f} us per proposal; K2 "
+        f"launches per proposal (profiler) {k2_per} in {len(events)} "
+        f"window(s) of {n_prof} proposal(s), kernel events {events}"
+        + (f"; K7 calls {row['k7_calls']} (device counter); peak memory "
+           f"{row['peak_memory_bytes'] / 2**30:.2f} GiB" if kde else "")
+        + f" ({row['seconds']:.1f} s) {card}")
+    return row
+
+
+def phase10_rest(torch, np, dev, card, chains, p0, out):
+    """Phase 10 after the moves and K7: the diagnostics, one
+    ``run_until_converged`` and K6 (see :func:`phase10`)."""
+    from emcee_tpu_torch import (
+        ConvergenceMonitor, EnsembleSampler, moves, run_until_converged)
+    from emcee_tpu_torch.autocorr import integrated_time, rhat
+    from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.monitor import stored_chain
+    from emcee_tpu_torch.ops import autocorr as ac
+
+    trace = Path(__file__).resolve().parent / "build" / "d2h_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    out["diagnostics"] = diagnostics(torch, np, dev, card, chains, trace)
+
+    # One run_until_converged on the main path into a DeviceBackend.
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=21,
+                          device=dev, backend=DeviceBackend(),
+                          moves=moves.StretchMove(randomize_split=False,
+                                                  pair_mode="roll"))
+    mon = ConvergenceMonitor(rhat_threshold=1.01)
+    # K6's calls in this run, counted where they run on the card: the
+    # walker-averaged ACF (tau) and the rank-normalised R-hat.
+    k6_calls = {"_walker_mean_acf": 0, "_rhat_device": 0}
+    saved = {name: getattr(ac, name) for name in k6_calls}
+
+    def counting(name):
+        def call(x, *args, **kw):
+            k6_calls[name] += x.is_cuda
+            return saved[name](x, *args, **kw)
+        return call
+
+    for name in k6_calls:
+        setattr(ac, name, counting(name))
+    try:
+        t0 = time.perf_counter()
+        _, mon = run_until_converged(smp, p0, max_steps=2000,
+                                     check_every=200, monitor=mon,
+                                     thin_by=10,
+                                     skip_initial_state_check=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(ac, name, fn)
+    chain = stored_chain(smp)
+    t0 = time.perf_counter()
+    ConvergenceMonitor(rhat_threshold=1.01).update(chain)
+    t_check = time.perf_counter() - t0
+    # The device kernels of one check, by the profiler.
+    _, kernels = profile_window(
+        torch, lambda: ConvergenceMonitor(rhat_threshold=1.01).update(chain))
+    check_kernels = {
+        what: sum(c for key, (c, _) in kernels.items()
+                  if any(w in key.lower() for w in words))
+        for what, words in (("fft", ("fft",)), ("sort", ("sort",)),
+                            ("all", ("",)))}
+    converged = mon.iterations[-1] < 2000 or bool(
+        np.all(mon.tau * mon.tau_factor < smp.iteration))
+    out["monitor"] = dict(iteration=smp.iteration, checks=len(mon.history),
+                          seconds=total, seconds_per_check=t_check,
+                          tau=mon.tau.tolist(), rhat=mon.rhat.tolist(),
+                          converged=converged, k6_calls=k6_calls,
+                          kernels_per_check=check_kernels)
+    if not np.isfinite(mon.tau).all() or not np.isfinite(mon.rhat).all():
+        raise AssertionError(f"monitor: tau {mon.tau}, rhat {mon.rhat}")
+    log(f"phase 10: run_until_converged (main path, DeviceBackend, "
+        f"check_every=200, thin_by=10, rhat_threshold=1.01): stopped at "
+        f"iteration {smp.iteration} after {len(mon.history)} checks "
+        f"(converged: {converged}), tau {np.array2string(mon.tau, precision=2)}"
+        f" kept steps, rhat {np.array2string(mon.rhat, precision=4)}; "
+        f"{total:.2f} s in all, {t_check:.3f} s per check at the final "
+        f"length {card}; K6 calls on the card {k6_calls}; device kernels "
+        f"of one check (profiler) {check_kernels}")
+    # K6 on the device chain of phase 4: Geyer tau and R-hat, the device
+    # path against the float64 host path.
+    k6_label = next(iter(chains))
+    ch4 = chains[k6_label]
+    geyer_rhat = (lambda x: integrated_time(x, method="geyer", quiet=True),
+                  rhat)
+    ms6 = cuda_ms(torch, lambda: [f(ch4) for f in geyer_rhat], reps=3)
+    host4 = ch4.double().cpu().numpy()
+    t0 = time.perf_counter()
+    for f in geyer_rhat:
+        f(host4)
+    plain6 = (time.perf_counter() - t0) * 1e3
+    diag4 = out["diagnostics"][k6_label]
+    out["k6"] = {
+        "name": "autocorr", "route": "cuda",
+        "source": "emcee_tpu_torch/ops/autocorr.py",
+        "replaces": "emcee_tpu/ops/autocorr.py:115",
+        "launches": sum(k6_calls.values()),
+        "max_abs_err": max(diag4[k]["max_abs_err"]
+                           for k in ("tau (Geyer)", "rhat")),
+        "ms": ms6, "plain_ms": plain6,
+        "bound_ms": ch4.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "note": "plain torch and cuFFT: Geyer tau and rank-normalised "
+                "R-hat of one chain; plain_ms is the float64 host path; "
+                "launches are the ACF and R-hat calls on the card in the "
+                "run_until_converged run, counted",
+        "kernels_per_check": check_kernels,
+        "shape": list(ch4.shape)}
+    log(f"phase 10: K6 (Geyer tau + R-hat) on {tuple(ch4.shape)}: "
+        f"{ms6:.2f} ms on the card, {plain6:.2f} ms the float64 host path; "
+        f"bound {out['k6']['bound_ms']:.3f} ms (the chain's bytes) {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1296,6 +1830,11 @@ def main() -> int:
             f"{mv.randomize_split}): acceptance identical "
             f"({float(acc_k.float().mean()):.3f}), coords max abs err {e:.3g}")
     t0 = time.perf_counter()
+    n_cmp = k2_whole_sweep(torch, dev, (1, 3, 5, 8))
+    log(f"phase 2: K2 at nsplits=1 (ng = nwalkers 5003 and 4096, ndim 1, 3, "
+        f"5, 8, aligned and unaligned bases): {n_cmp} comparisons with its "
+        f"plain version, all identical ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     n_cmp = edge_sweep(torch, dev, (1, 3, 5, 8))
     log(f"phase 2: edge-shape sweep, ndim 1, 3, 5, 8, ng {SWEEP_NG}, "
         f"nsplits 2-4: {n_cmp} comparisons of K1/K2 with their plain "
@@ -1338,31 +1877,36 @@ def main() -> int:
         f"{mean_lp:.4f}, acceptance {acc:.4f}; graphs recorded "
         f"{len(sampler._program.graphs)}")
     # -- 4. storage --------------------------------------------------------
+    # Both backends store the same kept steps: the same start state (its
+    # random_state sets the stream), so the host chain must equal the
+    # DeviceBackend chain after the float64 cast.
     thin_by, kept = 20, 100
-    stored = {}
+    stored, chains4 = {}, {}
+    st0 = st
     for label, backend in (("Backend", None), ("DeviceBackend",
                                                DeviceBackend())):
         smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=1,
                               moves=mv, backend=backend)
-        st, _ = drive(smp, st, kept, thin_by=thin_by,
-                      skip_initial_state_check=True)
+        drive(smp, st0, kept, thin_by=thin_by, skip_initial_state_check=True)
         warm_graphs(smp)
         smp.reset()
         # The same proposals unstored, just before, for the cost of storing.
-        st, dt_free = drive(smp, st, kept * thin_by, store=False,
-                            skip_initial_state_check=True)
-        st, dt_store = drive(smp, st, kept, thin_by=thin_by,
+        _, dt_free = drive(smp, st0, kept * thin_by, store=False,
+                           skip_initial_state_check=True)
+        st, dt_store = drive(smp, st0, kept, thin_by=thin_by,
                              skip_initial_state_check=True)  # bench.py:203
         chain = smp.get_chain()
         if chain.shape != (kept, NW, ND) or not np.isfinite(chain).all():
             raise AssertionError(f"{label}: chain {chain.shape}")
         if smp.get_log_prob().shape != (kept, NW):
             raise AssertionError(f"{label}: log_prob shape")
+        chains4[label] = (chain, smp.get_log_prob(), smp.backend.accepted)
         t1 = time.perf_counter()
         if label == "Backend":
             tau = integrated_time(chain, quiet=True)
         else:
             tau = smp.get_autocorr_time(quiet=True)  # FFTs on the card
+            dev_chain4 = smp.backend.chain[:kept, :4000].clone()
         t_tau = time.perf_counter() - t1
         tau = tau * thin_by  # in proposals
         if not np.isfinite(tau).all():
@@ -1377,6 +1921,18 @@ def main() -> int:
         log(f"phase 4: {label}: the same proposals unstored took "
             f"{dt_free:.3f} s; stored / unstored rate "
             f"{dt_free / dt_store:.4f}")
+    (hc, hl, ha), (dc, dl, da) = chains4["Backend"], chains4["DeviceBackend"]
+    if not (hc.dtype == np.float64
+            and np.array_equal(hc, dc.astype(np.float64))
+            and np.array_equal(hl, dl.astype(np.float64))
+            and np.array_equal(ha, da)):
+        raise AssertionError("the host Backend's chain differs from the "
+                             "DeviceBackend chain of the same seed")
+    log(f"phase 4: the host Backend's float64 chain, log-prob and "
+        f"acceptance equal the DeviceBackend's of the same seed after the "
+        f"float64 cast, bit for bit ({kept} kept x {NW} x {ND})")
+    del chains4, hc, hl, dc, dl
+    rates4, splits4, _ = stored_rates(torch, np, dev, card, mv, st0)
     # The phase-3 sampler re-timed now: whether a slower stored phase is
     # the host drifting over the call or something of the new samplers.
     _, dt = drive(sampler, None, kept * thin_by, store=False)
@@ -1712,6 +2268,17 @@ def main() -> int:
         "main path": main_prof["host_us_per_replay"],
         "workload 3": w3["host_us_per_replay"]}
     rows.append(k3)
+
+    # -- 10. this slice's paths ----------------------------------------------
+    p10 = phase10(torch, np, dev, card, {
+        "phase 4 DeviceBackend [:, :4000]": dev_chain4,
+        "phase 8 DeviceBackend [:, :1000, :16]": w3["chain"]})
+    rows += [p10["k6"], p10["k7"]]
+    for thin, (r_s, r_f) in sorted(rates4.items()):
+        log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
+            f"walker-steps/s (unstored {r_f:.4e}); split per kept step "
+            + ", ".join(f"{k} {v:.4f}" for k, v in splits4[thin].items()
+                        if k != "chunk") + f" ms {card}")
     log(f"phase 9: K3: {k3['launches']} replays on the main path; replay "
         f"of {k3['proposals_per_replay']} proposals {k3['ms'] * 1e3:.2f} "
         f"us against its kernels' device time "

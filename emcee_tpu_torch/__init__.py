@@ -1,14 +1,35 @@
 """emcee_tpu_torch: the PyTorch and CUDA port of emcee_tpu.
 
 The affine-invariant ensemble sampler on one NVIDIA GPU (Hopper,
-``sm_90a``).  It keeps the JAX package's module and public names; the
-proposal (K1) and the accept/select write-back (K2) are hand-written CUDA
-kernels beside plain PyTorch versions.  Entry points run on ``"cuda"``
-unless the caller passes ``device="cpu"``.
+``sm_90a``).  It keeps the JAX package's module and public names.  The
+hot path's fused op chains are hand-written CUDA kernels beside plain
+PyTorch versions: the stretch proposal (K1), the accept/select
+write-back (K2), the DE and DE-snooker proposals (K5a, K5b); the chunk
+program (K3) replays each proposal as a CUDA graph.  The Gaussian,
+Metropolis-Hastings, walk and KDE moves, the autocorrelation and R-hat
+diagnostics and the convergence monitor are plain PyTorch on the
+walkers' device.  Entry points run on ``"cuda"`` unless the caller
+passes ``device="cpu"``.
 """
 
-from . import autocorr, backends, moves
+from . import autocorr, backends, moves, utils
+from .monitor import ConvergenceMonitor, run_until_converged
+from .ops.autocorr import AutocorrError
 from .sampler import EnsembleSampler
-from .state import State
+from .state import State, walkers_independent
 
-__all__ = ["EnsembleSampler", "State", "autocorr", "backends", "moves"]
+__version__ = "0.6.0"
+
+__all__ = [
+    "EnsembleSampler",
+    "State",
+    "walkers_independent",
+    "ConvergenceMonitor",
+    "run_until_converged",
+    "AutocorrError",
+    "moves",
+    "autocorr",
+    "backends",
+    "utils",
+    "__version__",
+]

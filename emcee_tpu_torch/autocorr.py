@@ -5,9 +5,12 @@ The implementation lives in :mod:`emcee_tpu_torch.ops.autocorr`.
 
 from .ops.autocorr import (  # noqa: F401
     AutocorrError,
+    ess,
     function_1d,
     integrated_time,
     next_pow_two,
+    rhat,
 )
 
-__all__ = ["function_1d", "integrated_time", "AutocorrError", "next_pow_two"]
+__all__ = ["function_1d", "integrated_time", "ess", "rhat", "AutocorrError",
+           "next_pow_two"]

@@ -7,6 +7,12 @@ the sampler's generator state, in numpy arrays on the host.  The sampler
 lands a whole chunk of kept steps per :meth:`save_chunk`.
 ``random_state`` is the port's ``(seed, offset)`` pair.  Blobs are not
 ported yet (ROADMAP P10).
+
+:meth:`save_chunk` copies the rows with torch's CPU copy, on torch's
+intra-op threads: a chunk of the main path is ~5 MB of new rows per
+kept step, and writing pages touched for the first time is the stored
+run's bound on the host; the threads take those page faults in parallel
+(``chip_smoke.py`` phase 4's split, ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,17 @@ def _to_numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _write_rows(dst, src):
+    """``dst[...] = src`` for a numpy view ``dst``, on torch's threads
+    (numpy's assignment where torch does not take the arrays)."""
+    src = _to_numpy(src)
+    try:
+        torch.from_numpy(dst).copy_(
+            torch.from_numpy(np.require(src, requirements="W")))
+    except (TypeError, ValueError):  # a dtype or layout torch refuses
+        dst[...] = src
 
 
 def _check_no_blobs(blobs):
@@ -101,8 +118,8 @@ class Backend:
         if self.chain is None or self.iteration + k > self._size:
             self.grow(max(k, 1), None)
         i = self.iteration
-        self.chain[i : i + k] = coords
-        self.log_prob[i : i + k] = _to_numpy(log_prob)
+        _write_rows(self.chain[i : i + k], coords)
+        _write_rows(self.log_prob[i : i + k], log_prob)
         self.accepted += _to_numpy(accepted).sum(axis=0)
         self.iteration += k
         self.random_state = _random_state(random_state)

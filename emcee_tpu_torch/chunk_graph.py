@@ -50,7 +50,8 @@ import torch
 from .ops.philox import DeviceOffset
 from .state import State
 
-__all__ = ["MAX_GRAPH", "ChunkProgram", "Workspace", "graph_sizes"]
+__all__ = ["MAX_GRAPH", "ChunkProgram", "Workspace", "clone_carry",
+           "graph_sizes"]
 
 #: proposals in the largest graph (a power of two)
 MAX_GRAPH = 64
@@ -68,7 +69,8 @@ def graph_sizes(n, cap=MAX_GRAPH):
     return sizes
 
 
-def _clone_carry(carry):
+def clone_carry(carry):
+    """A copy of a move's carry (a dict of tensors, or ``()``)."""
     if isinstance(carry, dict):
         return {k: v.clone() for k, v in carry.items()}
     return carry
@@ -87,7 +89,7 @@ class Workspace:
 
     def clone(self):
         return Workspace(**{
-            f.name: (tuple(_clone_carry(c) for c in self.carries)
+            f.name: (tuple(clone_carry(c) for c in self.carries)
                      if f.name == "carries" else getattr(self, f.name).clone())
             for f in fields(self)
         })
@@ -120,7 +122,7 @@ class ChunkProgram:
                                  device=dev),
             count=torch.zeros(coords.shape[0], dtype=torch.int32, device=dev),
             offset=torch.zeros((), dtype=torch.int64, device=dev),
-            carries=tuple(_clone_carry(c) for c in carries),
+            carries=tuple(clone_carry(c) for c in carries),
         )
         self.graphs = {}
         self._stream = None

@@ -79,13 +79,16 @@ def check_i32(name, t, device, shape):
                          f"on {device}")
 
 
-def check_rows(coords, split, nsplits):
+def check_rows(coords, split, nsplits, min_splits=2):
     """The ensemble buffer and split as the kernels take them; returns
-    ``(nwalkers, ndim, ng)``."""
+    ``(nwalkers, ndim, ng)``.  The proposal kernels need a complement,
+    so two splits or more; K2 needs none and takes ``min_splits=1`` (the
+    whole ensemble as one split, as ``MHMove`` proposes it)."""
     if coords.dim() != 2:
         raise ValueError("coords must be (nwalkers, ndim)")
     nw, nd = coords.shape
-    if nsplits < 2 or nw % nsplits or not 0 <= split < nsplits:
+    if (nsplits < min_splits or nw % nsplits
+            or not 0 <= split < nsplits):
         raise ValueError(f"bad split {split} of {nsplits} for {nw} walkers")
     if nw * nd >= 2**31:
         raise ValueError("ensemble too large for int32 indexing")

@@ -27,6 +27,10 @@ of the ensemble per split.  ``accepted`` ``(nwalkers,)`` bool receives
 the block's acceptance, and the optional int32 ``count`` ``(nwalkers,)``
 adds it, so acceptance accumulates on the device.
 
+With ``nsplits=1`` the split is the whole ensemble (``MHMove`` and
+``GaussianMove``, which need no complement): ``ng = nwalkers``, and the
+tile plan and the kernel's indexing are the same at any ``ng``.
+
 The accept uniform is Philox word 1 at ``(walker, split, offset)``
 (``offset`` an int or a ``DeviceOffset``), or the injected ``log_u``
 (ng,) (the parity mode: ``RedBlueMove._inner``'s ``log_u`` argument in
@@ -81,7 +85,7 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
         return accept_select_plain(*args, **kw)
     if coords.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {coords.device}")
-    nw, nd, ng = check_rows(coords, split, nsplits)
+    nw, nd, ng = check_rows(coords, split, nsplits, min_splits=1)
     dev = coords.device
     check_f32("log_prob", log_prob, dev, (nw,))
     check_f32("q", q, dev, (ng, nd))

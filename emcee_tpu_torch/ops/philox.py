@@ -37,7 +37,31 @@ Stream layout (shared with the kernels):
   proposal; ``(MOVE_LANE, 1, ...)``, word 0: the choice of a
   ``mixture_block`` block, at the offset of the block's first proposal;
   both are computed on the host (:func:`uniform_scalar`), so a chunk's
-  move sequence is known before it runs.
+  move sequence is known before it runs;
+* the moves of plain torch (``moves/mh.py``, ``gaussian.py``,
+  ``walk.py``, ``kde.py``) draw from these, where ``row`` is the walker's
+  row in the proposal's ensemble buffer (``split * ng + i``; every
+  walker's row with ``nsplits=1``):
+
+  - counter ``(row, NORMAL_BLOCK | k, ...)``: standard normals ``2k``
+    (words 0 and 2) and ``2k + 1`` (words 1 and 3) of the row, by
+    Box-Muller (:func:`normals`): the Gaussian and walk steps and the
+    KDE noise;
+  - counter ``(row, PICK_BLOCK | k, ...)``: uniforms ``4k .. 4k + 3`` of
+    the row (:func:`row_uniforms`): the walk move's subset picks (or an
+    exact subset's sort keys);
+  - word 0 at ``(walker, 0, ...)``: the Gaussian move's random dimension
+    (the accept uniform, word 1, is K2's at ``nsplits=1``); word 0 at
+    ``(i, split, ...)``: the KDE move's kernel centre (the stretch ``z``
+    word; no stretch proposal runs in the same proposal);
+  - word 0 at ``(ROLL_LANE, 0, ...)``: the Gaussian move's ``factor``
+    uniform (no roll draw runs in an MH proposal);
+  - word 0 at ``(j, SUBSAMPLE_BLOCK | split, ...)``: the sort key of
+    complement row ``j`` for the KDE move's ``max_complement``
+    subsample.
+
+  A user's ``MHMove`` proposal may draw from :func:`normals` and
+  :func:`row_uniforms`; word 1 at ``(walker, 0, ...)`` is K2's.
 
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
@@ -45,6 +69,8 @@ exact in float32, as ``jax.random.uniform`` draws them.
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -56,13 +82,18 @@ __all__ = [
     "ROLL_LANE",
     "MOVE_LANE",
     "MOVE_BLOCK",
+    "NORMAL_BLOCK",
     "PAIR_BLOCK",
+    "PICK_BLOCK",
+    "SUBSAMPLE_BLOCK",
     "box_muller",
+    "normals",
     "philox4x32",
     "philox4x32_scalar",
     "philox4x32_torch",
     "roll_shift",
     "roll_uniforms",
+    "row_uniforms",
     "split_key",
     "split_offset",
     "to_uniform",
@@ -78,6 +109,12 @@ MOVE_LANE = 0xFFFFFFFE
 MOVE_BLOCK = 1
 #: high bit of the split word: the random-pair partner counter block
 PAIR_BLOCK = 0x80000000
+#: split word bits of the normals of the moves of plain torch (``| k``)
+NORMAL_BLOCK = 0x40000000
+#: split word bits of the per-row uniforms of the moves of plain torch
+PICK_BLOCK = 0x20000000
+#: split word bits of the KDE move's complement subsample keys
+SUBSAMPLE_BLOCK = 0x10000000
 #: 2 pi rounded to float32, as the kernels' Box-Muller uses it
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 
@@ -116,7 +153,7 @@ def philox4x32_scalar(counter, key):
     """Reference Philox4x32-10 on Python ints: 4 counter words, 2 key
     words -> 4 output words."""
     c = [int(w) & MASK32 for w in counter]
-    for k0, k1 in _round_keys(key):
+    for k0, k1 in _round_keys((int(key[0]), int(key[1]))):
         p0 = _M0 * c[0]
         p1 = _M1 * c[2]
         c = [
@@ -145,6 +182,9 @@ def roll_uniforms(seed, split, offset, device):
     """The four uniforms at counter ``(ROLL_LANE, split, offset)`` as a
     ``(4,)`` float32 tensor on ``device``: the split's roll draws, as the
     kernels compute them."""
+    if torch.device(device).type == "cpu":
+        n, words = _cpu_draw(None, split, seed, offset)
+        return to_uniform(torch.stack([w[n] for w in words]))
     lane = torch.full((), ROLL_LANE, dtype=torch.int64, device=device)
     lo, hi = split_offset(offset)
     return to_uniform(torch.stack(philox4x32(lane, split, lo, hi,
@@ -159,51 +199,49 @@ def roll_shift(seed, split, offset, nc, device="cpu"):
     return (u * nc).to(torch.int64)
 
 
-def _mulhilo(m, b):
-    """(hi, lo) 32-bit halves of ``m * b`` for int64 tensors holding
-    uint32 values.  The full product needs 64 unsigned bits, which
-    overflows int64, so ``b`` is split into 16-bit limbs: every partial
-    product stays below 2**49."""
-    t = m * (b >> 16)
-    br = ((t & 0xFFFF) << 16) + m * (b & 0xFFFF)
-    return (t >> 16) + (br >> 32), br & MASK32
-
-
+@functools.lru_cache(maxsize=64)
 def _round_keys(key):
+    """The ten round keys ``((k0, k1), ...)`` of a key, as Python ints
+    (computed once per key)."""
     k0, k1 = (int(w) & MASK32 for w in key)
-    for r in range(_ROUNDS):
-        if r:
-            k0 = (k0 + _W0) & MASK32
-            k1 = (k1 + _W1) & MASK32
-        yield k0, k1
+    return tuple(((k0 + _W0 * r) & MASK32, (k1 + _W1 * r) & MASK32)
+                 for r in range(_ROUNDS))
 
 
 def philox4x32_torch(c0, c1, c2, c3, key):
-    """The ten rounds in int64 torch arithmetic (any device), on
-    same-shape counter words.
+    """The ten rounds in int64 torch arithmetic (any device).  Each
+    counter word is an int64 tensor or a Python int holding a value in
+    ``[0, 2**32)``; the words broadcast, and every output word is a
+    tensor of the broadcast shape once any input word is a tensor.
 
-    The multiplied words ``(c0, c2)`` and the passed-on words
-    ``(c1, c3)`` are each stacked into one tensor, so a round is one
-    limb product and three elementwise operations on both lanes at once:
-    each torch call costs microseconds on small CPU tensors, and the
+    The product of a multiplier and a uint32 word is below 2**64, so
+    its low 64 bits are all of it.  int64 arithmetic keeps exactly those
+    bits and wraps: a product of 2**63 or more comes out negative, its
+    bits unchanged.  So the high word is the wrapped product shifted
+    right by 32 with the shift's sign bits masked off, and the low word
+    its low 32 bits.  (A Python int's product is exact; its high and low
+    words are the same.)
+
+    Each torch call costs microseconds on small CPU tensors, and the
     count of calls, not the arithmetic, sets the plain version's time.
+    So a round is one wrapped product per lane, the key words and
+    multipliers are Python ints (kernel arguments: nothing is copied
+    from the host, so the rounds can be recorded into a CUDA graph), and
+    the low words ``(c1, c3)`` of tensors are carried as the whole
+    wrapped products, masked only where they leave a round's XOR or the
+    function (XOR does not carry between bits): ten torch calls a round.
     """
-    mul = torch.stack((c0, c2))
-    out = torch.stack((c1, c3))
-    lead = (2,) + (1,) * (mul.dim() - 1)
-    # The constants are made on the device by arithmetic, not copied from
-    # the host, so the rounds can be recorded into a CUDA graph.
-    lane = torch.arange(2, dtype=torch.int64, device=mul.device)
-    m = (_M0 + (_M1 - _M0) * lane).view(lead)
-    k0, k1 = (int(w) & MASK32 for w in key)
-    r = torch.arange(_ROUNDS, dtype=torch.int64, device=mul.device)
-    keys = torch.stack(((k0 + _W0 * r) & MASK32, (k1 + _W1 * r) & MASK32), 1)
-    for r in range(_ROUNDS):
-        hi, lo = _mulhilo(m, mul)
+    for k0, k1 in _round_keys((int(key[0]), int(key[1]))):
+        p0 = c0 * _M0
+        p1 = c2 * _M1
         # c0' = hi(M1 c2) ^ c1 ^ k0, c2' = hi(M0 c0) ^ c3 ^ k1,
         # c1' = lo(M1 c2), c3' = lo(M0 c0).
-        mul, out = hi.flip(0) ^ out ^ keys[r].view(lead), lo.flip(0)
-    return mul[0], out[0], mul[1], out[1]
+        c0 = ((p1 >> 32) ^ c1 ^ k0) & MASK32
+        c2 = ((p0 >> 32) ^ c3 ^ k1) & MASK32
+        # An int's exact product would not fit an int64 tensor's XOR.
+        c1 = p1 & MASK32 if isinstance(p1, int) else p1
+        c3 = p0 & MASK32 if isinstance(p0, int) else p0
+    return c0, c1 & MASK32, c2, c3 & MASK32
 
 
 def philox4x32(c0, c1, c2, c3, key):
@@ -214,24 +252,65 @@ def philox4x32(c0, c1, c2, c3, key):
     Python ints.  Returns the four output words as int64 tensors of the
     broadcast shape, on the tensors' device, from
     :func:`philox4x32_torch`, which is held against
-    :func:`philox4x32_scalar`.  A Python int becomes a device fill, never
-    a host-to-device copy.
+    :func:`philox4x32_scalar`.  A Python int stays a kernel argument,
+    never a host-to-device copy.
     """
-    tensors = [c for c in (c0, c1, c2, c3) if isinstance(c, torch.Tensor)]
-    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
-    dev = tensors[0].device
-    words = [
-        c.to(torch.int64).expand(shape) if isinstance(c, torch.Tensor)
-        else torch.full(shape, int(c) & MASK32, dtype=torch.int64,
-                        device=dev)
-        for c in (c0, c1, c2, c3)
-    ]
+    words = [c.to(torch.int64) if isinstance(c, torch.Tensor)
+             else int(c) & MASK32 for c in (c0, c1, c2, c3)]
     return philox4x32_torch(*words, key)
+
+
+#: The last CPU draw of :func:`walker_words` of this thread, as
+#: ``.draw = ((split, seed, offset), n, words)``.  It holds every
+#: counter of one split at one offset that a proposal reads: the words
+#: of walker lanes ``0..n-1`` at ``split``, of ``ROLL_LANE`` at
+#: ``split``, and of lanes ``0..n-1`` at ``PAIR_BLOCK | split``, in that
+#: order, from one :func:`philox4x32` call.  The plain versions of one
+#: proposal draw the same counters more than once (K1's or K5a's walker
+#: words, partner picks and roll draws, then K2's accept word), so on
+#: the CPU the later calls read the first one's words.  Words are never
+#: written in place, so a shared draw is safe; each thread keeps its
+#: own, so samplers on two threads never read each other's.  Nothing is
+#: kept for another device: there the draws are recorded into CUDA
+#: graphs, and a key would need the device offset word on the host.
+_cpu_draws = threading.local()
+
+
+def _cpu_offset(offset):
+    """A proposal offset as a Python int, reading a CPU device word."""
+    if isinstance(offset, DeviceOffset):
+        return int(offset.word) + offset.inc
+    return int(offset)
+
+
+def _cpu_draw(n, split, seed, offset):
+    """``(n, words)`` of this thread's :data:`_cpu_draws` for ``split``
+    (without its ``PAIR_BLOCK`` bit) at ``offset``, drawn unless they
+    are the last."""
+    key = (split & ~PAIR_BLOCK, int(seed) & 0xFFFFFFFFFFFFFFFF,
+           _cpu_offset(offset))
+    last, last_n, words = getattr(_cpu_draws, "draw", (None, 0, None))
+    if last == key and (n is None or last_n == n):
+        return last_n, words
+    n = n or 0
+    lanes = torch.arange(2 * n + 1, dtype=torch.int64)
+    lanes[n] = ROLL_LANE
+    lanes[n + 1:] -= n + 1
+    blocks = torch.full((2 * n + 1,), key[0], dtype=torch.int64)
+    blocks[n + 1:] |= PAIR_BLOCK
+    lo, hi = split_offset(key[2])
+    words = philox4x32(lanes, blocks, lo, hi, split_key(seed))
+    _cpu_draws.draw = key, n, words
+    return n, words
 
 
 def walker_words(n, split, seed, offset, device):
     """The four Philox words of walker lanes ``0..n-1`` at ``split``;
     ``offset`` is an int or a :class:`DeviceOffset`."""
+    if torch.device(device).type == "cpu":
+        _, words = _cpu_draw(n, split, seed, offset)
+        at = slice(n + 1, None) if split & PAIR_BLOCK else slice(0, n)
+        return tuple(w[at] for w in words)
     lo, hi = split_offset(offset)
     lanes = torch.arange(n, dtype=torch.int64, device=device)
     return philox4x32(lanes, split, lo, hi, split_key(seed))
@@ -248,3 +327,33 @@ def box_muller(w0, w2, dtype=torch.float32):
     compute it (``1 - u0`` lies in ``(0, 1]``, so the log is finite)."""
     r = torch.sqrt(-2.0 * torch.log(1.0 - to_uniform(w0, dtype)))
     return r * torch.cos(TWO_PI_F32 * to_uniform(w2, dtype))
+
+
+def _row_words(n, k, block, seed, offset, device, row0=0):
+    """The words of counters ``(row0 + r, block | j, offset)`` for
+    ``r < n``, ``j < k``: four ``(n, k)`` tensors."""
+    lo, hi = split_offset(offset)
+    rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
+    cols = block | torch.arange(k, dtype=torch.int64, device=device)
+    return philox4x32(rows[:, None], cols[None, :], lo, hi, split_key(seed))
+
+
+def normals(n, d, seed, offset, device, dtype=torch.float32, row0=0):
+    """``(n, d)`` standard normals of rows ``row0 .. row0 + n - 1``:
+    normal ``2k`` of a row by Box-Muller on words 0 and 2 of counter
+    ``(row, NORMAL_BLOCK | k, offset)``, normal ``2k + 1`` on words 1
+    and 3 (:func:`box_muller`)."""
+    w0, w1, w2, w3 = _row_words(n, (d + 1) // 2, NORMAL_BLOCK, seed, offset,
+                                device, row0)
+    z = torch.stack((box_muller(w0, w2, dtype), box_muller(w1, w3, dtype)),
+                    dim=-1)
+    return z.reshape(n, -1)[:, :d]
+
+
+def row_uniforms(n, d, seed, offset, device, dtype=torch.float32, row0=0):
+    """``(n, d)`` uniforms of rows ``row0 .. row0 + n - 1``: uniform
+    ``4k + w`` of a row from word ``w`` of counter ``(row, PICK_BLOCK |
+    k, offset)``."""
+    w = _row_words(n, (d + 3) // 4, PICK_BLOCK, seed, offset, device, row0)
+    return to_uniform(torch.stack(w, dim=-1), dtype).reshape(n, -1)[:, :d]
+

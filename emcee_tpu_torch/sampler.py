@@ -1,10 +1,10 @@
 """The ensemble sampler driver.
 
-The counterpart of ``emcee_tpu/sampler.py:112-1432`` (``EnsembleSampler``)
-for the subset this slice ports: the constructor's core arguments,
-``compute_log_prob`` with its guards, ``run_mcmc`` (resume, ``thin_by``,
-``store``, ``tune``), the ``sample`` generator, ``reset`` and the
-getters.  Arguments of the JAX sampler that are not ported yet raise
+The counterpart of ``emcee_tpu/sampler.py:112-1432`` (``EnsembleSampler``):
+the constructor's arguments, ``compute_log_prob`` with its guards,
+``run_mcmc`` (resume, ``thin_by``, ``store``, ``tune``), the ``sample``
+generator, ``reset``, the getters, the deprecated v2 properties and
+pickling.  Arguments of the JAX sampler that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Where the JAX package compiles a chunk of kept steps into one
@@ -20,24 +20,38 @@ slice copy per field after the replay that ends it: into a
 :class:`~.backends.DeviceBackend`'s own chain rows, or into a device
 staging buffer that reaches a host :class:`~.backends.Backend` with one
 device-to-host copy per chunk.
+
+Storage overlaps compute, as the JAX run loop does
+(``emcee_tpu/sampler.py:1349-1419``): chunk k's rows go into one of two
+pinned host buffers by an asynchronous copy that records a CUDA event;
+chunk k+1's replays are enqueued; only then does the host wait on chunk
+k's event and write its rows into the backend, while the card computes
+chunk k+1.  Each chunk carries its resume anchors (the state, the move
+carries and the ``(seed, offset)`` after it, as device clones), and the
+anchors move only together with the chunk's save, under
+:func:`~.utils.defer_interrupts`: a Ctrl-C never leaves the backend
+ahead of the anchors, and ``run_mcmc(None, n)`` after an interrupt
+continues the chain exactly.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import moves as _moves_mod
 from .backends import Backend
-from .chunk_graph import ChunkProgram
+from .chunk_graph import ChunkProgram, clone_carry
 from .driver import (
     chunk_replays, chunk_schedule, move_sequence, parse_moves, shim_thin)
 from .model import Model, wrap_log_prob_fn
 from .state import State, as_state, resolve_device, walkers_independent
+from .utils import defer_interrupts
 
 __all__ = ["EnsembleSampler", "RunStats"]
 
@@ -46,17 +60,18 @@ __all__ = ["EnsembleSampler", "RunStats"]
 _NOT_PORTED = {
     "pool": (None, "P12"),
     "blobs_dtype": (None, "P10"),
-    "parameter_names": (None, "P1"),
+    "parameter_names": (None, "P10"),
     "prng": (None, "P3: the port has one generator, Philox4x32-10"),
     "mesh": (None, "P13"),
     "param_axis": (None, "P13"),
     "host_callback": (False, "P12"),
     "io_dtype": (None, "P10"),
+    "host_callback_blobs": (None, "P12"),
 }
 
-#: bytes of one chunk's device staging buffer (as io_chunk_bytes in the
-#: JAX sampler)
-_CHUNK_BYTES = 1 << 27
+#: deprecated v2 arguments that warn and are ignored (reference
+#: ensemble.py:93-113); ``postargs`` is ignored without a warning
+_DEPRECATED = ("a", "threads", "runtime_sortingfn", "live_dangerously")
 
 
 @dataclass
@@ -70,6 +85,9 @@ class RunStats:
     nwalkers: int = 0
     walltime_s: float = 0.0
     accepted: Optional[torch.Tensor] = None
+    #: the wall time covers the device's work: it always ends in a
+    #: synchronize, so ``run_mcmc(accurate_timing=)`` changes nothing
+    accurate: bool = True
 
     @property
     def walker_steps_per_sec(self) -> float:
@@ -81,6 +99,19 @@ class RunStats:
     def acceptance_fraction(self):
         """Per-walker acceptance over every proposal of the run."""
         return self.accepted.cpu().numpy() / float(self.nproposals)
+
+
+class _Chunk(NamedTuple):
+    """A chunk whose proposals are enqueued, waiting for its save: its
+    rows (:meth:`EnsembleSampler._chunk_rows`, or None unstored), the
+    host copy of a host backend's rows (pinned, on the card) and the
+    event that ends that copy, and the resume anchors after the chunk."""
+
+    rows: Optional[tuple]
+    host: Optional[torch.Tensor]
+    copied: Optional[torch.cuda.Event]
+    state: State
+    carries: tuple
 
 
 class EnsembleSampler:
@@ -100,9 +131,18 @@ class EnsembleSampler:
         vectorize: see ``log_prob_fn``.
         seed: int seed of the sampler's Philox stream (used when an
             initial state carries no ``random_state``).
+        walker_axis: the mesh axis of the walkers; meaningless until
+            ``mesh=`` is ported (ROADMAP P13).
+        io_chunk_bytes: bytes of one chunk's storage buffer, which sets
+            the kept steps per chunk of a stored run.
+        scan_unroll: accepted and unused: the port has no scan, and K3's
+            graphs already hold up to ``MAX_GRAPH`` proposals unrolled.
         mixture_block: with several moves, draw the move once per block
             of this many kept steps instead of once per proposal.
         max_chunk_steps: optional cap on kept steps per chunk.
+        a, threads, live_dangerously, runtime_sortingfn: deprecated v2
+            arguments: they warn and are ignored.  ``postargs`` is
+            ignored without a warning.
         device: where the walkers live; ``None`` means ``"cuda"``, and
             there is no silent fallback to the CPU.
     """
@@ -123,18 +163,27 @@ class EnsembleSampler:
         seed=0,
         prng=None,
         mesh=None,
+        walker_axis="walkers",
         param_axis=None,
         host_callback=False,
-        io_dtype=None,
+        io_chunk_bytes=1 << 27,
+        scan_unroll=4,
         mixture_block=1,
+        io_dtype=None,
+        host_callback_blobs=None,
         max_chunk_steps=None,
+        a=None,
+        postargs=None,
+        threads=None,
+        live_dangerously=None,
+        runtime_sortingfn=None,
         device=None,
     ):
         given = dict(
             pool=pool, blobs_dtype=blobs_dtype,
             parameter_names=parameter_names, prng=prng, mesh=mesh,
             param_axis=param_axis, host_callback=host_callback,
-            io_dtype=io_dtype,
+            io_dtype=io_dtype, host_callback_blobs=host_callback_blobs,
         )
         for name, (default, item) in _NOT_PORTED.items():
             if given[name] != default:
@@ -142,6 +191,20 @@ class EnsembleSampler:
                     f"EnsembleSampler({name}=...) is not ported yet "
                     f"(ROADMAP {item})"
                 )
+        deprecated = dict(a=a, threads=threads, live_dangerously=
+                          live_dangerously, runtime_sortingfn=
+                          runtime_sortingfn)
+        for name in _DEPRECATED:
+            if deprecated[name] is not None:
+                warnings.warn(
+                    f"The '{name}' argument is deprecated"
+                    + (", use 'moves' instead" if name == "a" else ""),
+                    DeprecationWarning, stacklevel=2,
+                )
+        self.walker_axis = walker_axis
+        self._io_chunk_bytes = int(io_chunk_bytes)
+        if self._io_chunk_bytes < 1:
+            raise ValueError("io_chunk_bytes must be >= 1")
         self.device = resolve_device(device)
         self.dtype = torch.float32
         self.nwalkers = int(nwalkers)
@@ -168,14 +231,11 @@ class EnsembleSampler:
             raise ValueError("mixture_block must be >= 1")
 
         self.log_prob_fn = log_prob_fn
-        self._compute_log_prob = wrap_log_prob_fn(
-            log_prob_fn, args=args, kwargs=kwargs, vectorize=vectorize
-        )
-        self._model = Model(
-            compute_log_prob=self._compute_log_prob,
-            nwalkers=self.nwalkers,
-            ndim=self.ndim,
-        )
+        # The wrapped log-prob and the model are rebuilt from these after
+        # unpickling (__setstate__).
+        self._lp_settings = dict(args=args, kwargs=kwargs,
+                                 vectorize=vectorize)
+        self._build_model()
 
         # Resume from a non-empty backend (reference ensemble.py:139-162).
         self._previous_state = None
@@ -187,6 +247,9 @@ class EnsembleSampler:
         # that tests and chip_smoke.py hold the graphs against.
         self._program = None
         self._use_graphs = self.device.type == "cuda"
+        # Two pinned host buffers per chunk shape, used in turns
+        # (_stage_rows).
+        self._pinned = {}
         if self.backend.initialized:
             if self.backend.shape != (self.nwalkers, self.ndim):
                 raise ValueError(
@@ -198,6 +261,29 @@ class EnsembleSampler:
                 self._previous_state = self.backend.get_last_sample()
         else:
             self.backend.reset(self.nwalkers, self.ndim)
+
+    def _build_model(self):
+        self._compute_log_prob = wrap_log_prob_fn(self.log_prob_fn,
+                                                  **self._lp_settings)
+        self._model = Model(
+            compute_log_prob=self._compute_log_prob,
+            nwalkers=self.nwalkers,
+            ndim=self.ndim,
+        )
+
+    def __getstate__(self):
+        # The chunk program (its CUDA graphs), the pinned buffers and the
+        # wrapped log-prob do not pickle; they are rebuilt after
+        # unpickling (the JAX sampler drops its jitted runners the same
+        # way, emcee_tpu/sampler.py:435-451).
+        d = self.__dict__.copy()
+        d.update(_program=None, _pinned={}, _compute_log_prob=None,
+                 _model=None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._build_model()
 
     # ------------------------------------------------------------------
     # Introspection (reference ensemble.py:555-623)
@@ -228,6 +314,49 @@ class EnsembleSampler:
             self._previous_state = self._previous_state._replace(
                 random_state=self._rng
             )
+
+    def _deprecated(self, instead):
+        warnings.warn(
+            f"this attribute is deprecated; use '{instead}' instead "
+            "(reference ensemble.py:560-595 keeps the same shims)",
+            DeprecationWarning, stacklevel=3,
+        )
+
+    @property
+    def chain(self):
+        """Deprecated v2 layout ``(nwalkers, steps, ndim)``."""
+        self._deprecated("get_chain()")
+        return np.swapaxes(self.get_chain(), 0, 1)
+
+    @property
+    def flatchain(self):
+        self._deprecated("get_chain(flat=True)")
+        return self.get_chain(flat=True)
+
+    @property
+    def lnprobability(self):
+        self._deprecated("get_log_prob()")
+        return np.swapaxes(self.get_log_prob(), 0, 1)
+
+    @property
+    def flatlnprobability(self):
+        self._deprecated("get_log_prob(flat=True)")
+        return self.get_log_prob(flat=True)
+
+    @property
+    def blobs(self):
+        self._deprecated("get_blobs()")
+        return self.get_blobs()
+
+    @property
+    def flatblobs(self):
+        self._deprecated("get_blobs(flat=True)")
+        return self.get_blobs(flat=True)
+
+    @property
+    def acor(self):
+        self._deprecated("get_autocorr_time()")
+        return self.get_autocorr_time()
 
     def get_chain(self, **kwargs):
         return self.get_value("chain", **kwargs)
@@ -325,7 +454,7 @@ class EnsembleSampler:
 
     def _auto_chunk(self, store):
         """Kept steps per chunk: the storage buffer stays under
-        ``_CHUNK_BYTES``; the caps follow the JAX sampler."""
+        ``io_chunk_bytes``; the caps follow the JAX sampler."""
         if self._max_chunk_steps is not None:
             cap = self._max_chunk_steps
         elif not store or getattr(self.backend, "wants_device_arrays", False):
@@ -333,36 +462,69 @@ class EnsembleSampler:
         else:
             cap = 4096
         if store:
-            row = self.nwalkers * (self.ndim + 2) * 4
-            cap = min(cap, max(1, _CHUNK_BYTES // row))
+            size = self._row_dtype().itemsize
+            row = self.nwalkers * ((self.ndim + 1) * size + 1)
+            cap = min(cap, max(1, self._io_chunk_bytes // row))
         return cap
 
     def _chunk_schedule(self, nsteps, max_chunk):
         blk = self._mixture_block if len(self._moves) > 1 else 1
         return chunk_schedule(nsteps, max_chunk, blk)
 
+    def _row_dtype(self):
+        """The torch dtype of a chunk's stored rows: the walkers' own for
+        a device backend, else the host backend's (float64 unless the
+        backend was made with another ``dtype``)."""
+        if getattr(self.backend, "wants_device_arrays", False):
+            return self.dtype
+        chain = getattr(self.backend, "chain", None)
+        dt = np.float64 if chain is None else chain.dtype
+        return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+
     def _chunk_rows(self, nkeep):
         """Where a chunk's kept steps go: ``(coords, log_prob, accepted)``
         of shapes ``(nkeep, nwalkers, ndim)``, ``(nkeep, nwalkers)`` and
-        ``(nkeep, nwalkers)``, plus the host staging buffer or None.  A
-        device-resident backend hands out its own chain rows, so each
-        kept step is written once; otherwise the three share one
-        ``(nkeep, nwalkers, ndim + 2)`` buffer, which reaches the host
-        with one copy (reference ``ensemble.py:409-417``)."""
-        nd = self.ndim
+        ``(nkeep, nwalkers)``, each kept step copied in after the replay
+        that ends it.  A device-resident backend hands out its own chain
+        rows, so each kept step is written once.  For a host backend they
+        are device staging buffers in the backend's dtype: the float32 to
+        float64 conversion (exact) runs on the card, and the host's write
+        is a plain copy of contiguous rows (reference
+        ``ensemble.py:409-417``)."""
+        nw, nd, dev = self.nwalkers, self.ndim, self.device
+        accepted = torch.empty((nkeep, nw), dtype=torch.bool, device=dev)
         if getattr(self.backend, "wants_device_arrays", False):
-            coords, log_prob = self.backend.reserve(
-                nkeep, self.device, self.dtype
-            )
-            accepted = torch.empty(
-                (nkeep, self.nwalkers), dtype=torch.bool, device=self.device
-            )
-            return coords, log_prob, accepted, None
-        rows = torch.empty(
-            (nkeep, self.nwalkers, nd + 2), dtype=self.dtype,
-            device=self.device,
-        )
-        return rows[..., :nd], rows[..., nd], rows[..., nd + 1], rows
+            coords, log_prob = self.backend.reserve(nkeep, dev, self.dtype)
+            return coords, log_prob, accepted
+        dt = self._row_dtype()
+        return (torch.empty((nkeep, nw, nd), dtype=dt, device=dev),
+                torch.empty((nkeep, nw), dtype=dt, device=dev), accepted)
+
+    def _stage_rows(self, rows):
+        """Start the copy of a chunk's staging buffers to the host: into
+        the next of two sets of pinned buffers, asynchronously, with an
+        event that marks its end.  Returns ``(host rows, event)``; on the
+        CPU the buffers are host rows already.  A set holds the largest
+        chunk yet (pinned memory is slow to allocate, so it is kept for
+        the sampler's life and a smaller chunk takes a view)."""
+        if self.device.type != "cuda":
+            return rows, None
+        k = rows[0].shape[0]
+        key = tuple((tuple(r.shape[1:]), r.dtype) for r in rows)
+        sets = self._pinned.get(key)
+        if sets is None or sets[0][0].shape[0] < k:
+            sets = self._pinned[key] = [
+                tuple(torch.empty((k,) + r.shape[1:], dtype=r.dtype,
+                                  pin_memory=True) for r in rows)
+                for _ in range(2)
+            ]
+        host = tuple(h[:k] for h in sets[0])
+        sets.reverse()
+        for h, r in zip(host, rows):
+            h.copy_(r, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(self.device))
+        return host, copied
 
     def _start(self, state, carries):
         """The chunk program of ``state``'s seed, loaded with the state and
@@ -375,26 +537,14 @@ class EnsembleSampler:
                 carries,
             )
         prog.load(state.coords, state.log_prob, offset, carries)
-        self._move_carries = prog.ws.carries
         return prog, offset
 
-    def _save_chunk(self, out, random_state):
-        coords, log_prob, accepted, rows = out
-        if rows is None:
-            self.backend.commit(accepted, random_state)
-            return
-        nd = self.ndim
-        rows = rows.cpu().numpy()
-        self.backend.save_chunk(
-            rows[..., :nd], rows[..., nd], None, rows[..., nd + 1] != 0,
-            random_state,
-        )
-
-    def _advance(self, prog, offset, nkeep, thin_by, store, tune):
-        """Run one chunk of ``nkeep * thin_by`` proposals from ``offset``
-        through the chunk program, store it, and move the resume anchors
-        to a snapshot of its final state, so the anchors always match what
-        the backend holds.  Returns the next offset."""
+    def _enqueue(self, prog, offset, nkeep, thin_by, store, tune):
+        """Enqueue one chunk of ``nkeep * thin_by`` proposals from
+        ``offset`` through the chunk program, its kept rows and (for a
+        host backend) their copy to the host, and snapshot the resume
+        anchors after it.  Nothing waits for the device.  Returns the
+        :class:`_Chunk`, which :meth:`_commit` saves."""
         ws = prog.ws
         out = self._chunk_rows(nkeep) if store else None
         seq = move_sequence(self._weights, prog.seed, offset, nkeep, thin_by,
@@ -408,14 +558,33 @@ class EnsembleSampler:
                 out[0][k].copy_(ws.coords)
                 out[1][k].copy_(ws.log_prob)
                 out[2][k].copy_(ws.accepted)
-        offset += nkeep * thin_by
-        rs = (prog.seed, offset)
-        if store:
-            self._save_chunk(out, rs)
-        self._previous_state = State(ws.coords.clone(), ws.log_prob.clone(),
-                                     None, rs)
-        self._rng = rs
-        return offset
+        host = copied = None
+        if store and not getattr(self.backend, "wants_device_arrays",
+                                 False):
+            host, copied = self._stage_rows(out)
+        rs = (prog.seed, offset + nkeep * thin_by)
+        return _Chunk(
+            out, host, copied,
+            State(ws.coords.clone(), ws.log_prob.clone(), None, rs),
+            tuple(clone_carry(c) for c in ws.carries),
+        )
+
+    def _commit(self, chunk):
+        """Save a chunk (waiting for its copy to the host, if any) and
+        move the resume anchors to it, with SIGINT held between the two,
+        so the anchors always match what the backend holds."""
+        with defer_interrupts():
+            rs = chunk.state.random_state
+            if chunk.rows is not None and chunk.host is None:
+                self.backend.commit(chunk.rows[2], rs)
+            elif chunk.rows is not None:
+                if chunk.copied is not None:
+                    chunk.copied.synchronize()
+                coords, log_prob, accepted = (h.numpy() for h in chunk.host)
+                self.backend.save_chunk(coords, log_prob, None, accepted, rs)
+            self._previous_state = chunk.state
+            self._move_carries = chunk.carries
+            self._rng = rs
 
     @staticmethod
     def _check_progress(progress):
@@ -455,7 +624,9 @@ class EnsembleSampler:
             self.backend.grow(iterations, None)
         i = 0
         while iterations is None or i < iterations:
-            offset = self._advance(prog, offset, 1, thin_by, store, tune)
+            chunk = self._enqueue(prog, offset, 1, thin_by, store, tune)
+            self._commit(chunk)
+            offset = chunk.state.random_state[1]
             i += 1
             yield self._previous_state
 
@@ -485,6 +656,9 @@ class EnsembleSampler:
         self._check_progress(kwargs.pop("progress", False))
         kwargs.pop("progress_kwargs", None)
         skip_check = kwargs.pop("skip_initial_state_check", False)
+        # Accepted for the JAX signature: the wall time below always ends
+        # in a synchronize.
+        kwargs.pop("accurate_timing", False)
         if kwargs:
             raise TypeError(f"unexpected keyword arguments: {list(kwargs)}")
         if thin_by <= 0:
@@ -501,8 +675,29 @@ class EnsembleSampler:
         if store:
             self.backend.grow(nsteps, None)
         t0 = time.perf_counter()
-        for n in self._chunk_schedule(nsteps, self._auto_chunk(store)):
-            offset = self._advance(prog, offset, n, thin_by, store, tune)
+        # Chunk k is saved after chunk k+1 is enqueued, so the host's
+        # write of k overlaps the card's compute of k+1.  A device
+        # backend and an unstored run have nothing to wait for: they
+        # commit at once.  The finally saves the pending chunk whatever
+        # stops the loop (an interrupt or a failure of a later chunk);
+        # it is taken off ``pending`` before its save, so an interrupt
+        # raised at the end of the save cannot save it twice.
+        pending = None
+        try:
+            for n in self._chunk_schedule(nsteps, self._auto_chunk(store)):
+                chunk = self._enqueue(prog, offset, n, thin_by, store, tune)
+                offset = chunk.state.random_state[1]
+                if pending is not None:
+                    done, pending = pending, None
+                    self._commit(done)
+                if chunk.host is None:
+                    self._commit(chunk)
+                else:
+                    pending = chunk
+        finally:
+            if pending is not None:
+                done, pending = pending, None
+                self._commit(done)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_run_stats = RunStats(

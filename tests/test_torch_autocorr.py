@@ -73,7 +73,13 @@ def test_short_chain_raises_or_warns(caplog):
         tau = autocorr.integrated_time(x, quiet=True)
     assert "shorter than" in caplog.text
     np.testing.assert_allclose(tau, err.value.tau)
-    with pytest.raises(NotImplementedError, match="P5"):
+    with pytest.raises(autocorr.AutocorrError) as err:
         autocorr.integrated_time(x, method="geyer")
+    with pytest.raises(jautocorr.AutocorrError) as jerr:
+        jautocorr.integrated_time(x, method="geyer")
+    np.testing.assert_allclose(err.value.tau, jerr.value.tau, rtol=RTOL)
+    for bad in ("bogus", "Sokal"):
+        with pytest.raises(ValueError, match="unknown method"):
+            autocorr.integrated_time(x, method=bad)
     with pytest.raises(ValueError):
         autocorr.integrated_time(np.zeros((2, 2, 2, 2)))

@@ -27,7 +27,10 @@ def test_import_leaves_no_jax_or_emcee_tpu():
         "import emcee_tpu_torch, emcee_tpu_torch.sampler, "
         "emcee_tpu_torch.convert, emcee_tpu_torch.ops._build, "
         "emcee_tpu_torch.ops.autocorr, emcee_tpu_torch.backends, "
-        "emcee_tpu_torch.ops.de_kernel, emcee_tpu_torch.ops.snooker_kernel\n"
+        "emcee_tpu_torch.ops.de_kernel, emcee_tpu_torch.ops.snooker_kernel, "
+        "emcee_tpu_torch.monitor, emcee_tpu_torch.utils, "
+        "emcee_tpu_torch.moves.mh, emcee_tpu_torch.moves.gaussian, "
+        "emcee_tpu_torch.moves.walk, emcee_tpu_torch.moves.kde\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'emcee_tpu') or m.startswith(('jax.', 'jaxlib.', 'emcee_tpu.')))\n"
         "print(bad)\n"
@@ -88,5 +91,9 @@ def test_wrappers_use_the_plain_version_only_on_cpu():
 
 
 def test_public_names():
-    assert {"EnsembleSampler", "State", "moves", "backends",
-            "autocorr"} <= set(emcee_tpu_torch.__all__)
+    assert {"EnsembleSampler", "State", "moves", "backends", "autocorr",
+            "ConvergenceMonitor", "run_until_converged", "AutocorrError",
+            "walkers_independent", "utils",
+            "__version__"} <= set(emcee_tpu_torch.__all__)
+    assert {"GaussianMove", "MHMove", "WalkMove",
+            "KDEMove"} <= set(emcee_tpu_torch.moves.__all__)

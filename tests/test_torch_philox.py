@@ -30,6 +30,107 @@ def test_known_answers(counter, key, expected):
         assert got == expected, fn.__name__
 
 
+# Counters whose first-round products overflow int64 (M * c >= 2**63 for
+# both multiplied words), with their scalar answers: the wrapped int64
+# product must give the same words as Python's exact one.
+OVERFLOW = [(0xFFFFFFFF, 0, 0xFFFFFFFF, 0), (0x9E3779B9, 1, 0xF0000001, 2),
+            (0xC0000000, 7, 0xA0000000, 0xFFFFFFFF)]
+
+
+@pytest.mark.parametrize("counter", OVERFLOW)
+def test_known_answers_where_products_overflow(counter):
+    key = (0xDEADBEEF, 0x12345678)
+    assert philox._M0 * counter[0] >= 2**63
+    assert philox._M1 * counter[2] >= 2**63
+    ref = philox.philox4x32_scalar(counter, key)
+    c = [torch.tensor([w], dtype=torch.int64) for w in counter]
+    for got in (philox.philox4x32_torch(*c, key),
+                philox.philox4x32(c[0], *counter[1:], key)):
+        assert [int(np.asarray(w)[0]) for w in got] == ref
+
+
+def test_cpu_draw_sharing_gives_fresh_words():
+    """On the CPU, walker_words and roll_uniforms share one draw per
+    (split, seed, offset); whatever the order of the calls, every word
+    equals the scalar reference."""
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    seed, split = 987654321, 1
+    key = philox.split_key(seed)
+    for offset in (5, DeviceOffset(torch.tensor(2**32 + 3), 4)):
+        value = 5 if isinstance(offset, int) else 2**32 + 7
+        lo, hi = value & philox.MASK32, value >> 32
+        calls = (
+            (9, split), (9, split | philox.PAIR_BLOCK), (9, split),
+            (4, split), (4, split | philox.PAIR_BLOCK), (9, split + 1))
+        for n, blk in calls:
+            words = philox.walker_words(n, blk, seed, offset, "cpu")
+            for i in range(n):
+                assert [int(w[i]) for w in words] == \
+                    philox.philox4x32_scalar((i, blk, lo, hi), key)
+            u = philox.roll_uniforms(seed, blk & ~philox.PAIR_BLOCK, offset,
+                                     "cpu")
+            w = philox.philox4x32_scalar(
+                (philox.ROLL_LANE, blk & ~philox.PAIR_BLOCK, lo, hi), key)
+            assert u.tolist() == [(x >> 8) * 2.0**-24 for x in w]
+
+
+def test_cpu_draws_of_two_threads_stay_their_own():
+    """Two threads drawing walker words of different seeds at the same
+    time each get their own stream's words (each thread keeps its own
+    last draw)."""
+    import sys
+    import threading
+
+    n, offsets = 8, range(150)
+    lanes = torch.arange(n, dtype=torch.int64)
+    want = {seed: [philox.philox4x32(lanes, 0, off, 0, philox.split_key(seed))
+                   for off in offsets] for seed in (11, 22)}
+    start = threading.Barrier(2)
+    bad = []
+
+    def draw(seed):
+        start.wait()
+        for off in offsets:
+            for _ in range(2):  # the second call reads the kept draw
+                got = philox.walker_words(n, 0, seed, off, "cpu")
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, want[seed][off])):
+                    bad.append((seed, off))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=draw, args=(s,)) for s in want]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert bad == []
+
+
+@pytest.mark.parametrize("n,d,row0", [(5, 3, 0), (4, 8, 6), (3, 1, 2)])
+def test_row_draws_match_scalar(n, d, row0):
+    seed, offset = 31337, 2**33 + 1
+    lo, hi = philox.split_offset(offset)
+    key = philox.split_key(seed)
+    z = philox.normals(n, d, seed, offset, "cpu", row0=row0)
+    u = philox.row_uniforms(n, d, seed, offset, "cpu", row0=row0)
+    assert z.shape == u.shape == (n, d)
+    for r in range(n):
+        for j in range(d):
+            w = philox.philox4x32_scalar(
+                (row0 + r, philox.NORMAL_BLOCK | (j // 2), lo, hi), key)
+            a, b = (w[0], w[2]) if j % 2 == 0 else (w[1], w[3])
+            want = philox.box_muller(torch.tensor(a), torch.tensor(b))
+            assert float(z[r, j]) == float(want)
+            w = philox.philox4x32_scalar(
+                (row0 + r, philox.PICK_BLOCK | (j // 4), lo, hi), key)
+            assert float(u[r, j]) == (w[j % 4] >> 8) * 2.0**-24
+
+
 @pytest.mark.parametrize("impl", ["torch", "dispatch"])
 def test_matches_scalar_on_random_counters(impl):
     rng = np.random.default_rng(7)
