@@ -63,7 +63,22 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    eager); K3's replay and host times; and a log-prob that synchronizes
    with the host is refused with an error.
 
-Phases run in the order 0-5, 7, 8, 6, 9.  Every phase raises on failure.
+10. the moves of plain torch (MH, Gaussian, walk, KDE) at full width
+   through K3, K7 and K6, the diagnostics and ``run_until_converged``;
+11. blobs and io: K2 with blob leaves against its plain version bit for
+   bit (six dtypes, five row shapes, 1-3, 17 and 33 leaves, unaligned
+   bases, nsplits 1 and 2, ng 5003 and 50000, staged and direct); the
+   main path with the blobs tutorial's three blobs (``blobs_dtype``):
+   rates with and without blobs in turns, the host ``Backend`` and
+   ``DeviceBackend`` from one start (chains and blobs equal), stored
+   blobs against the function at the stored coords, K2's device time with
+   and without blob leaves inside replays; ``io_dtype=float16`` into both
+   backends; workload 2 (the line fit with a blob) at its own size with
+   its oracle; and the ``HDFBackend`` where h5py is installed (else it
+   prints ``hdf: h5py not installed`` and goes on).
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11.  Every phase raises on
+failure.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -206,19 +221,45 @@ def device_ms(kernels, kname):
     return sum(us for _, us in hits) / sum(c for c, _ in hits) * 1e-3
 
 
-def profiled_ms(torch, fn, kname, tries=3):
+def profiled_ms(torch, fn, kname, tries=6):
     """Mean device ms per launch of ``kname`` over a profiled window of
     ``fn``.  The profiler now and then records no launch at all in a
-    window of eager launches; such a window is run again, up to
-    ``tries`` times, and said so."""
+    window of eager launches, at times several in a row; such a window
+    is run again after half a second, up to ``tries`` times, and said
+    so."""
     for _ in range(tries):
         _, kernels = profile_window(torch, fn)
         ms = device_ms(kernels, kname)
         if ms is not None:
             return ms
         log(f"  the profiler recorded no {kname} launch; window run again")
+        time.sleep(0.5)
     raise AssertionError(f"the profiler recorded no {kname} launch in "
                          f"{tries} windows")
+
+
+def counted_window(torch, run, expect, what, tries=3):
+    """A profiled window of ``run`` (:func:`profile_window`) whose kernel
+    launches, as the profiler counts them (:func:`profiled_counts`), must
+    equal ``expect()``, the counts of the next window, computed just
+    before it (a window advances the chain).  The profiler now and then
+    drops events of a window (~100 of 10^4; on the parent's tree too), so
+    a window whose counts differ is run again, up to ``tries`` times, and
+    said so; a kernel launched too often or too seldom differs in every
+    window.  Returns ``(wall, kernels, counts, graph replays)``."""
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    for _ in range(tries):
+        want = expect()
+        r0 = ChunkProgram.replays
+        wall, kernels = profile_window(torch, run)
+        counts = profiled_counts(kernels)
+        if counts == want:
+            return wall, kernels, counts, ChunkProgram.replays - r0
+        log(f"  {what}: the profiler counted {counts}, expected {want}; "
+            "window run again")
+    raise AssertionError(f"{what}: profiled launches {counts}, expected "
+                         f"{want} in {tries} windows")
 
 
 def profiled_counts(kernels):
@@ -1018,7 +1059,6 @@ def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000):
     from emcee_tpu_torch import EnsembleSampler, moves
     from emcee_tpu_torch.autocorr import integrated_time
     from emcee_tpu_torch.backends import DeviceBackend
-    from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     log_prob, p0 = workload3_target(np, torch, dev, nw, nd)
     mix = workload3_moves(moves)
@@ -1101,18 +1141,16 @@ def phase8(torch, np, dev, card, nw=NW3, nd=ND3, n_timed=2000):
     # A profiled window: the profiler's launches must be exactly those of
     # the host-known move sequence, inside the replayed graphs.
     n_prof = 1000
-    seq = move_seq(smp, None, n_prof, store=False)
-    r0 = ChunkProgram.replays
-    wall, kernels = profile_window(
-        torch, lambda: drive(smp, None, n_prof, store=False))
-    n_replays = ChunkProgram.replays - r0
-    counts = profiled_counts(kernels)
-    n_de = seq.count(0)
-    want = {"stretch_propose": 0, "accept_select": 2 * n_prof,
-            "de_propose": 2 * n_de, "snooker_propose": 2 * (n_prof - n_de)}
-    if counts != want:
-        raise AssertionError(f"workload 3: profiled launches {counts}, "
-                             f"expected {want}")
+
+    def expect():
+        n_de = move_seq(smp, None, n_prof, store=False).count(0)
+        return {"stretch_propose": 0, "accept_select": 2 * n_prof,
+                "de_propose": 2 * n_de,
+                "snooker_propose": 2 * (n_prof - n_de)}
+
+    wall, kernels, counts, n_replays = counted_window(
+        torch, lambda: drive(smp, None, n_prof, store=False), expect,
+        "workload 3")
     busy = sum(us for _, us in kernels.values()) * 1e-6
     out["idle"] = 1 - busy / wall
     out["busy_us_per_prop"] = busy / n_prof * 1e6
@@ -1538,18 +1576,22 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls):
     # two log-densities).  Each window's kernel events are printed.
     busy_us, events = 0.0, []
     for _ in range(4 if kde else 1):
-        k7_before = int(k7_calls)
-        wall, kernels = profile_window(
-            torch, lambda: drive(smp, None, n_prof, store=False))
-        counts = profiled_counts(kernels)
-        want = {"stretch_propose": 0, "accept_select": k2_per * n_prof,
-                "de_propose": 0, "snooker_propose": 0}
-        k7_window = int(k7_calls) - k7_before
+        k7_before = []
+
+        def expect():
+            k7_before.append(int(k7_calls))
+            return {"stretch_propose": 0, "accept_select": k2_per * n_prof,
+                    "de_propose": 0, "snooker_propose": 0}
+
+        wall, kernels, counts, _ = counted_window(
+            torch, lambda: drive(smp, None, n_prof, store=False), expect,
+            label)
+        k7_window = int(k7_calls) - k7_before[-1]
         events.append(sum(c for c, _ in kernels.values()))
-        if counts != want or k7_window != (4 * n_prof if kde else 0):
+        if k7_window != (4 * n_prof if kde else 0):
             raise AssertionError(
-                f"{label}: profiled launches {counts}, expected {want}; "
-                f"K7 calls {k7_window}; {events[-1]} kernel events")
+                f"{label}: K7 calls {k7_window}; {events[-1]} kernel "
+                "events")
         busy_us += sum(us for _, us in kernels.values())
     row = dict(acceptance=acc, acceptance_64=acc_chain, mean_lp=mean_lp,
                rates=rates, k2_per_proposal=k2_per,
@@ -1678,6 +1720,493 @@ def phase10_rest(torch, np, dev, card, chains, p0, out):
         f"{ms6:.2f} ms on the card, {plain6:.2f} ms the float64 host path; "
         f"bound {out['k6']['bound_ms']:.3f} ms (the chain's bytes) {card}")
     return out
+
+
+#: the blob leaves of phase 11's sweep: dtypes and row shapes
+BLOB_DTYPES = ("float32", "float64", "float16", "int32", "int64", "bool")
+BLOB_ROWS = ((), (1,), (3,), (2, 2), (7,))
+#: phase 11(b)'s blobs, the blobs tutorial's pattern
+BLOBS_DTYPE = [("log_prior", float), ("mean", float), ("npos", int)]
+
+
+def blob_gaussian(x):
+    """The main path's target with three blobs (phase 11): the log-prior,
+    the walker's mean and its count of positive coordinates."""
+    import torch
+
+    log_prior = torch.where((x.abs() < 10).all(-1), 0.0, -torch.inf)
+    lp = log_prior - 0.5 * (x**2).sum(-1)
+    return lp, log_prior, x.mean(-1), (x > 0).sum(-1).int()
+
+
+def random_leaf(torch, n, row, dtype, gen, offset=0):
+    """``(n, *row)`` of random bytes (NaN payloads included), or 0/1 for
+    bool; ``offset`` elements past a fresh allocation (an unaligned
+    base)."""
+    dt = getattr(torch, dtype)
+    size = torch.empty((), dtype=dt).element_size()
+    count = n * int(torch.Size(row).numel())
+    if dt == torch.bool:
+        flat = torch.randint(0, 2, (count + offset,), generator=gen,
+                             device=gen.device).bool()
+    else:
+        raw = torch.randint(0, 256, ((count + offset) * size,),
+                            dtype=torch.uint8, generator=gen,
+                            device=gen.device)
+        flat = raw.view(dt)
+    return flat[offset:].view((n,) + tuple(row))
+
+
+def k2_blob_direct(q, f, lp_q, c, l, split, ns, acc, cnt, log_u, blobs):
+    """K2 with blob leaf pairs ``blobs``, q read from device memory (no
+    staging)."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
+
+    ng, nw = q.shape[0], c.shape[0]
+    plan = tile_plan(ng, c.shape[1], split, device_sm_count(c.device),
+                     c.data_ptr(), q.data_ptr())
+    ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, 0, 0, log_u,
+               ak.blob_leaves(blobs, ng, nw, c.device))
+
+
+def k2_blob_sweep(torch, dev):
+    """K2 with blob leaves against its plain version, bit for bit (the
+    coords, log-prob, acceptance and count with ``torch.equal``; every
+    leaf's buffer compared as bytes, so NaN payloads count): leaf dtypes
+    float32, float64, float16, int32, int64 and bool; row shapes (),
+    (1,), (3,), (2, 2), (7,); one leaf of each, two and three leaves of
+    mixed kinds, leaves whose bases are not aligned to their unit, and
+    17 and 33 leaves (beyond the launch's 16: blob-only launches);
+    ``nsplits`` 1 and 2 with both splits; ``ng`` 5003 (odd, no tile
+    divides it) and the main path's 50000; the wrapper (q staged in
+    shared memory) and the direct variant.  Returns the number of
+    comparisons."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    kinds = [(d, r) for d in BLOB_DTYPES for r in BLOB_ROWS]
+    sets = [[k] for k in kinds]
+    sets += [[kinds[i], kinds[(7 * i + 3) % len(kinds)]]
+             for i in range(0, len(kinds), 3)]
+    sets += [[kinds[i], kinds[(5 * i + 1) % len(kinds)],
+              kinds[(11 * i + 7) % len(kinds)]]
+             for i in range(0, len(kinds), 3)]
+    unaligned = [[(d, r, 1) for d, r in
+                  (("float16", (3,)), ("float32", (2, 2)),
+                   ("float64", (7,)), ("int32", ()))]]
+    big = [[kinds[i % len(kinds)] for i in range(n)] for n in (17, 33)]
+    nd = ND
+    n_cmp = 0
+    direct = k2_blob_direct
+
+    for ng in (SWEEP_NG, NW // 2):
+        for ns, split in ((1, 0), (2, 0), (2, 1)):
+            nw = ng * ns
+            coords = torch.randn(nw, nd, device=dev, generator=gen)
+            lp = gaussian(coords)
+            q = coords[:ng] + 0.5 * torch.randn(ng, nd, device=dev,
+                                                generator=gen)
+            lp_q = gaussian(q)
+            f = torch.zeros(ng, device=dev)
+            log_u = torch.log(torch.rand(ng, device=dev, generator=gen))
+            for leafset in sets + unaligned + big:
+                spec = [k if len(k) == 3 else k + (0,) for k in leafset]
+                news = [random_leaf(torch, ng, r, d, gen, off)
+                        for d, r, off in spec]
+                bufs = [random_leaf(torch, nw, r, d, gen, off)
+                        for d, r, off in spec]
+                outs = []
+                for fn in (ak.accept_select, direct, ak.accept_select_plain):
+                    c, l = coords.clone(), lp.clone()
+                    acc = torch.zeros(nw, dtype=torch.bool, device=dev)
+                    cnt = torch.zeros(nw, dtype=torch.int32, device=dev)
+                    bs = []
+                    for b, (d, r, off) in zip(bufs, spec):
+                        copy = random_leaf(torch, nw, r, d, gen, off)
+                        copy.copy_(b)
+                        bs.append(copy)
+                    pairs = list(zip(news, bs))
+                    if fn is direct:
+                        fn(q, f, lp_q, c, l, split, ns, acc, cnt, log_u,
+                           pairs)
+                    else:
+                        fn(q, f, lp_q, c, l, split, ns, acc, cnt,
+                           log_u=log_u, blobs=pairs)
+                    outs.append(((c, l, acc, cnt),
+                                 [b.reshape(-1).view(torch.uint8)
+                                  for b in bs]))
+                (want, wleaves) = outs[-1]
+                if not 0 < int(want[2].sum()) < ng:
+                    raise AssertionError("phase 11: K2 sweep acceptance is "
+                                         "all or nothing")
+                for variant, (got, gleaves) in zip(("wrapper", "direct"),
+                                                   outs[:-1]):
+                    n_cmp += 1
+                    if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                            and all(torch.equal(a, b)
+                                    for a, b in zip(gleaves, wleaves))):
+                        raise AssertionError(
+                            f"phase 11: K2 with blob leaves {spec}, ng {ng},"
+                            f" nsplits {ns}, split {split}, {variant}: "
+                            "kernel and plain version differ")
+    return n_cmp
+
+
+def blob_subset_check(torch, np, smp, steps):
+    """Every stored blob of kept steps ``steps`` of a ``DeviceBackend``
+    run equals :func:`blob_gaussian` evaluated on the card at the stored
+    coords: the int leaf exactly, the float leaves to float32 rounding
+    (the same float32 operations on the same rows).  A blob row selected
+    for the wrong walker would differ.  Returns the number of values
+    held."""
+    from emcee_tpu_torch.utils import tree_leaves
+
+    n = 0
+    for k in steps:
+        x = smp.backend.chain[k]
+        _, *want = blob_gaussian(x)
+        got = tree_leaves(smp.backend.blobs)
+        for g, w in zip(got, want):
+            g = g[k]
+            if torch.equal(g, w):
+                pass
+            elif g.dtype.is_floating_point:
+                max_err(g, w, rtol=1.2e-7, atol=0.0)
+            else:
+                raise AssertionError(f"phase 11: stored int blob of kept "
+                                     f"step {k} differs from the function")
+            n += g.numel()
+    return n
+
+
+def phase11(torch, np, dev, card):
+    """Phase 11 (blobs and io): (a) K2 with blob leaves against its plain
+    version (:func:`k2_blob_sweep`); (b) the main path with the blobs
+    tutorial's three blobs (``blob_gaussian``, ``BLOBS_DTYPE``) at full
+    width: ``store=False`` rates with and without blobs in turns (the
+    counts set to 0 before the blob run and read after it), the host
+    ``Backend`` and ``DeviceBackend`` from one start (100 kept x
+    ``thin_by=20``; chains and blobs equal), the stored blobs of a subset
+    of kept steps against the function at the stored coords, and K2's
+    device time per launch with and without blob leaves, by the profiler
+    inside replays, with its launches counted; (c) ``io_dtype=float16``
+    into ``DeviceBackend`` and the host ``Backend``; (d) workload 2, the
+    line fit with a blob, at its own size with its oracle; (e) the
+    ``HDFBackend``, where h5py is installed.  Returns phase 11's numbers
+    and the K2-with-blobs row of the kernel table."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.backends import Backend, DeviceBackend
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import stretch_kernel as sk
+
+    out = {}
+    # -- (a) K2 with blob leaves ---------------------------------------------
+    t0 = time.perf_counter()
+    n_cmp = k2_blob_sweep(torch, dev)
+    out["k2_blob_comparisons"] = n_cmp
+    log(f"phase 11: K2 with blob leaves (float32, float64, float16, int32, "
+        f"int64, bool; rows (), (1,), (3,), (2, 2), (7,); 1-3, 17 and 33 "
+        f"leaves; unaligned bases; nsplits 1 and 2, both splits; ng "
+        f"{SWEEP_NG} and {NW // 2}; staged and direct): {n_cmp} "
+        f"comparisons with its plain version, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- (b) the main path with blobs ----------------------------------------
+    mv = moves.StretchMove(randomize_split=False, pair_mode="roll")
+    p0 = np.random.default_rng(11).normal(size=(NW, ND)).astype(np.float32)
+
+    def sampler(blobs, **kw):
+        if blobs:
+            return EnsembleSampler(NW, ND, blob_gaussian, vectorize=True,
+                                   seed=21, moves=mv,
+                                   blobs_dtype=BLOBS_DTYPE, **kw)
+        return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=21,
+                               moves=mv, **kw)
+
+    plain, blob = sampler(False), sampler(True)
+    drive(plain, p0, 200, store=False, skip_initial_state_check=True)
+    warm_graphs(plain)
+    for _, fn in wrappers().values():
+        fn.launches = 0
+    r0 = ChunkProgram.replays
+    st, _ = drive(blob, p0, 200, store=False, skip_initial_state_check=True)
+    warm_graphs(blob)
+    n_rate = 4000
+    _, dt = drive(blob, None, n_rate, store=False)
+    blob_launches = launch_counts()
+    blob_replays = ChunkProgram.replays - r0
+    if not (blob_launches["stretch_propose"]
+            and blob_launches["accept_select"] and blob_replays):
+        raise AssertionError(f"phase 11: main path with blobs: launches "
+                             f"{blob_launches}, replays {blob_replays}")
+    if st.blobs is None or len(st.blobs) != 3:
+        raise AssertionError("phase 11: the state carries no blobs")
+    rates = {"no blobs": [], "blobs": []}
+    for label in ("no blobs", "blobs", "blobs", "no blobs"):
+        smp = blob if label == "blobs" else plain
+        _, dt = drive(smp, None, n_rate, store=False)
+        rates[label].append(n_rate * NW / dt)
+    acc = blob.last_run_stats.acceptance_fraction.mean()
+    if not 0.2 < acc < 0.8:
+        raise AssertionError(f"phase 11: acceptance {acc}")
+    out["rates"] = rates
+    log(f"phase 11: main path store=False in turns (no blobs, blobs, "
+        f"blobs, no blobs): {rates['no blobs'][0]:.4e}, "
+        f"{rates['blobs'][0]:.4e}, {rates['blobs'][1]:.4e}, "
+        f"{rates['no blobs'][1]:.4e} walker-steps/s {card}; acceptance "
+        f"{acc:.4f}; counts from 0 over the blob runs: wrapper launches "
+        f"{blob_launches}, K3 replays {blob_replays}")
+
+    # Host Backend and DeviceBackend with blobs, from one start.
+    thin_by, kept = 20, 100
+    stored = {}
+    for label, backend in (("Backend", None), ("DeviceBackend",
+                                               DeviceBackend())):
+        smp = sampler(True, backend=backend)
+        t0 = time.perf_counter()
+        drive(smp, st, kept, thin_by=thin_by, skip_initial_state_check=True)
+        dt = time.perf_counter() - t0
+        stored[label] = smp
+        log(f"phase 11: {label} with blobs: {kept} kept x thin_by {thin_by}"
+            f" in {dt:.3f} s (graphs recorded in it) {card}")
+    hs, ds = stored["Backend"], stored["DeviceBackend"]
+    hb, db = hs.get_blobs(), ds.get_blobs()
+    if not (np.array_equal(hs.get_chain(), ds.get_chain().astype(np.float64))
+            and np.array_equal(hs.get_log_prob(), ds.get_log_prob())
+            and hb.dtype == db.dtype and hb.shape == (kept, NW)
+            and hb.tobytes() == db.tobytes()
+            and hb.dtype.names == ("log_prior", "mean", "npos")):
+        raise AssertionError("phase 11: the host Backend's chain or blobs "
+                             "differ from the DeviceBackend's")
+    n_vals = blob_subset_check(torch, np, ds, (0, 37, 73, kept - 1))
+    if not np.array_equal(hb["npos"], (hs.get_chain() > 0).sum(-1)):
+        raise AssertionError("phase 11: host blobs: npos differs")
+    log(f"phase 11: host Backend and DeviceBackend with blobs: chains, "
+        f"log-probs and blobs (fields {hb.dtype.names}, {hb.dtype}) equal; "
+        f"the stored blobs of 4 kept steps equal the function at the "
+        f"stored coords ({n_vals} values; int exact, float to float32 "
+        f"rounding)")
+    out["stored_blob_values_checked"] = n_vals
+
+    # K2's device time with and without blob leaves, inside replays, in
+    # windows of 320 proposals (~10^4 kernel events with blobs: the
+    # profiler has dropped events of a 1280-proposal window, ~4 x 10^4).
+    # A window whose K2 count is not exactly 2 per proposal is run again,
+    # up to three times, and said so.
+    n_prof = 320
+    k2_us, busy_us = {}, {}
+    for label, smp in (("no blobs", plain), ("blobs", blob)):
+        # The instantiation's Blobs type names the variant.
+        key = "BlobLeaves>" if label == "blobs" else "NoBlobs>"
+        for attempt in range(3):
+            _, kernels = profile_window(
+                torch, lambda: drive(smp, None, n_prof, store=False))
+            hits = [(c, us) for k, (c, us) in kernels.items()
+                    if "accept_select_kernel<" in k and key in k]
+            n = sum(c for c, _ in hits)
+            if any("accept_blobs_only_kernel" in k for k in kernels):
+                raise AssertionError("phase 11: a blob-only K2 launch on "
+                                     "the main path")
+            if n == 2 * n_prof:
+                break
+            log(f"  phase 11: {label}: the profiler counted {n} K2 "
+                f"launches for {n_prof} proposals; window run again")
+        else:
+            raise AssertionError(f"phase 11: {label}: {n} K2 launches "
+                                 f"profiled for {n_prof} proposals")
+        k2_us[label] = sum(us for _, us in hits) / n
+        busy_us[label] = (sum(us for _, us in kernels.values()) / n_prof,
+                          sum(c for c, _ in kernels.values()) / n_prof)
+    out["k2_us"], out["device_us_per_proposal"] = k2_us, busy_us
+    log(f"phase 11: K2 device us/launch inside replays, profiled "
+        f"({2 * n_prof} launches each): no blobs {k2_us['no blobs']:.3f}, "
+        f"three 4-byte blob leaves {k2_us['blobs']:.3f}; device us (kernel "
+        f"launches) per proposal: no blobs {busy_us['no blobs'][0]:.2f} "
+        f"({busy_us['no blobs'][1]:.1f}), blobs {busy_us['blobs'][0]:.2f} "
+        f"({busy_us['blobs'][1]:.1f}) {card}")
+
+    # K2 with blobs alone: the kernel, the plain version, the bound.
+    coords = torch.as_tensor(p0, device=dev)
+    ng = NW // 2
+    q, f = sk.stretch_propose(coords, 0, 2, a=2.0, ndim_global=ND,
+                              pair_mode="roll", seed=3, offset=8)
+    lp_q, *new = blob_gaussian(q)
+    lp = gaussian(coords)
+    bufs = [b.clone() for b in blob_gaussian(coords)[1:]]
+    pairs = list(zip([b.contiguous() for b in new], bufs))
+    work = [coords.clone(), lp.clone(),
+            torch.zeros(NW, dtype=torch.bool, device=dev),
+            torch.zeros(NW, dtype=torch.int32, device=dev)]
+    k2 = dict(seed=3, offset=8)
+    ak.accept_select(q, f, lp_q, work[0].clone(), work[1].clone(), 0, 2,
+                     work[2], work[3], **k2)
+    n_acc = int(work[2][:ng].sum())
+    call_ms = cuda_ms(torch, lambda: ak.accept_select(
+        q, f, lp_q, work[0], work[1], 0, 2, work[2], work[3], blobs=pairs,
+        **k2))
+    plain_ms = cuda_ms(torch, lambda: ak.accept_select_plain(
+        q, f, lp_q, work[0], work[1], 0, 2, work[2], work[3], blobs=pairs,
+        **k2), reps=20)
+    blob_row = 12  # three 4-byte leaves
+    nbytes = (4 * ng * 3 + ng + n_acc * (4 * ND + 4 * (ND + 1) + 8)
+              + n_acc * 2 * blob_row)
+    nops = ng * (10 * 10 + 6)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    row = {
+        "name": "accept_select_blobs", "route": "cuda",
+        "source": "emcee_tpu_torch/csrc/accept_select.cu",
+        "replaces": "emcee_tpu/moves/red_blue.py:200",
+        "launches": blob_launches["accept_select"], "max_abs_err": 0.0,
+        "ms": k2_us["blobs"] * 1e-3, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "ms_without_blobs": k2_us["no blobs"] * 1e-3,
+        "blob_leaves": 3, "comparisons": n_cmp, "ported": "PR 7",
+    }
+    log(f"phase 11: K2 with three blob leaves: device "
+        f"{row['ms'] * 1e3:.3f} us/launch (without blobs "
+        f"{k2_us['no blobs']:.3f}), {call_ms * 1e3:.2f} us per back-to-back "
+        f"call, plain {plain_ms * 1e3:.2f} us, bound "
+        f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} bytes, {n_acc} of {ng} "
+        f"accepted, {row['bound_by']}) {card}")
+
+    # -- (c) io_dtype float16 --------------------------------------------------
+    kept16, thin16 = 20, 5
+    ref = sampler(True, backend=DeviceBackend())
+    drive(ref, st, kept16, thin_by=thin16, skip_initial_state_check=True)
+    want = ref.get_chain().astype(np.float16)
+    for label, backend in (("DeviceBackend", DeviceBackend()),
+                           ("Backend(dtype=float16)",
+                            Backend(dtype=np.float16))):
+        smp = sampler(True, backend=backend, io_dtype=np.float16)
+        drive(smp, st, kept16, thin_by=thin16, skip_initial_state_check=True)
+        got = smp.get_chain()
+        if got.dtype != np.float16 or not np.array_equal(got, want):
+            raise AssertionError(f"phase 11: io_dtype float16 into {label}:"
+                                 " the stored chain is not the float32 "
+                                 "chain cast")
+        if smp.get_blobs()["mean"].dtype.base != np.float64:
+            raise AssertionError("phase 11: declared blob field dtype")
+    log(f"phase 11: io_dtype=float16 into DeviceBackend and Backend("
+        f"dtype=float16): the stored chains are float16 and equal the "
+        f"float32 chain cast ({kept16} kept x thin_by {thin16})")
+
+    # -- (d) workload 2 --------------------------------------------------------
+    out["workload2"] = workload2(torch, np, dev, card)
+
+    # -- (e) HDFBackend ------------------------------------------------------
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("hdf: h5py not installed")
+        out["hdf"] = "h5py not installed"
+    else:
+        out["hdf"] = hdf_check(torch, np, sampler, st, card)
+    return out, row
+
+
+def workload2(torch, np, dev, card):
+    """Workload 2 (``BASELINE.json`` config 2, the line fit of the
+    reference's tutorial with the log posterior as its blob) at its own
+    size, 32 walkers x 3, 5000 proposals, on the card, against
+    ``tests/integration/test_line_fit.py``'s oracle."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    rng = np.random.default_rng(123)
+    n = 50
+    x = np.sort(10 * rng.uniform(size=n))
+    yerr = 0.1 + 0.5 * rng.uniform(size=n)
+    y = -0.9594 * x + 4.294
+    y += np.abs(0.534 * y) * rng.normal(size=n)
+    y += yerr * rng.normal(size=n)
+    data = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (x, y, yerr)]
+
+    def log_prob(theta, x, y, yerr):
+        m, b, log_f = theta[0], theta[1], theta[2]
+        in_bounds = ((-5.0 < m) & (m < 0.5) & (0.0 < b) & (b < 10.0)
+                     & (-10.0 < log_f) & (log_f < 1.0))
+        model = m * x + b
+        sigma2 = yerr**2 + torch.exp(2 * log_f) * model**2
+        log_like = -0.5 * ((y - model) ** 2 / sigma2
+                           + torch.log(sigma2)).sum()
+        lp = torch.where(in_bounds, log_like, -torch.inf)
+        return lp, lp
+
+    p0 = np.array([-1.0, 4.5, -0.7]) + 1e-4 * np.random.default_rng(
+        0).normal(size=(32, 3))
+    smp = EnsembleSampler(32, 3, log_prob, args=data, seed=42)
+    t0 = time.perf_counter()
+    smp.run_mcmc(p0, 5000)
+    dt = time.perf_counter() - t0
+    tau = smp.get_autocorr_time(quiet=True)
+    discard = int(5 * tau.max())
+    flat = smp.get_chain(flat=True, discard=discard, thin=10)
+    med = np.percentile(flat, 50, axis=0)
+    blobs = smp.get_blobs(flat=True, discard=discard, thin=10)
+    lpv = smp.get_log_prob(flat=True, discard=discard, thin=10)
+    ok = (np.all(tau < 80) and abs(med[0] + 0.9594) < 0.15
+          and abs(med[1] - 4.294) < 0.6
+          and abs(med[2] - np.log(0.534)) < 0.3
+          and np.array_equal(smp.get_blobs(), smp.get_log_prob()))
+    np.testing.assert_allclose(blobs, lpv, rtol=1e-5)
+    if not ok:
+        raise AssertionError(f"phase 11: workload 2 oracle: tau {tau}, "
+                             f"medians {med}")
+    log(f"phase 11: workload 2 (line fit, 32 x 3, 5000 proposals, blob = "
+        f"lp): tau {np.array2string(tau, precision=2)}, medians "
+        f"{np.array2string(med, precision=4)}, get_blobs == get_log_prob, "
+        f"acceptance {smp.acceptance_fraction.mean():.4f}, "
+        f"{dt:.2f} s with recording {card}")
+    return {"tau": tau.tolist(), "medians": med.tolist(), "seconds": dt}
+
+
+def hdf_check(torch, np, sampler, st, card):
+    """20 kept steps of phase 11(b) into an ``HDFBackend`` (a file under
+    ``build/``, removed after) read back equal to the host ``Backend``'s
+    of the same start."""
+    import os
+    import tempfile
+
+    from emcee_tpu_torch.backends import HDFBackend
+
+    kept, thin_by = 20, 20
+    fd, path = tempfile.mkstemp(suffix=".h5", dir=_build_dir())
+    os.close(fd)
+    os.remove(path)
+    try:
+        hs = sampler(True)
+        drive(hs, st, kept, thin_by=thin_by, skip_initial_state_check=True)
+        fs = sampler(True, backend=HDFBackend(path))
+        t0 = time.perf_counter()
+        drive(fs, st, kept, thin_by=thin_by, skip_initial_state_check=True)
+        dt = time.perf_counter() - t0
+        back = HDFBackend(path, read_only=True)
+        hb, fb = hs.get_blobs(), back.get_blobs()
+        if not (np.array_equal(hs.get_chain(), back.get_chain())
+                and np.array_equal(hs.get_log_prob(), back.get_log_prob())
+                and hb.dtype == fb.dtype and hb.tobytes() == fb.tobytes()
+                and np.array_equal(hs.backend.accepted, back.accepted)):
+            raise AssertionError("phase 11: the HDF file differs from the "
+                                 "host Backend")
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    log(f"hdf: {kept} kept x thin_by {thin_by} of the main path with blobs "
+        f"into HDFBackend in {dt:.3f} s, read back equal to the host "
+        f"Backend's {card}")
+    return {"kept": kept, "seconds": dt}
+
+
+def _build_dir():
+    from emcee_tpu_torch.ops._build import build_dir
+
+    d = build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    return str(d)
 
 
 def main() -> int:
@@ -1945,19 +2474,13 @@ def main() -> int:
     # It comes after every timed run, so that no timed run follows the
     # profiler.
     n_prof = 1280  # twenty replays of the 64-proposal graph
-    r0 = ChunkProgram.replays
-    wall, kernels = profile_window(
-        torch, lambda: drive(sampler, None, n_prof, store=False))
-    n_replays = ChunkProgram.replays - r0
+    wall, kernels, counts, n_replays = counted_window(
+        torch, lambda: drive(sampler, None, n_prof, store=False),
+        lambda: {"stretch_propose": 2 * n_prof, "accept_select": 2 * n_prof,
+                 "de_propose": 0, "snooker_propose": 0}, "main path")
     busy = sum(us for _, us in kernels.values()) * 1e-6
     dev_ms = {k: device_ms(kernels, k)
               for k in ("stretch_propose", "accept_select")}
-    counts = profiled_counts(kernels)
-    want = {"stretch_propose": 2 * n_prof, "accept_select": 2 * n_prof,
-            "de_propose": 0, "snooker_propose": 0}
-    if counts != want:
-        raise AssertionError(f"profiled launches {counts}, expected {want} "
-                             f"for {n_prof} proposals")
     main_prof = dict(idle=1 - busy / wall, busy_us_per_prop=busy / n_prof
                      * 1e6, host_us_per_replay=wall / n_replays * 1e6)
     log(f"phase 4: profiled {n_prof} proposals ({n_replays} replays): wall "
@@ -2274,6 +2797,12 @@ def main() -> int:
         "phase 4 DeviceBackend [:, :4000]": dev_chain4,
         "phase 8 DeviceBackend [:, :1000, :16]": w3["chain"]})
     rows += [p10["k6"], p10["k7"]]
+
+    # -- 11. blobs and io ------------------------------------------------------
+    t0 = time.perf_counter()
+    p11, k2_blob_row = phase11(torch, np, dev, card)
+    rows.append(k2_blob_row)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

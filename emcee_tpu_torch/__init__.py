@@ -8,11 +8,13 @@ write-back (K2), the DE and DE-snooker proposals (K5a, K5b); the chunk
 program (K3) replays each proposal as a CUDA graph.  The Gaussian,
 Metropolis-Hastings, walk and KDE moves, the autocorrelation and R-hat
 diagnostics and the convergence monitor are plain PyTorch on the
-walkers' device.  Entry points run on ``"cuda"`` unless the caller
-passes ``device="cpu"``.
+walkers' device.  Blobs ride through K2 with the coordinates, into the
+host, device and HDF5 backends; ``checkpoint`` saves and loads states.
+Entry points run on ``"cuda"`` unless the caller passes
+``device="cpu"``.
 """
 
-from . import autocorr, backends, moves, utils
+from . import autocorr, backends, checkpoint, moves, utils
 from .monitor import ConvergenceMonitor, run_until_converged
 from .ops.autocorr import AutocorrError
 from .sampler import EnsembleSampler
@@ -28,6 +30,7 @@ __all__ = [
     "run_until_converged",
     "AutocorrError",
     "moves",
+    "checkpoint",
     "autocorr",
     "backends",
     "utils",

@@ -2,5 +2,23 @@
 
 from .backend import Backend
 from .device import DeviceBackend
+from .hdf import HDFBackend, TempHDFBackend
 
-__all__ = ["Backend", "DeviceBackend"]
+__all__ = [
+    "Backend",
+    "DeviceBackend",
+    "HDFBackend",
+    "TempHDFBackend",
+    "get_test_backends",
+]
+
+
+def get_test_backends():
+    """Backends to parametrize tests over (reference
+    ``backends/__init__.py``): the HDF one where h5py is installed."""
+    backends = [Backend, DeviceBackend]
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return backends
+    return backends + [TempHDFBackend]

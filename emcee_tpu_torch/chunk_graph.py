@@ -10,9 +10,11 @@ launch against a few on the device; a CUDA graph enqueues a recorded
 sequence of them with one call, as the jitted scan does.
 
 A :class:`ChunkProgram` holds one sampler's workspace of persistent
-device buffers: the ensemble, its log-prob, the ``accepted`` flags of the
-last proposal, the per-walker acceptance count, the tuning carries and
-the int64 proposal counter (the Philox offset word).  Every proposal
+device buffers: the ensemble, its log-prob, its blobs (one buffer per
+leaf, allocated once from the initial state's blobs, so recorded graphs
+keep their addresses), the ``accepted`` flags of the last proposal, the
+per-walker acceptance count, the tuning carries and the int64 proposal
+counter (the Philox offset word).  Every proposal
 reads and writes only those buffers and draws its random numbers at
 ``offset word + j``, ``j`` its place in the graph; a graph of ``n``
 proposals ends by adding ``n`` to the word.  So the same recording serves
@@ -26,7 +28,8 @@ of two of the rest, so each move needs at most ``log2(MAX_GRAPH) + 1``
 recordings per ``tune`` flag.  The cache key is ``(move, proposals,
 tune)``: JAX's ``nkeep`` and ``thin_by`` fold into the proposal count,
 ``store`` adds nothing to the graph (kept rows are copied out after the
-replay that ends a kept step), and blobs are not ported.  Graphs are
+replay that ends a kept step), and the blobs' structure is fixed per
+program (a state with other blobs gets a new program).  Graphs are
 recorded on first use and kept for the life of the program, across
 chunks and ``run_mcmc`` calls; a program serves one seed, since the seed
 is a kernel argument fixed at recording.
@@ -43,15 +46,17 @@ eagerly in the same order.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass, fields
 
 import torch
 
 from .ops.philox import DeviceOffset
 from .state import State
+from .utils import tree_flatten, tree_map
 
-__all__ = ["MAX_GRAPH", "ChunkProgram", "Workspace", "clone_carry",
-           "graph_sizes"]
+__all__ = ["MAX_GRAPH", "ChunkProgram", "Workspace", "blob_signature",
+           "clone_carry", "graph_sizes"]
 
 #: proposals in the largest graph (a power of two)
 MAX_GRAPH = 64
@@ -76,6 +81,15 @@ def clone_carry(carry):
     return carry
 
 
+def blob_signature(blobs):
+    """The structure, row shapes and dtypes of a blob pytree (None for no
+    blobs): what a workspace's blob buffers are allocated for."""
+    if blobs is None:
+        return None
+    leaves, treedef = tree_flatten(blobs)
+    return treedef, tuple((tuple(b.shape), b.dtype) for b in leaves)
+
+
 @dataclass
 class Workspace:
     """The persistent device buffers every proposal reads and writes."""
@@ -86,13 +100,18 @@ class Workspace:
     count: torch.Tensor  # (nwalkers,) int32, accepted proposals
     offset: torch.Tensor  # 0-d int64, the next proposal's Philox offset
     carries: tuple  # one tuning carry per move
+    blobs: object = None  # a pytree of (nwalkers, ...) buffers, or None
 
     def clone(self):
-        return Workspace(**{
-            f.name: (tuple(clone_carry(c) for c in self.carries)
-                     if f.name == "carries" else getattr(self, f.name).clone())
-            for f in fields(self)
-        })
+        def copy(name):
+            v = getattr(self, name)
+            if name == "carries":
+                return tuple(clone_carry(c) for c in v)
+            if name == "blobs":
+                return tree_map(torch.clone, v)
+            return v.clone()
+
+        return Workspace(**{f.name: copy(f.name) for f in fields(self)})
 
 
 class ChunkProgram:
@@ -105,15 +124,19 @@ class ChunkProgram:
         coords, log_prob: a state whose shapes, dtype and device the
             workspace takes.
         carries: the moves' tuning carries (copied into the workspace).
+        blobs: the state's blobs (their structure, shapes and dtypes), or
+            None.
     """
 
     #: graph replays in this process (K3's launch count)
     replays = 0
 
-    def __init__(self, moves, model, seed, coords, log_prob, carries):
+    def __init__(self, moves, model, seed, coords, log_prob, carries,
+                 blobs=None):
         self.moves = moves
         self.model = model
         self.seed = int(seed)
+        self.blob_signature = blob_signature(blobs)
         dev = coords.device
         self.ws = Workspace(
             coords=torch.empty_like(coords),
@@ -123,16 +146,21 @@ class ChunkProgram:
             count=torch.zeros(coords.shape[0], dtype=torch.int32, device=dev),
             offset=torch.zeros((), dtype=torch.int64, device=dev),
             carries=tuple(clone_carry(c) for c in carries),
+            blobs=tree_map(lambda b: torch.empty_like(
+                b, memory_format=torch.contiguous_format), blobs),
         )
         self.graphs = {}
         self._stream = None
 
-    def load(self, coords, log_prob, offset, carries):
-        """Start a run: copy the state, its offset and the carries into the
-        workspace (device copies and fills, no sync)."""
+    def load(self, coords, log_prob, offset, carries, blobs=None):
+        """Start a run: copy the state, its blobs, its offset and the
+        carries into the workspace (device copies and fills, no sync)."""
         ws = self.ws
         ws.coords.copy_(coords)
         ws.log_prob.copy_(log_prob)
+        for mine, given in zip(tree_flatten(ws.blobs)[0],
+                               tree_flatten(blobs)[0]):
+            mine.copy_(given)
         ws.offset.fill_(int(offset))
         for mine, given in zip(ws.carries, carries):
             if isinstance(mine, dict) and mine is not given:
@@ -143,7 +171,7 @@ class ChunkProgram:
         """One proposal of move ``i`` at offset ``ws.offset + j``: the work
         a graph records, reading and writing only ``ws``."""
         move = self.moves[i]
-        state = State(ws.coords, ws.log_prob)
+        state = State(ws.coords, ws.log_prob, ws.blobs)
         move.propose((self.seed, DeviceOffset(ws.offset, j)), state,
                      self.model, ws.carries[i], ws.count,
                      accepted=ws.accepted)
@@ -189,9 +217,16 @@ class ChunkProgram:
         graph = torch.cuda.CUDAGraph()
         # The outer stream context puts the caller's stream back even when
         # a failed capture makes the graph context raise on its way out.
+        # The graph context collects garbage before the capture begins;
+        # during it the collector is off, so that no finalizer of older
+        # garbage (a pinned buffer, another graph) calls into CUDA inside
+        # the capture, and the capture is checked for this thread's calls
+        # only ("thread_local"), so that no other thread's can void it.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.stream(side), torch.cuda.graph(graph,
-                                                           stream=side):
+            with torch.cuda.stream(side), torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
                 self.program(self.ws, i, n, tune)
         except RuntimeError as err:
             # A failed capture raises again on its way out; the first
@@ -209,4 +244,7 @@ class ChunkProgram:
                 "bool() or .cpu() of a tensor, no Python branch on a "
                 "tensor's value)"
             ) from err
+        finally:
+            if collecting:
+                gc.enable()
         return graph

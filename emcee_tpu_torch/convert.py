@@ -1,5 +1,5 @@
-"""Carry state, move carries and stored chains across from the JAX
-package.
+"""Carry state (with its blobs), move carries and stored chains (with
+their blobs) across from the JAX package.
 
 Every function takes plain numpy arrays (``np.asarray`` of the JAX
 package's arrays), so this module imports nothing of JAX.
@@ -12,13 +12,17 @@ import torch
 
 from .backends import Backend
 from .state import State, resolve_device
+from .utils import tree_map
 
 __all__ = ["backend_from_numpy", "carry_from_numpy", "state_from_numpy"]
 
 
-def state_from_numpy(coords, log_prob=None, seed=0, device=None):
+def state_from_numpy(coords, log_prob=None, seed=0, device=None,
+                     blobs=None):
     """A port :class:`State` from an ensemble's numpy arrays, with the
-    random state ``(seed, 0)``; ``device`` as for the sampler."""
+    random state ``(seed, 0)``; ``device`` as for the sampler.  ``blobs``
+    is the JAX state's blob pytree (numpy leaves, each kept in its
+    dtype)."""
     dev = resolve_device(device)
 
     def put(x):
@@ -26,18 +30,24 @@ def state_from_numpy(coords, log_prob=None, seed=0, device=None):
             np.asarray(x, dtype=np.float32), device=dev
         )
 
-    return State(put(coords), put(log_prob), None, (int(seed), 0))
+    blobs = tree_map(lambda b: torch.as_tensor(np.asarray(b), device=dev),
+                     blobs)
+    return State(put(coords), put(log_prob), blobs, (int(seed), 0))
 
 
-def backend_from_numpy(chain, log_prob, accepted, random_state=None):
+def backend_from_numpy(chain, log_prob, accepted, random_state=None,
+                       blobs=None):
     """A port :class:`Backend` holding a stored chain: ``chain``
     ``(iteration, nwalkers, ndim)``, ``log_prob`` ``(iteration,
-    nwalkers)`` and the cumulative ``accepted`` counts ``(nwalkers,)``."""
+    nwalkers)``, the cumulative ``accepted`` counts ``(nwalkers,)`` and
+    the stored blobs (a pytree of ``(iteration, nwalkers, ...)`` arrays,
+    as the JAX package's ``get_blobs()`` gives them without a declared
+    ``blobs_dtype``)."""
     chain = np.asarray(chain)
     backend = Backend()
     backend.reset(chain.shape[1], chain.shape[2])
     backend.save_chunk(
-        chain, np.asarray(log_prob), None,
+        chain, np.asarray(log_prob), tree_map(np.asarray, blobs),
         np.asarray(accepted, dtype=np.int64)[None], random_state,
     )
     return backend

@@ -56,9 +56,29 @@
 //
 // One thread owns a walker's acc, log_prob and count, so nothing needs
 // atomics; every element of coords is written by at most one thread.
+//
+// Blob leaves (emcee_tpu/moves/red_blue.py:200-202 and :323-344, the
+// tree_where and write-back of every blob leaf with the coordinates'
+// mask; moves/base.py:103-126 for MH and Gaussian).  A leaf is any dtype
+// of any row shape: to the kernel it is a byte row per walker.  Each
+// leaf reaches the kernel as a descriptor in a struct passed by value
+// (the split's new rows, the ensemble buffer, the row's bytes and an
+// access unit), so a graph records it with the launch.  Phase C, after
+// phase B, copies each leaf's tile span (tile x row_bytes contiguous
+// bytes) as a masked stream of units: the unit is the largest of 16, 8,
+// 4, 2, 1 bytes that divides both bases and the row (ops/accept_kernel.py
+// blob_unit), so no unit straddles two walkers' rows and unit k belongs
+// to walker k / (row_bytes / unit), whose acc is in shared memory.  The
+// main path's three 4-byte leaves take 4-byte units.  A launch takes up
+// to kMaxLeaves leaves; the entry point launches the rest in groups of
+// kMaxLeaves by a blob-only kernel that reads the split's `accepted`.
+// Without blob leaves the entry point launches the blob-free
+// instantiation (Blobs = NoBlobs, an empty struct): phase A and B are the
+// same source, and phase C is compiled out.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "bulk_copy.cuh"
 #include "philox.cuh"
@@ -66,15 +86,71 @@
 namespace {
 
 constexpr int kThreads = 256;  // TILE_MAX in ops/_wrap.py
+constexpr int kMaxLeaves = 16;  // BLOB_CAPACITY in ops/accept_kernel.py
 
-template <bool kVec, bool kStage>
+}  // namespace
+
+// One blob leaf (the layout of ops/accept_kernel.py _BlobLeaf): the
+// split's new rows (ng, *shape), the ensemble buffer (nwalkers, *shape),
+// the bytes of one walker's row, and the access unit in bytes.
+struct BlobLeaf {
+  const unsigned char* src;
+  unsigned char* dst;
+  int row_bytes;
+  int unit;
+};
+
+namespace {
+
+struct BlobLeaves {
+  int n;
+  BlobLeaf leaf[kMaxLeaves];
+};
+
+// The blob-free kernel's Blobs: no leaves.
+struct NoBlobs {};
+
+// Walkers [t0, t0 + cnt) of the split, whose acc is s_acc[0, cnt): copy
+// the accepted walkers' rows of one leaf, unit by unit.
+template <typename U>
+__device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
+                                            const bool* s_acc, int t0,
+                                            int64_t lo, int cnt, int t) {
+  const int upr = leaf.row_bytes / static_cast<int>(sizeof(U));
+  const U* __restrict__ src = reinterpret_cast<const U*>(leaf.src) +
+                              static_cast<int64_t>(t0) * upr;
+  U* __restrict__ dst = reinterpret_cast<U*>(leaf.dst) + (lo + t0) * upr;
+  const int n = cnt * upr;
+  for (int k = t; k < n; k += kThreads) {
+    if (s_acc[k / upr]) dst[k] = src[k];
+  }
+}
+
+// Phase C: every leaf of `leaves`.
+__device__ __forceinline__ void select_blobs(const BlobLeaves& leaves,
+                                             const bool* s_acc, int t0,
+                                             int64_t lo, int cnt, int t) {
+  for (int l = 0; l < leaves.n; ++l) {
+    const BlobLeaf& leaf = leaves.leaf[l];
+    switch (leaf.unit) {
+      case 16: select_leaf<uint4>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 8: select_leaf<uint2>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 4: select_leaf<uint32_t>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 2: select_leaf<uint16_t>(leaf, s_acc, t0, lo, cnt, t); break;
+      default: select_leaf<uint8_t>(leaf, s_acc, t0, lo, cnt, t); break;
+    }
+  }
+}
+
+template <bool kVec, bool kStage, typename Blobs>
 __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     const float* __restrict__ q, const float* __restrict__ factor,
     const float* __restrict__ lp_q, float* __restrict__ coords,
     float* __restrict__ log_prob, bool* __restrict__ accepted,
     int32_t* __restrict__ count, const float* __restrict__ log_u, int ng,
     int nd, int split, int tile, uint32_t k0, uint32_t k1,
-    const long long* __restrict__ offset_dev, unsigned long long offset_inc) {
+    const long long* __restrict__ offset_dev, unsigned long long offset_inc,
+    const __grid_constant__ Blobs blobs) {
   __shared__ bool s_acc[kThreads];
   __shared__ uint64_t s_bar;
   extern __shared__ float4 s_q4[];  // kStage: the tile's q span
@@ -172,33 +248,85 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
       if (m[3]) dst[e + 3] = v.w;
     }
   }
+
+  // -- phase C: the blob leaves' rows, masked by the same acc --------------
+  if constexpr (std::is_same_v<Blobs, BlobLeaves>) {
+    select_blobs(blobs, s_acc, t0, lo, cnt, t);
+  }
+}
+
+// Leaves beyond the first kMaxLeaves: phase C alone, the acc of each
+// walker read back from `accepted` (written by the launch before it on
+// the same stream).
+__global__ void __launch_bounds__(kThreads) accept_blobs_only_kernel(
+    const bool* __restrict__ accepted, int ng, int split, int tile,
+    const __grid_constant__ BlobLeaves leaves) {
+  __shared__ bool s_acc[kThreads];
+  const int t = threadIdx.x;
+  const int t0 = blockIdx.x * tile;
+  const int cnt = min(tile, ng - t0);
+  const int64_t lo = static_cast<int64_t>(split) * ng;
+  if (t < cnt) s_acc[t] = accepted[lo + t0 + t];
+  __syncthreads();
+  select_blobs(leaves, s_acc, t0, lo, cnt, t);
+}
+
+// Leaves [l0, min(l0 + kMaxLeaves, n)) of `all` as one launch's struct.
+BlobLeaves leaf_group(const BlobLeaf* all, int n, int l0) {
+  BlobLeaves g{};
+  g.n = n - l0 < kMaxLeaves ? n - l0 : kMaxLeaves;
+  for (int l = 0; l < g.n; ++l) g.leaf[l] = all[l0 + l];
+  return g;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/accept_kernel.py).  Every
-// pointer is a device pointer; log_u == nullptr selects the in-kernel
-// Philox stream, at offset *offset_dev + offset (offset alone when
-// offset_dev is null); count == nullptr skips the acceptance count.
+// pointer but `leaves` is a device pointer; log_u == nullptr selects the
+// in-kernel Philox stream, at offset *offset_dev + offset (offset alone
+// when offset_dev is null); count == nullptr skips the acceptance count.
 // tile, grid, vec, stage and smem are the launch plan of ops/_wrap.py
 // tile_plan: vec != 0 promises that every tile's spans of q and coords
 // are 16-byte aligned, stage != 0 that every tile's q span is, and smem
 // is the dynamic shared memory (4 * tile * nd when staged, else 0).
-// Returns cudaGetLastError() after the launch.
+// `leaves` is a host array of `nleaves` blob-leaf descriptors (each
+// with row_bytes > 0); it is copied into the launches' parameters, so
+// the host array may go once this returns.  Returns cudaGetLastError()
+// after the launches (1 + ceil((nleaves - kMaxLeaves) / kMaxLeaves) of
+// them with more than kMaxLeaves leaves, else 1).
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
     int nd, int split, int tile, int grid, int vec, int stage, int smem,
     unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, void* stream) {
-  auto kernel = vec ? (stage ? accept_select_kernel<true, true>
-                             : accept_select_kernel<true, false>)
-                    : (stage ? accept_select_kernel<false, true>
-                             : accept_select_kernel<false, false>);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, factor, lp_q, coords, log_prob, accepted,
-      reinterpret_cast<int32_t*>(count), log_u, ng, nd, split, tile,
-      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-      offset_dev, offset);
+    unsigned long long offset, const BlobLeaf* leaves, int nleaves,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* cnt = reinterpret_cast<int32_t*>(count);
+  const uint32_t k0 = static_cast<uint32_t>(seed);
+  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  if (nleaves == 0) {
+    auto kernel =
+        vec ? (stage ? accept_select_kernel<true, true, NoBlobs>
+                     : accept_select_kernel<true, false, NoBlobs>)
+            : (stage ? accept_select_kernel<false, true, NoBlobs>
+                     : accept_select_kernel<false, false, NoBlobs>);
+    kernel<<<grid, kThreads, smem, st>>>(
+        q, factor, lp_q, coords, log_prob, accepted, cnt, log_u, ng, nd,
+        split, tile, k0, k1, offset_dev, offset, NoBlobs{});
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel =
+      vec ? (stage ? accept_select_kernel<true, true, BlobLeaves>
+                   : accept_select_kernel<true, false, BlobLeaves>)
+          : (stage ? accept_select_kernel<false, true, BlobLeaves>
+                   : accept_select_kernel<false, false, BlobLeaves>);
+  kernel<<<grid, kThreads, smem, st>>>(
+      q, factor, lp_q, coords, log_prob, accepted, cnt, log_u, ng, nd, split,
+      tile, k0, k1, offset_dev, offset, leaf_group(leaves, nleaves, 0));
+  for (int l0 = kMaxLeaves; l0 < nleaves; l0 += kMaxLeaves) {
+    accept_blobs_only_kernel<<<grid, kThreads, 0, st>>>(
+        accepted, ng, split, tile, leaf_group(leaves, nleaves, l0));
+  }
   return static_cast<int>(cudaGetLastError());
 }

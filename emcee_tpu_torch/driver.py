@@ -1,7 +1,10 @@
-"""Driver plumbing: move schedules, thinning and chunk scheduling.
+"""Driver plumbing: move schedules, thinning, reduced-precision storage
+and chunk scheduling.
 
 The counterpart of ``emcee_tpu/driver.py``: ``shim_thin`` (``:32``),
-``parse_moves`` (``:140``) and ``chunk_schedule`` (``:174-212``), plus
+``grow_blobs_template`` (``:68-80``), ``parse_moves`` (``:140``),
+``parse_io_dtype`` (``:164-171``) and ``chunk_schedule``
+(``:174-212``), plus
 the move choice of a weighted list, per proposal or per
 ``mixture_block`` block, drawn from the port's Philox stream on the host
 (no device work, no sync), and :func:`chunk_replays`, which turns a
@@ -18,9 +21,11 @@ import torch
 
 from .ops.philox import (
     MASK32, MOVE_BLOCK, MOVE_LANE, philox4x32, split_key, uniform_scalar)
+from .utils import tree_map
 
-__all__ = ["choose_move", "chunk_replays", "chunk_schedule", "move_sequence",
-           "parse_moves", "shim_thin"]
+__all__ = ["choose_move", "chunk_replays", "chunk_schedule",
+           "grow_blobs_template", "move_sequence", "parse_io_dtype",
+           "parse_moves", "shim_thin", "stored_dtype", "torch_dtype"]
 
 
 def shim_thin(n, thin):
@@ -38,6 +43,55 @@ def shim_thin(n, thin):
     if thin <= 0:
         raise ValueError("Invalid thinning argument")
     return (None if n is None else int(n) // thin), thin
+
+
+def torch_dtype(dt):
+    """The torch dtype of a numpy dtype (or of a torch dtype)."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+
+
+def parse_io_dtype(io_dtype):
+    """Validate the reduced-precision storage dtype (None passes): a
+    floating dtype that numpy holds too (float16, float32, float64), as
+    the host backends store it.  Returns the torch dtype."""
+    if io_dtype is None:
+        return None
+    try:
+        dt = torch_dtype(io_dtype if isinstance(io_dtype, torch.dtype)
+                         else np.dtype(io_dtype))
+    except TypeError as err:
+        raise ValueError(f"io_dtype must be a floating dtype numpy and "
+                         f"torch both hold, got {io_dtype!r}") from err
+    if not dt.is_floating_point or dt == torch.bfloat16:
+        raise ValueError(f"io_dtype must be a floating dtype numpy and "
+                         f"torch both hold, got {io_dtype!r}")
+    return dt
+
+
+def stored_dtype(dtype, io_dtype):
+    """The dtype a blob leaf of ``dtype`` is stored in: ``io_dtype`` for
+    a float leaf when it is set (the JAX package's ``cast_io``; the port
+    casts in the copy into rows of this dtype)."""
+    if io_dtype is not None and dtype.is_floating_point:
+        return io_dtype
+    return dtype
+
+
+def grow_blobs_template(blobs, io_dtype):
+    """Host template for ``backend.grow``: numpy empties of each blob
+    leaf's shape and stored dtype (``io_dtype`` for float leaves), so no
+    device work or copy runs at the start of a run."""
+    if blobs is None:
+        return None
+
+    def t(leaf):
+        dt = stored_dtype(leaf.dtype, io_dtype)
+        return np.empty(tuple(leaf.shape),
+                        dtype=torch.empty(0, dtype=dt).numpy().dtype)
+
+    return tree_map(t, blobs)
 
 
 def parse_moves(moves, default_move_factory):

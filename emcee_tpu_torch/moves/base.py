@@ -22,12 +22,16 @@ from typing import Any, Tuple
 
 import torch
 
+from ..utils import tree_flatten, tree_map
+
 __all__ = [
     "Move",
     "ScaleTunable",
     "accept_update",
+    "blob_pairs",
     "robbins_monro_step",
     "robbins_monro_tune",
+    "tree_where",
 ]
 
 
@@ -78,12 +82,49 @@ class ScaleTunable:
         return None
 
 
-def accept_update(state, q, new_log_prob, accepted):
+def blob_pairs(new_blobs, blobs):
+    """K2's blob leaf pairs ``[(new rows, buffer), ...]`` of a proposal's
+    blobs and the state's blob buffers, leaf by leaf; ``[]`` when the
+    log-prob returns no blobs.  A state without blobs whose log-prob
+    returns some raises, as the JAX package does
+    (``emcee_tpu/moves/red_blue.py:330-335``)."""
+    if new_blobs is None:
+        return []
+    if blobs is None:
+        raise ValueError(
+            "If you start sampling with a given log_prob, you "
+            "also need to provide the current list of blobs at "
+            "that position."
+        )
+    new_leaves, new_def = tree_flatten(new_blobs)
+    leaves, treedef = tree_flatten(blobs)
+    if new_def != treedef:
+        raise ValueError("inconsistent use of blobs: the log-prob's blob "
+                         "structure differs from the state's")
+    return [(n.contiguous(), b) for n, b in zip(new_leaves, leaves)]
+
+
+def tree_where(mask, new, old):
+    """Per-walker select over a blob pytree; ``mask`` ``(nwalkers,)``
+    (``emcee_tpu/moves/base.py`` ``tree_where``)."""
+    if old is None:
+        return new
+
+    def sel(n, o):
+        return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
+
+    return tree_map(sel, new, old)
+
+
+def accept_update(state, q, new_log_prob, accepted, new_blobs=None):
     """Whole-ensemble select: keep proposals where accepted (reference
-    ``move.py:12-45``)."""
+    ``move.py:12-45``), the blobs too when the log-prob returns them."""
     coords = torch.where(accepted[:, None], q, state.coords)
     log_prob = torch.where(accepted, new_log_prob, state.log_prob)
-    return state._replace(coords=coords, log_prob=log_prob)
+    blobs = state.blobs
+    if new_blobs is not None:
+        blobs = tree_where(accepted, new_blobs, state.blobs)
+    return state._replace(coords=coords, log_prob=log_prob, blobs=blobs)
 
 
 class Move:

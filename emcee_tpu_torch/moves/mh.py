@@ -4,7 +4,9 @@ The counterpart of ``emcee_tpu/moves/mh.py:27-84``: the whole ensemble
 is proposed at once by a user function, then accepted where ``log U <
 lnpdiff``.  The accept/select runs through K2 (``ops/accept_kernel.py``)
 as split 0 of ``nsplits=1``: the accept uniform is Philox word 1 at
-``(walker, 0, offset)``, and K2 writes the accepted rows in place.
+``(walker, 0, offset)``, and K2 writes the accepted rows in place, with
+the rows of every blob leaf (``accept_update``'s ``tree_where`` in the
+JAX package, ``moves/base.py:103-126``).
 
 The proposal function is ``proposal_function(rng, coords[, carry]) ->
 (q, factors[, carry])``.  ``rng`` is the port's ``(seed, offset)`` in
@@ -34,7 +36,7 @@ import inspect
 import torch
 
 from ..ops import accept_kernel
-from .base import Move
+from .base import Move, blob_pairs
 
 __all__ = ["MHMove"]
 
@@ -74,7 +76,7 @@ class MHMove(Move):
                     carry[k].copy_(v)
         else:
             q, factors = self.get_proposal(rng, state.coords)
-        new_lp, _ = model.compute_log_prob(q)
+        new_lp, new_blobs = model.compute_log_prob(q)
         if accepted is None:
             accepted = torch.empty(nwalkers, dtype=torch.bool,
                                    device=state.coords.device)
@@ -83,5 +85,6 @@ class MHMove(Move):
             q.contiguous(), factors.to(state.coords.dtype).contiguous(),
             new_lp, state.coords, state.log_prob, 0, 1, accepted, acc_count,
             seed=seed, offset=offset, log_u=log_u,
+            blobs=blob_pairs(new_blobs, state.blobs),
         )
         return state, accepted, carry

@@ -18,6 +18,13 @@ into the ensemble buffer).
   gathered into contiguous buffers in group order, the blocked engine
   runs on them, and the rows are scattered back.  Group j is
   ``perm[j::nsplits]``, as in the JAX package.
+
+Blobs ride with the coordinates: ``state.blobs`` is a pytree of
+``(nwalkers, ...)`` buffers, and K2 writes each accepted walker's new
+blob row into them in the same launch as its coordinates (the JAX
+package's ``tree_where`` and write-back, ``red_blue.py:200-202``,
+``:323-344``); the shuffled path gathers and scatters every leaf as it
+does the coordinates.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 
 from ..ops import accept_kernel
 from ..ops.philox import walker_words
-from .base import Move, ScaleTunable
+from ..utils import tree_flatten, tree_map
+from .base import Move, ScaleTunable, blob_pairs
 
 __all__ = ["RedBlueMove", "shuffled_order"]
 
@@ -105,18 +113,20 @@ class RedBlueMove(ScaleTunable, Move):
         )
 
     def _inner(self, rng, coords, log_prob, split, model, accepted,
-               acc_count=None, log_u=None, extra=None, scale=None):
+               acc_count=None, log_u=None, extra=None, scale=None,
+               blobs=None):
         """Propose (K1), evaluate, and accept (K2) for one group; the
-        group's rows of ``coords``/``log_prob``/``accepted`` are updated
-        in place."""
+        group's rows of ``coords``/``log_prob``/``accepted`` and of every
+        leaf of ``blobs`` are updated in place."""
         q, factors = self.get_proposal(
             rng, coords, split, model, extra=extra, scale=scale
         )
-        new_lp, _ = model.compute_log_prob(q)
+        new_lp, new_blobs = model.compute_log_prob(q)
         seed, offset = rng
         accept_kernel.accept_select(
             q, factors, new_lp, coords, log_prob, split, self.nsplits,
             accepted, acc_count, seed=seed, offset=offset, log_u=log_u,
+            blobs=blob_pairs(new_blobs, blobs),
         )
 
     def _propose_blocked(self, rng, state, model, carry, ng, scale=None,
@@ -137,7 +147,7 @@ class RedBlueMove(ScaleTunable, Move):
                 acc_count,
                 log_u=None if log_acc_u is None else log_acc_u[split],
                 extra=None if extra_u is None else extra_u[split],
-                scale=scale,
+                scale=scale, blobs=state.blobs,
             )
         return state, accepted, carry
 
@@ -152,6 +162,7 @@ class RedBlueMove(ScaleTunable, Move):
         buf = state._replace(
             coords=coords.index_select(0, order),
             log_prob=log_prob.index_select(0, order),
+            blobs=tree_map(lambda b: b.index_select(0, order), state.blobs),
         )
         count = None if acc_count is None else acc_count.index_select(0, order)
         _, acc_buf, carry = self._propose_blocked(
@@ -159,6 +170,9 @@ class RedBlueMove(ScaleTunable, Move):
         )
         coords.index_copy_(0, order, buf.coords)
         log_prob.index_copy_(0, order, buf.log_prob)
+        for b, g in zip(tree_flatten(state.blobs)[0],
+                        tree_flatten(buf.blobs)[0]):
+            b.index_copy_(0, order, g)
         if acc_count is not None:
             acc_count.index_copy_(0, order, count)
         if accepted is None:

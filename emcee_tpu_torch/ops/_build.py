@@ -61,6 +61,7 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
         *[ctypes.c_int] * 5,  # plan: tile grid vec stage smem
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
+        _P, ctypes.c_int,  # blob leaves (host array), their number
         _P,  # stream
     ],
     "de_propose": [

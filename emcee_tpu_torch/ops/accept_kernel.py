@@ -31,6 +31,16 @@ With ``nsplits=1`` the split is the whole ensemble (``MHMove`` and
 ``GaussianMove``, which need no complement): ``ng = nwalkers``, and the
 tile plan and the kernel's indexing are the same at any ``ng``.
 
+``blobs`` is an optional sequence of blob leaf pairs ``(new (ng,
+*shape), buf (nwalkers, *shape))`` of any dtype: the accepted walkers'
+rows of ``new`` are written into block ``split`` of ``buf``, with the
+same mask as the coordinates (``red_blue.py:200-202``, ``tree_where``).
+The kernel does it in the same launch, as a masked byte stream per leaf
+(see the source); the leaves beyond ``BLOB_CAPACITY`` go to further
+launches of a blob-only kernel that reads the split's ``accepted``.  The
+plain version is ``torch.where`` per leaf; the two agree bit for bit
+(bytes are copied, never converted).
+
 The accept uniform is Philox word 1 at ``(walker, split, offset)``
 (``offset`` an int or a ``DeviceOffset``), or the injected ``log_u``
 (ng,) (the parity mode: ``RedBlueMove._inner``'s ``log_u`` argument in
@@ -43,20 +53,71 @@ to the other.  ``accept_select.launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ._wrap import (
     check_f32, check_rows, device_sm_count, launch, ptr, rng_args, tile_plan)
 from .philox import to_uniform, walker_words
 
-__all__ = ["accept_select", "accept_select_plain"]
+__all__ = ["BLOB_CAPACITY", "accept_select", "accept_select_plain",
+           "blob_leaves", "blob_unit"]
+
+#: blob leaves one launch of the kernel selects (kMaxLeaves in
+#: csrc/accept_select.cu); further leaves take blob-only launches
+BLOB_CAPACITY = 16
+
+
+class _BlobLeaf(ctypes.Structure):
+    """One blob leaf as the C entry point takes it (``BlobLeaf`` in
+    ``csrc/accept_select.cu``)."""
+
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("row_bytes", ctypes.c_int), ("unit", ctypes.c_int)]
+
+
+def blob_unit(src_ptr, dst_ptr, row_bytes):
+    """The kernel's access unit for a leaf: the largest of 16, 8, 4, 2
+    and 1 bytes that divides both byte addresses and the row, so that no
+    unit holds bytes of two walkers."""
+    for unit in (16, 8, 4, 2):
+        if not (src_ptr % unit or dst_ptr % unit or row_bytes % unit):
+            return unit
+    return 1
+
+
+def blob_leaves(blobs, ng, nw, device):
+    """The kernel's view of checked blob leaf pairs: ``(new pointer,
+    buffer pointer, row bytes)`` of each leaf whose row has a byte or
+    more."""
+    leaves = []
+    for new, buf in blobs:
+        if new.device != device or buf.device != device:
+            raise ValueError(f"blob leaves must lie on {device}")
+        if new.dtype != buf.dtype:
+            raise ValueError(f"a blob leaf's new rows are {new.dtype}, its "
+                             f"buffer {buf.dtype}")
+        if (new.dim() == 0 or buf.dim() == 0 or new.shape[0] != ng
+                or buf.shape[0] != nw or new.shape[1:] != buf.shape[1:]):
+            raise ValueError(
+                f"a blob leaf must be ({ng}, ...) new rows and a ({nw}, "
+                f"...) buffer of one row shape, got {tuple(new.shape)} and "
+                f"{tuple(buf.shape)}")
+        if not (new.is_contiguous() and buf.is_contiguous()):
+            raise ValueError("blob leaves must be contiguous")
+        row = buf[0].numel() * buf.element_size()
+        if row:
+            leaves.append((new.data_ptr(), buf.data_ptr(), row))
+    return leaves
 
 
 def accept_select_plain(q, factor, lp_q, coords, log_prob, split, nsplits,
                         accepted, count=None, *, seed=0, offset=0,
-                        log_u=None):
-    """Plain PyTorch K2; updates the buffers in place and returns the
-    block's acceptance ``(ng,)`` bool (a view of ``accepted``)."""
+                        log_u=None, blobs=()):
+    """Plain PyTorch K2; updates the buffers (and every blob leaf's
+    buffer) in place and returns the block's acceptance ``(ng,)`` bool (a
+    view of ``accepted``)."""
     ng = coords.shape[0] // nsplits
     lo = split * ng
     if log_u is None:
@@ -68,6 +129,9 @@ def accept_select_plain(q, factor, lp_q, coords, log_prob, split, nsplits,
     acc = log_u < lnpdiff
     s.copy_(torch.where(acc[:, None], q, s))
     lp_s.copy_(torch.where(acc, lp_q, lp_s))
+    for new, buf in blobs:
+        b = buf[lo:lo + ng]
+        b.copy_(torch.where(acc.view((ng,) + (1,) * (b.dim() - 1)), new, b))
     accepted[lo:lo + ng] = acc
     if count is not None:
         count[lo:lo + ng] += acc
@@ -75,12 +139,13 @@ def accept_select_plain(q, factor, lp_q, coords, log_prob, split, nsplits,
 
 
 def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
-                  accepted, count=None, *, seed=0, offset=0, log_u=None):
+                  accepted, count=None, *, seed=0, offset=0, log_u=None,
+                  blobs=()):
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     args = (q, factor, lp_q, coords, log_prob, split, nsplits, accepted,
             count)
-    kw = dict(seed=seed, offset=offset, log_u=log_u)
+    kw = dict(seed=seed, offset=offset, log_u=log_u, blobs=blobs)
     if coords.device.type == "cpu":
         return accept_select_plain(*args, **kw)
     if coords.device.type != "cuda":
@@ -101,24 +166,30 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
             or tuple(count.shape) != (nw,) or not count.is_contiguous()):
         raise ValueError(f"count must be a contiguous ({nw},) int32 tensor "
                          f"on {dev}")
+    leaves = blob_leaves(blobs, ng, nw, dev)
     plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
                      q.data_ptr(), stage=True)
     _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u)
-    accept_select.launches += 1
+            seed, offset, log_u, leaves)
+    accept_select.launches += max(1, -(-len(leaves) // BLOB_CAPACITY))
     return accepted[split * ng:(split + 1) * ng]
 
 
 def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u):
-    """Launch K2 with launch plan ``plan`` on checked arguments."""
+            seed, offset, log_u, leaves=()):
+    """Launch K2 with launch plan ``plan`` on checked arguments;
+    ``leaves`` are ``(new pointer, buffer pointer, row bytes)`` of the
+    blob leaves (rows of at least one byte)."""
     dev = coords.device
+    table = (_BlobLeaf * max(1, len(leaves)))(*[
+        _BlobLeaf(src, dst, row, blob_unit(src, dst, row))
+        for src, dst, row in leaves])
     launch(
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
         ptr(count), ptr(log_u), q.shape[0], coords.shape[1], split, *plan,
-        *rng_args(seed, offset, dev),
+        *rng_args(seed, offset, dev), ctypes.addressof(table), len(leaves),
     )
 
 

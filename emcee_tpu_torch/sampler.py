@@ -16,10 +16,20 @@ waits for the device: the Philox offset advances on the device inside
 the graphs and as a host integer beside them, the weighted move choice
 is computed on the host from the same stream, acceptance counts add up
 on the device (in K2), and with ``store=True`` each kept step is one
-slice copy per field after the replay that ends it: into a
-:class:`~.backends.DeviceBackend`'s own chain rows, or into a device
-staging buffer that reaches a host :class:`~.backends.Backend` with one
-device-to-host copy per chunk.
+slice copy per field (coords, log-prob, acceptance and every blob leaf)
+after the replay that ends it: into a :class:`~.backends.DeviceBackend`'s
+own rows, or into a device staging buffer that reaches a host
+:class:`~.backends.Backend` with one device-to-host copy per chunk.  With
+``io_dtype`` the stored coords and float blob leaves are cast on the card
+before that copy; the live state stays float32.
+
+Blobs (``emcee_tpu/sampler.py:321-374``, ``:569-603``): the log-prob may
+return them after the log-prob (``model.py``); the chunk program keeps one
+device buffer per leaf, K2 selects each leaf's rows with the
+coordinates', and the backends store each leaf in its dtype.
+``blobs_dtype`` names them (``get_blobs`` then returns a structured
+array) and, as in the JAX package, turns off the reference layout
+(stacking of uniform tuples, squeezing of size-1 axes).
 
 Storage overlaps compute, as the JAX run loop does
 (``emcee_tpu/sampler.py:1349-1419``): chunk k's rows go into one of two
@@ -46,12 +56,14 @@ import torch
 
 from . import moves as _moves_mod
 from .backends import Backend
-from .chunk_graph import ChunkProgram, clone_carry
+from .chunk_graph import ChunkProgram, blob_signature, clone_carry
 from .driver import (
-    chunk_replays, chunk_schedule, move_sequence, parse_moves, shim_thin)
+    chunk_replays, chunk_schedule, grow_blobs_template, move_sequence,
+    parse_io_dtype, parse_moves, shim_thin, stored_dtype, torch_dtype)
 from .model import Model, wrap_log_prob_fn
 from .state import State, as_state, resolve_device, walkers_independent
-from .utils import defer_interrupts
+from .utils import (
+    defer_interrupts, tree_flatten, tree_leaves, tree_map, tree_unflatten)
 
 __all__ = ["EnsembleSampler", "RunStats"]
 
@@ -59,15 +71,15 @@ __all__ = ["EnsembleSampler", "RunStats"]
 #: port: name -> (default, ROADMAP item)
 _NOT_PORTED = {
     "pool": (None, "P12"),
-    "blobs_dtype": (None, "P10"),
-    "parameter_names": (None, "P10"),
     "prng": (None, "P3: the port has one generator, Philox4x32-10"),
     "mesh": (None, "P13"),
     "param_axis": (None, "P13"),
     "host_callback": (False, "P12"),
-    "io_dtype": (None, "P10"),
     "host_callback_blobs": (None, "P12"),
 }
+
+#: ``_blob_signature`` before the log-prob was first evaluated
+_UNKNOWN = object()
 
 #: deprecated v2 arguments that warn and are ignored (reference
 #: ensemble.py:93-113); ``postargs`` is ignored without a warning
@@ -105,10 +117,12 @@ class _Chunk(NamedTuple):
     """A chunk whose proposals are enqueued, waiting for its save: its
     rows (:meth:`EnsembleSampler._chunk_rows`, or None unstored), the
     host copy of a host backend's rows (pinned, on the card) and the
-    event that ends that copy, and the resume anchors after the chunk."""
+    event that ends that copy, and the resume anchors after the chunk.
+    ``rows`` is ``(coords, log_prob, accepted, blob rows)``, the last a
+    pytree or None; ``host`` the same flattened."""
 
     rows: Optional[tuple]
-    host: Optional[torch.Tensor]
+    host: Optional[tuple]
     copied: Optional[torch.cuda.Event]
     state: State
     carries: tuple
@@ -129,6 +143,13 @@ class EnsembleSampler:
         args, kwargs: extra arguments passed to ``log_prob_fn``.
         backend: a chain store; defaults to the host :class:`Backend`.
         vectorize: see ``log_prob_fn``.
+        blobs_dtype: optional numpy dtype (or list of ``(name, dtype)``)
+            applied when fetching blobs: with named fields ``get_blobs``
+            returns a structured array, fields in the blobs' leaf order
+            (dict blobs by sorted key).
+        parameter_names: list of names or dict name -> index / index
+            list; the log-prob then receives a dict (reference
+            ``ensemble.py:174-214``; not with ``vectorize=True``).
         seed: int seed of the sampler's Philox stream (used when an
             initial state carries no ``random_state``).
         walker_axis: the mesh axis of the walkers; meaningless until
@@ -139,6 +160,11 @@ class EnsembleSampler:
             graphs already hold up to ``MAX_GRAPH`` proposals unrolled.
         mixture_block: with several moves, draw the move once per block
             of this many kept steps instead of once per proposal.
+        io_dtype: optional float dtype (float16, float32 or float64) of
+            the *stored* coords and float blob leaves, cast on the card
+            before they leave it; the live state and the log-prob stay
+            float32.  Pair with ``Backend(dtype=...)`` to keep the host
+            copy compact too.
         max_chunk_steps: optional cap on kept steps per chunk.
         a, threads, live_dangerously, runtime_sortingfn: deprecated v2
             arguments: they warn and are ignored.  ``postargs`` is
@@ -180,10 +206,9 @@ class EnsembleSampler:
         device=None,
     ):
         given = dict(
-            pool=pool, blobs_dtype=blobs_dtype,
-            parameter_names=parameter_names, prng=prng, mesh=mesh,
-            param_axis=param_axis, host_callback=host_callback,
-            io_dtype=io_dtype, host_callback_blobs=host_callback_blobs,
+            pool=pool, prng=prng, mesh=mesh, param_axis=param_axis,
+            host_callback=host_callback,
+            host_callback_blobs=host_callback_blobs,
         )
         for name, (default, item) in _NOT_PORTED.items():
             if given[name] != default:
@@ -213,6 +238,17 @@ class EnsembleSampler:
             moves, _moves_mod.StretchMove
         )
         self.backend = Backend() if backend is None else backend
+        self.blobs_dtype = blobs_dtype
+        if blobs_dtype is not None:
+            # Backends that name blob fields (HDFBackend) or pack declared
+            # records (get_last_sample) read the declaration from here.
+            self.backend.blobs_dtype = blobs_dtype
+        self._io_dtype = parse_io_dtype(io_dtype)
+        self.params_are_named = parameter_names is not None
+        self.parameter_names = (
+            None if parameter_names is None
+            else _check_parameter_names(parameter_names, self.ndim,
+                                        vectorize))
         if not isinstance(seed, (int, np.integer)):
             raise TypeError("seed must be an int")
         self._rng = (int(seed) & 0xFFFFFFFFFFFFFFFF, 0)
@@ -233,9 +269,16 @@ class EnsembleSampler:
         self.log_prob_fn = log_prob_fn
         # The wrapped log-prob and the model are rebuilt from these after
         # unpickling (__setstate__).
-        self._lp_settings = dict(args=args, kwargs=kwargs,
-                                 vectorize=vectorize)
+        self._lp_settings = dict(
+            args=args, kwargs=kwargs, vectorize=vectorize,
+            parameter_names=self.parameter_names,
+            # Without a declared blobs_dtype, blobs follow the reference's
+            # array layout (emcee_tpu/sampler.py:369-374).
+            reference_blob_layout=blobs_dtype is None)
         self._build_model()
+        # The blobs' structure, shapes and dtypes, known once the log-prob
+        # has run (_prepare_state).
+        self._blob_signature = _UNKNOWN
 
         # Resume from a non-empty backend (reference ensemble.py:139-162).
         self._previous_state = None
@@ -279,11 +322,13 @@ class EnsembleSampler:
         d = self.__dict__.copy()
         d.update(_program=None, _pinned={}, _compute_log_prob=None,
                  _model=None)
+        del d["_blob_signature"]
         return d
 
     def __setstate__(self, d):
         self.__dict__.update(d)
         self._build_model()
+        self._blob_signature = _UNKNOWN
 
     # ------------------------------------------------------------------
     # Introspection (reference ensemble.py:555-623)
@@ -365,7 +410,41 @@ class EnsembleSampler:
         return self.get_value("log_prob", **kwargs)
 
     def get_blobs(self, **kwargs):
-        return self.get_value("blobs", **kwargs)
+        """The stored blobs; with a declared ``blobs_dtype`` of named
+        fields, a structured array whose fields take the blob leaves in
+        order (``emcee_tpu/sampler.py:569-603``)."""
+        if self.blobs_dtype is None:
+            return self.get_value("blobs", **kwargs)
+        flat = kwargs.pop("flat", False)
+        blobs = self.get_value("blobs", **kwargs)
+        if blobs is None:
+            return None
+        if isinstance(blobs, np.ndarray) and blobs.dtype.names is not None:
+            out = blobs  # an HDF file stores structured records already
+        else:
+            declared = np.dtype(self.blobs_dtype)
+            leaves = [np.asarray(x) for x in tree_leaves(blobs)]
+            if declared.names is None:
+                # An unnamed dtype casts the leaves (the reference's
+                # np.array(blobs, dtype=blobs_dtype); the JAX package
+                # raises TypeError here).
+                out = [b.astype(declared) for b in leaves]
+                if flat:
+                    out = [b.reshape((-1,) + b.shape[2:]) for b in out]
+                return out[0] if len(out) == 1 else tuple(out)
+            if len(leaves) != len(declared.names):
+                raise ValueError(
+                    f"blobs_dtype declares {len(declared.names)} fields but "
+                    f"the log-prob returns {len(leaves)} blobs"
+                )
+            dtype = np.dtype([(name, declared[name].base, leaf.shape[2:])
+                              for name, leaf in zip(declared.names, leaves)])
+            out = np.empty(leaves[0].shape[:2], dtype=dtype)
+            for name, leaf in zip(declared.names, leaves):
+                out[name] = leaf
+        if flat:
+            return out.reshape((-1,) + out.shape[2:])
+        return out
 
     def get_value(self, name, **kwargs):
         return self.backend.get_value(name, **kwargs)
@@ -394,16 +473,55 @@ class EnsembleSampler:
 
     def compute_log_prob(self, coords):
         """Evaluate the batched log-prob with the reference's NaN/inf
-        guards (``ensemble.py:458-551``).  Returns ``(log_prob, None)``."""
+        guards (``ensemble.py:458-551``).  Returns ``(log_prob, blobs)``,
+        the blobs a pytree of ``(nwalkers, ...)`` tensors or None."""
         p = self._to_device(coords)
         if bool(torch.isinf(p).any()):
             raise ValueError("At least one parameter value was infinite")
         if bool(torch.isnan(p).any()):
             raise ValueError("At least one parameter value was NaN")
-        log_prob, blobs = self._compute_log_prob(p)
+        log_prob, blobs = self._evaluate(p)
         if bool(torch.isnan(log_prob).any()):
             raise ValueError("Probability function returned NaN")
         return log_prob, blobs
+
+    def _evaluate(self, p):
+        """The log-prob and blobs at device coords ``p``, noting the
+        blobs' signature."""
+        log_prob, blobs = self._compute_log_prob(p)
+        self._blob_signature = blob_signature(blobs)
+        return log_prob, blobs
+
+    def _blobs_to_device(self, blobs, coords):
+        """A given state's blobs as device tensors in the structure and
+        dtypes the log-prob returns (evaluated once at ``coords`` if it has
+        not run yet).  A state with blobs whose log-prob returns none, or
+        other leaves, raises."""
+        if self._blob_signature is _UNKNOWN:
+            self._evaluate(coords)
+        sig = self._blob_signature
+        if sig is None:
+            raise ValueError(
+                "inconsistent use of blobs: the resumed state carries blobs "
+                "but the log-prob returns none"
+            )
+        leaves = tree_leaves(blobs)
+        out = []
+        if len(leaves) == len(sig[1]):
+            for leaf, (shape, dt) in zip(leaves, sig[1]):
+                t = (leaf.detach() if isinstance(leaf, torch.Tensor)
+                     else torch.as_tensor(np.asarray(leaf)))
+                if tuple(t.shape) != shape:
+                    break
+                out.append(t.to(device=self.device, dtype=dt))
+        if len(out) != len(sig[1]):
+            raise ValueError(
+                "inconsistent use of blobs: the state's blobs do not match "
+                "the leaves the log-prob returns"
+            )
+        # In the log-prob's structure: a file keeps a nested blob's leaves
+        # flat, in the same leaf order.
+        return tree_unflatten(sig[0], out)
 
     def _prepare_state(self, initial_state, skip_initial_state_check,
                        trusted=False):
@@ -412,10 +530,19 @@ class EnsembleSampler:
         written).  ``trusted``: the sampler's own resume anchor, whose
         checks already passed."""
         state = as_state(initial_state)
-        if state.blobs is not None:
-            raise NotImplementedError(
-                "states with blobs are not ported yet (ROADMAP P10)"
-            )
+        log_prob, blobs = state.log_prob, state.blobs
+        io = self._io_dtype
+        if (io is not None and io.itemsize < 4
+                and _torch_dtype_or_none(
+                    getattr(state.coords, "dtype", None)) == io):
+            # Resuming from a store of reduced precision: sample in
+            # float32 and recompute the log-prob and blobs, which belong
+            # to the unrounded coords (emcee_tpu/sampler.py:1001-1022).
+            log_prob = blobs = None
+        if isinstance(blobs, np.ndarray) and (
+                blobs.dtype.names is not None or blobs.dtype == object):
+            # A backend's declared record row: recompute from the coords.
+            blobs = None
         coords = self._to_device(state.coords)
         if tuple(coords.shape) != (self.nwalkers, self.ndim):
             raise ValueError(
@@ -433,15 +560,23 @@ class EnsembleSampler:
             )
         rs = state.random_state
         rs = self._rng if rs is None else (int(rs[0]), int(rs[1]))
-        if state.log_prob is None:
-            log_prob, _ = self.compute_log_prob(coords)
+        if log_prob is None:
+            return State(coords, *self.compute_log_prob(coords), rs)
+        log_prob = self._to_device(log_prob)
+        if tuple(log_prob.shape) != (self.nwalkers,):
+            raise ValueError("incompatible input dimensions")
+        if not trusted and bool(torch.isnan(log_prob).any()):
+            raise ValueError("The initial log_prob was NaN")
+        if blobs is not None:
+            blobs = self._blobs_to_device(blobs, coords)
         else:
-            log_prob = self._to_device(state.log_prob)
-            if tuple(log_prob.shape) != (self.nwalkers,):
-                raise ValueError("incompatible input dimensions")
-            if not trusted and bool(torch.isnan(log_prob).any()):
-                raise ValueError("The initial log_prob was NaN")
-        return State(coords, log_prob, None, rs)
+            if self._blob_signature is _UNKNOWN:
+                self._evaluate(coords)
+            if self._blob_signature is not None:
+                # The log-prob returns blobs the state lacks: evaluate
+                # both (the JAX sampler's blob probe, sampler.py:1080).
+                log_prob, blobs = self.compute_log_prob(coords)
+        return State(coords, log_prob, blobs, rs)
 
     # ------------------------------------------------------------------
     # The run loop
@@ -452,7 +587,7 @@ class EnsembleSampler:
             for m in self._moves
         )
 
-    def _auto_chunk(self, store):
+    def _auto_chunk(self, store, blobs=None):
         """Kept steps per chunk: the storage buffer stays under
         ``io_chunk_bytes``; the caps follow the JAX sampler."""
         if self._max_chunk_steps is not None:
@@ -462,8 +597,12 @@ class EnsembleSampler:
         else:
             cap = 4096
         if store:
-            size = self._row_dtype().itemsize
-            row = self.nwalkers * ((self.ndim + 1) * size + 1)
+            coords_dt, lp_dt = self._row_dtypes()
+            row = self.nwalkers * (self.ndim * coords_dt.itemsize
+                                   + lp_dt.itemsize + 1)
+            for b in tree_leaves(blobs):
+                row += b.numel() * stored_dtype(b.dtype,
+                                                self._io_dtype).itemsize
             cap = min(cap, max(1, self._io_chunk_bytes // row))
         return cap
 
@@ -471,37 +610,50 @@ class EnsembleSampler:
         blk = self._mixture_block if len(self._moves) > 1 else 1
         return chunk_schedule(nsteps, max_chunk, blk)
 
-    def _row_dtype(self):
-        """The torch dtype of a chunk's stored rows: the walkers' own for
-        a device backend, else the host backend's (float64 unless the
-        backend was made with another ``dtype``)."""
+    def _row_dtypes(self):
+        """The torch dtypes of a chunk's stored coords and log-prob rows:
+        the walkers' own for a device backend, else the host backend's
+        (float64 unless the backend was made with another ``dtype``);
+        coords in ``io_dtype`` when it is set."""
         if getattr(self.backend, "wants_device_arrays", False):
-            return self.dtype
-        chain = getattr(self.backend, "chain", None)
-        dt = np.float64 if chain is None else chain.dtype
-        return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+            dt = self.dtype
+        else:
+            chain = getattr(self.backend, "chain", None)
+            dt = _torch_dtype_or_none(np.dtype(
+                (getattr(self.backend, "dtype", None) or np.float64)
+                if chain is None else chain.dtype)) or torch.float64
+        return self._io_dtype or dt, dt
 
-    def _chunk_rows(self, nkeep):
-        """Where a chunk's kept steps go: ``(coords, log_prob, accepted)``
-        of shapes ``(nkeep, nwalkers, ndim)``, ``(nkeep, nwalkers)`` and
-        ``(nkeep, nwalkers)``, each kept step copied in after the replay
-        that ends it.  A device-resident backend hands out its own chain
-        rows, so each kept step is written once.  For a host backend they
-        are device staging buffers in the backend's dtype: the float32 to
-        float64 conversion (exact) runs on the card, and the host's write
-        is a plain copy of contiguous rows (reference
-        ``ensemble.py:409-417``)."""
+    def _chunk_rows(self, nkeep, blobs):
+        """Where a chunk's kept steps go: ``(coords, log_prob, accepted,
+        blob rows)`` of shapes ``(nkeep, nwalkers, ndim)``, ``(nkeep,
+        nwalkers)``, ``(nkeep, nwalkers)`` and ``(nkeep, nwalkers, ...)``
+        per blob leaf (None without blobs), each kept step copied in after
+        the replay that ends it.  A device-resident backend hands out its
+        own rows, so each kept step is written once.  For a host backend
+        they are device staging buffers: coords in the backend's dtype (or
+        ``io_dtype``) and the log-prob in the backend's, so the float32 to
+        float64 conversion (exact) or the cast to ``io_dtype`` runs on the
+        card and the host's write is a plain copy of contiguous rows
+        (reference ``ensemble.py:409-417``); blob leaves in their stored
+        dtypes."""
         nw, nd, dev = self.nwalkers, self.ndim, self.device
         accepted = torch.empty((nkeep, nw), dtype=torch.bool, device=dev)
+        coords_dt, lp_dt = self._row_dtypes()
         if getattr(self.backend, "wants_device_arrays", False):
-            coords, log_prob = self.backend.reserve(nkeep, dev, self.dtype)
-            return coords, log_prob, accepted
-        dt = self._row_dtype()
-        return (torch.empty((nkeep, nw, nd), dtype=dt, device=dev),
-                torch.empty((nkeep, nw), dtype=dt, device=dev), accepted)
+            coords, log_prob, rows = self.backend.reserve(nkeep, dev,
+                                                          coords_dt, lp_dt)
+            return coords, log_prob, accepted, rows
+        rows = tree_map(lambda b: torch.empty(
+            (nkeep,) + tuple(b.shape),
+            dtype=stored_dtype(b.dtype, self._io_dtype), device=dev), blobs)
+        return (torch.empty((nkeep, nw, nd), dtype=coords_dt, device=dev),
+                torch.empty((nkeep, nw), dtype=lp_dt, device=dev), accepted,
+                rows)
 
     def _stage_rows(self, rows):
-        """Start the copy of a chunk's staging buffers to the host: into
+        """Start the copy of a chunk's staging buffers (a flat tuple of
+        tensors) to the host: into
         the next of two sets of pinned buffers, asynchronously, with an
         event that marks its end.  Returns ``(host rows, event)``; on the
         CPU the buffers are host rows already.  A set holds the largest
@@ -531,12 +683,13 @@ class EnsembleSampler:
         the carries; a program recorded for another seed is dropped."""
         seed, offset = state.random_state
         prog = self._program
-        if prog is None or prog.seed != seed:
+        if (prog is None or prog.seed != seed
+                or prog.blob_signature != blob_signature(state.blobs)):
             prog = self._program = ChunkProgram(
                 self._moves, self._model, seed, state.coords, state.log_prob,
-                carries,
+                carries, state.blobs,
             )
-        prog.load(state.coords, state.log_prob, offset, carries)
+        prog.load(state.coords, state.log_prob, offset, carries, state.blobs)
         return prog, offset
 
     def _enqueue(self, prog, offset, nkeep, thin_by, store, tune):
@@ -546,7 +699,7 @@ class EnsembleSampler:
         anchors after it.  Nothing waits for the device.  Returns the
         :class:`_Chunk`, which :meth:`_commit` saves."""
         ws = prog.ws
-        out = self._chunk_rows(nkeep) if store else None
+        out = self._chunk_rows(nkeep, ws.blobs) if store else None
         seq = move_sequence(self._weights, prog.seed, offset, nkeep, thin_by,
                             self._mixture_block)
         done = 0
@@ -558,14 +711,19 @@ class EnsembleSampler:
                 out[0][k].copy_(ws.coords)
                 out[1][k].copy_(ws.log_prob)
                 out[2][k].copy_(ws.accepted)
+                for rows, b in zip(tree_leaves(out[3]),
+                                   tree_leaves(ws.blobs)):
+                    rows[k].copy_(b)
         host = copied = None
         if store and not getattr(self.backend, "wants_device_arrays",
                                  False):
-            host, copied = self._stage_rows(out)
+            host, copied = self._stage_rows(
+                out[:3] + tuple(tree_leaves(out[3])))
         rs = (prog.seed, offset + nkeep * thin_by)
         return _Chunk(
             out, host, copied,
-            State(ws.coords.clone(), ws.log_prob.clone(), None, rs),
+            State(ws.coords.clone(), ws.log_prob.clone(),
+                  tree_map(torch.clone, ws.blobs), rs),
             tuple(clone_carry(c) for c in ws.carries),
         )
 
@@ -580,8 +738,12 @@ class EnsembleSampler:
             elif chunk.rows is not None:
                 if chunk.copied is not None:
                     chunk.copied.synchronize()
-                coords, log_prob, accepted = (h.numpy() for h in chunk.host)
-                self.backend.save_chunk(coords, log_prob, None, accepted, rs)
+                coords, log_prob, accepted, *leaves = (
+                    h.numpy() for h in chunk.host)
+                blobs = (None if chunk.rows[3] is None else tree_unflatten(
+                    tree_flatten(chunk.rows[3])[1], leaves))
+                self.backend.save_chunk(coords, log_prob, blobs, accepted,
+                                        rs)
             self._previous_state = chunk.state
             self._move_carries = chunk.carries
             self._rng = rs
@@ -621,7 +783,8 @@ class EnsembleSampler:
         prog, offset = self._start(
             state, self._move_carries or self._init_carries())
         if store:
-            self.backend.grow(iterations, None)
+            self.backend.grow(iterations, grow_blobs_template(
+                state.blobs, self._io_dtype))
         i = 0
         while iterations is None or i < iterations:
             chunk = self._enqueue(prog, offset, 1, thin_by, store, tune)
@@ -673,7 +836,8 @@ class EnsembleSampler:
             state, self._move_carries or self._init_carries())
         prog.ws.count.zero_()
         if store:
-            self.backend.grow(nsteps, None)
+            self.backend.grow(nsteps, grow_blobs_template(
+                state.blobs, self._io_dtype))
         t0 = time.perf_counter()
         # Chunk k is saved after chunk k+1 is enqueued, so the host's
         # write of k overlaps the card's compute of k+1.  A device
@@ -684,7 +848,8 @@ class EnsembleSampler:
         # raised at the end of the save cannot save it twice.
         pending = None
         try:
-            for n in self._chunk_schedule(nsteps, self._auto_chunk(store)):
+            for n in self._chunk_schedule(
+                    nsteps, self._auto_chunk(store, state.blobs)):
                 chunk = self._enqueue(prog, offset, n, thin_by, store, tune)
                 offset = chunk.state.random_state[1]
                 if pending is not None:
@@ -708,3 +873,43 @@ class EnsembleSampler:
             accepted=prog.ws.count.clone(),
         )
         return self._previous_state
+
+
+def _check_parameter_names(names, ndim, vectorize):
+    """The canonical ``{name: index or index list}`` of ``parameter_names``
+    with the JAX sampler's checks (``emcee_tpu/sampler.py:321-357``,
+    reference ``ensemble.py:174-214``), raised as ``AssertionError`` as
+    there (and kept under ``python -O``)."""
+
+    def check(cond, msg=""):
+        if not cond:
+            raise AssertionError(msg)
+
+    check(isinstance(names, (list, dict)))
+    check(not vectorize,
+          "named parameters with vectorization unsupported for now")
+    seen = set()
+    uniq = [n for n in names if not (n in seen or seen.add(n))]
+    check(len(uniq) == len(names), f"duplicate parameters: {seen}")
+    if isinstance(names, list):
+        check(len(names) == ndim,
+              "name all parameters or set `parameter_names` to `None`")
+        names = {name: i for i, name in enumerate(names)}
+    check(len(names) <= ndim, "too many names")
+    flat = set()
+    for v in names.values():
+        flat.update(v if isinstance(v, list) else [v])
+    check(flat == set(range(ndim)),
+          f"not all values appear -- set should be 0 to {ndim - 1}")
+    return names
+
+
+def _torch_dtype_or_none(dt):
+    """The torch dtype of numpy or torch dtype ``dt``; None for None or
+    a dtype torch has not (numpy's longdouble)."""
+    if dt is None:
+        return None
+    try:
+        return torch_dtype(dt)
+    except TypeError:
+        return None

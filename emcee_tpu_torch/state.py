@@ -24,6 +24,8 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .utils import tree_map
+
 __all__ = ["State", "as_state", "resolve_device", "walkers_independent"]
 
 
@@ -56,7 +58,10 @@ class State(NamedTuple):
         ``(nwalkers,)`` log-probabilities, or ``None`` before the first
         evaluation.
     blobs:
-        Always ``None`` in this slice of the port (ROADMAP P10).
+        Optional pytree (a tensor, or a tuple, list or dict of them) of
+        per-walker metadata with leading axis ``nwalkers``, or the
+        structured record row a backend returns for a declared
+        ``blobs_dtype``.
     random_state:
         ``(seed, offset)``: the Philox key and the next proposal's
         counter, or ``None``.
@@ -102,7 +107,8 @@ class State(NamedTuple):
                 None
                 if self.log_prob is None
                 else tuple(getattr(self.log_prob, "shape", ())),
-                self.blobs,
+                tree_map(lambda b: tuple(getattr(b, "shape", ())),
+                         self.blobs),
                 self.random_state,
             )
         )
@@ -128,7 +134,7 @@ def _state_new(
             (
                 dc(coords.coords),
                 dc(getattr(coords, "log_prob", None)),
-                dc(getattr(coords, "blobs", None)),
+                tree_map(dc, getattr(coords, "blobs", None)),
                 getattr(coords, "random_state", None),
             ),
         )

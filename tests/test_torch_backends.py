@@ -82,7 +82,9 @@ def test_grow_keeps_rows_and_save_step():
     np.testing.assert_array_equal(b.get_chain(), chain)
     np.testing.assert_array_equal(b.accepted, acc_steps.sum(0))
     assert b.random_state == (1, K)
-    with pytest.raises(NotImplementedError, match="P10"):
+    # Blobs cannot appear in a chain stored without them (the JAX
+    # package's test_grow_respects_blob_consistency).
+    with pytest.raises(ValueError, match="inconsistent use of blobs"):
         b.grow(1, {"blob": np.zeros(NW)})
 
 

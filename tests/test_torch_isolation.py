@@ -30,7 +30,8 @@ def test_import_leaves_no_jax_or_emcee_tpu():
         "emcee_tpu_torch.ops.de_kernel, emcee_tpu_torch.ops.snooker_kernel, "
         "emcee_tpu_torch.monitor, emcee_tpu_torch.utils, "
         "emcee_tpu_torch.moves.mh, emcee_tpu_torch.moves.gaussian, "
-        "emcee_tpu_torch.moves.walk, emcee_tpu_torch.moves.kde\n"
+        "emcee_tpu_torch.moves.walk, emcee_tpu_torch.moves.kde, "
+        "emcee_tpu_torch.checkpoint, emcee_tpu_torch.backends.hdf\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'emcee_tpu') or m.startswith(('jax.', 'jaxlib.', 'emcee_tpu.')))\n"
         "print(bad)\n"
@@ -93,7 +94,9 @@ def test_wrappers_use_the_plain_version_only_on_cpu():
 def test_public_names():
     assert {"EnsembleSampler", "State", "moves", "backends", "autocorr",
             "ConvergenceMonitor", "run_until_converged", "AutocorrError",
-            "walkers_independent", "utils",
+            "walkers_independent", "utils", "checkpoint",
             "__version__"} <= set(emcee_tpu_torch.__all__)
+    assert {"HDFBackend", "TempHDFBackend",
+            "get_test_backends"} <= set(emcee_tpu_torch.backends.__all__)
     assert {"GaussianMove", "MHMove", "WalkMove",
             "KDEMove"} <= set(emcee_tpu_torch.moves.__all__)

@@ -156,11 +156,13 @@ def test_vectorize_false_lifts_with_vmap_and_args():
 
 
 def test_blobs_raise_not_implemented():
+    """Tensor blobs run (tests/test_torch_blobs.py); a blob that is not
+    numeric needs host evaluation, which is ROADMAP P12."""
     s = emcee_tpu_torch.EnsembleSampler(
-        NW, ND, lambda x: (-0.5 * (x**2).sum(-1), x[:, 0]), vectorize=True,
-        device="cpu",
+        NW, ND, lambda x: (-0.5 * (x**2).sum(-1), "a string"),
+        vectorize=True, device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(NotImplementedError, match="P12"):
         s.run_mcmc(p0(), 1)
 
 
@@ -192,9 +194,14 @@ def test_sample_generator_and_thin():
         next(s.sample(p0(), iterations=None))
 
 
-#: arguments of this list that are ported now (ROADMAP P7): the sampler
-#: takes them
-PORTED = {"mixture_block"}
+#: arguments of this list that are ported now (ROADMAP P7, P10): the
+#: sampler takes them, holding each in this attribute as this value
+PORTED = {
+    "mixture_block": ("_mixture_block", 4),
+    "blobs_dtype": ("blobs_dtype", float),
+    "parameter_names": ("parameter_names", {"a": 0, "b": 1, "c": 2}),
+    "io_dtype": ("_io_dtype", torch.float16),
+}
 
 
 @pytest.mark.parametrize("name,value", [
@@ -207,7 +214,8 @@ def test_not_ported_arguments_raise(name, value):
     if name in PORTED:
         s = emcee_tpu_torch.EnsembleSampler(NW, ND, lp_batch, device="cpu",
                                             **{name: value})
-        assert getattr(s, f"_{name}") == value
+        attr, held = PORTED[name]
+        assert getattr(s, attr) == held
         return
     with pytest.raises(NotImplementedError, match="ROADMAP P"):
         emcee_tpu_torch.EnsembleSampler(NW, ND, lp_batch, device="cpu",

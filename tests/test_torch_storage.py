@@ -173,6 +173,11 @@ def test_every_jax_constructor_argument_is_taken_or_named(name):
     kw = dict(nwalkers=NW, ndim=ND, log_prob_fn=lp_batch, vectorize=True,
               device="cpu")
     kw[name] = NON_DEFAULT[name]
+    if name == "parameter_names":
+        # Named parameters take one walker's dict, not a batch (the JAX
+        # sampler asserts so).
+        kw.update(vectorize=False, log_prob_fn=lambda p: -0.5 * (
+            p["a"] ** 2 + p["b"] ** 2 + p["c"] ** 2))
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
