@@ -77,8 +77,25 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    its oracle; and the ``HDFBackend`` where h5py is installed (else it
    prints ``hdf: h5py not installed`` and goes on).
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11.  Every phase raises on
-failure.
+12. the extension moves at full width through ``run_mcmc``: (a)
+   ``bench.py``'s DIME stage (1e5 x 5-D, ``aimh_prob=1``, ``df=None``,
+   ``DeviceBackend``, 400 kept, a warm run then two timed runs; tau,
+   ESS/s, acceptance, the Philox normals' share of the device time, the
+   factors against a float64 recomputation); (b) its bimodal stage
+   (1e5 x 3-D, K = 2, ``df=10``, 400 kept x 2; the mode fraction; 0
+   exhaustions in a ``df=7.5`` twin) and both chi-square routes on the
+   card (K-S, 0 exhaustions); (c)
+   ``BlendedMove`` on workload 3 through K5a + K5b in turns with the
+   sampler-level mixture (launches by the profiler); (d)
+   ``SideMove(roll)`` and ``EnsembleSliceMove()`` at 1e5 x 5-D (graph
+   chains == eager chains; the slice move's block replays, flag reads
+   and evaluations; its caps binding); (e) ``DEZMove`` at 8 x 10-D
+   (12000 proposals, the moment checks) and at 1e5 x 5-D with its
+   1e6-row archive.  ``python3 chip_smoke.py 12`` runs phases 0, 1 and
+   12 alone.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12.  Every phase raises
+on failure.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -89,6 +106,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import subprocess
 import sys
 import time
@@ -277,6 +295,8 @@ def warm_graphs(smp, top=None):
     from emcee_tpu_torch.chunk_graph import MAX_GRAPH
 
     for i in range(len(smp._moves)):
+        if smp._moves[i].looped:
+            continue  # recorded by segments in its first run
         size = 1
         while size <= (top or MAX_GRAPH):
             smp._program.graph(i, size, False)
@@ -1526,8 +1546,10 @@ def phase10(torch, np, dev, card, chains):
     return phase10_rest(torch, np, dev, card, chains, p0, out)
 
 
-def phase10_move(torch, np, dev, card, p0, config, k7_calls):
-    """One move of phase 10 (see :func:`phase10`); returns its row."""
+def phase10_move(torch, np, dev, card, p0, config, k7_calls,
+                 phase="phase 10"):
+    """One move of phase 10 (see :func:`phase10`; phase 12 runs its side
+    and slice moves through it too); returns its row."""
     from emcee_tpu_torch import EnsembleSampler
 
     label, make_move, n, k2_per = config
@@ -1554,7 +1576,9 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls):
     # KDE is profiled in windows of one proposal (below): record that
     # graph too, so no timed or profiled run records one.
     n_prof = 1 if kde else n
-    smps[True]._program.graph(0, n_prof, False)
+    looped = smps[True]._moves[0].looped
+    if not looped:
+        smps[True]._program.graph(0, n_prof, False)
     # A KDE proposal is ~0.2 s on the card: two per turn.
     n_timed = 2 if kde else n
     if n_timed != n:
@@ -1569,7 +1593,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls):
     mean_lp = float(st.log_prob.mean())
     acc = float(smp.last_run_stats.acceptance_fraction.mean())
     if not -3.5 < mean_lp < -1.5:  # bench.py:161
-        raise AssertionError(f"{label}: mean log-prob {mean_lp}")
+        raise AssertionError(f"{phase}: {label}: mean log-prob {mean_lp}")
     # K2's launches by the profiler, each window checked on its own.  A
     # KDE proposal is ~2000 kernels, so KDE takes four windows of one
     # proposal, each also holding K7's device count to 4 (two splits,
@@ -1600,7 +1624,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls):
                k7_calls=int(k7_calls), seconds=time.perf_counter() - t_all)
     if kde:
         row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"phase 10: {label}: {n} graph-replayed proposals equal the "
+    log(f"{phase}: {label}: {n} graph-replayed proposals equal the "
         f"plain versions' eager chain, bit for bit; acceptance "
         f"{acc:.4f}, mean lp {mean_lp:.4f}; walker-steps/s in turns "
         f"eager {rates[False][0]:.4e}, graph {rates[True][0]:.4e}, graph "
@@ -2201,6 +2225,661 @@ def hdf_check(torch, np, sampler, st, card):
     return {"kept": kept, "seconds": dt}
 
 
+def counted_calls(torch, dev, cls, make, p0, n, **kw):
+    """``cls.get_proposal`` calls in a run of ``n`` proposals of a sampler
+    of its own from ``make()``, untimed.  Each call adds one to a 0-d
+    device word; the add is recorded into the graphs with the call, so
+    every replayed call counts too (a plain-torch module has no launch
+    counter of its own).  No graph that a timed or profiled run replays
+    holds the add."""
+    word = torch.zeros((), dtype=torch.int64, device=dev)
+    fn = cls.get_proposal
+
+    def call(self, *args, **kwargs):
+        word.add_(1)
+        return fn(self, *args, **kwargs)
+
+    cls.get_proposal = call
+    try:
+        make().run_mcmc(p0, n, skip_initial_state_check=True, **kw)
+    finally:
+        cls.get_proposal = fn
+    torch.cuda.synchronize()
+    return int(word)
+
+
+def busy_window(torch, run, n, what, expect=None):
+    """Device microseconds a proposal, kernel events a proposal and the
+    idle share over a profiled window of ``run`` (``n`` proposals); with
+    ``expect``, the kernels' launches are held to it
+    (:func:`counted_window`)."""
+    if expect is None:
+        wall, kernels = profile_window(torch, run)
+        counts = profiled_counts(kernels)
+    else:
+        wall, kernels, counts, _ = counted_window(torch, run, expect, what)
+    busy = sum(us for _, us in kernels.values())
+    events = sum(c for c, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"  {what}: the six kernels of most device time, us a proposal "
+        "(launches a proposal): " + "; ".join(
+            f"{us / n:.1f} ({c / n:.1f}) {key[:60]}" for key, (c, us) in top))
+    return dict(device_us_per_proposal=busy / n,
+                kernels_per_proposal=events / n,
+                idle=1 - busy * 1e-6 / wall, launches=counts,
+                top_us_per_proposal={key[:80]: us / n
+                                     for key, (_, us) in top})
+
+
+def tau_of(np, chain, thin_by=1):
+    """Max Sokal tau over a stored chain, in proposals (at least 1, as
+    ``bench.py:333``)."""
+    from emcee_tpu_torch.autocorr import integrated_time
+
+    return max(float(np.max(integrated_time(chain, quiet=True))) * thin_by,
+               1.0)
+
+
+def stage_runs(smp, st, kept, thin_by):
+    """``bench.py``'s DIME timing: the stored run twice after the warm
+    one, each into a reset backend; returns the last state and the
+    faster time."""
+    best = float("inf")
+    for _ in range(2):
+        smp.backend.reset(smp.nwalkers, smp.ndim)
+        st, dt = drive(smp, st, kept, thin_by=thin_by,
+                       skip_initial_state_check=True)
+        best = min(best, dt)
+    return st, best
+
+
+def dime_factor_check(torch, np, dev, move, state_coords, carry):
+    """One DIME proposal of split 0 on the card in float32 and again in
+    float64 from the same draws: the largest differences of the Cholesky
+    factor and of the Hastings factors (TF32 would show ~1e-3)."""
+    from emcee_tpu_torch.model import Model, wrap_log_prob_fn
+    from emcee_tpu_torch.moves.dime import full_float32
+    from emcee_tpu_torch.moves.walk import complement
+
+    nw, nd = state_coords.shape
+    ng = nw // move.nsplits
+    model = Model(wrap_log_prob_fn(gaussian, vectorize=True), nw, nd)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    draws = dict(z=torch.randn(ng, nd, device=dev, generator=gen),
+                 zg=torch.randn(ng, 1, device=dev, generator=gen))
+    if move.df is not None:
+        draws["chi2"] = move.df * (1 + 0.1 * torch.rand(
+            ng, device=dev, generator=gen))
+    out = []
+    for dt in (torch.float32, torch.float64):
+        c = state_coords.to(dt)
+        cy = {k: v.to(dt) for k, v in carry.items()}
+        q, f = move.get_proposal((0, 0), c, 0, model, carry=cy, extra={
+            k: v.to(dt) for k, v in draws.items()})
+        with full_float32():
+            mean_c = complement(c, 0, ng).mean(0)
+            xc = complement(c, 0, ng) - mean_c
+            _, cov, _ = move._pooled(cy, mean_c, (xc.T @ xc) / (nw - ng),
+                                     nw - ng, dt)
+            chol = move._t_shape_chol(cov, nd, dt)
+        out.append((q.double(), f.double(), chol.double()))
+    (q32, f32, l32), (q64, f64, l64) = out
+    return dict(chol=float((l32 - l64).abs().max()),
+                factors=float((f32 - f64).abs().max()),
+                factors_rel=float(((f32 - f64).abs()
+                                   / (1 + f64.abs())).max()),
+                q=float((q32 - q64).abs().max()))
+
+
+def chi2_check(torch, np, dev, card, n_calls=20):
+    """Both chi-square routes at the bimodal stage's width (one split,
+    5e4 walkers) on the card: draws against the chi-square law by K-S,
+    and the Marsaglia-Tsang route's exhaustions (must be 0)."""
+    from scipy import stats
+
+    from emcee_tpu_torch.moves.dime import MT_CANDIDATES, chi_square
+
+    ng = NW // 2
+    out = {}
+    for df in (10.0, 7.5):
+        word = torch.zeros((), dtype=torch.int64, device=dev)
+        x = torch.cat([chi_square(ng, df, 17, k, dev, exhausted=word)
+                       for k in range(n_calls)])
+        ks = stats.kstest(x[::20].cpu().numpy(), stats.chi2(df).cdf)
+        out[df] = dict(draws=x.numel(), exhausted=int(word),
+                       ks=float(ks.statistic), p=float(ks.pvalue))
+        if int(word) or ks.pvalue < 1e-4:
+            raise AssertionError(f"phase 12: chi-square df={df}: {out[df]}")
+    log(f"phase 12: chi-square on the card: df=10 (ten squared normals) "
+        f"{out[10.0]}, df=7.5 (Marsaglia-Tsang, {MT_CANDIDATES} candidates) "
+        f"{out[7.5]}")
+    return out
+
+
+def phase12(torch, np, dev, card):
+    """The extension moves at full width through ``run_mcmc`` (see the
+    module docstring, 12): bench.py's two DIME stages, ``BlendedMove`` on
+    workload 3 in turns with the sampler-level mixture, the side and
+    slice moves at the main path's width, DE-Z at its use case and at
+    1e5 walkers.  Returns its numbers and the K8-K10 rows."""
+    out = {}
+    with path_launches(out, "dime", ("accept_select",)):
+        out["dime"] = phase12_dime(torch, np, dev, card)
+    with path_launches(out, "dime_bimodal", ("accept_select",)):
+        out["dime_bimodal"] = phase12_bimodal(torch, np, dev, card)
+    out["chi2"] = chi2_check(torch, np, dev, card)
+    with path_launches(out, "blended", (
+            "accept_select", "de_propose", "snooker_propose")):
+        out["blended"] = phase12_blended(torch, np, dev, card)
+    with path_launches(out, "side_slice", ("accept_select",)):
+        out["side_slice"] = phase12_side_slice(torch, np, dev, card)
+    with path_launches(out, "dez", ("accept_select",)):
+        out["dez"] = phase12_dez(torch, np, dev, card)
+    log(f"phase 12: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase12_rows(np, out, card)
+
+
+@contextlib.contextmanager
+def path_launches(out, path, kernels):
+    """Set every kernel wrapper's count to 0 before a path of phase 12
+    and read them after it into ``out["launches"][path]``, failing if
+    one of ``kernels`` (the path's) was launched no time."""
+    for _, fn in wrappers().values():
+        fn.launches = 0
+    yield
+    counts = launch_counts()
+    out.setdefault("launches", {})[path] = counts
+    if not all(counts[k] for k in kernels):
+        raise AssertionError(f"phase 12: {path}: kernel launches {counts}")
+
+
+def phase12_dime(torch, np, dev, card):
+    """(a) ``bench.py:305-349``: 1e5 walkers x 5-D, ``DIMEMove(aimh_prob=
+    1.0, df=None, randomize_split=False)`` into ``DeviceBackend``, 400
+    kept x 1; a warm run, then two timed runs."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.moves import DIMEMove
+    from emcee_tpu_torch.ops.philox import DeviceOffset, normals
+
+    p0 = np.random.default_rng(4).normal(size=(NW, ND)).astype(np.float32)
+
+    def make(backend=None):
+        return EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=3, device=dev,
+            backend=backend, moves=moves.DIMEMove(
+                aimh_prob=1.0, df=None, randomize_split=False))
+
+    acc64 = graph_vs_plain_chain(torch, make, p0)
+    smp = make(DeviceBackend())
+    kept = 400
+    # The K8 row's launches: a twin of the stage's run, untimed.
+    calls = counted_calls(torch, dev, DIMEMove, lambda: make(DeviceBackend()),
+                          p0, kept)
+    t0 = time.perf_counter()
+    st, _ = drive(smp, p0, kept, skip_initial_state_check=True)
+    warm_s = time.perf_counter() - t0
+    tau = tau_of(np, smp.get_chain()[:, :512, :])
+    warm_graphs(smp)
+    st, dt = stage_runs(smp, st, kept, 1)
+    rate = kept * NW / dt
+    acc = float(smp.last_run_stats.acceptance_fraction.mean())
+    mean_lp = float(st.log_prob.mean())
+    if not (-3.5 < mean_lp < -1.5 and acc > 0.9 and np.isfinite(tau)):
+        raise AssertionError(f"phase 12: DIME stage: mean lp {mean_lp}, "
+                             f"acceptance {acc}, tau {tau}")
+    n_prof = 16
+    busy = busy_window(torch, lambda: drive(smp, None, n_prof, store=False),
+                       n_prof, "DIME stage", lambda: {
+                           "stretch_propose": 0, "de_propose": 0,
+                           "snooker_propose": 0,
+                           "accept_select": 2 * n_prof})
+    # The draws of one proposal alone: per split one Philox normals call
+    # at the proposal's shape, eager, profiled.
+    word = torch.zeros((), dtype=torch.int64, device=dev)
+    draws = busy_window(torch, lambda: [
+        normals(NW // 2, ND + 1, 3, DeviceOffset(word, k), dev, row0=k % 2)
+        for k in range(2 * n_prof)], n_prof, "DIME draws")
+    share = draws["device_us_per_proposal"] / busy["device_us_per_proposal"]
+    # The same proposals eagerly, for the plain-version column.
+    smp._use_graphs = False
+    _, dt_eager = drive(smp, None, n_prof, store=False, per_proposal={
+        "accept_select": 2})
+    smp._use_graphs = True
+    carry = smp._program.ws.carries[0]
+    fcheck = dime_factor_check(torch, np, dev, smp._moves[0],
+                               smp._program.ws.coords, carry)
+    if fcheck["factors_rel"] > 1e-3 or fcheck["chol"] > 1e-4:
+        raise AssertionError(f"phase 12: DIME factors against float64: "
+                             f"{fcheck}")
+    res = dict(walker_steps_per_s=rate, tau=tau, ess_per_s=rate / tau,
+               acceptance=acc, mean_lp=mean_lp, seconds=dt,
+               warm_seconds=warm_s, acceptance_64=acc64,
+               get_proposal_calls=calls, philox_share=share,
+               draws_us_per_proposal=draws["device_us_per_proposal"],
+               eager_ms_per_proposal=dt_eager / n_prof * 1e3,
+               float64=fcheck, **busy)
+    log(f"phase 12: (a) DIME stage (bench.py:305-349; 1e5 x 5-D, "
+        f"aimh_prob=1, df=None, DeviceBackend, {kept} kept x 1): "
+        f"{rate:.4e} walker-steps/s (best of two), tau {tau:.3f} proposals, "
+        f"ESS/s {rate / tau:.4e}, acceptance {acc:.4f}, mean lp "
+        f"{mean_lp:.4f} {card}; device {busy['device_us_per_proposal']:.1f}"
+        f" us and {busy['kernels_per_proposal']:.0f} kernels a proposal, "
+        f"idle {busy['idle']:.4f}, K2 {busy['launches']['accept_select']} "
+        f"in {n_prof} proposals (profiler); the Philox normals "
+        f"{draws['device_us_per_proposal']:.1f} us a proposal, share "
+        f"{share:.3f}; eager {dt_eager / n_prof * 1e3:.3f} ms a proposal; "
+        f"graph chain == plain eager chain (64 proposals, acceptance "
+        f"{acc64:.4f}); float32 vs float64: Cholesky {fcheck['chol']:.3g}, "
+        f"factors {fcheck['factors']:.3g} (relative "
+        f"{fcheck['factors_rel']:.3g}); {calls} get_proposal calls in a "
+        f"twin of the warm run (device counter)")
+    return res
+
+
+def lp_bimodal(x):
+    """``bench.py:357-364``: equal-mass modes at -6 (scale 1) and +6
+    (scale 0.2) in 3-D."""
+    a = -0.5 * ((x + 6.0) ** 2).sum(-1)
+    b = -0.5 * ((x - 6.0) ** 2).sum(-1) / 0.04 - 3 * math.log(0.2)
+    return a.logaddexp(b)
+
+
+def phase12_bimodal(torch, np, dev, card):
+    """(b) ``bench.py:351-416``: 1e5 walkers x 3-D asymmetric bimodal,
+    ``DIMEMove(aimh_prob=0.3, n_components=2, randomize_split=False)``
+    (``df=10``), 400 kept x ``thin_by=2``."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.backends import DeviceBackend
+
+    nd = 3
+    rng = np.random.default_rng(6)
+    p0 = np.concatenate([rng.normal(size=(NW // 2, nd)) - 6.0,
+                         rng.normal(size=(NW // 2, nd)) * 0.2 + 6.0]
+                        ).astype(np.float32)
+    move = moves.DIMEMove(aimh_prob=0.3, n_components=2,
+                          randomize_split=False)
+    smp = EnsembleSampler(NW, nd, lp_bimodal, vectorize=True, seed=5,
+                          device=dev, backend=DeviceBackend(), moves=move)
+    kept, thin_by = 400, 2
+    st, _ = drive(smp, p0, kept, thin_by=thin_by,
+                  skip_initial_state_check=True)
+    chain = smp.get_chain()[:, :512, :]
+    tau = tau_of(np, chain, thin_by)
+    frac = float((chain[kept // 2:, :, 0] > 0).mean())
+    warm_graphs(smp)
+    st, dt = stage_runs(smp, st, kept, thin_by)
+    rate = kept * thin_by * NW / dt
+    acc = float(smp.last_run_stats.acceptance_fraction.mean())
+    # df=10 takes the integer route, which cannot exhaust: the counter is
+    # read from a twin at df=7.5 (Marsaglia-Tsang) through run_mcmc, by
+    # the device name the proposals used (one counter only).
+    twin = moves.DIMEMove(aimh_prob=0.3, n_components=2, df=7.5,
+                          randomize_split=False)
+    EnsembleSampler(NW, nd, lp_bimodal, vectorize=True, seed=5, device=dev,
+                    moves=twin).run_mcmc(p0, 64, store=False,
+                                         skip_initial_state_check=True)
+    exhausted = int(twin._exhausted(st.coords.device))
+    if (not 0.4 < frac < 0.6 or exhausted or not np.isfinite(tau)
+            or len(twin._exhaust_counts) != 1
+            or twin._exhausted(dev) is not twin._exhausted(st.coords.device)):
+        raise AssertionError(f"phase 12: bimodal DIME: mode fraction "
+                             f"{frac}, exhaustions {exhausted} (counters "
+                             f"{list(twin._exhaust_counts)}), tau {tau}")
+    n_prof = 16
+    busy = busy_window(torch, lambda: drive(smp, None, n_prof, store=False),
+                       n_prof, "bimodal DIME")
+    res = dict(walker_steps_per_s=rate, tau=tau, ess_per_s=rate / tau,
+               mode_fraction=frac, acceptance=acc, seconds=dt,
+               chi2_exhausted=exhausted, **busy)
+    log(f"phase 12: (b) bimodal DIME stage (bench.py:351-416; 1e5 x 3-D, "
+        f"K=2, df=10, {kept} kept x {thin_by}): {rate:.4e} walker-steps/s, "
+        f"tau {tau:.2f} proposals, ESS/s {rate / tau:.4e}, mode fraction "
+        f"{frac:.4f}, acceptance {acc:.4f} {card}; chi-square exhaustions "
+        f"{exhausted} in a df=7.5 twin of 64 proposals (Marsaglia-Tsang; "
+        f"df=10 sums ten squared normals and cannot exhaust); device {busy['device_us_per_proposal']:.1f} us"
+        f" and {busy['kernels_per_proposal']:.0f} kernels a proposal, idle "
+        f"{busy['idle']:.4f}")
+    return res
+
+
+def phase12_blended(torch, np, dev, card, n=1000):
+    """(c) ``BlendedMove`` over K5a + K5b on workload 3, in turns with the
+    sampler-level mixture of phase 8 (mixture, blended, blended,
+    mixture), and the kernels each launches inside the replays."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    log_prob, p0 = workload3_target(np, torch, dev)
+
+    def blend():
+        return moves.BlendedMove(
+            [(moves.DEMove(pair_mode="roll"), 0.8),
+             (moves.DESnookerMove(pair_mode="roll", nsplits=2), 0.2)],
+            randomize_split=False)
+
+    def make(mv, seed=0):
+        return EnsembleSampler(NW3, ND3, log_prob, vectorize=True,
+                               seed=seed, device=dev, moves=mv)
+
+    acc64 = graph_vs_plain_chain(torch, lambda: make(blend(), 9), p0)
+    smps = {"mixture": make(workload3_moves(moves)), "blended": make(blend())}
+    for smp in smps.values():
+        drive(smp, p0, 200, store=False, skip_initial_state_check=True)
+        warm_graphs(smp)
+    rates = {k: [] for k in smps}
+    for label in ("mixture", "blended", "blended", "mixture"):
+        st, dt = drive(smps[label], None, n, store=False)
+        rates[label].append(n * NW3 / dt)
+    mean_lp = float(smps["blended"]._previous_state.log_prob.mean())
+    acc = float(smps["blended"].last_run_stats.acceptance_fraction.mean())
+    if not -0.8 * ND3 < mean_lp < -0.2 * ND3:  # workload3.py:201
+        raise AssertionError(f"phase 12: blended mean lp {mean_lp}")
+    n_prof = 200
+    mix = smps["mixture"]
+    busy = {
+        "blended": busy_window(
+            torch, lambda: drive(smps["blended"], None, n_prof, store=False),
+            n_prof, "blended", lambda: {
+                "stretch_propose": 0, "accept_select": 2 * n_prof,
+                "de_propose": 2 * n_prof, "snooker_propose": 2 * n_prof}),
+        # The mixture's exact launches are phase 8's check.
+        "mixture": busy_window(
+            torch, lambda: drive(mix, None, n_prof, store=False), n_prof,
+            "mixture")}
+    res = dict(rates=rates, mean_lp=mean_lp, acceptance=acc,
+               acceptance_64=acc64, busy=busy)
+    log(f"phase 12: (c) BlendedMove on workload 3 (1e4 x 100-D): "
+        f"walker-steps/s in turns mixture {rates['mixture'][0]:.4e}, "
+        f"blended {rates['blended'][0]:.4e}, blended "
+        f"{rates['blended'][1]:.4e}, mixture {rates['mixture'][1]:.4e} "
+        f"{card}; device us a proposal blended "
+        f"{busy['blended']['device_us_per_proposal']:.1f} "
+        f"({busy['blended']['kernels_per_proposal']:.0f} kernels), mixture "
+        f"{busy['mixture']['device_us_per_proposal']:.1f} "
+        f"({busy['mixture']['kernels_per_proposal']:.0f}); blended launches "
+        f"in {n_prof} proposals (profiler) {busy['blended']['launches']}; "
+        f"mean lp {mean_lp:.3f}, acceptance {acc:.4f}; graph chain == plain "
+        f"eager chain (64 proposals)")
+    return res
+
+
+def phase12_side_slice(torch, np, dev, card, n=64):
+    """(d) ``SideMove(pair_mode="roll", randomize_split=False)`` and
+    ``EnsembleSliceMove()`` at the main path's width, ``n`` proposals
+    each: graph chain against the eager chain bit for bit, rates in
+    turns; the slice move's block size, flag reads and evaluations in a
+    run of its own; and a slice move whose ``max_steps`` / ``max_shrink``
+    caps bind."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    p0 = np.random.default_rng(8).normal(size=(NW, ND)).astype(np.float32)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    out = {"side": phase10_move(
+        torch, np, dev, card, p0,
+        ("SideMove(pair_mode='roll', randomize_split=False)",
+         lambda: moves.SideMove(pair_mode="roll", randomize_split=False),
+         n, 2), zero, phase="phase 12: (d)")}
+    out["slice"] = row = phase10_move(
+        torch, np, dev, card, p0,
+        ("EnsembleSliceMove()", moves.EnsembleSliceMove, n, 0), zero,
+        phase="phase 12: (d)")
+    # The loops of one graph run of n proposals, after its first (which
+    # records): iterations the JAX loops need and the masked ones run,
+    # flag reads and block replays.
+    # An untimed run, so with the per-walker evaluation counts.
+    mv = moves.EnsembleSliceMove()
+    mv.count_evals = True
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=15,
+                          device=dev, moves=mv)
+    st, _ = drive(smp, p0, n, store=False, skip_initial_state_check=True)
+    w = next(iter(mv._work.values()))
+    it0, ex0, ev0 = (w.iterations.clone(), w.executed.clone(),
+                     w.evals.clone())
+    reads0 = ChunkProgram.flag_reads
+    drive(smp, None, n, store=False)
+    it = (w.iterations - it0).tolist()
+    ex = (w.executed - ex0).tolist()
+    ev = (w.evals - ev0).tolist()
+    half_steps = 2 * n  # group updates; each walker is in n of them
+    row.update(
+        block=mv.loop_block, proposals=n, iterations=it, executed=ex,
+        evals=ev, flag_reads_per_proposal=(
+            ChunkProgram.flag_reads - reads0) / n,
+        evals_per_walker_half_step=sum(ev) / (n * NW),
+        trip_evals_per_walker_half_step=(2 * it[0] + it[1]) / half_steps,
+        trip_evals_run_per_walker_half_step=(2 * ex[0] + ex[1])
+        / half_steps,
+        acceptance_run=float(smp.last_run_stats.acceptance_fraction.mean()))
+    log(f"phase 12: (d) slice, B = {mv.loop_block}: per proposal "
+        f"{row['flag_reads_per_proposal']:.2f} flag reads (one a block "
+        f"replay); evaluations a walker a half-step: "
+        f"{row['evals_per_walker_half_step']:.3f} needed by the walker "
+        f"(mean; stepping out {ev[0] / (n * NW):.3f}, shrink "
+        f"{ev[1] / (n * NW):.3f}), {row['trip_evals_per_walker_half_step']:.3f}"
+        f" by the group's loop trips the JAX loops need (every walker "
+        f"evaluates in every trip; stepping out {it[0] / half_steps:.3f} "
+        f"trips a group, shrink {it[1] / half_steps:.3f}), "
+        f"{row['trip_evals_run_per_walker_half_step']:.3f} by the trips run;"
+        f" acceptance {row['acceptance_run']:.4f} {card}")
+    out["slice_block_sweep"] = slice_block_sweep(torch, dev, card, p0)
+    out["slice_capped"] = slice_capped(torch, np, dev, p0)
+    return out
+
+
+def slice_block_sweep(torch, dev, card, p0, n=16, blocks=(2, 4, 8, 16)):
+    """The slice move's graph rate, flag reads and run iterations for
+    several ``loop_block`` B, in turns (each B's segments recorded before
+    its timed run); the chains are equal for every B."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    smps, res, ends = {}, {}, []
+    for b in blocks:
+        mv = moves.EnsembleSliceMove()
+        mv.loop_block = b
+        smps[b] = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=16,
+                                  device=dev, moves=mv)
+        drive(smps[b], p0, 1, store=False, skip_initial_state_check=True)
+    for b in blocks + blocks[::-1]:
+        smp = smps[b]
+        w = next(iter(smp._moves[0]._work.values()))
+        ex0, reads0 = w.executed.clone(), ChunkProgram.flag_reads
+        st, dt = drive(smp, None, n, store=False)
+        r = res.setdefault(b, dict(rates=[], flag_reads_per_proposal=(
+            ChunkProgram.flag_reads - reads0) / n, executed_per_proposal=(
+            (w.executed - ex0) / n).tolist()))
+        r["rates"].append(n * NW / dt)
+        if len(r["rates"]) == 2:
+            ends.append(st.coords)
+    if not all(torch.equal(e, ends[0]) for e in ends[1:]):
+        raise AssertionError("phase 12: slice chains differ between B")
+    log("phase 12: (d) slice loop_block sweep, in turns ("
+        + ", ".join(str(b) for b in blocks + blocks[::-1]) + "): "
+        + "; ".join(f"B={b}: {r['rates'][0]:.4e} / {r['rates'][1]:.4e} "
+                    f"walker-steps/s, {r['flag_reads_per_proposal']:.2f} "
+                    f"flag reads and {r['executed_per_proposal']} "
+                    "iterations run a proposal" for b, r in res.items())
+        + f"; chains equal for every B {card}")
+    return res
+
+
+def slice_capped(torch, np, dev, p0, n=8):
+    """A slice move whose caps bind (``max_steps=2``, ``max_shrink=2``):
+    the graph chain equals the eager chain, no group runs past its caps,
+    and some walkers stay put (unaccepted)."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    ends = []
+    for graphs in (True, False):
+        mv = moves.EnsembleSliceMove(mu=5.0, max_steps=2, max_shrink=2,
+                                     randomize_split=False)
+        smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=14,
+                              device=dev, moves=mv)
+        smp._use_graphs = graphs
+        st = smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True)
+        w = next(iter(mv._work.values()))
+        ends.append((st, smp.last_run_stats.accepted, w.iterations.clone()))
+    # The eager run's loop counters (the graph run's include its
+    # warm-up proposal).
+    (a, acc_a, _), (b, acc_b, it_a) = ends
+    if not (torch.equal(a.coords, b.coords) and torch.equal(acc_a, acc_b)
+            and torch.equal(a.log_prob, b.log_prob)):
+        raise AssertionError("phase 12: capped slice: graph != eager")
+    groups = 2 * n
+    frac = float(acc_a.float().mean()) / n
+    if int(it_a[0]) > 2 * groups or int(it_a[1]) > 2 * groups or frac >= 1:
+        raise AssertionError(f"phase 12: capped slice: iterations "
+                             f"{it_a.tolist()} for {groups} groups, "
+                             f"acceptance {frac}")
+    log(f"phase 12: (d) slice capped at max_steps=2, max_shrink=2 (mu=5): "
+        f"graph chain == eager chain ({n} proposals); iterations "
+        f"{it_a.tolist()} for {groups} groups (<= 2 each); acceptance "
+        f"{frac:.4f} (walkers that hit max_shrink stay put)")
+    return dict(iterations=it_a.tolist(), groups=groups, acceptance=frac)
+
+
+def phase12_dez(torch, np, dev, card):
+    """(e) DE-Z at its use case (``tests/integration/test_de_z.py:51-83``:
+    8 walkers x 10-D, 12000 proposals, that test's moment checks) and at
+    1e5 x 5-D for 64 proposals with the 1e6-row archive."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    nw, nd, nsteps = 8, 10, 12000
+    coords = np.random.default_rng(2).normal(size=(nw, nd))
+    smp = EnsembleSampler(
+        nw, nd, gaussian, vectorize=True, seed=1, device=dev,
+        moves=moves.DEZMove(update_rows=8, de_noise=0.1,
+                            live_dangerously=True))
+    t0 = time.perf_counter()
+    smp.run_mcmc(coords, nsteps, skip_initial_state_check=True)
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    flat = smp.get_chain(discard=nsteps // 2, flat=True)
+    centered = coords - coords.mean(axis=0)
+    _, sv, vt = np.linalg.svd(centered, full_matrices=True)
+    ortho = vt[np.sum(sv > 1e-8):]
+    proj = (flat @ ortho.T).std(axis=0)
+    mean, std = flat.mean(axis=0), flat.std(axis=0)
+    if not (np.all(np.abs(mean) < 0.2) and np.all(np.abs(std - 1) < 0.15)
+            and np.all(proj > 0.7)):
+        raise AssertionError(f"phase 12: DE-Z 8 x 10: mean {mean}, std "
+                             f"{std}, orthogonal std {proj}")
+    log(f"phase 12: (e) DE-Z 8 x 10-D, {nsteps} proposals in {small_s:.2f} "
+        f"s (graphs): mean "
+        f"|max| {np.abs(mean).max():.4f} (< 0.2), std max |1 - s| "
+        f"{np.abs(std - 1).max():.4f} (< 0.15), orthogonal std min "
+        f"{proj.min():.4f} (> 0.7) {card}")
+    p0 = np.random.default_rng(9).normal(size=(NW, ND)).astype(np.float32)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    row = phase10_move(torch, np, dev, card, p0,
+                       ("DEZMove()", moves.DEZMove, 64, 2), zero,
+                       phase="phase 12: (e)")
+    # The K10 row's launches: a twin of the timed 1e5 run, untimed.
+    row["get_proposal_calls"] = counted_calls(
+        torch, dev, moves.DEZMove, lambda: EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=0, device=dev,
+            moves=moves.DEZMove()), p0, 64, store=False)
+    log(f"phase 12: (e) DE-Z 1e5 x 5-D: {row['get_proposal_calls']} "
+        "get_proposal calls in a twin of its 64-proposal run (device "
+        "counter)")
+    return dict(small=dict(seconds=small_s, proposals=nsteps,
+                           mean=mean.tolist(), std=std.tolist(),
+                           orthogonal_std=proj.tolist()), full=row)
+
+
+def phase12_rows(np, out, card):
+    """The K8-K10 rows of the kernel table: plain torch (no hand-written
+    kernel), device time a proposal inside the replays (profiler), the
+    same proposals eagerly as the plain column, and the least time the
+    card could take for the work."""
+    def bound(nbytes, nops):
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / F32_OPS_PER_S * 1e3}
+        by = max(t, key=t.get)
+        return t[by], by
+
+    philox = 100 + 40  # ten rounds of ~10 integer operations, Box-Muller
+    ng = NW // 2
+    d = out["dime"]
+    # DIME (a): coords read once, q and factors written, the carry; per
+    # walker (ND + 1) / 2 Philox counters, z L^T, two quadratic forms; the
+    # complement's and the ensemble's moments.
+    k8 = bound(4 * (2 * NW * ND + NW + 2 * ND * ND),
+               NW * ((ND + 1) // 2 * philox + 2 * ND * ND
+                     + 2 * (3 * ND + 2 * ND * ND))
+               + 2 * NW * (ND + 2 * ND * ND))
+    sl = out["side_slice"]["slice"]
+
+    def slice_bound(ev_out, ev_shr):
+        # Each input read once (the rows, their log-probs, two partner
+        # rows a walker), each output written once (rows, log-probs,
+        # accepted); per evaluation the log-prob (3 ND + 2) and the step,
+        # plus one Philox counter a shrink; two counters a walker (the
+        # setup's draws and the slice level).
+        return bound(4 * NW * (ND + 1) * 2 + 4 * NW * 2 * ND + NW,
+                     ev_out * (3 * ND + 12)
+                     + ev_shr * (3 * ND + 12 + philox) + 2 * NW * philox)
+
+    # The evaluations the walkers need (the bound), and those of the group
+    # trips the JAX loops need (bound_trips_ms): every trip evaluates all
+    # ng walkers of its group, two points stepping out.
+    n9 = sl["proposals"]
+    k9 = slice_bound(*(x / n9 for x in sl["evals"]))
+    k9_trips = slice_bound(*(x / n9 * ng * m for x, m in zip(
+        sl["iterations"], (2, 1))))
+    # DE-Z: coords read, q and factors written, five pool rows a walker
+    # gathered, the archive rows written; two uniform and three normal
+    # Philox counters a walker.
+    k10 = bound(4 * (2 * NW * ND + NW + 5 * NW * ND + 2 * 64 * ND),
+                NW * (5 * philox + 30 * ND))
+    z = out["dez"]["full"]
+
+    def row(name, src, jax, launches, us, plain_ms, b, note, **extra):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": jax, "launches": launches, "max_abs_err": 0.0,
+                "ms": us * 1e-3, "plain_ms": plain_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None, "note": note,
+                **extra}
+
+    def eager_ms(r):
+        return NW / (sum(r["rates"][False]) / 2) * 1e3
+
+    return [
+        row("dime_proposal", "emcee_tpu_torch/moves/dime.py",
+            "emcee_tpu/moves/dime.py:298", d["get_proposal_calls"],
+            d["device_us_per_proposal"], d["eager_ms_per_proposal"], k8,
+            "K8, plain torch (not hand-written): DIME's proposal of both "
+            "splits with K2 and update_carry, a proposal of bench.py's "
+            "DIME stage; launches are get_proposal calls in an untimed "
+            "twin of its warm run (device counter); max_abs_err: graph chain == eager chain; "
+            "float64 check in float64",
+            float64=d["float64"], philox_share=d["philox_share"]),
+        row("slice_loop", "emcee_tpu_torch/moves/slice.py",
+            "emcee_tpu/moves/slice.py:143", sum(sl["executed"]),
+            sl["device_us_per_proposal"], eager_ms(sl), k9,
+            "K9, plain torch (not hand-written): the slice move's "
+            "stepping-out and shrink loops by block replays; launches "
+            "are the loop iterations run in one 64-proposal run (masked "
+            "ones included); bound from the evaluations the walkers need "
+            "(bound_trips_ms: from the group trips the JAX loops need); "
+            "max_abs_err: graph chain == eager loop",
+            block=sl["block"], iterations=sl["iterations"],
+            evals=sl["evals"], bound_trips_ms=k9_trips[0],
+            bound_trips_by=k9_trips[1],
+            flag_reads_per_proposal=sl["flag_reads_per_proposal"]),
+        row("dez_proposal", "emcee_tpu_torch/moves/de_z.py",
+            "emcee_tpu/moves/de_z.py:144",
+            z["get_proposal_calls"],
+            z["device_us_per_proposal"], eager_ms(z), k10,
+            "K10, plain torch (not hand-written): DE-Z's proposal and "
+            "archive update at 1e5 x 5-D; launches are get_proposal calls "
+            "in an untimed twin of the timed 64-proposal run (device "
+            "counter); max_abs_err: graph chain == eager chain"),
+    ]
+
+
 def _build_dir():
     from emcee_tpu_torch.ops._build import build_dir
 
@@ -2255,6 +2934,19 @@ def main() -> int:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
+
+    if sys.argv[1:] == ["12"]:
+        # Phase 12 alone (a first check of the extension moves).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        _, rows12 = phase12(torch, np, dev, card)
+        log(f"phase 12: {time.perf_counter() - t0:.1f} s in all")
+        log(f"nvidia-smi: {smi}")
+        log(json.dumps({"kernels": rows12}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 2. kernels against their plain versions ---------------------------
     ns, ng = 2, NW // 2
@@ -2803,6 +3495,12 @@ def main() -> int:
     p11, k2_blob_row = phase11(torch, np, dev, card)
     rows.append(k2_blob_row)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 12. the extension moves -------------------------------------------------
+    t0 = time.perf_counter()
+    p12, rows12 = phase12(torch, np, dev, card)
+    rows += rows12
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

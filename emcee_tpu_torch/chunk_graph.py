@@ -34,6 +34,17 @@ recorded on first use and kept for the life of the program, across
 chunks and ``run_mcmc`` calls; a program serves one seed, since the seed
 is a kernel argument fixed at recording.
 
+A move whose proposal runs loops of a data-dependent length (the slice
+move, ``looped = True``) cannot be one graph: a recorded graph cannot
+branch on a device value.  Its proposal is a short host loop of replays
+instead (:class:`GraphLoops`): straight-line segments, each a graph of
+its own, and loops whose graph holds ``loop_block`` masked iterations,
+replayed until a device flag, read once per block, says the loop is
+done.  Extra masked iterations change nothing, so the result equals the
+eager loop's (:class:`EagerLoops`, one iteration per check) bit for
+bit.  Runs of such a move interleave with the other moves' whole-
+proposal graphs in the chunk's order.
+
 Before a recording, one proposal of the same move runs eagerly on a
 scratch copy of the workspace (the warm-up that creates library handles
 and loads kernels), so recording never moves the chain.  If recording
@@ -55,8 +66,8 @@ from .ops.philox import DeviceOffset
 from .state import State
 from .utils import tree_flatten, tree_map
 
-__all__ = ["MAX_GRAPH", "ChunkProgram", "Workspace", "blob_signature",
-           "clone_carry", "graph_sizes"]
+__all__ = ["MAX_GRAPH", "ChunkProgram", "EagerLoops", "GraphLoops",
+           "Workspace", "blob_signature", "clone_carry", "graph_sizes"]
 
 #: proposals in the largest graph (a power of two)
 MAX_GRAPH = 64
@@ -72,6 +83,58 @@ def graph_sizes(n, cap=MAX_GRAPH):
         sizes.append(top)
         rest -= top
     return sizes
+
+
+class EagerLoops:
+    """Runs a looped move's segments and loops eagerly: a loop checks its
+    flag (a 0-d bool tensor, synced to the host) after every ``block``
+    iterations; ``block=1`` is the plain ``while`` loop."""
+
+    def __init__(self, block=1):
+        self.block = int(block)
+
+    def segment(self, key, fn):
+        fn()
+
+    def loop(self, key, body, flag, start=True):
+        """Run ``body(b, block)`` (``b`` the iteration's place in its
+        block) until ``flag`` reads False; ``start`` is the loop's first
+        condition when the host knows it (no read)."""
+        go = start
+        while go:
+            for b in range(self.block):
+                body(b, self.block)
+            go = bool(flag)
+
+
+class GraphLoops:
+    """Runs a looped move's proposal as replays of the chunk program's
+    graphs (:meth:`ChunkProgram.segment`, recorded on first use): each
+    segment one replay, each loop replays of a graph of ``block``
+    iterations, each replay followed by a read of the loop's flag (a
+    host sync, counted in ``ChunkProgram.flag_reads``), until it reads
+    False."""
+
+    def __init__(self, prog, i, block):
+        self.prog, self.i, self.block = prog, i, int(block)
+
+    def segment(self, key, fn):
+        self.prog.segment((self.i, "segment") + key, fn).replay()
+        ChunkProgram.replays += 1
+
+    def loop(self, key, body, flag, start=True):
+        def iterations():
+            for b in range(self.block):
+                body(b, self.block)
+
+        graph = self.prog.segment((self.i, "loop", self.block) + key,
+                                  iterations)
+        go = start
+        while go:
+            graph.replay()
+            ChunkProgram.replays += 1
+            ChunkProgram.flag_reads += 1
+            go = bool(flag)
 
 
 def clone_carry(carry):
@@ -130,6 +193,9 @@ class ChunkProgram:
 
     #: graph replays in this process (K3's launch count)
     replays = 0
+    #: looped moves' flag reads (host syncs, one a loop-block replay)
+    #: in this process
+    flag_reads = 0
 
     def __init__(self, moves, model, seed, coords, log_prob, carries,
                  blobs=None):
@@ -150,6 +216,7 @@ class ChunkProgram:
                 b, memory_format=torch.contiguous_format), blobs),
         )
         self.graphs = {}
+        self._warmed = set()  # looped moves warmed up before recording
         self._stream = None
 
     def load(self, coords, log_prob, offset, carries, blobs=None):
@@ -187,6 +254,10 @@ class ChunkProgram:
     def run(self, i, n, tune, graphs):
         """Advance the chain by ``n`` proposals of move ``i``: by graph
         replays when ``graphs``, else eagerly."""
+        if graphs and self.moves[i].looped:
+            for _ in range(n):
+                self.looped_proposal(i, tune)
+            return
         for size in graph_sizes(n):
             if graphs:
                 self.graph(i, size, tune).replay()
@@ -194,26 +265,74 @@ class ChunkProgram:
             else:
                 self.program(self.ws, i, size, tune)
 
+    def looped_proposal(self, i, tune):
+        """One proposal of looped move ``i`` by segment and loop replays
+        (:class:`GraphLoops`), then the tuning and the offset advance as
+        one more segment.  The first one of a move is preceded by an eager
+        proposal on a scratch copy (the warm-up)."""
+        move = self.moves[i]
+        ws = self.ws
+        if i not in self._warmed:
+            self._warm_up(i, tune)
+            self._warmed.add(i)
+        loops = GraphLoops(self, i, move.loop_block)
+        state = State(ws.coords, ws.log_prob, ws.blobs)
+        move.propose((self.seed, DeviceOffset(ws.offset, 0)), state,
+                     self.model, ws.carries[i], ws.count,
+                     accepted=ws.accepted, loops=loops)
+
+        def end():
+            if tune:
+                move.tune(ws.carries[i], state, ws.accepted, self.model)
+            ws.offset.add_(1)
+
+        loops.segment(("end", bool(tune)), end)
+
     def graph(self, i, n, tune):
         """The graph of ``n`` proposals of move ``i``, recorded on first
-        use."""
+        use (not for a looped move, whose proposal is several graphs)."""
+        if self.moves[i].looped:
+            raise ValueError(f"{type(self.moves[i]).__name__} runs its "
+                             "loops by block replays; it has no "
+                             "whole-proposal graph")
         key = (i, n, bool(tune))
         if key not in self.graphs:
             self.graphs[key] = self._record(i, n, tune)
         return self.graphs[key]
 
-    def _record(self, i, n, tune):
-        dev = self.ws.coords.device
+    def segment(self, key, fn):
+        """The graph of ``fn``, a segment of a looped move's proposal,
+        recorded on first use under ``key``."""
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(
+                fn, f"{key[2:]} of {type(self.moves[key[0]]).__name__}")
+        return self.graphs[key]
+
+    def _side_stream(self):
         if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        side = self._stream
-        main = torch.cuda.current_stream(dev)
-        # Warm-up on a scratch copy, on the recording stream.
+            self._stream = torch.cuda.Stream(self.ws.coords.device)
+        return self._stream
+
+    def _warm_up(self, i, tune):
+        """One eager proposal of move ``i`` on a scratch copy, on the
+        recording stream: library handles and kernels load before any
+        capture, and the chain does not move."""
+        side = self._side_stream()
+        main = torch.cuda.current_stream(self.ws.coords.device)
         scratch = self.ws.clone()
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self.program(scratch, i, 1, tune)
         main.wait_stream(side)
+
+    def _record(self, i, n, tune):
+        self._warm_up(i, tune)
+        return self._capture(
+            lambda: self.program(self.ws, i, n, tune),
+            f"{n} proposals of {type(self.moves[i]).__name__}")
+
+    def _capture(self, fn, what):
+        side = self._side_stream()
         graph = torch.cuda.CUDAGraph()
         # The outer stream context puts the caller's stream back even when
         # a failed capture makes the graph context raise on its way out.
@@ -227,7 +346,7 @@ class ChunkProgram:
         try:
             with torch.cuda.stream(side), torch.cuda.graph(
                     graph, stream=side, capture_error_mode="thread_local"):
-                self.program(self.ws, i, n, tune)
+                fn()
         except RuntimeError as err:
             # A failed capture raises again on its way out; the first
             # error is the cause.
@@ -235,8 +354,7 @@ class ChunkProgram:
             while cause.__context__ is not None:
                 cause = cause.__context__
             raise RuntimeError(
-                f"recording {n} proposals of "
-                f"{type(self.moves[i]).__name__} as a CUDA graph failed: "
+                f"recording {what} as a CUDA graph failed: "
                 f"{str(cause).splitlines()[0]}.  On a CUDA device every "
                 "proposal of run_mcmc and sample runs inside a CUDA "
                 "graph, so the log-prob function "

@@ -53,19 +53,31 @@ def backend_from_numpy(chain, log_prob, accepted, random_state=None,
     return backend
 
 
+#: the carries a JAX run's moves hand on: their keys -> each key's dtype
+#: (``emcee_tpu/moves/base.py:80-99``, ``de_z.py:122-142``,
+#: ``dime.py:108-125``, ``slice.py:106-136``)
+_CARRIES = (
+    {"log_adj": np.float32, "t": np.int32},
+    {"z": np.float32, "filled": np.int32, "ptr": np.int32, "t": np.int32},
+    {"mean": np.float32, "cov": np.float32, "w": np.float32},
+    {"log_adj": np.float32, "t": np.int32, "frac_expand": np.float32},
+)
+
+
 def carry_from_numpy(carry, device=None):
-    """A move's tuning carry in the port's form: the JAX package's
-    ``{"log_adj": f32, "t": int32}`` (``emcee_tpu/moves/base.py:80-99``)
-    as 0-d tensors on ``device``, so a tuned scale resumes where the JAX
-    run left it; an untuned move's ``()`` stays ``()``."""
+    """A move's carry in the port's form, so an adapted move resumes where
+    the JAX run left it: the tuning carry ``{log_adj, t}``, the slice
+    move's ``{log_adj, t, frac_expand}``, DE-Z's archive ``{z, filled,
+    ptr, t}`` and DIME's moments ``{mean, cov, w}`` (one component or K),
+    each leaf a tensor of its JAX dtype and shape on ``device``; an
+    untuned move's ``()`` stays ``()``.  Any other carry is refused."""
     if not isinstance(carry, dict):
         if len(carry):
-            raise ValueError(f"not a tuning carry: {carry!r}")
+            raise ValueError(f"not a move carry: {carry!r}")
         return ()
-    if set(carry) != {"log_adj", "t"}:
-        raise ValueError(f"not a tuning carry: keys {sorted(carry)}")
+    kinds = [k for k in _CARRIES if set(k) == set(carry)]
+    if not kinds:
+        raise ValueError(f"not a move carry: keys {sorted(carry)}")
     dev = resolve_device(device)
-    return {
-        "log_adj": torch.tensor(np.float32(carry["log_adj"]), device=dev),
-        "t": torch.tensor(np.int32(carry["t"]), device=dev),
-    }
+    return {key: torch.as_tensor(np.array(carry[key], dtype=dt), device=dev)
+            for key, dt in kinds[0].items()}

@@ -9,8 +9,9 @@ The counterpart of ``emcee_tpu/moves/base.py:38-151``:
   ``(nwalkers,)`` bool tensor, written into the given buffer when there
   is one.  Red-blue moves update ``state``'s tensors in place and add
   the acceptance to ``acc_count`` when it is given;
-* per-move adaptive state lives in ``carry``, a small dict of 0-d
-  tensors made by ``init_carry``, so tuning never needs a host sync;
+* per-move adaptive state lives in ``carry``, a dict of tensors (0-d
+  tuning words, or the archive and moments of the adaptive moves) made
+  by ``init_carry``, so adaptation never needs a host sync;
 * ``tune(carry, state, accepted, model=None) -> carry`` updates the
   carry's tensors in place (and returns it), so a proposal recorded into
   a CUDA graph reads and writes the same carry at every replay.
@@ -129,6 +130,11 @@ def accept_update(state, q, new_log_prob, accepted, new_blobs=None):
 
 class Move:
     """Base class; concrete moves implement :meth:`propose`."""
+
+    #: True for a move whose proposal runs loops of a data-dependent
+    #: length; the chunk program then runs it by block replays
+    #: (``chunk_graph.GraphLoops``) and passes ``loops=`` to propose
+    looped = False
 
     def init_carry(self, nwalkers: int, ndim: int, device=None) -> Any:
         """Per-move carried state (default: none)."""

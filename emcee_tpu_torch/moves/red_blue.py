@@ -19,6 +19,16 @@ into the ensemble buffer).
   runs on them, and the rows are scattered back.  Group j is
   ``perm[j::nsplits]``, as in the JAX package.
 
+Adaptive moves (``wants_carry``) read the move carry in
+``get_proposal(..., carry=)``, and :meth:`RedBlueMove.update_carry` folds
+the post-accept ensemble into it once per proposal, after all splits,
+on both engines and whatever the ``tune`` flag
+(``emcee_tpu/moves/red_blue.py:70-75, 162-167``).  A move whose
+``_inner`` returns per-split statistics has them folded by
+``_fold_split_stats`` after that (``:169-210``).  Carries are dicts of
+tensors of any shape, updated in place, so a recorded graph reads and
+writes the same storage at every replay.
+
 Blobs ride with the coordinates: ``state.blobs`` is a pytree of
 ``(nwalkers, ...)`` buffers, and K2 writes each accepted walker's new
 blob row into them in the same launch as its coordinates (the JAX
@@ -63,10 +73,20 @@ class RedBlueMove(ScaleTunable, Move):
 
     Subclasses implement ``get_proposal(rng, coords, split, model,
     extra=None, scale=None) -> (q, factors)`` for group ``split`` of the
-    contiguous ensemble buffer ``coords``.
+    contiguous ensemble buffer ``coords`` (and take ``carry=`` when they
+    set ``wants_carry``).
     """
 
     tunable = False
+    #: adaptive moves opt in: ``get_proposal`` receives ``carry=`` and
+    #: :meth:`update_carry` runs once per proposal, after all splits
+    wants_carry = False
+    #: moves that couple parameter dimensions set this False (read once
+    #: the parameter axis can be sharded, ROADMAP P13)
+    _param_shard_ok = True
+    #: False for moves whose update is not a ``(q, factors)`` proposal
+    #: sharing one log-prob evaluation (``BlendedMove`` refuses them)
+    blendable = True
 
     def __init__(self, nsplits=2, randomize_split=True, live_dangerously=False,
                  tune_target=None, tune_rate=0.2):
@@ -87,6 +107,26 @@ class RedBlueMove(ScaleTunable, Move):
             "The proposal must be implemented by subclasses"
         )
 
+    def update_carry(self, carry, state, model):
+        """Post-proposal adaptation of the carry, in place (``wants_carry``
+        moves); ``state`` is the post-accept ensemble.  Runs every
+        proposal, independent of the ``tune`` flag."""
+        return carry
+
+    def _fold_split_stats(self, carry, stats, model):
+        """Fold the per-split statistics ``_inner`` returned (a list, one
+        entry per split) into the carry, in place; default: ignore."""
+        return carry
+
+    def _finish(self, carry, state, model, stats):
+        """What follows the splits of a proposal: :meth:`update_carry`,
+        then the per-split statistics' fold."""
+        if self.wants_carry:
+            carry = self.update_carry(carry, state, model)
+        if stats:
+            carry = self._fold_split_stats(carry, stats, model)
+        return carry
+
     def propose(self, rng, state, model, carry, acc_count=None,
                 accepted=None):
         nwalkers, ndim = state.coords.shape
@@ -103,23 +143,33 @@ class RedBlueMove(ScaleTunable, Move):
             )
         ng = nwalkers // self.nsplits
         scale = self._tuned_scale(carry, state.coords.dtype)
+        extra_u = self._split_draws(rng, state.coords.device)
         if self.randomize_split:
             return self._propose_shuffled(
-                rng, state, model, carry, ng, scale, acc_count, accepted
+                rng, state, model, carry, ng, scale, acc_count, accepted,
+                extra_u=extra_u,
             )
         return self._propose_blocked(
             rng, state, model, carry, ng, scale, acc_count,
-            accepted=accepted,
+            extra_u=extra_u, accepted=accepted,
         )
+
+    def _split_draws(self, rng, device):
+        """Per-split draws made once per proposal, before the splits
+        (``extra_u[split]`` reaches ``get_proposal`` as ``extra``), or
+        None: the JAX package's ``n_extra_uniforms`` slot."""
+        return None
 
     def _inner(self, rng, coords, log_prob, split, model, accepted,
                acc_count=None, log_u=None, extra=None, scale=None,
-               blobs=None):
+               blobs=None, carry=None):
         """Propose (K1), evaluate, and accept (K2) for one group; the
         group's rows of ``coords``/``log_prob``/``accepted`` and of every
-        leaf of ``blobs`` are updated in place."""
+        leaf of ``blobs`` are updated in place.  Returns the split's
+        tuning statistics for :meth:`_fold_split_stats` (None here)."""
+        kw = {"carry": carry} if self.wants_carry else {}
         q, factors = self.get_proposal(
-            rng, coords, split, model, extra=extra, scale=scale
+            rng, coords, split, model, extra=extra, scale=scale, **kw
         )
         new_lp, new_blobs = model.compute_log_prob(q)
         seed, offset = rng
@@ -128,31 +178,40 @@ class RedBlueMove(ScaleTunable, Move):
             accepted, acc_count, seed=seed, offset=offset, log_u=log_u,
             blobs=blob_pairs(new_blobs, blobs),
         )
+        return None
 
     def _propose_blocked(self, rng, state, model, carry, ng, scale=None,
                          acc_count=None, log_acc_u=None, extra_u=None,
-                         accepted=None):
+                         accepted=None, stats=None):
         """Fixed contiguous-block membership; ``log_acc_u``
         ``(nsplits, ng)`` and ``extra_u`` ``(nsplits, n_extra)`` inject
         the uniforms (parity mode), as in the JAX package.  ``accepted``:
-        the ``(nwalkers,)`` bool buffer K2 writes (a new one if None)."""
+        the ``(nwalkers,)`` bool buffer K2 writes (a new one if None).
+        ``stats``: a list that collects the splits' statistics, for a
+        caller that finishes the proposal itself (the shuffled engine,
+        after its scatter); without one, the carry is finished here."""
         if accepted is None:
             accepted = torch.empty(
                 state.coords.shape[0], dtype=torch.bool,
                 device=state.coords.device,
             )
+        collected = [] if stats is None else stats
         for split in range(self.nsplits):
-            self._inner(
+            st = self._inner(
                 rng, state.coords, state.log_prob, split, model, accepted,
                 acc_count,
                 log_u=None if log_acc_u is None else log_acc_u[split],
                 extra=None if extra_u is None else extra_u[split],
-                scale=scale, blobs=state.blobs,
+                scale=scale, blobs=state.blobs, carry=carry,
             )
+            if st is not None:
+                collected.append(st)
+        if stats is None:
+            carry = self._finish(carry, state, model, collected)
         return state, accepted, carry
 
     def _propose_shuffled(self, rng, state, model, carry, ng, scale=None,
-                          acc_count=None, accepted=None):
+                          acc_count=None, accepted=None, extra_u=None):
         """Random membership: gather into group order, run the blocked
         engine, scatter back."""
         coords, log_prob = state.coords, state.log_prob
@@ -165,8 +224,10 @@ class RedBlueMove(ScaleTunable, Move):
             blobs=tree_map(lambda b: b.index_select(0, order), state.blobs),
         )
         count = None if acc_count is None else acc_count.index_select(0, order)
+        stats = []
         _, acc_buf, carry = self._propose_blocked(
-            rng, buf, model, carry, ng, scale, count
+            rng, buf, model, carry, ng, scale, count, extra_u=extra_u,
+            stats=stats
         )
         coords.index_copy_(0, order, buf.coords)
         log_prob.index_copy_(0, order, buf.log_prob)
@@ -178,4 +239,7 @@ class RedBlueMove(ScaleTunable, Move):
         if accepted is None:
             accepted = torch.empty_like(acc_buf)
         accepted.index_copy_(0, order, acc_buf)
+        # The carry sees the ensemble in walker order, as in the JAX
+        # package (DE-Z's subsample picks rows by index).
+        carry = self._finish(carry, state, model, stats)
         return state, accepted, carry

@@ -52,7 +52,8 @@ from ._wrap import (
 from .philox import (
     PAIR_BLOCK, box_muller, roll_uniforms, to_uniform, walker_words)
 
-__all__ = ["de_gamma0", "de_propose", "de_propose_plain", "de_roll_shifts"]
+__all__ = ["de_gamma0", "de_pairs", "de_propose", "de_propose_plain",
+           "de_roll_shifts", "walker_normal"]
 
 
 def de_gamma0(gamma0, ndim_global):
@@ -75,6 +76,35 @@ def de_roll_shifts(u1, u2, nc):
     return s1, (s1 + d) % nc
 
 
+def walker_normal(ng, split, seed, offset, device, dtype=torch.float32):
+    """The walkers' standard normals of K5a: Box-Muller on words 0 and 2
+    at ``(walker, split, offset)``."""
+    w0, _, w2, _ = walker_words(ng, split, seed, offset, device)
+    return box_muller(w0, w2, dtype)
+
+
+def de_pairs(ng, nc, split, pair_mode, seed, offset, device, u_shift=None,
+             idx_a=None, idx_b=None):
+    """K5a's two complement indices ``(a, b)`` per walker, ``a != b``:
+    the two roll shifts of the split (from ``u_shift`` or the split's
+    ``ROLL_LANE`` words 0 and 1), or the two random picks (``idx_a``,
+    ``idx_b`` or ``PAIR_BLOCK`` words 0 and 1), ``b`` moved past ``a``."""
+    if pair_mode == "roll":
+        if u_shift is None:
+            u_shift = roll_uniforms(seed, split, offset, device)
+        s1, s2 = de_roll_shifts(u_shift[0], u_shift[1], nc)
+        lanes = torch.arange(ng, device=device)
+        return (lanes + s1) % nc, (lanes + s2) % nc
+    if idx_a is None:
+        w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
+        a = torch.clamp((to_uniform(w[0]) * nc).to(torch.int64), max=nc - 1)
+        b = torch.clamp((to_uniform(w[1]) * (nc - 1)).to(torch.int64),
+                        max=nc - 2)
+    else:
+        a, b = idx_a.to(torch.int64), idx_b.to(torch.int64)
+    return a, torch.where(b >= a, b + 1, b)
+
+
 def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
                      pair_mode, seed=0, offset=0, z=None, u_shift=None,
                      idx_a=None, idx_b=None):
@@ -82,28 +112,12 @@ def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
     ``gamma0`` is the float32 value of :func:`de_gamma0`."""
     nw, _ = coords.shape
     ng = nw // nsplits
-    nc = nw - ng
     lo = split * ng
     dev = coords.device
     if z is None:
-        w0, _, w2, _ = walker_words(ng, split, seed, offset, dev)
-        z = box_muller(w0, w2, coords.dtype)
-    lanes = torch.arange(ng, device=dev)
-    if pair_mode == "roll":
-        if u_shift is None:
-            u_shift = roll_uniforms(seed, split, offset, dev)
-        s1, s2 = de_roll_shifts(u_shift[0], u_shift[1], nc)
-        a, b = (lanes + s1) % nc, (lanes + s2) % nc
-    else:
-        if idx_a is None:
-            w = walker_words(ng, PAIR_BLOCK | split, seed, offset, dev)
-            a = torch.clamp((to_uniform(w[0]) * nc).to(torch.int64),
-                            max=nc - 1)
-            b = torch.clamp((to_uniform(w[1]) * (nc - 1)).to(torch.int64),
-                            max=nc - 2)
-        else:
-            a, b = idx_a.to(torch.int64), idx_b.to(torch.int64)
-        b = torch.where(b >= a, b + 1, b)
+        z = walker_normal(ng, split, seed, offset, dev, coords.dtype)
+    a, b = de_pairs(ng, nw - ng, split, pair_mode, seed, offset, dev,
+                    u_shift, idx_a, idx_b)
     ca = coords.index_select(0, complement_rows(a, split, ng))
     cb = coords.index_select(0, complement_rows(b, split, ng))
     s = coords[lo:lo + ng]

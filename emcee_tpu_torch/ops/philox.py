@@ -63,6 +63,27 @@ Stream layout (shared with the kernels):
   A user's ``MHMove`` proposal may draw from :func:`normals` and
   :func:`row_uniforms`; word 1 at ``(walker, 0, ...)`` is K2's.
 
+* the extension moves (``moves/side.py``, ``blended.py``, ``de_z.py``,
+  ``dime.py``, ``slice.py``) draw their normals at ``NORMAL_BLOCK``
+  (above) and the rest from blocks of their own under ``EXT_BLOCK``
+  (bit 27 of the split word; no other block sets it), each a range of
+  split words that no other block reaches:
+
+  - word 0 at ``(ROLL_LANE, BLEND_BLOCK | split, ...)``: the
+    ``BlendedMove`` choice of a split; sub-move ``k`` draws from a key of
+    its own (:func:`sub_seed`), so no counter it reads is the blend's or
+    K2's;
+  - ``(row, DEZ_BLOCK | k, ...)``, k = 0, 1: the DE-Z picks ``i, j, a,
+    b`` and ``e``, the ``g1_prob`` jump and the snooker select;
+  - ``(row, DIME_BLOCK, ...)``: DIME's kernel select, its two DE picks
+    and its component draw;
+  - ``(row, CHI2_BLOCK | k, ...)``: DIME's chi-square normals (integer
+    ``df``) or Marsaglia-Tsang candidates (any other ``df``);
+  - ``(row, SLICE_BLOCK, ...)``: the slice move's pair ``i, j``, its
+    window offset and its budget split ``jL``;
+  - ``(row, SHRINK_BLOCK | it, ...)``, word 0: the slice move's shrink
+    uniform of iteration ``it`` (``it < 2**23``).
+
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
 """
@@ -77,7 +98,15 @@ import numpy as np
 import torch
 
 __all__ = [
+    "BLEND_BLOCK",
+    "CHI2_BLOCK",
+    "DEZ_BLOCK",
+    "DIME_BLOCK",
     "DeviceOffset",
+    "EXT_BLOCK",
+    "SHRINK_BLOCK",
+    "SHRINK_MAX",
+    "SLICE_BLOCK",
     "MASK32",
     "ROLL_LANE",
     "MOVE_LANE",
@@ -94,8 +123,10 @@ __all__ = [
     "roll_shift",
     "roll_uniforms",
     "row_uniforms",
+    "row_words",
     "split_key",
     "split_offset",
+    "sub_seed",
     "to_uniform",
     "uniform_scalar",
     "uniforms_scalar",
@@ -115,6 +146,24 @@ NORMAL_BLOCK = 0x40000000
 PICK_BLOCK = 0x20000000
 #: split word bits of the KDE move's complement subsample keys
 SUBSAMPLE_BLOCK = 0x10000000
+#: split word bit of the extension moves' blocks (none of the above
+#: sets it); each block below is this bit, a sub-block id in bits 20-23
+#: and an index below 2**20 (2**23 for SHRINK_BLOCK)
+EXT_BLOCK = 0x08000000
+#: the BlendedMove choice of a split (``| split``, on ROLL_LANE)
+BLEND_BLOCK = EXT_BLOCK | 0x000000
+#: the DE-Z move's per-row uniforms (``| k``)
+DEZ_BLOCK = EXT_BLOCK | 0x100000
+#: the DIME move's per-row select, picks and component uniforms
+DIME_BLOCK = EXT_BLOCK | 0x200000
+#: the DIME move's chi-square draws (``| k``)
+CHI2_BLOCK = EXT_BLOCK | 0x300000
+#: the slice move's per-row pair, offset and budget uniforms
+SLICE_BLOCK = EXT_BLOCK | 0x400000
+#: the slice move's shrink uniforms (``| iteration``)
+SHRINK_BLOCK = EXT_BLOCK | 0x800000
+#: shrink iterations SHRINK_BLOCK can number
+SHRINK_MAX = 1 << 23
 #: 2 pi rounded to float32, as the kernels' Box-Muller uses it
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 
@@ -189,6 +238,17 @@ def roll_uniforms(seed, split, offset, device):
     lo, hi = split_offset(offset)
     return to_uniform(torch.stack(philox4x32(lane, split, lo, hi,
                                              split_key(seed))))
+
+
+def sub_seed(seed, k):
+    """The 64-bit key of sub-move ``k`` of a ``BlendedMove`` under
+    ``seed``: words 0 and 1 of the main key's counter ``(k, BLEND_BLOCK |
+    0xFFFFF, 2**32 - 1, 2**32 - 1)``, an offset no chain reaches.  Every
+    counter the sub-move reads under its own key is apart from every
+    counter of the main key (K2's accept word, the blend's choice)."""
+    w = philox4x32_scalar((k, BLEND_BLOCK | 0xFFFFF, MASK32, MASK32),
+                          split_key(seed))
+    return w[0] | (w[1] << 32)
 
 
 def roll_shift(seed, split, offset, nc, device="cpu"):
@@ -329,31 +389,36 @@ def box_muller(w0, w2, dtype=torch.float32):
     return r * torch.cos(TWO_PI_F32 * to_uniform(w2, dtype))
 
 
-def _row_words(n, k, block, seed, offset, device, row0=0):
-    """The words of counters ``(row0 + r, block | j, offset)`` for
-    ``r < n``, ``j < k``: four ``(n, k)`` tensors."""
+def row_words(n, k, block, seed, offset, device, row0=0):
+    """The words of counters ``(row0 + r, block + j, offset)`` for
+    ``r < n``, ``j < k`` (``block | j`` for a block whose low bits are
+    clear): four ``(n, k)`` tensors.  ``block`` is an int or a 0-d int64
+    tensor on ``device`` (a block indexed by a device counter, such as
+    the slice move's shrink iteration)."""
     lo, hi = split_offset(offset)
     rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
-    cols = block | torch.arange(k, dtype=torch.int64, device=device)
+    cols = block + torch.arange(k, dtype=torch.int64, device=device)
     return philox4x32(rows[:, None], cols[None, :], lo, hi, split_key(seed))
 
 
-def normals(n, d, seed, offset, device, dtype=torch.float32, row0=0):
+def normals(n, d, seed, offset, device, dtype=torch.float32, row0=0,
+            block=NORMAL_BLOCK):
     """``(n, d)`` standard normals of rows ``row0 .. row0 + n - 1``:
     normal ``2k`` of a row by Box-Muller on words 0 and 2 of counter
-    ``(row, NORMAL_BLOCK | k, offset)``, normal ``2k + 1`` on words 1
-    and 3 (:func:`box_muller`)."""
-    w0, w1, w2, w3 = _row_words(n, (d + 1) // 2, NORMAL_BLOCK, seed, offset,
-                                device, row0)
+    ``(row, block | k, offset)``, normal ``2k + 1`` on words 1 and 3
+    (:func:`box_muller`)."""
+    w0, w1, w2, w3 = row_words(n, (d + 1) // 2, block, seed, offset,
+                               device, row0)
     z = torch.stack((box_muller(w0, w2, dtype), box_muller(w1, w3, dtype)),
                     dim=-1)
     return z.reshape(n, -1)[:, :d]
 
 
-def row_uniforms(n, d, seed, offset, device, dtype=torch.float32, row0=0):
+def row_uniforms(n, d, seed, offset, device, dtype=torch.float32, row0=0,
+                 block=PICK_BLOCK):
     """``(n, d)`` uniforms of rows ``row0 .. row0 + n - 1``: uniform
-    ``4k + w`` of a row from word ``w`` of counter ``(row, PICK_BLOCK |
-    k, offset)``."""
-    w = _row_words(n, (d + 3) // 4, PICK_BLOCK, seed, offset, device, row0)
+    ``4k + w`` of a row from word ``w`` of counter ``(row, block | k,
+    offset)``."""
+    w = row_words(n, (d + 3) // 4, block, seed, offset, device, row0)
     return to_uniform(torch.stack(w, dim=-1), dtype).reshape(n, -1)[:, :d]
 

@@ -31,7 +31,10 @@ def test_import_leaves_no_jax_or_emcee_tpu():
         "emcee_tpu_torch.monitor, emcee_tpu_torch.utils, "
         "emcee_tpu_torch.moves.mh, emcee_tpu_torch.moves.gaussian, "
         "emcee_tpu_torch.moves.walk, emcee_tpu_torch.moves.kde, "
-        "emcee_tpu_torch.checkpoint, emcee_tpu_torch.backends.hdf\n"
+        "emcee_tpu_torch.checkpoint, emcee_tpu_torch.backends.hdf, "
+        "emcee_tpu_torch.moves.side, emcee_tpu_torch.moves.blended, "
+        "emcee_tpu_torch.moves.de_z, emcee_tpu_torch.moves.dime, "
+        "emcee_tpu_torch.moves.slice, emcee_tpu_torch.chunk_graph\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'emcee_tpu') or m.startswith(('jax.', 'jaxlib.', 'emcee_tpu.')))\n"
         "print(bad)\n"
@@ -98,5 +101,6 @@ def test_public_names():
             "__version__"} <= set(emcee_tpu_torch.__all__)
     assert {"HDFBackend", "TempHDFBackend",
             "get_test_backends"} <= set(emcee_tpu_torch.backends.__all__)
-    assert {"GaussianMove", "MHMove", "WalkMove",
-            "KDEMove"} <= set(emcee_tpu_torch.moves.__all__)
+    assert {"GaussianMove", "MHMove", "WalkMove", "KDEMove", "SideMove",
+            "BlendedMove", "DEZMove", "DIMEMove",
+            "EnsembleSliceMove"} <= set(emcee_tpu_torch.moves.__all__)
