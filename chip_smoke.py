@@ -94,8 +94,22 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    1e6-row archive.  ``python3 chip_smoke.py 12`` runs phases 0, 1 and
    12 alone.
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12.  Every phase raises
-on failure.
+13. the gradient moves: (e) K11 (Langevin step), K12 (Hastings /
+   kinetic reduction) and K13 (leapfrog) against their plain versions,
+   ``torch.equal``, over ndim 1-128 and 1-1e5 rows in every mode; (a)
+   ``bench.py``'s MALA stage (1e5 x 5-D, ``MALAMove(1.0)``,
+   ``DeviceBackend``, 500 kept x 2, a warm run and two timed ones; tau,
+   ESS/s, device time a proposal and the gradient's share, launches by
+   the profiler); (b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at the
+   same width; (c) ``ChEESHMCMove`` (200 tuning proposals, then 200
+   production replays against the eager chain; log T, trips and flag
+   reads a proposal); (d) ``EnsembleMALAMove()`` and
+   ``EnsembleHMCMove()`` on workload 3's target; every graph chain
+   against the plain versions' eager chain, bit for bit.  ``python3
+   chip_smoke.py 13`` runs phases 0, 1 and 13 alone.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13.  Every phase
+raises on failure.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -134,7 +148,13 @@ K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
 KERNELS = (("stretch_kernel", "stretch_propose"),
            ("accept_kernel", "accept_select"),
            ("de_kernel", "de_propose"),
-           ("snooker_kernel", "snooker_propose"))
+           ("snooker_kernel", "snooker_propose"),
+           ("langevin_kernel", "langevin_step"),
+           ("langevin_kernel", "langevin_factor"),
+           ("langevin_kernel", "leapfrog"))
+#: ndims and rows of K11-K13's edge-shape sweep (phase 13)
+GRAD_SWEEP_NDS = (1, 2, 3, 5, 7, 16, 100, 128)
+GRAD_SWEEP_ROWS = (1, 2, 31, 100_000)
 
 
 def log(msg):
@@ -218,8 +238,8 @@ def launch_counts():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the moves through all four kernels' plain versions (the
-    moves look the wrappers up on their modules at each call)."""
+    """Route the moves through every kernel's plain version (the moves
+    look the wrappers up on their modules at each call)."""
     saved = wrappers()
     for name, (m, _) in saved.items():
         setattr(m, name, getattr(m, f"{name}_plain"))
@@ -268,7 +288,8 @@ def counted_window(torch, run, expect, what, tries=3):
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     for _ in range(tries):
-        want = expect()
+        # A kernel the expectation does not name must not launch.
+        want = {name: 0 for _, name in KERNELS} | expect()
         r0 = ChunkProgram.replays
         wall, kernels = profile_window(torch, run)
         counts = profiled_counts(kernels)
@@ -2381,17 +2402,17 @@ def phase12(torch, np, dev, card):
 
 
 @contextlib.contextmanager
-def path_launches(out, path, kernels):
+def path_launches(out, path, kernels, phase="phase 12"):
     """Set every kernel wrapper's count to 0 before a path of phase 12
-    and read them after it into ``out["launches"][path]``, failing if
-    one of ``kernels`` (the path's) was launched no time."""
+    (or 13) and read them after it into ``out["launches"][path]``,
+    failing if one of ``kernels`` (the path's) was launched no time."""
     for _, fn in wrappers().values():
         fn.launches = 0
     yield
     counts = launch_counts()
     out.setdefault("launches", {})[path] = counts
     if not all(counts[k] for k in kernels):
-        raise AssertionError(f"phase 12: {path}: kernel launches {counts}")
+        raise AssertionError(f"{phase}: {path}: kernel launches {counts}")
 
 
 def phase12_dime(torch, np, dev, card):
@@ -2880,6 +2901,534 @@ def phase12_rows(np, out, card):
     ]
 
 
+# -- phase 13: the gradient moves ---------------------------------------------
+
+#: K11-K13 and K2, the kernels of the gradient moves' paths
+GRAD_KERNELS = ("langevin_step", "langevin_factor", "leapfrog",
+                "accept_select")
+
+
+def grad_kernel_sweep(torch, dev):
+    """K11, K12 and K13 against their plain versions, ``torch.equal``,
+    over ``GRAD_SWEEP_NDS`` x ``GRAD_SWEEP_ROWS``: K11's draws (host and
+    device offset words, rows from 0 and 17) and its MALA step (the
+    identity and a diagonal preconditioner, drawn and injected ``z``),
+    K12 in kinetic mode and in MALA mode (with and without ``c`` and
+    ``d``), K13 with 0, 1 and 2 kicks, with and without the drift, both
+    metrics, into new buffers and in place.  Returns the number of
+    comparisons."""
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, normals
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        for a, b in zip(got, want):
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"phase 13: {what}: kernel and plain "
+                                     "version differ")
+        n_cmp += 1
+
+    word = torch.tensor(5, dtype=torch.int64, device=dev)
+    for nd in GRAD_SWEEP_NDS:
+        for n in GRAD_SWEEP_ROWS:
+            x, g, z, c = (torch.randn(n, nd, device=dev, generator=gen)
+                          for _ in range(4))
+            d = torch.rand(nd, device=dev, generator=gen) + 0.5
+            eps = torch.rand((), device=dev, generator=gen) + 0.2
+            what = f"{n} x {nd}"
+            for row0 in (0, 17):
+                want = normals(n, nd, 9, 8, dev, row0=row0)
+                for off in (8, DeviceOffset(word, 3)):
+                    same(lk.langevin_step((n, nd), dev, seed=9, offset=off,
+                                          row0=row0)[:1], (want,),
+                         f"K11 draw {what}")
+            for dd in (None, d):
+                for zin in (None, z):
+                    kw = dict(seed=4, offset=11, row0=3, z=zin, x=x, g=g,
+                              eps=eps, d=dd)
+                    same(lk.langevin_step((n, nd), dev, **kw),
+                         lk.langevin_step_plain((n, nd), dev, **kw),
+                         f"K11 MALA {what}")
+                for cc in (None, c):
+                    same((lk.langevin_factor(z, g, cc, eps=eps, d=dd),),
+                         (lk.langevin_factor_plain(z, g, cc, eps=eps,
+                                                   d=dd),),
+                         f"K12 MALA {what}")
+                for kicks in (0, 1, 2):
+                    for drift in (False, True):
+                        if not (kicks or drift):
+                            continue
+                        for fresh in (False, True):
+                            outs = []
+                            for fn in (lk.leapfrog, lk.leapfrog_plain):
+                                xx, pp = x.clone(), z.clone()
+                                kw = dict(d=dd, kicks=kicks,
+                                          x=xx if drift else None)
+                                if fresh:
+                                    kw.update(
+                                        x_out=torch.empty_like(x)
+                                        if drift else None,
+                                        p_out=torch.empty_like(x)
+                                        if kicks else None)
+                                xo, po = fn(pp, g, eps, **kw)
+                                outs.append((xo, po, xx, pp))
+                            same(outs[0], outs[1],
+                                 f"K13 {what} kicks {kicks} drift {drift}")
+            same((lk.langevin_factor(z, g),),
+                 (lk.langevin_factor_plain(z, g),), f"K12 kinetic {what}")
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def grad_window(torch, smp, n, names, what, tries=3):
+    """A profiled window of ``n`` replayed proposals of ``smp`` (every
+    graph recorded before it): device microseconds and kernels a
+    proposal, the idle share, the profiler's launch counts, and the
+    device microseconds a launch of K11, K12, K13 and K2; the rest of the
+    device time is the log-prob's forward and backward passes and the
+    moves' small torch operations (``other_us_per_proposal``).  A window
+    in which the profiler recorded no launch of one of ``names`` is run
+    again, up to ``tries`` times.  The exact launch counts come from
+    :func:`replayed_launches` (in a long run the profiler now and then
+    loses an event of a window)."""
+    for _ in range(tries):
+        wall, kernels = profile_window(
+            torch, lambda: drive(smp, None, n, store=False))
+        counts = profiled_counts(kernels)
+        if all(counts[k] for k in names):
+            break
+        log(f"  {what}: the profiler recorded no launch of one of {names}; "
+            "window run again")
+    else:
+        raise AssertionError(f"{what}: no profiled launch of one of {names}")
+    busy = sum(us for _, us in kernels.values())
+    ours = {k: device_ms(kernels, k) for k in GRAD_KERNELS}
+    ours_us = sum(us for key, (_, us) in kernels.items()
+                  if any(f"{k}_kernel" in key for k in GRAD_KERNELS))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"  {what}: the six kernels of most device time, us a proposal "
+        "(launches a proposal): " + "; ".join(
+            f"{us / n:.1f} ({c / n:.1f}) {key[:60]}" for key, (c, us) in top))
+    return dict(device_us_per_proposal=busy / n,
+                kernels_per_proposal=sum(c for c, _ in kernels.values()) / n,
+                idle=1 - busy * 1e-6 / wall, profiled_launches=counts,
+                ms_per_launch=ours,
+                other_us_per_proposal=(busy - ours_us) / n,
+                other_share=(busy - ours_us) / busy)
+
+
+def replayed_launches(torch, dev, make, p0, n, expect, what, **kw):
+    """K11-K13's and K2's launches in ``n`` replayed proposals of a sampler
+    of its own from ``make()``, counted on the card, and held to
+    ``expect(replays)`` (``replays``: the graph replays of the counted
+    run).  Each wrapper is wrapped to add one to a 0-d device word where
+    it launches its kernel; the add is recorded into the graphs with the
+    launch, so each replay counts.  A first run of ``n`` proposals
+    records; the words are zeroed and a second run of ``n`` is counted.
+    Untimed: no timed or profiled graph holds the adds."""
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    saved = {k: v for k, v in wrappers().items() if k in GRAD_KERNELS}
+    words = {k: torch.zeros((), dtype=torch.int64, device=dev)
+             for k in saved}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            words[name].add_(1)
+            return fn(*args, **kwargs)
+
+        return call
+
+    # A wrapper adds to its count by its module's name for it, which then
+    # names the stand-in: the stand-in carries the count meanwhile.
+    standins = {}
+    for name, (m, fn) in saved.items():
+        standins[name] = counting(name, fn)
+        standins[name].launches = fn.launches
+        setattr(m, name, standins[name])
+    try:
+        smp = make()
+        smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True,
+                     **kw)
+        for w in words.values():
+            w.zero_()
+        r0 = ChunkProgram.replays
+        smp.run_mcmc(None, n, store=False, **kw)
+        replays = ChunkProgram.replays - r0
+    finally:
+        for name, (m, fn) in saved.items():
+            fn.launches = standins[name].launches
+            setattr(m, name, fn)
+    torch.cuda.synchronize()
+    got = {k: int(w) for k, w in words.items()}
+    want = {k: 0 for k in words} | expect(replays)
+    if got != want:
+        raise AssertionError(f"phase 13: {what}: replayed launches {got} "
+                             f"(device counters), expected {want}")
+    return got
+
+
+def grad_sampler(dev, move, seed, target=None, nw=NW, nd=ND, backend=None):
+    from emcee_tpu_torch import EnsembleSampler
+
+    return EnsembleSampler(nw, nd, target or gaussian, vectorize=True,
+                           seed=seed, device=dev, backend=backend,
+                           moves=move)
+
+
+def phase13(torch, np, dev, card):
+    """The gradient moves (see the module docstring, 13): the K11-K13
+    sweep, then each path with the wrappers' counts set to 0 just before
+    it and read just after.  Returns its numbers and the K11-K13 rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = grad_kernel_sweep(torch, dev)
+    log(f"phase 13: (e) K11-K13 against their plain versions over ndim "
+        f"{GRAD_SWEEP_NDS} x rows {GRAD_SWEEP_ROWS}, every mode: "
+        f"{out['sweep']} comparisons, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    with path_launches(out, "mala", ("langevin_step", "langevin_factor",
+                                     "accept_select"), "phase 13"):
+        out["mala"] = phase13_mala(torch, np, dev, card)
+    with path_launches(out, "hmc", GRAD_KERNELS, "phase 13"):
+        out["hmc"] = phase13_hmc(torch, np, dev, card)
+    with path_launches(out, "chees", GRAD_KERNELS, "phase 13"):
+        out["chees"] = phase13_chees(torch, np, dev, card)
+    with path_launches(out, "ensemble", GRAD_KERNELS, "phase 13"):
+        out["ensemble"] = phase13_ensemble(torch, np, dev, card)
+    log(f"phase 13: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase13_rows(torch, dev, out, card)
+
+
+def phase13_mala(torch, np, dev, card):
+    """(a) ``bench.py:260-303``: 1e5 walkers x 5-D unit Gaussian,
+    ``MALAMove(1.0)`` into ``DeviceBackend``; a warm run of 500 kept x
+    ``thin_by=2`` (tau from its first 120 kept), then two timed runs."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.backends import DeviceBackend
+
+    p0 = np.random.default_rng(10).normal(size=(NW, ND)).astype(np.float32)
+    acc64 = graph_vs_plain_chain(torch, lambda: grad_sampler(
+        dev, moves.MALAMove(1.0), 2), p0)
+    smp = grad_sampler(dev, moves.MALAMove(1.0), 2, backend=DeviceBackend())
+    kept, thin = 500, 2
+    t0 = time.perf_counter()
+    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
+    warm_s = time.perf_counter() - t0
+    tau = tau_of(np, smp.backend.chain[:120], thin)
+    warm_graphs(smp)
+    st, dt = stage_runs(smp, st, kept, thin)
+    rate = kept * thin * NW / dt
+    acc = float(smp.last_run_stats.acceptance_fraction.mean())
+    mean_lp = float(st.log_prob.mean())
+    if not (-3.5 < mean_lp < -1.5 and np.isfinite(tau)):  # bench.py:161
+        raise AssertionError(f"phase 13: MALA stage: mean lp {mean_lp}, "
+                             f"tau {tau}")
+    n_prof = 32
+    win = grad_window(torch, smp, n_prof, ("langevin_step",
+                                            "langevin_factor",
+                                            "accept_select"), "MALA stage")
+    n_cnt = 64
+    counted = replayed_launches(
+        torch, dev, lambda: grad_sampler(dev, moves.MALAMove(1.0), 2), p0,
+        n_cnt, lambda r: {"langevin_step": n_cnt, "langevin_factor": n_cnt,
+                          "accept_select": n_cnt}, "MALA stage")
+    smp._use_graphs = False
+    _, dt_eager = drive(smp, None, 16, store=False, per_proposal={
+        "langevin_step": 1, "langevin_factor": 1, "accept_select": 1})
+    smp._use_graphs = True
+    res = dict(walker_steps_per_s=rate, tau=tau, ess_per_s=rate / tau,
+               acceptance=acc, mean_lp=mean_lp, seconds=dt,
+               warm_seconds=warm_s, acceptance_64=acc64,
+               eager_ms_per_proposal=dt_eager / 16 * 1e3,
+               replayed_launches=counted, proposals_counted=n_cnt, **win)
+    log(f"phase 13: (a) MALA stage (bench.py:260-303; 1e5 x 5-D, "
+        f"MALAMove(1.0), DeviceBackend, {kept} kept x {thin}): {rate:.4e} "
+        f"walker-steps/s (best of two), tau {tau:.3f} proposals, ESS/s "
+        f"{rate / tau:.4e}, acceptance {acc:.4f}, mean lp {mean_lp:.4f} "
+        f"{card}; device {win['device_us_per_proposal']:.1f} us and "
+        f"{win['kernels_per_proposal']:.0f} kernels a proposal, idle "
+        f"{win['idle']:.4f}; the gradient (the log-prob's forward and "
+        f"backward) and the move's small torch ops "
+        f"{win['other_us_per_proposal']:.1f} us a proposal, share "
+        f"{win['other_share']:.3f}; launches in {n_cnt} replayed "
+        f"proposals (device counters) {counted}, in {n_prof} (profiler) "
+        f"{win['profiled_launches']}; eager "
+        f"{res['eager_ms_per_proposal']:.3f} ms a proposal; graph chain == "
+        f"plain eager chain (64 proposals, acceptance {acc64:.4f})")
+    return res
+
+
+def phase13_hmc(torch, np, dev, card, n=64, n_leapfrog=10):
+    """(b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at 1e5 x 5-D, ``n``
+    proposals a run."""
+    from emcee_tpu_torch import moves
+
+    def mv():
+        return moves.HMCMove(0.5, n_leapfrog=n_leapfrog, jitter=0.2)
+
+    p0 = np.random.default_rng(11).normal(size=(NW, ND)).astype(np.float32)
+    acc64 = graph_vs_plain_chain(torch, lambda: grad_sampler(dev, mv(), 3),
+                                 p0, n=n)
+    smp = grad_sampler(dev, mv(), 3)
+    st, _ = drive(smp, p0, n, store=False, skip_initial_state_check=True)
+    n_prof = 8
+    smp._program.graph(0, n_prof, False)
+    dts = []
+    for _ in range(2):
+        st, dt = drive(smp, None, n, store=False)
+        dts.append(dt)
+    rate = n * NW / min(dts)
+    acc = float(smp.last_run_stats.acceptance_fraction.mean())
+    mean_lp = float(st.log_prob.mean())
+    if not (-3.5 < mean_lp < -1.5 and acc > 0.5):
+        raise AssertionError(f"phase 13: HMC: mean lp {mean_lp}, "
+                             f"acceptance {acc}")
+    win = grad_window(torch, smp, n_prof, GRAD_KERNELS, "HMC")
+    n_cnt = 16
+    counted = replayed_launches(
+        torch, dev, lambda: grad_sampler(dev, mv(), 3), p0, n_cnt,
+        lambda r: {"langevin_step": n_cnt, "langevin_factor": n_cnt,
+                   "leapfrog": (n_leapfrog + 1) * n_cnt,
+                   "accept_select": n_cnt}, "HMC")
+    per_grad = win["other_us_per_proposal"] / (n_leapfrog + 1)
+    res = dict(walker_steps_per_s=rate, acceptance=acc, mean_lp=mean_lp,
+               acceptance_64=acc64, us_per_gradient=per_grad,
+               replayed_launches=counted, proposals_counted=n_cnt, **win)
+    log(f"phase 13: (b) HMCMove(0.5, n_leapfrog={n_leapfrog}, jitter=0.2), "
+        f"1e5 x 5-D, {n} proposals a run: {rate:.4e} walker-steps/s (best "
+        f"of two), acceptance {acc:.4f}, mean lp {mean_lp:.4f} {card}; "
+        f"device {win['device_us_per_proposal']:.1f} us and "
+        f"{win['kernels_per_proposal']:.0f} kernels a proposal, "
+        f"{per_grad:.1f} us a gradient evaluation ({n_leapfrog + 1} a "
+        f"proposal, with the move's small torch ops); launches in {n_cnt} "
+        f"replayed proposals (device counters) {counted}, in {n_prof} "
+        f"(profiler) {win['profiled_launches']}; graph chain == plain "
+        f"eager chain ({n} proposals, acceptance {acc64:.4f})")
+    return res
+
+
+def phase13_chees(torch, np, dev, card, n=200):
+    """(c) ``ChEESHMCMove(0.5)`` at 1e5 x 5-D: ``n`` tuning proposals,
+    then ``n`` production proposals by replays against the same ``n``
+    run eagerly from the same state and carry."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.chunk_graph import ChunkProgram, clone_carry
+
+    p0 = np.random.default_rng(12).normal(size=(NW, ND)).astype(np.float32)
+    smp = grad_sampler(dev, moves.ChEESHMCMove(0.5), 4)
+    log_t0 = float(smp._moves[0].init_carry(NW, ND)["log_T"])
+
+    def run(s, state, tune):
+        r0, f0 = ChunkProgram.replays, ChunkProgram.flag_reads
+        st, dt = drive(s, state, n, store=False, tune=tune,
+                       skip_initial_state_check=True)
+        return st, dt, (ChunkProgram.replays - r0) / n, (
+            ChunkProgram.flag_reads - f0) / n
+
+    st, dt_tune, rep_tune, reads_tune = run(smp, p0, True)
+    carry = smp._move_carries[0]
+    log_t1 = float(carry["log_T"])
+    eps1 = 0.5 * math.exp(float(carry["log_adj"]))
+    # Two production proposals record the production segments, so the
+    # compared runs record nothing.
+    st = smp.run_mcmc(st, 2, store=False, skip_initial_state_check=True)
+    twin = grad_sampler(dev, moves.ChEESHMCMove(0.5), 4)
+    twin._move_carries = tuple(clone_carry(c) for c in smp._move_carries)
+    twin._use_graphs = False
+    st_g, dt, rep, reads = run(smp, st, False)
+    acc = float(smp.last_run_stats.acceptance_fraction.mean())
+    t0 = time.perf_counter()
+    st_e = twin.run_mcmc(st, n, store=False, skip_initial_state_check=True)
+    dt_eager = time.perf_counter() - t0
+    if not (torch.equal(st_g.coords, st_e.coords)
+            and torch.equal(st_g.log_prob, st_e.log_prob)
+            and st_g.random_state == st_e.random_state):
+        raise AssertionError("phase 13: ChEES production replays differ "
+                             "from the eager chain")
+    mean_lp = float(st_g.log_prob.mean())
+    if not (-3.5 < mean_lp < -1.5 and reads == 1.0 and log_t1 != log_t0):
+        raise AssertionError(f"phase 13: ChEES: mean lp {mean_lp}, flag "
+                             f"reads {reads} a proposal, log T {log_t1}")
+    # A proposal replays start, (trips - 1) steps, end and the tune /
+    # advance segment.
+    trips, trips_tune = rep - 2, rep_tune - 2
+    n_cnt = 16
+    # A proposal launches K13 once a trip and once for the closing kick.
+    counted = replayed_launches(
+        torch, dev, lambda: grad_sampler(dev, moves.ChEESHMCMove(0.5), 4),
+        p0, n_cnt, lambda r: {"langevin_step": n_cnt,
+                              "langevin_factor": n_cnt,
+                              "accept_select": n_cnt,
+                              "leapfrog": r - 2 * n_cnt + n_cnt},
+        "ChEES")
+    res = dict(log_T_before=log_t0, log_T_after=log_t1, eps_after=eps1,
+               trips_per_proposal=trips, trips_per_proposal_tune=trips_tune,
+               flag_reads_per_proposal=reads,
+               flag_reads_per_proposal_tune=reads_tune,
+               walker_steps_per_s=n * NW / dt,
+               walker_steps_per_s_tune=n * NW / dt_tune,
+               eager_walker_steps_per_s=n * NW / dt_eager, acceptance=acc,
+               mean_lp=mean_lp, replayed_launches=counted,
+               proposals_counted=n_cnt)
+    log(f"phase 13: (c) ChEESHMCMove(0.5) at 1e5 x 5-D: log T "
+        f"{log_t0:.4f} -> {log_t1:.4f} after {n} tuning proposals (eps "
+        f"{eps1:.4f}); trips a proposal {trips_tune:.2f} tuning, "
+        f"{trips:.2f} production; flag reads a proposal {reads_tune:.2f} / "
+        f"{reads:.2f}; {n * NW / dt_tune:.4e} walker-steps/s tuning, "
+        f"{n * NW / dt:.4e} production (replays; its first run records), "
+        f"{n * NW / dt_eager:.4e} eager; acceptance {acc:.4f}, mean lp "
+        f"{mean_lp:.4f} {card}; production replays == eager chain ({n} "
+        f"proposals); launches in {n_cnt} replayed proposals (device "
+        f"counters) {counted}")
+    return res
+
+
+def phase13_ensemble(torch, np, dev, card, n=200):
+    """(d) ``EnsembleMALAMove()`` and ``EnsembleHMCMove()`` on workload
+    3's target (1e4 x 100-D, ``benchmarks/workload3.py:57-77``), ``n``
+    proposals a run."""
+    from emcee_tpu_torch import moves
+
+    log_prob3, p03 = workload3_target(np, torch, dev)
+    res = {}
+    for name, mv, per_split in (
+            ("EnsembleMALAMove()", moves.EnsembleMALAMove,
+             {"langevin_step": 2, "langevin_factor": 1, "accept_select": 1}),
+            ("EnsembleHMCMove()", moves.EnsembleHMCMove,
+             {"langevin_step": 1, "leapfrog": 11, "langevin_factor": 1,
+              "accept_select": 1})):
+        def make():
+            return grad_sampler(dev, mv(), 5, log_prob3, NW3, ND3)
+
+        acc16 = graph_vs_plain_chain(torch, make, p03, n=16)
+        smp = make()
+        drive(smp, p03, n, store=False, skip_initial_state_check=True)
+        n_prof = 8
+        smp._program.graph(0, n_prof, False)
+        st, dt = drive(smp, None, n, store=False)
+        rate = n * NW3 / dt
+        acc = float(smp.last_run_stats.acceptance_fraction.mean())
+        mean_lp = float(st.log_prob.mean())
+        if not -80.0 < mean_lp < -20.0:  # workload3.py:201
+            raise AssertionError(f"phase 13: {name}: mean lp {mean_lp}")
+        win = grad_window(torch, smp, n_prof, tuple(per_split), name)
+        counted = replayed_launches(
+            torch, dev, make, p03, n_prof,
+            lambda r: {k: 2 * v * n_prof for k, v in per_split.items()},
+            name)
+        res[name] = dict(walker_steps_per_s=rate, acceptance=acc,
+                         mean_lp=mean_lp, acceptance_16=acc16,
+                         replayed_launches=counted,
+                         proposals_counted=n_prof, **win)
+        log(f"phase 13: (d) {name} on workload 3's target (1e4 x 100-D), "
+            f"{n} proposals: {rate:.4e} walker-steps/s, acceptance "
+            f"{acc:.4f}, mean lp {mean_lp:.3f} {card}; device "
+            f"{win['device_us_per_proposal']:.1f} us and "
+            f"{win['kernels_per_proposal']:.0f} kernels a proposal (K11 / "
+            f"K13 in full mode: cuBLAS products and cholesky_ex inside the "
+            f"graphs); launches in {n_prof} replayed proposals (device "
+            f"counters) {counted}, (profiler) {win['profiled_launches']}; "
+            f"graph chain == plain eager chain (16 proposals)")
+    return res
+
+
+def phase13_rows(torch, dev, out, card):
+    """The K11-K13 rows of the kernel table at the MALA stage's shape (1e5
+    x 5): device time a launch inside the replays (profiler: K11 and K12
+    in the MALA stage, K13 in the HMC path, its three modes averaged),
+    time a back-to-back call and the plain version's (CUDA events), and
+    the least time the card could take."""
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x, g, gq, p = (torch.randn(NW, ND, device=dev, generator=gen)
+                   for _ in range(4))
+    eps = torch.tensor(0.7, device=dev)
+    calls = {
+        "langevin_step": (
+            lambda: lk.langevin_step((NW, ND), dev, seed=1, offset=2, x=x,
+                                     g=g, eps=eps),
+            lambda: lk.langevin_step_plain((NW, ND), dev, seed=1, offset=2,
+                                           x=x, g=g, eps=eps)),
+        "langevin_factor": (
+            lambda: lk.langevin_factor(p, g, gq, eps=eps),
+            lambda: lk.langevin_factor_plain(p, g, gq, eps=eps)),
+        "leapfrog": (
+            lambda: lk.leapfrog(p, g, eps, kicks=2, x=x),
+            lambda: lk.leapfrog_plain(p, g, eps, kicks=2, x=x)),
+    }
+    philox = 100 + 40  # ten rounds of ~10 integer operations, Box-Muller
+    elems = NW * ND
+    # Each input read once, each output written once; float32 words.
+    work = {
+        # x, g in; z, q out; a Philox block and two normals a column pair
+        "langevin_step": (4 * 4 * elems,
+                          NW * (ND + 1) // 2 * philox + 8 * elems),
+        # z, g_x, g_q in; the factors out; ~9 operations an element
+        "langevin_factor": (4 * (3 * elems + NW), 9 * elems),
+        # x, p, g in; x, p out (two kicks and the drift); 5 operations
+        "leapfrog": (4 * 5 * elems, 5 * elems),
+    }
+    meta = {
+        "langevin_step": ("emcee_tpu_torch/csrc/langevin_step.cu",
+                          "emcee_tpu/moves/gradient.py:218", "mala"),
+        "langevin_factor": ("emcee_tpu_torch/csrc/langevin_factor.cu",
+                            "emcee_tpu/moves/gradient.py:233", "mala"),
+        "leapfrog": ("emcee_tpu_torch/csrc/leapfrog.cu",
+                     "emcee_tpu/moves/gradient.py:314", "hmc"),
+    }
+    # K11's two modes side by side, eager launches profiled: the draw
+    # alone (HMC's momenta: 2 MB out) and the MALA step (8 MB).
+    k11_modes = {mode: profiled_ms(torch, lambda: [fn() for _ in range(100)],
+                                   "langevin_step")
+                 for mode, fn in (("draw", lambda: lk.langevin_step(
+                     (NW, ND), dev, seed=1, offset=2)),
+                     ("mala", calls["langevin_step"][0]))}
+    log(f"phase 13: langevin_step, eager launches profiled: draw only "
+        f"{k11_modes['draw'] * 1e3:.2f} us, MALA step "
+        f"{k11_modes['mala'] * 1e3:.2f} us a launch {card}")
+    rows = []
+    for kname, (kernel, plain) in calls.items():
+        src, jax_src, path = meta[kname]
+        call_ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, plain, reps=20)
+        nbytes, nops = work[kname]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / F32_OPS_PER_S * 1e3}
+        by = max(t, key=t.get)
+        ms = out[path]["ms_per_launch"][kname]
+        row = {"name": kname, "route": "cuda", "source": src,
+               "replaces": jax_src,
+               "launches": out["launches"][path][kname],
+               "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
+               "library_ms": None,
+               "launches_per_proposal_replayed": (
+                   out[path]["replayed_launches"][kname]
+                   / out[path]["proposals_counted"]),
+               "note": f"{kname}: launches are the wrapper's count on the "
+                       f"{path} path (recordings and eager runs); the "
+                       "replays' launches are counted on the card; "
+                       "max_abs_err: torch.equal"
+                       " over the edge sweep; library_ms: none, no single "
+                       "PyTorch call computes it"}
+        if kname == "langevin_step":
+            row.update(ms_draw_only_eager=k11_modes["draw"],
+                       ms_mala_eager=k11_modes["mala"])
+        rows.append(row)
+        log(f"phase 13: {kname}: device {ms * 1e3:.2f} us/launch in the "
+            f"{path} replays, {call_ms * 1e3:.2f} us per back-to-back call, "
+            f"plain {plain_ms * 1e3:.2f} us, bound {t[by] * 1e3:.3f} us "
+            f"({nbytes} bytes, {by}) {card}")
+    return rows
+
+
 def _build_dir():
     from emcee_tpu_torch.ops._build import build_dir
 
@@ -2935,14 +3484,16 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
 
-    if sys.argv[1:] == ["12"]:
-        # Phase 12 alone (a first check of the extension moves).
+    if sys.argv[1:] in (["12"], ["13"]):
+        # Phase 12 or 13 alone (a first check of the extension or the
+        # gradient moves).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
-        _, rows12 = phase12(torch, np, dev, card)
-        log(f"phase 12: {time.perf_counter() - t0:.1f} s in all")
+        phase = phase12 if sys.argv[1] == "12" else phase13
+        _, rows_alone = phase(torch, np, dev, card)
+        log(f"phase {sys.argv[1]}: {time.perf_counter() - t0:.1f} s in all")
         log(f"nvidia-smi: {smi}")
-        log(json.dumps({"kernels": rows12}))
+        log(json.dumps({"kernels": rows_alone}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -3501,6 +4052,12 @@ def main() -> int:
     p12, rows12 = phase12(torch, np, dev, card)
     rows += rows12
     log(f"phase 12: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 13. the gradient moves ---------------------------------------------------
+    t0 = time.perf_counter()
+    p13, rows13 = phase13(torch, np, dev, card)
+    rows += rows13
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -5,10 +5,13 @@ The affine-invariant ensemble sampler on one NVIDIA GPU (Hopper,
 hot path's fused op chains are hand-written CUDA kernels beside plain
 PyTorch versions: the stretch proposal (K1), the accept/select
 write-back (K2), the DE and DE-snooker proposals (K5a, K5b); the chunk
-program (K3) replays each proposal as a CUDA graph.  The Gaussian,
-Metropolis-Hastings, walk and KDE moves, the autocorrelation and R-hat
-diagnostics and the convergence monitor are plain PyTorch on the
-walkers' device.  Blobs ride through K2 with the coordinates, into the
+program (K3) replays each proposal as a CUDA graph.  The gradient
+moves (MALA, HMC, ChEES-HMC, ensemble MALA and HMC) differentiate the
+log-prob with ``torch.func.grad`` and run their Langevin step (K11),
+Hastings and kinetic reductions (K12) and leapfrog (K13) as kernels
+too.  The Gaussian, Metropolis-Hastings, walk and KDE moves, the
+autocorrelation and R-hat diagnostics and the convergence monitor are
+plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinates, into the
 host, device and HDF5 backends; ``checkpoint`` saves and loads states.
 Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``.

@@ -42,7 +42,9 @@ its own, and loops whose graph holds ``loop_block`` masked iterations,
 replayed until a device flag, read once per block, says the loop is
 done.  Extra masked iterations change nothing, so the result equals the
 eager loop's (:class:`EagerLoops`, one iteration per check) bit for
-bit.  Runs of such a move interleave with the other moves' whole-
+bit.  A loop whose trip count is known on the device before it starts
+(ChEES-HMC's leapfrog steps) reads the count once and replays a graph
+of one iteration that many times (``repeat``).  Runs of such a move interleave with the other moves' whole-
 proposal graphs in the chunk's order.
 
 Before a recording, one proposal of the same move runs eagerly on a
@@ -106,6 +108,12 @@ class EagerLoops:
                 body(b, self.block)
             go = bool(flag)
 
+    def repeat(self, key, body, count):
+        """Run ``body()`` ``count`` times, ``count`` a 0-d integer tensor
+        read once."""
+        for _ in range(int(count)):
+            body()
+
 
 class GraphLoops:
     """Runs a looped move's proposal as replays of the chunk program's
@@ -135,6 +143,25 @@ class GraphLoops:
             ChunkProgram.replays += 1
             ChunkProgram.flag_reads += 1
             go = bool(flag)
+
+    def repeat(self, key, body, count):
+        """Replay the graph of ``body()`` ``count`` times: ``count``, a 0-d
+        integer tensor, is read once (one flag read); the graph is
+        recorded at its first replay."""
+        n = int(count)
+        ChunkProgram.flag_reads += 1
+        if n:
+            graph = self.prog.segment((self.i, "repeat") + key, body)
+        for _ in range(n):
+            graph.replay()
+            ChunkProgram.replays += 1
+
+
+def _tune_kw(move, tune):
+    """``{"tune": tune}`` for a move whose proposal reads the run's tune
+    flag (``wants_tune_flag``, ``emcee_tpu/sampler.py:733-738``), else
+    ``{}``."""
+    return {"tune": bool(tune)} if getattr(move, "wants_tune_flag", False) else {}
 
 
 def clone_carry(carry):
@@ -241,7 +268,7 @@ class ChunkProgram:
         state = State(ws.coords, ws.log_prob, ws.blobs)
         move.propose((self.seed, DeviceOffset(ws.offset, j)), state,
                      self.model, ws.carries[i], ws.count,
-                     accepted=ws.accepted)
+                     accepted=ws.accepted, **_tune_kw(move, tune))
         if tune:
             move.tune(ws.carries[i], state, ws.accepted, self.model)
 
@@ -275,18 +302,22 @@ class ChunkProgram:
         if i not in self._warmed:
             self._warm_up(i, tune)
             self._warmed.add(i)
-        loops = GraphLoops(self, i, move.loop_block)
+        loops = GraphLoops(self, i, getattr(move, "loop_block", 1))
         state = State(ws.coords, ws.log_prob, ws.blobs)
         move.propose((self.seed, DeviceOffset(ws.offset, 0)), state,
                      self.model, ws.carries[i], ws.count,
-                     accepted=ws.accepted, loops=loops)
+                     accepted=ws.accepted, loops=loops,
+                     **_tune_kw(move, tune))
 
         def end():
             if tune:
                 move.tune(ws.carries[i], state, ws.accepted, self.model)
             ws.offset.add_(1)
 
-        loops.segment(("end", bool(tune)), end)
+        # Keyed apart from the move's own segments (GraphLoops keys them
+        # (i, "segment", ...)), so a move may name a segment "end".
+        self.segment((i, "tune and advance", bool(tune)), end).replay()
+        ChunkProgram.replays += 1
 
     def graph(self, i, n, tune):
         """The graph of ``n`` proposals of move ``i``, recorded on first

@@ -55,20 +55,25 @@ def backend_from_numpy(chain, log_prob, accepted, random_state=None,
 
 #: the carries a JAX run's moves hand on: their keys -> each key's dtype
 #: (``emcee_tpu/moves/base.py:80-99``, ``de_z.py:122-142``,
-#: ``dime.py:108-125``, ``slice.py:106-136``)
+#: ``dime.py:108-125``, ``slice.py:106-136``, ``gradient.py:441-459``)
 _CARRIES = (
     {"log_adj": np.float32, "t": np.int32},
     {"z": np.float32, "filled": np.int32, "ptr": np.int32, "t": np.int32},
     {"mean": np.float32, "cov": np.float32, "w": np.float32},
     {"log_adj": np.float32, "t": np.int32, "frac_expand": np.float32},
+    {"log_adj": np.float32, "t": np.int32, "log_T": np.float32,
+     "m": np.float32, "v": np.float32, "k": np.int32, "g": np.float32,
+     "n": np.int32},
 )
 
 
 def carry_from_numpy(carry, device=None):
     """A move's carry in the port's form, so an adapted move resumes where
-    the JAX run left it: the tuning carry ``{log_adj, t}``, the slice
-    move's ``{log_adj, t, frac_expand}``, DE-Z's archive ``{z, filled,
-    ptr, t}`` and DIME's moments ``{mean, cov, w}`` (one component or K),
+    the JAX run left it: the tuning carry ``{log_adj, t}`` (the gradient
+    moves' too), the slice move's ``{log_adj, t, frac_expand}``, DE-Z's
+    archive ``{z, filled, ptr, t}``, DIME's moments ``{mean, cov, w}``
+    (one component or K) and ChEES-HMC's ``{log_adj, t, log_T, m, v, k,
+    g, n}``,
     each leaf a tensor of its JAX dtype and shape on ``device``; an
     untuned move's ``()`` stays ``()``.  Any other carry is refused."""
     if not isinstance(carry, dict):

@@ -40,11 +40,24 @@ class Model(NamedTuple):
         Number of walkers (for the ``nwalkers >= 2 * ndim`` guard).
     ndim:
         Parameter dimensionality (the stretch move's Hastings factor).
+    compute_log_prob_partial:
+        The shard-local partial log-prob under parameter sharding, which
+        gradient moves differentiate (``emcee_tpu/model.py:63-72``); None
+        until parameter sharding is ported (ROADMAP P13).
+    grad_ok:
+        False for a log-prob that cannot be differentiated; gradient
+        moves then raise.
     """
 
     compute_log_prob: Callable
     nwalkers: Optional[int] = None
     ndim: Optional[int] = None
+    compute_log_prob_partial: Optional[Callable] = None
+    grad_ok: bool = True
+
+    def log_prob_for_grad(self):
+        """The callable that gradient moves differentiate."""
+        return self.compute_log_prob_partial or self.compute_log_prob
 
     def global_ndim(self, local_ndim: int) -> float:
         return self.ndim if self.ndim is not None else local_ndim

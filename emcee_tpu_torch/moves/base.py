@@ -12,6 +12,8 @@ The counterpart of ``emcee_tpu/moves/base.py:38-151``:
 * per-move adaptive state lives in ``carry``, a dict of tensors (0-d
   tuning words, or the archive and moments of the adaptive moves) made
   by ``init_carry``, so adaptation never needs a host sync;
+* a move with ``wants_tune_flag`` is proposed with ``tune=`` the run's
+  flag (ChEES-HMC estimates its trajectory gradient only when tuning);
 * ``tune(carry, state, accepted, model=None) -> carry`` updates the
   carry's tensors in place (and returns it), so a proposal recorded into
   a CUDA graph reads and writes the same carry at every replay.
@@ -135,6 +137,10 @@ class Move:
     #: length; the chunk program then runs it by block replays
     #: (``chunk_graph.GraphLoops``) and passes ``loops=`` to propose
     looped = False
+    #: True for a move whose proposal depends on the run's ``tune`` flag;
+    #: the chunk program then passes ``tune=`` to propose
+    #: (``emcee_tpu/sampler.py:733-738``)
+    wants_tune_flag = False
 
     def init_carry(self, nwalkers: int, ndim: int, device=None) -> Any:
         """Per-move carried state (default: none)."""

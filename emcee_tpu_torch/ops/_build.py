@@ -35,6 +35,9 @@ KERNELS = {
     "accept_select": ("accept_select.cu", "emcee_accept_select"),
     "de_propose": ("de_propose.cu", "emcee_de_propose"),
     "snooker_propose": ("snooker_propose.cu", "emcee_snooker_propose"),
+    "langevin_step": ("langevin_step.cu", "emcee_langevin_step"),
+    "langevin_factor": ("langevin_factor.cu", "emcee_langevin_factor"),
+    "leapfrog": ("leapfrog.cu", "emcee_leapfrog"),
 }
 
 _FLAGS = [
@@ -82,6 +85,24 @@ _ARGTYPES = {
         _P, _P, _P,  # u4, idx, perm
         *[ctypes.c_int] * 4,  # plan: tile grid threads vec
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
+        _P,  # stream
+    ],
+    "langevin_step": [
+        _P, _P, _P, _P,  # x, g, d, eps
+        _P, _P, _P,  # z_in, z_out, q
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd row0
+        ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
+        _P,  # stream
+    ],
+    "langevin_factor": [
+        _P, _P, _P, _P, _P, _P,  # a, b, c, d, eps, out
+        ctypes.c_int, ctypes.c_int,  # n nd
+        _P,  # stream
+    ],
+    "leapfrog": [
+        _P, _P, _P, _P,  # x_in, x_out, p_in, p_out
+        _P, _P, _P,  # g, d, eps
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd kicks
         _P,  # stream
     ],
 }

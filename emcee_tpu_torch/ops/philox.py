@@ -84,6 +84,12 @@ Stream layout (shared with the kernels):
   - ``(row, SHRINK_BLOCK | it, ...)``, word 0: the slice move's shrink
     uniform of iteration ``it`` (``it < 2**23``).
 
+* the gradient moves (``moves/gradient.py``) draw their Langevin noise
+  and momenta at ``NORMAL_BLOCK`` (in K11, ``csrc/langevin_step.cu``, or
+  :func:`normals`), accept through K2 (word 1 at ``(walker, split)``),
+  and draw a proposal's step-size jitter from word 0 at ``(ROLL_LANE,
+  GRAD_BLOCK | split, ...)`` (:func:`grad_uniform`).
+
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
 """
@@ -104,6 +110,7 @@ __all__ = [
     "DIME_BLOCK",
     "DeviceOffset",
     "EXT_BLOCK",
+    "GRAD_BLOCK",
     "SHRINK_BLOCK",
     "SHRINK_MAX",
     "SLICE_BLOCK",
@@ -116,6 +123,7 @@ __all__ = [
     "PICK_BLOCK",
     "SUBSAMPLE_BLOCK",
     "box_muller",
+    "grad_uniform",
     "normals",
     "philox4x32",
     "philox4x32_scalar",
@@ -160,6 +168,8 @@ DIME_BLOCK = EXT_BLOCK | 0x200000
 CHI2_BLOCK = EXT_BLOCK | 0x300000
 #: the slice move's per-row pair, offset and budget uniforms
 SLICE_BLOCK = EXT_BLOCK | 0x400000
+#: the gradient moves' step-size jitter (``| split``, on ROLL_LANE)
+GRAD_BLOCK = EXT_BLOCK | 0x500000
 #: the slice move's shrink uniforms (``| iteration``)
 SHRINK_BLOCK = EXT_BLOCK | 0x800000
 #: shrink iterations SHRINK_BLOCK can number
@@ -238,6 +248,15 @@ def roll_uniforms(seed, split, offset, device):
     lo, hi = split_offset(offset)
     return to_uniform(torch.stack(philox4x32(lane, split, lo, hi,
                                              split_key(seed))))
+
+
+def grad_uniform(seed, split, offset, device):
+    """The gradient moves' jitter uniform of ``split`` (word 0 at
+    ``(ROLL_LANE, GRAD_BLOCK | split, offset)``), a 0-d float32 tensor on
+    ``device``, computed there (``offset`` may be a device word)."""
+    w0 = row_words(1, 1, GRAD_BLOCK | split, seed, offset, device,
+                   row0=ROLL_LANE)[0]
+    return to_uniform(w0).reshape(())
 
 
 def sub_seed(seed, k):
