@@ -2269,27 +2269,46 @@ def counted_calls(torch, dev, cls, make, p0, n, **kw):
     return int(word)
 
 
-def busy_window(torch, run, n, what, expect=None):
+def busy_window(torch, run, n, what, expect=None, names=(), tries=3):
     """Device microseconds a proposal, kernel events a proposal and the
     idle share over a profiled window of ``run`` (``n`` proposals); with
     ``expect``, the kernels' launches are held to it
-    (:func:`counted_window`)."""
-    if expect is None:
-        wall, kernels = profile_window(torch, run)
-        counts = profiled_counts(kernels)
+    (:func:`counted_window`).  With ``names`` (wrapper names), also the
+    device ms a launch of each (``ms_per_launch``) and the device time of
+    every other kernel a proposal (``other_us_per_proposal``, its share
+    ``other_share``); a window in which the profiler recorded no launch
+    of one of them is run again, up to ``tries`` times."""
+    for _ in range(tries):
+        if expect is None:
+            wall, kernels = profile_window(torch, run)
+            counts = profiled_counts(kernels)
+        else:
+            wall, kernels, counts, _ = counted_window(torch, run, expect,
+                                                      what)
+        if all(counts[k] for k in names):
+            break
+        log(f"  {what}: the profiler recorded no launch of one of {names}; "
+            "window run again")
     else:
-        wall, kernels, counts, _ = counted_window(torch, run, expect, what)
+        raise AssertionError(f"{what}: no profiled launch of one of {names}")
     busy = sum(us for _, us in kernels.values())
     events = sum(c for c, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
     log(f"  {what}: the six kernels of most device time, us a proposal "
         "(launches a proposal): " + "; ".join(
             f"{us / n:.1f} ({c / n:.1f}) {key[:60]}" for key, (c, us) in top))
-    return dict(device_us_per_proposal=busy / n,
-                kernels_per_proposal=events / n,
-                idle=1 - busy * 1e-6 / wall, launches=counts,
-                top_us_per_proposal={key[:80]: us / n
-                                     for key, (_, us) in top})
+    out = dict(device_us_per_proposal=busy / n,
+               kernels_per_proposal=events / n,
+               idle=1 - busy * 1e-6 / wall, launches=counts,
+               top_us_per_proposal={key[:80]: us / n
+                                    for key, (_, us) in top})
+    if names:
+        ours_us = sum(us for key, (_, us) in kernels.items()
+                      if any(f"{k}_kernel" in key for k in names))
+        out.update(ms_per_launch={k: device_ms(kernels, k) for k in names},
+                   other_us_per_proposal=(busy - ours_us) / n,
+                   other_share=(busy - ours_us) / busy)
+    return out
 
 
 def tau_of(np, chain, thin_by=1):
@@ -2984,92 +3003,48 @@ def grad_kernel_sweep(torch, dev):
     return n_cmp
 
 
-def grad_window(torch, smp, n, names, what, tries=3):
-    """A profiled window of ``n`` replayed proposals of ``smp`` (every
-    graph recorded before it): device microseconds and kernels a
-    proposal, the idle share, the profiler's launch counts, and the
-    device microseconds a launch of K11, K12, K13 and K2; the rest of the
-    device time is the log-prob's forward and backward passes and the
-    moves' small torch operations (``other_us_per_proposal``).  A window
-    in which the profiler recorded no launch of one of ``names`` is run
-    again, up to ``tries`` times.  The exact launch counts come from
-    :func:`replayed_launches` (in a long run the profiler now and then
-    loses an event of a window)."""
-    for _ in range(tries):
-        wall, kernels = profile_window(
-            torch, lambda: drive(smp, None, n, store=False))
-        counts = profiled_counts(kernels)
-        if all(counts[k] for k in names):
-            break
-        log(f"  {what}: the profiler recorded no launch of one of {names}; "
-            "window run again")
-    else:
-        raise AssertionError(f"{what}: no profiled launch of one of {names}")
-    busy = sum(us for _, us in kernels.values())
-    ours = {k: device_ms(kernels, k) for k in GRAD_KERNELS}
-    ours_us = sum(us for key, (_, us) in kernels.items()
-                  if any(f"{k}_kernel" in key for k in GRAD_KERNELS))
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
-    log(f"  {what}: the six kernels of most device time, us a proposal "
-        "(launches a proposal): " + "; ".join(
-            f"{us / n:.1f} ({c / n:.1f}) {key[:60]}" for key, (c, us) in top))
-    return dict(device_us_per_proposal=busy / n,
-                kernels_per_proposal=sum(c for c, _ in kernels.values()) / n,
-                idle=1 - busy * 1e-6 / wall, profiled_launches=counts,
-                ms_per_launch=ours,
-                other_us_per_proposal=(busy - ours_us) / n,
-                other_share=(busy - ours_us) / busy)
+def counted_replays(torch, dev, smp, n, expect, what, **kw):
+    """Every kernel's launches in ``n`` replayed proposals of ``smp``'s own
+    chunk program (``run_mcmc(None, n, **kw)``), counted on the card and
+    held exactly to ``expect(replays)`` (``replays``: the graph replays
+    of the counted run; a kernel it does not name must not launch).
 
-
-def replayed_launches(torch, dev, make, p0, n, expect, what, **kw):
-    """K11-K13's and K2's launches in ``n`` replayed proposals of a sampler
-    of its own from ``make()``, counted on the card, and held to
-    ``expect(replays)`` (``replays``: the graph replays of the counted
-    run).  Each wrapper is wrapped to add one to a 0-d device word where
-    it launches its kernel; the add is recorded into the graphs with the
-    launch, so each replay counts.  A first run of ``n`` proposals
-    records; the words are zeroed and a second run of ``n`` is counted.
-    Untimed: no timed or profiled graph holds the adds."""
+    Each wrapper's ``device_launches`` word is set
+    (``ops._wrap.count_launches``) and the program's graphs are recorded
+    anew while it is, so each replayed launch adds one to its word beside
+    its kernel: a first run records, the words are zeroed, a second run
+    is counted, under the profiler too, whose count of the same launches
+    is returned beside.  The timed graphs are set aside meanwhile and put
+    back after, so no timed or profiled window replays a graph that holds
+    the adds.  Returns ``(device counts, profiler counts)``."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
-    saved = {k: v for k, v in wrappers().items() if k in GRAD_KERNELS}
-    words = {k: torch.zeros((), dtype=torch.int64, device=dev)
-             for k in saved}
-
-    def counting(name, fn):
-        def call(*args, **kwargs):
-            words[name].add_(1)
-            return fn(*args, **kwargs)
-
-        return call
-
-    # A wrapper adds to its count by its module's name for it, which then
-    # names the stand-in: the stand-in carries the count meanwhile.
-    standins = {}
-    for name, (m, fn) in saved.items():
-        standins[name] = counting(name, fn)
-        standins[name].launches = fn.launches
-        setattr(m, name, standins[name])
+    prog = smp._program
+    timed, prog.graphs = prog.graphs, {}
+    fns = {name: fn for name, (_, fn) in wrappers().items()}
+    words = {name: torch.zeros((), dtype=torch.int64, device=dev)
+             for name in fns}
+    for name, fn in fns.items():
+        fn.device_launches = words[name]
     try:
-        smp = make()
-        smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True,
-                     **kw)
+        smp.run_mcmc(None, n, **kw)
+        torch.cuda.synchronize()
         for w in words.values():
             w.zero_()
         r0 = ChunkProgram.replays
-        smp.run_mcmc(None, n, store=False, **kw)
+        _, kernels = profile_window(torch, lambda: smp.run_mcmc(None, n,
+                                                                **kw))
         replays = ChunkProgram.replays - r0
     finally:
-        for name, (m, fn) in saved.items():
-            fn.launches = standins[name].launches
-            setattr(m, name, fn)
-    torch.cuda.synchronize()
+        for fn in fns.values():
+            fn.device_launches = None
+        prog.graphs = timed
     got = {k: int(w) for k, w in words.items()}
     want = {k: 0 for k in words} | expect(replays)
     if got != want:
         raise AssertionError(f"phase 13: {what}: replayed launches {got} "
                              f"(device counters), expected {want}")
-    return got
+    return got, profiled_counts(kernels)
 
 
 def grad_sampler(dev, move, seed, target=None, nw=NW, nd=ND, backend=None):
@@ -3083,7 +3058,8 @@ def grad_sampler(dev, move, seed, target=None, nw=NW, nd=ND, backend=None):
 def phase13(torch, np, dev, card):
     """The gradient moves (see the module docstring, 13): the K11-K13
     sweep, then each path with the wrappers' counts set to 0 just before
-    it and read just after.  Returns its numbers and the K11-K13 rows."""
+    it and read just after (its comparisons with the plain versions run
+    before that).  Returns its numbers and the K11-K13 rows."""
     out = {}
     t0 = time.perf_counter()
     out["sweep"] = grad_kernel_sweep(torch, dev)
@@ -3091,53 +3067,59 @@ def phase13(torch, np, dev, card):
         f"{GRAD_SWEEP_NDS} x rows {GRAD_SWEEP_ROWS}, every mode: "
         f"{out['sweep']} comparisons, all identical "
         f"({time.perf_counter() - t0:.1f} s)")
-    with path_launches(out, "mala", ("langevin_step", "langevin_factor",
-                                     "accept_select"), "phase 13"):
-        out["mala"] = phase13_mala(torch, np, dev, card)
-    with path_launches(out, "hmc", GRAD_KERNELS, "phase 13"):
-        out["hmc"] = phase13_hmc(torch, np, dev, card)
-    with path_launches(out, "chees", GRAD_KERNELS, "phase 13"):
-        out["chees"] = phase13_chees(torch, np, dev, card)
-    with path_launches(out, "ensemble", GRAD_KERNELS, "phase 13"):
-        out["ensemble"] = phase13_ensemble(torch, np, dev, card)
+    out["mala"] = phase13_mala(torch, np, dev, card, out)
+    out["hmc"] = phase13_hmc(torch, np, dev, card, out)
+    out["chees"] = phase13_chees(torch, np, dev, card, out)
+    out["ensemble"] = phase13_ensemble(torch, np, dev, card, out)
     log(f"phase 13: kernel wrapper launches of each path, counted from 0 "
         f"(recordings and eager runs): {out['launches']}")
     return out, phase13_rows(torch, dev, out, card)
 
 
-def phase13_mala(torch, np, dev, card):
+def replay_counts(counted, profiled, n):
+    """The log's words for :func:`counted_replays`' two counts."""
+    same = "the same" if profiled == counted else f"{profiled}"
+    return (f"launches in {n} replayed proposals of the path's own sampler "
+            f"{counted} (device counters; the profiler: {same})")
+
+
+def phase13_mala(torch, np, dev, card, out):
     """(a) ``bench.py:260-303``: 1e5 walkers x 5-D unit Gaussian,
     ``MALAMove(1.0)`` into ``DeviceBackend``; a warm run of 500 kept x
-    ``thin_by=2`` (tau from its first 120 kept), then two timed runs."""
+    ``thin_by=2`` (tau from its first 120 kept), two timed runs, a
+    profiled window and a counted one."""
     from emcee_tpu_torch import moves
     from emcee_tpu_torch.backends import DeviceBackend
 
+    names = ("langevin_step", "langevin_factor", "accept_select")
     p0 = np.random.default_rng(10).normal(size=(NW, ND)).astype(np.float32)
     acc64 = graph_vs_plain_chain(torch, lambda: grad_sampler(
         dev, moves.MALAMove(1.0), 2), p0)
     smp = grad_sampler(dev, moves.MALAMove(1.0), 2, backend=DeviceBackend())
     kept, thin = 500, 2
-    t0 = time.perf_counter()
-    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
-    warm_s = time.perf_counter() - t0
-    tau = tau_of(np, smp.backend.chain[:120], thin)
-    warm_graphs(smp)
-    st, dt = stage_runs(smp, st, kept, thin)
-    rate = kept * thin * NW / dt
-    acc = float(smp.last_run_stats.acceptance_fraction.mean())
-    mean_lp = float(st.log_prob.mean())
-    if not (-3.5 < mean_lp < -1.5 and np.isfinite(tau)):  # bench.py:161
-        raise AssertionError(f"phase 13: MALA stage: mean lp {mean_lp}, "
-                             f"tau {tau}")
-    n_prof = 32
-    win = grad_window(torch, smp, n_prof, ("langevin_step",
-                                            "langevin_factor",
-                                            "accept_select"), "MALA stage")
-    n_cnt = 64
-    counted = replayed_launches(
-        torch, dev, lambda: grad_sampler(dev, moves.MALAMove(1.0), 2), p0,
-        n_cnt, lambda r: {"langevin_step": n_cnt, "langevin_factor": n_cnt,
-                          "accept_select": n_cnt}, "MALA stage")
+    with path_launches(out, "mala", names, "phase 13"):
+        t0 = time.perf_counter()
+        st, _ = drive(smp, p0, kept, thin_by=thin,
+                      skip_initial_state_check=True)
+        warm_s = time.perf_counter() - t0
+        tau = tau_of(np, smp.backend.chain[:120], thin)
+        warm_graphs(smp)
+        st, dt = stage_runs(smp, st, kept, thin)
+        rate = kept * thin * NW / dt
+        acc = float(smp.last_run_stats.acceptance_fraction.mean())
+        mean_lp = float(st.log_prob.mean())
+        if not (-3.5 < mean_lp < -1.5 and np.isfinite(tau)):  # bench.py:161
+            raise AssertionError(f"phase 13: MALA stage: mean lp "
+                                 f"{mean_lp}, tau {tau}")
+        n_prof = 32
+        win = busy_window(torch, lambda: drive(smp, None, n_prof,
+                                               store=False),
+                          n_prof, "MALA stage", names=names)
+        n_kept = 16
+        n_cnt = n_kept * thin
+        counted, profiled = counted_replays(
+            torch, dev, smp, n_kept, lambda r: {k: n_cnt for k in names},
+            "MALA stage", thin_by=thin)
     smp._use_graphs = False
     _, dt_eager = drive(smp, None, 16, store=False, per_proposal={
         "langevin_step": 1, "langevin_factor": 1, "accept_select": 1})
@@ -3146,7 +3128,8 @@ def phase13_mala(torch, np, dev, card):
                acceptance=acc, mean_lp=mean_lp, seconds=dt,
                warm_seconds=warm_s, acceptance_64=acc64,
                eager_ms_per_proposal=dt_eager / 16 * 1e3,
-               replayed_launches=counted, proposals_counted=n_cnt, **win)
+               replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n_cnt, **win)
     log(f"phase 13: (a) MALA stage (bench.py:260-303; 1e5 x 5-D, "
         f"MALAMove(1.0), DeviceBackend, {kept} kept x {thin}): {rate:.4e} "
         f"walker-steps/s (best of two), tau {tau:.3f} proposals, ESS/s "
@@ -3156,64 +3139,92 @@ def phase13_mala(torch, np, dev, card):
         f"{win['idle']:.4f}; the gradient (the log-prob's forward and "
         f"backward) and the move's small torch ops "
         f"{win['other_us_per_proposal']:.1f} us a proposal, share "
-        f"{win['other_share']:.3f}; launches in {n_cnt} replayed "
-        f"proposals (device counters) {counted}, in {n_prof} (profiler) "
-        f"{win['profiled_launches']}; eager "
-        f"{res['eager_ms_per_proposal']:.3f} ms a proposal; graph chain == "
-        f"plain eager chain (64 proposals, acceptance {acc64:.4f})")
+        f"{win['other_share']:.3f}; {replay_counts(counted, profiled, n_cnt)}"
+        f"; eager {res['eager_ms_per_proposal']:.3f} ms a proposal; graph "
+        f"chain == plain eager chain (64 proposals, acceptance "
+        f"{acc64:.4f})")
     return res
 
 
-def phase13_hmc(torch, np, dev, card, n=64, n_leapfrog=10):
+def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
     """(b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at 1e5 x 5-D, ``n``
-    proposals a run."""
+    proposals a run; then the jitter's draw alone (eager, profiled) and
+    the same move without jitter, for the time of a gradient evaluation
+    without the draw."""
     from emcee_tpu_torch import moves
+    from emcee_tpu_torch.ops.philox import DeviceOffset, grad_uniform
 
-    def mv():
-        return moves.HMCMove(0.5, n_leapfrog=n_leapfrog, jitter=0.2)
+    def mv(jitter=0.2):
+        return moves.HMCMove(0.5, n_leapfrog=n_leapfrog, jitter=jitter)
 
+    per_proposal = {"langevin_step": 1, "langevin_factor": 1,
+                    "leapfrog": n_leapfrog + 1, "accept_select": 1}
     p0 = np.random.default_rng(11).normal(size=(NW, ND)).astype(np.float32)
     acc64 = graph_vs_plain_chain(torch, lambda: grad_sampler(dev, mv(), 3),
                                  p0, n=n)
     smp = grad_sampler(dev, mv(), 3)
-    st, _ = drive(smp, p0, n, store=False, skip_initial_state_check=True)
     n_prof = 8
-    smp._program.graph(0, n_prof, False)
-    dts = []
-    for _ in range(2):
-        st, dt = drive(smp, None, n, store=False)
-        dts.append(dt)
-    rate = n * NW / min(dts)
-    acc = float(smp.last_run_stats.acceptance_fraction.mean())
-    mean_lp = float(st.log_prob.mean())
-    if not (-3.5 < mean_lp < -1.5 and acc > 0.5):
-        raise AssertionError(f"phase 13: HMC: mean lp {mean_lp}, "
-                             f"acceptance {acc}")
-    win = grad_window(torch, smp, n_prof, GRAD_KERNELS, "HMC")
-    n_cnt = 16
-    counted = replayed_launches(
-        torch, dev, lambda: grad_sampler(dev, mv(), 3), p0, n_cnt,
-        lambda r: {"langevin_step": n_cnt, "langevin_factor": n_cnt,
-                   "leapfrog": (n_leapfrog + 1) * n_cnt,
-                   "accept_select": n_cnt}, "HMC")
-    per_grad = win["other_us_per_proposal"] / (n_leapfrog + 1)
+    with path_launches(out, "hmc", GRAD_KERNELS, "phase 13"):
+        st, _ = drive(smp, p0, n, store=False, skip_initial_state_check=True)
+        smp._program.graph(0, n_prof, False)
+        dts = []
+        for _ in range(2):
+            st, dt = drive(smp, None, n, store=False)
+            dts.append(dt)
+        rate = n * NW / min(dts)
+        acc = float(smp.last_run_stats.acceptance_fraction.mean())
+        mean_lp = float(st.log_prob.mean())
+        if not (-3.5 < mean_lp < -1.5 and acc > 0.5):
+            raise AssertionError(f"phase 13: HMC: mean lp {mean_lp}, "
+                                 f"acceptance {acc}")
+        win = busy_window(torch, lambda: drive(smp, None, n_prof,
+                                               store=False),
+                          n_prof, "HMC", names=GRAD_KERNELS)
+        n_cnt = 16
+        counted, profiled = counted_replays(
+            torch, dev, smp, n_cnt,
+            lambda r: {k: v * n_cnt for k, v in per_proposal.items()},
+            "HMC", store=False)
+    # The jitter's uniform alone: one plain Philox call a proposal.
+    word = torch.zeros((), dtype=torch.int64, device=dev)
+    draw = busy_window(torch, lambda: [
+        grad_uniform(3, 0, DeviceOffset(word, k), dev)
+        for k in range(n_prof)], n_prof, "HMC jitter draws")
+    smp0 = grad_sampler(dev, mv(0.0), 3)
+    drive(smp0, p0, n_prof, store=False, skip_initial_state_check=True)
+    win0 = busy_window(torch, lambda: drive(smp0, None, n_prof,
+                                            store=False),
+                       n_prof, "HMC, jitter 0", names=GRAD_KERNELS)
+    n_grad = n_leapfrog + 1
+    per_grad = win["other_us_per_proposal"] / n_grad
+    per_grad0 = win0["other_us_per_proposal"] / n_grad
     res = dict(walker_steps_per_s=rate, acceptance=acc, mean_lp=mean_lp,
                acceptance_64=acc64, us_per_gradient=per_grad,
-               replayed_launches=counted, proposals_counted=n_cnt, **win)
+               us_per_gradient_without_jitter=per_grad0,
+               jitter_draw_us=draw["device_us_per_proposal"],
+               jitter_draw_kernels=draw["kernels_per_proposal"],
+               device_us_per_proposal_jitter0=win0["device_us_per_proposal"],
+               kernels_per_proposal_jitter0=win0["kernels_per_proposal"],
+               replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n_cnt, **win)
     log(f"phase 13: (b) HMCMove(0.5, n_leapfrog={n_leapfrog}, jitter=0.2), "
         f"1e5 x 5-D, {n} proposals a run: {rate:.4e} walker-steps/s (best "
         f"of two), acceptance {acc:.4f}, mean lp {mean_lp:.4f} {card}; "
         f"device {win['device_us_per_proposal']:.1f} us and "
         f"{win['kernels_per_proposal']:.0f} kernels a proposal, "
-        f"{per_grad:.1f} us a gradient evaluation ({n_leapfrog + 1} a "
-        f"proposal, with the move's small torch ops); launches in {n_cnt} "
-        f"replayed proposals (device counters) {counted}, in {n_prof} "
-        f"(profiler) {win['profiled_launches']}; graph chain == plain "
+        f"{per_grad:.1f} us a gradient evaluation ({n_grad} a proposal, "
+        f"with the move's small torch ops and the jitter's draw); the "
+        f"jitter's draw alone {draw['device_us_per_proposal']:.1f} us and "
+        f"{draw['kernels_per_proposal']:.0f} kernels (eager); jitter 0: "
+        f"{win0['device_us_per_proposal']:.1f} us and "
+        f"{win0['kernels_per_proposal']:.0f} kernels a proposal, "
+        f"{per_grad0:.1f} us a gradient evaluation; "
+        f"{replay_counts(counted, profiled, n_cnt)}; graph chain == plain "
         f"eager chain ({n} proposals, acceptance {acc64:.4f})")
     return res
 
 
-def phase13_chees(torch, np, dev, card, n=200):
+def phase13_chees(torch, np, dev, card, out, n=200):
     """(c) ``ChEESHMCMove(0.5)`` at 1e5 x 5-D: ``n`` tuning proposals,
     then ``n`` production proposals by replays against the same ``n``
     run eagerly from the same state and carry."""
@@ -3231,42 +3242,46 @@ def phase13_chees(torch, np, dev, card, n=200):
         return st, dt, (ChunkProgram.replays - r0) / n, (
             ChunkProgram.flag_reads - f0) / n
 
-    st, dt_tune, rep_tune, reads_tune = run(smp, p0, True)
-    carry = smp._move_carries[0]
-    log_t1 = float(carry["log_T"])
-    eps1 = 0.5 * math.exp(float(carry["log_adj"]))
-    # Two production proposals record the production segments, so the
-    # compared runs record nothing.
-    st = smp.run_mcmc(st, 2, store=False, skip_initial_state_check=True)
-    twin = grad_sampler(dev, moves.ChEESHMCMove(0.5), 4)
-    twin._move_carries = tuple(clone_carry(c) for c in smp._move_carries)
-    twin._use_graphs = False
-    st_g, dt, rep, reads = run(smp, st, False)
-    acc = float(smp.last_run_stats.acceptance_fraction.mean())
-    t0 = time.perf_counter()
-    st_e = twin.run_mcmc(st, n, store=False, skip_initial_state_check=True)
-    dt_eager = time.perf_counter() - t0
-    if not (torch.equal(st_g.coords, st_e.coords)
-            and torch.equal(st_g.log_prob, st_e.log_prob)
-            and st_g.random_state == st_e.random_state):
-        raise AssertionError("phase 13: ChEES production replays differ "
-                             "from the eager chain")
-    mean_lp = float(st_g.log_prob.mean())
-    if not (-3.5 < mean_lp < -1.5 and reads == 1.0 and log_t1 != log_t0):
-        raise AssertionError(f"phase 13: ChEES: mean lp {mean_lp}, flag "
-                             f"reads {reads} a proposal, log T {log_t1}")
-    # A proposal replays start, (trips - 1) steps, end and the tune /
-    # advance segment.
-    trips, trips_tune = rep - 2, rep_tune - 2
-    n_cnt = 16
-    # A proposal launches K13 once a trip and once for the closing kick.
-    counted = replayed_launches(
-        torch, dev, lambda: grad_sampler(dev, moves.ChEESHMCMove(0.5), 4),
-        p0, n_cnt, lambda r: {"langevin_step": n_cnt,
-                              "langevin_factor": n_cnt,
-                              "accept_select": n_cnt,
-                              "leapfrog": r - 2 * n_cnt + n_cnt},
-        "ChEES")
+    with path_launches(out, "chees", GRAD_KERNELS, "phase 13"):
+        st, dt_tune, rep_tune, reads_tune = run(smp, p0, True)
+        carry = smp._move_carries[0]
+        log_t1 = float(carry["log_T"])
+        eps1 = 0.5 * math.exp(float(carry["log_adj"]))
+        # Two production proposals record the production segments, so the
+        # compared runs record nothing.
+        st = smp.run_mcmc(st, 2, store=False, skip_initial_state_check=True)
+        twin = grad_sampler(dev, moves.ChEESHMCMove(0.5), 4)
+        twin._move_carries = tuple(clone_carry(c)
+                                   for c in smp._move_carries)
+        twin._use_graphs = False
+        st_g, dt, rep, reads = run(smp, st, False)
+        acc = float(smp.last_run_stats.acceptance_fraction.mean())
+        t0 = time.perf_counter()
+        st_e = twin.run_mcmc(st, n, store=False,
+                             skip_initial_state_check=True)
+        dt_eager = time.perf_counter() - t0
+        if not (torch.equal(st_g.coords, st_e.coords)
+                and torch.equal(st_g.log_prob, st_e.log_prob)
+                and st_g.random_state == st_e.random_state):
+            raise AssertionError("phase 13: ChEES production replays "
+                                 "differ from the eager chain")
+        mean_lp = float(st_g.log_prob.mean())
+        if not (-3.5 < mean_lp < -1.5 and reads == 1.0
+                and log_t1 != log_t0):
+            raise AssertionError(f"phase 13: ChEES: mean lp {mean_lp}, "
+                                 f"flag reads {reads} a proposal, log T "
+                                 f"{log_t1}")
+        # A proposal replays start, (trips - 1) steps, end and the tune /
+        # advance segment.
+        trips, trips_tune = rep - 2, rep_tune - 2
+        n_cnt = 16
+        # K13 launches trips + 1 times a proposal, which replays trips + 2
+        # graphs (start, trips - 1 steps, end, tune / advance).
+        counted, profiled = counted_replays(
+            torch, dev, smp, n_cnt, lambda r: {
+                "langevin_step": n_cnt, "langevin_factor": n_cnt,
+                "accept_select": n_cnt, "leapfrog": r - n_cnt},
+            "ChEES", store=False)
     res = dict(log_T_before=log_t0, log_T_after=log_t1, eps_after=eps1,
                trips_per_proposal=trips, trips_per_proposal_tune=trips_tune,
                flag_reads_per_proposal=reads,
@@ -3275,7 +3290,7 @@ def phase13_chees(torch, np, dev, card, n=200):
                walker_steps_per_s_tune=n * NW / dt_tune,
                eager_walker_steps_per_s=n * NW / dt_eager, acceptance=acc,
                mean_lp=mean_lp, replayed_launches=counted,
-               proposals_counted=n_cnt)
+               profiled_replayed=profiled, proposals_counted=n_cnt)
     log(f"phase 13: (c) ChEESHMCMove(0.5) at 1e5 x 5-D: log T "
         f"{log_t0:.4f} -> {log_t1:.4f} after {n} tuning proposals (eps "
         f"{eps1:.4f}); trips a proposal {trips_tune:.2f} tuning, "
@@ -3284,12 +3299,11 @@ def phase13_chees(torch, np, dev, card, n=200):
         f"{n * NW / dt:.4e} production (replays; its first run records), "
         f"{n * NW / dt_eager:.4e} eager; acceptance {acc:.4f}, mean lp "
         f"{mean_lp:.4f} {card}; production replays == eager chain ({n} "
-        f"proposals); launches in {n_cnt} replayed proposals (device "
-        f"counters) {counted}")
+        f"proposals); {replay_counts(counted, profiled, n_cnt)}")
     return res
 
 
-def phase13_ensemble(torch, np, dev, card, n=200):
+def phase13_ensemble(torch, np, dev, card, out, n=200):
     """(d) ``EnsembleMALAMove()`` and ``EnsembleHMCMove()`` on workload
     3's target (1e4 x 100-D, ``benchmarks/workload3.py:57-77``), ``n``
     proposals a run."""
@@ -3297,10 +3311,10 @@ def phase13_ensemble(torch, np, dev, card, n=200):
 
     log_prob3, p03 = workload3_target(np, torch, dev)
     res = {}
-    for name, mv, per_split in (
-            ("EnsembleMALAMove()", moves.EnsembleMALAMove,
+    for path, name, mv, per_split in (
+            ("ensemble_mala", "EnsembleMALAMove()", moves.EnsembleMALAMove,
              {"langevin_step": 2, "langevin_factor": 1, "accept_select": 1}),
-            ("EnsembleHMCMove()", moves.EnsembleHMCMove,
+            ("ensemble_hmc", "EnsembleHMCMove()", moves.EnsembleHMCMove,
              {"langevin_step": 1, "leapfrog": 11, "langevin_factor": 1,
               "accept_select": 1})):
         def make():
@@ -3308,23 +3322,28 @@ def phase13_ensemble(torch, np, dev, card, n=200):
 
         acc16 = graph_vs_plain_chain(torch, make, p03, n=16)
         smp = make()
-        drive(smp, p03, n, store=False, skip_initial_state_check=True)
         n_prof = 8
-        smp._program.graph(0, n_prof, False)
-        st, dt = drive(smp, None, n, store=False)
-        rate = n * NW3 / dt
-        acc = float(smp.last_run_stats.acceptance_fraction.mean())
-        mean_lp = float(st.log_prob.mean())
-        if not -80.0 < mean_lp < -20.0:  # workload3.py:201
-            raise AssertionError(f"phase 13: {name}: mean lp {mean_lp}")
-        win = grad_window(torch, smp, n_prof, tuple(per_split), name)
-        counted = replayed_launches(
-            torch, dev, make, p03, n_prof,
-            lambda r: {k: 2 * v * n_prof for k, v in per_split.items()},
-            name)
+        with path_launches(out, path, tuple(per_split), "phase 13"):
+            drive(smp, p03, n, store=False, skip_initial_state_check=True)
+            smp._program.graph(0, n_prof, False)
+            st, dt = drive(smp, None, n, store=False)
+            rate = n * NW3 / dt
+            acc = float(smp.last_run_stats.acceptance_fraction.mean())
+            mean_lp = float(st.log_prob.mean())
+            if not -80.0 < mean_lp < -20.0:  # workload3.py:201
+                raise AssertionError(f"phase 13: {name}: mean lp "
+                                     f"{mean_lp}")
+            win = busy_window(torch, lambda: drive(smp, None, n_prof,
+                                                   store=False),
+                              n_prof, name, names=tuple(per_split))
+            counted, profiled = counted_replays(
+                torch, dev, smp, n_prof,
+                lambda r: {k: 2 * v * n_prof for k, v in per_split.items()},
+                name, store=False)
         res[name] = dict(walker_steps_per_s=rate, acceptance=acc,
                          mean_lp=mean_lp, acceptance_16=acc16,
                          replayed_launches=counted,
+                         profiled_replayed=profiled,
                          proposals_counted=n_prof, **win)
         log(f"phase 13: (d) {name} on workload 3's target (1e4 x 100-D), "
             f"{n} proposals: {rate:.4e} walker-steps/s, acceptance "
@@ -3332,9 +3351,8 @@ def phase13_ensemble(torch, np, dev, card, n=200):
             f"{win['device_us_per_proposal']:.1f} us and "
             f"{win['kernels_per_proposal']:.0f} kernels a proposal (K11 / "
             f"K13 in full mode: cuBLAS products and cholesky_ex inside the "
-            f"graphs); launches in {n_prof} replayed proposals (device "
-            f"counters) {counted}, (profiler) {win['profiled_launches']}; "
-            f"graph chain == plain eager chain (16 proposals)")
+            f"graphs); {replay_counts(counted, profiled, n_prof)}; graph "
+            f"chain == plain eager chain (16 proposals)")
     return res
 
 
@@ -3403,21 +3421,23 @@ def phase13_rows(torch, dev, out, card):
              "operations": nops / F32_OPS_PER_S * 1e3}
         by = max(t, key=t.get)
         ms = out[path]["ms_per_launch"][kname]
+        n_cnt = out[path]["proposals_counted"]
+        launches = out[path]["replayed_launches"][kname]
         row = {"name": kname, "route": "cuda", "source": src,
-               "replaces": jax_src,
-               "launches": out["launches"][path][kname],
+               "replaces": jax_src, "launches": launches,
                "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
                "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
                "library_ms": None,
-               "launches_per_proposal_replayed": (
-                   out[path]["replayed_launches"][kname]
-                   / out[path]["proposals_counted"]),
-               "note": f"{kname}: launches are the wrapper's count on the "
-                       f"{path} path (recordings and eager runs); the "
-                       "replays' launches are counted on the card; "
-                       "max_abs_err: torch.equal"
-                       " over the edge sweep; library_ms: none, no single "
-                       "PyTorch call computes it"}
+               "launches_per_proposal": launches / n_cnt,
+               "wrapper_launches": out["launches"][path][kname],
+               "note": f"{kname}: launches are counted on the card in "
+                       f"{n_cnt} replayed proposals of the {path} path's "
+                       "own sampler (each launch adds to a device word "
+                       "recorded beside it); wrapper_launches: the host "
+                       "count over the path (recordings and eager runs); "
+                       "max_abs_err: torch.equal over the edge sweep; "
+                       "library_ms: none, no single PyTorch call computes "
+                       "it"}
         if kname == "langevin_step":
             row.update(ms_draw_only_eager=k11_modes["draw"],
                        ms_mala_eager=k11_modes["mala"])

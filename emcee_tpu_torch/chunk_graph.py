@@ -161,7 +161,7 @@ def _tune_kw(move, tune):
     """``{"tune": tune}`` for a move whose proposal reads the run's tune
     flag (``wants_tune_flag``, ``emcee_tpu/sampler.py:733-738``), else
     ``{}``."""
-    return {"tune": bool(tune)} if getattr(move, "wants_tune_flag", False) else {}
+    return {"tune": bool(tune)} if move.wants_tune_flag else {}
 
 
 def clone_carry(carry):
@@ -302,7 +302,7 @@ class ChunkProgram:
         if i not in self._warmed:
             self._warm_up(i, tune)
             self._warmed.add(i)
-        loops = GraphLoops(self, i, getattr(move, "loop_block", 1))
+        loops = GraphLoops(self, i, move.loop_block)
         state = State(ws.coords, ws.log_prob, ws.blobs)
         move.propose((self.seed, DeviceOffset(ws.offset, 0)), state,
                      self.model, ws.carries[i], ws.count,

@@ -141,6 +141,8 @@ class Move:
     #: the chunk program then passes ``tune=`` to propose
     #: (``emcee_tpu/sampler.py:733-738``)
     wants_tune_flag = False
+    #: iterations a looped move's loop graph holds (``GraphLoops``)
+    loop_block = 1
 
     def init_carry(self, nwalkers: int, ndim: int, device=None) -> Any:
         """Per-move carried state (default: none)."""

@@ -74,7 +74,7 @@ __all__ = [
 def _grad_fn(model):
     """The callable gradient moves differentiate, or the JAX package's
     refusal (``gradient.py:71-83``)."""
-    if not getattr(model, "grad_ok", True):
+    if not model.grad_ok:
         raise NotImplementedError(
             "gradient moves need a differentiable log-prob; this model's "
             "log-prob cannot be differentiated (host evaluation) -- use a "

@@ -237,3 +237,15 @@ def launch(name, device, *args):
         err = library(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def count_launches(fn, n=1):
+    """Add ``n`` launches of wrapper ``fn``'s kernel to its counts: to
+    ``fn.launches`` on the host and, while a caller has set
+    ``fn.device_launches`` to a 0-d int64 tensor on the card, to that word
+    on the current stream.  A CUDA graph recorded meanwhile holds the add
+    beside the launch, so the word counts every replayed launch too; the
+    host count sees recordings and eager calls only."""
+    fn.launches += n
+    if fn.device_launches is not None:
+        fn.device_launches.add_(n)

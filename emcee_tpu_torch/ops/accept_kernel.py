@@ -48,7 +48,9 @@ the JAX package).
 
 :func:`accept_select` launches the kernel for CUDA tensors and uses
 :func:`accept_select_plain` for CPU tensors; it never falls back from one
-to the other.  ``accept_select.launches`` counts kernel launches.
+to the other.  ``accept_select.launches`` counts kernel launches
+(and ``accept_select.device_launches``, when set, on the card:
+``_wrap.count_launches``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ import ctypes
 import torch
 
 from ._wrap import (
-    check_f32, check_rows, device_sm_count, launch, ptr, rng_args, tile_plan)
+    check_f32, check_rows, count_launches, device_sm_count, launch, ptr,
+    rng_args, tile_plan)
 from .philox import to_uniform, walker_words
 
 __all__ = ["BLOB_CAPACITY", "accept_select", "accept_select_plain",
@@ -171,7 +174,7 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
                      q.data_ptr(), stage=True)
     _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
             seed, offset, log_u, leaves)
-    accept_select.launches += max(1, -(-len(leaves) // BLOB_CAPACITY))
+    count_launches(accept_select, max(1, -(-len(leaves) // BLOB_CAPACITY)))
     return accepted[split * ng:(split + 1) * ng]
 
 
@@ -194,3 +197,4 @@ def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
 
 
 accept_select.launches = 0
+accept_select.device_launches = None

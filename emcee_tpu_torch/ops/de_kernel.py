@@ -38,7 +38,9 @@ kernel itself), or is injected (the parity mode):
 
 :func:`de_propose` launches the kernel for a CUDA tensor and uses
 :func:`de_propose_plain` for a CPU tensor; it never falls back from one
-to the other.  ``de_propose.launches`` counts kernel launches.
+to the other.  ``de_propose.launches`` counts kernel launches
+(and ``de_propose.device_launches``, when set, on the card:
+``_wrap.count_launches``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows,
-    complement_rows, de_plan, device_sm_count, launch, ptr, rng_args)
+    complement_rows, count_launches, de_plan, device_sm_count, launch, ptr,
+    rng_args)
 from .philox import (
     PAIR_BLOCK, box_muller, roll_uniforms, to_uniform, walker_words)
 
@@ -159,7 +162,7 @@ def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
     plan = de_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
                    q.data_ptr(), stage=True)
     _launch(plan, coords, q, factor, split, nsplits, **kw)
-    de_propose.launches += 1
+    count_launches(de_propose)
     return q, factor
 
 
@@ -179,3 +182,4 @@ def _launch(plan, coords, q, factor, split, nsplits, *, gamma0, sigma,
 
 
 de_propose.launches = 0
+de_propose.device_launches = None

@@ -40,7 +40,9 @@ JAX expression's order; ``eps`` is a 0-d float32 tensor on the rows'
 device (the tuned scale, step size and jitter, never read on the host).
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other, and
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches`` (and in
+``<wrapper>.device_launches``, when set, on the card:
+``_wrap.count_launches``).
 
 All three are bound by bytes (a few flops per element; K11 one Philox
 block and two Box-Muller normals per pair of columns): at 1e5 x 5 float32
@@ -52,7 +54,7 @@ from __future__ import annotations
 
 import torch
 
-from ._wrap import check_f32, launch, ptr, rng_args
+from ._wrap import check_f32, count_launches, launch, ptr, rng_args
 from .philox import normals
 
 __all__ = ["langevin_factor", "langevin_factor_plain", "langevin_step",
@@ -119,11 +121,12 @@ def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
         launch("langevin_step", device, ptr(x), ptr(g), ptr(d), ptr(eps),
                ptr(None if z_out is not None else z), ptr(z_out), ptr(q),
                n, nd, int(row0), *rng_args(seed, offset, device))
-        langevin_step.launches += 1
+        count_launches(langevin_step)
     return z, q
 
 
 langevin_step.launches = 0
+langevin_step.device_launches = None
 
 
 def _row_sums(*terms):
@@ -175,11 +178,12 @@ def langevin_factor(a, b, c=None, *, eps=None, d=None):
     if n:
         launch("langevin_factor", dev, a.data_ptr(), b.data_ptr(), ptr(c),
                ptr(d), ptr(eps), out.data_ptr(), n, nd)
-        langevin_factor.launches += 1
+        count_launches(langevin_factor)
     return out
 
 
 langevin_factor.launches = 0
+langevin_factor.device_launches = None
 
 
 def leapfrog_plain(p, g, eps, *, d=None, kicks=1, x=None, x_out=None,
@@ -245,8 +249,9 @@ def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None):
         launch("leapfrog", dev, ptr(x), ptr(x_out), p.data_ptr(),
                ptr(p_out), ptr(g if kicks else None), ptr(d), eps.data_ptr(),
                n, nd, int(kicks))
-        leapfrog.launches += 1
+        count_launches(leapfrog)
     return x_out, p if p_out is None else p_out
 
 
 leapfrog.launches = 0
+leapfrog.device_launches = None

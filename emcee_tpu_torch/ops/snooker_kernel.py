@@ -33,7 +33,9 @@ kernel itself), or is injected (the parity mode):
 
 :func:`snooker_propose` launches the kernel for a CUDA tensor and uses
 :func:`snooker_propose_plain` for a CPU tensor; it never falls back from
-one to the other.  ``snooker_propose.launches`` counts kernel launches.
+one to the other.  ``snooker_propose.launches`` counts kernel launches
+(and ``snooker_propose.device_launches``, when set, on the card:
+``_wrap.count_launches``).
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ import numpy as np
 import torch
 
 from ._wrap import (
-    PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows, de_plan,
-    device_sm_count, launch, ptr, rng_args)
+    PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows,
+    count_launches, de_plan, device_sm_count, launch, ptr, rng_args)
 from .philox import PAIR_BLOCK, roll_uniforms, to_uniform, walker_words
 
 __all__ = ["PERMS3", "role_rows", "roll_picks", "row_sum", "snooker_propose",
@@ -175,7 +177,7 @@ def snooker_propose(coords, split, nsplits, *, gammas, scale=None,
     plan = de_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
                    q.data_ptr(), snooker=True)
     _launch(plan, coords, q, factor, split, nsplits, **kw)
-    snooker_propose.launches += 1
+    count_launches(snooker_propose)
     return q, factor
 
 
@@ -196,3 +198,4 @@ def _launch(plan, coords, q, factor, split, nsplits, *, gammas, scale,
 
 
 snooker_propose.launches = 0
+snooker_propose.device_launches = None

@@ -26,7 +26,9 @@ package.
 
 :func:`stretch_propose` launches the kernel for a CUDA tensor and uses
 :func:`stretch_propose_plain` for a CPU tensor; it never falls back from
-one to the other.  ``stretch_propose.launches`` counts kernel launches.
+one to the other.  ``stretch_propose.launches`` counts kernel launches
+(and ``stretch_propose.device_launches``, when set, on the card:
+``_wrap.count_launches``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_pair_mode, check_rows, complement_rows,
-    device_sm_count, launch, ptr, rng_args, tile_plan)
+    count_launches, device_sm_count, launch, ptr, rng_args, tile_plan)
 from .philox import roll_shift, to_uniform, walker_words
 
 __all__ = ["PAIR_MODES", "stretch_propose", "stretch_propose_plain"]
@@ -114,7 +116,7 @@ def stretch_propose(coords, split, nsplits, *, a, scale=None, ndim_global,
     plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
                      q.data_ptr())
     _launch(plan, coords, q, factor, split, nsplits, **kw)
-    stretch_propose.launches += 1
+    count_launches(stretch_propose)
     return q, factor
 
 
@@ -133,3 +135,4 @@ def _launch(plan, coords, q, factor, split, nsplits, *, a, scale,
 
 
 stretch_propose.launches = 0
+stretch_propose.device_launches = None

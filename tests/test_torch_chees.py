@@ -35,12 +35,12 @@ from emcee_tpu_torch.chunk_graph import EagerLoops
 from emcee_tpu_torch.moves.gradient import van_der_corput
 from emcee_tpu_torch.state import State
 from tests.test_torch_gradient import (
-    COVS, ND, NW, TOL, close, lp_j, model, spy, start, t)
+    COVS, ND, NW, TOL, close, jx, lp_j, model, spy, start, t)
 from tests.test_torch_slice import normal_oracle
 
 
 def jcarry_of(carry):
-    return {k: jnp.asarray(v.numpy()) for k, v in carry.items()}
+    return {k: jx(v) for k, v in carry.items()}
 
 
 def port_carry(jc):
@@ -164,8 +164,8 @@ def test_jax_carry_after_tuning_continues_in_the_port():
         extra, log_u = chees_draws(key)
         jc = jcarry_of(c)
         want, jacc, jc = jmove.propose(
-            key, JState(jnp.asarray(st.coords.numpy()),
-                        jnp.asarray(st.log_prob.numpy())), spy([]), jc,
+            key, JState(jx(st.coords),
+                        jx(st.log_prob)), spy([]), jc,
             tune=True)
         jc = jmove.tune(jc, want, jacc)
         st, acc, c = move.propose((2, step), st, model(), c, tune=True,

@@ -84,6 +84,13 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
+def jx(v):
+    """A JAX copy of a port tensor.  The port updates its state and carry
+    in place, and on the CPU JAX may alias a numpy buffer that an
+    asynchronously dispatched step is still reading."""
+    return jnp.array(v.numpy(), copy=True)
+
+
 def close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), tol, tol)
 
@@ -100,7 +107,7 @@ def carries(jmove, move, log_adj):
     if isinstance(c, dict):
         c["log_adj"].fill_(log_adj)
         c["t"].fill_(3)
-        jc = {k: jnp.asarray(v.numpy()) for k, v in c.items()}
+        jc = {k: jx(v) for k, v in c.items()}
     return jc, c
 
 
@@ -194,14 +201,14 @@ def test_chain_matches_jax_step_by_step(kind, cov, jitter):
     jmove, move = make(kind, cov, 3, jitter, tune_target=0.5)
     c = move.init_carry(NW, ND, device="cpu")
     x, lp = start(2)
-    st = State(torch.from_numpy(x), torch.from_numpy(lp))
+    st = State(t(x), t(lp))
     for step in range(8):
         key = jax.random.key(100 + step)
         extra, log_u = jax_draws(key, kind, jitter)
-        jc = {k: jnp.asarray(v.numpy()) for k, v in c.items()}
+        jc = {k: jx(v) for k, v in c.items()}
         want, jacc, jc = jmove.propose(
-            key, JState(jnp.asarray(st.coords.numpy()),
-                        jnp.asarray(st.log_prob.numpy())), spy([]), jc)
+            key, JState(jx(st.coords),
+                        jx(st.log_prob)), spy([]), jc)
         jc = jmove.tune(jc, want, jacc)
         st, acc, c = move.propose((5, step), st, model(), c, extra=extra,
                                   log_u=log_u)
@@ -265,14 +272,14 @@ def test_ensemble_next_state_matches_jax(cls, n, jitter):
     jmove, move = ensemble_pair(cls, n, jitter, randomize_split=False)
     x, lp = start(4)
     ng = NW // 2
-    st = State(torch.from_numpy(x), torch.from_numpy(lp))
+    st = State(t(x), t(lp))
     for step in range(4):
         keys = jax.random.split(jax.random.key(30 + step), 3)
         log_acc_u = jnp.log(jax.random.uniform(keys[0], (2, ng)))
         want, jacc, _ = jmove._propose_blocked(
             keys[1:], log_acc_u, None,
-            JState(jnp.asarray(st.coords.numpy()),
-                   jnp.asarray(st.log_prob.numpy())), spy([]), (), ng)
+            JState(jx(st.coords),
+                   jx(st.log_prob)), spy([]), (), ng)
         st, acc, _ = move._propose_blocked(
             (6, step), st, model(), (), ng, log_acc_u=t(log_acc_u),
             extra_u=[ensemble_draws(k, cls, jitter, ng) for k in keys[1:]])
@@ -341,7 +348,7 @@ def test_refuses_a_log_prob_without_a_gradient(make_move):
     (``gradient.py:75-83``), at the move."""
     m = model()._replace(grad_ok=False)
     x, lp = start(6)
-    st = State(torch.from_numpy(x), torch.from_numpy(lp))
+    st = State(t(x), t(lp))
     mv = make_move()
     with pytest.raises(NotImplementedError, match="differentiable"):
         mv.propose((0, 0), st, m, mv.init_carry(NW, ND, device="cpu"))
@@ -445,3 +452,27 @@ def test_tune_flag_reaches_a_tune_flag_move_only_when_tuning(graphs,
     assert seen[len(tuned):] and all(v is False for v in seen[len(tuned):])
     # Production proposals estimate no ChEES gradient (gradient.py:546-548).
     assert float(smp._move_carries[1]["g"]) == 0.0
+
+
+def test_count_launches_adds_to_the_device_word_only_when_set():
+    """Every wrapper counts through ``count_launches``: its host count,
+    and a device word only while a caller has set one."""
+    from emcee_tpu_torch.ops import (_wrap, accept_kernel, de_kernel,
+                                     langevin_kernel, snooker_kernel,
+                                     stretch_kernel)
+
+    for fn in (accept_kernel.accept_select, de_kernel.de_propose,
+               snooker_kernel.snooker_propose,
+               stretch_kernel.stretch_propose, langevin_kernel.langevin_step,
+               langevin_kernel.langevin_factor, langevin_kernel.leapfrog):
+        assert fn.device_launches is None
+
+    def fn():
+        pass
+
+    fn.launches, fn.device_launches = 0, None
+    _wrap.count_launches(fn)
+    assert fn.launches == 1
+    fn.device_launches = torch.zeros((), dtype=torch.int64)
+    _wrap.count_launches(fn, 3)
+    assert fn.launches == 4 and int(fn.device_launches) == 3
