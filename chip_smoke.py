@@ -99,13 +99,15 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    ``torch.equal``, over ndim 1-128 and 1-1e5 rows in every mode; (a)
    ``bench.py``'s MALA stage (1e5 x 5-D, ``MALAMove(1.0)``,
    ``DeviceBackend``, 500 kept x 2, a warm run and two timed ones; tau,
-   ESS/s, device time a proposal and the gradient's share, launches by
-   the profiler); (b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at the
-   same width; (c) ``ChEESHMCMove`` (200 tuning proposals, then 200
+   ESS/s, device time a proposal and the gradient's share by the
+   profiler); (b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at the
+   same width, beside its ``jitter=0`` twin; (c) ``ChEESHMCMove`` (200 tuning proposals, then 200
    production replays against the eager chain; log T, trips and flag
    reads a proposal); (d) ``EnsembleMALAMove()`` and
    ``EnsembleHMCMove()`` on workload 3's target; every graph chain
-   against the plain versions' eager chain, bit for bit.  ``python3
+   against the plain versions' eager chain, bit for bit; each path's
+   replayed launches counted on the card in graphs of its own sampler
+   (``counted_replays``), the profiler's count beside.  ``python3
    chip_smoke.py 13`` runs phases 0, 1 and 13 alone.
 
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13.  Every phase
@@ -2930,7 +2932,8 @@ GRAD_KERNELS = ("langevin_step", "langevin_factor", "leapfrog",
 def grad_kernel_sweep(torch, dev):
     """K11, K12 and K13 against their plain versions, ``torch.equal``,
     over ``GRAD_SWEEP_NDS`` x ``GRAD_SWEEP_ROWS``: K11's draws (host and
-    device offset words, rows from 0 and 17) and its MALA step (the
+    device offset words, rows from 0 and 17; with the jitter's ``v``
+    beside drawn and injected normals, and alone) and its MALA step (the
     identity and a diagonal preconditioner, drawn and injected ``z``),
     K12 in kinetic mode and in MALA mode (with and without ``c`` and
     ``d``), K13 with 0, 1 and 2 kicks, with and without the drift, both
@@ -2965,6 +2968,15 @@ def grad_kernel_sweep(torch, dev):
                     same(lk.langevin_step((n, nd), dev, seed=9, offset=off,
                                           row0=row0)[:1], (want,),
                          f"K11 draw {what}")
+                    # With the jitter's v of a split, drawn or injected z.
+                    for split, zin in ((0, None), (3, want.contiguous())):
+                        outs = []
+                        for fn in (lk.langevin_step, lk.langevin_step_plain):
+                            v = torch.empty((), device=dev)
+                            z, _ = fn((n, nd), dev, seed=9, offset=off,
+                                      row0=row0, z=zin, v=v, v_split=split)
+                            outs.append((z, v))
+                        same(outs[0], outs[1], f"K11 draw and v {what}")
             for dd in (None, d):
                 for zin in (None, z):
                     kw = dict(seed=4, offset=11, row0=3, z=zin, x=x, g=g,
@@ -2999,6 +3011,13 @@ def grad_kernel_sweep(torch, dev):
                                  f"K13 {what} kicks {kicks} drift {drift}")
             same((lk.langevin_factor(z, g),),
                  (lk.langevin_factor_plain(z, g),), f"K12 kinetic {what}")
+    for nd in (1, 5):  # the jitter's v alone: no rows
+        outs = []
+        for fn in (lk.langevin_step, lk.langevin_step_plain):
+            v = torch.empty((), device=dev)
+            outs.append((fn((0, nd), dev, seed=2, offset=DeviceOffset(word, 1),
+                            v=v, v_split=1)[0], v))
+        same(outs[0], outs[1], f"K11 v with no rows, ndim {nd}")
     torch.cuda.synchronize()
     return n_cmp
 
@@ -3148,11 +3167,9 @@ def phase13_mala(torch, np, dev, card, out):
 
 def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
     """(b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at 1e5 x 5-D, ``n``
-    proposals a run; then the jitter's draw alone (eager, profiled) and
-    the same move without jitter, for the time of a gradient evaluation
-    without the draw."""
+    proposals a run; then the same move without jitter (K11 draws the
+    jitter beside the momenta, so the two should cost the same)."""
     from emcee_tpu_torch import moves
-    from emcee_tpu_torch.ops.philox import DeviceOffset, grad_uniform
 
     def mv(jitter=0.2):
         return moves.HMCMove(0.5, n_leapfrog=n_leapfrog, jitter=jitter)
@@ -3185,11 +3202,6 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
             torch, dev, smp, n_cnt,
             lambda r: {k: v * n_cnt for k, v in per_proposal.items()},
             "HMC", store=False)
-    # The jitter's uniform alone: one plain Philox call a proposal.
-    word = torch.zeros((), dtype=torch.int64, device=dev)
-    draw = busy_window(torch, lambda: [
-        grad_uniform(3, 0, DeviceOffset(word, k), dev)
-        for k in range(n_prof)], n_prof, "HMC jitter draws")
     smp0 = grad_sampler(dev, mv(0.0), 3)
     drive(smp0, p0, n_prof, store=False, skip_initial_state_check=True)
     win0 = busy_window(torch, lambda: drive(smp0, None, n_prof,
@@ -3201,8 +3213,6 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
     res = dict(walker_steps_per_s=rate, acceptance=acc, mean_lp=mean_lp,
                acceptance_64=acc64, us_per_gradient=per_grad,
                us_per_gradient_without_jitter=per_grad0,
-               jitter_draw_us=draw["device_us_per_proposal"],
-               jitter_draw_kernels=draw["kernels_per_proposal"],
                device_us_per_proposal_jitter0=win0["device_us_per_proposal"],
                kernels_per_proposal_jitter0=win0["kernels_per_proposal"],
                replayed_launches=counted, profiled_replayed=profiled,
@@ -3213,9 +3223,7 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
         f"device {win['device_us_per_proposal']:.1f} us and "
         f"{win['kernels_per_proposal']:.0f} kernels a proposal, "
         f"{per_grad:.1f} us a gradient evaluation ({n_grad} a proposal, "
-        f"with the move's small torch ops and the jitter's draw); the "
-        f"jitter's draw alone {draw['device_us_per_proposal']:.1f} us and "
-        f"{draw['kernels_per_proposal']:.0f} kernels (eager); jitter 0: "
+        f"with the move's small torch ops); jitter 0: "
         f"{win0['device_us_per_proposal']:.1f} us and "
         f"{win0['kernels_per_proposal']:.0f} kernels a proposal, "
         f"{per_grad0:.1f} us a gradient evaluation; "

@@ -2,8 +2,9 @@
 //
 // Replaces the XLA-fused chains of emcee_tpu/moves/gradient.py:218-225
 // (MALAMove.propose: the normal draw and the preconditioned Langevin
-// proposal), :312 (HMCMove's momenta), :483 (ChEESHMCMove's), :652
-// (EnsembleMALAMove's noise) and :740 (EnsembleHMCMove's momenta).  The
+// proposal), :301-312 (HMCMove's step-size jitter and momenta), :483
+// (ChEESHMCMove's momenta), :652 (EnsembleMALAMove's noise) and :727-740
+// (EnsembleHMCMove's jitter and momenta).  The
 // JAX package has no Pallas kernel here: XLA fused the chain into the
 // step's program; eager PyTorch would run the Philox normals alone as ~100
 // launches (ops/philox.py normals).
@@ -17,6 +18,10 @@
 //     c      = 0.5 (eps eps)
 //     gd     = (g d_j) d_j,   zd = z d_j        [d null: g, z]
 //     q      = (x + c gd) + eps zd
+//   with v_out given, once (thread 0):
+//     v      = 2 u - 1, u the uniform of word 0 at (ROLL_LANE, v_block,
+//              offset): the HMC moves' step-size jitter of the proposal
+//              (ops/philox.py grad_uniform), drawn beside its momenta
 // The ops/philox.py normals words and Box-Muller, so the plain version
 // (ops/langevin_kernel.py) draws with normals() itself.  With z_in given
 // nothing is drawn: the parity mode, and the full preconditioners' second
@@ -60,12 +65,18 @@ __global__ void __launch_bounds__(kThreads) langevin_step_kernel(
     const float* __restrict__ x, const float* __restrict__ g,
     const float* __restrict__ d, const float* __restrict__ eps,
     const float* __restrict__ z_in, float* __restrict__ z_out,
-    float* __restrict__ q, int n, int nd, uint32_t row0, uint32_t k0,
-    uint32_t k1, const long long* __restrict__ offset_dev,
+    float* __restrict__ q, float* __restrict__ v_out, uint32_t v_block,
+    int n, int nd, uint32_t row0, uint32_t k0, uint32_t k1,
+    const long long* __restrict__ offset_dev,
     unsigned long long offset_inc) {
   const int npairs = (nd + 1) >> 1;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
+  if (v_out != nullptr && t == 0) {
+    const uint4 w = philox_at(EMCEE_ROLL_LANE, v_block,
+                              philox_offset(offset_dev, offset_inc), k0, k1);
+    *v_out = __fsub_rn(__fmul_rn(philox_uniform(w.x), 2.0f), 1.0f);
+  }
   if (t >= static_cast<int64_t>(n) * npairs) return;
   const int r = static_cast<int>(t / npairs);
   const int k = static_cast<int>(t - static_cast<int64_t>(r) * npairs);
@@ -100,19 +111,22 @@ __global__ void __launch_bounds__(kThreads) langevin_step_kernel(
 // Plain C entry point, bound with ctypes (ops/langevin_kernel.py).  Every
 // pointer is a device pointer.  x == nullptr selects draw-only mode (z_out
 // written, g, eps and q unused); z_in != nullptr reads z instead of
-// drawing (z_out unused); d == nullptr is the identity preconditioner.
-// The Philox offset is *offset_dev + offset (offset alone when offset_dev
-// is null).  Returns cudaGetLastError() after the launch.
+// drawing (z_out unused); d == nullptr is the identity preconditioner;
+// v_out != nullptr also writes the jitter's v of block v_block (n may then
+// be 0).  The Philox offset is *offset_dev + offset (offset alone when
+// offset_dev is null).  Returns cudaGetLastError() after the launch.
 extern "C" int emcee_langevin_step(
     const float* x, const float* g, const float* d, const float* eps,
-    const float* z_in, float* z_out, float* q, int n, int nd, int row0,
-    unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, void* stream) {
+    const float* z_in, float* z_out, float* q, float* v_out,
+    unsigned int v_block, int n, int nd, int row0, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset, void* stream) {
   const int64_t threads = static_cast<int64_t>(n) * ((nd + 1) / 2);
-  const int grid = static_cast<int>((threads + kThreads - 1) / kThreads);
+  const int grid =
+      threads > 0 ? static_cast<int>((threads + kThreads - 1) / kThreads) : 1;
   langevin_step_kernel<<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      x, g, d, eps, z_in, z_out, q, n, nd, static_cast<uint32_t>(row0),
+      x, g, d, eps, z_in, z_out, q, v_out, v_block, n, nd,
+      static_cast<uint32_t>(row0),
       static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
       offset_dev, offset);
   return static_cast<int>(cudaGetLastError());

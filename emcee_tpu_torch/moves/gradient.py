@@ -33,7 +33,9 @@ come from one forward pass (:func:`batch_value_and_grad`).
 The draws (``ops/philox.py``): the noise ``z`` and the momenta at
 ``NORMAL_BLOCK`` (rows of the proposal's ensemble buffer), the accept
 uniform K2's (word 1 at ``(walker, split)``), a proposal's step-size
-jitter word 0 at ``(ROLL_LANE, GRAD_BLOCK | split)``.  Each move takes
+jitter word 0 at ``(ROLL_LANE, GRAD_BLOCK | split)``, drawn by the
+momenta's K11 launch (a plain Philox call for one scalar is ~110 small
+kernels, ~134 us of device time on an NVIDIA H100 80GB HBM3 at 700 W).  Each move takes
 ``extra=`` to inject them (``z``; ``p0`` and the jitter's ``v`` in
 ``[-1, 1)``) and the whole-ensemble moves ``log_u=`` (the parity mode).
 
@@ -52,7 +54,6 @@ import torch
 
 from ..chunk_graph import EagerLoops
 from ..ops import accept_kernel, langevin_kernel
-from ..ops.philox import grad_uniform
 from ..utils import tree_flatten, tree_unflatten
 from .base import Move, ScaleTunable, blob_pairs, robbins_monro_tune
 from .dime import full_float32
@@ -138,12 +139,6 @@ def _jittered(eps, jitter, v):
     return eps * (1.0 + jitter * v)
 
 
-def _jitter_v(seed, split, offset, device):
-    """The jitter's ``v = 2 u - 1`` from the split's ``GRAD_BLOCK``
-    uniform (exact in float32)."""
-    return grad_uniform(seed, split, offset, device) * 2.0 - 1.0
-
-
 class _Metric:
     """A preconditioner on one device: ``kind`` ``"id"``, ``"diag"`` (the
     scalar and vector ``cov``, ``d`` the ``(ndim,)`` diagonal of ``L``)
@@ -193,6 +188,22 @@ def _draw(shape, device, seed, offset, row0, given):
         return given
     return langevin_kernel.langevin_step(shape, device, seed=seed,
                                          offset=offset, row0=row0)[0]
+
+
+def _momenta(shape, device, rng, row0, split, extra, jitter):
+    """An HMC proposal's momenta ``p0`` (rows ``row0 ..``) and, when
+    ``jitter``, the jitter's ``v = 2 u - 1`` of ``split`` (else None),
+    both from one K11 launch; ``extra`` injects either."""
+    p0, v = extra.get("p0"), extra.get("v") if jitter else None
+    if p0 is None or (jitter and v is None):
+        seed, offset = rng
+        out = None
+        if jitter and v is None:
+            out = v = torch.empty((), dtype=torch.float32, device=device)
+        p0, _ = langevin_kernel.langevin_step(
+            shape, device, seed=seed, offset=offset, row0=row0, z=p0, v=out,
+            v_split=split)
+    return p0, v
 
 
 def _mala(x, g_x, eps, metric, value_and_grad, rng, z=None):
@@ -388,17 +399,12 @@ class HMCMove(_GradientMove):
         ``extra`` injects ``p0`` and the jitter's ``v`` in ``[-1, 1)``;
         ``log_u`` the accept uniforms' logs (the parity mode)."""
         x = state.coords
-        seed, offset = rng
-        extra = extra or {}
         metric = self._metric(x.shape[1], x.device)
         eps = self._eps(carry, x)
-        if self.jitter > 0.0:
-            v = extra.get("v")
-            if v is None:
-                v = _jitter_v(seed, 0, offset, x.device)
+        p0, v = _momenta(tuple(x.shape), x.device, rng, 0, 0, extra or {},
+                         self.jitter > 0.0)
+        if v is not None:
             eps = _jittered(eps, self.jitter, v)
-        p0 = _draw(tuple(x.shape), x.device, seed, offset, 0,
-                   extra.get("p0"))
         q, f, lp_q, blobs_q = _hmc(x, eps, metric, batch_grad(model),
                                    batch_value_and_grad(model), p0,
                                    self.n_leapfrog)
@@ -725,14 +731,9 @@ class EnsembleHMCMove(_EnsembleGradient):
 
     def _proposal(self, rng, coords, split, model, extra, scale):
         s, lo, eps, _, metric = self._group(coords, split, scale)
-        seed, offset = rng
-        extra = extra or {}
-        if self.jitter > 0.0:
-            v = extra.get("v")
-            if v is None:
-                v = _jitter_v(seed, split, offset, s.device)
+        p0, v = _momenta(tuple(s.shape), s.device, rng, lo, split,
+                         extra or {}, self.jitter > 0.0)
+        if v is not None:
             eps = _jittered(eps, self.jitter, v)
-        p0 = _draw(tuple(s.shape), s.device, seed, offset, lo,
-                   extra.get("p0"))
         return _hmc(s, eps, metric, batch_grad(model),
                     batch_value_and_grad(model), p0, self.n_leapfrog)

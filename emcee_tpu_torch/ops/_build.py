@@ -90,6 +90,7 @@ _ARGTYPES = {
     "langevin_step": [
         _P, _P, _P, _P,  # x, g, d, eps
         _P, _P, _P,  # z_in, z_out, q
+        _P, ctypes.c_uint,  # v_out, v_block
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd row0
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream

@@ -55,7 +55,7 @@ from __future__ import annotations
 import torch
 
 from ._wrap import check_f32, count_launches, launch, ptr, rng_args
-from .philox import normals
+from .philox import GRAD_BLOCK, grad_uniform, normals
 
 __all__ = ["langevin_factor", "langevin_factor_plain", "langevin_step",
            "langevin_step_plain", "leapfrog", "leapfrog_plain"]
@@ -71,9 +71,12 @@ def _mala_q(x, g, z, eps, d):
 
 
 def langevin_step_plain(shape, device, *, seed=0, offset=0, row0=0, z=None,
-                        x=None, g=None, eps=None, d=None):
-    """Plain PyTorch K11: ``(z, q)``, ``q`` None without ``x``."""
+                        x=None, g=None, eps=None, d=None, v=None, v_split=0):
+    """Plain PyTorch K11: ``(z, q)``, ``q`` None without ``x``; writes the
+    jitter's ``v`` into ``v`` when given."""
     n, nd = shape
+    if v is not None:
+        v.copy_(grad_uniform(seed, v_split, offset, device) * 2.0 - 1.0)
     if z is None:
         z = normals(n, nd, seed, offset, device, row0=row0)
     if x is None:
@@ -88,14 +91,17 @@ def _check_rows(name, t, device, shape):
 
 
 def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
-                  x=None, g=None, eps=None, d=None):
+                  x=None, g=None, eps=None, d=None, v=None, v_split=0):
     """K11 for ``shape = (n, ndim)`` rows on ``device``: the CUDA kernel on
     a CUDA device, the plain version on the CPU.  The normals are rows
     ``row0 .. row0 + n - 1`` of the ``(seed, offset)`` stream unless ``z``
-    injects them.  Returns ``(z, q)``; ``q`` is None without ``x``."""
+    injects them.  With ``v``, a 0-d float32 tensor, the same launch
+    writes into it the HMC moves' step-size jitter ``2 u - 1`` of split
+    ``v_split`` (:func:`~.philox.grad_uniform`).  Returns ``(z, q)``;
+    ``q`` is None without ``x``."""
     device = torch.device(device)
     kw = dict(seed=seed, offset=offset, row0=row0, z=z, x=x, g=g, eps=eps,
-              d=d)
+              d=d, v=v, v_split=v_split)
     if device.type == "cpu":
         return langevin_step_plain(shape, device, **kw)
     if device.type != "cuda":
@@ -113,14 +119,16 @@ def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
         _check_rows("g", g, device, (n, nd))
     check_f32("eps", eps, device, ())
     check_f32("d", d, device, (nd,))
+    check_f32("v", v, device, ())
     z_out = None
     if z is None:
         z_out = z = torch.empty((n, nd), dtype=torch.float32, device=device)
     q = None if x is None else torch.empty_like(x)
-    if n:
+    if n or v is not None:
         launch("langevin_step", device, ptr(x), ptr(g), ptr(d), ptr(eps),
                ptr(None if z_out is not None else z), ptr(z_out), ptr(q),
-               n, nd, int(row0), *rng_args(seed, offset, device))
+               ptr(v), GRAD_BLOCK | int(v_split), n, nd, int(row0),
+               *rng_args(seed, offset, device))
         count_launches(langevin_step)
     return z, q
 

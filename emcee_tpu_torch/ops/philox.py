@@ -430,7 +430,7 @@ def normals(n, d, seed, offset, device, dtype=torch.float32, row0=0,
                                device, row0)
     z = torch.stack((box_muller(w0, w2, dtype), box_muller(w1, w3, dtype)),
                     dim=-1)
-    return z.reshape(n, -1)[:, :d]
+    return z.reshape(n, 2 * ((d + 1) // 2))[:, :d]
 
 
 def row_uniforms(n, d, seed, offset, device, dtype=torch.float32, row0=0,
@@ -439,5 +439,6 @@ def row_uniforms(n, d, seed, offset, device, dtype=torch.float32, row0=0,
     ``4k + w`` of a row from word ``w`` of counter ``(row, block | k,
     offset)``."""
     w = row_words(n, (d + 3) // 4, block, seed, offset, device, row0)
-    return to_uniform(torch.stack(w, dim=-1), dtype).reshape(n, -1)[:, :d]
+    return to_uniform(torch.stack(w, dim=-1), dtype).reshape(
+        n, 4 * ((d + 3) // 4))[:, :d]
 

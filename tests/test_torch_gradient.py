@@ -476,3 +476,39 @@ def test_count_launches_adds_to_the_device_word_only_when_set():
     fn.device_launches = torch.zeros((), dtype=torch.int64)
     _wrap.count_launches(fn, 3)
     assert fn.launches == 4 and int(fn.device_launches) == 3
+
+
+@pytest.mark.parametrize("cls", ["hmc", "ensemble"])
+def test_hmc_draws_its_jitter_beside_its_momenta(cls):
+    """Without ``extra`` an HMC move draws ``p0`` and the jitter's ``v``
+    in one K11 call; the result is the proposal under the injected
+    ``p0 = normals(...)`` and ``v = 2 grad_uniform(...) - 1``."""
+    from emcee_tpu_torch.ops import langevin_kernel
+    from emcee_tpu_torch.ops.philox import grad_uniform, normals
+
+    x, lp = start(5)
+    rng = (9, 4)
+    if cls == "hmc":
+        move = moves.HMCMove(0.3, n_leapfrog=2, jitter=0.2)
+        extra = {"p0": normals(NW, ND, *rng, "cpu"),
+                 "v": grad_uniform(rng[0], 0, rng[1], "cpu") * 2.0 - 1.0}
+        ends = []
+        for e in (None, extra):
+            st = State(t(x), t(lp))
+            st, acc, _ = move.propose(rng, st, model(), (), extra=e)
+            ends.append((st.coords, st.log_prob, acc))
+    else:
+        move = moves.EnsembleHMCMove(0.4, n_leapfrog=2, jitter=0.2)
+        ng, split = NW // 2, 1
+        extra = {"p0": normals(ng, ND, *rng, "cpu", row0=ng),
+                 "v": grad_uniform(rng[0], split, rng[1], "cpu") * 2.0 - 1.0}
+        ends = [move.get_proposal(rng, t(x), split, model(), extra=e,
+                                  scale=torch.tensor(1.1))
+                for e in (None, extra)]
+    for a, b in zip(*ends):
+        assert torch.equal(a, b)
+    # The jitter alone, with no rows.
+    v = torch.empty(())
+    langevin_kernel.langevin_step((0, ND), "cpu", seed=9, offset=4, v=v,
+                                  v_split=1)
+    assert torch.equal(v, grad_uniform(9, 1, 4, "cpu") * 2.0 - 1.0)
