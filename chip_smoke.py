@@ -101,10 +101,11 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    ``DeviceBackend``, 500 kept x 2, a warm run and two timed ones; tau,
    ESS/s, device time a proposal and the gradient's share by the
    profiler); (b) ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)`` at the
-   same width, beside its ``jitter=0`` twin; (c) ``ChEESHMCMove`` (200 tuning proposals, then 200
-   production replays against the eager chain; log T, trips and flag
-   reads a proposal); (d) ``EnsembleMALAMove()`` and
-   ``EnsembleHMCMove()`` on workload 3's target; every graph chain
+   same width, beside its ``jitter=0`` twin; (c) ``ChEESHMCMove`` (200
+   tuning proposals, then 200 production replays against the eager
+   chain; log T, trips and flag reads a proposal); (d)
+   ``EnsembleMALAMove()`` and ``EnsembleHMCMove()`` on workload 3's
+   target; every graph chain
    against the plain versions' eager chain, bit for bit; each path's
    replayed launches counted on the card in graphs of its own sampler
    (``counted_replays``), the profiler's count beside.  ``python3
@@ -2271,15 +2272,22 @@ def counted_calls(torch, dev, cls, make, p0, n, **kw):
     return int(word)
 
 
-def busy_window(torch, run, n, what, expect=None, names=(), tries=3):
+def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
     """Device microseconds a proposal, kernel events a proposal and the
     idle share over a profiled window of ``run`` (``n`` proposals); with
     ``expect``, the kernels' launches are held to it
-    (:func:`counted_window`).  With ``names`` (wrapper names), also the
-    device ms a launch of each (``ms_per_launch``) and the device time of
-    every other kernel a proposal (``other_us_per_proposal``, its share
-    ``other_share``); a window in which the profiler recorded no launch
-    of one of them is run again, up to ``tries`` times."""
+    (:func:`counted_window`).
+
+    With ``names`` (``{wrapper: launches a proposal}``, the path's exact
+    counts), also the device ms a launch of each (``ms_per_launch``) and
+    the device time of every other kernel a proposal
+    (``other_us_per_proposal``, its share ``other_share``).  A window in
+    which the profiler counted other launches of them is run again, up to
+    ``tries`` times (in the whole script it now and then drops events of
+    a window, most of one at times); if every window dropped some, the
+    per-proposal numbers are None (not measured) and ``ms_per_launch``
+    averages the launches it recorded (none recorded raises)."""
+    want = {k: v * n for k, v in (names or {}).items()}
     for _ in range(tries):
         if expect is None:
             wall, kernels = profile_window(torch, run)
@@ -2287,12 +2295,15 @@ def busy_window(torch, run, n, what, expect=None, names=(), tries=3):
         else:
             wall, kernels, counts, _ = counted_window(torch, run, expect,
                                                       what)
-        if all(counts[k] for k in names):
+        complete = all(counts[k] == v for k, v in want.items())
+        if complete:
             break
-        log(f"  {what}: the profiler recorded no launch of one of {names}; "
-            "window run again")
-    else:
-        raise AssertionError(f"{what}: no profiled launch of one of {names}")
+        log(f"  {what}: the profiler counted {counts}, the path launches "
+            f"{want}; window run again")
+        time.sleep(0.5)
+    if not all(counts[k] for k in want):
+        raise AssertionError(f"{what}: no profiled launch of one of "
+                             f"{list(want)}")
     busy = sum(us for _, us in kernels.values())
     events = sum(c for c, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
@@ -2304,13 +2315,24 @@ def busy_window(torch, run, n, what, expect=None, names=(), tries=3):
                idle=1 - busy * 1e-6 / wall, launches=counts,
                top_us_per_proposal={key[:80]: us / n
                                     for key, (_, us) in top})
-    if names:
+    if want:
         ours_us = sum(us for key, (_, us) in kernels.items()
-                      if any(f"{k}_kernel" in key for k in names))
-        out.update(ms_per_launch={k: device_ms(kernels, k) for k in names},
+                      if any(f"{k}_kernel" in key for k in want))
+        out.update(ms_per_launch={k: device_ms(kernels, k) for k in want},
                    other_us_per_proposal=(busy - ours_us) / n,
                    other_share=(busy - ours_us) / busy)
+        if not complete:
+            log(f"  {what}: the profiler dropped launches in each of "
+                f"{tries} windows; device time a proposal not measured")
+            for k in ("device_us_per_proposal", "kernels_per_proposal",
+                      "idle", "other_us_per_proposal", "other_share"):
+                out[k] = None
     return out
+
+
+def measured(x, spec=".1f"):
+    """A number of a profiled window for the log, or "not measured"."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def tau_of(np, chain, thin_by=1):
@@ -3110,13 +3132,14 @@ def phase13_mala(torch, np, dev, card, out):
     from emcee_tpu_torch import moves
     from emcee_tpu_torch.backends import DeviceBackend
 
-    names = ("langevin_step", "langevin_factor", "accept_select")
+    per_proposal = {"langevin_step": 1, "langevin_factor": 1,
+                    "accept_select": 1}
     p0 = np.random.default_rng(10).normal(size=(NW, ND)).astype(np.float32)
     acc64 = graph_vs_plain_chain(torch, lambda: grad_sampler(
         dev, moves.MALAMove(1.0), 2), p0)
     smp = grad_sampler(dev, moves.MALAMove(1.0), 2, backend=DeviceBackend())
     kept, thin = 500, 2
-    with path_launches(out, "mala", names, "phase 13"):
+    with path_launches(out, "mala", tuple(per_proposal), "phase 13"):
         t0 = time.perf_counter()
         st, _ = drive(smp, p0, kept, thin_by=thin,
                       skip_initial_state_check=True)
@@ -3133,15 +3156,16 @@ def phase13_mala(torch, np, dev, card, out):
         n_prof = 32
         win = busy_window(torch, lambda: drive(smp, None, n_prof,
                                                store=False),
-                          n_prof, "MALA stage", names=names)
+                          n_prof, "MALA stage", names=per_proposal)
         n_kept = 16
         n_cnt = n_kept * thin
         counted, profiled = counted_replays(
-            torch, dev, smp, n_kept, lambda r: {k: n_cnt for k in names},
+            torch, dev, smp, n_kept,
+            lambda r: {k: v * n_cnt for k, v in per_proposal.items()},
             "MALA stage", thin_by=thin)
     smp._use_graphs = False
-    _, dt_eager = drive(smp, None, 16, store=False, per_proposal={
-        "langevin_step": 1, "langevin_factor": 1, "accept_select": 1})
+    _, dt_eager = drive(smp, None, 16, store=False,
+                        per_proposal=per_proposal)
     smp._use_graphs = True
     res = dict(walker_steps_per_s=rate, tau=tau, ess_per_s=rate / tau,
                acceptance=acc, mean_lp=mean_lp, seconds=dt,
@@ -3153,12 +3177,13 @@ def phase13_mala(torch, np, dev, card, out):
         f"MALAMove(1.0), DeviceBackend, {kept} kept x {thin}): {rate:.4e} "
         f"walker-steps/s (best of two), tau {tau:.3f} proposals, ESS/s "
         f"{rate / tau:.4e}, acceptance {acc:.4f}, mean lp {mean_lp:.4f} "
-        f"{card}; device {win['device_us_per_proposal']:.1f} us and "
-        f"{win['kernels_per_proposal']:.0f} kernels a proposal, idle "
-        f"{win['idle']:.4f}; the gradient (the log-prob's forward and "
-        f"backward) and the move's small torch ops "
-        f"{win['other_us_per_proposal']:.1f} us a proposal, share "
-        f"{win['other_share']:.3f}; {replay_counts(counted, profiled, n_cnt)}"
+        f"{card}; device {measured(win['device_us_per_proposal'])} us and "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(win['idle'], '.4f')}; the gradient (the "
+        f"log-prob's forward and backward) and the move's small torch ops "
+        f"{measured(win['other_us_per_proposal'])} us a proposal, share "
+        f"{measured(win['other_share'], '.3f')}; "
+        f"{replay_counts(counted, profiled, n_cnt)}"
         f"; eager {res['eager_ms_per_proposal']:.3f} ms a proposal; graph "
         f"chain == plain eager chain (64 proposals, acceptance "
         f"{acc64:.4f})")
@@ -3196,7 +3221,7 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
                                  f"acceptance {acc}")
         win = busy_window(torch, lambda: drive(smp, None, n_prof,
                                                store=False),
-                          n_prof, "HMC", names=GRAD_KERNELS)
+                          n_prof, "HMC", names=per_proposal)
         n_cnt = 16
         counted, profiled = counted_replays(
             torch, dev, smp, n_cnt,
@@ -3206,10 +3231,11 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
     drive(smp0, p0, n_prof, store=False, skip_initial_state_check=True)
     win0 = busy_window(torch, lambda: drive(smp0, None, n_prof,
                                             store=False),
-                       n_prof, "HMC, jitter 0", names=GRAD_KERNELS)
+                       n_prof, "HMC, jitter 0", names=per_proposal)
     n_grad = n_leapfrog + 1
-    per_grad = win["other_us_per_proposal"] / n_grad
-    per_grad0 = win0["other_us_per_proposal"] / n_grad
+    per_grad, per_grad0 = (
+        None if w["other_us_per_proposal"] is None
+        else w["other_us_per_proposal"] / n_grad for w in (win, win0))
     res = dict(walker_steps_per_s=rate, acceptance=acc, mean_lp=mean_lp,
                acceptance_64=acc64, us_per_gradient=per_grad,
                us_per_gradient_without_jitter=per_grad0,
@@ -3220,13 +3246,13 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
     log(f"phase 13: (b) HMCMove(0.5, n_leapfrog={n_leapfrog}, jitter=0.2), "
         f"1e5 x 5-D, {n} proposals a run: {rate:.4e} walker-steps/s (best "
         f"of two), acceptance {acc:.4f}, mean lp {mean_lp:.4f} {card}; "
-        f"device {win['device_us_per_proposal']:.1f} us and "
-        f"{win['kernels_per_proposal']:.0f} kernels a proposal, "
-        f"{per_grad:.1f} us a gradient evaluation ({n_grad} a proposal, "
+        f"device {measured(win['device_us_per_proposal'])} us and "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels a proposal, "
+        f"{measured(per_grad)} us a gradient evaluation ({n_grad} a proposal, "
         f"with the move's small torch ops); jitter 0: "
-        f"{win0['device_us_per_proposal']:.1f} us and "
-        f"{win0['kernels_per_proposal']:.0f} kernels a proposal, "
-        f"{per_grad0:.1f} us a gradient evaluation; "
+        f"{measured(win0['device_us_per_proposal'])} us and "
+        f"{measured(win0['kernels_per_proposal'], '.0f')} kernels a proposal, "
+        f"{measured(per_grad0)} us a gradient evaluation; "
         f"{replay_counts(counted, profiled, n_cnt)}; graph chain == plain "
         f"eager chain ({n} proposals, acceptance {acc64:.4f})")
     return res
@@ -3343,7 +3369,8 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
                                      f"{mean_lp}")
             win = busy_window(torch, lambda: drive(smp, None, n_prof,
                                                    store=False),
-                              n_prof, name, names=tuple(per_split))
+                              n_prof, name, names={
+                                  k: 2 * v for k, v in per_split.items()})
             counted, profiled = counted_replays(
                 torch, dev, smp, n_prof,
                 lambda r: {k: 2 * v * n_prof for k, v in per_split.items()},
@@ -3356,8 +3383,9 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
         log(f"phase 13: (d) {name} on workload 3's target (1e4 x 100-D), "
             f"{n} proposals: {rate:.4e} walker-steps/s, acceptance "
             f"{acc:.4f}, mean lp {mean_lp:.3f} {card}; device "
-            f"{win['device_us_per_proposal']:.1f} us and "
-            f"{win['kernels_per_proposal']:.0f} kernels a proposal (K11 / "
+            f"{measured(win['device_us_per_proposal'])} us and "
+            f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+            f"proposal (K11 / "
             f"K13 in full mode: cuBLAS products and cholesky_ex inside the "
             f"graphs); {replay_counts(counted, profiled, n_prof)}; graph "
             f"chain == plain eager chain (16 proposals)")

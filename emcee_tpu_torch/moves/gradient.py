@@ -35,9 +35,10 @@ The draws (``ops/philox.py``): the noise ``z`` and the momenta at
 uniform K2's (word 1 at ``(walker, split)``), a proposal's step-size
 jitter word 0 at ``(ROLL_LANE, GRAD_BLOCK | split)``, drawn by the
 momenta's K11 launch (a plain Philox call for one scalar is ~110 small
-kernels, ~134 us of device time on an NVIDIA H100 80GB HBM3 at 700 W).  Each move takes
-``extra=`` to inject them (``z``; ``p0`` and the jitter's ``v`` in
-``[-1, 1)``) and the whole-ensemble moves ``log_u=`` (the parity mode).
+kernels, ~134 us of device time on an NVIDIA H100 80GB HBM3 at 700 W).
+Each move takes ``extra=`` to inject them (``z``; ``p0`` and the
+jitter's ``v`` in ``[-1, 1)``) and the whole-ensemble moves ``log_u=``
+(the parity mode).
 
 ChEES's trip count ``ceil(u T / eps)`` (clipped to ``[1,
 max_leapfrog]``) is one device scalar, known before its loop starts, so
