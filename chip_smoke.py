@@ -229,7 +229,28 @@ def profile_window(torch, fn):
             if us is None:
                 us = e.self_cuda_time_total
             kernels[e.key] = (e.count, us)
+    WINDOW_EVENTS[:] = sorted((e.time_range.start, e.name)
+                              for e in prof.events()
+                              if e.device_type == DeviceType.CUDA)
     return wall, kernels
+
+
+#: the card's events of the last profiled window, ``(start, name)`` in
+#: start order, microseconds from the trace's start
+WINDOW_EVENTS = []
+
+
+def window_events_line(names):
+    """Where the last profiled window's card events lie: the first few,
+    and the starts of ``names``' launches (a log line for a window whose
+    counts differ)."""
+    ev = WINDOW_EVENTS
+    first = "; ".join(f"{t:.0f} {name[:28]}" for t, name in ev[:6])
+    starts = {k: [round(t) for t, name in ev if f"{k}_kernel" in name][:4]
+              for k in names}
+    return (f"{len(ev)} events from {ev[0][0]:.0f} to {ev[-1][0]:.0f} us "
+            f"after the trace's start; the first: {first}; the first "
+            f"launches of {starts}" if ev else "no events")
 
 
 def wrappers():
@@ -2307,7 +2328,7 @@ def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
         if complete:
             break
         log(f"  {what}: the profiler counted {counts}, the path launches "
-            f"{want}; window run again")
+            f"{want}; {window_events_line(want)}; window run again")
         time.sleep(0.5)
     if not all(counts[k] for k in want):
         raise AssertionError(f"{what}: no profiled launch of one of "
