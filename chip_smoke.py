@@ -130,9 +130,6 @@ import time
 from pathlib import Path
 
 NW, ND = 100_000, 5
-#: seconds between the profiler's start and a window's work
-#: (:func:`profile_window`)
-PROFILE_PAUSE_S = 0.02
 NW3, ND3 = 10_000, 100  # workload 3 (benchmarks/workload3.py:28-29)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -203,35 +200,48 @@ def cuda_ms(torch, fn, reps=200):
     return start.elapsed_time(end) / reps
 
 
-def profile_window(torch, fn):
+def profile_window(torch, fn, primer=False):
     """Run ``fn`` under ``torch.profiler``; return the wall seconds and
     ``{kernel name: (launches, device microseconds)}`` for every kernel
-    the card ran in the window (empty if the profiler saw none)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the card ran in the window (empty if the profiler saw none).
 
+    With ``primer``, ``fn`` runs once more just before the window, in the
+    same trace, and only the events after the window's mark are kept:
+    late in a long process the profiler loses the first card events of a
+    trace (the first ~30 us of work, window after window, in the whole
+    script; never with phase 13 alone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "profiled window"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if primer:
+            fn()
         torch.cuda.synchronize()
-        # Late in a long process the profiler drops a window's first
-        # kernels (one K11 of 32 MALA proposals, window after window);
-        # the guess is that their device times, put on the host's clock,
-        # fall before the trace's start.  A pause lets the clocks part.
-        time.sleep(PROFILE_PAUSE_S)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function(mark) if primer else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    start = min((e.time_range.start for e in events if e.name == mark),
+                default=-math.inf)
+    cards = [e for e in events if e.device_type == DeviceType.CUDA
+             and e.name != mark and e.time_range.start >= start]
+    WINDOW_EVENTS[:] = sorted((e.time_range.start, e.name) for e in cards)
     kernels = {}
+    if primer:
+        for e in cards:
+            c, us = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (c + 1, us + e.time_range.elapsed_us())
+        return wall, kernels
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             kernels[e.key] = (e.count, us)
-    WINDOW_EVENTS[:] = sorted((e.time_range.start, e.name)
-                              for e in prof.events()
-                              if e.device_type == DeviceType.CUDA)
     return wall, kernels
 
 
@@ -2319,7 +2329,7 @@ def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
     want = {k: v * n for k, v in (names or {}).items()}
     for _ in range(tries):
         if expect is None:
-            wall, kernels = profile_window(torch, run)
+            wall, kernels = profile_window(torch, run, primer=bool(want))
             counts = profiled_counts(kernels)
         else:
             wall, kernels, counts, _ = counted_window(torch, run, expect,
