@@ -67,7 +67,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    through K3, K7 and K6, the diagnostics and ``run_until_converged``;
 11. blobs and io: K2 with blob leaves against its plain version bit for
    bit (six dtypes, five row shapes, 1-3, 17 and 33 leaves, unaligned
-   bases, nsplits 1 and 2, ng 5003 and 50000, staged and direct); the
+   bases, scalar leaves through registers, leaves staged and direct in
+   one launch, a span that does not fit, 1- and 16-byte units, nsplits
+   1 and 2, ng 5003, 50000 and 37, q staged and direct) and the main
+   path's three leaves timed through registers, staged and direct; the
    main path with the blobs tutorial's three blobs (``blobs_dtype``):
    rates with and without blobs in turns, the host ``Backend`` and
    ``DeviceBackend`` from one start (chains and blobs equal), stored
@@ -92,11 +95,14 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    and evaluations; its caps binding); (e) ``DEZMove`` at 8 x 10-D
    (12000 proposals, the moment checks) and at 1e5 x 5-D with its
    1e6-row archive.  ``python3 chip_smoke.py 12`` runs phases 0, 1 and
-   12 alone.
+   12 alone (``11`` likewise phase 11).
 
 13. the gradient moves: (e) K11 (Langevin step), K12 (Hastings /
    kinetic reduction) and K13 (leapfrog) against their plain versions,
-   ``torch.equal``, over ndim 1-128 and 1-1e5 rows in every mode; (a)
+   ``torch.equal``, over ndim 1-128 and 1-1e5 rows in every mode (K11
+   also at unaligned bases and other tiles than its plan's; its tile
+   sweep, its instructions from the compiled kernel, and its time beside
+   the same bytes copied); (a)
    ``bench.py``'s MALA stage (1e5 x 5-D, ``MALAMove(1.0)``,
    ``DeviceBackend``, 500 kept x 2, a warm run and two timed ones; tau,
    ESS/s, device time a proposal and the gradient's share by the
@@ -137,6 +143,15 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # per clock (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) x 1.98 GHz boost clock.
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# H100 SXM instruction issue: 132 SMs x 4 schedulers x one warp
+# instruction (32 threads) a clock x 1.98 GHz boost clock, in
+# thread-instructions a second.
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
+#: an H100 SM's registers and threads (resident blocks a kernel gets)
+SM_REGISTERS, SM_THREADS = 65536, 2048
+#: ``{kernel label: (registers, static shared bytes, spilled bytes)}`` of
+#: every kernel built by this run (phase 1, ``-Xptxas -v``)
+PTXAS = {}
 RTOL = ATOL = 1e-6
 #: walkers per split in the edge-shape sweeps: no tile divides it
 SWEEP_NG = 5003
@@ -157,7 +172,11 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("langevin_kernel", "leapfrog"))
 #: ndims and rows of K11-K13's edge-shape sweep (phase 13)
 GRAD_SWEEP_NDS = (1, 2, 3, 5, 7, 16, 100, 128)
-GRAD_SWEEP_ROWS = (1, 2, 31, 100_000)
+GRAD_SWEEP_ROWS = (1, 2, 31, 5003, 100_000)
+#: K11's tiles (rows a block) swept against its plain version beside the
+#: plan's own (phase 13): one row, a ragged few, the plan's at 1e5 rows,
+#: more than a block's threads
+K11_SWEEP_TILES = (1, 5, 127, 300)
 
 
 def log(msg):
@@ -175,6 +194,164 @@ def smi_line():
 
 def gaussian(x):
     return -0.5 * (x**2).sum(-1)
+
+
+def kernel_label(mangled):
+    """A short name for a mangled kernel: its name and template
+    arguments, e.g. ``langevin_step_kernel<1,1,0>``."""
+    import re
+
+    # A name is its length in decimal, then its characters; a length may
+    # follow other digits (a hash), so each suffix of a digit run is tried.
+    for m in re.finditer(r"\d+", mangled):
+        name = next((n for k in range(len(m.group()))
+                     if (n := mangled[m.end():m.end() + int(m.group()[k:])])
+                     .endswith("_kernel")), "")
+        if name.isidentifier():
+            rest = mangled[m.end() + len(name):]
+            args = re.findall(r"Lb(\d)E|Li(\d+)E|NS_\d+(\w+?)E",
+                              rest.split("EEv")[0]) if rest[:1] == "I" else []
+            args = [re.sub(r"I(j|5uint2)$", lambda m: "<" + {
+                "j": "uint32_t", "5uint2": "uint2"}[m.group(1)] + ">",
+                "".join(a)) for a in args]
+            return name + (f"<{','.join(args)}>" if args else "")
+    return mangled[-60:]
+
+
+def ptxas_table(report):
+    """``{kernel label: (registers, static shared bytes, spill stores)}``
+    from an ``nvcc -Xptxas -v`` report."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out[name] = (int(m.group(1)), int(m.group(2) or 0), spill)
+            name = None
+    return out
+
+
+def resident_blocks(registers, threads, smem=0):
+    """Blocks of ``threads`` an H100 SM holds at once with ``registers`` a
+    thread (allocated in units of 8) and ``smem`` bytes a block."""
+    regs = -(-registers // 8) * 8 * threads
+    return min(SM_THREADS // threads, SM_REGISTERS // regs,
+               (228 * 1024) // max(smem + 1024, 1))
+
+
+def sass_functions(lib):
+    """``{kernel label: [(address, instruction), ...]}`` of a built
+    library, by ``cuobjdump -sass`` (None where the toolkit has none)."""
+    import shutil
+
+    from emcee_tpu_torch.ops._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return None
+    return parse_sass(subprocess.run(
+        [str(tool), "-sass", str(lib)], capture_output=True, text=True,
+        check=True, timeout=120).stdout)
+
+
+def parse_sass(text):
+    """``cuobjdump -sass`` output as ``{kernel label: [(address,
+    instruction), ...]}``."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def branch_target(ins):
+    """The target address of a ``BRA`` instruction, else None."""
+    import re
+
+    m = re.search(r"\bBRA (?:\S+ )?0x([0-9a-f]+)$", ins)
+    return int(m.group(1), 16) if m and ".U.ANY" not in ins else None
+
+
+def loop_paths(instrs):
+    """The instructions one trip through each of a kernel's outermost
+    loops issues on its common path, in address order: from the target of
+    the loop's backward branch, each forward branch taken (the accurate
+    ``cosf``'s and the IEEE ``sqrt``'s slow paths are the code a forward
+    branch skips, loops of their own included), up to and with the
+    backward branch."""
+    at = {a: i for i, (a, _) in enumerate(instrs)}
+    back = [(t, a) for a, ins in instrs
+            if (t := branch_target(ins)) is not None and t < a]
+    outer = [(t, a) for t, a in back
+             if not any(t2 <= t and a <= a2 and (t2, a2) != (t, a)
+                        for t2, a2 in back)]
+    paths = []
+    for start, end in outer:
+        i, path = at[start], []
+        while True:
+            a, ins = instrs[i]
+            path.append(ins)
+            t = branch_target(ins)
+            if a == end:
+                break
+            i = at[t] if t is not None and t > a else i + 1
+        paths.append(path)
+    return paths
+
+
+#: a Philox round's multipliers as SASS writes them (0xD2511F53 and
+#: 0xCD9E8D57 as signed 32-bit immediates)
+PHILOX_MULTIPLIERS = ("-0x2daee0ad", "-0x326172a9")
+
+
+def walker_path(instrs, stop="BAR.SYNC"):
+    """The instructions one walker's thread issues from a kernel's entry
+    to its first ``stop``: at a forward conditional branch it skips what
+    a single thread does for the block (a bulk copy's issue) and, of an
+    if / else, takes the side that draws a Philox block (the in-kernel
+    stream, not injected draws); everything else it runs through."""
+    at = {a: i for i, (a, _) in enumerate(instrs)}
+
+    def has(lo, hi, words):
+        return any(w in ins for _, ins in instrs[lo:hi] for w in words)
+
+    i, path = 0, []
+    while True:
+        a, ins = instrs[i]
+        if ins.startswith(stop):
+            return path
+        path.append(ins)
+        t = branch_target(ins)
+        if t is not None and t > a:
+            j = at[t]
+            if not ins.startswith("@"):
+                i = j
+                continue
+            if has(i + 1, j, ("UBLKCP", "SYNCS")) or (
+                    not has(i + 1, j, PHILOX_MULTIPLIERS)
+                    and has(j, len(instrs), PHILOX_MULTIPLIERS)
+                    and any(branch_target(x) is not None
+                            and not x.startswith("@")
+                            for _, x in instrs[i + 1:j])):
+                i = j
+                continue
+        i += 1
 
 
 def max_err(got, want, rtol=RTOL, atol=ATOL):
@@ -1844,17 +2021,31 @@ def random_leaf(torch, n, row, dtype, gen, offset=0):
     return flat[offset:].view((n,) + tuple(row))
 
 
-def k2_blob_direct(q, f, lp_q, c, l, split, ns, acc, cnt, log_u, blobs):
-    """K2 with blob leaf pairs ``blobs``, q read from device memory (no
-    staging)."""
+#: K2's blob variants in phase 11's sweep: (q staged, leaves staged,
+#: scalar leaves read into registers)
+K2_BLOB_VARIANTS = {"the plan's": (True, True, True),
+                    "q and leaves staged": (True, True, False),
+                    "q direct, leaves staged": (False, True, False),
+                    "q and leaves direct": (False, False, False)}
+
+
+def k2_blob_launch(q, f, lp_q, c, l, split, ns, acc, cnt, log_u, blobs,
+                   stage_q, stage_leaves, row_leaves):
+    """K2 with blob leaf pairs ``blobs``: q staged in shared memory or read
+    directly; the leaves as the plan (``leaf_plan``) chooses, with
+    ``row_leaves`` and ``stage_leaves`` allowing it to read scalar leaves
+    into registers and to stage leaves.  Returns the plan's choice: the
+    leaves' descriptors, the dynamic shared memory and the row unit."""
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
 
     ng, nw = q.shape[0], c.shape[0]
     plan = tile_plan(ng, c.shape[1], split, device_sm_count(c.device),
-                     c.data_ptr(), q.data_ptr())
-    ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, 0, 0, log_u,
-               ak.blob_leaves(blobs, ng, nw, c.device))
+                     c.data_ptr(), q.data_ptr(), stage=stage_q)
+    leaves = ak.blob_leaves(blobs, ng, nw, c.device)
+    ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, 0, 0, log_u, leaves,
+               stage_leaves, row_leaves)
+    return ak.leaf_plan(leaves, plan, stage_leaves, row_leaves)
 
 
 def k2_blob_sweep(torch, dev):
@@ -1863,12 +2054,18 @@ def k2_blob_sweep(torch, dev):
     leaf's buffer compared as bytes, so NaN payloads count): leaf dtypes
     float32, float64, float16, int32, int64 and bool; row shapes (),
     (1,), (3,), (2, 2), (7,); one leaf of each, two and three leaves of
-    mixed kinds, leaves whose bases are not aligned to their unit, and
-    17 and 33 leaves (beyond the launch's 16: blob-only launches);
-    ``nsplits`` 1 and 2 with both splits; ``ng`` 5003 (odd, no tile
-    divides it) and the main path's 50000; the wrapper (q staged in
-    shared memory) and the direct variant.  Returns the number of
-    comparisons."""
+    mixed kinds, leaves whose bases are not aligned to their unit, staged
+    and direct leaves in one launch, a leaf whose tile span does not fit
+    in shared memory (and a smaller one staged after it), 1-byte and
+    16-byte units, scalar leaves read into registers (the main path's
+    three; eight 8-byte ones; nine, one too many; 4- and 8-byte mixed),
+    and 17 and 33 leaves (beyond the launch's 16: blob-only launches);
+    ``nsplits`` 1 and 2 with both splits; ``ng`` 5003 (no tile divides
+    it: the last tile stages a prefix of a span), the main path's 50000
+    and 37 (tile 4: spans that are not a multiple of 16 bytes); each of
+    ``K2_BLOB_VARIANTS``.  Returns the number of comparisons and the
+    leaves of the launches' first groups seen read into registers
+    (``rows``), staged and direct."""
     from emcee_tpu_torch.ops import accept_kernel as ak
 
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -1879,15 +2076,29 @@ def k2_blob_sweep(torch, dev):
     sets += [[kinds[i], kinds[(5 * i + 1) % len(kinds)],
               kinds[(11 * i + 7) % len(kinds)]]
              for i in range(0, len(kinds), 3)]
-    unaligned = [[(d, r, 1) for d, r in
-                  (("float16", (3,)), ("float32", (2, 2)),
-                   ("float64", (7,)), ("int32", ()))]]
+    # (dtype, row, elements past an aligned base)
+    edges = [
+        [("float16", (3,), 1), ("float32", (2, 2), 1), ("float64", (7,), 1),
+         ("int32", (), 1)],  # unaligned bases: all direct
+        [("float32", (), 0), ("float32", (3,), 1), ("int64", (2,), 0),
+         ("bool", (7,), 1), ("int32", (), 0)],  # staged and direct
+        [("float32", (100,), 0)],  # 51200 bytes a tile of 128: no room
+        [("float32", (60,), 0), ("float32", (60,), 0),
+         ("int32", (), 0)],  # the second does not fit, the third does
+        [("bool", (), 0), ("bool", (3,), 0), ("float64", (2,), 0),
+         ("float32", (4,), 0)],  # 1-byte and 16-byte units
+        [("float32", (), 0), ("float32", (), 0), ("int32", (), 0)],  # rows
+        [("float64", (), i % 2) for i in range(4)]
+        + [("int64", (1,), 0)] * 4,  # eight 8-byte rows
+        [("float32", (), 0)] * 9,  # one too many for registers
+        [("float32", (), 0), ("float64", (), 0)],  # two units: staged
+    ]
     big = [[kinds[i % len(kinds)] for i in range(n)] for n in (17, 33)]
     nd = ND
     n_cmp = 0
-    direct = k2_blob_direct
+    seen = {"rows": 0, "staged": 0, "direct": 0}
 
-    for ng in (SWEEP_NG, NW // 2):
+    for ng in (SWEEP_NG, NW // 2, 37):
         for ns, split in ((1, 0), (2, 0), (2, 1)):
             nw = ng * ns
             coords = torch.randn(nw, nd, device=dev, generator=gen)
@@ -1897,14 +2108,14 @@ def k2_blob_sweep(torch, dev):
             lp_q = gaussian(q)
             f = torch.zeros(ng, device=dev)
             log_u = torch.log(torch.rand(ng, device=dev, generator=gen))
-            for leafset in sets + unaligned + big:
+            for leafset in sets + edges + big:
                 spec = [k if len(k) == 3 else k + (0,) for k in leafset]
                 news = [random_leaf(torch, ng, r, d, gen, off)
                         for d, r, off in spec]
                 bufs = [random_leaf(torch, nw, r, d, gen, off)
                         for d, r, off in spec]
                 outs = []
-                for fn in (ak.accept_select, direct, ak.accept_select_plain):
+                for variant in (*K2_BLOB_VARIANTS, "plain"):
                     c, l = coords.clone(), lp.clone()
                     acc = torch.zeros(nw, dtype=torch.bool, device=dev)
                     cnt = torch.zeros(nw, dtype=torch.int32, device=dev)
@@ -1914,12 +2125,17 @@ def k2_blob_sweep(torch, dev):
                         copy.copy_(b)
                         bs.append(copy)
                     pairs = list(zip(news, bs))
-                    if fn is direct:
-                        fn(q, f, lp_q, c, l, split, ns, acc, cnt, log_u,
-                           pairs)
+                    if variant == "plain":
+                        ak.accept_select_plain(q, f, lp_q, c, l, split, ns,
+                                               acc, cnt, log_u=log_u,
+                                               blobs=pairs)
                     else:
-                        fn(q, f, lp_q, c, l, split, ns, acc, cnt,
-                           log_u=log_u, blobs=pairs)
+                        descs, _, row_unit = k2_blob_launch(
+                            q, f, lp_q, c, l, split, ns, acc, cnt, log_u,
+                            pairs, *K2_BLOB_VARIANTS[variant])
+                        for desc in descs[:ak.BLOB_CAPACITY]:
+                            seen["rows" if row_unit else "staged"
+                                 if desc[4] >= 0 else "direct"] += 1
                     outs.append(((c, l, acc, cnt),
                                  [b.reshape(-1).view(torch.uint8)
                                   for b in bs]))
@@ -1927,7 +2143,7 @@ def k2_blob_sweep(torch, dev):
                 if not 0 < int(want[2].sum()) < ng:
                     raise AssertionError("phase 11: K2 sweep acceptance is "
                                          "all or nothing")
-                for variant, (got, gleaves) in zip(("wrapper", "direct"),
+                for variant, (got, gleaves) in zip(K2_BLOB_VARIANTS,
                                                    outs[:-1]):
                     n_cmp += 1
                     if not (all(torch.equal(a, b) for a, b in zip(got, want))
@@ -1937,7 +2153,33 @@ def k2_blob_sweep(torch, dev):
                             f"phase 11: K2 with blob leaves {spec}, ng {ng},"
                             f" nsplits {ns}, split {split}, {variant}: "
                             "kernel and plain version differ")
-    return n_cmp
+    torch.cuda.synchronize()
+    return n_cmp, seen
+
+
+def k2_leaf_sweep(torch, q, f, lp_q, work, pairs, reps=200):
+    """K2 on the proposal ``(q, f, lp_q)`` of split 0 with blob leaf pairs
+    ``pairs``, each of their paths on fresh copies of ``work`` (coords,
+    log_prob, accepted, count): the plan's (scalar leaves in registers),
+    the leaves staged in shared memory, read directly, and no leaves.
+    Eager launches profiled, the paths in turns, up then down, averaged.
+    Returns ``{path: device us a launch}``."""
+    bufs = [w.clone() for w in work]
+    paths = {"registers": (True, True, True), "staged": (True, True, False),
+             "direct": (True, False, False), "no leaves": None}
+
+    def run(mode):
+        for b, w in zip(bufs, work):
+            b.copy_(w)
+        k2_blob_launch(q, f, lp_q, bufs[0], bufs[1], 0, 2, bufs[2], bufs[3],
+                       None, pairs if mode else [], *(mode or (True,) * 3))
+
+    got = {}
+    for name in list(paths) + list(paths)[::-1]:
+        got.setdefault(name, []).append(profiled_ms(
+            torch, lambda: [run(paths[name]) for _ in range(reps)],
+            "accept_select") * 1e3)
+    return {k: sum(v) / len(v) for k, v in got.items()}
 
 
 def blob_subset_check(torch, np, smp, steps):
@@ -1985,20 +2227,28 @@ def phase11(torch, np, dev, card):
     from emcee_tpu_torch import EnsembleSampler, moves
     from emcee_tpu_torch.backends import Backend, DeviceBackend
     from emcee_tpu_torch.chunk_graph import ChunkProgram
+    from emcee_tpu_torch.ops import _build
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops import stretch_kernel as sk
+    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
 
     out = {}
     # -- (a) K2 with blob leaves ---------------------------------------------
     t0 = time.perf_counter()
-    n_cmp = k2_blob_sweep(torch, dev)
-    out["k2_blob_comparisons"] = n_cmp
+    n_cmp, seen = k2_blob_sweep(torch, dev)
+    out["k2_blob_comparisons"], out["k2_blob_leaves_seen"] = n_cmp, seen
     log(f"phase 11: K2 with blob leaves (float32, float64, float16, int32, "
         f"int64, bool; rows (), (1,), (3,), (2, 2), (7,); 1-3, 17 and 33 "
-        f"leaves; unaligned bases; nsplits 1 and 2, both splits; ng "
-        f"{SWEEP_NG} and {NW // 2}; staged and direct): {n_cmp} "
-        f"comparisons with its plain version, all identical "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"leaves; unaligned bases; staged and direct leaves in one launch; "
+        f"a span that does not fit; 1- and 16-byte units; nsplits 1 and 2, "
+        f"both splits; ng {SWEEP_NG}, {NW // 2} and 37; "
+        f"{', '.join(K2_BLOB_VARIANTS)}): {n_cmp} comparisons with its "
+        f"plain version, all identical; leaves of the launches' first "
+        f"groups in registers {seen['rows']}, staged {seen['staged']}, "
+        f"direct {seen['direct']} ({time.perf_counter() - t0:.1f} s)")
+    if not all(seen.values()):
+        raise AssertionError(f"phase 11: the sweep did not reach both leaf "
+                             f"paths: {seen}")
 
     # -- (b) the main path with blobs ----------------------------------------
     mv = moves.StretchMove(randomize_split=False, pair_mode="roll")
@@ -2085,13 +2335,14 @@ def phase11(torch, np, dev, card):
     n_prof = 320
     k2_us, busy_us = {}, {}
     for label, smp in (("no blobs", plain), ("blobs", blob)):
-        # The instantiation's Blobs type names the variant.
-        key = "BlobLeaves>" if label == "blobs" else "NoBlobs>"
+        # The instantiation's Blobs type names the variant (NoBlobs, or
+        # BlobRows / BlobLeaves).
         for attempt in range(3):
             _, kernels = profile_window(
                 torch, lambda: drive(smp, None, n_prof, store=False))
             hits = [(c, us) for k, (c, us) in kernels.items()
-                    if "accept_select_kernel<" in k and key in k]
+                    if "accept_select_kernel<" in k
+                    and ("NoBlobs>" in k) == (label == "no blobs")]
             n = sum(c for c, _ in hits)
             if any("accept_blobs_only_kernel" in k for k in kernels):
                 raise AssertionError("phase 11: a blob-only K2 launch on "
@@ -2139,26 +2390,62 @@ def phase11(torch, np, dev, card):
     blob_row = 12  # three 4-byte leaves
     nbytes = (4 * ng * 3 + ng + n_acc * (4 * ND + 4 * (ND + 1) + 8)
               + n_acc * 2 * blob_row)
-    nops = ng * (10 * 10 + 6)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    # Instructions: a walker's path through phase A (the accept uniform's
+    # Philox block, logf, the decision) in the compiled kernel, once a
+    # walker, at the card's issue rate; phases B and C are not counted.
+    plan = tile_plan(ng, ND, 0, device_sm_count(dev), work[0].data_ptr(),
+                     q.data_ptr(), stage=True)
+    leaves, smem, row_unit = ak.leaf_plan(
+        ak.blob_leaves(pairs, ng, NW, work[0].device), plan)
+    sweep = k2_leaf_sweep(torch, q, f, lp_q, work, pairs)
+    sass = sass_functions(_build._lib_path("accept_select"))
+    blobs_type = {4: "BlobRows<uint32_t>", 8: "BlobRows<uint2>",
+                  0: "BlobLeaves"}[row_unit]
+    label = f"accept_select_kernel<{plan.vec},{plan.stage},{blobs_type}>"
+    n_ins = len(walker_path(sass[label])) if sass else None
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    if n_ins:
+        t["instructions"] = n_ins * ng / ISSUE_PER_S * 1e3
+    by = max(t, key=t.get)
+    regs = PTXAS.get(label)
+    waves = (plan.grid / (device_sm_count(dev) * resident_blocks(
+        regs[0], 256, regs[1] + smem)) if regs else None)
+    log(f"phase 11: K2 with the main path's three blob leaves, eager "
+        f"launches profiled, in turns: " + ", ".join(
+            f"{k} {v:.3f} us" for k, v in sweep.items()) + f" {card}")
     row = {
         "name": "accept_select_blobs", "route": "cuda",
         "source": "emcee_tpu_torch/csrc/accept_select.cu",
         "replaces": "emcee_tpu/moves/red_blue.py:200",
         "launches": blob_launches["accept_select"], "max_abs_err": 0.0,
         "ms": k2_us["blobs"] * 1e-3, "call_ms": call_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
+        "bound_bytes_ms": t["bytes"],
+        "bound_instructions_ms": t.get("instructions"),
+        "instructions_per_walker": n_ins,
         "library_ms": None, "ms_without_blobs": k2_us["no blobs"] * 1e-3,
-        "blob_leaves": 3, "comparisons": n_cmp, "ported": "PR 7",
+        "blob_leaves": 3, "row_unit": row_unit,
+        "staged_leaves": sum(d[4] >= 0 for d in leaves),
+        "smem_bytes": smem, "ptxas": regs, "waves": waves,
+        "leaf_sweep_us": sweep,
+        "comparisons": n_cmp,
+        "note": "ms_without_blobs: the blob-free K2 in the same windows; "
+                "bound: the larger of the bytes (each input read once, "
+                "each output written once) at 3.35 TB/s and a walker's "
+                "instructions through phase A (SASS) at the issue rate",
     }
     log(f"phase 11: K2 with three blob leaves: device "
         f"{row['ms'] * 1e3:.3f} us/launch (without blobs "
         f"{k2_us['no blobs']:.3f}), {call_ms * 1e3:.2f} us per back-to-back "
         f"call, plain {plain_ms * 1e3:.2f} us, bound "
-        f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} bytes, {n_acc} of {ng} "
-        f"accepted, {row['bound_by']}) {card}")
+        f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}; bytes "
+        f"{t['bytes'] * 1e3:.3f} us: {nbytes} bytes, {n_acc} of {ng} "
+        f"accepted; instructions "
+        f"{measured(t.get('instructions') and t['instructions'] * 1e3, '.3f')}"
+        f" us: {n_ins} a walker through phase A); leaves in registers "
+        f"(row unit {row_unit}), {row['staged_leaves']} of 3 staged, "
+        f"{smem} bytes of dynamic shared memory, {label} {regs} (registers,"
+        f" static shared, spilled), {measured(waves, '.3f')} waves {card}")
 
     # -- (c) io_dtype float16 --------------------------------------------------
     kept16, thin16 = 20, 5
@@ -2995,7 +3282,9 @@ def grad_kernel_sweep(torch, dev):
     over ``GRAD_SWEEP_NDS`` x ``GRAD_SWEEP_ROWS``: K11's draws (host and
     device offset words, rows from 0 and 17; with the jitter's ``v``
     beside drawn and injected normals, and alone) and its MALA step (the
-    identity and a diagonal preconditioner, drawn and injected ``z``),
+    identity and a diagonal preconditioner, drawn and injected ``z``,
+    rows from 3, and x, g and z at bases 4 bytes past 16-byte alignment,
+    as a split half may be), K11 at every tile of ``K11_SWEEP_TILES``,
     K12 in kinetic mode and in MALA mode (with and without ``c`` and
     ``d``), K13 with 0, 1 and 2 kicks, with and without the drift, both
     metrics, into new buffers and in place.  Returns the number of
@@ -3038,6 +3327,7 @@ def grad_kernel_sweep(torch, dev):
                                       row0=row0, z=zin, v=v, v_split=split)
                             outs.append((z, v))
                         same(outs[0], outs[1], f"K11 draw and v {what}")
+            xm, gm, zm = (misaligned(torch, t) for t in (x, g, z))
             for dd in (None, d):
                 for zin in (None, z):
                     kw = dict(seed=4, offset=11, row0=3, z=zin, x=x, g=g,
@@ -3045,6 +3335,10 @@ def grad_kernel_sweep(torch, dev):
                     same(lk.langevin_step((n, nd), dev, **kw),
                          lk.langevin_step_plain((n, nd), dev, **kw),
                          f"K11 MALA {what}")
+                    kw.update(x=xm, g=gm, z=None if zin is None else zm)
+                    same(lk.langevin_step((n, nd), dev, **kw),
+                         lk.langevin_step_plain((n, nd), dev, **kw),
+                         f"K11 MALA {what}, unaligned bases")
                 for cc in (None, c):
                     same((lk.langevin_factor(z, g, cc, eps=eps, d=dd),),
                          (lk.langevin_factor_plain(z, g, cc, eps=eps,
@@ -3079,8 +3373,39 @@ def grad_kernel_sweep(torch, dev):
             outs.append((fn((0, nd), dev, seed=2, offset=DeviceOffset(word, 1),
                             v=v, v_split=1)[0], v))
         same(outs[0], outs[1], f"K11 v with no rows, ndim {nd}")
+    # K11 at other tiles than its plan's: every mode, row0 17.
+    for n, nd in ((100_000, 5), (5003, 100), (31, 7), (1000, 128)):
+        x, g, z = (torch.randn(n, nd, device=dev, generator=gen)
+                   for _ in range(3))
+        d = torch.rand(nd, device=dev, generator=gen) + 0.5
+        eps = torch.rand((), device=dev, generator=gen) + 0.2
+        for tile in K11_SWEEP_TILES:
+            plan = lk.LangevinPlan(tile, -(-n // tile))
+            for kw in (dict(), dict(x=x, g=g, eps=eps),
+                       dict(x=x, g=g, eps=eps, d=d),
+                       dict(x=x, g=g, eps=eps, z=z)):
+                want = lk.langevin_step_plain((n, nd), dev, seed=6, offset=7,
+                                              row0=17, **kw)
+                zin = kw.get("z")
+                z_out = None if zin is not None else torch.empty_like(x)
+                q = torch.empty_like(x) if "x" in kw else None
+                v = torch.empty((), device=dev)
+                lk._launch(plan, dev, kw.get("x"), kw.get("g"), kw.get("d"),
+                           kw.get("eps"), zin, z_out, q, v, 2, n, nd, 17, 6,
+                           7)
+                same((z_out if zin is None else zin, q, v),
+                     (*want, grad_v(torch, lk, dev, 6, 7, 2)),
+                     f"K11 {n} x {nd} at tile {tile}, {sorted(kw)}")
     torch.cuda.synchronize()
     return n_cmp
+
+
+def grad_v(torch, lk, dev, seed, offset, split):
+    """The plain jitter ``v`` of ``split`` (K11's ``v_out``)."""
+    v = torch.empty((), device=dev)
+    lk.langevin_step_plain((0, 1), dev, seed=seed, offset=offset, v=v,
+                           v_split=split)
+    return v
 
 
 def counted_replays(torch, dev, smp, n, expect, what, **kw):
@@ -3431,6 +3756,74 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
     return res
 
 
+def k11_yardsticks(torch, dev, x, g, eps, reps=100):
+    """K11's MALA step at ``x``'s shape beside two same-bytes yardsticks
+    in one profiled window, each ``reps`` times in turns: the copies
+    ``q.copy_(x)``, ``z.copy_(g)`` (x and g read, q and z written: K11's
+    bytes; torch hands a contiguous copy to the copy engine) and the
+    elementwise ``torch.mul(x, 1.0, out=q)``, ``torch.mul(g, 1.0,
+    out=z)`` (the same bytes through the SMs).  Returns device us a
+    launch of K11 and a pair of each yardstick."""
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+
+    n, nd = x.shape
+    q, z = torch.empty_like(x), torch.empty_like(x)
+
+    def turn():
+        lk.langevin_step((n, nd), dev, seed=1, offset=2, x=x, g=g, eps=eps)
+        q.copy_(x)
+        z.copy_(g)
+        torch.mul(x, 1.0, out=q)
+        torch.mul(g, 1.0, out=z)
+
+    turn()
+    _, kernels = profile_window(torch, lambda: [turn() for _ in range(reps)])
+    got = {"k11": [0, 0.0], "copy": [0, 0.0], "mul": [0, 0.0]}
+    for name, (c, t) in kernels.items():
+        key = ("k11" if "langevin_step_kernel" in name
+               else "copy" if "Memcpy" in name or "copy" in name.lower()
+               else "mul" if "elementwise" in name else None)
+        if key:
+            got[key][0] += c
+            got[key][1] += t
+    # A pair of each yardstick moves K11's bytes; the profiler's own
+    # count of each, since it may drop an event.
+    return {k: (t / c * (1 if k == "k11" else 2) if c else None)
+            for k, (c, t) in got.items()}
+
+
+def k11_tile_sweep(torch, dev, shapes=((NW, ND), (5000, 100)), reps=100):
+    """K11's MALA step (drawn z, no d) at the tiles that make the grid one
+    wave at 2-8 blocks an SM, and the plan's, at ``shapes``: eager
+    launches profiled, the tiles swept up then down and averaged.
+    Returns ``{shape: {tile: (grid, us)}}`` and the plan's tiles."""
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+    from emcee_tpu_torch.ops._wrap import device_sm_count
+
+    n_sm = device_sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    eps = torch.tensor(0.7, device=dev)
+    got, plans = {}, {}
+    for n, nd in shapes:
+        x, g = (torch.randn(n, nd, device=dev, generator=gen)
+                for _ in range(2))
+        z, q = torch.empty_like(x), torch.empty_like(x)
+        plans[(n, nd)] = lk.langevin_plan(n, n_sm).tile
+        tiles = sorted({-(-n // (n_sm * b)) for b in range(2, 9)}
+                       | {plans[(n, nd)]})
+        res = {}
+        for tile in tiles + tiles[::-1]:
+            plan = lk.LangevinPlan(tile, -(-n // tile))
+            fn = lambda: lk._launch(plan, dev, x, g, None, eps, None, z, q,
+                                    None, 0, n, nd, 0, 1, 2)
+            res.setdefault(tile, []).append(profiled_ms(
+                torch, lambda: [fn() for _ in range(reps)],
+                "langevin_step") * 1e3)
+        got[(n, nd)] = {t: (-(-n // t), sum(v) / len(v))
+                        for t, v in res.items()}
+    return got, plans
+
+
 def phase13_rows(torch, dev, out, card):
     """The K11-K13 rows of the kernel table at the MALA stage's shape (1e5
     x 5): device time a launch inside the replays (profiler: K11 and K12
@@ -3456,13 +3849,11 @@ def phase13_rows(torch, dev, out, card):
             lambda: lk.leapfrog(p, g, eps, kicks=2, x=x),
             lambda: lk.leapfrog_plain(p, g, eps, kicks=2, x=x)),
     }
-    philox = 100 + 40  # ten rounds of ~10 integer operations, Box-Muller
     elems = NW * ND
     # Each input read once, each output written once; float32 words.
     work = {
-        # x, g in; z, q out; a Philox block and two normals a column pair
-        "langevin_step": (4 * 4 * elems,
-                          NW * (ND + 1) // 2 * philox + 8 * elems),
+        # x, g in; z, q out (K11's operations: instructions, below)
+        "langevin_step": (4 * 4 * elems, 0),
         # z, g_x, g_q in; the factors out; ~9 operations an element
         "langevin_factor": (4 * (3 * elems + NW), 9 * elems),
         # x, p, g in; x, p out (two kicks and the drift); 5 operations
@@ -3486,14 +3877,52 @@ def phase13_rows(torch, dev, out, card):
     log(f"phase 13: langevin_step, eager launches profiled: draw only "
         f"{k11_modes['draw'] * 1e3:.2f} us, MALA step "
         f"{k11_modes['mala'] * 1e3:.2f} us a launch {card}")
+    # K11's instructions: one trip through the MALA step's loop (a (row,
+    # column pair) item) in the compiled kernel, times the items, at the
+    # card's issue rate.
+    from emcee_tpu_torch.ops import _build
+    from emcee_tpu_torch.ops._wrap import device_sm_count
+
+    label = "langevin_step_kernel<1,1,0>"
+    sass = sass_functions(_build._lib_path("langevin_step"))
+    # One loop, a trip an item (a row's column pair, both normals drawn).
+    paths = loop_paths(sass[label]) if sass else None
+    if paths is not None and len(paths) != 1:
+        raise AssertionError(f"phase 13: {label}: {len(paths)} outermost "
+                             f"loops in its SASS, expected 1")
+    items = NW * ((ND + 1) // 2)
+    n_item = len(paths[0]) if paths else None
+    n_ins = n_item * items if paths else None
+    k11_plan = lk.langevin_plan(NW, device_sm_count(dev))
+    regs = PTXAS.get(label)
+    waves = (k11_plan.grid / (device_sm_count(dev) * resident_blocks(
+        regs[0], lk.LANGEVIN_THREADS)) if regs else None)
+    yard = k11_yardsticks(torch, dev, x, g, eps)
+    sweep, sweep_plans = k11_tile_sweep(torch, dev)
+    log(f"phase 13: langevin_step {label}: {n_item} instructions an item "
+        f"(SASS, the loop's common path), {items} items; {regs} (registers,"
+        f" static shared, spilled); plan {tuple(k11_plan)} (tile, grid), "
+        f"{measured(waves, '.3f')} waves; in one window: K11 "
+        f"{measured(yard['k11'], '.3f')} us, the same bytes copied "
+        f"(q.copy_(x), z.copy_(g)) {measured(yard['copy'], '.3f')} us, "
+        f"multiplied by 1 on the SMs {measured(yard['mul'], '.3f')} us "
+        f"{card}")
+    for shape, res in sweep.items():
+        log(f"phase 13: langevin_step MALA tile sweep at {shape} (plan's "
+            f"tile {sweep_plans[shape]}): " + ", ".join(
+                f"{t} rows x {gr} blocks {us:.3f} us"
+                for t, (gr, us) in sorted(res.items())) + f" {card}")
     rows = []
     for kname, (kernel, plain) in calls.items():
         src, jax_src, path = meta[kname]
         call_ms = cuda_ms(torch, kernel)
         plain_ms = cuda_ms(torch, plain, reps=20)
         nbytes, nops = work[kname]
-        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": nops / F32_OPS_PER_S * 1e3}
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        if kname != "langevin_step":
+            t["operations"] = nops / F32_OPS_PER_S * 1e3
+        elif n_ins:
+            t["instructions"] = n_ins / ISSUE_PER_S * 1e3
         by = max(t, key=t.get)
         ms = out[path]["ms_per_launch"][kname]
         n_cnt = out[path]["proposals_counted"]
@@ -3514,8 +3943,23 @@ def phase13_rows(torch, dev, out, card):
                        "library_ms: none, no single PyTorch call computes "
                        "it"}
         if kname == "langevin_step":
-            row.update(ms_draw_only_eager=k11_modes["draw"],
-                       ms_mala_eager=k11_modes["mala"])
+            row.update(
+                ms_draw_only_eager=k11_modes["draw"],
+                ms_mala_eager=k11_modes["mala"],
+                bound_bytes_ms=t["bytes"],
+                bound_instructions_ms=t.get("instructions"),
+                instructions_per_item=n_item, items=items,
+                plan=tuple(k11_plan), ptxas=regs, waves=waves,
+                yardstick_us=yard,
+                tile_sweep_us={f"{n}x{nd}": {t_: us for t_, (_, us)
+                                             in res.items()}
+                               for (n, nd), res in sweep.items()})
+            row["note"] += (
+                "; bound: the larger of the bytes at 3.35 TB/s and the "
+                "loop's instructions an item (SASS) times the items at "
+                "the issue rate; yardstick_us: K11 beside the same bytes "
+                "copied (copy engine) and multiplied by 1 (SMs) in one "
+                "window, the card's practical byte floor")
         rows.append(row)
         log(f"phase 13: {kname}: device {ms * 1e3:.2f} us/launch in the "
             f"{path} replays, {call_ms * 1e3:.2f} us per back-to-back call, "
@@ -3575,17 +4019,20 @@ def main() -> int:
     log(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
     for k, rep in reports.items():
-        for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {k}: {line.strip()}")
+        PTXAS.update(ptxas_table(rep))
+        for fn, (regs, smem, spill) in ptxas_table(rep).items():
+            log(f"  ptxas {k}: {fn}: {regs} registers, {smem} bytes static "
+                f"shared memory, {spill} bytes spilled")
 
-    if sys.argv[1:] in (["12"], ["13"]):
-        # Phase 12 or 13 alone (a first check of the extension or the
-        # gradient moves).
+    if sys.argv[1:] in (["11"], ["12"], ["13"]):
+        # Phase 11, 12 or 13 alone (a first check of the blobs, the
+        # extension or the gradient moves).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
-        phase = phase12 if sys.argv[1] == "12" else phase13
+        phase = {"11": phase11, "12": phase12, "13": phase13}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
+        rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
+                      else rows_alone)
         log(f"phase {sys.argv[1]}: {time.perf_counter() - t0:.1f} s in all")
         log(f"nvidia-smi: {smi}")
         log(json.dumps({"kernels": rows_alone}))

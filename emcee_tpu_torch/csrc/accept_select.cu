@@ -62,19 +62,55 @@
 // mask; moves/base.py:103-126 for MH and Gaussian).  A leaf is any dtype
 // of any row shape: to the kernel it is a byte row per walker.  Each
 // leaf reaches the kernel as a descriptor in a struct passed by value
-// (the split's new rows, the ensemble buffer, the row's bytes and an
-// access unit), so a graph records it with the launch.  Phase C, after
-// phase B, copies each leaf's tile span (tile x row_bytes contiguous
-// bytes) as a masked stream of units: the unit is the largest of 16, 8,
+// (the split's new rows, the ensemble buffer, the row's bytes, an access
+// unit and its place in shared memory), so a graph records it with the
+// launch.  A leaf's tile span (tile x row_bytes contiguous bytes) is
+// copied as a masked stream of units: the unit is the largest of 16, 8,
 // 4, 2, 1 bytes that divides both bases and the row (ops/accept_kernel.py
-// blob_unit), so no unit straddles two walkers' rows and unit k belongs
-// to walker k / (row_bytes / unit), whose acc is in shared memory.  The
-// main path's three 4-byte leaves take 4-byte units.  A launch takes up
-// to kMaxLeaves leaves; the entry point launches the rest in groups of
-// kMaxLeaves by a blob-only kernel that reads the split's `accepted`.
-// Without blob leaves the entry point launches the blob-free
-// instantiation (Blobs = NoBlobs, an empty struct): phase A and B are the
-// same source, and phase C is compiled out.
+// blob_unit), so no unit straddles two walkers' rows.
+//
+// What bounds the blob leaves on an H100: latency and instructions, not
+// bytes.  Their bytes are few (the main path's three 4-byte leaves: 1.5
+// KB a tile of 128 walkers, 0.2 us of the launch's 0.8 us byte bound).
+// The first design read each leaf's source rows after the accept
+// decision, leaf after leaf, each leaf's descriptor by an indexed load
+// from the kernel parameters, and its units with a division each: +1.5
+// us for three leaves.  Two paths now, chosen by the launch plan
+// (ops/accept_kernel.py leaf_plan):
+//   * Row leaves (Blobs = BlobRows<U>): up to kRowLeaves leaves whose rows
+//     are each one 4- or 8-byte unit (scalar blobs: the main path's
+//     three).  Each walker's thread loads its row of every leaf into
+//     registers at block start, with static parameter offsets, so the
+//     loads overlap the Philox draw (rejected rows are read too), and
+//     stores them beside its log_prob when it accepts: no phase C, no
+//     shared memory, no barrier.  chip_smoke.py phase 11 times it against
+//     the staged and direct paths on the main path's leaves.
+//   * Any other leaves (Blobs = BlobLeaves), phase C:
+//     - At block start the last warps' threads copy the leaf table (32
+//       bytes a leaf) from the parameters into shared memory, a word a
+//       thread; phase C reads a leaf's fields from there.
+//     - One thread that has no walker at a tile of 128 (warp 7's first
+//       lane, kLeafIssuer) arms an mbarrier of the leaves' own for the sum
+//       of their bytes and issues one bulk copy of each staged leaf's tile
+//       span into shared memory after q's.  The copies overlap phases A
+//       and B; q's copy is issued by thread 0 at once, as without blobs.
+//     - Phase C waits for that barrier and stores every leaf in one pass,
+//       the staged ones from shared memory.  A thread walks its units as
+//       (walker, unit in the row), stepped by the block's width with a
+//       multiplier the plan computes, so no unit needs a division.
+//     - The plan stages a leaf of the launch's first group whose source
+//       base is 16-byte aligned, whose tile span is a multiple of 16
+//       bytes, and whose span still fits in shared memory beside q and
+//       the leaves before it; it never shrinks the tile for a leaf.  The
+//       last tile stages the 16-byte prefix of its span and reads the
+//       rest directly.  Any other leaf is read after the decision.
+// A launch takes up to kMaxLeaves leaves; the entry point launches the
+// rest in groups of kMaxLeaves by a blob-only kernel that reads the
+// split's `accepted` (direct, never staged).  Without blob leaves the
+// entry point launches the blob-free instantiation (Blobs = NoBlobs, an
+// empty struct): phases A and B and its staging of q are the same source,
+// phase C is compiled out, and its machine code is the same as before
+// phase C was added.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,17 +123,23 @@ namespace {
 
 constexpr int kThreads = 256;  // TILE_MAX in ops/_wrap.py
 constexpr int kMaxLeaves = 16;  // BLOB_CAPACITY in ops/accept_kernel.py
+constexpr int kRowLeaves = 4;  // ROW_LEAVES in ops/accept_kernel.py
 
 }  // namespace
 
 // One blob leaf (the layout of ops/accept_kernel.py _BlobLeaf): the
 // split's new rows (ng, *shape), the ensemble buffer (nwalkers, *shape),
-// the bytes of one walker's row, and the access unit in bytes.
+// the bytes of one walker's row, the access unit in bytes, the byte
+// offset of its tile span in the block's dynamic shared memory (-1: not
+// staged, read from src), and ceil(2^24 / units a row), which divides a
+// unit index below 2^8 by the units of a row exactly as (k * inv) >> 24.
 struct BlobLeaf {
   const unsigned char* src;
   unsigned char* dst;
   int row_bytes;
   int unit;
+  int smem;
+  uint32_t inv_upr;
 };
 
 namespace {
@@ -107,37 +149,124 @@ struct BlobLeaves {
   BlobLeaf leaf[kMaxLeaves];
 };
 
+// Up to kRowLeaves leaves whose rows are each one unit U (4 or 8 bytes:
+// scalar blobs), read into registers.
+template <typename U>
+struct BlobRows {
+  using Unit = U;
+  int n;
+  BlobLeaf leaf[kRowLeaves];
+};
+
+template <typename T>
+struct IsRows : std::false_type {};
+template <typename U>
+struct IsRows<BlobRows<U>> : std::true_type {};
+
+// A row-leaf kernel's register of each leaf (a byte elsewhere, unused).
+template <typename T>
+struct RowUnit {
+  using type = unsigned char;
+};
+template <typename U>
+struct RowUnit<BlobRows<U>> {
+  using type = U;
+};
+
+// A thread that has no walker in phase A at the main path's tile of 128
+// (warp 7's first lane): it stages the blob leaves.
+constexpr int kLeafIssuer = kThreads - 32;
+
+// The blob kernel's shared state: the launch's leaf table (read from the
+// kernel parameters once a block, at block start, so phase C's reads of
+// a leaf's fields are shared-memory loads and not indexed parameter loads,
+// each of which can miss the constant cache), and the mbarrier of the
+// leaves' bulk copies.
+struct BlobShared {
+  BlobLeaf leaf[kMaxLeaves];
+  uint64_t bar;
+};
+
+__device__ __forceinline__ BlobShared& blob_shared() {
+  __shared__ BlobShared s;
+  return s;
+}
+
 // The blob-free kernel's Blobs: no leaves.
 struct NoBlobs {};
 
+// The bytes of a tile of `cnt` walkers that the block stages for `leaf`:
+// the 16-byte prefix of its span, or none for a leaf the plan leaves
+// direct.
+__device__ __forceinline__ uint32_t staged_bytes(const BlobLeaf& leaf,
+                                                 int cnt) {
+  return leaf.smem < 0 ? 0u
+                       : static_cast<uint32_t>(cnt * leaf.row_bytes) & ~15u;
+}
+
 // Walkers [t0, t0 + cnt) of the split, whose acc is s_acc[0, cnt): copy
-// the accepted walkers' rows of one leaf, unit by unit.
+// the accepted walkers' rows of one leaf, unit by unit; the first
+// `n_staged` units from the staged span `s`, the rest from the source.
 template <typename U>
 __device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
+                                            const U* s, uint32_t staged,
                                             const bool* s_acc, int t0,
                                             int64_t lo, int cnt, int t) {
-  const int upr = leaf.row_bytes / static_cast<int>(sizeof(U));
+  constexpr int kUnit = static_cast<int>(sizeof(U));
+  const int upr = leaf.row_bytes / kUnit;
+  const int n_staged = static_cast<int>(staged) / kUnit;
   const U* __restrict__ src = reinterpret_cast<const U*>(leaf.src) +
                               static_cast<int64_t>(t0) * upr;
   U* __restrict__ dst = reinterpret_cast<U*>(leaf.dst) + (lo + t0) * upr;
-  const int n = cnt * upr;
-  for (int k = t; k < n; k += kThreads) {
-    if (s_acc[k / upr]) dst[k] = src[k];
+  // Unit k = t + i * kThreads is unit u of walker w's row; the step moves
+  // (w, u) by (dw, du).  t and kThreads are below 2^8 + 1, so inv_upr
+  // divides both by upr (kThreads in 64 bits): no unit needs a division.
+  int w = static_cast<int>((static_cast<uint32_t>(t) * leaf.inv_upr) >> 24);
+  int u = t - w * upr;
+  const int dw = static_cast<int>(
+      (static_cast<uint64_t>(kThreads) * leaf.inv_upr) >> 24);
+  const int du = kThreads - dw * upr;
+  for (int k = t; w < cnt; k += kThreads) {
+    if (s_acc[w]) dst[k] = k < n_staged ? s[k] : src[k];
+    u += du;
+    w += dw;
+    if (u >= upr) {
+      u -= upr;
+      ++w;
+    }
   }
 }
 
-// Phase C: every leaf of `leaves`.
-__device__ __forceinline__ void select_blobs(const BlobLeaves& leaves,
+// Phase C: the n leaves of `leaf`, the staged ones from the dynamic
+// shared memory at `smem`.
+__device__ __forceinline__ void select_blobs(const BlobLeaf* leaves, int n,
+                                             const unsigned char* smem,
                                              const bool* s_acc, int t0,
                                              int64_t lo, int cnt, int t) {
-  for (int l = 0; l < leaves.n; ++l) {
-    const BlobLeaf& leaf = leaves.leaf[l];
+  for (int l = 0; l < n; ++l) {
+    const BlobLeaf& leaf = leaves[l];
+    const unsigned char* s = smem + (leaf.smem < 0 ? 0 : leaf.smem);
+    const uint32_t staged = staged_bytes(leaf, cnt);
     switch (leaf.unit) {
-      case 16: select_leaf<uint4>(leaf, s_acc, t0, lo, cnt, t); break;
-      case 8: select_leaf<uint2>(leaf, s_acc, t0, lo, cnt, t); break;
-      case 4: select_leaf<uint32_t>(leaf, s_acc, t0, lo, cnt, t); break;
-      case 2: select_leaf<uint16_t>(leaf, s_acc, t0, lo, cnt, t); break;
-      default: select_leaf<uint8_t>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 16:
+        select_leaf(leaf, reinterpret_cast<const uint4*>(s), staged, s_acc,
+                    t0, lo, cnt, t);
+        break;
+      case 8:
+        select_leaf(leaf, reinterpret_cast<const uint2*>(s), staged, s_acc,
+                    t0, lo, cnt, t);
+        break;
+      case 4:
+        select_leaf(leaf, reinterpret_cast<const uint32_t*>(s), staged,
+                    s_acc, t0, lo, cnt, t);
+        break;
+      case 2:
+        select_leaf(leaf, reinterpret_cast<const uint16_t*>(s), staged,
+                    s_acc, t0, lo, cnt, t);
+        break;
+      default:
+        select_leaf(leaf, s, staged, s_acc, t0, lo, cnt, t);
+        break;
     }
   }
 }
@@ -169,6 +298,55 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     bulk_copy_to_shared(s_q4, src, static_cast<uint32_t>(n_staged) * 4u,
                         &s_bar);
   }
+  constexpr bool kBlobs = std::is_same_v<Blobs, BlobLeaves>;
+  constexpr bool kRows = IsRows<Blobs>::value;
+  // Row leaves: each walker's thread reads its row of every leaf now, so
+  // the loads overlap the Philox draw (rejected rows too), and stores it
+  // with its decision in phase A.
+  [[maybe_unused]] typename RowUnit<Blobs>::type pre[kRows ? kRowLeaves : 1];
+  if constexpr (kRows) {
+    using U = typename Blobs::Unit;
+    if (t < cnt) {
+#pragma unroll
+      for (int l = 0; l < kRowLeaves; ++l) {
+        if (l < blobs.n) {
+          pre[l] = reinterpret_cast<const U*>(blobs.leaf[l].src)[t0 + t];
+        }
+      }
+    }
+  }
+  if constexpr (kBlobs) {
+    // The last warps' threads copy the leaf table from the parameters
+    // into shared memory, a word a thread (at a tile of 128 they hold no
+    // walker); kLeafIssuer bulk-copies the staged leaves' tile spans on
+    // the table's own mbarrier, armed for their bytes (none: it completes
+    // at once).
+    BlobShared& sb = blob_shared();
+    constexpr int kWords = static_cast<int>(sizeof(BlobLeaf) / 4);
+    constexpr int kFirst = kThreads - kMaxLeaves * kWords;
+    static_assert(kFirst >= 0, "one word a thread");
+    if (t >= kFirst && t - kFirst < blobs.n * kWords) {
+      reinterpret_cast<uint32_t*>(sb.leaf)[t - kFirst] =
+          reinterpret_cast<const uint32_t*>(blobs.leaf)[t - kFirst];
+    }
+    if (t == kLeafIssuer) {
+      uint32_t bytes = 0;
+      for (int l = 0; l < blobs.n; ++l) {
+        bytes += staged_bytes(blobs.leaf[l], cnt);
+      }
+      bulk_copy_arm(&sb.bar, bytes);
+      for (int l = 0; l < blobs.n; ++l) {
+        const BlobLeaf& leaf = blobs.leaf[l];
+        const uint32_t b = staged_bytes(leaf, cnt);
+        if (b > 0) {
+          bulk_copy_issue(
+              reinterpret_cast<unsigned char*>(s_q4) + leaf.smem,
+              leaf.src + static_cast<int64_t>(t0) * leaf.row_bytes, b,
+              &sb.bar);
+        }
+      }
+    }
+  }
 
   // -- phase A: one thread per walker -------------------------------------
   if (t < cnt) {
@@ -189,6 +367,16 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     if (acc) {
       log_prob[row] = lpq;
       if (count != nullptr) count[row] += 1;
+      if constexpr (kRows) {
+        // Row leaves: the walker's own rows, stored beside its log_prob.
+        using U = typename Blobs::Unit;
+#pragma unroll
+        for (int l = 0; l < kRowLeaves; ++l) {
+          if (l < blobs.n) {
+            reinterpret_cast<U*>(blobs.leaf[l].dst)[row] = pre[l];
+          }
+        }
+      }
     }
     accepted[row] = acc;
     s_acc[t] = acc;
@@ -250,8 +438,12 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
   }
 
   // -- phase C: the blob leaves' rows, masked by the same acc --------------
-  if constexpr (std::is_same_v<Blobs, BlobLeaves>) {
-    select_blobs(blobs, s_acc, t0, lo, cnt, t);
+  if constexpr (kBlobs) {
+    BlobShared& sb = blob_shared();
+    bulk_copy_wait(&sb.bar);
+    select_blobs(sb.leaf, blobs.n,
+                 reinterpret_cast<const unsigned char*>(s_q4), s_acc, t0, lo,
+                 cnt, t);
   }
 }
 
@@ -268,15 +460,47 @@ __global__ void __launch_bounds__(kThreads) accept_blobs_only_kernel(
   const int64_t lo = static_cast<int64_t>(split) * ng;
   if (t < cnt) s_acc[t] = accepted[lo + t0 + t];
   __syncthreads();
-  select_blobs(leaves, s_acc, t0, lo, cnt, t);
+  select_blobs(leaves.leaf, leaves.n, nullptr, s_acc, t0, lo, cnt, t);
 }
 
-// Leaves [l0, min(l0 + kMaxLeaves, n)) of `all` as one launch's struct.
+// Leaves [l0, min(l0 + kMaxLeaves, n)) of `all` as one launch's struct;
+// only the first group is staged.
 BlobLeaves leaf_group(const BlobLeaf* all, int n, int l0) {
   BlobLeaves g{};
   g.n = n - l0 < kMaxLeaves ? n - l0 : kMaxLeaves;
-  for (int l = 0; l < g.n; ++l) g.leaf[l] = all[l0 + l];
+  for (int l = 0; l < g.n; ++l) {
+    g.leaf[l] = all[l0 + l];
+    if (l0 > 0) g.leaf[l].smem = -1;
+  }
   return g;
+}
+
+// All n (<= kRowLeaves) leaves of `all` as a row-leaf launch's struct.
+template <typename U>
+BlobRows<U> row_group(const BlobLeaf* all, int n) {
+  BlobRows<U> g{};
+  g.n = n;
+  for (int l = 0; l < n; ++l) g.leaf[l] = all[l];
+  return g;
+}
+
+template <typename Blobs>
+void launch_select(int vec, int stage, int grid, int smem, cudaStream_t st,
+                   const float* q, const float* factor, const float* lp_q,
+                   float* coords, float* log_prob, bool* accepted,
+                   int32_t* count, const float* log_u, int ng, int nd,
+                   int split, int tile, uint32_t k0, uint32_t k1,
+                   const long long* offset_dev, unsigned long long offset,
+                   const Blobs& blobs) {
+  auto kernel =
+      vec ? (stage ? accept_select_kernel<true, true, Blobs>
+                   : accept_select_kernel<true, false, Blobs>)
+          : (stage ? accept_select_kernel<false, true, Blobs>
+                   : accept_select_kernel<false, false, Blobs>);
+  kernel<<<grid, kThreads, smem, st>>>(q, factor, lp_q, coords, log_prob,
+                                       accepted, count, log_u, ng, nd, split,
+                                       tile, k0, k1, offset_dev, offset,
+                                       blobs);
 }
 
 }  // namespace
@@ -288,43 +512,44 @@ BlobLeaves leaf_group(const BlobLeaf* all, int n, int l0) {
 // tile, grid, vec, stage and smem are the launch plan of ops/_wrap.py
 // tile_plan: vec != 0 promises that every tile's spans of q and coords
 // are 16-byte aligned, stage != 0 that every tile's q span is, and smem
-// is the dynamic shared memory (4 * tile * nd when staged, else 0).
-// `leaves` is a host array of `nleaves` blob-leaf descriptors (each
-// with row_bytes > 0); it is copied into the launches' parameters, so
-// the host array may go once this returns.  Returns cudaGetLastError()
-// after the launches (1 + ceil((nleaves - kMaxLeaves) / kMaxLeaves) of
-// them with more than kMaxLeaves leaves, else 1).
+// is the dynamic shared memory (4 * tile * nd when staged, else 0; with
+// blob leaves, ops/accept_kernel.py leaf_plan's, which adds the staged
+// leaves' spans).  `leaves` is a host array of `nleaves` blob-leaf
+// descriptors (each with row_bytes > 0; a staged leaf's source span of
+// every tile 16-byte aligned, a multiple of 16 bytes, and inside smem at
+// a multiple of 16); it is copied into the launches' parameters, so
+// the host array may go once this returns.  row_unit 4 or 8 (leaf_plan's
+// choice) promises at most kRowLeaves leaves whose rows are each one
+// unit of that many bytes: they are read into registers, and nothing is
+// staged.  Returns cudaGetLastError() after the launches (1 +
+// ceil((nleaves - kMaxLeaves) / kMaxLeaves) of them with more than
+// kMaxLeaves leaves, else 1).
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
     int nd, int split, int tile, int grid, int vec, int stage, int smem,
     unsigned long long seed, const long long* offset_dev,
     unsigned long long offset, const BlobLeaf* leaves, int nleaves,
-    void* stream) {
+    int row_unit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int32_t* cnt = reinterpret_cast<int32_t*>(count);
   const uint32_t k0 = static_cast<uint32_t>(seed);
   const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  auto go = [&](const auto& blobs) {
+    launch_select(vec, stage, grid, smem, st, q, factor, lp_q, coords,
+                  log_prob, accepted, cnt, log_u, ng, nd, split, tile, k0, k1,
+                  offset_dev, offset, blobs);
+  };
   if (nleaves == 0) {
-    auto kernel =
-        vec ? (stage ? accept_select_kernel<true, true, NoBlobs>
-                     : accept_select_kernel<true, false, NoBlobs>)
-            : (stage ? accept_select_kernel<false, true, NoBlobs>
-                     : accept_select_kernel<false, false, NoBlobs>);
-    kernel<<<grid, kThreads, smem, st>>>(
-        q, factor, lp_q, coords, log_prob, accepted, cnt, log_u, ng, nd,
-        split, tile, k0, k1, offset_dev, offset, NoBlobs{});
-    return static_cast<int>(cudaGetLastError());
+    go(NoBlobs{});
+  } else if (row_unit == 4) {
+    go(row_group<uint32_t>(leaves, nleaves));
+  } else if (row_unit == 8) {
+    go(row_group<uint2>(leaves, nleaves));
+  } else {
+    go(leaf_group(leaves, nleaves, 0));
   }
-  auto kernel =
-      vec ? (stage ? accept_select_kernel<true, true, BlobLeaves>
-                   : accept_select_kernel<true, false, BlobLeaves>)
-          : (stage ? accept_select_kernel<false, true, BlobLeaves>
-                   : accept_select_kernel<false, false, BlobLeaves>);
-  kernel<<<grid, kThreads, smem, st>>>(
-      q, factor, lp_q, coords, log_prob, accepted, cnt, log_u, ng, nd, split,
-      tile, k0, k1, offset_dev, offset, leaf_group(leaves, nleaves, 0));
-  for (int l0 = kMaxLeaves; l0 < nleaves; l0 += kMaxLeaves) {
+  for (int l0 = kMaxLeaves; row_unit == 0 && l0 < nleaves; l0 += kMaxLeaves) {
     accept_blobs_only_kernel<<<grid, kThreads, 0, st>>>(
         accepted, ng, split, tile, leaf_group(leaves, nleaves, l0));
   }

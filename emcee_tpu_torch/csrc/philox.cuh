@@ -43,6 +43,35 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
+// The ten rounds' keys of a seed, for a thread that draws many blocks:
+// computed once, they take the key schedule's adds out of every block.
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKeys philox_keys(uint32_t k0, uint32_t k1) {
+  PhiloxKeys k;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    k.k0[r] = k0 + static_cast<uint32_t>(r) * 0x9E3779B9u;
+    k.k1[r] = k1 + static_cast<uint32_t>(r) * 0xBB67AE85u;
+  }
+  return k;
+}
+
+// philox4x32_10 with the keys of philox_keys: the same words.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const PhiloxKeys& k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.k0[r], lo1, hi0 ^ c.w ^ k.k1[r], lo0);
+  }
+  return c;
+}
+
 // The proposal offset: *offset_dev + inc, or inc when offset_dev is null.
 __device__ __forceinline__ uint64_t philox_offset(
     const long long* __restrict__ offset_dev, unsigned long long inc) {

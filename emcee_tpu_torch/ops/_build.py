@@ -65,6 +65,7 @@ _ARGTYPES = {
         *[ctypes.c_int] * 5,  # plan: tile grid vec stage smem
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P, ctypes.c_int,  # blob leaves (host array), their number
+        ctypes.c_int,  # row_unit: leaves of one 4- or 8-byte unit a row
         _P,  # stream
     ],
     "de_propose": [
@@ -92,6 +93,7 @@ _ARGTYPES = {
         _P, _P, _P,  # z_in, z_out, q
         _P, ctypes.c_uint,  # v_out, v_block
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd row0
+        ctypes.c_int, ctypes.c_int,  # plan: tile grid
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],

@@ -36,10 +36,16 @@ tile plan and the kernel's indexing are the same at any ``ng``.
 rows of ``new`` are written into block ``split`` of ``buf``, with the
 same mask as the coordinates (``red_blue.py:200-202``, ``tree_where``).
 The kernel does it in the same launch, as a masked byte stream per leaf
-(see the source); the leaves beyond ``BLOB_CAPACITY`` go to further
-launches of a blob-only kernel that reads the split's ``accepted``.  The
-plain version is ``torch.where`` per leaf; the two agree bit for bit
-(bytes are copied, never converted).
+(see the source).  :func:`leaf_plan` chooses how: up to ``ROW_LEAVES``
+leaves whose rows are each one 4- or 8-byte unit (scalar blobs, the main
+path's) are read into registers by each walker's thread before the
+decision; otherwise a leaf's tile span is staged in shared memory beside
+q by a bulk copy at block start, where its source is aligned and the
+span fits, and the rest are read after the decision.  The leaves beyond
+``BLOB_CAPACITY`` go to further launches of a blob-only kernel that reads
+the split's ``accepted``.  The plain version is
+``torch.where`` per leaf; the two agree bit for bit (bytes are copied,
+never converted).
 
 The accept uniform is Philox word 1 at ``(walker, split, offset)``
 (``offset`` an int or a ``DeviceOffset``), or the injected ``log_u``
@@ -60,16 +66,21 @@ import ctypes
 import torch
 
 from ._wrap import (
-    check_f32, check_rows, count_launches, device_sm_count, launch, ptr,
-    rng_args, tile_plan)
+    SMEM_LIMIT, STATIC_SMEM, check_f32, check_rows, count_launches,
+    device_sm_count, launch, ptr, rng_args, tile_plan)
 from .philox import to_uniform, walker_words
 
-__all__ = ["BLOB_CAPACITY", "accept_select", "accept_select_plain",
-           "blob_leaves", "blob_unit"]
+__all__ = ["BLOB_CAPACITY", "ROW_LEAVES", "accept_select",
+           "accept_select_plain", "blob_leaves", "blob_unit", "leaf_plan"]
 
 #: blob leaves one launch of the kernel selects (kMaxLeaves in
 #: csrc/accept_select.cu); further leaves take blob-only launches
 BLOB_CAPACITY = 16
+#: leaves whose rows are each one 4- or 8-byte unit that a launch reads
+#: into registers (kRowLeaves in csrc/accept_select.cu)
+ROW_LEAVES = 4
+#: the units of such rows
+ROW_UNITS = (4, 8)
 
 
 class _BlobLeaf(ctypes.Structure):
@@ -77,7 +88,23 @@ class _BlobLeaf(ctypes.Structure):
     ``csrc/accept_select.cu``)."""
 
     _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
-                ("row_bytes", ctypes.c_int), ("unit", ctypes.c_int)]
+                ("row_bytes", ctypes.c_int), ("unit", ctypes.c_int),
+                ("smem", ctypes.c_int), ("inv_upr", ctypes.c_uint32)]
+
+
+#: the shift of a leaf's ``inv_upr`` (``BlobLeaf`` in
+#: ``csrc/accept_select.cu``): ``(k * inv_upr) >> UPR_SHIFT == k // upr``
+#: for every unit index ``0 <= k <= TILE_MAX`` of a thread's first step
+UPR_SHIFT = 24
+
+
+def inv_upr(row_bytes, unit):
+    """``ceil(2**UPR_SHIFT / upr)`` for ``upr = row_bytes // unit`` units a
+    row: the kernel's division of a thread's first unit index (below
+    ``TILE_MAX``) and of ``TILE_MAX`` by ``upr``, exact because their
+    product with the rounding error stays below ``2**UPR_SHIFT /
+    upr``."""
+    return -(-(1 << UPR_SHIFT) // (row_bytes // unit))
 
 
 def blob_unit(src_ptr, dst_ptr, row_bytes):
@@ -88,6 +115,46 @@ def blob_unit(src_ptr, dst_ptr, row_bytes):
         if not (src_ptr % unit or dst_ptr % unit or row_bytes % unit):
             return unit
     return 1
+
+
+def leaf_plan(leaves, plan, stage=True, rows=True):
+    """How K2 selects blob leaves ``(src, dst, row bytes)`` under launch
+    plan ``plan``: ``([(src, dst, row bytes, unit, smem offset,
+    inv_upr), ...], smem, row_unit)``, the kernel's descriptor of each
+    leaf, the launch's dynamic shared memory and the row unit.
+
+    Where every leaf's row is one unit of 4 or 8 bytes (scalar blobs;
+    ``rows`` allowing) and there are at most ``ROW_LEAVES`` of them, the
+    row unit is that unit: each walker's thread reads its row of every
+    leaf into registers before the decision, and nothing is staged.
+    Otherwise (row unit 0) a leaf of the first launch's ``BLOB_CAPACITY``
+    is staged (``stage`` allowing) where each tile's span of its source
+    rows can be a bulk copy: a 16-byte aligned source base and a tile
+    span ``plan.tile * row`` that is a multiple of 16 bytes; and where
+    that span still fits under ``SMEM_LIMIT`` beside the static arrays,
+    ``q``'s span (``plan.smem``) and the leaves staged before it.  Its
+    offset is where its span starts in the dynamic shared memory (after
+    ``q``'s, a multiple of 16); any other leaf gets -1 and is read
+    directly.  The tile is the plan's: a leaf that does not fit is not
+    staged, and the tile never shrinks for one."""
+    units = [blob_unit(src, dst, row) for src, dst, row in leaves]
+    row_unit = 0
+    if (rows and 0 < len(leaves) <= ROW_LEAVES and units[0] in ROW_UNITS
+            and all(u == units[0] == row
+                    for u, (_, _, row) in zip(units, leaves))):
+        row_unit = units[0]
+    room = SMEM_LIMIT - STATIC_SMEM
+    smem = plan.smem
+    out = []
+    for i, ((src, dst, row), unit) in enumerate(zip(leaves, units)):
+        span = plan.tile * row
+        staged = (stage and not row_unit and i < BLOB_CAPACITY
+                  and src % 16 == 0 and span % 16 == 0
+                  and smem + span <= room)
+        out.append((src, dst, row, unit, smem if staged else -1,
+                    inv_upr(row, unit)))
+        smem += span if staged else 0
+    return out, smem, row_unit
 
 
 def blob_leaves(blobs, ng, nw, device):
@@ -179,20 +246,25 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
 
 
 def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u, leaves=()):
+            seed, offset, log_u, leaves=(), stage_leaves=True,
+            row_leaves=True):
     """Launch K2 with launch plan ``plan`` on checked arguments;
     ``leaves`` are ``(new pointer, buffer pointer, row bytes)`` of the
-    blob leaves (rows of at least one byte)."""
+    blob leaves (rows of at least one byte), read into registers or
+    staged by :func:`leaf_plan` unless ``row_leaves`` or
+    ``stage_leaves`` is False."""
     dev = coords.device
-    table = (_BlobLeaf * max(1, len(leaves)))(*[
-        _BlobLeaf(src, dst, row, blob_unit(src, dst, row))
-        for src, dst, row in leaves])
+    descs, smem, row_unit = leaf_plan(leaves, plan, stage_leaves,
+                                      row_leaves)
+    table = (_BlobLeaf * max(1, len(descs)))(*[
+        _BlobLeaf(*d) for d in descs])
     launch(
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
-        ptr(count), ptr(log_u), q.shape[0], coords.shape[1], split, *plan,
-        *rng_args(seed, offset, dev), ctypes.addressof(table), len(leaves),
+        ptr(count), ptr(log_u), q.shape[0], coords.shape[1], split,
+        *plan[:4], smem, *rng_args(seed, offset, dev),
+        ctypes.addressof(table), len(descs), row_unit,
     )
 
 

@@ -44,21 +44,60 @@ counts its launches in ``<wrapper>.launches`` (and in
 ``<wrapper>.device_launches``, when set, on the card:
 ``_wrap.count_launches``).
 
-All three are bound by bytes (a few flops per element; K11 one Philox
-block and two Box-Muller normals per pair of columns): at 1e5 x 5 float32
-K11 moves 8 MB in MALA mode (x, g in; z, q out), K12 6 MB (three rows of
-inputs), K13 10 MB between two gradients (x, p, g in; x, p out).
+K12 and K13 are bound by bytes (a few flops per element): at 1e5 x 5
+float32 K12 moves 6 MB (three rows of inputs), K13 10 MB between two
+gradients (x, p, g in; x, p out).  K11 moves 8 MB in MALA mode (x, g in;
+z, q out) and issues about as long for its instructions (a Philox block
+and two Box-Muller normals a pair of columns); its launch plan
+(:func:`langevin_plan`) gives each block a tile of consecutive rows and
+makes the grid one wave of the card.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ._wrap import check_f32, count_launches, launch, ptr, rng_args
+from ._wrap import (
+    check_f32, count_launches, device_sm_count, launch, ptr, rng_args)
 from .philox import GRAD_BLOCK, grad_uniform, normals
 
-__all__ = ["langevin_factor", "langevin_factor_plain", "langevin_step",
+__all__ = ["LANGEVIN_BLOCKS_PER_SM", "LangevinPlan", "langevin_factor",
+           "langevin_factor_plain", "langevin_plan", "langevin_step",
            "langevin_step_plain", "leapfrog", "leapfrog_plain"]
+
+#: K11's threads a block and the blocks an SM holds at once (kThreads and
+#: kMinBlocks in csrc/langevin_step.cu, whose __launch_bounds__ keep the
+#: registers to that)
+LANGEVIN_THREADS = 256
+LANGEVIN_BLOCKS_PER_SM = 3
+
+
+class LangevinPlan(NamedTuple):
+    """How K11 cuts its rows into blocks; the fields are the C entry
+    point's arguments, in this order."""
+
+    tile: int  #: consecutive rows a block
+    grid: int  #: blocks, ``ceil(n / tile)`` (1 without rows: the jitter alone)
+
+
+def langevin_plan(n, n_sm):
+    """K11's launch plan for ``n`` rows on a card of ``n_sm`` SMs: the
+    rows spread evenly over one wave, ``n_sm * LANGEVIN_BLOCKS_PER_SM``
+    blocks (fewer where there are fewer rows), each a tile of ``ceil(n /
+    blocks)`` consecutive rows.  On the H100 that is 253 rows and 396
+    blocks at the MALA stage's 1e5 rows, 13 rows and 385 blocks at
+    ``EnsembleMALAMove``'s split of 5000.  Of one wave at 2-8 blocks an
+    SM, 3 was the fastest at the MALA stage's shape; at 5000 rows 2 and
+    4 were 3-4 % faster (``chip_smoke.py`` phase 13's tile sweep;
+    ``PERF.md``).  The rows of a tile are one
+    contiguous span of every operand and the kernel's accesses are 4-byte,
+    so no base needs an alignment and no plan depends on one."""
+    if n <= 0:
+        return LangevinPlan(1, 1)
+    tile = -(-n // (n_sm * LANGEVIN_BLOCKS_PER_SM))
+    return LangevinPlan(tile, -(-n // tile))
 
 
 def _mala_q(x, g, z, eps, d):
@@ -125,12 +164,21 @@ def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
         z_out = z = torch.empty((n, nd), dtype=torch.float32, device=device)
     q = None if x is None else torch.empty_like(x)
     if n or v is not None:
-        launch("langevin_step", device, ptr(x), ptr(g), ptr(d), ptr(eps),
-               ptr(None if z_out is not None else z), ptr(z_out), ptr(q),
-               ptr(v), GRAD_BLOCK | int(v_split), n, nd, int(row0),
-               *rng_args(seed, offset, device))
+        # Injected z and no x: no row has work, only the jitter.
+        rows = n if z_out is not None or x is not None else 0
+        _launch(langevin_plan(rows, device_sm_count(device)), device, x, g,
+                d, eps, None if z_out is not None else z, z_out, q, v,
+                v_split, n, nd, row0, seed, offset)
         count_launches(langevin_step)
     return z, q
+
+
+def _launch(plan, device, x, g, d, eps, z_in, z_out, q, v, v_split, n, nd,
+            row0, seed, offset):
+    """Launch K11 with launch plan ``plan`` on checked arguments."""
+    launch("langevin_step", device, ptr(x), ptr(g), ptr(d), ptr(eps),
+           ptr(z_in), ptr(z_out), ptr(q), ptr(v), GRAD_BLOCK | int(v_split),
+           n, nd, int(row0), *plan, *rng_args(seed, offset, device))
 
 
 langevin_step.launches = 0

@@ -1,8 +1,10 @@
 """The launch plans of K1 and K2 (``emcee_tpu_torch/ops/_wrap.py``
-``tile_plan``) and of K5a and K5b (``de_plan``), checked on the host: the
-tiles cover the split once, the grid fills the card, shared memory stays
-under 48 KB, and the float4 and bulk-copy paths are taken only on 16-byte
-aligned spans.  The kernels read the plan as it is
+``tile_plan``, and K2's blob leaves, ``accept_kernel.leaf_plan``), of K5a
+and K5b (``de_plan``) and of K11 (``langevin_kernel.langevin_plan``),
+checked on the host: the tiles cover the split once, the grid fills the
+card (K11's in one wave), shared memory stays under 48 KB, the float4 and
+bulk-copy paths are taken only on 16-byte aligned spans, and the kernels'
+division-free index walks visit every unit once.  The kernels read the plan as it is
 (``csrc/stretch_propose.cu``, ``csrc/accept_select.cu``,
 ``csrc/de_propose.cu``, ``csrc/snooker_propose.cu``); ``chip_smoke.py``
 holds them against their plain versions on the card."""
@@ -17,6 +19,10 @@ from emcee_tpu_torch.ops import _wrap
 from emcee_tpu_torch.ops._wrap import (
     BLOCKS_PER_SM, DE_THREADS, K5_BLOCKS_PER_SM, SMEM_LIMIT,
     SNOOKER_TILE_MAX, STATIC_SMEM, TILE_MAX, TILE_MIN, de_plan, tile_plan)
+from emcee_tpu_torch.ops.accept_kernel import (
+    BLOB_CAPACITY, ROW_LEAVES, UPR_SHIFT, blob_unit, inv_upr, leaf_plan)
+from emcee_tpu_torch.ops.langevin_kernel import (
+    LANGEVIN_BLOCKS_PER_SM, LANGEVIN_THREADS, langevin_plan)
 
 H100_SMS = 132
 
@@ -243,3 +249,183 @@ def test_sm_count_is_read_once_per_device(monkeypatch):
     finally:
         _wrap.sm_count.cache_clear()
     assert calls == [0, 1]
+
+
+# -- K2's blob leaves (accept_kernel.leaf_plan) --------------------------
+
+ROOM = SMEM_LIMIT - STATIC_SMEM
+
+
+def leaf_cases():
+    """A K2 plan (staged or not), up to 40 blob leaves ``(src, dst, row
+    bytes)`` at bases up to 15 bytes past 16-byte alignment (rows of 4
+    and 8 bytes drawn often: scalar blobs), and whether the plan may
+    stage leaves and read scalar ones into registers."""
+    leaf = st.tuples(st.integers(0, 15), st.integers(0, 15),
+                     st.one_of(st.sampled_from([4, 8]), st.integers(1, 600)))
+    return st.tuples(shapes, st.lists(leaf, max_size=40), st.booleans(),
+                     st.booleans())
+
+
+def draw_leaves(case):
+    shape, raw, stage_leaves, rows = case
+    plan = draw(shape)[0]
+    leaves = [((5 << 20) + (i << 22) + s, (7 << 20) + (i << 22) + d, row)
+              for i, (s, d, row) in enumerate(raw)]
+    return plan, leaves, stage_leaves, rows
+
+
+@settings(max_examples=300, deadline=None)
+@given(leaf_cases())
+@example((PATHS[2], [(0, 0, 4)] * 3, True, True))  # the main path's blobs
+@example((PATHS[2], [(0, 0, 4)] * 3, True, False))  # the same, staged
+@example((PATHS[2], [(0, 0, 240)] * 2 + [(0, 0, 4)], True, True))
+def test_leaf_plan_stages_aligned_spans_that_fit(case):
+    plan, leaves, stage_leaves, rows = draw_leaves(case)
+    descs, smem, row_unit = leaf_plan(leaves, plan, stage_leaves, rows)
+    assert [d[:3] for d in descs] == leaves
+    # Registers: every row one 4- or 8-byte unit, at most ROW_LEAVES.
+    units = {blob_unit(*leaf) for leaf in leaves}
+    scalar = (rows and 0 < len(leaves) <= ROW_LEAVES and len(units) == 1
+              and units <= {4, 8}
+              and all(row in units for _, _, row in leaves))
+    assert row_unit == (units.pop() if scalar else 0)
+    if row_unit:
+        assert smem == plan.smem and all(d[4] == -1 for d in descs)
+        return
+    at = plan.smem
+    for i, (src, dst, row, unit, off, inv) in enumerate(descs):
+        assert unit == blob_unit(src, dst, row)
+        assert src % unit == dst % unit == row % unit == 0
+        assert inv == -(-(1 << UPR_SHIFT) // (row // unit))
+        span = plan.tile * row
+        eligible = (stage_leaves and i < BLOB_CAPACITY and src % 16 == 0
+                    and span % 16 == 0)
+        if off >= 0:
+            # A bulk copy: every tile's span starts 16-byte aligned, in
+            # shared memory after q's span and the leaves before it.
+            assert eligible and off == at and off % 16 == 0
+            assert all((src + b * span) % 16 == 0 for b in range(4))
+            at += span
+        else:
+            # Direct only where it could not be staged or did not fit.
+            assert not eligible or at + span > ROOM
+    assert smem == at <= ROOM
+    assert smem + STATIC_SMEM <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("split", [0, 1])
+@pytest.mark.parametrize("nw, nd, tile, stage_smem", [
+    (100_000, 5, 128, 2560),  # the main path
+    (10_000, 100, 16, 6400),  # workload 3
+])
+def test_blob_free_plan_is_the_tile_plan(nw, nd, tile, stage_smem, split):
+    ng = nw // 2
+    plan = tile_plan(ng, nd, split, H100_SMS, 1 << 20, 1 << 21, stage=True)
+    assert plan == (tile, -(-ng // tile), 1, 1, stage_smem)
+    assert leaf_plan([], plan) == ([], plan.smem, 0)
+
+
+def test_leaf_plan_at_the_main_path_with_three_blobs():
+    """The blob main path's three 4-byte leaves: read into registers (row
+    unit 4, nothing staged); without that path all staged after q's 2560
+    bytes, 4-byte units, one unit a row; the tile stays 128."""
+    plan = tile_plan(50_000, 5, 0, H100_SMS, 1 << 20, 1 << 21, stage=True)
+    leaves = [((1 << 24) * k, (1 << 25) * k, 4) for k in (1, 2, 3)]
+    descs, smem, row_unit = leaf_plan(leaves, plan)
+    assert (row_unit, smem) == (4, plan.smem)
+    assert [d[4] for d in descs] == [-1] * 3
+    descs, smem, row_unit = leaf_plan(leaves, plan, rows=False)
+    assert [d[3:] for d in descs] == [(4, 2560, 1 << 24), (4, 3072, 1 << 24),
+                                      (4, 3584, 1 << 24)]
+    assert (smem, row_unit) == (4096, 0) and plan.tile == 128
+    # Not staged: an unaligned source, or leaves past the first launch's.
+    assert leaf_plan([(4, 0, 4)], plan, rows=False)[0][0][4] == -1
+    more, _, row_unit = leaf_plan(leaves * 6, plan)
+    assert row_unit == 0  # 18 leaves: too many for registers
+    assert [d[4] >= 0 for d in more][BLOB_CAPACITY:] == [False] * 2
+    # A float64 scalar and a float32 one share no unit: staged.
+    assert leaf_plan(leaves[:1] + [(1 << 26, 1 << 27, 8)], plan)[2] == 0
+
+
+@pytest.mark.parametrize("upr", [1, 2, 3, 7, 24, 255, 256, 257, 1000,
+                                 65535, 65536, 1 << 20])
+def test_inv_upr_divides_a_threads_first_unit_and_the_step(upr):
+    inv = inv_upr(upr * 4, 4)
+    k = np.arange(TILE_MAX + 1, dtype=np.uint64)
+    assert np.array_equal((k * np.uint64(inv)) >> np.uint64(UPR_SHIFT),
+                          k // np.uint64(upr))
+    assert TILE_MAX * inv < 1 << 33 and (TILE_MAX - 1) * inv < 1 << 32
+
+
+@pytest.mark.parametrize("upr, cnt", [(1, 128), (3, 128), (3, 11), (7, 16),
+                                      (100, 5), (300, 4), (1000, 2)])
+def test_phase_c_walk_visits_every_unit_once(upr, cnt):
+    """csrc/accept_select.cu select_leaf's walk, thread by thread: unit k
+    of the tile span is unit u of walker w's row, with no division."""
+    inv = inv_upr(upr, 1)
+    seen = []
+    for t in range(TILE_MAX):
+        w = (t * inv) >> UPR_SHIFT
+        u = t - w * upr
+        dw = (TILE_MAX * inv) >> UPR_SHIFT
+        du = TILE_MAX - dw * upr
+        k = t
+        while w < cnt:
+            assert k == w * upr + u and 0 <= u < upr
+            seen.append(k)
+            k, u, w = k + TILE_MAX, u + du, w + dw
+            if u >= upr:
+                u, w = u - upr, w + 1
+    assert sorted(seen) == list(range(cnt * upr))
+
+
+# -- K11 (langevin_kernel.langevin_plan) ---------------------------------
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 3_000_000), st.integers(1, 200))
+@example(100_000, H100_SMS)
+@example(5_000, H100_SMS)
+def test_langevin_plan_is_one_wave_that_covers_the_rows(n, n_sm):
+    plan = langevin_plan(n, n_sm)
+    if n == 0:
+        assert plan == (1, 1)  # the jitter alone
+        return
+    assert plan.grid == -(-n // plan.tile) <= n_sm * LANGEVIN_BLOCKS_PER_SM
+    assert (plan.grid - 1) * plan.tile < n <= plan.grid * plan.tile
+    # Evenly spread: a tile one row shorter would need another wave.
+    assert plan.tile == 1 or (
+        -(-n // (plan.tile - 1)) > n_sm * LANGEVIN_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("n, nd, plan", [
+    (100_000, 5, (253, 396)),  # bench.py's MALA stage
+    (5_000, 100, (13, 385)),  # EnsembleMALAMove's split on workload 3
+])
+def test_langevin_plan_at_the_paths_shapes(n, nd, plan):
+    """The plan takes no base address: the kernel reads and writes 4-byte
+    words, so a split half at any base gets the same plan."""
+    assert langevin_plan(n, H100_SMS) == plan
+    assert plan[1] <= H100_SMS * LANGEVIN_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("rows, nd", [(1, 1), (5, 1), (127, 5), (253, 5),
+                                      (10, 100), (3, 128), (2, 513),
+                                      (1, 1000)])
+def test_k11_walk_visits_every_item_once(rows, nd):
+    """csrc/langevin_step.cu's item walk, thread by thread: item i is
+    pair k of row r of the tile, stepped with no division."""
+    npairs = (nd + 1) // 2
+    seen = []
+    for t in range(LANGEVIN_THREADS):
+        r, k = divmod(t, npairs)
+        dr, dk = divmod(LANGEVIN_THREADS, npairs)
+        for i in range(t, rows * npairs, LANGEVIN_THREADS):
+            assert i == r * npairs + k and 0 <= k < npairs
+            seen.append((r, k))
+            k, r = k + dk, r + dr
+            if k >= npairs:
+                k, r = k - npairs, r + 1
+    assert sorted(seen) == [(r, k) for r in range(rows)
+                            for k in range(npairs)]
