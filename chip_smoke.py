@@ -67,10 +67,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    through K3, K7 and K6, the diagnostics and ``run_until_converged``;
 11. blobs and io: K2 with blob leaves against its plain version bit for
    bit (six dtypes, five row shapes, 1-3, 17 and 33 leaves, unaligned
-   bases, scalar leaves through registers, leaves staged and direct in
-   one launch, a span that does not fit, 1- and 16-byte units, nsplits
-   1 and 2, ng 5003, 50000 and 37, q staged and direct) and the main
-   path's three leaves timed through registers, staged and direct; the
+   bases, scalar leaves through registers, scalar and wider leaves in
+   one launch, 1- and 16-byte units, nsplits 1 and 2, ng 5003, 50000
+   and 37, through the wrapper and forced onto each path) and the main
+   path's three leaves timed through registers and by phase C; the
    main path with the blobs tutorial's three blobs (``blobs_dtype``):
    rates with and without blobs in turns, the host ``Backend`` and
    ``DeviceBackend`` from one start (chains and blobs equal), stored
@@ -147,10 +147,23 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # instruction (32 threads) a clock x 1.98 GHz boost clock, in
 # thread-instructions a second.
 ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
+# The instructions a function needs (not those a build issues), from its
+# operations.  A Philox4x32-10 block whose round keys are made once: ten
+# rounds of two 32 x 32 -> 64-bit multiplies (IMAD.WIDE) and two
+# three-input xors (LOP3).  A stored Box-Muller normal of two words: for
+# each word a shift and an int -> float conversion (its exact scaling
+# folded into 1 - u and the angle, one instruction each), lg2 and its
+# scaling, a sqrt (rsqrt and a multiply), cos (a prescale and the
+# special function) and r cos: 13, of them 5 special-function results
+# (two conversions, lg2, rsqrt, cos).  The accurate logf and cosf and the
+# IEEE sqrt take more, so these are floors.
+PHILOX_INSTR = 40
+NORMAL_INSTR, NORMAL_SFU = 13, 5
 #: an H100 SM's registers and threads (resident blocks a kernel gets)
 SM_REGISTERS, SM_THREADS = 65536, 2048
 #: ``{kernel label: (registers, static shared bytes, spilled bytes)}`` of
-#: every kernel built by this run (phase 1, ``-Xptxas -v``)
+#: every kernel built by this run (phase 1, ``-Xptxas -v``; labels as
+#: :func:`demangle` gives them)
 PTXAS = {}
 RTOL = ATOL = 1e-6
 #: walkers per split in the edge-shape sweeps: no tile divides it
@@ -196,26 +209,41 @@ def gaussian(x):
     return -0.5 * (x**2).sum(-1)
 
 
-def kernel_label(mangled):
-    """A short name for a mangled kernel: its name and template
-    arguments, e.g. ``langevin_step_kernel<1,1,0>``."""
+def demangle(names):
+    """``{mangled name: label}``, by the toolkit's ``cu++filt``: the
+    demangled name without ``void``, the anonymous namespaces and the
+    parameters, bools as words, e.g. ``langevin_step_kernel<true, true,
+    false>``.  Without ``cu++filt`` a name stays mangled (and its
+    kernel's registers are then not found: "not measured")."""
     import re
 
-    # A name is its length in decimal, then its characters; a length may
-    # follow other digits (a hash), so each suffix of a digit run is tried.
-    for m in re.finditer(r"\d+", mangled):
-        name = next((n for k in range(len(m.group()))
-                     if (n := mangled[m.end():m.end() + int(m.group()[k:])])
-                     .endswith("_kernel")), "")
-        if name.isidentifier():
-            rest = mangled[m.end() + len(name):]
-            args = re.findall(r"Lb(\d)E|Li(\d+)E|NS_\d+(\w+?)E",
-                              rest.split("EEv")[0]) if rest[:1] == "I" else []
-            args = [re.sub(r"I(j|5uint2)$", lambda m: "<" + {
-                "j": "uint32_t", "5uint2": "uint2"}[m.group(1)] + ">",
-                "".join(a)) for a in args]
-            return name + (f"<{','.join(args)}>" if args else "")
-    return mangled[-60:]
+    from emcee_tpu_torch.ops._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cu++filt"
+    if not names or not tool.is_file():
+        return {n: n for n in names}
+    out = subprocess.run([str(tool), *names], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    labels = {}
+    for n, d in zip(names, out.splitlines()):
+        d = re.sub(r"<unnamed>::|\(anonymous namespace\)::|^void ", "", d)
+        d = re.sub(r"\(bool\)([01])",
+                   lambda m: ("false", "true")[int(m.group(1))], d)
+        depth = 0
+        for i, ch in enumerate(d):  # the parameters: a "(" outside <>
+            depth += (ch == "<") - (ch == ">")
+            if ch == "(" and depth == 0:
+                d = d[:i]
+                break
+        labels[n] = d.replace(" >", ">")
+    return labels
+
+
+def instruction_bound(instr, sfu):
+    """The least time in ms of ``instr`` thread-instructions of which
+    ``sfu`` are special-function results: the larger of all of them at
+    the issue rate and the special functions at theirs."""
+    return max(instr / ISSUE_PER_S, sfu / SFU_OPS_PER_S) * 1e3
 
 
 def ptxas_table(report):
@@ -223,19 +251,20 @@ def ptxas_table(report):
     from an ``nvcc -Xptxas -v`` report."""
     import re
 
-    out, name = {}, None
+    rows, name = [], None
     for line in report.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = kernel_label(m.group(1))
+            name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            out[name] = (int(m.group(1)), int(m.group(2) or 0), spill)
+            rows.append((name, int(m.group(1)), int(m.group(2) or 0), spill))
             name = None
-    return out
+    labels = demangle([r[0] for r in rows])
+    return {labels[n]: (regs, smem, spill) for n, regs, smem, spill in rows}
 
 
 def resident_blocks(registers, threads, smem=0):
@@ -244,114 +273,6 @@ def resident_blocks(registers, threads, smem=0):
     regs = -(-registers // 8) * 8 * threads
     return min(SM_THREADS // threads, SM_REGISTERS // regs,
                (228 * 1024) // max(smem + 1024, 1))
-
-
-def sass_functions(lib):
-    """``{kernel label: [(address, instruction), ...]}`` of a built
-    library, by ``cuobjdump -sass`` (None where the toolkit has none)."""
-    import shutil
-
-    from emcee_tpu_torch.ops._build import _nvcc
-
-    tool = Path(_nvcc()).parent / "cuobjdump"
-    if not tool.is_file():
-        tool = shutil.which("cuobjdump")
-        if tool is None:
-            return None
-    return parse_sass(subprocess.run(
-        [str(tool), "-sass", str(lib)], capture_output=True, text=True,
-        check=True, timeout=120).stdout)
-
-
-def parse_sass(text):
-    """``cuobjdump -sass`` output as ``{kernel label: [(address,
-    instruction), ...]}``."""
-    import re
-
-    out, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = out.setdefault(kernel_label(m.group(1)), [])
-            continue
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m and cur is not None:
-            cur.append((int(m.group(1), 16), m.group(2)))
-    return out
-
-
-def branch_target(ins):
-    """The target address of a ``BRA`` instruction, else None."""
-    import re
-
-    m = re.search(r"\bBRA (?:\S+ )?0x([0-9a-f]+)$", ins)
-    return int(m.group(1), 16) if m and ".U.ANY" not in ins else None
-
-
-def loop_paths(instrs):
-    """The instructions one trip through each of a kernel's outermost
-    loops issues on its common path, in address order: from the target of
-    the loop's backward branch, each forward branch taken (the accurate
-    ``cosf``'s and the IEEE ``sqrt``'s slow paths are the code a forward
-    branch skips, loops of their own included), up to and with the
-    backward branch."""
-    at = {a: i for i, (a, _) in enumerate(instrs)}
-    back = [(t, a) for a, ins in instrs
-            if (t := branch_target(ins)) is not None and t < a]
-    outer = [(t, a) for t, a in back
-             if not any(t2 <= t and a <= a2 and (t2, a2) != (t, a)
-                        for t2, a2 in back)]
-    paths = []
-    for start, end in outer:
-        i, path = at[start], []
-        while True:
-            a, ins = instrs[i]
-            path.append(ins)
-            t = branch_target(ins)
-            if a == end:
-                break
-            i = at[t] if t is not None and t > a else i + 1
-        paths.append(path)
-    return paths
-
-
-#: a Philox round's multipliers as SASS writes them (0xD2511F53 and
-#: 0xCD9E8D57 as signed 32-bit immediates)
-PHILOX_MULTIPLIERS = ("-0x2daee0ad", "-0x326172a9")
-
-
-def walker_path(instrs, stop="BAR.SYNC"):
-    """The instructions one walker's thread issues from a kernel's entry
-    to its first ``stop``: at a forward conditional branch it skips what
-    a single thread does for the block (a bulk copy's issue) and, of an
-    if / else, takes the side that draws a Philox block (the in-kernel
-    stream, not injected draws); everything else it runs through."""
-    at = {a: i for i, (a, _) in enumerate(instrs)}
-
-    def has(lo, hi, words):
-        return any(w in ins for _, ins in instrs[lo:hi] for w in words)
-
-    i, path = 0, []
-    while True:
-        a, ins = instrs[i]
-        if ins.startswith(stop):
-            return path
-        path.append(ins)
-        t = branch_target(ins)
-        if t is not None and t > a:
-            j = at[t]
-            if not ins.startswith("@"):
-                i = j
-                continue
-            if has(i + 1, j, ("UBLKCP", "SYNCS")) or (
-                    not has(i + 1, j, PHILOX_MULTIPLIERS)
-                    and has(j, len(instrs), PHILOX_MULTIPLIERS)
-                    and any(branch_target(x) is not None
-                            and not x.startswith("@")
-                            for _, x in instrs[i + 1:j])):
-                i = j
-                continue
-        i += 1
 
 
 def max_err(got, want, rtol=RTOL, atol=ATOL):
@@ -2021,31 +1942,32 @@ def random_leaf(torch, n, row, dtype, gen, offset=0):
     return flat[offset:].view((n,) + tuple(row))
 
 
-#: K2's blob variants in phase 11's sweep: (q staged, leaves staged,
-#: scalar leaves read into registers)
-K2_BLOB_VARIANTS = {"the plan's": (True, True, True),
-                    "q and leaves staged": (True, True, False),
-                    "q direct, leaves staged": (False, True, False),
-                    "q and leaves direct": (False, False, False)}
+#: K2's blob variants in phase 11's sweep: the wrapper, and launches
+#: that force a path, as (q staged, scalar leaves read into registers
+#: where the plan says so; else phase C)
+K2_BLOB_VARIANTS = {"the wrapper's": None,
+                    "q direct": (False, True),
+                    "q staged, leaves by phase C": (True, False),
+                    "q direct, leaves by phase C": (False, False)}
 
 
 def k2_blob_launch(q, f, lp_q, c, l, split, ns, acc, cnt, log_u, blobs,
-                   stage_q, stage_leaves, row_leaves):
-    """K2 with blob leaf pairs ``blobs``: q staged in shared memory or read
-    directly; the leaves as the plan (``leaf_plan``) chooses, with
-    ``row_leaves`` and ``stage_leaves`` allowing it to read scalar leaves
-    into registers and to stage leaves.  Returns the plan's choice: the
-    leaves' descriptors, the dynamic shared memory and the row unit."""
+                   stage_q, rows):
+    """K2 with blob leaf pairs ``blobs``, forced onto a path: q staged in
+    shared memory or read directly; the leaves as the plan
+    (``leaf_plan``) chooses, or by phase C where ``rows`` is False.
+    Returns the leaves' descriptors and the row unit launched."""
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
 
     ng, nw = q.shape[0], c.shape[0]
     plan = tile_plan(ng, c.shape[1], split, device_sm_count(c.device),
                      c.data_ptr(), q.data_ptr(), stage=stage_q)
-    leaves = ak.blob_leaves(blobs, ng, nw, c.device)
-    ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, 0, 0, log_u, leaves,
-               stage_leaves, row_leaves)
-    return ak.leaf_plan(leaves, plan, stage_leaves, row_leaves)
+    descs, row_unit = ak.leaf_plan(ak.blob_leaves(blobs, ng, nw, c.device))
+    row_unit = row_unit if rows else 0
+    ak._launch(plan, q, f, lp_q, c, l, split, acc, cnt, 0, 0, log_u, descs,
+               row_unit)
+    return descs, row_unit
 
 
 def k2_blob_sweep(torch, dev):
@@ -2054,18 +1976,17 @@ def k2_blob_sweep(torch, dev):
     leaf's buffer compared as bytes, so NaN payloads count): leaf dtypes
     float32, float64, float16, int32, int64 and bool; row shapes (),
     (1,), (3,), (2, 2), (7,); one leaf of each, two and three leaves of
-    mixed kinds, leaves whose bases are not aligned to their unit, staged
-    and direct leaves in one launch, a leaf whose tile span does not fit
-    in shared memory (and a smaller one staged after it), 1-byte and
+    mixed kinds, leaves whose bases are not aligned to their unit,
+    scalar and wider leaves in one launch, 400-byte rows, 1-byte and
     16-byte units, scalar leaves read into registers (the main path's
-    three; eight 8-byte ones; nine, one too many; 4- and 8-byte mixed),
-    and 17 and 33 leaves (beyond the launch's 16: blob-only launches);
-    ``nsplits`` 1 and 2 with both splits; ``ng`` 5003 (no tile divides
-    it: the last tile stages a prefix of a span), the main path's 50000
-    and 37 (tile 4: spans that are not a multiple of 16 bytes); each of
-    ``K2_BLOB_VARIANTS``.  Returns the number of comparisons and the
-    leaves of the launches' first groups seen read into registers
-    (``rows``), staged and direct."""
+    three; four, the most; eight 8-byte ones and nine 4-byte ones, too
+    many; 4- and 8-byte mixed), and 17 and 33 leaves (beyond the
+    launch's 16: blob-only launches); ``nsplits`` 1 and 2 with both
+    splits; ``ng`` 5003 (no tile divides it), the main path's 50000 and
+    37; each of ``K2_BLOB_VARIANTS``, the first through the wrapper
+    ``accept_select`` as the sampler calls it.  Returns the number of
+    comparisons and the leaves of the launches' first groups seen read
+    into registers (``rows``) and by phase C (``phase C``)."""
     from emcee_tpu_torch.ops import accept_kernel as ak
 
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -2079,24 +2000,25 @@ def k2_blob_sweep(torch, dev):
     # (dtype, row, elements past an aligned base)
     edges = [
         [("float16", (3,), 1), ("float32", (2, 2), 1), ("float64", (7,), 1),
-         ("int32", (), 1)],  # unaligned bases: all direct
+         ("int32", (), 1)],  # unaligned bases
         [("float32", (), 0), ("float32", (3,), 1), ("int64", (2,), 0),
-         ("bool", (7,), 1), ("int32", (), 0)],  # staged and direct
-        [("float32", (100,), 0)],  # 51200 bytes a tile of 128: no room
+         ("bool", (7,), 1), ("int32", (), 0)],  # scalar and wider rows
+        [("float32", (100,), 0)],  # 400-byte rows
         [("float32", (60,), 0), ("float32", (60,), 0),
-         ("int32", (), 0)],  # the second does not fit, the third does
+         ("int32", (), 0)],  # two wide rows and a scalar
         [("bool", (), 0), ("bool", (3,), 0), ("float64", (2,), 0),
          ("float32", (4,), 0)],  # 1-byte and 16-byte units
         [("float32", (), 0), ("float32", (), 0), ("int32", (), 0)],  # rows
+        [("int32", (), i % 2) for i in range(4)],  # four: the most rows
         [("float64", (), i % 2) for i in range(4)]
         + [("int64", (1,), 0)] * 4,  # eight 8-byte rows
-        [("float32", (), 0)] * 9,  # one too many for registers
-        [("float32", (), 0), ("float64", (), 0)],  # two units: staged
+        [("float32", (), 0)] * 9,  # too many for registers
+        [("float32", (), 0), ("float64", (), 0)],  # two units: phase C
     ]
     big = [[kinds[i % len(kinds)] for i in range(n)] for n in (17, 33)]
     nd = ND
     n_cmp = 0
-    seen = {"rows": 0, "staged": 0, "direct": 0}
+    seen = {"rows": 0, "phase C": 0}
 
     for ng in (SWEEP_NG, NW // 2, 37):
         for ns, split in ((1, 0), (2, 0), (2, 1)):
@@ -2129,13 +2051,17 @@ def k2_blob_sweep(torch, dev):
                         ak.accept_select_plain(q, f, lp_q, c, l, split, ns,
                                                acc, cnt, log_u=log_u,
                                                blobs=pairs)
+                    elif K2_BLOB_VARIANTS[variant] is None:
+                        ak.accept_select(q, f, lp_q, c, l, split, ns, acc,
+                                         cnt, log_u=log_u, blobs=pairs)
+                        descs, row_unit = ak.leaf_plan(
+                            ak.blob_leaves(pairs, ng, nw, c.device))
+                        seen["rows" if row_unit else "phase C"] += min(
+                            len(descs), ak.BLOB_CAPACITY)
                     else:
-                        descs, _, row_unit = k2_blob_launch(
-                            q, f, lp_q, c, l, split, ns, acc, cnt, log_u,
-                            pairs, *K2_BLOB_VARIANTS[variant])
-                        for desc in descs[:ak.BLOB_CAPACITY]:
-                            seen["rows" if row_unit else "staged"
-                                 if desc[4] >= 0 else "direct"] += 1
+                        k2_blob_launch(q, f, lp_q, c, l, split, ns, acc, cnt,
+                                       log_u, pairs,
+                                       *K2_BLOB_VARIANTS[variant])
                     outs.append(((c, l, acc, cnt),
                                  [b.reshape(-1).view(torch.uint8)
                                   for b in bs]))
@@ -2161,23 +2087,23 @@ def k2_leaf_sweep(torch, q, f, lp_q, work, pairs, reps=200):
     """K2 on the proposal ``(q, f, lp_q)`` of split 0 with blob leaf pairs
     ``pairs``, each of their paths on fresh copies of ``work`` (coords,
     log_prob, accepted, count): the plan's (scalar leaves in registers),
-    the leaves staged in shared memory, read directly, and no leaves.
-    Eager launches profiled, the paths in turns, up then down, averaged.
-    Returns ``{path: device us a launch}``."""
+    the leaves by phase C, and no leaves.  Eager launches profiled, the
+    paths in turns, up then down, averaged.  Returns ``{path: device us a
+    launch}``."""
     bufs = [w.clone() for w in work]
-    paths = {"registers": (True, True, True), "staged": (True, True, False),
-             "direct": (True, False, False), "no leaves": None}
+    paths = {"registers": (pairs, True), "phase C": (pairs, False),
+             "no leaves": ([], True)}
 
-    def run(mode):
+    def run(blobs, rows):
         for b, w in zip(bufs, work):
             b.copy_(w)
         k2_blob_launch(q, f, lp_q, bufs[0], bufs[1], 0, 2, bufs[2], bufs[3],
-                       None, pairs if mode else [], *(mode or (True,) * 3))
+                       None, blobs, True, rows)
 
     got = {}
     for name in list(paths) + list(paths)[::-1]:
         got.setdefault(name, []).append(profiled_ms(
-            torch, lambda: [run(paths[name]) for _ in range(reps)],
+            torch, lambda: [run(*paths[name]) for _ in range(reps)],
             "accept_select") * 1e3)
     return {k: sum(v) / len(v) for k, v in got.items()}
 
@@ -2227,7 +2153,6 @@ def phase11(torch, np, dev, card):
     from emcee_tpu_torch import EnsembleSampler, moves
     from emcee_tpu_torch.backends import Backend, DeviceBackend
     from emcee_tpu_torch.chunk_graph import ChunkProgram
-    from emcee_tpu_torch.ops import _build
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops import stretch_kernel as sk
     from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
@@ -2239,13 +2164,13 @@ def phase11(torch, np, dev, card):
     out["k2_blob_comparisons"], out["k2_blob_leaves_seen"] = n_cmp, seen
     log(f"phase 11: K2 with blob leaves (float32, float64, float16, int32, "
         f"int64, bool; rows (), (1,), (3,), (2, 2), (7,); 1-3, 17 and 33 "
-        f"leaves; unaligned bases; staged and direct leaves in one launch; "
-        f"a span that does not fit; 1- and 16-byte units; nsplits 1 and 2, "
-        f"both splits; ng {SWEEP_NG}, {NW // 2} and 37; "
+        f"leaves; unaligned bases; scalar and wider leaves in one launch; "
+        f"400-byte rows; 1- and 16-byte units; nsplits 1 and 2, both "
+        f"splits; ng {SWEEP_NG}, {NW // 2} and 37; "
         f"{', '.join(K2_BLOB_VARIANTS)}): {n_cmp} comparisons with its "
-        f"plain version, all identical; leaves of the launches' first "
-        f"groups in registers {seen['rows']}, staged {seen['staged']}, "
-        f"direct {seen['direct']} ({time.perf_counter() - t0:.1f} s)")
+        f"plain version, all identical; leaves of the wrapper's first "
+        f"groups in registers {seen['rows']}, by phase C "
+        f"{seen['phase C']} ({time.perf_counter() - t0:.1f} s)")
     if not all(seen.values()):
         raise AssertionError(f"phase 11: the sweep did not reach both leaf "
                              f"paths: {seen}")
@@ -2390,26 +2315,25 @@ def phase11(torch, np, dev, card):
     blob_row = 12  # three 4-byte leaves
     nbytes = (4 * ng * 3 + ng + n_acc * (4 * ND + 4 * (ND + 1) + 8)
               + n_acc * 2 * blob_row)
-    # Instructions: a walker's path through phase A (the accept uniform's
-    # Philox block, logf, the decision) in the compiled kernel, once a
-    # walker, at the card's issue rate; phases B and C are not counted.
+    # Instructions the function needs a walker: the accept uniform's
+    # Philox block, its log (a shift, a conversion and its scaling, lg2
+    # and its scaling: two special-function results) and the decision
+    # (two adds and a compare).
+    per_walker = PHILOX_INSTR + 8
     plan = tile_plan(ng, ND, 0, device_sm_count(dev), work[0].data_ptr(),
                      q.data_ptr(), stage=True)
-    leaves, smem, row_unit = ak.leaf_plan(
-        ak.blob_leaves(pairs, ng, NW, work[0].device), plan)
+    _, row_unit = ak.leaf_plan(ak.blob_leaves(pairs, ng, NW, work[0].device))
     sweep = k2_leaf_sweep(torch, q, f, lp_q, work, pairs)
-    sass = sass_functions(_build._lib_path("accept_select"))
-    blobs_type = {4: "BlobRows<uint32_t>", 8: "BlobRows<uint2>",
-                  0: "BlobLeaves"}[row_unit]
-    label = f"accept_select_kernel<{plan.vec},{plan.stage},{blobs_type}>"
-    n_ins = len(walker_path(sass[label])) if sass else None
-    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-    if n_ins:
-        t["instructions"] = n_ins * ng / ISSUE_PER_S * 1e3
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+         "operations": instruction_bound(per_walker * ng, 2 * ng)}
     by = max(t, key=t.get)
+    blobs_type = {4: "BlobRows<unsigned int>", 8: "BlobRows<uint2>",
+                  0: "BlobLeaves"}[row_unit]
+    label = (f"accept_select_kernel<{str(bool(plan.vec)).lower()}, "
+             f"{str(bool(plan.stage)).lower()}, {blobs_type}>")
     regs = PTXAS.get(label)
     waves = (plan.grid / (device_sm_count(dev) * resident_blocks(
-        regs[0], 256, regs[1] + smem)) if regs else None)
+        regs[0], 256, regs[1] + plan.smem)) if regs else None)
     log(f"phase 11: K2 with the main path's three blob leaves, eager "
         f"launches profiled, in turns: " + ", ".join(
             f"{k} {v:.3f} us" for k, v in sweep.items()) + f" {card}")
@@ -2421,18 +2345,19 @@ def phase11(torch, np, dev, card):
         "ms": k2_us["blobs"] * 1e-3, "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
         "bound_bytes_ms": t["bytes"],
-        "bound_instructions_ms": t.get("instructions"),
-        "instructions_per_walker": n_ins,
+        "bound_instructions_ms": t["operations"],
+        "instructions_per_walker": per_walker,
         "library_ms": None, "ms_without_blobs": k2_us["no blobs"] * 1e-3,
         "blob_leaves": 3, "row_unit": row_unit,
-        "staged_leaves": sum(d[4] >= 0 for d in leaves),
-        "smem_bytes": smem, "ptxas": regs, "waves": waves,
+        "smem_bytes": plan.smem, "ptxas": regs, "waves": waves,
         "leaf_sweep_us": sweep,
         "comparisons": n_cmp,
         "note": "ms_without_blobs: the blob-free K2 in the same windows; "
                 "bound: the larger of the bytes (each input read once, "
-                "each output written once) at 3.35 TB/s and a walker's "
-                "instructions through phase A (SASS) at the issue rate",
+                "each output written once) at 3.35 TB/s and the "
+                "instructions the function needs (a Philox block, a log "
+                "and the decision a walker) at the issue rate, their "
+                "special functions at theirs",
     }
     log(f"phase 11: K2 with three blob leaves: device "
         f"{row['ms'] * 1e3:.3f} us/launch (without blobs "
@@ -2440,12 +2365,11 @@ def phase11(torch, np, dev, card):
         f"call, plain {plain_ms * 1e3:.2f} us, bound "
         f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}; bytes "
         f"{t['bytes'] * 1e3:.3f} us: {nbytes} bytes, {n_acc} of {ng} "
-        f"accepted; instructions "
-        f"{measured(t.get('instructions') and t['instructions'] * 1e3, '.3f')}"
-        f" us: {n_ins} a walker through phase A); leaves in registers "
-        f"(row unit {row_unit}), {row['staged_leaves']} of 3 staged, "
-        f"{smem} bytes of dynamic shared memory, {label} {regs} (registers,"
-        f" static shared, spilled), {measured(waves, '.3f')} waves {card}")
+        f"accepted; instructions {t['operations'] * 1e3:.3f} us: "
+        f"{per_walker} a walker); leaves in registers (row unit "
+        f"{row_unit}), {plan.smem} bytes of dynamic shared memory, {label} "
+        f"{regs} (registers, static shared, spilled), "
+        f"{measured(waves, '.3f')} waves {card}")
 
     # -- (c) io_dtype float16 --------------------------------------------------
     kept16, thin16 = 20, 5
@@ -3877,32 +3801,25 @@ def phase13_rows(torch, dev, out, card):
     log(f"phase 13: langevin_step, eager launches profiled: draw only "
         f"{k11_modes['draw'] * 1e3:.2f} us, MALA step "
         f"{k11_modes['mala'] * 1e3:.2f} us a launch {card}")
-    # K11's instructions: one trip through the MALA step's loop (a (row,
-    # column pair) item) in the compiled kernel, times the items, at the
-    # card's issue rate.
-    from emcee_tpu_torch.ops import _build
+    # K11's instructions: what the MALA step needs, a Philox block an item
+    # (a row's column pair) and for each stored normal its Box-Muller and
+    # the step's two multiply-adds.
     from emcee_tpu_torch.ops._wrap import device_sm_count
 
-    label = "langevin_step_kernel<1,1,0>"
-    sass = sass_functions(_build._lib_path("langevin_step"))
-    # One loop, a trip an item (a row's column pair, both normals drawn).
-    paths = loop_paths(sass[label]) if sass else None
-    if paths is not None and len(paths) != 1:
-        raise AssertionError(f"phase 13: {label}: {len(paths)} outermost "
-                             f"loops in its SASS, expected 1")
+    label = "langevin_step_kernel<true, true, false>"
     items = NW * ((ND + 1) // 2)
-    n_item = len(paths[0]) if paths else None
-    n_ins = n_item * items if paths else None
+    n_ins = items * PHILOX_INSTR + NW * ND * (NORMAL_INSTR + 2)
+    n_sfu = NW * ND * NORMAL_SFU
     k11_plan = lk.langevin_plan(NW, device_sm_count(dev))
     regs = PTXAS.get(label)
     waves = (k11_plan.grid / (device_sm_count(dev) * resident_blocks(
         regs[0], lk.LANGEVIN_THREADS)) if regs else None)
     yard = k11_yardsticks(torch, dev, x, g, eps)
     sweep, sweep_plans = k11_tile_sweep(torch, dev)
-    log(f"phase 13: langevin_step {label}: {n_item} instructions an item "
-        f"(SASS, the loop's common path), {items} items; {regs} (registers,"
-        f" static shared, spilled); plan {tuple(k11_plan)} (tile, grid), "
-        f"{measured(waves, '.3f')} waves; in one window: K11 "
+    log(f"phase 13: langevin_step {label}: {n_ins} instructions needed "
+        f"({n_sfu} special-function results), {items} items; {regs} "
+        f"(registers, static shared, spilled); plan {tuple(k11_plan)} "
+        f"(tile, grid), {measured(waves, '.3f')} waves; in one window: K11 "
         f"{measured(yard['k11'], '.3f')} us, the same bytes copied "
         f"(q.copy_(x), z.copy_(g)) {measured(yard['copy'], '.3f')} us, "
         f"multiplied by 1 on the SMs {measured(yard['mul'], '.3f')} us "
@@ -3921,8 +3838,8 @@ def phase13_rows(torch, dev, out, card):
         t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
         if kname != "langevin_step":
             t["operations"] = nops / F32_OPS_PER_S * 1e3
-        elif n_ins:
-            t["instructions"] = n_ins / ISSUE_PER_S * 1e3
+        else:
+            t["operations"] = instruction_bound(n_ins, n_sfu)
         by = max(t, key=t.get)
         ms = out[path]["ms_per_launch"][kname]
         n_cnt = out[path]["proposals_counted"]
@@ -3947,8 +3864,8 @@ def phase13_rows(torch, dev, out, card):
                 ms_draw_only_eager=k11_modes["draw"],
                 ms_mala_eager=k11_modes["mala"],
                 bound_bytes_ms=t["bytes"],
-                bound_instructions_ms=t.get("instructions"),
-                instructions_per_item=n_item, items=items,
+                bound_instructions_ms=t["operations"],
+                instructions_needed=n_ins, items=items,
                 plan=tuple(k11_plan), ptxas=regs, waves=waves,
                 yardstick_us=yard,
                 tile_sweep_us={f"{n}x{nd}": {t_: us for t_, (_, us)
@@ -3956,8 +3873,10 @@ def phase13_rows(torch, dev, out, card):
                                for (n, nd), res in sweep.items()})
             row["note"] += (
                 "; bound: the larger of the bytes at 3.35 TB/s and the "
-                "loop's instructions an item (SASS) times the items at "
-                "the issue rate; yardstick_us: K11 beside the same bytes "
+                "instructions the function needs (a Philox block an item, "
+                "a Box-Muller normal and two multiply-adds an element) at "
+                "the issue rate, their special functions at theirs; "
+                "yardstick_us: K11 beside the same bytes "
                 "copied (copy engine) and multiplied by 1 (SMs) in one "
                 "window, the card's practical byte floor")
         rows.append(row)
@@ -4019,8 +3938,9 @@ def main() -> int:
     log(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
     for k, rep in reports.items():
-        PTXAS.update(ptxas_table(rep))
-        for fn, (regs, smem, spill) in ptxas_table(rep).items():
+        table = ptxas_table(rep)
+        PTXAS.update(table)
+        for fn, (regs, smem, spill) in table.items():
             log(f"  ptxas {k}: {fn}: {regs} registers, {smem} bytes static "
                 f"shared memory, {spill} bytes spilled")
 

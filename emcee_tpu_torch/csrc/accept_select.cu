@@ -62,12 +62,11 @@
 // mask; moves/base.py:103-126 for MH and Gaussian).  A leaf is any dtype
 // of any row shape: to the kernel it is a byte row per walker.  Each
 // leaf reaches the kernel as a descriptor in a struct passed by value
-// (the split's new rows, the ensemble buffer, the row's bytes, an access
-// unit and its place in shared memory), so a graph records it with the
-// launch.  A leaf's tile span (tile x row_bytes contiguous bytes) is
-// copied as a masked stream of units: the unit is the largest of 16, 8,
-// 4, 2, 1 bytes that divides both bases and the row (ops/accept_kernel.py
-// blob_unit), so no unit straddles two walkers' rows.
+// (the split's new rows, the ensemble buffer, the row's bytes and an
+// access unit), so a graph records it with the launch.  The unit is the
+// largest of 16, 8, 4, 2, 1 bytes that divides both bases and the row
+// (ops/accept_kernel.py blob_unit), so no unit straddles two walkers'
+// rows.
 //
 // What bounds the blob leaves on an H100: latency and instructions, not
 // bytes.  Their bytes are few (the main path's three 4-byte leaves: 1.5
@@ -75,8 +74,10 @@
 // The first design read each leaf's source rows after the accept
 // decision, leaf after leaf, each leaf's descriptor by an indexed load
 // from the kernel parameters, and its units with a division each: +1.5
-// us for three leaves.  Two paths now, chosen by the launch plan
-// (ops/accept_kernel.py leaf_plan):
+// us for three leaves.  Staging every leaf's tile span in shared memory
+// by a bulk copy at block start took the loads off the critical path but
+// left the per-leaf work on it (+0.7 us; PERF.md).  Two paths now,
+// chosen by the launch plan (ops/accept_kernel.py leaf_plan):
 //   * Row leaves (Blobs = BlobRows<U>): up to kRowLeaves leaves whose rows
 //     are each one 4- or 8-byte unit (scalar blobs: the main path's
 //     three).  Each walker's thread loads its row of every leaf into
@@ -84,33 +85,21 @@
 //     loads overlap the Philox draw (rejected rows are read too), and
 //     stores them beside its log_prob when it accepts: no phase C, no
 //     shared memory, no barrier.  chip_smoke.py phase 11 times it against
-//     the staged and direct paths on the main path's leaves.
-//   * Any other leaves (Blobs = BlobLeaves), phase C:
+//     phase C on the main path's leaves.
+//   * Any other leaves (Blobs = BlobLeaves), phase C after phase B:
 //     - At block start the last warps' threads copy the leaf table (32
 //       bytes a leaf) from the parameters into shared memory, a word a
 //       thread; phase C reads a leaf's fields from there.
-//     - One thread that has no walker at a tile of 128 (warp 7's first
-//       lane, kLeafIssuer) arms an mbarrier of the leaves' own for the sum
-//       of their bytes and issues one bulk copy of each staged leaf's tile
-//       span into shared memory after q's.  The copies overlap phases A
-//       and B; q's copy is issued by thread 0 at once, as without blobs.
-//     - Phase C waits for that barrier and stores every leaf in one pass,
-//       the staged ones from shared memory.  A thread walks its units as
-//       (walker, unit in the row), stepped by the block's width with a
-//       multiplier the plan computes, so no unit needs a division.
-//     - The plan stages a leaf of the launch's first group whose source
-//       base is 16-byte aligned, whose tile span is a multiple of 16
-//       bytes, and whose span still fits in shared memory beside q and
-//       the leaves before it; it never shrinks the tile for a leaf.  The
-//       last tile stages the 16-byte prefix of its span and reads the
-//       rest directly.  Any other leaf is read after the decision.
+//     - Phase C copies each leaf's accepted rows from the source, leaf
+//       after leaf.  A thread walks its units as (walker, unit in the
+//       row), stepped by the block's width with a multiplier the plan
+//       computes, so no unit needs a division.
 // A launch takes up to kMaxLeaves leaves; the entry point launches the
 // rest in groups of kMaxLeaves by a blob-only kernel that reads the
-// split's `accepted` (direct, never staged).  Without blob leaves the
-// entry point launches the blob-free instantiation (Blobs = NoBlobs, an
-// empty struct): phases A and B and its staging of q are the same source,
-// phase C is compiled out, and its machine code is the same as before
-// phase C was added.
+// split's `accepted`.  Without blob leaves the entry point launches the
+// blob-free instantiation (Blobs = NoBlobs, an empty struct): phases A
+// and B and its staging of q are the same source, phase C is compiled
+// out, and its machine code is the same as before phase C was added.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -129,16 +118,14 @@ constexpr int kRowLeaves = 4;  // ROW_LEAVES in ops/accept_kernel.py
 
 // One blob leaf (the layout of ops/accept_kernel.py _BlobLeaf): the
 // split's new rows (ng, *shape), the ensemble buffer (nwalkers, *shape),
-// the bytes of one walker's row, the access unit in bytes, the byte
-// offset of its tile span in the block's dynamic shared memory (-1: not
-// staged, read from src), and ceil(2^24 / units a row), which divides a
-// unit index below 2^8 by the units of a row exactly as (k * inv) >> 24.
+// the bytes of one walker's row, the access unit in bytes, and
+// ceil(2^24 / units a row), which divides a unit index below 2^8 by the
+// units of a row exactly as (k * inv) >> 24.
 struct BlobLeaf {
   const unsigned char* src;
   unsigned char* dst;
   int row_bytes;
   int unit;
-  int smem;
   uint32_t inv_upr;
 };
 
@@ -173,48 +160,25 @@ struct RowUnit<BlobRows<U>> {
   using type = U;
 };
 
-// A thread that has no walker in phase A at the main path's tile of 128
-// (warp 7's first lane): it stages the blob leaves.
-constexpr int kLeafIssuer = kThreads - 32;
-
-// The blob kernel's shared state: the launch's leaf table (read from the
-// kernel parameters once a block, at block start, so phase C's reads of
-// a leaf's fields are shared-memory loads and not indexed parameter loads,
-// each of which can miss the constant cache), and the mbarrier of the
-// leaves' bulk copies.
-struct BlobShared {
-  BlobLeaf leaf[kMaxLeaves];
-  uint64_t bar;
-};
-
-__device__ __forceinline__ BlobShared& blob_shared() {
-  __shared__ BlobShared s;
+// The blob kernel's copy of the launch's leaf table (read from the kernel
+// parameters once a block, at block start, so phase C's reads of a leaf's
+// fields are shared-memory loads and not indexed parameter loads, each of
+// which can miss the constant cache).
+__device__ __forceinline__ BlobLeaf* blob_table() {
+  __shared__ BlobLeaf s[kMaxLeaves];
   return s;
 }
 
 // The blob-free kernel's Blobs: no leaves.
 struct NoBlobs {};
 
-// The bytes of a tile of `cnt` walkers that the block stages for `leaf`:
-// the 16-byte prefix of its span, or none for a leaf the plan leaves
-// direct.
-__device__ __forceinline__ uint32_t staged_bytes(const BlobLeaf& leaf,
-                                                 int cnt) {
-  return leaf.smem < 0 ? 0u
-                       : static_cast<uint32_t>(cnt * leaf.row_bytes) & ~15u;
-}
-
 // Walkers [t0, t0 + cnt) of the split, whose acc is s_acc[0, cnt): copy
-// the accepted walkers' rows of one leaf, unit by unit; the first
-// `n_staged` units from the staged span `s`, the rest from the source.
+// the accepted walkers' rows of one leaf, unit by unit.
 template <typename U>
 __device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
-                                            const U* s, uint32_t staged,
                                             const bool* s_acc, int t0,
                                             int64_t lo, int cnt, int t) {
-  constexpr int kUnit = static_cast<int>(sizeof(U));
-  const int upr = leaf.row_bytes / kUnit;
-  const int n_staged = static_cast<int>(staged) / kUnit;
+  const int upr = leaf.row_bytes / static_cast<int>(sizeof(U));
   const U* __restrict__ src = reinterpret_cast<const U*>(leaf.src) +
                               static_cast<int64_t>(t0) * upr;
   U* __restrict__ dst = reinterpret_cast<U*>(leaf.dst) + (lo + t0) * upr;
@@ -227,7 +191,7 @@ __device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
       (static_cast<uint64_t>(kThreads) * leaf.inv_upr) >> 24);
   const int du = kThreads - dw * upr;
   for (int k = t; w < cnt; k += kThreads) {
-    if (s_acc[w]) dst[k] = k < n_staged ? s[k] : src[k];
+    if (s_acc[w]) dst[k] = src[k];
     u += du;
     w += dw;
     if (u >= upr) {
@@ -237,36 +201,18 @@ __device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
   }
 }
 
-// Phase C: the n leaves of `leaf`, the staged ones from the dynamic
-// shared memory at `smem`.
+// Phase C: the n leaves of `leaves`.
 __device__ __forceinline__ void select_blobs(const BlobLeaf* leaves, int n,
-                                             const unsigned char* smem,
                                              const bool* s_acc, int t0,
                                              int64_t lo, int cnt, int t) {
   for (int l = 0; l < n; ++l) {
     const BlobLeaf& leaf = leaves[l];
-    const unsigned char* s = smem + (leaf.smem < 0 ? 0 : leaf.smem);
-    const uint32_t staged = staged_bytes(leaf, cnt);
     switch (leaf.unit) {
-      case 16:
-        select_leaf(leaf, reinterpret_cast<const uint4*>(s), staged, s_acc,
-                    t0, lo, cnt, t);
-        break;
-      case 8:
-        select_leaf(leaf, reinterpret_cast<const uint2*>(s), staged, s_acc,
-                    t0, lo, cnt, t);
-        break;
-      case 4:
-        select_leaf(leaf, reinterpret_cast<const uint32_t*>(s), staged,
-                    s_acc, t0, lo, cnt, t);
-        break;
-      case 2:
-        select_leaf(leaf, reinterpret_cast<const uint16_t*>(s), staged,
-                    s_acc, t0, lo, cnt, t);
-        break;
-      default:
-        select_leaf(leaf, s, staged, s_acc, t0, lo, cnt, t);
-        break;
+      case 16: select_leaf<uint4>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 8: select_leaf<uint2>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 4: select_leaf<uint32_t>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 2: select_leaf<uint16_t>(leaf, s_acc, t0, lo, cnt, t); break;
+      default: select_leaf<uint8_t>(leaf, s_acc, t0, lo, cnt, t); break;
     }
   }
 }
@@ -318,33 +264,13 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
   if constexpr (kBlobs) {
     // The last warps' threads copy the leaf table from the parameters
     // into shared memory, a word a thread (at a tile of 128 they hold no
-    // walker); kLeafIssuer bulk-copies the staged leaves' tile spans on
-    // the table's own mbarrier, armed for their bytes (none: it completes
-    // at once).
-    BlobShared& sb = blob_shared();
+    // walker); phase C, after the __syncthreads, reads it.
     constexpr int kWords = static_cast<int>(sizeof(BlobLeaf) / 4);
     constexpr int kFirst = kThreads - kMaxLeaves * kWords;
     static_assert(kFirst >= 0, "one word a thread");
     if (t >= kFirst && t - kFirst < blobs.n * kWords) {
-      reinterpret_cast<uint32_t*>(sb.leaf)[t - kFirst] =
+      reinterpret_cast<uint32_t*>(blob_table())[t - kFirst] =
           reinterpret_cast<const uint32_t*>(blobs.leaf)[t - kFirst];
-    }
-    if (t == kLeafIssuer) {
-      uint32_t bytes = 0;
-      for (int l = 0; l < blobs.n; ++l) {
-        bytes += staged_bytes(blobs.leaf[l], cnt);
-      }
-      bulk_copy_arm(&sb.bar, bytes);
-      for (int l = 0; l < blobs.n; ++l) {
-        const BlobLeaf& leaf = blobs.leaf[l];
-        const uint32_t b = staged_bytes(leaf, cnt);
-        if (b > 0) {
-          bulk_copy_issue(
-              reinterpret_cast<unsigned char*>(s_q4) + leaf.smem,
-              leaf.src + static_cast<int64_t>(t0) * leaf.row_bytes, b,
-              &sb.bar);
-        }
-      }
     }
   }
 
@@ -439,11 +365,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 
   // -- phase C: the blob leaves' rows, masked by the same acc --------------
   if constexpr (kBlobs) {
-    BlobShared& sb = blob_shared();
-    bulk_copy_wait(&sb.bar);
-    select_blobs(sb.leaf, blobs.n,
-                 reinterpret_cast<const unsigned char*>(s_q4), s_acc, t0, lo,
-                 cnt, t);
+    select_blobs(blob_table(), blobs.n, s_acc, t0, lo, cnt, t);
   }
 }
 
@@ -460,18 +382,14 @@ __global__ void __launch_bounds__(kThreads) accept_blobs_only_kernel(
   const int64_t lo = static_cast<int64_t>(split) * ng;
   if (t < cnt) s_acc[t] = accepted[lo + t0 + t];
   __syncthreads();
-  select_blobs(leaves.leaf, leaves.n, nullptr, s_acc, t0, lo, cnt, t);
+  select_blobs(leaves.leaf, leaves.n, s_acc, t0, lo, cnt, t);
 }
 
-// Leaves [l0, min(l0 + kMaxLeaves, n)) of `all` as one launch's struct;
-// only the first group is staged.
+// Leaves [l0, min(l0 + kMaxLeaves, n)) of `all` as one launch's struct.
 BlobLeaves leaf_group(const BlobLeaf* all, int n, int l0) {
   BlobLeaves g{};
   g.n = n - l0 < kMaxLeaves ? n - l0 : kMaxLeaves;
-  for (int l = 0; l < g.n; ++l) {
-    g.leaf[l] = all[l0 + l];
-    if (l0 > 0) g.leaf[l].smem = -1;
-  }
+  for (int l = 0; l < g.n; ++l) g.leaf[l] = all[l0 + l];
   return g;
 }
 
@@ -512,18 +430,15 @@ void launch_select(int vec, int stage, int grid, int smem, cudaStream_t st,
 // tile, grid, vec, stage and smem are the launch plan of ops/_wrap.py
 // tile_plan: vec != 0 promises that every tile's spans of q and coords
 // are 16-byte aligned, stage != 0 that every tile's q span is, and smem
-// is the dynamic shared memory (4 * tile * nd when staged, else 0; with
-// blob leaves, ops/accept_kernel.py leaf_plan's, which adds the staged
-// leaves' spans).  `leaves` is a host array of `nleaves` blob-leaf
-// descriptors (each with row_bytes > 0; a staged leaf's source span of
-// every tile 16-byte aligned, a multiple of 16 bytes, and inside smem at
-// a multiple of 16); it is copied into the launches' parameters, so
+// is the dynamic shared memory (4 * tile * nd when staged, else 0).
+// `leaves` is a host array of `nleaves` blob-leaf descriptors (each
+// with row_bytes > 0); it is copied into the launches' parameters, so
 // the host array may go once this returns.  row_unit 4 or 8 (leaf_plan's
 // choice) promises at most kRowLeaves leaves whose rows are each one
-// unit of that many bytes: they are read into registers, and nothing is
-// staged.  Returns cudaGetLastError() after the launches (1 +
-// ceil((nleaves - kMaxLeaves) / kMaxLeaves) of them with more than
-// kMaxLeaves leaves, else 1).
+// unit of that many bytes: they are read into registers.  Returns
+// cudaGetLastError() after the launches (1 + ceil((nleaves -
+// kMaxLeaves) / kMaxLeaves) of them with more than kMaxLeaves leaves,
+// else 1).
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,

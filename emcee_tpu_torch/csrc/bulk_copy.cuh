@@ -1,9 +1,8 @@
-// TMA bulk copies (cp.async.bulk) of spans of device memory into shared
-// memory, completed on one mbarrier: how K2 stages a tile's q rows and its
-// blob leaves' rows, and K5a a tile's own rows.  One thread arms the
-// barrier and issues the copies; after the block's __syncthreads (which
-// makes the barrier's initialisation visible) every thread that reads a
-// span waits for it.
+// A TMA bulk copy (cp.async.bulk) of a span of device memory into shared
+// memory, completed on an mbarrier: how K2 stages a tile's q rows and K5a
+// a tile's own rows.  One thread issues the copy; after the block's
+// __syncthreads (which makes the barrier's initialisation visible) every
+// thread that reads the span waits for it.
 #pragma once
 
 #include <cstdint>
@@ -12,11 +11,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Issued by one thread: initialise the mbarrier `bar` (phase 0) and arm
-// it for `bytes` in all, the sum of the bulk copies issued on it next.
-// The count must be exact: a barrier that waits for bytes no copy
-// delivers never completes.
-__device__ __forceinline__ void bulk_copy_arm(uint64_t* bar, uint32_t bytes) {
+// Issued by one thread: copy `bytes` (a multiple of 16) from the 16-byte
+// aligned `src` to the 16-byte aligned shared `dst`, completing on the
+// mbarrier `bar` (phase 0).
+__device__ __forceinline__ void bulk_copy_to_shared(void* dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar) {
   const uint32_t b = smem_addr(bar);
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -25,30 +26,11 @@ __device__ __forceinline__ void bulk_copy_arm(uint64_t* bar, uint32_t bytes) {
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
       "r"(bytes)
       : "memory");
-}
-
-// Issued by the thread that armed `bar`: copy `bytes` (a multiple of 16)
-// from the 16-byte aligned `src` to the 16-byte aligned shared `dst`,
-// completing on `bar`.
-__device__ __forceinline__ void bulk_copy_issue(void* dst, const void* src,
-                                                uint32_t bytes,
-                                                uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      "l"(src), "r"(bytes), "r"(b)
       : "memory");
-}
-
-// Issued by one thread: one span, `bytes` (a multiple of 16) from the
-// 16-byte aligned `src` to the 16-byte aligned shared `dst`, completing on
-// the mbarrier `bar` (phase 0).
-__device__ __forceinline__ void bulk_copy_to_shared(void* dst,
-                                                    const void* src,
-                                                    uint32_t bytes,
-                                                    uint64_t* bar) {
-  bulk_copy_arm(bar, bytes);
-  bulk_copy_issue(dst, src, bytes, bar);
 }
 
 // Wait until the copy completing on `bar` has landed.

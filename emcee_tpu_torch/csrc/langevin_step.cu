@@ -28,16 +28,17 @@
 // pass (g = (g L) L^T, z_in = z L^T, d null), whose products by L are
 // torch.matmul calls between two launches.
 //
-// What bounds it on an H100: bytes and instructions, about equally.  In
-// MALA mode at 1e5 x 5 float32 it reads x and g and writes z and q, 8 MB
-// (2.39 us at 3.35 TB/s).  Each column pair is one Philox block (ten
-// rounds of multiply-highs and xors) and each column one Box-Muller
-// normal (the accurate logf, an IEEE sqrt, the accurate cosf): the
-// compiled loop issues about 250 instructions an item, which at the
-// card's issue rate (132 SMs x 4 warp instructions a clock) take about
-// 2.2 us for the 3e5 items.  None of it is float32 FMA work, so the
-// float32 rate is not the yardstick (chip_smoke.py counts the compiled
-// loop's instructions, PERF.md has the times).
+// What bounds it on an H100: bytes.  In MALA mode at 1e5 x 5 float32 it
+// reads x and g and writes z and q, 8 MB (2.39 us at 3.35 TB/s).  The
+// function needs few instructions: a Philox block a column pair (ten
+// rounds of two 32 x 32 -> 64-bit multiplies and two xors) and a
+// Box-Muller normal a column (a log, a sqrt and a cos as special
+// functions, and a few multiplies), about 0.6 us at the card's issue
+// rate for the 3e5 items (chip_smoke.py counts them).  The compiled loop
+// issues about four times as many: the accurate logf and cosf and the
+// IEEE sqrt that the stream's bit-for-bit parity requires expand to many
+// instructions each (about 250 an item, some 2.2 us; PERF.md).  None of
+// it is float32 FMA work, so the float32 rate is not the yardstick.
 //
 // The first design gave each (row, pair) a thread of its own: 1172
 // blocks of 256 at 1e5 x 5, about 1.1 waves of the card, so the last
@@ -66,9 +67,9 @@
 // odd ndim no pair can be read as one 8-byte access anyway.  Device
 // memory moves whole sectors either way; vector accesses would save
 // only a few of the instructions an item.  What holds it above its bound
-// is the instructions: the draw alone, with 2 MB of stores, takes nearly
-// as long as the MALA step, and the instruction and byte times overlap
-// only in part.
+// is the instructions it issues: the draw alone, with 2 MB of stores,
+// takes nearly as long as the MALA step, and the instruction and byte
+// times overlap only in part.
 //
 // Arithmetic uses the _rn intrinsics so that nvcc cannot contract a
 // multiply and an add into an FMA: every rounding matches the plain

@@ -39,9 +39,7 @@ The kernel does it in the same launch, as a masked byte stream per leaf
 (see the source).  :func:`leaf_plan` chooses how: up to ``ROW_LEAVES``
 leaves whose rows are each one 4- or 8-byte unit (scalar blobs, the main
 path's) are read into registers by each walker's thread before the
-decision; otherwise a leaf's tile span is staged in shared memory beside
-q by a bulk copy at block start, where its source is aligned and the
-span fits, and the rest are read after the decision.  The leaves beyond
+decision; any other leaves are read after the decision.  The leaves beyond
 ``BLOB_CAPACITY`` go to further launches of a blob-only kernel that reads
 the split's ``accepted``.  The plain version is
 ``torch.where`` per leaf; the two agree bit for bit (bytes are copied,
@@ -66,8 +64,8 @@ import ctypes
 import torch
 
 from ._wrap import (
-    SMEM_LIMIT, STATIC_SMEM, check_f32, check_rows, count_launches,
-    device_sm_count, launch, ptr, rng_args, tile_plan)
+    check_f32, check_rows, count_launches, device_sm_count, launch, ptr,
+    rng_args, tile_plan)
 from .philox import to_uniform, walker_words
 
 __all__ = ["BLOB_CAPACITY", "ROW_LEAVES", "accept_select",
@@ -89,7 +87,7 @@ class _BlobLeaf(ctypes.Structure):
 
     _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
                 ("row_bytes", ctypes.c_int), ("unit", ctypes.c_int),
-                ("smem", ctypes.c_int), ("inv_upr", ctypes.c_uint32)]
+                ("inv_upr", ctypes.c_uint32)]
 
 
 #: the shift of a leaf's ``inv_upr`` (``BlobLeaf`` in
@@ -117,44 +115,23 @@ def blob_unit(src_ptr, dst_ptr, row_bytes):
     return 1
 
 
-def leaf_plan(leaves, plan, stage=True, rows=True):
-    """How K2 selects blob leaves ``(src, dst, row bytes)`` under launch
-    plan ``plan``: ``([(src, dst, row bytes, unit, smem offset,
-    inv_upr), ...], smem, row_unit)``, the kernel's descriptor of each
-    leaf, the launch's dynamic shared memory and the row unit.
-
-    Where every leaf's row is one unit of 4 or 8 bytes (scalar blobs;
-    ``rows`` allowing) and there are at most ``ROW_LEAVES`` of them, the
-    row unit is that unit: each walker's thread reads its row of every
-    leaf into registers before the decision, and nothing is staged.
-    Otherwise (row unit 0) a leaf of the first launch's ``BLOB_CAPACITY``
-    is staged (``stage`` allowing) where each tile's span of its source
-    rows can be a bulk copy: a 16-byte aligned source base and a tile
-    span ``plan.tile * row`` that is a multiple of 16 bytes; and where
-    that span still fits under ``SMEM_LIMIT`` beside the static arrays,
-    ``q``'s span (``plan.smem``) and the leaves staged before it.  Its
-    offset is where its span starts in the dynamic shared memory (after
-    ``q``'s, a multiple of 16); any other leaf gets -1 and is read
-    directly.  The tile is the plan's: a leaf that does not fit is not
-    staged, and the tile never shrinks for one."""
+def leaf_plan(leaves):
+    """How K2 selects blob leaves ``(src, dst, row bytes)``: ``([(src,
+    dst, row bytes, unit, inv_upr), ...], row_unit)``, the kernel's
+    descriptor of each leaf and the row unit.  Where every leaf's row is
+    one unit of 4 or 8 bytes (scalar blobs) and there are at most
+    ``ROW_LEAVES`` of them, the row unit is that unit: each walker's
+    thread reads its row of every leaf into registers before the
+    decision.  Otherwise it is 0, and the leaves are read after the
+    decision (phase C)."""
     units = [blob_unit(src, dst, row) for src, dst, row in leaves]
     row_unit = 0
-    if (rows and 0 < len(leaves) <= ROW_LEAVES and units[0] in ROW_UNITS
+    if (0 < len(leaves) <= ROW_LEAVES and units[0] in ROW_UNITS
             and all(u == units[0] == row
                     for u, (_, _, row) in zip(units, leaves))):
         row_unit = units[0]
-    room = SMEM_LIMIT - STATIC_SMEM
-    smem = plan.smem
-    out = []
-    for i, ((src, dst, row), unit) in enumerate(zip(leaves, units)):
-        span = plan.tile * row
-        staged = (stage and not row_unit and i < BLOB_CAPACITY
-                  and src % 16 == 0 and span % 16 == 0
-                  and smem + span <= room)
-        out.append((src, dst, row, unit, smem if staged else -1,
-                    inv_upr(row, unit)))
-        smem += span if staged else 0
-    return out, smem, row_unit
+    return ([(src, dst, row, unit, inv_upr(row, unit))
+             for (src, dst, row), unit in zip(leaves, units)], row_unit)
 
 
 def blob_leaves(blobs, ng, nw, device):
@@ -240,31 +217,26 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
     plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
                      q.data_ptr(), stage=True)
     _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u, leaves)
+            seed, offset, log_u, *leaf_plan(leaves))
     count_launches(accept_select, max(1, -(-len(leaves) // BLOB_CAPACITY)))
     return accepted[split * ng:(split + 1) * ng]
 
 
 def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u, leaves=(), stage_leaves=True,
-            row_leaves=True):
+            seed, offset, log_u, leaves=(), row_unit=0):
     """Launch K2 with launch plan ``plan`` on checked arguments;
-    ``leaves`` are ``(new pointer, buffer pointer, row bytes)`` of the
-    blob leaves (rows of at least one byte), read into registers or
-    staged by :func:`leaf_plan` unless ``row_leaves`` or
-    ``stage_leaves`` is False."""
+    ``leaves`` are the blob leaves' descriptors and ``row_unit`` their
+    path (:func:`leaf_plan`)."""
     dev = coords.device
-    descs, smem, row_unit = leaf_plan(leaves, plan, stage_leaves,
-                                      row_leaves)
-    table = (_BlobLeaf * max(1, len(descs)))(*[
-        _BlobLeaf(*d) for d in descs])
+    table = (_BlobLeaf * max(1, len(leaves)))(*[
+        _BlobLeaf(*d) for d in leaves])
     launch(
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
         ptr(count), ptr(log_u), q.shape[0], coords.shape[1], split,
-        *plan[:4], smem, *rng_args(seed, offset, dev),
-        ctypes.addressof(table), len(descs), row_unit,
+        *plan, *rng_args(seed, offset, dev),
+        ctypes.addressof(table), len(leaves), row_unit,
     )
 
 

@@ -3,8 +3,9 @@
 and K5b (``de_plan``) and of K11 (``langevin_kernel.langevin_plan``),
 checked on the host: the tiles cover the split once, the grid fills the
 card (K11's in one wave), shared memory stays under 48 KB, the float4 and
-bulk-copy paths are taken only on 16-byte aligned spans, and the kernels'
-division-free index walks visit every unit once.  The kernels read the plan as it is
+bulk-copy paths are taken only on 16-byte aligned spans, scalar blob
+leaves go through registers, and the kernels' division-free index walks
+visit every unit once.  The kernels read the plan as it is
 (``csrc/stretch_propose.cu``, ``csrc/accept_select.cu``,
 ``csrc/de_propose.cu``, ``csrc/snooker_propose.cu``); ``chip_smoke.py``
 holds them against their plain versions on the card."""
@@ -253,65 +254,35 @@ def test_sm_count_is_read_once_per_device(monkeypatch):
 
 # -- K2's blob leaves (accept_kernel.leaf_plan) --------------------------
 
-ROOM = SMEM_LIMIT - STATIC_SMEM
-
-
 def leaf_cases():
-    """A K2 plan (staged or not), up to 40 blob leaves ``(src, dst, row
-    bytes)`` at bases up to 15 bytes past 16-byte alignment (rows of 4
-    and 8 bytes drawn often: scalar blobs), and whether the plan may
-    stage leaves and read scalar ones into registers."""
+    """Up to 40 blob leaves ``(src, dst, row bytes)`` at bases up to 15
+    bytes past 16-byte alignment (rows of 4 and 8 bytes drawn often:
+    scalar blobs)."""
     leaf = st.tuples(st.integers(0, 15), st.integers(0, 15),
                      st.one_of(st.sampled_from([4, 8]), st.integers(1, 600)))
-    return st.tuples(shapes, st.lists(leaf, max_size=40), st.booleans(),
-                     st.booleans())
-
-
-def draw_leaves(case):
-    shape, raw, stage_leaves, rows = case
-    plan = draw(shape)[0]
-    leaves = [((5 << 20) + (i << 22) + s, (7 << 20) + (i << 22) + d, row)
-              for i, (s, d, row) in enumerate(raw)]
-    return plan, leaves, stage_leaves, rows
+    return st.lists(leaf, max_size=40)
 
 
 @settings(max_examples=300, deadline=None)
 @given(leaf_cases())
-@example((PATHS[2], [(0, 0, 4)] * 3, True, True))  # the main path's blobs
-@example((PATHS[2], [(0, 0, 4)] * 3, True, False))  # the same, staged
-@example((PATHS[2], [(0, 0, 240)] * 2 + [(0, 0, 4)], True, True))
-def test_leaf_plan_stages_aligned_spans_that_fit(case):
-    plan, leaves, stage_leaves, rows = draw_leaves(case)
-    descs, smem, row_unit = leaf_plan(leaves, plan, stage_leaves, rows)
+@example([(0, 0, 4)] * 3)  # the main path's blobs
+@example([(0, 0, 4)] * 5)  # one too many for registers
+@example([(0, 0, 240)] * 2 + [(0, 0, 4)])
+def test_leaf_plan_reads_scalar_leaves_into_registers(raw):
+    leaves = [((5 << 20) + (i << 22) + s, (7 << 20) + (i << 22) + d, row)
+              for i, (s, d, row) in enumerate(raw)]
+    descs, row_unit = leaf_plan(leaves)
     assert [d[:3] for d in descs] == leaves
     # Registers: every row one 4- or 8-byte unit, at most ROW_LEAVES.
     units = {blob_unit(*leaf) for leaf in leaves}
-    scalar = (rows and 0 < len(leaves) <= ROW_LEAVES and len(units) == 1
+    scalar = (0 < len(leaves) <= ROW_LEAVES and len(units) == 1
               and units <= {4, 8}
               and all(row in units for _, _, row in leaves))
     assert row_unit == (units.pop() if scalar else 0)
-    if row_unit:
-        assert smem == plan.smem and all(d[4] == -1 for d in descs)
-        return
-    at = plan.smem
-    for i, (src, dst, row, unit, off, inv) in enumerate(descs):
+    for src, dst, row, unit, inv in descs:
         assert unit == blob_unit(src, dst, row)
         assert src % unit == dst % unit == row % unit == 0
         assert inv == -(-(1 << UPR_SHIFT) // (row // unit))
-        span = plan.tile * row
-        eligible = (stage_leaves and i < BLOB_CAPACITY and src % 16 == 0
-                    and span % 16 == 0)
-        if off >= 0:
-            # A bulk copy: every tile's span starts 16-byte aligned, in
-            # shared memory after q's span and the leaves before it.
-            assert eligible and off == at and off % 16 == 0
-            assert all((src + b * span) % 16 == 0 for b in range(4))
-            at += span
-        else:
-            # Direct only where it could not be staged or did not fit.
-            assert not eligible or at + span > ROOM
-    assert smem == at <= ROOM
-    assert smem + STATIC_SMEM <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("split", [0, 1])
@@ -323,29 +294,24 @@ def test_blob_free_plan_is_the_tile_plan(nw, nd, tile, stage_smem, split):
     ng = nw // 2
     plan = tile_plan(ng, nd, split, H100_SMS, 1 << 20, 1 << 21, stage=True)
     assert plan == (tile, -(-ng // tile), 1, 1, stage_smem)
-    assert leaf_plan([], plan) == ([], plan.smem, 0)
+    assert leaf_plan([]) == ([], 0)
 
 
 def test_leaf_plan_at_the_main_path_with_three_blobs():
     """The blob main path's three 4-byte leaves: read into registers (row
-    unit 4, nothing staged); without that path all staged after q's 2560
-    bytes, 4-byte units, one unit a row; the tile stays 128."""
-    plan = tile_plan(50_000, 5, 0, H100_SMS, 1 << 20, 1 << 21, stage=True)
+    unit 4), 4-byte units, one unit a row; more leaves, or two units,
+    go to phase C."""
     leaves = [((1 << 24) * k, (1 << 25) * k, 4) for k in (1, 2, 3)]
-    descs, smem, row_unit = leaf_plan(leaves, plan)
-    assert (row_unit, smem) == (4, plan.smem)
-    assert [d[4] for d in descs] == [-1] * 3
-    descs, smem, row_unit = leaf_plan(leaves, plan, rows=False)
-    assert [d[3:] for d in descs] == [(4, 2560, 1 << 24), (4, 3072, 1 << 24),
-                                      (4, 3584, 1 << 24)]
-    assert (smem, row_unit) == (4096, 0) and plan.tile == 128
-    # Not staged: an unaligned source, or leaves past the first launch's.
-    assert leaf_plan([(4, 0, 4)], plan, rows=False)[0][0][4] == -1
-    more, _, row_unit = leaf_plan(leaves * 6, plan)
-    assert row_unit == 0  # 18 leaves: too many for registers
-    assert [d[4] >= 0 for d in more][BLOB_CAPACITY:] == [False] * 2
-    # A float64 scalar and a float32 one share no unit: staged.
-    assert leaf_plan(leaves[:1] + [(1 << 26, 1 << 27, 8)], plan)[2] == 0
+    descs, row_unit = leaf_plan(leaves)
+    assert row_unit == 4
+    assert [d[3:] for d in descs] == [(4, 1 << 24)] * 3
+    assert leaf_plan(leaves + leaves[:1])[1] == 4  # four: the most
+    more, row_unit = leaf_plan(leaves * 6)
+    assert row_unit == 0 and len(more) == 18 > BLOB_CAPACITY
+    # A float64 scalar and a float32 one share no unit: phase C.
+    assert leaf_plan(leaves[:1] + [(1 << 26, 1 << 27, 8)])[1] == 0
+    # An 8-byte row at a 4-byte aligned base is two 4-byte units.
+    assert leaf_plan([(4, 0, 8)]) == ([(4, 0, 8, 4, 1 << 23)], 0)
 
 
 @pytest.mark.parametrize("upr", [1, 2, 3, 7, 24, 255, 256, 257, 1000,
