@@ -117,8 +117,35 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    (``counted_replays``), the profiler's count beside.  ``python3
    chip_smoke.py 13`` runs phases 0, 1 and 13 alone.
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13.  Every phase
+14. parallel tempering (workload 4, ``benchmarks/workloads5.py:196-262``
+   ``pt_multimodal``): (a) K1 and K2 with the rung axis against their
+   plain versions bit for bit (1-16 rungs, 6-1000 walkers, ndim 1, 5, 8,
+   nsplits 2 and 3, both pair modes, injected / host offset / device
+   offset draws, one rung against the single-ensemble launch) and K15,
+   the swap (2-16 rungs, both parities, ``swap_every`` 1 and 3, NaN and
+   +-inf ``logL``, -inf ``logP``); (b) 64 graph-replayed tempered
+   proposals at 16 x 256 (runs of odd lengths, so replays start at both
+   parities) against the plain versions' eager chain; (c) the
+   rung-batched path against the per-rung loop, bit for bit, and both
+   timed in turns; (d) workload 4 at full size, ``PTDeviceBackend``, 512
+   kept x ``thin_by=4``: walker-steps/s over all rungs, the cold rung's
+   tau and ESS/s, the mean swap acceptance and the cold mode fraction,
+   each held to its window, and ``PTDeviceBackend`` == ``PTBackend``;
+   (e) a profiled window held to exactly 2 K1, 2 K2 and 1 K15 a
+   proposal; (f) the rows of K1 and K2 with the rung axis and of K15.
+   ``python3 chip_smoke.py 14`` runs phases 0, 1 and 14 alone.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14.  Every phase
 raises on failure.
+
+Two modes compare this checkout with another tree inside it (TREE, e.g.
+the parent commit unpacked by ``git archive`` into the git-ignored
+``build/parent``; a TREE outside this checkout is refused):
+``python3 chip_smoke.py main-path TREE`` runs phase 3's main path alone
+with TREE's package, for turns of two trees; ``python3 chip_smoke.py
+phase-times TREE`` runs TREE's whole ``chip_smoke.py`` in a child
+process, echoes its output, and prints the seconds each phase took (each
+output line's wait charged to the phase it names) and the total.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -182,7 +209,8 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("snooker_kernel", "snooker_propose"),
            ("langevin_kernel", "langevin_step"),
            ("langevin_kernel", "langevin_factor"),
-           ("langevin_kernel", "leapfrog"))
+           ("langevin_kernel", "leapfrog"),
+           ("swap_kernel", "pt_swap"))
 #: ndims and rows of K11-K13's edge-shape sweep (phase 13)
 GRAD_SWEEP_NDS = (1, 2, 3, 5, 7, 16, 100, 128)
 GRAD_SWEEP_ROWS = (1, 2, 31, 5003, 100_000)
@@ -2267,7 +2295,7 @@ def phase11(torch, np, dev, card):
                 torch, lambda: drive(smp, None, n_prof, store=False))
             hits = [(c, us) for k, (c, us) in kernels.items()
                     if "accept_select_kernel<" in k
-                    and ("NoBlobs>" in k) == (label == "no blobs")]
+                    and ("NoBlobs" in k) == (label == "no blobs")]
             n = sum(c for c, _ in hits)
             if any("accept_blobs_only_kernel" in k for k in kernels):
                 raise AssertionError("phase 11: a blob-only K2 launch on "
@@ -2330,7 +2358,7 @@ def phase11(torch, np, dev, card):
     blobs_type = {4: "BlobRows<unsigned int>", 8: "BlobRows<uint2>",
                   0: "BlobLeaves"}[row_unit]
     label = (f"accept_select_kernel<{str(bool(plan.vec)).lower()}, "
-             f"{str(bool(plan.stage)).lower()}, {blobs_type}>")
+             f"{str(bool(plan.stage)).lower()}, {blobs_type}, false>")
     regs = PTXAS.get(label)
     waves = (plan.grid / (device_sm_count(dev) * resident_blocks(
         regs[0], 256, regs[1] + plan.smem)) if regs else None)
@@ -3887,6 +3915,673 @@ def phase13_rows(torch, dev, out, card):
     return rows
 
 
+# -- 14. parallel tempering --------------------------------------------------
+#: workload 4 (benchmarks/workloads5.py:196-262 pt_multimodal): 16 rungs x
+#: 256 walkers x 5-D, two unit modes 8 sigma apart, a box prior
+NT4, NW4, ND4 = 16, 256, 5
+#: the modes' centres, +-PT_SEP in every coordinate
+PT_SEP = 4.0
+#: phase 14's sweep of K1 and K2 with the rung axis: rungs, walkers (by
+#: nsplits) and ndims
+PT_SWEEP_T = (1, 2, 3, 16)
+PT_SWEEP_NW = {2: (8, 256, 1000), 3: (6, 258, 999)}
+PT_SWEEP_ND = (1, 5, 8)
+#: rungs of K15's sweep
+SWAP_SWEEP_T = (2, 3, 5, 16)
+
+
+def pt_log_like(x):
+    """``pt_multimodal``'s log likelihood of one walker (the torch twin of
+    ``benchmarks/workloads5.py:205-208``)."""
+    import torch
+
+    a = -0.5 * torch.sum((x - PT_SEP) ** 2)
+    b = -0.5 * torch.sum((x + PT_SEP) ** 2)
+    return torch.logaddexp(a, b + math.log(0.5))
+
+
+def pt_log_prior(x):
+    """``pt_multimodal``'s box prior of one walker (``:210-211``)."""
+    import torch
+
+    return torch.where(torch.all(torch.abs(x) < 50.0), 0.0, -torch.inf)
+
+
+def same_bits(got, want, what):
+    """Raise unless every tensor of ``got`` equals its ``want`` bit for bit
+    (``torch.equal`` of the bits, so NaNs compare too)."""
+    import torch
+
+    def bits(t):
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        if t.dtype == torch.float64:
+            return t.view(torch.int64)
+        return t
+
+    if not all(bits(a).equal(bits(b)) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+
+
+def pt_sampler(dev, seed=4, backend=None, move=None, nt=NT4, nw=NW4,
+               nd=ND4):
+    """Workload 4's sampler: ``pt_multimodal``'s configuration (default
+    ladder, ``StretchMove()``, ``swap_every=1``) on ``dev``."""
+    from emcee_tpu_torch import PTSampler
+
+    return PTSampler(nt, nw, nd, pt_log_like, pt_log_prior, seed=seed,
+                     backend=backend, moves=move, device=dev)
+
+
+def pt_p0(np, nt=NT4, nw=NW4, nd=ND4):
+    """``pt_multimodal``'s start (``:218-220``): unit normals about a
+    random mode per walker."""
+    rng = np.random.default_rng(5)
+    p0 = rng.normal(size=(nt, nw, nd)).astype(np.float32)
+    p0 += PT_SEP * rng.choice([-1.0, 1.0], size=(nt, nw, 1))
+    return p0.astype(np.float32)
+
+
+def rung_kernel_sweep(torch, dev):
+    """(a) K1 and K2 with the rung axis against their plain versions, bit
+    for bit: rungs ``PT_SWEEP_T``, walkers ``PT_SWEEP_NW`` (nsplits 2 and
+    3), ndim ``PT_SWEEP_ND``, both pair modes, scale unset and per rung,
+    injected draws and the in-kernel stream (host offset; the device
+    offset word at 16 rungs), K2 with the two scalar leaves ``logL`` and
+    ``logP`` and NaN and +-inf in ``lp_q``; at one rung, each launch
+    against today's launch on the same 2-D inputs.  Returns the count of
+    comparisons."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import stretch_kernel as sk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(140)
+    word = torch.tensor(74, dtype=torch.int64, device=dev)
+    n = 0
+    for T in PT_SWEEP_T:
+        for nsplits, nws in PT_SWEEP_NW.items():
+            for nw in nws:
+                for nd in PT_SWEEP_ND:
+                    coords = torch.randn(T, nw, nd, device=dev,
+                                         generator=gen)
+                    ng = nw // nsplits
+                    keys = rung_keys(1000 + 7 * T + nw, T, dev)
+                    split = (nw + nd) % nsplits
+                    for pair_mode in ("roll", "random"):
+                        u = torch.rand(T, 2 * ng, device=dev, generator=gen)
+                        inj = dict(u_z=u[:, :ng].contiguous())
+                        if pair_mode == "roll":
+                            inj["u_shift"] = u[:, ng].contiguous()
+                        else:
+                            inj["u_pair"] = u[:, ng:].contiguous()
+                        draws = [dict(seed=keys, **inj),
+                                 dict(seed=keys, offset=77)]
+                        if T == 16:
+                            draws.append(dict(seed=keys, offset=DeviceOffset(
+                                word, 3)))
+                        for j, kw in enumerate(draws):
+                            scale = (None if (j + nd) % 2 else 0.5 + torch.rand(
+                                T, device=dev, generator=gen))
+                            k1 = dict(a=2.0, ndim_global=nd,
+                                      pair_mode=pair_mode, scale=scale, **kw)
+                            got = sk.stretch_propose(coords, split, nsplits,
+                                                     **k1)
+                            want = sk.stretch_propose_plain(
+                                coords, split, nsplits, **k1)
+                            same_bits(got, want, f"K1 rungs T={T} nw={nw} "
+                                      f"nd={nd} {pair_mode} {j}")
+                            n += 1
+                            if T == 1:
+                                flat = dict(k1, seed=keys.seed,
+                                            scale=None if scale is None
+                                            else scale[0])
+                                for key in ("u_z", "u_pair", "u_shift"):
+                                    if key in flat:
+                                        flat[key] = flat[key][0]
+                                one = sk.stretch_propose(coords[0], split,
+                                                         nsplits, **flat)
+                                same_bits((got[0][0], got[1][0]), one,
+                                          f"K1 one rung nw={nw} nd={nd}")
+                                n += 1
+                            n += k2_rung_check(torch, dev, gen, coords,
+                                               want, split, nsplits, kw, T)
+    return n
+
+
+def k2_rung_check(torch, dev, gen, coords, proposal, split, nsplits, kw, T):
+    """K2 with the rung axis on one proposal against its plain version
+    (and, at one rung, today's launch), with and without injected
+    ``log_u``, the ``logL`` / ``logP`` leaves riding the register path;
+    returns the comparisons made."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+
+    q, f = proposal
+    nw, ng = coords.shape[1], q.shape[1]
+    lp = -0.5 * (coords ** 2).sum(-1)
+    lp_q = -0.5 * (q ** 2).sum(-1)
+    lp_q.view(-1)[::7] = float("nan")
+    lp_q.view(-1)[3::11] = float("inf")
+    lp_q.view(-1)[5::13] = -float("inf")
+    new = (torch.randn(T, ng, device=dev, generator=gen),
+           torch.randn(T, ng, device=dev, generator=gen))
+    bufs = (torch.randn(T, nw, device=dev, generator=gen),
+            torch.randn(T, nw, device=dev, generator=gen))
+    seed = kw["seed"]
+    variants = [dict(log_u=torch.log(torch.rand(T, ng, device=dev,
+                                                generator=gen)))]
+    if "offset" in kw:
+        variants.append(dict(offset=kw["offset"]))
+    n = 0
+    for v in variants:
+        outs = []
+        for fn in (ak.accept_select, ak.accept_select_plain):
+            c, l = coords.clone(), lp.clone()
+            acc = torch.zeros(T, nw, dtype=torch.bool, device=dev)
+            cnt = torch.ones(T, nw, dtype=torch.int32, device=dev)
+            b = [x.clone() for x in bufs]
+            fn(q, f, lp_q, c, l, split, nsplits, acc, cnt, seed=seed,
+               blobs=list(zip(new, b)), **v)
+            outs.append((c, l, acc, cnt, *b))
+        same_bits(*outs, f"K2 rungs T={T} nw={nw} {sorted(v)}")
+        n += 1
+        if T == 1:
+            c, l = coords[0].clone(), lp[0].clone()
+            acc = torch.zeros(nw, dtype=torch.bool, device=dev)
+            cnt = torch.ones(nw, dtype=torch.int32, device=dev)
+            b = [x[0].clone() for x in bufs]
+            one = {k: (x[0] if k == "log_u" else x) for k, x in v.items()}
+            ak.accept_select(q[0], f[0], lp_q[0], c, l, split, nsplits, acc,
+                             cnt, seed=seed.seed,
+                             blobs=[(x[0], y) for x, y in zip(new, b)],
+                             **one)
+            same_bits([t[0] for t in outs[0]], (c, l, acc, cnt, *b),
+                      f"K2 one rung nw={nw}")
+            n += 1
+    if T > 1:
+        # Rung launches are built for 4-byte scalar leaves only.
+        wide = (new[0].double(), bufs[0].double())
+        try:
+            ak.accept_select(q, f, lp_q, coords.clone(), lp.clone(), split,
+                             nsplits, torch.zeros(T, nw, dtype=torch.bool,
+                                                  device=dev),
+                             seed=seed, blobs=[wide])
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("K2 took a rung launch with 8-byte leaves")
+    return n
+
+
+def swap_kernel_sweep(torch, np, dev):
+    """(a) K15 against its plain version, bit for bit: rungs
+    ``SWAP_SWEEP_T``, 256 and 1000 walkers, steps 0-5 (both parities, and
+    at ``swap_every=3`` the steps that do not swap), injected ``u``, the
+    in-kernel stream at a host offset and at the device offset word,
+    with NaN and +-inf ``logL`` and -inf and NaN ``logP``.  Returns the
+    count of comparisons."""
+    from emcee_tpu_torch.ops import swap_kernel as swk
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+    from emcee_tpu_torch.parallel import default_beta_ladder
+
+    gen = torch.Generator(device=dev).manual_seed(150)
+    n = 0
+    for T in SWAP_SWEEP_T:
+        for nw in (256, 1000):
+            coords = torch.randn(T, nw, ND4, device=dev, generator=gen)
+            ll = 4.0 * torch.randn(T, nw, device=dev, generator=gen)
+            ll[:, ::7] = float("nan")
+            ll[:, 1::11] = float("inf")
+            ll[:, 2::13] = -float("inf")
+            lpr = torch.zeros(T, nw, device=dev)
+            lpr[:, 3::5] = -float("inf")
+            lpr[:, 4::17] = float("nan")
+            betas = torch.tensor(default_beta_ladder(T, ND4),
+                                 dtype=torch.float32, device=dev)
+            lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
+            for swap_every in (1, 3):
+                for step in range(6):
+                    pairs = swk.swap_pairs(step, T, swap_every)
+                    word = torch.tensor(step - 2, dtype=torch.int64,
+                                        device=dev)
+                    for mode, kw in (
+                            ("injected", dict(offset=step, u=torch.rand(
+                                len(pairs), nw, device=dev,
+                                generator=gen))),
+                            ("host", dict(offset=step)),
+                            ("device", dict(offset=DeviceOffset(word, 2)))):
+                        outs = []
+                        for fn in (swk.pt_swap, swk.pt_swap_plain):
+                            bufs = [x.clone() for x in (coords, ll, lpr, lp)]
+                            cnt = torch.zeros(T - 1, dtype=torch.int64,
+                                              device=dev)
+                            fn(*bufs, betas, cnt, seed=99 + T,
+                               swap_every=swap_every, **kw)
+                            outs.append((*bufs, cnt))
+                        same_bits(*outs, f"K15 T={T} nw={nw} step={step} "
+                                  f"swap_every={swap_every} {mode}")
+                        n += 1
+    return n
+
+
+def pt_chain_end(smp):
+    """What a tempered run leaves: the stored rows, counts and anchors."""
+    return (smp.get_chain(), smp.get_log_like(), smp.get_log_prior(),
+            smp.backend.accepted, smp.swaps_accepted, smp.swaps_proposed,
+            smp._previous_state.coords.cpu().numpy(),
+            smp._previous_state.log_like.cpu().numpy(),
+            np_of(smp._previous_state.random_state))
+
+
+def np_of(x):
+    import numpy as np
+
+    return np.asarray(x)
+
+
+def pt_runs(smp, p0):
+    """64 tempered proposals in three runs whose lengths and starts vary
+    the parity a replay starts at: 7 kept x ``thin_by=3`` stored (graphs
+    of 2 and 1 at even and odd offsets), 32 unstored from offset 21 (one
+    graph of 32 at an odd start), 11 kept stored."""
+    smp.run_mcmc(p0, 7, thin_by=3, skip_initial_state_check=True)
+    smp.run_mcmc(None, 32, store=False)
+    smp.run_mcmc(None, 11)
+    return pt_chain_end(smp)
+
+
+def same_ends(np, a, b, what):
+    for x, y in zip(a, b):
+        if not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"phase 14: {what} differ")
+
+
+def phase14(torch, np, dev, card):
+    """Parallel tempering (see the module docstring, 14): the sweeps, the
+    graph chain against the plain eager chain, the batched path against
+    the per-rung loop, workload 4 at full size with its launches counted
+    from 0 just before it, a profiled window, and the K1 / K2 rung-axis
+    and K15 rows.  Returns its numbers and the rows."""
+    from emcee_tpu_torch.backends import PTBackend, PTDeviceBackend
+
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep_k1_k2"] = rung_kernel_sweep(torch, dev)
+    out["sweep_k15"] = swap_kernel_sweep(torch, np, dev)
+    log(f"phase 14: (a) K1 and K2 with the rung axis against their plain "
+        f"versions (rungs {PT_SWEEP_T}, walkers {PT_SWEEP_NW} by nsplits, "
+        f"ndim {PT_SWEEP_ND}, both pair modes, injected / host offset / "
+        f"device offset draws, one rung against today's launch): "
+        f"{out['sweep_k1_k2']} comparisons; K15 (rungs {SWAP_SWEEP_T}, "
+        f"steps 0-5, swap_every 1 and 3, NaN and +-inf logL, -inf and NaN "
+        f"logP): {out['sweep_k15']} comparisons; all bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) graph replays against the plain versions' eager chain.
+    t0 = time.perf_counter()
+    p0 = pt_p0(np)
+    ends = []
+    for plain in (False, True):
+        smp = pt_sampler(dev, seed=41)
+        smp._use_graphs = not plain
+        with plain_kernels() if plain else contextlib.nullcontext():
+            ends.append(pt_runs(smp, p0))
+    same_ends(np, *ends, "graph-replayed and eager plain chains")
+    log(f"phase 14: (b) 64 graph-replayed tempered proposals at {NT4} x "
+        f"{NW4} (runs of 21 stored, 32 unstored from an odd offset, 11 "
+        f"stored) equal the same run eagerly on the plain versions, bit for "
+        f"bit: chain, logL, logP, acceptance, swap counts "
+        f"{ends[0][4].tolist()} of {ends[0][5].tolist()}, offset "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (c) the rung-batched path against the per-rung loop.
+    t0 = time.perf_counter()
+    paths = {}
+    for batched in (True, False):
+        smp = pt_sampler(dev, seed=42)
+        smp._batched = batched
+        st = smp.run_mcmc(p0, 16, skip_initial_state_check=True)
+        paths[batched] = (smp, pt_chain_end(smp), st)
+        smp.run_mcmc(None, 16, store=False)  # records the timed graph
+    same_ends(np, paths[True][1], paths[False][1],
+              "the batched path and the per-rung loop")
+    n_c = 16
+    times = {True: [], False: []}
+    for batched in (True, False, False, True):
+        smp = paths[batched][0]
+        _, dt = drive(smp, None, n_c, store=False)
+        times[batched].append(dt / n_c * 1e6)
+    kinds = {}
+    for batched in (True, False):
+        smp = paths[batched][0]
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n_c, store=False),
+                          n_c, "batched" if batched else "per-rung loop")
+        kinds[batched] = win
+    out["batched_vs_loop"] = {
+        "batched_us_per_proposal": min(times[True]),
+        "loop_us_per_proposal": min(times[False]),
+        "batched_kernels_per_proposal": kinds[True]["kernels_per_proposal"],
+        "loop_kernels_per_proposal": kinds[False]["kernels_per_proposal"],
+        "batched_device_us": kinds[True]["device_us_per_proposal"],
+        "loop_device_us": kinds[False]["device_us_per_proposal"]}
+    bl = out["batched_vs_loop"]
+    log(f"phase 14: (c) the rung-batched path equals the per-rung loop bit "
+        f"for bit (16 kept, stored); in turns (batched, loop, loop, "
+        f"batched), {n_c}-proposal replays: batched "
+        f"{bl['batched_us_per_proposal']:.1f} us a proposal "
+        f"({measured(bl['batched_kernels_per_proposal'], '.0f')} kernels, "
+        f"device {measured(bl['batched_device_us'])} us), per-rung loop "
+        f"{bl['loop_us_per_proposal']:.1f} us "
+        f"({measured(bl['loop_kernels_per_proposal'], '.0f')} kernels, "
+        f"device {measured(bl['loop_device_us'])} us) {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del paths
+
+    # (d) workload 4 at full size, counted from 0 just before it.
+    t0 = time.perf_counter()
+    kept, thin = 512, 4
+    names = ("stretch_propose", "accept_select", "pt_swap")
+    with path_launches(out, "workload 4", names, "phase 14"):
+        smp = pt_sampler(dev, backend=PTDeviceBackend())
+        st, _ = drive(smp, p0, kept, thin_by=thin,
+                      skip_initial_state_check=True)
+        warm_graphs(smp)
+        dt = float("inf")
+        for _ in range(2):  # workloads5.py:224-233: the best of two
+            smp.reset()
+            st, dt_run = drive(smp, st, kept, thin_by=thin,
+                               skip_initial_state_check=True)
+            dt = min(dt, dt_run)
+        n_prop = kept * thin
+        rate = NT4 * NW4 * n_prop / dt
+        cold = smp.get_chain(temp=0)
+        tau = tau_of(np, cold, thin)
+        swap_mean = float(np.mean(smp.tswap_acceptance_fraction))
+        x0 = cold[..., 0]
+        mode_frac = float(np.mean(x0 > 0))
+        mean_abs, spread = float(np.mean(np.abs(x0))), float(np.std(
+            np.abs(x0)))
+        acc = float(smp.acceptance_fraction[0].mean())
+        # The profiled window: exactly 2 K1, 2 K2 and 1 K15 a proposal,
+        # over four replays of the 64-proposal graph (recorded above), so
+        # that a run's fixed host work is shared as in the timed runs.
+        n_prof = 256
+        win = busy_window(
+            torch, lambda: smp.run_mcmc(None, n_prof, store=False), n_prof,
+            "workload 4", expect=lambda: {"stretch_propose": 2 * n_prof,
+                                          "accept_select": 2 * n_prof,
+                                          "pt_swap": n_prof},
+            names={"stretch_propose": 2, "accept_select": 2, "pt_swap": 1})
+        n_kept = 16
+        counted, profiled = counted_replays(
+            torch, dev, smp, n_kept,
+            lambda r: {"stretch_propose": 2 * n_kept * thin,
+                       "accept_select": 2 * n_kept * thin,
+                       "pt_swap": n_kept * thin},
+            "workload 4", thin_by=thin, store=False)
+    checks = {
+        "swap acceptance mean in (0.4, 0.9)": 0.4 < swap_mean < 0.9,
+        "cold mode fraction in (0.25, 0.75)": 0.25 < mode_frac < 0.75,
+        "cold mean |x0| within 0.25 of 4": abs(mean_abs - PT_SEP) < 0.25,
+        "cold spread of |x0| within 0.2 of 1": abs(spread - 1.0) < 0.2,
+        "tau finite": bool(np.isfinite(tau)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 14: workload 4 checks {checks}")
+    # PTDeviceBackend against PTBackend from the same seed and start.
+    chains = []
+    for backend in (PTDeviceBackend(), PTBackend()):
+        s2 = pt_sampler(dev, seed=43, backend=backend)
+        s2.run_mcmc(p0, kept, thin_by=thin, skip_initial_state_check=True)
+        chains.append((s2.get_chain().astype(np.float64),
+                       s2.get_log_like().astype(np.float64),
+                       s2.get_log_prior().astype(np.float64),
+                       s2.backend.accepted, s2.swaps_accepted,
+                       s2.swaps_proposed,
+                       np_of(s2.backend.random_state)))
+    same_ends(np, *chains, "PTDeviceBackend and PTBackend chains")
+    res = dict(walker_steps_per_s=rate, tau_cold=tau,
+               ess_per_s_cold=NW4 * (n_prop / dt) / tau,
+               tau_reliable=bool(n_prop / tau >= 30.0),
+               swap_acceptance_mean=swap_mean,
+               swap_acceptance=smp.tswap_acceptance_fraction.tolist(),
+               cold_mode_fraction=mode_frac, cold_mean_abs_x0=mean_abs,
+               cold_spread_abs_x0=spread, cold_acceptance=acc, seconds=dt,
+               replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n_kept * thin, **win)
+    out["workload4"] = res
+    log(f"phase 14: (d) workload 4 (benchmarks/workloads5.py:196-262; "
+        f"{NT4} x {NW4} x {ND4}, PTDeviceBackend, {kept} kept x {thin}): "
+        f"{rate:.4e} walker-steps/s over all rungs (best of two), cold tau "
+        f"{tau:.2f} proposals, cold ESS/s {res['ess_per_s_cold']:.4e}, "
+        f"tau_reliable {res['tau_reliable']}, swap acceptance mean "
+        f"{swap_mean:.3f}, cold mode fraction {mode_frac:.3f}, cold mean "
+        f"|x0| {mean_abs:.3f} (spread {spread:.3f}), cold acceptance "
+        f"{acc:.3f} {card}; PTDeviceBackend == PTBackend bit for bit")
+    log(f"phase 14: (e) profiled {n_prof} proposals: device "
+        f"{measured(win['device_us_per_proposal'])} us and "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle share {measured(win['idle'], '.4f')}, launches "
+        f"{win['launches']} (exactly 2 K1, 2 K2 and 1 K15 a proposal); "
+        f"{replay_counts(counted, profiled, n_kept * thin)} {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return out, phase14_rows(torch, dev, out, card)
+
+
+def phase14_rows(torch, dev, out, card):
+    """(f) The rows of K1 and K2 with the rung axis and of K15 at
+    workload 4's shape: device time a launch in the workload's replays
+    (profiler), a back-to-back call's and the plain version's (CUDA
+    events), registers and waves, and the least time the card could
+    take (bytes, with this run's acceptance and swaps)."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import stretch_kernel as sk
+    from emcee_tpu_torch.ops import swap_kernel as swk
+    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
+    from emcee_tpu_torch.ops.philox import rung_keys
+    from emcee_tpu_torch.parallel import default_beta_ladder
+
+    T, nw, nd, ng = NT4, NW4, ND4, NW4 // 2
+    gen = torch.Generator(device=dev).manual_seed(160)
+    coords = PT_SEP * torch.randn(T, nw, nd, device=dev, generator=gen)
+    keys = rung_keys(4, T, dev)
+    k1 = dict(a=2.0, ndim_global=nd, pair_mode="random", seed=keys,
+              offset=5)
+    q, f = sk.stretch_propose(coords, 0, 2, **k1)
+    betas = torch.tensor(default_beta_ladder(T, nd), dtype=torch.float32,
+                         device=dev)
+    flat_ll = torch.func.vmap(pt_log_like)
+    ll = flat_ll(coords.reshape(-1, nd)).reshape(T, nw)
+    lpr = torch.zeros(T, nw, device=dev)
+    lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
+    ll_q = flat_ll(q.reshape(-1, nd)).reshape(T, ng)
+    lpr_q = torch.zeros(T, ng, device=dev)
+    lp_q = swk.tempered_log_prob(betas[:, None], ll_q, lpr_q)
+    work = [coords.clone(), lp.clone(),
+            torch.zeros(T, nw, dtype=torch.bool, device=dev),
+            torch.zeros(T, nw, dtype=torch.int32, device=dev),
+            ll.clone(), lpr.clone()]
+    blobs = [(ll_q, work[4]), (lpr_q, work[5])]
+    ak.accept_select(q, f, lp_q, *[w.clone() for w in work[:2]], 0, 2,
+                     work[2], work[3], seed=keys, offset=5,
+                     blobs=[(a, b.clone()) for a, b in blobs])
+    n_acc = int(work[2][:, :ng].sum())
+    sw = [coords.clone(), ll.clone(), lpr.clone(), lp.clone()]
+    cnt = torch.zeros(T - 1, dtype=torch.int64, device=dev)
+    swk.pt_swap(*sw, betas, cnt, seed=4, offset=0)
+    n_swap = int(cnt.sum())
+    n_pairs = len(swk.swap_pairs(0, T, 1))
+    k2 = dict(seed=keys, offset=5, blobs=blobs)
+    calls = {
+        "stretch_propose": (
+            lambda: sk.stretch_propose(coords, 0, 2, **k1),
+            lambda: sk.stretch_propose_plain(coords, 0, 2, **k1)),
+        "accept_select": (
+            lambda: ak.accept_select(q, f, lp_q, work[0], work[1], 0, 2,
+                                     work[2], work[3], **k2),
+            lambda: ak.accept_select_plain(q, f, lp_q, work[0], work[1], 0,
+                                           2, work[2], work[3], **k2)),
+        # Steps 0 and 1 in turns would swap back and forth; step 0 each
+        # time swaps the same pairs again from the state it left.
+        "pt_swap": (
+            lambda: swk.pt_swap(*sw, betas, cnt, seed=4, offset=0),
+            lambda: swk.pt_swap_plain(*sw, betas, cnt, seed=4, offset=0)),
+    }
+    # Each input read once, each output written once (float32 words):
+    # K1 reads every rung's rows and writes q and the factor; K2 reads the
+    # factor, lp_q and lp of every split walker and writes its acc, and
+    # for an accepted walker reads q and its two leaves and writes its
+    # row, lp, leaves and count; K15 reads both rungs' logL of every
+    # walker of a pair (once) and the pair's two betas, and for an accepted
+    # swap reads both walkers' rows and logP and writes their rows, logL,
+    # logP and lp (lp is only written), and writes the pair's count.
+    # Operations: a Philox block (PHILOX_INSTR) a walker in K1, K2 and K15
+    # at the issue rate.
+    philox = PHILOX_INSTR
+    work_of = {
+        "stretch_propose": (4 * T * (nw * nd + ng * nd + ng),
+                            T * ng * (philox + 25 + 3 * nd)),
+        "accept_select": (4 * T * ng * 3 + T * ng + n_acc * (
+            4 * nd + 4 * (nd + 1) + 8 + 2 * 4 * 2), T * ng * (philox + 6)),
+        "pt_swap": (4 * n_pairs * nw * 2 + 4 * 2 * n_pairs
+                    + n_swap * 2 * 4 * (2 * nd + 4) + 8 * n_pairs,
+                    n_pairs * nw * (philox + 10)),
+    }
+    meta = {
+        "stretch_propose": ("emcee_tpu_torch/csrc/stretch_propose.cu",
+                            "emcee_tpu/moves/stretch.py:59 (vmapped by "
+                            "emcee_tpu/parallel/tempering.py:538)",
+                            "stretch_propose_kernel<true, true>", 256 + 32),
+        "accept_select": ("emcee_tpu_torch/csrc/accept_select.cu",
+                          "emcee_tpu/moves/red_blue.py:196 (vmapped by "
+                          "emcee_tpu/parallel/tempering.py:538)",
+                          "accept_select_kernel<true, true, BlobRows<"
+                          "unsigned int>, true>", 256),
+        "pt_swap": ("emcee_tpu_torch/csrc/pt_swap.cu",
+                    "emcee_tpu/parallel/tempering.py:543",
+                    "pt_swap_kernel", swk.SWAP_THREADS),
+    }
+    n_sm = device_sm_count(dev)
+    plan = tile_plan(ng, nd, 0, n_sm, coords.data_ptr(), q.data_ptr(),
+                     rungs=T, nsplits=2)
+    blocks = {"stretch_propose": plan.grid * T,
+              "accept_select": tile_plan(ng, nd, 0, n_sm, coords.data_ptr(),
+                                         q.data_ptr(), stage=True, rungs=T,
+                                         nsplits=2).grid * T,
+              "pt_swap": -(-nw // swk.SWAP_THREADS) * (T // 2)}
+    w4 = out["workload4"]
+    rows = []
+    for kname, (kernel, plain) in calls.items():
+        src, jax_src, label, threads = meta[kname]
+        call_ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, plain, reps=20)
+        nbytes, nops = work_of[kname]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / ISSUE_PER_S * 1e3}
+        by = max(t, key=t.get)
+        regs = PTXAS.get(label)  # the instantiation workload 4 launches
+        waves = (blocks[kname] / (n_sm * resident_blocks(regs[0], threads))
+                 if regs else None)
+        ms = w4["ms_per_launch"][kname]
+        launches = w4["replayed_launches"][kname]
+        name = kname if kname == "pt_swap" else f"{kname} (rung axis)"
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": jax_src, "launches": launches,
+               "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
+               "library_ms": None, "ptxas": regs, "blocks": blocks[kname],
+               "waves": waves,
+               "launches_per_proposal": launches / w4["proposals_counted"],
+               "wrapper_launches": out["launches"]["workload 4"][kname],
+               "note": f"{name} at workload 4's shape ({T} x {nw} x {nd}): "
+                       f"ms in the workload's replays (profiler); launches "
+                       f"counted on the card in {w4['proposals_counted']} "
+                       "replayed proposals; max_abs_err: bit for bit over "
+                       "phase 14's sweep; bound: this run's acceptance "
+                       f"({n_acc} of {T * ng}) and swaps ({n_swap} of "
+                       f"{n_pairs * nw}); library_ms: none, no single "
+                       "PyTorch call computes it"}
+        rows.append(row)
+        log(f"phase 14: (f) {name}: device {ms * 1e3:.2f} us/launch in the "
+            f"workload 4 replays, {call_ms * 1e3:.2f} us per back-to-back "
+            f"call, plain {plain_ms * 1e3:.2f} us, bound {t[by] * 1e3:.3f} "
+            f"us ({nbytes} bytes, {by}); {regs} (registers, static shared, "
+            f"spilled), {blocks[kname]} blocks, {measured(waves, '.3f')} "
+            f"waves {card}")
+    return rows
+
+
+def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
+    """Phase 3's main path alone, for two trees timed in turns, one
+    process each (``python3 chip_smoke.py main-path TREE``, TREE a
+    checkout whose ``emcee_tpu_torch`` is imported): the best of ``reps``
+    unstored runs of ``n`` proposals after the graphs are recorded, and
+    K1's and K2's device time a launch in a profiled window of ``n_prof``
+    proposals.  Uses only what every tree with tiled K1 and K2 has."""
+    import emcee_tpu_torch
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.chunk_graph import MAX_GRAPH
+
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=0,
+                          moves=moves.StretchMove(randomize_split=False,
+                                                  pair_mode="roll"))
+    p0 = np.random.default_rng(1).normal(size=(NW, ND)).astype(np.float32)
+    smp.run_mcmc(p0, 500, store=False, skip_initial_state_check=True)
+    size = 1
+    while size <= MAX_GRAPH:
+        smp._program.graph(0, size, False)
+        size *= 2
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        smp.run_mcmc(None, n, store=False)
+        best = min(best, time.perf_counter() - t0)
+    _, kernels = profile_window(
+        torch, lambda: smp.run_mcmc(None, n_prof, store=False))
+    k1, k2 = (device_ms(kernels, k) for k in ("stretch_propose",
+                                              "accept_select"))
+    log(f"main-path turn: {Path(emcee_tpu_torch.__file__).parent.parent}: "
+        f"{n * NW / best:.4e} walker-steps/s (best of {reps} x {n} "
+        f"proposals), K1 {measured(k1 and k1 * 1e3, '.3f')} us, K2 "
+        f"{measured(k2 and k2 * 1e3, '.3f')} us a launch ({n_prof} "
+        f"proposals profiled) {card}")
+
+
+def inner_tree(arg):
+    """The directory ``arg`` resolved, if it lies inside this checkout
+    (the directory of this script); raise otherwise."""
+    here = Path(__file__).resolve().parent
+    tree = Path(arg).resolve()
+    if tree != here and here not in tree.parents:
+        raise SystemExit(f"chip_smoke: {arg} is not inside {here}")
+    return tree
+
+
+def phase_times(tree) -> int:
+    """Run ``tree``'s whole ``chip_smoke.py`` in a child process, echo
+    its output, and print the seconds each phase took: each line's wait
+    since the line before is charged to the phase that the line names
+    (``phase N: ...``), or else to the last phase named.  Returns the
+    child's exit code."""
+    import re
+
+    t0 = last = time.perf_counter()
+    seconds = {}
+    phase = "0"
+    with subprocess.Popen([sys.executable, "-u", "chip_smoke.py"], cwd=tree,
+                          stdout=subprocess.PIPE, text=True) as child:
+        for line in child.stdout:
+            now = time.perf_counter()
+            m = re.match(r"phase (\d+)\b", line)
+            phase = m.group(1) if m else phase
+            seconds[phase] = seconds.get(phase, 0.0) + now - last
+            last = now
+            print(line, end="", flush=True)
+    split = ", ".join(f"phase {k} {v:.1f} s" for k, v in seconds.items())
+    log(f"phase times of {tree}: {split}; total "
+        f"{time.perf_counter() - t0:.1f} s, exit {child.returncode}")
+    return child.returncode
+
+
 def _build_dir():
     from emcee_tpu_torch.ops._build import build_dir
 
@@ -3896,12 +4591,17 @@ def _build_dir():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["main-path"] and len(sys.argv) > 2:
+        # The tree whose package the turn imports, ahead of this one's.
+        sys.path.insert(0, str(inner_tree(sys.argv[2])))
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["phase-times"] and len(sys.argv) > 2:
+        return phase_times(inner_tree(sys.argv[2]))
 
     import numpy as np
 
@@ -3932,6 +4632,14 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
+    if sys.argv[1:2] == ["main-path"]:
+        _build.build_all(["stretch_propose", "accept_select"])
+        main_path_turn(torch, np, dev, card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -3944,12 +4652,13 @@ def main() -> int:
             log(f"  ptxas {k}: {fn}: {regs} registers, {smem} bytes static "
                 f"shared memory, {spill} bytes spilled")
 
-    if sys.argv[1:] in (["11"], ["12"], ["13"]):
-        # Phase 11, 12 or 13 alone (a first check of the blobs, the
-        # extension or the gradient moves).
+    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"]):
+        # Phase 11, 12, 13 or 14 alone (a first check of the blobs, the
+        # extension moves, the gradient moves or tempering).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
-        phase = {"11": phase11, "12": phase12, "13": phase13}[sys.argv[1]]
+        phase = {"11": phase11, "12": phase12, "13": phase13,
+                 "14": phase14}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -4520,6 +5229,12 @@ def main() -> int:
     p13, rows13 = phase13(torch, np, dev, card)
     rows += rows13
     log(f"phase 13: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 14. parallel tempering -------------------------------------------------
+    t0 = time.perf_counter()
+    p14, rows14 = phase14(torch, np, dev, card)
+    rows += rows14
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -13,6 +13,10 @@ too.  The Gaussian, Metropolis-Hastings, walk and KDE moves, the
 autocorrelation and R-hat diagnostics and the convergence monitor are
 plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinates, into the
 host, device and HDF5 backends; ``checkpoint`` saves and loads states.
+``PTSampler`` runs a tempered ladder: the stretch move proposes every
+rung at once through K1 and K2's rung axis, other moves rung by rung,
+and the even/odd swap is a kernel of its own (K15), into the host
+``PTBackend`` or the device ``PTDeviceBackend``.
 Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``.
 """
@@ -20,6 +24,7 @@ Entry points run on ``"cuda"`` unless the caller passes
 from . import autocorr, backends, checkpoint, moves, utils
 from .monitor import ConvergenceMonitor, run_until_converged
 from .ops.autocorr import AutocorrError
+from .parallel import PTSampler, PTState
 from .sampler import EnsembleSampler
 from .state import State, walkers_independent
 
@@ -27,6 +32,8 @@ __version__ = "0.6.0"
 
 __all__ = [
     "EnsembleSampler",
+    "PTSampler",
+    "PTState",
     "State",
     "walkers_independent",
     "ConvergenceMonitor",

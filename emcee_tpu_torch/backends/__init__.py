@@ -3,11 +3,15 @@
 from .backend import Backend
 from .device import DeviceBackend
 from .hdf import HDFBackend, TempHDFBackend
+from .pt import PTBackend, PTDeviceBackend, PTHDFBackend
 
 __all__ = [
     "Backend",
     "DeviceBackend",
     "HDFBackend",
+    "PTBackend",
+    "PTDeviceBackend",
+    "PTHDFBackend",
     "TempHDFBackend",
     "get_test_backends",
 ]

@@ -55,6 +55,22 @@ run raises: it never goes on eagerly.  On the CPU, and on the card when
 the sampler's private ``_use_graphs`` switch is off (the eager reference
 of the tests and ``chip_smoke.py``), the same per-proposal function runs
 eagerly in the same order.
+
+:class:`TemperedProgram` is the chunk program of a tempered ladder
+(``parallel/tempering.py``; ``emcee_tpu/parallel/tempering.py:694-903``):
+its workspace (:class:`TemperedWorkspace`) holds every rung, ``(T,
+nwalkers, ndim)`` coords, ``logL``, ``logP`` and the tempered log-prob,
+the ladder's inverse temperatures ``betas`` (a device tensor that the
+graphs read, so a new ladder needs no new recording), the swap counts
+and the per-rung carries (each carry tensor with a leading ``T`` axis).
+A proposal is the move step on every rung, then the even/odd swap (K15),
+which reads its parity and whether to swap from the offset word.  The
+move step is one rung-batched proposal (K1 and K2 over all rungs, the
+log-prob once over ``T * ng`` rows) for a ``rung_batched`` move, or
+else, and under the private ``batched=False`` switch, a loop over the
+rungs, each rung an ensemble of its own (its views of the buffers, its
+tempered model, its carry and its key).  It is recorded, replayed and
+warmed up as :class:`ChunkProgram` is.
 """
 
 from __future__ import annotations
@@ -64,12 +80,15 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from .model import Model
+from .ops import swap_kernel
 from .ops.philox import DeviceOffset
 from .state import State
 from .utils import tree_flatten, tree_map
 
 __all__ = ["MAX_GRAPH", "ChunkProgram", "EagerLoops", "GraphLoops",
-           "Workspace", "blob_signature", "clone_carry", "graph_sizes"]
+           "TemperedProgram", "TemperedWorkspace", "Workspace",
+           "blob_signature", "clone_carry", "graph_sizes", "rung_carry"]
 
 #: proposals in the largest graph (a power of two)
 MAX_GRAPH = 64
@@ -171,6 +190,14 @@ def clone_carry(carry):
     return carry
 
 
+def rung_carry(carry, r):
+    """Rung ``r``'s carry of a ladder's carry (each tensor's row ``r``, a
+    view, so the move's in-place updates land in the ladder's carry)."""
+    if isinstance(carry, dict):
+        return {k: v[r] for k, v in carry.items()}
+    return carry
+
+
 def blob_signature(blobs):
     """The structure, row shapes and dtypes of a blob pytree (None for no
     blobs): what a workspace's blob buffers are allocated for."""
@@ -201,7 +228,7 @@ class Workspace:
                 return tree_map(torch.clone, v)
             return v.clone()
 
-        return Workspace(**{f.name: copy(f.name) for f in fields(self)})
+        return type(self)(**{f.name: copy(f.name) for f in fields(self)})
 
 
 class ChunkProgram:
@@ -218,6 +245,8 @@ class ChunkProgram:
             None.
     """
 
+    #: what a recording's proposals are called in its capture message
+    kind = "proposals"
     #: graph replays in this process (K3's launch count)
     replays = 0
     #: looped moves' flag reads (host syncs, one a loop-block replay)
@@ -360,7 +389,7 @@ class ChunkProgram:
         self._warm_up(i, tune)
         return self._capture(
             lambda: self.program(self.ws, i, n, tune),
-            f"{n} proposals of {type(self.moves[i]).__name__}")
+            f"{n} {self.kind} of {type(self.moves[i]).__name__}")
 
     def _capture(self, fn, what):
         side = self._side_stream()
@@ -397,3 +426,151 @@ class ChunkProgram:
             if collecting:
                 gc.enable()
         return graph
+
+
+@dataclass
+class TemperedWorkspace(Workspace):
+    """The persistent device buffers of a tempered ladder of ``T`` rungs:
+    ``coords`` ``(T, nwalkers, ndim)``, ``log_prob`` (the tempered
+    ``beta logL + logP``), ``accepted`` and ``count`` ``(T, nwalkers)``,
+    and these."""
+
+    log_like: torch.Tensor = None  # (T, nwalkers)
+    log_prior: torch.Tensor = None  # (T, nwalkers)
+    betas: torch.Tensor = None  # (T,) float32, the ladder
+    swaps: torch.Tensor = None  # (max(T - 1, 1),) int64, accepted swaps
+
+
+class TemperedLogProb:
+    """The tempered model's log-prob (``emcee_tpu/parallel/tempering.py:
+    379-435``): ``beta logL + logP``, with ``logL`` set to 0 and the
+    log-prob to ``-inf`` where ``logP`` is not above ``-inf``; the blobs
+    are ``(logL, logP)``.  ``beta`` is a 0-d tensor (one rung: ``q`` is
+    ``(n, ndim)``) or the ``(T,)`` ladder (every rung: ``q`` is ``(T, n,
+    ndim)``, evaluated as one batch of ``T * n`` rows)."""
+
+    def __init__(self, log_like, log_prior, beta):
+        self.log_like, self.log_prior, self.beta = log_like, log_prior, beta
+
+    def __call__(self, q):
+        beta = self.beta
+        if beta.dim():
+            flat = q.reshape(-1, q.shape[-1])
+            ll, lpr = self.evaluate(flat)
+            ll, lpr = ll.reshape(q.shape[:-1]), lpr.reshape(q.shape[:-1])
+            beta = beta[:, None]
+        else:
+            ll, lpr = self.evaluate(q)
+        finite = lpr > -torch.inf
+        ll = torch.where(finite, ll, 0.0)
+        return swap_kernel.tempered_log_prob(beta, ll, lpr), (ll, lpr)
+
+    def evaluate(self, q):
+        """``(logL, logP)`` of rows ``q`` (the user functions, wrapped)."""
+        ll, _ = self.log_like(q)
+        lpr, _ = self.log_prior(q)
+        return ll, lpr
+
+
+class TemperedProgram(ChunkProgram):
+    """The chunk program of a tempered ladder and one chain seed.
+
+    Args:
+        moves: the sampler's move (a one-element list).
+        log_like, log_prior: the wrapped user functions (``q -> (values,
+            blobs)``).
+        keys: the rungs' :class:`~.ops.philox.RungKeys`.
+        coords: a ``(T, nwalkers, ndim)`` state whose shapes, dtype and
+            device the workspace takes.
+        carries: the moves' ladder carries (copied into the workspace).
+        swap_every: proposals between swap attempts (< 1: none).
+        batched: propose every rung at once (a ``rung_batched`` move),
+            else rung by rung.
+    """
+
+    kind = "tempered proposals"
+
+    def __init__(self, moves, log_like, log_prior, keys, coords, carries,
+                 swap_every, batched):
+        self.moves = moves
+        self.log_like, self.log_prior = log_like, log_prior
+        self.keys = keys
+        self.seed = keys.seed
+        self.swap_every = int(swap_every)
+        self.batched = bool(batched)
+        self.blob_signature = None
+        T, nw, _ = coords.shape
+        dev = coords.device
+
+        def rows(dtype=coords.dtype):
+            return torch.zeros((T, nw), dtype=dtype, device=dev)
+
+        self.ws = TemperedWorkspace(
+            coords=torch.empty_like(coords), log_prob=rows(),
+            accepted=rows(torch.bool), count=rows(torch.int32),
+            offset=torch.zeros((), dtype=torch.int64, device=dev),
+            carries=tuple(clone_carry(c) for c in carries),
+            log_like=rows(), log_prior=rows(),
+            betas=torch.zeros(T, dtype=coords.dtype, device=dev),
+            swaps=torch.zeros(max(T - 1, 1), dtype=torch.int64, device=dev),
+        )
+        self.graphs = {}
+        self._warmed = set()
+        self._stream = None
+
+    def load(self, coords, log_like, log_prior, betas, offset, carries):
+        """Start a run: copy the state, the ladder, the offset and the
+        carries into the workspace, form the tempered log-prob, and zero
+        the run's acceptance and swap counts (device work, no sync)."""
+        ws = self.ws
+        ws.coords.copy_(coords)
+        ws.log_like.copy_(log_like)
+        ws.log_prior.copy_(log_prior)
+        ws.betas.copy_(betas)
+        ws.log_prob.copy_(swap_kernel.tempered_log_prob(
+            ws.betas[:, None], ws.log_like, ws.log_prior))
+        ws.offset.fill_(int(offset))
+        ws.count.zero_()
+        ws.swaps.zero_()
+        for mine, given in zip(ws.carries, carries):
+            if isinstance(mine, dict) and mine is not given:
+                for k, v in mine.items():
+                    v.copy_(given[k])
+
+    def model(self, ws, r=None):
+        """The tempered model of rung ``r`` (every rung for None), reading
+        ``ws``'s ladder."""
+        T, nw, nd = ws.coords.shape
+        beta = ws.betas if r is None else ws.betas[r]
+        return Model(TemperedLogProb(self.log_like, self.log_prior, beta),
+                     nwalkers=nw, ndim=nd)
+
+    def proposal(self, ws, i, j, tune):
+        """One tempered proposal at offset ``ws.offset + j``: move ``i`` on
+        every rung, then the swap, reading and writing only ``ws``."""
+        move = self.moves[i]
+        off = DeviceOffset(ws.offset, j)
+        blobs = (ws.log_like, ws.log_prior)
+        if self.batched:
+            state = State(ws.coords, ws.log_prob, blobs)
+            model = self.model(ws)
+            move.propose_rungs((self.keys, off), state, model,
+                               ws.carries[i], ws.count, accepted=ws.accepted)
+            if tune:
+                # Every rung's carry at once, each on its own acceptance.
+                move.tune(ws.carries[i], state, ws.accepted, model)
+        else:
+            for r, seed in enumerate(self.keys.seeds):
+                state = State(ws.coords[r], ws.log_prob[r],
+                              tuple(b[r] for b in blobs))
+                model = self.model(ws, r)
+                carry = rung_carry(ws.carries[i], r)
+                move.propose((seed, off), state, model, carry, ws.count[r],
+                             accepted=ws.accepted[r], **_tune_kw(move, tune))
+                if tune:
+                    move.tune(carry, state, ws.accepted[r], model)
+        if ws.coords.shape[0] > 1 and self.swap_every >= 1:
+            swap_kernel.pt_swap(ws.coords, ws.log_like, ws.log_prior,
+                                ws.log_prob, ws.betas, ws.swaps,
+                                seed=self.seed, offset=off,
+                                swap_every=self.swap_every)

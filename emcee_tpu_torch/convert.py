@@ -10,11 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .backends import Backend
+from .backends import Backend, PTBackend
 from .state import State, resolve_device
 from .utils import tree_map
 
-__all__ = ["backend_from_numpy", "carry_from_numpy", "state_from_numpy"]
+__all__ = ["backend_from_numpy", "carry_from_numpy", "pt_backend_from_numpy",
+           "pt_state_from_numpy", "state_from_numpy"]
 
 
 def state_from_numpy(coords, log_prob=None, seed=0, device=None,
@@ -86,3 +87,39 @@ def carry_from_numpy(carry, device=None):
     dev = resolve_device(device)
     return {key: torch.as_tensor(np.array(carry[key], dtype=dt), device=dev)
             for key, dt in kinds[0].items()}
+
+
+def pt_state_from_numpy(coords, log_like=None, log_prior=None, seed=0,
+                        device=None):
+    """A port :class:`~.parallel.PTState` from a tempered ensemble's numpy
+    arrays (``coords`` ``(T, nwalkers, ndim)``, ``log_like`` and
+    ``log_prior`` ``(T, nwalkers)``, as a JAX ``PTState`` holds them),
+    with the random state ``(seed, 0)``; ``device`` as for the sampler."""
+    from .parallel import PTState
+
+    dev = resolve_device(device)
+
+    def put(x):  # a copy: a JAX array's numpy view is read-only
+        return None if x is None else torch.tensor(
+            np.array(x, dtype=np.float32), device=dev)
+
+    return PTState(put(coords), put(log_like), put(log_prior),
+                   (int(seed), 0))
+
+
+def pt_backend_from_numpy(chain, log_like, log_prior, accepted,
+                          swaps_accepted, swaps_proposed, betas,
+                          random_state=None):
+    """A port :class:`~.backends.PTBackend` holding a stored tempered
+    chain: ``chain`` ``(iteration, T, nwalkers, ndim)``, ``log_like`` and
+    ``log_prior`` ``(iteration, T, nwalkers)``, the cumulative
+    ``accepted`` counts ``(T, nwalkers)``, the swap counters and the
+    ladder, as a JAX ``PTBackend`` holds them."""
+    chain = np.asarray(chain)
+    backend = PTBackend()
+    backend.reset(*chain.shape[1:])
+    backend.save_chunk(
+        chain, np.asarray(log_like), np.asarray(log_prior),
+        np.asarray(accepted, dtype=np.int64)[None], swaps_accepted,
+        swaps_proposed, random_state, betas)
+    return backend

@@ -57,6 +57,22 @@
 // One thread owns a walker's acc, log_prob and count, so nothing needs
 // atomics; every element of coords is written by at most one thread.
 //
+// The rung axis (parallel tempering, emcee_tpu/parallel/tempering.py:
+// 476-541, the move vmapped over the ladder): T ensembles of nw walkers lie
+// one after the other in coords (T, nw, nd), log_prob, accepted and count
+// (T, nw); q is (T, ng, nd), factor, lp_q and log_u (T, ng).  The grid's
+// second dimension is the rung: a block selects one rung's tile, rung r's
+// split group is rows r*nw + split*ng .. + ng, and it draws its accept
+// uniform under its own key keys[r] (a device table, ops/philox.py
+// rung_seed).  A blob leaf's new rows are (T, ng, ...) and its buffer
+// (T, nw, ...): the tempered bookkeeping, logL and logP, are two 4-byte
+// scalar leaves on the row-leaf path.  The axis is a template parameter
+// (kRungs): a single-ensemble launch (one rung, no key table) runs the
+// instantiation without it, whose code is the kernel of before (a rung
+// axis of one rung cost the main path's launch 0.23 us, 9%, when it was a
+// run-time branch; chip_smoke.py main-path turns; its parameters come
+// last, so the others keep their offsets).
+//
 // Blob leaves (emcee_tpu/moves/red_blue.py:200-202 and :323-344, the
 // tree_where and write-back of every blob leaf with the coordinates'
 // mask; moves/base.py:103-126 for MH and Gaussian).  A leaf is any dtype
@@ -173,15 +189,16 @@ __device__ __forceinline__ BlobLeaf* blob_table() {
 struct NoBlobs {};
 
 // Walkers [t0, t0 + cnt) of the split, whose acc is s_acc[0, cnt): copy
-// the accepted walkers' rows of one leaf, unit by unit.
+// the accepted walkers' rows of one leaf, unit by unit, from new row src0
+// (t0 in the rung's rows) to buffer row dst0 (the walker's row).
 template <typename U>
 __device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
-                                            const bool* s_acc, int t0,
-                                            int64_t lo, int cnt, int t) {
+                                            const bool* s_acc, int64_t src0,
+                                            int64_t dst0, int cnt, int t) {
   const int upr = leaf.row_bytes / static_cast<int>(sizeof(U));
   const U* __restrict__ src = reinterpret_cast<const U*>(leaf.src) +
-                              static_cast<int64_t>(t0) * upr;
-  U* __restrict__ dst = reinterpret_cast<U*>(leaf.dst) + (lo + t0) * upr;
+                              src0 * upr;
+  U* __restrict__ dst = reinterpret_cast<U*>(leaf.dst) + dst0 * upr;
   // Unit k = t + i * kThreads is unit u of walker w's row; the step moves
   // (w, u) by (dw, du).  t and kThreads are below 2^8 + 1, so inv_upr
   // divides both by upr (kThreads in 64 bits): no unit needs a division.
@@ -203,21 +220,21 @@ __device__ __forceinline__ void select_leaf(const BlobLeaf& leaf,
 
 // Phase C: the n leaves of `leaves`.
 __device__ __forceinline__ void select_blobs(const BlobLeaf* leaves, int n,
-                                             const bool* s_acc, int t0,
-                                             int64_t lo, int cnt, int t) {
+                                             const bool* s_acc, int64_t src0,
+                                             int64_t dst0, int cnt, int t) {
   for (int l = 0; l < n; ++l) {
     const BlobLeaf& leaf = leaves[l];
     switch (leaf.unit) {
-      case 16: select_leaf<uint4>(leaf, s_acc, t0, lo, cnt, t); break;
-      case 8: select_leaf<uint2>(leaf, s_acc, t0, lo, cnt, t); break;
-      case 4: select_leaf<uint32_t>(leaf, s_acc, t0, lo, cnt, t); break;
-      case 2: select_leaf<uint16_t>(leaf, s_acc, t0, lo, cnt, t); break;
-      default: select_leaf<uint8_t>(leaf, s_acc, t0, lo, cnt, t); break;
+      case 16: select_leaf<uint4>(leaf, s_acc, src0, dst0, cnt, t); break;
+      case 8: select_leaf<uint2>(leaf, s_acc, src0, dst0, cnt, t); break;
+      case 4: select_leaf<uint32_t>(leaf, s_acc, src0, dst0, cnt, t); break;
+      case 2: select_leaf<uint16_t>(leaf, s_acc, src0, dst0, cnt, t); break;
+      default: select_leaf<uint8_t>(leaf, s_acc, src0, dst0, cnt, t); break;
     }
   }
 }
 
-template <bool kVec, bool kStage, typename Blobs>
+template <bool kVec, bool kStage, typename Blobs, bool kRungs>
 __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     const float* __restrict__ q, const float* __restrict__ factor,
     const float* __restrict__ lp_q, float* __restrict__ coords,
@@ -225,10 +242,31 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     int32_t* __restrict__ count, const float* __restrict__ log_u, int ng,
     int nd, int split, int tile, uint32_t k0, uint32_t k1,
     const long long* __restrict__ offset_dev, unsigned long long offset_inc,
-    const __grid_constant__ Blobs blobs) {
+    const __grid_constant__ Blobs blobs, int nw,
+    const long long* __restrict__ keys) {
   __shared__ bool s_acc[kThreads];
   __shared__ uint64_t s_bar;
   extern __shared__ float4 s_q4[];  // kStage: the tile's q span
+
+  // The rung of this block: its rows of every buffer, and its key.  The
+  // blob leaves' rows of the rung start at rs (new rows) and rd (buffer).
+  const int64_t rs = kRungs ? static_cast<int64_t>(blockIdx.y) * ng : 0;
+  const int64_t rd = kRungs ? static_cast<int64_t>(blockIdx.y) * nw : 0;
+  if constexpr (kRungs) {
+    q += rs * nd;
+    factor += rs;
+    lp_q += rs;
+    if (log_u != nullptr) log_u += rs;
+    coords += rd * nd;
+    log_prob += rd;
+    accepted += rd;
+    if (count != nullptr) count += rd;
+    if (keys != nullptr) {
+      const auto key = static_cast<unsigned long long>(keys[blockIdx.y]);
+      k0 = static_cast<uint32_t>(key);
+      k1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
 
   const int t = threadIdx.x;
   const int t0 = blockIdx.x * tile;
@@ -256,7 +294,8 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 #pragma unroll
       for (int l = 0; l < kRowLeaves; ++l) {
         if (l < blobs.n) {
-          pre[l] = reinterpret_cast<const U*>(blobs.leaf[l].src)[t0 + t];
+          const U* src = reinterpret_cast<const U*>(blobs.leaf[l].src) + rs;
+          pre[l] = src[t0 + t];
         }
       }
     }
@@ -299,7 +338,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 #pragma unroll
         for (int l = 0; l < kRowLeaves; ++l) {
           if (l < blobs.n) {
-            reinterpret_cast<U*>(blobs.leaf[l].dst)[row] = pre[l];
+            (reinterpret_cast<U*>(blobs.leaf[l].dst) + rd)[row] = pre[l];
           }
         }
       }
@@ -365,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 
   // -- phase C: the blob leaves' rows, masked by the same acc --------------
   if constexpr (kBlobs) {
-    select_blobs(blob_table(), blobs.n, s_acc, t0, lo, cnt, t);
+    select_blobs(blob_table(), blobs.n, s_acc, rs + t0, rd + lo + t0, cnt, t);
   }
 }
 
@@ -373,16 +412,18 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 // walker read back from `accepted` (written by the launch before it on
 // the same stream).
 __global__ void __launch_bounds__(kThreads) accept_blobs_only_kernel(
-    const bool* __restrict__ accepted, int ng, int split, int tile,
+    const bool* __restrict__ accepted, int ng, int split, int tile, int nw,
     const __grid_constant__ BlobLeaves leaves) {
   __shared__ bool s_acc[kThreads];
   const int t = threadIdx.x;
   const int t0 = blockIdx.x * tile;
   const int cnt = min(tile, ng - t0);
+  const int64_t rs = static_cast<int64_t>(blockIdx.y) * ng;
+  const int64_t rd = static_cast<int64_t>(blockIdx.y) * nw;
   const int64_t lo = static_cast<int64_t>(split) * ng;
-  if (t < cnt) s_acc[t] = accepted[lo + t0 + t];
+  if (t < cnt) s_acc[t] = accepted[rd + lo + t0 + t];
   __syncthreads();
-  select_blobs(leaves.leaf, leaves.n, s_acc, t0, lo, cnt, t);
+  select_blobs(leaves.leaf, leaves.n, s_acc, rs + t0, rd + lo + t0, cnt, t);
 }
 
 // Leaves [l0, min(l0 + kMaxLeaves, n)) of `all` as one launch's struct.
@@ -402,23 +443,43 @@ BlobRows<U> row_group(const BlobLeaf* all, int n) {
   return g;
 }
 
+// Whether a rung-axis launch may carry leaves of kind Blobs: none, or the
+// tempered bookkeeping's 4-byte scalar leaves.  Only these are built with
+// the axis (each other kind would add four instantiations to the build
+// that no launch runs).
 template <typename Blobs>
-void launch_select(int vec, int stage, int grid, int smem, cudaStream_t st,
+constexpr bool kRungBlobs = std::is_same_v<Blobs, NoBlobs> ||
+                            std::is_same_v<Blobs, BlobRows<uint32_t>>;
+
+// The instantiation of (kVec, kStage, Blobs) with the rung axis or not.
+template <bool kVec, bool kStage, typename Blobs>
+auto with_rungs(bool rungs) {
+  if constexpr (kRungBlobs<Blobs>) {
+    return rungs ? accept_select_kernel<kVec, kStage, Blobs, true>
+                 : accept_select_kernel<kVec, kStage, Blobs, false>;
+  } else {
+    return accept_select_kernel<kVec, kStage, Blobs, false>;
+  }
+}
+
+template <typename Blobs>
+void launch_select(int vec, int stage, bool rungs, dim3 grid, int smem,
+                   cudaStream_t st,
                    const float* q, const float* factor, const float* lp_q,
                    float* coords, float* log_prob, bool* accepted,
                    int32_t* count, const float* log_u, int ng, int nd,
-                   int split, int tile, uint32_t k0, uint32_t k1,
-                   const long long* offset_dev, unsigned long long offset,
-                   const Blobs& blobs) {
+                   int split, int tile, int nw, uint32_t k0, uint32_t k1,
+                   const long long* keys, const long long* offset_dev,
+                   unsigned long long offset, const Blobs& blobs) {
   auto kernel =
-      vec ? (stage ? accept_select_kernel<true, true, Blobs>
-                   : accept_select_kernel<true, false, Blobs>)
-          : (stage ? accept_select_kernel<false, true, Blobs>
-                   : accept_select_kernel<false, false, Blobs>);
+      vec ? (stage ? with_rungs<true, true, Blobs>(rungs)
+                   : with_rungs<true, false, Blobs>(rungs))
+          : (stage ? with_rungs<false, true, Blobs>(rungs)
+                   : with_rungs<false, false, Blobs>(rungs));
   kernel<<<grid, kThreads, smem, st>>>(q, factor, lp_q, coords, log_prob,
                                        accepted, count, log_u, ng, nd, split,
-                                       tile, k0, k1, offset_dev, offset,
-                                       blobs);
+                                       tile, k0, k1, offset_dev, offset, blobs,
+                                       nw, keys);
 }
 
 }  // namespace
@@ -435,25 +496,36 @@ void launch_select(int vec, int stage, int grid, int smem, cudaStream_t st,
 // with row_bytes > 0); it is copied into the launches' parameters, so
 // the host array may go once this returns.  row_unit 4 or 8 (leaf_plan's
 // choice) promises at most kRowLeaves leaves whose rows are each one
-// unit of that many bytes: they are read into registers.  Returns
-// cudaGetLastError() after the launches (1 + ceil((nleaves -
+// unit of that many bytes: they are read into registers.  ntemps rungs of
+// nw walkers lie one after the other in the ensemble buffers, ntemps
+// blocks of ng rows in q and the other split inputs (ntemps = 1: one
+// ensemble; nw is then unused); keys == nullptr draws every rung under
+// seed, else rung r under keys[r] (a device table of ntemps keys).  A
+// rung-axis launch (ntemps > 1 or keys) takes no leaves or row_unit 4
+// leaves only, and is refused with cudaErrorInvalidValue otherwise.
+// Returns cudaGetLastError() after the launches (1 + ceil((nleaves -
 // kMaxLeaves) / kMaxLeaves) of them with more than kMaxLeaves leaves,
 // else 1).
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
     int nd, int split, int tile, int grid, int vec, int stage, int smem,
-    unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, const BlobLeaf* leaves, int nleaves,
-    int row_unit, void* stream) {
+    int nw, int ntemps, const long long* keys, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset,
+    const BlobLeaf* leaves, int nleaves, int row_unit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int32_t* cnt = reinterpret_cast<int32_t*>(count);
   const uint32_t k0 = static_cast<uint32_t>(seed);
   const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  const dim3 blocks(grid, ntemps);
+  const bool rungs = ntemps > 1 || keys != nullptr;
+  if (rungs && nleaves > 0 && row_unit != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto go = [&](const auto& blobs) {
-    launch_select(vec, stage, grid, smem, st, q, factor, lp_q, coords,
-                  log_prob, accepted, cnt, log_u, ng, nd, split, tile, k0, k1,
-                  offset_dev, offset, blobs);
+    launch_select(vec, stage, rungs, blocks, smem, st, q, factor, lp_q,
+                  coords, log_prob, accepted, cnt, log_u, ng, nd, split, tile,
+                  nw, k0, k1, keys, offset_dev, offset, blobs);
   };
   if (nleaves == 0) {
     go(NoBlobs{});
@@ -465,8 +537,8 @@ extern "C" int emcee_accept_select(
     go(leaf_group(leaves, nleaves, 0));
   }
   for (int l0 = kMaxLeaves; row_unit == 0 && l0 < nleaves; l0 += kMaxLeaves) {
-    accept_blobs_only_kernel<<<grid, kThreads, 0, st>>>(
-        accepted, ng, split, tile, leaf_group(leaves, nleaves, l0));
+    accept_blobs_only_kernel<<<blocks, kThreads, 0, st>>>(
+        accepted, ng, split, tile, nw, leaf_group(leaves, nleaves, l0));
   }
   return static_cast<int>(cudaGetLastError());
 }

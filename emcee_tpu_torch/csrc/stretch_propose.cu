@@ -50,6 +50,20 @@
 //     general not 16-byte aligned (ndim 5, any shift), so it is read by
 //     scalar coalesced loads.
 //
+// The rung axis (parallel tempering, emcee_tpu/parallel/tempering.py:
+// 476-541, which vmaps the move over the ladder's rungs): with T rungs the
+// ensemble buffer is (T, nw, nd), q (T, ng, nd) and factor (T, ng); the
+// grid's second dimension is the rung, so one launch serves every rung, a
+// block works on one rung's tile, and rung r's complement is rung r's
+// other rows only.  Rung r draws under its own key, keys[r] (a device
+// table of T 64-bit keys, ops/philox.py rung_seed), reads its own tuned
+// scale[r] and, injected, its own u_z / u_pair rows and u_shift[r].  The
+// axis is a template parameter (kRungs): a single-ensemble launch (one
+// rung, no key table) runs the instantiation without it, whose code is the
+// kernel of before (a rung axis of one rung cost the main path's launch
+// 2% when it was a run-time branch, chip_smoke.py main-path turns; its
+// parameters come last, so the others keep their offsets).
+//
 // The complement map row = r + (r >= split*ng ? ng : 0) is unchanged.
 // Arithmetic uses the _rn intrinsics so that nvcc cannot contract a
 // multiply and an add into an FMA: every rounding then matches the plain
@@ -66,7 +80,7 @@ namespace {
 
 constexpr int kTileMax = 256;  // TILE_MAX in ops/_wrap.py
 
-template <bool kVec>
+template <bool kVec, bool kRungs>
 __global__ void __launch_bounds__(kTileMax + 32) stretch_propose_kernel(
     const float* __restrict__ coords, float* __restrict__ q,
     float* __restrict__ factor, int ng, int nd, int split, int nc, int tile,
@@ -74,10 +88,32 @@ __global__ void __launch_bounds__(kTileMax + 32) stretch_propose_kernel(
     float ndim_m1, const float* __restrict__ u_z,
     const float* __restrict__ u_pair, const float* __restrict__ u_shift,
     uint32_t k0, uint32_t k1, const long long* __restrict__ offset_dev,
-    unsigned long long offset_inc) {
+    unsigned long long offset_inc, const long long* __restrict__ keys) {
   __shared__ float s_z[kTileMax];
   __shared__ int s_row[kTileMax];  // random mode: the partner rows
   __shared__ int s_shift;          // roll mode: int(u_s nc) % nc
+
+  if constexpr (kRungs) {
+    // The rung of this block: its rows, outputs, draws, scale and key.
+    const int rung = blockIdx.y;
+    coords += static_cast<int64_t>(rung) * (nc + ng) * nd;
+    q += static_cast<int64_t>(rung) * ng * nd;
+    factor += static_cast<int64_t>(rung) * ng;
+    if (u_z != nullptr) {
+      u_z += static_cast<int64_t>(rung) * ng;
+      if (pair_mode) {
+        u_pair += static_cast<int64_t>(rung) * ng;
+      } else {
+        u_shift += rung;
+      }
+    }
+    if (scale != nullptr) scale += rung;
+    if (keys != nullptr) {
+      const auto key = static_cast<unsigned long long>(keys[rung]);
+      k0 = static_cast<uint32_t>(key);
+      k1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
 
   const int t = threadIdx.x;
   const int t0 = blockIdx.x * tile;
@@ -180,21 +216,28 @@ __global__ void __launch_bounds__(kTileMax + 32) stretch_propose_kernel(
 // offset is *offset_dev + offset (offset alone when offset_dev is null).
 // tile, grid and vec are the launch plan of ops/_wrap.py tile_plan (a
 // block is tile + 32 threads); vec != 0 promises that every tile's spans
-// of coords and q are 16-byte aligned.
+// of coords and q are 16-byte aligned, in every rung.  ntemps rungs of
+// nsplits * ng walkers lie one after the other in coords (ntemps = 1: one
+// ensemble); keys == nullptr draws every rung under seed, else rung r
+// under keys[r] (a device table of ntemps keys).
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_stretch_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float a, float am1, const float* scale,
     float ndim_m1, const float* u_z, const float* u_pair,
-    const float* u_shift, int tile, int grid, int vec,
-    unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, void* stream) {
+    const float* u_shift, int tile, int grid, int vec, int ntemps,
+    const long long* keys, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset, void* stream) {
   const int nc = (nsplits - 1) * ng;
-  auto kernel =
-      vec ? stretch_propose_kernel<true> : stretch_propose_kernel<false>;
-  kernel<<<grid, tile + 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool rungs = ntemps > 1 || keys != nullptr;
+  auto kernel = vec ? (rungs ? stretch_propose_kernel<true, true>
+                             : stretch_propose_kernel<true, false>)
+                    : (rungs ? stretch_propose_kernel<false, true>
+                             : stretch_propose_kernel<false, false>);
+  kernel<<<dim3(grid, ntemps), tile + 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nc, tile, pair_mode, a, am1, scale,
       ndim_m1, u_z, u_pair, u_shift, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset, keys);
   return static_cast<int>(cudaGetLastError());
 }

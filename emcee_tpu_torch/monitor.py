@@ -98,6 +98,11 @@ def run_until_converged(sampler, initial_state, max_steps=100_000,
     ``(last sample, monitor)``; ``monitor.tau`` holds the final
     estimate.  Each block after the first resumes the sampler's previous
     run (``run_mcmc(None, n)``)."""
+    if hasattr(sampler, "betas"):
+        raise NotImplementedError(
+            "run_until_converged on a PTSampler (judged on the cold rung) "
+            "is not ported yet (ROADMAP P11b)"
+        )
     if monitor is None:
         monitor = ConvergenceMonitor()
     state = initial_state

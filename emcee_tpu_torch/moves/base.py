@@ -50,8 +50,10 @@ def robbins_monro_step(carry, err, rate):
 
 
 def robbins_monro_tune(carry, accepted, target, rate, model=None):
-    """Nudge ``carry["log_adj"]`` toward the acceptance rate ``target``."""
-    acc_rate = accepted.to(torch.float32).mean()
+    """Nudge ``carry["log_adj"]`` toward the acceptance rate ``target``:
+    ``accepted`` is one ensemble's ``(nw,)``, or ``(T, nw)`` for a ``(T,)``
+    carry of ``T`` rungs, each on its own rate."""
+    acc_rate = accepted.to(torch.float32).mean(dim=-1)
     return robbins_monro_step(carry, acc_rate - target, rate)
 
 

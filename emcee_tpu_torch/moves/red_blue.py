@@ -29,6 +29,19 @@ on both engines and whatever the ``tune`` flag
 tensors of any shape, updated in place, so a recorded graph reads and
 writes the same storage at every replay.
 
+The rung axis (parallel tempering, ``emcee_tpu/parallel/tempering.py:
+476-541``, which vmaps one move over the ladder): a move that sets
+``rung_batched`` (the stretch move) proposes every rung of a ladder at
+once with :meth:`RedBlueMove.propose_rungs`.  The state's buffers are then
+``(T, nwalkers, ...)``, ``rng`` is ``(keys, offset)`` with ``keys`` the
+rungs' :class:`~..ops.philox.RungKeys`, and the model evaluates the
+``(T, ng, ndim)`` proposals of every rung in one call.  Each split runs
+K1 and K2 once for all rungs; the shuffled split draws one permutation
+per rung (a stable argsort along the walker axis of each rung's Philox
+word 3, under its own key), gathers with the flat indices ``r * nwalkers
++ perm``, and scatters back.  Rung ``r`` ends exactly as :meth:`propose`
+of rung ``r`` alone under its own key would leave it.
+
 Blobs ride with the coordinates: ``state.blobs`` is a pytree of
 ``(nwalkers, ...)`` buffers, and K2 writes each accepted walker's new
 blob row into them in the same launch as its coordinates (the JAX
@@ -42,11 +55,11 @@ from __future__ import annotations
 import torch
 
 from ..ops import accept_kernel
-from ..ops.philox import walker_words
+from ..ops.philox import rung_words, walker_words
 from ..utils import tree_flatten, tree_map
 from .base import Move, ScaleTunable, blob_pairs
 
-__all__ = ["RedBlueMove", "shuffled_order"]
+__all__ = ["RedBlueMove", "rung_shuffled_order", "shuffled_order"]
 
 
 def shuffled_order(rng, nwalkers, nsplits, device):
@@ -56,6 +69,18 @@ def shuffled_order(rng, nwalkers, nsplits, device):
     w3 = walker_words(nwalkers, nsplits, seed, offset, device)[3]
     perm = torch.argsort(w3, stable=True)
     return perm.view(nwalkers // nsplits, nsplits).t().reshape(-1)
+
+
+def rung_shuffled_order(rng, ntemps, nwalkers, nsplits, device):
+    """:func:`shuffled_order` of every rung under its own key (``rng`` is
+    ``(RungKeys, offset)``), as flat rows of the ``(ntemps * nwalkers,
+    ...)`` buffers: rung ``r``'s order plus ``r * nwalkers``."""
+    keys, offset = rng
+    w3 = rung_words(keys, nwalkers, nsplits, offset, device)[3]
+    perm = torch.argsort(w3, dim=-1, stable=True)
+    order = perm.view(ntemps, nwalkers // nsplits, nsplits).transpose(1, 2)
+    base = torch.arange(0, ntemps * nwalkers, nwalkers, device=device)
+    return (order.reshape(ntemps, nwalkers) + base[:, None]).reshape(-1)
 
 
 class RedBlueMove(ScaleTunable, Move):
@@ -87,6 +112,9 @@ class RedBlueMove(ScaleTunable, Move):
     #: False for moves whose update is not a ``(q, factors)`` proposal
     #: sharing one log-prob evaluation (``BlendedMove`` refuses them)
     blendable = True
+    #: True for moves whose kernels take the rung axis, so that
+    #: :meth:`propose_rungs` proposes every rung of a ladder at once
+    rung_batched = False
 
     def __init__(self, nsplits=2, randomize_split=True, live_dangerously=False,
                  tune_target=None, tune_rate=0.2):
@@ -127,9 +155,8 @@ class RedBlueMove(ScaleTunable, Move):
             carry = self._fold_split_stats(carry, stats, model)
         return carry
 
-    def propose(self, rng, state, model, carry, acc_count=None,
-                accepted=None):
-        nwalkers, ndim = state.coords.shape
+    def _check_split(self, nwalkers, ndim, model):
+        """The red-blue guards; returns the split size ``ng``."""
         nglobal = model.nwalkers or nwalkers
         if nglobal < 2 * model.global_ndim(ndim) and not self.live_dangerously:
             raise RuntimeError(
@@ -141,7 +168,11 @@ class RedBlueMove(ScaleTunable, Move):
                 f"nwalkers ({nwalkers}) must be divisible by "
                 f"nsplits ({self.nsplits})"
             )
-        ng = nwalkers // self.nsplits
+        return nwalkers // self.nsplits
+
+    def propose(self, rng, state, model, carry, acc_count=None,
+                accepted=None):
+        ng = self._check_split(*state.coords.shape, model)
         scale = self._tuned_scale(carry, state.coords.dtype)
         extra_u = self._split_draws(rng, state.coords.device)
         if self.randomize_split:
@@ -153,6 +184,26 @@ class RedBlueMove(ScaleTunable, Move):
             rng, state, model, carry, ng, scale, acc_count,
             extra_u=extra_u, accepted=accepted,
         )
+
+    def propose_rungs(self, rng, state, model, carry, acc_count=None,
+                      accepted=None):
+        """One proposal of every rung of a ladder (``rung_batched`` moves):
+        ``state``'s buffers are ``(T, nwalkers, ...)``, ``rng`` is
+        ``(RungKeys, offset)``, ``model.compute_log_prob`` maps ``(T, n,
+        ndim)`` proposals to ``(T, n)`` log-probs and blobs, the carry's
+        tensors have a leading ``T`` axis, and ``acc_count`` and
+        ``accepted`` are ``(T, nwalkers)``.  Returns ``(state, accepted,
+        carry)``."""
+        if not self.rung_batched:
+            raise ValueError(f"{type(self).__name__} proposes one ensemble "
+                             "at a time")
+        ng = self._check_split(*state.coords.shape[1:], model)
+        scale = self._tuned_scale(carry, state.coords.dtype)
+        if self.randomize_split:
+            return self._propose_shuffled(
+                rng, state, model, carry, ng, scale, acc_count, accepted)
+        return self._propose_blocked(rng, state, model, carry, ng, scale,
+                                     acc_count, accepted=accepted)
 
     def _split_draws(self, rng, device):
         """Per-split draws made once per proposal, before the splits
@@ -192,7 +243,7 @@ class RedBlueMove(ScaleTunable, Move):
         after its scatter); without one, the carry is finished here."""
         if accepted is None:
             accepted = torch.empty(
-                state.coords.shape[0], dtype=torch.bool,
+                state.coords.shape[:-1], dtype=torch.bool,
                 device=state.coords.device,
             )
         collected = [] if stats is None else stats
@@ -213,32 +264,48 @@ class RedBlueMove(ScaleTunable, Move):
     def _propose_shuffled(self, rng, state, model, carry, ng, scale=None,
                           acc_count=None, accepted=None, extra_u=None):
         """Random membership: gather into group order, run the blocked
-        engine, scatter back."""
+        engine, scatter back.  On the rung axis (``(T, nwalkers, ...)``
+        buffers) every rung has its own order, and the gathers and
+        scatters run over the flat ``(T * nwalkers, ...)`` rows."""
         coords, log_prob = state.coords, state.log_prob
-        order = shuffled_order(
-            rng, coords.shape[0], self.nsplits, coords.device
-        )
+        k = coords.dim() - 1  # the walker axes: (nwalkers,) or (T, nwalkers)
+        if k == 2:
+            order = rung_shuffled_order(rng, *coords.shape[:2], self.nsplits,
+                                        coords.device)
+        else:
+            order = shuffled_order(
+                rng, coords.shape[0], self.nsplits, coords.device
+            )
+
+        def flat(x):  # the rows of x as one axis (a view)
+            return x if k == 1 else x.view((-1,) + tuple(x.shape[k:]))
+
+        def gather(x):
+            return flat(x).index_select(0, order).view(x.shape)
+
+        def scatter(x, rows):
+            flat(x).index_copy_(0, order, flat(rows))
+
         buf = state._replace(
-            coords=coords.index_select(0, order),
-            log_prob=log_prob.index_select(0, order),
-            blobs=tree_map(lambda b: b.index_select(0, order), state.blobs),
+            coords=gather(coords), log_prob=gather(log_prob),
+            blobs=tree_map(gather, state.blobs),
         )
-        count = None if acc_count is None else acc_count.index_select(0, order)
+        count = None if acc_count is None else gather(acc_count)
         stats = []
         _, acc_buf, carry = self._propose_blocked(
             rng, buf, model, carry, ng, scale, count, extra_u=extra_u,
             stats=stats
         )
-        coords.index_copy_(0, order, buf.coords)
-        log_prob.index_copy_(0, order, buf.log_prob)
+        scatter(coords, buf.coords)
+        scatter(log_prob, buf.log_prob)
         for b, g in zip(tree_flatten(state.blobs)[0],
                         tree_flatten(buf.blobs)[0]):
-            b.index_copy_(0, order, g)
+            scatter(b, g)
         if acc_count is not None:
-            acc_count.index_copy_(0, order, count)
+            scatter(acc_count, count)
         if accepted is None:
             accepted = torch.empty_like(acc_buf)
-        accepted.index_copy_(0, order, acc_buf)
+        scatter(accepted, acc_buf)
         # The carry sees the ensemble in walker order, as in the JAX
         # package (DE-Z's subsample picks rows by index).
         carry = self._finish(carry, state, model, stats)

@@ -38,6 +38,7 @@ KERNELS = {
     "langevin_step": ("langevin_step.cu", "emcee_langevin_step"),
     "langevin_factor": ("langevin_factor.cu", "emcee_langevin_factor"),
     "leapfrog": ("leapfrog.cu", "emcee_leapfrog"),
+    "pt_swap": ("pt_swap.cu", "emcee_pt_swap"),
 }
 
 _FLAGS = [
@@ -56,6 +57,7 @@ _ARGTYPES = {
         ctypes.c_float,  # ndim_global - 1
         _P, _P, _P,  # u_z, u_pair, u_shift
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plan: tile grid vec
+        ctypes.c_int, _P,  # ntemps, the rungs' key table
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
@@ -63,6 +65,7 @@ _ARGTYPES = {
         _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
         *[ctypes.c_int] * 5,  # plan: tile grid vec stage smem
+        ctypes.c_int, ctypes.c_int, _P,  # rung stride nw, ntemps, key table
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P, ctypes.c_int,  # blob leaves (host array), their number
         ctypes.c_int,  # row_unit: leaves of one 4- or 8-byte unit a row
@@ -106,6 +109,14 @@ _ARGTYPES = {
         _P, _P, _P, _P,  # x_in, x_out, p_in, p_out
         _P, _P, _P,  # g, d, eps
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd kicks
+        _P,  # stream
+    ],
+    "pt_swap": [
+        _P, _P, _P, _P,  # coords, log_like, log_prior, log_prob
+        _P, _P, _P,  # betas, counts, u
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps nw nd
+        ctypes.c_int,  # swap_every
+        ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
 }

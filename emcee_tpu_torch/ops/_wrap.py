@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from .philox import DeviceOffset
+from .philox import DeviceOffset, RungKeys
 
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 
@@ -79,13 +79,24 @@ def check_i32(name, t, device, shape):
                          f"on {device}")
 
 
-def check_rows(coords, split, nsplits, min_splits=2):
+def check_rows(coords, split, nsplits, min_splits=2, rungs=False):
     """The ensemble buffer and split as the kernels take them; returns
     ``(nwalkers, ndim, ng)``.  The proposal kernels need a complement,
     so two splits or more; K2 needs none and takes ``min_splits=1`` (the
-    whole ensemble as one split, as ``MHMove`` proposes it)."""
+    whole ensemble as one split, as ``MHMove`` proposes it).  With
+    ``rungs`` the buffer may also be ``(T, nwalkers, ndim)`` (the rung
+    axis of K1 and K2)."""
+    if coords.dim() == 3 and rungs:
+        if coords.shape[0] < 1 or coords.shape[0] >= 65536:
+            raise ValueError("the rung axis holds 1 to 65535 rungs")
+        if coords.numel() >= 2**31:
+            raise ValueError("ensemble too large for int32 indexing")
+        nw, nd, ng = check_rows(coords[0], split, nsplits, min_splits)
+        check_f32("coords", coords, coords.device)
+        return nw, nd, ng
     if coords.dim() != 2:
-        raise ValueError("coords must be (nwalkers, ndim)")
+        raise ValueError("coords must be (nwalkers, ndim)"
+                         + (" or (ntemps, nwalkers, ndim)" if rungs else ""))
     nw, nd = coords.shape
     if (nsplits < min_splits or nw % nsplits
             or not 0 <= split < nsplits):
@@ -123,7 +134,8 @@ def device_sm_count(device):
     return sm_count(torch.cuda.current_device() if index is None else index)
 
 
-def tile_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, stage=False):
+def tile_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, stage=False, rungs=1,
+              nsplits=1):
     """The launch plan of K1 or K2 for block ``split`` of ``ng`` walkers
     of ``nd`` floats on a card of ``n_sm`` SMs, with ``coords`` and ``q``
     at byte addresses ``coords_ptr`` and ``q_ptr``.
@@ -141,17 +153,28 @@ def tile_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, stage=False):
     ``b*tile*nd``, so both spans of every tile start 16-byte aligned
     exactly when both bases are and ``split*ng*nd % 4 == 0`` (``tile*nd``
     is a multiple of 4): that is ``vec``.  Staging takes a 16-byte
-    aligned ``q`` base (a bulk copy's source)."""
+    aligned ``q`` base (a bulk copy's source).
+
+    With ``rungs`` > 1 (the rung axis: ``rungs`` ensembles of ``nsplits *
+    ng`` walkers one after the other in ``coords``, ``rungs`` blocks of
+    ``ng`` rows in ``q``) the grid's blocks of every rung count toward
+    filling the card, and ``vec`` and ``stage`` also need every rung's
+    base aligned: ``nsplits * ng * nd`` (``coords``) and ``ng * nd``
+    (``q``) multiples of 4."""
     cap = TILE_MAX
+    rung_ok = rungs == 1 or ng * nd % 4 == 0
     if stage:
         fit = (SMEM_LIMIT - STATIC_SMEM) // (4 * nd)
-        stage = fit >= TILE_MIN and q_ptr % 16 == 0
+        stage = fit >= TILE_MIN and q_ptr % 16 == 0 and rung_ok
         while stage and cap > fit:
             cap //= 2
     tile = cap
-    while tile > TILE_MIN and -(-ng // tile) < BLOCKS_PER_SM * n_sm:
+    while (tile > TILE_MIN
+           and rungs * -(-ng // tile) < BLOCKS_PER_SM * n_sm):
         tile //= 2
-    vec = coords_ptr % 16 == 0 and q_ptr % 16 == 0 and split * ng * nd % 4 == 0
+    vec = (coords_ptr % 16 == 0 and q_ptr % 16 == 0
+           and split * ng * nd % 4 == 0 and rung_ok
+           and (rungs == 1 or nsplits * ng * nd % 4 == 0))
     return TilePlan(tile, -(-ng // tile), int(vec), int(stage),
                     4 * tile * nd if stage else 0)
 
@@ -225,6 +248,24 @@ def rng_args(seed, offset, device):
                              f"on {device}")
         return int(seed) & _MASK64, w.data_ptr(), int(offset.inc) & _MASK64
     return int(seed) & _MASK64, None, int(offset) & _MASK64
+
+
+def key_args(seed, device, ntemps, injected=False):
+    """The kernels' rung key arguments ``(ntemps, key table pointer,
+    seed)`` for ``seed``: an int (one ensemble, or rungs whose draws are
+    all injected) or a :class:`~.philox.RungKeys` of ``ntemps`` rungs,
+    whose table the kernel reads on ``device``."""
+    if isinstance(seed, RungKeys):
+        t = seed.table
+        if (t.device != device or t.dtype != torch.int64
+                or tuple(t.shape) != (ntemps,)):
+            raise ValueError(f"the rung key table must be a ({ntemps},) "
+                             f"int64 tensor on {device}")
+        return ntemps, t.data_ptr(), int(seed.seed) & _MASK64
+    if ntemps > 1 and not injected:
+        raise ValueError("rungs that draw their own numbers need their "
+                         "keys as a RungKeys (ops/philox.py rung_keys)")
+    return ntemps, None, int(seed) & _MASK64
 
 
 def launch(name, device, *args):

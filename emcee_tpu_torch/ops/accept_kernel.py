@@ -45,6 +45,16 @@ the split's ``accepted``.  The plain version is
 ``torch.where`` per leaf; the two agree bit for bit (bytes are copied,
 never converted).
 
+The rung axis (parallel tempering): the ensemble buffers may be ``(T,
+nwalkers, ...)``, ``T`` ensembles of one ladder, with ``q`` ``(T, ng,
+ndim)``, ``factor``, ``lp_q`` and ``log_u`` ``(T, ng)`` and each blob
+leaf's new rows ``(T, ng, ...)`` and buffer ``(T, nwalkers, ...)``.  Rung
+``r``'s split group is its rows ``split*ng .. +ng``, and it draws its
+accept uniform under its own key (``seed`` is then a
+:class:`~.philox.RungKeys`).  One launch serves every rung; the plain
+version draws every rung's words in one pass and selects elementwise
+over the rungs, so each rung equals the same rung selected alone.
+
 The accept uniform is Philox word 1 at ``(walker, split, offset)``
 (``offset`` an int or a ``DeviceOffset``), or the injected ``log_u``
 (ng,) (the parity mode: ``RedBlueMove._inner``'s ``log_u`` argument in
@@ -64,9 +74,9 @@ import ctypes
 import torch
 
 from ._wrap import (
-    check_f32, check_rows, count_launches, device_sm_count, launch, ptr,
-    rng_args, tile_plan)
-from .philox import to_uniform, walker_words
+    check_f32, check_rows, count_launches, device_sm_count, key_args, launch,
+    ptr, rng_args, tile_plan)
+from .philox import RungKeys, rung_keys, rung_words, to_uniform, walker_words
 
 __all__ = ["BLOB_CAPACITY", "ROW_LEAVES", "accept_select",
            "accept_select_plain", "blob_leaves", "blob_unit", "leaf_plan"]
@@ -134,26 +144,30 @@ def leaf_plan(leaves):
              for (src, dst, row), unit in zip(leaves, units)], row_unit)
 
 
-def blob_leaves(blobs, ng, nw, device):
+def blob_leaves(blobs, ng, nw, device, lead=()):
     """The kernel's view of checked blob leaf pairs: ``(new pointer,
     buffer pointer, row bytes)`` of each leaf whose row has a byte or
-    more."""
+    more.  ``lead`` is ``(T,)`` on the rung axis: the new rows are then
+    ``(T, ng, ...)`` and the buffer ``(T, nw, ...)``."""
     leaves = []
+    k = len(lead)
     for new, buf in blobs:
         if new.device != device or buf.device != device:
             raise ValueError(f"blob leaves must lie on {device}")
         if new.dtype != buf.dtype:
             raise ValueError(f"a blob leaf's new rows are {new.dtype}, its "
                              f"buffer {buf.dtype}")
-        if (new.dim() == 0 or buf.dim() == 0 or new.shape[0] != ng
-                or buf.shape[0] != nw or new.shape[1:] != buf.shape[1:]):
+        if (new.dim() <= k or buf.dim() <= k
+                or tuple(new.shape[:k + 1]) != lead + (ng,)
+                or tuple(buf.shape[:k + 1]) != lead + (nw,)
+                or new.shape[k + 1:] != buf.shape[k + 1:]):
             raise ValueError(
-                f"a blob leaf must be ({ng}, ...) new rows and a ({nw}, "
-                f"...) buffer of one row shape, got {tuple(new.shape)} and "
-                f"{tuple(buf.shape)}")
+                f"a blob leaf must be {lead + (ng,)} + row new rows and a "
+                f"{lead + (nw,)} + row buffer of one row shape, got "
+                f"{tuple(new.shape)} and {tuple(buf.shape)}")
         if not (new.is_contiguous() and buf.is_contiguous()):
             raise ValueError("blob leaves must be contiguous")
-        row = buf[0].numel() * buf.element_size()
+        row = buf[(0,) * (k + 1)].numel() * buf.element_size()
         if row:
             leaves.append((new.data_ptr(), buf.data_ptr(), row))
     return leaves
@@ -164,25 +178,34 @@ def accept_select_plain(q, factor, lp_q, coords, log_prob, split, nsplits,
                         log_u=None, blobs=()):
     """Plain PyTorch K2; updates the buffers (and every blob leaf's
     buffer) in place and returns the block's acceptance ``(ng,)`` bool (a
-    view of ``accepted``)."""
-    ng = coords.shape[0] // nsplits
+    view of ``accepted``; ``(T, ng)`` on the rung axis, rung by rung)."""
+    rungs = coords.dim() == 3  # (T, nwalkers, ndim): the rung axis
+    ng = coords.shape[-2] // nsplits
     lo = split * ng
-    if log_u is None:
-        _, w1, _, _ = walker_words(ng, split, seed, offset, coords.device)
+    dev = coords.device
+    if log_u is None and rungs:
+        keys = seed if isinstance(seed, RungKeys) else rung_keys(
+            seed, coords.shape[0], dev)
+        w1 = rung_words(keys, ng, split, offset, dev, roll=True)[1][:, :ng]
         log_u = torch.log(to_uniform(w1, factor.dtype))
-    s = coords[lo:lo + ng]
-    lp_s = log_prob[lo:lo + ng]
+    elif log_u is None:
+        _, w1, _, _ = walker_words(ng, split, seed, offset, dev)
+        log_u = torch.log(to_uniform(w1, factor.dtype))
+    s = coords[..., lo:lo + ng, :]
+    lp_s = log_prob[..., lo:lo + ng]
     lnpdiff = factor + lp_q - lp_s
     acc = log_u < lnpdiff
-    s.copy_(torch.where(acc[:, None], q, s))
+    s.copy_(torch.where(acc[..., None], q, s))
     lp_s.copy_(torch.where(acc, lp_q, lp_s))
+    k = acc.dim()
     for new, buf in blobs:
-        b = buf[lo:lo + ng]
-        b.copy_(torch.where(acc.view((ng,) + (1,) * (b.dim() - 1)), new, b))
-    accepted[lo:lo + ng] = acc
+        b = buf[(slice(None),) * (k - 1) + (slice(lo, lo + ng),)]
+        b.copy_(torch.where(acc.view(acc.shape + (1,) * (b.dim() - k)), new,
+                            b))
+    accepted[..., lo:lo + ng] = acc
     if count is not None:
-        count[lo:lo + ng] += acc
-    return accepted[lo:lo + ng]
+        count[..., lo:lo + ng] += acc
+    return accepted[..., lo:lo + ng]
 
 
 def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
@@ -197,29 +220,40 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
         return accept_select_plain(*args, **kw)
     if coords.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {coords.device}")
-    nw, nd, ng = check_rows(coords, split, nsplits, min_splits=1)
+    nw, nd, ng = check_rows(coords, split, nsplits, min_splits=1,
+                            rungs=True)
     dev = coords.device
-    check_f32("log_prob", log_prob, dev, (nw,))
-    check_f32("q", q, dev, (ng, nd))
-    check_f32("factor", factor, dev, (ng,))
-    check_f32("lp_q", lp_q, dev, (ng,))
-    check_f32("log_u", log_u, dev, (ng,))
+    lead = tuple(coords.shape[:-2])  # (T,) on the rung axis, else ()
+    check_f32("log_prob", log_prob, dev, lead + (nw,))
+    check_f32("q", q, dev, lead + (ng, nd))
+    check_f32("factor", factor, dev, lead + (ng,))
+    check_f32("lp_q", lp_q, dev, lead + (ng,))
+    check_f32("log_u", log_u, dev, lead + (ng,))
     if (accepted.device != dev or accepted.dtype != torch.bool
-            or tuple(accepted.shape) != (nw,) or not accepted.is_contiguous()):
-        raise ValueError(f"accepted must be a contiguous ({nw},) bool "
-                         f"tensor on {dev}")
+            or tuple(accepted.shape) != lead + (nw,)
+            or not accepted.is_contiguous()):
+        raise ValueError(f"accepted must be a contiguous {lead + (nw,)} "
+                         f"bool tensor on {dev}")
     if count is not None and (
             count.device != dev or count.dtype != torch.int32
-            or tuple(count.shape) != (nw,) or not count.is_contiguous()):
-        raise ValueError(f"count must be a contiguous ({nw},) int32 tensor "
-                         f"on {dev}")
-    leaves = blob_leaves(blobs, ng, nw, dev)
+            or tuple(count.shape) != lead + (nw,)
+            or not count.is_contiguous()):
+        raise ValueError(f"count must be a contiguous {lead + (nw,)} int32 "
+                         f"tensor on {dev}")
+    leaves = blob_leaves(blobs, ng, nw, dev, lead)
+    leaves, row_unit = leaf_plan(leaves)
+    rung_launch = (lead and lead[0] > 1) or isinstance(seed, RungKeys)
+    if rung_launch and leaves and row_unit != 4:
+        raise ValueError(
+            f"K2's rung axis takes at most {ROW_LEAVES} blob leaves whose "
+            f"rows are each one 4-byte unit (the tempered logL and logP)")
     plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
-                     q.data_ptr(), stage=True)
+                     q.data_ptr(), stage=True, rungs=lead[0] if lead else 1,
+                     nsplits=nsplits)
     _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u, *leaf_plan(leaves))
+            seed, offset, log_u, leaves, row_unit)
     count_launches(accept_select, max(1, -(-len(leaves) // BLOB_CAPACITY)))
-    return accepted[split * ng:(split + 1) * ng]
+    return accepted[..., split * ng:(split + 1) * ng]
 
 
 def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
@@ -228,14 +262,17 @@ def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
     ``leaves`` are the blob leaves' descriptors and ``row_unit`` their
     path (:func:`leaf_plan`)."""
     dev = coords.device
+    ntemps = coords.shape[0] if coords.dim() == 3 else 1
     table = (_BlobLeaf * max(1, len(leaves)))(*[
         _BlobLeaf(*d) for d in leaves])
     launch(
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
-        ptr(count), ptr(log_u), q.shape[0], coords.shape[1], split,
-        *plan, *rng_args(seed, offset, dev),
+        ptr(count), ptr(log_u), q.shape[-2], coords.shape[-1], split,
+        *plan, coords.shape[-2],
+        *key_args(seed, dev, ntemps, injected=log_u is not None),
+        *rng_args(0, offset, dev)[1:],
         ctypes.addressof(table), len(leaves), row_unit,
     )
 

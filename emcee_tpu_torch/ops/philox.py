@@ -90,6 +90,21 @@ Stream layout (shared with the kernels):
   and draw a proposal's step-size jitter from word 0 at ``(ROLL_LANE,
   GRAD_BLOCK | split, ...)`` (:func:`grad_uniform`).
 
+* parallel tempering (``parallel/tempering.py``) gives each rung of the
+  ladder a key of its own (:func:`rung_seed`): rung 0's key is the
+  chain's seed itself, and rung ``r > 0``'s is words 0 and 1 of the
+  seed's counter ``(r, RUNG_BLOCK | 0xFFFFF, 2**32 - 1, 2**32 - 1)``, an
+  offset no chain reaches, as :func:`sub_seed` derives a sub-move's.
+  Each rung draws every counter above under its own key, so a rung of
+  the rung-batched kernels and the same rung run alone as an ensemble
+  draw the same words, and a 1-rung ladder draws exactly what an
+  ``EnsembleSampler`` of the same seed draws.  The even/odd swap (K15,
+  ``csrc/pt_swap.cu``) draws its accept uniform of walker ``w`` and
+  pair ``(lo, lo + 1)`` from word 0 of counter ``(w, SWAP_BLOCK | lo,
+  offset)`` under the chain's seed: no move of rung 0 reads a
+  ``SWAP_BLOCK`` or ``RUNG_BLOCK`` counter (both are ``EXT_BLOCK``
+  sub-blocks of their own), and the other rungs draw under other keys.
+
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
 """
@@ -121,6 +136,9 @@ __all__ = [
     "NORMAL_BLOCK",
     "PAIR_BLOCK",
     "PICK_BLOCK",
+    "RUNG_BLOCK",
+    "RungKeys",
+    "SWAP_BLOCK",
     "SUBSAMPLE_BLOCK",
     "box_muller",
     "grad_uniform",
@@ -132,6 +150,9 @@ __all__ = [
     "roll_uniforms",
     "row_uniforms",
     "row_words",
+    "rung_keys",
+    "rung_seed",
+    "rung_words",
     "split_key",
     "split_offset",
     "sub_seed",
@@ -170,6 +191,10 @@ CHI2_BLOCK = EXT_BLOCK | 0x300000
 SLICE_BLOCK = EXT_BLOCK | 0x400000
 #: the gradient moves' step-size jitter (``| split``, on ROLL_LANE)
 GRAD_BLOCK = EXT_BLOCK | 0x500000
+#: the rungs' keys of parallel tempering (:func:`rung_seed`)
+RUNG_BLOCK = EXT_BLOCK | 0x600000
+#: the even/odd swap's accept uniforms (``| lo``, the pair's lower rung)
+SWAP_BLOCK = EXT_BLOCK | 0x700000
 #: the slice move's shrink uniforms (``| iteration``)
 SHRINK_BLOCK = EXT_BLOCK | 0x800000
 #: shrink iterations SHRINK_BLOCK can number
@@ -270,6 +295,77 @@ def sub_seed(seed, k):
     return w[0] | (w[1] << 32)
 
 
+def rung_seed(seed, r):
+    """The 64-bit key of rung ``r`` of a tempered chain of ``seed``: the
+    seed itself for rung 0, else words 0 and 1 of the seed's counter
+    ``(r, RUNG_BLOCK | 0xFFFFF, 2**32 - 1, 2**32 - 1)``."""
+    if r == 0:
+        return int(seed) & 0xFFFFFFFFFFFFFFFF
+    w = philox4x32_scalar((r, RUNG_BLOCK | 0xFFFFF, MASK32, MASK32),
+                          split_key(seed))
+    return w[0] | (w[1] << 32)
+
+
+class RungKeys(NamedTuple):
+    """The keys of a ladder of ``T`` rungs under one chain seed.
+
+    ``seeds`` are the rungs' 64-bit keys (:func:`rung_seed`) as Python
+    ints, which the plain versions take one rung at a time; ``table`` is
+    the same as a ``(T,)`` int64 tensor (the keys' bits) on the walkers'
+    device, which the rung-batched kernels read; ``rounds`` are the ten
+    round keys of every rung as ``((T, 1) int64, (T, 1) int64)`` pairs,
+    with which :func:`rung_words` draws all rungs in one
+    :func:`philox4x32_torch` pass."""
+
+    seeds: tuple
+    table: torch.Tensor
+    rounds: tuple
+
+    @property
+    def seed(self):
+        """The chain's seed (rung 0's key)."""
+        return self.seeds[0]
+
+
+def rung_keys(seed, ntemps, device):
+    """:class:`RungKeys` of ``ntemps`` rungs under ``seed`` on ``device``
+    (made once per chain, outside any recorded graph)."""
+    seeds = tuple(rung_seed(seed, r) for r in range(ntemps))
+    table = torch.tensor([s - (1 << 64) if s >= 1 << 63 else s
+                          for s in seeds], dtype=torch.int64, device=device)
+    per = [_round_keys(split_key(s)) for s in seeds]
+    rounds = tuple(
+        tuple(torch.tensor([[p[i][w]] for p in per], dtype=torch.int64,
+                           device=device) for w in (0, 1))
+        for i in range(_ROUNDS))
+    return RungKeys(seeds, table, rounds)
+
+
+def rung_words(keys, n, split, offset, device, roll=False):
+    """The four Philox words of walker lanes ``0..n-1`` at ``split`` under
+    every rung's key: four ``(T, n)`` tensors, rung ``r``'s row equal to
+    :func:`walker_words` under ``keys.seeds[r]``, from one pass.  With
+    ``roll``, lane ``ROLL_LANE`` follows as column ``n`` (the split's roll
+    draws, :func:`roll_uniforms`).  On the CPU the last draw of this
+    thread is kept and served again (as :data:`_cpu_draws` serves
+    :func:`walker_words`): K1's and K2's plain versions of one split read
+    the same counters."""
+    cpu = torch.device(device).type == "cpu"
+    if cpu:
+        key = (keys.seeds, n, split, _cpu_offset(offset), roll)
+        last = getattr(_cpu_draws, "rungs", None)
+        if last is not None and last[0] == key:
+            return last[1]
+    lo, hi = split_offset(offset)
+    lanes = torch.arange(n + bool(roll), dtype=torch.int64, device=device)
+    if roll:
+        lanes[n] = ROLL_LANE
+    words = philox4x32_torch(lanes, split, lo, hi, None, rounds=keys.rounds)
+    if cpu:
+        _cpu_draws.rungs = key, words
+    return words
+
+
 def roll_shift(seed, split, offset, nc, device="cpu"):
     """The roll partner shift of one split, a 0-d int64 tensor:
     ``int(u * nc)`` in float32 arithmetic, as the kernel and
@@ -287,7 +383,7 @@ def _round_keys(key):
                  for r in range(_ROUNDS))
 
 
-def philox4x32_torch(c0, c1, c2, c3, key):
+def philox4x32_torch(c0, c1, c2, c3, key, rounds=None):
     """The ten rounds in int64 torch arithmetic (any device).  Each
     counter word is an int64 tensor or a Python int holding a value in
     ``[0, 2**32)``; the words broadcast, and every output word is a
@@ -309,8 +405,14 @@ def philox4x32_torch(c0, c1, c2, c3, key):
     the low words ``(c1, c3)`` of tensors are carried as the whole
     wrapped products, masked only where they leave a round's XOR or the
     function (XOR does not carry between bits): ten torch calls a round.
+
+    ``rounds`` replaces ``key`` by the ten round keys as tensors (one key
+    per row of a batch: :class:`RungKeys`' ``rounds``); XOR with a
+    tensor costs the same one call.
     """
-    for k0, k1 in _round_keys((int(key[0]), int(key[1]))):
+    if rounds is None:
+        rounds = _round_keys((int(key[0]), int(key[1])))
+    for k0, k1 in rounds:
         p0 = c0 * _M0
         p1 = c2 * _M1
         # c0' = hi(M1 c2) ^ c1 ^ k0, c2' = hi(M0 c0) ^ c3 ^ k1,

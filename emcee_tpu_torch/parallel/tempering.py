@@ -1,0 +1,611 @@
+"""The parallel-tempered ensemble sampler.
+
+The counterpart of ``emcee_tpu/parallel/tempering.py`` (``PTSampler``,
+``PTState``, ``default_beta_ladder``): a ladder of inverse temperatures
+``betas``; rung ``t`` samples ``beta_t * log_like + log_prior``; each rung
+runs the ensemble move; after every ``swap_every`` proposals adjacent
+rungs exchange walkers with probability ``min(1, exp((beta_i - beta_j)
+(logL_j - logL_i)))``, pairing even and odd rungs in turn by the step's
+parity.
+
+Where the JAX package vmaps one move over the rungs (one fused XLA
+program for all of them), the port proposes every rung at once where the
+move's kernels take the rung axis (the stretch move: K1 and K2 launch
+once a split for all rungs, and the tempered log-prob is evaluated once
+over ``T * ng`` rows), and otherwise loops over the rungs, each an
+ensemble of its own with its own tempered model, carry and key.  The
+swap is K15 (``ops/swap_kernel.py``).  A chunk runs through
+:class:`~..chunk_graph.TemperedProgram`: on a CUDA device every proposal
+is a replay of its CUDA graphs; on the CPU the same function runs
+eagerly.
+
+Each rung draws under a key of its own (``ops/philox.py`` ``rung_seed``:
+rung 0's is the chain's seed), so a 1-rung ladder at ``beta = 1`` draws
+what an :class:`~..sampler.EnsembleSampler` of the same seed draws.  The
+step whose parity pairs the rungs is the chain's proposal counter (its
+Philox offset), which continues across runs, stored or not; the JAX
+package counts from ``backend.iteration * thin_by`` of a stored run and
+from 0 of an unstored one.  The swap counts proposed are computed on the
+host from the same steps (:meth:`PTSampler._count_proposed_delta`).
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item: more than one move, ``mixture_block > 1``,
+``adaptive=True``, ``io_dtype``, ``parameter_names``, user blobs of
+``log_like_fn``, the looped moves and ``PTHDFBackend`` (P11b); ``pool``,
+``host_callback``, ``host_callback_blobs`` and progress bars (P12);
+``mesh``, ``temp_axis`` and ``param_axis`` (P13).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import moves as _moves_mod
+from ..autocorr import integrated_time
+from ..backends.pt import PTBackend
+from ..chunk_graph import TemperedProgram, clone_carry
+from ..driver import chunk_schedule, parse_moves, shim_thin, torch_dtype
+from ..model import wrap_log_prob_fn
+from ..ops.philox import rung_keys
+from ..sampler import RunStats
+from ..state import resolve_device, walkers_independent
+from ..utils import defer_interrupts
+
+__all__ = ["PTSampler", "PTState", "default_beta_ladder"]
+
+#: constructor arguments of the JAX sampler that this slice does not
+#: port: name -> (default, ROADMAP item)
+_NOT_PORTED = {
+    "adaptive": (False, "P11b"),
+    "io_dtype": (None, "P11b"),
+    "parameter_names": (None, "P11b"),
+    "pool": (None, "P12"),
+    "host_callback": (False, "P12"),
+    "host_callback_blobs": (None, "P12"),
+    "mesh": (None, "P13"),
+    "temp_axis": (None, "P13"),
+    "param_axis": (None, "P13"),
+}
+
+
+def default_beta_ladder(ntemps, ndim, max_temp=None):
+    """Geometric inverse-temperature ladder (``emcee_tpu/parallel/
+    tempering.py:59-74``): spacing ``1 + sqrt(2/ndim)`` per rung (Vousden
+    et al. 2016); with ``max_temp`` given, geometric over ``[1,
+    max_temp]``."""
+    if max_temp is None:
+        ratio = 1.0 + np.sqrt(2.0 / ndim)
+        return ratio ** (-np.arange(ntemps, dtype=np.float64))
+    return np.exp(np.linspace(0.0, -np.log(max_temp), ntemps))
+
+
+class PTState(NamedTuple):
+    """Snapshot of the tempered ensemble; leading axes ``(ntemps,
+    nwalkers)``.  ``random_state`` is the port's ``(seed, offset)``;
+    ``blobs`` (user blobs of the likelihood) is always None until P11b."""
+
+    coords: Any  # (T, nw, nd)
+    log_like: Any  # (T, nw)
+    log_prior: Any  # (T, nw)
+    random_state: Optional[tuple] = None
+    blobs: Optional[Any] = None
+
+    @property
+    def ntemps(self):
+        return self.coords.shape[0]
+
+    @property
+    def nwalkers(self):
+        return self.coords.shape[1]
+
+    @property
+    def ndim(self):
+        return self.coords.shape[2]
+
+
+class _Chunk(NamedTuple):
+    """A chunk's kept rows (``(coords, log_like, log_prior, accepted)``,
+    or None unstored), the swap counts and anchors after it."""
+
+    rows: Optional[tuple]
+    swaps: torch.Tensor
+    state: PTState
+    carries: tuple
+    proposals: int
+
+
+class PTSampler:
+    """Parallel-tempered ensemble sampler on one CUDA device (or the CPU).
+
+    Args:
+        ntemps: number of temperature rungs.
+        nwalkers: walkers per rung.
+        ndim: parameter dimensionality.
+        log_like_fn: log likelihood of one ``(ndim,)`` vector (lifted
+            with ``torch.func.vmap``), or of an ``(n, ndim)`` batch with
+            ``vectorize=True``; ``args`` / ``kwargs`` are passed to it.
+        log_prior_fn: log prior, same convention (no extra arguments, as
+            in the JAX package).
+        betas: explicit inverse-temperature ladder (default:
+            :func:`default_beta_ladder`).
+        moves: one move (default ``StretchMove()``).
+        swap_every: proposals between swap attempts (default 1).
+        seed: int seed of the Philox stream.
+        backend: a :class:`~..backends.PTBackend` (default) or
+            :class:`~..backends.PTDeviceBackend`.
+        io_chunk_bytes: bytes of one chunk's stored rows, which sets the
+            kept steps per chunk of a stored run.
+        walker_axis, scan_unroll, adaptation_lag, adaptation_time:
+            accepted; meaningful once mesh, scan and adaptive ladders are
+            ported.
+        device: where the walkers live; ``None`` means ``"cuda"``.
+    """
+
+    def __init__(self, ntemps, nwalkers, ndim, log_like_fn, log_prior_fn,
+                 betas=None, moves=None, args=None, kwargs=None,
+                 vectorize=False, swap_every=1, adaptive=False,
+                 adaptation_lag=10_000, adaptation_time=100, seed=0,
+                 backend=None, mesh=None, walker_axis="walkers",
+                 temp_axis=None, param_axis=None, io_chunk_bytes=1 << 27,
+                 scan_unroll=4, io_dtype=None, parameter_names=None,
+                 host_callback=False, pool=None, host_callback_blobs=None,
+                 mixture_block=1, device=None):
+        given = dict(adaptive=adaptive, io_dtype=io_dtype,
+                     parameter_names=parameter_names, pool=pool,
+                     host_callback=host_callback,
+                     host_callback_blobs=host_callback_blobs, mesh=mesh,
+                     temp_axis=temp_axis, param_axis=param_axis)
+        for name, (default, item) in _NOT_PORTED.items():
+            if given[name] is not default and given[name] != default:
+                raise NotImplementedError(
+                    f"PTSampler({name}=...) is not ported yet (ROADMAP "
+                    f"{item})"
+                )
+        self.nwalkers = int(nwalkers)
+        self.ndim = int(ndim)
+        if betas is None:
+            betas = default_beta_ladder(ntemps, ndim)
+        self.betas = np.asarray(betas, dtype=np.float64)
+        self.ntemps = len(self.betas)
+        if self.ntemps != int(ntemps):
+            raise ValueError(f"betas holds {self.ntemps} rungs, ntemps is "
+                             f"{ntemps}")
+        self.swap_every = int(swap_every)
+        self.adaptive = False
+        self.adaptation_lag = float(adaptation_lag)
+        self.adaptation_time = float(adaptation_time)
+        self.walker_axis = walker_axis
+        self._moves, self._weights = parse_moves(moves,
+                                                 _moves_mod.StretchMove)
+        self._mixture_block = int(mixture_block)
+        if self._mixture_block < 1:
+            raise ValueError("mixture_block must be >= 1")
+        if len(self._moves) > 1 or self._mixture_block > 1:
+            raise NotImplementedError(
+                "PTSampler with more than one move (and mixture_block) is "
+                "not ported yet (ROADMAP P11b)"
+            )
+        if self._moves[0].looped:
+            raise NotImplementedError(
+                f"{type(self._moves[0]).__name__} in a PTSampler (a looped "
+                "move on every rung) is not ported yet (ROADMAP P11b)"
+            )
+        if not isinstance(seed, (int, np.integer)):
+            raise TypeError("seed must be an int")
+        self._rng = (int(seed) & 0xFFFFFFFFFFFFFFFF, 0)
+        self.device = resolve_device(device)
+        self.dtype = torch.float32
+        self._io_chunk_bytes = int(io_chunk_bytes)
+        if self._io_chunk_bytes < 1:
+            raise ValueError("io_chunk_bytes must be >= 1")
+        self._log_like_fn = log_like_fn
+        self._log_prior_fn = log_prior_fn
+        # Extra arguments reach the likelihood only (the JAX package's
+        # _like_settings and _lp_settings).
+        self._like_settings = dict(args=args, kwargs=kwargs,
+                                   vectorize=vectorize)
+        self._prior_settings = dict(vectorize=vectorize)
+        self._wrap_fns()
+        # K3's tempered program (made at the first run); the private
+        # switches: _use_graphs (off: the eager loop on the card, the
+        # reference) and _batched (off: the per-rung loop in place of the
+        # rung-batched proposal).
+        self._program = None
+        self._use_graphs = self.device.type == "cuda"
+        self._batched = bool(getattr(self._moves[0], "rung_batched", False))
+        self._move_carries = None
+        self.last_run_stats = None
+
+        self.backend = PTBackend() if backend is None else backend
+        self._previous_state = None
+        if self.backend.initialized:
+            if self.backend.shape != (self.ntemps, self.nwalkers, self.ndim):
+                raise ValueError(
+                    "the shape of the backend is incompatible with the "
+                    f"sampler; expected "
+                    f"{(self.ntemps, self.nwalkers, self.ndim)}, got "
+                    f"{self.backend.shape}"
+                )
+            if self.backend.iteration > 0:
+                self._previous_state = self.backend.get_last_sample()
+                saved = getattr(self.backend, "betas", None)
+                if saved is not None:
+                    saved = np.asarray(saved, dtype=np.float64)
+                    if saved.shape == self.betas.shape and np.any(saved):
+                        self.betas = saved
+        else:
+            self.backend.reset(self.ntemps, self.nwalkers, self.ndim)
+        self._base_swaps_accepted = np.asarray(self.backend.swaps_accepted,
+                                               dtype=np.int64)
+        self._base_swaps_proposed = np.asarray(self.backend.swaps_proposed,
+                                               dtype=np.int64)
+
+    def _wrap_fns(self):
+        self._log_like = wrap_log_prob_fn(self._log_like_fn,
+                                          **self._like_settings)
+        self._log_prior = wrap_log_prob_fn(self._log_prior_fn,
+                                           **self._prior_settings)
+
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d.update(_program=None, _log_like=None, _log_prior=None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._wrap_fns()
+
+    def reset(self):
+        """Clear the backend and the resume anchor; the move carries
+        (per-rung tuned scales) are kept, as in the JAX package."""
+        self.backend.reset(self.ntemps, self.nwalkers, self.ndim)
+        self._previous_state = None
+        self._base_swaps_accepted = np.zeros(max(self.ntemps - 1, 1),
+                                             dtype=np.int64)
+        self._base_swaps_proposed = np.zeros(max(self.ntemps - 1, 1),
+                                             dtype=np.int64)
+
+    @property
+    def iteration(self):
+        return self.backend.iteration
+
+    @property
+    def accepted(self):
+        return self.backend.accepted
+
+    @property
+    def swaps_accepted(self):
+        return self.backend.swaps_accepted
+
+    @property
+    def swaps_proposed(self):
+        return self.backend.swaps_proposed
+
+    @property
+    def acceptance_fraction(self):
+        return self.accepted / float(max(self.iteration, 1))
+
+    @property
+    def tswap_acceptance_fraction(self):
+        return self.swaps_accepted / np.maximum(self.swaps_proposed, 1)
+
+    # ------------------------------------------------------------------
+    def _to_device(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(device=self.device, dtype=self.dtype)
+        return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                               dtype=self.dtype, device=self.device)
+
+    def _init_carries(self):
+        """One carry per rung: each tensor of the move's carry with a
+        leading ``ntemps`` axis."""
+        out = []
+        for m in self._moves:
+            c = m.init_carry(self.nwalkers, self.ndim, device=self.device)
+            if isinstance(c, dict):
+                c = {k: v.unsqueeze(0).repeat((self.ntemps,) + (1,) * v.dim())
+                     for k, v in c.items()}
+            out.append(c)
+        return tuple(out)
+
+    def _prepare_state(self, initial_state, skip_check=False, trusted=False):
+        """The checked initial state on the device, with its ``log_like``
+        and ``log_prior`` (evaluated when missing)."""
+        if isinstance(initial_state, PTState):
+            state = initial_state
+        else:
+            state = PTState(coords=initial_state, log_like=None,
+                            log_prior=None)
+        if state.blobs is not None:
+            raise NotImplementedError(
+                "user blobs of a tempered chain are not ported yet "
+                "(ROADMAP P11b)"
+            )
+        coords = self._to_device(state.coords)
+        shape = (self.ntemps, self.nwalkers, self.ndim)
+        if tuple(coords.shape) != shape:
+            raise ValueError(f"incompatible input dimensions "
+                             f"{tuple(coords.shape)}; expected {shape}")
+        if not skip_check and not trusted:
+            for t in range(self.ntemps):
+                if not walkers_independent(coords[t]):
+                    raise ValueError(
+                        f"Initial state for temperature {t} has a large "
+                        "condition number"
+                    )
+        rs = state.random_state
+        rs = self._rng if rs is None else (int(rs[0]), int(rs[1]))
+        if state.log_like is None or state.log_prior is None:
+            flat = coords.reshape(-1, self.ndim)
+            ll, blobs = self._log_like(flat)
+            if blobs is not None:
+                raise NotImplementedError(
+                    "user blobs of log_like_fn in a PTSampler are not "
+                    "ported yet (ROADMAP P11b)"
+                )
+            lpr, _ = self._log_prior(flat)
+            ll = ll.reshape(self.ntemps, self.nwalkers)
+            lpr = lpr.reshape(self.ntemps, self.nwalkers)
+            if bool(torch.isnan(ll).any()) or bool(torch.isnan(lpr).any()):
+                raise ValueError("The initial log-likelihood was NaN")
+        else:
+            ll = self._to_device(state.log_like)
+            lpr = self._to_device(state.log_prior)
+        return PTState(coords, ll, lpr, rs)
+
+    def _count_proposed_delta(self, lo, hi):
+        """Swap attempts per pair for the proposals at steps ``[lo, hi)``:
+        an attempt fires where ``step % swap_every == swap_every - 1``,
+        pairing by the step's parity (``emcee_tpu/parallel/tempering.py:
+        1111-1130``)."""
+        out = np.zeros(max(self.ntemps - 1, 1), dtype=np.int64)
+        se = self.swap_every
+        if se <= 0:
+            return out
+        first = lo + ((se - 1 - lo) % se)
+        sidxs = np.arange(first, hi, se, dtype=np.int64)
+        for parity in (0, 1):
+            cnt = int(np.count_nonzero((sidxs % 2) == parity))
+            if cnt:
+                out[parity: self.ntemps - 1: 2] += cnt * self.nwalkers
+        return out
+
+    def _max_chunk(self, store):
+        """Kept steps a chunk, its stored rows under ``io_chunk_bytes``."""
+        device_rows = getattr(self.backend, "wants_device_arrays", False)
+        cap = 16384 if not store or device_rows else 4096
+        if store:
+            item = 4 if device_rows else np.dtype(self.backend.dtype).itemsize
+            n_tw = self.ntemps * self.nwalkers
+            row = n_tw * (self.ndim * item + 2 * item + 1)
+            cap = min(cap, max(1, self._io_chunk_bytes // row))
+        return cap
+
+    # ------------------------------------------------------------------
+    def _start(self, state, carries):
+        """The tempered program of ``state``'s seed, loaded with the
+        state, the ladder and the carries."""
+        seed, offset = state.random_state
+        prog = self._program
+        if (prog is None or prog.seed != seed
+                or prog.batched != self._batched):
+            prog = self._program = TemperedProgram(
+                self._moves, self._log_like, self._log_prior,
+                rung_keys(seed, self.ntemps, self.device), state.coords,
+                carries, self.swap_every, self._batched)
+        betas = torch.as_tensor(self.betas, dtype=self.dtype,
+                                device=self.device)
+        prog.load(state.coords, state.log_like, state.log_prior, betas,
+                  offset, carries)
+        return prog, offset
+
+    def _chunk_rows(self, nkeep):
+        """Where a chunk's kept steps go: a device backend's own rows, or
+        device buffers in the host backend's dtype."""
+        T, nw, nd = self.ntemps, self.nwalkers, self.ndim
+        dev = self.device
+        accepted = torch.empty((nkeep, T, nw), dtype=torch.bool, device=dev)
+        if getattr(self.backend, "wants_device_arrays", False):
+            return (*self.backend.reserve(nkeep, dev, self.dtype), accepted)
+        dt = torch_dtype(np.dtype(self.backend.dtype))
+        return (torch.empty((nkeep, T, nw, nd), dtype=dt, device=dev),
+                torch.empty((nkeep, T, nw), dtype=dt, device=dev),
+                torch.empty((nkeep, T, nw), dtype=dt, device=dev), accepted)
+
+    def _enqueue(self, prog, offset, nkeep, thin_by, store, tune):
+        """Enqueue one chunk of ``nkeep * thin_by`` proposals and copy its
+        kept rows; nothing waits for the device."""
+        ws = prog.ws
+        out = self._chunk_rows(nkeep) if store else None
+        if store:
+            for k in range(nkeep):
+                prog.run(0, thin_by, tune, self._use_graphs)
+                for rows, src in zip(out, (ws.coords, ws.log_like,
+                                           ws.log_prior, ws.accepted)):
+                    rows[k].copy_(src)
+        else:
+            prog.run(0, nkeep * thin_by, tune, self._use_graphs)
+        n = nkeep * thin_by
+        state = PTState(ws.coords.clone(), ws.log_like.clone(),
+                        ws.log_prior.clone(), (prog.seed, offset + n))
+        return _Chunk(out, ws.swaps[: max(self.ntemps - 1, 1)].clone(),
+                      state, tuple(clone_carry(c) for c in ws.carries), n)
+
+    def _drive(self, initial_state, sizes, thin_by, store, tune,
+               skip_check, pregrow=None):
+        """Advance the chain chunk by chunk (the engine of
+        :meth:`run_mcmc` and :meth:`sample`); yields the state after each
+        chunk, once its rows and the resume anchors have committed."""
+        thin_by = int(thin_by)
+        if thin_by <= 0:
+            raise ValueError("Invalid thinning argument")
+        trusted = False
+        if initial_state is None:
+            if self._previous_state is None:
+                raise ValueError(
+                    "Cannot have `initial_state=None` on the first call")
+            initial_state = self._previous_state
+            trusted = True
+        state = self._prepare_state(initial_state, skip_check, trusted)
+        if store and pregrow is not None:
+            self.backend.grow(pregrow)
+        carries = self._move_carries or self._init_carries()
+        prog, offset = self._start(state, carries)
+        proposed = np.zeros(max(self.ntemps - 1, 1), dtype=np.int64)
+        try:
+            for n in sizes:
+                chunk = self._enqueue(prog, offset, int(n), thin_by, store,
+                                      tune)
+                proposed += self._count_proposed_delta(
+                    offset, offset + chunk.proposals)
+                offset += chunk.proposals
+                self._commit(chunk, proposed)
+                yield self._previous_state
+        finally:
+            if store and self.backend.initialized:
+                self._base_swaps_accepted = np.asarray(
+                    self.backend.swaps_accepted, dtype=np.int64)
+                self._base_swaps_proposed = np.asarray(
+                    self.backend.swaps_proposed, dtype=np.int64)
+
+    def _commit(self, chunk, proposed):
+        """Save a chunk and move the resume anchors to it, with SIGINT held
+        between the two."""
+        swaps = chunk.swaps.cpu().numpy().astype(np.int64)
+        with defer_interrupts():
+            if chunk.rows is not None:
+                rs = chunk.state.random_state
+                acc_sw = self._base_swaps_accepted + swaps
+                prop_sw = self._base_swaps_proposed + proposed
+                if getattr(self.backend, "wants_device_arrays", False):
+                    self.backend.commit(chunk.rows[3], acc_sw, prop_sw, rs,
+                                        self.betas)
+                else:
+                    self.backend.save_chunk(
+                        *(r.cpu().numpy() for r in chunk.rows), acc_sw,
+                        prop_sw, rs, self.betas)
+            self._previous_state = chunk.state
+            self._move_carries = chunk.carries
+            self._rng = chunk.state.random_state
+
+    @staticmethod
+    def _check_progress(progress):
+        if progress:
+            raise NotImplementedError(
+                "progress bars are not ported yet (ROADMAP P12)")
+
+    def run_mcmc(self, initial_state, nsteps, thin_by=1, store=True,
+                 tune=False, skip_initial_state_check=False, progress=False,
+                 progress_kwargs=None, thin=None):
+        """Run ``nsteps`` kept steps; returns the final :class:`PTState`.
+        ``initial_state=None`` continues the previous run; ``thin=`` is
+        the deprecated argument (counts proposals)."""
+        self._check_progress(progress)
+        if thin is not None:
+            nsteps, thin_by = shim_thin(nsteps, thin)
+        nsteps, thin_by = int(nsteps), int(thin_by)
+        if nsteps == 0:
+            return self._prepare_state(
+                initial_state if initial_state is not None
+                else self._previous_state, skip_initial_state_check)
+        sizes = chunk_schedule(nsteps, self._max_chunk(store))
+        t0 = time.perf_counter()
+        for _ in self._drive(initial_state, sizes, thin_by, store, tune,
+                             skip_initial_state_check, pregrow=nsteps):
+            pass
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_run_stats = RunStats(
+            nsteps=nsteps, nproposals=nsteps * thin_by,
+            nwalkers=self.ntemps * self.nwalkers,
+            walltime_s=time.perf_counter() - t0,
+            accepted=self._program.ws.count.clone())
+        return self._previous_state
+
+    def sample(self, initial_state, iterations=1, thin_by=1, store=True,
+               tune=False, skip_initial_state_check=False, progress=False,
+               progress_kwargs=None, thin=None):
+        """Generator yielding a :class:`PTState` every ``thin_by``
+        proposals; ``iterations=None`` streams forever with
+        ``store=False``."""
+        self._check_progress(progress)
+        if iterations is None and store:
+            raise ValueError(
+                "'store' must be False when 'iterations' is None")
+        if thin is not None:
+            iterations, thin_by = shim_thin(iterations, thin)
+        if iterations is None:
+            import itertools
+
+            sizes = itertools.repeat(1)
+        else:
+            sizes = [1] * int(iterations)
+        yield from self._drive(initial_state, sizes, thin_by, store, tune,
+                               skip_initial_state_check, pregrow=iterations)
+
+    # ------------------------------------------------------------------
+    def get_chain(self, discard=0, thin=1, flat=False, temp=None):
+        """Stored chain ``(it, T, nw, nd)`` (or one rung with ``temp``)."""
+        return self.backend.get_chain(discard=discard, thin=thin, flat=flat,
+                                      temp=temp)
+
+    def get_log_like(self, discard=0, thin=1):
+        return self.backend.get_log_like(discard=discard, thin=thin)
+
+    def get_log_prior(self, discard=0, thin=1):
+        return self.backend.get_log_prior(discard=discard, thin=thin)
+
+    def get_blobs(self, discard=0, thin=1, temp=None):
+        """User blobs (None: the likelihood's blobs are not ported yet,
+        ROADMAP P11b)."""
+        return self.backend.get_blobs(discard=discard, thin=thin, temp=temp)
+
+    def get_last_sample(self):
+        return self.backend.get_last_sample()
+
+    def get_autocorr_time(self, discard=0, thin=1, temp=0, **kwargs):
+        x = self.get_chain(discard=discard, thin=thin, temp=temp)
+        return thin * integrated_time(x, **kwargs)
+
+    def log_evidence_estimate(self, discard=0, method="ti",
+                              return_error=False):
+        """ln-evidence estimate from the stored tempered chains
+        (``emcee_tpu/parallel/tempering.py:1480-1553``): ``"ti"``,
+        trapezoid thermodynamic integration of the ladder of mean
+        log-likelihoods, or ``"stepping-stone"`` (Xie et al. 2011); with
+        ``return_error``, also ``|lnZ - lnZ(every other rung)|``.  Both
+        close the segment below the hottest rung with ``beta_min *
+        mean_ll[hottest]`` and weight the samples by ``self.betas``."""
+        ll = np.asarray(self.get_log_like(discard=discard))  # (it, T, nw)
+        order = np.argsort(self.betas)
+        b = self.betas[order]
+        ll = ll[:, order, :]
+        trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+        def estimate(b, ll):
+            mean_ll = ll.mean(axis=(0, 2))
+            tail = b[0] * mean_ll[0] if b[0] > 0 else 0.0
+            if method == "ti":
+                return trapezoid(mean_ll, b) + tail
+            if method == "stepping-stone":
+                samples = ll.transpose(1, 0, 2).reshape(ll.shape[1], -1)
+                lnz = tail
+                for k in range(len(b) - 1):
+                    w = (b[k + 1] - b[k]) * samples[k]
+                    wmax = np.max(w)
+                    lnz += wmax + np.log(np.mean(np.exp(w - wmax)))
+                return lnz
+            raise ValueError(f"unknown evidence method {method!r}; use "
+                             "'ti' or 'stepping-stone'")
+
+        lnz = estimate(b, ll)
+        if not return_error:
+            return lnz
+        keep = np.zeros(len(b), dtype=bool)
+        keep[len(b) - 1:: -2] = True
+        lnz2 = estimate(b[keep], ll[:, keep, :])
+        return lnz, abs(lnz - lnz2)

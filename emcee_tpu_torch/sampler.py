@@ -65,18 +65,22 @@ from .state import State, as_state, resolve_device, walkers_independent
 from .utils import (
     defer_interrupts, tree_flatten, tree_leaves, tree_map, tree_unflatten)
 
-__all__ = ["EnsembleSampler", "RunStats"]
+__all__ = ["EnsembleSampler", "PRNG_IMPLS", "RunStats", "check_prng"]
 
 #: constructor arguments of the JAX sampler that this slice does not
 #: port: name -> (default, ROADMAP item)
 _NOT_PORTED = {
     "pool": (None, "P12"),
-    "prng": (None, "P3: the port has one generator, Philox4x32-10"),
     "mesh": (None, "P13"),
     "param_axis": (None, "P13"),
     "host_callback": (False, "P12"),
     "host_callback_blobs": (None, "P12"),
 }
+
+#: the ``prng`` values the JAX sampler takes (the key implementations of
+#: ``jax.random.key``'s ``impl=``, ``None`` the default); the port keeps
+#: its one stream, Philox4x32-10, for each
+PRNG_IMPLS = (None, "threefry2x32", "rbg", "unsafe_rbg")
 
 #: ``_blob_signature`` before the log-prob was first evaluated
 _UNKNOWN = object()
@@ -152,6 +156,11 @@ class EnsembleSampler:
             ``ensemble.py:174-214``; not with ``vectorize=True``).
         seed: int seed of the sampler's Philox stream (used when an
             initial state carries no ``random_state``).
+        prng: the JAX sampler's key implementation for an int seed
+            (``None``, ``"threefry2x32"``, ``"rbg"`` or ``"unsafe_rbg"``);
+            taken for drop-in code, and the stream stays Philox4x32-10.
+            Any other value raises ``ValueError``, as ``jax.random.key``
+            does.
         walker_axis: the mesh axis of the walkers; meaningless until
             ``mesh=`` is ported (ROADMAP P13).
         io_chunk_bytes: bytes of one chunk's storage buffer, which sets
@@ -205,8 +214,10 @@ class EnsembleSampler:
         runtime_sortingfn=None,
         device=None,
     ):
+        check_prng(prng)
+        self.prng = prng
         given = dict(
-            pool=pool, prng=prng, mesh=mesh, param_axis=param_axis,
+            pool=pool, mesh=mesh, param_axis=param_axis,
             host_callback=host_callback,
             host_callback_blobs=host_callback_blobs,
         )
@@ -873,6 +884,17 @@ class EnsembleSampler:
             accepted=prog.ws.count.clone(),
         )
         return self._previous_state
+
+
+def check_prng(prng):
+    """Refuse a ``prng`` that ``jax.random.key(seed, impl=prng)`` refuses
+    (a value outside :data:`PRNG_IMPLS`)."""
+    if prng not in PRNG_IMPLS:
+        raise ValueError(
+            f"unknown PRNG implementation {prng!r}; the JAX sampler takes "
+            f"one of {PRNG_IMPLS[1:]} (the port draws from Philox4x32-10 "
+            "for each)"
+        )
 
 
 def _check_parameter_names(names, ndim, vectorize):

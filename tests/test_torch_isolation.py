@@ -34,7 +34,9 @@ def test_import_leaves_no_jax_or_emcee_tpu():
         "emcee_tpu_torch.checkpoint, emcee_tpu_torch.backends.hdf, "
         "emcee_tpu_torch.moves.side, emcee_tpu_torch.moves.blended, "
         "emcee_tpu_torch.moves.de_z, emcee_tpu_torch.moves.dime, "
-        "emcee_tpu_torch.moves.slice, emcee_tpu_torch.chunk_graph\n"
+        "emcee_tpu_torch.moves.slice, emcee_tpu_torch.chunk_graph, "
+        "emcee_tpu_torch.parallel.tempering, emcee_tpu_torch.backends.pt, "
+        "emcee_tpu_torch.ops.swap_kernel\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'emcee_tpu') or m.startswith(('jax.', 'jaxlib.', 'emcee_tpu.')))\n"
         "print(bad)\n"

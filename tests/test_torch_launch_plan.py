@@ -395,3 +395,39 @@ def test_k11_walk_visits_every_item_once(rows, nd):
                 k, r = k - npairs, r + 1
     assert sorted(seen) == [(r, k) for r in range(rows)
                             for k in range(npairs)]
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.integers(1, 64), st.integers(1, 2000), st.integers(1, 130),
+       st.integers(2, 4), st.booleans(), st.integers(0, 3),
+       st.integers(0, 3))
+@example(16, 128, 5, 2, False, 0, 0)  # workload 4's K1
+@example(16, 128, 5, 2, True, 0, 0)  # and K2
+def test_rung_axis_plan(rungs, ng, nd, nsplits, stage, c_off, q_off):
+    """The rung axis (``tile_plan(..., rungs=, nsplits=)``): every rung's
+    blocks count toward filling the card, and the float4 and bulk-copy
+    paths are taken only where every tile of every rung is 16-byte
+    aligned in coords (rungs of nsplits * ng rows) and in q (rungs of ng
+    rows); one rung is the single-ensemble plan."""
+    split = (ng + nd) % nsplits
+    coords_ptr = (1 << 20) + 4 * c_off
+    q_ptr = (3 << 20) + 4 * q_off
+    plan = tile_plan(ng, nd, split, H100_SMS, coords_ptr, q_ptr,
+                     stage=stage, rungs=rungs, nsplits=nsplits)
+    if rungs == 1:
+        assert plan == tile_plan(ng, nd, split, H100_SMS, coords_ptr, q_ptr,
+                                 stage=stage)
+    assert plan.grid == -(-ng // plan.tile)
+    if plan.tile > TILE_MIN:
+        assert rungs * plan.grid >= BLOCKS_PER_SM * H100_SMS
+    nw = nsplits * ng
+    for r in range(rungs):
+        t0 = np.arange(plan.grid, dtype=np.int64) * plan.tile
+        own = coords_ptr + 4 * ((r * nw + split * ng + t0) * nd)
+        q = q_ptr + 4 * ((r * ng + t0) * nd)
+        if plan.vec:
+            assert np.all(own % 16 == 0) and np.all(q % 16 == 0)
+        if plan.stage:
+            assert np.all(q % 16 == 0)
+    if plan.stage:
+        assert plan.smem == 4 * plan.tile * nd <= SMEM_LIMIT - STATIC_SMEM

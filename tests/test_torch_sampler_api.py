@@ -1,6 +1,7 @@
 """EnsembleSampler surface of the port: determinism, resume, guards,
 vectorize, tuning, the generator and the arguments not ported yet."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -194,9 +195,11 @@ def test_sample_generator_and_thin():
         next(s.sample(p0(), iterations=None))
 
 
-#: arguments of this list that are ported now (ROADMAP P7, P10): the
-#: sampler takes them, holding each in this attribute as this value
+#: arguments of this list that are ported now (ROADMAP P7, P10; ``prng``
+#: since F3's repair): the sampler takes them, holding each in this
+#: attribute as this value
 PORTED = {
+    "prng": ("prng", "rbg"),
     "mixture_block": ("_mixture_block", 4),
     "blobs_dtype": ("blobs_dtype", float),
     "parameter_names": ("parameter_names", {"a": 0, "b": 1, "c": 2}),
@@ -220,6 +223,29 @@ def test_not_ported_arguments_raise(name, value):
     with pytest.raises(NotImplementedError, match="ROADMAP P"):
         emcee_tpu_torch.EnsembleSampler(NW, ND, lp_batch, device="cpu",
                                         **{name: value})
+
+
+@pytest.mark.parametrize("prng", [None, "threefry2x32", "rbg", "unsafe_rbg",
+                                  "philox"])
+def test_prng_takes_what_jax_random_key_takes(prng):
+    """``prng`` takes the key implementations ``jax.random.key`` takes and
+    samples from the same Philox stream for each; another value raises
+    ``ValueError`` as ``jax.random.key`` does."""
+    if prng == "philox":
+        with pytest.raises(ValueError, match="PRNG implementation"):
+            emcee_tpu_torch.EnsembleSampler(NW, ND, lp_batch, device="cpu",
+                                            vectorize=True, prng=prng)
+        with pytest.raises(ValueError):
+            jax.random.key(0, impl=prng)
+        return
+    jax.random.key(0, impl=prng)
+    chains = []
+    for p in (prng, None):
+        s = emcee_tpu_torch.EnsembleSampler(NW, ND, lp_batch, device="cpu",
+                                            vectorize=True, seed=3, prng=p)
+        s.run_mcmc(np.random.default_rng(0).normal(size=(NW, ND)), 4)
+        chains.append(s.get_chain())
+    np.testing.assert_array_equal(*chains)
 
 
 def test_device_backend_run_matches_host_backend():
