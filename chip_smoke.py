@@ -135,8 +135,35 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    proposal; (f) the rows of K1 and K2 with the rung axis and of K15.
    ``python3 chip_smoke.py 14`` runs phases 0, 1 and 14 alone.
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14.  Every phase
-raises on failure.
+15. the rest of tempering (workload 4's configuration): (a) K2 with the
+   rung axis and user blob leaves (register path and phase C; 1-16 rungs,
+   6-1000 walkers, f32 / f64 scalars, int8 ``(3,)`` and f32 ``(5,)`` rows
+   and mixes of them, injected / host offset / device offset draws) and
+   K15 with a leaf table (rows of 1-20 bytes at unaligned bases, 2-16
+   rungs, both parities, ``swap_every`` 1 and 3, NaN and +-inf ``logL``,
+   -inf ``logP``) against their plain versions byte for byte; (b) 64
+   graph-replayed proposals of the mixture ``[(StretchMove(), 0.7),
+   (DEMove(), 0.3)]`` with the blobs ``(2 logL, x)`` and
+   ``adaptive=True``, ``mixture_block`` 1 and 4, against the plain
+   versions' eager chain; (c) the blobs at full size into both backends
+   (equal chains and blobs; every stored blob the function of its row),
+   rates with and without blobs in turns, K2's and K15's device time with
+   and without leaves in replays; (d) the mixture at full size (rate,
+   cold tau, swap acceptance, phase 14's checks) and each move's device
+   time and kernels a proposal alone; (e) the adaptive ladder from
+   ``max_temp=1e6`` against the frozen ladder, and the host's work a
+   chunk; (f) ``EnsembleSliceMove`` and ``ChEESHMCMove`` on every rung
+   (graph chain == eager chain; µs, flag reads and kernels a proposal);
+   (g) ``run_until_converged`` on the cold rung; (h) ``PTHDFBackend``
+   with ``io_dtype`` and ``parameter_names`` (without h5py it prints
+   ``pt-hdf: h5py not installed``); the rows of K2 with phase-C leaves on
+   the rung axis and of K15 with leaves.  ``python3 chip_smoke.py 15``
+   runs phases 0, 1 and 15 alone.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15.  Every
+phase raises on failure.  ``python3 chip_smoke.py sass-diff TREE``
+builds TREE's and this checkout's K1, K2 and K15 and compares their
+SASS function by function.
 
 Two modes compare this checkout with another tree inside it (TREE, e.g.
 the parent commit unpacked by ``git archive`` into the git-ignored
@@ -4098,17 +4125,16 @@ def k2_rung_check(torch, dev, gen, coords, proposal, split, nsplits, kw, T):
                       f"K2 one rung nw={nw}")
             n += 1
     if T > 1:
-        # Rung launches are built for 4-byte scalar leaves only.
-        wide = (new[0].double(), bufs[0].double())
-        try:
-            ak.accept_select(q, f, lp_q, coords.clone(), lp.clone(), split,
-                             nsplits, torch.zeros(T, nw, dtype=torch.bool,
-                                                  device=dev),
-                             seed=seed, blobs=[wide])
-        except ValueError:
-            pass
-        else:
-            raise AssertionError("K2 took a rung launch with 8-byte leaves")
+        # An 8-byte scalar leaf takes phase C on the rung axis.
+        outs = []
+        for fn in (ak.accept_select, ak.accept_select_plain):
+            c, l, b = coords.clone(), lp.clone(), bufs[0].double()
+            acc = torch.zeros(T, nw, dtype=torch.bool, device=dev)
+            fn(q, f, lp_q, c, l, split, nsplits, acc, seed=seed,
+               blobs=[(new[0].double(), b)], **variants[-1])
+            outs.append((c, l, acc, b))
+        same_bits(*outs, f"K2 rungs T={T} nw={nw} an 8-byte leaf")
+        n += 1
     return n
 
 
@@ -4458,7 +4484,7 @@ def phase14_rows(torch, dev, out, card):
                           "unsigned int>, true>", 256),
         "pt_swap": ("emcee_tpu_torch/csrc/pt_swap.cu",
                     "emcee_tpu/parallel/tempering.py:543",
-                    "pt_swap_kernel", swk.SWAP_THREADS),
+                    "pt_swap_kernel<NoLeaves>", swk.SWAP_THREADS),
     }
     n_sm = device_sm_count(dev)
     plan = tile_plan(ng, nd, 0, n_sm, coords.data_ptr(), q.data_ptr(),
@@ -4507,6 +4533,779 @@ def phase14_rows(torch, dev, out, card):
             f"us ({nbytes} bytes, {by}); {regs} (registers, static shared, "
             f"spilled), {blocks[kname]} blocks, {measured(waves, '.3f')} "
             f"waves {card}")
+    return rows
+
+
+# -- 15. the rest of tempering -----------------------------------------------
+#: user blob leaves of phase 15's K2 sweep: name -> (dtype, row shape)
+PT_LEAVES = {"f32": ("float32", ()), "f64": ("float64", ()),
+             "i8x3": ("int8", (3,)), "f32x5": ("float32", (5,))}
+#: the user leaf sets swept beside logL and logP (the first two keep the
+#: register path, the rest take phase C)
+PT_LEAF_SETS = (("f32",), ("f32", "f32"), ("f64",), ("i8x3",), ("f32x5",),
+                ("f32", "f32x5"), ("f64", "i8x3", "f32x5"),
+                ("f32", "f64", "i8x3", "f32x5"))
+#: K15's user leaves: (dtype, row shape, bytes the base lies past a
+#: 16-byte boundary); rows of 1, 3, 12 and 20 bytes at unaligned bases
+SWAP_LEAF_SPECS = (("uint8", (1,), 1), ("uint8", (3,), 3),
+                   ("int16", (6,), 2), ("float32", (5,), 4),
+                   ("float64", (), 8), ("int8", (3,), 0),
+                   ("float32", (), 0))
+#: the mixture of phase 15 (the JAX package's test_pt_mixture_block)
+PT_MIX_WEIGHTS = (0.7, 0.3)
+
+
+def pt_blob_like(x):
+    """Workload 4's likelihood with the blobs of the JAX package's blob
+    tests (``tests/unit/test_pt_parity.py:218-220``): ``(logL, 2 logL,
+    x)``."""
+    ll = pt_log_like(x)
+    return ll, 2.0 * ll, x
+
+
+def pt_named_like(p):
+    """Workload 4's likelihood on named parameters ``a`` (coordinate 0)
+    and ``b`` (the rest)."""
+    import torch
+
+    x = torch.cat([p["a"].reshape(1), p["b"]])
+    return pt_log_like(x)
+
+
+def pt_named_prior(p):
+    import torch
+
+    x = torch.cat([p["a"].reshape(1), p["b"]])
+    return pt_log_prior(x)
+
+
+def pt_mix(moves):
+    return [(moves.StretchMove(), PT_MIX_WEIGHTS[0]),
+            (moves.DEMove(), PT_MIX_WEIGHTS[1])]
+
+
+def raw_leaf(torch, shape, dtype, gen, dev, misalign=0):
+    """A tensor of random bytes of ``shape`` and ``dtype`` whose base lies
+    ``misalign`` bytes past a 16-byte boundary."""
+    dt = getattr(torch, dtype)
+    item = torch.empty(0, dtype=dt).element_size()
+    n = math.prod(shape) * item
+    store = torch.randint(0, 256, (n + 16 + misalign,), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    skip = (-store.data_ptr() + misalign) % 16
+    return store[skip: skip + n].view(dt).view(shape)
+
+
+def same_bytes(got, want, what):
+    """Raise unless every tensor of ``got`` equals its ``want`` byte for
+    byte."""
+    import torch
+
+    def raw(t):
+        return t.contiguous().view(-1).view(torch.uint8)
+
+    if not all(raw(a).equal(raw(b)) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+
+
+def k2_rung_leaf_sweep(torch, dev):
+    """(a) K2 with the rung axis and user blob leaves against its plain
+    version, byte for byte: rungs ``PT_SWEEP_T``, walkers ``PT_SWEEP_NW``
+    (nsplits 2 and 3), the leaf sets ``PT_LEAF_SETS`` beside the ``logL``
+    and ``logP`` leaves (register path and phase C, and an 8-byte scalar
+    alone, which takes phase C on the axis), NaN and +-inf in ``lp_q``,
+    injected ``log_u`` and the in-kernel stream at a host offset and (16
+    rungs) at the device offset word.  Returns ``(comparisons, {path:
+    launches})``."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(151)
+    word = torch.tensor(41, dtype=torch.int64, device=dev)
+    n, paths = 0, {"rows": 0, "phase C": 0}
+    nd = ND4
+    for T in PT_SWEEP_T:
+        for nsplits, nws in PT_SWEEP_NW.items():
+            for nw in nws:
+                ng = nw // nsplits
+                split = (nw + T) % nsplits
+                keys = rung_keys(2000 + 7 * T + nw, T, dev)
+                coords = torch.randn(T, nw, nd, device=dev, generator=gen)
+                q = torch.randn(T, ng, nd, device=dev, generator=gen)
+                f = 0.3 * torch.randn(T, ng, device=dev, generator=gen)
+                lp = -0.5 * (coords ** 2).sum(-1)
+                lp_q = -0.5 * (q ** 2).sum(-1)
+                lp_q.view(-1)[::7] = float("nan")
+                lp_q.view(-1)[3::11] = float("inf")
+                lp_q.view(-1)[5::13] = -float("inf")
+                sets = PT_LEAF_SETS + ((),)
+                for s_i, names in enumerate(sets):
+                    tempered = names != ()
+                    specs = ([("float32", ())] * 2 if tempered else
+                             [("float64", ())])
+                    specs += [PT_LEAVES[k] for k in names]
+                    news = [raw_leaf(torch, (T, ng) + row, dt, gen, dev)
+                            for dt, row in specs]
+                    bufs = [raw_leaf(torch, (T, nw) + row, dt, gen, dev)
+                            for dt, row in specs]
+                    draws = [dict(log_u=torch.log(torch.rand(
+                                 T, ng, device=dev, generator=gen))),
+                             dict(offset=77 + s_i)]
+                    if T == 16:
+                        draws.append(dict(offset=DeviceOffset(word, s_i)))
+                    plan = ak.leaf_plan(ak.blob_leaves(
+                        list(zip(news, bufs)), ng, nw, coords.device, (T,)),
+                        rungs=True)[1]
+                    for kw in draws:
+                        outs = []
+                        for fn in (ak.accept_select, ak.accept_select_plain):
+                            c, l = coords.clone(), lp.clone()
+                            acc = torch.zeros(T, nw, dtype=torch.bool,
+                                              device=dev)
+                            cnt = torch.ones(T, nw, dtype=torch.int32,
+                                             device=dev)
+                            b = [x.clone() for x in bufs]
+                            fn(q, f, lp_q, c, l, split, nsplits, acc, cnt,
+                               seed=keys, blobs=list(zip(news, b)), **kw)
+                            outs.append((c, l, acc, cnt, *b))
+                        same_bytes(*outs, f"K2 rungs T={T} nw={nw} leaves "
+                                   f"{names or 'f64 alone'} {sorted(kw)}")
+                        n += 1
+                        paths["rows" if plan else "phase C"] += 1
+    return n, paths
+
+
+def swap_leaf_sweep(torch, np, dev):
+    """(a) K15 with user blob leaves against its plain version, byte for
+    byte: rungs ``SWAP_SWEEP_T``, 256 and 1000 walkers, the leaves of
+    ``SWAP_LEAF_SPECS`` (rows of 1-20 bytes at unaligned bases) and the
+    blob tests' two (``2 logL``, ``x``), steps 0-5 (both parities, and at
+    ``swap_every=3`` the steps that do not swap), injected ``u``, the
+    in-kernel stream at a host offset and at the device offset word, NaN
+    and +-inf ``logL`` and -inf ``logP``.  Returns the comparisons."""
+    from emcee_tpu_torch.ops import swap_kernel as swk
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+    from emcee_tpu_torch.parallel import default_beta_ladder
+
+    gen = torch.Generator(device=dev).manual_seed(152)
+    n = 0
+    for T in SWAP_SWEEP_T:
+        for nw in (256, 1000):
+            coords = torch.randn(T, nw, ND4, device=dev, generator=gen)
+            ll = 4.0 * torch.randn(T, nw, device=dev, generator=gen)
+            ll[:, ::7] = float("nan")
+            ll[:, 1::11] = float("inf")
+            ll[:, 2::13] = -float("inf")
+            lpr = torch.zeros(T, nw, device=dev)
+            lpr[:, 3::5] = -float("inf")
+            betas = torch.tensor(default_beta_ladder(T, ND4),
+                                 dtype=torch.float32, device=dev)
+            lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
+            sets = ([raw_leaf(torch, (T, nw) + row, dt, gen, dev, mis)
+                     for dt, row, mis in SWAP_LEAF_SPECS],
+                    [2.0 * ll, coords.clone()])
+            for leaves in sets:
+                for swap_every in (1, 3):
+                    for step in range(6):
+                        pairs = swk.swap_pairs(step, T, swap_every)
+                        word = torch.tensor(step - 2, dtype=torch.int64,
+                                            device=dev)
+                        for mode, kw in (
+                                ("injected", dict(offset=step, u=torch.rand(
+                                    len(pairs), nw, device=dev,
+                                    generator=gen))),
+                                ("host", dict(offset=step)),
+                                ("device", dict(offset=DeviceOffset(word,
+                                                                    2)))):
+                            outs = []
+                            for fn in (swk.pt_swap, swk.pt_swap_plain):
+                                bufs = [x.clone() for x in (coords, ll, lpr,
+                                                            lp)]
+                                lv = [x.clone() for x in leaves]
+                                cnt = torch.zeros(T - 1, dtype=torch.int64,
+                                                  device=dev)
+                                fn(*bufs, betas, cnt, seed=99 + T,
+                                   swap_every=swap_every, leaves=lv, **kw)
+                                outs.append((*bufs, cnt, *lv))
+                            same_bytes(*outs, f"K15 leaves T={T} nw={nw} "
+                                       f"step={step} swap_every={swap_every}"
+                                       f" {mode} {len(leaves)} leaves")
+                            n += 1
+    return n
+
+
+def pt15_sampler(dev, seed=4, backend=None, move=None, like=None, **kw):
+    """Workload 4's configuration with ``move`` (default: the phase's
+    mixture) and ``like`` (default: the blob likelihood)."""
+    from emcee_tpu_torch import PTSampler, moves
+
+    return PTSampler(NT4, NW4, ND4, like or pt_blob_like, pt_log_prior,
+                     seed=seed, backend=backend,
+                     moves=pt_mix(moves) if move is None else move,
+                     device=dev, **kw)
+
+
+def pt15_end(smp):
+    """What a tempered run with blobs leaves: :func:`pt_chain_end`, the
+    stored blobs, the ladder and the offset."""
+    import numpy as np
+
+    blobs = smp.get_blobs()
+    return pt_chain_end(smp) + (
+        np.asarray(blobs[0]), np.asarray(blobs[1]), smp.betas.copy(),
+        np.asarray(smp._previous_state.blobs[1].cpu()))
+
+
+def pt15_graph_vs_eager(torch, np, dev, p0):
+    """(b) 64 graph-replayed proposals of the mixture with blobs and the
+    adaptive ladder (``mixture_block`` 1 and 4; chunks of 4 kept steps,
+    so the ladder adapts 14 times) against the same 64 run eagerly on the
+    plain versions: 8 kept x 2 stored, 32 unstored, 16 kept stored."""
+    step_bytes = NT4 * NW4 * (ND4 * 4 + 3 * 4 + 4 + ND4 * 4)
+    out = {}
+    for blk in (1, 4):
+        ends = []
+        for plain in (False, True):
+            smp = pt15_sampler(dev, seed=45 + blk, adaptive=True,
+                               mixture_block=blk,
+                               io_chunk_bytes=4 * step_bytes)
+            smp._use_graphs = not plain
+            with plain_kernels() if plain else contextlib.nullcontext():
+                smp.run_mcmc(p0, 8, thin_by=2, skip_initial_state_check=True)
+                smp.run_mcmc(None, 32, store=False)
+                smp.run_mcmc(None, 16)
+            ends.append(pt15_end(smp))
+        same_ends(np, *ends, f"mixture_block={blk}: graph and eager chains")
+        out[blk] = dict(swaps=ends[0][4].tolist(),
+                        proposed=ends[0][5].tolist(),
+                        betas=ends[0][-2].tolist())
+    return out
+
+
+def pt15_blobs(torch, np, dev, card, p0, kept=512, thin=4):
+    """(c) Workload 4 with the blobs ``(2 logL, x)`` at full size: both
+    backends from one start, the stored blobs against the stored rows,
+    the stored rates with and without blobs in turns, and K2's and K15's
+    device time a launch inside replays with and without leaves."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.backends import PTBackend, PTDeviceBackend
+
+    ends = []
+    for backend in (PTDeviceBackend(), PTBackend()):
+        smp = pt15_sampler(dev, seed=44, backend=backend,
+                           move=moves.StretchMove())
+        smp.run_mcmc(p0, kept, thin_by=thin, skip_initial_state_check=True)
+        b = smp.get_blobs()
+        ends.append((smp.get_chain().astype(np.float64),
+                     smp.get_log_like().astype(np.float64),
+                     smp.get_log_prior().astype(np.float64),
+                     np.asarray(b[0], dtype=np.float64),
+                     np.asarray(b[1], dtype=np.float64),
+                     smp.backend.accepted, smp.swaps_accepted,
+                     np_of(smp.backend.random_state)))
+    same_ends(np, *ends, "PTDeviceBackend and PTBackend chains and blobs")
+    chain, ll, _, b1, b2 = ends[1][:5]
+    if not (np.array_equal(b1, 2.0 * ll) and np.array_equal(b2, chain)):
+        raise AssertionError("phase 15: a stored blob differs from the "
+                             "function at its stored row")
+    samplers = {
+        True: pt15_sampler(dev, seed=44, backend=PTDeviceBackend(),
+                           move=moves.StretchMove()),
+        False: pt_sampler(dev, seed=44, backend=PTDeviceBackend())}
+    states = {}
+    for blobs, smp in samplers.items():
+        states[blobs], _ = drive(smp, p0, kept, thin_by=thin,
+                                 skip_initial_state_check=True)
+        warm_graphs(smp, top=thin)
+    rates = {True: [], False: []}
+    for blobs in (True, False, False, True):
+        smp = samplers[blobs]
+        smp.reset()
+        states[blobs], dt = drive(smp, states[blobs], kept, thin_by=thin,
+                                  skip_initial_state_check=True)
+        rates[blobs].append(NT4 * NW4 * kept * thin / dt)
+    names = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1}
+    wins = {}
+    for blobs, smp in samplers.items():
+        wins[blobs] = busy_window(
+            torch, lambda: smp.run_mcmc(None, 256, store=False), 256,
+            f"workload 4 {'with' if blobs else 'without'} blobs",
+            names=names)
+    counted, profiled = counted_replays(
+        torch, dev, samplers[True], 16,
+        lambda r: {"stretch_propose": 2 * 16 * thin,
+                   "accept_select": 2 * 16 * thin, "pt_swap": 16 * thin},
+        "workload 4 with blobs", thin_by=thin, store=False)
+    return dict(rates_blobs=rates[True], rates_none=rates[False],
+                win_blobs=wins[True], win_none=wins[False],
+                replayed_launches=counted, profiled_replayed=profiled,
+                proposals_counted=16 * thin,
+                acc=float(samplers[True].acceptance_fraction.mean()))
+
+
+def pt15_mixture(torch, np, dev, card, p0, kept=512, thin=4, n_win=8):
+    """(d) The mixture at full size into ``PTDeviceBackend``: its rate
+    (the best of two timed runs), the cold rung's tau and the swap
+    acceptance with phase 14's checks; then the device time and kernels
+    a proposal of each move alone (the rung-batched stretch move, the
+    per-rung DE loop) in profiled windows of ``n_win`` proposals."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.backends import PTDeviceBackend
+
+    smp = pt15_sampler(dev, backend=PTDeviceBackend(), like=pt_log_like)
+    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
+    warm_graphs(smp, top=thin)
+    dt = float("inf")
+    for _ in range(2):
+        smp.reset()
+        st, dt_run = drive(smp, st, kept, thin_by=thin,
+                           skip_initial_state_check=True)
+        dt = min(dt, dt_run)
+    n_prop = kept * thin
+    cold = smp.get_chain(temp=0)
+    tau = tau_of(np, cold, thin)
+    swap_mean = float(np.mean(smp.tswap_acceptance_fraction))
+    mode_frac = float(np.mean(cold[..., 0] > 0))
+    checks = {
+        "swap acceptance mean in (0.4, 0.9)": 0.4 < swap_mean < 0.9,
+        "cold mode fraction in (0.25, 0.75)": 0.25 < mode_frac < 0.75,
+        "tau finite": bool(np.isfinite(tau)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 15: mixture checks {checks}")
+    per_move = {}
+    for name, mv, k in (("stretch", moves.StretchMove(), "stretch_propose"),
+                        ("de", moves.DEMove(), "de_propose")):
+        one = pt15_sampler(dev, seed=46, move=mv, like=pt_log_like)
+        one.run_mcmc(p0, n_win, store=False, skip_initial_state_check=True)
+        warm_graphs(one)
+        win = busy_window(
+            torch, lambda: one.run_mcmc(None, n_win, store=False), n_win,
+            f"mixture's {name} move alone")
+        per_move[name] = dict(
+            device_us=win["device_us_per_proposal"],
+            kernels=win["kernels_per_proposal"], idle=win["idle"],
+            launches={kk: v / n_win for kk, v in win["launches"].items()
+                      if v})
+    return dict(walker_steps_per_s=NT4 * NW4 * n_prop / dt, seconds=dt,
+                tau_cold=tau, ess_per_s_cold=NW4 * (n_prop / dt) / tau,
+                swap_acceptance_mean=swap_mean, cold_mode_fraction=mode_frac,
+                per_move=per_move)
+
+
+def pt15_adaptive(torch, np, dev, card, p0, reps=20):
+    """(e) The adaptive ladder from the bad ladder of the JAX package's
+    ``test_adaptive_ladder_equalizes_swap_rates`` (``max_temp=1e6``, lag
+    1000, time 20) at workload 4's size, the test's schedule (13 unstored
+    runs of 100, then 300 stored), against the frozen ladder in the same
+    call; then the host's work a chunk (the swap counts' read,
+    ``_adapt_ladder`` and the tempered log-prob formed again), the median
+    of ``reps``."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.parallel import default_beta_ladder
+
+    bad = default_beta_ladder(NT4, ND4, max_temp=1e6)
+    runs = {}
+    for adaptive in (True, False):
+        smp = pt15_sampler(dev, seed=3, like=pt_log_like, betas=bad.copy(),
+                           move=moves.StretchMove(),
+                           adaptive=adaptive, adaptation_lag=1000,
+                           adaptation_time=20)
+        t0 = time.perf_counter()
+        smp.run_mcmc(p0, 100, store=False, skip_initial_state_check=True)
+        for _ in range(12):
+            smp.run_mcmc(None, 100, store=False)
+        smp.run_mcmc(None, 300)
+        runs[adaptive] = (smp, np.asarray(smp.tswap_acceptance_fraction,
+                                          dtype=float),
+                          time.perf_counter() - t0)
+    smp, rates_a, sec_a = runs[True]
+    _, rates_f, sec_f = runs[False]
+    checks = {"the ladder moved": not np.allclose(smp.betas, bad),
+              "beta_0 is 1": smp.betas[0] == 1.0,
+              "spread of swap rates below the frozen ladder's":
+                  rates_a.std() < rates_f.std()}
+    if not all(checks.values()):
+        raise AssertionError(f"phase 15: adaptive ladder checks {checks}")
+    prog = smp._program
+    prev = np.zeros(NT4 - 1, dtype=np.int64)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swaps = prog.ws.swaps.cpu().numpy().astype(np.int64)
+        betas, _ = smp._adapt_ladder(swaps, prev, 100, 1400)
+        prog.set_betas(smp._betas_tensor(betas))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prog.set_betas(smp._betas_tensor(smp.betas))
+    return dict(rates_adaptive=rates_a.tolist(), rates_frozen=rates_f.tolist(),
+                std_adaptive=float(rates_a.std()),
+                std_frozen=float(rates_f.std()), betas=smp.betas.tolist(),
+                seconds_adaptive=sec_a, seconds_frozen=sec_f,
+                host_us_per_chunk=float(np.median(times)) * 1e6)
+
+
+def pt15_looped(torch, np, dev, card, p0, n=32, n_timed=8):
+    """(f) ``EnsembleSliceMove()`` and ``ChEESHMCMove(0.5)`` on every rung
+    at workload 4's size, ``n`` proposals each: the graph chain (each
+    rung's loops by its own replays) against the plain versions' eager
+    chain, bit for bit; then µs and flag reads a proposal over
+    ``n_timed`` more, and kernels a proposal in a profiled window of 4."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    out = {}
+    for name, make in (("slice", moves.EnsembleSliceMove),
+                       ("chees", lambda: moves.ChEESHMCMove(0.5))):
+        ends = []
+        for plain in (False, True):
+            smp = pt15_sampler(dev, seed=47, move=make())
+            smp._use_graphs = not plain
+            with plain_kernels() if plain else contextlib.nullcontext():
+                smp.run_mcmc(p0, n // 2, tune=True,
+                             skip_initial_state_check=True)
+                smp.run_mcmc(None, n // 2)
+            ends.append(pt15_end(smp))
+            if not plain:
+                graph_smp = smp
+        same_ends(np, *ends, f"{name} on every rung: graph and eager chains")
+        reads = ChunkProgram.flag_reads
+        t0 = time.perf_counter()
+        graph_smp.run_mcmc(None, n_timed, store=False)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / n_timed * 1e6
+        flag_reads = (ChunkProgram.flag_reads - reads) / n_timed
+        win = busy_window(torch,
+                          lambda: graph_smp.run_mcmc(None, 4, store=False),
+                          4, f"{name} on every rung")
+        out[name] = dict(us_per_proposal=us, flag_reads=flag_reads,
+                         flag_reads_per_rung=flag_reads / NT4,
+                         device_us=win["device_us_per_proposal"],
+                         kernels=win["kernels_per_proposal"],
+                         idle=win["idle"],
+                         acc=float(graph_smp.acceptance_fraction.mean()))
+    return out
+
+
+def pt15_monitor(torch, np, dev, card, p0):
+    """(g) ``run_until_converged`` on workload 4's tempered sampler into
+    ``PTDeviceBackend``, judged on the cold rung; its seconds a check."""
+    from emcee_tpu_torch import ConvergenceMonitor, run_until_converged
+    from emcee_tpu_torch.backends import PTDeviceBackend
+    from emcee_tpu_torch.monitor import stored_chain
+
+    smp = pt_sampler(dev, seed=48, backend=PTDeviceBackend())
+    mon = ConvergenceMonitor(tau_factor=50, dtau_rel=0.05)
+    t0 = time.perf_counter()
+    _, mon = run_until_converged(smp, p0, max_steps=8000, check_every=1000,
+                                 monitor=mon, skip_initial_state_check=True)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ConvergenceMonitor().update(stored_chain(smp))
+    check = time.perf_counter() - t1
+    if mon.tau is None or mon.tau.shape != (ND4,) or not np.all(
+            np.isfinite(mon.tau)):
+        raise AssertionError(f"phase 15: the monitor's tau {mon.tau}")
+    return dict(iterations=smp.iteration, tau=mon.tau.tolist(),
+                converged=smp.iteration < 8000, seconds=total,
+                seconds_a_check=check, checks=len(mon.history))
+
+
+def pt15_hdf(torch, np, dev, card, p0, kept=64):
+    """(h) ``PTHDFBackend`` with ``io_dtype=float32`` and
+    ``parameter_names`` against ``PTBackend`` of the plain likelihood
+    from one start, a fresh sampler resuming the file, and the blobs'
+    record dataset; without h5py, a log line."""
+    import tempfile
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("phase 15: (h) pt-hdf: h5py not installed")
+        return None
+    from emcee_tpu_torch import PTSampler
+    from emcee_tpu_torch.backends import PTBackend, PTHDFBackend
+
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as d:
+        path = f"{d}/pt.h5"
+        names = {"a": 0, "b": list(range(1, ND4))}
+        a = PTSampler(NT4, NW4, ND4, pt_named_like, pt_named_prior, seed=49,
+                      backend=PTHDFBackend(path), io_dtype=np.float32,
+                      parameter_names=names, device=dev)
+        a.run_mcmc(p0, kept, skip_initial_state_check=True)
+        b = pt_sampler(dev, seed=49, backend=PTBackend())
+        b.run_mcmc(p0, kept, skip_initial_state_check=True)
+        same_ends(np, (a.get_chain(), a.get_log_like(), a.swaps_accepted),
+                  (b.get_chain(), b.get_log_like(), b.swaps_accepted),
+                  "PTHDFBackend (named, io float32) and PTBackend chains")
+        c = PTSampler(NT4, NW4, ND4, pt_blob_like, pt_log_prior, seed=50,
+                      backend=PTHDFBackend(path, name="blobs"), device=dev)
+        c.run_mcmc(p0, kept // 2, skip_initial_state_check=True)
+        again = PTSampler(NT4, NW4, ND4, pt_blob_like, pt_log_prior,
+                          seed=50, backend=PTHDFBackend(path, name="blobs"),
+                          device=dev)
+        again.run_mcmc(None, kept // 2)
+        rec = again.backend.get_blobs(structured=True)
+        blob1 = again.get_blobs()[0]
+        if (rec.shape != (kept, NT4, NW4)
+                or set(rec.dtype.names) != {"blob0", "blob1"}
+                or not np.array_equal(blob1, 2.0 * again.get_log_like())):
+            raise AssertionError("phase 15: PTHDFBackend blobs")
+        return dict(iterations=again.iteration, fields=list(rec.dtype.names))
+
+
+def phase15(torch, np, dev, card):
+    """The rest of tempering (see the module docstring, 15): the sweeps
+    of K2's rung axis with leaves and of K15 with leaves, the graph
+    chains against the eager ones, blobs, the mixture, the adaptive
+    ladder, the looped moves on every rung, the monitor and
+    ``PTHDFBackend``; each path's kernel launches counted from 0 just
+    before it.  Returns its numbers and the rows of K2 with the rung
+    axis and phase-C leaves and of K15 with leaves."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep_k2"], out["k2_paths"] = k2_rung_leaf_sweep(torch, dev)
+    out["sweep_k15"] = swap_leaf_sweep(torch, np, dev)
+    log(f"phase 15: (a) K2 with the rung axis and user leaves (rungs "
+        f"{PT_SWEEP_T}, walkers {PT_SWEEP_NW} by nsplits, leaf sets "
+        f"{PT_LEAF_SETS} beside logL and logP and an 8-byte scalar alone, "
+        f"injected / host offset / device offset draws): {out['sweep_k2']} "
+        f"comparisons ({out['k2_paths']} by leaf path); K15 with leaves "
+        f"(rungs {SWAP_SWEEP_T}, 256 and 1000 walkers, rows of 1-20 bytes at "
+        f"unaligned bases, steps 0-5, swap_every 1 and 3, NaN and +-inf "
+        f"logL, -inf logP): {out['sweep_k15']} comparisons; all byte for "
+        f"byte ({time.perf_counter() - t0:.1f} s)")
+    p0 = pt_p0(np)
+    t0 = time.perf_counter()
+    with path_launches(out, "graph vs eager", (
+            "stretch_propose", "accept_select", "de_propose", "pt_swap"),
+            "phase 15"):
+        out["graph_vs_eager"] = pt15_graph_vs_eager(torch, np, dev, p0)
+    log(f"phase 15: (b) 64 graph-replayed proposals of the mixture "
+        f"(stretch {PT_MIX_WEIGHTS[0]}, DE {PT_MIX_WEIGHTS[1]}) with the "
+        f"blobs (2 logL, x) and adaptive=True, mixture_block 1 and 4, equal "
+        f"the same 64 eagerly on the plain versions bit for bit (coords, "
+        f"logL, logP, blobs, acceptance, swap counts, ladder, offset): "
+        f"{out['graph_vs_eager']} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    with path_launches(out, "blobs", ("stretch_propose", "accept_select",
+                                      "pt_swap"), "phase 15"):
+        bl = out["blobs"] = pt15_blobs(torch, np, dev, card, p0)
+    wb, wn = bl["win_blobs"], bl["win_none"]
+    log(f"phase 15: (c) workload 4 with blobs (2 logL, x), 512 kept x 4: "
+        f"PTDeviceBackend == PTBackend, chains and blobs; every stored blob "
+        f"equals 2 logL and the coords of its row; stored rates in turns "
+        f"(blobs, none, none, blobs): with blobs "
+        f"{', '.join(f'{r:.4e}' for r in bl['rates_blobs'])}, without "
+        f"{', '.join(f'{r:.4e}' for r in bl['rates_none'])} walker-steps/s; "
+        f"device {measured(wb['device_us_per_proposal'])} / "
+        f"{measured(wn['device_us_per_proposal'])} us and "
+        f"{measured(wb['kernels_per_proposal'], '.0f')} / "
+        f"{measured(wn['kernels_per_proposal'], '.0f')} kernels a proposal "
+        f"(with / without); K2 "
+        f"{wb['ms_per_launch']['accept_select'] * 1e3:.2f} / "
+        f"{wn['ms_per_launch']['accept_select'] * 1e3:.2f} us, K15 "
+        f"{wb['ms_per_launch']['pt_swap'] * 1e3:.2f} / "
+        f"{wn['ms_per_launch']['pt_swap'] * 1e3:.2f} us a launch in replays; "
+        + replay_counts(bl["replayed_launches"], bl["profiled_replayed"],
+                        bl["proposals_counted"])
+        + f" {card} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    with path_launches(out, "mixture", ("stretch_propose", "accept_select",
+                                        "de_propose", "pt_swap"),
+                       "phase 15"):
+        mx = out["mixture"] = pt15_mixture(torch, np, dev, card, p0)
+    pm = mx["per_move"]
+    log(f"phase 15: (d) the mixture at workload 4's size, PTDeviceBackend, "
+        f"512 kept x 4: {mx['walker_steps_per_s']:.4e} walker-steps/s over "
+        f"all rungs (best of two), cold tau {mx['tau_cold']:.2f} proposals, "
+        f"cold ESS/s {mx['ess_per_s_cold']:.4e}, swap acceptance mean "
+        f"{mx['swap_acceptance_mean']:.3f}, cold mode fraction "
+        f"{mx['cold_mode_fraction']:.3f}; alone, a proposal: the batched "
+        f"stretch move {measured(pm['stretch']['device_us'])} us of device "
+        f"time and {measured(pm['stretch']['kernels'], '.0f')} kernels "
+        f"({pm['stretch']['launches']}), the per-rung DE loop "
+        f"{measured(pm['de']['device_us'])} us and "
+        f"{measured(pm['de']['kernels'], '.0f')} kernels "
+        f"({pm['de']['launches']}) {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    with path_launches(out, "adaptive", ("stretch_propose", "accept_select",
+                                         "pt_swap"),
+                       "phase 15"):
+        ad = out["adaptive"] = pt15_adaptive(torch, np, dev, card, p0)
+    log(f"phase 15: (e) the adaptive ladder from max_temp=1e6 (13 x 100 "
+        f"unstored, 300 stored): swap rates' spread {ad['std_adaptive']:.4f} "
+        f"against {ad['std_frozen']:.4f} frozen; beta_0 1; ladder "
+        f"{[round(b, 6) for b in ad['betas']]}; the host's work a chunk "
+        f"(read, adapt, log-prob formed again) "
+        f"{ad['host_us_per_chunk']:.1f} us {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    with path_launches(out, "looped", ("langevin_step", "leapfrog",
+                                       "pt_swap"), "phase 15"):
+        lo = out["looped"] = pt15_looped(torch, np, dev, card, p0)
+    log("phase 15: (f) the looped moves on every rung, graph chain == eager "
+        "plain chain bit for bit; " + "; ".join(
+            f"{k}: {v['us_per_proposal']:.1f} us a proposal, "
+            f"{v['flag_reads']:.2f} flag reads a proposal "
+            f"({v['flag_reads_per_rung']:.2f} a rung), device "
+            f"{measured(v['device_us'])} us and "
+            f"{measured(v['kernels'], '.0f')} kernels a proposal"
+            for k, v in lo.items()) + f" {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    mo = out["monitor"] = pt15_monitor(torch, np, dev, card, p0)
+    log(f"phase 15: (g) run_until_converged on the tempered sampler (cold "
+        f"rung, tau_factor 50, dtau_rel 0.05): {mo['iterations']} steps, "
+        f"converged {mo['converged']}, cold tau "
+        f"{[round(t, 2) for t in mo['tau']]}, {mo['checks']} checks, "
+        f"{mo['seconds']:.2f} s in all, {mo['seconds_a_check'] * 1e3:.1f} ms "
+        f"a check {card} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    hd = out["hdf"] = pt15_hdf(torch, np, dev, card, p0)
+    if hd is not None:
+        log(f"phase 15: (h) PTHDFBackend with io_dtype=float32 and "
+            f"parameter_names equals PTBackend of the plain likelihood; a "
+            f"fresh sampler resumes the file with blobs to "
+            f"{hd['iterations']} steps, fields {hd['fields']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 15: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase15_rows(torch, dev, out, card)
+
+
+def phase15_rows(torch, dev, out, card):
+    """The rows of K2 with the rung axis and phase-C leaves and of K15
+    with leaves at workload 4's shape with the blobs ``(2 logL, x)``:
+    device time a launch in the blob path's replays (profiler), a
+    back-to-back call's and the plain version's (CUDA events), registers,
+    and the least time the card could take (bytes, leaves counted, with
+    this call's acceptance and swaps)."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import stretch_kernel as sk
+    from emcee_tpu_torch.ops import swap_kernel as swk
+    from emcee_tpu_torch.ops.philox import rung_keys
+    from emcee_tpu_torch.parallel import default_beta_ladder
+
+    T, nw, nd, ng = NT4, NW4, ND4, NW4 // 2
+    gen = torch.Generator(device=dev).manual_seed(161)
+    coords = PT_SEP * torch.randn(T, nw, nd, device=dev, generator=gen)
+    keys = rung_keys(4, T, dev)
+    q, f = sk.stretch_propose(coords, 0, 2, a=2.0, ndim_global=nd,
+                              pair_mode="random", seed=keys, offset=5)
+    betas = torch.tensor(default_beta_ladder(T, nd), dtype=torch.float32,
+                         device=dev)
+    flat_ll = torch.func.vmap(pt_log_like)
+    ll = flat_ll(coords.reshape(-1, nd)).reshape(T, nw)
+    lpr = torch.zeros(T, nw, device=dev)
+    lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
+    ll_q = flat_ll(q.reshape(-1, nd)).reshape(T, ng)
+    lp_q = swk.tempered_log_prob(betas[:, None], ll_q, torch.zeros_like(
+        ll_q))
+    news = (ll_q, torch.zeros_like(ll_q), 2.0 * ll_q, q.clone())
+    bufs = (ll, lpr, 2.0 * ll, coords.clone())
+    work = [coords.clone(), lp.clone(),
+            torch.zeros(T, nw, dtype=torch.bool, device=dev),
+            torch.zeros(T, nw, dtype=torch.int32, device=dev)]
+    blobs = list(zip(news, [b.clone() for b in bufs]))
+    if ak.leaf_plan(ak.blob_leaves(blobs, ng, nw, coords.device, (T,)),
+                    True)[1]:
+        raise AssertionError("phase 15: the blob path's leaves did not take "
+                             "phase C")
+    ak.accept_select(q, f, lp_q, *[w.clone() for w in work[:2]], 0, 2,
+                     work[2], work[3], seed=keys, offset=5,
+                     blobs=[(a, b.clone()) for a, b in blobs])
+    n_acc = int(work[2][:, :ng].sum())
+    sw = [coords.clone(), ll.clone(), lpr.clone(), lp.clone()]
+    leaves = [2.0 * ll, coords.clone()]
+    cnt = torch.zeros(T - 1, dtype=torch.int64, device=dev)
+    swk.pt_swap(*sw, betas, cnt, seed=4, offset=0, leaves=leaves)
+    n_swap = int(cnt.sum())
+    n_pairs = len(swk.swap_pairs(0, T, 1))
+    k2 = dict(seed=keys, offset=5, blobs=blobs)
+    calls = {
+        "accept_select": (
+            lambda: ak.accept_select(q, f, lp_q, work[0], work[1], 0, 2,
+                                     work[2], work[3], **k2),
+            lambda: ak.accept_select_plain(q, f, lp_q, work[0], work[1], 0,
+                                           2, work[2], work[3], **k2)),
+        "pt_swap": (
+            lambda: swk.pt_swap(*sw, betas, cnt, seed=4, offset=0,
+                                leaves=leaves),
+            lambda: swk.pt_swap_plain(*sw, betas, cnt, seed=4, offset=0,
+                                      leaves=leaves)),
+    }
+    # Bytes: K2 reads the factor, lp_q and lp of every split walker and
+    # writes its acc; an accepted walker reads its q row and its four
+    # leaves' new rows (4 + 4 + 4 + 20 bytes) and writes its row, lp, the
+    # leaves and its count.  K15 reads both rungs' logL of every walker of
+    # a pair and the pair's two betas; a swap reads both walkers' rows,
+    # logP and user leaves (24 bytes) and writes them, logL and lp; and
+    # the pair's count.  Operations: a Philox block a walker.
+    leaf_bytes = 4 + 4 + 4 + 4 * nd
+    user_bytes = 4 + 4 * nd
+    work_of = {
+        "accept_select": (
+            4 * T * ng * 3 + T * ng + n_acc * (
+                4 * nd + 4 * (nd + 1) + 4 + 2 * leaf_bytes),
+            T * ng * (PHILOX_INSTR + 6)),
+        "pt_swap": (
+            4 * n_pairs * nw * 2 + 4 * 2 * n_pairs + n_swap * 2 * (
+                4 * (2 * nd + 4) + 2 * user_bytes) + 8 * n_pairs,
+            n_pairs * nw * (PHILOX_INSTR + 10)),
+    }
+    meta = {
+        "accept_select": (
+            "K2 (rung axis, phase-C leaves)", "accept_select.cu",
+            "emcee_tpu/moves/red_blue.py:196 and :200-202 (vmapped by "
+            "emcee_tpu/parallel/tempering.py:538)",
+            "accept_select_kernel<true, true, BlobLeaves, true>"),
+        "pt_swap": ("K15 (with leaves)", "pt_swap.cu",
+                    "emcee_tpu/parallel/tempering.py:543-580",
+                    "pt_swap_kernel<SwapLeaves>"),
+    }
+    bl = out["blobs"]
+    rows = []
+    for kname, (kernel, plain) in calls.items():
+        name, src, jax_src, label = meta[kname]
+        call_ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, plain, reps=20)
+        nbytes, nops = work_of[kname]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / ISSUE_PER_S * 1e3}
+        by = max(t, key=t.get)
+        ms = bl["win_blobs"]["ms_per_launch"][kname]
+        launches = bl["replayed_launches"][kname]
+        regs = PTXAS.get(label)
+        row = {"name": name, "route": "cuda",
+               "source": f"emcee_tpu_torch/csrc/{src}",
+               "replaces": jax_src, "launches": launches,
+               "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
+               "library_ms": None, "ptxas": regs,
+               "ms_without_leaves": bl["win_none"]["ms_per_launch"][kname],
+               "launches_per_proposal": launches / bl["proposals_counted"],
+               "wrapper_launches": out["launches"]["blobs"][kname],
+               "note": f"{name} at workload 4's shape ({T} x {nw} x {nd}) "
+                       "with the blobs (2 logL, x): ms in the blob path's "
+                       "replays (profiler), ms_without_leaves the same "
+                       "window of the blob-free path; launches counted on "
+                       f"the card in {bl['proposals_counted']} replayed "
+                       "proposals; max_abs_err: byte for byte over phase "
+                       "15's sweep; bound: this call's acceptance "
+                       f"({n_acc} of {T * ng}) and swaps ({n_swap} of "
+                       f"{n_pairs * nw}), leaves counted; library_ms: none, "
+                       "no single PyTorch call computes it"}
+        rows.append(row)
+        log(f"phase 15: {name}: device {ms * 1e3:.2f} us/launch in the blob "
+            f"path's replays ({row['ms_without_leaves'] * 1e3:.2f} without "
+            f"leaves), {call_ms * 1e3:.2f} us per back-to-back call, plain "
+            f"{plain_ms * 1e3:.2f} us, bound {t[by] * 1e3:.3f} us ({nbytes} "
+            f"bytes, {by}); {regs} (registers, static shared, spilled) "
+            f"{card}")
     return rows
 
 
@@ -4582,6 +5381,73 @@ def phase_times(tree) -> int:
     return child.returncode
 
 
+def sass_functions(lib):
+    """``{label: SASS}`` of every kernel in library ``lib`` by the
+    toolkit's ``cuobjdump -sass``: each function's instructions without
+    their addresses and encodings, constant-bank offsets masked (a kernel
+    parameter added after the others moves no other parameter, but the
+    offsets of the driver's own constants may move)."""
+    import re
+
+    from emcee_tpu_torch.ops._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if name and m:
+            funcs[name].append(re.sub(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]",
+                                      "c[.][.]", m.group(1)))
+    labels = demangle(list(funcs))
+    return {labels[n]: "\n".join(v) for n, v in funcs.items()}
+
+
+def sass_diff(tree) -> int:
+    """Build ``tree``'s and this checkout's K1, K2 and K15 sources with the
+    build's flags into ``build/sass`` and compare the SASS of every kernel
+    function that both hold (K15's blob-free kernel gained the template
+    parameter ``NoLeaves``, which the comparison drops from its name).
+    Prints each function's verdict; returns 1 when a one-ensemble
+    instantiation of K1 or K2 (``..., false>``) differs, else 0."""
+    from emcee_tpu_torch.ops import _build
+
+    here = Path(__file__).resolve().parent
+    out_dir = _build.build_dir().parent / "sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    bad = []
+    for src in ("stretch_propose.cu", "accept_select.cu", "pt_swap.cu"):
+        sass = {}
+        for label, root in (("parent", tree), ("change", here)):
+            lib = out_dir / f"{label}-{src}.so"
+            subprocess.run([nvcc, *_build._FLAGS, "-o", str(lib),
+                            str(root / "emcee_tpu_torch" / "csrc" / src)],
+                           check=True, capture_output=True, timeout=600)
+            sass[label] = {k.replace("<NoLeaves>", ""): v
+                           for k, v in sass_functions(lib).items()}
+        for fn in sorted(sass["parent"]):
+            same = sass["change"].get(fn) == sass["parent"][fn]
+            where = ("missing in the change" if fn not in sass["change"]
+                     else "equal" if same else "differs")
+            log(f"sass-diff: {src}: {fn}: {where}")
+            if not same and fn.startswith(("stretch_propose_kernel",
+                                            "accept_select_kernel")) \
+                    and fn.endswith(", false>"):
+                bad.append(fn)
+        for fn in sorted(set(sass["change"]) - set(sass["parent"])):
+            log(f"sass-diff: {src}: {fn}: new in the change")
+    log(f"sass-diff: one-ensemble K1 / K2 instantiations that differ from "
+        f"{tree}'s: {bad or 'none'}")
+    return 1 if bad else 0
+
+
 def _build_dir():
     from emcee_tpu_torch.ops._build import build_dir
 
@@ -4602,6 +5468,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["phase-times"] and len(sys.argv) > 2:
         return phase_times(inner_tree(sys.argv[2]))
+    if sys.argv[1:2] == ["sass-diff"] and len(sys.argv) > 2:
+        return sass_diff(inner_tree(sys.argv[2]))
 
     import numpy as np
 
@@ -4652,13 +5520,13 @@ def main() -> int:
             log(f"  ptxas {k}: {fn}: {regs} registers, {smem} bytes static "
                 f"shared memory, {spill} bytes spilled")
 
-    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"]):
-        # Phase 11, 12, 13 or 14 alone (a first check of the blobs, the
-        # extension moves, the gradient moves or tempering).
+    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"]):
+        # Phase 11, 12, 13, 14 or 15 alone (a first check of the blobs,
+        # the extension moves, the gradient moves or tempering).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
-                 "14": phase14}[sys.argv[1]]
+                 "14": phase14, "15": phase15}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -5235,6 +6103,12 @@ def main() -> int:
     p14, rows14 = phase14(torch, np, dev, card)
     rows += rows14
     log(f"phase 14: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 15. the rest of tempering -----------------------------------------
+    t0 = time.perf_counter()
+    p15, rows15 = phase15(torch, np, dev, card)
+    rows += rows15
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -14,9 +14,11 @@ autocorrelation and R-hat diagnostics and the convergence monitor are
 plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinates, into the
 host, device and HDF5 backends; ``checkpoint`` saves and loads states.
 ``PTSampler`` runs a tempered ladder: the stretch move proposes every
-rung at once through K1 and K2's rung axis, other moves rung by rung,
-and the even/odd swap is a kernel of its own (K15), into the host
-``PTBackend`` or the device ``PTDeviceBackend``.
+rung at once through K1 and K2's rung axis, other moves (mixtures,
+``mixture_block``, the looped slice and ChEES moves) rung by rung, the
+even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
+with them, the ladder may adapt, and the chain goes into the host
+``PTBackend``, the device ``PTDeviceBackend`` or ``PTHDFBackend``.
 Entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``.
 """

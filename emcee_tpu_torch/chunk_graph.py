@@ -69,8 +69,19 @@ move step is one rung-batched proposal (K1 and K2 over all rungs, the
 log-prob once over ``T * ng`` rows) for a ``rung_batched`` move, or
 else, and under the private ``batched=False`` switch, a loop over the
 rungs, each rung an ensemble of its own (its views of the buffers, its
-tempered model, its carry and its key).  It is recorded, replayed and
-warmed up as :class:`ChunkProgram` is.
+tempered model, its carry and its key).  Each move of a mixture takes its
+own way, so a chunk's runs of the stretch move propose every rung at once
+and its runs of DE loop over the rungs.  The user blobs of the likelihood
+ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
+and ``logP`` (the tempered model's blobs are ``(logL, logP, user
+blobs)``): K2 selects them with the rows and K15 exchanges them with the
+walkers.  It is recorded, replayed and warmed up as :class:`ChunkProgram`
+is.  A looped move (slice, ChEES) runs each rung's loops by the rung's
+own segment and loop replays (:class:`GraphLoops` tagged with the rung),
+then one closing segment tunes every rung, swaps and advances the
+offset: the rungs' loops end each on its own flag, as JAX's vmapped
+``while_loop`` masks each finished rung, so each rung's result is its
+own.
 """
 
 from __future__ import annotations
@@ -142,11 +153,14 @@ class GraphLoops:
     host sync, counted in ``ChunkProgram.flag_reads``), until it reads
     False."""
 
-    def __init__(self, prog, i, block):
+    def __init__(self, prog, i, block, tag=()):
         self.prog, self.i, self.block = prog, i, int(block)
+        #: keys the graphs apart from another ensemble's of the same move
+        #: (a tempered ladder's rung: ``("rung", r)``)
+        self.tag = tuple(tag)
 
     def segment(self, key, fn):
-        self.prog.segment((self.i, "segment") + key, fn).replay()
+        self.prog.segment((self.i, "segment") + self.tag + key, fn).replay()
         ChunkProgram.replays += 1
 
     def loop(self, key, body, flag, start=True):
@@ -154,8 +168,8 @@ class GraphLoops:
             for b in range(self.block):
                 body(b, self.block)
 
-        graph = self.prog.segment((self.i, "loop", self.block) + key,
-                                  iterations)
+        graph = self.prog.segment(
+            (self.i, "loop", self.block) + self.tag + key, iterations)
         go = start
         while go:
             graph.replay()
@@ -170,7 +184,8 @@ class GraphLoops:
         n = int(count)
         ChunkProgram.flag_reads += 1
         if n:
-            graph = self.prog.segment((self.i, "repeat") + key, body)
+            graph = self.prog.segment((self.i, "repeat") + self.tag + key,
+                                      body)
         for _ in range(n):
             graph.replay()
             ChunkProgram.replays += 1
@@ -445,9 +460,11 @@ class TemperedLogProb:
     """The tempered model's log-prob (``emcee_tpu/parallel/tempering.py:
     379-435``): ``beta logL + logP``, with ``logL`` set to 0 and the
     log-prob to ``-inf`` where ``logP`` is not above ``-inf``; the blobs
-    are ``(logL, logP)``.  ``beta`` is a 0-d tensor (one rung: ``q`` is
-    ``(n, ndim)``) or the ``(T,)`` ladder (every rung: ``q`` is ``(T, n,
-    ndim)``, evaluated as one batch of ``T * n`` rows)."""
+    are ``(logL, logP)``, and ``(logL, logP, user blobs)`` where the
+    likelihood returns blobs (the prior's are ignored).  ``beta`` is a
+    0-d tensor (one rung: ``q`` is ``(n, ndim)``) or the ``(T,)`` ladder
+    (every rung: ``q`` is ``(T, n, ndim)``, evaluated as one batch of ``T
+    * n`` rows, each blob leaf returned as ``(T, n, ...)``)."""
 
     def __init__(self, log_like, log_prior, beta):
         self.log_like, self.log_prior, self.beta = log_like, log_prior, beta
@@ -455,28 +472,32 @@ class TemperedLogProb:
     def __call__(self, q):
         beta = self.beta
         if beta.dim():
-            flat = q.reshape(-1, q.shape[-1])
-            ll, lpr = self.evaluate(flat)
-            ll, lpr = ll.reshape(q.shape[:-1]), lpr.reshape(q.shape[:-1])
+            lead = q.shape[:-1]
+            ll, lpr, ub = self.evaluate(q.reshape(-1, q.shape[-1]))
+            ll, lpr = ll.reshape(lead), lpr.reshape(lead)
+            ub = tree_map(lambda b: b.reshape(lead + b.shape[1:]), ub)
             beta = beta[:, None]
         else:
-            ll, lpr = self.evaluate(q)
+            ll, lpr, ub = self.evaluate(q)
         finite = lpr > -torch.inf
         ll = torch.where(finite, ll, 0.0)
-        return swap_kernel.tempered_log_prob(beta, ll, lpr), (ll, lpr)
+        blobs = (ll, lpr) if ub is None else (ll, lpr, ub)
+        return swap_kernel.tempered_log_prob(beta, ll, lpr), blobs
 
     def evaluate(self, q):
-        """``(logL, logP)`` of rows ``q`` (the user functions, wrapped)."""
-        ll, _ = self.log_like(q)
+        """``(logL, logP, user blobs)`` of rows ``q`` (the user
+        functions, wrapped; the blobs None where the likelihood returns
+        none)."""
+        ll, ub = self.log_like(q)
         lpr, _ = self.log_prior(q)
-        return ll, lpr
+        return ll, lpr, ub
 
 
 class TemperedProgram(ChunkProgram):
     """The chunk program of a tempered ladder and one chain seed.
 
     Args:
-        moves: the sampler's move (a one-element list).
+        moves: the sampler's moves.
         log_like, log_prior: the wrapped user functions (``q -> (values,
             blobs)``).
         keys: the rungs' :class:`~.ops.philox.RungKeys`.
@@ -484,21 +505,23 @@ class TemperedProgram(ChunkProgram):
             device the workspace takes.
         carries: the moves' ladder carries (copied into the workspace).
         swap_every: proposals between swap attempts (< 1: none).
-        batched: propose every rung at once (a ``rung_batched`` move),
-            else rung by rung.
+        batched: propose every rung at once where the move is
+            ``rung_batched``; False loops over the rungs for every move.
+        blobs: the state's user blobs (``(T, nwalkers, ...)`` leaves), or
+            None.
     """
 
     kind = "tempered proposals"
 
     def __init__(self, moves, log_like, log_prior, keys, coords, carries,
-                 swap_every, batched):
+                 swap_every, batched, blobs=None):
         self.moves = moves
         self.log_like, self.log_prior = log_like, log_prior
         self.keys = keys
         self.seed = keys.seed
         self.swap_every = int(swap_every)
         self.batched = bool(batched)
-        self.blob_signature = None
+        self.blob_signature = blob_signature(blobs)
         T, nw, _ = coords.shape
         dev = coords.device
 
@@ -513,22 +536,27 @@ class TemperedProgram(ChunkProgram):
             log_like=rows(), log_prior=rows(),
             betas=torch.zeros(T, dtype=coords.dtype, device=dev),
             swaps=torch.zeros(max(T - 1, 1), dtype=torch.int64, device=dev),
+            blobs=tree_map(lambda b: torch.empty_like(
+                b, memory_format=torch.contiguous_format), blobs),
         )
         self.graphs = {}
         self._warmed = set()
         self._stream = None
 
-    def load(self, coords, log_like, log_prior, betas, offset, carries):
-        """Start a run: copy the state, the ladder, the offset and the
-        carries into the workspace, form the tempered log-prob, and zero
-        the run's acceptance and swap counts (device work, no sync)."""
+    def load(self, coords, log_like, log_prior, betas, offset, carries,
+             blobs=None):
+        """Start a run: copy the state, its user blobs, the ladder, the
+        offset and the carries into the workspace, form the tempered
+        log-prob, and zero the run's acceptance and swap counts (device
+        work, no sync)."""
         ws = self.ws
         ws.coords.copy_(coords)
         ws.log_like.copy_(log_like)
         ws.log_prior.copy_(log_prior)
-        ws.betas.copy_(betas)
-        ws.log_prob.copy_(swap_kernel.tempered_log_prob(
-            ws.betas[:, None], ws.log_like, ws.log_prior))
+        for mine, given in zip(tree_flatten(ws.blobs)[0],
+                               tree_flatten(blobs)[0]):
+            mine.copy_(given)
+        self.set_betas(betas)
         ws.offset.fill_(int(offset))
         ws.count.zero_()
         ws.swaps.zero_()
@@ -536,6 +564,15 @@ class TemperedProgram(ChunkProgram):
             if isinstance(mine, dict) and mine is not given:
                 for k, v in mine.items():
                     v.copy_(given[k])
+
+    def set_betas(self, betas):
+        """Put a ladder into the workspace and form the tempered log-prob
+        anew from ``logL`` and ``logP`` (device work, no sync; the graphs
+        read ``ws.betas``, so nothing is recorded again)."""
+        ws = self.ws
+        ws.betas.copy_(betas)
+        ws.log_prob.copy_(swap_kernel.tempered_log_prob(
+            ws.betas[:, None], ws.log_like, ws.log_prior))
 
     def model(self, ws, r=None):
         """The tempered model of rung ``r`` (every rung for None), reading
@@ -545,14 +582,37 @@ class TemperedProgram(ChunkProgram):
         return Model(TemperedLogProb(self.log_like, self.log_prior, beta),
                      nwalkers=nw, ndim=nd)
 
+    @staticmethod
+    def _blobs(ws, r=None):
+        """The move-level blobs ``(logL, logP[, user blobs])`` of every
+        rung, or rung ``r``'s views of them."""
+        blobs = (ws.log_like, ws.log_prior)
+        if ws.blobs is not None:
+            blobs += (ws.blobs,)
+        return blobs if r is None else tree_map(lambda b: b[r], blobs)
+
+    def _rung(self, ws, i, r):
+        """Rung ``r``'s state, tempered model and move ``i``'s carry: views
+        of ``ws``, so the move's in-place updates land in the ladder."""
+        return (State(ws.coords[r], ws.log_prob[r], self._blobs(ws, r)),
+                self.model(ws, r), rung_carry(ws.carries[i], r))
+
+    def _swap(self, ws, off):
+        """K15 at offset ``off``, the user blob leaves with the walkers."""
+        if ws.coords.shape[0] > 1 and self.swap_every >= 1:
+            swap_kernel.pt_swap(ws.coords, ws.log_like, ws.log_prior,
+                                ws.log_prob, ws.betas, ws.swaps,
+                                seed=self.seed, offset=off,
+                                swap_every=self.swap_every,
+                                leaves=tree_flatten(ws.blobs)[0])
+
     def proposal(self, ws, i, j, tune):
         """One tempered proposal at offset ``ws.offset + j``: move ``i`` on
         every rung, then the swap, reading and writing only ``ws``."""
         move = self.moves[i]
         off = DeviceOffset(ws.offset, j)
-        blobs = (ws.log_like, ws.log_prior)
-        if self.batched:
-            state = State(ws.coords, ws.log_prob, blobs)
+        if self.batched and getattr(move, "rung_batched", False):
+            state = State(ws.coords, ws.log_prob, self._blobs(ws))
             model = self.model(ws)
             move.propose_rungs((self.keys, off), state, model,
                                ws.carries[i], ws.count, accepted=ws.accepted)
@@ -561,16 +621,42 @@ class TemperedProgram(ChunkProgram):
                 move.tune(ws.carries[i], state, ws.accepted, model)
         else:
             for r, seed in enumerate(self.keys.seeds):
-                state = State(ws.coords[r], ws.log_prob[r],
-                              tuple(b[r] for b in blobs))
-                model = self.model(ws, r)
-                carry = rung_carry(ws.carries[i], r)
+                state, model, carry = self._rung(ws, i, r)
                 move.propose((seed, off), state, model, carry, ws.count[r],
                              accepted=ws.accepted[r], **_tune_kw(move, tune))
                 if tune:
                     move.tune(carry, state, ws.accepted[r], model)
-        if ws.coords.shape[0] > 1 and self.swap_every >= 1:
-            swap_kernel.pt_swap(ws.coords, ws.log_like, ws.log_prior,
-                                ws.log_prob, ws.betas, ws.swaps,
-                                seed=self.seed, offset=off,
-                                swap_every=self.swap_every)
+        self._swap(ws, off)
+
+    def looped_proposal(self, i, tune):
+        """One tempered proposal of looped move ``i`` by replays: each
+        rung's segments and loops (:class:`GraphLoops` tagged with the
+        rung, so each rung's loops end on its own flag), then one segment
+        that tunes every rung, swaps and advances the offset.  Every rung
+        reads its loop flags from the host, so a proposal costs ``T``
+        times the flag reads of one ensemble.  The first one of a move is
+        preceded by an eager proposal on a scratch copy (the warm-up)."""
+        move = self.moves[i]
+        ws = self.ws
+        if i not in self._warmed:
+            self._warm_up(i, tune)
+            self._warmed.add(i)
+        off = DeviceOffset(ws.offset, 0)
+        rungs = []
+        for r, seed in enumerate(self.keys.seeds):
+            state, model, carry = self._rung(ws, i, r)
+            loops = GraphLoops(self, i, move.loop_block, ("rung", r))
+            move.propose((seed, off), state, model, carry, ws.count[r],
+                         accepted=ws.accepted[r], loops=loops,
+                         **_tune_kw(move, tune))
+            rungs.append((state, model, carry))
+
+        def end():
+            if tune:
+                for r, (state, model, carry) in enumerate(rungs):
+                    move.tune(carry, state, ws.accepted[r], model)
+            self._swap(ws, off)
+            ws.offset.add_(1)
+
+        self.segment((i, "tune, swap and advance", bool(tune)), end).replay()
+        ChunkProgram.replays += 1

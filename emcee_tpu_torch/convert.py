@@ -90,11 +90,13 @@ def carry_from_numpy(carry, device=None):
 
 
 def pt_state_from_numpy(coords, log_like=None, log_prior=None, seed=0,
-                        device=None):
+                        device=None, blobs=None):
     """A port :class:`~.parallel.PTState` from a tempered ensemble's numpy
     arrays (``coords`` ``(T, nwalkers, ndim)``, ``log_like`` and
-    ``log_prior`` ``(T, nwalkers)``, as a JAX ``PTState`` holds them),
-    with the random state ``(seed, 0)``; ``device`` as for the sampler."""
+    ``log_prior`` ``(T, nwalkers)``, the user blobs a pytree of ``(T,
+    nwalkers, ...)`` leaves, each kept in its dtype, as a JAX ``PTState``
+    holds them), with the random state ``(seed, 0)``; ``device`` as for
+    the sampler."""
     from .parallel import PTState
 
     dev = resolve_device(device)
@@ -103,23 +105,27 @@ def pt_state_from_numpy(coords, log_like=None, log_prior=None, seed=0,
         return None if x is None else torch.tensor(
             np.array(x, dtype=np.float32), device=dev)
 
+    blobs = tree_map(lambda b: torch.tensor(np.array(b), device=dev), blobs)
     return PTState(put(coords), put(log_like), put(log_prior),
-                   (int(seed), 0))
+                   (int(seed), 0), blobs)
 
 
 def pt_backend_from_numpy(chain, log_like, log_prior, accepted,
                           swaps_accepted, swaps_proposed, betas,
-                          random_state=None):
+                          random_state=None, blobs=None):
     """A port :class:`~.backends.PTBackend` holding a stored tempered
     chain: ``chain`` ``(iteration, T, nwalkers, ndim)``, ``log_like`` and
     ``log_prior`` ``(iteration, T, nwalkers)``, the cumulative
-    ``accepted`` counts ``(T, nwalkers)``, the swap counters and the
-    ladder, as a JAX ``PTBackend`` holds them."""
+    ``accepted`` counts ``(T, nwalkers)``, the swap counters, the ladder
+    (a sampler opened on the backend resumes it) and the stored blobs (a
+    pytree of ``(iteration, T, nwalkers, ...)`` arrays), as a JAX
+    ``PTBackend`` holds them."""
     chain = np.asarray(chain)
     backend = PTBackend()
     backend.reset(*chain.shape[1:])
     backend.save_chunk(
         chain, np.asarray(log_like), np.asarray(log_prior),
         np.asarray(accepted, dtype=np.int64)[None], swaps_accepted,
-        swaps_proposed, random_state, betas)
+        swaps_proposed, random_state, betas,
+        blobs=tree_map(np.asarray, blobs))
     return backend

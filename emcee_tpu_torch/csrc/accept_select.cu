@@ -66,7 +66,9 @@
 // uniform under its own key keys[r] (a device table, ops/philox.py
 // rung_seed).  A blob leaf's new rows are (T, ng, ...) and its buffer
 // (T, nw, ...): the tempered bookkeeping, logL and logP, are two 4-byte
-// scalar leaves on the row-leaf path.  The axis is a template parameter
+// scalar leaves on the row-leaf path, and with up to two user 4-byte scalar
+// leaves beside them they stay there; any other user leaves send every leaf
+// to phase C, whose rows move by the rung's offsets as the coords do.  The axis is a template parameter
 // (kRungs): a single-ensemble launch (one rung, no key table) runs the
 // instantiation without it, whose code is the kernel of before (a rung
 // axis of one rung cost the main path's launch 0.23 us, 9%, when it was a
@@ -443,13 +445,16 @@ BlobRows<U> row_group(const BlobLeaf* all, int n) {
   return g;
 }
 
-// Whether a rung-axis launch may carry leaves of kind Blobs: none, or the
-// tempered bookkeeping's 4-byte scalar leaves.  Only these are built with
-// the axis (each other kind would add four instantiations to the build
-// that no launch runs).
+// Whether a rung-axis launch may carry leaves of kind Blobs: none, the
+// tempered bookkeeping's 4-byte scalar leaves (with up to two user scalar
+// leaves), or phase C's leaves (the tempered leaves beside wider or mixed
+// user leaves).  Only these are built with the axis: 8-byte row leaves
+// never ride beside the 4-byte logL and logP, and each further kind would
+// add four instantiations to the build that no launch runs.
 template <typename Blobs>
 constexpr bool kRungBlobs = std::is_same_v<Blobs, NoBlobs> ||
-                            std::is_same_v<Blobs, BlobRows<uint32_t>>;
+                            std::is_same_v<Blobs, BlobRows<uint32_t>> ||
+                            std::is_same_v<Blobs, BlobLeaves>;
 
 // The instantiation of (kVec, kStage, Blobs) with the rung axis or not.
 template <bool kVec, bool kStage, typename Blobs>
@@ -501,8 +506,9 @@ void launch_select(int vec, int stage, bool rungs, dim3 grid, int smem,
 // blocks of ng rows in q and the other split inputs (ntemps = 1: one
 // ensemble; nw is then unused); keys == nullptr draws every rung under
 // seed, else rung r under keys[r] (a device table of ntemps keys).  A
-// rung-axis launch (ntemps > 1 or keys) takes no leaves or row_unit 4
-// leaves only, and is refused with cudaErrorInvalidValue otherwise.
+// rung-axis launch (ntemps > 1 or keys) takes any leaves but row_unit 8
+// ones (ops/accept_kernel.py leaf_plan sends those to phase C), and is
+// refused with cudaErrorInvalidValue for them.
 // Returns cudaGetLastError() after the launches (1 + ceil((nleaves -
 // kMaxLeaves) / kMaxLeaves) of them with more than kMaxLeaves leaves,
 // else 1).
@@ -519,7 +525,7 @@ extern "C" int emcee_accept_select(
   const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
   const dim3 blocks(grid, ntemps);
   const bool rungs = ntemps > 1 || keys != nullptr;
-  if (rungs && nleaves > 0 && row_unit != 4) {
+  if (rungs && nleaves > 0 && row_unit == 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto go = [&](const auto& blobs) {

@@ -34,10 +34,25 @@
 // __syncthreads_count and one 64-bit atomicAdd a block for the count.
 // Arithmetic uses the _rn intrinsics and the accurate logf, so the kernel
 // equals its plain version (ops/swap_kernel.py) bit for bit.
+//
+// User blob leaves (emcee_tpu/parallel/tempering.py:573-580 exchanges
+// every leaf of (coords, logL, logP, blobs) as one unit): a leaf is any
+// dtype of any row shape, (ntemps, nw, ...) in memory, so to the kernel a
+// byte row per walker.  Each leaf reaches the kernel as a descriptor in a
+// struct passed by value (the buffer's base, the row's bytes and an access
+// unit, the largest of 16, 8, 4, 2, 1 bytes that divides both the base and
+// the row: ops/swap_kernel.py swap_leaves), so a graph records it with the
+// launch.  An accepted walker's thread exchanges its two rows of every
+// leaf, unit by unit, beside its coords row.  The leaves' bytes are few
+// (workload 4's two leaves: 24 bytes a walker), so the simple design
+// holds: no staging, no cooperation between threads.  Without leaves the
+// entry point launches the instantiation whose Leaves is NoLeaves, an
+// empty struct as the last parameter, and the leaf code is compiled out.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -46,6 +61,43 @@
 namespace {
 
 constexpr int kThreads = 128;  // SWAP_THREADS in ops/swap_kernel.py
+constexpr int kMaxLeaves = 16;  // SWAP_LEAVES in ops/swap_kernel.py
+
+}  // namespace
+
+// One user blob leaf (the layout of ops/swap_kernel.py _SwapLeaf): the
+// buffer (ntemps, nw, *shape), the bytes of one walker's row and the
+// access unit in bytes.
+struct SwapLeaf {
+  unsigned char* base;
+  int row_bytes;
+  int unit;
+};
+
+namespace {
+
+struct SwapLeaves {
+  int n;
+  SwapLeaf leaf[kMaxLeaves];
+};
+
+// The blob-free kernel's Leaves: none.
+struct NoLeaves {};
+
+// Exchange rows a and b of a leaf at base with rows of row_bytes, unit by
+// unit.
+template <typename U>
+__device__ __forceinline__ void swap_rows(unsigned char* base, int row_bytes,
+                                          int64_t a, int64_t b) {
+  const int n = row_bytes / static_cast<int>(sizeof(U));
+  U* ra = reinterpret_cast<U*>(base) + a * n;
+  U* rb = reinterpret_cast<U*>(base) + b * n;
+  for (int i = 0; i < n; ++i) {
+    const U x = ra[i];
+    ra[i] = rb[i];
+    rb[i] = x;
+  }
+}
 
 // The tempered log-prob beta logL + logP, -inf where logP is not > -inf.
 __device__ __forceinline__ float tempered(float beta, float ll, float lpr) {
@@ -53,13 +105,14 @@ __device__ __forceinline__ float tempered(float beta, float ll, float lpr) {
                              : -CUDART_INF_F;
 }
 
+template <typename Leaves>
 __global__ void __launch_bounds__(kThreads) pt_swap_kernel(
     float* __restrict__ coords, float* __restrict__ log_like,
     float* __restrict__ log_prior, float* __restrict__ log_prob,
     const float* __restrict__ betas, unsigned long long* __restrict__ counts,
     const float* __restrict__ u, int ntemps, int nw, int nd, int swap_every,
     uint32_t k0, uint32_t k1, const long long* __restrict__ offset_dev,
-    unsigned long long offset_inc) {
+    unsigned long long offset_inc, const __grid_constant__ Leaves leaves) {
   const uint64_t step = philox_offset(offset_dev, offset_inc);
   if (step % static_cast<uint64_t>(swap_every) !=
       static_cast<uint64_t>(swap_every - 1)) {
@@ -102,6 +155,20 @@ __global__ void __launch_bounds__(kThreads) pt_swap_kernel(
         ra[d] = rb[d];
         rb[d] = x;
       }
+      if constexpr (std::is_same_v<Leaves, SwapLeaves>) {
+        for (int l = 0; l < leaves.n; ++l) {
+          // The fields by value: the descriptor stays in parameter space.
+          unsigned char* base = leaves.leaf[l].base;
+          const int rb = leaves.leaf[l].row_bytes;
+          switch (leaves.leaf[l].unit) {
+            case 16: swap_rows<uint4>(base, rb, a, b); break;
+            case 8: swap_rows<uint2>(base, rb, a, b); break;
+            case 4: swap_rows<uint32_t>(base, rb, a, b); break;
+            case 2: swap_rows<uint16_t>(base, rb, a, b); break;
+            default: swap_rows<uint8_t>(base, rb, a, b); break;
+          }
+        }
+      }
     }
   }
   const int n = __syncthreads_count(acc);
@@ -113,25 +180,44 @@ __global__ void __launch_bounds__(kThreads) pt_swap_kernel(
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/swap_kernel.py).  Every
-// pointer is a device pointer: coords (ntemps, nw, nd), log_like,
-// log_prior and log_prob (ntemps, nw), betas (ntemps,) float32, counts
-// (ntemps - 1,) int64; u == nullptr draws the uniforms in the kernel,
-// otherwise u is (ntemps / 2, nw) with row k the uniforms of the parity's
-// k-th pair.  The step is *offset_dev + offset (offset alone when
-// offset_dev is null); swap_every >= 1.  Returns cudaGetLastError() after
-// the launch.
+// pointer but `leaves` is a device pointer: coords (ntemps, nw, nd),
+// log_like, log_prior and log_prob (ntemps, nw), betas (ntemps,) float32,
+// counts (ntemps - 1,) int64; u == nullptr draws the uniforms in the
+// kernel, otherwise u is (ntemps / 2, nw) with row k the uniforms of the
+// parity's k-th pair.  The step is *offset_dev + offset (offset alone when
+// offset_dev is null); swap_every >= 1.  `leaves` is a host array of
+// `nleaves` (at most kMaxLeaves) user blob leaf descriptors, each with
+// row_bytes > 0; it is copied into the launch's parameters.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue, and no
+// launch, for more than kMaxLeaves leaves).
 extern "C" int emcee_pt_swap(float* coords, float* log_like,
                              float* log_prior, float* log_prob,
                              const float* betas, long long* counts,
                              const float* u, int ntemps, int nw, int nd,
                              int swap_every, unsigned long long seed,
                              const long long* offset_dev,
-                             unsigned long long offset, void* stream) {
+                             unsigned long long offset,
+                             const SwapLeaf* leaves, int nleaves,
+                             void* stream) {
+  if (nleaves < 0 || nleaves > kMaxLeaves) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((nw + kThreads - 1) / kThreads, ntemps / 2);
-  pt_swap_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, log_like, log_prior, log_prob, betas,
-      reinterpret_cast<unsigned long long*>(counts), u, ntemps, nw, nd,
-      swap_every, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* cnt = reinterpret_cast<unsigned long long*>(counts);
+  const uint32_t k0 = static_cast<uint32_t>(seed);
+  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  if (nleaves == 0) {
+    pt_swap_kernel<NoLeaves><<<grid, kThreads, 0, st>>>(
+        coords, log_like, log_prior, log_prob, betas, cnt, u, ntemps, nw, nd,
+        swap_every, k0, k1, offset_dev, offset, NoLeaves{});
+  } else {
+    SwapLeaves table{};
+    table.n = nleaves;
+    for (int l = 0; l < nleaves; ++l) table.leaf[l] = leaves[l];
+    pt_swap_kernel<SwapLeaves><<<grid, kThreads, 0, st>>>(
+        coords, log_like, log_prior, log_prob, betas, cnt, u, ntemps, nw, nd,
+        swap_every, k0, k1, offset_dev, offset, table);
+  }
   return static_cast<int>(cudaGetLastError());
 }

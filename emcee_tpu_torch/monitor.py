@@ -10,7 +10,10 @@ With a :class:`~.backends.DeviceBackend` the monitor reads the device
 rows (``backend.chain[:backend.iteration]``), not ``get_chain()``, which
 returns a numpy copy: tau's FFTs and the R-hat run on the card, and only
 their ``(n_param,)`` results cross to the host, as the JAX monitor's do
-(``emcee_tpu/monitor.py:56-60``).
+(``emcee_tpu/monitor.py:56-60``).  A :class:`~.parallel.PTSampler` is
+judged on its cold rung (``get_chain(temp=0)``, the rows whose samples
+are the posterior's), as the JAX monitor judges it
+(``emcee_tpu/monitor.py:101-118``).
 """
 
 from __future__ import annotations
@@ -82,11 +85,13 @@ class ConvergenceMonitor:
 def stored_chain(sampler):
     """The sampler's stored chain as the monitor reads it: the device
     rows of a device-resident backend (no host copy), else
-    ``get_chain()``."""
+    ``get_chain()``; a tempered sampler's cold rung."""
     backend = sampler.backend
+    tempered = hasattr(sampler, "betas")
     if getattr(backend, "wants_device_arrays", False):
-        return backend.chain[:backend.iteration]
-    return sampler.get_chain()
+        rows = backend.chain[:backend.iteration]
+        return rows[:, 0] if tempered else rows
+    return sampler.get_chain(temp=0) if tempered else sampler.get_chain()
 
 
 def run_until_converged(sampler, initial_state, max_steps=100_000,
@@ -98,11 +103,6 @@ def run_until_converged(sampler, initial_state, max_steps=100_000,
     ``(last sample, monitor)``; ``monitor.tau`` holds the final
     estimate.  Each block after the first resumes the sampler's previous
     run (``run_mcmc(None, n)``)."""
-    if hasattr(sampler, "betas"):
-        raise NotImplementedError(
-            "run_until_converged on a PTSampler (judged on the cold rung) "
-            "is not ported yet (ROADMAP P11b)"
-        )
     if monitor is None:
         monitor = ConvergenceMonitor()
     state = initial_state

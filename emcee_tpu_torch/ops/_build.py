@@ -117,6 +117,7 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps nw nd
         ctypes.c_int,  # swap_every
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
+        _P, ctypes.c_int,  # user blob leaves (host array), their number
         _P,  # stream
     ],
 }

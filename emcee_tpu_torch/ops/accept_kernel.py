@@ -48,9 +48,11 @@ never converted).
 The rung axis (parallel tempering): the ensemble buffers may be ``(T,
 nwalkers, ...)``, ``T`` ensembles of one ladder, with ``q`` ``(T, ng,
 ndim)``, ``factor``, ``lp_q`` and ``log_u`` ``(T, ng)`` and each blob
-leaf's new rows ``(T, ng, ...)`` and buffer ``(T, nwalkers, ...)``.  Rung
-``r``'s split group is its rows ``split*ng .. +ng``, and it draws its
-accept uniform under its own key (``seed`` is then a
+leaf's new rows ``(T, ng, ...)`` and buffer ``(T, nwalkers, ...)``,
+through either leaf path (:func:`leaf_plan`; 8-byte scalar leaves take
+phase C there).
+Rung ``r``'s split group is its rows ``split*ng .. +ng``, and it draws
+its accept uniform under its own key (``seed`` is then a
 :class:`~.philox.RungKeys`).  One launch serves every rung; the plain
 version draws every rung's words in one pass and selects elementwise
 over the rungs, so each rung equals the same rung selected alone.
@@ -125,7 +127,7 @@ def blob_unit(src_ptr, dst_ptr, row_bytes):
     return 1
 
 
-def leaf_plan(leaves):
+def leaf_plan(leaves, rungs=False):
     """How K2 selects blob leaves ``(src, dst, row bytes)``: ``([(src,
     dst, row bytes, unit, inv_upr), ...], row_unit)``, the kernel's
     descriptor of each leaf and the row unit.  Where every leaf's row is
@@ -133,10 +135,14 @@ def leaf_plan(leaves):
     ``ROW_LEAVES`` of them, the row unit is that unit: each walker's
     thread reads its row of every leaf into registers before the
     decision.  Otherwise it is 0, and the leaves are read after the
-    decision (phase C)."""
+    decision (phase C).  On the rung axis (``rungs``) the register path
+    is built for 4-byte units only (the tempered ``logL`` and ``logP``
+    and up to two user scalars beside them); 8-byte scalar leaves take
+    phase C there."""
     units = [blob_unit(src, dst, row) for src, dst, row in leaves]
     row_unit = 0
-    if (0 < len(leaves) <= ROW_LEAVES and units[0] in ROW_UNITS
+    if (0 < len(leaves) <= ROW_LEAVES
+            and units[0] in ((4,) if rungs else ROW_UNITS)
             and all(u == units[0] == row
                     for u, (_, _, row) in zip(units, leaves))):
         row_unit = units[0]
@@ -240,13 +246,9 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
             or not count.is_contiguous()):
         raise ValueError(f"count must be a contiguous {lead + (nw,)} int32 "
                          f"tensor on {dev}")
-    leaves = blob_leaves(blobs, ng, nw, dev, lead)
-    leaves, row_unit = leaf_plan(leaves)
-    rung_launch = (lead and lead[0] > 1) or isinstance(seed, RungKeys)
-    if rung_launch and leaves and row_unit != 4:
-        raise ValueError(
-            f"K2's rung axis takes at most {ROW_LEAVES} blob leaves whose "
-            f"rows are each one 4-byte unit (the tempered logL and logP)")
+    rung_launch = bool(lead and lead[0] > 1) or isinstance(seed, RungKeys)
+    leaves, row_unit = leaf_plan(blob_leaves(blobs, ng, nw, dev, lead),
+                                 rungs=rung_launch)
     plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
                      q.data_ptr(), stage=True, rungs=lead[0] if lead else 1,
                      nsplits=nsplits)

@@ -22,6 +22,16 @@ coords row, ``log_like`` and ``log_prior`` change rungs, its ``log_prob``
 on each rung is formed anew from them (``-inf`` where ``log_prior`` is
 not above ``-inf``), and ``counts[lo]`` counts it.
 
+``leaves`` are the user blob leaves of the likelihood, each a contiguous
+``(T, nwalkers, ...)`` buffer of any dtype and row shape: an accepted
+walker's row of every leaf changes rungs with its coords row, as the JAX
+package exchanges every leaf of ``(coords, logL, logP, blobs)`` together
+(``:573-580``).  The kernel copies bytes (the largest unit of 16, 8, 4,
+2 and 1 bytes that divides the leaf's base and row,
+:func:`swap_leaves`), never converts them, so the plain version's
+``torch.where`` and the kernel agree bit for bit.  One launch takes up to
+``SWAP_LEAVES`` leaves; more raise.
+
 :func:`pt_swap` launches the kernel for CUDA tensors and uses
 :func:`pt_swap_plain` for CPU tensors; it never falls back from one to
 the other.  ``pt_swap.launches`` counts kernel launches (and
@@ -31,6 +41,8 @@ the other.  ``pt_swap.launches`` counts kernel launches (and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ._wrap import check_f32, count_launches, launch, ptr, rng_args
@@ -38,11 +50,49 @@ from .philox import (
     SWAP_BLOCK, RungKeys, philox4x32, split_key, split_offset, to_uniform)
 from .philox import _cpu_offset as _step  # a device word is read: a sync
 
-__all__ = ["SWAP_THREADS", "pt_swap", "pt_swap_plain", "swap_pairs",
-           "tempered_log_prob"]
+__all__ = ["SWAP_LEAVES", "SWAP_THREADS", "pt_swap", "pt_swap_plain",
+           "swap_leaves", "swap_pairs", "tempered_log_prob"]
 
 #: threads a block of the kernel (kThreads in csrc/pt_swap.cu)
 SWAP_THREADS = 128
+#: user blob leaves one launch exchanges (kMaxLeaves in csrc/pt_swap.cu)
+SWAP_LEAVES = 16
+
+
+class _SwapLeaf(ctypes.Structure):
+    """One user blob leaf as the C entry point takes it (``SwapLeaf`` in
+    ``csrc/pt_swap.cu``)."""
+
+    _fields_ = [("base", ctypes.c_void_p), ("row_bytes", ctypes.c_int),
+                ("unit", ctypes.c_int)]
+
+
+def swap_leaves(leaves, ntemps, nw, device):
+    """The kernel's descriptors ``(base pointer, row bytes, unit)`` of
+    checked user blob leaves (each row of a byte or more; empty rows are
+    left out): the unit is the largest of 16, 8, 4, 2 and 1 bytes that
+    divides both the base address and the row, so no unit holds bytes of
+    two walkers."""
+    out = []
+    for leaf in leaves:
+        if (leaf.device != device or leaf.dim() < 2
+                or tuple(leaf.shape[:2]) != (ntemps, nw)
+                or not leaf.is_contiguous()):
+            raise ValueError(
+                f"a blob leaf must be a contiguous ({ntemps}, {nw}, ...) "
+                f"tensor on {device}, got {tuple(leaf.shape)} on "
+                f"{leaf.device}")
+        row = leaf[0, 0].numel() * leaf.element_size()
+        if not row:
+            continue
+        base = leaf.data_ptr()
+        unit = next(u for u in (16, 8, 4, 2, 1)
+                    if not (base % u or row % u))
+        out.append((base, row, unit))
+    if len(out) > SWAP_LEAVES:
+        raise ValueError(f"K15 exchanges at most {SWAP_LEAVES} blob leaves "
+                         f"a launch, got {len(out)}")
+    return out
 
 
 def swap_pairs(step, ntemps, swap_every):
@@ -67,10 +117,11 @@ def _chain_seed(seed):
 
 
 def pt_swap_plain(coords, log_like, log_prior, log_prob, betas, counts, *,
-                  seed=0, offset=0, swap_every=1, u=None):
+                  seed=0, offset=0, swap_every=1, u=None, leaves=()):
     """Plain PyTorch K15: the swap of the proposal at ``offset``, in place.
     ``u`` ``(P, nwalkers)`` injects the uniforms of the step's ``P``
-    pairs."""
+    pairs; ``leaves`` are the user blob leaves that move with the
+    walkers."""
     ntemps, nw = log_like.shape
     step = _step(offset)
     pairs = swap_pairs(step, ntemps, swap_every)
@@ -88,7 +139,7 @@ def pt_swap_plain(coords, log_like, log_prior, log_prob, betas, counts, *,
     b_lo, b_hi = betas[lo], betas[hi]
     acc = torch.log(u) < (b_lo - b_hi)[:, None] * (log_like[hi]
                                                    - log_like[lo])
-    for arr in (coords, log_like, log_prior):
+    for arr in (coords, log_like, log_prior, *leaves):
         m = acc.view(acc.shape + (1,) * (arr.dim() - 2))
         a_lo, a_hi = arr[lo], arr[hi]
         arr[lo] = torch.where(m, a_hi, a_lo)
@@ -101,12 +152,13 @@ def pt_swap_plain(coords, log_like, log_prior, log_prob, betas, counts, *,
 
 
 def pt_swap(coords, log_like, log_prior, log_prob, betas, counts, *, seed=0,
-            offset=0, swap_every=1, u=None):
+            offset=0, swap_every=1, u=None, leaves=()):
     """K15 on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Launches nothing where no proposal
     swaps (``swap_every < 1`` or fewer than two rungs)."""
     args = (coords, log_like, log_prior, log_prob, betas, counts)
-    kw = dict(seed=seed, offset=offset, swap_every=swap_every, u=u)
+    kw = dict(seed=seed, offset=offset, swap_every=swap_every, u=u,
+              leaves=leaves)
     if coords.device.type == "cpu":
         return pt_swap_plain(*args, **kw)
     if coords.device.type != "cuda":
@@ -133,10 +185,14 @@ def pt_swap(coords, log_like, log_prior, log_prob, betas, counts, *, seed=0,
         step = _step(offset)  # injected draws: the parity is the host's
         check_f32("u", u, dev, (len(swap_pairs(step, ntemps, swap_every)),
                                 nw))
+    table = swap_leaves(leaves, ntemps, nw, dev)
+    descs = (_SwapLeaf * max(1, len(table)))(*[_SwapLeaf(*d)
+                                                for d in table])
     launch("pt_swap", dev, coords.data_ptr(), log_like.data_ptr(),
            log_prior.data_ptr(), log_prob.data_ptr(), betas.data_ptr(),
            counts.data_ptr(), ptr(u), ntemps, nw, nd, int(swap_every),
-           *rng_args(_chain_seed(seed), offset, dev))
+           *rng_args(_chain_seed(seed), offset, dev),
+           ctypes.addressof(descs), len(table))
     count_launches(pt_swap)
     return None
 

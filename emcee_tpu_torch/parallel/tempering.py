@@ -28,12 +28,35 @@ package counts from ``backend.iteration * thin_by`` of a stored run and
 from 0 of an unstored one.  The swap counts proposed are computed on the
 host from the same steps (:meth:`PTSampler._count_proposed_delta`).
 
+A weighted move list runs as the JAX package's does: one move a proposal
+for every rung, or one a block of ``mixture_block`` kept steps, drawn on
+the host from the chain's seed (``driver.move_sequence``); the chunk
+program runs each stretch of equal moves, the stretch move on every rung
+at once and any other move rung by rung.  The looped moves
+(``EnsembleSliceMove``, ``ChEESHMCMove``) run their loops rung by rung,
+each rung's by replays of its own graphs.
+
+User blobs of ``log_like_fn`` (the prior's are ignored) ride with the
+walkers: K2 selects them with the rows, K15 exchanges them with the
+walkers, and the backends store them ``(it, T, nwalkers, ...)``.
+``io_dtype`` casts the stored coords and float blob leaves on the card;
+``parameter_names`` hands both functions dicts of named parameters.
+
+``adaptive=True`` adapts the ladder after every chunk (Vousden et al.
+2016; :meth:`PTSampler._adapt_ladder`, the JAX package's arithmetic on
+the host) from the swap counts the run reads anyway; the new ladder is
+copied into the chunk program's ``betas`` and the tempered log-prob
+formed again, and ``self.betas`` commits with the chunk's save.  Since
+the ladder changes at chunk boundaries, the chunk schedule is part of
+the result: an adaptive run cuts its chunks where the JAX package cuts
+them under its default configuration (float32 walkers, a cap of 4096
+kept steps, every stored byte of a kept step counted against
+``io_chunk_bytes``; :meth:`PTSampler._max_chunk`), so that the same swap
+counts give the same ladder.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: more than one move, ``mixture_block > 1``,
-``adaptive=True``, ``io_dtype``, ``parameter_names``, user blobs of
-``log_like_fn``, the looped moves and ``PTHDFBackend`` (P11b); ``pool``,
-``host_callback``, ``host_callback_blobs`` and progress bars (P12);
-``mesh``, ``temp_axis`` and ``param_axis`` (P13).
+ROADMAP item: ``pool``, ``host_callback``, ``host_callback_blobs`` and
+progress bars (P12); ``mesh``, ``temp_axis`` and ``param_axis`` (P13).
 """
 
 from __future__ import annotations
@@ -47,22 +70,22 @@ import torch
 from .. import moves as _moves_mod
 from ..autocorr import integrated_time
 from ..backends.pt import PTBackend
-from ..chunk_graph import TemperedProgram, clone_carry
-from ..driver import chunk_schedule, parse_moves, shim_thin, torch_dtype
+from ..chunk_graph import TemperedProgram, blob_signature, clone_carry
+from ..driver import (
+    chunk_replays, chunk_schedule, grow_blobs_template, move_sequence,
+    parse_io_dtype, parse_moves, shim_thin, stored_dtype, torch_dtype)
 from ..model import wrap_log_prob_fn
 from ..ops.philox import rung_keys
-from ..sampler import RunStats
+from ..sampler import RunStats, _check_parameter_names, _torch_dtype_or_none
 from ..state import resolve_device, walkers_independent
-from ..utils import defer_interrupts
+from ..utils import (
+    defer_interrupts, tree_leaves, tree_map, tree_unflatten)
 
 __all__ = ["PTSampler", "PTState", "default_beta_ladder"]
 
-#: constructor arguments of the JAX sampler that this slice does not
-#: port: name -> (default, ROADMAP item)
+#: constructor arguments of the JAX sampler that are not ported yet:
+#: name -> (default, ROADMAP item)
 _NOT_PORTED = {
-    "adaptive": (False, "P11b"),
-    "io_dtype": (None, "P11b"),
-    "parameter_names": (None, "P11b"),
     "pool": (None, "P12"),
     "host_callback": (False, "P12"),
     "host_callback_blobs": (None, "P12"),
@@ -83,10 +106,15 @@ def default_beta_ladder(ntemps, ndim, max_temp=None):
     return np.exp(np.linspace(0.0, -np.log(max_temp), ntemps))
 
 
+#: the likelihood's blob structure before its first evaluation
+_UNKNOWN = object()
+
+
 class PTState(NamedTuple):
     """Snapshot of the tempered ensemble; leading axes ``(ntemps,
     nwalkers)``.  ``random_state`` is the port's ``(seed, offset)``;
-    ``blobs`` (user blobs of the likelihood) is always None until P11b."""
+    ``blobs`` holds the user blobs of the likelihood (a pytree of ``(T,
+    nwalkers, ...)`` leaves), or None."""
 
     coords: Any  # (T, nw, nd)
     log_like: Any  # (T, nw)
@@ -108,8 +136,9 @@ class PTState(NamedTuple):
 
 
 class _Chunk(NamedTuple):
-    """A chunk's kept rows (``(coords, log_like, log_prior, accepted)``,
-    or None unstored), the swap counts and anchors after it."""
+    """A chunk's kept rows (``(coords, log_like, log_prior, accepted,
+    blob rows)``, or None unstored), the swap counts and anchors after
+    it."""
 
     rows: Optional[tuple]
     swaps: torch.Tensor
@@ -128,20 +157,34 @@ class PTSampler:
         log_like_fn: log likelihood of one ``(ndim,)`` vector (lifted
             with ``torch.func.vmap``), or of an ``(n, ndim)`` batch with
             ``vectorize=True``; ``args`` / ``kwargs`` are passed to it.
+            It may return blobs after the value, as the JAX package's
+            may; they ride with the walkers.
         log_prior_fn: log prior, same convention (no extra arguments, as
             in the JAX package).
         betas: explicit inverse-temperature ladder (default:
             :func:`default_beta_ladder`).
-        moves: one move (default ``StretchMove()``).
+        moves: a move, a list of moves or a weighted ``[(move, weight),
+            ...]`` list (default ``StretchMove()``).
         swap_every: proposals between swap attempts (default 1).
+        adaptive: adapt the ladder after every chunk toward equal
+            adjacent swap acceptance, ``adaptation_lag`` and
+            ``adaptation_time`` setting the decay (Vousden et al. 2016).
         seed: int seed of the Philox stream.
-        backend: a :class:`~..backends.PTBackend` (default) or
-            :class:`~..backends.PTDeviceBackend`.
+        backend: a :class:`~..backends.PTBackend` (default),
+            :class:`~..backends.PTDeviceBackend` or
+            :class:`~..backends.PTHDFBackend`.
         io_chunk_bytes: bytes of one chunk's stored rows, which sets the
             kept steps per chunk of a stored run.
-        walker_axis, scan_unroll, adaptation_lag, adaptation_time:
-            accepted; meaningful once mesh, scan and adaptive ladders are
-            ported.
+        io_dtype: optional float dtype of the stored coords and float
+            blob leaves (cast on the card); the log-likelihood and
+            log-prior are stored in the backend's dtype.
+        parameter_names: a list of names or a dict from names to an index
+            or index list: both functions then take a dict of named
+            parameters.
+        mixture_block: with several moves, draw the move once per block
+            of this many kept steps.
+        walker_axis, scan_unroll: accepted; meaningful once a mesh and
+            the scan are ported.
         device: where the walkers live; ``None`` means ``"cuda"``.
     """
 
@@ -154,9 +197,7 @@ class PTSampler:
                  scan_unroll=4, io_dtype=None, parameter_names=None,
                  host_callback=False, pool=None, host_callback_blobs=None,
                  mixture_block=1, device=None):
-        given = dict(adaptive=adaptive, io_dtype=io_dtype,
-                     parameter_names=parameter_names, pool=pool,
-                     host_callback=host_callback,
+        given = dict(pool=pool, host_callback=host_callback,
                      host_callback_blobs=host_callback_blobs, mesh=mesh,
                      temp_axis=temp_axis, param_axis=param_axis)
         for name, (default, item) in _NOT_PORTED.items():
@@ -175,7 +216,7 @@ class PTSampler:
             raise ValueError(f"betas holds {self.ntemps} rungs, ntemps is "
                              f"{ntemps}")
         self.swap_every = int(swap_every)
-        self.adaptive = False
+        self.adaptive = bool(adaptive)
         self.adaptation_lag = float(adaptation_lag)
         self.adaptation_time = float(adaptation_time)
         self.walker_axis = walker_axis
@@ -184,16 +225,6 @@ class PTSampler:
         self._mixture_block = int(mixture_block)
         if self._mixture_block < 1:
             raise ValueError("mixture_block must be >= 1")
-        if len(self._moves) > 1 or self._mixture_block > 1:
-            raise NotImplementedError(
-                "PTSampler with more than one move (and mixture_block) is "
-                "not ported yet (ROADMAP P11b)"
-            )
-        if self._moves[0].looped:
-            raise NotImplementedError(
-                f"{type(self._moves[0]).__name__} in a PTSampler (a looped "
-                "move on every rung) is not ported yet (ROADMAP P11b)"
-            )
         if not isinstance(seed, (int, np.integer)):
             raise TypeError("seed must be an int")
         self._rng = (int(seed) & 0xFFFFFFFFFFFFFFFF, 0)
@@ -202,21 +233,28 @@ class PTSampler:
         self._io_chunk_bytes = int(io_chunk_bytes)
         if self._io_chunk_bytes < 1:
             raise ValueError("io_chunk_bytes must be >= 1")
+        self._io_dtype = parse_io_dtype(io_dtype)
+        self.parameter_names = (
+            None if parameter_names is None
+            else _check_parameter_names(parameter_names, self.ndim,
+                                        vectorize))
         self._log_like_fn = log_like_fn
         self._log_prior_fn = log_prior_fn
-        # Extra arguments reach the likelihood only (the JAX package's
-        # _like_settings and _lp_settings).
+        # Extra arguments reach the likelihood only, named parameters both
+        # functions (the JAX package's _like_settings and _lp_settings).
+        self._prior_settings = dict(vectorize=vectorize,
+                                    parameter_names=self.parameter_names)
         self._like_settings = dict(args=args, kwargs=kwargs,
-                                   vectorize=vectorize)
-        self._prior_settings = dict(vectorize=vectorize)
+                                   **self._prior_settings)
+        self._blob_signature = _UNKNOWN
         self._wrap_fns()
         # K3's tempered program (made at the first run); the private
         # switches: _use_graphs (off: the eager loop on the card, the
-        # reference) and _batched (off: the per-rung loop in place of the
-        # rung-batched proposal).
+        # reference) and _batched (off: every move loops over the rungs,
+        # the rung-batched stretch move too).
         self._program = None
         self._use_graphs = self.device.type == "cuda"
-        self._batched = bool(getattr(self._moves[0], "rung_batched", False))
+        self._batched = True
         self._move_carries = None
         self.last_run_stats = None
 
@@ -257,6 +295,7 @@ class PTSampler:
 
     def __setstate__(self, d):
         self.__dict__.update(d)
+        self._blob_signature = _UNKNOWN
         self._wrap_fns()
 
     def reset(self):
@@ -313,18 +352,25 @@ class PTSampler:
         return tuple(out)
 
     def _prepare_state(self, initial_state, skip_check=False, trusted=False):
-        """The checked initial state on the device, with its ``log_like``
-        and ``log_prior`` (evaluated when missing)."""
+        """The checked initial state on the device, with its ``log_like``,
+        ``log_prior`` and user blobs (evaluated when missing).  A resumed
+        state with blobs whose likelihood returns none raises; one
+        without blobs whose likelihood returns some is evaluated again
+        (``emcee_tpu/parallel/tempering.py:981-1010``)."""
         if isinstance(initial_state, PTState):
             state = initial_state
         else:
             state = PTState(coords=initial_state, log_like=None,
                             log_prior=None)
-        if state.blobs is not None:
-            raise NotImplementedError(
-                "user blobs of a tempered chain are not ported yet "
-                "(ROADMAP P11b)"
-            )
+        ll, lpr, blobs = state.log_like, state.log_prior, state.blobs
+        io = self._io_dtype
+        if (io is not None and io.itemsize < 4
+                and _torch_dtype_or_none(
+                    getattr(state.coords, "dtype", None)) == io):
+            # Resuming from a store of reduced precision: sample in float32
+            # and evaluate again, since the stored values belong to the
+            # unrounded coords (emcee_tpu/parallel/tempering.py:932-951).
+            ll = lpr = blobs = None
         coords = self._to_device(state.coords)
         shape = (self.ntemps, self.nwalkers, self.ndim)
         if tuple(coords.shape) != shape:
@@ -339,23 +385,57 @@ class PTSampler:
                     )
         rs = state.random_state
         rs = self._rng if rs is None else (int(rs[0]), int(rs[1]))
-        if state.log_like is None or state.log_prior is None:
-            flat = coords.reshape(-1, self.ndim)
-            ll, blobs = self._log_like(flat)
-            if blobs is not None:
-                raise NotImplementedError(
-                    "user blobs of log_like_fn in a PTSampler are not "
-                    "ported yet (ROADMAP P11b)"
-                )
-            lpr, _ = self._log_prior(flat)
-            ll = ll.reshape(self.ntemps, self.nwalkers)
-            lpr = lpr.reshape(self.ntemps, self.nwalkers)
-            if bool(torch.isnan(ll).any()) or bool(torch.isnan(lpr).any()):
-                raise ValueError("The initial log-likelihood was NaN")
-        else:
-            ll = self._to_device(state.log_like)
-            lpr = self._to_device(state.log_prior)
-        return PTState(coords, ll, lpr, rs)
+        if ll is None or lpr is None:
+            ll, lpr, blobs = self._evaluate(coords)
+            return PTState(coords, ll, lpr, rs, blobs)
+        ll, lpr = self._to_device(ll), self._to_device(lpr)
+        if self._blob_signature is _UNKNOWN:
+            self._evaluate(coords, check=False)
+        sig = self._blob_signature
+        if blobs is not None:
+            if sig is None:
+                raise ValueError(
+                    "inconsistent use of blobs: the resumed state carries "
+                    "blobs but the log-likelihood returns none")
+            blobs = self._blobs_to_device(blobs, sig)
+        elif sig is not None:
+            ll, lpr, blobs = self._evaluate(coords)
+            return PTState(coords, ll, lpr, rs, blobs)
+        return PTState(coords, ll, lpr, rs, blobs)
+
+    def _evaluate(self, coords, check=True):
+        """``(logL, logP, user blobs)`` of every walker of ``(T, nwalkers,
+        ndim)`` device coords, noting the blobs' structure; with
+        ``check``, a NaN raises."""
+        T, nw = self.ntemps, self.nwalkers
+        flat = coords.reshape(-1, self.ndim)
+        ll, blobs = self._log_like(flat)
+        lpr, _ = self._log_prior(flat)
+        ll, lpr = ll.reshape(T, nw), lpr.reshape(T, nw)
+        blobs = tree_map(lambda b: b.reshape((T, nw) + b.shape[1:]), blobs)
+        self._blob_signature = blob_signature(blobs)
+        if check and (bool(torch.isnan(ll).any())
+                      or bool(torch.isnan(lpr).any())):
+            raise ValueError("The initial log-likelihood was NaN")
+        return ll, lpr, blobs
+
+    def _blobs_to_device(self, blobs, sig):
+        """A given state's user blobs as device tensors in the structure
+        and dtypes the likelihood returns; other leaves raise."""
+        leaves = tree_leaves(blobs)
+        out = []
+        if len(leaves) == len(sig[1]):
+            for leaf, (shape, dt) in zip(leaves, sig[1]):
+                t = (leaf.detach() if isinstance(leaf, torch.Tensor)
+                     else torch.as_tensor(np.asarray(leaf)))
+                if tuple(t.shape) != shape:
+                    break
+                out.append(t.to(device=self.device, dtype=dt))
+        if len(out) != len(sig[1]):
+            raise ValueError(
+                "inconsistent use of blobs: the state's blobs do not match "
+                "the leaves the log-likelihood returns")
+        return tree_unflatten(sig[0], out)
 
     def _count_proposed_delta(self, lo, hi):
         """Swap attempts per pair for the proposals at steps ``[lo, hi)``:
@@ -374,64 +454,132 @@ class PTSampler:
                 out[parity: self.ntemps - 1: 2] += cnt * self.nwalkers
         return out
 
-    def _max_chunk(self, store):
-        """Kept steps a chunk, its stored rows under ``io_chunk_bytes``."""
+    def _max_chunk(self, blobs=None, store=True):
+        """Kept steps a chunk.  With ``adaptive=True``, the JAX package's
+        (``emcee_tpu/parallel/tempering.py:1130-1158`` under its default
+        float32): every byte of a kept step's rows (coords in
+        ``io_dtype``, three 4-byte values a walker, the blob leaves, float
+        ones in ``io_dtype``) under ``io_chunk_bytes``, at most 4096, so
+        the ladder adapts where the JAX package's does.  Otherwise the
+        port's: the stored rows in their stored dtypes under
+        ``io_chunk_bytes``, at most 4096 into a host backend and 16384
+        into a device backend or unstored."""
+        io = self._io_dtype
+        n_tw = self.ntemps * self.nwalkers
+        leaf_bytes = sum(
+            leaf.numel() * (io.itemsize if io is not None
+                            and leaf.is_floating_point()
+                            else leaf.element_size())
+            for leaf in map(torch.as_tensor, tree_leaves(blobs)))
+        if self.adaptive:
+            row = (n_tw * self.ndim * (io.itemsize if io else 4)
+                   + 3 * n_tw * 4 + leaf_bytes)
+            return max(1, min(4096, self._io_chunk_bytes // max(1, row)))
         device_rows = getattr(self.backend, "wants_device_arrays", False)
         cap = 16384 if not store or device_rows else 4096
         if store:
             item = 4 if device_rows else np.dtype(self.backend.dtype).itemsize
-            n_tw = self.ntemps * self.nwalkers
-            row = n_tw * (self.ndim * item + 2 * item + 1)
+            row = n_tw * (self.ndim * (io.itemsize if io else item)
+                          + 2 * item + 1) + leaf_bytes
             cap = min(cap, max(1, self._io_chunk_bytes // row))
         return cap
 
+    def _adapt_ladder(self, swaps, prev_swaps, chunk_props, done):
+        """Diminishing ladder adaptation (Vousden et al. 2016, eq. 11-12;
+        ``emcee_tpu/parallel/tempering.py:1057-1088``, the same arithmetic
+        in numpy): ``S_i = log(T_{i+1} - T_i)`` moves by ``kappa *
+        clip(A_i - A_{i+1}, -1, 1)`` (the last gap holds still), with
+        ``A`` the pairs' swap acceptance over the chunk and ``kappa =
+        (1 / adaptation_time) * lag / (done + lag)``; ``beta_0`` stays
+        pinned.  ``swaps`` are the run's accepted swaps per pair so far,
+        ``prev_swaps`` those before this chunk, ``chunk_props`` the
+        chunk's proposals and ``done`` the run's.  Returns the new ladder
+        and the new running swap counts; pure (the caller commits the
+        ladder with the chunk's save)."""
+        T = self.ntemps
+        if T < 3:
+            return np.asarray(self.betas), prev_swaps
+        cur = np.asarray(swaps, dtype=np.int64)[: T - 1]
+        delta = cur - prev_swaps
+        attempts = max(
+            (chunk_props // max(self.swap_every, 1)) * self.nwalkers // 2, 1)
+        A = delta / attempts
+        kappa = (1.0 / self.adaptation_time) * (
+            self.adaptation_lag / (done + self.adaptation_lag))
+        temps = 1.0 / self.betas
+        S = np.log(np.diff(temps))
+        grad = np.zeros(T - 1)
+        grad[: T - 2] = A[: T - 2] - A[1: T - 1]
+        S += kappa * np.clip(grad, -1.0, 1.0)
+        temps = np.concatenate([[temps[0]], temps[0] + np.cumsum(np.exp(S))])
+        return 1.0 / temps, cur
+
     # ------------------------------------------------------------------
     def _start(self, state, carries):
-        """The tempered program of ``state``'s seed, loaded with the
-        state, the ladder and the carries."""
+        """The tempered program of ``state``'s seed and blob structure,
+        loaded with the state, the ladder and the carries."""
         seed, offset = state.random_state
         prog = self._program
         if (prog is None or prog.seed != seed
-                or prog.batched != self._batched):
+                or prog.batched != self._batched
+                or prog.blob_signature != blob_signature(state.blobs)):
             prog = self._program = TemperedProgram(
                 self._moves, self._log_like, self._log_prior,
                 rung_keys(seed, self.ntemps, self.device), state.coords,
-                carries, self.swap_every, self._batched)
-        betas = torch.as_tensor(self.betas, dtype=self.dtype,
-                                device=self.device)
-        prog.load(state.coords, state.log_like, state.log_prior, betas,
-                  offset, carries)
+                carries, self.swap_every, self._batched, state.blobs)
+        prog.load(state.coords, state.log_like, state.log_prior,
+                  self._betas_tensor(self.betas), offset, carries,
+                  state.blobs)
         return prog, offset
 
-    def _chunk_rows(self, nkeep):
+    def _betas_tensor(self, betas):
+        return torch.as_tensor(np.asarray(betas), dtype=self.dtype,
+                               device=self.device)
+
+    def _chunk_rows(self, nkeep, blobs):
         """Where a chunk's kept steps go: a device backend's own rows, or
-        device buffers in the host backend's dtype."""
+        device buffers in the host backend's dtype (coords in
+        ``io_dtype``, blob leaves in their stored dtypes)."""
         T, nw, nd = self.ntemps, self.nwalkers, self.ndim
-        dev = self.device
+        dev, io = self.device, self._io_dtype
         accepted = torch.empty((nkeep, T, nw), dtype=torch.bool, device=dev)
         if getattr(self.backend, "wants_device_arrays", False):
-            return (*self.backend.reserve(nkeep, dev, self.dtype), accepted)
+            coords, ll, lpr, rows = self.backend.reserve(
+                nkeep, dev, io or self.dtype, self.dtype)
+            return coords, ll, lpr, accepted, rows
         dt = torch_dtype(np.dtype(self.backend.dtype))
-        return (torch.empty((nkeep, T, nw, nd), dtype=dt, device=dev),
+        rows = tree_map(lambda b: torch.empty(
+            (nkeep,) + tuple(b.shape), dtype=stored_dtype(b.dtype, io),
+            device=dev), blobs)
+        return (torch.empty((nkeep, T, nw, nd), dtype=io or dt, device=dev),
                 torch.empty((nkeep, T, nw), dtype=dt, device=dev),
-                torch.empty((nkeep, T, nw), dtype=dt, device=dev), accepted)
+                torch.empty((nkeep, T, nw), dtype=dt, device=dev), accepted,
+                rows)
 
     def _enqueue(self, prog, offset, nkeep, thin_by, store, tune):
-        """Enqueue one chunk of ``nkeep * thin_by`` proposals and copy its
-        kept rows; nothing waits for the device."""
+        """Enqueue one chunk of ``nkeep * thin_by`` proposals, the runs of
+        equal moves that the move sequence gives, and copy its kept rows;
+        nothing waits for the device."""
         ws = prog.ws
-        out = self._chunk_rows(nkeep) if store else None
-        if store:
-            for k in range(nkeep):
-                prog.run(0, thin_by, tune, self._use_graphs)
-                for rows, src in zip(out, (ws.coords, ws.log_like,
-                                           ws.log_prior, ws.accepted)):
+        out = self._chunk_rows(nkeep, ws.blobs) if store else None
+        seq = move_sequence(self._weights, prog.seed, offset, nkeep, thin_by,
+                            self._mixture_block)
+        done = 0
+        for i, n in chunk_replays(seq, thin_by if store else None):
+            prog.run(i, n, tune, self._use_graphs)
+            done += n
+            if store and done % thin_by == 0:
+                k = done // thin_by - 1
+                for rows, src in zip(out[:4], (ws.coords, ws.log_like,
+                                               ws.log_prior, ws.accepted)):
                     rows[k].copy_(src)
-        else:
-            prog.run(0, nkeep * thin_by, tune, self._use_graphs)
+                for rows, b in zip(tree_leaves(out[4]),
+                                   tree_leaves(ws.blobs)):
+                    rows[k].copy_(b)
         n = nkeep * thin_by
         state = PTState(ws.coords.clone(), ws.log_like.clone(),
-                        ws.log_prior.clone(), (prog.seed, offset + n))
+                        ws.log_prior.clone(), (prog.seed, offset + n),
+                        tree_map(torch.clone, ws.blobs))
         return _Chunk(out, ws.swaps[: max(self.ntemps - 1, 1)].clone(),
                       state, tuple(clone_carry(c) for c in ws.carries), n)
 
@@ -439,7 +587,9 @@ class PTSampler:
                skip_check, pregrow=None):
         """Advance the chain chunk by chunk (the engine of
         :meth:`run_mcmc` and :meth:`sample`); yields the state after each
-        chunk, once its rows and the resume anchors have committed."""
+        chunk, once its rows and the resume anchors have committed.
+        ``sizes`` may be a function of the prepared state (the schedule
+        counts the blobs' bytes)."""
         thin_by = int(thin_by)
         if thin_by <= 0:
             raise ValueError("Invalid thinning argument")
@@ -451,11 +601,16 @@ class PTSampler:
             initial_state = self._previous_state
             trusted = True
         state = self._prepare_state(initial_state, skip_check, trusted)
+        if callable(sizes):
+            sizes = sizes(state)
         if store and pregrow is not None:
-            self.backend.grow(pregrow)
+            self.backend.grow(pregrow, grow_blobs_template(state.blobs,
+                                                           self._io_dtype))
         carries = self._move_carries or self._init_carries()
         prog, offset = self._start(state, carries)
         proposed = np.zeros(max(self.ntemps - 1, 1), dtype=np.int64)
+        prev_swaps = np.zeros(max(self.ntemps - 1, 1), dtype=np.int64)
+        done = 0
         try:
             for n in sizes:
                 chunk = self._enqueue(prog, offset, int(n), thin_by, store,
@@ -463,7 +618,16 @@ class PTSampler:
                 proposed += self._count_proposed_delta(
                     offset, offset + chunk.proposals)
                 offset += chunk.proposals
-                self._commit(chunk, proposed)
+                done += chunk.proposals
+                swaps = chunk.swaps.cpu().numpy().astype(np.int64)
+                new_betas = None
+                if self.adaptive:
+                    new_betas, prev_swaps = self._adapt_ladder(
+                        swaps, prev_swaps, chunk.proposals, done)
+                    # The next chunk runs on the new ladder either way;
+                    # self.betas commits with the save.
+                    prog.set_betas(self._betas_tensor(new_betas))
+                self._commit(chunk, swaps, proposed, new_betas)
                 yield self._previous_state
         finally:
             if store and self.backend.initialized:
@@ -472,10 +636,11 @@ class PTSampler:
                 self._base_swaps_proposed = np.asarray(
                     self.backend.swaps_proposed, dtype=np.int64)
 
-    def _commit(self, chunk, proposed):
-        """Save a chunk and move the resume anchors to it, with SIGINT held
-        between the two."""
-        swaps = chunk.swaps.cpu().numpy().astype(np.int64)
+    def _commit(self, chunk, swaps, proposed, new_betas=None):
+        """Save a chunk and move the resume anchors (and an adapted
+        ladder) to it, with SIGINT held between the two: a save that
+        fails leaves ``self.betas`` at the ladder the backend holds."""
+        betas = self.betas if new_betas is None else new_betas
         with defer_interrupts():
             if chunk.rows is not None:
                 rs = chunk.state.random_state
@@ -483,11 +648,15 @@ class PTSampler:
                 prop_sw = self._base_swaps_proposed + proposed
                 if getattr(self.backend, "wants_device_arrays", False):
                     self.backend.commit(chunk.rows[3], acc_sw, prop_sw, rs,
-                                        self.betas)
+                                        betas)
                 else:
                     self.backend.save_chunk(
-                        *(r.cpu().numpy() for r in chunk.rows), acc_sw,
-                        prop_sw, rs, self.betas)
+                        *(r.cpu().numpy() for r in chunk.rows[:4]), acc_sw,
+                        prop_sw, rs, betas,
+                        blobs=tree_map(lambda r: r.cpu().numpy(),
+                                       chunk.rows[4]))
+            if new_betas is not None:
+                self.betas = np.asarray(new_betas, dtype=np.float64)
             self._previous_state = chunk.state
             self._move_carries = chunk.carries
             self._rng = chunk.state.random_state
@@ -512,7 +681,12 @@ class PTSampler:
             return self._prepare_state(
                 initial_state if initial_state is not None
                 else self._previous_state, skip_initial_state_check)
-        sizes = chunk_schedule(nsteps, self._max_chunk(store))
+        blk = self._mixture_block if len(self._moves) > 1 else 1
+
+        def sizes(state):
+            return chunk_schedule(nsteps,
+                                  self._max_chunk(state.blobs, store), blk)
+
         t0 = time.perf_counter()
         for _ in self._drive(initial_state, sizes, thin_by, store, tune,
                              skip_initial_state_check, pregrow=nsteps):
@@ -560,8 +734,10 @@ class PTSampler:
         return self.backend.get_log_prior(discard=discard, thin=thin)
 
     def get_blobs(self, discard=0, thin=1, temp=None):
-        """User blobs (None: the likelihood's blobs are not ported yet,
-        ROADMAP P11b)."""
+        """Stored user blobs with leaves ``(it, T, nwalkers, ...)`` (one
+        rung's with ``temp``), or None when the likelihood returns none;
+        :class:`~..backends.PTHDFBackend` rebuilds the pytree from its
+        record array."""
         return self.backend.get_blobs(discard=discard, thin=thin, temp=temp)
 
     def get_last_sample(self):
@@ -609,3 +785,4 @@ class PTSampler:
         keep[len(b) - 1:: -2] = True
         lnz2 = estimate(b[keep], ll[:, keep, :])
         return lnz, abs(lnz - lnz2)
+

@@ -161,15 +161,21 @@ def test_jax_state_continues_in_the_port():
                                rtol=1e-6)
 
 
-def test_blobs_and_the_hdf_backend_are_refused():
+def test_blobs_and_the_hdf_backend_are_refused(tmp_path):
+    """Blobs were refused until P11b ported them: both backends now store
+    a chunk's blobs and give them back, and ``PTHDFBackend`` opens."""
+    from emcee_tpu_torch.backends import PTHDFBackend
+
     b = PTBackend()
     b.reset(T, NW, ND)
-    with pytest.raises(NotImplementedError, match="ROADMAP P11b"):
-        b.grow(3, blobs=np.zeros(NW))
+    b.grow(3, blobs=np.zeros((T, NW)))
+    assert b.blobs.shape == (3, T, NW)
     d = PTDeviceBackend()
     d.reset(T, NW, ND)
-    with pytest.raises(NotImplementedError, match="ROADMAP P11b"):
-        d.save_chunk(np.zeros((1, T, NW, ND)), np.zeros((1, T, NW)),
-                     np.zeros((1, T, NW)), np.zeros((1, T, NW), bool),
-                     [0, 0], [0, 0], (0, 1), [1, 0.5, 0.2],
-                     blobs=np.zeros((1, T, NW)))
+    d.save_chunk(np.zeros((1, T, NW, ND)), np.zeros((1, T, NW)),
+                 np.zeros((1, T, NW)), np.zeros((1, T, NW), bool),
+                 [0, 0], [0, 0], (0, 1), [1, 0.5, 0.2],
+                 blobs=np.ones((1, T, NW)))
+    np.testing.assert_array_equal(d.get_blobs(), np.ones((1, T, NW)))
+    h = PTHDFBackend(str(tmp_path / "pt.h5"))
+    assert not h.initialized

@@ -440,23 +440,40 @@ def test_tempered_model_lifts_unvectorized_functions_over_all_rows():
     (dict(param_axis="p"), "P13"),
 ])
 def test_refusals_name_their_roadmap_item(kw, item):
+    """What P12 and P13 port is refused, naming the item; what P11b
+    ported (the cases named P11b) constructs and runs."""
+    if item == "P11b":
+        if "parameter_names" in kw:
+            s = PTSampler(4, 16, 2, lambda p: -0.5 * (p["a"]**2 + p["b"]**2),
+                          lambda p: torch.zeros(()), seed=3, device="cpu",
+                          **kw)
+        else:
+            s = pt(**kw)
+        s.run_mcmc(p0(), 2)
+        assert s.iteration == 2
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         pt(**kw)
 
 
-def test_run_time_refusals_name_their_roadmap_item():
+def test_run_time_refusals_name_their_roadmap_item(tmp_path):
+    """Progress bars are refused naming P12; what P11b ported (user blobs,
+    ``PTHDFBackend``, ``run_until_converged`` on the cold rung) runs."""
     from emcee_tpu_torch import run_until_converged
     from emcee_tpu_torch.backends import PTHDFBackend
 
     with pytest.raises(NotImplementedError, match="ROADMAP P12"):
         pt().run_mcmc(p0(), 2, progress=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP P11b"):
-        PTSampler(4, 16, 2, lambda x: (-0.5 * (x**2).sum(), x[0]), lp_box,
-                  device="cpu").run_mcmc(p0(), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP P11b"):
-        PTHDFBackend("chain.h5")
-    with pytest.raises(NotImplementedError, match="ROADMAP P11b"):
-        run_until_converged(pt(), p0(), max_steps=10, check_every=5)
+    s = PTSampler(4, 16, 2, lambda x: (-0.5 * (x**2).sum(), x[0]), lp_box,
+                  device="cpu")
+    s.run_mcmc(p0(), 2)
+    np.testing.assert_array_equal(s.get_blobs(), s.get_chain()[..., 0])
+    h = PTHDFBackend(str(tmp_path / "chain.h5"))
+    pt(backend=h).run_mcmc(p0(), 2)
+    assert h.iteration == 2
+    s = pt()
+    _, mon = run_until_converged(s, p0(), max_steps=10, check_every=5)
+    assert s.iteration == 10 and mon.tau.shape == (2,)
 
 
 def test_entry_points_run_on_the_card_by_default():
@@ -541,7 +558,7 @@ def per_rung_loop_oracle(mv, steps, ntemps=8):
 
     s = PTSampler(ntemps, 32, 1, log_like, log_prior, seed=0, moves=mv,
                   device="cpu")
-    assert not s._batched  # the per-rung loop
+    assert not getattr(mv, "rung_batched", False)  # the per-rung loop
     s.run_mcmc(np.random.default_rng(0).normal(size=(ntemps, 32, 1)),
                steps)
     cold = s.get_chain(temp=0, flat=True, discard=steps // 5)
