@@ -122,8 +122,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    plain versions bit for bit (1-16 rungs, 6-1000 walkers, ndim 1, 5, 8,
    nsplits 2 and 3, both pair modes, injected / host offset / device
    offset draws, one rung against the single-ensemble launch) and K15,
-   the swap (2-16 rungs, both parities, ``swap_every`` 1 and 3, NaN and
-   +-inf ``logL``, -inf ``logP``); (b) 64 graph-replayed tempered
+   the swap (2-16 rungs, ndim 1, 5 and 9, both parities, ``swap_every``
+   1 and 3, NaN and +-inf ``logL``, -inf ``logP``; the wrapper's launch
+   and blocks of 32, 64 and 128 threads); (b) 64 graph-replayed tempered
    proposals at 16 x 256 (runs of odd lengths, so replays start at both
    parities) against the plain versions' eager chain; (c) the
    rung-batched path against the per-rung loop, bit for bit, and both
@@ -131,8 +132,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    kept x ``thin_by=4``: walker-steps/s over all rungs, the cold rung's
    tau and ESS/s, the mean swap acceptance and the cold mode fraction,
    each held to its window, and ``PTDeviceBackend`` == ``PTBackend``;
-   (e) a profiled window held to exactly 2 K1, 2 K2 and 1 K15 a
-   proposal; (f) the rows of K1 and K2 with the rung axis and of K15.
+   (e) a profiled window held to exactly 2 K1, 2 K2, 1 K15 and 1 K14 (the
+   shuffle's sort keys) a proposal; (f) the rows of K1 and K2 with the
+   rung axis and of K15, and K15's time a launch over its block sizes.
    ``python3 chip_smoke.py 14`` runs phases 0, 1 and 14 alone.
 
 15. the rest of tempering (workload 4's configuration): (a) K2 with the
@@ -160,7 +162,22 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    the rung axis and of K15 with leaves.  ``python3 chip_smoke.py 15``
    runs phases 0, 1 and 15 alone.
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15.  Every
+16. K14, the counter-based Philox draws (``csrc/philox_draw.cu``): (a)
+   against its plain version (the torch rounds), ``torch.equal``, in
+   every kind (words, uniforms, normals) and dtype, 1 to 1e5+3 rows, 1
+   to 17 counters a row, lanes from 0 and above, the rung axis (1-16
+   rungs, with and without ``ROLL_LANE``), int and device blocks, host
+   and device offsets, the public draws against their ``plain=True``
+   twins, graph replays, and counters against ``philox4x32_scalar``;
+   (b) its row: device time a launch at workload 4's shape (phase 14's
+   replays) and at the DIME stage's (phase 12's), eagerly, back to
+   back and plain, beside its bounds.  ``python3 chip_smoke.py 16`` runs
+   phases 0, 1 and 16 alone (with a short workload-4 run of its own for
+   the replays).  Every path's exact launch counts (phases 4, 8, 10-15)
+   name K14's launches a proposal; the row gives those counted in this
+   run at workload 4 and (with phase 12) the DIME stage.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16.  Every
 phase raises on failure.  ``python3 chip_smoke.py sass-diff TREE``
 builds TREE's and this checkout's K1, K2 and K15 and compares their
 SASS function by function.
@@ -237,7 +254,8 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("langevin_kernel", "langevin_step"),
            ("langevin_kernel", "langevin_factor"),
            ("langevin_kernel", "leapfrog"),
-           ("swap_kernel", "pt_swap"))
+           ("swap_kernel", "pt_swap"),
+           ("philox_kernel", "philox_draw"))
 #: ndims and rows of K11-K13's edge-shape sweep (phase 13)
 GRAD_SWEEP_NDS = (1, 2, 3, 5, 7, 16, 100, 128)
 GRAD_SWEEP_ROWS = (1, 2, 31, 5003, 100_000)
@@ -358,8 +376,9 @@ def profile_window(torch, fn, primer=False):
     ``{kernel name: (launches, device microseconds)}`` for every kernel
     the card ran in the window (empty if the profiler saw none).
 
-    With ``primer``, ``fn`` runs once more just before the window, in the
-    same trace, and only the events after the window's mark are kept:
+    With ``primer``, ``fn`` (or ``primer`` itself, a function) runs just
+    before the window, in the same trace, and only the events after the
+    window's mark are kept:
     late in a long process the profiler loses the first card events of a
     trace (the first ~30 us of work, window after window, in the whole
     script; never with phase 13 alone)."""
@@ -370,7 +389,7 @@ def profile_window(torch, fn, primer=False):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         if primer:
-            fn()
+            (primer if callable(primer) else fn)()
         torch.cuda.synchronize()
         with record_function(mark) if primer else contextlib.nullcontext():
             t0 = time.perf_counter()
@@ -454,14 +473,16 @@ def device_ms(kernels, kname):
     return sum(us for _, us in hits) / sum(c for c, _ in hits) * 1e-3
 
 
-def profiled_ms(torch, fn, kname, tries=6):
+def profiled_ms(torch, fn, kname, tries=6, primer=False):
     """Mean device ms per launch of ``kname`` over a profiled window of
-    ``fn``.  The profiler now and then records no launch at all in a
-    window of eager launches, at times several in a row; such a window
-    is run again after half a second, up to ``tries`` times, and said
-    so."""
+    ``fn`` (primed with ``primer``: late in the whole script the profiler
+    loses a trace's first ~30 us of card work, all of a window of twenty
+    1.5 us launches).  The profiler now and then records no launch at all
+    in a window of eager launches, at times several in a row; such a
+    window is run again after half a second, up to ``tries`` times, and
+    said so."""
     for _ in range(tries):
-        _, kernels = profile_window(torch, fn)
+        _, kernels = profile_window(torch, fn, primer=primer)
         ms = device_ms(kernels, kname)
         if ms is not None:
             return ms
@@ -479,17 +500,30 @@ def counted_window(torch, run, expect, what, tries=3):
     drops events of a window (~100 of 10^4; on the parent's tree too), so
     a window whose counts differ is run again, up to ``tries`` times, and
     said so; a kernel launched too often or too seldom differs in every
-    window.  Returns ``(wall, kernels, counts, graph replays)``."""
+    window.  Late in the whole script the profiler loses a trace's first
+    card work, the first launch of the first graph replay (one K11 of 32
+    MALA proposals; one K14 of a DE-Z window of 64, its shuffle's sort
+    keys, in each of three tries), so the window is primed
+    (:func:`profile_window`): the same work runs once before the marked
+    window, and the expectation is taken after it.  Returns ``(wall,
+    kernels, counts, graph replays)``."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     for _ in range(tries):
-        # A kernel the expectation does not name must not launch.
-        want = {name: 0 for _, name in KERNELS} | expect()
-        r0 = ChunkProgram.replays
-        wall, kernels = profile_window(torch, run)
+        at = {}
+
+        def primer():
+            run()
+            torch.cuda.synchronize()
+            # A kernel the expectation does not name must not launch.
+            at["want"] = {name: 0 for _, name in KERNELS} | expect()
+            at["replays"] = ChunkProgram.replays
+
+        wall, kernels = profile_window(torch, run, primer=primer)
+        want = at["want"]
         counts = profiled_counts(kernels)
         if counts == want:
-            return wall, kernels, counts, ChunkProgram.replays - r0
+            return wall, kernels, counts, ChunkProgram.replays - at["replays"]
         log(f"  {what}: the profiler counted {counts}, expected {want}; "
             "window run again")
     raise AssertionError(f"{what}: profiled launches {counts}, expected "
@@ -519,6 +553,33 @@ def warm_graphs(smp, top=None):
             size *= 2
 
 
+class LoopDraws:
+    """K14's launches in a run of the slice move, from the move's own
+    counters: each proposal draws ``fixed`` times (the shuffled split's
+    sort keys, and each split's picks and accept uniforms), and each
+    shrink block once more (its uniforms, at the block's first iteration),
+    so a run launches ``fixed`` a proposal plus the shrink iterations it
+    ran over the block size (``block``: the move's ``loop_block`` in
+    graph replays, 1 eagerly)."""
+
+    def __init__(self, move, fixed):
+        self.move, self.fixed, self.ex0 = move, fixed, 0
+
+    def executed(self):
+        return sum(int(w.executed[1]) for w in self.move._work.values())
+
+    def begin(self):
+        self.ex0 = self.executed()
+        return self
+
+    def count(self, proposals, block):
+        ran = self.executed() - self.ex0
+        if ran % block:
+            raise AssertionError(f"slice move: {ran} shrink iterations run "
+                                 f"in blocks of {block}")
+        return proposals * self.fixed + ran // block
+
+
 def drive(smp, state, n, per_proposal=None, **kw):
     """``run_mcmc`` with its launch checks; returns ``(state, seconds)``.
 
@@ -526,11 +587,14 @@ def drive(smp, state, n, per_proposal=None, **kw):
     records no graph and calls no kernel wrapper: every proposal is a
     replay.  On the eager path (``_use_graphs`` off), the wrappers'
     counters show a proposal kernel twice and K2 twice per proposal, or
-    ``per_proposal``'s ``{wrapper: launches per proposal}`` (others 0)."""
+    ``per_proposal``'s ``{wrapper: launches per proposal}`` (others 0; a
+    :class:`LoopDraws` gives the run's count from the move's counters)."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     prog = smp._program
     ngraphs = None if prog is None else len(prog.graphs)
+    loop_draws = {k: v.begin() for k, v in (per_proposal or {}).items()
+                  if isinstance(v, LoopDraws)}
     before, r0 = launch_counts(), ChunkProgram.replays
     t0 = time.perf_counter()
     out = smp.run_mcmc(state, n, **kw)
@@ -545,7 +609,8 @@ def drive(smp, state, n, per_proposal=None, **kw):
             raise AssertionError(f"a run after recording called kernel "
                                  f"wrappers {rose} or recorded a graph")
     elif per_proposal is not None:
-        want = {k: per_proposal.get(k, 0) * n_prop for k in rose}
+        want = {k: (loop_draws[k].count(n_prop, 1) if k in loop_draws
+                    else per_proposal.get(k, 0) * n_prop) for k in rose}
         if rose != want:
             raise AssertionError(f"eager run: launches rose by {rose} for "
                                  f"{n_prop} proposals, expected {want}")
@@ -1673,18 +1738,24 @@ def phase10(torch, np, dev, card, chains):
         z = normals(x.shape[0], x.shape[1], seed, offset, x.device)
         return x + 0.5 * z, torch.zeros(x.shape[0], device=x.device)
 
+    # (label, move, proposals, K2 and K14 launches a proposal).  K14: the
+    # normals (one draw; a split's each for the red-blue moves), the
+    # Gaussian move's random dimensions, the walk move's subset picks and
+    # the KDE move's kernel centres (one a split each), and the shuffled
+    # split's sort keys (one a proposal, the red-blue moves' default).
     configs = (
-        ("GaussianMove(0.5)", lambda: moves.GaussianMove(0.5), 64, 1),
+        ("GaussianMove(0.5)", lambda: moves.GaussianMove(0.5), 64, 1, 1),
         ("GaussianMove(0.5, mode='random')",
-         lambda: moves.GaussianMove(0.5, mode="random"), 64, 1),
+         lambda: moves.GaussianMove(0.5, mode="random"), 64, 1, 2),
         ("GaussianMove(0.5, mode='sequential')",
-         lambda: moves.GaussianMove(0.5, mode="sequential"), 64, 1),
-        ("GaussianMove(full cov)", lambda: moves.GaussianMove(full), 64, 1),
-        ("MHMove(Philox normals)", lambda: moves.MHMove(mh_proposal), 64,
+         lambda: moves.GaussianMove(0.5, mode="sequential"), 64, 1, 1),
+        ("GaussianMove(full cov)", lambda: moves.GaussianMove(full), 64, 1,
          1),
-        ("WalkMove()", moves.WalkMove, 64, 2),
-        ("WalkMove(s=16)", lambda: moves.WalkMove(s=16), 64, 2),
-        ("KDEMove()", moves.KDEMove, 8, 2),
+        ("MHMove(Philox normals)", lambda: moves.MHMove(mh_proposal), 64,
+         1, 1),
+        ("WalkMove()", moves.WalkMove, 64, 2, 3),
+        ("WalkMove(s=16)", lambda: moves.WalkMove(s=16), 64, 2, 5),
+        ("KDEMove()", moves.KDEMove, 8, 2, 5),
     )
     out = {"moves": {}}
     # K7's calls, counted on the card: the move's log-density adds one to
@@ -1768,7 +1839,13 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     and slice moves through it too); returns its row."""
     from emcee_tpu_torch import EnsembleSampler
 
-    label, make_move, n, k2_per = config
+    label, make_move, n, k2_per, k14_per = config
+
+    def per_of(smp):
+        """The path's launches a proposal: K2's, and K14's (a number, or
+        the slice move's :class:`LoopDraws` of this sampler's move)."""
+        k14 = (k14_per(smp._moves[0]) if callable(k14_per) else k14_per)
+        return {"accept_select": k2_per, "philox_draw": k14}
 
     def make():
         return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=12,
@@ -1783,11 +1860,10 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     # K7's calls are counted from here to the last profiled window.
     k7_calls.zero_()
     smps = {}
-    per = {"accept_select": k2_per}
     for graphs in (False, True):
         smp = smps[graphs] = make()
         smp._use_graphs = graphs
-        drive(smp, p0, n, per_proposal=per, store=False,
+        drive(smp, p0, n, per_proposal=per_of(smp), store=False,
               skip_initial_state_check=True)
     # KDE is profiled in windows of one proposal (below): record that
     # graph too, so no timed or profiled run records one.
@@ -1801,8 +1877,8 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
         smps[True]._program.graph(0, n_timed, False)
     rates = {False: [], True: []}
     for graphs in (False, True, True, False):
-        _, dt = drive(smps[graphs], None, n_timed, per_proposal=per,
-                      store=False)
+        _, dt = drive(smps[graphs], None, n_timed,
+                      per_proposal=per_of(smps[graphs]), store=False)
         rates[graphs].append(n_timed * NW / dt)
     smp = smps[True]
     st = smp._previous_state
@@ -1815,17 +1891,35 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     # proposal, each also holding K7's device count to 4 (two splits,
     # two log-densities).  Each window's kernel events are printed.
     busy_us, events = 0.0, []
+    k14 = per_of(smp)["philox_draw"]
     for _ in range(4 if kde else 1):
-        k7_before = []
+        k7_before = [int(k7_calls)]
+        if looped:
+            # The slice move's K14 launches follow its shrink blocks
+            # (LoopDraws), and its window holds ~2e5 kernel events, of
+            # which the profiler, late in the whole script, drops a few:
+            # so every launch is counted exactly on the card (a device word
+            # beside each launch), and the profiled window times.
+            counts, _ = counted_replays(
+                torch, dev, smp, n_prof, lambda r: {
+                    "accept_select": k2_per * n_prof,
+                    "philox_draw": k14.count(n_prof,
+                                             smp._moves[0].loop_block)},
+                f"{phase}: {label}", before=k14.begin, store=False)
+            k7_before = [int(k7_calls)]
+            wall, kernels = profile_window(
+                torch, lambda: drive(smp, None, n_prof, store=False))
+        else:
+            def expect():
+                k7_before.append(int(k7_calls))
+                return {"stretch_propose": 0,
+                        "accept_select": k2_per * n_prof,
+                        "de_propose": 0, "snooker_propose": 0,
+                        "philox_draw": k14 * n_prof}
 
-        def expect():
-            k7_before.append(int(k7_calls))
-            return {"stretch_propose": 0, "accept_select": k2_per * n_prof,
-                    "de_propose": 0, "snooker_propose": 0}
-
-        wall, kernels, counts, _ = counted_window(
-            torch, lambda: drive(smp, None, n_prof, store=False), expect,
-            label)
+            wall, kernels, counts, _ = counted_window(
+                torch, lambda: drive(smp, None, n_prof, store=False), expect,
+                label)
         k7_window = int(k7_calls) - k7_before[-1]
         events.append(sum(c for c, _ in kernels.values()))
         if k7_window != (4 * n_prof if kde else 0):
@@ -1835,6 +1929,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
         busy_us += sum(us for _, us in kernels.values())
     row = dict(acceptance=acc, acceptance_64=acc_chain, mean_lp=mean_lp,
                rates=rates, k2_per_proposal=k2_per,
+               k14_launches=counts["philox_draw"],
                profiled_windows=len(events), kernel_events=events,
                device_us_per_proposal=busy_us / (n_prof * len(events)),
                k7_calls=int(k7_calls), seconds=time.perf_counter() - t_all)
@@ -1846,7 +1941,9 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
         f"eager {rates[False][0]:.4e}, graph {rates[True][0]:.4e}, graph "
         f"{rates[True][1]:.4e}, eager {rates[False][1]:.4e}; device "
         f"{row['device_us_per_proposal']:.1f} us per proposal; K2 "
-        f"launches per proposal (profiler) {k2_per} in {len(events)} "
+        f"launches per proposal {k2_per}, K14 launches "
+        f"{counts['philox_draw']} ({'device words' if looped else 'profiler'}"
+        f") in {len(events)} "
         f"window(s) of {n_prof} proposal(s), kernel events {events}"
         + (f"; K7 calls {row['k7_calls']} (device counter); peak memory "
            f"{row['peak_memory_bytes'] / 2**30:.2f} GiB" if kde else "")
@@ -2799,11 +2896,14 @@ def phase12_dime(torch, np, dev, card):
         raise AssertionError(f"phase 12: DIME stage: mean lp {mean_lp}, "
                              f"acceptance {acc}, tau {tau}")
     n_prof = 16
+    # K14: each split's normals (aimh_prob=1 reads no other draw).
     busy = busy_window(torch, lambda: drive(smp, None, n_prof, store=False),
                        n_prof, "DIME stage", lambda: {
                            "stretch_propose": 0, "de_propose": 0,
                            "snooker_propose": 0,
-                           "accept_select": 2 * n_prof})
+                           "accept_select": 2 * n_prof,
+                           "philox_draw": 2 * n_prof},
+                       names={"accept_select": 2, "philox_draw": 2})
     # The draws of one proposal alone: per split one Philox normals call
     # at the proposal's shape, eager, profiled.
     word = torch.zeros((), dtype=torch.int64, device=dev)
@@ -2814,7 +2914,7 @@ def phase12_dime(torch, np, dev, card):
     # The same proposals eagerly, for the plain-version column.
     smp._use_graphs = False
     _, dt_eager = drive(smp, None, n_prof, store=False, per_proposal={
-        "accept_select": 2})
+        "accept_select": 2, "philox_draw": 2})
     smp._use_graphs = True
     carry = smp._program.ws.carries[0]
     fcheck = dime_factor_check(torch, np, dev, smp._moves[0],
@@ -2828,7 +2928,7 @@ def phase12_dime(torch, np, dev, card):
                get_proposal_calls=calls, philox_share=share,
                draws_us_per_proposal=draws["device_us_per_proposal"],
                eager_ms_per_proposal=dt_eager / n_prof * 1e3,
-               float64=fcheck, **busy)
+               float64=fcheck, proposals_profiled=n_prof, **busy)
     log(f"phase 12: (a) DIME stage (bench.py:305-349; 1e5 x 5-D, "
         f"aimh_prob=1, df=None, DeviceBackend, {kept} kept x 1): "
         f"{rate:.4e} walker-steps/s (best of two), tau {tau:.3f} proposals, "
@@ -2951,7 +3051,8 @@ def phase12_blended(torch, np, dev, card, n=1000):
             torch, lambda: drive(smps["blended"], None, n_prof, store=False),
             n_prof, "blended", lambda: {
                 "stretch_propose": 0, "accept_select": 2 * n_prof,
-                "de_propose": 2 * n_prof, "snooker_propose": 2 * n_prof}),
+                "de_propose": 2 * n_prof, "snooker_propose": 2 * n_prof,
+                "philox_draw": n_prof}),  # K14: the splits' choices
         # The mixture's exact launches are phase 8's check.
         "mixture": busy_window(
             torch, lambda: drive(mix, None, n_prof, store=False), n_prof,
@@ -2989,11 +3090,13 @@ def phase12_side_slice(torch, np, dev, card, n=64):
         torch, np, dev, card, p0,
         ("SideMove(pair_mode='roll', randomize_split=False)",
          lambda: moves.SideMove(pair_mode="roll", randomize_split=False),
-         n, 2), zero, phase="phase 12: (d)")}
+         n, 2, 4), zero, phase="phase 12: (d)")}
+    # K14 a slice proposal: the shuffle's keys, each split's picks and
+    # accept uniforms, and one draw a shrink block.
     out["slice"] = row = phase10_move(
         torch, np, dev, card, p0,
-        ("EnsembleSliceMove()", moves.EnsembleSliceMove, n, 0), zero,
-        phase="phase 12: (d)")
+        ("EnsembleSliceMove()", moves.EnsembleSliceMove, n, 0,
+         lambda mv: LoopDraws(mv, 5)), zero, phase="phase 12: (d)")
     # The loops of one graph run of n proposals, after its first (which
     # records): iterations the JAX loops need and the masked ones run,
     # flag reads and block replays.
@@ -3143,7 +3246,7 @@ def phase12_dez(torch, np, dev, card):
     p0 = np.random.default_rng(9).normal(size=(NW, ND)).astype(np.float32)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     row = phase10_move(torch, np, dev, card, p0,
-                       ("DEZMove()", moves.DEZMove, 64, 2), zero,
+                       ("DEZMove()", moves.DEZMove, 64, 2, 5), zero,
                        phase="phase 12: (e)")
     # The K10 row's launches: a twin of the timed 1e5 run, untimed.
     row["get_proposal_calls"] = counted_calls(
@@ -3387,7 +3490,7 @@ def grad_v(torch, lk, dev, seed, offset, split):
     return v
 
 
-def counted_replays(torch, dev, smp, n, expect, what, **kw):
+def counted_replays(torch, dev, smp, n, expect, what, before=None, **kw):
     """Every kernel's launches in ``n`` replayed proposals of ``smp``'s own
     chunk program (``run_mcmc(None, n, **kw)``), counted on the card and
     held exactly to ``expect(replays)`` (``replays``: the graph replays
@@ -3400,7 +3503,9 @@ def counted_replays(torch, dev, smp, n, expect, what, **kw):
     is counted, under the profiler too, whose count of the same launches
     is returned beside.  The timed graphs are set aside meanwhile and put
     back after, so no timed or profiled window replays a graph that holds
-    the adds.  Returns ``(device counts, profiler counts)``."""
+    the adds.  ``before``, if given, is called just before the counted run
+    (a :class:`LoopDraws`' ``begin``).  Returns ``(device counts, profiler
+    counts)``."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     prog = smp._program
@@ -3415,6 +3520,8 @@ def counted_replays(torch, dev, smp, n, expect, what, **kw):
         torch.cuda.synchronize()
         for w in words.values():
             w.zero_()
+        if before is not None:
+            before()
         r0 = ChunkProgram.replays
         _, kernels = profile_window(torch, lambda: smp.run_mcmc(None, n,
                                                                 **kw))
@@ -3426,8 +3533,8 @@ def counted_replays(torch, dev, smp, n, expect, what, **kw):
     got = {k: int(w) for k, w in words.items()}
     want = {k: 0 for k in words} | expect(replays)
     if got != want:
-        raise AssertionError(f"phase 13: {what}: replayed launches {got} "
-                             f"(device counters), expected {want}")
+        raise AssertionError(f"{what}: replayed launches {got} (device "
+                             f"counters), expected {want}")
     return got, profiled_counts(kernels)
 
 
@@ -3504,7 +3611,8 @@ def phase13_mala(torch, np, dev, card, out):
         n_cnt = n_kept * thin
         counted, profiled = counted_replays(
             torch, dev, smp, n_kept,
-            lambda r: {k: v * n_cnt for k, v in per_proposal.items()},
+            lambda r: {k: v * n_cnt for k, v in per_proposal.items()}
+            | {"philox_draw": 0},  # K11 draws the normals
             "MALA stage", thin_by=thin)
     smp._use_graphs = False
     _, dt_eager = drive(smp, None, 16, store=False,
@@ -3568,7 +3676,8 @@ def phase13_hmc(torch, np, dev, card, out, n=64, n_leapfrog=10):
         n_cnt = 16
         counted, profiled = counted_replays(
             torch, dev, smp, n_cnt,
-            lambda r: {k: v * n_cnt for k, v in per_proposal.items()},
+            lambda r: {k: v * n_cnt for k, v in per_proposal.items()}
+            | {"philox_draw": 0},  # K11 draws the normals
             "HMC", store=False)
     smp0 = grad_sampler(dev, mv(0.0), 3)
     drive(smp0, p0, n_prof, store=False, skip_initial_state_check=True)
@@ -3657,7 +3766,8 @@ def phase13_chees(torch, np, dev, card, out, n=200):
         counted, profiled = counted_replays(
             torch, dev, smp, n_cnt, lambda r: {
                 "langevin_step": n_cnt, "langevin_factor": n_cnt,
-                "accept_select": n_cnt, "leapfrog": r - n_cnt},
+                "accept_select": n_cnt, "leapfrog": r - n_cnt,
+                "philox_draw": 0},
             "ChEES", store=False)
     res = dict(log_T_before=log_t0, log_T_after=log_t1, eps_after=eps1,
                trips_per_proposal=trips, trips_per_proposal_tune=trips_tune,
@@ -3700,7 +3810,9 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
         acc16 = graph_vs_plain_chain(torch, make, p03, n=16)
         smp = make()
         n_prof = 8
-        with path_launches(out, path, tuple(per_split), "phase 13"):
+        # K14: the shuffled split's sort keys, one draw a proposal.
+        with path_launches(out, path, tuple(per_split) + ("philox_draw",),
+                           "phase 13"):
             drive(smp, p03, n, store=False, skip_initial_state_check=True)
             smp._program.graph(0, n_prof, False)
             st, dt = drive(smp, None, n, store=False)
@@ -3713,11 +3825,12 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
             win = busy_window(torch, lambda: drive(smp, None, n_prof,
                                                    store=False),
                               n_prof, name, names={
-                                  k: 2 * v for k, v in per_split.items()})
+                                  k: 2 * v for k, v in per_split.items()}
+                              | {"philox_draw": 1})
             counted, profiled = counted_replays(
                 torch, dev, smp, n_prof,
-                lambda r: {k: 2 * v * n_prof for k, v in per_split.items()},
-                name, store=False)
+                lambda r: {k: 2 * v * n_prof for k, v in per_split.items()}
+                | {"philox_draw": n_prof}, name, store=False)
         res[name] = dict(walker_steps_per_s=rate, acceptance=acc,
                          mean_lp=mean_lp, acceptance_16=acc16,
                          replayed_launches=counted,
@@ -3955,6 +4068,11 @@ PT_SWEEP_NW = {2: (8, 256, 1000), 3: (6, 258, 999)}
 PT_SWEEP_ND = (1, 5, 8)
 #: rungs of K15's sweep
 SWAP_SWEEP_T = (2, 3, 5, 16)
+#: ndims of K15's sweep: rows through registers (up to SWAP_ROW_REGS) and
+#: past them
+SWAP_SWEEP_ND = (1, 5, 9)
+#: K15's block sizes swept beside the wrapper's plan
+SWAP_SWEEP_THREADS = (32, 64, 128)
 
 
 def pt_log_like(x):
@@ -4138,13 +4256,36 @@ def k2_rung_check(torch, dev, gen, coords, proposal, split, nsplits, kw, T):
     return n
 
 
+def swap_launches(plans=SWAP_SWEEP_THREADS):
+    """The K15 launches a sweep holds against the plain version: the
+    wrapper, and the kernel at blocks of each of ``plans`` threads (the
+    wrapper's leaf plan kept), through ``swap_kernel._launch``."""
+    from emcee_tpu_torch.ops import swap_kernel as swk
+
+    def forced(threads):
+        def run(coords, ll, lpr, lp, betas, cnt, *, seed, offset,
+                swap_every, u=None, leaves=()):
+            T, nw, _ = coords.shape
+            plan, table = swk.swap_plan(nw, T, 1, swk.swap_leaves(
+                leaves, T, nw, coords.device))
+            plan = plan._replace(threads=threads)
+            if swap_every >= 1 and T >= 2:
+                swk._launch(plan, coords, ll, lpr, lp, betas, cnt, seed,
+                            offset, swap_every, u, table)
+        return run
+
+    return [swk.pt_swap] + [forced(t) for t in plans]
+
+
 def swap_kernel_sweep(torch, np, dev):
     """(a) K15 against its plain version, bit for bit: rungs
-    ``SWAP_SWEEP_T``, 256 and 1000 walkers, steps 0-5 (both parities, and
-    at ``swap_every=3`` the steps that do not swap), injected ``u``, the
-    in-kernel stream at a host offset and at the device offset word,
-    with NaN and +-inf ``logL`` and -inf and NaN ``logP``.  Returns the
-    count of comparisons."""
+    ``SWAP_SWEEP_T``, 256 and 1000 walkers, ndim ``SWAP_SWEEP_ND`` (rows
+    in registers and, past ``SWAP_ROW_REGS``, after the decision), steps
+    0-5 (both parities, and at ``swap_every=3`` the steps that do not
+    swap), injected ``u``, the in-kernel stream at a host offset and at
+    the device offset word, with NaN and +-inf ``logL`` and -inf and NaN
+    ``logP``; the wrapper's launch and blocks of ``SWAP_SWEEP_THREADS``
+    (:func:`swap_launches`).  Returns the count of comparisons."""
     from emcee_tpu_torch.ops import swap_kernel as swk
     from emcee_tpu_torch.ops.philox import DeviceOffset
     from emcee_tpu_torch.parallel import default_beta_ladder
@@ -4153,39 +4294,46 @@ def swap_kernel_sweep(torch, np, dev):
     n = 0
     for T in SWAP_SWEEP_T:
         for nw in (256, 1000):
-            coords = torch.randn(T, nw, ND4, device=dev, generator=gen)
-            ll = 4.0 * torch.randn(T, nw, device=dev, generator=gen)
-            ll[:, ::7] = float("nan")
-            ll[:, 1::11] = float("inf")
-            ll[:, 2::13] = -float("inf")
-            lpr = torch.zeros(T, nw, device=dev)
-            lpr[:, 3::5] = -float("inf")
-            lpr[:, 4::17] = float("nan")
-            betas = torch.tensor(default_beta_ladder(T, ND4),
-                                 dtype=torch.float32, device=dev)
-            lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
-            for swap_every in (1, 3):
-                for step in range(6):
-                    pairs = swk.swap_pairs(step, T, swap_every)
-                    word = torch.tensor(step - 2, dtype=torch.int64,
-                                        device=dev)
-                    for mode, kw in (
-                            ("injected", dict(offset=step, u=torch.rand(
-                                len(pairs), nw, device=dev,
-                                generator=gen))),
-                            ("host", dict(offset=step)),
-                            ("device", dict(offset=DeviceOffset(word, 2)))):
-                        outs = []
-                        for fn in (swk.pt_swap, swk.pt_swap_plain):
-                            bufs = [x.clone() for x in (coords, ll, lpr, lp)]
-                            cnt = torch.zeros(T - 1, dtype=torch.int64,
-                                              device=dev)
-                            fn(*bufs, betas, cnt, seed=99 + T,
-                               swap_every=swap_every, **kw)
-                            outs.append((*bufs, cnt))
-                        same_bits(*outs, f"K15 T={T} nw={nw} step={step} "
-                                  f"swap_every={swap_every} {mode}")
-                        n += 1
+            for nd in SWAP_SWEEP_ND:
+                coords = torch.randn(T, nw, nd, device=dev, generator=gen)
+                ll = 4.0 * torch.randn(T, nw, device=dev, generator=gen)
+                ll[:, ::7] = float("nan")
+                ll[:, 1::11] = float("inf")
+                ll[:, 2::13] = -float("inf")
+                lpr = torch.zeros(T, nw, device=dev)
+                lpr[:, 3::5] = -float("inf")
+                lpr[:, 4::17] = float("nan")
+                betas = torch.tensor(default_beta_ladder(T, nd),
+                                     dtype=torch.float32, device=dev)
+                lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
+                for swap_every in (1, 3):
+                    for step in range(6):
+                        pairs = swk.swap_pairs(step, T, swap_every)
+                        word = torch.tensor(step - 2, dtype=torch.int64,
+                                            device=dev)
+                        for mode, kw in (
+                                ("injected", dict(offset=step, u=torch.rand(
+                                    len(pairs), nw, device=dev,
+                                    generator=gen))),
+                                ("host", dict(offset=step)),
+                                ("device", dict(offset=DeviceOffset(
+                                    word, 2)))):
+                            outs = {}
+                            for i, fn in enumerate(swap_launches()
+                                                   + [swk.pt_swap_plain]):
+                                bufs = [x.clone()
+                                        for x in (coords, ll, lpr, lp)]
+                                cnt = torch.zeros(T - 1, dtype=torch.int64,
+                                                  device=dev)
+                                fn(*bufs, betas, cnt, seed=99 + T,
+                                   swap_every=swap_every, **kw)
+                                outs[i] = (*bufs, cnt)
+                            want = outs.pop(len(outs) - 1)
+                            for i, got in outs.items():
+                                same_bits(got, want, f"K15 T={T} nw={nw} "
+                                          f"nd={nd} step={step} swap_every="
+                                          f"{swap_every} {mode} launch {i}")
+                                n += 1
     return n
 
 
@@ -4305,7 +4453,7 @@ def phase14(torch, np, dev, card):
     # (d) workload 4 at full size, counted from 0 just before it.
     t0 = time.perf_counter()
     kept, thin = 512, 4
-    names = ("stretch_propose", "accept_select", "pt_swap")
+    names = ("stretch_propose", "accept_select", "pt_swap", "philox_draw")
     with path_launches(out, "workload 4", names, "phase 14"):
         smp = pt_sampler(dev, backend=PTDeviceBackend())
         st, _ = drive(smp, p0, kept, thin_by=thin,
@@ -4327,22 +4475,22 @@ def phase14(torch, np, dev, card):
         mean_abs, spread = float(np.mean(np.abs(x0))), float(np.std(
             np.abs(x0)))
         acc = float(smp.acceptance_fraction[0].mean())
-        # The profiled window: exactly 2 K1, 2 K2 and 1 K15 a proposal,
-        # over four replays of the 64-proposal graph (recorded above), so
-        # that a run's fixed host work is shared as in the timed runs.
+        # The profiled window: exactly 2 K1, 2 K2, 1 K15 and 1 K14 (the
+        # shuffle's sort keys of every rung) a proposal, over four replays
+        # of the 64-proposal graph (recorded above), so that a run's fixed
+        # host work is shared as in the timed runs.
         n_prof = 256
+        per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
+               "philox_draw": 1}
         win = busy_window(
             torch, lambda: smp.run_mcmc(None, n_prof, store=False), n_prof,
-            "workload 4", expect=lambda: {"stretch_propose": 2 * n_prof,
-                                          "accept_select": 2 * n_prof,
-                                          "pt_swap": n_prof},
-            names={"stretch_propose": 2, "accept_select": 2, "pt_swap": 1})
+            "workload 4",
+            expect=lambda: {k: v * n_prof for k, v in per.items()},
+            names=per)
         n_kept = 16
         counted, profiled = counted_replays(
             torch, dev, smp, n_kept,
-            lambda r: {"stretch_propose": 2 * n_kept * thin,
-                       "accept_select": 2 * n_kept * thin,
-                       "pt_swap": n_kept * thin},
+            lambda r: {k: v * n_kept * thin for k, v in per.items()},
             "workload 4", thin_by=thin, store=False)
     checks = {
         "swap acceptance mean in (0.4, 0.9)": 0.4 < swap_mean < 0.9,
@@ -4387,7 +4535,8 @@ def phase14(torch, np, dev, card):
         f"{measured(win['device_us_per_proposal'])} us and "
         f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
         f"proposal, idle share {measured(win['idle'], '.4f')}, launches "
-        f"{win['launches']} (exactly 2 K1, 2 K2 and 1 K15 a proposal); "
+        f"{win['launches']} (exactly 2 K1, 2 K2, 1 K15 and 1 K14 a "
+        f"proposal); "
         f"{replay_counts(counted, profiled, n_kept * thin)} {card} "
         f"({time.perf_counter() - t0:.1f} s)")
     return out, phase14_rows(torch, dev, out, card)
@@ -4484,7 +4633,8 @@ def phase14_rows(torch, dev, out, card):
                           "unsigned int>, true>", 256),
         "pt_swap": ("emcee_tpu_torch/csrc/pt_swap.cu",
                     "emcee_tpu/parallel/tempering.py:543",
-                    "pt_swap_kernel<NoLeaves>", swk.SWAP_THREADS),
+                    "pt_swap_kernel<NoLeaves>",
+                    swk.swap_plan(nw, T, device_sm_count(dev))[0].threads),
     }
     n_sm = device_sm_count(dev)
     plan = tile_plan(ng, nd, 0, n_sm, coords.data_ptr(), q.data_ptr(),
@@ -4493,8 +4643,19 @@ def phase14_rows(torch, dev, out, card):
               "accept_select": tile_plan(ng, nd, 0, n_sm, coords.data_ptr(),
                                          q.data_ptr(), stage=True, rungs=T,
                                          nsplits=2).grid * T,
-              "pt_swap": -(-nw // swk.SWAP_THREADS) * (T // 2)}
+              "pt_swap": -(-nw // meta["pt_swap"][3]) * (T // 2)}
     w4 = out["workload4"]
+    # K15's device time a launch over its block sizes, 50 eager launches
+    # each (the plan's block is the row's).
+    swap_us = {}
+    for threads, run in zip(SWAP_SWEEP_THREADS, swap_launches()[1:]):
+        swap_us[threads] = profiled_ms(torch, lambda: [run(
+            *sw, betas, cnt, seed=4, offset=0, swap_every=1)
+            for _ in range(50)], "pt_swap", primer=True) * 1e3
+    log(f"phase 14: (f) K15 device time a launch (eager) over blocks of "
+        f"{SWAP_SWEEP_THREADS} threads: "
+        + ", ".join(f"{t}: {us:.2f} us" for t, us in swap_us.items())
+        + f" (the plan's: {meta['pt_swap'][3]}) {card}")
     rows = []
     for kname, (kernel, plain) in calls.items():
         src, jax_src, label, threads = meta[kname]
@@ -4518,6 +4679,8 @@ def phase14_rows(torch, dev, out, card):
                "waves": waves,
                "launches_per_proposal": launches / w4["proposals_counted"],
                "wrapper_launches": out["launches"]["workload 4"][kname],
+               **({"threads": threads, "eager_us_by_threads": swap_us}
+                  if kname == "pt_swap" else {}),
                "note": f"{name} at workload 4's shape ({T} x {nw} x {nd}): "
                        f"ms in the workload's replays (profiler); launches "
                        f"counted on the card in {w4['proposals_counted']} "
@@ -4551,6 +4714,14 @@ SWAP_LEAF_SPECS = (("uint8", (1,), 1), ("uint8", (3,), 3),
                    ("int16", (6,), 2), ("float32", (5,), 4),
                    ("float64", (), 8), ("int8", (3,), 0),
                    ("float32", (), 0))
+#: K15's leaf sets of the register path (swap_kernel.swap_plan): four
+#: 4-byte scalars (all in registers), five (the fifth by the table), two
+#: 8-byte scalars, an 8-byte scalar beside a 3-byte row, and a 4-byte row
+#: at a base 2 bytes past a boundary (a unit of 2: the table only)
+SWAP_REG_LEAF_SETS = (
+    (("float32", (), 0),) * 4, (("int32", (), 4),) * 5,
+    (("float64", (), 0), ("int64", (), 8)),
+    (("float64", (), 0), ("int8", (3,), 1)), (("int16", (2,), 2),))
 #: the mixture of phase 15 (the JAX package's test_pt_mixture_block)
 PT_MIX_WEIGHTS = (0.7, 0.3)
 
@@ -4703,7 +4874,10 @@ def swap_leaf_sweep(torch, np, dev):
             lp = swk.tempered_log_prob(betas[:, None], ll, lpr)
             sets = ([raw_leaf(torch, (T, nw) + row, dt, gen, dev, mis)
                      for dt, row, mis in SWAP_LEAF_SPECS],
-                    [2.0 * ll, coords.clone()])
+                    [2.0 * ll, coords.clone()],
+                    *([raw_leaf(torch, (T, nw) + row, dt, gen, dev, mis)
+                       for dt, row, mis in spec]
+                      for spec in SWAP_REG_LEAF_SETS))
             for leaves in sets:
                 for swap_every in (1, 3):
                     for step in range(6):
@@ -4717,8 +4891,10 @@ def swap_leaf_sweep(torch, np, dev):
                                 ("host", dict(offset=step)),
                                 ("device", dict(offset=DeviceOffset(word,
                                                                     2)))):
-                            outs = []
-                            for fn in (swk.pt_swap, swk.pt_swap_plain):
+                            outs = {}
+                            for i, fn in enumerate(
+                                    swap_launches((32,))
+                                    + [swk.pt_swap_plain]):
                                 bufs = [x.clone() for x in (coords, ll, lpr,
                                                             lp)]
                                 lv = [x.clone() for x in leaves]
@@ -4726,11 +4902,14 @@ def swap_leaf_sweep(torch, np, dev):
                                                   device=dev)
                                 fn(*bufs, betas, cnt, seed=99 + T,
                                    swap_every=swap_every, leaves=lv, **kw)
-                                outs.append((*bufs, cnt, *lv))
-                            same_bytes(*outs, f"K15 leaves T={T} nw={nw} "
-                                       f"step={step} swap_every={swap_every}"
-                                       f" {mode} {len(leaves)} leaves")
-                            n += 1
+                                outs[i] = (*bufs, cnt, *lv)
+                            want = outs.pop(len(outs) - 1)
+                            for i, got in outs.items():
+                                same_bytes(got, want, f"K15 leaves T={T} "
+                                           f"nw={nw} step={step} swap_every="
+                                           f"{swap_every} {mode} "
+                                           f"{len(leaves)} leaves launch {i}")
+                                n += 1
     return n
 
 
@@ -4824,7 +5003,8 @@ def pt15_blobs(torch, np, dev, card, p0, kept=512, thin=4):
         states[blobs], dt = drive(smp, states[blobs], kept, thin_by=thin,
                                   skip_initial_state_check=True)
         rates[blobs].append(NT4 * NW4 * kept * thin / dt)
-    names = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1}
+    names = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
+             "philox_draw": 1}  # K14: the shuffle's sort keys
     wins = {}
     for blobs, smp in samplers.items():
         wins[blobs] = busy_window(
@@ -4833,8 +5013,7 @@ def pt15_blobs(torch, np, dev, card, p0, kept=512, thin=4):
             names=names)
     counted, profiled = counted_replays(
         torch, dev, samplers[True], 16,
-        lambda r: {"stretch_propose": 2 * 16 * thin,
-                   "accept_select": 2 * 16 * thin, "pt_swap": 16 * thin},
+        lambda r: {k: v * 16 * thin for k, v in names.items()},
         "workload 4 with blobs", thin_by=thin, store=False)
     return dict(rates_blobs=rates[True], rates_none=rates[False],
                 win_blobs=wins[True], win_none=wins[False],
@@ -5265,7 +5444,7 @@ def phase15_rows(torch, dev, out, card):
             "accept_select_kernel<true, true, BlobLeaves, true>"),
         "pt_swap": ("K15 (with leaves)", "pt_swap.cu",
                     "emcee_tpu/parallel/tempering.py:543-580",
-                    "pt_swap_kernel<SwapLeaves>"),
+                    "pt_swap_kernel<Leaves<unsigned int>>"),
     }
     bl = out["blobs"]
     rows = []
@@ -5307,6 +5486,342 @@ def phase15_rows(torch, dev, out, card):
             f"bytes, {by}); {regs} (registers, static shared, spilled) "
             f"{card}")
     return rows
+
+
+# -- 16. K14, the counter-based draws -----------------------------------------
+#: rows, counters a row and rungs of K14's sweep (phase 16)
+K14_SWEEP_N = (1, 2, 31, 255, 5003, 100_003)
+K14_SWEEP_K = (1, 2, 3, 5, 17)
+K14_SWEEP_T = (1, 2, 3, 16)
+
+
+def philox_kernel_sweep(torch, dev):
+    """(a) K14 against its plain version (the torch rounds), ``torch.equal``
+    on every output: every kind (all four words or one; uniforms of every
+    word or one; normals) in float32 and float64, rows ``K14_SWEEP_N``,
+    counters a row ``K14_SWEEP_K`` (the stored columns' tail cut), lanes
+    from 0 and from 1000003, the block an int and a device tensor, a host
+    offset and a device offset word; the rung axis (``K14_SWEEP_T`` rungs,
+    6-1000 walkers, with and without the ``ROLL_LANE`` column); the
+    public draws (``ops/philox.py``) against their ``plain=True`` twins;
+    draws recorded into a CUDA graph and replayed after the offset word
+    and the block word changed; and a few counters against
+    ``philox4x32_scalar`` on the host.  Returns the comparisons."""
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import philox
+    from emcee_tpu_torch.ops import philox_kernel as pk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want):
+            raise AssertionError(f"phase 16: K14 {what}: {len(got)} outputs "
+                                 f"against {len(want)}")
+        for a, b in zip(got, want):
+            if (a.dtype != b.dtype or a.shape != b.shape
+                    or not torch.equal(a, b)):
+                raise AssertionError(f"phase 16: K14 {what}: kernel and "
+                                     "plain version differ")
+            n_cmp += 1
+
+    def check(args, kw, what):
+        same(pk.philox_draw(*args, **kw), pk.philox_draw_plain(*args, **kw),
+             what)
+
+    seed = 0x0123456789ABCDEF
+    word = torch.tensor((1 << 33) + 5, dtype=torch.int64, device=dev)
+    offsets = {"host": (1 << 33) + 8, "device": DeviceOffset(word, 3)}
+    for kind in ("words", "uniforms", "normals"):
+        dtypes = ((torch.int64,) if kind == "words"
+                  else (torch.float32, torch.float64))
+        sels = (None,) if kind == "normals" else (None, 0, 3)
+        for dt in dtypes:
+            for n in K14_SWEEP_N:
+                for k in K14_SWEEP_K:
+                    for sel in sels:
+                        kw = dict(word=sel)
+                        kk = k
+                        if kind != "words":
+                            kw["dtype"] = dt
+                            if sel is None:  # d fixes k: cut the tail
+                                per = 4 if kind == "uniforms" else 2
+                                kw["d"], kk = per * k - k % per, None
+                        for row0 in (0, 1_000_003):
+                            for blk in ("int", "tensor"):
+                                block = philox.PICK_BLOCK | 40
+                                if blk == "tensor":
+                                    block = torch.tensor(
+                                        block, dtype=torch.int64, device=dev)
+                                for off, offset in offsets.items():
+                                    check((kind, n, kk, block, seed, offset,
+                                           dev), dict(kw, row0=row0),
+                                          f"{kind} {dt} n={n} k={k} "
+                                          f"word={sel} row0={row0} {blk} "
+                                          f"block, {off} offset")
+    for T in K14_SWEEP_T:
+        keys = rung_keys(seed + T, T, dev)
+        for n in (6, 256, 1000):
+            for roll in (False, True):
+                for sel in (None, 1, 3):
+                    for split in (0, 2):
+                        for off, offset in offsets.items():
+                            check(("words", n, 1, split, keys, offset, dev),
+                                  dict(word=sel, roll=roll),
+                                  f"rung axis T={T} n={n} roll={roll} "
+                                  f"word={sel} split={split} {off} offset")
+    # The public draws: K14 against the torch rounds (plain=True).
+    keys = rung_keys(seed, 16, dev)
+    shrink = torch.tensor(philox.SHRINK_BLOCK | 3, dtype=torch.int64,
+                          device=dev)
+    for offset in offsets.values():
+        for name, fn in (
+                ("walker_words", lambda pl: philox.walker_words(
+                    5003, 1, seed, offset, dev, plain=pl)),
+                ("walker_words word 3", lambda pl: philox.walker_words(
+                    5003, 2, seed, offset, dev, word=3, plain=pl)),
+                ("rung_words", lambda pl: philox.rung_words(
+                    keys, 256, 2, offset, dev, word=3, plain=pl)),
+                ("rung_words roll", lambda pl: philox.rung_words(
+                    keys, 128, 1, offset, dev, roll=True, plain=pl)),
+                ("row_words", lambda pl: philox.row_words(
+                    31, 5, philox.DEZ_BLOCK, seed, offset, dev, 7,
+                    plain=pl)),
+                ("normals", lambda pl: philox.normals(
+                    50_000, 6, seed, offset, dev, row0=50_000, plain=pl)),
+                ("normals f64 chi2", lambda pl: philox.normals(
+                    5003, 7, seed, offset, dev, torch.float64,
+                    block=philox.CHI2_BLOCK, plain=pl)),
+                ("row_uniforms", lambda pl: philox.row_uniforms(
+                    5003, 8, seed, offset, dev, row0=3,
+                    block=philox.DEZ_BLOCK, plain=pl)),
+                ("word_uniforms shrink", lambda pl: philox.word_uniforms(
+                    5003, 4, shrink, seed, offset, dev, 0, torch.float64,
+                    11, plain=pl)),
+                ("word_uniforms one column", lambda pl: philox.word_uniforms(
+                    5003, 1, 1, seed, offset, dev, 1, plain=pl)[:, 0]),
+                ("roll_uniforms", lambda pl: philox.roll_uniforms(
+                    seed, 1, offset, dev, plain=pl)),
+                ("grad_uniform", lambda pl: philox.grad_uniform(
+                    seed, 1, offset, dev, plain=pl)),
+                ("walker_normal", lambda pl: dk.walker_normal(
+                    5003, 1, seed, offset, dev, plain=pl)),
+                ("de_pairs random", lambda pl: dk.de_pairs(
+                    5003, 5003, 1, "random", seed, offset, dev, plain=pl)),
+                ("de_pairs roll", lambda pl: dk.de_pairs(
+                    5003, 5003, 1, "roll", seed, offset, dev, plain=pl))):
+            same(fn(False), fn(True), f"public draw {name}")
+    # Recorded into a graph, replayed after the words changed.
+    blk = torch.tensor(philox.SHRINK_BLOCK, dtype=torch.int64, device=dev)
+
+    def draws(plain=False):
+        draw = pk.philox_draw_plain if plain else pk.philox_draw
+        return [draw("normals", 5003, None, philox.NORMAL_BLOCK, seed,
+                     DeviceOffset(word, 1), dev, d=7),
+                draw("uniforms", 5003, 4, blk, seed, DeviceOffset(word, 2),
+                     dev, word=0),
+                draw("words", 256, 1, 2, keys, DeviceOffset(word, 0), dev,
+                     word=3),
+                draw("uniforms", 1, None, 3, seed, DeviceOffset(word, 0),
+                     dev, row0=philox.ROLL_LANE, d=4, dtype=torch.float64)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draws()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = draws()
+    for rep in range(3):
+        word.fill_(1000 + 37 * rep)
+        blk.fill_(philox.SHRINK_BLOCK | (9 * rep))
+        graph.replay()
+        for i, (a, b) in enumerate(zip(outs, draws(plain=True))):
+            same(a, b, f"graph replay {rep}, draw {i}")
+    word.fill_((1 << 33) + 5)
+    # A few counters against the scalar reference, on the host.
+    off = (1 << 40) + 5
+    lo, hi = philox.split_offset(off)
+    row0, block = (1 << 32) - 3, 0xFFFFFFF0
+    got = pk.philox_draw("words", 3, 2, block, seed, off, dev, row0=row0)
+    got = [w.cpu() for w in got]
+    rk = rung_keys(seed, 3, dev)
+    grk = [w.cpu() for w in pk.philox_draw("words", 2, 1, 5, rk, off, dev,
+                                           roll=True)]
+    for r in range(3):
+        for j in range(2):
+            want = philox.philox4x32_scalar((row0 + r, block + j, lo, hi),
+                                            philox.split_key(seed))
+            if [int(got[w][r, j]) for w in range(4)] != want:
+                raise AssertionError(f"phase 16: K14 counter ({row0 + r}, "
+                                     f"{block + j}) differs from "
+                                     "philox4x32_scalar")
+            n_cmp += 1
+    for t in range(3):
+        for r, lane in enumerate((0, 1, philox.ROLL_LANE)):
+            want = philox.philox4x32_scalar(
+                (lane, 5, lo, hi), philox.split_key(rk.seeds[t]))
+            if [int(grk[w][t, r, 0]) for w in range(4)] != want:
+                raise AssertionError(f"phase 16: K14 rung {t} lane {lane} "
+                                     "differs from philox4x32_scalar")
+            n_cmp += 1
+    return n_cmp
+
+
+def k14_workload4(torch, np, dev, out, n_prof=64, n_kept=8, thin=4):
+    """Workload 4 briefly (for ``python3 chip_smoke.py 16`` alone): K14's
+    device ms a launch in a profiled window of replays and its launches
+    counted on the card in replayed proposals, with every kernel's count
+    held exactly."""
+    per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
+           "philox_draw": 1}
+    with path_launches(out, "workload 4", tuple(per), "phase 16"):
+        smp = pt_sampler(dev)
+        smp.run_mcmc(pt_p0(np), n_kept, thin_by=thin,
+                     skip_initial_state_check=True)
+        smp.run_mcmc(None, n_prof, store=False)  # records the window's graphs
+        win = busy_window(
+            torch, lambda: smp.run_mcmc(None, n_prof, store=False), n_prof,
+            "workload 4", expect=lambda: {k: v * n_prof
+                                          for k, v in per.items()},
+            names=per)
+        counted, _ = counted_replays(
+            torch, dev, smp, n_kept,
+            lambda r: {k: v * n_kept * thin for k, v in per.items()},
+            "workload 4", thin_by=thin, store=False)
+    return dict(ms_per_launch=win["ms_per_launch"],
+                replayed_launches=counted, proposals_counted=n_kept * thin,
+                kernels_per_proposal=win["kernels_per_proposal"],
+                device_us_per_proposal=win["device_us_per_proposal"])
+
+
+def phase16(torch, np, dev, card, p12=None, p14=None):
+    """K14 (see the module docstring, 16): the sweep, then its row: device
+    time a launch at workload 4's shape (every rung's sort key, word 3 of
+    16 x 256 counters) in the workload's replays (phase 14's window, or a
+    short run of its own when phase 16 runs alone) and eagerly, and at
+    the DIME stage's shape (a split's 5e4 x 6 float32 normals) in the
+    stage's replays (phase 12) and eagerly; back-to-back calls and the
+    plain version (CUDA events); the bounds by bytes and by the
+    instructions the function needs."""
+    from emcee_tpu_torch.ops import philox
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    out = {}
+    t0 = time.perf_counter()
+    out["comparisons"] = n_cmp = philox_kernel_sweep(torch, dev)
+    log(f"phase 16: (a) K14 against its plain version (torch.equal; words, "
+        f"uniforms and normals in float32 and float64, rows {K14_SWEEP_N}, "
+        f"counters a row {K14_SWEEP_K}, lanes from 0 and 1000003, int and "
+        f"device blocks, host and device offsets; the rung axis over "
+        f"{K14_SWEEP_T} rungs with and without ROLL_LANE; the public draws "
+        f"against plain=True; graph replays; counters against "
+        f"philox4x32_scalar): {n_cmp} comparisons, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    w4 = (p14 or {}).get("workload4") or k14_workload4(torch, np, dev, out)
+    keys = rung_keys(4, NT4, dev)
+    ng = NW // 2
+    shapes = {
+        "workload 4": (
+            lambda pl=False: philox.rung_words(keys, NW4, 2, 5, dev, word=3,
+                                               plain=pl),
+            # int64 word 3 of every rung's walkers written, the key table
+            # and the offset read; a Philox block a counter
+            8 * NT4 * NW4 + 8 * NT4, NT4 * NW4 * PHILOX_INSTR, 0),
+        "DIME stage": (
+            lambda pl=False: philox.normals(ng, ND + 1, 3, 5, dev,
+                                            plain=pl),
+            # float32 normals written; 3 Philox blocks and 6 stored normals
+            # a row
+            4 * ng * (ND + 1), ng * (
+                (ND + 2) // 2 * PHILOX_INSTR + (ND + 1) * NORMAL_INSTR),
+            ng * (ND + 1) * NORMAL_SFU)}
+    res = {}
+    for shape, (fn, nbytes, instr, sfu) in shapes.items():
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": instruction_bound(instr, sfu)}
+        by = max(t, key=t.get)
+        # The yardstick: torch's fill of the same output (the same bytes
+        # written, one launch), device time a launch.
+        buf = fn()
+        buf = buf[0] if isinstance(buf, tuple) else buf
+        _, kernels = profile_window(torch, lambda: [buf.fill_(0)
+                                                    for _ in range(50)],
+                                    primer=True)
+        yard = (sum(us for _, us in kernels.values())
+                / max(1, sum(c for c, _ in kernels.values())) * 1e-3)
+        res[shape] = dict(
+            yardstick_ms=yard,
+            call_ms=cuda_ms(torch, fn),
+            plain_ms=cuda_ms(torch, lambda: fn(True), reps=20),
+            eager_ms=profiled_ms(torch, lambda: [fn() for _ in range(20)],
+                                 "philox_draw", primer=True),
+            bound_ms=t[by], bound_by=by, bound_bytes_ms=t["bytes"],
+            bound_instructions_ms=t["operations"], bytes=nbytes,
+            instructions=instr)
+    res["workload 4"]["ms"] = w4["ms_per_launch"]["philox_draw"]
+    dime = (p12 or {}).get("dime") or {}
+    res["DIME stage"]["ms"] = (dime.get("ms_per_launch") or {}).get(
+        "philox_draw")
+    for shape, r in res.items():
+        log(f"phase 16: (b) K14 at {shape}'s shape: device "
+            f"{measured(r['ms'] and r['ms'] * 1e3, '.2f')} us/launch in the "
+            f"path's replays, {r['eager_ms'] * 1e3:.2f} eagerly, "
+            f"{r['call_ms'] * 1e3:.2f} us per back-to-back call, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, torch's fill of the same output "
+            f"{r['yardstick_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.4f} "
+            f"us ({r['bound_by']}; bytes {r['bound_bytes_ms'] * 1e3:.4f}, "
+            f"instructions {r['bound_instructions_ms'] * 1e3:.4f}) {card}")
+    regs = {k: v for k, v in PTXAS.items() if "philox_draw_kernel" in k}
+    a, b = res["workload 4"], res["DIME stage"]
+    launches = w4["replayed_launches"]["philox_draw"]
+    # K14's launches a proposal, as this run counted them: on the card in
+    # workload 4's replays, and by the profiler in the DIME stage's
+    # window (phase 12; None when phase 12 did not run).
+    per_proposal = {
+        "workload 4": launches / w4["proposals_counted"],
+        "DIME stage": (dime["launches"]["philox_draw"]
+                       / dime["proposals_profiled"] if dime else None)}
+    row = {"name": "philox_draw", "route": "cuda",
+           "source": "emcee_tpu_torch/csrc/philox_draw.cu",
+           "replaces": "emcee_tpu/moves/red_blue.py:218",
+           "launches": launches, "max_abs_err": 0.0,
+           "ms": a["ms"] if a["ms"] is not None else a["eager_ms"],
+           "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+           "bound_by": a["bound_by"], "library_ms": None,
+           "call_ms": a["call_ms"], "eager_ms": a["eager_ms"],
+           "yardstick_ms": a["yardstick_ms"],
+           "yardstick_ms_dime": b["yardstick_ms"],
+           "bound_bytes_ms": a["bound_bytes_ms"],
+           "bound_instructions_ms": a["bound_instructions_ms"],
+           "ms_dime": b["ms"], "eager_ms_dime": b["eager_ms"],
+           "call_ms_dime": b["call_ms"], "plain_ms_dime": b["plain_ms"],
+           "bound_ms_dime": b["bound_ms"], "bound_by_dime": b["bound_by"],
+           "bound_bytes_ms_dime": b["bound_bytes_ms"],
+           "bound_instructions_ms_dime": b["bound_instructions_ms"],
+           "comparisons": n_cmp, "ptxas": regs,
+           "launches_per_proposal": per_proposal,
+           "note": f"K14 at workload 4's shape ({NT4} rungs x {NW4} walkers, "
+                   "the shuffle's word 3): ms in the workload's replays "
+                   "(profiler); launches counted on the card in "
+                   f"{w4['proposals_counted']} replayed proposals; _dime: "
+                   f"the DIME stage's {ng} x {ND + 1} float32 normals of a "
+                   "split (ms in the stage's replays); max_abs_err: "
+                   f"torch.equal over {n_cmp} comparisons; bound: the "
+                   "bytes written and read, and the instructions needed "
+                   "(PHILOX_INSTR a counter, NORMAL_INSTR / NORMAL_SFU a "
+                   "stored normal); yardstick: torch's fill_ of the same "
+                   "output, eager device time; library_ms: none, no "
+                   "PyTorch call draws these counters"}
+    log(f"phase 16: K14 ptxas {regs}; launches in {w4['proposals_counted']} "
+        f"replayed workload-4 proposals {launches} (device counters); a "
+        f"proposal {per_proposal} {card}")
+    return out, [row]
 
 
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
@@ -5520,13 +6035,15 @@ def main() -> int:
             log(f"  ptxas {k}: {fn}: {regs} registers, {smem} bytes static "
                 f"shared memory, {spill} bytes spilled")
 
-    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"]):
-        # Phase 11, 12, 13, 14 or 15 alone (a first check of the blobs,
-        # the extension moves, the gradient moves or tempering).
+    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"]):
+        # Phase 11, 12, 13, 14, 15 or 16 alone (a first check of the
+        # blobs, the extension moves, the gradient moves, tempering or
+        # K14).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
-                 "14": phase14, "15": phase15}[sys.argv[1]]
+                 "14": phase14, "15": phase15,
+                 "16": phase16}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -6109,6 +6626,12 @@ def main() -> int:
     p15, rows15 = phase15(torch, np, dev, card)
     rows += rows15
     log(f"phase 15: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 16. K14, the counter-based draws ------------------------------------
+    t0 = time.perf_counter()
+    p16, rows16 = phase16(torch, np, dev, card, p12, p14)
+    rows += rows16
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

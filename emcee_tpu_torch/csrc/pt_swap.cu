@@ -26,28 +26,36 @@
 // What bounds it on an H100: latency.  At the tempered workload's shape
 // (16 rungs x 256 walkers x 5-D) a swap reads two rungs' logL of every
 // pair (8 or 7 pairs) and moves the accepted walkers' rows of 5 floats
-// and 3 scalars: some 50 KB, 15 ns at 3.35 TB/s, against a launch floor
-// of ~2 us.  So the design is the simple one: one thread a walker of one
-// pair (the grid's second dimension is the pair), each thread's own
-// walker's rows read and written by that thread only (the pairs of a
-// parity are disjoint, so no two threads touch one row), and one
-// __syncthreads_count and one 64-bit atomicAdd a block for the count.
+// and 3 scalars: some 200 KB, 0.06 us at 3.35 TB/s, against a launch
+// floor of ~1.3-1.5 us.  What a launch waits for is its chain of trips to
+// memory, so the design cuts the chain to one trip before the stores:
+//   * Block (x, k) of the grid handles walkers of pair k of either parity,
+//     so it touches only rungs 2k, 2k + 1 and 2k + 2.  Each thread loads
+//     its walker's logL, logP, beta and coords row (up to kRowRegs floats)
+//     of all three and the register leaves' rows before the offset word
+//     returns: none of it depends on the parity.
+//   * The Philox block is computed as soon as the step is known; after the
+//     decision only the stores remain, from registers (the parity picks
+//     the pair among the three rungs by selects, never by a run-time
+//     index, so nothing goes to local memory).
+//   * User blob leaves: up to kRegLeaves leaves whose rows are one 4- or
+//     8-byte unit U (Leaves<U>'s `reg`) load with the rest, their bases
+//     read at static offsets of the launch's parameters.  The other leaves
+//     (`table`) are copied to shared memory once a block, then an
+//     accepted walker's thread exchanges their rows unit by unit after the
+//     decision (the largest of 16, 8, 4, 2, 1 bytes dividing the base and
+//     the row, ops/swap_kernel.py swap_leaves).  No descriptor is read
+//     with a run-time index into the launch's parameters.
+//   * Small blocks (ops/swap_kernel.py swap_plan): at workload 4's shape a
+//     block of 32 threads, so 64 SMs each carry one and issue their loads
+//     at once, and a warp vote (no block barrier) counts the accepted.
+//   * No local memory: with __launch_bounds__(kMaxThreads) alone ptxas
+//     held the register-leaf kernels to 56 and 64 registers and spilled
+//     12 and 16 bytes; a minimum of one block an SM lets them take the
+//     70 and 80 they need (a block is at most 128 threads, so occupancy
+//     is not what limits this kernel).
 // Arithmetic uses the _rn intrinsics and the accurate logf, so the kernel
 // equals its plain version (ops/swap_kernel.py) bit for bit.
-//
-// User blob leaves (emcee_tpu/parallel/tempering.py:573-580 exchanges
-// every leaf of (coords, logL, logP, blobs) as one unit): a leaf is any
-// dtype of any row shape, (ntemps, nw, ...) in memory, so to the kernel a
-// byte row per walker.  Each leaf reaches the kernel as a descriptor in a
-// struct passed by value (the buffer's base, the row's bytes and an access
-// unit, the largest of 16, 8, 4, 2, 1 bytes that divides both the base and
-// the row: ops/swap_kernel.py swap_leaves), so a graph records it with the
-// launch.  An accepted walker's thread exchanges its two rows of every
-// leaf, unit by unit, beside its coords row.  The leaves' bytes are few
-// (workload 4's two leaves: 24 bytes a walker), so the simple design
-// holds: no staging, no cooperation between threads.  Without leaves the
-// entry point launches the instantiation whose Leaves is NoLeaves, an
-// empty struct as the last parameter, and the leaf code is compiled out.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -60,8 +68,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // SWAP_THREADS in ops/swap_kernel.py
-constexpr int kMaxLeaves = 16;  // SWAP_LEAVES in ops/swap_kernel.py
+constexpr int kMaxThreads = 128;  // SWAP_THREADS_MAX in ops/swap_kernel.py
+constexpr int kMaxLeaves = 16;    // SWAP_LEAVES in ops/swap_kernel.py
+constexpr int kRegLeaves = 4;     // SWAP_REG_LEAVES in ops/swap_kernel.py
+constexpr int kRowRegs = 8;       // SWAP_ROW_REGS in ops/swap_kernel.py
 
 }  // namespace
 
@@ -76,13 +86,32 @@ struct SwapLeaf {
 
 namespace {
 
-struct SwapLeaves {
-  int n;
-  SwapLeaf leaf[kMaxLeaves];
+// The leaves of a launch: `reg` leaves of one U a row through registers
+// (none for U = NoRegs), `table` leaves through shared memory.
+struct NoRegs {};
+
+template <typename U>
+struct Leaves {
+  int n_reg;
+  int n_table;
+  U* reg[kRegLeaves];
+  SwapLeaf table[kMaxLeaves];
 };
 
-// The blob-free kernel's Leaves: none.
+// The blob-free kernel's leaves: none.
 struct NoLeaves {};
+
+template <typename L>
+struct LeafTraits {
+  using Reg = NoRegs;
+  static constexpr bool kAny = false;
+};
+
+template <typename U>
+struct LeafTraits<Leaves<U>> {
+  using Reg = U;
+  static constexpr bool kAny = true;
+};
 
 // Exchange rows a and b of a leaf at base with rows of row_bytes, unit by
 // unit.
@@ -105,43 +134,89 @@ __device__ __forceinline__ float tempered(float beta, float ll, float lpr) {
                              : -CUDART_INF_F;
 }
 
-template <typename Leaves>
-__global__ void __launch_bounds__(kThreads) pt_swap_kernel(
+template <typename L>
+__global__ void __launch_bounds__(kMaxThreads, 1) pt_swap_kernel(
     float* __restrict__ coords, float* __restrict__ log_like,
     float* __restrict__ log_prior, float* __restrict__ log_prob,
     const float* __restrict__ betas, unsigned long long* __restrict__ counts,
     const float* __restrict__ u, int ntemps, int nw, int nd, int swap_every,
     uint32_t k0, uint32_t k1, const long long* __restrict__ offset_dev,
-    unsigned long long offset_inc, const __grid_constant__ Leaves leaves) {
+    unsigned long long offset_inc, const __grid_constant__ L leaves) {
+  using Reg = typename LeafTraits<L>::Reg;
+  constexpr bool kRegs = !std::is_same_v<Reg, NoRegs>;
+  // The table leaves' descriptors, copied from static parameter offsets.
+  __shared__ SwapLeaf table[LeafTraits<L>::kAny ? kMaxLeaves : 1];
+  if constexpr (LeafTraits<L>::kAny) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < kMaxLeaves; ++i) {
+        if (i < leaves.n_table) table[i] = leaves.table[i];
+      }
+    }
+    __syncthreads();
+  }
+  // Issued first; everything below up to its use does not depend on it.
   const uint64_t step = philox_offset(offset_dev, offset_inc);
+  const int k = blockIdx.y;  // the pair's place among the parity's pairs
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = w < nw;
+  const bool has2 = 2 * k + 2 < ntemps;  // rung 2k + 2 exists
+  const int64_t i0 = static_cast<int64_t>(2 * k) * nw + w;
+  const int64_t rung[3] = {i0, i0 + nw, i0 + 2 * static_cast<int64_t>(nw)};
+  float ll[3] = {0.0f, 0.0f, 0.0f}, lpr[3] = {0.0f, 0.0f, 0.0f};
+  float beta[3] = {0.0f, 0.0f, 0.0f}, x[3][kRowRegs];
+  using RegWord = std::conditional_t<kRegs, Reg, uint32_t>;
+  RegWord rv[3][kRegs ? kRegLeaves : 1];
+  const bool row_regs = nd <= kRowRegs;
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      if (r < 2 || has2) {
+        ll[r] = log_like[rung[r]];
+        lpr[r] = log_prior[rung[r]];
+        beta[r] = betas[2 * k + r];
+        if (row_regs) {
+          const float* row = coords + rung[r] * nd;
+#pragma unroll
+          for (int d = 0; d < kRowRegs; ++d) {
+            if (d < nd) x[r][d] = row[d];
+          }
+        }
+        if constexpr (kRegs) {
+#pragma unroll
+          for (int l = 0; l < kRegLeaves; ++l) {
+            if (l < leaves.n_reg) rv[r][l] = leaves.reg[l][rung[r]];
+          }
+        }
+      }
+    }
+  }
   if (step % static_cast<uint64_t>(swap_every) !=
       static_cast<uint64_t>(swap_every - 1)) {
     return;  // no swap at this step (the same for every thread)
   }
-  const int k = blockIdx.y;  // the pair's place among the parity's pairs
-  const int lo = static_cast<int>(step & 1u) + 2 * k;
+  const int p = static_cast<int>(step & 1u);
+  const int lo = p + 2 * k;
   if (lo >= ntemps - 1) return;  // the other parity has one pair more
-  const int w = blockIdx.x * kThreads + threadIdx.x;
   bool acc = false;
-  if (w < nw) {
-    const int64_t a = static_cast<int64_t>(lo) * nw + w;
-    const int64_t b = a + nw;
-    const float ll_lo = log_like[a];
-    const float ll_hi = log_like[b];
-    const float uu =
-        u != nullptr
-            ? u[static_cast<int64_t>(k) * nw + w]
-            : philox_uniform(philox_at(static_cast<uint32_t>(w),
-                                       EMCEE_SWAP_BLOCK |
-                                           static_cast<uint32_t>(lo),
-                                       step, k0, k1)
-                                 .x);
-    const float b_lo = betas[lo];
-    const float b_hi = betas[lo + 1];
+  if (live) {
+    float uu;
+    if (u != nullptr) {
+      uu = u[static_cast<int64_t>(k) * nw + w];  // rows: the parity's pairs
+    } else {
+      uu = philox_uniform(philox_at(static_cast<uint32_t>(w),
+                                    EMCEE_SWAP_BLOCK | static_cast<uint32_t>(lo),
+                                    step, k0, k1)
+                              .x);
+    }
+    // The pair is rungs (0, 1) or (1, 2) of the three: selects, no index.
+    const float ll_lo = p ? ll[1] : ll[0], ll_hi = p ? ll[2] : ll[1];
+    const float b_lo = p ? beta[1] : beta[0], b_hi = p ? beta[2] : beta[1];
     acc = logf(uu) < __fmul_rn(__fsub_rn(b_lo, b_hi), __fsub_rn(ll_hi, ll_lo));
     if (acc) {
-      const float p_lo = log_prior[a];
-      const float p_hi = log_prior[b];
+      const int64_t a = p ? rung[1] : rung[0];
+      const int64_t b = a + nw;
+      const float p_lo = p ? lpr[1] : lpr[0], p_hi = p ? lpr[2] : lpr[1];
       log_like[a] = ll_hi;
       log_like[b] = ll_lo;
       log_prior[a] = p_hi;
@@ -150,31 +225,62 @@ __global__ void __launch_bounds__(kThreads) pt_swap_kernel(
       log_prob[b] = tempered(b_hi, ll_lo, p_lo);
       float* ra = coords + a * nd;
       float* rb = coords + b * nd;
-      for (int d = 0; d < nd; ++d) {
-        const float x = ra[d];
-        ra[d] = rb[d];
-        rb[d] = x;
+      if (row_regs) {
+#pragma unroll
+        for (int d = 0; d < kRowRegs; ++d) {
+          if (d < nd) {
+            ra[d] = p ? x[2][d] : x[1][d];
+            rb[d] = p ? x[1][d] : x[0][d];
+          }
+        }
+      } else {
+        for (int d = 0; d < nd; ++d) {
+          const float v = ra[d];
+          ra[d] = rb[d];
+          rb[d] = v;
+        }
       }
-      if constexpr (std::is_same_v<Leaves, SwapLeaves>) {
-        for (int l = 0; l < leaves.n; ++l) {
-          // The fields by value: the descriptor stays in parameter space.
-          unsigned char* base = leaves.leaf[l].base;
-          const int rb = leaves.leaf[l].row_bytes;
-          switch (leaves.leaf[l].unit) {
-            case 16: swap_rows<uint4>(base, rb, a, b); break;
-            case 8: swap_rows<uint2>(base, rb, a, b); break;
-            case 4: swap_rows<uint32_t>(base, rb, a, b); break;
-            case 2: swap_rows<uint16_t>(base, rb, a, b); break;
-            default: swap_rows<uint8_t>(base, rb, a, b); break;
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int l = 0; l < kRegLeaves; ++l) {
+          if (l < leaves.n_reg) {
+            leaves.reg[l][a] = p ? rv[2][l] : rv[1][l];
+            leaves.reg[l][b] = p ? rv[1][l] : rv[0][l];
+          }
+        }
+      }
+      if constexpr (LeafTraits<L>::kAny) {
+        for (int l = 0; l < leaves.n_table; ++l) {
+          unsigned char* base = table[l].base;
+          const int rbytes = table[l].row_bytes;
+          switch (table[l].unit) {
+            case 16: swap_rows<uint4>(base, rbytes, a, b); break;
+            case 8: swap_rows<uint2>(base, rbytes, a, b); break;
+            case 4: swap_rows<uint32_t>(base, rbytes, a, b); break;
+            case 2: swap_rows<uint16_t>(base, rbytes, a, b); break;
+            default: swap_rows<uint8_t>(base, rbytes, a, b); break;
           }
         }
       }
     }
   }
-  const int n = __syncthreads_count(acc);
-  if (threadIdx.x == 0 && n > 0) {
-    atomicAdd(counts + lo, static_cast<unsigned long long>(n));
+  // Every warp is whole (blockDim.x a multiple of 32) and reaches the vote.
+  const unsigned votes = __ballot_sync(0xffffffffu, acc);
+  if ((threadIdx.x & 31) == 0 && votes != 0u) {
+    atomicAdd(counts + lo, static_cast<unsigned long long>(__popc(votes)));
   }
+}
+
+template <typename L>
+void launch(dim3 grid, int threads, cudaStream_t st, float* coords,
+            float* log_like, float* log_prior, float* log_prob,
+            const float* betas, unsigned long long* cnt, const float* u,
+            int ntemps, int nw, int nd, int swap_every, uint32_t k0,
+            uint32_t k1, const long long* offset_dev,
+            unsigned long long offset, const L& leaves) {
+  pt_swap_kernel<L><<<grid, threads, 0, st>>>(
+      coords, log_like, log_prior, log_prob, betas, cnt, u, ntemps, nw, nd,
+      swap_every, k0, k1, offset_dev, offset, leaves);
 }
 
 }  // namespace
@@ -185,39 +291,65 @@ __global__ void __launch_bounds__(kThreads) pt_swap_kernel(
 // counts (ntemps - 1,) int64; u == nullptr draws the uniforms in the
 // kernel, otherwise u is (ntemps / 2, nw) with row k the uniforms of the
 // parity's k-th pair.  The step is *offset_dev + offset (offset alone when
-// offset_dev is null); swap_every >= 1.  `leaves` is a host array of
+// offset_dev is null); swap_every >= 1.  `threads` (a multiple of 32 up to
+// kMaxThreads) is the block's size.  `leaves` is a host array of
 // `nleaves` (at most kMaxLeaves) user blob leaf descriptors, each with
-// row_bytes > 0; it is copied into the launch's parameters.  Returns
+// row_bytes > 0, the first `n_reg` of which (at most kRegLeaves) have rows
+// of one `reg_unit` (4 or 8) bytes at a base aligned to it and go through
+// registers; they are copied into the launch's parameters.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, and no
-// launch, for more than kMaxLeaves leaves).
+// launch, for arguments out of range).
 extern "C" int emcee_pt_swap(float* coords, float* log_like,
                              float* log_prior, float* log_prob,
                              const float* betas, long long* counts,
                              const float* u, int ntemps, int nw, int nd,
-                             int swap_every, unsigned long long seed,
+                             int swap_every, int threads,
+                             unsigned long long seed,
                              const long long* offset_dev,
                              unsigned long long offset,
-                             const SwapLeaf* leaves, int nleaves,
-                             void* stream) {
-  if (nleaves < 0 || nleaves > kMaxLeaves) {
+                             const SwapLeaf* leaves, int nleaves, int n_reg,
+                             int reg_unit, void* stream) {
+  if (nleaves < 0 || nleaves - n_reg > kMaxLeaves || n_reg < 0 ||
+      n_reg > kRegLeaves || n_reg > nleaves ||
+      (n_reg > 0 && reg_unit != 4 && reg_unit != 8) || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((nw + kThreads - 1) / kThreads, ntemps / 2);
+  const dim3 grid((nw + threads - 1) / threads, ntemps / 2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* cnt = reinterpret_cast<unsigned long long*>(counts);
   const uint32_t k0 = static_cast<uint32_t>(seed);
   const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+#define EMCEE_SWAP_ARGS                                                   \
+  grid, threads, st, coords, log_like, log_prior, log_prob, betas, cnt, u, \
+      ntemps, nw, nd, swap_every, k0, k1, offset_dev, offset
   if (nleaves == 0) {
-    pt_swap_kernel<NoLeaves><<<grid, kThreads, 0, st>>>(
-        coords, log_like, log_prior, log_prob, betas, cnt, u, ntemps, nw, nd,
-        swap_every, k0, k1, offset_dev, offset, NoLeaves{});
+    launch(EMCEE_SWAP_ARGS, NoLeaves{});
+  } else if (n_reg > 0 && reg_unit == 8) {
+    Leaves<unsigned long long> l{};
+    l.n_reg = n_reg;
+    l.n_table = nleaves - n_reg;
+    for (int i = 0; i < n_reg; ++i) {
+      l.reg[i] = reinterpret_cast<unsigned long long*>(leaves[i].base);
+    }
+    for (int i = n_reg; i < nleaves; ++i) l.table[i - n_reg] = leaves[i];
+    launch(EMCEE_SWAP_ARGS, l);
+  } else if (n_reg > 0) {
+    Leaves<uint32_t> l{};
+    l.n_reg = n_reg;
+    l.n_table = nleaves - n_reg;
+    for (int i = 0; i < n_reg; ++i) {
+      l.reg[i] = reinterpret_cast<uint32_t*>(leaves[i].base);
+    }
+    for (int i = n_reg; i < nleaves; ++i) l.table[i - n_reg] = leaves[i];
+    launch(EMCEE_SWAP_ARGS, l);
   } else {
-    SwapLeaves table{};
-    table.n = nleaves;
-    for (int l = 0; l < nleaves; ++l) table.leaf[l] = leaves[l];
-    pt_swap_kernel<SwapLeaves><<<grid, kThreads, 0, st>>>(
-        coords, log_like, log_prior, log_prob, betas, cnt, u, ntemps, nw, nd,
-        swap_every, k0, k1, offset_dev, offset, table);
+    Leaves<NoRegs> l{};
+    l.n_reg = 0;
+    l.n_table = nleaves;
+    for (int i = 0; i < nleaves; ++i) l.table[i] = leaves[i];
+    launch(EMCEE_SWAP_ARGS, l);
   }
+#undef EMCEE_SWAP_ARGS
   return static_cast<int>(cudaGetLastError());
 }

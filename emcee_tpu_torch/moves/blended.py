@@ -29,9 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.philox import (
-    BLEND_BLOCK, ROLL_LANE, philox4x32, split_key, split_offset, sub_seed,
-    to_uniform)
+from ..ops.philox import BLEND_BLOCK, ROLL_LANE, sub_seed, word_uniforms
 from .red_blue import RedBlueMove
 
 __all__ = ["BlendedMove"]
@@ -100,11 +98,9 @@ class BlendedMove(RedBlueMove):
         """Every split's choice, ``(nsplits,)`` int64, from one Philox
         call over the counters ``(ROLL_LANE, BLEND_BLOCK | split)``."""
         seed, offset = rng
-        lo, hi = split_offset(offset)
-        splits = BLEND_BLOCK | torch.arange(self.nsplits, device=device)
-        lane = torch.full((), ROLL_LANE, dtype=torch.int64, device=device)
-        w0 = philox4x32(lane, splits, lo, hi, split_key(seed))[0]
-        return self.choice(to_uniform(w0))
+        u = word_uniforms(1, self.nsplits, BLEND_BLOCK, seed, offset, device,
+                          row0=ROLL_LANE)[0]
+        return self.choice(u)
 
     def get_proposal(self, rng, coords, split, model, extra=None,
                      scale=None):

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.philox import normals, roll_uniforms, to_uniform, walker_words
+from ..ops.philox import normals, roll_uniforms, word_uniforms
 from .base import robbins_monro_tune
 from .mh import MHMove
 
@@ -138,7 +138,7 @@ class GaussianMove(MHMove):
         scale, chol = self._tensors(dev, x0.dtype)
         dims = None
         if self.mode == "random":
-            u = to_uniform(walker_words(nw, 0, seed, offset, dev)[0])
+            u = word_uniforms(nw, 1, 0, seed, offset, dev)[:, 0]
             dims = torch.clamp((u * nd).to(torch.int64), max=nd - 1)
         f = 1.0
         if self._log_factor is not None:

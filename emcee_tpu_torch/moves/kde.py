@@ -35,7 +35,7 @@ import math
 import torch
 
 from ..ops.philox import (
-    SUBSAMPLE_BLOCK, normals, to_uniform, walker_words)
+    SUBSAMPLE_BLOCK, normals, walker_words, word_uniforms)
 from .red_blue import RedBlueMove
 from .walk import cholesky_or_nan, complement, cov
 
@@ -106,14 +106,14 @@ class KDEMove(RedBlueMove):
             sub = extra.get("sub")
             if sub is None:
                 keys = walker_words(c.shape[0], SUBSAMPLE_BLOCK | split, seed,
-                                    offset, dev)[0]
+                                    offset, dev, word=0)
                 sub = torch.argsort(keys, stable=True)[:self.max_complement]
             c = c[sub]
         nc = c.shape[0]
         chol = cholesky_or_nan(self._factor(nc, nd) ** 2 * cov(c))
         pick = extra.get("pick")
         if pick is None:
-            u = to_uniform(walker_words(ng, split, seed, offset, dev)[0])
+            u = word_uniforms(ng, 1, split, seed, offset, dev)[:, 0]
             pick = torch.clamp((u * nc).to(torch.int64), max=nc - 1)
         noise = extra.get("noise")
         if noise is None:

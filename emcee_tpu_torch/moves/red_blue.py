@@ -66,7 +66,7 @@ def shuffled_order(rng, nwalkers, nsplits, device):
     """Walker rows in group order for the shuffled split: the rows of
     group j are ``order[j*ng:(j+1)*ng]``."""
     seed, offset = rng
-    w3 = walker_words(nwalkers, nsplits, seed, offset, device)[3]
+    w3 = walker_words(nwalkers, nsplits, seed, offset, device, word=3)
     perm = torch.argsort(w3, stable=True)
     return perm.view(nwalkers // nsplits, nsplits).t().reshape(-1)
 
@@ -76,7 +76,7 @@ def rung_shuffled_order(rng, ntemps, nwalkers, nsplits, device):
     ``(RungKeys, offset)``), as flat rows of the ``(ntemps * nwalkers,
     ...)`` buffers: rung ``r``'s order plus ``r * nwalkers``."""
     keys, offset = rng
-    w3 = rung_words(keys, nwalkers, nsplits, offset, device)[3]
+    w3 = rung_words(keys, nwalkers, nsplits, offset, device, word=3)
     perm = torch.argsort(w3, dim=-1, stable=True)
     order = perm.view(ntemps, nwalkers // nsplits, nsplits).transpose(1, 2)
     base = torch.arange(0, ntemps * nwalkers, nwalkers, device=device)

@@ -36,8 +36,7 @@ import torch
 from ..chunk_graph import EagerLoops
 from ..ops._wrap import complement_rows
 from ..ops.philox import (
-    SHRINK_BLOCK, SHRINK_MAX, SLICE_BLOCK, row_uniforms, row_words,
-    to_uniform, walker_words)
+    SHRINK_BLOCK, SHRINK_MAX, SLICE_BLOCK, row_uniforms, word_uniforms)
 from ..utils import tree_flatten, tree_map
 from .base import robbins_monro_step
 from .red_blue import RedBlueMove, shuffled_order
@@ -272,8 +271,8 @@ class EnsembleSliceMove(RedBlueMove):
             w.eta.copy_(mu * (ci - cj))
             lu = log_u
             if lu is None:
-                lu = torch.log(to_uniform(
-                    walker_words(ng, split, seed, offset, dev)[1], dt))
+                lu = torch.log(word_uniforms(ng, 1, split, seed, offset,
+                                             dev, 1, dt)[:, 0])
             w.y.copy_(lp_s + lu)
             w.left.copy_(-u[:, 2])
             w.right.copy_(w.left + 1.0)
@@ -332,9 +331,9 @@ class EnsembleSliceMove(RedBlueMove):
             if b == 0:
                 # The block's uniforms in one Philox call: iteration b of
                 # a block that runs unmasked has it = it0 + b.
-                w.shrink_u[:, :block] = to_uniform(row_words(
-                    ng, block, SHRINK_BLOCK | w.it, seed, offset, dev,
-                    lo)[0], dt)
+                w.shrink_u[:, :block] = word_uniforms(
+                    ng, block, SHRINK_BLOCK | w.it, seed, offset, dev, 0, dt,
+                    lo)
             t = w.left + w.shrink_u[:, b] * (w.right - w.left)
             lp_t, blobs_t = model.compute_log_prob(s + t[:, None] * w.eta)
             if blobs_t is not None and blobs_s is None:

@@ -39,6 +39,7 @@ KERNELS = {
     "langevin_factor": ("langevin_factor.cu", "emcee_langevin_factor"),
     "leapfrog": ("leapfrog.cu", "emcee_leapfrog"),
     "pt_swap": ("pt_swap.cu", "emcee_pt_swap"),
+    "philox_draw": ("philox_draw.cu", "emcee_philox_draw"),
 }
 
 _FLAGS = [
@@ -115,9 +116,19 @@ _ARGTYPES = {
         _P, _P, _P, _P,  # coords, log_like, log_prior, log_prob
         _P, _P, _P,  # betas, counts, u
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps nw nd
-        ctypes.c_int,  # swap_every
+        ctypes.c_int, ctypes.c_int,  # swap_every, plan: threads
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P, ctypes.c_int,  # user blob leaves (host array), their number
+        ctypes.c_int, ctypes.c_int,  # plan: register leaves, their unit
+        _P,  # stream
+    ],
+    "philox_draw": [
+        _P, ctypes.c_int, ctypes.c_int,  # out, kind, dtype
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps rows n
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k d word
+        ctypes.c_uint, ctypes.c_uint, _P,  # row0, block, block_dev
+        ctypes.c_ulonglong, _P,  # seed, the rungs' key table
+        _P, ctypes.c_ulonglong,  # offset_dev, offset
         _P,  # stream
     ],
 }

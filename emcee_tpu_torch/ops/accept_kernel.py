@@ -192,10 +192,11 @@ def accept_select_plain(q, factor, lp_q, coords, log_prob, split, nsplits,
     if log_u is None and rungs:
         keys = seed if isinstance(seed, RungKeys) else rung_keys(
             seed, coords.shape[0], dev)
-        w1 = rung_words(keys, ng, split, offset, dev, roll=True)[1][:, :ng]
+        w1 = rung_words(keys, ng, split, offset, dev, roll=True, word=1,
+                        plain=True)[:, :ng]
         log_u = torch.log(to_uniform(w1, factor.dtype))
     elif log_u is None:
-        _, w1, _, _ = walker_words(ng, split, seed, offset, dev)
+        w1 = walker_words(ng, split, seed, offset, dev, word=1, plain=True)
         log_u = torch.log(to_uniform(w1, factor.dtype))
     s = coords[..., lo:lo + ng, :]
     lp_s = log_prob[..., lo:lo + ng]

@@ -53,7 +53,8 @@ from ._wrap import (
     complement_rows, count_launches, de_plan, device_sm_count, launch, ptr,
     rng_args)
 from .philox import (
-    PAIR_BLOCK, box_muller, roll_uniforms, to_uniform, walker_words)
+    PAIR_BLOCK, box_muller, normals, roll_uniforms, row_uniforms, to_uniform,
+    walker_words)
 
 __all__ = ["de_gamma0", "de_pairs", "de_propose", "de_propose_plain",
            "de_roll_shifts", "walker_normal"]
@@ -79,30 +80,40 @@ def de_roll_shifts(u1, u2, nc):
     return s1, (s1 + d) % nc
 
 
-def walker_normal(ng, split, seed, offset, device, dtype=torch.float32):
+def walker_normal(ng, split, seed, offset, device, dtype=torch.float32,
+                  plain=False):
     """The walkers' standard normals of K5a: Box-Muller on words 0 and 2
-    at ``(walker, split, offset)``."""
-    w0, _, w2, _ = walker_words(ng, split, seed, offset, device)
-    return box_muller(w0, w2, dtype)
+    at ``(walker, split, offset)``: normal 0 of counter block ``split``
+    (:func:`~.philox.normals`; K14 on the card, unless ``plain``)."""
+    if torch.device(device).type == "cpu":  # the shared CPU draw
+        w0, _, w2, _ = walker_words(ng, split, seed, offset, device)
+        return box_muller(w0, w2, dtype)
+    return normals(ng, 1, seed, offset, device, dtype, block=split,
+                   plain=plain)[:, 0]
 
 
 def de_pairs(ng, nc, split, pair_mode, seed, offset, device, u_shift=None,
-             idx_a=None, idx_b=None):
+             idx_a=None, idx_b=None, plain=False):
     """K5a's two complement indices ``(a, b)`` per walker, ``a != b``:
     the two roll shifts of the split (from ``u_shift`` or the split's
     ``ROLL_LANE`` words 0 and 1), or the two random picks (``idx_a``,
-    ``idx_b`` or ``PAIR_BLOCK`` words 0 and 1), ``b`` moved past ``a``."""
+    ``idx_b`` or ``PAIR_BLOCK`` words 0 and 1), ``b`` moved past ``a``.
+    The draws are K14's on the card, unless ``plain``."""
     if pair_mode == "roll":
         if u_shift is None:
-            u_shift = roll_uniforms(seed, split, offset, device)
+            u_shift = roll_uniforms(seed, split, offset, device, plain=plain)
         s1, s2 = de_roll_shifts(u_shift[0], u_shift[1], nc)
         lanes = torch.arange(ng, device=device)
         return (lanes + s1) % nc, (lanes + s2) % nc
     if idx_a is None:
-        w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
-        a = torch.clamp((to_uniform(w[0]) * nc).to(torch.int64), max=nc - 1)
-        b = torch.clamp((to_uniform(w[1]) * (nc - 1)).to(torch.int64),
-                        max=nc - 2)
+        if torch.device(device).type == "cpu":  # the shared CPU draw
+            w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
+            u = (to_uniform(w[0]), to_uniform(w[1]))
+        else:
+            u = row_uniforms(ng, 2, seed, offset, device,
+                             block=PAIR_BLOCK | split, plain=plain).unbind(1)
+        a = torch.clamp((u[0] * nc).to(torch.int64), max=nc - 1)
+        b = torch.clamp((u[1] * (nc - 1)).to(torch.int64), max=nc - 2)
     else:
         a, b = idx_a.to(torch.int64), idx_b.to(torch.int64)
     return a, torch.where(b >= a, b + 1, b)
@@ -118,9 +129,10 @@ def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
     lo = split * ng
     dev = coords.device
     if z is None:
-        z = walker_normal(ng, split, seed, offset, dev, coords.dtype)
+        z = walker_normal(ng, split, seed, offset, dev, coords.dtype,
+                          plain=True)
     a, b = de_pairs(ng, nw - ng, split, pair_mode, seed, offset, dev,
-                    u_shift, idx_a, idx_b)
+                    u_shift, idx_a, idx_b, plain=True)
     ca = coords.index_select(0, complement_rows(a, split, ng))
     cb = coords.index_select(0, complement_rows(b, split, ng))
     s = coords[lo:lo + ng]

@@ -115,9 +115,10 @@ def langevin_step_plain(shape, device, *, seed=0, offset=0, row0=0, z=None,
     jitter's ``v`` into ``v`` when given."""
     n, nd = shape
     if v is not None:
-        v.copy_(grad_uniform(seed, v_split, offset, device) * 2.0 - 1.0)
+        v.copy_(grad_uniform(seed, v_split, offset, device, plain=True)
+                * 2.0 - 1.0)
     if z is None:
-        z = normals(n, nd, seed, offset, device, row0=row0)
+        z = normals(n, nd, seed, offset, device, row0=row0, plain=True)
     if x is None:
         return z, None
     return z, _mala_q(x, g, z, eps, d)

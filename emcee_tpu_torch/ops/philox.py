@@ -107,6 +107,15 @@ Stream layout (shared with the kernels):
 
 A uniform is ``(word >> 8) * 2**-24``: 24 random bits, in ``[0, 1)`` and
 exact in float32, as ``jax.random.uniform`` draws them.
+
+The draws below that a move reads on the card (:func:`walker_words`,
+:func:`rung_words`, :func:`row_words`, :func:`normals`,
+:func:`row_uniforms`, :func:`word_uniforms`, :func:`roll_uniforms`,
+:func:`grad_uniform`) are K14 there, one launch a draw
+(``ops/philox_kernel.py``, ``csrc/philox_draw.cu``); their plain version,
+the torch rounds of :func:`philox4x32_torch`, runs on the CPU and
+wherever ``plain=True`` asks for it (the plain versions of the other
+kernels, so that each stays independent of K14).
 """
 
 from __future__ import annotations
@@ -160,6 +169,7 @@ __all__ = [
     "uniform_scalar",
     "uniforms_scalar",
     "walker_words",
+    "word_uniforms",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -262,26 +272,35 @@ def uniform_scalar(seed, lane, split, offset, word=0):
     return uniforms_scalar(seed, lane, split, offset)[word]
 
 
-def roll_uniforms(seed, split, offset, device):
+def _draw(plain):
+    """K14's wrapper ``philox_draw`` of ``ops/philox_kernel.py`` (looked
+    up at each call), or its plain version ``philox_draw_plain`` where
+    ``plain`` asks for the torch rounds (the plain versions of the other
+    kernels draw so, independent of K14)."""
+    from . import philox_kernel
+
+    if plain:
+        return philox_kernel.philox_draw_plain
+    return philox_kernel.philox_draw
+
+
+def roll_uniforms(seed, split, offset, device, plain=False):
     """The four uniforms at counter ``(ROLL_LANE, split, offset)`` as a
     ``(4,)`` float32 tensor on ``device``: the split's roll draws, as the
     kernels compute them."""
     if torch.device(device).type == "cpu":
         n, words = _cpu_draw(None, split, seed, offset)
         return to_uniform(torch.stack([w[n] for w in words]))
-    lane = torch.full((), ROLL_LANE, dtype=torch.int64, device=device)
-    lo, hi = split_offset(offset)
-    return to_uniform(torch.stack(philox4x32(lane, split, lo, hi,
-                                             split_key(seed))))
+    return _draw(plain)("uniforms", 1, None, split, seed, offset,
+                        device, row0=ROLL_LANE, d=4)[0]
 
 
-def grad_uniform(seed, split, offset, device):
+def grad_uniform(seed, split, offset, device, plain=False):
     """The gradient moves' jitter uniform of ``split`` (word 0 at
     ``(ROLL_LANE, GRAD_BLOCK | split, offset)``), a 0-d float32 tensor on
     ``device``, computed there (``offset`` may be a device word)."""
-    w0 = row_words(1, 1, GRAD_BLOCK | split, seed, offset, device,
-                   row0=ROLL_LANE)[0]
-    return to_uniform(w0).reshape(())
+    return word_uniforms(1, 1, GRAD_BLOCK | split, seed, offset, device,
+                         row0=ROLL_LANE, plain=plain).reshape(())
 
 
 def sub_seed(seed, k):
@@ -341,29 +360,31 @@ def rung_keys(seed, ntemps, device):
     return RungKeys(seeds, table, rounds)
 
 
-def rung_words(keys, n, split, offset, device, roll=False):
+def rung_words(keys, n, split, offset, device, roll=False, word=None,
+               plain=False):
     """The four Philox words of walker lanes ``0..n-1`` at ``split`` under
     every rung's key: four ``(T, n)`` tensors, rung ``r``'s row equal to
-    :func:`walker_words` under ``keys.seeds[r]``, from one pass.  With
-    ``roll``, lane ``ROLL_LANE`` follows as column ``n`` (the split's roll
-    draws, :func:`roll_uniforms`).  On the CPU the last draw of this
-    thread is kept and served again (as :data:`_cpu_draws` serves
-    :func:`walker_words`): K1's and K2's plain versions of one split read
-    the same counters."""
-    cpu = torch.device(device).type == "cpu"
-    if cpu:
-        key = (keys.seeds, n, split, _cpu_offset(offset), roll)
-        last = getattr(_cpu_draws, "rungs", None)
-        if last is not None and last[0] == key:
-            return last[1]
-    lo, hi = split_offset(offset)
-    lanes = torch.arange(n + bool(roll), dtype=torch.int64, device=device)
-    if roll:
-        lanes[n] = ROLL_LANE
-    words = philox4x32_torch(lanes, split, lo, hi, None, rounds=keys.rounds)
-    if cpu:
-        _cpu_draws.rungs = key, words
-    return words
+    :func:`walker_words` under ``keys.seeds[r]``, from one pass (only
+    word ``word`` where given).  With ``roll``, lane ``ROLL_LANE`` follows
+    as column ``n`` (the split's roll draws, :func:`roll_uniforms`).  On
+    the CPU the last draw of this thread is kept and served again (as
+    :data:`_cpu_draws` serves :func:`walker_words`): K1's and K2's plain
+    versions of one split read the same counters."""
+    if torch.device(device).type != "cpu":
+        out = _draw(plain)("words", n, 1, split, keys, offset,
+                           device, word=word, roll=roll)
+        return (tuple(w[..., 0] for w in out) if word is None
+                else out[..., 0])
+    key = (keys.seeds, n, split, _cpu_offset(offset), roll)
+    last = getattr(_cpu_draws, "rungs", None)
+    if last is None or last[0] != key:
+        lo, hi = split_offset(offset)
+        lanes = torch.arange(n + bool(roll), dtype=torch.int64)
+        if roll:
+            lanes[n] = ROLL_LANE
+        last = _cpu_draws.rungs = key, philox4x32_torch(
+            lanes, split, lo, hi, None, rounds=keys.rounds)
+    return last[1] if word is None else last[1][word]
 
 
 def roll_shift(seed, split, offset, nc, device="cpu"):
@@ -485,16 +506,18 @@ def _cpu_draw(n, split, seed, offset):
     return n, words
 
 
-def walker_words(n, split, seed, offset, device):
-    """The four Philox words of walker lanes ``0..n-1`` at ``split``;
-    ``offset`` is an int or a :class:`DeviceOffset`."""
+def walker_words(n, split, seed, offset, device, word=None, plain=False):
+    """The four Philox words of walker lanes ``0..n-1`` at ``split`` (only
+    word ``word`` where given); ``offset`` is an int or a
+    :class:`DeviceOffset`."""
     if torch.device(device).type == "cpu":
         _, words = _cpu_draw(n, split, seed, offset)
         at = slice(n + 1, None) if split & PAIR_BLOCK else slice(0, n)
-        return tuple(w[at] for w in words)
-    lo, hi = split_offset(offset)
-    lanes = torch.arange(n, dtype=torch.int64, device=device)
-    return philox4x32(lanes, split, lo, hi, split_key(seed))
+        out = tuple(w[at] for w in words)
+        return out if word is None else out[word]
+    out = _draw(plain)("words", n, 1, split, seed, offset, device,
+                       word=word)
+    return tuple(w[:, 0] for w in out) if word is None else out[:, 0]
 
 
 def to_uniform(word, dtype=torch.float32):
@@ -510,37 +533,41 @@ def box_muller(w0, w2, dtype=torch.float32):
     return r * torch.cos(TWO_PI_F32 * to_uniform(w2, dtype))
 
 
-def row_words(n, k, block, seed, offset, device, row0=0):
+def row_words(n, k, block, seed, offset, device, row0=0, word=None,
+              plain=False):
     """The words of counters ``(row0 + r, block + j, offset)`` for
     ``r < n``, ``j < k`` (``block | j`` for a block whose low bits are
-    clear): four ``(n, k)`` tensors.  ``block`` is an int or a 0-d int64
-    tensor on ``device`` (a block indexed by a device counter, such as
-    the slice move's shrink iteration)."""
-    lo, hi = split_offset(offset)
-    rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
-    cols = block + torch.arange(k, dtype=torch.int64, device=device)
-    return philox4x32(rows[:, None], cols[None, :], lo, hi, split_key(seed))
+    clear): four ``(n, k)`` tensors (only word ``word`` where given).
+    ``block`` is an int or a 0-d int64 tensor on ``device`` (a block
+    indexed by a device counter, such as the slice move's shrink
+    iteration)."""
+    return _draw(plain)("words", n, k, block, seed, offset, device,
+                        row0=row0, word=word)
+
+
+def word_uniforms(n, k, block, seed, offset, device, word=0,
+                  dtype=torch.float32, row0=0, plain=False):
+    """``(n, k)`` uniforms of word ``word`` of the counters of
+    :func:`row_words`."""
+    return _draw(plain)("uniforms", n, k, block, seed, offset,
+                        device, row0=row0, word=word, dtype=dtype)
 
 
 def normals(n, d, seed, offset, device, dtype=torch.float32, row0=0,
-            block=NORMAL_BLOCK):
+            block=NORMAL_BLOCK, plain=False):
     """``(n, d)`` standard normals of rows ``row0 .. row0 + n - 1``:
     normal ``2k`` of a row by Box-Muller on words 0 and 2 of counter
     ``(row, block | k, offset)``, normal ``2k + 1`` on words 1 and 3
     (:func:`box_muller`)."""
-    w0, w1, w2, w3 = row_words(n, (d + 1) // 2, block, seed, offset,
-                               device, row0)
-    z = torch.stack((box_muller(w0, w2, dtype), box_muller(w1, w3, dtype)),
-                    dim=-1)
-    return z.reshape(n, 2 * ((d + 1) // 2))[:, :d]
+    return _draw(plain)("normals", n, None, block, seed, offset,
+                        device, row0=row0, d=d, dtype=dtype)
 
 
 def row_uniforms(n, d, seed, offset, device, dtype=torch.float32, row0=0,
-                 block=PICK_BLOCK):
+                 block=PICK_BLOCK, plain=False):
     """``(n, d)`` uniforms of rows ``row0 .. row0 + n - 1``: uniform
     ``4k + w`` of a row from word ``w`` of counter ``(row, block | k,
     offset)``."""
-    w = row_words(n, (d + 3) // 4, block, seed, offset, device, row0)
-    return to_uniform(torch.stack(w, dim=-1), dtype).reshape(
-        n, 4 * ((d + 3) // 4))[:, :d]
+    return _draw(plain)("uniforms", n, None, block, seed, offset,
+                        device, row0=row0, d=d, dtype=dtype)
 

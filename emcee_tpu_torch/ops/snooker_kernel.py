@@ -86,11 +86,12 @@ def role_rows(ng, split, nsplits, pair_mode, device, seed=0, offset=0,
     lanes = torch.arange(ng, device=device)
     if pair_mode == "roll":
         if u4 is None:
-            u4 = roll_uniforms(seed, split, offset, device)
+            u4 = roll_uniforms(seed, split, offset, device, plain=True)
         groups, shifts = roll_picks(u4, split, nsplits, ng)
         return [groups[r] * ng + (lanes + shifts[r]) % ng for r in range(3)]
     if idx is None:
-        w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
+        w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device,
+                         plain=True)
         idx = [torch.clamp((to_uniform(w[k]) * ng).to(torch.int64),
                            max=ng - 1) for k in range(3)]
         perm = torch.clamp((to_uniform(w[3]) * 6).to(torch.int64), max=5)

@@ -74,12 +74,13 @@ def stretch_propose_plain(coords, split, nsplits, *, a, scale=None,
             keys = seed if isinstance(seed, RungKeys) else rung_keys(
                 seed, coords.shape[0], dev)
             w0, _, w2, _ = rung_words(keys, ng, split, offset, dev,
-                                      roll=True)
+                                      roll=True, plain=True)
             u_shift = to_uniform(w0[:, ng])
             w0, w2 = w0[:, :ng], w2[:, :ng]
         else:
-            w0, _, w2, _ = walker_words(ng, split, seed, offset, dev)
-            u_shift = roll_uniforms(seed, split, offset, dev)[0]
+            w0, _, w2, _ = walker_words(ng, split, seed, offset, dev,
+                                        plain=True)
+            u_shift = roll_uniforms(seed, split, offset, dev, plain=True)[0]
         u_z = to_uniform(w0, coords.dtype)
         u_pair = to_uniform(w2, coords.dtype)
     if pair_mode == "roll":

@@ -29,8 +29,14 @@ package exchanges every leaf of ``(coords, logL, logP, blobs)`` together
 (``:573-580``).  The kernel copies bytes (the largest unit of 16, 8, 4,
 2 and 1 bytes that divides the leaf's base and row,
 :func:`swap_leaves`), never converts them, so the plain version's
-``torch.where`` and the kernel agree bit for bit.  One launch takes up to
-``SWAP_LEAVES`` leaves; more raise.
+``torch.where`` and the kernel agree bit for bit.  Up to
+``SWAP_REG_LEAVES`` leaves whose rows are one 4-byte unit (or, where
+there is none, one 8-byte unit) go through registers, loaded before the
+decision; the rest through a table in shared memory, after it.  One
+launch takes up to ``SWAP_LEAVES`` table leaves; more raise.
+:func:`swap_plan` sizes the block (the largest of 128, 64 and 32
+threads whose grid still has a block for every SM: 32 at workload 4's
+shape, so 64 SMs carry a block each) and orders the leaves.
 
 :func:`pt_swap` launches the kernel for CUDA tensors and uses
 :func:`pt_swap_plain` for CPU tensors; it never falls back from one to
@@ -42,21 +48,61 @@ the other.  ``pt_swap.launches`` counts kernel launches (and
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from ._wrap import check_f32, count_launches, launch, ptr, rng_args
+from ._wrap import (
+    check_f32, count_launches, device_sm_count, launch, ptr, rng_args)
 from .philox import (
     SWAP_BLOCK, RungKeys, philox4x32, split_key, split_offset, to_uniform)
 from .philox import _cpu_offset as _step  # a device word is read: a sync
 
-__all__ = ["SWAP_LEAVES", "SWAP_THREADS", "pt_swap", "pt_swap_plain",
-           "swap_leaves", "swap_pairs", "tempered_log_prob"]
+__all__ = ["SWAP_LEAVES", "SWAP_REG_LEAVES", "SWAP_ROW_REGS",
+           "SWAP_THREADS_MAX", "SwapPlan", "pt_swap", "pt_swap_plain",
+           "swap_leaves", "swap_pairs", "swap_plan", "tempered_log_prob"]
 
-#: threads a block of the kernel (kThreads in csrc/pt_swap.cu)
-SWAP_THREADS = 128
-#: user blob leaves one launch exchanges (kMaxLeaves in csrc/pt_swap.cu)
+#: the largest block of the kernel (kMaxThreads in csrc/pt_swap.cu)
+SWAP_THREADS_MAX = 128
+#: user blob leaves one launch exchanges through its table (kMaxLeaves in
+#: csrc/pt_swap.cu), beside its register leaves
 SWAP_LEAVES = 16
+#: scalar leaves one launch exchanges through registers (kRegLeaves)
+SWAP_REG_LEAVES = 4
+#: coordinates a row that the kernel loads before the decision (kRowRegs;
+#: longer rows are exchanged after it)
+SWAP_ROW_REGS = 8
+
+
+class SwapPlan(NamedTuple):
+    """How the kernel is launched: the C entry point's arguments."""
+
+    threads: int  #: threads a block, a multiple of 32
+    n_reg: int  #: the leading leaves that go through registers
+    reg_unit: int  #: their row's bytes, 4 or 8 (0 without register leaves)
+
+
+def swap_plan(nw, ntemps, n_sm, table=()):
+    """The launch plan for ``ntemps`` rungs of ``nw`` walkers on a card of
+    ``n_sm`` SMs with leaf descriptors ``table`` (:func:`swap_leaves`),
+    and the descriptors in launch order: ``(SwapPlan, descriptors)``.
+
+    The block is the largest of 128, 64 and 32 threads whose grid
+    (``ceil(nw / threads) x ntemps // 2``) has a block for every SM, else
+    32.  Up to ``SWAP_REG_LEAVES`` leaves whose rows are one 4-byte unit
+    (where there is none, one 8-byte unit) go first, through registers;
+    every other leaf follows in its own order, through the table."""
+    threads = SWAP_THREADS_MAX
+    while threads > 32 and -(-nw // threads) * (ntemps // 2) < n_sm:
+        threads //= 2
+    for unit in (4, 8):
+        reg = [i for i, d in enumerate(table)
+               if d[1] == d[2] == unit][:SWAP_REG_LEAVES]
+        if reg:
+            order = ([table[i] for i in reg]
+                     + [d for i, d in enumerate(table) if i not in reg])
+            return SwapPlan(threads, len(reg), unit), order
+    return SwapPlan(threads, 0, 0), list(table)
 
 
 class _SwapLeaf(ctypes.Structure):
@@ -89,9 +135,11 @@ def swap_leaves(leaves, ntemps, nw, device):
         unit = next(u for u in (16, 8, 4, 2, 1)
                     if not (base % u or row % u))
         out.append((base, row, unit))
-    if len(out) > SWAP_LEAVES:
+    if len(out) - swap_plan(nw, ntemps, 1, out)[0].n_reg > SWAP_LEAVES:
         raise ValueError(f"K15 exchanges at most {SWAP_LEAVES} blob leaves "
-                         f"a launch, got {len(out)}")
+                         f"a launch through its table (and "
+                         f"{SWAP_REG_LEAVES} scalars through registers), "
+                         f"got {len(out)}")
     return out
 
 
@@ -185,16 +233,27 @@ def pt_swap(coords, log_like, log_prior, log_prob, betas, counts, *, seed=0,
         step = _step(offset)  # injected draws: the parity is the host's
         check_f32("u", u, dev, (len(swap_pairs(step, ntemps, swap_every)),
                                 nw))
-    table = swap_leaves(leaves, ntemps, nw, dev)
+    plan, table = swap_plan(nw, ntemps, device_sm_count(dev),
+                            swap_leaves(leaves, ntemps, nw, dev))
+    _launch(plan, coords, log_like, log_prior, log_prob, betas, counts,
+            seed, offset, swap_every, u, table)
+    count_launches(pt_swap)
+    return None
+
+
+def _launch(plan, coords, log_like, log_prior, log_prob, betas, counts, seed,
+            offset, swap_every, u, table):
+    """Launch the kernel with ``plan`` and leaf descriptors ``table`` (in
+    :func:`swap_plan`'s order) on checked buffers."""
+    ntemps, nw, nd = coords.shape
+    dev = coords.device
     descs = (_SwapLeaf * max(1, len(table)))(*[_SwapLeaf(*d)
                                                 for d in table])
     launch("pt_swap", dev, coords.data_ptr(), log_like.data_ptr(),
            log_prior.data_ptr(), log_prob.data_ptr(), betas.data_ptr(),
            counts.data_ptr(), ptr(u), ntemps, nw, nd, int(swap_every),
-           *rng_args(_chain_seed(seed), offset, dev),
-           ctypes.addressof(descs), len(table))
-    count_launches(pt_swap)
-    return None
+           plan.threads, *rng_args(_chain_seed(seed), offset, dev),
+           ctypes.addressof(descs), len(table), plan.n_reg, plan.reg_unit)
 
 
 pt_swap.launches = 0

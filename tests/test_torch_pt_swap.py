@@ -223,3 +223,69 @@ def test_tempered_log_prob_order_and_mask():
     assert got[0, 0] == want[0, 0] and got[1, 0] == want[1, 0]
     assert got[0, 1] == -float("inf") and got[0, 2] == -float("inf")
     assert torch.isnan(got[1, 2])
+
+
+def _leaf(shape, dtype, misalign=0):
+    """A zero CPU tensor of ``shape`` whose base lies ``misalign`` bytes
+    past a 16-byte boundary."""
+    item = torch.empty(0, dtype=dtype).element_size()
+    n = int(np.prod(shape)) * item
+    store = torch.zeros(n + 32, dtype=torch.uint8)
+    skip = (-store.data_ptr() + misalign) % 16
+    return store[skip:skip + n].view(dtype).view(shape)
+
+
+@pytest.mark.parametrize("specs,n_reg,unit,order", [
+    ((("float32", (), 0), ("float32", (5,), 0)), 1, 4, (0, 1)),
+    ((("float32", (5,), 0), ("float32", (), 0)), 1, 4, (1, 0)),
+    ((("int32", (), 4),) * 5, 4, 4, (0, 1, 2, 3, 4)),
+    ((("float64", (), 0), ("int64", (), 8)), 2, 8, (0, 1)),
+    ((("float64", (), 0), ("float32", (), 4)), 1, 4, (1, 0)),
+    ((("int16", (2,), 2),), 0, 0, (0,)),
+    ((("int8", (3,), 0), ("int32", (2,), 4)), 0, 0, (0, 1)),
+])
+def test_leaf_plan_takes_scalar_leaves_through_registers(specs, n_reg, unit,
+                                                         order):
+    """K15's leaf plan: up to four leaves whose rows are one 4-byte unit
+    (else one 8-byte unit) go first, through registers; every other leaf
+    (a wider row, a base that splits the unit, the fifth scalar) follows
+    in its own order, through the table."""
+    T, nw = 3, 8
+    leaves = [_leaf((T, nw) + row, getattr(torch, dt), mis)
+              for dt, row, mis in specs]
+    table = swap_kernel.swap_leaves(leaves, T, nw, torch.device("cpu"))
+    plan, plan_order = swap_kernel.swap_plan(nw, T, 132, table)
+    assert plan_order == [table[i] for i in order]
+    assert (plan.n_reg, plan.reg_unit) == (n_reg, unit)
+
+
+@pytest.mark.parametrize("nw,T,n_sm,threads", [
+    (256, 16, 132, 32), (2000, 16, 132, 64), (100_000, 16, 132, 128),
+    (256, 2, 1, 128), (8, 3, 132, 32)])
+def test_swap_plan_sizes_the_block_for_latency(nw, T, n_sm, threads):
+    """The largest block of 128, 64, 32 threads whose grid has a block for
+    every SM, else 32 (workload 4's 16 x 256: 64 blocks of 32)."""
+    plan, order = swap_kernel.swap_plan(nw, T, n_sm)
+    assert plan.threads == threads and plan.threads % 32 == 0
+    assert order == []
+    assert (plan.n_reg, plan.reg_unit) == (0, 0)
+
+
+def test_leaf_plan_refusals():
+    T, nw, cpu = 2, 4, torch.device("cpu")
+    wide = [_leaf((T, nw, 5), torch.float32) for _ in range(17)]
+    with pytest.raises(ValueError, match="at most 16 blob leaves"):
+        swap_kernel.swap_leaves(wide, T, nw, cpu)
+    # Four scalars ride in registers beside sixteen table leaves.
+    scalars = [_leaf((T, nw), torch.float32) for _ in range(4)]
+    table = swap_kernel.swap_leaves(scalars + wide[:16], T, nw, cpu)
+    assert swap_kernel.swap_plan(nw, T, 1, table)[0][1:] == (4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        swap_kernel.swap_leaves([_leaf((T, nw + 1), torch.float32)], T, nw,
+                                cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        swap_kernel.swap_leaves([_leaf((T, nw, 2), torch.float32)[..., 0]],
+                                T, nw, cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        swap_kernel.swap_leaves([torch.zeros(T, nw, device="meta")], T, nw,
+                                cpu)
