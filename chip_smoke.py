@@ -119,9 +119,11 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
 
 14. parallel tempering (workload 4, ``benchmarks/workloads5.py:196-262``
    ``pt_multimodal``): (a) K1 and K2 with the rung axis against their
-   plain versions bit for bit (1-16 rungs, 6-1000 walkers, ndim 1, 5, 8,
-   nsplits 2 and 3, both pair modes, injected / host offset / device
-   offset draws, one rung against the single-ensemble launch) and K15,
+   plain versions bit for bit (1-16 rungs, 6-1000 walkers, ndim 1, 5, 8
+   and 9, nsplits 2 and 3, both pair modes, injected / host offset /
+   device offset draws, one rung against the single-ensemble launch; K2
+   by the wrapper and by forced plans of 32-512 threads with the q rows
+   and the leaves through registers or after the decision) and K15,
    the swap (2-16 rungs, ndim 1, 5 and 9, both parities, ``swap_every``
    1 and 3, NaN and +-inf ``logL``, -inf ``logP``; the wrapper's launch
    and blocks of 32, 64 and 128 threads); (b) 64 graph-replayed tempered
@@ -138,9 +140,11 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    ``python3 chip_smoke.py 14`` runs phases 0, 1 and 14 alone.
 
 15. the rest of tempering (workload 4's configuration): (a) K2 with the
-   rung axis and user blob leaves (register path and phase C; 1-16 rungs,
-   6-1000 walkers, f32 / f64 scalars, int8 ``(3,)`` and f32 ``(5,)`` rows
-   and mixes of them, injected / host offset / device offset draws) and
+   rung axis and user blob leaves (through registers, after the decision
+   and both, past 16 leaves; 1-16 rungs, 6-1000 walkers, f32 / f64
+   scalars, rows of 1-9 units, int8 ``(3,)`` and int16 ``(3,)`` rows and
+   mixes of them, injected / host offset / device offset draws; the
+   wrapper and forced plans) and
    K15 with a leaf table (rows of 1-20 bytes at unaligned bases, 2-16
    rungs, both parities, ``swap_every`` 1 and 3, NaN and +-inf ``logL``,
    -inf ``logP``) against their plain versions byte for byte; (b) 64
@@ -158,9 +162,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    (graph chain == eager chain; µs, flag reads and kernels a proposal);
    (g) ``run_until_converged`` on the cold rung; (h) ``PTHDFBackend``
    with ``io_dtype`` and ``parameter_names`` (without h5py it prints
-   ``pt-hdf: h5py not installed``); the rows of K2 with phase-C leaves on
-   the rung axis and of K15 with leaves.  ``python3 chip_smoke.py 15``
-   runs phases 0, 1 and 15 alone.
+   ``pt-hdf: h5py not installed``); the rows of K2 with the blobs'
+   leaves on the rung axis and of K15 with leaves.  ``python3
+   chip_smoke.py 15`` runs phases 0, 1 and 15 alone.
 
 16. K14, the counter-based Philox draws (``csrc/philox_draw.cu``): (a)
    against its plain version (the torch rounds), ``torch.equal``, in
@@ -168,12 +172,15 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    to 17 counters a row, lanes from 0 and above, the rung axis (1-16
    rungs, with and without ``ROLL_LANE``), int and device blocks, host
    and device offsets, the public draws against their ``plain=True``
-   twins, graph replays, and counters against ``philox4x32_scalar``;
-   (b) its row: device time a launch at workload 4's shape (phase 14's
-   replays) and at the DIME stage's (phase 12's), eagerly, back to
-   back and plain, beside its bounds.  ``python3 chip_smoke.py 16`` runs
-   phases 0, 1 and 16 alone (with a short workload-4 run of its own for
-   the replays).  Every path's exact launch counts (phases 4, 8, 10-15)
+   twins, graph replays, counters against ``philox4x32_scalar``, and
+   forced launch plans (blocks of 32-1024 threads, rows with and without
+   a tail, blocks across rungs, graph replays); (b) its row: device time
+   a launch at workload 4's shape (phase 14's replays) and at the DIME
+   stage's (phase 12's), eagerly (also over other blocks), back to back
+   and plain, beside its bounds and two yardsticks: torch's fill of the
+   same output and torch's own Philox draw into it.  ``python3
+   chip_smoke.py 16`` runs phases 0, 1 and 16 alone (with a short
+   workload-4 run of its own for the replays).  Every path's exact launch counts (phases 4, 8, 10-15)
    name K14's launches a proposal; the row gives those counted in this
    run at workload 4 and (with phase 12) the DIME stage.
 
@@ -182,14 +189,17 @@ phase raises on failure.  ``python3 chip_smoke.py sass-diff TREE``
 builds TREE's and this checkout's K1, K2 and K15 and compares their
 SASS function by function.
 
-Two modes compare this checkout with another tree inside it (TREE, e.g.
-the parent commit unpacked by ``git archive`` into the git-ignored
+Three modes compare this checkout with another tree inside it (TREE,
+e.g. the parent commit unpacked by ``git archive`` into the git-ignored
 ``build/parent``; a TREE outside this checkout is refused):
 ``python3 chip_smoke.py main-path TREE`` runs phase 3's main path alone
 with TREE's package, for turns of two trees; ``python3 chip_smoke.py
-phase-times TREE`` runs TREE's whole ``chip_smoke.py`` in a child
-process, echoes its output, and prints the seconds each phase took (each
-output line's wait charged to the phase it names) and the total.
+kernel-turn TREE`` times K14 and K2's rung axis in the replays of
+workload 4 (with and without its blobs) and of the DIME stage with
+TREE's package, likewise; ``python3 chip_smoke.py phase-times TREE``
+runs TREE's whole ``chip_smoke.py`` in a child process, echoes its
+output, and prints the seconds each phase took (each output line's wait
+charged to the phase it names) and the total.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -246,6 +256,18 @@ SWEEP_TILES = (16, 32, 64, 128, 256)
 #: tiles of K5a's and K5b's timing sweep (phase 6; K5b's cap is 16)
 K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
                   "snooker_propose": (4, 8, 16)}
+#: the kernel functions a wrapper launches besides ``<wrapper>_kernel``
+#: (K2's rung axis has a kernel of its own)
+KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",)}
+
+
+def launched_by(name, key):
+    """Whether the profiler's kernel ``key`` is a launch of wrapper
+    ``name``'s kernel."""
+    return f"{name}_kernel" in key or any(
+        a in key for a in KERNEL_ALIASES.get(name, ()))
+
+
 #: (module under emcee_tpu_torch.ops, wrapper) of every kernel
 KERNELS = (("stretch_kernel", "stretch_propose"),
            ("accept_kernel", "accept_select"),
@@ -428,7 +450,7 @@ def window_events_line(names):
     counts differ)."""
     ev = WINDOW_EVENTS
     first = "; ".join(f"{t:.0f} {name[:28]}" for t, name in ev[:6])
-    starts = {k: [round(t) for t, name in ev if f"{k}_kernel" in name][:4]
+    starts = {k: [round(t) for t, name in ev if launched_by(k, name)][:4]
               for k in names}
     return (f"{len(ev)} events from {ev[0][0]:.0f} to {ev[-1][0]:.0f} us "
             f"after the trace's start; the first: {first}; the first "
@@ -467,7 +489,7 @@ def plain_kernels():
 def device_ms(kernels, kname):
     """Mean device ms per launch of ``kname`` in a profiled window."""
     hits = [(c, us) for key, (c, us) in kernels.items()
-            if f"{kname}_kernel" in key]
+            if launched_by(kname, key)]
     if not hits:
         return None
     return sum(us for _, us in hits) / sum(c for c, _ in hits) * 1e-3
@@ -534,7 +556,7 @@ def profiled_counts(kernels):
     """``{wrapper name: launches}`` of every kernel, as the profiler
     counted them in a window (graph replays included)."""
     return {name: sum(c for key, (c, _) in kernels.items()
-                      if f"{name}_kernel" in key)
+                      if launched_by(name, key))
             for _, name in KERNELS}
 
 
@@ -2482,7 +2504,7 @@ def phase11(torch, np, dev, card):
     blobs_type = {4: "BlobRows<unsigned int>", 8: "BlobRows<uint2>",
                   0: "BlobLeaves"}[row_unit]
     label = (f"accept_select_kernel<{str(bool(plan.vec)).lower()}, "
-             f"{str(bool(plan.stage)).lower()}, {blobs_type}, false>")
+             f"{str(bool(plan.stage)).lower()}, {blobs_type}>")
     regs = PTXAS.get(label)
     waves = (plan.grid / (device_sm_count(dev) * resident_blocks(
         regs[0], 256, regs[1] + plan.smem)) if regs else None)
@@ -2719,7 +2741,7 @@ def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
                                     for key, (_, us) in top})
     if want:
         ours_us = sum(us for key, (_, us) in kernels.items()
-                      if any(f"{k}_kernel" in key for k in want))
+                      if any(launched_by(k, key) for k in want))
         out.update(ms_per_launch={k: device_ms(kernels, k) for k in want},
                    other_us_per_proposal=(busy - ours_us) / n,
                    other_share=(busy - ours_us) / busy)
@@ -4065,7 +4087,11 @@ PT_SEP = 4.0
 #: nsplits) and ndims
 PT_SWEEP_T = (1, 2, 3, 16)
 PT_SWEEP_NW = {2: (8, 256, 1000), 3: (6, 258, 999)}
-PT_SWEEP_ND = (1, 5, 8)
+PT_SWEEP_ND = (1, 5, 8, 9)
+#: K2's rung-axis launches forced beside the wrapper's plan (phases 14 and
+#: 15): (threads, q rows through registers where ndim allows, leaves
+#: through registers where the leaf plan allows)
+K2_RUNG_PLANS = ((32, 0, 0), (64, 1, 1), (128, 1, 0), (512, 0, 1))
 #: rungs of K15's sweep
 SWAP_SWEEP_T = (2, 3, 5, 16)
 #: ndims of K15's sweep: rows through registers (up to SWAP_ROW_REGS) and
@@ -4193,10 +4219,36 @@ def rung_kernel_sweep(torch, dev):
     return n
 
 
+def k2_rung_launches(plans=K2_RUNG_PLANS):
+    """The K2 rung-axis launches a sweep holds against the plain version:
+    the wrapper, and the rung kernel at each of ``plans`` through
+    ``accept_kernel._launch_rungs`` (a forced plan's leaves go all after
+    the decision unless its third field lets the leaf plan's register
+    leaves through)."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops._wrap import RUNG_ROW_REGS, rung_plan
+
+    def forced(threads, reg_row, reg_leaves):
+        def run(q, f, lp_q, c, l, split, nsplits, acc, cnt=None, *, seed,
+                offset=0, log_u=None, blobs=()):
+            T, nw, nd = c.shape
+            ng = q.shape[1]
+            leaves, n_reg = ak.leaf_plan(ak.blob_leaves(
+                blobs, ng, nw, c.device, (T,)), rungs=True)
+            plan = rung_plan(ng, nd)._replace(
+                threads=threads, reg_row=int(reg_row and nd <= RUNG_ROW_REGS))
+            ak._launch_rungs(plan, q, f, lp_q, c, l, split, acc, cnt, seed,
+                             offset, log_u, leaves, n_reg if reg_leaves else 0)
+        return run
+
+    return [ak.accept_select] + [forced(*p) for p in plans]
+
+
 def k2_rung_check(torch, dev, gen, coords, proposal, split, nsplits, kw, T):
     """K2 with the rung axis on one proposal against its plain version
     (and, at one rung, today's launch), with and without injected
-    ``log_u``, the ``logL`` / ``logP`` leaves riding the register path;
+    ``log_u``, the ``logL`` / ``logP`` leaves riding the register path, by
+    the wrapper and by the forced plans of :func:`k2_rung_launches`;
     returns the comparisons made."""
     from emcee_tpu_torch.ops import accept_kernel as ak
 
@@ -4217,18 +4269,23 @@ def k2_rung_check(torch, dev, gen, coords, proposal, split, nsplits, kw, T):
     if "offset" in kw:
         variants.append(dict(offset=kw["offset"]))
     n = 0
+
+    def run(fn, v):
+        c, l = coords.clone(), lp.clone()
+        acc = torch.zeros(T, nw, dtype=torch.bool, device=dev)
+        cnt = torch.ones(T, nw, dtype=torch.int32, device=dev)
+        b = [x.clone() for x in bufs]
+        fn(q, f, lp_q, c, l, split, nsplits, acc, cnt, seed=seed,
+           blobs=list(zip(new, b)), **v)
+        return (c, l, acc, cnt, *b)
+
     for v in variants:
-        outs = []
-        for fn in (ak.accept_select, ak.accept_select_plain):
-            c, l = coords.clone(), lp.clone()
-            acc = torch.zeros(T, nw, dtype=torch.bool, device=dev)
-            cnt = torch.ones(T, nw, dtype=torch.int32, device=dev)
-            b = [x.clone() for x in bufs]
-            fn(q, f, lp_q, c, l, split, nsplits, acc, cnt, seed=seed,
-               blobs=list(zip(new, b)), **v)
-            outs.append((c, l, acc, cnt, *b))
-        same_bits(*outs, f"K2 rungs T={T} nw={nw} {sorted(v)}")
-        n += 1
+        want = run(ak.accept_select_plain, v)
+        for i, fn in enumerate(k2_rung_launches()):
+            outs = [run(fn, v), want]
+            same_bits(*outs, f"K2 rungs T={T} nw={nw} {sorted(v)} launch "
+                      f"{i}")
+            n += 1
         if T == 1:
             c, l = coords[0].clone(), lp[0].clone()
             acc = torch.zeros(nw, dtype=torch.bool, device=dev)
@@ -4243,7 +4300,7 @@ def k2_rung_check(torch, dev, gen, coords, proposal, split, nsplits, kw, T):
                       f"K2 one rung nw={nw}")
             n += 1
     if T > 1:
-        # An 8-byte scalar leaf takes phase C on the rung axis.
+        # An 8-byte scalar leaf: two 4-byte units through registers.
         outs = []
         for fn in (ak.accept_select, ak.accept_select_plain):
             c, l, b = coords.clone(), lp.clone(), bufs[0].double()
@@ -4551,7 +4608,8 @@ def phase14_rows(torch, dev, out, card):
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops import stretch_kernel as sk
     from emcee_tpu_torch.ops import swap_kernel as swk
-    from emcee_tpu_torch.ops._wrap import device_sm_count, tile_plan
+    from emcee_tpu_torch.ops._wrap import (
+        device_sm_count, rung_plan, tile_plan)
     from emcee_tpu_torch.ops.philox import rung_keys
     from emcee_tpu_torch.parallel import default_beta_ladder
 
@@ -4629,8 +4687,8 @@ def phase14_rows(torch, dev, out, card):
         "accept_select": ("emcee_tpu_torch/csrc/accept_select.cu",
                           "emcee_tpu/moves/red_blue.py:196 (vmapped by "
                           "emcee_tpu/parallel/tempering.py:538)",
-                          "accept_select_kernel<true, true, BlobRows<"
-                          "unsigned int>, true>", 256),
+                          "accept_rungs_kernel<true, true>",
+                          rung_plan(ng, nd).threads),
         "pt_swap": ("emcee_tpu_torch/csrc/pt_swap.cu",
                     "emcee_tpu/parallel/tempering.py:543",
                     "pt_swap_kernel<NoLeaves>",
@@ -4640,9 +4698,7 @@ def phase14_rows(torch, dev, out, card):
     plan = tile_plan(ng, nd, 0, n_sm, coords.data_ptr(), q.data_ptr(),
                      rungs=T, nsplits=2)
     blocks = {"stretch_propose": plan.grid * T,
-              "accept_select": tile_plan(ng, nd, 0, n_sm, coords.data_ptr(),
-                                         q.data_ptr(), stage=True, rungs=T,
-                                         nsplits=2).grid * T,
+              "accept_select": rung_plan(ng, nd).grid * T,
               "pt_swap": -(-nw // meta["pt_swap"][3]) * (T // 2)}
     w4 = out["workload4"]
     # K15's device time a launch over its block sizes, 50 eager launches
@@ -4702,12 +4758,19 @@ def phase14_rows(torch, dev, out, card):
 # -- 15. the rest of tempering -----------------------------------------------
 #: user blob leaves of phase 15's K2 sweep: name -> (dtype, row shape)
 PT_LEAVES = {"f32": ("float32", ()), "f64": ("float64", ()),
-             "i8x3": ("int8", (3,)), "f32x5": ("float32", (5,))}
-#: the user leaf sets swept beside logL and logP (the first two keep the
-#: register path, the rest take phase C)
+             "i8x3": ("int8", (3,)), "f32x5": ("float32", (5,)),
+             "f32x3": ("float32", (3,)), "f32x8": ("float32", (8,)),
+             "f32x9": ("float32", (9,)), "f64x2": ("float64", (2,)),
+             "i16x3": ("int16", (3,))}
+#: the user leaf sets swept beside logL and logP: rows of 1-8 4-byte units
+#: ride registers, four leaves at most (logL and logP among them); rows of
+#: other units or past 8 units, and the fifth short leaf on, are copied
+#: after the decision; past 16 leaves the blob-only kernel takes the rest
 PT_LEAF_SETS = (("f32",), ("f32", "f32"), ("f64",), ("i8x3",), ("f32x5",),
                 ("f32", "f32x5"), ("f64", "i8x3", "f32x5"),
-                ("f32", "f64", "i8x3", "f32x5"))
+                ("f32", "f64", "i8x3", "f32x5"), ("f32x3",), ("f32x8",),
+                ("f32x9",), ("f64x2", "i16x3"), ("f32", "f32", "f32"),
+                ("f32",) * 16)
 #: K15's user leaves: (dtype, row shape, bytes the base lies past a
 #: 16-byte boundary); rows of 1, 3, 12 and 20 bytes at unaligned bases
 SWAP_LEAF_SPECS = (("uint8", (1,), 1), ("uint8", (3,), 3),
@@ -4783,17 +4846,19 @@ def k2_rung_leaf_sweep(torch, dev):
     """(a) K2 with the rung axis and user blob leaves against its plain
     version, byte for byte: rungs ``PT_SWEEP_T``, walkers ``PT_SWEEP_NW``
     (nsplits 2 and 3), the leaf sets ``PT_LEAF_SETS`` beside the ``logL``
-    and ``logP`` leaves (register path and phase C, and an 8-byte scalar
-    alone, which takes phase C on the axis), NaN and +-inf in ``lp_q``,
-    injected ``log_u`` and the in-kernel stream at a host offset and (16
-    rungs) at the device offset word.  Returns ``(comparisons, {path:
-    launches})``."""
+    and ``logP`` leaves (through registers, after the decision, both, and
+    past 16 leaves; and an 8-byte scalar alone), NaN and +-inf in
+    ``lp_q``, injected ``log_u`` and the in-kernel stream at a host offset
+    and (16 rungs) at the device offset word; by the wrapper and by the
+    forced plans of :func:`k2_rung_launches`.  Returns ``(comparisons,
+    {the wrapper's leaf path: launches})``."""
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
 
     gen = torch.Generator(device=dev).manual_seed(151)
     word = torch.tensor(41, dtype=torch.int64, device=dev)
-    n, paths = 0, {"rows": 0, "phase C": 0}
+    n, paths = 0, {"registers": 0, "registers and after": 0, "after": 0,
+                   "past 16 leaves": 0}
     nd = ND4
     for T in PT_SWEEP_T:
         for nsplits, nws in PT_SWEEP_NW.items():
@@ -4824,25 +4889,34 @@ def k2_rung_leaf_sweep(torch, dev):
                              dict(offset=77 + s_i)]
                     if T == 16:
                         draws.append(dict(offset=DeviceOffset(word, s_i)))
-                    plan = ak.leaf_plan(ak.blob_leaves(
+                    n_reg = ak.leaf_plan(ak.blob_leaves(
                         list(zip(news, bufs)), ng, nw, coords.device, (T,)),
                         rungs=True)[1]
+                    path = ("past 16 leaves" if len(specs) > 16
+                            else "after" if not n_reg
+                            else "registers" if n_reg == len(specs)
+                            else "registers and after")
+
+                    def run(fn, kw):
+                        c, l = coords.clone(), lp.clone()
+                        acc = torch.zeros(T, nw, dtype=torch.bool,
+                                          device=dev)
+                        cnt = torch.ones(T, nw, dtype=torch.int32,
+                                         device=dev)
+                        b = [x.clone() for x in bufs]
+                        fn(q, f, lp_q, c, l, split, nsplits, acc, cnt,
+                           seed=keys, blobs=list(zip(news, b)), **kw)
+                        return (c, l, acc, cnt, *b)
+
                     for kw in draws:
-                        outs = []
-                        for fn in (ak.accept_select, ak.accept_select_plain):
-                            c, l = coords.clone(), lp.clone()
-                            acc = torch.zeros(T, nw, dtype=torch.bool,
-                                              device=dev)
-                            cnt = torch.ones(T, nw, dtype=torch.int32,
-                                             device=dev)
-                            b = [x.clone() for x in bufs]
-                            fn(q, f, lp_q, c, l, split, nsplits, acc, cnt,
-                               seed=keys, blobs=list(zip(news, b)), **kw)
-                            outs.append((c, l, acc, cnt, *b))
-                        same_bytes(*outs, f"K2 rungs T={T} nw={nw} leaves "
-                                   f"{names or 'f64 alone'} {sorted(kw)}")
-                        n += 1
-                        paths["rows" if plan else "phase C"] += 1
+                        want = run(ak.accept_select_plain, kw)
+                        for i, fn in enumerate(k2_rung_launches()):
+                            same_bytes(run(fn, kw), want,
+                                       f"K2 rungs T={T} nw={nw} leaves "
+                                       f"{names or 'f64 alone'} "
+                                       f"{sorted(kw)} launch {i}")
+                            n += 1
+                        paths[path] += 1
     return n, paths
 
 
@@ -5242,7 +5316,7 @@ def phase15(torch, np, dev, card):
     ladder, the looped moves on every rung, the monitor and
     ``PTHDFBackend``; each path's kernel launches counted from 0 just
     before it.  Returns its numbers and the rows of K2 with the rung
-    axis and phase-C leaves and of K15 with leaves."""
+    axis and the blobs' leaves and of K15 with leaves."""
     out = {}
     t0 = time.perf_counter()
     out["sweep_k2"], out["k2_paths"] = k2_rung_leaf_sweep(torch, dev)
@@ -5251,7 +5325,8 @@ def phase15(torch, np, dev, card):
         f"{PT_SWEEP_T}, walkers {PT_SWEEP_NW} by nsplits, leaf sets "
         f"{PT_LEAF_SETS} beside logL and logP and an 8-byte scalar alone, "
         f"injected / host offset / device offset draws): {out['sweep_k2']} "
-        f"comparisons ({out['k2_paths']} by leaf path); K15 with leaves "
+        f"comparisons, the wrapper and {len(K2_RUNG_PLANS)} forced plans "
+        f"({out['k2_paths']} by the wrapper's leaf path); K15 with leaves "
         f"(rungs {SWAP_SWEEP_T}, 256 and 1000 walkers, rows of 1-20 bytes at "
         f"unaligned bases, steps 0-5, swap_every 1 and 3, NaN and +-inf "
         f"logL, -inf logP): {out['sweep_k15']} comparisons; all byte for "
@@ -5357,15 +5432,17 @@ def phase15(torch, np, dev, card):
 
 
 def phase15_rows(torch, dev, out, card):
-    """The rows of K2 with the rung axis and phase-C leaves and of K15
+    """The rows of K2 with the rung axis and the blobs' leaves and of K15
     with leaves at workload 4's shape with the blobs ``(2 logL, x)``:
     device time a launch in the blob path's replays (profiler), a
-    back-to-back call's and the plain version's (CUDA events), registers,
-    and the least time the card could take (bytes, leaves counted, with
-    this call's acceptance and swaps)."""
+    back-to-back call's (K2's also with every leaf copied after the
+    decision) and the plain version's (CUDA events), registers, and the
+    least time the card could take (bytes, leaves counted, with this
+    call's acceptance and swaps)."""
     from emcee_tpu_torch.ops import accept_kernel as ak
     from emcee_tpu_torch.ops import stretch_kernel as sk
     from emcee_tpu_torch.ops import swap_kernel as swk
+    from emcee_tpu_torch.ops._wrap import rung_plan
     from emcee_tpu_torch.ops.philox import rung_keys
     from emcee_tpu_torch.parallel import default_beta_ladder
 
@@ -5391,9 +5468,9 @@ def phase15_rows(torch, dev, out, card):
             torch.zeros(T, nw, dtype=torch.int32, device=dev)]
     blobs = list(zip(news, [b.clone() for b in bufs]))
     if ak.leaf_plan(ak.blob_leaves(blobs, ng, nw, coords.device, (T,)),
-                    True)[1]:
-        raise AssertionError("phase 15: the blob path's leaves did not take "
-                             "phase C")
+                    True)[1] != len(blobs):
+        raise AssertionError("phase 15: the blob path's leaves did not all "
+                             "go through registers")
     ak.accept_select(q, f, lp_q, *[w.clone() for w in work[:2]], 0, 2,
                      work[2], work[3], seed=keys, offset=5,
                      blobs=[(a, b.clone()) for a, b in blobs])
@@ -5438,10 +5515,10 @@ def phase15_rows(torch, dev, out, card):
     }
     meta = {
         "accept_select": (
-            "K2 (rung axis, phase-C leaves)", "accept_select.cu",
+            "K2 (rung axis, blob leaves)", "accept_select.cu",
             "emcee_tpu/moves/red_blue.py:196 and :200-202 (vmapped by "
             "emcee_tpu/parallel/tempering.py:538)",
-            "accept_select_kernel<true, true, BlobLeaves, true>"),
+            "accept_rungs_kernel<true, true>"),
         "pt_swap": ("K15 (with leaves)", "pt_swap.cu",
                     "emcee_tpu/parallel/tempering.py:543-580",
                     "pt_swap_kernel<Leaves<unsigned int>>"),
@@ -5452,6 +5529,12 @@ def phase15_rows(torch, dev, out, card):
         name, src, jax_src, label = meta[kname]
         call_ms = cuda_ms(torch, kernel)
         plain_ms = cuda_ms(torch, plain, reps=20)
+        extra = {}
+        if kname == "accept_select":
+            # The same launch with every leaf copied after the decision.
+            after = k2_rung_launches(((rung_plan(ng, nd).threads, 1, 0),))[1]
+            extra["call_ms_leaves_after"] = cuda_ms(torch, lambda: after(
+                q, f, lp_q, work[0], work[1], 0, 2, work[2], work[3], **k2))
         nbytes, nops = work_of[kname]
         t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": nops / ISSUE_PER_S * 1e3}
@@ -5466,6 +5549,7 @@ def phase15_rows(torch, dev, out, card):
                "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
                "library_ms": None, "ptxas": regs,
                "ms_without_leaves": bl["win_none"]["ms_per_launch"][kname],
+               **extra,
                "launches_per_proposal": launches / bl["proposals_counted"],
                "wrapper_launches": out["launches"]["blobs"][kname],
                "note": f"{name} at workload 4's shape ({T} x {nw} x {nd}) "
@@ -5481,10 +5565,12 @@ def phase15_rows(torch, dev, out, card):
         rows.append(row)
         log(f"phase 15: {name}: device {ms * 1e3:.2f} us/launch in the blob "
             f"path's replays ({row['ms_without_leaves'] * 1e3:.2f} without "
-            f"leaves), {call_ms * 1e3:.2f} us per back-to-back call, plain "
-            f"{plain_ms * 1e3:.2f} us, bound {t[by] * 1e3:.3f} us ({nbytes} "
-            f"bytes, {by}); {regs} (registers, static shared, spilled) "
-            f"{card}")
+            f"leaves), {call_ms * 1e3:.2f} us per back-to-back call"
+            + (f" ({extra['call_ms_leaves_after'] * 1e3:.2f} with every leaf "
+               "after the decision)" if extra else "")
+            + f", plain {plain_ms * 1e3:.2f} us, bound {t[by] * 1e3:.3f} us "
+            f"({nbytes} bytes, {by}); {regs} (registers, static shared, "
+            f"spilled) {card}")
     return rows
 
 
@@ -5493,6 +5579,30 @@ def phase15_rows(torch, dev, out, card):
 K14_SWEEP_N = (1, 2, 31, 255, 5003, 100_003)
 K14_SWEEP_K = (1, 2, 3, 5, 17)
 K14_SWEEP_T = (1, 2, 3, 16)
+#: K14's blocks forced beside the wrapper's plan (threads; blocks that
+#: end inside a row or a rung, 96 not a power of two)
+K14_SWEEP_PLANS = (32, 96, 128, 256, 1024)
+#: K14's blocks timed at phase 16's two shapes beside the wrapper's plan
+K14_TIME_PLANS = (32, 128, 256, 512, 1024)
+
+
+@contextlib.contextmanager
+def forced_draw_plan(threads):
+    """K14's wrapper launching with ``threads`` a block (the rest of its
+    plan as ``draw_plan`` makes it)."""
+    from emcee_tpu_torch.ops import philox_kernel as pk
+
+    real = pk.draw_plan
+
+    def plan(kind, rows, k, d, word, ntemps):
+        return real(kind, rows, k, d, word, ntemps)._replace(
+            threads=threads, blocks=-(-ntemps * rows * k // threads))
+
+    pk.draw_plan = plan
+    try:
+        yield
+    finally:
+        pk.draw_plan = real
 
 
 def philox_kernel_sweep(torch, dev):
@@ -5643,6 +5753,52 @@ def philox_kernel_sweep(torch, dev):
         for i, (a, b) in enumerate(zip(outs, draws(plain=True))):
             same(a, b, f"graph replay {rep}, draw {i}")
     word.fill_((1 << 33) + 5)
+    # Forced plans: every kind and dtype, rows with and without a tail
+    # (d odd, d short of 4k), the rung axis with and without ROLL_LANE, and
+    # graph replays.
+    for threads in K14_SWEEP_PLANS:
+        with forced_draw_plan(threads):
+            for n in (1, 31, 255, 5003):
+                for k in (1, 2, 3, 5, 17):
+                    at = f"blocks of {threads} n={n} k={k}"
+                    for sel in (None, 3):
+                        check(("words", n, k, 7, seed, offsets["device"],
+                               dev), dict(word=sel, row0=5), f"{at} words "
+                              f"{sel}")
+                    for dt in (torch.float32, torch.float64):
+                        for d in {4 * k, 4 * k - 1}:
+                            check(("uniforms", n, None, 7, seed,
+                                   offsets["host"], dev),
+                                  dict(d=d, dtype=dt), f"{at} uniforms d={d}")
+                        check(("uniforms", n, k, 7, seed, offsets["host"],
+                               dev), dict(word=1, dtype=dt),
+                              f"{at} uniforms word 1")
+                        for d in {2 * k, 2 * k - 1}:
+                            check(("normals", n, None, 7, seed,
+                                   offsets["device"], dev),
+                                  dict(d=d, dtype=dt), f"{at} normals d={d}")
+            for T in (1, 3, 16):
+                keys = rung_keys(seed + 7 * T, T, dev)
+                for n in (6, 256, 1000):
+                    for roll in (False, True):
+                        check(("words", n, 1, 2, keys, offsets["device"],
+                               dev), dict(word=3, roll=roll),
+                              f"blocks of {threads} rung axis T={T} n={n} "
+                              f"roll={roll}")
+                check(("normals", 1000, None, 9, keys, offsets["host"], dev),
+                      dict(d=7), f"blocks of {threads} rung axis T={T} "
+                      "normals")
+    with forced_draw_plan(96):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = draws()
+        for rep in range(3):
+            word.fill_(2000 + 41 * rep)
+            blk.fill_(philox.SHRINK_BLOCK | (5 * rep))
+            graph.replay()
+            for i, (a, b) in enumerate(zip(outs, draws(plain=True))):
+                same(a, b, f"blocks of 96 graph replay {rep}, draw {i}")
+    word.fill_((1 << 33) + 5)
     # A few counters against the scalar reference, on the host.
     off = (1 << 40) + 5
     lo, hi = philox.split_offset(off)
@@ -5741,21 +5897,43 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
                 (ND + 2) // 2 * PHILOX_INSTR + (ND + 1) * NORMAL_INSTR),
             ng * (ND + 1) * NORMAL_SFU)}
     res = {}
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def launch_ms(fn):
+        """Device ms a launch of one-launch torch calls, 50 of them."""
+        _, kernels = profile_window(torch, lambda: [fn() for _ in range(50)],
+                                    primer=True)
+        return (sum(us for _, us in kernels.values())
+                / max(1, sum(c for c, _ in kernels.values())) * 1e-3)
+
     for shape, (fn, nbytes, instr, sfu) in shapes.items():
         t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": instruction_bound(instr, sfu)}
         by = max(t, key=t.get)
-        # The yardstick: torch's fill of the same output (the same bytes
-        # written, one launch), device time a launch.
+        # The yardsticks, device time a launch: torch's fill of the same
+        # output (the same bytes written, one launch), and torch's own
+        # Philox draw into it (random_ of the int64 words, normal_ of the
+        # float32 normals under a CUDA generator: one launch, but another
+        # stream than K14's, so not a call that computes its function).
         buf = fn()
         buf = buf[0] if isinstance(buf, tuple) else buf
-        _, kernels = profile_window(torch, lambda: [buf.fill_(0)
-                                                    for _ in range(50)],
-                                    primer=True)
-        yard = (sum(us for _, us in kernels.values())
-                / max(1, sum(c for c, _ in kernels.values())) * 1e-3)
+        yard = launch_ms(lambda: buf.fill_(0))
+        philox_fill = (buf.random_ if buf.dtype == torch.int64
+                       else buf.normal_)
+        torch_philox = launch_ms(lambda: philox_fill(generator=gen))
+        # Eager device time over other plans than the wrapper's.
+        by_plan = {}
+        for threads in K14_TIME_PLANS:
+            with forced_draw_plan(threads):
+                by_plan[threads] = profiled_ms(
+                    torch, lambda: [fn() for _ in range(20)], "philox_draw",
+                    primer=True) * 1e3
+        log(f"phase 16: (b) K14 at {shape}'s shape, eager us a launch by "
+            "threads a block: " + ", ".join(
+                f"{k}: {v:.2f}" for k, v in by_plan.items()) + f" {card}")
         res[shape] = dict(
-            yardstick_ms=yard,
+            yardstick_ms=yard, torch_philox_ms=torch_philox,
+            eager_us_by_plan=by_plan,
             call_ms=cuda_ms(torch, fn),
             plain_ms=cuda_ms(torch, lambda: fn(True), reps=20),
             eager_ms=profiled_ms(torch, lambda: [fn() for _ in range(20)],
@@ -5773,7 +5951,8 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
             f"path's replays, {r['eager_ms'] * 1e3:.2f} eagerly, "
             f"{r['call_ms'] * 1e3:.2f} us per back-to-back call, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, torch's fill of the same output "
-            f"{r['yardstick_ms'] * 1e3:.2f} us, bound "
+            f"{r['yardstick_ms'] * 1e3:.2f} us and its own Philox draw into "
+            f"it {r['torch_philox_ms'] * 1e3:.2f} us, bound "
             f"{r['bound_ms'] * 1e3:.4f} "
             f"us ({r['bound_by']}; bytes {r['bound_bytes_ms'] * 1e3:.4f}, "
             f"instructions {r['bound_instructions_ms'] * 1e3:.4f}) {card}")
@@ -5797,6 +5976,10 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
            "call_ms": a["call_ms"], "eager_ms": a["eager_ms"],
            "yardstick_ms": a["yardstick_ms"],
            "yardstick_ms_dime": b["yardstick_ms"],
+           "torch_philox_ms": a["torch_philox_ms"],
+           "torch_philox_ms_dime": b["torch_philox_ms"],
+           "eager_us_by_plan": a["eager_us_by_plan"],
+           "eager_us_by_plan_dime": b["eager_us_by_plan"],
            "bound_bytes_ms": a["bound_bytes_ms"],
            "bound_instructions_ms": a["bound_instructions_ms"],
            "ms_dime": b["ms"], "eager_ms_dime": b["eager_ms"],
@@ -5816,8 +5999,11 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
                    "bytes written and read, and the instructions needed "
                    "(PHILOX_INSTR a counter, NORMAL_INSTR / NORMAL_SFU a "
                    "stored normal); yardstick: torch's fill_ of the same "
-                   "output, eager device time; library_ms: none, no "
-                   "PyTorch call draws these counters"}
+                   "output, eager device time; torch_philox: torch's own "
+                   "Philox draw into the same output (random_ / normal_ "
+                   "under a CUDA generator, one launch), a yardstick only: "
+                   "its stream is not K14's; library_ms: none, no PyTorch "
+                   "call draws these counters"}
     log(f"phase 16: K14 ptxas {regs}; launches in {w4['proposals_counted']} "
         f"replayed workload-4 proposals {launches} (device counters); a "
         f"proposal {per_proposal} {card}")
@@ -5858,6 +6044,48 @@ def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
         f"proposals), K1 {measured(k1 and k1 * 1e3, '.3f')} us, K2 "
         f"{measured(k2 and k2 * 1e3, '.3f')} us a launch ({n_prof} "
         f"proposals profiled) {card}")
+
+
+def kernel_turn(torch, np, dev, card, n_prof=64):
+    """K14 and K2's rung axis in the paths' replays, for two trees timed
+    in turns, one process each (``python3 chip_smoke.py kernel-turn
+    TREE``, TREE a checkout whose ``emcee_tpu_torch`` is imported): device
+    time a launch of K1, K2, K15 and K14 and the device time and kernels a
+    proposal in profiled windows of ``n_prof`` replayed proposals of
+    workload 4 (K14: every rung's sort keys; K2 with the ``logL`` /
+    ``logP`` leaves) and of workload 4 with the blobs ``(2 logL, x)``
+    (K2 with four leaves), and of 16 replayed proposals of the DIME stage
+    (K14: a split's normals).  Uses only what every tree with K14 has."""
+    import emcee_tpu_torch
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    tree = Path(emcee_tpu_torch.__file__).parent.parent
+    p0 = pt_p0(np)
+    per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
+           "philox_draw": 1}
+    runs = {"workload 4": (pt_sampler(dev), n_prof, per),
+            "workload 4 with blobs": (pt15_sampler(
+                dev, move=moves.StretchMove()), n_prof, per)}
+    dime = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=3,
+                           device=dev, moves=moves.DIMEMove(
+                               aimh_prob=1.0, df=None, randomize_split=False))
+    runs["DIME stage"] = (dime, 16, {"accept_select": 2, "philox_draw": 2})
+    for what, (smp, n, names) in runs.items():
+        if what == "DIME stage":
+            smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
+                         .astype(np.float32), n, store=False,
+                         skip_initial_state_check=True)
+        else:
+            smp.run_mcmc(p0, 8, thin_by=4, skip_initial_state_check=True)
+        smp.run_mcmc(None, n, store=False)  # records the window's graphs
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False),
+                          n, what, names=names)
+        log(f"kernel turn: {tree}: {what}: device "
+            f"{measured(win['device_us_per_proposal'], '.2f')} us and "
+            f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+            f"proposal ({n} replayed); us a launch: " + ", ".join(
+                f"{k} {measured(v and v * 1e3, '.3f')}"
+                for k, v in win["ms_per_launch"].items()) + f" {card}")
 
 
 def inner_tree(arg):
@@ -5928,9 +6156,14 @@ def sass_diff(tree) -> int:
     """Build ``tree``'s and this checkout's K1, K2 and K15 sources with the
     build's flags into ``build/sass`` and compare the SASS of every kernel
     function that both hold (K15's blob-free kernel gained the template
-    parameter ``NoLeaves``, which the comparison drops from its name).
-    Prints each function's verdict; returns 1 when a one-ensemble
-    instantiation of K1 or K2 (``..., false>``) differs, else 0."""
+    parameter ``NoLeaves``, which the comparison drops from its name; K2's
+    tiled kernel lost its rung parameter, so a tree's one-ensemble
+    ``accept_select_kernel<..., false>`` is compared with this checkout's
+    ``accept_select_kernel<...>``).  Prints each function's verdict;
+    returns 1 when a one-ensemble instantiation of K1 or K2 differs, else
+    0."""
+    import re
+
     from emcee_tpu_torch.ops import _build
 
     here = Path(__file__).resolve().parent
@@ -5948,16 +6181,24 @@ def sass_diff(tree) -> int:
             sass[label] = {k.replace("<NoLeaves>", ""): v
                            for k, v in sass_functions(lib).items()}
         for fn in sorted(sass["parent"]):
-            same = sass["change"].get(fn) == sass["parent"][fn]
-            where = ("missing in the change" if fn not in sass["change"]
+            one = fn.endswith(", false>") and fn.startswith((
+                "stretch_propose_kernel", "accept_select_kernel"))
+            mine = fn
+            if fn.startswith("accept_select_kernel") and not any(
+                    k.startswith("accept_select_kernel") and
+                    k.endswith(", false>") for k in sass["change"]):
+                mine = re.sub(r", false>$", ">", fn)
+            same = sass["change"].get(mine) == sass["parent"][fn]
+            where = ("missing in the change" if mine not in sass["change"]
                      else "equal" if same else "differs")
-            log(f"sass-diff: {src}: {fn}: {where}")
-            if not same and fn.startswith(("stretch_propose_kernel",
-                                            "accept_select_kernel")) \
-                    and fn.endswith(", false>"):
+            log(f"sass-diff: {src}: {fn}: {where}"
+                + (f" (as {mine})" if mine != fn else ""))
+            if one and not same:
                 bad.append(fn)
         for fn in sorted(set(sass["change"]) - set(sass["parent"])):
-            log(f"sass-diff: {src}: {fn}: new in the change")
+            if not (fn.startswith("accept_select_kernel")
+                    and fn[:-1] + ", false>" in sass["parent"]):
+                log(f"sass-diff: {src}: {fn}: new in the change")
     log(f"sass-diff: one-ensemble K1 / K2 instantiations that differ from "
         f"{tree}'s: {bad or 'none'}")
     return 1 if bad else 0
@@ -5972,7 +6213,8 @@ def _build_dir():
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["main-path"] and len(sys.argv) > 2:
+    turn = sys.argv[1:2] in (["main-path"], ["kernel-turn"])
+    if turn and len(sys.argv) > 2:
         # The tree whose package the turn imports, ahead of this one's.
         sys.path.insert(0, str(inner_tree(sys.argv[2])))
     import torch
@@ -6015,9 +6257,14 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
-    if sys.argv[1:2] == ["main-path"]:
-        _build.build_all(["stretch_propose", "accept_select"])
-        main_path_turn(torch, np, dev, card)
+    if turn:
+        if sys.argv[1] == "main-path":
+            _build.build_all(["stretch_propose", "accept_select"])
+            main_path_turn(torch, np, dev, card)
+        else:
+            _build.build_all(["stretch_propose", "accept_select", "pt_swap",
+                              "philox_draw"])
+            kernel_turn(torch, np, dev, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))

@@ -58,22 +58,49 @@
 // atomics; every element of coords is written by at most one thread.
 //
 // The rung axis (parallel tempering, emcee_tpu/parallel/tempering.py:
-// 476-541, the move vmapped over the ladder): T ensembles of nw walkers lie
-// one after the other in coords (T, nw, nd), log_prob, accepted and count
-// (T, nw); q is (T, ng, nd), factor, lp_q and log_u (T, ng).  The grid's
-// second dimension is the rung: a block selects one rung's tile, rung r's
-// split group is rows r*nw + split*ng .. + ng, and it draws its accept
-// uniform under its own key keys[r] (a device table, ops/philox.py
-// rung_seed).  A blob leaf's new rows are (T, ng, ...) and its buffer
-// (T, nw, ...): the tempered bookkeeping, logL and logP, are two 4-byte
-// scalar leaves on the row-leaf path, and with up to two user 4-byte scalar
-// leaves beside them they stay there; any other user leaves send every leaf
-// to phase C, whose rows move by the rung's offsets as the coords do.  The axis is a template parameter
-// (kRungs): a single-ensemble launch (one rung, no key table) runs the
-// instantiation without it, whose code is the kernel of before (a rung
-// axis of one rung cost the main path's launch 0.23 us, 9%, when it was a
-// run-time branch; chip_smoke.py main-path turns; its parameters come
-// last, so the others keep their offsets).
+// 476-541, the move vmapped over the ladder) has a kernel of its own,
+// accept_rungs_kernel.  T ensembles of nw walkers lie one after the other
+// in coords (T, nw, nd), log_prob, accepted and count (T, nw); q is (T,
+// ng, nd), factor, lp_q and log_u (T, ng); a blob leaf's new rows are
+// (T, ng, ...) and its buffer (T, nw, ...).  Rung r's split group is rows
+// r*nw + split*ng .. + ng, and it draws its accept uniform under its own
+// key keys[r] (a device table, ops/philox.py rung_seed).  At the tempered
+// workload's shape (16 rungs x 128 walkers a split) the tiled kernel above
+// ran 512 blocks of 256 threads with 4 walkers each (its plan halves the
+// tile to fill the card): 4 threads of 256 held a walker, and each block
+// still set up the TMA staging of 80 bytes of q (an mbarrier, a bulk
+// copy, a wait and two block barriers), 2.82 us a launch against a 0.034
+// us byte bound.  What bounds the launch is its chain of trips to memory,
+// so the rung kernel is built for latency, as K15 is:
+//   * One thread a walker, the grid's second dimension the rung, in
+//     blocks of 128 (ops/_wrap.py rung_plan; in workload 4's replays
+//     blocks of 32-256 were within 0.06 us of each other, 128 among the
+//     fastest, and one grid over every rung's walkers, the rung found by
+//     a multiply-high, 0.03 us slower), no shared memory and no barrier.
+//   * One trip to memory before the stores: each thread issues the loads
+//     of its key and the offset word (when it draws), its factor, lp_q,
+//     log_prob, acceptance count and injected log_u, its q row (up to
+//     kRowRegs floats) and its rows of the register leaves (up to
+//     kRegLeaves leaves of 1 to kLeafUnits 4-byte units: the tempered
+//     logL and logP and short user rows such as 2 logL and x) before the
+//     Philox block completes; then it decides, and an accepted walker
+//     stores everything from registers (its count too: the count is read
+//     with the rest, not after the decision).
+//   * What does not fit keeps a path that is correct for any nd and any
+//     leaf, chosen by the plan: a q row longer than kRowRegs floats, and
+//     every other leaf (ops/accept_kernel.py leaf_plan(..., rungs=True)),
+//     is copied by the accepted walker's thread after the decision, unit
+//     by unit (the largest of 16, 8, 4, 2, 1 bytes dividing its bases and
+//     row), from the launch's parameters; leaves past kMaxLeaves are
+//     copied by the blob-only kernel, in tiles of kThreads walkers of
+//     every rung's split.
+//   * __launch_bounds__(kRungThreads, 1): occupancy does not limit this
+//     kernel, so the registers the leaf rows need (96) are not cut into
+//     spills (the K15 lesson).
+// The arithmetic is the tiled kernel's (the same accept uniform, the same
+// operations in lnpdiff), so both equal the plain version bit for bit.
+// The single-ensemble launches keep the tiled kernel, whose machine code
+// is that of before the rung axis was added.
 //
 // Blob leaves (emcee_tpu/moves/red_blue.py:200-202 and :323-344, the
 // tree_where and write-back of every blob leaf with the coordinates'
@@ -131,6 +158,14 @@ namespace {
 constexpr int kThreads = 256;  // TILE_MAX in ops/_wrap.py
 constexpr int kMaxLeaves = 16;  // BLOB_CAPACITY in ops/accept_kernel.py
 constexpr int kRowLeaves = 4;  // ROW_LEAVES in ops/accept_kernel.py
+// The rung kernel: the largest block, the leaves through registers, the
+// 4-byte units of such a leaf's row, and the floats of a q row that go
+// through registers (RUNG_THREADS_LIMIT and RUNG_ROW_REGS in ops/_wrap.py,
+// RUNG_REG_LEAVES and RUNG_LEAF_UNITS in ops/accept_kernel.py).
+constexpr int kRungThreads = 512;
+constexpr int kRegLeaves = 4;
+constexpr int kLeafUnits = 8;
+constexpr int kRowRegs = 8;
 
 }  // namespace
 
@@ -236,7 +271,7 @@ __device__ __forceinline__ void select_blobs(const BlobLeaf* leaves, int n,
   }
 }
 
-template <bool kVec, bool kStage, typename Blobs, bool kRungs>
+template <bool kVec, bool kStage, typename Blobs>
 __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     const float* __restrict__ q, const float* __restrict__ factor,
     const float* __restrict__ lp_q, float* __restrict__ coords,
@@ -244,31 +279,10 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
     int32_t* __restrict__ count, const float* __restrict__ log_u, int ng,
     int nd, int split, int tile, uint32_t k0, uint32_t k1,
     const long long* __restrict__ offset_dev, unsigned long long offset_inc,
-    const __grid_constant__ Blobs blobs, int nw,
-    const long long* __restrict__ keys) {
+    const __grid_constant__ Blobs blobs) {
   __shared__ bool s_acc[kThreads];
   __shared__ uint64_t s_bar;
   extern __shared__ float4 s_q4[];  // kStage: the tile's q span
-
-  // The rung of this block: its rows of every buffer, and its key.  The
-  // blob leaves' rows of the rung start at rs (new rows) and rd (buffer).
-  const int64_t rs = kRungs ? static_cast<int64_t>(blockIdx.y) * ng : 0;
-  const int64_t rd = kRungs ? static_cast<int64_t>(blockIdx.y) * nw : 0;
-  if constexpr (kRungs) {
-    q += rs * nd;
-    factor += rs;
-    lp_q += rs;
-    if (log_u != nullptr) log_u += rs;
-    coords += rd * nd;
-    log_prob += rd;
-    accepted += rd;
-    if (count != nullptr) count += rd;
-    if (keys != nullptr) {
-      const auto key = static_cast<unsigned long long>(keys[blockIdx.y]);
-      k0 = static_cast<uint32_t>(key);
-      k1 = static_cast<uint32_t>(key >> 32);
-    }
-  }
 
   const int t = threadIdx.x;
   const int t0 = blockIdx.x * tile;
@@ -296,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 #pragma unroll
       for (int l = 0; l < kRowLeaves; ++l) {
         if (l < blobs.n) {
-          const U* src = reinterpret_cast<const U*>(blobs.leaf[l].src) + rs;
+          const U* src = reinterpret_cast<const U*>(blobs.leaf[l].src);
           pre[l] = src[t0 + t];
         }
       }
@@ -340,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 #pragma unroll
         for (int l = 0; l < kRowLeaves; ++l) {
           if (l < blobs.n) {
-            (reinterpret_cast<U*>(blobs.leaf[l].dst) + rd)[row] = pre[l];
+            reinterpret_cast<U*>(blobs.leaf[l].dst)[row] = pre[l];
           }
         }
       }
@@ -406,7 +420,7 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(
 
   // -- phase C: the blob leaves' rows, masked by the same acc --------------
   if constexpr (kBlobs) {
-    select_blobs(blob_table(), blobs.n, s_acc, rs + t0, rd + lo + t0, cnt, t);
+    select_blobs(blob_table(), blobs.n, s_acc, t0, lo + t0, cnt, t);
   }
 }
 
@@ -445,46 +459,151 @@ BlobRows<U> row_group(const BlobLeaf* all, int n) {
   return g;
 }
 
-// Whether a rung-axis launch may carry leaves of kind Blobs: none, the
-// tempered bookkeeping's 4-byte scalar leaves (with up to two user scalar
-// leaves), or phase C's leaves (the tempered leaves beside wider or mixed
-// user leaves).  Only these are built with the axis: 8-byte row leaves
-// never ride beside the 4-byte logL and logP, and each further kind would
-// add four instantiations to the build that no launch runs.
 template <typename Blobs>
-constexpr bool kRungBlobs = std::is_same_v<Blobs, NoBlobs> ||
-                            std::is_same_v<Blobs, BlobRows<uint32_t>> ||
-                            std::is_same_v<Blobs, BlobLeaves>;
-
-// The instantiation of (kVec, kStage, Blobs) with the rung axis or not.
-template <bool kVec, bool kStage, typename Blobs>
-auto with_rungs(bool rungs) {
-  if constexpr (kRungBlobs<Blobs>) {
-    return rungs ? accept_select_kernel<kVec, kStage, Blobs, true>
-                 : accept_select_kernel<kVec, kStage, Blobs, false>;
-  } else {
-    return accept_select_kernel<kVec, kStage, Blobs, false>;
-  }
-}
-
-template <typename Blobs>
-void launch_select(int vec, int stage, bool rungs, dim3 grid, int smem,
-                   cudaStream_t st,
+void launch_select(int vec, int stage, dim3 grid, int smem, cudaStream_t st,
                    const float* q, const float* factor, const float* lp_q,
                    float* coords, float* log_prob, bool* accepted,
                    int32_t* count, const float* log_u, int ng, int nd,
-                   int split, int tile, int nw, uint32_t k0, uint32_t k1,
-                   const long long* keys, const long long* offset_dev,
-                   unsigned long long offset, const Blobs& blobs) {
-  auto kernel =
-      vec ? (stage ? with_rungs<true, true, Blobs>(rungs)
-                   : with_rungs<true, false, Blobs>(rungs))
-          : (stage ? with_rungs<false, true, Blobs>(rungs)
-                   : with_rungs<false, false, Blobs>(rungs));
+                   int split, int tile, uint32_t k0, uint32_t k1,
+                   const long long* offset_dev, unsigned long long offset,
+                   const Blobs& blobs) {
+  auto kernel = vec ? (stage ? accept_select_kernel<true, true, Blobs>
+                             : accept_select_kernel<true, false, Blobs>)
+                    : (stage ? accept_select_kernel<false, true, Blobs>
+                             : accept_select_kernel<false, false, Blobs>);
   kernel<<<grid, kThreads, smem, st>>>(q, factor, lp_q, coords, log_prob,
                                        accepted, count, log_u, ng, nd, split,
-                                       tile, k0, k1, offset_dev, offset, blobs,
-                                       nw, keys);
+                                       tile, k0, k1, offset_dev, offset,
+                                       blobs);
+}
+
+// Copy one row of a leaf of `row_bytes` bytes, unit U by unit, from new
+// row `from` to buffer row `to`.
+template <typename U>
+__device__ __forceinline__ void copy_row(const BlobLeaf& leaf, int64_t from,
+                                         int64_t to) {
+  const int n = leaf.row_bytes / static_cast<int>(sizeof(U));
+  const U* __restrict__ s = reinterpret_cast<const U*>(leaf.src) + from * n;
+  U* __restrict__ d = reinterpret_cast<U*>(leaf.dst) + to * n;
+  for (int u = 0; u < n; ++u) d[u] = s[u];
+}
+
+// The rung kernel's leaves: leaf[0, n_reg) through registers (rows of
+// 1 to kLeafUnits 4-byte units at 4-byte aligned bases), leaf[n_reg, n)
+// copied by an accepted walker's thread after the decision.
+struct RungLeaves {
+  int n_reg;
+  int n;
+  BlobLeaf leaf[kMaxLeaves];
+};
+
+// K2 with the rung axis: one thread a walker of one rung's split (see the
+// head comment).  kRegRow: the walker's q row (nd <= kRowRegs) is loaded
+// into registers before the decision, else copied after it.  kLeaves:
+// the launch carries blob leaves.
+template <bool kRegRow, bool kLeaves>
+__global__ void __launch_bounds__(kRungThreads, 1) accept_rungs_kernel(
+    const float* __restrict__ q, const float* __restrict__ factor,
+    const float* __restrict__ lp_q, float* __restrict__ coords,
+    float* __restrict__ log_prob, bool* __restrict__ accepted,
+    int32_t* __restrict__ count, const float* __restrict__ log_u, int ng,
+    int nd, int split, int nw, uint32_t k0, uint32_t k1,
+    const long long* __restrict__ keys,
+    const long long* __restrict__ offset_dev, unsigned long long offset_inc,
+    const __grid_constant__ RungLeaves leaves) {
+  const bool drawn = log_u == nullptr;
+  const uint64_t offset = drawn ? philox_offset(offset_dev, offset_inc) : 0;
+  // Walker i of rung r's split: `from` is its row in the split inputs
+  // (q, factor, lp_q, log_u, the leaves' new rows: T x ng), `row` its row
+  // in the ensemble buffers (T x nw).
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ng) return;  // no barrier below
+  const int r = blockIdx.y;
+  const int64_t from = static_cast<int64_t>(r) * ng + i;
+  const int64_t row = static_cast<int64_t>(r) * nw +
+                      static_cast<int64_t>(split) * ng + i;
+  // One trip to memory: every load is issued before the decision.
+  if (drawn && keys != nullptr) {
+    const auto key = static_cast<unsigned long long>(keys[r]);
+    k0 = static_cast<uint32_t>(key);
+    k1 = static_cast<uint32_t>(key >> 32);
+  }
+  const float f = factor[from];
+  const float lpq = lp_q[from];
+  const float lp = log_prob[row];
+  const float lu_in = drawn ? 0.0f : log_u[from];
+  const int32_t n_acc = count != nullptr ? count[row] : 0;
+  [[maybe_unused]] float x[kRegRow ? kRowRegs : 1];
+  if constexpr (kRegRow) {
+    const float* __restrict__ qr = q + from * nd;
+#pragma unroll
+    for (int d = 0; d < kRowRegs; ++d) {
+      if (d < nd) x[d] = qr[d];
+    }
+  }
+  [[maybe_unused]] uint32_t pre[kLeaves ? kRegLeaves : 1]
+                               [kLeaves ? kLeafUnits : 1];
+  if constexpr (kLeaves) {
+#pragma unroll
+    for (int l = 0; l < kRegLeaves; ++l) {
+      if (l < leaves.n_reg) {
+        const int units = leaves.leaf[l].row_bytes >> 2;
+        const uint32_t* __restrict__ s =
+            reinterpret_cast<const uint32_t*>(leaves.leaf[l].src) +
+            from * units;
+#pragma unroll
+        for (int u = 0; u < kLeafUnits; ++u) {
+          if (u < units) pre[l][u] = s[u];
+        }
+      }
+    }
+  }
+  float lu = lu_in;
+  if (drawn) {
+    const uint4 w = philox_at(static_cast<uint32_t>(i),
+                              static_cast<uint32_t>(split), offset, k0, k1);
+    lu = logf(philox_uniform(w.y));
+  }
+  const bool acc = lu < __fsub_rn(__fadd_rn(f, lpq), lp);
+  accepted[row] = acc;
+  if (!acc) return;
+  // The stores, from registers where the plan loaded the rows.
+  log_prob[row] = lpq;
+  if (count != nullptr) count[row] = n_acc + 1;
+  float* __restrict__ c = coords + row * nd;
+  if constexpr (kRegRow) {
+#pragma unroll
+    for (int d = 0; d < kRowRegs; ++d) {
+      if (d < nd) c[d] = x[d];
+    }
+  } else {
+    const float* __restrict__ qr = q + from * nd;
+    for (int d = 0; d < nd; ++d) c[d] = qr[d];
+  }
+  if constexpr (kLeaves) {
+#pragma unroll
+    for (int l = 0; l < kRegLeaves; ++l) {
+      if (l < leaves.n_reg) {
+        const int units = leaves.leaf[l].row_bytes >> 2;
+        uint32_t* __restrict__ dst =
+            reinterpret_cast<uint32_t*>(leaves.leaf[l].dst) + row * units;
+#pragma unroll
+        for (int u = 0; u < kLeafUnits; ++u) {
+          if (u < units) dst[u] = pre[l][u];
+        }
+      }
+    }
+    for (int l = leaves.n_reg; l < leaves.n; ++l) {
+      const BlobLeaf& leaf = leaves.leaf[l];
+      switch (leaf.unit) {
+        case 16: copy_row<uint4>(leaf, from, row); break;
+        case 8: copy_row<uint2>(leaf, from, row); break;
+        case 4: copy_row<uint32_t>(leaf, from, row); break;
+        case 2: copy_row<uint16_t>(leaf, from, row); break;
+        default: copy_row<uint8_t>(leaf, from, row); break;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -501,37 +620,25 @@ void launch_select(int vec, int stage, bool rungs, dim3 grid, int smem,
 // with row_bytes > 0); it is copied into the launches' parameters, so
 // the host array may go once this returns.  row_unit 4 or 8 (leaf_plan's
 // choice) promises at most kRowLeaves leaves whose rows are each one
-// unit of that many bytes: they are read into registers.  ntemps rungs of
-// nw walkers lie one after the other in the ensemble buffers, ntemps
-// blocks of ng rows in q and the other split inputs (ntemps = 1: one
-// ensemble; nw is then unused); keys == nullptr draws every rung under
-// seed, else rung r under keys[r] (a device table of ntemps keys).  A
-// rung-axis launch (ntemps > 1 or keys) takes any leaves but row_unit 8
-// ones (ops/accept_kernel.py leaf_plan sends those to phase C), and is
-// refused with cudaErrorInvalidValue for them.
-// Returns cudaGetLastError() after the launches (1 + ceil((nleaves -
-// kMaxLeaves) / kMaxLeaves) of them with more than kMaxLeaves leaves,
-// else 1).
+// unit of that many bytes: they are read into registers.  Returns
+// cudaGetLastError() after the launches (1 + ceil((nleaves - kMaxLeaves)
+// / kMaxLeaves) of them with more than kMaxLeaves leaves, else 1).
 extern "C" int emcee_accept_select(
     const float* q, const float* factor, const float* lp_q, float* coords,
     float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
     int nd, int split, int tile, int grid, int vec, int stage, int smem,
-    int nw, int ntemps, const long long* keys, unsigned long long seed,
-    const long long* offset_dev, unsigned long long offset,
-    const BlobLeaf* leaves, int nleaves, int row_unit, void* stream) {
+    unsigned long long seed, const long long* offset_dev,
+    unsigned long long offset, const BlobLeaf* leaves, int nleaves,
+    int row_unit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int32_t* cnt = reinterpret_cast<int32_t*>(count);
   const uint32_t k0 = static_cast<uint32_t>(seed);
   const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
-  const dim3 blocks(grid, ntemps);
-  const bool rungs = ntemps > 1 || keys != nullptr;
-  if (rungs && nleaves > 0 && row_unit == 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const dim3 blocks(grid, 1);
   auto go = [&](const auto& blobs) {
-    launch_select(vec, stage, rungs, blocks, smem, st, q, factor, lp_q,
-                  coords, log_prob, accepted, cnt, log_u, ng, nd, split, tile,
-                  nw, k0, k1, keys, offset_dev, offset, blobs);
+    launch_select(vec, stage, blocks, smem, st, q, factor, lp_q, coords,
+                  log_prob, accepted, cnt, log_u, ng, nd, split, tile, k0, k1,
+                  offset_dev, offset, blobs);
   };
   if (nleaves == 0) {
     go(NoBlobs{});
@@ -544,7 +651,68 @@ extern "C" int emcee_accept_select(
   }
   for (int l0 = kMaxLeaves; row_unit == 0 && l0 < nleaves; l0 += kMaxLeaves) {
     accept_blobs_only_kernel<<<blocks, kThreads, 0, st>>>(
-        accepted, ng, split, tile, nw, leaf_group(leaves, nleaves, l0));
+        accepted, ng, split, tile, 0, leaf_group(leaves, nleaves, l0));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rung axis: ntemps rungs of nw walkers one after the other in the
+// ensemble buffers (coords (ntemps, nw, nd), log_prob, accepted and count
+// (ntemps, nw)), ntemps blocks of ng rows in q (ntemps, ng, nd) and the
+// other split inputs (ntemps, ng); a blob leaf's new rows (ntemps, ng,
+// ...) and buffer (ntemps, nw, ...).  keys == nullptr draws every rung
+// under seed, else rung r under keys[r] (a device table of ntemps keys).
+// threads and reg_row are the launch plan of ops/_wrap.py rung_plan:
+// threads a block (a multiple of 32 up to kRungThreads), one walker a
+// thread, and reg_row != 0 (nd <= kRowRegs) to read the q rows into
+// registers before the decision.  The first n_reg (<= kRegLeaves) of the
+// `nleaves` leaf descriptors go through registers: each with a row of
+// 1 to kLeafUnits 4-byte units and a unit of 4 or more (ops/accept_kernel.py
+// leaf_plan(..., rungs=True)).  Leaves past kMaxLeaves take blob-only
+// launches over every rung's split.  Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue, and no launch, for arguments
+// out of range).
+extern "C" int emcee_accept_rungs(
+    const float* q, const float* factor, const float* lp_q, float* coords,
+    float* log_prob, bool* accepted, int* count, const float* log_u, int ng,
+    int nd, int split, int nw, int ntemps, int threads, int reg_row,
+    const long long* keys, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset,
+    const BlobLeaf* leaves, int nleaves, int n_reg, void* stream) {
+  if (ntemps < 1 || ntemps > 65535 || threads < 32 ||
+      threads > kRungThreads || threads % 32 != 0 || nleaves < 0 ||
+      n_reg < 0 || n_reg > kRegLeaves || n_reg > nleaves ||
+      (reg_row && nd > kRowRegs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int l = 0; l < n_reg; ++l) {
+    if (leaves[l].unit < 4 || leaves[l].row_bytes % 4 != 0 ||
+        leaves[l].row_bytes < 4 || leaves[l].row_bytes > 4 * kLeafUnits) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* cnt = reinterpret_cast<int32_t*>(count);
+  const uint32_t k0 = static_cast<uint32_t>(seed);
+  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  RungLeaves g{};
+  g.n_reg = n_reg;
+  g.n = nleaves < kMaxLeaves ? nleaves : kMaxLeaves;
+  for (int l = 0; l < g.n; ++l) g.leaf[l] = leaves[l];
+  auto kernel = reg_row ? (nleaves ? accept_rungs_kernel<true, true>
+                                   : accept_rungs_kernel<true, false>)
+                        : (nleaves ? accept_rungs_kernel<false, true>
+                                   : accept_rungs_kernel<false, false>);
+  const dim3 blocks((ng + threads - 1) / threads, ntemps);
+  kernel<<<blocks, threads, 0, st>>>(q, factor, lp_q, coords, log_prob,
+                                     accepted, cnt, log_u, ng, nd, split, nw,
+                                     k0, k1, keys, offset_dev, offset, g);
+  // The blob-only kernel takes tiles of up to kThreads walkers (its shared
+  // acc array and its division-free walk hold no more).
+  const dim3 tiles((ng + kThreads - 1) / kThreads, ntemps);
+  for (int l0 = kMaxLeaves; l0 < nleaves; l0 += kMaxLeaves) {
+    accept_blobs_only_kernel<<<tiles, kThreads, 0, st>>>(
+        accepted, ng, split, kThreads, nw, leaf_group(leaves, nleaves, l0));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,10 +29,12 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _HEADERS = ("bulk_copy.cuh", "philox.cuh")
 
-#: kernel name -> (source file, C entry point)
+#: kernel name -> (source file, C entry point); kernels of one source
+#: share its library
 KERNELS = {
     "stretch_propose": ("stretch_propose.cu", "emcee_stretch_propose"),
     "accept_select": ("accept_select.cu", "emcee_accept_select"),
+    "accept_rungs": ("accept_select.cu", "emcee_accept_rungs"),
     "de_propose": ("de_propose.cu", "emcee_de_propose"),
     "snooker_propose": ("snooker_propose.cu", "emcee_snooker_propose"),
     "langevin_step": ("langevin_step.cu", "emcee_langevin_step"),
@@ -66,10 +68,20 @@ _ARGTYPES = {
         _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
         *[ctypes.c_int] * 5,  # plan: tile grid vec stage smem
-        ctypes.c_int, ctypes.c_int, _P,  # rung stride nw, ntemps, key table
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P, ctypes.c_int,  # blob leaves (host array), their number
         ctypes.c_int,  # row_unit: leaves of one 4- or 8-byte unit a row
+        _P,  # stream
+    ],
+    "accept_rungs": [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # q factor lp_q coords lp acc count log_u
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split
+        ctypes.c_int, ctypes.c_int,  # rung stride nw, ntemps
+        ctypes.c_int, ctypes.c_int,  # plan: threads reg_row
+        _P, ctypes.c_ulonglong,  # the rungs' key table, seed
+        _P, ctypes.c_ulonglong,  # offset_dev, offset
+        _P, ctypes.c_int,  # blob leaves (host array), their number
+        ctypes.c_int,  # the leading leaves that go through registers
         _P,  # stream
     ],
     "de_propose": [
@@ -129,6 +141,9 @@ _ARGTYPES = {
         ctypes.c_uint, ctypes.c_uint, _P,  # row0, block, block_dev
         ctypes.c_ulonglong, _P,  # seed, the rungs' key table
         _P, ctypes.c_ulonglong,  # offset_dev, offset
+        ctypes.c_int, ctypes.c_int,  # plan: threads vec
+        ctypes.c_uint, ctypes.c_int,  # plan: rung_mul rung_shr
+        ctypes.c_uint, ctypes.c_int,  # plan: div_mul div_shr
         _P,  # stream
     ],
 }
@@ -159,16 +174,19 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for f in (src,) + _HEADERS:
         h.update((_CSRC / f).read_bytes())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict:
     """Compile every missing kernel library, one ``nvcc`` per source, all
     started together.  Returns ``{name: ptxas report}`` for the kernels
-    built by this call (empty when all were built already).  Raises if
-    any build fails."""
+    built by this call, one name a source (empty when all were built
+    already).  Raises if any build fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).is_file()]
+    first = {}  # library -> the first name that needs it
+    for n in names:
+        first.setdefault(_lib_path(n), n)
+    todo = [n for path, n in first.items() if not path.is_file()]
     if not todo:
         return {}
     build_dir().mkdir(parents=True, exist_ok=True)

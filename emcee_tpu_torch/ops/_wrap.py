@@ -1,7 +1,7 @@
 """What every kernel wrapper shares: its argument checks, the complement
 row map, the Philox key and offset arguments, the launch plans of K1 and
-K2 (``tile_plan``) and of K5a and K5b (``de_plan``), and the launch on
-the current stream.
+K2 (``tile_plan``), of K2's rung axis (``rung_plan``) and of K5a and K5b
+(``de_plan``), and the launch on the current stream.
 
 A wrapper checks device, type, shape and contiguity before it launches,
 and raises on what its kernel does not take; the launch returns the C
@@ -46,6 +46,17 @@ DE_THREADS = 256
 #: the largest tile of K5b, which has one warp per walker (kTileMax in
 #: csrc/snooker_propose.cu)
 SNOOKER_TILE_MAX = 16
+
+#: K2's rung kernel's block.  On the H100, in workload 4's replays (16
+#: rungs x 128 walkers), blocks of 32-256 were within 0.06 us of each
+#: other, 128 among the fastest (PERF.md)
+RUNG_THREADS = 128
+#: the largest block the rung kernel takes (kRungThreads in
+#: csrc/accept_select.cu), for plans forced by a sweep
+RUNG_THREADS_LIMIT = 512
+#: the floats of a q row that K2's rung kernel loads into registers before
+#: the decision (kRowRegs); longer rows are copied after it
+RUNG_ROW_REGS = 8
 
 #: pair mode name -> the kernels' code for it
 PAIR_MODES = {"roll": 0, "random": 1}
@@ -177,6 +188,43 @@ def tile_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, stage=False, rungs=1,
            and (rungs == 1 or nsplits * ng * nd % 4 == 0))
     return TilePlan(tile, -(-ng // tile), int(vec), int(stage),
                     4 * tile * nd if stage else 0)
+
+
+def divisor(k):
+    """``(mul, shr)`` with ``((t * mul) >> 32) >> shr == t // k`` for
+    every ``0 <= t < 2**31`` (``1 <= k < 2**31``): ``mul = ceil(2**p / k)``
+    with ``p = 31 + ceil(log2 k)``, ``shr = p - 32``.  The error of the
+    rounded-up ``mul`` adds less than ``t / 2**p < 2**-ceil(log2 k) <=
+    1 / k`` to ``t / k``, too little to reach the next integer.  ``k = 1``
+    gives ``(0, 0)``: the kernels take ``t`` itself.  K14 divides its
+    thread's index so, by the counters of a rung and of a row."""
+    if not 1 <= k < 1 << 31:
+        raise ValueError(f"k must be in [1, 2**31), got {k}")
+    if k == 1:
+        return 0, 0
+    p = 31 + (k - 1).bit_length()
+    return -(-(1 << p) // k), p - 32
+
+
+class RungPlan(NamedTuple):
+    """How K2's rung kernel is launched; ``threads`` and ``reg_row`` are
+    the C entry point's plan arguments."""
+
+    threads: int  #: walkers a block, one a thread, a multiple of 32
+    grid: int  #: blocks a rung, ``ceil(ng / threads)``
+    reg_row: int  #: 1: each walker's q row goes through registers
+
+
+def rung_plan(ng, nd):
+    """The launch plan of K2 with the rung axis for ``ng`` walkers a split
+    of ``nd`` floats: blocks of ``RUNG_THREADS``, one thread a walker,
+    block ``(b, r)`` holding walkers ``[b * threads, min((b + 1) *
+    threads, ng))`` of rung ``r``'s split.  A q row of up to
+    ``RUNG_ROW_REGS`` floats is loaded into registers with the rest
+    before the decision (``reg_row``); a longer one is copied by the
+    accepted walker's thread after it."""
+    return RungPlan(RUNG_THREADS, -(-ng // RUNG_THREADS),
+                    int(nd <= RUNG_ROW_REGS))
 
 
 class DEPlan(NamedTuple):

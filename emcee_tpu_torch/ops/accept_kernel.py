@@ -48,14 +48,21 @@ never converted).
 The rung axis (parallel tempering): the ensemble buffers may be ``(T,
 nwalkers, ...)``, ``T`` ensembles of one ladder, with ``q`` ``(T, ng,
 ndim)``, ``factor``, ``lp_q`` and ``log_u`` ``(T, ng)`` and each blob
-leaf's new rows ``(T, ng, ...)`` and buffer ``(T, nwalkers, ...)``,
-through either leaf path (:func:`leaf_plan`; 8-byte scalar leaves take
-phase C there).
+leaf's new rows ``(T, ng, ...)`` and buffer ``(T, nwalkers, ...)``.
 Rung ``r``'s split group is its rows ``split*ng .. +ng``, and it draws
 its accept uniform under its own key (``seed`` is then a
-:class:`~.philox.RungKeys`).  One launch serves every rung; the plain
-version draws every rung's words in one pass and selects elementwise
-over the rungs, so each rung equals the same rung selected alone.
+:class:`~.philox.RungKeys`).  One launch of a kernel of its own serves
+every rung, laid out for latency (``_wrap.rung_plan``: one thread a
+walker, in blocks of 128, the grid's second dimension the rung):
+each thread loads its inputs, its q row (up to ``_wrap.RUNG_ROW_REGS``
+floats) and its rows of up to ``RUNG_REG_LEAVES`` short leaves
+(:func:`leaf_plan` with ``rungs``: 1 to ``RUNG_LEAF_UNITS`` 4-byte
+units a row, such as the tempered ``logL`` / ``logP`` and the blobs ``(2
+logL, x)``) before the decision, and an accepted walker stores them from
+registers; longer rows and other leaves are copied by the accepted
+walker's thread after it.  The plain version draws every rung's words
+in one pass and selects elementwise over the rungs, so each rung equals
+the same rung selected alone.
 
 The accept uniform is Philox word 1 at ``(walker, split, offset)``
 (``offset`` an int or a ``DeviceOffset``), or the injected ``log_u``
@@ -77,10 +84,11 @@ import torch
 
 from ._wrap import (
     check_f32, check_rows, count_launches, device_sm_count, key_args, launch,
-    ptr, rng_args, tile_plan)
+    ptr, rng_args, rung_plan, tile_plan)
 from .philox import RungKeys, rung_keys, rung_words, to_uniform, walker_words
 
-__all__ = ["BLOB_CAPACITY", "ROW_LEAVES", "accept_select",
+__all__ = ["BLOB_CAPACITY", "ROW_LEAVES", "RUNG_LEAF_UNITS",
+           "RUNG_REG_LEAVES", "accept_select",
            "accept_select_plain", "blob_leaves", "blob_unit", "leaf_plan"]
 
 #: blob leaves one launch of the kernel selects (kMaxLeaves in
@@ -91,6 +99,11 @@ BLOB_CAPACITY = 16
 ROW_LEAVES = 4
 #: the units of such rows
 ROW_UNITS = (4, 8)
+#: leaves that a rung-axis launch reads into registers (kRegLeaves in
+#: csrc/accept_select.cu), each row 1 to RUNG_LEAF_UNITS 4-byte units
+#: (kLeafUnits)
+RUNG_REG_LEAVES = 4
+RUNG_LEAF_UNITS = 8
 
 
 class _BlobLeaf(ctypes.Structure):
@@ -128,26 +141,39 @@ def blob_unit(src_ptr, dst_ptr, row_bytes):
 
 
 def leaf_plan(leaves, rungs=False):
-    """How K2 selects blob leaves ``(src, dst, row bytes)``: ``([(src,
-    dst, row bytes, unit, inv_upr), ...], row_unit)``, the kernel's
-    descriptor of each leaf and the row unit.  Where every leaf's row is
+    """How K2 selects blob leaves ``(src, dst, row bytes)``: the kernel's
+    descriptor ``(src, dst, row bytes, unit, inv_upr)`` of each leaf and
+    the register path.
+
+    One ensemble: ``(descriptors, row_unit)``.  Where every leaf's row is
     one unit of 4 or 8 bytes (scalar blobs) and there are at most
     ``ROW_LEAVES`` of them, the row unit is that unit: each walker's
     thread reads its row of every leaf into registers before the
     decision.  Otherwise it is 0, and the leaves are read after the
-    decision (phase C).  On the rung axis (``rungs``) the register path
-    is built for 4-byte units only (the tempered ``logL`` and ``logP``
-    and up to two user scalars beside them); 8-byte scalar leaves take
-    phase C there."""
+    decision (phase C).
+
+    The rung axis (``rungs``): ``(descriptors in launch order, n_reg)``.
+    The first ``RUNG_REG_LEAVES`` leaves, in their order, whose rows are 1
+    to ``RUNG_LEAF_UNITS`` 4-byte units (a unit of 4 bytes or more: both
+    bases and the row divisible by 4) come first and go through registers;
+    every other leaf follows in its own order and is copied after the
+    decision."""
     units = [blob_unit(src, dst, row) for src, dst, row in leaves]
+    descs = [(src, dst, row, unit, inv_upr(row, unit))
+             for (src, dst, row), unit in zip(leaves, units)]
+    if rungs:
+        reg = [i for i, (_, _, row, unit, _) in enumerate(descs)
+               if unit >= 4 and row <= 4 * RUNG_LEAF_UNITS]
+        reg = set(reg[:RUNG_REG_LEAVES])
+        return ([d for i, d in enumerate(descs) if i in reg]
+                + [d for i, d in enumerate(descs) if i not in reg],
+                len(reg))
     row_unit = 0
-    if (0 < len(leaves) <= ROW_LEAVES
-            and units[0] in ((4,) if rungs else ROW_UNITS)
+    if (0 < len(leaves) <= ROW_LEAVES and units[0] in ROW_UNITS
             and all(u == units[0] == row
                     for u, (_, _, row) in zip(units, leaves))):
         row_unit = units[0]
-    return ([(src, dst, row, unit, inv_upr(row, unit))
-             for (src, dst, row), unit in zip(leaves, units)], row_unit)
+    return descs, row_unit
 
 
 def blob_leaves(blobs, ng, nw, device, lead=()):
@@ -247,36 +273,63 @@ def accept_select(q, factor, lp_q, coords, log_prob, split, nsplits,
             or not count.is_contiguous()):
         raise ValueError(f"count must be a contiguous {lead + (nw,)} int32 "
                          f"tensor on {dev}")
-    rung_launch = bool(lead and lead[0] > 1) or isinstance(seed, RungKeys)
-    leaves, row_unit = leaf_plan(blob_leaves(blobs, ng, nw, dev, lead),
-                                 rungs=rung_launch)
-    plan = tile_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
-                     q.data_ptr(), stage=True, rungs=lead[0] if lead else 1,
-                     nsplits=nsplits)
-    _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
-            seed, offset, log_u, leaves, row_unit)
+    leaves = blob_leaves(blobs, ng, nw, dev, lead)
+    if bool(lead and lead[0] > 1) or isinstance(seed, RungKeys):
+        leaves, n_reg = leaf_plan(leaves, rungs=True)
+        plan = rung_plan(ng, nd)
+        _launch_rungs(plan, q, factor, lp_q, coords, log_prob, split,
+                      accepted, count, seed, offset, log_u, leaves, n_reg)
+    else:
+        leaves, row_unit = leaf_plan(leaves)
+        plan = tile_plan(ng, nd, split, device_sm_count(dev),
+                         coords.data_ptr(), q.data_ptr(), stage=True)
+        _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted,
+                count, seed, offset, log_u, leaves, row_unit)
     count_launches(accept_select, max(1, -(-len(leaves) // BLOB_CAPACITY)))
     return accepted[..., split * ng:(split + 1) * ng]
 
 
+def _table(leaves):
+    """The leaf descriptors as the C entry points' host array."""
+    return (_BlobLeaf * max(1, len(leaves)))(*[_BlobLeaf(*d) for d in leaves])
+
+
 def _launch(plan, q, factor, lp_q, coords, log_prob, split, accepted, count,
             seed, offset, log_u, leaves=(), row_unit=0):
-    """Launch K2 with launch plan ``plan`` on checked arguments;
-    ``leaves`` are the blob leaves' descriptors and ``row_unit`` their
-    path (:func:`leaf_plan`)."""
+    """Launch the one-ensemble K2 (a ``(1, nwalkers, ndim)`` ensemble is
+    one too) with launch plan ``plan`` on checked arguments; ``leaves``
+    are the blob leaves' descriptors and ``row_unit`` their path
+    (:func:`leaf_plan`)."""
     dev = coords.device
-    ntemps = coords.shape[0] if coords.dim() == 3 else 1
-    table = (_BlobLeaf * max(1, len(leaves)))(*[
-        _BlobLeaf(*d) for d in leaves])
+    table = _table(leaves)
     launch(
         "accept_select", dev,
         q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
         coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
         ptr(count), ptr(log_u), q.shape[-2], coords.shape[-1], split,
-        *plan, coords.shape[-2],
-        *key_args(seed, dev, ntemps, injected=log_u is not None),
-        *rng_args(0, offset, dev)[1:],
+        *plan, *rng_args(seed, offset, dev),
         ctypes.addressof(table), len(leaves), row_unit,
+    )
+
+
+def _launch_rungs(plan, q, factor, lp_q, coords, log_prob, split, accepted,
+                  count, seed, offset, log_u, leaves=(), n_reg=0):
+    """Launch K2 with the rung axis with launch plan ``plan``
+    (``_wrap.rung_plan``) on checked ``(T, ...)`` arguments; ``leaves``
+    are the blob leaves' descriptors in launch order, the first ``n_reg``
+    through registers (:func:`leaf_plan` with ``rungs``)."""
+    dev = coords.device
+    ntemps = coords.shape[0] if coords.dim() == 3 else 1
+    table = _table(leaves)
+    nt, keys, seed64 = key_args(seed, dev, ntemps, injected=log_u is not None)
+    launch(
+        "accept_rungs", dev,
+        q.data_ptr(), factor.data_ptr(), lp_q.data_ptr(),
+        coords.data_ptr(), log_prob.data_ptr(), accepted.data_ptr(),
+        ptr(count), ptr(log_u), q.shape[-2], coords.shape[-1], split,
+        coords.shape[-2], nt, plan.threads, plan.reg_row, keys, seed64,
+        *rng_args(0, offset, dev)[1:],
+        ctypes.addressof(table), len(leaves), n_reg,
     )
 
 

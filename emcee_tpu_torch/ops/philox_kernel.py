@@ -10,8 +10,11 @@ and uniforms of the moves of plain torch (``moves/dime.py:320-351``,
 its own stream (``ops/philox.py``), so the kernel is held bit for bit
 against the plain version, :func:`philox_draw_plain`, which runs
 :func:`~.philox.philox4x32_torch` (ten torch calls a round).  The kernel
-is ``csrc/philox_draw.cu``: one thread a counter, bound by the launch at
-every caller's shape.
+is ``csrc/philox_draw.cu``, laid out by :func:`draw_plan`: one thread a
+counter over every rung's counters in blocks of ``DRAW_THREADS``, a
+thread's rung, row and column by a multiply-high with a magic number
+(``_wrap.divisor``) instead of a division, and a whole row of uniforms
+or normals stored as one vector where the row has no tail.
 
 A draw reads counters ``(row0 + r, block + j, offset)`` for ``r < n``
 (and ``ROLL_LANE`` as row ``n`` with ``roll``), ``j < k``, under ``seed``
@@ -42,17 +45,27 @@ the other.  ``philox_draw.launches`` counts kernel launches (and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ._wrap import count_launches, launch, ptr, rng_args
+from ._wrap import count_launches, divisor, launch, ptr, rng_args
 from .philox import (
     MASK32, ROLL_LANE, RungKeys, box_muller, philox4x32_torch, split_key,
     split_offset, to_uniform)
 
-__all__ = ["DRAW_THREADS", "KINDS", "philox_draw", "philox_draw_plain"]
+__all__ = ["DRAW_THREADS", "DRAW_THREADS_LIMIT", "DrawPlan", "KINDS",
+           "draw_plan", "philox_draw", "philox_draw_plain"]
 
-#: threads a block of the kernel (kThreads in csrc/philox_draw.cu)
-DRAW_THREADS = 256
+#: threads a block of the plan.  On the H100, in graph replays, blocks of
+#: 128 were the fastest of 32-1024 at both callers' shapes: workload 4's
+#: 16 x 256 keys (a launch that waits on its trips to memory: more, smaller
+#: blocks cost their dispatch, fewer, larger ones their warps' issue on one
+#: SM) and the DIME stage's 5e4 x 6 normals (PERF.md)
+DRAW_THREADS = 128
+#: the largest block the kernel takes (kMaxThreads in
+#: csrc/philox_draw.cu), for plans forced by a sweep
+DRAW_THREADS_LIMIT = 1024
 #: kind name -> the kernel's code for it
 KINDS = {"words": 0, "uniforms": 1, "normals": 2}
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -74,6 +87,32 @@ def _shape(kind, k, d, word):
     if d is None or d < 0:
         raise ValueError(f"{kind} need d >= 0")
     return -(-d // _PER[kind]), d
+
+
+class DrawPlan(NamedTuple):
+    """How the kernel is launched: the C entry point's plan arguments."""
+
+    threads: int  #: threads a block, a multiple of 32, a counter each
+    blocks: int  #: ``ceil(ntemps * rows * k / threads)``, every rung's
+    vec: int  #: 1: every row is whole counters, one vector store each
+    rung_mul: int  #: a thread's rung: its index divided by ``rows * k``
+    rung_shr: int
+    div_mul: int  #: a counter's row: its index in the rung divided by k
+    div_shr: int
+
+
+def draw_plan(kind, rows, k, d, word, ntemps):
+    """The launch plan of a draw of ``rows`` rows of ``k`` counters (``d``
+    stored columns) on each of ``ntemps`` rungs: one thread a counter over
+    every rung's counters, one after the other, in blocks of
+    ``DRAW_THREADS``.
+    ``vec`` where every row is whole counters of every word: uniforms with
+    ``d = 4k``, normals with ``d = 2k``."""
+    count = rows * k
+    total = ntemps * count
+    vec = (word is None and kind in _PER and d == _PER[kind] * k)
+    return DrawPlan(DRAW_THREADS, -(-total // DRAW_THREADS), int(vec),
+                    *divisor(count), *divisor(k))
 
 
 def _on(t, device):
@@ -175,11 +214,13 @@ def philox_draw(kind, n, k, block, seed, offset, device, *, row0=0,
         return tuple(out.unbind(0)) if planes == 4 else out[0]
     blk = block if isinstance(block, torch.Tensor) else None
     seed64, off_ptr, off = rng_args(key, offset, device)
+    plan = draw_plan(kind, rows, k, d, word, ntemps)
     launch("philox_draw", device, out.data_ptr(), KINDS[kind],
            _DTYPES.get(dtype, 0), ntemps, rows, n, k, d,
            -1 if word is None else int(word), int(row0) & MASK32,
            0 if blk is not None else int(block), ptr(blk), seed64,
-           ptr(keys), off_ptr, off)
+           ptr(keys), off_ptr, off, plan.threads, plan.vec, plan.rung_mul,
+           plan.rung_shr, plan.div_mul, plan.div_shr)
     count_launches(philox_draw)
     return tuple(out.unbind(0)) if planes == 4 else out[0]
 

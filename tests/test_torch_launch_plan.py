@@ -1,5 +1,6 @@
 """The launch plans of K1 and K2 (``emcee_tpu_torch/ops/_wrap.py``
-``tile_plan``, and K2's blob leaves, ``accept_kernel.leaf_plan``), of K5a
+``tile_plan``, K2's rung kernel, ``rung_plan``, and K2's blob leaves,
+``accept_kernel.leaf_plan``), of K5a
 and K5b (``de_plan``) and of K11 (``langevin_kernel.langevin_plan``),
 checked on the host: the tiles cover the split once, the grid fills the
 card (K11's in one wave), shared memory stays under 48 KB, the float4 and
@@ -18,10 +19,12 @@ from hypothesis import strategies as st
 
 from emcee_tpu_torch.ops import _wrap
 from emcee_tpu_torch.ops._wrap import (
-    BLOCKS_PER_SM, DE_THREADS, K5_BLOCKS_PER_SM, SMEM_LIMIT,
-    SNOOKER_TILE_MAX, STATIC_SMEM, TILE_MAX, TILE_MIN, de_plan, tile_plan)
+    BLOCKS_PER_SM, DE_THREADS, K5_BLOCKS_PER_SM, RUNG_ROW_REGS,
+    RUNG_THREADS, RUNG_THREADS_LIMIT, SMEM_LIMIT, SNOOKER_TILE_MAX,
+    STATIC_SMEM, TILE_MAX, TILE_MIN, de_plan, rung_plan, tile_plan)
 from emcee_tpu_torch.ops.accept_kernel import (
-    BLOB_CAPACITY, ROW_LEAVES, UPR_SHIFT, blob_unit, inv_upr, leaf_plan)
+    BLOB_CAPACITY, ROW_LEAVES, RUNG_LEAF_UNITS, RUNG_REG_LEAVES, UPR_SHIFT,
+    blob_unit, inv_upr, leaf_plan)
 from emcee_tpu_torch.ops.langevin_kernel import (
     LANGEVIN_BLOCKS_PER_SM, LANGEVIN_THREADS, langevin_plan)
 
@@ -431,3 +434,103 @@ def test_rung_axis_plan(rungs, ng, nd, nsplits, stage, c_off, q_off):
             assert np.all(q % 16 == 0)
     if plan.stage:
         assert plan.smem == 4 * plan.tile * nd <= SMEM_LIMIT - STATIC_SMEM
+
+
+# -- K2's rung kernel (_wrap.rung_plan, leaf_plan(..., rungs=True)) ------
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(1, 5000), st.integers(1, 300), st.integers(1, 64),
+       st.integers(2, 4))
+@example(128, 5, 16, 2)  # workload 4's K2
+@example(33, 9, 3, 3)  # a tail of one walker, a row past registers
+def test_rung_kernel_plan_covers_every_rungs_walkers_once(ng, nd, rungs,
+                                                          nsplits):
+    """``rung_plan``: one thread a walker in blocks of ``RUNG_THREADS``, a
+    warp multiple, the grid's second dimension the rung; block ``(b, r)``'s
+    thread ``x`` takes walker ``b * threads + x`` of rung ``r``'s split
+    when it is below ``ng``, so every walker of every rung's split is
+    taken once; the q row goes through registers exactly when it has at
+    most ``RUNG_ROW_REGS`` floats."""
+    plan = rung_plan(ng, nd)
+    assert plan.threads == RUNG_THREADS and RUNG_THREADS % 32 == 0
+    assert RUNG_THREADS <= RUNG_THREADS_LIMIT
+    assert plan.grid == -(-ng // plan.threads)
+    i = (np.arange(plan.grid)[:, None] * plan.threads
+         + np.arange(plan.threads)[None, :]).ravel()
+    i = i[i < ng]
+    split = (ng + nd) % nsplits
+    nw = nsplits * ng
+    rows = (np.arange(rungs)[:, None] * nw + split * ng + i[None, :]).ravel()
+    want = (np.arange(rungs)[:, None] * nw + split * ng
+            + np.arange(ng)[None, :]).ravel()
+    assert np.array_equal(np.sort(rows), want)
+    assert plan.reg_row == int(nd <= RUNG_ROW_REGS)
+
+
+def test_rung_kernel_plan_at_workload_4():
+    """16 rungs x 128 walkers a split: a block of 128 a rung, 16 in all,
+    the 5-D rows in registers (the tiled plan ran 512 blocks of 256
+    threads, 4 walkers each)."""
+    assert rung_plan(128, 5) == (128, 1, 1)
+    assert tile_plan(128, 5, 0, H100_SMS, 0, 0, stage=True, rungs=16,
+                     nsplits=2).grid * 16 == 512
+
+
+def rung_leaf_cases():
+    """Up to 24 blob leaves ``(src, dst, row bytes)`` at bases up to 15
+    bytes past 16-byte alignment, short rows of 4-byte units drawn
+    often."""
+    leaf = st.tuples(st.integers(0, 15), st.integers(0, 15),
+                     st.one_of(st.sampled_from([4, 8, 12, 20, 32, 36]),
+                               st.integers(1, 80)))
+    return st.lists(leaf, max_size=24)
+
+
+@settings(max_examples=300, deadline=None)
+@given(rung_leaf_cases())
+@example([(0, 0, 4)] * 4)  # logL, logP and two user scalars
+@example([(0, 0, 4)] * 3 + [(0, 0, 20)])  # phase 15's (logL, logP, 2 logL, x)
+@example([(0, 0, 4)] * 5)  # one too many for registers
+@example([(0, 0, 36), (0, 0, 3), (2, 2, 8), (0, 0, 8)])
+def test_leaf_plan_on_the_rung_axis_widened_register_path(raw):
+    """On the rung axis the first ``RUNG_REG_LEAVES`` leaves whose rows are
+    1 to ``RUNG_LEAF_UNITS`` 4-byte units (bases and row divisible by 4)
+    go first, in their order, through registers; every other leaf follows
+    in its own order, copied after the decision."""
+    leaves = [((5 << 20) + (i << 22) + s, (7 << 20) + (i << 22) + d, row)
+              for i, (s, d, row) in enumerate(raw)]
+    descs, n_reg = leaf_plan(leaves, rungs=True)
+    fits = [i for i, (s, d, row) in enumerate(leaves)
+            if s % 4 == d % 4 == row % 4 == 0
+            and row <= 4 * RUNG_LEAF_UNITS]
+    reg = fits[:RUNG_REG_LEAVES]
+    assert n_reg == len(reg)
+    order = reg + [i for i in range(len(leaves)) if i not in reg]
+    assert [d[:3] for d in descs] == [leaves[i] for i in order]
+    for src, dst, row, unit, inv in descs:
+        assert unit == blob_unit(src, dst, row)
+        assert inv == inv_upr(row, unit)
+    for _, _, row, unit, _ in descs[:n_reg]:
+        assert unit >= 4 and 1 <= row // 4 <= RUNG_LEAF_UNITS
+
+
+def test_leaf_plan_on_the_rung_axis_at_phase_15s_blobs():
+    """The tempered logL and logP and the blobs ``(2 logL, x)`` of 5
+    floats all ride registers; an 8-byte scalar is two 4-byte units and
+    rides them too; a row of 9 floats, int8 rows of 3 and a 4-byte row at
+    a base 2 bytes past a boundary are copied after the decision; past
+    16 leaves the rest take blob-only launches (``BLOB_CAPACITY``)."""
+    base = [((1 << 24) * k, (1 << 25) * k, 4) for k in (1, 2, 3)]
+    x = (1 << 26, 1 << 27, 20)
+    descs, n_reg = leaf_plan(base + [x], rungs=True)
+    assert n_reg == 4 and [d[:3] for d in descs] == base + [x]
+    assert leaf_plan([(8, 16, 8)], rungs=True)[1] == 1
+    nine, odd, half = (0, 0, 36), (0, 0, 3), (2, 2, 4)
+    descs, n_reg = leaf_plan([nine, base[0], odd, half, base[1]],
+                             rungs=True)
+    assert n_reg == 2
+    assert [d[:3] for d in descs] == [base[0], base[1], nine, odd, half]
+    many, n_reg = leaf_plan(base * 6, rungs=True)
+    assert n_reg == RUNG_REG_LEAVES and len(many) == 18 > BLOB_CAPACITY
+    # One ensemble keeps its rule: four scalars of one unit, or phase C.
+    assert leaf_plan(base + [x])[1] == 0
