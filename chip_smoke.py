@@ -156,7 +156,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    rates with and without blobs in turns, K2's and K15's device time with
    and without leaves in replays; (d) the mixture at full size (rate,
    cold tau, swap acceptance, phase 14's checks) and each move's device
-   time and kernels a proposal alone; (e) the adaptive ladder from
+   time and kernels a proposal alone (DE on every rung at once and forced
+   to loop over them); (e) the adaptive ladder from
    ``max_temp=1e6`` against the frozen ladder, and the host's work a
    chunk; (f) ``EnsembleSliceMove`` and ``ChEESHMCMove`` on every rung
    (graph chain == eager chain; µs, flag reads and kernels a proposal);
@@ -184,10 +185,26 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    name K14's launches a proposal; the row gives those counted in this
    run at workload 4 and (with phase 12) the DIME stage.
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16.  Every
-phase raises on failure.  ``python3 chip_smoke.py sass-diff TREE``
-builds TREE's and this checkout's K1, K2 and K15 and compares their
-SASS function by function.
+17. DE and DE-snooker on every rung (K5a and K5b with the rung axis):
+   (a) both kernels against their plain versions bit for bit (2-64
+   rungs, 1-1000 walkers a split, ndim 1-100, nsplits 2-4, both pair
+   modes, injected / host offset / device offset draws, scale per rung,
+   bases off 16 bytes, K5a staged and direct, K5b one warp for a tile,
+   each rung against the one-ensemble launch); (b) ``DEMove()``,
+   ``DESnookerMove()`` and the mixture DE 0.8 + snooker 0.2 at workload
+   4's configuration: graph chain == the plain versions' eager chain and
+   the batched path == the per-rung loop over 64 proposals, bit for bit;
+   (c) both paths in turns (batched, loop, loop, batched), device µs and
+   kernels a proposal, the batched path's launches counted by device
+   words (2 K5a a DE proposal, 4 K5b a snooker one); (d) 512 kept x 4
+   into ``PTDeviceBackend`` with phase 14's checks; (e) the rows of K5a
+   and K5b with the rung axis.  ``python3 chip_smoke.py 17`` runs phases
+   0, 1 and 17 alone.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17.
+Every phase raises on failure.  ``python3 chip_smoke.py sass-diff TREE``
+builds TREE's and this checkout's K1, K2, K5a, K5b and K15 and compares
+their SASS function by function.
 
 Three modes compare this checkout with another tree inside it (TREE,
 e.g. the parent commit unpacked by ``git archive`` into the git-ignored
@@ -3512,7 +3529,8 @@ def grad_v(torch, lk, dev, seed, offset, split):
     return v
 
 
-def counted_replays(torch, dev, smp, n, expect, what, before=None, **kw):
+def counted_replays(torch, dev, smp, n, expect, what, before=None,
+                    warm=False, **kw):
     """Every kernel's launches in ``n`` replayed proposals of ``smp``'s own
     chunk program (``run_mcmc(None, n, **kw)``), counted on the card and
     held exactly to ``expect(replays)`` (``replays``: the graph replays
@@ -3526,8 +3544,11 @@ def counted_replays(torch, dev, smp, n, expect, what, before=None, **kw):
     is returned beside.  The timed graphs are set aside meanwhile and put
     back after, so no timed or profiled window replays a graph that holds
     the adds.  ``before``, if given, is called just before the counted run
-    (a :class:`LoopDraws`' ``begin``).  Returns ``(device counts, profiler
-    counts)``."""
+    (a :class:`LoopDraws`' ``begin``).  ``warm`` records every graph size
+    of every move before the words are zeroed (:func:`warm_graphs`): a
+    mixture's counted run may need a size the first run did not, and the
+    eager warm-up before that recording would count.  Returns ``(device
+    counts, profiler counts)``."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     prog = smp._program
@@ -3539,6 +3560,8 @@ def counted_replays(torch, dev, smp, n, expect, what, before=None, **kw):
         fn.device_launches = words[name]
     try:
         smp.run_mcmc(None, n, **kw)
+        if warm:
+            warm_graphs(smp)
         torch.cuda.synchronize()
         for w in words.values():
             w.zero_()
@@ -5100,8 +5123,9 @@ def pt15_mixture(torch, np, dev, card, p0, kept=512, thin=4, n_win=8):
     """(d) The mixture at full size into ``PTDeviceBackend``: its rate
     (the best of two timed runs), the cold rung's tau and the swap
     acceptance with phase 14's checks; then the device time and kernels
-    a proposal of each move alone (the rung-batched stretch move, the
-    per-rung DE loop) in profiled windows of ``n_win`` proposals."""
+    a proposal of each move alone (the rung-batched stretch move, DE on
+    every rung at once, and DE forced to loop over the rungs) in profiled
+    windows of ``n_win`` proposals."""
     from emcee_tpu_torch import moves
     from emcee_tpu_torch.backends import PTDeviceBackend
 
@@ -5127,9 +5151,11 @@ def pt15_mixture(torch, np, dev, card, p0, kept=512, thin=4, n_win=8):
     if not all(checks.values()):
         raise AssertionError(f"phase 15: mixture checks {checks}")
     per_move = {}
-    for name, mv, k in (("stretch", moves.StretchMove(), "stretch_propose"),
-                        ("de", moves.DEMove(), "de_propose")):
+    for name, mv, batched in (("stretch", moves.StretchMove(), True),
+                              ("de", moves.DEMove(), True),
+                              ("de loop", moves.DEMove(), False)):
         one = pt15_sampler(dev, seed=46, move=mv, like=pt_log_like)
+        one._batched = batched
         one.run_mcmc(p0, n_win, store=False, skip_initial_state_check=True)
         warm_graphs(one)
         win = busy_window(
@@ -5380,10 +5406,13 @@ def phase15(torch, np, dev, card):
         f"{mx['cold_mode_fraction']:.3f}; alone, a proposal: the batched "
         f"stretch move {measured(pm['stretch']['device_us'])} us of device "
         f"time and {measured(pm['stretch']['kernels'], '.0f')} kernels "
-        f"({pm['stretch']['launches']}), the per-rung DE loop "
+        f"({pm['stretch']['launches']}), batched DE "
         f"{measured(pm['de']['device_us'])} us and "
         f"{measured(pm['de']['kernels'], '.0f')} kernels "
-        f"({pm['de']['launches']}) {card} "
+        f"({pm['de']['launches']}), DE forced to loop over the rungs "
+        f"{measured(pm['de loop']['device_us'])} us and "
+        f"{measured(pm['de loop']['kernels'], '.0f')} kernels "
+        f"({pm['de loop']['launches']}) {card} "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     with path_launches(out, "adaptive", ("stretch_propose", "accept_select",
@@ -6010,6 +6039,455 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
     return out, [row]
 
 
+# -- 17. DE and DE-snooker on every rung ---------------------------------------
+#: rungs, walkers a split and ndims of K5a's and K5b's rung-axis sweep
+K5R_SWEEP_T = (2, 3, 16, 64)
+K5R_SWEEP_NG = (1, 3, 31, 128, 1000)
+K5R_SWEEP_ND = (1, 3, 5, 8, 100)
+#: phase 17's moves at workload 4's configuration
+PT17_MOVES = ("DEMove()", "DESnookerMove()", "the mixture")
+#: each move's kernels a proposal at 16 rungs (the mixture's depend on
+#: its draws of the move)
+PT17_PER = {"DEMove()": {"de_propose": 2, "accept_select": 2, "pt_swap": 1,
+                         "philox_draw": 1},
+            "DESnookerMove()": {"snooker_propose": 4, "accept_select": 4,
+                                "pt_swap": 1, "philox_draw": 1}}
+
+
+def pt17_move(label):
+    """A fresh move of ``PT17_MOVES``: the DE family of workload 3
+    (``benchmarks/workload3.py:71-77``) at the JAX package's defaults."""
+    from emcee_tpu_torch import moves
+
+    if label == "DEMove()":
+        return moves.DEMove()
+    if label == "DESnookerMove()":
+        return moves.DESnookerMove()
+    return [(moves.DEMove(), 0.8), (moves.DESnookerMove(), 0.2)]
+
+
+def pt17_expect(smp, label, n, offset):
+    """Each kernel's launches in ``n`` tempered proposals of ``smp`` from
+    Philox offset ``offset`` at 16 rungs: ``PT17_PER`` a proposal, or for
+    the mixture 2 K5a a DE proposal and 4 K5b a snooker one, in the order
+    the chain's seed draws them on the host (``driver.move_sequence``)."""
+    from emcee_tpu_torch.driver import move_sequence
+
+    if label in PT17_PER:
+        return {k: v * n for k, v in PT17_PER[label].items()}
+    seq = move_sequence(smp._weights, smp._program.seed, offset, n, 1,
+                        smp._mixture_block)
+    n_de = int((seq == 0).sum())
+    n_sn = n - n_de
+    return {"de_propose": 2 * n_de, "snooker_propose": 4 * n_sn,
+            "accept_select": 2 * n_de + 4 * n_sn, "pt_swap": n,
+            "philox_draw": n}
+
+
+def k5_rung_sweep(torch, dev):
+    """(a) K5a and K5b with the rung axis against their plain versions, bit
+    for bit (the bits compared, NaN included): rungs ``K5R_SWEEP_T``,
+    walkers a split ``K5R_SWEEP_NG``, ndim ``K5R_SWEEP_ND``; K5a at
+    nsplits 2, 3 and 4 (a complement of two rows or more), K5b at nsplits
+    4 and, in roll mode, 2; both pair modes; injected draws (a rung's roll
+    uniforms at the top of their range) with a per-rung scale, the
+    in-kernel stream at a host offset (scale unset) and at the device
+    offset word (scale per rung).  At the host offset each case also runs,
+    through ``_launch``, a ``q`` whose base is 4 bytes past a 16-byte
+    boundary, K5a's other variant (its own rows read directly where the
+    plan stages them) and K5b with one warp taking its tile's walkers in
+    turn; at 3 rungs each rung is also held against the one-ensemble launch
+    of that rung under its own key; at ndim 5 a ``coords`` base off a
+    16-byte boundary (staging dropped by the plan).  Returns the count of
+    comparisons."""
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import snooker_kernel as snk
+    from emcee_tpu_torch.ops._wrap import de_plan, device_sm_count
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(170)
+    offset = (1 << 33) + 11  # the offset's high word is set
+    word = torch.tensor(offset - 3, dtype=torch.int64, device=dev)
+    top = 1.0 - 2.0**-24
+    n_sm = device_sm_count(dev)
+    ri = dict(device=dev, generator=gen, dtype=torch.int32)
+    n = 0
+
+    def launches(mod, kind, coords, split, ns, kw, extra):
+        """``(label, (q, factor))`` of the launch paths of one case."""
+        T, nw, nd = coords.shape
+        ng = nw // ns
+        snooker = kind == "snooker"
+        out = [("wrapper", getattr(mod, f"{kind}_propose")(
+            coords, split, ns, **kw))]
+        if not extra:
+            return out
+        q_odd = misaligned(torch, torch.empty(T, ng, nd, device=dev))
+        plans = [("q base not aligned", q_odd, de_plan(
+            ng, nd, split, n_sm, coords.data_ptr(), q_odd.data_ptr(),
+            snooker=snooker, rungs=T, nsplits=ns))]
+        q = torch.empty(T, ng, nd, device=dev)
+        plan = de_plan(ng, nd, split, n_sm, coords.data_ptr(), q.data_ptr(),
+                       snooker=snooker, stage=not snooker, rungs=T,
+                       nsplits=ns)
+        if snooker:
+            plans.append(("one warp, walkers in turn", q,
+                          plan._replace(threads=32)))
+        elif plan.stage:
+            plans.append(("own rows read directly", q,
+                          plan._replace(stage=0, smem=0)))
+        for label, qb, p in plans:
+            f = torch.empty(T, ng, device=dev)
+            mod._launch(p, coords, qb, f, split, ns, **kw)
+            out.append((label, (qb, f)))
+        return out
+
+    def case(mod, kind, coords, split, ns, pair_mode, inj, base, keys,
+             scale, draws=("injected", "host offset", "device offset")):
+        nonlocal n
+        T = coords.shape[0]
+        for draw in draws:
+            kw = dict(base, pair_mode=pair_mode, seed=keys, offset=0,
+                      scale=scale)
+            if draw == "injected":
+                kw.update(inj)
+            elif draw == "host offset":
+                kw.update(offset=offset, scale=None)
+            else:
+                kw.update(offset=DeviceOffset(word, 3))
+            want = getattr(mod, f"{kind}_propose_plain")(coords, split, ns,
+                                                         **kw)
+            what = (f"K5 rung sweep, {kind}, T={T} nw={coords.shape[1]} "
+                    f"nd={coords.shape[2]} nsplits={ns} split={split} "
+                    f"{pair_mode} {draw}")
+            for label, got in launches(mod, kind, coords, split, ns, kw,
+                                       draw == "host offset"):
+                same_bits(got, want, f"{what} {label}")
+                n += 1
+            if T == 3 and draw != "device offset":
+                for r in range(T):
+                    one = {k: (v[r] if isinstance(v, torch.Tensor)
+                               and k != "seed" else v) for k, v in kw.items()}
+                    one["seed"] = keys.seeds[r]
+                    got = getattr(mod, f"{kind}_propose")(coords[r], split,
+                                                          ns, **one)
+                    same_bits(got, (want[0][r], want[1][r]),
+                              f"{what}: rung {r} against one ensemble")
+                    n += 1
+
+    def de_inj(T, ng, nc, pair_mode):
+        z = dict(z=torch.randn(T, ng, device=dev, generator=gen))
+        if pair_mode == "roll":
+            u = torch.rand(T, 2, device=dev, generator=gen)
+            u[-1] = top
+            return dict(z, u_shift=u)
+        return dict(z, idx_a=torch.randint(0, nc, (T, ng), **ri),
+                    idx_b=torch.randint(0, nc - 1, (T, ng), **ri))
+
+    def sn_inj(T, ng, pair_mode):
+        if pair_mode == "roll":
+            u = torch.rand(T, 4, device=dev, generator=gen)
+            u[-1, 1:] = top
+            return dict(u4=u)
+        return dict(idx=torch.randint(0, ng, (T, 3, ng), **ri),
+                    perm=torch.randint(0, 6, (T, ng), **ri))
+
+    for T in K5R_SWEEP_T:
+        keys = rung_keys(2000 + T, T, dev)
+        scale = 0.5 + torch.rand(T, device=dev, generator=gen)
+        for ng in K5R_SWEEP_NG:
+            for nd in K5R_SWEEP_ND:
+                de_base = dict(gamma0=dk.de_gamma0(None, nd), sigma=0.1,
+                               z=None, u_shift=None, idx_a=None, idx_b=None)
+                sn_base = dict(gammas=1.7, ndim_global=nd, u4=None,
+                               idx=None, perm=None)
+                for ns in (2, 3, 4):
+                    nw = ns * ng
+                    coords = torch.randn(T, nw, nd, device=dev,
+                                         generator=gen)
+                    split = (ng + nd + T) % ns
+                    odd = (misaligned(torch, coords)
+                           if nd == 5 and ns != 3 else None)
+                    for pair_mode in ("roll", "random"):
+                        if (ns - 1) * ng >= 2:
+                            case(dk, "de", coords, split, ns, pair_mode,
+                                 de_inj(T, ng, nw - ng, pair_mode), de_base,
+                                 keys, scale)
+                            if odd is not None:
+                                case(dk, "de", odd, split, ns, pair_mode, {},
+                                     de_base, keys, scale,
+                                     draws=("host offset",))
+                        if ns == 4 or (ns == 2 and pair_mode == "roll"):
+                            case(snk, "snooker", coords, split, ns,
+                                 pair_mode, sn_inj(T, ng, pair_mode),
+                                 sn_base, keys, scale)
+                            if odd is not None:
+                                case(snk, "snooker", odd, split, ns,
+                                     pair_mode, {}, sn_base, keys, scale,
+                                     draws=("host offset",))
+    return n
+
+
+def pt17_path(torch, np, dev, card, label, p0, n_c=16, kept=512, thin=4):
+    """(b)-(c) of phase 17 for one move at workload 4's configuration: the
+    graph chain against the plain versions' eager chain and the
+    rung-batched path against the per-rung loop, bit for bit over 64
+    proposals; both paths timed in turns (batched, loop, loop, batched):
+    host µs and device µs and kernels a proposal, the batched path's
+    launches counted by device words; then 512 kept x 4 into
+    ``PTDeviceBackend`` (the best of two timed runs) with phase 14's
+    checks, a profiled window and the replayed launches counted."""
+    from emcee_tpu_torch.backends import PTDeviceBackend
+
+    out = {}
+    ends = []
+    for plain in (False, True):
+        smp = pt_sampler(dev, seed=47, move=pt17_move(label))
+        smp._use_graphs = not plain
+        with plain_kernels() if plain else contextlib.nullcontext():
+            ends.append(pt_runs(smp, p0))
+    same_ends(np, *ends, f"{label}: graph-replayed and eager plain chains")
+    paths = {}
+    for batched in (True, False):
+        smp = pt_sampler(dev, seed=48, move=pt17_move(label))
+        smp._batched = batched
+        paths[batched] = (smp, pt_runs(smp, p0))
+        smp.run_mcmc(None, n_c, store=False)  # records the timed graph
+    same_ends(np, paths[True][1], paths[False][1],
+              f"{label}: the batched path and the per-rung loop")
+    out["swaps_64"] = paths[True][1][4].tolist()
+    host = {True: [], False: []}
+    dev_us = {True: [], False: []}
+    kernels = {True: [], False: []}
+    for batched in (True, False, False, True):
+        smp = paths[batched][0]
+        _, dt = drive(smp, None, n_c, store=False)
+        host[batched].append(dt / n_c * 1e6)
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n_c, store=False),
+                          n_c, f"{label} {'batched' if batched else 'loop'}")
+        dev_us[batched].append(win["device_us_per_proposal"])
+        kernels[batched].append(win["kernels_per_proposal"])
+    per = PT17_PER.get(label)
+    smp = paths[True][0]
+    counted, _ = counted_replays(
+        torch, dev, smp, n_c,
+        lambda r: pt17_expect(smp, label, n_c, smp._rng[1] - n_c),
+        f"{label} batched", warm=per is None, store=False)
+    out["batched_vs_loop"] = dict(
+        host_us=host, device_us=dev_us, kernels=kernels,
+        batched_launches=counted)
+    del paths
+
+    smp = pt_sampler(dev, move=pt17_move(label), backend=PTDeviceBackend())
+    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
+    warm_graphs(smp)
+    dt = float("inf")
+    for _ in range(2):  # workloads5.py:224-233: the best of two
+        smp.reset()
+        st, dt_run = drive(smp, st, kept, thin_by=thin,
+                           skip_initial_state_check=True)
+        dt = min(dt, dt_run)
+    n_prop = kept * thin
+    cold = smp.get_chain(temp=0)
+    tau = tau_of(np, cold, thin)
+    swap_mean = float(np.mean(smp.tswap_acceptance_fraction))
+    x0 = cold[..., 0]
+    mode_frac = float(np.mean(x0 > 0))
+    mean_abs, spread = float(np.mean(np.abs(x0))), float(np.std(np.abs(x0)))
+    checks = {
+        "swap acceptance mean in (0.4, 0.9)": 0.4 < swap_mean < 0.9,
+        "cold mode fraction in (0.25, 0.75)": 0.25 < mode_frac < 0.75,
+        "cold mean |x0| within 0.25 of 4": abs(mean_abs - PT_SEP) < 0.25,
+        "cold spread of |x0| within 0.2 of 1": abs(spread - 1.0) < 0.2,
+        "tau finite": bool(np.isfinite(tau)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 17: {label}: workload 4 checks "
+                             f"{checks} (swap {swap_mean}, mode {mode_frac},"
+                             f" |x0| {mean_abs} +- {spread}, tau {tau})")
+    n_prof = 256
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n_prof, store=False),
+                      n_prof, f"{label} at workload 4", names=per)
+    res = dict(walker_steps_per_s=NT4 * NW4 * n_prop / dt, seconds=dt,
+               tau_cold=tau, ess_per_s_cold=NW4 * (n_prop / dt) / tau,
+               tau_reliable=bool(n_prop / tau >= 30.0),
+               swap_acceptance_mean=swap_mean, cold_mode_fraction=mode_frac,
+               cold_mean_abs_x0=mean_abs, cold_spread_abs_x0=spread,
+               cold_acceptance=float(smp.acceptance_fraction[0].mean()),
+               win=win)
+    n_kept = 16
+    res["replayed_launches"], res["profiled_replayed"] = counted_replays(
+        torch, dev, smp, n_kept,
+        lambda r: pt17_expect(smp, label, n_kept * thin,
+                              smp._rng[1] - n_kept * thin),
+        f"{label} at workload 4", warm=per is None, thin_by=thin,
+        store=False)
+    res["proposals_counted"] = n_kept * thin
+    out["workload4"] = res
+    return out
+
+
+def phase17(torch, np, dev, card):
+    """DE and DE-snooker on every rung (see the module docstring, 17): the
+    sweep of K5a and K5b with the rung axis, then ``DEMove()``,
+    ``DESnookerMove()`` and their mixture at workload 4's configuration,
+    each path's kernel launches counted from 0 just before it, and the
+    rows of K5a and K5b with the rung axis.  Returns its numbers and the
+    rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k5_rung_sweep(torch, dev)
+    log(f"phase 17: (a) K5a and K5b with the rung axis against their plain "
+        f"versions (rungs {K5R_SWEEP_T}, walkers a split {K5R_SWEEP_NG}, "
+        f"ndim {K5R_SWEEP_ND}, nsplits 2-4, both pair modes, injected / "
+        f"host offset / device offset draws, scale per rung, q and coords "
+        f"bases off 16 bytes, K5a direct and staged, K5b one warp for a "
+        f"tile, each rung at 3 rungs against the one-ensemble launch): "
+        f"{out['sweep']} comparisons, all bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    p0 = pt_p0(np)
+    kernels_of = {"DEMove()": ("de_propose",),
+                  "DESnookerMove()": ("snooker_propose",),
+                  "the mixture": ("de_propose", "snooker_propose")}
+    for label in PT17_MOVES:
+        t0 = time.perf_counter()
+        with path_launches(out, label, kernels_of[label] + (
+                "accept_select", "pt_swap", "philox_draw"), "phase 17"):
+            r = out[label] = pt17_path(torch, np, dev, card, label, p0)
+        bl, w4 = r["batched_vs_loop"], r["workload4"]
+        log(f"phase 17: (b) {label} at {NT4} x {NW4} x {ND4}: 64 "
+            f"graph-replayed proposals equal the plain versions' eager chain "
+            f"and the batched path equals the per-rung loop, bit for bit "
+            f"(chain, logL, logP, acceptance, swaps {r['swaps_64']}, offset)")
+        log(f"phase 17: (c) {label} in turns (batched, loop, loop, batched), "
+            f"a proposal: host {[round(x, 1) for x in bl['host_us'][True]]} / "
+            f"{[round(x, 1) for x in bl['host_us'][False]]} us, device "
+            f"{[measured(x) for x in bl['device_us'][True]]} / "
+            f"{[measured(x) for x in bl['device_us'][False]]} us, kernels "
+            f"{[measured(x, '.0f') for x in bl['kernels'][True]]} / "
+            f"{[measured(x, '.0f') for x in bl['kernels'][False]]} (batched "
+            f"/ loop); batched launches in 16 proposals "
+            f"{ {k: v for k, v in bl['batched_launches'].items() if v} } "
+            f"{card}")
+        win = w4["win"]
+        log(f"phase 17: (d) {label}, workload 4's configuration, "
+            f"PTDeviceBackend, 512 kept x 4: {w4['walker_steps_per_s']:.4e} "
+            f"walker-steps/s over all rungs (best of two), cold tau "
+            f"{w4['tau_cold']:.2f} proposals, cold ESS/s "
+            f"{w4['ess_per_s_cold']:.4e}, tau_reliable {w4['tau_reliable']}, "
+            f"swap acceptance mean {w4['swap_acceptance_mean']:.3f}, cold "
+            f"mode fraction {w4['cold_mode_fraction']:.3f}, cold mean |x0| "
+            f"{w4['cold_mean_abs_x0']:.3f} (spread "
+            f"{w4['cold_spread_abs_x0']:.3f}), cold acceptance "
+            f"{w4['cold_acceptance']:.3f}; profiled 256 proposals: device "
+            f"{measured(win['device_us_per_proposal'])} us and "
+            f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+            f"proposal, idle share {measured(win['idle'], '.4f')}"
+            + "; " + replay_counts(w4["replayed_launches"],
+                                   w4["profiled_replayed"],
+                                   w4["proposals_counted"])
+            + f" {card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 17: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase17_rows(torch, dev, out, card)
+
+
+def phase17_rows(torch, dev, out, card):
+    """(e) The rows of K5a and K5b with the rung axis at workload 4's
+    shape: device time a launch in the path's replays (``DEMove()``'s and
+    ``DESnookerMove()``'s, profiler), a back-to-back call's and the plain
+    version's (CUDA events), registers and waves, and the least time the
+    card could take (bytes, and the instructions the function needs)."""
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import snooker_kernel as snk
+    from emcee_tpu_torch.ops._wrap import de_plan, device_sm_count
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    T, nw, nd = NT4, NW4, ND4
+    gen = torch.Generator(device=dev).manual_seed(171)
+    coords = PT_SEP * torch.randn(T, nw, nd, device=dev, generator=gen)
+    keys = rung_keys(4, T, dev)
+    n_sm = device_sm_count(dev)
+    k5a = dict(gamma0=dk.de_gamma0(None, nd), sigma=1e-5, pair_mode="random",
+               seed=keys, offset=5)
+    k5b = dict(gammas=1.7, ndim_global=nd, pair_mode="random", seed=keys,
+               offset=5)
+    # (path, wrapper, module, kw, nsplits, label of the instantiation, the
+    # instructions a walker needs: K5a a Philox block for its normal and
+    # one for its pair, the stored normal, 3 a coordinate; K5b a Philox
+    # block for its picks and ~10 a coordinate and 20 more)
+    spec = {
+        "de_propose": ("DEMove()", dk, k5a, 2, "de_propose.cu",
+                       "emcee_tpu/moves/de.py:45-85 (vmapped by "
+                       "emcee_tpu/parallel/tempering.py:538)",
+                       "de_propose_kernel<false, true, true>",
+                       2 * PHILOX_INSTR + NORMAL_INSTR + 3 * nd),
+        "snooker_propose": ("DESnookerMove()", snk, k5b, 4,
+                            "snooker_propose.cu",
+                            "emcee_tpu/moves/de_snooker.py:78-139 "
+                            "(vmapped by emcee_tpu/parallel/tempering.py:538)",
+                            "snooker_propose_kernel<false, true, true>",
+                            PHILOX_INSTR + 10 * nd + 20),
+    }
+    rows = []
+    for kname, (path, mod, kw, ns, src, jax_src, label, instr) in (
+            spec.items()):
+        ng = nw // ns
+        wrapper = getattr(mod, kname)
+        plain = getattr(mod, f"{kname}_plain")
+        call_ms = cuda_ms(torch, lambda: wrapper(coords, 0, ns, **kw))
+        plain_ms = cuda_ms(torch, lambda: plain(coords, 0, ns, **kw), reps=20)
+        q = torch.empty(T, ng, nd, device=dev)
+        plan = de_plan(ng, nd, 0, n_sm, coords.data_ptr(), q.data_ptr(),
+                       snooker=kname == "snooker_propose",
+                       stage=kname == "de_propose", rungs=T, nsplits=ns)
+        # Each input read once, each output written once: every rung's
+        # ensemble (its own rows and its partners'), q and the factor.
+        nbytes = 4 * T * (nw * nd + ng * nd + ng)
+        nops = T * ng * instr
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / ISSUE_PER_S * 1e3}
+        by = max(t, key=t.get)
+        regs = PTXAS.get(label)
+        blocks = plan.grid * T
+        waves = (blocks / (n_sm * resident_blocks(regs[0], plan.threads,
+                                                  plan.smem + regs[1]))
+                 if regs else None)
+        w4 = out[path]["workload4"]
+        ms = w4["win"]["ms_per_launch"][kname]
+        launches = w4["replayed_launches"][kname]
+        bvl = out[path]["batched_vs_loop"]
+        name = f"{kname} (rung axis)"
+        row = {"name": name, "route": "cuda",
+               "source": f"emcee_tpu_torch/csrc/{src}", "replaces": jax_src,
+               "launches": launches, "max_abs_err": 0.0, "ms": ms,
+               "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": t[by],
+               "bound_by": by, "library_ms": None, "ptxas": regs,
+               "plan": plan._asdict(), "blocks": blocks, "waves": waves,
+               "launches_per_proposal": launches / w4["proposals_counted"],
+               "wrapper_launches": out["launches"][path][kname],
+               "path_device_us_batched_loop": (bvl["device_us"][True],
+                                               bvl["device_us"][False]),
+               "path_kernels_batched_loop": (bvl["kernels"][True],
+                                             bvl["kernels"][False]),
+               "note": f"{name} at workload 4's shape ({T} x {nw} x {nd}, "
+                       f"{ns} splits, random pairs): ms in {path}'s replays "
+                       "(profiler); launches counted on the card in "
+                       f"{w4['proposals_counted']} replayed proposals; "
+                       "max_abs_err: bit for bit over phase 17's sweep; "
+                       "bound: every rung's ensemble, q and the factor, "
+                       "and the instructions a walker needs; library_ms: "
+                       "none, no single PyTorch call computes it"}
+        rows.append(row)
+        log(f"phase 17: (e) {name}: device {ms * 1e3:.2f} us/launch in the "
+            f"{path} replays, {call_ms * 1e3:.2f} us per back-to-back call, "
+            f"plain {plain_ms * 1e3:.2f} us, bound {t[by] * 1e3:.3f} us "
+            f"({nbytes} bytes, {by}); plan {tuple(plan)}, {regs} (registers,"
+            f" static shared, spilled), {blocks} blocks, "
+            f"{measured(waves, '.3f')} waves {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -6153,15 +6631,17 @@ def sass_functions(lib):
 
 
 def sass_diff(tree) -> int:
-    """Build ``tree``'s and this checkout's K1, K2 and K15 sources with the
-    build's flags into ``build/sass`` and compare the SASS of every kernel
-    function that both hold (K15's blob-free kernel gained the template
-    parameter ``NoLeaves``, which the comparison drops from its name; K2's
-    tiled kernel lost its rung parameter, so a tree's one-ensemble
-    ``accept_select_kernel<..., false>`` is compared with this checkout's
-    ``accept_select_kernel<...>``).  Prints each function's verdict;
-    returns 1 when a one-ensemble instantiation of K1 or K2 differs, else
-    0."""
+    """Build ``tree``'s and this checkout's K1, K2, K5a, K5b and K15
+    sources with the build's flags into ``build/sass`` and compare the
+    SASS of every kernel function that both hold (K15's blob-free kernel
+    gained the template parameter ``NoLeaves``, which the comparison drops
+    from its name; K2's tiled kernel lost its rung parameter, so a tree's
+    one-ensemble ``accept_select_kernel<..., false>`` is compared with this
+    checkout's ``accept_select_kernel<...>``; K5a and K5b gained one, so a
+    tree's ``de_propose_kernel<a, b>`` is compared with this checkout's
+    ``de_propose_kernel<a, b, false>``).  Prints each function's verdict;
+    returns 1 when a one-ensemble instantiation of K1, K2, K5a or K5b
+    differs, else 0."""
     import re
 
     from emcee_tpu_torch.ops import _build
@@ -6171,7 +6651,9 @@ def sass_diff(tree) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     bad = []
-    for src in ("stretch_propose.cu", "accept_select.cu", "pt_swap.cu"):
+    gained = ("de_propose_kernel", "snooker_propose_kernel")
+    for src in ("stretch_propose.cu", "accept_select.cu", "pt_swap.cu",
+                "de_propose.cu", "snooker_propose.cu"):
         sass = {}
         for label, root in (("parent", tree), ("change", here)):
             lib = out_dir / f"{label}-{src}.so"
@@ -6180,14 +6662,20 @@ def sass_diff(tree) -> int:
                            check=True, capture_output=True, timeout=600)
             sass[label] = {k.replace("<NoLeaves>", ""): v
                            for k, v in sass_functions(lib).items()}
+        mapped = set()
         for fn in sorted(sass["parent"]):
             one = fn.endswith(", false>") and fn.startswith((
-                "stretch_propose_kernel", "accept_select_kernel"))
+                "stretch_propose_kernel", "accept_select_kernel") + gained)
             mine = fn
             if fn.startswith("accept_select_kernel") and not any(
                     k.startswith("accept_select_kernel") and
                     k.endswith(", false>") for k in sass["change"]):
                 mine = re.sub(r", false>$", ">", fn)
+            if fn.startswith(gained) and fn not in sass["change"]:
+                # A tree before the rung axis: every instantiation is one
+                # ensemble's.
+                mine, one = fn[:-1] + ", false>", True
+            mapped.add(mine)
             same = sass["change"].get(mine) == sass["parent"][fn]
             where = ("missing in the change" if mine not in sass["change"]
                      else "equal" if same else "differs")
@@ -6197,10 +6685,11 @@ def sass_diff(tree) -> int:
                 bad.append(fn)
         for fn in sorted(set(sass["change"]) - set(sass["parent"])):
             if not (fn.startswith("accept_select_kernel")
-                    and fn[:-1] + ", false>" in sass["parent"]):
+                    and fn[:-1] + ", false>" in sass["parent"]
+                    or fn in mapped):
                 log(f"sass-diff: {src}: {fn}: new in the change")
-    log(f"sass-diff: one-ensemble K1 / K2 instantiations that differ from "
-        f"{tree}'s: {bad or 'none'}")
+    log(f"sass-diff: one-ensemble K1 / K2 / K5a / K5b instantiations that "
+        f"differ from {tree}'s: {bad or 'none'}")
     return 1 if bad else 0
 
 
@@ -6282,15 +6771,16 @@ def main() -> int:
             log(f"  ptxas {k}: {fn}: {regs} registers, {smem} bytes static "
                 f"shared memory, {spill} bytes spilled")
 
-    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"]):
-        # Phase 11, 12, 13, 14, 15 or 16 alone (a first check of the
-        # blobs, the extension moves, the gradient moves, tempering or
-        # K14).
+    if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
+                        ["17"]):
+        # Phase 11, 12, 13, 14, 15, 16 or 17 alone (a first check of the
+        # blobs, the extension moves, the gradient moves, tempering, K14
+        # or the DE family on every rung).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
                  "14": phase14, "15": phase15,
-                 "16": phase16}[sys.argv[1]]
+                 "16": phase16, "17": phase17}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -6879,6 +7369,12 @@ def main() -> int:
     p16, rows16 = phase16(torch, np, dev, card, p12, p14)
     rows += rows16
     log(f"phase 16: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 17. DE and DE-snooker on every rung ---------------------------------
+    t0 = time.perf_counter()
+    _, rows17 = phase17(torch, np, dev, card)
+    rows += rows17
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

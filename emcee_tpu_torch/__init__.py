@@ -13,9 +13,10 @@ too.  The Gaussian, Metropolis-Hastings, walk and KDE moves, the
 autocorrelation and R-hat diagnostics and the convergence monitor are
 plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinates, into the
 host, device and HDF5 backends; ``checkpoint`` saves and loads states.
-``PTSampler`` runs a tempered ladder: the stretch move proposes every
-rung at once through K1 and K2's rung axis, other moves (mixtures,
-``mixture_block``, the looped slice and ChEES moves) rung by rung, the
+``PTSampler`` runs a tempered ladder: the stretch, DE and DE-snooker
+moves propose every rung at once through the rung axis of K1, K5a, K5b
+and K2 (in mixtures too, ``mixture_block`` included), other moves (the
+looped slice and ChEES moves among them) rung by rung, the
 even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
 with them, the ladder may adapt, and the chain goes into the host
 ``PTBackend``, the device ``PTDeviceBackend`` or ``PTHDFBackend``.

@@ -65,13 +65,14 @@ graphs read, so a new ladder needs no new recording), the swap counts
 and the per-rung carries (each carry tensor with a leading ``T`` axis).
 A proposal is the move step on every rung, then the even/odd swap (K15),
 which reads its parity and whether to swap from the offset word.  The
-move step is one rung-batched proposal (K1 and K2 over all rungs, the
-log-prob once over ``T * ng`` rows) for a ``rung_batched`` move, or
-else, and under the private ``batched=False`` switch, a loop over the
-rungs, each rung an ensemble of its own (its views of the buffers, its
-tempered model, its carry and its key).  Each move of a mixture takes its
-own way, so a chunk's runs of the stretch move propose every rung at once
-and its runs of DE loop over the rungs.  The user blobs of the likelihood
+move step is one rung-batched proposal (K1, K5a or K5b and K2 over all
+rungs, the log-prob once over ``T * ng`` rows) for a ``rung_batched``
+move (the stretch, DE and DE-snooker moves), or else, and under the
+private ``batched=False`` switch, a loop over the rungs, each rung an
+ensemble of its own (its views of the buffers, its tempered model, its
+carry and its key).  Each move of a mixture takes its own way, so a
+chunk's runs of the stretch or DE moves propose every rung at once and
+its runs of, say, the walk move loop over the rungs.  The user blobs of the likelihood
 ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
 and ``logP`` (the tempered model's blobs are ``(logL, logP, user
 blobs)``): K2 selects them with the rows and K15 exchanges them with the

@@ -70,6 +70,22 @@
 //     directly in phase B in every turn (chip_smoke.py phase 6, PERF.md).
 //     The direct variant serves the rest.
 //
+// The rung axis (parallel tempering, emcee_tpu/parallel/tempering.py:
+// 532-541, which vmaps the move over the ladder's rungs), as K1 has it
+// (csrc/stretch_propose.cu): with T rungs the ensemble buffer is (T, nw,
+// nd), q (T, ng, nd) and factor (T, ng); the grid's second dimension is
+// the rung, so one launch serves every rung, a block works on one rung's
+// tile, and rung r's complement is rung r's other rows only.  Rung r
+// draws under its own key, keys[r] (a device table of T 64-bit keys,
+// ops/philox.py rung_seed), at the counters of the one-ensemble kernel,
+// so each rung equals the same rung proposed alone; it reads its own
+// tuned scale[r] and, injected, its own z / idx_a / idx_b rows and its
+// two u_shift uniforms.  The axis is a template parameter (kRungs): a
+// single-ensemble launch runs the instantiation without it, whose code is
+// the kernel of before (its parameters come last, so the others keep
+// their offsets).  Staging on the rung axis takes every rung's own rows
+// 16-byte aligned (ops/_wrap.py de_plan).
+//
 // Arithmetic uses the _rn intrinsics so that nvcc cannot contract a
 // multiply and an add into an FMA: every rounding matches the plain
 // PyTorch version (ops/de_kernel.py), bit for bit; logf and cosf are the
@@ -117,7 +133,7 @@ __device__ __forceinline__ void partner_rows(int w, int pair_mode,
   rb = complement_row(b, lo, ng);
 }
 
-template <bool kVec, bool kStage>
+template <bool kVec, bool kStage, bool kRungs>
 __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
     const float* __restrict__ coords, float* __restrict__ q,
     float* __restrict__ factor, int ng, int nd, int split, int nc, int tile,
@@ -125,13 +141,34 @@ __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
     float sigma, const float* __restrict__ z_in,
     const float* __restrict__ u_shift, const int* __restrict__ idx_a,
     const int* __restrict__ idx_b, uint32_t k0, uint32_t k1,
-    const long long* __restrict__ offset_dev, unsigned long long offset_inc) {
+    const long long* __restrict__ offset_dev, unsigned long long offset_inc,
+    const long long* __restrict__ keys) {
   __shared__ float s_gamma[kTileMax];
   __shared__ int s_ra[kTileMax];  // random mode: the partner rows
   __shared__ int s_rb[kTileMax];
   __shared__ int s_shift[2];      // roll mode: s1, s2
   __shared__ uint64_t s_bar;
   extern __shared__ float4 s_own4[];  // kStage: the tile's s span
+
+  if constexpr (kRungs) {
+    // The rung of this block: its rows, outputs, draws, scale and key.
+    const int rung = blockIdx.y;
+    coords += static_cast<int64_t>(rung) * (nc + ng) * nd;
+    q += static_cast<int64_t>(rung) * ng * nd;
+    factor += static_cast<int64_t>(rung) * ng;
+    if (z_in != nullptr) z_in += static_cast<int64_t>(rung) * ng;
+    if (u_shift != nullptr) u_shift += 2 * rung;
+    if (idx_a != nullptr) {
+      idx_a += static_cast<int64_t>(rung) * ng;
+      idx_b += static_cast<int64_t>(rung) * ng;
+    }
+    if (scale != nullptr) scale += rung;
+    if (keys != nullptr) {
+      const auto key = static_cast<unsigned long long>(keys[rung]);
+      k0 = static_cast<uint32_t>(key);
+      k1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
 
   const int t = threadIdx.x;
   const int spare = blockDim.x - 32;  // first lane of the last warp
@@ -256,24 +293,35 @@ __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
 // is null).  tile, grid, threads, vec, stage and smem are the launch plan
 // of ops/_wrap.py de_plan: threads >= 32 * ceil(tile / 32) + 32; vec != 0
 // promises ndim % 4 == 0 and 16-byte aligned coords and q; stage != 0
-// that every tile's span of own rows is 16-byte aligned, and smem is its
-// dynamic shared memory (4 * tile * nd when staged, else 0).
+// that every tile's span of own rows is 16-byte aligned, in every rung,
+// and smem is its dynamic shared memory (4 * tile * nd when staged, else
+// 0).  ntemps rungs of nsplits * ng walkers lie one after the other in
+// coords (ntemps = 1: one ensemble), with z, idx_a and idx_b (ntemps, ng)
+// and u_shift (ntemps, 2); keys == nullptr draws every rung under seed,
+// else rung r under keys[r] (a device table of ntemps keys).
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_de_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float gamma0, const float* scale,
     float sigma, const float* z, const float* u_shift, const int* idx_a,
     const int* idx_b, int tile, int grid, int threads, int vec, int stage,
-    int smem, unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, void* stream) {
+    int smem, int ntemps, const long long* keys, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset, void* stream) {
   const int nc = (nsplits - 1) * ng;
-  auto kernel = vec ? (stage ? de_propose_kernel<true, true>
-                             : de_propose_kernel<true, false>)
-                    : (stage ? de_propose_kernel<false, true>
-                             : de_propose_kernel<false, false>);
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const bool rungs = ntemps > 1 || keys != nullptr;
+  auto kernel =
+      vec ? (stage ? (rungs ? de_propose_kernel<true, true, true>
+                            : de_propose_kernel<true, true, false>)
+                   : (rungs ? de_propose_kernel<true, false, true>
+                            : de_propose_kernel<true, false, false>))
+          : (stage ? (rungs ? de_propose_kernel<false, true, true>
+                            : de_propose_kernel<false, true, false>)
+                   : (rungs ? de_propose_kernel<false, false, true>
+                            : de_propose_kernel<false, false, false>));
+  kernel<<<dim3(grid, ntemps), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nc, tile, pair_mode, gamma0, scale,
       sigma, z, u_shift, idx_a, idx_b, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset, keys);
   return static_cast<int>(cudaGetLastError());
 }

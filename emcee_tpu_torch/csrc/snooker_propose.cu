@@ -68,6 +68,19 @@
 //     every row is 16-byte aligned and a chunk is one float4; otherwise a
 //     chunk is four scalar loads, the last one padded.
 //
+// The rung axis (parallel tempering, emcee_tpu/parallel/tempering.py:
+// 532-541, which vmaps the move over the ladder's rungs), as K1 and K5a
+// have it: with T rungs the ensemble buffer is (T, nw, nd), q (T, ng, nd)
+// and factor (T, ng); the grid's second dimension is the rung, a block
+// works on one rung's tile, and rung r's groups are rung r's rows only.
+// Rung r draws under its own key, keys[r] (a device table of T 64-bit
+// keys, ops/philox.py rung_seed), at the counters of the one-ensemble
+// kernel, so each rung equals the same rung proposed alone; it reads its
+// own tuned scale[r] and, injected, its own four roll uniforms or its
+// own idx (3, ng) and perm (ng,) rows.  The axis is a template parameter
+// (kRungs): a single-ensemble launch runs the instantiation without it,
+// whose code is the kernel of before (its parameters come last).
+//
 // The sum order is fixed and depends on ndim alone: lane l owns the
 // 4-float chunks l, l+32, l+64, ... of the row (the last may be partial,
 // its missing terms +0.0); a chunk sums as ((a+b)+c)+d; a lane adds its
@@ -211,7 +224,7 @@ __device__ __forceinline__ float4 update(float4 s, float4 u, float gp) {
                      __fadd_rn(s.w, __fmul_rn(u.w, gp)));
 }
 
-template <bool kVec, bool kOneChunk>
+template <bool kVec, bool kOneChunk, bool kRungs>
 __global__ void __launch_bounds__(kThreadsMax) snooker_propose_kernel(
     const float* __restrict__ coords, float* __restrict__ q,
     float* __restrict__ factor, int ng, int nd, int split, int nsplits,
@@ -219,10 +232,29 @@ __global__ void __launch_bounds__(kThreadsMax) snooker_propose_kernel(
     float ndim_m1, const float* __restrict__ u4,
     const int* __restrict__ idx, const int* __restrict__ perm, uint32_t k0,
     uint32_t k1, const long long* __restrict__ offset_dev,
-    unsigned long long offset_inc) {
+    unsigned long long offset_inc, const long long* __restrict__ keys) {
   __shared__ int s_rows[3][kTileMax];  // random mode: rows of z, z1, z2
   __shared__ int s_base[3];            // roll mode: the roles' group bases
   __shared__ int s_sh[3];              //   and shifts
+
+  if constexpr (kRungs) {
+    // The rung of this block: its rows, outputs, draws, scale and key.
+    const int rung = blockIdx.y;
+    coords += static_cast<int64_t>(rung) * nsplits * ng * nd;
+    q += static_cast<int64_t>(rung) * ng * nd;
+    factor += static_cast<int64_t>(rung) * ng;
+    if (u4 != nullptr) u4 += 4 * rung;
+    if (idx != nullptr) {
+      idx += static_cast<int64_t>(rung) * 3 * ng;
+      perm += static_cast<int64_t>(rung) * ng;
+    }
+    if (scale != nullptr) scale += rung;
+    if (keys != nullptr) {
+      const auto key = static_cast<unsigned long long>(keys[rung]);
+      k0 = static_cast<uint32_t>(key);
+      k1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
 
   const int t = threadIdx.x;
   const int t0 = blockIdx.x * tile;
@@ -375,22 +407,34 @@ __global__ void __launch_bounds__(kThreadsMax) snooker_propose_kernel(
 // scale == nullptr means untuned.  tile, grid, threads and vec are the
 // launch plan of ops/_wrap.py de_plan (threads a multiple of 32, tile <=
 // 16); vec != 0 promises ndim % 4 == 0 and 16-byte aligned coords and q.
+// ntemps rungs of nsplits * ng walkers lie one after the other in coords
+// (ntemps = 1: one ensemble), with u4 (ntemps, 4), idx (ntemps, 3, ng)
+// and perm (ntemps, ng); keys == nullptr draws every rung under seed,
+// else rung r under keys[r] (a device table of ntemps keys).
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_snooker_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
     int nsplits, int pair_mode, float gammas, const float* scale,
     float ndim_m1, const float* u4, const int* idx, const int* perm,
-    int tile, int grid, int threads, int vec, unsigned long long seed,
+    int tile, int grid, int threads, int vec, int ntemps,
+    const long long* keys, unsigned long long seed,
     const long long* offset_dev, unsigned long long offset, void* stream) {
   // A row of at most 128 floats is one chunk per lane, held in registers.
   const bool one = nd <= 128;
-  auto kernel = vec ? (one ? snooker_propose_kernel<true, true>
-                           : snooker_propose_kernel<true, false>)
-                    : (one ? snooker_propose_kernel<false, true>
-                           : snooker_propose_kernel<false, false>);
-  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool rungs = ntemps > 1 || keys != nullptr;
+  auto kernel =
+      vec ? (one ? (rungs ? snooker_propose_kernel<true, true, true>
+                          : snooker_propose_kernel<true, true, false>)
+                 : (rungs ? snooker_propose_kernel<true, false, true>
+                          : snooker_propose_kernel<true, false, false>))
+          : (one ? (rungs ? snooker_propose_kernel<false, true, true>
+                          : snooker_propose_kernel<false, true, false>)
+                 : (rungs ? snooker_propose_kernel<false, false, true>
+                          : snooker_propose_kernel<false, false, false>));
+  kernel<<<dim3(grid, ntemps), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nsplits, tile, pair_mode, gammas,
       scale, ndim_m1, u4, idx, perm, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset, keys);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,9 @@ modes run through K5a (``ops/de_kernel.py``):
 * ``pair_mode="roll"``: ``c[(i + s2) % nc] - c[(i + s1) % nc]`` under two
   distinct random shifts per split, independent of the chain state, so
   detailed balance holds.
+
+K5a's rung axis lets :meth:`~.red_blue.RedBlueMove.propose_rungs` propose
+every rung of a tempered ladder in one launch a split.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class DEMove(RedBlueMove):
     """
 
     tunable = True
+    rung_batched = True
 
     def __init__(self, sigma=1.0e-5, gamma0=None, pair_mode="random",
                  **kwargs):
@@ -46,12 +50,14 @@ class DEMove(RedBlueMove):
                      scale=None):
         """K5a for group ``split``.  ``extra`` injects the draws as a dict
         of :func:`~..ops.de_kernel.de_propose` keywords: ``z`` and
-        ``u_shift`` (roll) or ``z``, ``idx_a`` and ``idx_b`` (random)."""
+        ``u_shift`` (roll) or ``z``, ``idx_a`` and ``idx_b`` (random); on
+        the rung axis (``coords`` ``(T, nwalkers, ndim)``, ``rng``'s seed
+        a :class:`~..ops.philox.RungKeys`) one row of each per rung."""
         seed, offset = rng
         return de_kernel.de_propose(
             coords, split, self.nsplits,
             gamma0=de_kernel.de_gamma0(
-                self.gamma0, model.global_ndim(coords.shape[1])),
+                self.gamma0, model.global_ndim(coords.shape[-1])),
             sigma=self.sigma, scale=scale, pair_mode=self.pair_mode,
             seed=seed, offset=offset, **(extra or {}),
         )

@@ -14,6 +14,9 @@ K5b (``ops/snooker_kernel.py``):
   random shift per pick and split, and one role permutation per split;
   with ``nsplits=2`` the three picks are three shifts of the one
   complement and keep their order.
+
+K5b's rung axis lets :meth:`~.red_blue.RedBlueMove.propose_rungs` propose
+every rung of a tempered ladder in one launch a split.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class DESnookerMove(RedBlueMove):
     """
 
     tunable = True
+    rung_batched = True
 
     def __init__(self, gammas=1.7, pair_mode="random", **kwargs):
         self.gammas = float(gammas)
@@ -54,7 +58,9 @@ class DESnookerMove(RedBlueMove):
                      scale=None):
         """K5b for group ``split``.  ``extra`` injects the draws: the
         ``(4,)`` roll uniforms (the JAX package's layout) in roll mode, a
-        dict with ``idx`` and ``perm`` in random mode."""
+        dict with ``idx`` and ``perm`` in random mode; on the rung axis
+        (``coords`` ``(T, nwalkers, ndim)``, ``rng``'s seed a
+        :class:`~..ops.philox.RungKeys`) one row of them per rung."""
         if extra is None:
             extra = {}
         elif self.pair_mode == "roll":
@@ -62,6 +68,6 @@ class DESnookerMove(RedBlueMove):
         seed, offset = rng
         return snooker_kernel.snooker_propose(
             coords, split, self.nsplits, gammas=self.gammas, scale=scale,
-            ndim_global=model.global_ndim(coords.shape[1]),
+            ndim_global=model.global_ndim(coords.shape[-1]),
             pair_mode=self.pair_mode, seed=seed, offset=offset, **extra,
         )

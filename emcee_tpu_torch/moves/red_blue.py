@@ -31,12 +31,14 @@ writes the same storage at every replay.
 
 The rung axis (parallel tempering, ``emcee_tpu/parallel/tempering.py:
 476-541``, which vmaps one move over the ladder): a move that sets
-``rung_batched`` (the stretch move) proposes every rung of a ladder at
-once with :meth:`RedBlueMove.propose_rungs`.  The state's buffers are then
-``(T, nwalkers, ...)``, ``rng`` is ``(keys, offset)`` with ``keys`` the
-rungs' :class:`~..ops.philox.RungKeys`, and the model evaluates the
-``(T, ng, ndim)`` proposals of every rung in one call.  Each split runs
-K1 and K2 once for all rungs; the shuffled split draws one permutation
+``rung_batched`` (the stretch, DE and DE-snooker moves) proposes every
+rung of a ladder at once with :meth:`RedBlueMove.propose_rungs`.  The
+state's buffers are then ``(T, nwalkers, ...)``, ``rng`` is ``(keys,
+offset)`` with ``keys`` the rungs' :class:`~..ops.philox.RungKeys`, and
+the model evaluates the ``(T, ng, ndim)`` proposals of every rung in one
+call.  Each split runs the move's proposal kernel (K1, K5a or K5b) and K2
+once for all rungs, and a tuned move's scale is ``(T,)``, each rung's
+from its own carry; the shuffled split draws one permutation
 per rung (a stable argsort along the walker axis of each rung's Philox
 word 3, under its own key), gathers with the flat indices ``r * nwalkers
 + perm``, and scatters back.  Rung ``r`` ends exactly as :meth:`propose`

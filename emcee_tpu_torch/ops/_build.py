@@ -91,6 +91,7 @@ _ARGTYPES = {
         ctypes.c_float, _P, ctypes.c_float,  # gamma0, scale, sigma
         _P, _P, _P, _P,  # z, u_shift, idx_a, idx_b
         *[ctypes.c_int] * 6,  # plan: tile grid threads vec stage smem
+        ctypes.c_int, _P,  # ntemps, the rungs' key table
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
@@ -101,6 +102,7 @@ _ARGTYPES = {
         ctypes.c_float, _P, ctypes.c_float,  # gammas, scale, ndim_global - 1
         _P, _P, _P,  # u4, idx, perm
         *[ctypes.c_int] * 4,  # plan: tile grid threads vec
+        ctypes.c_int, _P,  # ntemps, the rungs' key table
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],

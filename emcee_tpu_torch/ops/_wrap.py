@@ -96,7 +96,7 @@ def check_rows(coords, split, nsplits, min_splits=2, rungs=False):
     so two splits or more; K2 needs none and takes ``min_splits=1`` (the
     whole ensemble as one split, as ``MHMove`` proposes it).  With
     ``rungs`` the buffer may also be ``(T, nwalkers, ndim)`` (the rung
-    axis of K1 and K2)."""
+    axis of K1, K2, K5a and K5b)."""
     if coords.dim() == 3 and rungs:
         if coords.shape[0] < 1 or coords.shape[0] >= 65536:
             raise ValueError("the rung axis holds 1 to 65535 rungs")
@@ -240,7 +240,7 @@ class DEPlan(NamedTuple):
 
 
 def de_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, snooker=False,
-            stage=False):
+            stage=False, rungs=1, nsplits=1):
     """The launch plan of K5a (or K5b, ``snooker``) for block ``split`` of
     ``ng`` walkers of ``nd`` floats on a card of ``n_sm`` SMs, with
     ``coords`` and ``q`` at byte addresses ``coords_ptr`` and ``q_ptr``.
@@ -260,17 +260,25 @@ def de_plan(ng, nd, split, n_sm, coords_ptr, q_ptr, snooker=False,
     base and ``split*ng*nd % 4 == 0`` (``tile*nd`` is a multiple of 4),
     and a span that fits beside the static arrays under ``SMEM_LIMIT``
     (the tile is halved until it does; staging is dropped where even
-    ``TILE_MIN`` rows do not fit)."""
+    ``TILE_MIN`` rows do not fit).
+
+    With ``rungs`` > 1 (the rung axis: ``rungs`` ensembles of ``nsplits *
+    ng`` walkers one after the other in ``coords``) the grid's blocks of
+    every rung count toward filling the card, and ``stage`` also needs
+    every rung's own rows aligned: ``nsplits * ng * nd`` a multiple of 4
+    (``vec``'s ``ndim % 4 == 0`` already aligns every rung)."""
     cap = SNOOKER_TILE_MAX if snooker else TILE_MAX
     stage = (stage and not snooker and coords_ptr % 16 == 0
-             and split * ng * nd % 4 == 0)
+             and split * ng * nd % 4 == 0
+             and (rungs == 1 or nsplits * ng * nd % 4 == 0))
     if stage:
         fit = (SMEM_LIMIT - STATIC_SMEM) // (4 * nd)
         stage = fit >= TILE_MIN
         while stage and cap > fit:
             cap //= 2
     tile = cap
-    while tile > TILE_MIN and -(-ng // tile) < K5_BLOCKS_PER_SM * n_sm:
+    while (tile > TILE_MIN
+           and rungs * -(-ng // tile) < K5_BLOCKS_PER_SM * n_sm):
         tile //= 2
     threads = (32 * tile if snooker
                else max(DE_THREADS, 32 * -(-tile // 32) + 32))

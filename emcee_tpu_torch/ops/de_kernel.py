@@ -23,6 +23,18 @@ buffer whose split groups are the row blocks ``[j*ng, (j+1)*ng)``; the
 complement of block ``split`` is every other row, in row order (the
 order of ``jnp.concatenate(c_parts)``), read in place.
 
+The rung axis (parallel tempering, as K1 has it): ``coords`` may be
+``(T, nwalkers, ndim)``, ``T`` ensembles of one ladder, and then ``q`` is
+``(T, ng, ndim)`` and ``factor`` ``(T, ng)``.  Rung ``r``'s complement is
+its own other rows; it draws under its own key (``seed`` is then a
+:class:`~.philox.RungKeys`) at the counters of one ensemble, reads
+``scale[r]`` of a ``(T,)`` scale and, injected, its own rows of ``z``,
+``idx_a``, ``idx_b`` ``(T, ng)`` and ``u_shift`` ``(T, 2)``.  The kernel
+runs every rung in one launch; the plain version draws every rung's words
+in one pass (:func:`~.philox.rung_words`) and does the one-ensemble
+arithmetic elementwise over the rungs, so each rung equals the same rung
+proposed alone, bit for bit.
+
 Randomness comes from the Philox stream at ``(seed, offset)`` (see
 ``ops/philox.py``; ``offset`` is an int or a ``DeviceOffset``, and the
 roll shifts come from the split's ``ROLL_LANE`` counter, drawn by the
@@ -50,11 +62,11 @@ import torch
 
 from ._wrap import (
     PAIR_MODES, check_f32, check_i32, check_pair_mode, check_rows,
-    complement_rows, count_launches, de_plan, device_sm_count, launch, ptr,
-    rng_args)
+    complement_rows, count_launches, de_plan, device_sm_count, key_args,
+    launch, ptr, rng_args)
 from .philox import (
-    PAIR_BLOCK, box_muller, normals, roll_uniforms, row_uniforms, to_uniform,
-    walker_words)
+    PAIR_BLOCK, RungKeys, box_muller, normals, roll_uniforms, row_uniforms,
+    rung_keys, rung_words, to_uniform, walker_words)
 
 __all__ = ["de_gamma0", "de_pairs", "de_propose", "de_propose_plain",
            "de_roll_shifts", "walker_normal"]
@@ -84,7 +96,14 @@ def walker_normal(ng, split, seed, offset, device, dtype=torch.float32,
                   plain=False):
     """The walkers' standard normals of K5a: Box-Muller on words 0 and 2
     at ``(walker, split, offset)``: normal 0 of counter block ``split``
-    (:func:`~.philox.normals`; K14 on the card, unless ``plain``)."""
+    (:func:`~.philox.normals`; K14 on the card, unless ``plain``).  Under
+    a :class:`~.philox.RungKeys` ``seed``, ``(T, ng)``: rung ``r``'s row
+    under its own key, from one :func:`~.philox.rung_words` pass (which
+    the roll draws and K2 of the same split share)."""
+    if isinstance(seed, RungKeys):
+        w0, _, w2, _ = rung_words(seed, ng, split, offset, device, roll=True,
+                                  plain=plain)
+        return box_muller(w0[:, :ng], w2[:, :ng], dtype)
     if torch.device(device).type == "cpu":  # the shared CPU draw
         w0, _, w2, _ = walker_words(ng, split, seed, offset, device)
         return box_muller(w0, w2, dtype)
@@ -98,15 +117,27 @@ def de_pairs(ng, nc, split, pair_mode, seed, offset, device, u_shift=None,
     the two roll shifts of the split (from ``u_shift`` or the split's
     ``ROLL_LANE`` words 0 and 1), or the two random picks (``idx_a``,
     ``idx_b`` or ``PAIR_BLOCK`` words 0 and 1), ``b`` moved past ``a``.
-    The draws are K14's on the card, unless ``plain``."""
+    The draws are K14's on the card, unless ``plain``.  Under a
+    :class:`~.philox.RungKeys` ``seed`` (or with ``(T, 2)`` / ``(T, ng)``
+    injections), ``(T, ng)`` each, rung ``r``'s under its own key."""
+    rungs = isinstance(seed, RungKeys)
     if pair_mode == "roll":
-        if u_shift is None:
+        if u_shift is None and rungs:
+            w = rung_words(seed, ng, split, offset, device, roll=True,
+                           plain=plain)
+            u_shift = to_uniform(torch.stack((w[0][:, ng], w[1][:, ng]),
+                                             dim=-1))
+        elif u_shift is None:
             u_shift = roll_uniforms(seed, split, offset, device, plain=plain)
-        s1, s2 = de_roll_shifts(u_shift[0], u_shift[1], nc)
+        s1, s2 = de_roll_shifts(u_shift[..., 0], u_shift[..., 1], nc)
         lanes = torch.arange(ng, device=device)
-        return (lanes + s1) % nc, (lanes + s2) % nc
+        return (lanes + s1[..., None]) % nc, (lanes + s2[..., None]) % nc
     if idx_a is None:
-        if torch.device(device).type == "cpu":  # the shared CPU draw
+        if rungs:
+            w = rung_words(seed, ng, PAIR_BLOCK | split, offset, device,
+                           plain=plain)
+            u = (to_uniform(w[0]), to_uniform(w[1]))
+        elif torch.device(device).type == "cpu":  # the shared CPU draw
             w = walker_words(ng, PAIR_BLOCK | split, seed, offset, device)
             u = (to_uniform(w[0]), to_uniform(w[1]))
         else:
@@ -122,26 +153,37 @@ def de_pairs(ng, nc, split, pair_mode, seed, offset, device, u_shift=None,
 def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
                      pair_mode, seed=0, offset=0, z=None, u_shift=None,
                      idx_a=None, idx_b=None):
-    """Plain PyTorch K5a: returns ``(q (ng, ndim), factor (ng,))``.
-    ``gamma0`` is the float32 value of :func:`de_gamma0`."""
-    nw, _ = coords.shape
+    """Plain PyTorch K5a: returns ``(q (ng, ndim), factor (ng,))``, or on
+    the rung axis ``(q (T, ng, ndim), factor (T, ng))``: every rung's
+    words in one Philox pass under its own key, then the same arithmetic
+    elementwise over the rungs, so each rung equals the same rung
+    proposed alone.  ``gamma0`` is the float32 value of
+    :func:`de_gamma0`."""
+    nw = coords.shape[-2]
     ng = nw // nsplits
     lo = split * ng
     dev = coords.device
+    if coords.dim() == 3 and not isinstance(seed, RungKeys):
+        seed = rung_keys(seed, coords.shape[0], dev)
+    # The pairs first: on the CPU the normals' draw (with the roll lane)
+    # is then the last one kept, which K2's plain version of the split
+    # reads again.
+    a, b = de_pairs(ng, nw - ng, split, pair_mode, seed, offset, dev,
+                    u_shift, idx_a, idx_b, plain=True)
     if z is None:
         z = walker_normal(ng, split, seed, offset, dev, coords.dtype,
                           plain=True)
-    a, b = de_pairs(ng, nw - ng, split, pair_mode, seed, offset, dev,
-                    u_shift, idx_a, idx_b, plain=True)
-    ca = coords.index_select(0, complement_rows(a, split, ng))
-    cb = coords.index_select(0, complement_rows(b, split, ng))
-    s = coords[lo:lo + ng]
+    ca = torch.take_along_dim(coords, complement_rows(a, split, ng)[..., None],
+                              dim=-2)
+    cb = torch.take_along_dim(coords, complement_rows(b, split, ng)[..., None],
+                              dim=-2)
+    s = coords[..., lo:lo + ng, :]
     # Python floats rounded to float32 first, as the kernel receives them.
     gamma0, sigma = float(np.float32(gamma0)), float(np.float32(sigma))
-    g = gamma0 if scale is None else gamma0 * scale
+    g = gamma0 if scale is None else gamma0 * scale[..., None]
     gamma = g * (1.0 + sigma * z)
-    q = s + gamma[:, None] * (cb - ca)
-    return q, torch.zeros(ng, dtype=coords.dtype, device=dev)
+    q = s + gamma[..., None] * (cb - ca)
+    return q, torch.zeros(z.shape, dtype=coords.dtype, device=dev)
 
 
 def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
@@ -157,22 +199,24 @@ def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
     if coords.device.type != "cuda":
         raise ValueError(f"no K5a kernel for device {coords.device}")
     check_pair_mode(pair_mode)
-    _, nd, ng = check_rows(coords, split, nsplits)
+    _, nd, ng = check_rows(coords, split, nsplits, rungs=True)
     dev = coords.device
-    check_f32("scale", scale, dev, ())
-    check_f32("z", z, dev, (ng,))
+    lead = tuple(coords.shape[:-2])  # (T,) on the rung axis, else ()
+    check_f32("scale", scale, dev, lead)
+    check_f32("z", z, dev, lead + (ng,))
     if pair_mode == "roll":
-        check_f32("u_shift", u_shift, dev, (2,))
+        check_f32("u_shift", u_shift, dev, lead + (2,))
     elif (idx_a is None) != (idx_b is None):
         raise ValueError("inject both idx_a and idx_b, or neither")
     elif idx_a is not None:
-        check_i32("idx_a", idx_a, dev, (ng,))
-        check_i32("idx_b", idx_b, dev, (ng,))
-    q = torch.empty((ng, nd), dtype=torch.float32, device=dev)
-    factor = torch.empty((ng,), dtype=torch.float32, device=dev)
+        check_i32("idx_a", idx_a, dev, lead + (ng,))
+        check_i32("idx_b", idx_b, dev, lead + (ng,))
+    q = torch.empty(lead + (ng, nd), dtype=torch.float32, device=dev)
+    factor = torch.empty(lead + (ng,), dtype=torch.float32, device=dev)
     # The staged variant wherever it can be (PERF.md).
     plan = de_plan(ng, nd, split, device_sm_count(dev), coords.data_ptr(),
-                   q.data_ptr(), stage=True)
+                   q.data_ptr(), stage=True, rungs=lead[0] if lead else 1,
+                   nsplits=nsplits)
     _launch(plan, coords, q, factor, split, nsplits, **kw)
     count_launches(de_propose)
     return q, factor
@@ -183,13 +227,17 @@ def _launch(plan, coords, q, factor, split, nsplits, *, gamma0, sigma,
     """Launch K5a with launch plan ``plan`` on checked arguments."""
     dev = coords.device
     roll = pair_mode == "roll"
+    ntemps = coords.shape[0] if coords.dim() == 3 else 1
+    injected = z is not None and (u_shift if roll else idx_a) is not None
     launch(
         "de_propose", dev,
         coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
-        q.shape[0], coords.shape[1], split, nsplits, PAIR_MODES[pair_mode],
+        q.shape[-2], coords.shape[-1], split, nsplits, PAIR_MODES[pair_mode],
         float(gamma0), ptr(scale), float(sigma), ptr(z),
         ptr(u_shift if roll else None), ptr(None if roll else idx_a),
-        ptr(None if roll else idx_b), *plan, *rng_args(seed, offset, dev),
+        ptr(None if roll else idx_b), *plan,
+        *key_args(seed, dev, ntemps, injected=injected),
+        *rng_args(0, offset, dev)[1:],
     )
 
 

@@ -368,8 +368,10 @@ def rung_words(keys, n, split, offset, device, roll=False, word=None,
     word ``word`` where given).  With ``roll``, lane ``ROLL_LANE`` follows
     as column ``n`` (the split's roll draws, :func:`roll_uniforms`).  On
     the CPU the last draw of this thread is kept and served again (as
-    :data:`_cpu_draws` serves :func:`walker_words`): K1's and K2's plain
-    versions of one split read the same counters."""
+    :data:`_cpu_draws` serves :func:`walker_words`): K1's, K5a's or
+    K5b's and K2's plain versions of one split read the same counters.
+    The kept draw's key holds the whole split word, block bits included,
+    so K5a's or K5b's ``PAIR_BLOCK`` draw never serves another block."""
     if torch.device(device).type != "cpu":
         out = _draw(plain)("words", n, 1, split, keys, offset,
                            device, word=word, roll=roll)

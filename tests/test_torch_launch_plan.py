@@ -1,7 +1,7 @@
 """The launch plans of K1 and K2 (``emcee_tpu_torch/ops/_wrap.py``
 ``tile_plan``, K2's rung kernel, ``rung_plan``, and K2's blob leaves,
 ``accept_kernel.leaf_plan``), of K5a
-and K5b (``de_plan``) and of K11 (``langevin_kernel.langevin_plan``),
+and K5b (``de_plan``, with and without the rung axis) and of K11 (``langevin_kernel.langevin_plan``),
 checked on the host: the tiles cover the split once, the grid fills the
 card (K11's in one wave), shared memory stays under 48 KB, the float4 and
 bulk-copy paths are taken only on 16-byte aligned spans, scalar blob
@@ -233,6 +233,80 @@ def test_k5_plan_at_workload_3s_shape(split):
     assert de_plan(ng, nd, split, H100_SMS, 1 << 20, (1 << 21) + 4).vec == 0
     assert de_plan(ng, 101, split, H100_SMS, 1 << 20, 1 << 21,
                    snooker=True).vec == 0
+
+
+@pytest.mark.parametrize("kind", K5)
+@settings(max_examples=150, deadline=None)
+@given(st.integers(1, 64), st.integers(1, 2000), st.integers(1, 130),
+       st.integers(2, 4), st.booleans(), st.integers(0, 3),
+       st.integers(0, 3))
+@example(16, 128, 5, 2, True, 0, 0)  # workload 4's DE split
+@example(16, 64, 5, 4, True, 0, 0)  # workload 4's snooker split
+@example(3, 3, 5, 3, True, 0, 0)  # rungs of 45 floats: staging dropped
+def test_k5_rung_axis_plan(kind, rungs, ng, nd, nsplits, stage, c_off,
+                           q_off):
+    """K5a's and K5b's plan on the rung axis (``de_plan(..., rungs=,
+    nsplits=)``): every rung's blocks count toward filling the card; the
+    staged variant is kept only where every tile of every rung has its own
+    rows 16-byte aligned (rungs of ``nsplits * ng`` rows in coords), and
+    the float4 path only where every row of every rung is; one rung is the
+    single-ensemble plan."""
+    snooker = kind == "snooker"
+    split = (ng + nd) % nsplits
+    coords_ptr = (1 << 20) + 4 * c_off
+    q_ptr = (3 << 20) + 4 * q_off
+    plan = de_plan(ng, nd, split, H100_SMS, coords_ptr, q_ptr,
+                   snooker=snooker, stage=stage, rungs=rungs,
+                   nsplits=nsplits)
+    single = de_plan(ng, nd, split, H100_SMS, coords_ptr, q_ptr,
+                     snooker=snooker, stage=stage)
+    if rungs == 1:
+        assert plan == single
+    assert plan.grid == -(-ng // plan.tile)
+    assert plan.tile >= single.tile  # more rungs, fewer blocks a rung
+    cap = SNOOKER_TILE_MAX if snooker else TILE_MAX
+    if plan.tile < cap and not plan.stage:  # the tile twice as large
+        assert rungs * -(-ng // (2 * plan.tile)) < (
+            K5_BLOCKS_PER_SM * H100_SMS)
+    if plan.tile > TILE_MIN:
+        assert rungs * plan.grid >= K5_BLOCKS_PER_SM * H100_SMS
+    assert plan.threads == (32 * plan.tile if snooker else max(
+        DE_THREADS, 32 * -(-plan.tile // 32) + 32))
+    nw = nsplits * ng
+    t0 = np.arange(plan.grid, dtype=np.int64) * plan.tile
+    for r in range(rungs):
+        own = coords_ptr + 4 * ((r * nw + split * ng + t0) * nd)
+        rows = coords_ptr + 4 * ((r * nw + np.arange(min(nw, 8))) * nd)
+        q_rows = q_ptr + 4 * ((r * ng + np.arange(min(ng, 8))) * nd)
+        if plan.stage:
+            assert np.all(own % 16 == 0)
+        if plan.vec:
+            assert np.all(rows % 16 == 0) and np.all(q_rows % 16 == 0)
+    misaligned = rungs > 1 and nw * nd % 4 != 0
+    if misaligned:  # a rung's own rows would start off a 16-byte boundary
+        assert not plan.stage
+    assert plan.stage == (single.stage and not misaligned)
+    assert plan.vec == single.vec
+    if plan.stage:
+        assert plan.smem == 4 * plan.tile * nd <= SMEM_LIMIT - STATIC_SMEM
+
+
+def test_k5_rung_axis_plan_at_workload_4():
+    """16 rungs: DE's splits of 128 and the snooker's of 64 walkers at
+    5-D; every rung's blocks count (the one-ensemble plan of one rung has
+    the same tile at this size), K5a staged (every rung's span 16-byte
+    aligned: 256 x 5 floats), neither on the float4 path (ndim 5)."""
+    de = de_plan(128, 5, 1, H100_SMS, 1 << 20, 1 << 21, stage=True,
+                 rungs=16, nsplits=2)
+    assert de == (TILE_MIN, 32, DE_THREADS, 0, 1, 4 * TILE_MIN * 5)
+    assert de.grid * 16 == 512
+    sn = de_plan(64, 5, 3, H100_SMS, 1 << 20, 1 << 21, snooker=True,
+                 rungs=16, nsplits=4)
+    assert sn == (TILE_MIN, 16, 32 * TILE_MIN, 0, 0, 0)
+    # 3 splits of 3 walkers at 5-D: rung spans of 45 floats, not staged.
+    assert de_plan(3, 5, 0, H100_SMS, 1 << 20, 1 << 21, stage=True,
+                   rungs=2, nsplits=3).stage == 0
+    assert de_plan(3, 5, 0, H100_SMS, 1 << 20, 1 << 21, stage=True).stage
 
 
 def test_sm_count_is_read_once_per_device(monkeypatch):

@@ -1,8 +1,8 @@
 """Move mixtures, ``mixture_block`` and the looped moves on every rung of
 the port's PTSampler.
 
-Exact within the port, bit for bit: a mixture of the stretch move (every
-rung at once) and DE (rung by rung) against the forced per-rung loop; a
+Exact within the port, bit for bit: a mixture of the stretch move and DE
+(both every rung at once) against the forced per-rung loop; a
 1-rung ladder at ``beta = 1`` with a mixture and blobs, and with
 ``EnsembleSliceMove``, against ``EnsembleSampler`` of the same moves and
 seed; and the chunk program's replays (graphs stood in for by the

@@ -275,6 +275,7 @@ def test_batched_path_equals_the_per_rung_loop(mv_kw):
     None,
     moves.StretchMove(randomize_split=False, pair_mode="roll"),
     moves.DEMove(),
+    moves.DESnookerMove(),
     moves.GaussianMove(0.5),
 ])
 def test_one_rung_at_beta_one_is_the_ensemble_sampler(mv):
@@ -544,9 +545,10 @@ def test_log_evidence_gaussian():
     assert lnz2 == lnz and 0.0 <= dlnz < 1.0
 
 
-def per_rung_loop_oracle(mv, steps, ntemps=8):
+def per_rung_loop_oracle(mv, steps, ntemps=8, batched=False):
     """test_tempering.py:273's oracle: a smooth bimodal target whose cold
-    rung must hold both modes."""
+    rung must hold both modes; rung by rung (the private ``_batched``
+    switch off), or every rung at once for a ``rung_batched`` move."""
 
     def log_like(x):
         a = -0.5 * torch.sum((x - 3.0) ** 2)
@@ -558,7 +560,9 @@ def per_rung_loop_oracle(mv, steps, ntemps=8):
 
     s = PTSampler(ntemps, 32, 1, log_like, log_prior, seed=0, moves=mv,
                   device="cpu")
-    assert not getattr(mv, "rung_batched", False)  # the per-rung loop
+    s._batched = batched
+    if batched:  # every rung at once
+        assert getattr(mv, "rung_batched", False)
     s.run_mcmc(np.random.default_rng(0).normal(size=(ntemps, 32, 1)),
                steps)
     cold = s.get_chain(temp=0, flat=True, discard=steps // 5)
@@ -567,9 +571,13 @@ def per_rung_loop_oracle(mv, steps, ntemps=8):
     return s
 
 
-def test_pt_with_de_move_per_rung():
-    """A move without the rung axis (DEMove) runs rung by rung."""
-    s = per_rung_loop_oracle(moves.DEMove(), 500, ntemps=4)
+@pytest.mark.parametrize("batched", [True, False])
+def test_pt_with_de_move_per_rung(batched):
+    """DEMove on every rung at once (K5a's rung axis) and, under the
+    private ``_batched=False`` switch, rung by rung."""
+    s = per_rung_loop_oracle(moves.DEMove(), 500, ntemps=4, batched=batched)
+    if not batched:  # the per-rung loop
+        assert not s._program.batched
     assert np.all(s.acceptance_fraction > 0)
 
 
