@@ -201,10 +201,32 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    and K5b with the rung axis.  ``python3 chip_smoke.py 17`` runs phases
    0, 1 and 17 alone.
 
-Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17.
-Every phase raises on failure.  ``python3 chip_smoke.py sass-diff TREE``
-builds TREE's and this checkout's K1, K2, K5a, K5b and K15 and compares
-their SASS function by function.
+18. the gradient moves on every rung (K11, K12 and K13 with the rung
+   axis): (a) the three kernels against their plain versions bit for bit
+   (1-64 rungs, 1-1000 rows a rung, ndim 1-128, eps per rung; K11 drawing
+   and in MALA mode with the identity and a diagonal, with and without
+   the ``(T,)`` jitter, injected / host offset / device offset draws; K12
+   both modes; K13 0-2 kicks with and without the drift; each rung at 3
+   rungs against the one-ensemble launch); (b) ``MALAMove(0.8)``,
+   ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)``, ``EnsembleMALAMove()``
+   and ``EnsembleHMCMove()`` at workload 4's configuration: graph chain
+   == the plain versions' eager chain bit for bit over 64 proposals, and
+   the batched path against the per-rung loop: bit for bit over the 64
+   for the whole-ensemble moves; for the ensemble moves, whose batched
+   matmuls and Cholesky round otherwise, each rung's metric held to its
+   own to 1e-4 and one proposal's difference logged; (c) both paths in
+   turns (batched,
+   loop, loop, batched), device µs and kernels a proposal, the batched
+   path's launches counted by device words; (d) ``MALAMove(0.8)`` into
+   ``PTDeviceBackend``, 512 kept x 4: rate, cold tau and ESS/s, a finite
+   chain and ``PTDeviceBackend`` == ``PTBackend``; (e) the rows of K11,
+   K12 and K13 with the rung axis.  ``python3 chip_smoke.py 18`` runs
+   phases 0, 1 and 18 alone.
+
+Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+18.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
+TREE`` builds TREE's and this checkout's K1, K2, K5a, K5b, K11, K12, K13
+and K15 and compares their SASS function by function.
 
 Three modes compare this checkout with another tree inside it (TREE,
 e.g. the parent commit unpacked by ``git archive`` into the git-ignored
@@ -4019,7 +4041,7 @@ def phase13_rows(torch, dev, out, card):
     # the step's two multiply-adds.
     from emcee_tpu_torch.ops._wrap import device_sm_count
 
-    label = "langevin_step_kernel<true, true, false>"
+    label = "langevin_step_kernel<true, true, false, false>"
     items = NW * ((ND + 1) // 2)
     n_ins = items * PHILOX_INSTR + NW * ND * (NORMAL_INSTR + 2)
     n_sfu = NW * ND * NORMAL_SFU
@@ -6488,6 +6510,502 @@ def phase17_rows(torch, dev, out, card):
     return rows
 
 
+# -- 18. the gradient moves on every rung ------------------------------------
+#: rungs, rows a rung and ndims of K11's, K12's and K13's rung-axis sweep
+GR_SWEEP_T = (1, 2, 3, 16, 64)
+GR_SWEEP_N = (1, 31, 256, 1000)
+GR_SWEEP_ND = (1, 5, 8, 128)
+#: phase 18's moves at workload 4's configuration
+PT18_MOVES = ("MALAMove(0.8)", "HMCMove(0.5, n_leapfrog=10, jitter=0.2)",
+              "EnsembleMALAMove()", "EnsembleHMCMove()")
+#: each move's kernels a proposal at 16 rungs, every rung at once: the
+#: whole-ensemble moves one K11 (MALA's step, HMC's momenta and jitter),
+#: HMC n_leapfrog + 1 K13, one K12 and one K2; the ensemble moves per split
+#: two K11 (the draw, then the step with z L^T) or one (the momenta) and
+#: 2 n_leapfrog + 1 K13 (a full metric kicks and drifts in two launches),
+#: one K12 and one K2, and the shuffle's K14
+PT18_PER = {
+    "MALAMove(0.8)": {"langevin_step": 1, "langevin_factor": 1,
+                      "accept_select": 1, "pt_swap": 1},
+    "HMCMove(0.5, n_leapfrog=10, jitter=0.2)": {
+        "langevin_step": 1, "leapfrog": 11, "langevin_factor": 1,
+        "accept_select": 1, "pt_swap": 1},
+    "EnsembleMALAMove()": {"langevin_step": 4, "langevin_factor": 2,
+                           "accept_select": 2, "pt_swap": 1,
+                           "philox_draw": 1},
+    "EnsembleHMCMove()": {"langevin_step": 2, "leapfrog": 22,
+                          "langevin_factor": 2, "accept_select": 2,
+                          "pt_swap": 1, "philox_draw": 1},
+}
+#: the moves whose batched path is held to the per-rung loop bit for bit
+#: over 64 proposals.  The ensemble moves' batched matmuls and Cholesky
+#: (each rung's complement covariance and its products by L) round
+#: otherwise on the H100 than each rung's own, and their trajectories
+#: amplify an ulp into a flipped acceptance within a few proposals (at
+#: workload 4 the 64-proposal chains part within 7 and 2 kept steps;
+#: PERF.md), so for them each rung's metric (C and L) of the batched path
+#: is held to its own to PT18_TOL (relative to 1 + |value|), and one
+#: proposal's difference is logged
+PT18_EXACT = ("MALAMove(0.8)", "HMCMove(0.5, n_leapfrog=10, jitter=0.2)")
+PT18_TOL = 1e-4
+#: proposals a replay of the per-rung loop's timed graph (~8700 kernels a
+#: proposal for HMC, ~11300 for the ensemble HMC: the loop's recording and
+#: its profiled windows are the costliest part of the phase; PERF.md)
+PT18_LOOP_N = 1
+
+
+def pt18_move(label):
+    """A fresh move of ``PT18_MOVES``."""
+    from emcee_tpu_torch import moves
+
+    return {"MALAMove(0.8)": lambda: moves.MALAMove(0.8),
+            "HMCMove(0.5, n_leapfrog=10, jitter=0.2)":
+                lambda: moves.HMCMove(0.5, n_leapfrog=10, jitter=0.2),
+            "EnsembleMALAMove()": moves.EnsembleMALAMove,
+            "EnsembleHMCMove()": moves.EnsembleHMCMove}[label]()
+
+
+def grad_rung_sweep(torch, dev):
+    """(a) K11, K12 and K13 with the rung axis against their plain
+    versions, bit for bit (the bits compared): rungs ``GR_SWEEP_T``, rows
+    a rung ``GR_SWEEP_N``, ndim ``GR_SWEEP_ND``, eps per rung; K11 drawing
+    only, in MALA mode with the identity and a diagonal, each with and
+    without the ``(T,)`` jitter, with injected ``z`` and from the stream at
+    a host offset and at the device offset word, rows from 0 or 7; K12 in
+    kinetic mode and in MALA mode with and without ``c`` and ``d``; K13
+    with 0, 1 and 2 kicks, with and without the drift, both metrics.  At 3
+    rungs each rung of K11, K12 and K13 is also held against the
+    one-ensemble launch under its own key.  Returns the count of
+    comparisons."""
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(180)
+    offset = (1 << 33) + 7  # the offset's high word is set
+    word = torch.tensor(offset - 2, dtype=torch.int64, device=dev)
+    n = 0
+
+    def same(got, want, what):
+        nonlocal n
+        if [a is None for a in got] != [b is None for b in want]:
+            raise AssertionError(f"{what}: outputs differ in kind")
+        same_bits([a for a in got if a is not None],
+                  [b for b in want if b is not None], what)
+        n += 1
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    for T in GR_SWEEP_T:
+        keys = rung_keys(3000 + T, T, dev)
+        for nw in GR_SWEEP_N:
+            for nd in GR_SWEEP_ND:
+                shape = (T, nw, nd)
+                x, g, z, c = rnd(*shape), rnd(*shape), rnd(*shape), rnd(
+                    *shape)
+                eps = 0.2 + torch.rand(T, device=dev, generator=gen)
+                d = 0.5 + torch.rand(nd, device=dev, generator=gen)
+                row0 = 7 * ((nw + nd) % 2)
+                what = f"K11-K13 rung sweep, T={T} n={nw} nd={nd}"
+                draws = {"injected": 0, "host offset": offset,
+                         "device offset": DeviceOffset(word, 2)}
+                for draw, off in draws.items():
+                    zin = z if draw == "injected" else None
+                    for mode in ({}, dict(x=x, g=g, eps=eps),
+                                 dict(x=x, g=g, eps=eps, d=d)):
+                        for jitter in (False, True):
+                            outs = []
+                            for fn in (lk.langevin_step,
+                                       lk.langevin_step_plain):
+                                v = (torch.empty(T, device=dev) if jitter
+                                     else None)
+                                zz, qq = fn(shape, dev, seed=keys,
+                                            offset=off, row0=row0, z=zin,
+                                            v=v, v_split=1, **mode)
+                                outs.append((zz, qq, v))
+                            same(outs[0], outs[1],
+                                 f"{what} K11 {draw} {sorted(mode)} "
+                                 f"jitter {jitter}")
+                            if T != 3 or draw == "device offset":
+                                continue
+                            for r in range(T):
+                                one = {k: (t if k == "d" else t[r])
+                                       for k, t in mode.items()}
+                                v = (torch.empty((), device=dev) if jitter
+                                     else None)
+                                zz, qq = lk.langevin_step(
+                                    (nw, nd), dev, seed=keys.seeds[r],
+                                    offset=off, row0=row0,
+                                    z=None if zin is None else zin[r], v=v,
+                                    v_split=1, **one)
+                                want = outs[0]
+                                same((zz, qq, v),
+                                     (want[0][r], None if want[1] is None
+                                      else want[1][r],
+                                      None if want[2] is None
+                                      else want[2][r]),
+                                     f"{what} K11 {draw} {sorted(mode)}: "
+                                     f"rung {r} against one ensemble")
+                for kw, cc in ((dict(), None), (dict(eps=eps), None),
+                               (dict(eps=eps), c), (dict(eps=eps, d=d), c)):
+                    got = lk.langevin_factor(z, g, cc, **kw)
+                    same((got,), (lk.langevin_factor_plain(z, g, cc, **kw),),
+                         f"{what} K12 {sorted(kw)} c {cc is not None}")
+                    if T == 3:
+                        for r in range(T):
+                            one = dict(kw, eps=eps[r]) if kw else kw
+                            same((lk.langevin_factor(
+                                z[r], g[r], None if cc is None else cc[r],
+                                **one),), (got[r],),
+                                 f"{what} K12: rung {r} against one "
+                                 "ensemble")
+                for kicks in (0, 1, 2):
+                    for drift in (False, True):
+                        if not (kicks or drift):
+                            continue
+                        for dd in (None, d):
+                            outs = []
+                            for fn in (lk.leapfrog, lk.leapfrog_plain):
+                                xx, pp = x.clone(), z.clone()
+                                fn(pp, g, eps, d=dd, kicks=kicks,
+                                   x=xx if drift else None)
+                                outs.append((xx, pp))
+                            same(outs[0], outs[1], f"{what} K13 kicks "
+                                 f"{kicks} drift {drift} d {dd is not None}")
+                            if T == 3:
+                                for r in range(T):
+                                    xx, pp = x[r].clone(), z[r].clone()
+                                    lk.leapfrog(pp, g[r], eps[r], d=dd,
+                                                kicks=kicks,
+                                                x=xx if drift else None)
+                                    same((xx, pp),
+                                         (outs[0][0][r], outs[0][1][r]),
+                                         f"{what} K13: rung {r} against one"
+                                         " ensemble")
+    torch.cuda.synchronize()
+    return n
+
+
+def pt18_rel(a, b):
+    """The largest ``|a - b|`` relative to ``1 + |b|``."""
+    return float(((a - b).abs() / (1 + b.abs())).max())
+
+
+def pt18_proposal_diff(smp, offset=3):
+    """An ensemble move's metric and one proposal of every rung at once
+    against each rung's own (the per-rung loop's), from the state in
+    ``smp``'s workspace, both blocked splits, the draws from the stream:
+    the largest differences (:func:`pt18_rel`) of each rung's complement
+    covariance ``C`` and its Cholesky factor ``L`` (one batched product
+    and Cholesky against the rung's own) and of ``q`` and the factors."""
+    from emcee_tpu_torch.moves.gradient import complement_chol
+    from emcee_tpu_torch.moves.walk import complement
+
+    prog = smp._program
+    ws, mv = prog.ws, smp._moves[0]
+    ng = ws.coords.shape[1] // mv.nsplits
+    worst = dict(C=0.0, L=0.0, q=0.0, factors=0.0)
+    for split in range(mv.nsplits):
+        c = complement(ws.coords, split, ng)
+        metric = complement_chol(c, mv.ridge)
+        q, f = mv.get_proposal((prog.keys, offset), ws.coords, split,
+                               prog.model(ws))
+        for r, seed in enumerate(prog.keys.seeds):
+            one = complement_chol(c[r], mv.ridge) + mv.get_proposal(
+                (seed, offset), ws.coords[r], split, prog.model(ws, r))
+            both = (metric[0][r], metric[1][r], q[r], f[r])
+            for k, a, b in zip(worst, one, both):
+                worst[k] = max(worst[k], pt18_rel(a, b))
+    return worst
+
+
+def pt18_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT18_LOOP_N):
+    """(b)-(c) of phase 18 for one move at workload 4's configuration: over
+    64 proposals the graph chain (every rung at once) against the plain
+    versions' eager chain, bit for bit, and for ``PT18_EXACT`` against the
+    per-rung loop run eagerly on the kernels, bit for bit (else the metric
+    held and one proposal measured by :func:`pt18_proposal_diff`); both
+    paths timed in turns (batched, loop, loop, batched; ``n_c`` proposals
+    a batched replay, ``n_l`` a loop one): host µs and device µs and
+    kernels a proposal; the batched path's launches counted by device
+    words and its kernels' device time a launch in its replays
+    (profiler)."""
+    out = {}
+    ends = {}
+    t0 = time.perf_counter()
+    runs = ("graph", "plain") + (("loop",) if label in PT18_EXACT else ())
+    for run in runs:
+        smp = pt_sampler(dev, seed=57, move=pt18_move(label))
+        smp._use_graphs = run == "graph"
+        smp._batched = run != "loop"
+        with plain_kernels() if run == "plain" else contextlib.nullcontext():
+            ends[run] = pt_runs(smp, p0)
+        if run == "graph":
+            batched = smp
+    same_ends(np, ends["graph"], ends["plain"],
+              f"{label}: graph-replayed and eager plain chains")
+    if label in PT18_EXACT:
+        same_ends(np, ends["graph"], ends["loop"],
+                  f"{label}: the batched path and the per-rung loop")
+    else:
+        out["proposal_diff"] = d = pt18_proposal_diff(batched)
+        if not max(d["C"], d["L"]) <= PT18_TOL:
+            raise AssertionError(
+                f"phase 18: {label}: every rung's metric at once against "
+                f"each rung's own: {d} above {PT18_TOL}")
+    out["swaps_64"] = ends["graph"][4].tolist()
+    seconds = {"chains": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    loop = pt_sampler(dev, seed=58, move=pt18_move(label))
+    loop._batched = False
+    loop.run_mcmc(p0, n_l, store=False,  # records the timed graph
+                  skip_initial_state_check=True)
+    batched.run_mcmc(None, n_c, store=False)  # records the timed graph
+    host = {True: [], False: []}
+    dev_us = {True: [], False: []}
+    kernels = {True: [], False: []}
+    for is_batched in (True, False, False, True):
+        smp, n = (batched, n_c) if is_batched else (loop, n_l)
+        _, dt = drive(smp, None, n, store=False)
+        host[is_batched].append(dt / n * 1e6)
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False),
+                          n, f"{label} {'batched' if is_batched else 'loop'}")
+        dev_us[is_batched].append(win["device_us_per_proposal"])
+        kernels[is_batched].append(win["kernels_per_proposal"])
+    del loop
+    seconds["turns"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per = PT18_PER[label]
+    win = busy_window(torch, lambda: batched.run_mcmc(None, n_c,
+                                                      store=False),
+                      n_c, f"{label} batched, its kernels", names=per)
+    counted, profiled = counted_replays(
+        torch, dev, batched, n_c,
+        lambda r: {k: v * n_c for k, v in per.items()}, f"{label} batched",
+        store=False)
+    seconds["counts"] = time.perf_counter() - t0
+    out.update(host_us=host, device_us=dev_us, kernels=kernels, win=win,
+               replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n_c, loop_proposals_a_replay=n_l,
+               seconds={k: round(v, 1) for k, v in seconds.items()})
+    return out
+
+
+def pt18_stored(torch, np, dev, card, p0, kept=512, thin=4):
+    """(d) ``MALAMove(0.8)`` at workload 4's configuration into
+    ``PTDeviceBackend``, 512 kept x 4 (the best of two timed runs):
+    walker-steps/s, the cold rung's tau and ESS/s; held: a finite chain
+    and tau, and ``PTDeviceBackend`` == ``PTBackend`` from one seed.  The
+    swap acceptance and the cold mode fraction are printed beside phase
+    14's windows, unheld: at this step they are the sampler's, not the
+    kernels'."""
+    from emcee_tpu_torch.backends import PTBackend, PTDeviceBackend
+
+    label = "MALAMove(0.8)"
+    smp = pt_sampler(dev, move=pt18_move(label), backend=PTDeviceBackend())
+    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
+    warm_graphs(smp)
+    dt = float("inf")
+    for _ in range(2):  # workloads5.py:224-233: the best of two
+        smp.reset()
+        st, dt_run = drive(smp, st, kept, thin_by=thin,
+                           skip_initial_state_check=True)
+        dt = min(dt, dt_run)
+    n_prop = kept * thin
+    chain = smp.get_chain()
+    cold = chain[:, 0]
+    tau = tau_of(np, cold, thin)
+    if not (np.all(np.isfinite(chain)) and np.isfinite(tau)):
+        raise AssertionError(f"phase 18: {label}: a chain or tau that is "
+                             f"not finite (tau {tau})")
+    x0 = cold[..., 0]
+    res = dict(walker_steps_per_s=NT4 * NW4 * n_prop / dt, seconds=dt,
+               tau_cold=tau, ess_per_s_cold=NW4 * (n_prop / dt) / tau,
+               tau_reliable=bool(n_prop / tau >= 30.0),
+               swap_acceptance_mean=float(np.mean(
+                   smp.tswap_acceptance_fraction)),
+               cold_mode_fraction=float(np.mean(x0 > 0)),
+               cold_acceptance=float(smp.acceptance_fraction[0].mean()))
+    chains = []
+    for backend in (PTDeviceBackend(), PTBackend()):
+        s2 = pt_sampler(dev, seed=59, backend=backend, move=pt18_move(label))
+        s2.run_mcmc(p0, 64, thin_by=thin, skip_initial_state_check=True)
+        chains.append((s2.get_chain().astype(np.float64),
+                       s2.get_log_like().astype(np.float64),
+                       s2.get_log_prior().astype(np.float64),
+                       s2.backend.accepted, s2.swaps_accepted,
+                       s2.swaps_proposed, np_of(s2.backend.random_state)))
+    same_ends(np, *chains, f"{label}: PTDeviceBackend and PTBackend chains")
+    return res
+
+
+def phase18(torch, np, dev, card):
+    """The gradient moves on every rung (see the module docstring, 18): the
+    sweep of K11, K12 and K13 with the rung axis, then ``MALAMove(0.8)``,
+    ``HMCMove(0.5, n_leapfrog=10, jitter=0.2)``, ``EnsembleMALAMove()``
+    and ``EnsembleHMCMove()`` at workload 4's configuration, each path's
+    kernel launches counted from 0 just before it, ``MALAMove(0.8)``
+    stored, and the rows of K11, K12 and K13 with the rung axis.  Returns
+    its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = grad_rung_sweep(torch, dev)
+    log(f"phase 18: (a) K11, K12 and K13 with the rung axis against their "
+        f"plain versions (rungs {GR_SWEEP_T}, rows a rung {GR_SWEEP_N}, "
+        f"ndim {GR_SWEEP_ND}, eps per rung; K11 drawing and in MALA mode "
+        f"(identity, diagonal) with and without the jitter, injected / "
+        f"host offset / device offset draws; K12 both modes; K13 0-2 kicks "
+        f"with and without the drift; each rung at 3 rungs against the "
+        f"one-ensemble launch): {out['sweep']} comparisons, all bit for "
+        f"bit ({time.perf_counter() - t0:.1f} s)")
+    p0 = pt_p0(np)
+    for label in PT18_MOVES:
+        t0 = time.perf_counter()
+        names = tuple(k for k in PT18_PER[label] if k != "philox_draw")
+        with path_launches(out, label, names, "phase 18"):
+            r = out[label] = pt18_path(torch, np, dev, card, label, p0)
+        if label in PT18_EXACT:
+            held = ("equal the per-rung loop (run eagerly on the kernels) "
+                    "bit for bit")
+        else:
+            d = r["proposal_diff"]
+            held = (f"against the per-rung loop, from one state, both "
+                    f"splits, relative to 1 + |value|: each rung's "
+                    f"complement covariance and Cholesky factor within "
+                    f"{d['C']:.3e} and {d['L']:.3e} of its own (held to "
+                    f"{PT18_TOL}), one proposal's q and factors within "
+                    f"{d['q']:.3e} and {d['factors']:.3e}")
+        log(f"phase 18: (b) {label} at {NT4} x {NW4} x {ND4}: 64 "
+            f"graph-replayed proposals of every rung at once equal the "
+            f"plain versions' eager chain bit for bit, and {held} (swaps "
+            f"{r['swaps_64']})")
+        log(f"phase 18: (c) {label} in turns (batched, loop, loop, batched; "
+            f"replays of {r['proposals_counted']} and "
+            f"{r['loop_proposals_a_replay']} proposals), a proposal: host {[round(x, 1) for x in r['host_us'][True]]} / "
+            f"{[round(x, 1) for x in r['host_us'][False]]} us, device "
+            f"{[measured(x) for x in r['device_us'][True]]} / "
+            f"{[measured(x) for x in r['device_us'][False]]} us, kernels "
+            f"{[measured(x, '.0f') for x in r['kernels'][True]]} / "
+            f"{[measured(x, '.0f') for x in r['kernels'][False]]} (batched "
+            f"/ loop); batched launches in {r['proposals_counted']} "
+            f"proposals {r['replayed_launches']} (device words; exactly "
+            f"{PT18_PER[label]} a proposal); us a launch in its replays: "
+            + ", ".join(f"{k} {measured(v and v * 1e3, '.3f')}"
+                        for k, v in r["win"]["ms_per_launch"].items())
+            + f" {card} ({time.perf_counter() - t0:.1f} s: "
+            f"{r['seconds']})")
+    t0 = time.perf_counter()
+    with path_launches(out, "stored", ("langevin_step", "langevin_factor",
+                                       "accept_select", "pt_swap"),
+                       "phase 18"):
+        w4 = out["stored"] = pt18_stored(torch, np, dev, card, p0)
+    log(f"phase 18: (d) MALAMove(0.8), workload 4's configuration, "
+        f"PTDeviceBackend, 512 kept x 4: {w4['walker_steps_per_s']:.4e} "
+        f"walker-steps/s over all rungs (best of two), cold tau "
+        f"{w4['tau_cold']:.2f} proposals, cold ESS/s "
+        f"{w4['ess_per_s_cold']:.4e}, tau_reliable {w4['tau_reliable']}; "
+        f"beside phase 14's windows (not held: the sampler's at this step): "
+        f"swap acceptance mean {w4['swap_acceptance_mean']:.3f} (0.4-0.9), "
+        f"cold mode fraction {w4['cold_mode_fraction']:.3f} (0.25-0.75); "
+        f"cold acceptance {w4['cold_acceptance']:.3f}; PTDeviceBackend == "
+        f"PTBackend bit for bit {card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 18: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase18_rows(torch, dev, out, card)
+
+
+def phase18_rows(torch, dev, out, card):
+    """(e) The rows of K11, K12 and K13 with the rung axis at workload 4's
+    shape: device time a launch in a path's replays (profiler: K11 and K12
+    in ``MALAMove(0.8)``'s, K13 in HMC's), launches counted by device
+    words there, a back-to-back call's time and the plain version's (CUDA
+    events), registers, and the least time the card could take."""
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+    from emcee_tpu_torch.ops._wrap import device_sm_count
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    T, nw, nd = NT4, NW4, ND4
+    gen = torch.Generator(device=dev).manual_seed(181)
+    x, g, gq, p = (torch.randn(T, nw, nd, device=dev, generator=gen)
+                   for _ in range(4))
+    eps = 0.5 + torch.rand(T, device=dev, generator=gen)
+    keys = rung_keys(4, T, dev)
+    elems, rows = T * nw * nd, T * nw
+    items = rows * ((nd + 1) // 2)
+    mala, hmc = PT18_MOVES[0], PT18_MOVES[1]
+    spec = {
+        "langevin_step": (
+            lambda: lk.langevin_step((T, nw, nd), dev, seed=keys, offset=2,
+                                     x=x, g=g, eps=eps),
+            lambda: lk.langevin_step_plain((T, nw, nd), dev, seed=keys,
+                                           offset=2, x=x, g=g, eps=eps),
+            "langevin_step.cu", "emcee_tpu/moves/gradient.py:218-225", mala,
+            "langevin_step_kernel<true, true, false, true>",
+            # x, g in; z, q out
+            4 * 4 * elems,
+            instruction_bound(items * PHILOX_INSTR
+                              + elems * (NORMAL_INSTR + 2),
+                              elems * NORMAL_SFU)),
+        "langevin_factor": (
+            lambda: lk.langevin_factor(p, g, gq, eps=eps),
+            lambda: lk.langevin_factor_plain(p, g, gq, eps=eps),
+            "langevin_factor.cu", "emcee_tpu/moves/gradient.py:233-237",
+            mala, "langevin_factor_kernel<true>",
+            # z, g_x, g_q in; the factors out
+            4 * (3 * elems + rows), 9 * elems / F32_OPS_PER_S * 1e3),
+        "leapfrog": (
+            lambda: lk.leapfrog(p, g, eps, kicks=2, x=x),
+            lambda: lk.leapfrog_plain(p, g, eps, kicks=2, x=x),
+            "leapfrog.cu", "emcee_tpu/moves/gradient.py:314-324", hmc,
+            "leapfrog_kernel<true>",
+            # x, p, g in; x, p out (two kicks and the drift)
+            4 * 5 * elems, 5 * elems / F32_OPS_PER_S * 1e3),
+    }
+    rows_out = []
+    for kname, (kernel, plain, src, jax_src, path, label, nbytes,
+                ops_ms) in spec.items():
+        call_ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, plain, reps=20)
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops_ms}
+        by = max(t, key=t.get)
+        r = out[path]
+        ms = r["win"]["ms_per_launch"][kname]
+        launches = r["replayed_launches"][kname]
+        regs = PTXAS.get(label)
+        name = f"{kname} (rung axis)"
+        row = {"name": name, "route": "cuda",
+               "source": f"emcee_tpu_torch/csrc/{src}",
+               "replaces": f"{jax_src} (vmapped by "
+                           "emcee_tpu/parallel/tempering.py:538)",
+               "launches": launches, "max_abs_err": 0.0, "ms": ms,
+               "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": t[by],
+               "bound_by": by, "library_ms": None, "ptxas": regs,
+               "launches_per_proposal": launches / r["proposals_counted"],
+               "wrapper_launches": out["launches"][path][kname],
+               "path_device_us_batched_loop": (r["device_us"][True],
+                                               r["device_us"][False]),
+               "path_kernels_batched_loop": (r["kernels"][True],
+                                             r["kernels"][False]),
+               "note": f"{name} at workload 4's shape ({T} x {nw} x {nd}): "
+                       f"ms in {path}'s replays (profiler); launches "
+                       f"counted on the card in {r['proposals_counted']} "
+                       "replayed proposals; max_abs_err: bit for bit over "
+                       "phase 18's sweep; bound: each input read once and "
+                       "each output written once, and the operations (K11: "
+                       "the instructions the function needs); library_ms: "
+                       "none, no single PyTorch call computes it"}
+        if kname == "langevin_step":
+            plan = lk.langevin_plan(nw, device_sm_count(dev), T)
+            row.update(plan=tuple(plan), blocks=plan.grid * T)
+        rows_out.append(row)
+        log(f"phase 18: (e) {name}: device {measured(ms and ms * 1e3, '.2f')}"
+            f" us/launch in the {path} replays, {call_ms * 1e3:.2f} us per "
+            f"back-to-back call, plain {plain_ms * 1e3:.2f} us, bound "
+            f"{t[by] * 1e3:.3f} us ({nbytes} bytes, {by}); {regs} "
+            f"(registers, static shared, spilled) {card}")
+    return rows_out
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -6631,17 +7149,19 @@ def sass_functions(lib):
 
 
 def sass_diff(tree) -> int:
-    """Build ``tree``'s and this checkout's K1, K2, K5a, K5b and K15
-    sources with the build's flags into ``build/sass`` and compare the
-    SASS of every kernel function that both hold (K15's blob-free kernel
-    gained the template parameter ``NoLeaves``, which the comparison drops
-    from its name; K2's tiled kernel lost its rung parameter, so a tree's
-    one-ensemble ``accept_select_kernel<..., false>`` is compared with this
-    checkout's ``accept_select_kernel<...>``; K5a and K5b gained one, so a
-    tree's ``de_propose_kernel<a, b>`` is compared with this checkout's
-    ``de_propose_kernel<a, b, false>``).  Prints each function's verdict;
-    returns 1 when a one-ensemble instantiation of K1, K2, K5a or K5b
-    differs, else 0."""
+    """Build ``tree``'s and this checkout's K1, K2, K5a, K5b, K11, K12, K13
+    and K15 sources with the build's flags into ``build/sass`` and compare
+    the SASS of every kernel function that both hold (K15's blob-free
+    kernel gained the template parameter ``NoLeaves``, which the
+    comparison drops from its name; K2's tiled kernel lost its rung
+    parameter, so a tree's one-ensemble ``accept_select_kernel<...,
+    false>`` is compared with this checkout's ``accept_select_kernel<...>``;
+    K5a, K5b and K11 gained one, so a tree's ``de_propose_kernel<a, b>`` is
+    compared with this checkout's ``de_propose_kernel<a, b, false>``, and
+    K12 and K13 gained one as their only template parameter, so a tree's
+    ``leapfrog_kernel`` is compared with ``leapfrog_kernel<false>``).
+    Prints each function's verdict; returns 1 when a one-ensemble
+    instantiation of K1, K2, K5a, K5b, K11, K12 or K13 differs, else 0."""
     import re
 
     from emcee_tpu_torch.ops import _build
@@ -6651,9 +7171,12 @@ def sass_diff(tree) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     bad = []
-    gained = ("de_propose_kernel", "snooker_propose_kernel")
+    gained = ("de_propose_kernel", "snooker_propose_kernel",
+              "langevin_step_kernel", "langevin_factor_kernel",
+              "leapfrog_kernel")
     for src in ("stretch_propose.cu", "accept_select.cu", "pt_swap.cu",
-                "de_propose.cu", "snooker_propose.cu"):
+                "de_propose.cu", "snooker_propose.cu", "langevin_step.cu",
+                "langevin_factor.cu", "leapfrog.cu"):
         sass = {}
         for label, root in (("parent", tree), ("change", here)):
             lib = out_dir / f"{label}-{src}.so"
@@ -6674,7 +7197,9 @@ def sass_diff(tree) -> int:
             if fn.startswith(gained) and fn not in sass["change"]:
                 # A tree before the rung axis: every instantiation is one
                 # ensemble's.
-                mine, one = fn[:-1] + ", false>", True
+                mine = (fn[:-1] + ", false>" if fn.endswith(">")
+                        else fn + "<false>")
+                one = True
             mapped.add(mine)
             same = sass["change"].get(mine) == sass["parent"][fn]
             where = ("missing in the change" if mine not in sass["change"]
@@ -6688,8 +7213,8 @@ def sass_diff(tree) -> int:
                     and fn[:-1] + ", false>" in sass["parent"]
                     or fn in mapped):
                 log(f"sass-diff: {src}: {fn}: new in the change")
-    log(f"sass-diff: one-ensemble K1 / K2 / K5a / K5b instantiations that "
-        f"differ from {tree}'s: {bad or 'none'}")
+    log(f"sass-diff: one-ensemble K1 / K2 / K5a / K5b / K11 / K12 / K13 "
+        f"instantiations that differ from {tree}'s: {bad or 'none'}")
     return 1 if bad else 0
 
 
@@ -6772,15 +7297,17 @@ def main() -> int:
                 f"shared memory, {spill} bytes spilled")
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
-                        ["17"]):
-        # Phase 11, 12, 13, 14, 15, 16 or 17 alone (a first check of the
-        # blobs, the extension moves, the gradient moves, tempering, K14
-        # or the DE family on every rung).
+                        ["17"], ["18"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17 or 18 alone (a first check of
+        # the blobs, the extension moves, the gradient moves, tempering,
+        # K14, the DE family on every rung or the gradient moves on every
+        # rung).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
                  "14": phase14, "15": phase15,
-                 "16": phase16, "17": phase17}[sys.argv[1]]
+                 "16": phase16, "17": phase17,
+                 "18": phase18}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -7375,6 +7902,12 @@ def main() -> int:
     _, rows17 = phase17(torch, np, dev, card)
     rows += rows17
     log(f"phase 17: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 18. the gradient moves on every rung --------------------------------
+    t0 = time.perf_counter()
+    _, rows18 = phase18(torch, np, dev, card)
+    rows += rows18
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

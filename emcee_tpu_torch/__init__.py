@@ -15,7 +15,9 @@ plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinate
 host, device and HDF5 backends; ``checkpoint`` saves and loads states.
 ``PTSampler`` runs a tempered ladder: the stretch, DE and DE-snooker
 moves propose every rung at once through the rung axis of K1, K5a, K5b
-and K2 (in mixtures too, ``mixture_block`` included), other moves (the
+and K2, the MALA, HMC, ensemble MALA and ensemble HMC moves through the
+rung axis of K11, K12, K13 and K2 (in mixtures too, ``mixture_block``
+included), other moves (the
 looped slice and ChEES moves among them) rung by rung, the
 even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
 with them, the ladder may adapt, and the chain goes into the host

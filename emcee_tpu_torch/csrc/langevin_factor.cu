@@ -25,6 +25,13 @@
 // contiguous span of each input, so its loads are coalesced within L1
 // lines; at ndim 100 (the ensemble moves) a thread walks 100 columns.
 //
+// The rung axis (parallel tempering: emcee_tpu/parallel/tempering.py:538
+// vmaps the chains over the ladder): kRungs reduces every rung of a
+// ladder in one launch, the grid's second dimension the rung; rung r's
+// rows of a, b, c and out lie one after the other and it reads its own
+// eps[r].  The one-ensemble instantiation (kRungs false) compiles to the
+// code of the kernel before the axis.
+//
 // Arithmetic uses the _rn intrinsics (no FMA contraction), so every
 // rounding matches the plain version.
 #include <cuda_runtime.h>
@@ -35,10 +42,21 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool kRungs>
 __global__ void __launch_bounds__(kThreads) langevin_factor_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     const float* __restrict__ c, const float* __restrict__ d,
     const float* __restrict__ eps, float* __restrict__ out, int n, int nd) {
+  if constexpr (kRungs) {
+    // The rung of this block: its rows, factors and eps.
+    const int rung = blockIdx.y;
+    const int64_t at = static_cast<int64_t>(rung) * n * nd;
+    a += at;
+    b += at;
+    if (c != nullptr) c += at;
+    if (eps != nullptr) eps += rung;
+    out += static_cast<int64_t>(rung) * n;
+  }
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const int64_t base = static_cast<int64_t>(r) * nd;
@@ -73,14 +91,17 @@ __global__ void __launch_bounds__(kThreads) langevin_factor_kernel(
 
 // Plain C entry point, bound with ctypes (ops/langevin_kernel.py).  Every
 // pointer is a device pointer; eps == nullptr selects the kinetic mode (c
-// and d unused).  Returns cudaGetLastError() after the launch.
+// and d unused).  ntemps rungs of n rows lie one after the other in a, b,
+// c and out, with eps (ntemps,) (ntemps = 1: one ensemble).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int emcee_langevin_factor(const float* a, const float* b,
                                      const float* c, const float* d,
                                      const float* eps, float* out, int n,
-                                     int nd, void* stream) {
-  const int grid = (n + kThreads - 1) / kThreads;
-  langevin_factor_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+                                     int nd, int ntemps, void* stream) {
+  const dim3 grid((n + kThreads - 1) / kThreads, ntemps);
+  auto kernel = ntemps > 1 ? langevin_factor_kernel<true>
+                           : langevin_factor_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, c, d, eps, out, n, nd);
   return static_cast<int>(cudaGetLastError());
 }

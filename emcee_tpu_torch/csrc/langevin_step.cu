@@ -71,6 +71,19 @@
 // takes nearly as long as the MALA step, and the instruction and byte
 // times overlap only in part.
 //
+// The rung axis (parallel tempering: emcee_tpu/parallel/tempering.py:538
+// vmaps these chains over the ladder): kRungs launches every rung of a
+// ladder at once, the grid's second dimension the rung.  Rung r's rows
+// of x, g, z and q lie one after the other (n * nd floats a rung), it
+// reads its own eps[r] and writes its own jitter v_out[r], and draws
+// under its own key keys[r] (the device table of ops/philox.py RungKeys)
+// at the one-ensemble counters (its rows row0 .. row0 + n - 1), so each
+// rung equals the one-ensemble launch under its key.  The launch plan
+// spreads every rung's rows over one wave (langevin_plan with rungs).
+// The one-ensemble instantiations (kRungs false) compile to the same
+// code as before the axis: the new kernel parameter comes last and every
+// use of it is under kRungs.
+//
 // Arithmetic uses the _rn intrinsics so that nvcc cannot contract a
 // multiply and an add into an FMA: every rounding matches the plain
 // version bit for bit.
@@ -98,8 +111,9 @@ __device__ __forceinline__ float mala_elem(float x, float g, float z,
 }
 
 // kDraw: z drawn (and written to z_out), else read from z_in; kMala: q
-// made from x and g; kDiag: d applied (MALA mode only).
-template <bool kDraw, bool kMala, bool kDiag>
+// made from x and g; kDiag: d applied (MALA mode only); kRungs: the rung
+// axis, rung blockIdx.y.
+template <bool kDraw, bool kMala, bool kDiag, bool kRungs>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) langevin_step_kernel(
     const float* __restrict__ x, const float* __restrict__ g,
     const float* __restrict__ d, const float* __restrict__ eps,
@@ -107,7 +121,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) langevin_step_kernel(
     float* __restrict__ q, float* __restrict__ v_out, uint32_t v_block,
     int n, int nd, int tile, uint32_t row0, uint32_t k0, uint32_t k1,
     const long long* __restrict__ offset_dev,
-    unsigned long long offset_inc) {
+    unsigned long long offset_inc, const long long* __restrict__ keys) {
+  if constexpr (kRungs) {
+    // The rung of this block: its rows, eps, jitter and key.
+    const int rung = blockIdx.y;
+    const int64_t at = static_cast<int64_t>(rung) * n * nd;
+    if constexpr (kMala) {
+      x += at;
+      g += at;
+      q += at;
+      eps += rung;
+    }
+    if constexpr (kDraw) {
+      z_out += at;
+    } else {
+      z_in += at;
+    }
+    if (v_out != nullptr) v_out += rung;
+    if (keys != nullptr) {
+      const auto key = static_cast<unsigned long long>(keys[rung]);
+      k0 = static_cast<uint32_t>(key);
+      k1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
   const int t = threadIdx.x;
   if (v_out != nullptr && blockIdx.x == 0 && t == 0) {
     const uint4 w = philox_at(EMCEE_ROLL_LANE, v_block,
@@ -200,6 +236,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) langevin_step_kernel(
   }
 }
 
+using LangevinKernel = void (*)(const float*, const float*, const float*,
+                                const float*, const float*, float*, float*,
+                                float*, uint32_t, int, int, int, uint32_t,
+                                uint32_t, uint32_t, const long long*,
+                                unsigned long long, const long long*);
+
+// The instantiation of a mode.
+template <bool kRungs>
+LangevinKernel langevin_step_mode(bool draw, bool mala, bool diag) {
+  return !mala ? (draw ? langevin_step_kernel<true, false, false, kRungs>
+                       : langevin_step_kernel<false, false, false, kRungs>)
+         : draw ? (diag ? langevin_step_kernel<true, true, true, kRungs>
+                        : langevin_step_kernel<true, true, false, kRungs>)
+                : (diag ? langevin_step_kernel<false, true, true, kRungs>
+                        : langevin_step_kernel<false, true, false, kRungs>);
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/langevin_kernel.py).  Every
@@ -208,28 +261,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) langevin_step_kernel(
 // drawing (z_out unused); d == nullptr is the identity preconditioner;
 // v_out != nullptr also writes the jitter's v of block v_block (n may then
 // be 0).  tile and grid are the launch plan of ops/langevin_kernel.py
-// langevin_plan: block b takes rows [b * tile, min((b + 1) * tile, n)).
-// The Philox offset is *offset_dev + offset (offset alone when offset_dev
-// is null).  Returns cudaGetLastError() after the launch.
+// langevin_plan: block b takes rows [b * tile, min((b + 1) * tile, n))
+// of every rung.  ntemps rungs of n rows lie one after the other in x, g,
+// z and q, with eps and v_out (ntemps,) (ntemps = 1: one ensemble, eps
+// and v_out one float each); keys == nullptr draws every rung under
+// seed, else rung r under keys[r] (a device table of ntemps keys).  The
+// Philox offset is *offset_dev + offset (offset alone when offset_dev is
+// null).  Returns cudaGetLastError() after the launch.
 extern "C" int emcee_langevin_step(
     const float* x, const float* g, const float* d, const float* eps,
     const float* z_in, float* z_out, float* q, float* v_out,
     unsigned int v_block, int n, int nd, int row0, int tile, int grid,
-    unsigned long long seed, const long long* offset_dev,
-    unsigned long long offset, void* stream) {
+    int ntemps, const long long* keys, unsigned long long seed,
+    const long long* offset_dev, unsigned long long offset, void* stream) {
   const bool draw = z_in == nullptr;
   const bool mala = x != nullptr;
   const bool diag = d != nullptr;
-  auto kernel =
-      !mala ? (draw ? langevin_step_kernel<true, false, false>
-                    : langevin_step_kernel<false, false, false>)
-      : draw ? (diag ? langevin_step_kernel<true, true, true>
-                     : langevin_step_kernel<true, true, false>)
-             : (diag ? langevin_step_kernel<false, true, true>
-                     : langevin_step_kernel<false, true, false>);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool rungs = ntemps > 1 || keys != nullptr;
+  auto kernel = rungs ? langevin_step_mode<true>(draw, mala, diag)
+                      : langevin_step_mode<false>(draw, mala, diag);
+  kernel<<<dim3(grid, ntemps), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       x, g, d, eps, z_in, z_out, q, v_out, v_block, n, nd, tile,
       static_cast<uint32_t>(row0), static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), offset_dev, offset);
+      static_cast<uint32_t>(seed >> 32), offset_dev, offset, keys);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,13 @@
 // with 5 flops an element.  One thread per element, consecutive threads on
 // consecutive addresses.
 //
+// The rung axis (parallel tempering: emcee_tpu/parallel/tempering.py:538
+// vmaps the chains over the ladder): kRungs steps every rung of a ladder
+// in one launch, the grid's second dimension the rung; rung r's rows of
+// x, p and g lie one after the other and it reads its own eps[r].  The
+// one-ensemble instantiation (kRungs false) compiles to the code of the
+// kernel before the axis.
+//
 // Arithmetic uses the _rn intrinsics (no FMA contraction), so every
 // rounding matches the plain version (ops/langevin_kernel.py
 // leapfrog_plain) bit for bit.
@@ -35,10 +42,26 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kRungs>
 __global__ void __launch_bounds__(kThreads) leapfrog_kernel(
     const float* x_in, float* x_out, const float* p_in, float* p_out,
     const float* __restrict__ g, const float* __restrict__ d,
     const float* __restrict__ eps, int n, int nd, int kicks) {
+  if constexpr (kRungs) {
+    // The rung of this block: its rows and eps.
+    const int rung = blockIdx.y;
+    const int64_t at = static_cast<int64_t>(rung) * n * nd;
+    p_in += at;
+    if (kicks > 0) {
+      p_out += at;
+      g += at;
+    }
+    if (x_in != nullptr) {
+      x_in += at;
+      x_out += at;
+    }
+    eps += rung;
+  }
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= static_cast<int64_t>(n) * nd) return;
@@ -64,15 +87,19 @@ __global__ void __launch_bounds__(kThreads) leapfrog_kernel(
 // Plain C entry point, bound with ctypes (ops/langevin_kernel.py).  Every
 // pointer is a device pointer.  kicks is 0, 1 or 2 (g, p_out unused at 0);
 // x_in == nullptr skips the drift (x_out unused); d == nullptr is the
-// identity metric.  Returns cudaGetLastError() after the launch.
+// identity metric.  ntemps rungs of n rows lie one after the other in
+// every row buffer, with eps (ntemps,) (ntemps = 1: one ensemble).
+// Returns cudaGetLastError() after the launch.
 extern "C" int emcee_leapfrog(const float* x_in, float* x_out,
                               const float* p_in, float* p_out,
                               const float* g, const float* d,
                               const float* eps, int n, int nd, int kicks,
-                              void* stream) {
+                              int ntemps, void* stream) {
   const int64_t total = static_cast<int64_t>(n) * nd;
-  const int grid = static_cast<int>((total + kThreads - 1) / kThreads);
-  leapfrog_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<int>((total + kThreads - 1) / kThreads),
+                  ntemps);
+  auto kernel = ntemps > 1 ? leapfrog_kernel<true> : leapfrog_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x_in, x_out, p_in, p_out, g, d, eps, n, nd, kicks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,6 +46,19 @@ the move is ``looped``: the chunk program reads the count once a
 proposal and replays a one-step leapfrog graph that many times
 (``chunk_graph.GraphLoops.repeat``); eagerly the loop is
 ``EagerLoops.repeat``, the JAX ``while_loop``'s steps one by one.
+
+On a tempered ladder (``emcee_tpu/parallel/tempering.py:538`` vmaps every
+move over the rungs) :class:`MALAMove`, :class:`HMCMove`,
+:class:`EnsembleMALAMove` and :class:`EnsembleHMCMove` are
+``rung_batched``: one proposal of every rung at once
+(``propose_rungs``), the state ``(T, nwalkers, ndim)``, ``rng`` ``(RungKeys,
+offset)``, the step size ``(T,)`` (each rung's tuned scale), one gradient
+of the tempered log-prob over ``T * n`` rows, and K11, K12, K13 and K2
+launched once a step for every rung (their rung axes).  Rung ``r`` ends
+exactly as the same move on rung ``r`` alone under its own key would
+leave it; where the full metrics' and the ensemble moves' products by
+``L`` run as one batched ``torch.matmul`` they may round otherwise than
+the rung's own (``ROADMAP.md`` section 3).  ChEES stays rung by rung.
 """
 
 from __future__ import annotations
@@ -153,13 +166,14 @@ class _Metric:
         return self.m if self.kind == "diag" else None
 
     def apply_L(self, v):
-        """``v -> v L^T`` (rows are walkers)."""
+        """``v -> v L^T`` (rows are walkers; a ``(T, d, d)`` ``L`` holds one
+        factor a rung)."""
         if self.kind == "id":
             return v
         if self.kind == "diag":
             return v * self.m
         with full_float32():
-            return v @ self.m.T
+            return v @ self.m.mT
 
     def apply_LT(self, v):
         """``v -> v L``: x-space gradients to y-space."""
@@ -193,14 +207,16 @@ def _draw(shape, device, seed, offset, row0, given):
 
 def _momenta(shape, device, rng, row0, split, extra, jitter):
     """An HMC proposal's momenta ``p0`` (rows ``row0 ..``) and, when
-    ``jitter``, the jitter's ``v = 2 u - 1`` of ``split`` (else None),
-    both from one K11 launch; ``extra`` injects either."""
+    ``jitter``, the jitter's ``v = 2 u - 1`` of ``split`` (else None; a
+    ``(T,)`` one on the rung axis), both from one K11 launch; ``extra``
+    injects either."""
     p0, v = extra.get("p0"), extra.get("v") if jitter else None
     if p0 is None or (jitter and v is None):
         seed, offset = rng
         out = None
         if jitter and v is None:
-            out = v = torch.empty((), dtype=torch.float32, device=device)
+            out = v = torch.empty(shape[:-2], dtype=torch.float32,
+                                  device=device)
         p0, _ = langevin_kernel.langevin_step(
             shape, device, seed=seed, offset=offset, row0=row0, z=p0, v=out,
             v_split=split)
@@ -246,9 +262,10 @@ def _hmc(x, eps, metric, grad, value_and_grad, p0, n_leapfrog):
 
 def _accept(rng, state, q, factors, lp_q, blobs_q, acc_count, accepted,
             log_u):
-    """K2 over the whole ensemble (``nsplits=1``), in place."""
+    """K2 over the whole ensemble (``nsplits=1``), in place; on the rung
+    axis every rung in one launch of K2's rung kernel."""
     if accepted is None:
-        accepted = torch.empty(state.coords.shape[0], dtype=torch.bool,
+        accepted = torch.empty(state.coords.shape[:-1], dtype=torch.bool,
                                device=state.coords.device)
     seed, offset = rng
     accept_kernel.accept_select(
@@ -263,6 +280,10 @@ class _GradientMove(ScaleTunable, Move):
     the optional preconditioner ``C = L L^T`` from ``cov`` (None, a
     positive scalar, a positive vector or a covariance matrix, factored
     on the host by numpy)."""
+
+    #: True for the moves that propose every rung of a ladder at once
+    #: (:meth:`propose_rungs`); ChEES's trip loop stays rung by rung
+    rung_batched = False
 
     def __init__(self, step_size, cov=None, tune_target=None,
                  tune_rate=0.2):
@@ -326,10 +347,32 @@ class _GradientMove(ScaleTunable, Move):
 
     def _eps(self, carry, x):
         """The step size times the tuned scale, a 0-d tensor on ``x``'s
-        device."""
-        eps = torch.full((), self.step_size, dtype=x.dtype, device=x.device)
+        device (``(T,)`` for ``(T, nwalkers, ndim)`` rows, each rung's
+        scale from its own carry)."""
+        eps = torch.full(x.shape[:-2], self.step_size, dtype=x.dtype,
+                         device=x.device)
         s = self._tuned_scale(carry, x.dtype)
         return eps if s is None else eps * s
+
+    def propose_rungs(self, rng, state, model, carry, acc_count=None,
+                      accepted=None, extra=None, log_u=None):
+        """One proposal of every rung of a ladder (``rung_batched`` moves):
+        ``state``'s buffers are ``(T, nwalkers, ...)``, ``rng`` is
+        ``(RungKeys, offset)``, ``model.compute_log_prob`` maps ``(T, n,
+        ndim)`` rows to ``(T, n)`` log-probs and blobs (and is
+        differentiated over all of them at once), the carry's tensors have
+        a leading ``T`` axis, and ``acc_count`` and ``accepted`` are ``(T,
+        nwalkers)``.  ``extra`` and ``log_u`` inject ``(T, ...)`` draws as
+        :meth:`propose` takes them.  Returns ``(state, accepted,
+        carry)``."""
+        if not self.rung_batched:
+            raise ValueError(f"{type(self).__name__} proposes one ensemble "
+                             "at a time")
+        if state.coords.dim() != 3:
+            raise ValueError("propose_rungs takes (ntemps, nwalkers, ndim) "
+                             "coordinates")
+        return self.propose(rng, state, model, carry, acc_count, accepted,
+                            extra=extra, log_u=log_u)
 
 
 class MALAMove(_GradientMove):
@@ -347,13 +390,15 @@ class MALAMove(_GradientMove):
         tune_rate: adaptation rate (decays as ``1/sqrt(t)``).
     """
 
+    rung_batched = True
+
     def propose(self, rng, state, model, carry, acc_count=None,
                 accepted=None, extra=None, log_u=None):
         """One MALA proposal of every walker, accepted through K2 in
         place.  ``extra={"z": ...}`` injects the noise and ``log_u`` the
         accept uniforms' logs (the parity mode)."""
         x = state.coords
-        metric = self._metric(x.shape[1], x.device)
+        metric = self._metric(x.shape[-1], x.device)
         eps = self._eps(carry, x)
         g_x = batch_grad(model)(x)
         q, f, lp_q, blobs_q = _mala(x, g_x, eps, metric,
@@ -383,6 +428,8 @@ class HMCMove(_GradientMove):
         tune_rate: adaptation rate.
     """
 
+    rung_batched = True
+
     def __init__(self, step_size, n_leapfrog=10, jitter=0.0, cov=None,
                  tune_target=None, tune_rate=0.2):
         super().__init__(step_size, cov=cov, tune_target=tune_target,
@@ -400,7 +447,7 @@ class HMCMove(_GradientMove):
         ``extra`` injects ``p0`` and the jitter's ``v`` in ``[-1, 1)``;
         ``log_u`` the accept uniforms' logs (the parity mode)."""
         x = state.coords
-        metric = self._metric(x.shape[1], x.device)
+        metric = self._metric(x.shape[-1], x.device)
         eps = self._eps(carry, x)
         p0, v = _momenta(tuple(x.shape), x.device, rng, 0, 0, extra or {},
                          self.jitter > 0.0)
@@ -600,33 +647,42 @@ class ChEESHMCMove(_GradientMove):
 def complement_chol(c, ridge):
     """The complement's sample covariance plus ``ridge`` on the diagonal,
     and its lower Cholesky factor (NaN where it does not exist), in full
-    float32: one ``(d, n) @ (n, d)`` product (``gradient.py:579-598``)."""
-    nc, nd = c.shape
-    X = (c - c.mean(dim=0)) / float(np.sqrt(np.float32(nc - 1.0)))
+    float32: one ``(d, n) @ (n, d)`` product (``gradient.py:579-598``).
+    On the rung axis (``c`` ``(T, n, d)``) every rung's in one batched
+    ``(T, d, n) @ (T, n, d)`` product and one batched Cholesky."""
+    nc = c.shape[-2]
+    X = ((c - c.mean(dim=-2, keepdim=True))
+         / float(np.sqrt(np.float32(nc - 1.0))))
     with full_float32():
-        C = X.T @ X
-    C.diagonal().add_(ridge)
+        C = X.mT @ X
+    C.diagonal(dim1=-2, dim2=-1).add_(ridge)
     return C, cholesky_or_nan(C)
 
 
 class _EnsembleGradient(RedBlueMove):
     """A red-blue gradient move: ``get_proposal`` returns ``(q,
     factors)`` as in the JAX package, and the engine's accept reuses the
-    log-prob and blobs of the gradient's forward pass at ``q``."""
+    log-prob and blobs of the gradient's forward pass at ``q``.  On the
+    rung axis (``coords`` ``(T, nwalkers, ndim)``, ``rng``'s seed a
+    :class:`~..ops.philox.RungKeys`, ``scale`` ``(T,)``) every rung's
+    group at once, each rung's metric from its own complement."""
 
     tunable = True
+    rung_batched = True
     #: the complement-covariance metric couples the dimensions
     _param_shard_ok = False
 
     def _group(self, coords, split, scale):
         """``(s, lo, eps, C, metric)`` of group ``split``: its rows, their
         first row, the step size (times the tuned ``scale``), and the
-        complement's covariance and metric."""
-        ng = coords.shape[0] // self.nsplits
+        complement's covariance and metric (``(T, ...)`` each on the
+        rung axis)."""
+        ng = coords.shape[-2] // self.nsplits
         lo = split * ng
-        s = coords[lo:lo + ng]
+        s = coords[..., lo:lo + ng, :].contiguous()
         C, L = complement_chol(complement(coords, split, ng), self.ridge)
-        eps = torch.full((), self.step_size, dtype=s.dtype, device=s.device)
+        eps = torch.full(coords.shape[:-2], self.step_size, dtype=s.dtype,
+                         device=s.device)
         if scale is not None:
             eps = eps * scale
         return s, lo, eps, C, _Metric("full", L)

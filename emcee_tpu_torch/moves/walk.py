@@ -42,9 +42,12 @@ __all__ = ["WalkMove", "cholesky_or_nan", "complement", "cov"]
 
 def complement(coords, split, ng):
     """The rows of every split but ``split``, in row order (the order of
-    ``jnp.concatenate(c_parts)`` in the JAX package)."""
+    ``jnp.concatenate(c_parts)`` in the JAX package); the walker axis is
+    the one before the last, so ``(T, nwalkers, ndim)`` rungs give each
+    rung's complement."""
     lo = split * ng
-    return torch.cat((coords[:lo], coords[lo + ng:]))
+    return torch.cat((coords[..., :lo, :], coords[..., lo + ng:, :]),
+                     dim=-2)
 
 
 def cov(x):
@@ -54,10 +57,11 @@ def cov(x):
 
 
 def cholesky_or_nan(a):
-    """The lower Cholesky factor of ``a``, NaN where it does not exist,
-    with no host sync (``torch.linalg.cholesky`` checks on the host)."""
+    """The lower Cholesky factor of ``a`` (of each matrix of a batch), NaN
+    where it does not exist, with no host sync (``torch.linalg.cholesky``
+    checks on the host)."""
     chol, info = torch.linalg.cholesky_ex(a)
-    return torch.where(info == 0, chol, torch.nan)
+    return torch.where((info == 0)[..., None, None], chol, torch.nan)
 
 
 class WalkMove(RedBlueMove):

@@ -112,18 +112,20 @@ _ARGTYPES = {
         _P, ctypes.c_uint,  # v_out, v_block
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd row0
         ctypes.c_int, ctypes.c_int,  # plan: tile grid
+        ctypes.c_int, _P,  # ntemps, the rungs' key table
         ctypes.c_ulonglong, _P, ctypes.c_ulonglong,  # seed, offset_dev, offset
         _P,  # stream
     ],
     "langevin_factor": [
         _P, _P, _P, _P, _P, _P,  # a, b, c, d, eps, out
-        ctypes.c_int, ctypes.c_int,  # n nd
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd ntemps
         _P,  # stream
     ],
     "leapfrog": [
         _P, _P, _P, _P,  # x_in, x_out, p_in, p_out
         _P, _P, _P,  # g, d, eps
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd kicks
+        ctypes.c_int,  # ntemps
         _P,  # stream
     ],
     "pt_swap": [

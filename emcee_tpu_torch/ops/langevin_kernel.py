@@ -37,12 +37,27 @@ kernels are what lies between the gradient evaluations.
 
 Every operation rounds once (``__f*_rn`` in the kernels, no FMA), in the
 JAX expression's order; ``eps`` is a 0-d float32 tensor on the rows'
-device (the tuned scale, step size and jitter, never read on the host).
+device (``(T,)`` on the rung axis below: the tuned scale, step size and
+jitter, never read on the host).
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other, and
 counts its launches in ``<wrapper>.launches`` (and in
 ``<wrapper>.device_launches``, when set, on the card:
 ``_wrap.count_launches``).
+
+The rung axis (parallel tempering: ``emcee_tpu/parallel/tempering.py:538``
+vmaps the chains over the ladder): every wrapper and plain version also
+takes ``(T, n, ndim)`` rows, ``T`` ensembles of one ladder, with ``eps``
+``(T,)`` (each rung's step size times its own tuned scale and jitter) and
+K11's jitter ``v`` ``(T,)``.  One launch serves every rung (the grid's
+second dimension the rung).  K11 draws rung ``r`` under its own key
+(``seed`` a :class:`~.philox.RungKeys`; an int only where nothing is
+drawn or ``T`` is 1) at the one-ensemble counters, so each rung equals
+the one-ensemble launch under ``keys.seeds[r]``; the plain versions draw
+every rung in one pass under ``keys.rounds`` (:func:`~.philox.normals`
+and :func:`~.philox.grad_uniform` under a ``RungKeys``) and do the
+one-ensemble arithmetic elementwise over the rungs, with no loop over
+them.
 
 K12 and K13 are bound by bytes (a few flops per element): at 1e5 x 5
 float32 K12 moves 6 MB (three rows of inputs), K13 10 MB between two
@@ -60,8 +75,9 @@ from typing import NamedTuple
 import torch
 
 from ._wrap import (
-    check_f32, count_launches, device_sm_count, launch, ptr, rng_args)
-from .philox import GRAD_BLOCK, grad_uniform, normals
+    check_f32, count_launches, device_sm_count, key_args, launch, ptr,
+    rng_args)
+from .philox import GRAD_BLOCK, RungKeys, grad_uniform, normals, rung_keys
 
 __all__ = ["LANGEVIN_BLOCKS_PER_SM", "LangevinPlan", "langevin_factor",
            "langevin_factor_plain", "langevin_plan", "langevin_step",
@@ -82,11 +98,13 @@ class LangevinPlan(NamedTuple):
     grid: int  #: blocks, ``ceil(n / tile)`` (1 without rows: the jitter alone)
 
 
-def langevin_plan(n, n_sm):
+def langevin_plan(n, n_sm, rungs=1):
     """K11's launch plan for ``n`` rows on a card of ``n_sm`` SMs: the
     rows spread evenly over one wave, ``n_sm * LANGEVIN_BLOCKS_PER_SM``
     blocks (fewer where there are fewer rows), each a tile of ``ceil(n /
-    blocks)`` consecutive rows.  On the H100 that is 253 rows and 396
+    blocks)`` consecutive rows.  With ``rungs`` > 1 (the rung axis) every
+    rung's ``n`` rows count toward the wave: the tile is ``ceil(rungs * n /
+    blocks)`` rows, and ``grid`` blocks (a rung's) run for each rung.  On the H100 that is 253 rows and 396
     blocks at the MALA stage's 1e5 rows, 13 rows and 385 blocks at
     ``EnsembleMALAMove``'s split of 5000.  Of one wave at 2-8 blocks an
     SM, 3 was the fastest at the MALA stage's shape; at 5000 rows 2 and
@@ -96,8 +114,14 @@ def langevin_plan(n, n_sm):
     so no base needs an alignment and no plan depends on one."""
     if n <= 0:
         return LangevinPlan(1, 1)
-    tile = -(-n // (n_sm * LANGEVIN_BLOCKS_PER_SM))
+    tile = -(-(n * rungs) // (n_sm * LANGEVIN_BLOCKS_PER_SM))
     return LangevinPlan(tile, -(-n // tile))
+
+
+def _per_rung(eps, k):
+    """A ``(T,)`` rung-axis ``eps`` with ``k`` axes added, to broadcast
+    over each rung's rows (a 0-d ``eps`` as it is)."""
+    return eps if eps.dim() == 0 else eps.view(eps.shape + (1,) * k)
 
 
 def _mala_q(x, g, z, eps, d):
@@ -112,8 +136,12 @@ def _mala_q(x, g, z, eps, d):
 def langevin_step_plain(shape, device, *, seed=0, offset=0, row0=0, z=None,
                         x=None, g=None, eps=None, d=None, v=None, v_split=0):
     """Plain PyTorch K11: ``(z, q)``, ``q`` None without ``x``; writes the
-    jitter's ``v`` into ``v`` when given."""
-    n, nd = shape
+    jitter's ``v`` into ``v`` when given.  On the rung axis (``shape``
+    ``(T, n, ndim)``) every rung's draws come from one pass under its own
+    key (an int ``seed`` stands for :func:`~.philox.rung_keys` of it)."""
+    n, nd = shape[-2:]
+    if len(shape) == 3 and not isinstance(seed, RungKeys):
+        seed = rung_keys(seed, shape[0], device)
     if v is not None:
         v.copy_(grad_uniform(seed, v_split, offset, device, plain=True)
                 * 2.0 - 1.0)
@@ -121,13 +149,26 @@ def langevin_step_plain(shape, device, *, seed=0, offset=0, row0=0, z=None,
         z = normals(n, nd, seed, offset, device, row0=row0, plain=True)
     if x is None:
         return z, None
-    return z, _mala_q(x, g, z, eps, d)
+    return z, _mala_q(x, g, z, _per_rung(eps, 2), d)
 
 
 def _check_rows(name, t, device, shape):
+    """``t`` None or float32 rows of ``shape``: ``(n, ndim)``, or ``(T, n,
+    ndim)`` on the rung axis."""
+    if len(shape) not in (2, 3):
+        raise ValueError(f"{name} must be (rows, ndim) or (rungs, rows, "
+                         "ndim)")
     check_f32(name, t, device, shape)
-    if t is not None and t.dim() != 2:
-        raise ValueError(f"{name} must be (rows, ndim)")
+
+
+def _lead(shape):
+    """``(T,)`` of a rung-axis shape, ``()`` of one ensemble's; raises
+    for anything else."""
+    if len(shape) not in (2, 3) or (len(shape) == 3
+                                    and not 1 <= shape[0] < 65536):
+        raise ValueError(f"rows must be (n, ndim) or (T, n, ndim) with 1 "
+                         f"to 65535 rungs, got {tuple(shape)}")
+    return tuple(int(s) for s in shape[:-2])
 
 
 def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
@@ -137,8 +178,11 @@ def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
     ``row0 .. row0 + n - 1`` of the ``(seed, offset)`` stream unless ``z``
     injects them.  With ``v``, a 0-d float32 tensor, the same launch
     writes into it the HMC moves' step-size jitter ``2 u - 1`` of split
-    ``v_split`` (:func:`~.philox.grad_uniform`).  Returns ``(z, q)``;
-    ``q`` is None without ``x``."""
+    ``v_split`` (:func:`~.philox.grad_uniform`).  On the rung axis
+    (``shape`` ``(T, n, ndim)``) every row argument is ``(T, n, ndim)``,
+    ``eps`` and ``v`` are ``(T,)`` and ``seed`` the rungs'
+    :class:`~.philox.RungKeys` (where anything is drawn and ``T`` > 1).
+    Returns ``(z, q)``; ``q`` is None without ``x``."""
     device = torch.device(device)
     kw = dict(seed=seed, offset=offset, row0=row0, z=z, x=x, g=g, eps=eps,
               d=d, v=v, v_split=v_split)
@@ -148,38 +192,46 @@ def langevin_step(shape, device, *, seed=0, offset=0, row0=0, z=None,
         raise ValueError(f"no K11 kernel for device {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    n, nd = (int(s) for s in shape)
-    if n * nd >= 2**31 or row0 < 0 or row0 + n >= 2**31:
+    lead = _lead(shape)
+    shape = lead + tuple(int(s) for s in shape[-2:])
+    n, nd = shape[-2:]
+    ntemps = lead[0] if lead else 1
+    if ntemps * n * nd >= 2**31 or row0 < 0 or row0 + n >= 2**31:
         raise ValueError("rows out of range for K11's counters")
-    _check_rows("z", z, device, (n, nd))
+    _check_rows("z", z, device, shape)
     if x is not None:
-        _check_rows("x", x, device, (n, nd))
+        _check_rows("x", x, device, shape)
         if g is None or eps is None:
             raise ValueError("K11's MALA mode needs g and eps")
-        _check_rows("g", g, device, (n, nd))
-    check_f32("eps", eps, device, ())
+        _check_rows("g", g, device, shape)
+    check_f32("eps", eps, device, lead)
     check_f32("d", d, device, (nd,))
-    check_f32("v", v, device, ())
+    check_f32("v", v, device, lead)
+    # Refuses here, before any allocation, rungs that draw without keys.
+    key_args(seed, device, ntemps, injected=z is not None and v is None)
     z_out = None
     if z is None:
-        z_out = z = torch.empty((n, nd), dtype=torch.float32, device=device)
+        z_out = z = torch.empty(shape, dtype=torch.float32, device=device)
     q = None if x is None else torch.empty_like(x)
     if n or v is not None:
         # Injected z and no x: no row has work, only the jitter.
         rows = n if z_out is not None or x is not None else 0
-        _launch(langevin_plan(rows, device_sm_count(device)), device, x, g,
-                d, eps, None if z_out is not None else z, z_out, q, v,
-                v_split, n, nd, row0, seed, offset)
+        _launch(langevin_plan(rows, device_sm_count(device), ntemps), device,
+                x, g, d, eps, None if z_out is not None else z, z_out, q, v,
+                v_split, n, nd, row0, seed, offset, ntemps)
         count_launches(langevin_step)
     return z, q
 
 
 def _launch(plan, device, x, g, d, eps, z_in, z_out, q, v, v_split, n, nd,
-            row0, seed, offset):
-    """Launch K11 with launch plan ``plan`` on checked arguments."""
+            row0, seed, offset, ntemps=1):
+    """Launch K11 with launch plan ``plan`` on checked arguments (``ntemps``
+    rungs of ``n`` rows; ``seed`` an int or a :class:`~.philox.RungKeys`)."""
     launch("langevin_step", device, ptr(x), ptr(g), ptr(d), ptr(eps),
            ptr(z_in), ptr(z_out), ptr(q), ptr(v), GRAD_BLOCK | int(v_split),
-           n, nd, int(row0), *plan, *rng_args(seed, offset, device))
+           n, nd, int(row0), *plan,
+           *key_args(seed, device, ntemps, injected=True),
+           *rng_args(0, offset, device)[1:])
 
 
 langevin_step.launches = 0
@@ -187,54 +239,59 @@ langevin_step.device_launches = None
 
 
 def _row_sums(*terms):
-    """Each ``(n, ndim)`` term summed over its row, column by column from
-    +0.0 (the kernel's order)."""
+    """Each ``(..., n, ndim)`` term summed over its rows, column by column
+    from +0.0 (the kernel's order)."""
     out = []
     for t in terms:
-        acc = torch.zeros(t.shape[0], dtype=t.dtype, device=t.device)
-        for j in range(t.shape[1]):
-            acc = acc + t[:, j]
+        acc = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+        for j in range(t.shape[-1]):
+            acc = acc + t[..., j]
         out.append(acc)
     return out
 
 
 def langevin_factor_plain(a, b, c=None, *, eps=None, d=None):
-    """Plain PyTorch K12: ``(n,)``.  Without ``eps`` the kinetic term
-    ``(sum a^2 - sum b^2) / 2``; with it MALA's Hastings factor of
-    ``z = a`` and ``w = d (b + c)``."""
+    """Plain PyTorch K12: ``(n,)`` (``(T, n)`` on the rung axis).  Without
+    ``eps`` the kinetic term ``(sum a^2 - sum b^2) / 2``; with it MALA's
+    Hastings factor of ``z = a`` and ``w = d (b + c)``."""
     if eps is None:
         s1, s2 = _row_sums(a * a, b * b)
         return 0.5 * (s1 - s2)
     w = b if c is None else b + c
     if d is not None:
         w = w * d
-    r = (-eps) * a - (0.5 * (eps * eps)) * w
+    e = _per_rung(eps, 2)
+    r = (-e) * a - (0.5 * (e * e)) * w
     s1, s2 = _row_sums(a * a, r * r)
-    return (s1 - s2 / (eps * eps)) / 2.0
+    e = _per_rung(eps, 1)
+    return (s1 - s2 / (e * e)) / 2.0
 
 
 def langevin_factor(a, b, c=None, *, eps=None, d=None):
     """K12 on the rows' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns the ``(n,)`` factors."""
+    version for CPU tensors.  Returns the ``(n,)`` factors (``(T, n)`` of
+    ``(T, n, ndim)`` rows and a ``(T,)`` ``eps``)."""
     dev = a.device
     kw = dict(eps=eps, d=d)
     if dev.type == "cpu":
         return langevin_factor_plain(a, b, c, **kw)
     if dev.type != "cuda":
         raise ValueError(f"no K12 kernel for device {dev}")
-    if a.dim() != 2:
-        raise ValueError("a must be (rows, ndim)")
-    n, nd = a.shape
+    lead = _lead(a.shape)
+    n, nd = a.shape[-2:]
+    ntemps = lead[0] if lead else 1
+    if ntemps * n * nd >= 2**31:
+        raise ValueError("rows too many for int32 indexing")
     for name, t in (("a", a), ("b", b), ("c", c)):
-        _check_rows(name, t, dev, (n, nd))
-    check_f32("eps", eps, dev, ())
+        _check_rows(name, t, dev, tuple(a.shape))
+    check_f32("eps", eps, dev, lead)
     check_f32("d", d, dev, (nd,))
     if eps is None and (c is not None or d is not None):
         raise ValueError("K12's kinetic mode takes a and b only")
-    out = torch.empty(n, dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     if n:
         launch("langevin_factor", dev, a.data_ptr(), b.data_ptr(), ptr(c),
-               ptr(d), ptr(eps), out.data_ptr(), n, nd)
+               ptr(d), ptr(eps), out.data_ptr(), n, nd, ntemps)
         count_launches(langevin_factor)
     return out
 
@@ -247,7 +304,8 @@ def leapfrog_plain(p, g, eps, *, d=None, kicks=1, x=None, x_out=None,
                    p_out=None):
     """Plain PyTorch K13, writing the kernel's outputs; returns ``(x_out,
     p_out)`` (``x_out`` None without ``x``; ``p`` itself when
-    ``kicks=0``)."""
+    ``kicks=0``).  On the rung axis ``eps`` is ``(T,)``."""
+    eps = _per_rung(eps, 2)
     if kicks:
         lt = g if d is None else g * d
         hk = (0.5 * eps) * lt
@@ -270,7 +328,8 @@ def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None):
     """K13 on the rows' device: ``kicks`` (0, 1 or 2) half-kicks of ``p``
     by ``g`` into ``p_out`` (in place by default), then with ``x`` the
     drift into ``x_out`` (in place by default).  The CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Returns ``(x_out,
+    tensors, the plain version for CPU tensors.  On the rung axis the rows
+    are ``(T, n, ndim)`` and ``eps`` is ``(T,)``.  Returns ``(x_out,
     p_out)``."""
     dev = p.device
     kw = dict(d=d, kicks=kicks, x=x, x_out=x_out, p_out=p_out)
@@ -280,24 +339,27 @@ def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None):
         raise ValueError(f"no K13 kernel for device {dev}")
     if kicks not in (0, 1, 2):
         raise ValueError("kicks must be 0, 1 or 2")
-    if p.dim() != 2:
-        raise ValueError("p must be (rows, ndim)")
-    n, nd = p.shape
-    _check_rows("p", p, dev, (n, nd))
-    check_f32("eps", eps, dev, ())
+    lead = _lead(p.shape)
+    shape = tuple(p.shape)
+    n, nd = shape[-2:]
+    ntemps = lead[0] if lead else 1
+    if ntemps * n * nd >= 2**31:
+        raise ValueError("rows too many for int32 indexing")
+    _check_rows("p", p, dev, shape)
+    check_f32("eps", eps, dev, lead)
     check_f32("d", d, dev, (nd,))
     if kicks:
         if g is None:
             raise ValueError("a kick needs g")
-        _check_rows("g", g, dev, (n, nd))
+        _check_rows("g", g, dev, shape)
         p_out = p if p_out is None else p_out
-        _check_rows("p_out", p_out, dev, (n, nd))
+        _check_rows("p_out", p_out, dev, shape)
     else:
         p_out = None
     if x is not None:
-        _check_rows("x", x, dev, (n, nd))
+        _check_rows("x", x, dev, shape)
         x_out = x if x_out is None else x_out
-        _check_rows("x_out", x_out, dev, (n, nd))
+        _check_rows("x_out", x_out, dev, shape)
     elif kicks == 0:
         raise ValueError("K13 with no kick and no drift does nothing")
     else:
@@ -305,7 +367,7 @@ def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None):
     if n:
         launch("leapfrog", dev, ptr(x), ptr(x_out), p.data_ptr(),
                ptr(p_out), ptr(g if kicks else None), ptr(d), eps.data_ptr(),
-               n, nd, int(kicks))
+               n, nd, int(kicks), ntemps)
         count_launches(leapfrog)
     return x_out, p if p_out is None else p_out
 

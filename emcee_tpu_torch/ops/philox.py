@@ -298,9 +298,12 @@ def roll_uniforms(seed, split, offset, device, plain=False):
 def grad_uniform(seed, split, offset, device, plain=False):
     """The gradient moves' jitter uniform of ``split`` (word 0 at
     ``(ROLL_LANE, GRAD_BLOCK | split, offset)``), a 0-d float32 tensor on
-    ``device``, computed there (``offset`` may be a device word)."""
-    return word_uniforms(1, 1, GRAD_BLOCK | split, seed, offset, device,
-                         row0=ROLL_LANE, plain=plain).reshape(())
+    ``device``, computed there (``offset`` may be a device word).  Under
+    a :class:`RungKeys` ``seed``, ``(T,)``: rung ``r``'s under its own
+    key, every rung from one pass."""
+    u = word_uniforms(1, 1, GRAD_BLOCK | split, seed, offset, device,
+                      row0=ROLL_LANE, plain=plain)
+    return u.reshape(-1 if isinstance(seed, RungKeys) else ())
 
 
 def sub_seed(seed, k):
@@ -560,7 +563,9 @@ def normals(n, d, seed, offset, device, dtype=torch.float32, row0=0,
     """``(n, d)`` standard normals of rows ``row0 .. row0 + n - 1``:
     normal ``2k`` of a row by Box-Muller on words 0 and 2 of counter
     ``(row, block | k, offset)``, normal ``2k + 1`` on words 1 and 3
-    (:func:`box_muller`)."""
+    (:func:`box_muller`).  Under a :class:`RungKeys` ``seed``, ``(T, n,
+    d)``: rung ``r``'s rows under its own key, every rung from one pass
+    (K11's draws on the rung axis)."""
     return _draw(plain)("normals", n, None, block, seed, offset,
                         device, row0=row0, d=d, dtype=dtype)
 

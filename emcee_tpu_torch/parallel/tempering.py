@@ -11,10 +11,12 @@ parity.
 Where the JAX package vmaps one move over the rungs (one fused XLA
 program for all of them), the port proposes every rung at once where the
 move's kernels take the rung axis (the stretch, DE and DE-snooker moves:
-K1, K5a or K5b and K2 launch once a split for all rungs, and the
-tempered log-prob is evaluated once over ``T * ng`` rows), and otherwise
-loops over the rungs, each an ensemble of its own with its own tempered
-model, carry and key.  The
+K1, K5a or K5b and K2 launch once a split for all rungs; the MALA, HMC,
+ensemble MALA and ensemble HMC moves: K11, K12, K13 and K2 launch once a
+step for all rungs; the tempered log-prob, and its gradient, is
+evaluated once over ``T * n`` rows), and otherwise loops over the rungs,
+each an ensemble of its own with its own tempered model, carry and
+key.  The
 swap is K15 (``ops/swap_kernel.py``).  A chunk runs through
 :class:`~..chunk_graph.TemperedProgram`: on a CUDA device every proposal
 is a replay of its CUDA graphs; on the CPU the same function runs
@@ -32,8 +34,9 @@ host from the same steps (:meth:`PTSampler._count_proposed_delta`).
 A weighted move list runs as the JAX package's does: one move a proposal
 for every rung, or one a block of ``mixture_block`` kept steps, drawn on
 the host from the chain's seed (``driver.move_sequence``); the chunk
-program runs each stretch of equal moves, the stretch, DE and
-DE-snooker moves on every rung at once and any other move rung by rung.  The looped moves
+program runs each stretch of equal moves, the stretch, DE, DE-snooker,
+MALA, HMC, ensemble MALA and ensemble HMC moves on every rung at once
+and any other move rung by rung.  The looped moves
 (``EnsembleSliceMove``, ``ChEESHMCMove``) run their loops rung by rung,
 each rung's by replays of its own graphs.
 
@@ -252,7 +255,7 @@ class PTSampler:
         # K3's tempered program (made at the first run); the private
         # switches: _use_graphs (off: the eager loop on the card, the
         # reference) and _batched (off: every move loops over the rungs,
-        # the rung-batched stretch, DE and DE-snooker moves too).
+        # the rung-batched moves too).
         self._program = None
         self._use_graphs = self.device.type == "cuda"
         self._batched = True

@@ -442,6 +442,27 @@ def test_langevin_plan_is_one_wave_that_covers_the_rows(n, n_sm):
         -(-n // (plan.tile - 1)) > n_sm * LANGEVIN_BLOCKS_PER_SM)
 
 
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 200_000), st.integers(1, 200), st.integers(1, 64))
+@example(256, H100_SMS, 16)
+@example(128, H100_SMS, 16)
+def test_langevin_plan_spreads_every_rung_over_one_wave(n, n_sm, rungs):
+    """K11's rung axis: ``grid`` blocks of ``tile`` rows cover each rung's
+    rows once, every rung's blocks fill at most one wave (one ragged block
+    a rung beyond it), a tile one row shorter would need more, and one
+    rung is the one-ensemble plan."""
+    plan = langevin_plan(n, n_sm, rungs)
+    wave = n_sm * LANGEVIN_BLOCKS_PER_SM
+    if rungs == 1:
+        assert plan == langevin_plan(n, n_sm)
+    if n == 0:
+        assert plan == (1, 1)
+        return
+    assert (plan.grid - 1) * plan.tile < n <= plan.grid * plan.tile
+    assert rungs * (plan.grid - 1) < wave
+    assert plan.tile == 1 or rungs * -(-n // (plan.tile - 1)) > wave
+
+
 @pytest.mark.parametrize("n, nd, plan", [
     (100_000, 5, (253, 396)),  # bench.py's MALA stage
     (5_000, 100, (13, 385)),  # EnsembleMALAMove's split on workload 3

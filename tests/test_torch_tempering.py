@@ -583,5 +583,8 @@ def test_pt_with_de_move_per_rung(batched):
 
 @pytest.mark.slow
 def test_pt_with_gradient_move():
-    """The twin of test_tempering.py:273 (MALA)."""
-    per_rung_loop_oracle(moves.MALAMove(0.8), 1500)
+    """The twin of test_tempering.py:273: ``MALAMove(0.8)`` and
+    ``EnsembleMALAMove(0.8)``, each on every rung at once (K11-K13's rung
+    axis)."""
+    for mv in (moves.MALAMove(0.8), moves.EnsembleMALAMove(0.8)):
+        per_rung_loop_oracle(mv, 1500, batched=True)
