@@ -63,8 +63,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    eager); K3's replay and host times; and a log-prob that synchronizes
    with the host is refused with an error.
 
-10. the moves of plain torch (MH, Gaussian, walk, KDE) at full width
-   through K3, K7 and K6, the diagnostics and ``run_until_converged``;
+10. the moves of plain torch (MH, Gaussian, walk) and the KDE move (K7) at
+   full width through K3 (K7's launches held to exactly 2 a KDE
+   proposal: one a split for ``s`` and ``q``), K6, the diagnostics and
+   ``run_until_converged``;
 11. blobs and io: K2 with blob leaves against its plain version bit for
    bit (six dtypes, five row shapes, 1-3, 17 and 33 leaves, unaligned
    bases, scalar leaves through registers, scalar and wider leaves in
@@ -223,8 +225,29 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    K12 and K13 with the rung axis.  ``python3 chip_smoke.py 18`` runs
    phases 0, 1 and 18 alone.
 
+19. K7, the KDE log-density (``csrc/kde_logpdf.cu``): (a) K7 against its
+   plain version bit for bit (NaN included): rows 1-1e5, kernels 1-5e4
+   with lanes left idle, ndim 1-128 (above 8 through shared memory, at
+   128 above 48 KB of it), forced plans, rows far from every kernel, a
+   NaN factor and ``s`` and ``q`` stacked through ``moves/kde.py``, and
+   the rung axis (1-64 rungs, each rung of 3 against the one-ensemble
+   launch); (b) K7 alone at phase 10's shape (5e4 x 5e4 x 5) beside the
+   blocked matmul + logsumexp route it replaced ("before"), the plain
+   version, each route's peak memory, the bound, and rows a warp x tiles
+   timed; (c) ``KDEMove()`` at 1e5 x 5-D: walker-steps/s graph against
+   eager in turns, device µs and kernels a proposal, launches by device
+   words (2 K7, 2 K2, 5 K14); (d) ``KDEMove()`` at workload 4's
+   configuration: graph chain == the plain versions' eager chain bit for
+   bit, the batched path against the per-rung loop (bit for bit, or each
+   rung's kernel covariance and factor held to 1e-4), both in turns,
+   launches by device words (2 K7, 2 K2, 5 K14, 1 K15), K7's rows a warp
+   timed in the ladder's replays, and 512 kept x 4 into
+   ``PTDeviceBackend`` held to phase 14's windows; (e) the rows of K7 and
+   K7 with the rung axis.  ``python3 chip_smoke.py 19`` runs phases 0, 1
+   and 19 alone.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
+18, 19.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
 TREE`` builds TREE's and this checkout's K1, K2, K5a, K5b, K11, K12, K13
 and K15 and compares their SASS function by function.
 
@@ -316,7 +339,8 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("langevin_kernel", "langevin_factor"),
            ("langevin_kernel", "leapfrog"),
            ("swap_kernel", "pt_swap"),
-           ("philox_kernel", "philox_draw"))
+           ("philox_kernel", "philox_draw"),
+           ("kde_kernel", "kde_logpdf"))
 #: ndims and rows of K11-K13's edge-shape sweep (phase 13)
 GRAD_SWEEP_NDS = (1, 2, 3, 5, 7, 16, 100, 128)
 GRAD_SWEEP_ROWS = (1, 2, 31, 5003, 100_000)
@@ -1784,11 +1808,10 @@ def phase10(torch, np, dev, card, chains):
     graph vs eager in turns, and K2's launches per proposal as the
     profiler counts them; KDE's peak memory; the diagnostics on the
     device chains of phases 4 and 8; one ``run_until_converged`` into a
-    ``DeviceBackend``.  Returns the numbers and the K6 / K7 rows."""
+    ``DeviceBackend``.  Returns the numbers and the K6 row (K7's rows
+    are phase 19's)."""
     from emcee_tpu_torch import moves
-    from emcee_tpu_torch.moves import kde as kde_mod
-    from emcee_tpu_torch.moves.kde import kde_logpdf
-    from emcee_tpu_torch.moves.walk import cholesky_or_nan, cov
+    from emcee_tpu_torch.ops import kde_kernel
     from emcee_tpu_torch.ops.philox import normals
 
     p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
@@ -1819,78 +1842,17 @@ def phase10(torch, np, dev, card, chains):
         ("KDEMove()", moves.KDEMove, 8, 2, 5),
     )
     out = {"moves": {}}
-    # K7's calls, counted on the card: the move's log-density adds one to
-    # a device word at each call, and the add is recorded into the
-    # graphs, so every replayed call counts too.
+    # K7's launches, counted on the card: the wrapper adds one to a device
+    # word at each launch, and the add is recorded into the graphs beside
+    # the launch, so every replayed launch counts too.
     k7_calls = torch.zeros((), dtype=torch.int64, device=dev)
-
-    def counted_logpdf(*args, **kw):
-        k7_calls.add_(1)
-        return kde_logpdf(*args, **kw)
-
-    kde_mod.kde_logpdf = counted_logpdf
+    kde_kernel.kde_logpdf.device_launches = k7_calls
     try:
         for config in configs:
             out["moves"][config[0]] = phase10_move(
                 torch, np, dev, card, p0, config, k7_calls)
     finally:
-        kde_mod.kde_logpdf = kde_logpdf
-    kde_launches = out["moves"]["KDEMove()"]["k7_calls"]
-
-    # K7 alone at the KDE proposal's shape: one log-density of ng rows
-    # under ng kernels, blocked (the port) and as one ng x nc matrix (the
-    # JAX package's formula), on the inputs of one split.
-    gen = torch.Generator(device=dev).manual_seed(23)
-    ng = NW // 2
-    torch.cuda.empty_cache()  # the one-matrix formula needs ~40 GB
-    x = torch.randn(ng, ND, device=dev, generator=gen)
-    c = torch.randn(ng, ND, device=dev, generator=gen)
-    chol = cholesky_or_nan(ng ** (-2.0 / (ND + 4)) * cov(c))
-    got = kde_logpdf(x, c, chol)
-    ms_k7 = cuda_ms(torch, lambda: kde_logpdf(x, c, chol), reps=5)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    whole = kde_logpdf(x, c, chol, block_bytes=1 << 62)
-    peak_whole = torch.cuda.max_memory_allocated()
-    ms_whole = cuda_ms(torch, lambda: kde_logpdf(x, c, chol,
-                                                 block_bytes=1 << 62), reps=5)
-    err_k7 = float((got - whole).abs().max())
-    del whole
-    # Bound: what the function needs.  Bytes: x, c and the factor read
-    # once, ng log-densities written once (the ng x nc matrix is the
-    # route's, not the function's).  Operations, per pair of a row and a
-    # kernel: the cross term (2 ND), the squared distance (3), the scale
-    # (1), logsumexp's max, subtract and sum (3) at the float32 rate,
-    # and one exponential at the special-function rate.
-    pairs = ng * ng
-    k7_bytes = 4 * (2 * ng * ND + ND * ND + ng)
-    times7 = {"bytes": k7_bytes / HBM_BYTES_PER_S * 1e3,
-              "operations": max(pairs * (2 * ND + 7) / F32_OPS_PER_S,
-                                pairs / SFU_OPS_PER_S) * 1e3}
-    k7_by = max(times7, key=times7.get)
-    # The matrix written once and read once, as the blocked and the
-    # one-matrix routes move it.
-    materialised_ms = 2 * pairs * 4 / HBM_BYTES_PER_S * 1e3
-    out["k7"] = {
-        "name": "kde_logpdf", "route": "cuda",
-        "source": "emcee_tpu_torch/moves/kde.py",
-        "replaces": "emcee_tpu/moves/kde.py:88", "launches": kde_launches,
-        "max_abs_err": err_k7, "ms": ms_k7, "plain_ms": ms_whole,
-        "bound_ms": times7[k7_by], "bound_by": k7_by, "library_ms": None,
-        "bound_ms_bytes": times7["bytes"],
-        "bound_ms_operations": times7["operations"],
-        "matrix_bytes_ms": materialised_ms,
-        "note": "plain torch (triangular solves, one matmul in row blocks, "
-                "logsumexp); plain_ms is the unblocked JAX formula; "
-                "launches are the KDE run's calls, counted on the card",
-        "peak_memory_bytes_unblocked": peak_whole}
-    log(f"phase 10: K7 kde_logpdf at {ng} x {ng} x {ND}: {ms_k7:.3f} ms "
-        f"blocked, {ms_whole:.3f} ms as one matrix (peak "
-        f"{peak_whole / 2**30:.2f} GiB), max abs diff {err_k7:.3g}; bound "
-        f"{times7[k7_by]:.3f} ms ({k7_by}; bytes {times7['bytes']:.4f} ms); "
-        f"the matrix written and read once {materialised_ms:.3f} ms; "
-        f"{kde_launches} calls in the KDE run (device counter) {card}")
-    del x, c, got
+        kde_kernel.kde_logpdf.device_launches = None
     return phase10_rest(torch, np, dev, card, chains, p0, out)
 
 
@@ -1903,10 +1865,12 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     label, make_move, n, k2_per, k14_per = config
 
     def per_of(smp):
-        """The path's launches a proposal: K2's, and K14's (a number, or
-        the slice move's :class:`LoopDraws` of this sampler's move)."""
+        """The path's launches a proposal: K2's, K14's (a number, or the
+        slice move's :class:`LoopDraws` of this sampler's move) and the
+        KDE move's K7 (one a split: ``s`` and ``q`` in one launch)."""
         k14 = (k14_per(smp._moves[0]) if callable(k14_per) else k14_per)
-        return {"accept_select": k2_per, "philox_draw": k14}
+        return {"accept_select": k2_per, "philox_draw": k14,
+                "kde_logpdf": 2 if kde else 0}
 
     def make():
         return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=12,
@@ -1932,8 +1896,8 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     looped = smps[True]._moves[0].looped
     if not looped:
         smps[True]._program.graph(0, n_prof, False)
-    # A KDE proposal is ~0.2 s on the card: two per turn.
-    n_timed = 2 if kde else n
+    # A KDE proposal is ~10 ms on the card: sixteen per turn.
+    n_timed = 16 if kde else n
     if n_timed != n:
         smps[True]._program.graph(0, n_timed, False)
     rates = {False: [], True: []}
@@ -1947,10 +1911,10 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     acc = float(smp.last_run_stats.acceptance_fraction.mean())
     if not -3.5 < mean_lp < -1.5:  # bench.py:161
         raise AssertionError(f"{phase}: {label}: mean log-prob {mean_lp}")
-    # K2's launches by the profiler, each window checked on its own.  A
-    # KDE proposal is ~2000 kernels, so KDE takes four windows of one
-    # proposal, each also holding K7's device count to 4 (two splits,
-    # two log-densities).  Each window's kernel events are printed.
+    # K2's launches by the profiler, each window checked on its own.  KDE
+    # takes four windows of one proposal, each also holding K7's device
+    # count to 2 (two splits, each one launch for s and q).  Each window's
+    # kernel events are printed.
     busy_us, events = 0.0, []
     k14 = per_of(smp)["philox_draw"]
     for _ in range(4 if kde else 1):
@@ -1976,14 +1940,15 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
                 return {"stretch_propose": 0,
                         "accept_select": k2_per * n_prof,
                         "de_propose": 0, "snooker_propose": 0,
-                        "philox_draw": k14 * n_prof}
+                        "philox_draw": k14 * n_prof,
+                        "kde_logpdf": (2 if kde else 0) * n_prof}
 
             wall, kernels, counts, _ = counted_window(
                 torch, lambda: drive(smp, None, n_prof, store=False), expect,
                 label)
         k7_window = int(k7_calls) - k7_before[-1]
         events.append(sum(c for c, _ in kernels.values()))
-        if k7_window != (4 * n_prof if kde else 0):
+        if k7_window != (2 * n_prof if kde else 0):
             raise AssertionError(
                 f"{label}: K7 calls {k7_window}; {events[-1]} kernel "
                 "events")
@@ -2006,7 +1971,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
         f"{counts['philox_draw']} ({'device words' if looped else 'profiler'}"
         f") in {len(events)} "
         f"window(s) of {n_prof} proposal(s), kernel events {events}"
-        + (f"; K7 calls {row['k7_calls']} (device counter); peak memory "
+        + (f"; K7 launches {row['k7_calls']} (device counter); peak memory "
            f"{row['peak_memory_bytes'] / 2**30:.2f} GiB" if kde else "")
         + f" ({row['seconds']:.1f} s) {card}")
     return row
@@ -7006,6 +6971,652 @@ def phase18_rows(torch, dev, out, card):
     return rows_out
 
 
+# -- 19. K7, the KDE log-density ---------------------------------------------
+#: one-ensemble shapes (rows, kernels, ndim) of K7's sweep: ragged lanes
+#: (kernels not a multiple of 32), one kernel, ndim 1-8 in registers and
+#: 9-128 through shared memory (128: above 48 KB, the kernel's opt-in), and
+#: the main path's launch (s and q of a split stacked: 1e5 rows, 5e4
+#: kernels)
+K7_SWEEP = ((1, 1, 1), (31, 33, 3), (1000, 31, 1), (7, 2000, 2),
+            (257, 100, 8), (100, 77, 9), (64, 300, 17), (40, 129, 128),
+            (5003, 1000, 5), (NW, NW // 2, ND))
+#: forced plans (rows a warp, warps, tile) held to the plain version beside
+#: the wrapper's own on the small shapes
+K7_SWEEP_PLANS = ((1, 4, 32), (2, 8, 64), (3, 1, 128), (8, 2, 96))
+#: rungs, and shapes (rows, kernels, ndim) a rung, of the rung axis's sweep
+K7R_SWEEP_T = (1, 2, 3, 16, 64)
+K7R_SWEEP = ((256, 128, 5), (33, 47, 3), (10, 70, 12))
+#: rows a warp timed at the main path's shape (eagerly, tiles 64 and 256)
+#: and on workload 4's ladder (in its replays)
+K7_TIME_ROWS = (1, 2, 4, 8)
+K7_TIME_TILES = (64, 256)
+#: each rung's complement covariance and Cholesky factor on the batched
+#: path against its own (the per-rung loop's), relative to 1 + |value|,
+#: where the batched products round otherwise (PT18_TOL's rule)
+PT19_TOL = 1e-4
+#: KDEMove()'s kernels a proposal at 1e5 walkers and on workload 4's
+#: ladder (every rung at once): K7 and K2 a split, K14 the shuffle's sort
+#: keys and a split's kernel centres and noise, K15 the swap
+PT19_PER = {"kde_logpdf": 2, "accept_select": 2, "philox_draw": 5,
+            "pt_swap": 1}
+MAIN19_PER = {"kde_logpdf": 2, "accept_select": 2, "philox_draw": 5}
+#: proposals a replay of the per-rung loop's timed graph
+PT19_LOOP_N = 4
+
+
+def slow_ms(torch, fn, reps=2):
+    """Mean time of one call of a slow ``fn`` (tens of ms or more) on the
+    card by CUDA events, after one warm-up call."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def forced_kde_plan(rows, warps, tile):
+    """K7's wrapper launching with ``rows`` a warp, ``warps`` a block and
+    tiles of ``tile`` kernels (the shared memory its layout needs)."""
+    from emcee_tpu_torch.ops import kde_kernel as kk
+
+    saved = kk.kde_plan
+
+    def plan(n, nd, n_sm, rungs=1):
+        return kk.KDEPlan(rows, warps, tile, kk.kde_smem(nd, rows, warps,
+                                                        tile))
+
+    kk.kde_plan = plan
+    try:
+        yield
+    finally:
+        kk.kde_plan = saved
+
+
+def blocked_logpdf(torch, x, c, chol, block_bytes=256 << 20):
+    """The route K7 had before its kernel (``moves/kde.py`` until this
+    slice), kept here as the "before" yardstick: triangular solves, the
+    ``ns x nc`` cross term by ``torch.matmul`` in row blocks of
+    ``block_bytes``, and ``torch.logsumexp`` over each block."""
+    n, nd = x.shape
+    nc = c.shape[0]
+    xw = torch.linalg.solve_triangular(chol, x.T, upper=False).T
+    cw = torch.linalg.solve_triangular(chol, c.T, upper=False).T
+    x2 = (xw**2).sum(dim=1, keepdim=True)
+    c2 = (cw**2).sum(dim=1)[None, :]
+    lognorm = (math.log(nc) + 0.5 * nd * math.log(2.0 * math.pi)
+               + torch.log(torch.diagonal(chol)).sum())
+    rows = max(1, block_bytes // (nc * x.element_size()))
+    out = []
+    for lo in range(0, n, rows):
+        d2 = x2[lo:lo + rows] + c2 - 2.0 * (xw[lo:lo + rows] @ cw.T)
+        out.append(torch.logsumexp(-0.5 * d2, dim=1))
+    return torch.cat(out) - lognorm
+
+
+def k7_sweep(torch, dev):
+    """(a) K7 against its plain version, bit for bit (the bits compared,
+    NaN included): ``K7_SWEEP``'s one-ensemble shapes by the wrapper's
+    plan, the small ones also by ``K7_SWEEP_PLANS``; a NaN factor through
+    ``moves/kde.py`` (whitening and all); rows far from every kernel (each
+    exp below float32's range); and the rung axis (``K7R_SWEEP_T`` rungs
+    of ``K7R_SWEEP``'s shapes, each rung of 3 also against the
+    one-ensemble launch).  Returns the count of comparisons."""
+    from emcee_tpu_torch.moves import kde as kde_mod
+    from emcee_tpu_torch.moves.walk import cholesky_or_nan, cov
+    from emcee_tpu_torch.ops import kde_kernel as kk
+
+    gen = torch.Generator(device=dev).manual_seed(190)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        same_bits([got], [want], what)
+        n_cmp += 1
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    for n, nc, nd in K7_SWEEP:
+        x, c = rnd(n, nd), rnd(nc, nd, scale=1.5)
+        norm = rnd(())
+        want = kk.kde_logpdf_plain(x, c, norm)
+        what = f"K7 sweep n={n} nc={nc} nd={nd}"
+        same(kk.kde_logpdf(x, c, norm), want, what)
+        if n * nc <= 1 << 22:
+            for rows, warps, tile in K7_SWEEP_PLANS:
+                with forced_kde_plan(rows, warps, tile):
+                    same(kk.kde_logpdf(x, c, norm), want,
+                         f"{what} plan {(rows, warps, tile)}")
+        far = x + 300.0  # every term below float32's exp range
+        same(kk.kde_logpdf(far, c, norm), kk.kde_logpdf_plain(far, c, norm),
+             f"{what}, far rows")
+    # A complement that is not positive definite: a NaN factor, NaN rows.
+    x, c = rnd(100, 3), rnd(64, 3)
+    bad = cholesky_or_nan(torch.tensor([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0],
+                                        [0.0, 0.0, 1.0]], device=dev))
+    got = kde_mod.kde_logpdf(x, c, bad)
+    with plain_kernels():
+        want = kde_mod.kde_logpdf(x, c, bad)
+    if not bool(torch.isnan(got).all()):
+        raise AssertionError("K7 sweep: a NaN factor gave rows not NaN")
+    same(got, want, "K7 sweep, a NaN factor")
+    # Through the move's route: whitening, the normaliser, s and q stacked.
+    x, c = rnd(5000, 5), rnd(5000, 5)
+    chol = cholesky_or_nan(5000 ** (-2.0 / 9) * cov(c))
+    got = kde_mod._logpdfs((x[:2500], x[2500:]), c, chol)
+    with plain_kernels():
+        want = kde_mod._logpdfs((x[:2500], x[2500:]), c, chol)
+    for g, w in zip(got, want):
+        same(g, w, "K7 sweep, s and q stacked through moves/kde.py")
+    for T in K7R_SWEEP_T:
+        for n, nc, nd in K7R_SWEEP:
+            x, c = rnd(T, n, nd), rnd(T, nc, nd, scale=1.5)
+            norm = rnd(T)
+            if T == 3:
+                x[2, n // 2, 0] = float("nan")  # one rung's row NaN
+            got = kk.kde_logpdf(x, c, norm)
+            what = f"K7 rung sweep T={T} n={n} nc={nc} nd={nd}"
+            same(got, kk.kde_logpdf_plain(x, c, norm), what)
+            with forced_kde_plan(1, 8, 32):
+                same(kk.kde_logpdf(x, c, norm), got, f"{what}, plan 1-8-32")
+            if T == 3:
+                for r in range(T):
+                    same(kk.kde_logpdf(x[r], c[r], norm[r]), got[r],
+                         f"{what}: rung {r} against one ensemble")
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def k7_alone(torch, dev, card):
+    """(b) K7 alone at phase 10's shape (one split of 1e5 walkers: 5e4
+    rows under 5e4 kernels, ndim 5): the kernel a log-density and as the
+    path launches it (s and q stacked, 1e5 rows), the plain version, the
+    old blocked route ("before", ``blocked_logpdf``), each route's peak
+    memory, the bound, and rows a warp x tiles timed.  Every time here is
+    by CUDA events around back-to-back calls (a launch is milliseconds,
+    its host cost tens of microseconds): late in the whole script the
+    profiler has recorded no launch of three in a window, six windows in
+    a row."""
+    from emcee_tpu_torch.moves import kde as kde_mod
+    from emcee_tpu_torch.moves.walk import cholesky_or_nan, cov
+    from emcee_tpu_torch.ops import kde_kernel as kk
+    from emcee_tpu_torch.ops._wrap import device_sm_count
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ng = NW // 2
+    torch.cuda.empty_cache()
+    x = torch.randn(2 * ng, ND, device=dev, generator=gen)
+    c = torch.randn(ng, ND, device=dev, generator=gen)
+    chol = cholesky_or_nan(ng ** (-2.0 / (ND + 4)) * cov(c))
+    s = x[:ng]
+    out = {}
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    one = lambda: kde_mod.kde_logpdf(s, c, chol)  # noqa: E731
+    stacked = lambda: kde_mod._logpdfs((s, x[ng:]), c, chol)  # noqa: E731
+    before = lambda: blocked_logpdf(torch, s, c, chol)  # noqa: E731
+    got, old = one(), before()
+    out["max_abs_diff_before"] = float((got - old).abs().max())
+    out["ms"] = slow_ms(torch, one, reps=5)
+    out["ms_stacked"] = slow_ms(torch, stacked, reps=5)
+    out["ms_before"] = slow_ms(torch, before, reps=3)
+    with plain_kernels():
+        out["plain_ms"] = slow_ms(torch, one, reps=1)
+    out["peak_bytes"] = peak(one)
+    out["peak_bytes_before"] = peak(before)
+    # K7 itself, without the whitening.
+    xw, cw = kde_mod._whiten(x, chol), kde_mod._whiten(c, chol)
+    norm = torch.zeros((), device=dev)
+    sweep = {}
+    for rows in K7_TIME_ROWS:
+        for tile in K7_TIME_TILES:
+            with forced_kde_plan(rows, kk.KDE_WARPS, tile):
+                sweep[(rows, tile)] = slow_ms(
+                    torch, lambda: kk.kde_logpdf(xw, cw, norm), reps=3)
+    out["plan"] = tuple(kk.kde_plan(2 * ng, ND, device_sm_count(dev)))
+    out["kernel_ms_stacked"] = slow_ms(
+        torch, lambda: kk.kde_logpdf(xw, cw, norm), reps=5)
+    xw1 = xw[:ng]
+    out["kernel_ms_one"] = slow_ms(
+        torch, lambda: kk.kde_logpdf(xw1, cw, norm), reps=5)
+    out["plan_sweep_ms"] = {f"{r}x{t}": v for (r, t), v in sweep.items()}
+    # Bound: what the function needs.  Bytes: the rows and kernels read
+    # once, the log-densities written once.  Operations, per pair of a
+    # row and a kernel: the cross term (2 ND), the squared distance (3),
+    # the scale (1), logsumexp's max, subtract and sum (3) at the float32
+    # rate, and one exponential at the special-function rate.
+    for key, rows in (("", ng), ("_stacked", 2 * ng)):
+        pairs = rows * ng
+        t = {"bytes": 4 * ((rows + ng) * ND + ND * ND + rows)
+             / HBM_BYTES_PER_S * 1e3,
+             "operations": max(pairs * (2 * ND + 7) / F32_OPS_PER_S,
+                               pairs / SFU_OPS_PER_S) * 1e3}
+        by = max(t, key=t.get)
+        out[f"bound_ms{key}"], out[f"bound_by{key}"] = t[by], by
+        out[f"bound_ms_bytes{key}"] = t["bytes"]
+    out["matrix_bytes_ms"] = 2 * ng * ng * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 19: (b) K7 at {ng} x {ng} x {ND}: {out['ms']:.3f} ms a "
+        f"log-density with its whitening ({out['kernel_ms_one']:.3f} ms the "
+        f"kernel alone), {out['ms_stacked']:.3f} ms s and q stacked as the "
+        f"path launches it ({out['kernel_ms_stacked']:.3f} ms the kernel; "
+        f"plan {out['plan']}); before (the blocked matmul + "
+        f"logsumexp route) {out['ms_before']:.3f} ms, max abs diff "
+        f"{out['max_abs_diff_before']:.3g}; plain version "
+        f"{out['plain_ms']:.1f} ms; peak memory {out['peak_bytes']} B "
+        f"(before {out['peak_bytes_before']} B); bound {out['bound_ms']:.3f}"
+        f" ms a log-density ({out['bound_by']}; bytes "
+        f"{out['bound_ms_bytes']:.4f} ms), {out['bound_ms_stacked']:.3f} ms "
+        f"stacked; the matrix written and read once "
+        f"{out['matrix_bytes_ms']:.3f} ms {card}")
+    log("phase 19: (b) K7 ms a stacked launch by rows a warp x tile "
+        "(CUDA events): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out["plan_sweep_ms"].items())
+        + f" {card}")
+    return out
+
+
+def k7_main(torch, np, dev, card, n=16, n_prof=2):
+    """(c) ``KDEMove()`` at 1e5 walkers x 5-D (phase 10's configuration):
+    walker-steps/s graph against eager in turns (eager, graph, graph,
+    eager; ``n`` proposals each), device µs and kernels a proposal and
+    K7's device time a launch in a profiled window of replays, and the
+    replayed launches counted by device words, exactly ``MAIN19_PER`` a
+    proposal."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
+    smps = {}
+    for graphs in (False, True):
+        smp = smps[graphs] = EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=19, device=dev,
+            moves=moves.KDEMove())
+        smp._use_graphs = graphs
+        drive(smp, p0, 2, per_proposal=MAIN19_PER, store=False,
+              skip_initial_state_check=True)
+    smps[True]._program.graph(0, n, False)
+    smps[True]._program.graph(0, n_prof, False)
+    rates = {False: [], True: []}
+    for graphs in (False, True, True, False):
+        _, dt = drive(smps[graphs], None, n, per_proposal=MAIN19_PER,
+                      store=False)
+        rates[graphs].append(n * NW / dt)
+    smp = smps[True]
+    mean_lp = float(smp._previous_state.log_prob.mean())
+    if not -3.5 < mean_lp < -1.5:  # bench.py:161
+        raise AssertionError(f"phase 19: KDEMove() mean log-prob {mean_lp}")
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n_prof, store=False),
+                      n_prof, "KDEMove() at 1e5", names=MAIN19_PER)
+    counted, _ = counted_replays(
+        torch, dev, smp, n_prof,
+        lambda r: {k: v * n_prof for k, v in MAIN19_PER.items()},
+        "KDEMove() at 1e5", store=False)
+    out = dict(rates=rates, mean_lp=mean_lp, win=win,
+               replayed_launches=counted, proposals_counted=n_prof,
+               acceptance=float(smp.last_run_stats.acceptance_fraction
+                                .mean()))
+    log(f"phase 19: (c) KDEMove() at {NW} x {ND}: walker-steps/s in turns "
+        f"eager {rates[False][0]:.4e}, graph {rates[True][0]:.4e}, graph "
+        f"{rates[True][1]:.4e}, eager {rates[False][1]:.4e}; mean lp "
+        f"{mean_lp:.4f}, acceptance {out['acceptance']:.4f}; a proposal: "
+        f"device {measured(win['device_us_per_proposal'])} us, "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels, idle "
+        f"share {measured(win['idle'], '.4f')}; K7 "
+        f"{measured(win['ms_per_launch']['kde_logpdf'], '.3f')} ms a launch "
+        f"in the replays; replayed launches in {n_prof} proposals "
+        f"{ {k: v for k, v in counted.items() if v} } (device words; "
+        f"exactly {MAIN19_PER} a proposal) {card}")
+    return out
+
+
+def pt19_sampler(dev, seed, backend=None):
+    """Workload 4's sampler with ``KDEMove()``."""
+    from emcee_tpu_torch import moves
+
+    return pt_sampler(dev, seed=seed, backend=backend, move=moves.KDEMove())
+
+
+def pt19_metric_diff(smp, offset=3):
+    """``KDEMove()``'s kernel covariance and Cholesky factor of every rung
+    at once against each rung's own, from the state in ``smp``'s
+    workspace, both blocked splits, and one proposal's ``q`` and factors
+    (the draws from the stream): the largest differences relative to ``1 +
+    |value|`` (:func:`pt18_rel`)."""
+    from emcee_tpu_torch.moves.walk import cholesky_or_nan, complement, cov
+
+    prog = smp._program
+    ws, mv = prog.ws, smp._moves[0]
+    ng = ws.coords.shape[1] // mv.nsplits
+    worst = dict(C=0.0, L=0.0, q=0.0, factors=0.0)
+    for split in range(mv.nsplits):
+        c = complement(ws.coords, split, ng)
+        k = mv._factor(c.shape[-2], c.shape[-1]) ** 2
+        C = k * cov(c)
+        L = cholesky_or_nan(C)
+        q, f = mv.get_proposal((prog.keys, offset), ws.coords, split,
+                               prog.model(ws))
+        for r, seed in enumerate(prog.keys.seeds):
+            Cr = k * cov(c[r])
+            one = (Cr, cholesky_or_nan(Cr)) + mv.get_proposal(
+                (seed, offset), ws.coords[r], split, prog.model(ws, r))
+            for key, a, b in zip(worst, one, (C[r], L[r], q[r], f[r])):
+                worst[key] = max(worst[key], pt18_rel(a, b))
+    return worst
+
+
+def pt19_path(torch, np, dev, card, p0, n_c=16, n_l=PT19_LOOP_N, kept=512,
+              thin=4):
+    """(d) ``KDEMove()`` at workload 4's configuration: over 64 proposals
+    the graph chain (every rung at once) against the plain versions' eager
+    chain, bit for bit, and against the per-rung loop (bit for bit, or
+    where the batched products round otherwise each rung's kernel
+    covariance and factor held to ``PT19_TOL`` and the first kept step
+    where the chains part logged); both paths in turns (batched, loop,
+    loop, batched): host µs, device µs and kernels a proposal; the batched
+    path's launches counted by device words (``PT19_PER``); K7's device
+    time a launch in the replays at every rows a warp of
+    ``K7_TIME_ROWS``; then 512 kept x 4 into ``PTDeviceBackend`` with phase
+    14's checks."""
+    from emcee_tpu_torch.backends import PTDeviceBackend
+    from emcee_tpu_torch.ops import kde_kernel as kk
+    from emcee_tpu_torch.ops._wrap import device_sm_count
+
+    out = {}
+    t0 = time.perf_counter()
+    ends = []
+    for plain in (False, True):
+        smp = pt19_sampler(dev, 67)
+        smp._use_graphs = not plain
+        with plain_kernels() if plain else contextlib.nullcontext():
+            ends.append(pt_runs(smp, p0))
+    same_ends(np, *ends, "KDEMove(): graph-replayed and eager plain chains")
+    paths = {}
+    for batched in (True, False):
+        smp = pt19_sampler(dev, 68)
+        smp._batched = batched
+        paths[batched] = (smp, pt_runs(smp, p0))
+        smp.run_mcmc(None, n_c if batched else n_l, store=False)
+    a, b = paths[True][1], paths[False][1]
+    exact = all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+    out["batched_equals_loop"] = exact
+    if not exact:
+        parted = np.nonzero(np.any(a[0] != b[0], axis=(1, 2, 3)))[0]
+        out["chains_part_at_kept_step"] = (int(parted[0]) if parted.size
+                                           else None)
+        out["same_acceptance"] = bool(np.array_equal(a[3], b[3]))
+        # From one state: the batched path's workspace.
+        out["metric_diff"] = d = pt19_metric_diff(paths[True][0])
+        if not max(d["C"], d["L"]) <= PT19_TOL:
+            raise AssertionError(
+                f"phase 19: KDEMove(): every rung's kernel covariance and "
+                f"factor at once against each rung's own: {d} above "
+                f"{PT19_TOL}")
+    out["swaps_64"] = a[4].tolist()
+    host = {True: [], False: []}
+    dev_us = {True: [], False: []}
+    kernels = {True: [], False: []}
+    for batched in (True, False, False, True):
+        smp, n = (paths[True][0], n_c) if batched else (paths[False][0], n_l)
+        _, dt = drive(smp, None, n, store=False)
+        host[batched].append(dt / n * 1e6)
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False),
+                          n, f"KDEMove() {'batched' if batched else 'loop'}")
+        dev_us[batched].append(win["device_us_per_proposal"])
+        kernels[batched].append(win["kernels_per_proposal"])
+    smp = paths[True][0]
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n_c, store=False),
+                      n_c, "KDEMove() batched, its kernels", names=PT19_PER)
+    counted, profiled = counted_replays(
+        torch, dev, smp, n_c, lambda r: {k: v * n_c
+                                         for k, v in PT19_PER.items()},
+        "KDEMove() batched", store=False)
+    out.update(host_us=host, device_us=dev_us, kernels=kernels, win=win,
+               replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n_c, loop_proposals_a_replay=n_l)
+    del paths
+    # K7's rows a warp in the ladder's own replays (forced plans, each on
+    # a sampler recorded under it).
+    plan_us = {}
+    for rows in K7_TIME_ROWS:
+        with forced_kde_plan(rows, kk.KDE_WARPS, kk.KDE_TILE):
+            s2 = pt19_sampler(dev, 69)
+            s2.run_mcmc(p0, 4, thin_by=4, skip_initial_state_check=True)
+            s2.run_mcmc(None, n_c, store=False)  # records the window's graph
+            w = busy_window(torch, lambda: s2.run_mcmc(None, n_c,
+                                                       store=False),
+                            n_c, f"KDEMove() K7 rows {rows}",
+                            names={"kde_logpdf": 2})
+        plan_us[rows] = w["ms_per_launch"]["kde_logpdf"] * 1e3
+    out["plan_sweep_us"] = plan_us
+    out["plan"] = tuple(kk.kde_plan(2 * (NW4 // 2), ND4,
+                                    device_sm_count(dev), NT4))
+    out["seconds_paths"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    smp = pt19_sampler(dev, 4, backend=PTDeviceBackend())
+    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
+    warm_graphs(smp)
+    dt = float("inf")
+    for _ in range(2):  # workloads5.py:224-233: the best of two
+        smp.reset()
+        st, dt_run = drive(smp, st, kept, thin_by=thin,
+                           skip_initial_state_check=True)
+        dt = min(dt, dt_run)
+    n_prop = kept * thin
+    cold = smp.get_chain(temp=0)
+    tau = tau_of(np, cold, thin)
+    swap_mean = float(np.mean(smp.tswap_acceptance_fraction))
+    x0 = cold[..., 0]
+    mode_frac = float(np.mean(x0 > 0))
+    mean_abs, spread = float(np.mean(np.abs(x0))), float(np.std(np.abs(x0)))
+    checks = {
+        "swap acceptance mean in (0.4, 0.9)": 0.4 < swap_mean < 0.9,
+        "cold mode fraction in (0.25, 0.75)": 0.25 < mode_frac < 0.75,
+        "cold mean |x0| within 0.25 of 4": abs(mean_abs - PT_SEP) < 0.25,
+        "cold spread of |x0| within 0.2 of 1": abs(spread - 1.0) < 0.2,
+        "tau finite": bool(np.isfinite(tau)),
+    }
+    out["workload4"] = res = dict(
+        walker_steps_per_s=NT4 * NW4 * n_prop / dt, seconds=dt, tau_cold=tau,
+        ess_per_s_cold=NW4 * (n_prop / dt) / tau,
+        tau_reliable=bool(n_prop / tau >= 30.0),
+        swap_acceptance_mean=swap_mean, cold_mode_fraction=mode_frac,
+        cold_mean_abs_x0=mean_abs, cold_spread_abs_x0=spread,
+        cold_acceptance=float(smp.acceptance_fraction[0].mean()),
+        checks=checks)
+    log(f"phase 19: (d) KDEMove(), workload 4's configuration, "
+        f"PTDeviceBackend, 512 kept x 4: {res['walker_steps_per_s']:.4e} "
+        f"walker-steps/s over all rungs (best of two), cold tau "
+        f"{tau:.2f} proposals, cold ESS/s {res['ess_per_s_cold']:.4e}, "
+        f"tau_reliable {res['tau_reliable']}, swap acceptance mean "
+        f"{swap_mean:.3f}, cold mode fraction {mode_frac:.3f}, cold mean "
+        f"|x0| {mean_abs:.3f} (spread {spread:.3f}), cold acceptance "
+        f"{res['cold_acceptance']:.3f}; checks {checks} {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 19: KDEMove(): workload 4 checks "
+                             f"{checks} (swap {swap_mean}, mode {mode_frac},"
+                             f" |x0| {mean_abs} +- {spread}, tau {tau})")
+    return out
+
+
+def phase19(torch, np, dev, card):
+    """K7, the KDE log-density (see the module docstring, 19): the sweep of
+    K7 and its rung axis, K7 alone at phase 10's shape beside the old
+    route, ``KDEMove()`` at 1e5 walkers and on workload 4's ladder (every
+    rung at once against the per-rung loop), each path's kernel launches
+    counted from 0 just before it, and the rows of K7 and K7 with the rung
+    axis.  Returns its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k7_sweep(torch, dev)
+    log(f"phase 19: (a) K7 and its rung axis against the plain version "
+        f"(one ensemble: (rows, kernels, ndim) {K7_SWEEP}, forced plans "
+        f"{K7_SWEEP_PLANS} on the small shapes, rows far from every kernel; "
+        f"a NaN factor and s and q stacked through moves/kde.py; rungs "
+        f"{K7R_SWEEP_T} of {K7R_SWEEP}, each rung of 3 against the "
+        f"one-ensemble launch): {out['sweep']} comparisons, all bit for bit"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k7_alone(torch, dev, card)
+    log(f"phase 19: (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with path_launches(out, "KDEMove() at 1e5", ("kde_logpdf",
+                                                 "accept_select",
+                                                 "philox_draw"), "phase 19"):
+        out["main"] = k7_main(torch, np, dev, card)
+    log(f"phase 19: (c) {time.perf_counter() - t0:.1f} s")
+    p0 = pt_p0(np)
+    t0 = time.perf_counter()
+    with path_launches(out, "KDEMove() at workload 4",
+                       tuple(PT19_PER), "phase 19"):
+        r = out["ladder"] = pt19_path(torch, np, dev, card, p0)
+    if r["batched_equals_loop"]:
+        held = "equal the per-rung loop bit for bit"
+    else:
+        d = r["metric_diff"]
+        held = (f"part from the per-rung loop at kept step "
+                f"{r['chains_part_at_kept_step']} (acceptance the same: "
+                f"{r['same_acceptance']}); from one state, both splits, "
+                f"relative to 1 + |value|: each rung's kernel covariance and "
+                f"Cholesky factor within {d['C']:.3e} and {d['L']:.3e} of "
+                f"its own (held to {PT19_TOL}), one proposal's q and factors "
+                f"within {d['q']:.3e} and {d['factors']:.3e}")
+    log(f"phase 19: (d) KDEMove() at {NT4} x {NW4} x {ND4}: 64 "
+        f"graph-replayed proposals of every rung at once equal the plain "
+        f"versions' eager chain bit for bit, and {held} (swaps "
+        f"{r['swaps_64']})")
+    log(f"phase 19: (d) KDEMove() in turns (batched, loop, loop, batched; "
+        f"replays of {r['proposals_counted']} and "
+        f"{r['loop_proposals_a_replay']} proposals), a proposal: host "
+        f"{[round(x, 1) for x in r['host_us'][True]]} / "
+        f"{[round(x, 1) for x in r['host_us'][False]]} us, device "
+        f"{[measured(x) for x in r['device_us'][True]]} / "
+        f"{[measured(x) for x in r['device_us'][False]]} us, kernels "
+        f"{[measured(x, '.0f') for x in r['kernels'][True]]} / "
+        f"{[measured(x, '.0f') for x in r['kernels'][False]]} (batched / "
+        f"loop); batched launches in {r['proposals_counted']} proposals "
+        f"{ {k: v for k, v in r['replayed_launches'].items() if v} } (device"
+        f" words; exactly {PT19_PER} a proposal); us a launch in its "
+        f"replays: " + ", ".join(
+            f"{k} {measured(v and v * 1e3, '.3f')}"
+            for k, v in r["win"]["ms_per_launch"].items())
+        + f"; K7 us a launch by rows a warp (forced, in replays): "
+        f"{ {k: round(v, 3) for k, v in r['plan_sweep_us'].items()} }, the "
+        f"plan's {r['plan']} {card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 19: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase19_rows(torch, dev, out, card)
+
+
+def phase19_rows(torch, dev, out, card):
+    """(e) The rows of K7 (at the main path's shape: ``KDEMove()`` at 1e5
+    walkers, s and q of a split in one launch) and of K7 with the rung axis
+    (workload 4's ladder): device time a launch in the path's replays
+    (profiler), launches counted by device words there, a back-to-back
+    call's time and the plain version's (CUDA events), registers, and the
+    least time the card could take."""
+    from emcee_tpu_torch.ops import kde_kernel as kk
+
+    al, mn, ld = out["alone"], out["main"], out["ladder"]
+    rows = []
+    regs = PTXAS.get("kde_logpdf_kernel<(int)5, false>")
+    rows.append({
+        "name": "kde_logpdf", "route": "cuda",
+        "source": "emcee_tpu_torch/csrc/kde_logpdf.cu",
+        "replaces": "emcee_tpu/moves/kde.py:89-106",
+        "launches": mn["replayed_launches"]["kde_logpdf"],
+        "max_abs_err": 0.0,
+        "ms": mn["win"]["ms_per_launch"]["kde_logpdf"],
+        "call_ms": al["ms_stacked"], "plain_ms": al["plain_ms"],
+        "bound_ms": al["bound_ms_stacked"],
+        "bound_by": al["bound_by_stacked"], "library_ms": None,
+        "ms_before_per_logdensity": al["ms_before"],
+        "ms_per_logdensity": al["ms"],
+        "kernel_ms_per_logdensity": al["kernel_ms_one"],
+        "bound_ms_per_logdensity": al["bound_ms"],
+        "peak_bytes": al["peak_bytes"],
+        "peak_bytes_before": al["peak_bytes_before"],
+        "max_abs_diff_before": al["max_abs_diff_before"],
+        "plan": al["plan"], "plan_sweep_ms": al["plan_sweep_ms"],
+        "ptxas": regs,
+        "launches_per_proposal": (mn["replayed_launches"]["kde_logpdf"]
+                                  / mn["proposals_counted"]),
+        "wrapper_launches": out["launches"]["KDEMove() at 1e5"]["kde_logpdf"],
+        "note": "K7 at KDEMove()'s shape (1e5 walkers x 5: s and q of a "
+                "split, 1e5 rows, under 5e4 kernels a launch): ms in the "
+                "path's replays (profiler); call_ms the move's route "
+                "(whitening and K7) back to back; plain_ms the plain version "
+                "a log-density of 5e4 rows; launches counted on the card in "
+                "replayed proposals; max_abs_err: bit for bit over phase "
+                "19's sweep; bound: the pairs' operations (2 ndim + 7 at the "
+                "float32 rate, one exp at the special-function rate); "
+                "before: the blocked matmul + logsumexp route a log-density; "
+                "library_ms: none, no single PyTorch call computes it"})
+    T, nw, nd = NT4, NW4, ND4
+    ng = nw // 2
+    gen = torch.Generator(device=dev).manual_seed(191)
+    x = torch.randn(T, 2 * ng, nd, device=dev, generator=gen)
+    c = 4.0 * torch.randn(T, ng, nd, device=dev, generator=gen)
+    norm = torch.randn(T, device=dev, generator=gen)
+    call_ms = cuda_ms(torch, lambda: kk.kde_logpdf(x, c, norm))
+    plain_ms = cuda_ms(torch, lambda: kk.kde_logpdf_plain(x, c, norm),
+                       reps=20)
+    pairs = T * 2 * ng * ng
+    t = {"bytes": 4 * T * (2 * ng * nd + ng * nd + 1 + 2 * ng)
+         / HBM_BYTES_PER_S * 1e3,
+         "operations": max(pairs * (2 * nd + 7) / F32_OPS_PER_S,
+                           pairs / SFU_OPS_PER_S) * 1e3}
+    by = max(t, key=t.get)
+    regs_r = PTXAS.get("kde_logpdf_kernel<(int)5, true>")
+    ms = ld["win"]["ms_per_launch"]["kde_logpdf"]
+    rows.append({
+        "name": "kde_logpdf (rung axis)", "route": "cuda",
+        "source": "emcee_tpu_torch/csrc/kde_logpdf.cu",
+        "replaces": "emcee_tpu/moves/kde.py:89-106 (vmapped by "
+                    "emcee_tpu/parallel/tempering.py:538)",
+        "launches": ld["replayed_launches"]["kde_logpdf"],
+        "max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": t[by], "bound_by": by,
+        "library_ms": None, "ptxas": regs_r, "plan": ld["plan"],
+        "plan_sweep_us": ld["plan_sweep_us"],
+        "launches_per_proposal": (ld["replayed_launches"]["kde_logpdf"]
+                                  / ld["proposals_counted"]),
+        "wrapper_launches":
+            out["launches"]["KDEMove() at workload 4"]["kde_logpdf"],
+        "path_device_us_batched_loop": (ld["device_us"][True],
+                                        ld["device_us"][False]),
+        "path_kernels_batched_loop": (ld["kernels"][True],
+                                      ld["kernels"][False]),
+        "note": f"K7 with the rung axis at workload 4's shape ({T} rungs, "
+                f"s and q of a split: {2 * ng} rows under {ng} kernels a "
+                "rung): ms in KDEMove()'s replays (profiler); launches "
+                "counted on the card in replayed proposals; max_abs_err: bit "
+                "for bit over phase 19's sweep; bound: each input read once "
+                "and the output written once, and the pairs' operations; "
+                "library_ms: none, no single PyTorch call computes it"})
+    for row in rows:
+        log(f"phase 19: (e) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['call_ms'] * 1e3:.2f} us per "
+            f"back-to-back call, plain {row['plain_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); launches "
+            f"{row['launches']}; {row['ptxas']} (registers, static shared, "
+            f"spilled) {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -7297,17 +7908,17 @@ def main() -> int:
                 f"shared memory, {spill} bytes spilled")
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
-                        ["17"], ["18"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17 or 18 alone (a first check of
-        # the blobs, the extension moves, the gradient moves, tempering,
-        # K14, the DE family on every rung or the gradient moves on every
-        # rung).
+                        ["17"], ["18"], ["19"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18 or 19 alone (a first check
+        # of the blobs, the extension moves, the gradient moves, tempering,
+        # K14, the DE family on every rung, the gradient moves on every
+        # rung or K7).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
                  "14": phase14, "15": phase15,
                  "16": phase16, "17": phase17,
-                 "18": phase18}[sys.argv[1]]
+                 "18": phase18, "19": phase19}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -7859,7 +8470,7 @@ def main() -> int:
     p10 = phase10(torch, np, dev, card, {
         "phase 4 DeviceBackend [:, :4000]": dev_chain4,
         "phase 8 DeviceBackend [:, :1000, :16]": w3["chain"]})
-    rows += [p10["k6"], p10["k7"]]
+    rows.append(p10["k6"])
 
     # -- 11. blobs and io ------------------------------------------------------
     t0 = time.perf_counter()
@@ -7908,6 +8519,12 @@ def main() -> int:
     _, rows18 = phase18(torch, np, dev, card)
     rows += rows18
     log(f"phase 18: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 19. K7, the KDE log-density -----------------------------------------
+    t0 = time.perf_counter()
+    _, rows19 = phase19(torch, np, dev, card)
+    rows += rows19
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

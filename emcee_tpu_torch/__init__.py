@@ -9,15 +9,16 @@ program (K3) replays each proposal as a CUDA graph.  The gradient
 moves (MALA, HMC, ChEES-HMC, ensemble MALA and HMC) differentiate the
 log-prob with ``torch.func.grad`` and run their Langevin step (K11),
 Hastings and kinetic reductions (K12) and leapfrog (K13) as kernels
-too.  The Gaussian, Metropolis-Hastings, walk and KDE moves, the
-autocorrelation and R-hat diagnostics and the convergence monitor are
+too.  The KDE move's log-density is a kernel (K7, no distance matrix).
+The Gaussian, Metropolis-Hastings and walk moves, the rest of the KDE
+move, the autocorrelation and R-hat diagnostics and the convergence monitor are
 plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinates, into the
 host, device and HDF5 backends; ``checkpoint`` saves and loads states.
 ``PTSampler`` runs a tempered ladder: the stretch, DE and DE-snooker
 moves propose every rung at once through the rung axis of K1, K5a, K5b
 and K2, the MALA, HMC, ensemble MALA and ensemble HMC moves through the
-rung axis of K11, K12, K13 and K2 (in mixtures too, ``mixture_block``
-included), other moves (the
+rung axis of K11, K12, K13 and K2, the KDE move through the rung axis
+of K7 and K2 (in mixtures too, ``mixture_block`` included), other moves (the
 looped slice and ChEES moves among them) rung by rung, the
 even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
 with them, the ladder may adapt, and the chain goes into the host

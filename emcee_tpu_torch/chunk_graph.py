@@ -69,7 +69,7 @@ move step is one rung-batched proposal (K1, K5a or K5b and K2 over all
 rungs, the log-prob once over ``T * ng`` rows) for a ``rung_batched``
 move (the stretch, DE and DE-snooker moves; the MALA, HMC, ensemble
 MALA and ensemble HMC moves through K11, K12, K13 and K2, the gradient
-once over ``T * n`` rows), or else, and under the
+once over ``T * n`` rows; the KDE move through K7 and K2), or else, and under the
 private ``batched=False`` switch, a loop over the rungs, each rung an
 ensemble of its own (its views of the buffers, its tempered model, its
 carry and its key).  Each move of a mixture takes its own way, so a

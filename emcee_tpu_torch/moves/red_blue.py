@@ -31,23 +31,24 @@ writes the same storage at every replay.
 
 The rung axis (parallel tempering, ``emcee_tpu/parallel/tempering.py:
 476-541``, which vmaps one move over the ladder): a move that sets
-``rung_batched`` (the stretch, DE, DE-snooker and the ensemble MALA and
-HMC moves; ``moves/gradient.py`` has the whole-ensemble MALA and HMC
+``rung_batched`` (the stretch, DE, DE-snooker, KDE and the ensemble MALA
+and HMC moves; ``moves/gradient.py`` has the whole-ensemble MALA and HMC
 moves' own ``propose_rungs``) proposes every
 rung of a ladder at once with :meth:`RedBlueMove.propose_rungs`.  The
 state's buffers are then ``(T, nwalkers, ...)``, ``rng`` is ``(keys,
 offset)`` with ``keys`` the rungs' :class:`~..ops.philox.RungKeys`, and
 the model evaluates the ``(T, ng, ndim)`` proposals of every rung in one
 call.  Each split runs the move's proposal kernels (K1, K5a or K5b; the
-ensemble gradient moves' K11-K13 between their gradients) and K2 once
+ensemble gradient moves' K11-K13 between their gradients; the KDE move's
+K7) and K2 once
 for all rungs, and a tuned move's scale is ``(T,)``, each rung's from its
 own carry; the shuffled split draws one permutation
 per rung (a stable argsort along the walker axis of each rung's Philox
 word 3, under its own key), gathers with the flat indices ``r * nwalkers
 + perm``, and scatters back.  Rung ``r`` ends exactly as :meth:`propose`
 of rung ``r`` alone under its own key would leave it (up to the rounding
-of the ensemble gradient moves' batched products, ``ROADMAP.md``
-section 3).
+of the ensemble gradient moves' and the KDE move's batched products,
+``ROADMAP.md`` section 3).
 
 Blobs ride with the coordinates: ``state.blobs`` is a pytree of
 ``(nwalkers, ...)`` buffers, and K2 writes each accepted walker's new

@@ -51,9 +51,12 @@ def complement(coords, split, ng):
 
 
 def cov(x):
-    """``np.cov(x, rowvar=False)``: ``(n, d) -> (d, d)``, ddof 1."""
-    xc = x - x.mean(dim=0, keepdim=True)
-    return (xc.T @ xc) / (x.shape[0] - 1)
+    """``np.cov(x, rowvar=False)``: ``(n, d) -> (d, d)``, ddof 1; of each
+    ``(n, d)`` of a batch ``(..., n, d)`` (a rung's complement on the rung
+    axis) by one batched product, which may round otherwise than each
+    matrix's own."""
+    xc = x - x.mean(dim=-2, keepdim=True)
+    return (xc.mT @ xc) / (x.shape[-2] - 1)
 
 
 def cholesky_or_nan(a):

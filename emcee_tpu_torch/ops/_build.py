@@ -42,6 +42,7 @@ KERNELS = {
     "leapfrog": ("leapfrog.cu", "emcee_leapfrog"),
     "pt_swap": ("pt_swap.cu", "emcee_pt_swap"),
     "philox_draw": ("philox_draw.cu", "emcee_philox_draw"),
+    "kde_logpdf": ("kde_logpdf.cu", "emcee_kde_logpdf"),
 }
 
 _FLAGS = [
@@ -148,6 +149,13 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int,  # plan: threads vec
         ctypes.c_uint, ctypes.c_int,  # plan: rung_mul rung_shr
         ctypes.c_uint, ctypes.c_int,  # plan: div_mul div_shr
+        _P,  # stream
+    ],
+    "kde_logpdf": [
+        _P, _P, _P, _P,  # x, c, lognorm, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nc nd
+        ctypes.c_int,  # ntemps
+        *[ctypes.c_int] * 4,  # plan: rows warps tile smem
         _P,  # stream
     ],
 }

@@ -13,7 +13,8 @@ program for all of them), the port proposes every rung at once where the
 move's kernels take the rung axis (the stretch, DE and DE-snooker moves:
 K1, K5a or K5b and K2 launch once a split for all rungs; the MALA, HMC,
 ensemble MALA and ensemble HMC moves: K11, K12, K13 and K2 launch once a
-step for all rungs; the tempered log-prob, and its gradient, is
+step for all rungs; the KDE move: K7 and K2 launch once a split for all
+rungs; the tempered log-prob, and its gradient, is
 evaluated once over ``T * n`` rows), and otherwise loops over the rungs,
 each an ensemble of its own with its own tempered model, carry and
 key.  The
@@ -35,8 +36,8 @@ A weighted move list runs as the JAX package's does: one move a proposal
 for every rung, or one a block of ``mixture_block`` kept steps, drawn on
 the host from the chain's seed (``driver.move_sequence``); the chunk
 program runs each stretch of equal moves, the stretch, DE, DE-snooker,
-MALA, HMC, ensemble MALA and ensemble HMC moves on every rung at once
-and any other move rung by rung.  The looped moves
+MALA, HMC, ensemble MALA, ensemble HMC and KDE moves on every rung at
+once and any other move rung by rung.  The looped moves
 (``EnsembleSliceMove``, ``ChEESHMCMove``) run their loops rung by rung,
 each rung's by replays of its own graphs.
 
