@@ -136,8 +136,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    kept x ``thin_by=4``: walker-steps/s over all rungs, the cold rung's
    tau and ESS/s, the mean swap acceptance and the cold mode fraction,
    each held to its window, and ``PTDeviceBackend`` == ``PTBackend``;
-   (e) a profiled window held to exactly 2 K1, 2 K2, 1 K15 and 1 K14 (the
-   shuffle's sort keys) a proposal; (f) the rows of K1 and K2 with the
+   (e) a profiled window held to exactly 2 K1, 2 K2, 1 K15, 1 K14 (the
+   shuffle's sort keys), 1 K16 and 2 K17 (its order and rows) a proposal; (f) the rows of K1 and K2 with the
    rung axis and of K15, and K15's time a launch over its block sizes.
    ``python3 chip_smoke.py 14`` runs phases 0, 1 and 14 alone.
 
@@ -246,8 +246,33 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    K7 with the rung axis.  ``python3 chip_smoke.py 19`` runs phases 0, 1
    and 19 alone.
 
+20. the shuffled split (K16, the group order, ``csrc/shuffle_order.cu``;
+   K17, the rows, ``csrc/gather_rows.cu``): (a) K16 against its plain
+   version, ``torch.equal``, 1-64 segments of 2 to 200004 walkers, nsplits
+   2-4, Philox keys at a host offset and a device word and injected keys
+   with ties (all equal, two values, sorted, reversed), through the
+   wrapper's plan and forced chunks (the rank, bitonic and merge routes),
+   and graph replays at a device offset word; (b) K17 against ``index_select`` /
+   ``index_copy_`` byte for byte (float32, float64, int64, int32, int16,
+   int8 and bool, rows of 1-129 units, 1-34 buffers a call, bases off 16
+   bytes, 1000 rows, workload 4's flat rung rows and 1e5 rows); (c) 64
+   graph-replayed proposals against the plain versions' eager chain, bit
+   for bit: workload 4, ``DEMove()`` on the ladder, ``StretchMove()`` and
+   ``EnsembleSliceMove()`` at 1e5 walkers; (d) the slice's main path,
+   counted from 0 just before it: workload 4 and ``StretchMove()`` at 1e5,
+   device µs and kernels a proposal and each kernel's µs a launch in
+   replays, the replayed launches held exactly (K16 one launch a
+   proposal on the ladder, its plan's at 1e5; K17 one each way); K16 and
+   K17 alone at both shapes beside their plain versions,
+   ``torch.argsort(stable=True)`` of the same keys and the
+   ``index_select`` / ``index_copy_`` calls of the plain route, K16's
+   bitonic block beside its rank route on the ladder and its chunks at
+   1e5; (e) the rows of K16 and K17.  ``python3 chip_smoke.py
+   20`` runs phases 0, 1 and 20 alone.  Every shuffled path's exact
+   launch counts (phases 10, 12-19) name K16 and K17.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
+18, 19, 20.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
 TREE`` builds TREE's and this checkout's K1, K2, K5a, K5b, K11, K12, K13
 and K15 and compares their SASS function by function.
 
@@ -257,8 +282,9 @@ e.g. the parent commit unpacked by ``git archive`` into the git-ignored
 ``python3 chip_smoke.py main-path TREE`` runs phase 3's main path alone
 with TREE's package, for turns of two trees; ``python3 chip_smoke.py
 kernel-turn TREE`` times K14 and K2's rung axis in the replays of
-workload 4 (with and without its blobs) and of the DIME stage with
-TREE's package, likewise; ``python3 chip_smoke.py phase-times TREE``
+workload 4 (with and without its blobs), of the DIME stage and of
+``StretchMove()`` at 1e5 walkers with TREE's package (and K16 and K17
+where TREE has them), likewise; ``python3 chip_smoke.py phase-times TREE``
 runs TREE's whole ``chip_smoke.py`` in a child process, echoes its
 output, and prints the seconds each phase took (each output line's wait
 charged to the phase it names) and the total.
@@ -320,7 +346,8 @@ K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
                   "snooker_propose": (4, 8, 16)}
 #: the kernel functions a wrapper launches besides ``<wrapper>_kernel``
 #: (K2's rung axis has a kernel of its own)
-KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",)}
+KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",),
+                  "group_order": ("group_rank_kernel", "group_merge_kernel")}
 
 
 def launched_by(name, key):
@@ -340,7 +367,16 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("langevin_kernel", "leapfrog"),
            ("swap_kernel", "pt_swap"),
            ("philox_kernel", "philox_draw"),
-           ("kde_kernel", "kde_logpdf"))
+           ("kde_kernel", "kde_logpdf"),
+           ("shuffle_kernel", "group_order"),
+           ("shuffle_kernel", "gather_rows"),
+           ("shuffle_kernel", "scatter_rows"))
+#: the shuffled split's kernels (K16, K17's gather and scatter)
+SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
+#: their launches a shuffled proposal of workload 4's ladder (16 rungs of
+#: 256 walkers, every rung at once): K16's rank route, one launch for
+#: every rung, and one K17 each way (:func:`shuffle_per`)
+SHUF4 = {"group_order": 1, "gather_rows": 1, "scatter_rows": 1}
 #: ndims and rows of K11-K13's edge-shape sweep (phase 13)
 GRAD_SWEEP_NDS = (1, 2, 3, 5, 7, 16, 100, 128)
 GRAD_SWEEP_ROWS = (1, 2, 31, 5003, 100_000)
@@ -352,6 +388,33 @@ K11_SWEEP_TILES = (1, 5, 127, 300)
 
 def log(msg):
     print(msg, flush=True)
+
+
+def shuffle_per(T=1, n=NW, nsplits=2, loop=False):
+    """K16's and K17's launches a shuffled proposal of ``T`` segments of
+    ``n`` walkers (one ensemble, or every rung of a ladder at once; with
+    ``loop`` rung by rung, ``T`` times one segment's): K16's plan on this
+    card (``shuffle_plan``: one launch on the rank and short routes, one and a merge
+    pass each on the long one) and one K17 each way."""
+    import torch
+    from emcee_tpu_torch.ops._wrap import sm_count
+    from emcee_tpu_torch.ops.shuffle_kernel import shuffle_plan
+
+    if loop:
+        return {k: T * v for k, v in shuffle_per(1, n, nsplits).items()}
+    plan = shuffle_plan(T, n, nsplits, sm_count(torch.cuda.current_device()))
+    return {"group_order": plan.launches, "gather_rows": 1,
+            "scatter_rows": 1}
+
+
+def shuffle_of(move, T=1, n=NW):
+    """:func:`shuffle_per` of ``move`` (0 of each where it does not
+    shuffle: not a red-blue move, or ``randomize_split=False``)."""
+    from emcee_tpu_torch.moves.red_blue import RedBlueMove
+
+    if isinstance(move, RedBlueMove) and move.randomize_split:
+        return shuffle_per(T, n, move.nsplits)
+    return dict.fromkeys(SHUFFLE_KERNELS, 0)
 
 
 def smi_line():
@@ -1870,7 +1933,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
         KDE move's K7 (one a split: ``s`` and ``q`` in one launch)."""
         k14 = (k14_per(smp._moves[0]) if callable(k14_per) else k14_per)
         return {"accept_select": k2_per, "philox_draw": k14,
-                "kde_logpdf": 2 if kde else 0}
+                "kde_logpdf": 2 if kde else 0} | shuffle_of(smp._moves[0])
 
     def make():
         return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=12,
@@ -1917,6 +1980,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     # kernel events are printed.
     busy_us, events = 0.0, []
     k14 = per_of(smp)["philox_draw"]
+    shuf = shuffle_of(smp._moves[0])
     for _ in range(4 if kde else 1):
         k7_before = [int(k7_calls)]
         if looped:
@@ -1929,7 +1993,8 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
                 torch, dev, smp, n_prof, lambda r: {
                     "accept_select": k2_per * n_prof,
                     "philox_draw": k14.count(n_prof,
-                                             smp._moves[0].loop_block)},
+                                             smp._moves[0].loop_block)} | {
+                    k: v * n_prof for k, v in shuf.items()},
                 f"{phase}: {label}", before=k14.begin, store=False)
             k7_before = [int(k7_calls)]
             wall, kernels = profile_window(
@@ -1941,7 +2006,8 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
                         "accept_select": k2_per * n_prof,
                         "de_propose": 0, "snooker_propose": 0,
                         "philox_draw": k14 * n_prof,
-                        "kde_logpdf": (2 if kde else 0) * n_prof}
+                        "kde_logpdf": (2 if kde else 0) * n_prof} | {
+                            k: v * n_prof for k, v in shuf.items()}
 
             wall, kernels, counts, _ = counted_window(
                 torch, lambda: drive(smp, None, n_prof, store=False), expect,
@@ -3842,9 +3908,11 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
         acc16 = graph_vs_plain_chain(torch, make, p03, n=16)
         smp = make()
         n_prof = 8
-        # K14: the shuffled split's sort keys, one draw a proposal.
-        with path_launches(out, path, tuple(per_split) + ("philox_draw",),
-                           "phase 13"):
+        # K14: the shuffled split's sort keys, one draw a proposal; K16
+        # (the long route at 1e4 walkers) and K17 its order and rows.
+        shuf = shuffle_per(1, NW3)
+        with path_launches(out, path, tuple(per_split) + ("philox_draw",)
+                           + SHUFFLE_KERNELS, "phase 13"):
             drive(smp, p03, n, store=False, skip_initial_state_check=True)
             smp._program.graph(0, n_prof, False)
             st, dt = drive(smp, None, n, store=False)
@@ -3858,11 +3926,13 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
                                                    store=False),
                               n_prof, name, names={
                                   k: 2 * v for k, v in per_split.items()}
-                              | {"philox_draw": 1})
+                              | {"philox_draw": 1} | shuf)
             counted, profiled = counted_replays(
                 torch, dev, smp, n_prof,
                 lambda r: {k: 2 * v * n_prof for k, v in per_split.items()}
-                | {"philox_draw": n_prof}, name, store=False)
+                | {"philox_draw": n_prof}
+                | {k: v * n_prof for k, v in shuf.items()}, name,
+                store=False)
         res[name] = dict(walker_steps_per_s=rate, acceptance=acc,
                          mean_lp=mean_lp, acceptance_16=acc16,
                          replayed_launches=counted,
@@ -4520,7 +4590,8 @@ def phase14(torch, np, dev, card):
     # (d) workload 4 at full size, counted from 0 just before it.
     t0 = time.perf_counter()
     kept, thin = 512, 4
-    names = ("stretch_propose", "accept_select", "pt_swap", "philox_draw")
+    names = ("stretch_propose", "accept_select", "pt_swap",
+             "philox_draw") + SHUFFLE_KERNELS
     with path_launches(out, "workload 4", names, "phase 14"):
         smp = pt_sampler(dev, backend=PTDeviceBackend())
         st, _ = drive(smp, p0, kept, thin_by=thin,
@@ -4542,13 +4613,13 @@ def phase14(torch, np, dev, card):
         mean_abs, spread = float(np.mean(np.abs(x0))), float(np.std(
             np.abs(x0)))
         acc = float(smp.acceptance_fraction[0].mean())
-        # The profiled window: exactly 2 K1, 2 K2, 1 K15 and 1 K14 (the
-        # shuffle's sort keys of every rung) a proposal, over four replays
-        # of the 64-proposal graph (recorded above), so that a run's fixed
-        # host work is shared as in the timed runs.
+        # The profiled window: exactly 2 K1, 2 K2, 1 K15, 1 K14 (the
+        # shuffle's sort keys of every rung), 1 K16 and 2 K17 a proposal,
+        # over four replays of the 64-proposal graph (recorded above), so
+        # that a run's fixed host work is shared as in the timed runs.
         n_prof = 256
         per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
-               "philox_draw": 1}
+               "philox_draw": 1} | SHUF4
         win = busy_window(
             torch, lambda: smp.run_mcmc(None, n_prof, store=False), n_prof,
             "workload 4",
@@ -4602,8 +4673,8 @@ def phase14(torch, np, dev, card):
         f"{measured(win['device_us_per_proposal'])} us and "
         f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
         f"proposal, idle share {measured(win['idle'], '.4f')}, launches "
-        f"{win['launches']} (exactly 2 K1, 2 K2, 1 K15 and 1 K14 a "
-        f"proposal); "
+        f"{win['launches']} (exactly 2 K1, 2 K2, 1 K15, 1 K14, 1 K16 and "
+        f"2 K17 a proposal); "
         f"{replay_counts(counted, profiled, n_kept * thin)} {card} "
         f"({time.perf_counter() - t0:.1f} s)")
     return out, phase14_rows(torch, dev, out, card)
@@ -5088,7 +5159,7 @@ def pt15_blobs(torch, np, dev, card, p0, kept=512, thin=4):
                                   skip_initial_state_check=True)
         rates[blobs].append(NT4 * NW4 * kept * thin / dt)
     names = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
-             "philox_draw": 1}  # K14: the shuffle's sort keys
+             "philox_draw": 1} | SHUF4  # K14: the shuffle's sort keys
     wins = {}
     for blobs, smp in samplers.items():
         wins[blobs] = busy_window(
@@ -5850,7 +5921,7 @@ def k14_workload4(torch, np, dev, out, n_prof=64, n_kept=8, thin=4):
     counted on the card in replayed proposals, with every kernel's count
     held exactly."""
     per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
-           "philox_draw": 1}
+           "philox_draw": 1} | SHUF4
     with path_launches(out, "workload 4", tuple(per), "phase 16"):
         smp = pt_sampler(dev)
         smp.run_mcmc(pt_p0(np), n_kept, thin_by=thin,
@@ -6036,9 +6107,9 @@ PT17_MOVES = ("DEMove()", "DESnookerMove()", "the mixture")
 #: each move's kernels a proposal at 16 rungs (the mixture's depend on
 #: its draws of the move)
 PT17_PER = {"DEMove()": {"de_propose": 2, "accept_select": 2, "pt_swap": 1,
-                         "philox_draw": 1},
+                         "philox_draw": 1} | SHUF4,
             "DESnookerMove()": {"snooker_propose": 4, "accept_select": 4,
-                                "pt_swap": 1, "philox_draw": 1}}
+                                "pt_swap": 1, "philox_draw": 1} | SHUF4}
 
 
 def pt17_move(label):
@@ -6068,7 +6139,7 @@ def pt17_expect(smp, label, n, offset):
     n_sn = n - n_de
     return {"de_propose": 2 * n_de, "snooker_propose": 4 * n_sn,
             "accept_select": 2 * n_de + 4 * n_sn, "pt_swap": n,
-            "philox_draw": n}
+            "philox_draw": n} | {k: v * n for k, v in SHUF4.items()}
 
 
 def k5_rung_sweep(torch, dev):
@@ -6339,7 +6410,8 @@ def phase17(torch, np, dev, card):
     for label in PT17_MOVES:
         t0 = time.perf_counter()
         with path_launches(out, label, kernels_of[label] + (
-                "accept_select", "pt_swap", "philox_draw"), "phase 17"):
+                "accept_select", "pt_swap", "philox_draw") + SHUFFLE_KERNELS,
+                "phase 17"):
             r = out[label] = pt17_path(torch, np, dev, card, label, p0)
         bl, w4 = r["batched_vs_loop"], r["workload4"]
         log(f"phase 17: (b) {label} at {NT4} x {NW4} x {ND4}: 64 "
@@ -6488,7 +6560,7 @@ PT18_MOVES = ("MALAMove(0.8)", "HMCMove(0.5, n_leapfrog=10, jitter=0.2)",
 #: HMC n_leapfrog + 1 K13, one K12 and one K2; the ensemble moves per split
 #: two K11 (the draw, then the step with z L^T) or one (the momenta) and
 #: 2 n_leapfrog + 1 K13 (a full metric kicks and drifts in two launches),
-#: one K12 and one K2, and the shuffle's K14
+#: one K12 and one K2, and the shuffle's K14, K16 and two K17
 PT18_PER = {
     "MALAMove(0.8)": {"langevin_step": 1, "langevin_factor": 1,
                       "accept_select": 1, "pt_swap": 1},
@@ -6497,10 +6569,10 @@ PT18_PER = {
         "accept_select": 1, "pt_swap": 1},
     "EnsembleMALAMove()": {"langevin_step": 4, "langevin_factor": 2,
                            "accept_select": 2, "pt_swap": 1,
-                           "philox_draw": 1},
+                           "philox_draw": 1} | SHUF4,
     "EnsembleHMCMove()": {"langevin_step": 2, "leapfrog": 22,
                           "langevin_factor": 2, "accept_select": 2,
-                          "pt_swap": 1, "philox_draw": 1},
+                          "pt_swap": 1, "philox_draw": 1} | SHUF4,
 }
 #: the moves whose batched path is held to the per-rung loop bit for bit
 #: over 64 proposals.  The ensemble moves' batched matmuls and Cholesky
@@ -6996,9 +7068,11 @@ K7_TIME_TILES = (64, 256)
 PT19_TOL = 1e-4
 #: KDEMove()'s kernels a proposal at 1e5 walkers and on workload 4's
 #: ladder (every rung at once): K7 and K2 a split, K14 the shuffle's sort
-#: keys and a split's kernel centres and noise, K15 the swap
+#: keys and a split's kernel centres and noise, K15 the swap, K16 and K17
+#: the shuffle's order and rows (at 1e5 walkers K16's long route:
+#: :func:`shuffle_per`, added where it is used)
 PT19_PER = {"kde_logpdf": 2, "accept_select": 2, "philox_draw": 5,
-            "pt_swap": 1}
+            "pt_swap": 1} | SHUF4
 MAIN19_PER = {"kde_logpdf": 2, "accept_select": 2, "philox_draw": 5}
 #: proposals a replay of the per-rung loop's timed graph
 PT19_LOOP_N = 4
@@ -7236,6 +7310,7 @@ def k7_main(torch, np, dev, card, n=16, n_prof=2):
     proposal."""
     from emcee_tpu_torch import EnsembleSampler, moves
 
+    per = MAIN19_PER | shuffle_per(1, NW)
     p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
     smps = {}
     for graphs in (False, True):
@@ -7243,13 +7318,13 @@ def k7_main(torch, np, dev, card, n=16, n_prof=2):
             NW, ND, gaussian, vectorize=True, seed=19, device=dev,
             moves=moves.KDEMove())
         smp._use_graphs = graphs
-        drive(smp, p0, 2, per_proposal=MAIN19_PER, store=False,
+        drive(smp, p0, 2, per_proposal=per, store=False,
               skip_initial_state_check=True)
     smps[True]._program.graph(0, n, False)
     smps[True]._program.graph(0, n_prof, False)
     rates = {False: [], True: []}
     for graphs in (False, True, True, False):
-        _, dt = drive(smps[graphs], None, n, per_proposal=MAIN19_PER,
+        _, dt = drive(smps[graphs], None, n, per_proposal=per,
                       store=False)
         rates[graphs].append(n * NW / dt)
     smp = smps[True]
@@ -7257,10 +7332,10 @@ def k7_main(torch, np, dev, card, n=16, n_prof=2):
     if not -3.5 < mean_lp < -1.5:  # bench.py:161
         raise AssertionError(f"phase 19: KDEMove() mean log-prob {mean_lp}")
     win = busy_window(torch, lambda: smp.run_mcmc(None, n_prof, store=False),
-                      n_prof, "KDEMove() at 1e5", names=MAIN19_PER)
+                      n_prof, "KDEMove() at 1e5", names=per)
     counted, _ = counted_replays(
         torch, dev, smp, n_prof,
-        lambda r: {k: v * n_prof for k, v in MAIN19_PER.items()},
+        lambda r: {k: v * n_prof for k, v in per.items()},
         "KDEMove() at 1e5", store=False)
     out = dict(rates=rates, mean_lp=mean_lp, win=win,
                replayed_launches=counted, proposals_counted=n_prof,
@@ -7276,7 +7351,7 @@ def k7_main(torch, np, dev, card, n=16, n_prof=2):
         f"{measured(win['ms_per_launch']['kde_logpdf'], '.3f')} ms a launch "
         f"in the replays; replayed launches in {n_prof} proposals "
         f"{ {k: v for k, v in counted.items() if v} } (device words; "
-        f"exactly {MAIN19_PER} a proposal) {card}")
+        f"exactly {per} a proposal) {card}")
     return out
 
 
@@ -7474,7 +7549,8 @@ def phase19(torch, np, dev, card):
     t0 = time.perf_counter()
     with path_launches(out, "KDEMove() at 1e5", ("kde_logpdf",
                                                  "accept_select",
-                                                 "philox_draw"), "phase 19"):
+                                                 "philox_draw")
+                       + SHUFFLE_KERNELS, "phase 19"):
         out["main"] = k7_main(torch, np, dev, card)
     log(f"phase 19: (c) {time.perf_counter() - t0:.1f} s")
     p0 = pt_p0(np)
@@ -7617,6 +7693,540 @@ def phase19_rows(torch, dev, out, card):
     return rows
 
 
+# -- 20. the shuffled split: K16 and K17 --------------------------------------
+#: (segments, walkers a segment, nsplits) of K16's sweep: one walker pair
+#: to 2e5+ walkers, 1 to 64 rungs, both routes by the wrapper's plan
+K16_SWEEP = ((1, 2, 2), (1, 6, 3), (3, 24, 4), (16, 256, 2), (64, 256, 4),
+             (5, 1000, 2), (3, 2048, 2), (1, 4096, 4), (2, 4098, 3),
+             (1, 10_002, 2),
+             (1, 100_000, 2), (2, 100_000, 4), (1, 200_004, 3))
+#: the chunks K16's sweep forces beside the wrapper's plan (a chunk below a
+#: segment's walkers takes the long route)
+K16_CHUNKS = (None, 2, 64, 1024, 4096)
+#: the sort keys of K16's sweep: Philox word 3 at a host offset and at a
+#: device word, and injected keys with ties
+K16_KEYS = ("stream", "device word", "equal", "two values", "sorted",
+            "reversed")
+#: K17's sweep: dtypes, rows (in units of the dtype), and buffer counts
+K17_DTYPES = ("float32", "float64", "int64", "int32", "int16", "int8", "bool")
+K17_ROWS = ((), (2,), (3,), (5,), (17,), (129,))
+K17_NBUFS = (1, 3, 18, 34)
+
+
+@contextlib.contextmanager
+def forced_shuffle_plan(chunk):
+    """K16's wrapper launching with ``chunk`` walkers a sorting block (the
+    plan's own where None)."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+
+    plan = shk.shuffle_plan
+    shk.shuffle_plan = lambda T, n, ns, n_sm: plan(T, n, ns, n_sm,
+                                                   chunk=chunk)
+    try:
+        yield
+    finally:
+        shk.shuffle_plan = plan
+
+
+def k16_keys(torch, dev, kind, T, n, ns, gen, word):
+    """Sort keys of ``T`` segments of ``n`` walkers: word 3 of the stream
+    (``(n,)`` for one segment, ``(T, n)`` else), or injected ties."""
+    from emcee_tpu_torch.ops.philox import (
+        DeviceOffset, rung_keys, rung_words, walker_words)
+
+    if kind in ("stream", "device word"):
+        offset = 7 if kind == "stream" else DeviceOffset(word, 4)
+        if T == 1:
+            return walker_words(n, ns, 2001, offset, dev, word=3)
+        return rung_words(rung_keys(2001, T, dev), n, ns, offset, dev,
+                          word=3).view(T, n)
+    if kind == "equal":
+        return torch.full((T, n), 7, dtype=torch.int64, device=dev)
+    if kind == "two values":
+        return torch.randint(0, 2, (T, n), device=dev, generator=gen) * (
+            2**32 - 1)
+    k = torch.randint(0, 5, (T, n), device=dev, generator=gen)
+    k = torch.sort(k, dim=-1).values
+    return k if kind == "sorted" else k.flip(-1).contiguous()
+
+
+def k16_sweep(torch, dev):
+    """(a) K16 against its plain version, ``torch.equal``: every shape of
+    ``K16_SWEEP`` with every key kind of ``K16_KEYS`` through the wrapper's
+    plan and every forced chunk of ``K16_CHUNKS``; then the order recorded
+    in a CUDA graph with K14's keys at a device offset word, replayed at
+    four values of the word, at workload 4's shape (rank route) and at
+    1e5 walkers (long route).  Returns the comparisons."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+    from emcee_tpu_torch.ops.philox import (
+        DeviceOffset, rung_keys, rung_words, walker_words)
+
+    gen = torch.Generator(device=dev).manual_seed(200)
+    word = torch.tensor(3, dtype=torch.int64, device=dev)
+    n_cmp = 0
+    for T, n, ns in K16_SWEEP:
+        for kind in K16_KEYS:
+            keys = k16_keys(torch, dev, kind, T, n, ns, gen, word)
+            want = shk.group_order_plain(keys, ns)
+            for chunk in K16_CHUNKS:
+                with forced_shuffle_plan(chunk):
+                    got = shk.group_order(keys, ns)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"phase 20: K16 {T} x {n} / {ns}, {kind}, chunk "
+                        f"{chunk}: kernel and plain version differ")
+                n_cmp += 1
+    for T, n in ((NT4, NW4), (1, NW)):
+        keys = rung_keys(2002, T, dev)
+
+        def draw(off):
+            if T == 1:
+                return walker_words(n, 2, 2002, off, dev, word=3)
+            return rung_words(keys, n, 2, off, dev, word=3)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            shk.group_order(draw(DeviceOffset(word, 1)), 2)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = shk.group_order(draw(DeviceOffset(word, 1)), 2)
+        for v in (0, 1, 5, 2**40 + 3):
+            word.fill_(v)
+            graph.replay()
+            want = shk.group_order_plain(draw(v + 1), 2)
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase 20: K16 replayed at {T} x {n}, "
+                                     f"offset {v + 1}: kernel and plain "
+                                     "version differ")
+            n_cmp += 1
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def k17_leaf(torch, shape, dtype, gen, dev, misalign):
+    """A buffer of random bytes (0 or 1 for bool) whose base lies
+    ``misalign`` bytes past a 16-byte boundary."""
+    if dtype != "bool":
+        return raw_leaf(torch, shape, dtype, gen, dev, misalign)
+    t = raw_leaf(torch, shape, "uint8", gen, dev, misalign)
+    t &= 1
+    return t.view(torch.bool)
+
+
+def k17_sweep(torch, dev):
+    """(b) K17 against ``index_select`` / ``index_copy_``, byte for byte:
+    sets of ``K17_NBUFS`` buffers cycling through ``K17_DTYPES`` x
+    ``K17_ROWS`` (random bytes, so NaN rows too), bases on and off 16-byte
+    boundaries (source and destination apart), over a random permutation
+    of 1000 rows, K16's flat rung rows of workload 4's ladder and K16's
+    order of 1e5 walkers; the gather into new buffers and into given ones,
+    and the scatter.  Returns the comparisons."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+    from emcee_tpu_torch.ops.philox import rung_keys, rung_words
+
+    gen = torch.Generator(device=dev).manual_seed(201)
+    kinds = [(d, r) for r in K17_ROWS for d in K17_DTYPES]
+    w4 = rung_words(rung_keys(5, NT4, dev), NW4, 2, 9, dev, word=3)
+    orders = {
+        "a permutation of 1000 rows": torch.randperm(1000, device=dev,
+                                                     generator=gen),
+        "workload 4's rung rows": shk.group_order(w4.view(NT4, NW4), 2),
+        "1e5 walkers": torch.randperm(NW, device=dev, generator=gen)}
+    n_cmp = 0
+    for what, order in orders.items():
+        rows = order.shape[0]
+        for nb in K17_NBUFS:
+            if rows == NW and nb > 3:
+                continue
+            spec = [kinds[(nb * 7 + i) % len(kinds)] for i in range(nb)]
+            sizes = [torch.empty(0, dtype=getattr(torch, d)).element_size()
+                     for d, _ in spec]
+            for mis in (0, 1, 3):
+                def make(shift=0):
+                    return [k17_leaf(torch, (rows, *r), d, gen, dev,
+                                     (mis + shift) * s % 16)
+                            for (d, r), s in zip(spec, sizes)]
+
+                srcs = make()
+                got = shk.gather_rows(order, srcs)
+                want = [s.index_select(0, order) for s in srcs]
+                same_bytes(got, want, f"phase 20: K17 gather, {what}, {nb} "
+                                      f"buffers, misalign {mis}")
+                outs = make(1)
+                shk.gather_rows(order, srcs, outs)
+                same_bytes(outs, want, f"phase 20: K17 gather into given "
+                                       f"buffers, {what}, {nb} buffers")
+                dsts = make(2)
+                ref = [d.clone().index_copy_(0, order, s)
+                       for d, s in zip(dsts, srcs)]
+                shk.scatter_rows(order, dsts, srcs)
+                same_bytes(dsts, ref, f"phase 20: K17 scatter, {what}, {nb} "
+                                      f"buffers, misalign {mis}")
+                n_cmp += 3 * nb
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def shuffle_buffers(torch, run):
+    """The buffers one shuffled proposal moves, as ``[(shape, dtype)]`` of
+    the gather's sources and of the scatter's destinations, from one
+    eager proposal run by ``run()`` (K17's launches read on their way)."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+
+    seen = {}
+    launch_rows = shk._launch_rows
+
+    def record(order, pairs, scatter, fn):
+        # (src, dst) pairs: the scatter's sources have its destinations'
+        # shapes and dtypes.
+        seen["scatter" if scatter else "gather"] = [
+            (tuple(src.shape), src.dtype) for src, _ in pairs]
+        return launch_rows(order, pairs, scatter, fn)
+
+    shk._launch_rows = record
+    try:
+        run()
+    finally:
+        shk._launch_rows = launch_rows
+    return seen["gather"], seen["scatter"]
+
+
+def replay_ms(torch, fn, reps=20, replays=10):
+    """Device ms of one call of ``fn``: CUDA events around ``replays``
+    replays of a CUDA graph that holds ``reps`` calls, so no host work
+    lies in the window (a call's kernels and the gaps between them).  Late
+    in the whole script the profiler records no kernel of some windows of
+    eager calls at all, so the times of calls alone are taken so, the
+    profiler's only in the paths' replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def shuffle_alone(torch, dev, card, shape, bufs):
+    """(d) K16 and K17 alone at ``shape`` (``(T, n)``: workload 4's ladder
+    or one ensemble of 1e5 walkers) on the buffers ``bufs`` (gather
+    sources, scatter destinations) its proposals move: device ms a call
+    in graph replays (:func:`replay_ms`), a back-to-back eager call's ms
+    (CUDA events), the plain versions', the library yardsticks'
+    (``torch.argsort(stable=True)`` of the same keys for K16; the
+    ``index_select`` / ``index_copy_`` calls of the plain route for K17,
+    both also in graph replays) and the bounds."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+    from emcee_tpu_torch.ops._wrap import sm_count
+    from emcee_tpu_torch.ops.philox import rung_keys, rung_words, walker_words
+
+    T, n = shape
+    keys = (walker_words(n, 2, 11, 3, dev, word=3) if T == 1 else
+            rung_words(rung_keys(11, T, dev), n, 2, 3, dev, word=3))
+    order = shk.group_order(keys, 2)
+    plan = shk.shuffle_plan(T, n, 2, sm_count(torch.cuda.current_device()))
+    gen = torch.Generator(device=dev).manual_seed(202)
+
+    def leaves(spec):
+        return [k17_leaf(torch, shp, str(dt).removeprefix("torch."), gen,
+                         dev, 0) for shp, dt in spec]
+
+    # The gather's sources; the scatter's destinations (the same buffers
+    # and the acceptance) and sources (the gathered rows).
+    srcs, dsts = leaves(bufs[0]), leaves(bufs[1])
+    rows_src = leaves(bufs[1])
+    res = {}
+
+    def row_bytes(ts):
+        return sum(t[0].numel() * t.element_size() for t in ts)
+
+    fns = {
+        "group_order": (lambda: shk.group_order(keys, 2),
+                        lambda: shk.group_order_plain(keys, 2),
+                        lambda: torch.argsort(keys, dim=-1, stable=True),
+                        16 * T * n, T * n * max(1, math.ceil(math.log2(n)))),
+        "gather_rows": (lambda: shk.gather_rows(order, srcs),
+                        lambda: shk.gather_rows_plain(order, srcs),
+                        lambda: [s.index_select(0, order) for s in srcs],
+                        2 * T * n * row_bytes(srcs) + 8 * T * n, 0),
+        "scatter_rows": (lambda: shk.scatter_rows(order, dsts, rows_src),
+                         lambda: shk.scatter_rows_plain(order, dsts,
+                                                        rows_src),
+                         lambda: [d.index_copy_(0, order, s)
+                                  for d, s in zip(dsts, rows_src)],
+                         2 * T * n * row_bytes(dsts) + 8 * T * n, 0),
+    }
+    for name, (fn, plain, lib, nbytes, nops) in fns.items():
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / F32_OPS_PER_S * 1e3}
+        by = max(t, key=t.get)
+        per_call = plan.launches if name == "group_order" else 1
+        res[name] = dict(
+            device_ms=replay_ms(torch, fn),
+            call_ms=cuda_ms(torch, fn), plain_ms=cuda_ms(torch, plain,
+                                                         reps=50),
+            library_ms=replay_ms(torch, lib),
+            library_call_ms=cuda_ms(torch, lib), bound_ms=t[by],
+            bound_by=by, bytes=nbytes, operations=nops,
+            launches_per_call=per_call)
+        r = res[name]
+        log(f"phase 20: (d) {name} alone at {T} x {n} ({len(srcs)} buffers "
+            f"gathered, {len(dsts)} scattered): device "
+            f"{r['device_ms'] * 1e3:.2f} us a call ({r['launches_per_call']} "
+            f"launches; graph replays), {r['call_ms'] * 1e3:.2f} us back to "
+            f"back eagerly, plain {r['plain_ms'] * 1e3:.2f} us, library "
+            f"{r['library_ms'] * 1e3:.2f} us in graph replays / "
+            f"{r['library_call_ms'] * 1e3:.2f} us back to back, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({by}) {card}")
+    # The other routes forced: the bitonic block beside the rank route on
+    # the ladder, other chunks of the long route at 1e5.
+    chunks = {}
+    for chunk in ((256,) if plan.route == "rank" else (1024, 2048, 4096)):
+        with forced_shuffle_plan(chunk):
+            chunks[chunk] = replay_ms(torch,
+                                      lambda: shk.group_order(keys, 2))
+    res["group_order"]["device_ms_by_chunk"] = chunks
+    log(f"phase 20: (d) group_order at {T} x {n}, device us a call by "
+        f"forced chunk: " + ", ".join(
+            f"{k}: {v * 1e3:.2f}" for k, v in chunks.items())
+        + f" (the plan: {plan.route} route, chunk {plan.chunk}) {card}")
+    return res
+
+
+def pt20_chains(torch, np, dev):
+    """(c) 64 graph-replayed proposals against the plain versions' eager
+    chain, bit for bit: workload 4 (``StretchMove()`` on every rung) and
+    ``DEMove()`` on the ladder, ``StretchMove()`` and
+    ``EnsembleSliceMove()`` at 1e5 walkers."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    p0 = pt_p0(np)
+    out = {}
+    for label, make in (("workload 4", lambda: pt_sampler(dev, seed=71)),
+                        ("DEMove() on the ladder", lambda: pt_sampler(
+                            dev, seed=72, move=moves.DEMove()))):
+        ends = []
+        for plain in (False, True):
+            smp = make()
+            smp._use_graphs = not plain
+            with plain_kernels() if plain else contextlib.nullcontext():
+                ends.append(pt_runs(smp, p0))
+        same_ends(np, *ends, f"phase 20: {label}: graph and eager plain "
+                             "chains")
+        out[label] = float(ends[0][3].sum()) / (NT4 * NW4 * 64)
+    p1 = np.random.default_rng(20).normal(size=(NW, ND)).astype(np.float32)
+    for label, mv in (("StretchMove() at 1e5", moves.StretchMove),
+                      ("EnsembleSliceMove() at 1e5",
+                       moves.EnsembleSliceMove)):
+        out[label] = graph_vs_plain_chain(torch, lambda: EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=73, device=dev,
+            moves=mv()), p1)
+    return out
+
+
+def shuffle_main(torch, np, dev, card, out, n4=64, n1=16):
+    """(d) This slice's main path, its launches counted from 0 just before
+    it: workload 4 (``StretchMove()`` on every rung) and ``StretchMove()``
+    at 1e5 walkers, each recorded, then a profiled window of replays
+    (device µs and kernels a proposal, each kernel's device time a launch,
+    the path's counts held exactly) and the replayed launches counted on
+    the card."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    res = {}
+    runs = {
+        "workload 4": (lambda: pt_sampler(dev, seed=74), n4,
+                       {"stretch_propose": 2, "accept_select": 2,
+                        "pt_swap": 1, "philox_draw": 1} | SHUF4),
+        "StretchMove() at 1e5": (lambda: EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=75, device=dev), n1,
+            {"stretch_propose": 2, "accept_select": 2, "philox_draw": 1}
+            | shuffle_per(1, NW))}
+    p0 = {"workload 4": pt_p0(np),
+          "StretchMove() at 1e5": np.random.default_rng(21).normal(
+              size=(NW, ND)).astype(np.float32)}
+    for label, (make, n, per) in runs.items():
+        with path_launches(out, label, tuple(per), "phase 20"):
+            smp = make()
+            smp.run_mcmc(p0[label], 8, thin_by=4,
+                         skip_initial_state_check=True)
+            smp.run_mcmc(None, n, store=False)  # records the window's graph
+            t0 = time.perf_counter()
+            smp.run_mcmc(None, n, store=False)
+            torch.cuda.synchronize()
+            host_us = (time.perf_counter() - t0) / n * 1e6
+            win = busy_window(
+                torch, lambda: smp.run_mcmc(None, n, store=False), n, label,
+                expect=lambda: {k: v * n for k, v in per.items()},
+                names=per)
+            counted, profiled = counted_replays(
+                torch, dev, smp, n, lambda r: {k: v * n
+                                               for k, v in per.items()},
+                label, store=False)
+            acc = float(np.mean(smp.acceptance_fraction))
+            if not 0.1 < acc < 0.9:
+                raise AssertionError(f"phase 20: {label}: acceptance {acc}")
+        res[label] = dict(win=win, host_us=host_us, replayed_launches=counted,
+                          profiled_replayed=profiled, proposals_counted=n,
+                          per_proposal=per, acceptance=acc,
+                          wrapper_launches=out["launches"][label])
+        log(f"phase 20: (d) {label}: a proposal: device "
+            f"{measured(win['device_us_per_proposal'], '.2f')} us, "
+            f"{measured(win['kernels_per_proposal'], '.1f')} kernels, idle "
+            f"share {measured(win['idle'], '.4f')}, host {host_us:.1f} us "
+            f"(replays of {n}); us a launch in the replays: " + ", ".join(
+                f"{k} {measured(v and v * 1e3, '.3f')}"
+                for k, v in win["ms_per_launch"].items())
+            + f"; {replay_counts(counted, profiled, n)}; acceptance "
+            f"{acc:.4f} {card}")
+    return res
+
+
+def phase20(torch, np, dev, card):
+    """The shuffled split through K16 and K17 (see the module docstring,
+    20).  Returns its numbers and the rows of K16 and K17."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    out = {}
+    t0 = time.perf_counter()
+    out["k16_comparisons"] = k16_sweep(torch, dev)
+    log(f"phase 20: (a) K16 against its plain version (torch.equal): "
+        f"segments x walkers / nsplits {K16_SWEEP}, keys {K16_KEYS}, the "
+        f"plan's chunk and forced chunks {K16_CHUNKS[1:]}, graph replays at "
+        f"a device offset word: {out['k16_comparisons']} comparisons, all "
+        f"identical ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["k17_comparisons"] = k17_sweep(torch, dev)
+    log(f"phase 20: (b) K17 against index_select / index_copy_ (bytes): "
+        f"dtypes {K17_DTYPES}, rows {K17_ROWS} units, {K17_NBUFS} buffers "
+        f"a launch, bases off 16 bytes, a permutation of 1000 rows, "
+        f"workload 4's flat rung rows and 1e5 rows: "
+        f"{out['k17_comparisons']} comparisons, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["chains"] = pt20_chains(torch, np, dev)
+    log(f"phase 20: (c) 64 graph-replayed proposals equal the plain "
+        f"versions' eager chain bit for bit: "
+        + ", ".join(f"{k} (acceptance {v:.4f})"
+                    for k, v in out["chains"].items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["main"] = shuffle_main(torch, np, dev, card, out)
+
+    # The buffers each path's proposals move, from one eager proposal.
+    def one_pt():
+        s = pt_sampler(dev, seed=76)
+        s._use_graphs = False
+        s.run_mcmc(pt_p0(np), 1, store=False, skip_initial_state_check=True)
+
+    def one_1e5():
+        s = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=77,
+                            device=dev)
+        s._use_graphs = False
+        s.run_mcmc(np.random.default_rng(22).normal(size=(NW, ND)).astype(
+            np.float32), 1, store=False, skip_initial_state_check=True)
+
+    out["alone"] = {
+        "workload 4": shuffle_alone(torch, dev, card, (NT4, NW4),
+                                    shuffle_buffers(torch, one_pt)),
+        "1e5": shuffle_alone(torch, dev, card, (1, NW),
+                             shuffle_buffers(torch, one_1e5))}
+    log(f"phase 20: (d) {time.perf_counter() - t0:.1f} s")
+    log(f"phase 20: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase20_rows(out)
+
+
+def phase20_rows(out):
+    """(e) The rows of K16 and K17: at workload 4's shape (K16's short
+    route) the main keys, at 1e5 walkers (K16's long route) the ``_1e5``
+    ones.  ``ms`` is the device time of one call in the path's replays
+    (the profiler's mean a launch times the call's launches), ``launches``
+    the replayed launches counted on the card."""
+    mains, alone = out["main"], out["alone"]
+    w4, m1 = mains["workload 4"], mains["StretchMove() at 1e5"]
+    meta = {
+        "group_order": ("emcee_tpu_torch/csrc/shuffle_order.cu",
+                        "emcee_tpu/moves/red_blue.py:218-219 (vmapped by "
+                        "emcee_tpu/parallel/tempering.py:538)"),
+        "gather_rows": ("emcee_tpu_torch/csrc/gather_rows.cu",
+                        "emcee_tpu/moves/red_blue.py:228-244"),
+        "scatter_rows": ("emcee_tpu_torch/csrc/gather_rows.cu",
+                         "emcee_tpu/moves/red_blue.py:252-264")}
+    fns = {"group_order": ("group_rank_kernel", "group_order_kernel",
+                           "group_merge_kernel"),
+           "gather_rows": ("gather_rows_kernel",),
+           "scatter_rows": ("scatter_rows_kernel",)}
+    rows = []
+    for name, (source, replaces) in meta.items():
+        a, b = alone["workload 4"][name], alone["1e5"][name]
+
+        def call_ms(m):
+            ms = m["win"]["ms_per_launch"].get(name)
+            return None if ms is None else ms * m["per_proposal"][name]
+
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": w4["replayed_launches"][name],
+               "max_abs_err": 0.0, "ms": call_ms(w4),
+               "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+               "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+               "call_ms": a["call_ms"], "alone_ms": a["device_ms"],
+               "library_call_ms": a["library_call_ms"],
+               "launches_per_proposal": w4["per_proposal"][name],
+               "launches_1e5": m1["replayed_launches"][name],
+               "launches_per_proposal_1e5": m1["per_proposal"][name],
+               "ms_1e5": call_ms(m1), "plain_ms_1e5": b["plain_ms"],
+               "bound_ms_1e5": b["bound_ms"], "bound_by_1e5": b["bound_by"],
+               "library_ms_1e5": b["library_ms"],
+               "call_ms_1e5": b["call_ms"],
+               "alone_ms_1e5": b["device_ms"],
+               "library_call_ms_1e5": b["library_call_ms"],
+               "comparisons": out["k16_comparisons" if name == "group_order"
+                                  else "k17_comparisons"],
+               "ptxas": {k: v for k, v in PTXAS.items()
+                         if any(f in k for f in fns[name])}}
+        if name == "group_order":
+            row["device_ms_by_chunk"] = a["device_ms_by_chunk"]
+            row["device_ms_by_chunk_1e5"] = b["device_ms_by_chunk"]
+        row["note"] = (
+            f"workload 4's ladder ({NT4} rungs x {NW4} walkers; K16's rank "
+            f"route) and, in the _1e5 keys, StretchMove() at {NW} walkers "
+            "(K16's long route: a sort and its merge passes a call): ms the "
+            "device time of one call in the path's replays (profiler); "
+            "alone_ms a call alone and library_ms in graph replays "
+            "of 20 calls (CUDA events); "
+            "launches counted on the card in replayed proposals; max_abs_err:"
+            " bit and byte equality over phase 20's sweeps; bound: each input "
+            "read once and each output written once (K16 also a comparison "
+            "sort's n log2 n compares at the float32 rate); library_ms: "
+            + ("torch.argsort(stable=True) of the same keys (the sort "
+               "alone; its device time a call)" if name == "group_order" else
+               "the plain route's index_select (gather) or index_copy_ "
+               "(scatter) calls on the same buffers, their device time"))
+        rows.append(row)
+        log(f"phase 20: (e) {name}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us a call in "
+            f"workload 4's replays, {measured(row['ms_1e5'] and row['ms_1e5'] * 1e3, '.2f')}"
+            f" us at 1e5; launches {row['launches']} / {row['launches_1e5']}"
+            f" (device counters); ptxas {row['ptxas']}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -7661,15 +8271,22 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     proposal in profiled windows of ``n_prof`` replayed proposals of
     workload 4 (K14: every rung's sort keys; K2 with the ``logL`` /
     ``logP`` leaves) and of workload 4 with the blobs ``(2 logL, x)``
-    (K2 with four leaves), and of 16 replayed proposals of the DIME stage
-    (K14: a split's normals).  Uses only what every tree with K14 has."""
+    (K2 with four leaves), of 16 replayed proposals of the DIME stage
+    (K14: a split's normals), and of 16 of ``StretchMove()`` at the main
+    path's width (1e5 walkers, the shuffled split).  A tree with K16 and
+    K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
+    on the shuffled paths.  Uses only what every tree with K14 has."""
+    import importlib.util
+
     import emcee_tpu_torch
     from emcee_tpu_torch import EnsembleSampler, moves
 
     tree = Path(emcee_tpu_torch.__file__).parent.parent
+    has16 = importlib.util.find_spec(
+        "emcee_tpu_torch.ops.shuffle_kernel") is not None
     p0 = pt_p0(np)
     per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
-           "philox_draw": 1}
+           "philox_draw": 1} | (SHUF4 if has16 else {})
     runs = {"workload 4": (pt_sampler(dev), n_prof, per),
             "workload 4 with blobs": (pt15_sampler(
                 dev, move=moves.StretchMove()), n_prof, per)}
@@ -7677,8 +8294,13 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
                            device=dev, moves=moves.DIMEMove(
                                aimh_prob=1.0, df=None, randomize_split=False))
     runs["DIME stage"] = (dime, 16, {"accept_select": 2, "philox_draw": 2})
+    stretch = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=20,
+                              device=dev)
+    runs["StretchMove() at 1e5"] = (stretch, 16, {
+        "stretch_propose": 2, "accept_select": 2, "philox_draw": 1}
+        | (shuffle_per(1, NW) if has16 else {}))
     for what, (smp, n, names) in runs.items():
-        if what == "DIME stage":
+        if what in ("DIME stage", "StretchMove() at 1e5"):
             smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
                          .astype(np.float32), n, store=False,
                          skip_initial_state_check=True)
@@ -7887,8 +8509,9 @@ def main() -> int:
             _build.build_all(["stretch_propose", "accept_select"])
             main_path_turn(torch, np, dev, card)
         else:
-            _build.build_all(["stretch_propose", "accept_select", "pt_swap",
-                              "philox_draw"])
+            _build.build_all([k for k in (
+                "stretch_propose", "accept_select", "pt_swap", "philox_draw",
+                "group_order", "copy_rows") if k in _build.KERNELS])
             kernel_turn(torch, np, dev, card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -7908,17 +8531,18 @@ def main() -> int:
                 f"shared memory, {spill} bytes spilled")
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
-                        ["17"], ["18"], ["19"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18 or 19 alone (a first check
-        # of the blobs, the extension moves, the gradient moves, tempering,
-        # K14, the DE family on every rung, the gradient moves on every
-        # rung or K7).
+                        ["17"], ["18"], ["19"], ["20"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19 or 20 alone (a first
+        # check of the blobs, the extension moves, the gradient moves,
+        # tempering, K14, the DE family on every rung, the gradient moves
+        # on every rung, K7 or the shuffled split's K16 and K17).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
                  "14": phase14, "15": phase15,
                  "16": phase16, "17": phase17,
-                 "18": phase18, "19": phase19}[sys.argv[1]]
+                 "18": phase18, "19": phase19,
+                 "20": phase20}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -8525,6 +9149,12 @@ def main() -> int:
     _, rows19 = phase19(torch, np, dev, card)
     rows += rows19
     log(f"phase 19: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 20. the shuffled split: K16 and K17 ---------------------------------
+    t0 = time.perf_counter()
+    _, rows20 = phase20(torch, np, dev, card)
+    rows += rows20
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -17,7 +17,12 @@ into the ensemble buffer).
   draw the same one and nothing waits for the host); the ensemble is
   gathered into contiguous buffers in group order, the blocked engine
   runs on them, and the rows are scattered back.  Group j is
-  ``perm[j::nsplits]``, as in the JAX package.
+  ``perm[j::nsplits]``, as in the JAX package.  On the card the keys are
+  K14's (``ops/philox_kernel.py``), the order K16's and the rows K17's
+  (``ops/shuffle_kernel.py``): one launch writes the rows in group order,
+  one gathers every buffer (coordinates, log-probs, the acceptance
+  count, every blob leaf) and one scatters them back with the
+  acceptance.
 
 Adaptive moves (``wants_carry``) read the move carry in
 ``get_proposal(..., carry=)``, and :meth:`RedBlueMove.update_carry` folds
@@ -44,8 +49,9 @@ K7) and K2 once
 for all rungs, and a tuned move's scale is ``(T,)``, each rung's from its
 own carry; the shuffled split draws one permutation
 per rung (a stable argsort along the walker axis of each rung's Philox
-word 3, under its own key), gathers with the flat indices ``r * nwalkers
-+ perm``, and scatters back.  Rung ``r`` ends exactly as :meth:`propose`
+word 3, under its own key: one launch of K16 for every rung), gathers
+with the flat indices ``r * nwalkers + perm`` and scatters back (one
+launch of K17 each way).  Rung ``r`` ends exactly as :meth:`propose`
 of rung ``r`` alone under its own key would leave it (up to the rounding
 of the ensemble gradient moves' and the KDE move's batched products,
 ``ROADMAP.md`` section 3).
@@ -54,29 +60,29 @@ Blobs ride with the coordinates: ``state.blobs`` is a pytree of
 ``(nwalkers, ...)`` buffers, and K2 writes each accepted walker's new
 blob row into them in the same launch as its coordinates (the JAX
 package's ``tree_where`` and write-back, ``red_blue.py:200-202``,
-``:323-344``); the shuffled path gathers and scatters every leaf as it
-does the coordinates.
+``:323-344``); the shuffled path gathers and scatters every leaf in the
+same K17 launches as the coordinates.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import accept_kernel
+from ..ops import accept_kernel, shuffle_kernel
 from ..ops.philox import rung_words, walker_words
-from ..utils import tree_flatten, tree_map
+from ..utils import tree_flatten, tree_unflatten
 from .base import Move, ScaleTunable, blob_pairs
 
 __all__ = ["RedBlueMove", "rung_shuffled_order", "shuffled_order"]
 
 
-def shuffled_order(rng, nwalkers, nsplits, device):
+def shuffled_order(rng, nwalkers, nsplits, device, out=None):
     """Walker rows in group order for the shuffled split: the rows of
-    group j are ``order[j*ng:(j+1)*ng]``."""
+    group j are ``order[j*ng:(j+1)*ng]`` (K16 on the card; written into
+    ``out`` where given)."""
     seed, offset = rng
     w3 = walker_words(nwalkers, nsplits, seed, offset, device, word=3)
-    perm = torch.argsort(w3, stable=True)
-    return perm.view(nwalkers // nsplits, nsplits).t().reshape(-1)
+    return shuffle_kernel.group_order(w3, nsplits, out=out)
 
 
 def rung_shuffled_order(rng, ntemps, nwalkers, nsplits, device):
@@ -85,10 +91,7 @@ def rung_shuffled_order(rng, ntemps, nwalkers, nsplits, device):
     ...)`` buffers: rung ``r``'s order plus ``r * nwalkers``."""
     keys, offset = rng
     w3 = rung_words(keys, nwalkers, nsplits, offset, device, word=3)
-    perm = torch.argsort(w3, dim=-1, stable=True)
-    order = perm.view(ntemps, nwalkers // nsplits, nsplits).transpose(1, 2)
-    base = torch.arange(0, ntemps * nwalkers, nwalkers, device=device)
-    return (order.reshape(ntemps, nwalkers) + base[:, None]).reshape(-1)
+    return shuffle_kernel.group_order(w3.view(ntemps, nwalkers), nsplits)
 
 
 class RedBlueMove(ScaleTunable, Move):
@@ -270,11 +273,14 @@ class RedBlueMove(ScaleTunable, Move):
         return state, accepted, carry
 
     def _propose_shuffled(self, rng, state, model, carry, ng, scale=None,
-                          acc_count=None, accepted=None, extra_u=None):
+                          acc_count=None, accepted=None, extra_u=None,
+                          log_acc_u=None):
         """Random membership: gather into group order, run the blocked
         engine, scatter back.  On the rung axis (``(T, nwalkers, ...)``
         buffers) every rung has its own order, and the gathers and
-        scatters run over the flat ``(T * nwalkers, ...)`` rows."""
+        scatters run over the flat ``(T * nwalkers, ...)`` rows.
+        ``log_acc_u`` and ``extra_u`` inject the uniforms of each split's
+        members in group order (the parity mode)."""
         coords, log_prob = state.coords, state.log_prob
         k = coords.dim() - 1  # the walker axes: (nwalkers,) or (T, nwalkers)
         if k == 2:
@@ -288,32 +294,27 @@ class RedBlueMove(ScaleTunable, Move):
         def flat(x):  # the rows of x as one axis (a view)
             return x if k == 1 else x.view((-1,) + tuple(x.shape[k:]))
 
-        def gather(x):
-            return flat(x).index_select(0, order).view(x.shape)
-
-        def scatter(x, rows):
-            flat(x).index_copy_(0, order, flat(rows))
-
+        leaves, treedef = tree_flatten(state.blobs)
+        ens = [coords, log_prob, *leaves]
+        if acc_count is not None:
+            ens.append(acc_count)
+        rows = shuffle_kernel.gather_rows(order, [flat(x) for x in ens])
+        rows = [r.view(x.shape) for r, x in zip(rows, ens)]
         buf = state._replace(
-            coords=gather(coords), log_prob=gather(log_prob),
-            blobs=tree_map(gather, state.blobs),
+            coords=rows[0], log_prob=rows[1],
+            blobs=tree_unflatten(treedef, rows[2:2 + len(leaves)]),
         )
-        count = None if acc_count is None else gather(acc_count)
+        count = None if acc_count is None else rows[-1]
         stats = []
         _, acc_buf, carry = self._propose_blocked(
-            rng, buf, model, carry, ng, scale, count, extra_u=extra_u,
-            stats=stats
+            rng, buf, model, carry, ng, scale, count, log_acc_u=log_acc_u,
+            extra_u=extra_u, stats=stats
         )
-        scatter(coords, buf.coords)
-        scatter(log_prob, buf.log_prob)
-        for b, g in zip(tree_flatten(state.blobs)[0],
-                        tree_flatten(buf.blobs)[0]):
-            scatter(b, g)
-        if acc_count is not None:
-            scatter(acc_count, count)
         if accepted is None:
             accepted = torch.empty_like(acc_buf)
-        scatter(accepted, acc_buf)
+        shuffle_kernel.scatter_rows(
+            order, [flat(x) for x in ens + [accepted]],
+            [flat(x) for x in rows + [acc_buf]])
         # The carry sees the ensemble in walker order, as in the JAX
         # package (DE-Z's subsample picks rows by index).
         carry = self._finish(carry, state, model, stats)

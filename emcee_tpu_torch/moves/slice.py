@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..chunk_graph import EagerLoops
+from ..ops import shuffle_kernel
 from ..ops._wrap import complement_rows
 from ..ops.philox import (
     SHRINK_BLOCK, SHRINK_MAX, SLICE_BLOCK, row_uniforms, word_uniforms)
@@ -204,18 +205,21 @@ class EnsembleSliceMove(RedBlueMove):
             ens = (state.coords, state.log_prob, state.blobs, acc_count,
                    accepted)
 
+        def pairs(*extra):
+            """(ensemble buffer, workspace buffer) of every buffer the
+            shuffled split moves."""
+            out = [(state.coords, w.coords), (state.log_prob, w.log_prob),
+                   *zip(tree_flatten(state.blobs)[0],
+                        tree_flatten(w.blobs)[0])]
+            if acc_count is not None:
+                out.append((acc_count, w.count))
+            return [list(x) for x in zip(*out, *extra)]
+
         def start():
             if shuffled:
-                order = shuffled_order(rng, nwalkers, self.nsplits,
-                                       state.coords.device)
-                w.order.copy_(order)
-                w.coords.copy_(state.coords.index_select(0, order))
-                w.log_prob.copy_(state.log_prob.index_select(0, order))
-                for b, g in zip(tree_flatten(w.blobs)[0],
-                                tree_flatten(state.blobs)[0]):
-                    b.copy_(g.index_select(0, order))
-                if acc_count is not None:
-                    w.count.copy_(acc_count.index_select(0, order))
+                shuffled_order(rng, nwalkers, self.nsplits,
+                               state.coords.device, out=w.order)
+                shuffle_kernel.gather_rows(w.order, *pairs())
             w.nexp_sum.zero_()
             w.ncon_sum.zero_()
 
@@ -226,15 +230,8 @@ class EnsembleSliceMove(RedBlueMove):
 
         def end():
             if shuffled:
-                order = w.order
-                state.coords.index_copy_(0, order, w.coords)
-                state.log_prob.index_copy_(0, order, w.log_prob)
-                for b, g in zip(tree_flatten(state.blobs)[0],
-                                tree_flatten(w.blobs)[0]):
-                    b.index_copy_(0, order, g)
-                if acc_count is not None:
-                    acc_count.index_copy_(0, order, w.count)
-                accepted.index_copy_(0, order, w.accepted)
+                shuffle_kernel.scatter_rows(
+                    w.order, *pairs((accepted, w.accepted)))
             self._finish(carry, state, model, [(w.nexp_sum, w.ncon_sum)])
 
         loops.segment(("end",), end)

@@ -43,6 +43,8 @@ KERNELS = {
     "pt_swap": ("pt_swap.cu", "emcee_pt_swap"),
     "philox_draw": ("philox_draw.cu", "emcee_philox_draw"),
     "kde_logpdf": ("kde_logpdf.cu", "emcee_kde_logpdf"),
+    "group_order": ("shuffle_order.cu", "emcee_group_order"),
+    "copy_rows": ("gather_rows.cu", "emcee_copy_rows"),
 }
 
 _FLAGS = [
@@ -156,6 +158,18 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nc nd
         ctypes.c_int,  # ntemps
         *[ctypes.c_int] * 4,  # plan: rows warps tile smem
+        _P,  # stream
+    ],
+    "group_order": [
+        _P, _P, _P,  # keys, order, scratch
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps n nsplits
+        ctypes.c_int, ctypes.c_int,  # plan: chunk threads
+        _P,  # stream
+    ],
+    "copy_rows": [
+        _P,  # order
+        _P, ctypes.c_int,  # buffer descriptors (host array), their number
+        _P, ctypes.c_int,  # blocks a launch (host array), scatter
         _P,  # stream
     ],
 }

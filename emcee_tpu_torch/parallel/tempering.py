@@ -14,7 +14,9 @@ move's kernels take the rung axis (the stretch, DE and DE-snooker moves:
 K1, K5a or K5b and K2 launch once a split for all rungs; the MALA, HMC,
 ensemble MALA and ensemble HMC moves: K11, K12, K13 and K2 launch once a
 step for all rungs; the KDE move: K7 and K2 launch once a split for all
-rungs; the tempered log-prob, and its gradient, is
+rungs; the shuffled split of any of them: K16 orders every rung's
+walkers in one launch and K17 gathers and scatters every rung's rows in
+one launch each way; the tempered log-prob, and its gradient, is
 evaluated once over ``T * n`` rows), and otherwise loops over the rungs,
 each an ensemble of its own with its own tempered model, carry and
 key.  The

@@ -36,7 +36,8 @@ def test_import_leaves_no_jax_or_emcee_tpu():
         "emcee_tpu_torch.moves.de_z, emcee_tpu_torch.moves.dime, "
         "emcee_tpu_torch.moves.slice, emcee_tpu_torch.chunk_graph, "
         "emcee_tpu_torch.parallel.tempering, emcee_tpu_torch.backends.pt, "
-        "emcee_tpu_torch.ops.swap_kernel, emcee_tpu_torch.ops.philox_kernel\n"
+        "emcee_tpu_torch.ops.swap_kernel, emcee_tpu_torch.ops.philox_kernel, "
+        "emcee_tpu_torch.ops.shuffle_kernel\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'emcee_tpu') or m.startswith(('jax.', 'jaxlib.', 'emcee_tpu.')))\n"
         "print(bad)\n"
