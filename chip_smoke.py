@@ -85,11 +85,12 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
 12. the extension moves at full width through ``run_mcmc``: (a)
    ``bench.py``'s DIME stage (1e5 x 5-D, ``aimh_prob=1``, ``df=None``,
    ``DeviceBackend``, 400 kept, a warm run then two timed runs; tau,
-   ESS/s, acceptance, the Philox normals' share of the device time, the
-   factors against a float64 recomputation); (b) its bimodal stage
+   ESS/s, acceptance, device time and kernels a proposal with K8's
+   launches held to 3 K8a, 3 K8b, 2 K8c and 2 K2 a proposal, K8 in float32
+   against its plain versions in float64); (b) its bimodal stage
    (1e5 x 3-D, K = 2, ``df=10``, 400 kept x 2; the mode fraction; 0
-   exhaustions in a ``df=7.5`` twin) and both chi-square routes on the
-   card (K-S, 0 exhaustions); (c)
+   exhaustions in a ``df=7.5`` twin; K8's launches held likewise) and both
+   chi-square routes on the card (K-S, 0 exhaustions); (c)
    ``BlendedMove`` on workload 3 through K5a + K5b in turns with the
    sampler-level mixture (launches by the profiler); (d)
    ``SideMove(roll)`` and ``EnsembleSliceMove()`` at 1e5 x 5-D (graph
@@ -179,7 +180,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    forced launch plans (blocks of 32-1024 threads, rows with and without
    a tail, blocks across rungs, graph replays); (b) its row: device time
    a launch at workload 4's shape (phase 14's replays) and at the DIME
-   stage's (phase 12's), eagerly (also over other blocks), back to back
+   stage's (alone: the stage draws in K8c), eagerly (also over other
+   blocks), back to back
    and plain, beside its bounds and two yardsticks: torch's fill of the
    same output and torch's own Philox draw into it.  ``python3
    chip_smoke.py 16`` runs phases 0, 1 and 16 alone (with a short
@@ -271,8 +273,31 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    20`` runs phases 0, 1 and 20 alone.  Every shuffled path's exact
    launch counts (phases 10, 12-19) name K16 and K17.
 
+21. K8, DIME's moments, factor and proposal (K8a and K8b,
+   ``csrc/dime_moments.cu``; K8c, ``csrc/dime_propose.cu``): (a) the three
+   against their plain versions bit for bit (NaN included): ndim 1, 3, 5
+   and 100, one ensemble with ten K8a blocks a set and three rungs of 7
+   walkers a split, 1-3 components, ``df`` None, 10 and 7.5, ``aimh_prob``
+   0.3 and 1, cold and warm carries, both splits and the carry update,
+   each rung of three against the one-ensemble launch, injected draws, a
+   device offset word, a shape with no factor; (b) each alone at the DIME
+   stage's and the bimodal stage's shapes (CUDA events around graph
+   replays), the carry update, the plain versions, the yardsticks
+   ``torch.cov`` and ``torch.linalg.cholesky_ex``, the bounds; (c) the
+   DIME stage's replays: device us and kernels a proposal, us a launch,
+   launches by device words (3 K8a, 3 K8b, 2 K8c, 2 K2 a proposal); (d)
+   ``DIMEMove()`` and ``DIMEMove(aimh_prob=0.3, n_components=2)`` at
+   workload 4's configuration: graph chain == the plain versions' eager
+   chain and the batched path == the per-rung loop over 64 proposals, bit
+   for bit with the carries; both in turns; the batched launches by
+   device words; 512 kept x 4 into ``PTDeviceBackend`` (rate, cold tau)
+   held to phase 14's windows, and ``PTDeviceBackend`` == ``PTBackend``;
+   (e) the rows of K8a, K8b and
+   K8c, one ensemble and with the rung axis.  ``python3 chip_smoke.py 21``
+   runs phases 0, 1 and 21 alone.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
+18, 19, 20, 21.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
 TREE`` builds TREE's and this checkout's K1, K2, K5a, K5b, K11, K12, K13
 and K15 and compares their SASS function by function.
 
@@ -370,7 +395,10 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("kde_kernel", "kde_logpdf"),
            ("shuffle_kernel", "group_order"),
            ("shuffle_kernel", "gather_rows"),
-           ("shuffle_kernel", "scatter_rows"))
+           ("shuffle_kernel", "scatter_rows"),
+           ("dime_kernel", "dime_moments"),
+           ("dime_kernel", "dime_finish"),
+           ("dime_kernel", "dime_propose"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -2852,41 +2880,45 @@ def stage_runs(smp, st, kept, thin_by):
 
 
 def dime_factor_check(torch, np, dev, move, state_coords, carry):
-    """One DIME proposal of split 0 on the card in float32 and again in
-    float64 from the same draws: the largest differences of the Cholesky
-    factor and of the Hastings factors (TF32 would show ~1e-3)."""
+    """One DIME proposal of split 0 on the card through K8 in float32, and
+    the same from the same draws by K8's plain versions in float64: the
+    largest differences of the Cholesky factor, the Hastings factors and
+    ``q`` (TF32 anywhere would show ~1e-3)."""
     from emcee_tpu_torch.model import Model, wrap_log_prob_fn
-    from emcee_tpu_torch.moves.dime import full_float32
-    from emcee_tpu_torch.moves.walk import complement
+    from emcee_tpu_torch.ops import dime_kernel as dk
 
     nw, nd = state_coords.shape
     ng = nw // move.nsplits
+    K = move.n_components
     model = Model(wrap_log_prob_fn(gaussian, vectorize=True), nw, nd)
+    cfg = move._config(model, nd)
     gen = torch.Generator(device=dev).manual_seed(31)
     draws = dict(z=torch.randn(ng, nd, device=dev, generator=gen),
                  zg=torch.randn(ng, 1, device=dev, generator=gen))
     if move.df is not None:
         draws["chi2"] = move.df * (1 + 0.1 * torch.rand(
             ng, device=dev, generator=gen))
-    out = []
-    for dt in (torch.float32, torch.float64):
-        c = state_coords.to(dt)
-        cy = {k: v.to(dt) for k, v in carry.items()}
-        q, f = move.get_proposal((0, 0), c, 0, model, carry=cy, extra={
-            k: v.to(dt) for k, v in draws.items()})
-        with full_float32():
-            mean_c = complement(c, 0, ng).mean(0)
-            xc = complement(c, 0, ng) - mean_c
-            _, cov, _ = move._pooled(cy, mean_c, (xc.T @ xc) / (nw - ng),
-                                     nw - ng, dt)
-            chol = move._t_shape_chol(cov, nd, dt)
-        out.append((q.double(), f.double(), chol.double()))
-    (q32, f32, l32), (q64, f64, l64) = out
+    q32, f32 = move.get_proposal((0, 0), state_coords, 0, model,
+                                 carry=carry, extra=draws)
+    t32 = dk.dime_finish(dk.dime_moments(
+        state_coords, (0, ng), carry["mean"], carry["w"], K), carry["mean"],
+        carry["cov"], carry["w"], cfg)
+    c64 = state_coords.double()
+    cy = {k: v.double() for k, v in carry.items()}
+    t64 = dk.dime_finish_plain(dk.dime_moments_plain(
+        c64, (0, ng), cy["mean"], cy["w"], K), cy["mean"], cy["cov"],
+        cy["w"], cfg)
+    q64, f64 = dk.dime_propose_plain(c64, 0, move.nsplits, t64, 0, 0, cfg,
+                                     extra={k: v.double()
+                                            for k, v in draws.items()})
+    l32 = dk.unpack_table(t32, K, nd)[1].double()
+    l64 = dk.unpack_table(t64, K, nd)[1]
+    f32 = f32.double()
     return dict(chol=float((l32 - l64).abs().max()),
                 factors=float((f32 - f64).abs().max()),
                 factors_rel=float(((f32 - f64).abs()
                                    / (1 + f64.abs())).max()),
-                q=float((q32 - q64).abs().max()))
+                q=float((q32.double() - q64).abs().max()))
 
 
 def chi2_check(torch, np, dev, card, n_calls=20):
@@ -2919,11 +2951,12 @@ def phase12(torch, np, dev, card):
     module docstring, 12): bench.py's two DIME stages, ``BlendedMove`` on
     workload 3 in turns with the sampler-level mixture, the side and
     slice moves at the main path's width, DE-Z at its use case and at
-    1e5 walkers.  Returns its numbers and the K8-K10 rows."""
+    1e5 walkers.  Returns its numbers and the K9 and K10 rows (K8's are
+    phase 21's)."""
     out = {}
-    with path_launches(out, "dime", ("accept_select",)):
+    with path_launches(out, "dime", tuple(K8_PER)):
         out["dime"] = phase12_dime(torch, np, dev, card)
-    with path_launches(out, "dime_bimodal", ("accept_select",)):
+    with path_launches(out, "dime_bimodal", tuple(K8_PER)):
         out["dime_bimodal"] = phase12_bimodal(torch, np, dev, card)
     out["chi2"] = chi2_check(torch, np, dev, card)
     with path_launches(out, "blended", (
@@ -2958,8 +2991,6 @@ def phase12_dime(torch, np, dev, card):
     kept x 1; a warm run, then two timed runs."""
     from emcee_tpu_torch import EnsembleSampler, moves
     from emcee_tpu_torch.backends import DeviceBackend
-    from emcee_tpu_torch.moves import DIMEMove
-    from emcee_tpu_torch.ops.philox import DeviceOffset, normals
 
     p0 = np.random.default_rng(4).normal(size=(NW, ND)).astype(np.float32)
 
@@ -2972,9 +3003,6 @@ def phase12_dime(torch, np, dev, card):
     acc64 = graph_vs_plain_chain(torch, make, p0)
     smp = make(DeviceBackend())
     kept = 400
-    # The K8 row's launches: a twin of the stage's run, untimed.
-    calls = counted_calls(torch, dev, DIMEMove, lambda: make(DeviceBackend()),
-                          p0, kept)
     t0 = time.perf_counter()
     st, _ = drive(smp, p0, kept, skip_initial_state_check=True)
     warm_s = time.perf_counter() - t0
@@ -2988,25 +3016,15 @@ def phase12_dime(torch, np, dev, card):
         raise AssertionError(f"phase 12: DIME stage: mean lp {mean_lp}, "
                              f"acceptance {acc}, tau {tau}")
     n_prof = 16
-    # K14: each split's normals (aimh_prob=1 reads no other draw).
+    # K8a and K8b for each split and the carry, K8c and K2 for each split;
+    # no K14 (K8c draws its own numbers).
     busy = busy_window(torch, lambda: drive(smp, None, n_prof, store=False),
                        n_prof, "DIME stage", lambda: {
-                           "stretch_propose": 0, "de_propose": 0,
-                           "snooker_propose": 0,
-                           "accept_select": 2 * n_prof,
-                           "philox_draw": 2 * n_prof},
-                       names={"accept_select": 2, "philox_draw": 2})
-    # The draws of one proposal alone: per split one Philox normals call
-    # at the proposal's shape, eager, profiled.
-    word = torch.zeros((), dtype=torch.int64, device=dev)
-    draws = busy_window(torch, lambda: [
-        normals(NW // 2, ND + 1, 3, DeviceOffset(word, k), dev, row0=k % 2)
-        for k in range(2 * n_prof)], n_prof, "DIME draws")
-    share = draws["device_us_per_proposal"] / busy["device_us_per_proposal"]
+                           k: v * n_prof for k, v in K8_PER.items()},
+                       names=K8_PER)
     # The same proposals eagerly, for the plain-version column.
     smp._use_graphs = False
-    _, dt_eager = drive(smp, None, n_prof, store=False, per_proposal={
-        "accept_select": 2, "philox_draw": 2})
+    _, dt_eager = drive(smp, None, n_prof, store=False, per_proposal=K8_PER)
     smp._use_graphs = True
     carry = smp._program.ws.carries[0]
     fcheck = dime_factor_check(torch, np, dev, smp._moves[0],
@@ -3017,25 +3035,25 @@ def phase12_dime(torch, np, dev, card):
     res = dict(walker_steps_per_s=rate, tau=tau, ess_per_s=rate / tau,
                acceptance=acc, mean_lp=mean_lp, seconds=dt,
                warm_seconds=warm_s, acceptance_64=acc64,
-               get_proposal_calls=calls, philox_share=share,
-               draws_us_per_proposal=draws["device_us_per_proposal"],
                eager_ms_per_proposal=dt_eager / n_prof * 1e3,
                float64=fcheck, proposals_profiled=n_prof, **busy)
     log(f"phase 12: (a) DIME stage (bench.py:305-349; 1e5 x 5-D, "
         f"aimh_prob=1, df=None, DeviceBackend, {kept} kept x 1): "
         f"{rate:.4e} walker-steps/s (best of two), tau {tau:.3f} proposals, "
         f"ESS/s {rate / tau:.4e}, acceptance {acc:.4f}, mean lp "
-        f"{mean_lp:.4f} {card}; device {busy['device_us_per_proposal']:.1f}"
-        f" us and {busy['kernels_per_proposal']:.0f} kernels a proposal, "
-        f"idle {busy['idle']:.4f}, K2 {busy['launches']['accept_select']} "
-        f"in {n_prof} proposals (profiler); the Philox normals "
-        f"{draws['device_us_per_proposal']:.1f} us a proposal, share "
-        f"{share:.3f}; eager {dt_eager / n_prof * 1e3:.3f} ms a proposal; "
-        f"graph chain == plain eager chain (64 proposals, acceptance "
-        f"{acc64:.4f}); float32 vs float64: Cholesky {fcheck['chol']:.3g}, "
-        f"factors {fcheck['factors']:.3g} (relative "
-        f"{fcheck['factors_rel']:.3g}); {calls} get_proposal calls in a "
-        f"twin of the warm run (device counter)")
+        f"{mean_lp:.4f} {card}; device "
+        f"{measured(busy['device_us_per_proposal'])} us and "
+        f"{measured(busy['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(busy['idle'], '.4f')}, launches "
+        f"{ {k: busy['launches'][k] for k in K8_PER} } in {n_prof} "
+        f"proposals (profiler), us a launch " + ", ".join(
+            f"{k} {measured(v and v * 1e3, '.2f')}"
+            for k, v in busy["ms_per_launch"].items())
+        + f"; eager {dt_eager / n_prof * 1e3:.3f} ms a proposal; graph chain"
+        f" == plain eager chain (64 proposals, acceptance {acc64:.4f}); K8 "
+        f"in float32 vs its plain versions in float64: Cholesky "
+        f"{fcheck['chol']:.3g}, factors {fcheck['factors']:.3g} (relative "
+        f"{fcheck['factors_rel']:.3g}), q {fcheck['q']:.3g}")
     return res
 
 
@@ -3090,7 +3108,9 @@ def phase12_bimodal(torch, np, dev, card):
                              f"{list(twin._exhaust_counts)}), tau {tau}")
     n_prof = 16
     busy = busy_window(torch, lambda: drive(smp, None, n_prof, store=False),
-                       n_prof, "bimodal DIME")
+                       n_prof, "bimodal DIME", lambda: {
+                           k: v * n_prof for k, v in K8_PER.items()},
+                       names=K8_PER)
     res = dict(walker_steps_per_s=rate, tau=tau, ess_per_s=rate / tau,
                mode_fraction=frac, acceptance=acc, seconds=dt,
                chi2_exhausted=exhausted, **busy)
@@ -3099,9 +3119,12 @@ def phase12_bimodal(torch, np, dev, card):
         f"tau {tau:.2f} proposals, ESS/s {rate / tau:.4e}, mode fraction "
         f"{frac:.4f}, acceptance {acc:.4f} {card}; chi-square exhaustions "
         f"{exhausted} in a df=7.5 twin of 64 proposals (Marsaglia-Tsang; "
-        f"df=10 sums ten squared normals and cannot exhaust); device {busy['device_us_per_proposal']:.1f} us"
-        f" and {busy['kernels_per_proposal']:.0f} kernels a proposal, idle "
-        f"{busy['idle']:.4f}")
+        f"df=10 sums ten squared normals and cannot exhaust); device "
+        f"{measured(busy['device_us_per_proposal'])} us and "
+        f"{measured(busy['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(busy['idle'], '.4f')}, us a launch "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in busy["ms_per_launch"].items()))
     return res
 
 
@@ -3354,10 +3377,10 @@ def phase12_dez(torch, np, dev, card):
 
 
 def phase12_rows(np, out, card):
-    """The K8-K10 rows of the kernel table: plain torch (no hand-written
-    kernel), device time a proposal inside the replays (profiler), the
-    same proposals eagerly as the plain column, and the least time the
-    card could take for the work."""
+    """The K9 and K10 rows of the kernel table: plain torch (no
+    hand-written kernel), device time a proposal inside the replays
+    (profiler), the same proposals eagerly as the plain column, and the
+    least time the card could take for the work."""
     def bound(nbytes, nops):
         t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": nops / F32_OPS_PER_S * 1e3}
@@ -3366,14 +3389,6 @@ def phase12_rows(np, out, card):
 
     philox = 100 + 40  # ten rounds of ~10 integer operations, Box-Muller
     ng = NW // 2
-    d = out["dime"]
-    # DIME (a): coords read once, q and factors written, the carry; per
-    # walker (ND + 1) / 2 Philox counters, z L^T, two quadratic forms; the
-    # complement's and the ensemble's moments.
-    k8 = bound(4 * (2 * NW * ND + NW + 2 * ND * ND),
-               NW * ((ND + 1) // 2 * philox + 2 * ND * ND
-                     + 2 * (3 * ND + 2 * ND * ND))
-               + 2 * NW * (ND + 2 * ND * ND))
     sl = out["side_slice"]["slice"]
 
     def slice_bound(ev_out, ev_shr):
@@ -3411,15 +3426,6 @@ def phase12_rows(np, out, card):
         return NW / (sum(r["rates"][False]) / 2) * 1e3
 
     return [
-        row("dime_proposal", "emcee_tpu_torch/moves/dime.py",
-            "emcee_tpu/moves/dime.py:298", d["get_proposal_calls"],
-            d["device_us_per_proposal"], d["eager_ms_per_proposal"], k8,
-            "K8, plain torch (not hand-written): DIME's proposal of both "
-            "splits with K2 and update_carry, a proposal of bench.py's "
-            "DIME stage; launches are get_proposal calls in an untimed "
-            "twin of its warm run (device counter); max_abs_err: graph chain == eager chain; "
-            "float64 check in float64",
-            float64=d["float64"], philox_share=d["philox_share"]),
         row("slice_loop", "emcee_tpu_torch/moves/slice.py",
             "emcee_tpu/moves/slice.py:143", sum(sl["executed"]),
             sl["device_us_per_proposal"], eager_ms(sl), k9,
@@ -5947,8 +5953,9 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
     time a launch at workload 4's shape (every rung's sort key, word 3 of
     16 x 256 counters) in the workload's replays (phase 14's window, or a
     short run of its own when phase 16 runs alone) and eagerly, and at
-    the DIME stage's shape (a split's 5e4 x 6 float32 normals) in the
-    stage's replays (phase 12) and eagerly; back-to-back calls and the
+    the DIME stage's shape (a split's 5e4 x 6 float32 normals) alone,
+    eagerly (the stage draws in K8c: K14 has no launch on its path, and
+    phase 12's window counts 0 a proposal); back-to-back calls and the
     plain version (CUDA events); the bounds by bytes and by the
     instructions the function needs."""
     from emcee_tpu_torch.ops import philox
@@ -6030,8 +6037,8 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
             instructions=instr)
     res["workload 4"]["ms"] = w4["ms_per_launch"]["philox_draw"]
     dime = (p12 or {}).get("dime") or {}
-    res["DIME stage"]["ms"] = (dime.get("ms_per_launch") or {}).get(
-        "philox_draw")
+    # K8c draws the DIME stage's numbers: no K14 launch in its replays.
+    res["DIME stage"]["ms"] = None
     for shape, r in res.items():
         log(f"phase 16: (b) K14 at {shape}'s shape: device "
             f"{measured(r['ms'] and r['ms'] * 1e3, '.2f')} us/launch in the "
@@ -6080,8 +6087,9 @@ def phase16(torch, np, dev, card, p12=None, p14=None):
                    "the shuffle's word 3): ms in the workload's replays "
                    "(profiler); launches counted on the card in "
                    f"{w4['proposals_counted']} replayed proposals; _dime: "
-                   f"the DIME stage's {ng} x {ND + 1} float32 normals of a "
-                   "split (ms in the stage's replays); max_abs_err: "
+                   f"K14 alone at the DIME stage's {ng} x {ND + 1} float32 "
+                   "normals of a split (the stage draws in K8c: ms_dime "
+                   "None, its launches a proposal 0); max_abs_err: "
                    f"torch.equal over {n_cmp} comparisons; bound: the "
                    "bytes written and read, and the instructions needed "
                    "(PHILOX_INSTR a counter, NORMAL_INSTR / NORMAL_SFU a "
@@ -8227,6 +8235,727 @@ def phase20_rows(out):
     return rows
 
 
+# -- 21. K8, DIME's moments, factor and proposal -------------------------------
+#: ndims of K8's sweep: 1-5 through K8c's registers, 100 by its loop (the
+#: q row as scratch) and through K8b's factor in global memory
+K8_SWEEP_ND = (1, 3, 5, 100)
+#: (rungs, walkers a split) of the sweep: one ensemble whose sets span ten
+#: K8a blocks (a tree of four levels with an odd node), and three rungs of
+#: an odd few
+K8_SWEEP_TN = ((1, 2501), (3, 7))
+#: df of the sweep: Gaussian, ten squared normals, Marsaglia-Tsang
+K8_SWEEP_DF = (None, 10.0, 7.5)
+#: K8's and K2's launches a DIME proposal: K8a and K8b for each split and
+#: for the carry, K8c and K2 for each split
+K8_PER = {"dime_moments": 3, "dime_finish": 3, "dime_propose": 2,
+          "accept_select": 2}
+#: phase 21's moves on workload 4's ladder
+PT21_MOVES = ("DIMEMove()", "DIMEMove(aimh_prob=0.3, n_components=2)")
+#: their kernels a proposal there (every rung at once): K8, K2, K15, the
+#: shuffle's K14 sort keys, K16 and K17
+PT21_PER = K8_PER | {"pt_swap": 1, "philox_draw": 1} | SHUF4
+#: proposals a replay of the per-rung loop's timed graph
+PT21_LOOP_N = 4
+
+
+def pt21_move(label):
+    from emcee_tpu_torch import moves
+
+    if label == "DIMEMove()":
+        return moves.DIMEMove()
+    return moves.DIMEMove(aimh_prob=0.3, n_components=2)
+
+
+def k8_carry(torch, dev, gen, lead, K, nd, warm, offset=0.0):
+    """A DIME carry of ``lead`` rungs (``()`` or ``(T,)``) and ``K``
+    components: warm (moments near the rows, weight 40) where ``warm``
+    (a bool, or a ``(T,)`` list), else the cold one."""
+    kk = (K,) if K > 1 else ()
+    on = torch.tensor(warm, dtype=torch.float32, device=dev).expand(
+        lead).reshape(lead + (1,) * len(kk))
+    mean = (offset + torch.randn(lead + kk + (nd,), device=dev,
+                                 generator=gen)) * on[..., None]
+    a = 0.3 * torch.randn(lead + kk + (nd, nd), device=dev, generator=gen)
+    cov = torch.eye(nd, device=dev) + a @ a.mT
+    w = 40.0 * on.expand(lead + kk).contiguous()
+    return mean.contiguous(), cov.contiguous(), w
+
+
+def k8_rows(torch, dev, gen, lead, nw, nd, K, offset=3.0):
+    """Rows of spread 1.5 at ``offset`` in ``K`` clusters 12 apart, each
+    a run of rows."""
+    x = 1.5 * torch.randn(lead + (nw, nd), device=dev, generator=gen)
+    cl = torch.clamp(torch.arange(nw, device=dev) // max(1, nw // K),
+                     max=K - 1)
+    return (x + offset + 12.0 * cl[:, None].float()).contiguous()
+
+
+@contextlib.contextmanager
+def forced_k8_paths(staged=None, shared=None, group=None):
+    """K8a staging its rows in shared memory (or reading them from global
+    memory) and K8b working in shared memory (or in global memory), as
+    forced, whatever the sizes (None: the plan's choice); with ``group``,
+    K8a's runs a block."""
+    from emcee_tpu_torch.ops import dime_kernel as dk
+
+    saved = dk.moments_staged, dk.finish_shared, dk.moments_group
+    if staged is not None:
+        dk.moments_staged = lambda rows, g, nd, k: staged
+    if shared is not None:
+        dk.finish_shared = lambda blocks, nd, k: shared
+    if group is not None:
+        dk.moments_group = lambda rows, nd, k: group
+    try:
+        yield
+    finally:
+        dk.moments_staged, dk.finish_shared, dk.moments_group = saved
+
+
+def k8_sweep(torch, dev):
+    """(a) K8a, K8b and K8c against their plain versions, bit for bit (the
+    bits compared, NaN included): ndim ``K8_SWEEP_ND``, one ensemble and
+    three rungs (``K8_SWEEP_TN``, odd walkers a split), 1-3 components,
+    ``df`` ``K8_SWEEP_DF``, ``aimh_prob`` 0.3 and 1, cold and warm carries,
+    both splits, the carry update, the chi-square exhaustion count; each
+    rung of three against the one-ensemble launch; K8a's and K8b's memory
+    paths forced both ways and K8a's runs a block 1-8
+    (``forced_k8_paths``); injected draws; a
+    device offset word against the same int offset; a history that leaves
+    the shape without a factor.  Returns the count of comparisons."""
+    from emcee_tpu_torch.ops import dime_kernel as dk
+    from emcee_tpu_torch.ops.de_kernel import de_gamma0
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(210)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        same_bits(got, want, what)
+        n_cmp += len(got)
+
+    def word():
+        return torch.zeros((), dtype=torch.int64, device=dev)
+
+    def one(x, T, K, nd, cfg, seed, carry, what, offset=5, extra=None):
+        """Both splits and the update of one setting, kernel against plain;
+        returns the kernel's tables and proposals."""
+        mean, cov, w = carry
+        ng = x.shape[-2] // 2
+        outs = []
+        for split in (0, 1):
+            part = dk.dime_moments(x, (split * ng, ng), mean, w, K)
+            same([part], [dk.dime_moments_plain(x, (split * ng, ng), mean,
+                                                w, K)],
+                 f"{what} split {split}: K8a")
+            table = dk.dime_finish(part.clone(), mean, cov, w, cfg)
+            same([table], [dk.dime_finish_plain(part, mean, cov, w, cfg)],
+                 f"{what} split {split}: K8b")
+            ek, ep = word(), word()
+            q, f = dk.dime_propose(x, split, 2, table, seed, offset, cfg,
+                                   extra=extra, exhausted=ek)
+            qp, fp = dk.dime_propose_plain(x, split, 2, table, seed, offset,
+                                           cfg, extra=extra, exhausted=ep)
+            same([q, f, ek], [qp, fp, ep], f"{what} split {split}: K8c")
+            outs.append((part, table, q, f))
+        got = [t.clone() for t in carry]
+        want = [t.clone() for t in carry]
+        dk.dime_finish(dk.dime_moments(x, (0, 0), got[0], got[2], K), *got,
+                       cfg, update=True)
+        dk.dime_finish_plain(dk.dime_moments_plain(x, (0, 0), want[0],
+                                                   want[2], K), *want, cfg,
+                             update=True)
+        same(got, want, f"{what}: the carry update")
+        return outs
+
+    for nd in K8_SWEEP_ND:
+        for T, ng in K8_SWEEP_TN:
+            lead = (T,) if T > 1 else ()
+            # ndim 100 (K8c's loop, K8b's global memory): one setting a
+            # ladder shape; its plain factor alone is ~2e4 launches.
+            for K in (((2,) if T == 1 else (1,)) if nd == 100
+                      else (1, 2, 3)):
+                for df in ((10.0,) if nd == 100 else K8_SWEEP_DF):
+                    for aimh in ((0.3,) if nd == 100 else (0.3, 1.0)):
+                        warm = ([False] + [True] * (T - 1) if T > 1
+                                else aimh < 1.0)
+                        carry = k8_carry(torch, dev, gen, lead, K, nd, warm)
+                        x = k8_rows(torch, dev, gen, lead, 2 * ng, nd, K)
+                        cfg = dk.DimeConfig(K, 0.999, df, aimh,
+                                            de_gamma0(None, nd), 1e-5)
+                        seed = rung_keys(31, T, dev) if T > 1 else 31
+                        what = (f"K8 sweep T={T} ng={ng} nd={nd} K={K} "
+                                f"df={df} aimh={aimh}")
+                        outs = one(x, T, K, nd, cfg, seed, carry, what)
+                        if T != 3 or df != 7.5 or aimh != 0.3:
+                            continue
+                        for r in range(T):
+                            rc = tuple(t[r].contiguous() for t in carry)
+                            mine = one(x[r].contiguous(), 1, K, nd, cfg,
+                                       seed.seeds[r], rc,
+                                       f"{what}, rung {r} alone")
+                            for o, m in zip(outs, mine):
+                                same(list(m), [v[r] for v in o],
+                                     f"{what}: rung {r} against one "
+                                     "ensemble")
+    # Both memory paths of K8a and K8b and other groups of runs, forced
+    # whatever the sizes.
+    for staged, shared, group in ((False, False, 1), (True, False, 2),
+                                  (False, True, 4), (True, True, 8)):
+        for T, ng, nd, K in ((1, 1001, 5, 1), (3, 300, 3, 3), (1, 77, 100, 2)):
+            lead = (T,) if T > 1 else ()
+            carry = k8_carry(torch, dev, gen, lead, K, nd,
+                             [False] + [True] * (T - 1) if T > 1 else True)
+            x = k8_rows(torch, dev, gen, lead, 2 * ng, nd, K)
+            cfg = dk.DimeConfig(K, 0.999, 10.0, 0.3, de_gamma0(None, nd),
+                                1e-5)
+            if nd == 100 and group > 1:
+                continue  # the runs' partials do not fit a block
+            with forced_k8_paths(staged, shared, group):
+                one(x, T, K, nd, cfg, rung_keys(7, T, dev) if T > 1 else 7,
+                    carry, f"K8 sweep staged={staged} shared={shared} "
+                    f"group={group} T={T} ng={ng} nd={nd} K={K}")
+    # Injected draws, one ensemble and three rungs.
+    for lead in ((), (3,)):
+        for K in (1, 3):
+            nd, ng = 4, 33
+            carry = k8_carry(torch, dev, gen, lead, K, nd, True)
+            x = k8_rows(torch, dev, gen, lead, 2 * ng, nd, K)
+            extra = dict(
+                z=torch.randn(lead + (ng, nd), device=dev, generator=gen),
+                zg=torch.randn(lead + (ng, 1), device=dev, generator=gen),
+                i=torch.randint(0, ng, lead + (ng,), device=dev,
+                                generator=gen),
+                j=torch.randint(0, ng - 1, lead + (ng,), device=dev,
+                                generator=gen),
+                use_t=torch.rand(lead + (ng,), device=dev,
+                                 generator=gen) < 0.5,
+                chi2=4.0 + torch.rand(lead + (ng,), device=dev,
+                                      generator=gen),
+                comp=torch.randint(0, K, lead + (ng,), device=dev,
+                                   generator=gen))
+            cfg = dk.DimeConfig(K, 0.999, 7.5, 0.3, de_gamma0(None, nd), 0.1)
+            one(x, len(lead), K, nd, cfg, 0, carry,
+                f"K8 sweep injected draws lead={lead} K={K}", extra=extra)
+    # A device offset word against the same int offset.
+    nd, ng, K = 5, 1001, 2
+    carry = k8_carry(torch, dev, gen, (), K, nd, True)
+    x = k8_rows(torch, dev, gen, (), 2 * ng, nd, K)
+    cfg = dk.DimeConfig(K, 0.999, 7.5, 0.3, de_gamma0(None, nd), 1e-5)
+    table = dk.dime_finish(dk.dime_moments(x, (0, ng), carry[0], carry[2],
+                                           K), *carry, cfg)
+    w8 = torch.tensor(40, dtype=torch.int64, device=dev)
+    same(dk.dime_propose(x, 0, 2, table, 17, DeviceOffset(w8, 2), cfg),
+         dk.dime_propose(x, 0, 2, table, 17, 42, cfg),
+         "K8c: a device offset word against the int offset")
+    # No factor: a negative-definite history that outweighs the batch.
+    for K in (1, 2):
+        nd = 3
+        kk = (K,) if K > 1 else ()
+        mean = torch.zeros(kk + (nd,), device=dev)
+        cov = (-50.0 * torch.eye(nd, device=dev)).expand(
+            kk + (nd, nd)).contiguous()
+        w = torch.full(kk, 1000.0, device=dev)
+        x = k8_rows(torch, dev, gen, (), 64, nd, K)
+        cfg = dk.DimeConfig(K, 0.999, 10.0, 0.3, de_gamma0(None, nd), 1e-5)
+        outs = one(x, 1, K, nd, cfg, 3, (mean, cov, w),
+                   f"K8 sweep no factor K={K}")
+        L = dk.unpack_table(outs[0][1], K, nd)[1]
+        if not bool(torch.isnan(L).all()):
+            raise AssertionError("K8 sweep: a shape with no factor gave "
+                                 "entries that are not NaN")
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def k8_bounds(n, nd, K, nb, ng, df, aimh):
+    """The least work of K8a (the set's rows once, the partials written;
+    per row and component the assignment, the mean and the
+    cross-products), K8b (the partials read, the table written; the tree,
+    the pool and the factor) and K8c (each walker's row read and its q and
+    factor written, a DE walker's two partner rows; its Philox blocks and
+    normals, the draw by L and both quadratic forms), as ``{name: (bytes,
+    instructions, special-function results)}``."""
+    node = 1 + nd + nd * nd
+    tab = K * (nd + 2 * nd * nd + 3)
+    de = aimh < 1.0
+    blocks = (nd + de + 1) // 2 + (de or K > 1) + (
+        0 if df is None else (int(df) + 1) // 2 if float(df).is_integer()
+        else 2)
+    normals = nd + de + (0 if df is None else int(df) if
+                         float(df).is_integer() else 2)
+    per_walker = (blocks * PHILOX_INSTR + normals * NORMAL_INSTR
+                  + nd * nd + 2 * K * (nd * nd + 2 * nd) + 20)
+    return {
+        "dime_moments": (4 * (n * nd + nb * K * node),
+                         n * (K * 3 * nd + 2 * nd + 4 * nd * nd), 0),
+        "dime_finish": (4 * (nb * K * node + tab),
+                        nb * K * 4 * nd * nd + K * (nd ** 3 // 3 + 8 * nd
+                                                    * nd), 3 * K),
+        "dime_propose": (4 * (2 * ng * nd + ng + tab + int(de) * 2 * ng
+                              * nd),
+                         ng * per_walker,
+                         ng * (normals * NORMAL_SFU + 2 * K + 2)),
+    }
+
+
+#: (rows a run, runs a K8a block) timed by ``k8_plan_sweep``
+K8_PLAN_SWEEP = tuple((r, g) for r in (64, 128, 256) for g in (1, 2, 4, 8))
+
+
+def k8_plan_sweep(torch, dev, card):
+    """K8a and K8b (the moments of a split's complement and the table; the
+    carry update) alone at the DIME stage's shape for every (rows a run,
+    runs a block) of ``K8_PLAN_SWEEP``: device us a call by CUDA events
+    around graph replays.  The runs a block leave the bits as they are;
+    the rows a run set them (the plain version follows either)."""
+    from emcee_tpu_torch.ops import dime_kernel as dk
+
+    gen = torch.Generator(device=dev).manual_seed(213)
+    ng = NW // 2
+    x = k8_rows(torch, dev, gen, (), NW, ND, 1, offset=0.0)
+    carry = k8_carry(torch, dev, gen, (), 1, ND, True)
+    cfg = dk.DimeConfig(1, 0.999, None, 1.0, 0.5, 1e-5)
+    out = {}
+    for rows, group in K8_PLAN_SWEEP:
+        with forced_k8_paths(group=group):
+            part = dk.dime_moments(x, (0, ng), carry[0], carry[2], 1,
+                                   rows=rows)
+            scratch = part.clone()
+            upd = [t.clone() for t in carry]
+            out[(rows, group)] = {
+                "moments": replay_ms(torch, lambda: dk.dime_moments(
+                    x, (0, ng), carry[0], carry[2], 1, rows=rows)),
+                "finish": replay_ms(torch, lambda: dk.dime_finish(
+                    scratch, *carry, cfg)),
+                "update": replay_ms(torch, lambda: dk.dime_finish(
+                    dk.dime_moments(x, (0, 0), upd[0], upd[2], 1,
+                                    rows=rows), *upd, cfg, update=True)),
+                "blocks": part.shape[-3]}
+    log("phase 21: (b) K8a + K8b at the DIME stage's shape (a split's "
+        "5e4-row complement; the update's 1e5 rows) by (rows a run, runs a "
+        "block), device us a call (graph replays): " + "; ".join(
+            f"{k}: {v['moments'] * 1e3:.2f} + {v['finish'] * 1e3:.2f} "
+            f"({v['blocks']} partials), update {v['update'] * 1e3:.2f}"
+            for k, v in out.items()) + f" {card}")
+    return {f"{r}x{g}": v for (r, g), v in out.items()}
+
+
+def k8_alone(torch, dev, card):
+    """(b) K8a, K8b and K8c alone at the DIME stage's shape (1e5 x 5, one
+    component, ``df=None``, ``aimh_prob=1``: a split's complement of 5e4
+    rows) and the bimodal stage's (1e5 x 3, two components, ``df=10``,
+    ``aimh_prob=0.3``), a warm carry: device ms a call by CUDA events
+    around graph replays (``replay_ms``), the carry update (K8a over the
+    ensemble and K8b writing the carry), the plain versions (CUDA events,
+    eager), the yardsticks ``torch.cov(x.T, correction=0)`` of the same
+    complement rows and ``torch.linalg.cholesky_ex`` of the pooled shape
+    (CUDA events, back to back: ``torch.cov`` cannot be recorded into a
+    graph), a call back to back from Python (which the host's enqueue
+    bounds), and the bounds (bytes, and instructions at the issue rate)."""
+    from emcee_tpu_torch.ops import dime_kernel as dk
+    from emcee_tpu_torch.ops.de_kernel import de_gamma0
+
+    gen = torch.Generator(device=dev).manual_seed(211)
+    out = {}
+    for shape, (nd, K, df, aimh) in {
+            "DIME stage": (ND, 1, None, 1.0),
+            "bimodal stage": (3, 2, 10.0, 0.3)}.items():
+        ng = NW // 2
+        x = k8_rows(torch, dev, gen, (), NW, nd, K, offset=0.0)
+        carry = k8_carry(torch, dev, gen, (), K, nd, True)
+        cfg = dk.DimeConfig(K, 0.999, df, aimh, de_gamma0(None, nd), 1e-5)
+        part = dk.dime_moments(x, (0, ng), carry[0], carry[2], K)
+        scratch = part.clone()
+        table = dk.dime_finish(part.clone(), *carry, cfg)
+        upd = [t.clone() for t in carry]
+        calls = {
+            "dime_moments": lambda: dk.dime_moments(x, (0, ng), carry[0],
+                                                    carry[2], K),
+            "dime_finish": lambda: dk.dime_finish(scratch, *carry, cfg),
+            "dime_propose": lambda: dk.dime_propose(x, 0, 2, table, 3, 5,
+                                                    cfg),
+            "update": lambda: dk.dime_finish(dk.dime_moments(
+                x, (0, 0), upd[0], upd[2], K), *upd, cfg, update=True),
+        }
+        plain = {
+            "dime_moments": lambda: dk.dime_moments_plain(
+                x, (0, ng), carry[0], carry[2], K),
+            "dime_finish": lambda: dk.dime_finish_plain(part, *carry, cfg),
+            "dime_propose": lambda: dk.dime_propose_plain(
+                x, 0, 2, table, 3, 5, cfg),
+        }
+        c = x[ng:]
+        pooled = dk.unpack_table(table, K, nd)[1][0]
+        pooled = pooled @ pooled.mT
+        # torch.cov cannot be recorded into a graph: both yardsticks are
+        # timed back to back by CUDA events, eagerly.
+        lib = {"dime_moments": cuda_ms(
+                   torch, lambda: torch.cov(c.T, correction=0)),
+               "dime_finish": cuda_ms(
+                   torch, lambda: torch.linalg.cholesky_ex(pooled))}
+        bounds = k8_bounds(NW - ng, nd, K, part.shape[-3], ng, df, aimh)
+        res = {}
+        for name, fn in calls.items():
+            r = res[name] = {"ms": replay_ms(torch, fn),
+                             "call_ms": cuda_ms(torch, fn, reps=50)}
+            if name in plain:
+                r["plain_ms"] = slow_ms(torch, plain[name], reps=3)
+                nbytes, instr, sfu = bounds[name]
+                t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "operations": instruction_bound(instr, sfu)}
+                r.update(bound_ms=max(t.values()),
+                         bound_by=max(t, key=t.get), bytes=nbytes,
+                         instructions=instr, library_ms=lib.get(name))
+        out[shape] = res
+        log(f"phase 21: (b) K8 alone at the {shape}'s shape (1e5 x {nd}, "
+            f"K={K}, df={df}, aimh_prob={aimh}), device us a call (graph "
+            f"replays): " + ", ".join(
+                f"{k} {v['ms'] * 1e3:.2f}" + (
+                    f" (plain {v['plain_ms'] * 1e3:.1f}, bound "
+                    f"{v['bound_ms'] * 1e3:.3f} by {v['bound_by']}"
+                    + (f", library {v['library_ms'] * 1e3:.2f}"
+                       if v.get("library_ms") else "") + ")"
+                    if "plain_ms" in v else "")
+                for k, v in res.items()) + f" {card}")
+    return out
+
+
+def k8_stage(torch, np, dev, card, n=16):
+    """(c) The DIME stage's configuration (``bench.py:305-349``: 1e5 x
+    5-D, ``DIMEMove(aimh_prob=1.0, df=None, randomize_split=False)``) for
+    the one-ensemble rows: device us and kernels a proposal and each
+    kernel's us a launch in ``n`` replayed proposals (profiler), the
+    launches counted by device words (exactly ``K8_PER`` a proposal)."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=23,
+                          device=dev, moves=moves.DIMEMove(
+                              aimh_prob=1.0, df=None, randomize_split=False))
+    p0 = np.random.default_rng(4).normal(size=(NW, ND)).astype(np.float32)
+    smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True)
+    smp.run_mcmc(None, n, store=False)
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False), n,
+                      "phase 21 DIME stage", names=K8_PER)
+    counted, _ = counted_replays(
+        torch, dev, smp, n, lambda r: {k: v * n for k, v in K8_PER.items()},
+        "phase 21 DIME stage", store=False)
+    log(f"phase 21: (c) the DIME stage (1e5 x 5-D), {n} replayed "
+        f"proposals: device {measured(win['device_us_per_proposal'])} us "
+        f"and {measured(win['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(win['idle'], '.4f')}; us a launch: "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in win["ms_per_launch"].items())
+        + f"; launches {counted} (device words, exactly {K8_PER} a "
+        f"proposal) {card}")
+    return dict(win=win, replayed_launches=counted, proposals_counted=n)
+
+
+def pt21_sampler(dev, label, seed, backend=None):
+    return pt_sampler(dev, seed=seed, backend=backend, move=pt21_move(label))
+
+
+def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
+              kept=512, thin=4):
+    """(d) ``label`` at workload 4's configuration: over 64 proposals the
+    graph chain (every rung at once) against the plain versions' eager
+    chain and against the per-rung loop, bit for bit (the carries too);
+    both paths in turns (batched, loop, loop, batched): host us, device us
+    and kernels a proposal; the batched path's launches counted by device
+    words (``PT21_PER``); then 512 kept x 4 into ``PTDeviceBackend`` (the
+    best of two timed runs: walker-steps/s, the cold rung's tau and
+    ESS/s; held: a finite chain and tau, and phase 14's windows: the swap
+    acceptance, the cold mode fraction, the cold |x0|'s mean and spread)
+    and ``PTDeviceBackend`` == ``PTBackend`` from one seed."""
+    from emcee_tpu_torch.backends import PTBackend, PTDeviceBackend
+
+    out = {}
+    t0 = time.perf_counter()
+
+    def carries(smp):
+        return tuple(v.clone() for v in smp._move_carries[0].values())
+
+    ends = []
+    for plain in (False, True):
+        smp = pt21_sampler(dev, label, 87)
+        smp._use_graphs = not plain
+        with plain_kernels() if plain else contextlib.nullcontext():
+            ends.append(pt_runs(smp, p0) + carries(smp))
+    same_ends(np, *[[np_of(v.cpu()) if isinstance(v, torch.Tensor) else v
+                     for v in e] for e in ends],
+              f"{label}: graph-replayed and eager plain chains")
+    paths = {}
+    for batched in (True, False):
+        smp = pt21_sampler(dev, label, 88)
+        smp._batched = batched
+        paths[batched] = (smp, pt_runs(smp, p0) + carries(smp))
+        smp.run_mcmc(None, n_c if batched else n_l, store=False)
+    a, b = paths[True][1], paths[False][1]
+    same_ends(np, *[[np_of(v.cpu()) if isinstance(v, torch.Tensor) else v
+                     for v in e] for e in (a, b)],
+              f"{label}: every rung at once and the per-rung loop")
+    out["swaps_64"] = a[4].tolist()
+    host = {True: [], False: []}
+    dev_us = {True: [], False: []}
+    kernels = {True: [], False: []}
+    for batched in (True, False, False, True):
+        smp, n = (paths[True][0], n_c) if batched else (paths[False][0], n_l)
+        _, dt = drive(smp, None, n, store=False)
+        host[batched].append(dt / n * 1e6)
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False),
+                          n, f"{label} {'batched' if batched else 'loop'}")
+        dev_us[batched].append(win["device_us_per_proposal"])
+        kernels[batched].append(win["kernels_per_proposal"])
+    smp = paths[True][0]
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n_c, store=False),
+                      n_c, f"{label} batched, its kernels", names=PT21_PER)
+    counted, profiled = counted_replays(
+        torch, dev, smp, n_c, lambda r: {k: v * n_c
+                                         for k, v in PT21_PER.items()},
+        f"{label} batched", store=False)
+    out.update(host_us=host, device_us=dev_us, kernels=kernels, win=win,
+               replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n_c, loop_proposals_a_replay=n_l,
+               seconds_paths=time.perf_counter() - t0)
+    del paths
+
+    t0 = time.perf_counter()
+    smp = pt21_sampler(dev, label, 4, backend=PTDeviceBackend())
+    st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
+    warm_graphs(smp)
+    dt = float("inf")
+    for _ in range(2):  # workloads5.py:224-233: the best of two
+        smp.reset()
+        st, dt_run = drive(smp, st, kept, thin_by=thin,
+                           skip_initial_state_check=True)
+        dt = min(dt, dt_run)
+    n_prop = kept * thin
+    chain = smp.get_chain()
+    cold = chain[:, 0]
+    tau = tau_of(np, cold, thin)
+    if not (np.all(np.isfinite(chain)) and np.isfinite(tau)):
+        raise AssertionError(f"phase 21: {label}: a chain or tau that is "
+                             f"not finite (tau {tau})")
+    x0 = cold[..., 0]
+    swap_mean = float(np.mean(smp.tswap_acceptance_fraction))
+    mode_frac = float(np.mean(x0 > 0))
+    mean_abs, spread = float(np.mean(np.abs(x0))), float(np.std(np.abs(x0)))
+    checks = {
+        "swap acceptance mean in (0.4, 0.9)": 0.4 < swap_mean < 0.9,
+        "cold mode fraction in (0.25, 0.75)": 0.25 < mode_frac < 0.75,
+        "cold mean |x0| within 0.25 of 4": abs(mean_abs - PT_SEP) < 0.25,
+        "cold spread of |x0| within 0.2 of 1": abs(spread - 1.0) < 0.2,
+    }
+    out["workload4"] = res = dict(
+        walker_steps_per_s=NT4 * NW4 * n_prop / dt, seconds=dt, tau_cold=tau,
+        ess_per_s_cold=NW4 * (n_prop / dt) / tau,
+        tau_reliable=bool(n_prop / tau >= 30.0),
+        swap_acceptance_mean=swap_mean, cold_mode_fraction=mode_frac,
+        cold_mean_abs_x0=mean_abs, cold_spread_abs_x0=spread,
+        cold_acceptance=float(smp.acceptance_fraction[0].mean()),
+        checks=checks)
+    chains = []
+    for backend in (PTDeviceBackend(), PTBackend()):
+        s2 = pt21_sampler(dev, label, 59, backend=backend)
+        s2.run_mcmc(p0, kept, thin_by=thin, skip_initial_state_check=True)
+        chains.append((s2.get_chain().astype(np.float64),
+                       s2.get_log_like().astype(np.float64),
+                       s2.get_log_prior().astype(np.float64),
+                       s2.backend.accepted, s2.swaps_accepted,
+                       s2.swaps_proposed, np_of(s2.backend.random_state)))
+    same_ends(np, *chains, f"{label}: PTDeviceBackend and PTBackend chains")
+    log(f"phase 21: (d) {label}, workload 4's configuration, "
+        f"PTDeviceBackend, {kept} kept x {thin}: "
+        f"{res['walker_steps_per_s']:.4e} walker-steps/s over all rungs "
+        f"(best of two), cold tau {tau:.2f} proposals, cold ESS/s "
+        f"{res['ess_per_s_cold']:.4e}, tau_reliable {res['tau_reliable']}, "
+        f"swap acceptance mean {swap_mean:.3f}, cold mode fraction "
+        f"{mode_frac:.3f}, cold mean |x0| {mean_abs:.3f} (spread "
+        f"{spread:.3f}), cold acceptance {res['cold_acceptance']:.3f}; "
+        f"checks {checks}; {kept} kept x {thin} into PTDeviceBackend == "
+        f"PTBackend {card} ({time.perf_counter() - t0:.1f} s)")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 21: {label}: workload 4 checks "
+                             f"{checks}")
+    return out
+
+
+def phase21(torch, np, dev, card):
+    """K8, DIME's moments, factor and proposal (see the module docstring,
+    21): the sweep, the kernels alone, the DIME stage's replays, the two
+    moves on workload 4's ladder (every rung at once against the per-rung
+    loop), each path's launches counted from 0 just before it, and the
+    rows of K8a, K8b and K8c, one ensemble and with the rung axis.
+    Returns its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k8_sweep(torch, dev)
+    log(f"phase 21: (a) K8a, K8b and K8c against their plain versions "
+        f"(ndim {K8_SWEEP_ND}, (rungs, walkers a split) {K8_SWEEP_TN}, K 1-3,"
+        f" df {K8_SWEEP_DF}, aimh_prob 0.3 and 1, cold and warm carries, "
+        f"both splits and the carry update, each rung of 3 against the "
+        f"one-ensemble launch, injected draws, a device offset word, a "
+        f"shape with no factor): {out['sweep']} comparisons, all bit for "
+        f"bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k8_alone(torch, dev, card)
+    out["plan_sweep"] = k8_plan_sweep(torch, dev, card)
+    log(f"phase 21: (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with path_launches(out, "DIME stage", tuple(K8_PER), "phase 21"):
+        out["stage"] = k8_stage(torch, np, dev, card)
+    log(f"phase 21: (c) {time.perf_counter() - t0:.1f} s")
+    p0 = pt_p0(np)
+    for label in PT21_MOVES:
+        t0 = time.perf_counter()
+        with path_launches(out, label, tuple(PT21_PER), "phase 21"):
+            r = out[label] = pt21_path(torch, np, dev, card, label, p0)
+        log(f"phase 21: (d) {label} at {NT4} x {NW4} x {ND4}: 64 "
+            f"graph-replayed proposals of every rung at once equal the "
+            f"plain versions' eager chain and the per-rung loop bit for bit,"
+            f" carries included (swaps {r['swaps_64']}); in turns (batched, "
+            f"loop, loop, batched; replays of {r['proposals_counted']} and "
+            f"{r['loop_proposals_a_replay']} proposals), a proposal: host "
+            f"{[round(v, 1) for v in r['host_us'][True]]} / "
+            f"{[round(v, 1) for v in r['host_us'][False]]} us, device "
+            f"{[measured(v) for v in r['device_us'][True]]} / "
+            f"{[measured(v) for v in r['device_us'][False]]} us, kernels "
+            f"{[measured(v, '.0f') for v in r['kernels'][True]]} / "
+            f"{[measured(v, '.0f') for v in r['kernels'][False]]} (batched /"
+            f" loop); batched launches in {r['proposals_counted']} proposals "
+            f"{ {k: v for k, v in r['replayed_launches'].items() if v} } "
+            f"(device words; exactly {PT21_PER} a proposal); us a launch in "
+            f"its replays: " + ", ".join(
+                f"{k} {measured(v and v * 1e3, '.3f')}"
+                for k, v in r["win"]["ms_per_launch"].items())
+            + f" {card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 21: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase21_rows(torch, dev, out, card)
+
+
+def phase21_rows(torch, dev, out, card):
+    """(e) The rows of K8a, K8b and K8c at the DIME stage's shape (device
+    time a launch in the stage's replays by the profiler; launches by
+    device words there; a call alone and the plain version by CUDA
+    events; the bound and the yardstick at that shape) and with the rung
+    axis (workload 4's ladder under ``DIMEMove()``: device time a launch
+    in its replays, launches by device words there, a call alone and the
+    plain version at its shape)."""
+    from emcee_tpu_torch.ops import dime_kernel as dk
+    from emcee_tpu_torch.ops.de_kernel import de_gamma0
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    st, al = out["stage"], out["alone"]
+    lad = out["DIMEMove()"]
+    meta = {
+        "dime_moments": ("emcee_tpu_torch/csrc/dime_moments.cu",
+                         "emcee_tpu/moves/dime.py:38-47, :180-231",
+                         "torch.cov(x.T, correction=0) of the same "
+                         "complement rows"),
+        "dime_finish": ("emcee_tpu_torch/csrc/dime_moments.cu",
+                        "emcee_tpu/moves/dime.py:133-155, :233-276",
+                        "torch.linalg.cholesky_ex of the pooled shape"),
+        "dime_propose": ("emcee_tpu_torch/csrc/dime_propose.cu",
+                         "emcee_tpu/moves/dime.py:298-431",
+                         "none: no single PyTorch call computes it"),
+    }
+    # The ladder's shapes: 16 rungs, a split's complement of 128 rows, ndim 5.
+    T, nw, nd = NT4, NW4, ND4
+    ng = nw // 2
+    gen = torch.Generator(device=dev).manual_seed(212)
+    x = k8_rows(torch, dev, gen, (T,), nw, nd, 1)
+    carry = k8_carry(torch, dev, gen, (T,), 1, nd, [True] * T)
+    cfg = dk.DimeConfig(1, 0.999, 10.0, 0.1, de_gamma0(None, nd), 1e-5)
+    keys = rung_keys(5, T, dev)
+    part = dk.dime_moments(x, (0, ng), carry[0], carry[2], 1)
+    scratch = part.clone()
+    table = dk.dime_finish(part.clone(), *carry, cfg)
+    rung_calls = {
+        "dime_moments": (lambda: dk.dime_moments(x, (0, ng), carry[0],
+                                                 carry[2], 1),
+                         lambda: dk.dime_moments_plain(x, (0, ng), carry[0],
+                                                       carry[2], 1)),
+        "dime_finish": (lambda: dk.dime_finish(scratch, *carry, cfg),
+                        lambda: dk.dime_finish_plain(part, *carry, cfg)),
+        "dime_propose": (lambda: dk.dime_propose(x, 0, 2, table, keys, 5,
+                                                 cfg),
+                         lambda: dk.dime_propose_plain(x, 0, 2, table, keys,
+                                                       5, cfg)),
+    }
+    rbounds = k8_bounds(T * (nw - ng), nd, 1, T * part.shape[-3], T * ng,
+                        10.0, 0.1)
+    rows = []
+    for name, (src, jax, lib_note) in meta.items():
+        a = al["DIME stage"][name]
+        regs = {k: v for k, v in PTXAS.items() if f"{name}_kernel" in k}
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": jax,
+            "launches": st["replayed_launches"][name], "max_abs_err": 0.0,
+            "ms": st["win"]["ms_per_launch"][name], "call_ms": a["call_ms"],
+            "alone_ms": a["ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+            "bytes": a["bytes"], "instructions": a["instructions"],
+            "bimodal": al["bimodal stage"][name],
+            "update_call_ms": al["DIME stage"]["update"]["ms"],
+            "launches_per_proposal": (st["replayed_launches"][name]
+                                      / st["proposals_counted"]),
+            "ptxas": regs,
+            "note": f"K8 at the DIME stage's shape (1e5 x 5-D, one "
+                    f"component, df=None, aimh_prob=1: a split's complement "
+                    f"of 5e4 rows): ms in the stage's replays (profiler); "
+                    f"alone_ms a call alone (CUDA events around graph "
+                    f"replays); call_ms a call back to back from Python "
+                    f"(CUDA events); launches counted on the card in "
+                    f"{st['proposals_counted']} replayed proposals; "
+                    f"max_abs_err: bit for bit over phase 21's sweep of "
+                    f"{out['sweep']} comparisons; bound: the bytes (each "
+                    f"input once, each output once) and the instructions "
+                    f"needed at the issue rate; bimodal: the same at the "
+                    f"bimodal stage's shape; library_ms: {lib_note}"})
+        fn, pl = rung_calls[name]
+        nbytes, instr, sfu = rbounds[name]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": instruction_bound(instr, sfu)}
+        rows.append({
+            "name": f"{name} (rung axis)", "route": "cuda", "source": src,
+            "replaces": f"{jax} (vmapped by "
+                        "emcee_tpu/parallel/tempering.py:449-541)",
+            "launches": lad["replayed_launches"][name], "max_abs_err": 0.0,
+            "ms": lad["win"]["ms_per_launch"][name],
+            "call_ms": cuda_ms(torch, fn, reps=50),
+            "alone_ms": replay_ms(torch, fn),
+            "plain_ms": slow_ms(torch, pl, reps=3),
+            "bound_ms": max(t.values()), "bound_by": max(t, key=t.get),
+            "library_ms": None,
+            "launches_per_proposal": (lad["replayed_launches"][name]
+                                      / lad["proposals_counted"]),
+            "path_device_us_batched_loop": (lad["device_us"][True],
+                                            lad["device_us"][False]),
+            "path_kernels_batched_loop": (lad["kernels"][True],
+                                          lad["kernels"][False]),
+            "note": f"K8 with the rung axis at workload 4's shape ({T} "
+                    f"rungs x {nw} walkers x {nd}, DIMEMove()): ms in the "
+                    f"ladder's replays (profiler); launches counted on the "
+                    f"card in replayed proposals; alone_ms a call alone at "
+                    f"that shape (CUDA events around graph replays), "
+                    f"call_ms back to back from Python; "
+                    f"max_abs_err: bit for bit over phase 21's sweep; "
+                    f"library_ms: none, no single PyTorch call computes "
+                    f"every rung's {'moments' if name == 'dime_moments' else 'factor' if name == 'dime_finish' else 'proposal'}"})
+    for row in rows:
+        log(f"phase 21: (e) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['alone_ms'] * 1e3:.2f} us a call "
+            f"alone, {row['call_ms'] * 1e3:.2f} back to back, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), library "
+            f"{measured(row['library_ms'] and row['library_ms'] * 1e3, '.2f')}"
+            f" us; launches {row['launches']} {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -8272,7 +9001,8 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     workload 4 (K14: every rung's sort keys; K2 with the ``logL`` /
     ``logP`` leaves) and of workload 4 with the blobs ``(2 logL, x)``
     (K2 with four leaves), of 16 replayed proposals of the DIME stage
-    (K14: a split's normals), and of 16 of ``StretchMove()`` at the main
+    (K8a, K8b and K8c where the tree has them, else K14: a split's
+    normals), and of 16 of ``StretchMove()`` at the main
     path's width (1e5 walkers, the shuffled split).  A tree with K16 and
     K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
     on the shuffled paths.  Uses only what every tree with K14 has."""
@@ -8284,6 +9014,8 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     tree = Path(emcee_tpu_torch.__file__).parent.parent
     has16 = importlib.util.find_spec(
         "emcee_tpu_torch.ops.shuffle_kernel") is not None
+    has8 = importlib.util.find_spec(
+        "emcee_tpu_torch.ops.dime_kernel") is not None
     p0 = pt_p0(np)
     per = {"stretch_propose": 2, "accept_select": 2, "pt_swap": 1,
            "philox_draw": 1} | (SHUF4 if has16 else {})
@@ -8293,7 +9025,8 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     dime = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=3,
                            device=dev, moves=moves.DIMEMove(
                                aimh_prob=1.0, df=None, randomize_split=False))
-    runs["DIME stage"] = (dime, 16, {"accept_select": 2, "philox_draw": 2})
+    runs["DIME stage"] = (dime, 16, K8_PER if has8 else {
+        "accept_select": 2, "philox_draw": 2})
     stretch = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=20,
                               device=dev)
     runs["StretchMove() at 1e5"] = (stretch, 16, {
@@ -8531,18 +9264,18 @@ def main() -> int:
                 f"shared memory, {spill} bytes spilled")
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
-                        ["17"], ["18"], ["19"], ["20"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19 or 20 alone (a first
+                        ["17"], ["18"], ["19"], ["20"], ["21"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 or 21 alone (a first
         # check of the blobs, the extension moves, the gradient moves,
         # tempering, K14, the DE family on every rung, the gradient moves
-        # on every rung, K7 or the shuffled split's K16 and K17).
+        # on every rung, K7, the shuffled split's K16 and K17 or K8).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
                  "14": phase14, "15": phase15,
                  "16": phase16, "17": phase17,
                  "18": phase18, "19": phase19,
-                 "20": phase20}[sys.argv[1]]
+                 "20": phase20, "21": phase21}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -9155,6 +9888,12 @@ def main() -> int:
     _, rows20 = phase20(torch, np, dev, card)
     rows += rows20
     log(f"phase 20: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 21. K8, DIME's moments, factor and proposal ---------------------------
+    t0 = time.perf_counter()
+    _, rows21 = phase21(torch, np, dev, card)
+    rows += rows21
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -45,6 +45,9 @@ KERNELS = {
     "kde_logpdf": ("kde_logpdf.cu", "emcee_kde_logpdf"),
     "group_order": ("shuffle_order.cu", "emcee_group_order"),
     "copy_rows": ("gather_rows.cu", "emcee_copy_rows"),
+    "dime_moments": ("dime_moments.cu", "emcee_dime_moments"),
+    "dime_finish": ("dime_moments.cu", "emcee_dime_finish"),
+    "dime_propose": ("dime_propose.cu", "emcee_dime_propose"),
 }
 
 _FLAGS = [
@@ -170,6 +173,27 @@ _ARGTYPES = {
         _P,  # order
         _P, ctypes.c_int,  # buffer descriptors (host array), their number
         _P, ctypes.c_int,  # blocks a launch (host array), scatter
+        _P,  # stream
+    ],
+    "dime_moments": [
+        _P, _P, _P, _P,  # x, part, mean, w
+        ctypes.c_int, ctypes.c_int,  # nw nd
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # skip_lo skip_n K
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plan: rows group blocks
+        ctypes.c_int, ctypes.c_int,  # ntemps, plan: threads
+        ctypes.c_int,  # the block's rows staged in shared memory
+        _P,  # stream
+    ],
+    "dime_finish": [
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # part nb nd K
+        _P, _P, _P, _P,  # mean, cov, w, table
+        ctypes.c_float, ctypes.c_float, ctypes.c_int,  # rho scale update
+        ctypes.c_int, ctypes.c_int,  # ntemps, plan: threads
+        ctypes.c_int,  # the partials and the factor in shared memory
+        _P,  # stream
+    ],
+    "dime_propose": [
+        _P,  # the arguments (host struct, ops/dime_kernel.py _ProposeArgs)
         _P,  # stream
     ],
 }
