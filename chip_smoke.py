@@ -95,10 +95,17 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    sampler-level mixture (launches by the profiler); (d)
    ``SideMove(roll)`` and ``EnsembleSliceMove()`` at 1e5 x 5-D (graph
    chains == eager chains; the slice move's block replays, flag reads
-   and evaluations; its caps binding); (e) ``DEZMove`` at 8 x 10-D
-   (12000 proposals, the moment checks) and at 1e5 x 5-D with its
-   1e6-row archive.  ``python3 chip_smoke.py 12`` runs phases 0, 1 and
-   12 alone (``11`` likewise phase 11).
+   and evaluations; its caps binding); (e) K10a, K10b and K10c (DE-Z's
+   spread, proposal and archive fold) against their plain versions bit
+   for bit (ndim 1-129, 37-5e4 walkers a split, nsplits 2-4, the ring
+   empty, partly filled, full and wrapping, every branch of ``g1_prob``,
+   ``snooker_prob`` and ``de_noise``, a complement at mean 1e4, injected /
+   host offset / device offset draws, unaligned bases), ``DEZMove`` at 8
+   x 10-D (12000 proposals, the moment checks) and at 1e5 x 5-D with its
+   1e6-row archive (graph chain == plain eager chain; launches held to 2
+   K10a, 2 K10b, 1 K10c, 2 K2 and 1 K14 a proposal with the shuffle's,
+   by the profiler and by device words).  ``python3 chip_smoke.py 12``
+   runs phases 0, 1 and 12 alone (``11`` likewise phase 11).
 
 13. the gradient moves: (e) K11 (Langevin step), K12 (Hastings /
    kinetic reduction) and K13 (leapfrog) against their plain versions,
@@ -296,10 +303,27 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    K8c, one ensemble and with the rung axis.  ``python3 chip_smoke.py 21``
    runs phases 0, 1 and 21 alone.
 
+22. K10, DE-Z's spread, proposal and archive fold: (a) K10a, K10b and
+   K10c with the rung axis against their plain versions and each rung
+   against the one-ensemble launch, bit for bit; (b) each alone at 1e5 x
+   5-D and at workload 4's ladder (CUDA events around graph replays)
+   beside its plain version, its bound and its yardstick
+   (``torch.std(correction=0)`` of the complement; ``index_select`` +
+   ``index_copy_`` of the folded rows), and K10a + K10b over (rows a
+   run, runs a block); (c) ``DEZMove()`` at 1e5 x 5-D:
+   device time and kernels a proposal, launches by device words; (d)
+   ``DEZMove()`` at workload 4's configuration as phase 21's (d) holds
+   DIME's: graph == eager plain, batched == per-rung loop with every
+   rung's archive and words, turns, launches by device words, 512 kept x
+   4 in phase 14's windows, ``PTDeviceBackend`` == ``PTBackend``; (e) the
+   rows of K10a, K10b and K10c, one ensemble and with the rung axis.
+   ``python3 chip_smoke.py 22`` runs phases 0, 1 and 22 alone.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21.  Every phase raises on failure.  ``python3 chip_smoke.py sass-diff
-TREE`` builds TREE's and this checkout's K1, K2, K5a, K5b, K11, K12, K13
-and K15 and compares their SASS function by function.
+18, 19, 20, 21, 22.  Every phase raises on failure.  ``python3
+chip_smoke.py sass-diff TREE`` builds TREE's and this checkout's K1, K2,
+K5a, K5b, K11, K12, K13 and K15 and compares their SASS function by
+function.
 
 Three modes compare this checkout with another tree inside it (TREE,
 e.g. the parent commit unpacked by ``git archive`` into the git-ignored
@@ -398,7 +422,10 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("shuffle_kernel", "scatter_rows"),
            ("dime_kernel", "dime_moments"),
            ("dime_kernel", "dime_finish"),
-           ("dime_kernel", "dime_propose"))
+           ("dime_kernel", "dime_propose"),
+           ("dez_kernel", "dez_spread"),
+           ("dez_kernel", "dez_propose"),
+           ("dez_kernel", "dez_fold"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -1953,15 +1980,18 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     and slice moves through it too); returns its row."""
     from emcee_tpu_torch import EnsembleSampler
 
-    label, make_move, n, k2_per, k14_per = config
+    label, make_move, n, k2_per, k14_per, *more = config
+    more = more[0] if more else {}
 
     def per_of(smp):
         """The path's launches a proposal: K2's, K14's (a number, or the
-        slice move's :class:`LoopDraws` of this sampler's move) and the
-        KDE move's K7 (one a split: ``s`` and ``q`` in one launch)."""
+        slice move's :class:`LoopDraws` of this sampler's move), the KDE
+        move's K7 (one a split: ``s`` and ``q`` in one launch) and the
+        config's other kernels (``more``: DE-Z's K10)."""
         k14 = (k14_per(smp._moves[0]) if callable(k14_per) else k14_per)
         return {"accept_select": k2_per, "philox_draw": k14,
-                "kde_logpdf": 2 if kde else 0} | shuffle_of(smp._moves[0])
+                "kde_logpdf": 2 if kde else 0} | shuffle_of(
+                    smp._moves[0]) | more
 
     def make():
         return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=12,
@@ -2035,7 +2065,7 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
                         "de_propose": 0, "snooker_propose": 0,
                         "philox_draw": k14 * n_prof,
                         "kde_logpdf": (2 if kde else 0) * n_prof} | {
-                            k: v * n_prof for k, v in shuf.items()}
+                            k: v * n_prof for k, v in (shuf | more).items()}
 
             wall, kernels, counts, _ = counted_window(
                 torch, lambda: drive(smp, None, n_prof, store=False), expect,
@@ -2771,29 +2801,6 @@ def hdf_check(torch, np, sampler, st, card):
     return {"kept": kept, "seconds": dt}
 
 
-def counted_calls(torch, dev, cls, make, p0, n, **kw):
-    """``cls.get_proposal`` calls in a run of ``n`` proposals of a sampler
-    of its own from ``make()``, untimed.  Each call adds one to a 0-d
-    device word; the add is recorded into the graphs with the call, so
-    every replayed call counts too (a plain-torch module has no launch
-    counter of its own).  No graph that a timed or profiled run replays
-    holds the add."""
-    word = torch.zeros((), dtype=torch.int64, device=dev)
-    fn = cls.get_proposal
-
-    def call(self, *args, **kwargs):
-        word.add_(1)
-        return fn(self, *args, **kwargs)
-
-    cls.get_proposal = call
-    try:
-        make().run_mcmc(p0, n, skip_initial_state_check=True, **kw)
-    finally:
-        cls.get_proposal = fn
-    torch.cuda.synchronize()
-    return int(word)
-
-
 def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
     """Device microseconds a proposal, kernel events a proposal and the
     idle share over a profiled window of ``run`` (``n`` proposals); with
@@ -2964,7 +2971,7 @@ def phase12(torch, np, dev, card):
         out["blended"] = phase12_blended(torch, np, dev, card)
     with path_launches(out, "side_slice", ("accept_select",)):
         out["side_slice"] = phase12_side_slice(torch, np, dev, card)
-    with path_launches(out, "dez", ("accept_select",)):
+    with path_launches(out, "dez", ("accept_select",) + tuple(K10_KERNELS)):
         out["dez"] = phase12_dez(torch, np, dev, card)
     log(f"phase 12: kernel wrapper launches of each path, counted from 0 "
         f"(recordings and eager runs): {out['launches']}")
@@ -3358,29 +3365,45 @@ def phase12_dez(torch, np, dev, card):
         f"|max| {np.abs(mean).max():.4f} (< 0.2), std max |1 - s| "
         f"{np.abs(std - 1).max():.4f} (< 0.15), orthogonal std min "
         f"{proj.min():.4f} (> 0.7) {card}")
+    t0 = time.perf_counter()
+    n_cmp = k10_sweep(torch, dev)
+    log(f"phase 12: (e) K10a, K10b and K10c against their plain versions "
+        f"(ndim {K10_SWEEP_ND}, (walkers a split, nsplits) "
+        f"{K10_SWEEP_SHAPES}, the ring empty, partly filled, full and "
+        f"wrapping, every branch of g1_prob, snooker_prob and de_noise, a "
+        f"complement at mean 1e4, injected / host offset / device offset "
+        f"draws, unaligned bases): {n_cmp} comparisons, all bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
     p0 = np.random.default_rng(9).normal(size=(NW, ND)).astype(np.float32)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     row = phase10_move(torch, np, dev, card, p0,
-                       ("DEZMove()", moves.DEZMove, 64, 2, 5), zero,
-                       phase="phase 12: (e)")
-    # The K10 row's launches: a twin of the timed 1e5 run, untimed.
-    row["get_proposal_calls"] = counted_calls(
-        torch, dev, moves.DEZMove, lambda: EnsembleSampler(
-            NW, ND, gaussian, vectorize=True, seed=0, device=dev,
-            moves=moves.DEZMove()), p0, 64, store=False)
-    log(f"phase 12: (e) DE-Z 1e5 x 5-D: {row['get_proposal_calls']} "
-        "get_proposal calls in a twin of its 64-proposal run (device "
-        "counter)")
+                       ("DEZMove()", moves.DEZMove, 64, 2, 1, K10_ONLY),
+                       zero, phase="phase 12: (e)")
+    # Every kernel's launches in replayed proposals, by device words.
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=0,
+                          device=dev, moves=moves.DEZMove())
+    n_c = 16
+    smp.run_mcmc(p0, n_c, store=False, skip_initial_state_check=True)
+    per = K10_PER | shuffle_of(smp._moves[0])
+    row["replayed_launches"], _ = counted_replays(
+        torch, dev, smp, n_c, lambda r: {k: v * n_c for k, v in per.items()},
+        "phase 12: (e) DEZMove() at 1e5", store=False)
+    row["proposals_counted"] = n_c
+    log(f"phase 12: (e) DE-Z 1e5 x 5-D: launches in {n_c} replayed "
+        f"proposals "
+        f"{ {k: v for k, v in row['replayed_launches'].items() if v} } "
+        f"(device words; exactly {per} a proposal) {card}")
     return dict(small=dict(seconds=small_s, proposals=nsteps,
                            mean=mean.tolist(), std=std.tolist(),
-                           orthogonal_std=proj.tolist()), full=row)
+                           orthogonal_std=proj.tolist()), full=row,
+                sweep=n_cmp)
 
 
 def phase12_rows(np, out, card):
-    """The K9 and K10 rows of the kernel table: plain torch (no
-    hand-written kernel), device time a proposal inside the replays
-    (profiler), the same proposals eagerly as the plain column, and the
-    least time the card could take for the work."""
+    """The K9 row of the kernel table: plain torch (no hand-written
+    kernel), device time a proposal inside the replays (profiler), the
+    same proposals eagerly as the plain column, and the least time the
+    card could take for the work (K10's rows are phase 22's)."""
     def bound(nbytes, nops):
         t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": nops / F32_OPS_PER_S * 1e3}
@@ -3408,12 +3431,6 @@ def phase12_rows(np, out, card):
     k9 = slice_bound(*(x / n9 for x in sl["evals"]))
     k9_trips = slice_bound(*(x / n9 * ng * m for x, m in zip(
         sl["iterations"], (2, 1))))
-    # DE-Z: coords read, q and factors written, five pool rows a walker
-    # gathered, the archive rows written; two uniform and three normal
-    # Philox counters a walker.
-    k10 = bound(4 * (2 * NW * ND + NW + 5 * NW * ND + 2 * 64 * ND),
-                NW * (5 * philox + 30 * ND))
-    z = out["dez"]["full"]
 
     def row(name, src, jax, launches, us, plain_ms, b, note, **extra):
         return {"name": name, "route": "cuda", "source": src,
@@ -3439,14 +3456,6 @@ def phase12_rows(np, out, card):
             evals=sl["evals"], bound_trips_ms=k9_trips[0],
             bound_trips_by=k9_trips[1],
             flag_reads_per_proposal=sl["flag_reads_per_proposal"]),
-        row("dez_proposal", "emcee_tpu_torch/moves/de_z.py",
-            "emcee_tpu/moves/de_z.py:144",
-            z["get_proposal_calls"],
-            z["device_us_per_proposal"], eager_ms(z), k10,
-            "K10, plain torch (not hand-written): DE-Z's proposal and "
-            "archive update at 1e5 x 5-D; launches are get_proposal calls "
-            "in an untimed twin of the timed 64-proposal run (device "
-            "counter); max_abs_err: graph chain == eager chain"),
     ]
 
 
@@ -8656,19 +8665,23 @@ def pt21_sampler(dev, label, seed, backend=None):
 
 
 def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
-              kept=512, thin=4):
+              kept=512, thin=4, sampler=None, per=None, phase="phase 21"):
     """(d) ``label`` at workload 4's configuration: over 64 proposals the
     graph chain (every rung at once) against the plain versions' eager
     chain and against the per-rung loop, bit for bit (the carries too);
     both paths in turns (batched, loop, loop, batched): host us, device us
     and kernels a proposal; the batched path's launches counted by device
-    words (``PT21_PER``); then 512 kept x 4 into ``PTDeviceBackend`` (the
+    words (``per``, by default ``PT21_PER``; ``sampler(dev, label, seed,
+    backend)`` makes the samplers, by default ``pt21_sampler``); then 512
+    kept x 4 into ``PTDeviceBackend`` (the
     best of two timed runs: walker-steps/s, the cold rung's tau and
     ESS/s; held: a finite chain and tau, and phase 14's windows: the swap
     acceptance, the cold mode fraction, the cold |x0|'s mean and spread)
     and ``PTDeviceBackend`` == ``PTBackend`` from one seed."""
     from emcee_tpu_torch.backends import PTBackend, PTDeviceBackend
 
+    sampler = sampler or pt21_sampler
+    per = PT21_PER if per is None else per
     out = {}
     t0 = time.perf_counter()
 
@@ -8677,7 +8690,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
 
     ends = []
     for plain in (False, True):
-        smp = pt21_sampler(dev, label, 87)
+        smp = sampler(dev, label, 87)
         smp._use_graphs = not plain
         with plain_kernels() if plain else contextlib.nullcontext():
             ends.append(pt_runs(smp, p0) + carries(smp))
@@ -8686,7 +8699,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
               f"{label}: graph-replayed and eager plain chains")
     paths = {}
     for batched in (True, False):
-        smp = pt21_sampler(dev, label, 88)
+        smp = sampler(dev, label, 88)
         smp._batched = batched
         paths[batched] = (smp, pt_runs(smp, p0) + carries(smp))
         smp.run_mcmc(None, n_c if batched else n_l, store=False)
@@ -8708,10 +8721,10 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
         kernels[batched].append(win["kernels_per_proposal"])
     smp = paths[True][0]
     win = busy_window(torch, lambda: smp.run_mcmc(None, n_c, store=False),
-                      n_c, f"{label} batched, its kernels", names=PT21_PER)
+                      n_c, f"{label} batched, its kernels", names=per)
     counted, profiled = counted_replays(
         torch, dev, smp, n_c, lambda r: {k: v * n_c
-                                         for k, v in PT21_PER.items()},
+                                         for k, v in per.items()},
         f"{label} batched", store=False)
     out.update(host_us=host, device_us=dev_us, kernels=kernels, win=win,
                replayed_launches=counted, profiled_replayed=profiled,
@@ -8720,7 +8733,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
     del paths
 
     t0 = time.perf_counter()
-    smp = pt21_sampler(dev, label, 4, backend=PTDeviceBackend())
+    smp = sampler(dev, label, 4, backend=PTDeviceBackend())
     st, _ = drive(smp, p0, kept, thin_by=thin, skip_initial_state_check=True)
     warm_graphs(smp)
     dt = float("inf")
@@ -8734,7 +8747,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
     cold = chain[:, 0]
     tau = tau_of(np, cold, thin)
     if not (np.all(np.isfinite(chain)) and np.isfinite(tau)):
-        raise AssertionError(f"phase 21: {label}: a chain or tau that is "
+        raise AssertionError(f"{phase}: {label}: a chain or tau that is "
                              f"not finite (tau {tau})")
     x0 = cold[..., 0]
     swap_mean = float(np.mean(smp.tswap_acceptance_fraction))
@@ -8756,7 +8769,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
         checks=checks)
     chains = []
     for backend in (PTDeviceBackend(), PTBackend()):
-        s2 = pt21_sampler(dev, label, 59, backend=backend)
+        s2 = sampler(dev, label, 59, backend=backend)
         s2.run_mcmc(p0, kept, thin_by=thin, skip_initial_state_check=True)
         chains.append((s2.get_chain().astype(np.float64),
                        s2.get_log_like().astype(np.float64),
@@ -8764,7 +8777,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
                        s2.backend.accepted, s2.swaps_accepted,
                        s2.swaps_proposed, np_of(s2.backend.random_state)))
     same_ends(np, *chains, f"{label}: PTDeviceBackend and PTBackend chains")
-    log(f"phase 21: (d) {label}, workload 4's configuration, "
+    log(f"{phase}: (d) {label}, workload 4's configuration, "
         f"PTDeviceBackend, {kept} kept x {thin}: "
         f"{res['walker_steps_per_s']:.4e} walker-steps/s over all rungs "
         f"(best of two), cold tau {tau:.2f} proposals, cold ESS/s "
@@ -8775,7 +8788,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
         f"checks {checks}; {kept} kept x {thin} into PTDeviceBackend == "
         f"PTBackend {card} ({time.perf_counter() - t0:.1f} s)")
     if not all(checks.values()):
-        raise AssertionError(f"phase 21: {label}: workload 4 checks "
+        raise AssertionError(f"{phase}: {label}: workload 4 checks "
                              f"{checks}")
     return out
 
@@ -8956,6 +8969,559 @@ def phase21_rows(torch, dev, out, card):
     return rows
 
 
+# -- 22. K10, DE-Z's spread, proposal and archive fold ------------------------
+#: ndims of K10's sweep: K10b's columns unrolled (1-8) and looped (9, 100,
+#: 129); K10a's rows staged in shared memory, and read from global memory
+#: at 129
+K10_SWEEP_ND = (1, 2, 5, 8, 9, 100, 129)
+#: (walkers a split, nsplits) of the sweep; 50000 at ndim 5 and 129 only
+K10_SWEEP_SHAPES = ((37, 2), (5003, 3), (5003, 4), (50000, 2))
+#: the move's branches in the sweep: (g1_prob, snooker_prob, de_noise)
+K10_SWEEP_CFG = ((0.1, 0.1, 1e-2), (1.0, 0.0, 0.0), (0.0, 1.0, 0.2),
+                 (0.5, 0.5, 0.3), (0.0, 0.0, 1e-2))
+#: (rungs, walkers a split, ndim) of the rung-axis sweep (phase 22)
+K10_RUNG_SWEEP = ((3, 37, 1), (3, 37, 9), (16, 128, 5), (3, 501, 100))
+#: K10's launches a DE-Z proposal: K10a and K10b a split, K10c the carry
+K10_ONLY = {"dez_spread": 2, "dez_propose": 2, "dez_fold": 1}
+K10_KERNELS = tuple(K10_ONLY)
+#: with K2 a split and K14's one draw (the shuffled split's sort keys)
+K10_PER = K10_ONLY | {"accept_select": 2, "philox_draw": 1}
+#: phase 22's DEZMove() on workload 4's ladder (every rung at once): K10,
+#: K2, K14, K15, K16 and K17
+PT22_PER = K10_PER | {"pt_swap": 1} | SHUF4
+#: proposals a replay of the per-rung loop's timed graph
+PT22_LOOP_N = 4
+
+
+def k10_config(nd, g1=0.1, snooker=0.1, noise=1e-2):
+    """``DEZMove``'s constants at ndim ``nd`` (its defaults, or the branch
+    given) as K10b takes them."""
+    from emcee_tpu_torch.ops import dez_kernel as dk
+    from emcee_tpu_torch.ops.de_kernel import de_gamma0
+
+    return dk.DezConfig(de_gamma0(None, nd), 1e-5, g1, snooker, 1.7, noise,
+                        nd - 1.0)
+
+
+def k10_check(same, x, split, ns, z, filled, cfg, seed, offset, what,
+              extra=None):
+    """K10a (where the noise needs it) and K10b of one split, each against
+    its plain version on the same inputs; returns the kernels' outputs."""
+    from emcee_tpu_torch.ops import dez_kernel as dk
+
+    ng = x.shape[-2] // ns
+    part = None
+    if cfg.de_noise > 0:
+        part = dk.dez_spread(x, (split * ng, ng))
+        same([part], [dk.dez_spread_plain(x, (split * ng, ng))],
+             f"{what}: K10a")
+    got = dk.dez_propose(x, split, ns, z, filled, part, seed, offset, cfg,
+                         extra=extra)
+    same(list(got), list(dk.dez_propose_plain(
+        x, split, ns, z, filled, part, seed, offset, cfg, extra=extra)),
+        f"{what}: K10b")
+    return part, got
+
+
+def k10_fold_check(same, x, z, words, nrows, calls, what):
+    """``calls`` K10c folds of ``x`` into copies of the ring ``z`` and its
+    words against the plain version's, compared after each."""
+    from emcee_tpu_torch.ops import dez_kernel as dk
+
+    a = [z.clone()] + [w.clone() for w in words]
+    b = [z.clone()] + [w.clone() for w in words]
+    for c in range(calls):
+        dk.dez_fold(x, *a, nrows)
+        dk.dez_fold_plain(x, *b, nrows)
+        same(a, b, f"{what}: K10c call {c}")
+    return a
+
+
+@contextlib.contextmanager
+def forced_k10_tree(shared):
+    """K10b's prologue merging K10a's partials in shared memory (or from
+    global memory, a thread a column), as forced, whatever the sizes."""
+    from emcee_tpu_torch.ops import dez_kernel as dk
+
+    saved = dk.tree_shared
+    dk.tree_shared = lambda blocks, nd: shared
+    try:
+        yield
+    finally:
+        dk.tree_shared = saved
+
+
+def k10_words(torch, dev, lead, filled, k, ptr=0, t=0):
+    return [torch.tensor(v, dtype=torch.int32, device=dev).expand(
+        lead).contiguous() for v in (filled, ptr % k, t)]
+
+
+def k10_sweep(torch, dev):
+    """(e) K10a, K10b and K10c against their plain versions, bit for bit
+    (the bits compared, NaN included): ndim ``K10_SWEEP_ND``, (walkers a
+    split, nsplits) ``K10_SWEEP_SHAPES``, the ring empty, a third filled
+    and full, every branch of ``K10_SWEEP_CFG``, every split, a complement
+    and archive at mean 1e4 (5003 x 3), unaligned bases (5003 x 4),
+    injected draws and a device offset word against the same int offset,
+    and K10c's folds over rings that wrap (one row, 64, a whole ensemble).
+    K10b's prologue forced both ways (``forced_k10_tree``) and K10a's runs
+    a block 1-8, each against the plan's bits.  Returns the count of
+    comparisons."""
+    from emcee_tpu_torch.ops import dez_kernel as dk
+    from emcee_tpu_torch.ops.philox import DeviceOffset
+
+    gen = torch.Generator(device=dev).manual_seed(220)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        same_bits(got, want, what)
+        n_cmp += len(got)
+
+    for nd in K10_SWEEP_ND:
+        for ng, ns in K10_SWEEP_SHAPES:
+            if ng == 50000 and nd not in (5, 129):
+                continue
+            nw, k = ng * ns, ng + 64
+            mean = 1e4 if ns == 3 else 0.0
+            x = (mean + 1.5 * torch.randn(nw, nd, device=dev,
+                                          generator=gen)).contiguous()
+            z = (mean + torch.randn(k, nd, device=dev, generator=gen)
+                 ).contiguous()
+            if ns == 4:
+                x, z = misaligned(torch, x), misaligned(torch, z)
+            tag = f"K10 sweep nd={nd} ng={ng} ns={ns}"
+            for fi, filled in enumerate((0, k // 3, k)):
+                fw = torch.tensor(filled, dtype=torch.int32, device=dev)
+                for ci, branch in enumerate(K10_SWEEP_CFG):
+                    k10_check(same, x, (fi + ci) % ns, ns,
+                              z, fw, k10_config(nd, *branch), 31 + ci,
+                              5 + fi, f"{tag} filled={filled} {branch}")
+            fw = torch.tensor(k // 3, dtype=torch.int32, device=dev)
+            cfg = k10_config(nd, 0.5, 0.5, 0.3)
+            w8 = torch.tensor(40, dtype=torch.int64, device=dev)
+            part, got = k10_check(same, x, 1, ns, z, fw,
+                                  cfg, 17, DeviceOffset(w8, 2),
+                                  f"{tag} device offset")
+            same(list(got), list(k10_check(
+                same, x, 1, ns, z, fw, cfg, 17, 42,
+                f"{tag} int offset")[1]), f"{tag}: a device offset word "
+                "against the int offset")
+            if ng < 50000:
+                n_avail = nw - ng + k // 3
+                extra = dict(
+                    i=torch.randint(0, n_avail, (ng,), device=dev,
+                                    generator=gen),
+                    j=torch.randint(0, n_avail - 1, (ng,), device=dev,
+                                    generator=gen),
+                    a=torch.randint(0, n_avail, (ng,), device=dev,
+                                    generator=gen),
+                    b=torch.randint(0, n_avail, (ng,), device=dev,
+                                    generator=gen),
+                    e=torch.randint(0, n_avail, (ng,), device=dev,
+                                    generator=gen),
+                    jump=torch.rand(ng, device=dev, generator=gen) < 0.5,
+                    snooker=torch.rand(ng, device=dev, generator=gen) < 0.5,
+                    z=torch.randn(ng, 1 + nd, device=dev, generator=gen))
+                k10_check(same, x, ns - 1, ns, z, fw, cfg, 0,
+                          0, f"{tag} injected draws", extra=extra)
+            if ng == 5003 and nd in (1, 9):
+                # K10b's two prologues forced, and K10a's runs a block
+                # (no bit changes with either).
+                ref = None
+                for shared in (True, False):
+                    with forced_k10_tree(shared):
+                        got = k10_check(same, x, 0, ns, z, fw, cfg, 9, 1,
+                                        f"{tag} shared tree {shared}")[1]
+                    if ref is not None:
+                        same(list(got), list(ref), f"{tag}: the two "
+                             "prologues")
+                    ref = got
+                for g in (1, 2, 4, 8):
+                    part = dk.dez_spread(x, (0, ng), group=g)
+                    same([part], [dk.dez_spread_plain(x, (0, ng), group=g)],
+                         f"{tag} group {g}: K10a")
+                    same(list(dk.dez_propose(x, 0, ns, z, fw, part, 9, 1,
+                                             cfg)), list(ref),
+                         f"{tag} group {g}: K10b against the plan's")
+            # Folds over a ring that wraps within the first calls.
+            for nrows in sorted({1, 64, min(nw, k)}):
+                k10_fold_check(same, x, z, k10_words(
+                    torch, dev, (), k - 5, k, k - 20, 7), nrows,
+                    3 if nrows > 1 else 25, f"{tag} nrows={nrows}")
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def k10_rung_sweep(torch, dev):
+    """(a) K10a, K10b and K10c with the rung axis against their plain
+    versions and each rung against the one-ensemble launch under its own
+    key, bit for bit: (rungs, walkers a split, ndim) ``K10_RUNG_SWEEP``,
+    every rung's ring filled otherwise (empty, partly, full), each branch
+    of ``K10_SWEEP_CFG``, both splits, and the folds.  Returns the count
+    of comparisons."""
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(221)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        same_bits(got, want, what)
+        n_cmp += len(got)
+
+    for T, ng, nd in K10_RUNG_SWEEP:
+        nw, k = 2 * ng, 3 * ng
+        x = (torch.randn(T, nw, nd, device=dev, generator=gen)
+             * torch.linspace(0.5, 3.0, T, device=dev)[:, None, None]
+             ).contiguous()
+        z = torch.randn(T, k, nd, device=dev, generator=gen)
+        filled = torch.tensor([(r * k) // (T - 1) for r in range(T)],
+                              dtype=torch.int32, device=dev)
+        keys = rung_keys(41, T, dev)
+        tag = f"K10 rung sweep T={T} ng={ng} nd={nd}"
+        for ci, branch in enumerate(K10_SWEEP_CFG):
+            cfg = k10_config(nd, *branch)
+            for split in (0, 1):
+                what = f"{tag} {branch} split {split}"
+                part, (q, f) = k10_check(same, x, split, 2,
+                                         z, filled, cfg, keys, 3 + ci, what)
+                for r in (0, T // 2, T - 1):
+                    pr, (qr, fr) = k10_check(
+                        same, x[r].contiguous(), split, 2,
+                        z[r].contiguous(), filled[r].contiguous(), cfg,
+                        keys.seeds[r], 3 + ci, f"{what}, rung {r} alone")
+                    same([qr, fr] + ([pr] if part is not None else []),
+                         [q[r], f[r]] + ([part[r]] if part is not None
+                                         else []),
+                         f"{what}: rung {r} against one ensemble")
+        words = k10_words(torch, dev, (T,), k - 3, k, k - 10, 5)
+        a = k10_fold_check(same, x, z, words, min(64, nw), 4,
+                           f"{tag} folds")
+        for r in (0, T - 1):
+            b = k10_fold_check(same, x[r].contiguous(),
+                               z[r].contiguous(),
+                               [w[r].contiguous() for w in words],
+                               min(64, nw), 4, f"{tag} folds, rung {r}")
+            same(b, [t[r] for t in a], f"{tag}: rung {r}'s folds against "
+                 "one ensemble")
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def k10_bounds(T, nw, nd, ng, cfg, blocks, nrows):
+    """The least work of K10a (the complement's rows once, the partials
+    written; a subtract and an add a value for the mean, a subtract, a
+    multiply and an add for the sum of squares), K10b (each walker's row
+    and its pool rows read, DE's two or the snooker's three, its q and
+    factor written, the partials read once a rung; the Philox blocks,
+    normals and arithmetic a walker needs) and K10c (the folded rows read
+    and written, three words), as ``{name: (bytes, instructions,
+    special-function results)}``, summed over ``T`` rungs."""
+    nc = nw - ng
+    p_sn = cfg.snooker_prob
+    node = 1 + 2 * nd
+    normals = (1 - p_sn) * (1 + (nd if cfg.de_noise > 0 else 0))
+    blocks_w = 2 + (1 - p_sn) * (1 + (nd if cfg.de_noise > 0 else 0)) / 2
+    per_walker = (blocks_w * PHILOX_INSTR + normals * NORMAL_INSTR
+                  + (1 - p_sn) * 4 * nd + p_sn * 10 * nd + 30)
+    return {
+        "dez_spread": (4 * T * (nc * nd + blocks * node),
+                       T * nc * nd * 5, 0),
+        "dez_propose": (4 * T * (ng * nd * (2 + 2 + p_sn) + ng + blocks
+                                 * node),
+                        T * ng * per_walker,
+                        T * ng * (normals * NORMAL_SFU + p_sn * 3)),
+        "dez_fold": (4 * T * (2 * nrows * nd + 6), T * nrows * nd * 4, 0),
+    }
+
+
+def k10_alone(torch, dev, card, T=1, nw=NW, nd=ND):
+    """(b) K10a, K10b and K10c alone at ``DEZMove()``'s shape, one ensemble
+    of 1e5 x 5 (a split's complement of 5e4 rows, the 1e6-row ring full;
+    ``T`` rungs of ``nw`` walkers on a ladder): device ms a call by CUDA
+    events around graph replays (``replay_ms``), a call back to back from
+    Python, the plain versions (CUDA events, eager), the yardsticks
+    ``torch.std(correction=0)`` of the complement (K10a) and
+    ``index_select`` + ``index_copy_`` of the folded rows (K10c), and the
+    bounds (bytes, and instructions at the issue rate)."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.ops import dez_kernel as dk
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(222)
+    lead = (T,) if T > 1 else ()
+    mv = moves.DEZMove()
+    k = mv._capacity(nw)
+    nrows = mv._rows(nw)
+    ng = nw // 2
+    x = torch.randn(lead + (nw, nd), device=dev, generator=gen)
+    z = torch.randn(lead + (k, nd), device=dev, generator=gen)
+    words = k10_words(torch, dev, lead, k, k, 17, 3)
+    cfg = k10_config(nd)
+    seed = rung_keys(5, T, dev) if T > 1 else 5
+    part = dk.dez_spread(x, (0, ng))
+    fz = [z.clone()] + [w.clone() for w in words]
+    base = torch.arange(T, device=dev)[:, None]
+    idx = ((3 + torch.arange(nrows, device=dev) * max(1, nw // nrows)) % nw
+           + base * nw).reshape(-1)
+    slots = ((17 + torch.arange(nrows, device=dev)) % k
+             + base * k).reshape(-1)
+    flat_x, flat_z = x.view(-1, nd), fz[0].view(-1, nd)
+    comp = x[..., ng:, :]
+    calls = {
+        "dez_spread": (lambda: dk.dez_spread(x, (0, ng)),
+                       lambda: dk.dez_spread_plain(x, (0, ng)),
+                       lambda: comp.std(-2, correction=0)),
+        "dez_propose": (lambda: dk.dez_propose(x, 0, 2, z, words[0], part,
+                                               seed, 5, cfg),
+                        lambda: dk.dez_propose_plain(x, 0, 2, z, words[0],
+                                                     part, seed, 5, cfg),
+                        None),
+        "dez_fold": (lambda: dk.dez_fold(x, *fz, nrows),
+                     lambda: dk.dez_fold_plain(x, *fz, nrows),
+                     lambda: flat_z.index_copy_(0, slots, flat_x.index_select(
+                         0, idx))),
+    }
+    bounds = k10_bounds(T, nw, nd, ng, cfg, part.shape[-2], nrows)
+    out = {}
+    for name, (fn, plain, lib) in calls.items():
+        nbytes, instr, sfu = bounds[name]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": instruction_bound(instr, sfu)}
+        out[name] = {"ms": replay_ms(torch, fn),
+                     "call_ms": cuda_ms(torch, fn, reps=50),
+                     "plain_ms": slow_ms(torch, plain, reps=3),
+                     "bound_ms": max(t.values()),
+                     "bound_by": max(t, key=t.get), "bytes": nbytes,
+                     "instructions": instr,
+                     "library_ms": None if lib is None else replay_ms(
+                         torch, lib)}
+    what = ("one ensemble of 1e5 x 5" if T == 1
+            else f"{T} rungs x {nw} walkers x {nd}")
+    log(f"phase 22: (b) K10 alone at DEZMove()'s shape ({what}; a split's "
+        f"complement of {nw - ng} rows, a ring of {k} rows, {nrows} folded "
+        f"a proposal), device us a call (graph replays): " + ", ".join(
+            f"{name} {v['ms'] * 1e3:.2f} (back to back "
+            f"{v['call_ms'] * 1e3:.2f}, plain {v['plain_ms'] * 1e3:.1f}, "
+            f"bound {v['bound_ms'] * 1e3:.3f} by {v['bound_by']}"
+            + (f", library {v['library_ms'] * 1e3:.2f}"
+               if v["library_ms"] is not None else "") + ")"
+            for name, v in out.items()) + f" {card}")
+    return out
+
+
+#: (rows a run, runs a K10a block) timed by ``k10_plan_sweep``
+K10_PLAN_SWEEP = tuple((r, g) for r in (32, 64, 128) for g in (1, 2, 4, 8))
+
+
+def k10_plan_sweep(torch, dev, card):
+    """K10a and K10b (the split's complement's partials; the proposal that
+    merges them in its prologue) alone at ``DEZMove()``'s shape at 1e5 for
+    every (rows a run, runs a block) of ``K10_PLAN_SWEEP``: device us a
+    call by CUDA events around graph replays.  The runs a block leave the
+    bits as they are; the rows a run set them (the plain version follows
+    either)."""
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.ops import dez_kernel as dk
+
+    gen = torch.Generator(device=dev).manual_seed(223)
+    ng = NW // 2
+    k = moves.DEZMove()._capacity(NW)
+    x = torch.randn(NW, ND, device=dev, generator=gen)
+    z = torch.randn(k, ND, device=dev, generator=gen)
+    filled = torch.tensor(k, dtype=torch.int32, device=dev)
+    cfg = k10_config(ND)
+    out = {}
+    for rows, group in K10_PLAN_SWEEP:
+        part = dk.dez_spread(x, (0, ng), rows=rows, group=group)
+        out[(rows, group)] = {
+            "spread": replay_ms(torch, lambda: dk.dez_spread(
+                x, (0, ng), rows=rows, group=group)),
+            "propose": replay_ms(torch, lambda: dk.dez_propose(
+                x, 0, 2, z, filled, part, 3, 5, cfg)),
+            "blocks": part.shape[-2]}
+    # K10b without the noise: no partials, no prologue.
+    quiet = k10_config(ND, noise=0.0)
+    out["no noise"] = {"propose": replay_ms(torch, lambda: dk.dez_propose(
+        x, 0, 2, z, filled, None, 3, 5, quiet))}
+    log("phase 22: (b) K10a + K10b at DEZMove()'s shape (1e5 x 5, a split's "
+        "5e4-row complement) by (rows a run, runs a block), device us a "
+        "call (graph replays): " + "; ".join(
+            f"{key}: {v['spread'] * 1e3:.2f} + {v['propose'] * 1e3:.2f} "
+            f"({v['blocks']} partials)" for key, v in out.items()
+            if key != "no noise")
+        + f"; K10b with de_noise=0 (no prologue) "
+        f"{out['no noise']['propose'] * 1e3:.2f} {card}")
+    return {(k if isinstance(k, str) else f"{k[0]}x{k[1]}"): v
+            for k, v in out.items()}
+
+
+def k10_stage(torch, np, dev, card, n=16):
+    """(c) ``DEZMove()`` at 1e5 x 5-D (its defaults: the shuffled split, a
+    1e6-row ring) for the one-ensemble rows: device us and kernels a
+    proposal and each kernel's us a launch in ``n`` replayed proposals
+    (profiler), the launches counted by device words (exactly ``K10_PER``
+    and the shuffle's a proposal)."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=24,
+                          device=dev, moves=moves.DEZMove())
+    p0 = np.random.default_rng(4).normal(size=(NW, ND)).astype(np.float32)
+    smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True)
+    smp.run_mcmc(None, n, store=False)
+    per = K10_PER | shuffle_of(smp._moves[0])
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False), n,
+                      "phase 22 DEZMove() at 1e5", names=per)
+    counted, _ = counted_replays(
+        torch, dev, smp, n, lambda r: {k: v * n for k, v in per.items()},
+        "phase 22 DEZMove() at 1e5", store=False)
+    log(f"phase 22: (c) DEZMove() at 1e5 x 5-D, {n} replayed proposals: "
+        f"device {measured(win['device_us_per_proposal'])} us and "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(win['idle'], '.4f')}; us a launch: "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in win["ms_per_launch"].items())
+        + f"; launches { {k: v for k, v in counted.items() if v} } (device "
+        f"words, exactly {per} a proposal) {card}")
+    return dict(win=win, replayed_launches=counted, proposals_counted=n)
+
+
+def pt22_sampler(dev, label, seed, backend=None):
+    from emcee_tpu_torch import moves
+
+    return pt_sampler(dev, seed=seed, backend=backend,
+                      move=moves.DEZMove())
+
+
+def phase22(torch, np, dev, card):
+    """K10, DE-Z's spread, proposal and archive fold (see the module
+    docstring, 22): the rung-axis sweep, the kernels alone at 1e5 and on
+    the ladder, ``DEZMove()``'s replays at 1e5, ``DEZMove()`` on workload
+    4's ladder (every rung at once against the per-rung loop), each path's
+    launches counted from 0 just before it, and the rows of K10a, K10b
+    and K10c, one ensemble and with the rung axis.  Returns its numbers
+    and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k10_rung_sweep(torch, dev)
+    log(f"phase 22: (a) K10a, K10b and K10c with the rung axis against "
+        f"their plain versions and each rung against the one-ensemble "
+        f"launch ((rungs, walkers a split, ndim) {K10_RUNG_SWEEP}, every "
+        f"branch, both splits, the folds): {out['sweep']} comparisons, all "
+        f"bit for bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k10_alone(torch, dev, card)
+    out["alone_rungs"] = k10_alone(torch, dev, card, NT4, NW4, ND4)
+    out["plan_sweep"] = k10_plan_sweep(torch, dev, card)
+    log(f"phase 22: (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with path_launches(out, "DEZMove() at 1e5", K10_KERNELS, "phase 22"):
+        out["stage"] = k10_stage(torch, np, dev, card)
+    log(f"phase 22: (c) {time.perf_counter() - t0:.1f} s")
+    p0 = pt_p0(np)
+    t0 = time.perf_counter()
+    label = "DEZMove()"
+    with path_launches(out, label, tuple(PT22_PER), "phase 22"):
+        r = out[label] = pt21_path(torch, np, dev, card, label, p0,
+                                   n_l=PT22_LOOP_N, sampler=pt22_sampler,
+                                   per=PT22_PER, phase="phase 22")
+    log(f"phase 22: (d) {label} at {NT4} x {NW4} x {ND4}: 64 graph-replayed "
+        f"proposals of every rung at once equal the plain versions' eager "
+        f"chain and the per-rung loop bit for bit, archives and words "
+        f"included (swaps {r['swaps_64']}); in turns (batched, loop, loop, "
+        f"batched; replays of {r['proposals_counted']} and "
+        f"{r['loop_proposals_a_replay']} proposals), a proposal: host "
+        f"{[round(v, 1) for v in r['host_us'][True]]} / "
+        f"{[round(v, 1) for v in r['host_us'][False]]} us, device "
+        f"{[measured(v) for v in r['device_us'][True]]} / "
+        f"{[measured(v) for v in r['device_us'][False]]} us, kernels "
+        f"{[measured(v, '.0f') for v in r['kernels'][True]]} / "
+        f"{[measured(v, '.0f') for v in r['kernels'][False]]} (batched / "
+        f"loop); batched launches in {r['proposals_counted']} proposals "
+        f"{ {k: v for k, v in r['replayed_launches'].items() if v} } "
+        f"(device words; exactly {PT22_PER} a proposal); us a launch in its "
+        f"replays: " + ", ".join(
+            f"{k} {measured(v and v * 1e3, '.3f')}"
+            for k, v in r["win"]["ms_per_launch"].items())
+        + f" {card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 22: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase22_rows(out, card)
+
+
+def phase22_rows(out, card):
+    """(e) The rows of K10a, K10b and K10c at ``DEZMove()``'s shape at 1e5
+    (device time a launch in its replays by the profiler; launches by
+    device words there; a call alone, back to back and the plain version
+    by CUDA events; the bound and the yardstick) and with the rung axis
+    (workload 4's ladder under ``DEZMove()``: the same from its replays
+    and at its shape)."""
+    meta = {
+        "dez_spread": ("emcee_tpu_torch/csrc/dez_propose.cu",
+                       "emcee_tpu/moves/de_z.py:185-189",
+                       "torch.std(correction=0) of the same complement rows"),
+        "dez_propose": ("emcee_tpu_torch/csrc/dez_propose.cu",
+                        "emcee_tpu/moves/de_z.py:144-225",
+                        "none: no single PyTorch call computes it"),
+        "dez_fold": ("emcee_tpu_torch/csrc/dez_archive.cu",
+                     "emcee_tpu/moves/de_z.py:227-280",
+                     "index_select of the folded rows + index_copy_ into "
+                     "the ring"),
+    }
+    rows = []
+    for rung in (False, True):
+        path = out["DEZMove()"] if rung else out["stage"]
+        shape = (f"with the rung axis at workload 4's shape ({NT4} rungs x "
+                 f"{NW4} walkers x {ND4}" if rung else
+                 "at DEZMove()'s shape (1e5 x 5-D, a 1e6-row ring")
+        al = out["alone_rungs" if rung else "alone"]
+        for name, (src, jax, lib_note) in meta.items():
+            a = al[name]
+            regs = {k: v for k, v in PTXAS.items() if f"{name}_kernel" in k}
+            rows.append({
+                "name": f"{name} (rung axis)" if rung else name,
+                "route": "cuda", "source": src,
+                "replaces": jax + (" (vmapped by emcee_tpu/parallel/"
+                                   "tempering.py:439-541)" if rung else ""),
+                "launches": path["replayed_launches"][name],
+                "max_abs_err": 0.0,
+                "ms": path["win"]["ms_per_launch"][name],
+                "alone_ms": a["ms"], "call_ms": a["call_ms"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+                "bytes": a["bytes"], "instructions": a["instructions"],
+                "launches_per_proposal": (path["replayed_launches"][name]
+                                          / path["proposals_counted"]),
+                "ptxas": regs,
+                **({"path_device_us_batched_loop": (path["device_us"][True],
+                                                    path["device_us"][False]),
+                    "path_kernels_batched_loop": (path["kernels"][True],
+                                                  path["kernels"][False])}
+                   if rung else {}),
+                "note": (f"K10 {shape}, DEZMove()): ms in the path's replays "
+                         f"(profiler); alone_ms a call alone (CUDA events "
+                         f"around graph replays), call_ms back to back from "
+                         f"Python; launches counted on the card in "
+                         f"{path['proposals_counted']} replayed proposals; "
+                         f"max_abs_err: bit for bit over the sweeps of "
+                         f"phases 12 (e) and 22 (a) ({out['sweep']} "
+                         f"rung-axis comparisons); bound: the bytes (each "
+                         f"input once, each output once) and the "
+                         f"instructions needed at the issue rate; "
+                         f"library_ms: {lib_note}")})
+    for row in rows:
+        log(f"phase 22: (e) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['alone_ms'] * 1e3:.2f} us a call "
+            f"alone, {row['call_ms'] * 1e3:.2f} back to back, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), library "
+            f"{measured(row['library_ms'] and row['library_ms'] * 1e3, '.2f')}"
+            f" us; launches {row['launches']} {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -9002,8 +9568,11 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     ``logP`` leaves) and of workload 4 with the blobs ``(2 logL, x)``
     (K2 with four leaves), of 16 replayed proposals of the DIME stage
     (K8a, K8b and K8c where the tree has them, else K14: a split's
-    normals), and of 16 of ``StretchMove()`` at the main
-    path's width (1e5 walkers, the shuffled split).  A tree with K16 and
+    normals), of 16 of ``StretchMove()`` at the main
+    path's width (1e5 walkers, the shuffled split), and of 16 of
+    ``DEZMove()`` at 1e5 walkers and on workload 4's ladder (the device
+    time and kernels a proposal: K10 where the tree has it, else plain
+    torch, rung by rung on the ladder).  A tree with K16 and
     K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
     on the shuffled paths.  Uses only what every tree with K14 has."""
     import importlib.util
@@ -9032,8 +9601,15 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     runs["StretchMove() at 1e5"] = (stretch, 16, {
         "stretch_propose": 2, "accept_select": 2, "philox_draw": 1}
         | (shuffle_per(1, NW) if has16 else {}))
+    # DE-Z: K10 where the tree has it (every rung at once on the ladder),
+    # else plain torch (rung by rung); the device time and kernels only.
+    runs["DEZMove() at 1e5"] = (EnsembleSampler(
+        NW, ND, gaussian, vectorize=True, seed=24, device=dev,
+        moves=moves.DEZMove()), 16, None)
+    runs["DEZMove() on workload 4"] = (pt_sampler(
+        dev, seed=88, move=moves.DEZMove()), 16, None)
     for what, (smp, n, names) in runs.items():
-        if what in ("DIME stage", "StretchMove() at 1e5"):
+        if what in ("DIME stage", "StretchMove() at 1e5", "DEZMove() at 1e5"):
             smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
                          .astype(np.float32), n, store=False,
                          skip_initial_state_check=True)
@@ -9045,9 +9621,10 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
         log(f"kernel turn: {tree}: {what}: device "
             f"{measured(win['device_us_per_proposal'], '.2f')} us and "
             f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
-            f"proposal ({n} replayed); us a launch: " + ", ".join(
+            f"proposal ({n} replayed)" + ("; us a launch: " + ", ".join(
                 f"{k} {measured(v and v * 1e3, '.3f')}"
-                for k, v in win["ms_per_launch"].items()) + f" {card}")
+                for k, v in win["ms_per_launch"].items()) if names else "")
+            + f" {card}")
 
 
 def inner_tree(arg):
@@ -9264,18 +9841,19 @@ def main() -> int:
                 f"shared memory, {spill} bytes spilled")
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
-                        ["17"], ["18"], ["19"], ["20"], ["21"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 or 21 alone (a first
-        # check of the blobs, the extension moves, the gradient moves,
+                        ["17"], ["18"], ["19"], ["20"], ["21"], ["22"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 or 22 alone (a
+        # first check of the blobs, the extension moves, the gradient moves,
         # tempering, K14, the DE family on every rung, the gradient moves
-        # on every rung, K7, the shuffled split's K16 and K17 or K8).
+        # on every rung, K7, the shuffled split's K16 and K17, K8 or K10).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
                  "14": phase14, "15": phase15,
                  "16": phase16, "17": phase17,
                  "18": phase18, "19": phase19,
-                 "20": phase20, "21": phase21}[sys.argv[1]]
+                 "20": phase20, "21": phase21,
+                 "22": phase22}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -9894,6 +10472,12 @@ def main() -> int:
     _, rows21 = phase21(torch, np, dev, card)
     rows += rows21
     log(f"phase 21: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 22. K10, DE-Z's spread, proposal and archive fold --------------------
+    t0 = time.perf_counter()
+    _, rows22 = phase22(torch, np, dev, card)
+    rows += rows22
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

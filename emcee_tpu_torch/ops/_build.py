@@ -48,6 +48,9 @@ KERNELS = {
     "dime_moments": ("dime_moments.cu", "emcee_dime_moments"),
     "dime_finish": ("dime_moments.cu", "emcee_dime_finish"),
     "dime_propose": ("dime_propose.cu", "emcee_dime_propose"),
+    "dez_spread": ("dez_propose.cu", "emcee_dez_spread"),
+    "dez_propose": ("dez_propose.cu", "emcee_dez_propose"),
+    "dez_fold": ("dez_archive.cu", "emcee_dez_fold"),
 }
 
 _FLAGS = [
@@ -194,6 +197,27 @@ _ARGTYPES = {
     ],
     "dime_propose": [
         _P,  # the arguments (host struct, ops/dime_kernel.py _ProposeArgs)
+        _P,  # stream
+    ],
+    "dez_spread": [
+        _P, _P,  # x, part
+        ctypes.c_int, ctypes.c_int,  # nw nd
+        ctypes.c_int, ctypes.c_int,  # skip_lo skip_n
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plan: rows group blocks
+        ctypes.c_int, ctypes.c_int,  # ntemps, threads
+        ctypes.c_int, ctypes.c_int,  # plan: staged, dynamic shared memory
+        _P,  # stream
+    ],
+    "dez_propose": [
+        _P,  # the arguments (host struct, ops/dez_kernel.py _ProposeArgs)
+        _P,  # stream
+    ],
+    "dez_fold": [
+        _P, _P,  # x, archive
+        _P, _P, _P,  # filled, ptr, t
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nw nd capacity
+        ctypes.c_int, ctypes.c_int,  # nrows stride
+        ctypes.c_int, ctypes.c_int,  # ntemps, threads
         _P,  # stream
     ],
 }

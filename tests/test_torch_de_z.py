@@ -5,7 +5,9 @@ equals JAX's ``DEZMove.update_carry`` bit for bit over enough calls to
 wrap the ring.  The proposal is held to JAX's ``get_proposal`` under
 JAX's own draws, reproduced from the same key and injected into the
 port: q and the factors to rtol = atol = 1e-5 (the complement's spread
-and the snooker norms round in other orders).  Then the carry through
+sums in K10a's order, ``emcee_tpu_torch/ops/dez_kernel.py``: runs of rows,
+each shifted by its first row, merged by a pairwise tree of Chan's
+combine; the snooker norms sum in column order).  Then the carry through
 ``convert``, the archive through the sampler, and the statistical
 oracles of ``tests/integration/test_de_z.py`` (one in the fast tier).
 """
