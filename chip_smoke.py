@@ -94,8 +94,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    ``BlendedMove`` on workload 3 through K5a + K5b in turns with the
    sampler-level mixture (launches by the profiler); (d)
    ``SideMove(roll)`` and ``EnsembleSliceMove()`` at 1e5 x 5-D (graph
-   chains == eager chains; the slice move's block replays, flag reads
-   and evaluations; its caps binding); (e) K10a, K10b and K10c (DE-Z's
+   chains == eager chains; the slice move's K9 and K14 launches held
+   exactly by device words beside the profiler's, its block replays,
+   flag reads, trips and rows evaluated beside the evaluations needed,
+   ``loop_block`` in turns, its caps binding); (e) K10a, K10b and K10c (DE-Z's
    spread, proposal and archive fold) against their plain versions bit
    for bit (ndim 1-129, 37-5e4 walkers a split, nsplits 2-4, the ring
    empty, partly filled, full and wrapping, every branch of ``g1_prob``,
@@ -170,7 +172,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    to loop over them); (e) the adaptive ladder from
    ``max_temp=1e6`` against the frozen ladder, and the host's work a
    chunk; (f) ``EnsembleSliceMove`` and ``ChEESHMCMove`` on every rung
-   (graph chain == eager chain; µs, flag reads and kernels a proposal);
+   (graph chain == eager chain; the slice move every rung at once ==
+   its forced per-rung loop, bit for bit, both timed in turns; µs, flag
+   reads and kernels a proposal);
    (g) ``run_until_converged`` on the cold rung; (h) ``PTHDFBackend``
    with ``io_dtype`` and ``parameter_names`` (without h5py it prints
    ``pt-hdf: h5py not installed``); the rows of K2 with the blobs'
@@ -319,8 +323,25 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    rows of K10a, K10b and K10c, one ensemble and with the rung axis.
    ``python3 chip_smoke.py 22`` runs phases 0, 1 and 22 alone.
 
+23. K9, the slice move's loops on compacted lists (K9a the setup, K9b a
+   stepping-out trip, K9c a shrink trip or its first list, K9d the
+   finish, ``csrc/slice_loops.cu``): (a) each against its plain version
+   in lockstep over a group's whole loops, every buffer of the loop state
+   and the ensemble compared bit for bit after every launch (ndim 1, 2,
+   5, 8 and 100; groups odd, at bucket boundaries and of 5e4; 1, 3 and 16
+   rungs; binding caps; blobs; a tuned scale; injected draws; a device
+   offset word; bucket floors and trips a block); (b) each alone at the
+   first trip of its loop at 1e5 x 5-D and at workload 4's ladder (CUDA
+   events) beside its plain version and its bound; (c) the bucket floor
+   at 1e5 (host and device µs a proposal, rows evaluated); (d)
+   ``EnsembleSliceMove()``'s replays at 1e5 and on workload 4's ladder:
+   launches by device words (held exactly), device µs and kernels a
+   proposal, each K9 kernel's µs a launch; (e) the rows of K9a-K9d, one
+   ensemble and with the rung axis.  ``python3 chip_smoke.py 23`` runs
+   phases 0, 1 and 23 alone.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22.  Every phase raises on failure.  ``python3
+18, 19, 20, 21, 22, 23.  Every phase raises on failure.  ``python3
 chip_smoke.py sass-diff TREE`` builds TREE's and this checkout's K1, K2,
 K5a, K5b, K11, K12, K13 and K15 and compares their SASS function by
 function.
@@ -425,7 +446,11 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("dime_kernel", "dime_propose"),
            ("dez_kernel", "dez_spread"),
            ("dez_kernel", "dez_propose"),
-           ("dez_kernel", "dez_fold"))
+           ("dez_kernel", "dez_fold"),
+           ("slice_kernel", "slice_setup"),
+           ("slice_kernel", "slice_step_out"),
+           ("slice_kernel", "slice_shrink"),
+           ("slice_kernel", "slice_finish"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -756,31 +781,36 @@ def warm_graphs(smp, top=None):
             size *= 2
 
 
-class LoopDraws:
-    """K14's launches in a run of the slice move, from the move's own
-    counters: each proposal draws ``fixed`` times (the shuffled split's
-    sort keys, and each split's picks and accept uniforms), and each
-    shrink block once more (its uniforms, at the block's first iteration),
-    so a run launches ``fixed`` a proposal plus the shrink iterations it
-    ran over the block size (``block``: the move's ``loop_block`` in
-    graph replays, 1 eagerly)."""
+class LoopLaunches:
+    """A kernel's launches in a run of the slice move, from the move's own
+    counters: ``fixed`` a proposal (K9a, K9d and K9c's first list: one a
+    group) plus, for ``loop`` 0 or 1, the trips of that loop the run ran
+    (``_Work.executed``: K9b's or K9c's launches, one a trip, in graph
+    replays and eagerly alike)."""
 
-    def __init__(self, move, fixed):
-        self.move, self.fixed, self.ex0 = move, fixed, 0
+    def __init__(self, move, loop, fixed):
+        self.move, self.loop, self.fixed, self.ex0 = move, loop, fixed, 0
 
     def executed(self):
-        return sum(int(w.executed[1]) for w in self.move._work.values())
+        return sum(int(w.executed[self.loop])
+                   for w in self.move._work.values())
 
     def begin(self):
         self.ex0 = self.executed()
         return self
 
-    def count(self, proposals, block):
-        ran = self.executed() - self.ex0
-        if ran % block:
-            raise AssertionError(f"slice move: {ran} shrink iterations run "
-                                 f"in blocks of {block}")
-        return proposals * self.fixed + ran // block
+    def count(self, proposals, block=None):
+        return proposals * self.fixed + self.executed() - self.ex0
+
+
+def slice_launches(move):
+    """K9's launches a proposal of ``move`` (an ``EnsembleSliceMove``):
+    K9a, K9d and K9c's first list once a group, K9b and K9c once a trip
+    (:class:`LoopLaunches`)."""
+    ns = move.nsplits
+    return {"slice_setup": ns, "slice_finish": ns,
+            "slice_step_out": LoopLaunches(move, 0, 0),
+            "slice_shrink": LoopLaunches(move, 1, ns)}
 
 
 def drive(smp, state, n, per_proposal=None, **kw):
@@ -791,13 +821,14 @@ def drive(smp, state, n, per_proposal=None, **kw):
     replay.  On the eager path (``_use_graphs`` off), the wrappers'
     counters show a proposal kernel twice and K2 twice per proposal, or
     ``per_proposal``'s ``{wrapper: launches per proposal}`` (others 0; a
-    :class:`LoopDraws` gives the run's count from the move's counters)."""
+    :class:`LoopLaunches` gives the run's count from the move's
+    counters)."""
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
     prog = smp._program
     ngraphs = None if prog is None else len(prog.graphs)
     loop_draws = {k: v.begin() for k, v in (per_proposal or {}).items()
-                  if isinstance(v, LoopDraws)}
+                  if isinstance(v, LoopLaunches)}
     before, r0 = launch_counts(), ChunkProgram.replays
     t0 = time.perf_counter()
     out = smp.run_mcmc(state, n, **kw)
@@ -1984,14 +2015,14 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     more = more[0] if more else {}
 
     def per_of(smp):
-        """The path's launches a proposal: K2's, K14's (a number, or the
-        slice move's :class:`LoopDraws` of this sampler's move), the KDE
-        move's K7 (one a split: ``s`` and ``q`` in one launch) and the
-        config's other kernels (``more``: DE-Z's K10)."""
-        k14 = (k14_per(smp._moves[0]) if callable(k14_per) else k14_per)
-        return {"accept_select": k2_per, "philox_draw": k14,
-                "kde_logpdf": 2 if kde else 0} | shuffle_of(
-                    smp._moves[0]) | more
+        """The path's launches a proposal: K2's, K14's, the KDE move's K7
+        (one a split: ``s`` and ``q`` in one launch) and the config's other
+        kernels (``more``: DE-Z's K10; a function of the move for the
+        slice move's K9, :func:`slice_launches`)."""
+        mv = smp._moves[0]
+        return {"accept_select": k2_per, "philox_draw": k14_per,
+                "kde_logpdf": 2 if kde else 0} | shuffle_of(mv) | (
+                    more(mv) if callable(more) else more)
 
     def make():
         return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=12,
@@ -2039,21 +2070,24 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
     busy_us, events = 0.0, []
     k14 = per_of(smp)["philox_draw"]
     shuf = shuffle_of(smp._moves[0])
+    profiled = None
     for _ in range(4 if kde else 1):
         k7_before = [int(k7_calls)]
         if looped:
-            # The slice move's K14 launches follow its shrink blocks
-            # (LoopDraws), and its window holds ~2e5 kernel events, of
-            # which the profiler, late in the whole script, drops a few:
-            # so every launch is counted exactly on the card (a device word
-            # beside each launch), and the profiled window times.
-            counts, _ = counted_replays(
+            # The slice move's K9b and K9c launches follow its trips
+            # (LoopLaunches), and the profiler, late in the whole script,
+            # drops a few of a window's events: so every launch is counted
+            # exactly on the card (a device word beside each launch), the
+            # profiler's count is read beside it, and a profiled window
+            # times.
+            per = per_of(smp)
+            trips = [v for v in per.values() if isinstance(v, LoopLaunches)]
+            counts, profiled = counted_replays(
                 torch, dev, smp, n_prof, lambda r: {
-                    "accept_select": k2_per * n_prof,
-                    "philox_draw": k14.count(n_prof,
-                                             smp._moves[0].loop_block)} | {
-                    k: v * n_prof for k, v in shuf.items()},
-                f"{phase}: {label}", before=k14.begin, store=False)
+                    k: (v.count(n_prof) if isinstance(v, LoopLaunches)
+                        else v * n_prof) for k, v in per.items() if v},
+                f"{phase}: {label}",
+                before=lambda: [v.begin() for v in trips], store=False)
             k7_before = [int(k7_calls)]
             wall, kernels = profile_window(
                 torch, lambda: drive(smp, None, n_prof, store=False))
@@ -2083,6 +2117,11 @@ def phase10_move(torch, np, dev, card, p0, config, k7_calls,
                profiled_windows=len(events), kernel_events=events,
                device_us_per_proposal=busy_us / (n_prof * len(events)),
                k7_calls=int(k7_calls), seconds=time.perf_counter() - t_all)
+    if looped:
+        row.update(replayed_launches=counts, profiled_replayed=profiled,
+                   proposals_counted=n_prof,
+                   ms_per_launch={k: device_ms(kernels, k)
+                                  for k in K9_KERNELS})
     if kde:
         row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     log(f"{phase}: {label}: {n} graph-replayed proposals equal the "
@@ -2958,8 +2997,8 @@ def phase12(torch, np, dev, card):
     module docstring, 12): bench.py's two DIME stages, ``BlendedMove`` on
     workload 3 in turns with the sampler-level mixture, the side and
     slice moves at the main path's width, DE-Z at its use case and at
-    1e5 walkers.  Returns its numbers and the K9 and K10 rows (K8's are
-    phase 21's)."""
+    1e5 walkers.  Returns its numbers and no row (K8's rows are phase
+    21's, K10's phase 22's, K9's phase 23's)."""
     out = {}
     with path_launches(out, "dime", tuple(K8_PER)):
         out["dime"] = phase12_dime(torch, np, dev, card)
@@ -2969,13 +3008,13 @@ def phase12(torch, np, dev, card):
     with path_launches(out, "blended", (
             "accept_select", "de_propose", "snooker_propose")):
         out["blended"] = phase12_blended(torch, np, dev, card)
-    with path_launches(out, "side_slice", ("accept_select",)):
+    with path_launches(out, "side_slice", ("accept_select",) + K9_KERNELS):
         out["side_slice"] = phase12_side_slice(torch, np, dev, card)
     with path_launches(out, "dez", ("accept_select",) + tuple(K10_KERNELS)):
         out["dez"] = phase12_dez(torch, np, dev, card)
     log(f"phase 12: kernel wrapper launches of each path, counted from 0 "
         f"(recordings and eager runs): {out['launches']}")
-    return out, phase12_rows(np, out, card)
+    return out, []
 
 
 @contextlib.contextmanager
@@ -3213,14 +3252,21 @@ def phase12_side_slice(torch, np, dev, card, n=64):
         ("SideMove(pair_mode='roll', randomize_split=False)",
          lambda: moves.SideMove(pair_mode="roll", randomize_split=False),
          n, 2, 4), zero, phase="phase 12: (d)")}
-    # K14 a slice proposal: the shuffle's keys, each split's picks and
-    # accept uniforms, and one draw a shrink block.
+    # A slice proposal: K14 once (the shuffle's keys: K9a and K9c draw
+    # their own), K9a, K9d and K9c's first list once a group, K9b and K9c
+    # once a trip, held exactly by device words.
     out["slice"] = row = phase10_move(
         torch, np, dev, card, p0,
-        ("EnsembleSliceMove()", moves.EnsembleSliceMove, n, 0,
-         lambda mv: LoopDraws(mv, 5)), zero, phase="phase 12: (d)")
+        ("EnsembleSliceMove()", moves.EnsembleSliceMove, n, 0, 1,
+         slice_launches), zero, phase="phase 12: (d)")
+    rl, pl = row["replayed_launches"], row["profiled_replayed"]
+    k9 = {k: rl[k] for k in K9_KERNELS}
+    if any(pl[k] > rl[k] for k in K9_KERNELS) or rl["philox_draw"] != (
+            row["proposals_counted"]):
+        raise AssertionError(f"phase 12: slice: replayed launches {rl}, "
+                             f"the profiler's {pl}")
     # The loops of one graph run of n proposals, after its first (which
-    # records): iterations the JAX loops need and the masked ones run,
+    # records): iterations the JAX loops need, trips run, rows evaluated,
     # flag reads and block replays.
     # An untimed run, so with the per-walker evaluation counts.
     mv = moves.EnsembleSliceMove()
@@ -3229,43 +3275,50 @@ def phase12_side_slice(torch, np, dev, card, n=64):
                           device=dev, moves=mv)
     st, _ = drive(smp, p0, n, store=False, skip_initial_state_check=True)
     w = next(iter(mv._work.values()))
-    it0, ex0, ev0 = (w.iterations.clone(), w.executed.clone(),
-                     w.evals.clone())
+    c0 = [c.clone() for c in (w.iterations, w.executed, w.evals, w.rows)]
     reads0 = ChunkProgram.flag_reads
     drive(smp, None, n, store=False)
-    it = (w.iterations - it0).tolist()
-    ex = (w.executed - ex0).tolist()
-    ev = (w.evals - ev0).tolist()
+    it, ex, ev, rows = ((c - b).tolist() for c, b in zip(
+        (w.iterations, w.executed, w.evals, w.rows), c0))
     half_steps = 2 * n  # group updates; each walker is in n of them
     row.update(
-        block=mv.loop_block, proposals=n, iterations=it, executed=ex,
-        evals=ev, flag_reads_per_proposal=(
-            ChunkProgram.flag_reads - reads0) / n,
+        block=mv.loop_block, floor=mv.bucket_floor, proposals=n,
+        iterations=it, executed=ex, evals=ev, rows=rows,
+        flag_reads_per_proposal=(ChunkProgram.flag_reads - reads0) / n,
         evals_per_walker_half_step=sum(ev) / (n * NW),
+        rows_per_walker_half_step=sum(rows) / (n * NW),
         trip_evals_per_walker_half_step=(2 * it[0] + it[1]) / half_steps,
-        trip_evals_run_per_walker_half_step=(2 * ex[0] + ex[1])
-        / half_steps,
         acceptance_run=float(smp.last_run_stats.acceptance_fraction.mean()))
-    log(f"phase 12: (d) slice, B = {mv.loop_block}: per proposal "
+    log(f"phase 12: (d) slice, B = {mv.loop_block}, bucket floor "
+        f"{mv.bucket_floor}: per proposal "
         f"{row['flag_reads_per_proposal']:.2f} flag reads (one a block "
-        f"replay); evaluations a walker a half-step: "
-        f"{row['evals_per_walker_half_step']:.3f} needed by the walker "
-        f"(mean; stepping out {ev[0] / (n * NW):.3f}, shrink "
-        f"{ev[1] / (n * NW):.3f}), {row['trip_evals_per_walker_half_step']:.3f}"
-        f" by the group's loop trips the JAX loops need (every walker "
-        f"evaluates in every trip; stepping out {it[0] / half_steps:.3f} "
-        f"trips a group, shrink {it[1] / half_steps:.3f}), "
-        f"{row['trip_evals_run_per_walker_half_step']:.3f} by the trips run;"
-        f" acceptance {row['acceptance_run']:.4f} {card}")
+        f"replay); a walker a half-step: "
+        f"{row['rows_per_walker_half_step']:.3f} rows evaluated (padding "
+        f"included; stepping out {rows[0] / (n * NW):.3f}, shrink "
+        f"{rows[1] / (n * NW):.3f}) beside "
+        f"{row['evals_per_walker_half_step']:.3f} evaluations needed "
+        f"(stepping out {ev[0] / (n * NW):.3f}, shrink "
+        f"{ev[1] / (n * NW):.3f}) and "
+        f"{row['trip_evals_per_walker_half_step']:.3f} by the group trips "
+        f"the JAX loops run (every walker in every trip of its group); "
+        f"trips a group: stepping out {it[0] / half_steps:.3f} needed, "
+        f"{ex[0] / half_steps:.3f} run, shrink {it[1] / half_steps:.3f} / "
+        f"{ex[1] / half_steps:.3f}; K9 launches in {row['proposals_counted']}"
+        f" replayed proposals {k9} (device words; the profiler "
+        f"{ {k: pl[k] for k in K9_KERNELS} }), K14 "
+        f"{rl['philox_draw']}; us a launch in the replays: " + ", ".join(
+            f"{k} {measured(v and v * 1e3, '.2f')}"
+            for k, v in row["ms_per_launch"].items())
+        + f"; acceptance {row['acceptance_run']:.4f} {card}")
     out["slice_block_sweep"] = slice_block_sweep(torch, dev, card, p0)
     out["slice_capped"] = slice_capped(torch, np, dev, p0)
     return out
 
 
 def slice_block_sweep(torch, dev, card, p0, n=16, blocks=(2, 4, 8, 16)):
-    """The slice move's graph rate, flag reads and run iterations for
-    several ``loop_block`` B, in turns (each B's segments recorded before
-    its timed run); the chains are equal for every B."""
+    """The slice move's graph rate, flag reads, trips run and rows
+    evaluated for several ``loop_block`` B, in turns (each B's segments
+    recorded before its timed run); the chains are equal for every B."""
     from emcee_tpu_torch import EnsembleSampler, moves
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
@@ -3280,10 +3333,12 @@ def slice_block_sweep(torch, dev, card, p0, n=16, blocks=(2, 4, 8, 16)):
         smp = smps[b]
         w = next(iter(smp._moves[0]._work.values()))
         ex0, reads0 = w.executed.clone(), ChunkProgram.flag_reads
+        rows0 = w.rows.clone()
         st, dt = drive(smp, None, n, store=False)
         r = res.setdefault(b, dict(rates=[], flag_reads_per_proposal=(
             ChunkProgram.flag_reads - reads0) / n, executed_per_proposal=(
-            (w.executed - ex0) / n).tolist()))
+            (w.executed - ex0) / n).tolist(), rows_per_walker_half_step=(
+            float((w.rows - rows0).sum()) / (n * NW))))
         r["rates"].append(n * NW / dt)
         if len(r["rates"]) == 2:
             ends.append(st.coords)
@@ -3293,8 +3348,10 @@ def slice_block_sweep(torch, dev, card, p0, n=16, blocks=(2, 4, 8, 16)):
         + ", ".join(str(b) for b in blocks + blocks[::-1]) + "): "
         + "; ".join(f"B={b}: {r['rates'][0]:.4e} / {r['rates'][1]:.4e} "
                     f"walker-steps/s, {r['flag_reads_per_proposal']:.2f} "
-                    f"flag reads and {r['executed_per_proposal']} "
-                    "iterations run a proposal" for b, r in res.items())
+                    f"flag reads, {r['executed_per_proposal']} "
+                    f"trips run a proposal and "
+                    f"{r['rows_per_walker_half_step']:.3f} rows evaluated a "
+                    "walker a half-step" for b, r in res.items())
         + f"; chains equal for every B {card}")
     return res
 
@@ -3397,66 +3454,6 @@ def phase12_dez(torch, np, dev, card):
                            mean=mean.tolist(), std=std.tolist(),
                            orthogonal_std=proj.tolist()), full=row,
                 sweep=n_cmp)
-
-
-def phase12_rows(np, out, card):
-    """The K9 row of the kernel table: plain torch (no hand-written
-    kernel), device time a proposal inside the replays (profiler), the
-    same proposals eagerly as the plain column, and the least time the
-    card could take for the work (K10's rows are phase 22's)."""
-    def bound(nbytes, nops):
-        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": nops / F32_OPS_PER_S * 1e3}
-        by = max(t, key=t.get)
-        return t[by], by
-
-    philox = 100 + 40  # ten rounds of ~10 integer operations, Box-Muller
-    ng = NW // 2
-    sl = out["side_slice"]["slice"]
-
-    def slice_bound(ev_out, ev_shr):
-        # Each input read once (the rows, their log-probs, two partner
-        # rows a walker), each output written once (rows, log-probs,
-        # accepted); per evaluation the log-prob (3 ND + 2) and the step,
-        # plus one Philox counter a shrink; two counters a walker (the
-        # setup's draws and the slice level).
-        return bound(4 * NW * (ND + 1) * 2 + 4 * NW * 2 * ND + NW,
-                     ev_out * (3 * ND + 12)
-                     + ev_shr * (3 * ND + 12 + philox) + 2 * NW * philox)
-
-    # The evaluations the walkers need (the bound), and those of the group
-    # trips the JAX loops need (bound_trips_ms): every trip evaluates all
-    # ng walkers of its group, two points stepping out.
-    n9 = sl["proposals"]
-    k9 = slice_bound(*(x / n9 for x in sl["evals"]))
-    k9_trips = slice_bound(*(x / n9 * ng * m for x, m in zip(
-        sl["iterations"], (2, 1))))
-
-    def row(name, src, jax, launches, us, plain_ms, b, note, **extra):
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": jax, "launches": launches, "max_abs_err": 0.0,
-                "ms": us * 1e-3, "plain_ms": plain_ms, "bound_ms": b[0],
-                "bound_by": b[1], "library_ms": None, "note": note,
-                **extra}
-
-    def eager_ms(r):
-        return NW / (sum(r["rates"][False]) / 2) * 1e3
-
-    return [
-        row("slice_loop", "emcee_tpu_torch/moves/slice.py",
-            "emcee_tpu/moves/slice.py:143", sum(sl["executed"]),
-            sl["device_us_per_proposal"], eager_ms(sl), k9,
-            "K9, plain torch (not hand-written): the slice move's "
-            "stepping-out and shrink loops by block replays; launches "
-            "are the loop iterations run in one 64-proposal run (masked "
-            "ones included); bound from the evaluations the walkers need "
-            "(bound_trips_ms: from the group trips the JAX loops need); "
-            "max_abs_err: graph chain == eager loop",
-            block=sl["block"], iterations=sl["iterations"],
-            evals=sl["evals"], bound_trips_ms=k9_trips[0],
-            bound_trips_by=k9_trips[1],
-            flag_reads_per_proposal=sl["flag_reads_per_proposal"]),
-    ]
 
 
 # -- phase 13: the gradient moves ---------------------------------------------
@@ -5300,43 +5297,69 @@ def pt15_adaptive(torch, np, dev, card, p0, reps=20):
 
 def pt15_looped(torch, np, dev, card, p0, n=32, n_timed=8):
     """(f) ``EnsembleSliceMove()`` and ``ChEESHMCMove(0.5)`` on every rung
-    at workload 4's size, ``n`` proposals each: the graph chain (each
-    rung's loops by its own replays) against the plain versions' eager
-    chain, bit for bit; then µs and flag reads a proposal over
-    ``n_timed`` more, and kernels a proposal in a profiled window of 4."""
+    at workload 4's size, ``n`` proposals each: the graph chain against the
+    plain versions' eager chain, bit for bit (the slice move every rung at
+    once, ChEES each rung's loops by its own replays); the slice move also
+    against the forced per-rung loop's graph chain, bit for bit.  Then µs
+    and flag reads a proposal over ``n_timed`` more, and device µs and
+    kernels a proposal in a profiled window of 4, for each (the slice
+    move's per-rung loop too, in turns with its batched path)."""
     from emcee_tpu_torch import moves
     from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    def timed(smp):
+        reads = ChunkProgram.flag_reads
+        t0 = time.perf_counter()
+        smp.run_mcmc(None, n_timed, store=False)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / n_timed * 1e6,
+                (ChunkProgram.flag_reads - reads) / n_timed)
 
     out = {}
     for name, make in (("slice", moves.EnsembleSliceMove),
                        ("chees", lambda: moves.ChEESHMCMove(0.5))):
-        ends = []
-        for plain in (False, True):
+        ends, smps = [], {}
+        for plain, batched in ((False, True), (True, True), (False, False)):
+            if name == "chees" and not batched:
+                continue
             smp = pt15_sampler(dev, seed=47, move=make())
             smp._use_graphs = not plain
+            smp._batched = batched
             with plain_kernels() if plain else contextlib.nullcontext():
                 smp.run_mcmc(p0, n // 2, tune=True,
                              skip_initial_state_check=True)
                 smp.run_mcmc(None, n // 2)
             ends.append(pt15_end(smp))
             if not plain:
-                graph_smp = smp
-        same_ends(np, *ends, f"{name} on every rung: graph and eager chains")
-        reads = ChunkProgram.flag_reads
-        t0 = time.perf_counter()
-        graph_smp.run_mcmc(None, n_timed, store=False)
-        torch.cuda.synchronize()
-        us = (time.perf_counter() - t0) / n_timed * 1e6
-        flag_reads = (ChunkProgram.flag_reads - reads) / n_timed
-        win = busy_window(torch,
-                          lambda: graph_smp.run_mcmc(None, 4, store=False),
-                          4, f"{name} on every rung")
-        out[name] = dict(us_per_proposal=us, flag_reads=flag_reads,
-                         flag_reads_per_rung=flag_reads / NT4,
-                         device_us=win["device_us_per_proposal"],
-                         kernels=win["kernels_per_proposal"],
-                         idle=win["idle"],
-                         acc=float(graph_smp.acceptance_fraction.mean()))
+                smps[batched] = smp
+        same_ends(np, ends[0], ends[1],
+                  f"{name} on every rung: graph and eager chains")
+        if len(ends) > 2:
+            same_ends(np, ends[0], ends[2], f"{name} on every rung: the "
+                      "batched path and the per-rung loop")
+        rows = {}
+        for batched in (True, False, False, True):
+            if batched not in smps:
+                continue
+            us, flag_reads = timed(smps[batched])
+            r = rows.setdefault(batched, dict(us_per_proposal=[],
+                                              flag_reads=flag_reads))
+            r["us_per_proposal"].append(us)
+        for batched, r in rows.items():
+            smp = smps[batched]
+            win = busy_window(torch,
+                              lambda: smp.run_mcmc(None, 4, store=False),
+                              4, f"{name} on every rung"
+                              + ("" if batched else " (per-rung loop)"))
+            r.update(flag_reads_per_rung=r["flag_reads"] / NT4,
+                     device_us=win["device_us_per_proposal"],
+                     kernels=win["kernels_per_proposal"], idle=win["idle"],
+                     acc=float(smp.acceptance_fraction.mean()))
+        turns = rows[True]["us_per_proposal"]
+        out[name] = rows[True] | {"us_per_proposal": turns[0],
+                                  "us_per_proposal_turns": turns}
+        if False in rows:
+            out[name]["loop"] = rows[False]
     return out
 
 
@@ -5501,16 +5524,25 @@ def phase15(torch, np, dev, card):
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     with path_launches(out, "looped", ("langevin_step", "leapfrog",
-                                       "pt_swap"), "phase 15"):
+                                       "pt_swap") + K9_KERNELS, "phase 15"):
         lo = out["looped"] = pt15_looped(torch, np, dev, card, p0)
+    sl = lo["slice"]["loop"]
     log("phase 15: (f) the looped moves on every rung, graph chain == eager "
-        "plain chain bit for bit; " + "; ".join(
+        "plain chain bit for bit, the slice move's batched path == its "
+        "per-rung loop bit for bit; " + "; ".join(
             f"{k}: {v['us_per_proposal']:.1f} us a proposal, "
             f"{v['flag_reads']:.2f} flag reads a proposal "
             f"({v['flag_reads_per_rung']:.2f} a rung), device "
             f"{measured(v['device_us'])} us and "
             f"{measured(v['kernels'], '.0f')} kernels a proposal"
-            for k, v in lo.items()) + f" {card} "
+            for k, v in lo.items())
+        + f"; the slice move's per-rung loop: "
+        f"{[round(u, 1) for u in sl['us_per_proposal']]} us a proposal "
+        f"(in turns with the batched path's "
+        f"{[round(u, 1) for u in lo['slice']['us_per_proposal_turns']]}), "
+        f"{sl['flag_reads']:.2f} flag reads, device "
+        f"{measured(sl['device_us'])} us and "
+        f"{measured(sl['kernels'], '.0f')} kernels a proposal {card} "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     mo = out["monitor"] = pt15_monitor(torch, np, dev, card, p0)
@@ -9522,6 +9554,503 @@ def phase22_rows(out, card):
     return rows
 
 
+# -- phase 23: K9, the slice move's loops -----------------------------------
+
+#: K9's wrappers, in launch order of a group
+K9_KERNELS = ("slice_setup", "slice_step_out", "slice_shrink", "slice_finish")
+#: (rungs, walkers a group, nsplits, ndim) of K9's sweep: ndim 1, 2, 5, 8
+#: and 100; groups odd, at bucket boundaries (2 ng a power of two) and of
+#: the main path (5e4); 1, 3 and 16 rungs
+K9_SWEEP = ((1, 37, 2, 1), (1, 32, 2, 2), (1, 5003, 2, 5), (1, 256, 3, 8),
+            (1, 129, 2, 100), (1, 50000, 2, 5), (3, 37, 2, 5),
+            (3, 64, 3, 2), (16, 128, 2, 5), (16, 33, 2, 1), (3, 21, 2, 100))
+#: (bucket floor, trips a block) of the sweep's loops
+K9_SWEEP_LOOPS = ((32, 4), (1, 1), (1024, 3))
+#: the bucket floors timed by the plan sweep at 1e5 walkers
+K9_FLOORS = (32, 256, 2048, 1 << 30)
+#: a proposal's launches of the slice move on workload 4's ladder, every
+#: rung at once, besides K9b's and K9c's trips (K9a and K9d a split, K9c's
+#: first form a split, K15, and the shuffle's keys and K16 / K17)
+PT23_FIXED = {"slice_setup": 2, "slice_finish": 2, "pt_swap": 1,
+              "philox_draw": 1} | SHUF4
+
+
+def k9_blobs(torch, q):
+    """The sweep's blob leaves of rows ``q`` (``(T, n, nd)``): a float32
+    scalar, the rows themselves (a view of the evaluated rows), a bool
+    and a float64 scalar."""
+    lp = -0.5 * (q * q).sum(-1)
+    return lp, [2.0 * lp, q, q[..., 0] > 0, q.sum(-1).double()]
+
+
+def k9_state(st):
+    """Every buffer of K9's loop state that both versions write."""
+    return [st.eta, st.y, st.ends, st.budget, st.cnt, st.t, st.t_acc,
+            st.lp_acc, st.done, st.lists, st.pts, st.words, st.sums,
+            st.counters, *st.blobs_acc]
+
+
+def k9_lockstep(torch, same, routes, split, ns, seed, offset, cfg, scale,
+                extra, shrink_u, floor, block, what):
+    """One group's setup, stepping out, shrink and finish on each route
+    (``routes``: the kernels' and the plain versions', each a dict of its
+    own buffers and functions) in lockstep, the bucket rule of
+    ``chunk_graph.GraphLoops.compacted``, every buffer compared bit for bit
+    after every launch."""
+    from emcee_tpu_torch.chunk_graph import bucket_of
+
+    ng = routes[0]["st"].shape[1]
+
+    def both(call, step):
+        for r in routes:
+            call(r)
+        same(*[k9_state(r["st"]) + [r["x"], r["lp"], r["acc"], r["cnt"],
+                                    *r["leaves"]] for r in routes],
+             f"{what}: {step}")
+
+    both(lambda r: r["fns"][0](r["x"], r["lp"], split, ns, r["st"], seed,
+                               offset, cfg, scale=scale, extra=extra),
+         "K9a")
+    for loop, top, start in ((0, 2 * ng, cfg.max_steps > 1),
+                             (1, ng, cfg.max_shrink > 0)):
+        if loop:
+            both(lambda r: r["fns"][2](r["x"], None, [], split, ns, r["st"],
+                                       0, 0, seed, offset, cfg, shrink_u),
+                 "K9c's first list")
+        blocks, bucket, go = 0, top, start
+        while go:
+            for b in range(block):
+                parity = (blocks * block + b) & 1
+
+                def trip(r, bucket=bucket, parity=parity):
+                    lp_q, bl = k9_blobs(torch, r["st"].pts[parity][:, :bucket])
+                    if loop:
+                        r["fns"][2](r["x"], lp_q, bl, split, ns, r["st"],
+                                    bucket, parity, seed, offset, cfg,
+                                    shrink_u)
+                    else:
+                        r["fns"][1](r["x"], lp_q, split, ns, r["st"], bucket,
+                                    parity, cfg)
+
+                both(trip, f"{('K9b', 'K9c')[loop]} bucket {bucket}")
+            blocks += 1
+            m = max(routes[0]["st"].length().tolist())
+            go = m > 0
+            if go:
+                bucket = bucket_of(m, top, floor)
+    both(lambda r: r["fns"][3](r["x"], r["lp"], split, ns, r["st"], r["acc"],
+                               r["cnt"], r["leaves"]), "K9d")
+
+
+def k9_sweep(torch, dev):
+    """(a) K9a, K9b, K9c and K9d against their plain versions in lockstep,
+    every buffer of the loop state and of the ensemble compared bit for
+    bit after every launch: (rungs, walkers a group, nsplits, ndim)
+    ``K9_SWEEP``, every split, four blob leaves (float32, the evaluated
+    rows, bool, float64), the caps binding (``max_steps=2``,
+    ``max_shrink=2`` at ``mu=20``) and not, a tuned scale, injected draws,
+    a device offset word, bucket floors and trips a block
+    ``K9_SWEEP_LOOPS``.  Returns the count of comparisons."""
+    from emcee_tpu_torch.ops import slice_kernel as sk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(230)
+    n_cmp = 0
+
+    def same(got, want, what):
+        nonlocal n_cmp
+        same_bits(got, want, what)
+        n_cmp += len(got)
+
+    fns = {"kernel": (sk.slice_setup, sk.slice_step_out, sk.slice_shrink,
+                      sk.slice_finish),
+           "plain": (sk.slice_setup_plain, sk.slice_step_out_plain,
+                     sk.slice_shrink_plain, sk.slice_finish_plain)}
+    word = torch.tensor(40, dtype=torch.int64, device=dev)
+    for ci, (T, ng, ns, nd) in enumerate(K9_SWEEP):
+        nw = ng * ns
+        x0 = torch.randn(T, nw, nd, device=dev, generator=gen)
+        lp0, leaves0 = k9_blobs(torch, x0)
+        seed = rung_keys(23 + ci, T, dev) if T > 1 else 23 + ci
+        big = ng >= 50000
+        cases = [("plain", sk.SliceConfig(1.0, 100, 100, True), None, {},
+                  None, 7, K9_SWEEP_LOOPS[ci % 3])]
+        if not big:
+            cases += [
+                ("caps", sk.SliceConfig(20.0, 2, 2, True), None, {}, None,
+                 DeviceOffset(word, 3), K9_SWEEP_LOOPS[(ci + 1) % 3]),
+                ("scale", sk.SliceConfig(0.5, 7, 100, False),
+                 torch.rand(T, device=dev, generator=gen) + 0.5, {}, None, 9,
+                 K9_SWEEP_LOOPS[(ci + 2) % 3]),
+                ("injected", sk.SliceConfig(1.0, 10, 12, True), None, dict(
+                    i=torch.randint(0, nw - ng, (T, ng), device=dev,
+                                    generator=gen),
+                    j=torch.randint(0, nw - ng - 1, (T, ng), device=dev,
+                                    generator=gen),
+                    u=torch.rand(T, ng, device=dev, generator=gen),
+                    j_l=torch.randint(0, 10, (T, ng), device=dev,
+                                      generator=gen),
+                    log_u=torch.log(torch.rand(T, ng, device=dev,
+                                               generator=gen))),
+                 torch.rand(T, ng, 12, device=dev, generator=gen), 0,
+                 (1, 2))]
+        for label, cfg, scale, extra, shrink_u, offset, loops in cases:
+            floor, block = loops
+            routes = []
+            for route in ("kernel", "plain"):
+                leaves = [b.clone() for b in leaves0]
+                routes.append(dict(
+                    fns=fns[route], x=x0.clone(), lp=lp0.clone(),
+                    acc=torch.zeros(T, nw, dtype=torch.bool, device=dev),
+                    cnt=torch.zeros(T, nw, dtype=torch.int32, device=dev),
+                    leaves=leaves, st=sk.LoopState(T, ng, nd, x0.dtype, dev,
+                                                   leaves)))
+            for split in range(ns):
+                k9_lockstep(torch, same, routes, split, ns, seed, offset,
+                            cfg, scale, extra, shrink_u, floor, block,
+                            f"K9 sweep T={T} ng={ng} ns={ns} nd={nd} "
+                            f"{label} split {split}")
+            if label == "caps" and bool(routes[0]["acc"].all()):
+                raise AssertionError(f"K9 sweep T={T} ng={ng}: the caps "
+                                     "left every walker accepted")
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def k9_snapshot(st, bufs):
+    """A copy of K9's loop state and the ensemble's buffers, and the
+    function that puts it back."""
+    saved = [t.clone() for t in k9_state(st) + bufs]
+
+    def restore():
+        for t, v in zip(k9_state(st) + bufs, saved):
+            t.copy_(v)
+
+    return restore
+
+
+def behind_ms(torch, fn, prep, reps=20):
+    """Device ms of one call of ``fn`` after ``prep`` (untimed): CUDA
+    events around the call, enqueued behind ~0.5 ms of the card's sleep so
+    that the host's work of the call lies outside the window."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    total = 0.0
+    for _ in range(reps + 1):
+        prep()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end) if _ else 0.0
+    return total / reps
+
+
+def k9_bounds(T, ng, nd, m, m_next, kind, first=False):
+    """The least work of one K9 launch with ``m`` listed entries (walkers
+    for K9a, K9c's first list (``first``) and K9d) of which ``m_next`` stay
+    listed (K9d: landed), as
+    ``(bytes, instructions, special-function results)``: each input read
+    once and each output written once, the Philox blocks and arithmetic
+    the entries need (summed over ``T`` rungs: ``m`` and ``m_next`` are
+    totals)."""
+    row = 4 * nd
+    if kind == "slice_setup":  # own row, two complement rows, lp; eta, 6
+        return (m * (3 * row + 4 + row + 24) + m_next * (4 + row),
+                m * (2 * PHILOX_INSTR + 3 * nd + 30) + m_next * 2 * nd,
+                m)
+    if kind == "slice_step_out":
+        return (m * 32 + m_next * (4 + 3 * row),
+                m * 15 + m_next * (3 * nd + 5), 0)
+    if kind == "slice_shrink":
+        if first:
+            return (m * (8 + 2 * row + 9 + row),
+                    m * (PHILOX_INSTR + 3 * nd + 10), 0)
+        return (m * 25 + m_next * (12 + 3 * row),
+                m * 12 + m_next * (PHILOX_INSTR + 3 * nd + 10), 0)
+    # slice_finish: m walkers, m_next of them landed
+    return (m * 2 + m_next * (16 + 3 * row + 5),
+            m * 4 + m_next * (2 * nd + 6), 0)
+
+
+def k9_alone(torch, dev, card, T=1, nw=NW, nd=ND):
+    """(b) K9a, K9b, K9c (trip and first list) and K9d alone at the slice
+    move's first trip of each loop (one ensemble of 1e5 x 5, or ``T``
+    rungs of ``nw`` walkers): device ms a call by CUDA events
+    (:func:`behind_ms`), the plain versions (CUDA events, eager), and the
+    bounds of this run's lists (:func:`k9_bounds`).  K9b and K9c from the
+    state of their loop's first trip, each call after the state is put
+    back."""
+    from emcee_tpu_torch.ops import slice_kernel as sk
+    from emcee_tpu_torch.ops.philox import rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(231)
+    ng = nw // 2
+    x = torch.randn(T, nw, nd, device=dev, generator=gen)
+    lp = gaussian(x)
+    acc = torch.zeros(T, nw, dtype=torch.bool, device=dev)
+    cnt = torch.zeros(T, nw, dtype=torch.int32, device=dev)
+    seed = rung_keys(5, T, dev) if T > 1 else 5
+    cfg = sk.SliceConfig(1.0, 100, 100, False)
+    st = sk.LoopState(T, ng, nd, torch.float32, dev, [])
+    bufs = [x, lp, acc, cnt]
+    length = lambda: int(st.length().sum())  # noqa: E731
+    calls = {}
+    prep = k9_snapshot(st, bufs)
+    calls["slice_setup"] = (
+        lambda fn: fn(x, lp, 0, 2, st, seed, 5, cfg), prep,
+        (sk.slice_setup, sk.slice_setup_plain), T * ng)
+    prep()
+    sk.slice_setup(x, lp, 0, 2, st, seed, 5, cfg)
+    m_setup = length()
+    q = gaussian(st.pts[0][:, :2 * ng])
+    calls["slice_step_out"] = (
+        lambda fn: fn(x, q, 0, 2, st, 2 * ng, 0, cfg),
+        k9_snapshot(st, bufs), (sk.slice_step_out, sk.slice_step_out_plain),
+        m_setup)
+    # The stepping-out loop to its end, then the shrink's first list.
+    p = 0
+    while length():
+        b = max(st.length().tolist())
+        sk.slice_step_out(x, gaussian(st.pts[p][:, :b]), 0, 2, st, b, p,
+                          cfg)
+        p ^= 1
+    calls["slice_shrink (first list)"] = (
+        lambda fn: fn(x, None, [], 0, 2, st, 0, 0, seed, 5, cfg),
+        k9_snapshot(st, bufs), (sk.slice_shrink, sk.slice_shrink_plain),
+        T * ng)
+    sk.slice_shrink(x, None, [], 0, 2, st, 0, 0, seed, 5, cfg)
+    q2 = gaussian(st.pts[0][:, :ng])
+    calls["slice_shrink"] = (
+        lambda fn: fn(x, q2, [], 0, 2, st, ng, 0, seed, 5, cfg),
+        k9_snapshot(st, bufs), (sk.slice_shrink, sk.slice_shrink_plain),
+        T * ng)
+    p = 0
+    while length():
+        b = max(st.length().tolist())
+        sk.slice_shrink(x, gaussian(st.pts[p][:, :b]), [], 0, 2, st, b, p,
+                        seed, 5, cfg)
+        p ^= 1
+    calls["slice_finish"] = (
+        lambda fn: fn(x, lp, 0, 2, st, acc, cnt, []), k9_snapshot(st, bufs),
+        (sk.slice_finish, sk.slice_finish_plain), T * ng)
+    out = {}
+    for name, (call, put_back, (fn, plain), m) in calls.items():
+        put_back()
+        call(fn)
+        first = "first" in name
+        m_next = (int(st.done.sum()) if name == "slice_finish" else length())
+        nbytes, instr, sfu = k9_bounds(T, ng, nd, m, m_next,
+                                       name.split(" ")[0], first)
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": instruction_bound(instr, sfu)}
+        out[name] = {"ms": behind_ms(torch, lambda: call(fn), put_back),
+                     "plain_ms": behind_ms(torch, lambda: call(plain),
+                                           put_back, reps=3),
+                     "bound_ms": max(t.values()),
+                     "bound_by": max(t, key=t.get), "bytes": nbytes,
+                     "instructions": instr, "entries": m,
+                     "kept": m_next}
+    what = ("one ensemble of 1e5 x 5" if T == 1
+            else f"{T} rungs x {nw} walkers x {nd}")
+    log(f"phase 23: (b) K9 alone at the slice move's shape ({what}; a "
+        f"group of {ng} walkers a rung, each loop's first trip), device us "
+        f"a call (CUDA events): " + ", ".join(
+            f"{name} {v['ms'] * 1e3:.2f} (plain {v['plain_ms'] * 1e3:.1f}, "
+            f"bound {v['bound_ms'] * 1e3:.3f} by {v['bound_by']}; "
+            f"{v['entries']} entries, {v['kept']} kept)"
+            for name, v in out.items()) + f" {card}")
+    return out
+
+
+def k9_plan_sweep(torch, np, dev, card, n=16):
+    """(c) The bucket floor (``chunk_graph.BUCKET_FLOOR``, the one plan
+    choice of K9's loops) over ``K9_FLOORS`` at ``EnsembleSliceMove()``'s
+    1e5 walkers, ``loop_block`` 4: host µs a proposal in turns, device µs
+    and kernels a proposal (profiler), rows evaluated a walker a
+    half-step; the chains equal for every floor."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    p0 = np.random.default_rng(9).normal(size=(NW, ND)).astype(np.float32)
+    smps, res, ends = {}, {}, {}
+    for f in K9_FLOORS:
+        mv = moves.EnsembleSliceMove()
+        mv.bucket_floor = f
+        smps[f] = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=17,
+                                  device=dev, moves=mv)
+        drive(smps[f], p0, n, store=False, skip_initial_state_check=True)
+        ends[f] = smps[f]._previous_state.coords.clone()
+    if not all(torch.equal(e, ends[K9_FLOORS[0]]) for e in ends.values()):
+        raise AssertionError("phase 23: slice chains differ between floors")
+    for f in K9_FLOORS + K9_FLOORS[::-1]:
+        smp = smps[f]
+        w = next(iter(smp._moves[0]._work.values()))
+        rows0 = w.rows.clone()
+        _, dt = drive(smp, None, n, store=False)
+        r = res.setdefault(f, dict(host_us=[], rows_per_walker_half_step=(
+            float((w.rows - rows0).sum()) / (n * NW))))
+        r["host_us"].append(dt / n * 1e6)
+    for f, r in res.items():
+        win = busy_window(torch, lambda: smps[f].run_mcmc(None, 4,
+                                                          store=False),
+                          4, f"slice at floor {f}")
+        r.update(device_us=win["device_us_per_proposal"],
+                 kernels=win["kernels_per_proposal"], idle=win["idle"])
+    log("phase 23: (c) bucket floors at 1e5 walkers, in turns ("
+        + ", ".join(str(f) for f in K9_FLOORS + K9_FLOORS[::-1]) + "): "
+        + "; ".join(f"floor {f}: host {[round(u, 1) for u in r['host_us']]}"
+                    f" us, device {measured(r['device_us'])} us and "
+                    f"{measured(r['kernels'], '.0f')} kernels a proposal, "
+                    f"{r['rows_per_walker_half_step']:.3f} rows evaluated a "
+                    "walker a half-step" for f, r in res.items())
+        + f"; chains equal for every floor {card}")
+    return res
+
+
+def k9_stage(torch, np, dev, card, ladder, n=16):
+    """(d) ``EnsembleSliceMove()``'s replays at 1e5 walkers, or (``ladder``)
+    on workload 4's ladder every rung at once: the launches of ``n``
+    replayed proposals counted on the card (device words, held exactly:
+    :func:`slice_launches`, the shuffle's, K14 once and on the ladder K15
+    once a proposal) beside the profiler's, and in a profiled window each
+    K9 kernel's device time a launch, device µs and kernels a
+    proposal."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    mv = moves.EnsembleSliceMove()
+    if ladder:
+        smp = pt_sampler(dev, seed=90, move=mv)
+        smp.run_mcmc(pt_p0(np), 8, thin_by=2, skip_initial_state_check=True)
+        fixed = {"pt_swap": 1, "philox_draw": 1} | SHUF4
+    else:
+        smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=18,
+                              device=dev, moves=mv)
+        smp.run_mcmc(np.random.default_rng(10).normal(size=(NW, ND)).astype(
+            np.float32), 8, store=False, skip_initial_state_check=True)
+        fixed = {"philox_draw": 1} | shuffle_per(1, NW)
+    per = fixed | slice_launches(mv)
+    trips = [v for v in per.values() if isinstance(v, LoopLaunches)]
+    smp.run_mcmc(None, n, store=False)
+    counted, profiled = counted_replays(
+        torch, dev, smp, n, lambda r: {
+            k: (v.count(n) if isinstance(v, LoopLaunches) else v * n)
+            for k, v in per.items()}, "phase 23: slice", store=False,
+        before=lambda: [v.begin() for v in trips])
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False), n,
+                      "slice" + (" on the ladder" if ladder else " at 1e5"))
+    _, kernels = profile_window(torch, lambda: smp.run_mcmc(None, n,
+                                                            store=False))
+    ms = {k: device_ms(kernels, k) for k in K9_KERNELS}
+    res = dict(replayed_launches=counted, profiled_replayed=profiled,
+               proposals_counted=n, win=win, ms_per_launch=ms)
+    log(f"phase 23: (d) slice {'on workload 4' if ladder else 'at 1e5'}: "
+        f"launches in {n} replayed proposals {counted} (device words, "
+        f"held exactly; the profiler's K9 "
+        f"{ {k: profiled[k] for k in K9_KERNELS} }); a proposal: device "
+        f"{measured(win['device_us_per_proposal'])} us, "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels, idle "
+        f"{measured(win['idle'], '.4f')}; us a launch in the replays: "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in ms.items()) + f" {card}")
+    return res
+
+
+def phase23(torch, np, dev, card):
+    """K9, the slice move's loops (see the module docstring, 23): the
+    sweep, each kernel alone at 1e5 and on the ladder, the bucket floors,
+    the slice move's replays at 1e5 and on workload 4's ladder, each path's
+    launches counted from 0 just before it, and the rows of K9a-K9d, one
+    ensemble and with the rung axis.  Returns its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k9_sweep(torch, dev)
+    log(f"phase 23: (a) K9a, K9b, K9c and K9d against their plain versions "
+        f"in lockstep ((rungs, walkers a group, nsplits, ndim) {K9_SWEEP}, "
+        f"every split, four blob leaves, binding caps, a tuned scale, "
+        f"injected draws, a device offset word, (bucket floor, trips a "
+        f"block) {K9_SWEEP_LOOPS}), every buffer after every launch: "
+        f"{out['sweep']} comparisons, all bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k9_alone(torch, dev, card)
+    out["alone_rungs"] = k9_alone(torch, dev, card, NT4, NW4, ND4)
+    with path_launches(out, "plan sweep", K9_KERNELS, "phase 23"):
+        out["plan_sweep"] = k9_plan_sweep(torch, np, dev, card)
+    log(f"phase 23: (b, c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for ladder in (False, True):
+        label = "workload 4" if ladder else "1e5"
+        with path_launches(out, label, K9_KERNELS, "phase 23"):
+            out[label] = k9_stage(torch, np, dev, card, ladder)
+    log(f"phase 23: (d) {time.perf_counter() - t0:.1f} s")
+    log(f"phase 23: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase23_rows(out, card)
+
+
+def phase23_rows(out, card):
+    """(e) The rows of K9a, K9b, K9c and K9d at ``EnsembleSliceMove()``'s
+    shape at 1e5 and with the rung axis on workload 4's ladder: device time
+    a launch in the path's replays (profiler), launches by device words
+    there, a call alone at the first trip (CUDA events), the plain version
+    and the bound of that call's lists."""
+    meta = {"slice_setup": ("emcee_tpu/moves/slice.py:158-202", "slice_setup"),
+            "slice_step_out": ("emcee_tpu/moves/slice.py:204-241",
+                               "slice_step_out"),
+            "slice_shrink": ("emcee_tpu/moves/slice.py:243-293",
+                             "slice_shrink"),
+            "slice_finish": ("emcee_tpu/moves/slice.py:295-299",
+                             "slice_finish")}
+    rows = []
+    for rung in (False, True):
+        path = out["workload 4" if rung else "1e5"]
+        al = out["alone_rungs" if rung else "alone"]
+        shape = (f"the rung axis at workload 4's shape ({NT4} rungs x {NW4} "
+                 f"walkers x {ND4})" if rung else
+                 "EnsembleSliceMove()'s shape (1e5 x 5-D)")
+        for name, (jax, key) in meta.items():
+            a = al[key]
+            regs = {k: v for k, v in PTXAS.items() if f"{name}_kernel" in k}
+            rows.append({
+                "name": f"{name} (rung axis)" if rung else name,
+                "route": "cuda",
+                "source": "emcee_tpu_torch/csrc/slice_loops.cu",
+                "replaces": jax + (" (vmapped by emcee_tpu/parallel/"
+                                   "tempering.py:449-541)" if rung else ""),
+                "launches": path["replayed_launches"][name],
+                "max_abs_err": 0.0,
+                "ms": path["ms_per_launch"][name],
+                "alone_ms": a["ms"], "plain_ms": a["plain_ms"],
+                "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+                "library_ms": None, "bytes": a["bytes"],
+                "instructions": a["instructions"],
+                "launches_per_proposal": (path["replayed_launches"][name]
+                                          / path["proposals_counted"]),
+                "ptxas": regs,
+                **({"first_list_alone_ms": al["slice_shrink (first list)"][
+                    "ms"]} if name == "slice_shrink" else {}),
+                "note": (f"K9 at {shape}: ms a launch in the path's replays "
+                         f"(profiler, the mean over every trip's lists); "
+                         f"alone_ms, plain_ms and the bound at the first "
+                         f"trip of its loop (CUDA events; bound: the bytes "
+                         f"and instructions that call's lists need); "
+                         f"launches counted on the card in "
+                         f"{path['proposals_counted']} replayed proposals; "
+                         f"max_abs_err: bit for bit over the sweep of phase "
+                         f"23 (a) ({out['sweep']} comparisons); library_ms: "
+                         f"none: no single PyTorch call computes it")})
+    for row in rows:
+        log(f"phase 23: (e) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['alone_ms'] * 1e3:.2f} us a call "
+            f"alone at its loop's first trip, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); launches "
+            f"{row['launches']} {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -9570,9 +10099,10 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     (K8a, K8b and K8c where the tree has them, else K14: a split's
     normals), of 16 of ``StretchMove()`` at the main
     path's width (1e5 walkers, the shuffled split), and of 16 of
-    ``DEZMove()`` at 1e5 walkers and on workload 4's ladder (the device
-    time and kernels a proposal: K10 where the tree has it, else plain
-    torch, rung by rung on the ladder).  A tree with K16 and
+    ``DEZMove()`` and of ``EnsembleSliceMove()`` at 1e5 walkers and on
+    workload 4's ladder (the device time and kernels a proposal: K10 or K9
+    where the tree has it, else plain torch, rung by rung on the ladder);
+    the host's µs a proposal of every path.  A tree with K16 and
     K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
     on the shuffled paths.  Uses only what every tree with K14 has."""
     import importlib.util
@@ -9608,17 +10138,31 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
         moves=moves.DEZMove()), 16, None)
     runs["DEZMove() on workload 4"] = (pt_sampler(
         dev, seed=88, move=moves.DEZMove()), 16, None)
+    # The slice move: K9 where the tree has it (every rung at once on the
+    # ladder), else plain torch (rung by rung); its proposals are loops of
+    # host reads, so the host's µs a proposal too.
+    runs["EnsembleSliceMove() at 1e5"] = (EnsembleSampler(
+        NW, ND, gaussian, vectorize=True, seed=26, device=dev,
+        moves=moves.EnsembleSliceMove()), 8, None)
+    runs["EnsembleSliceMove() on workload 4"] = (pt_sampler(
+        dev, seed=89, move=moves.EnsembleSliceMove()), 8, None)
     for what, (smp, n, names) in runs.items():
-        if what in ("DIME stage", "StretchMove() at 1e5", "DEZMove() at 1e5"):
+        if what in ("DIME stage", "StretchMove() at 1e5", "DEZMove() at 1e5",
+                    "EnsembleSliceMove() at 1e5"):
             smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
                          .astype(np.float32), n, store=False,
                          skip_initial_state_check=True)
         else:
             smp.run_mcmc(p0, 8, thin_by=4, skip_initial_state_check=True)
         smp.run_mcmc(None, n, store=False)  # records the window's graphs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smp.run_mcmc(None, n, store=False)
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) / n * 1e6
         win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False),
                           n, what, names=names)
-        log(f"kernel turn: {tree}: {what}: device "
+        log(f"kernel turn: {tree}: {what}: host {host_us:.1f} us, device "
             f"{measured(win['device_us_per_proposal'], '.2f')} us and "
             f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
             f"proposal ({n} replayed)" + ("; us a launch: " + ", ".join(
@@ -9841,11 +10385,13 @@ def main() -> int:
                 f"shared memory, {spill} bytes spilled")
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
-                        ["17"], ["18"], ["19"], ["20"], ["21"], ["22"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 or 22 alone (a
-        # first check of the blobs, the extension moves, the gradient moves,
-        # tempering, K14, the DE family on every rung, the gradient moves
-        # on every rung, K7, the shuffled split's K16 and K17, K8 or K10).
+                        ["17"], ["18"], ["19"], ["20"], ["21"], ["22"],
+                        ["23"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 or 23 alone
+        # (a first check of the blobs, the extension moves, the gradient
+        # moves, tempering, K14, the DE family on every rung, the gradient
+        # moves on every rung, K7, the shuffled split's K16 and K17, K8,
+        # K10 or K9).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
@@ -9853,7 +10399,7 @@ def main() -> int:
                  "16": phase16, "17": phase17,
                  "18": phase18, "19": phase19,
                  "20": phase20, "21": phase21,
-                 "22": phase22}[sys.argv[1]]
+                 "22": phase22, "23": phase23}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -10478,6 +11024,12 @@ def main() -> int:
     _, rows22 = phase22(torch, np, dev, card)
     rows += rows22
     log(f"phase 22: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 23. K9, the slice move's loops --------------------------------------
+    t0 = time.perf_counter()
+    _, rows23 = phase23(torch, np, dev, card)
+    rows += rows23
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

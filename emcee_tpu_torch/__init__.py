@@ -4,22 +4,28 @@ The affine-invariant ensemble sampler on one NVIDIA GPU (Hopper,
 ``sm_90a``).  It keeps the JAX package's module and public names.  The
 hot path's fused op chains are hand-written CUDA kernels beside plain
 PyTorch versions: the stretch proposal (K1), the accept/select
-write-back (K2), the DE and DE-snooker proposals (K5a, K5b); the chunk
-program (K3) replays each proposal as a CUDA graph.  The gradient
-moves (MALA, HMC, ChEES-HMC, ensemble MALA and HMC) differentiate the
-log-prob with ``torch.func.grad`` and run their Langevin step (K11),
-Hastings and kinetic reductions (K12) and leapfrog (K13) as kernels
-too.  The KDE move's log-density is a kernel (K7, no distance matrix).
-The Gaussian, Metropolis-Hastings and walk moves, the rest of the KDE
-move, the autocorrelation and R-hat diagnostics and the convergence monitor are
-plain PyTorch on the walkers' device.  Blobs ride through K2 with the coordinates, into the
-host, device and HDF5 backends; ``checkpoint`` saves and loads states.
-``PTSampler`` runs a tempered ladder: the stretch, DE and DE-snooker
-moves propose every rung at once through the rung axis of K1, K5a, K5b
-and K2, the MALA, HMC, ensemble MALA and ensemble HMC moves through the
-rung axis of K11, K12, K13 and K2, the KDE move through the rung axis
-of K7 and K2 (in mixtures too, ``mixture_block`` included), other moves (the
-looped slice and ChEES moves among them) rung by rung, the
+write-back (K2), the DE and DE-snooker proposals (K5a, K5b), the
+counter-based Philox draws (K14) and the shuffled split's order (K16)
+and row moves (K17); the chunk program (K3) replays each proposal as a
+CUDA graph.  The gradient moves (MALA, HMC, ChEES-HMC, ensemble MALA and
+HMC) differentiate the log-prob with ``torch.func.grad`` and run their
+Langevin step (K11), Hastings and kinetic reductions (K12) and leapfrog
+(K13) as kernels too.  The KDE move's log-density is a kernel (K7, no
+distance matrix), DIME's moments, factor and proposal are K8, DE-Z's
+spread, proposal and archive fold K10, and the slice move's stepping-out
+and shrinkage K9 (loops over the walkers still looping).  The Gaussian,
+Metropolis-Hastings and walk moves, the rest of the KDE move, the
+autocorrelation and R-hat diagnostics and the convergence monitor are
+plain PyTorch on the walkers' device.  Blobs ride through K2 with the
+coordinates, into the host, device and HDF5 backends; ``checkpoint``
+saves and loads states.  ``PTSampler`` runs a tempered ladder: the
+stretch, DE and DE-snooker moves propose every rung at once through the
+rung axis of K1, K5a, K5b and K2, the MALA, HMC, ensemble MALA and
+ensemble HMC moves through the rung axis of K11, K12, K13 and K2, the
+KDE move through K7's, DIME through K8's, DE-Z through K10's and the
+slice move through K9's (in mixtures too, ``mixture_block`` included;
+the shuffled split through K14, K16 and K17 for every rung at once),
+other moves (the looped ChEES move among them) rung by rung; the
 even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
 with them, the ladder may adapt, and the chain goes into the host
 ``PTBackend``, the device ``PTDeviceBackend`` or ``PTHDFBackend``.

@@ -40,14 +40,20 @@ A move whose proposal runs loops of a data-dependent length (the slice
 move, ``looped = True``) cannot be one graph: a recorded graph cannot
 branch on a device value.  Its proposal is a short host loop of replays
 instead (:class:`GraphLoops`): straight-line segments, each a graph of
-its own, and loops whose graph holds ``loop_block`` masked iterations,
-replayed until a device flag, read once per block, says the loop is
-done.  Extra masked iterations change nothing, so the result equals the
-eager loop's (:class:`EagerLoops`, one iteration per check) bit for
-bit.  A loop whose trip count is known on the device before it starts
-(ChEES-HMC's leapfrog steps) reads the count once and replays a graph
-of one iteration that many times (``repeat``).  Runs of such a move interleave with the other moves' whole-
-proposal graphs in the chunk's order.
+its own, and loops over lists that only shrink (``compacted``: the slice
+move's ends still expanding and walkers not yet landed), whose graph
+holds ``loop_block`` trips at one bucket of evaluation rows, replayed
+until the lists' lengths, read once per block, are all 0.  Each block
+runs at the smallest bucket of a fixed ladder (:func:`buckets`: a floor
+and its doublings, up to the lists' capacity) that holds the longest
+list when it begins, so a recorded graph serves every block of that
+bucket; trips past a list's end change nothing, so the result equals
+the eager loop's (:class:`EagerLoops`, the same bucket rule at any block
+size) bit for bit.  A loop whose trip count is known on the device
+before it starts (ChEES-HMC's leapfrog steps) reads the count once and
+replays a graph of one iteration that many times (``repeat``).  Runs
+of such a move interleave with the other moves' whole-proposal graphs
+in the chunk's order.
 
 Before a recording, one proposal of the same move runs eagerly on a
 scratch copy of the workspace (the warm-up that creates library handles
@@ -71,7 +77,10 @@ move step is one rung-batched proposal (K1, K5a or K5b and K2 over all
 rungs, the log-prob once over ``T * ng`` rows) for a ``rung_batched``
 move (the stretch, DE and DE-snooker moves; the MALA, HMC, ensemble
 MALA and ensemble HMC moves through K11, K12, K13 and K2, the gradient
-once over ``T * n`` rows; the KDE move through K7 and K2), or else, and under the
+once over ``T * n`` rows; the KDE move through K7 and K2; DIME through
+K8a-K8c and K2; DE-Z through K10a-K10c and K2; the slice move through
+K9a-K9d, every rung's lists in one ``(T, bucket, ndim)`` batch; their
+shuffled split through K14, K16 and K17), or else, and under the
 private ``batched=False`` switch, a loop over the rungs, each rung an
 ensemble of its own (its views of the buffers, its tempered model, its
 carry and its key).  Each move of a mixture takes its own way, so a
@@ -81,12 +90,16 @@ ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
 and ``logP`` (the tempered model's blobs are ``(logL, logP, user
 blobs)``): K2 selects them with the rows and K15 exchanges them with the
 walkers.  It is recorded, replayed and warmed up as :class:`ChunkProgram`
-is.  A looped move (slice, ChEES) runs each rung's loops by the rung's
-own segment and loop replays (:class:`GraphLoops` tagged with the rung),
-then one closing segment tunes every rung, swaps and advances the
-offset: the rungs' loops end each on its own flag, as JAX's vmapped
-``while_loop`` masks each finished rung, so each rung's result is its
-own.
+is.  A looped move that is ``rung_batched`` (the slice move) runs one
+proposal of every rung under one :class:`GraphLoops`, one read of the
+lists' lengths a block serving every rung, as one vmapped JAX
+``while_loop`` serves the ladder; any other (ChEES), and every move
+under ``batched=False``, runs each rung's loops by the rung's own
+segment and loop replays (:class:`GraphLoops` tagged with the rung).
+Then one closing segment tunes every rung, swaps and advances the
+offset.  Either way a rung's loops end where its own would (JAX's
+vmapped ``while_loop`` masks each finished rung), so each rung's result
+is its own.
 """
 
 from __future__ import annotations
@@ -102,12 +115,58 @@ from .ops.philox import DeviceOffset
 from .state import State
 from .utils import tree_flatten, tree_map
 
-__all__ = ["MAX_GRAPH", "ChunkProgram", "EagerLoops", "GraphLoops",
-           "TemperedProgram", "TemperedWorkspace", "Workspace",
-           "blob_signature", "clone_carry", "graph_sizes", "rung_carry"]
+__all__ = ["BUCKET_FLOOR", "MAX_GRAPH", "ChunkProgram", "EagerLoops",
+           "GraphLoops", "TemperedProgram", "TemperedWorkspace", "Workspace",
+           "blob_signature", "bucket_of", "buckets", "clone_carry",
+           "graph_sizes", "rung_carry"]
 
 #: proposals in the largest graph (a power of two)
 MAX_GRAPH = 64
+#: the smallest bucket a rung of a compacted loop (:meth:`GraphLoops.
+#: compacted`): a trip evaluates this many rows or a power of two times
+#: it, or the list's capacity.  On the H100 a trip of the 5-D Gaussian at
+#: 1e5 walkers costs about the same at 32 to a few thousand rows
+#: (launch-bound); a small floor evaluates fewer padding rows of a costly
+#: log-prob (PERF.md)
+BUCKET_FLOOR = 32
+
+
+def buckets(top, floor=BUCKET_FLOOR):
+    """The bucket ladder of a list of at most ``top`` entries: ``floor``
+    and its doublings below ``top``, then ``top`` (``top`` alone where
+    ``floor >= top``)."""
+    top, floor = int(top), max(1, int(floor))
+    out, b = [], floor
+    while b < top:
+        out.append(b)
+        b *= 2
+    return out + [top]
+
+
+def bucket_of(m, top, floor=BUCKET_FLOOR):
+    """The smallest bucket of :func:`buckets` holding ``m`` entries."""
+    if not 0 <= m <= top:
+        raise ValueError(f"a list of {m} entries in a bucket ladder to {top}")
+    return next(b for b in buckets(top, floor) if b >= m)
+
+
+def _compacted(run, block, length, top, floor, start):
+    """The host side of a compacted loop: ``run(bucket, parity)`` runs a
+    block of ``block`` trips at ``bucket`` rows, the first trip's list and
+    evaluation buffer ``parity``; the first block runs at ``top`` when
+    ``start`` (no read), each later one at the bucket of the longest list
+    (``length``, a device vector of each rung's, read once a block) until
+    every list is empty.  Returns the blocks run."""
+    blocks, bucket = 0, int(top)
+    go = start
+    while go:
+        run(bucket, (blocks * block) & 1)
+        blocks += 1
+        m = max(length.tolist())
+        go = m > 0
+        if go:
+            bucket = bucket_of(m, top, floor)
+    return blocks
 
 
 def graph_sizes(n, cap=MAX_GRAPH):
@@ -123,9 +182,9 @@ def graph_sizes(n, cap=MAX_GRAPH):
 
 
 class EagerLoops:
-    """Runs a looped move's segments and loops eagerly: a loop checks its
-    flag (a 0-d bool tensor, synced to the host) after every ``block``
-    iterations; ``block=1`` is the plain ``while`` loop."""
+    """Runs a looped move's segments and loops eagerly: a compacted loop
+    reads its lists' lengths (synced to the host) after every ``block``
+    trips; ``block=1`` follows the lists trip by trip."""
 
     def __init__(self, block=1):
         self.block = int(block)
@@ -133,15 +192,21 @@ class EagerLoops:
     def segment(self, key, fn):
         fn()
 
-    def loop(self, key, body, flag, start=True):
-        """Run ``body(b, block)`` (``b`` the iteration's place in its
-        block) until ``flag`` reads False; ``start`` is the loop's first
-        condition when the host knows it (no read)."""
-        go = start
-        while go:
+    def compacted(self, key, body, length, top, floor=BUCKET_FLOOR,
+                  start=True):
+        """A loop over lists that only shrink: ``body(b, block, bucket,
+        parity)`` runs trip ``b`` of a block at ``bucket`` evaluation rows
+        a rung, reading list and evaluation buffer ``parity``; after each
+        block of ``block`` trips the longest of the lists' lengths
+        (``length``, a device vector) is read and picks the next block's
+        bucket (:func:`bucket_of` up to ``top``), until it reads 0.  The
+        first block runs at ``top`` when ``start`` (no read), none
+        otherwise."""
+        def run(bucket, parity):
             for b in range(self.block):
-                body(b, self.block)
-            go = bool(flag)
+                body(b, self.block, bucket, (parity + b) & 1)
+
+        _compacted(run, self.block, length, top, floor, start)
 
     def repeat(self, key, body, count):
         """Run ``body()`` ``count`` times, ``count`` a 0-d integer tensor
@@ -153,10 +218,10 @@ class EagerLoops:
 class GraphLoops:
     """Runs a looped move's proposal as replays of the chunk program's
     graphs (:meth:`ChunkProgram.segment`, recorded on first use): each
-    segment one replay, each loop replays of a graph of ``block``
-    iterations, each replay followed by a read of the loop's flag (a
-    host sync, counted in ``ChunkProgram.flag_reads``), until it reads
-    False."""
+    segment one replay, each compacted loop replays of graphs of
+    ``block`` trips, each replay followed by a read of the lists' lengths
+    (a host sync, counted in ``ChunkProgram.flag_reads``), until they
+    read 0."""
 
     def __init__(self, prog, i, block, tag=()):
         self.prog, self.i, self.block = prog, i, int(block)
@@ -168,19 +233,36 @@ class GraphLoops:
         self.prog.segment((self.i, "segment") + self.tag + key, fn).replay()
         ChunkProgram.replays += 1
 
-    def loop(self, key, body, flag, start=True):
-        def iterations():
-            for b in range(self.block):
-                body(b, self.block)
+    def compacted(self, key, body, length, top, floor=BUCKET_FLOOR,
+                  start=True):
+        """:meth:`EagerLoops.compacted` by replays: each block a graph of
+        ``block`` trips at one bucket and first parity, every bucket's
+        trips reading the first rows of the same buffers; each replay is
+        followed by one read of the lengths (a flag read).  The graphs of
+        every bucket of the ladder (and, for an odd ``block``, both first
+        parities) are recorded when the loop first runs, so no later run
+        records one."""
+        def name(bucket, parity):
+            return ((self.i, "compacted", self.block, bucket, parity)
+                    + self.tag + key)
 
-        graph = self.prog.segment(
-            (self.i, "loop", self.block) + self.tag + key, iterations)
-        go = start
-        while go:
-            graph.replay()
+        def graph(bucket, parity):
+            def trips():
+                for b in range(self.block):
+                    body(b, self.block, bucket, (parity + b) & 1)
+
+            return self.prog.segment(name(bucket, parity), trips)
+
+        def run(bucket, parity):
+            if name(top, 0) not in self.prog.graphs:
+                for b in buckets(top, floor):
+                    for p in (0,) if self.block % 2 == 0 else (0, 1):
+                        graph(b, p)
+            graph(bucket, parity).replay()
             ChunkProgram.replays += 1
             ChunkProgram.flag_reads += 1
-            go = bool(flag)
+
+        _compacted(run, self.block, length, top, floor, start)
 
     def repeat(self, key, body, count):
         """Replay the graph of ``body()`` ``count`` times: ``count``, a 0-d
@@ -634,32 +716,45 @@ class TemperedProgram(ChunkProgram):
         self._swap(ws, off)
 
     def looped_proposal(self, i, tune):
-        """One tempered proposal of looped move ``i`` by replays: each
-        rung's segments and loops (:class:`GraphLoops` tagged with the
-        rung, so each rung's loops end on its own flag), then one segment
-        that tunes every rung, swaps and advances the offset.  Every rung
-        reads its loop flags from the host, so a proposal costs ``T``
-        times the flag reads of one ensemble.  The first one of a move is
-        preceded by an eager proposal on a scratch copy (the warm-up)."""
+        """One tempered proposal of looped move ``i`` by replays, then one
+        segment that tunes every rung, swaps and advances the offset.  A
+        ``rung_batched`` move (the slice move) proposes every rung at once
+        (:meth:`propose_rungs` under one :class:`GraphLoops`, whose reads
+        serve every rung); any other (ChEES), or every move under the
+        private ``batched=False`` switch, runs each rung's segments and
+        loops (:class:`GraphLoops` tagged with the rung, so each rung's
+        loops end on its own flag), ``T`` times the flag reads of one
+        ensemble.  The first one of a move is preceded by an eager
+        proposal on a scratch copy (the warm-up)."""
         move = self.moves[i]
         ws = self.ws
         if i not in self._warmed:
             self._warm_up(i, tune)
             self._warmed.add(i)
         off = DeviceOffset(ws.offset, 0)
-        rungs = []
-        for r, seed in enumerate(self.keys.seeds):
-            state, model, carry = self._rung(ws, i, r)
-            loops = GraphLoops(self, i, move.loop_block, ("rung", r))
-            move.propose((seed, off), state, model, carry, ws.count[r],
-                         accepted=ws.accepted[r], loops=loops,
-                         **_tune_kw(move, tune))
-            rungs.append((state, model, carry))
+        if self.batched and getattr(move, "rung_batched", False):
+            state = State(ws.coords, ws.log_prob, self._blobs(ws))
+            model = self.model(ws)
+            move.propose_rungs((self.keys, off), state, model,
+                               ws.carries[i], ws.count, accepted=ws.accepted,
+                               loops=GraphLoops(self, i, move.loop_block))
+            rungs = None
+        else:
+            rungs = []
+            for r, seed in enumerate(self.keys.seeds):
+                state, model, carry = self._rung(ws, i, r)
+                loops = GraphLoops(self, i, move.loop_block, ("rung", r))
+                move.propose((seed, off), state, model, carry, ws.count[r],
+                             accepted=ws.accepted[r], loops=loops,
+                             **_tune_kw(move, tune))
+                rungs.append((state, model, carry))
 
         def end():
-            if tune:
-                for r, (state, model, carry) in enumerate(rungs):
-                    move.tune(carry, state, ws.accepted[r], model)
+            if tune and rungs is None:
+                move.tune(ws.carries[i], state, ws.accepted, model)
+            elif tune:
+                for r, (state_r, model_r, carry) in enumerate(rungs):
+                    move.tune(carry, state_r, ws.accepted[r], model_r)
             self._swap(ws, off)
             ws.offset.add_(1)
 

@@ -9,81 +9,95 @@ walker that lands moves; ``done`` is reported as ``accepted``.  With
 ``tune_mu`` the carry ``{log_adj, t, frac_expand}`` adapts ``mu`` so
 expansions balance contractions.
 
-Both loops run a data-dependent number of iterations, which a recorded
-CUDA graph cannot.  Each iteration is masked: stepping out only moves a
-walker whose end is still expanding, shrinkage only one that has not
-landed, and the iteration counter advances only while the JAX loop's
-condition holds (``it < max_steps`` or ``max_shrink``, part of the
-result), so extra iterations change nothing.  The proposal is therefore
-a short host loop (``chunk_graph.py`` :class:`~..chunk_graph.GraphLoops`
-on the card, :class:`~..chunk_graph.EagerLoops` otherwise): segments of
-straight-line work, and per loop replays of ``loop_block`` masked
-iterations until a device flag, read once per block, says every walker
-is done.  The loop state lives in persistent buffers (:class:`_Work`),
-written in place, so every recorded segment reads what the last wrote.
+Both loops run a data-dependent number of trips, which a recorded CUDA
+graph cannot.  K9 (``ops/slice_kernel.py``, ``csrc/slice_loops.cu``)
+runs them on lists: a group's setup (K9a) lists the ends that need an
+evaluation, each stepping-out trip (K9b) evaluates the listed ends and
+keeps those still expanding, the shrink setup (K9c's first form) lists
+every walker, each shrink trip (K9c) evaluates the listed walkers and
+keeps those not yet landed, and the finish (K9d) writes the group's rows.
+A walker's path depends only on its own values and its own trip number,
+so each ends as in the JAX loops, where every walker evaluates in every
+trip.  The proposal is a short host loop (``chunk_graph.py``
+:meth:`~..chunk_graph.GraphLoops.compacted` on the card,
+:meth:`~..chunk_graph.EagerLoops.compacted` otherwise): segments of
+straight-line work, and per loop blocks of ``loop_block`` trips, each at
+the smallest bucket of evaluation rows that holds the longest list when
+the block begins, until one read of the lists' lengths a block says every
+list is empty.  The loop state lives in persistent buffers
+(:class:`_Work`), written in place, so every recorded segment reads what
+the last wrote.
 
-The draws: the pair ``i, j``, the window offset and the budget split
-``jL`` at ``(row, SLICE_BLOCK)``; shrink iteration ``it``'s uniform from
-word 0 at ``(row, SHRINK_BLOCK | it)`` (``it`` a device counter), a
-block's in one Philox call at its first iteration.
+The rung axis: the move is ``rung_batched``.  :meth:`propose_rungs`
+proposes every rung of a ladder at once, each rung's lists in its own
+rows of one ``(T, bucket, ndim)`` batch, its own counters and its own key
+at the one-ensemble counters, so every rung ends as that rung alone, and
+one read of the lengths a block serves every rung (JAX vmaps the move,
+``emcee_tpu/parallel/tempering.py:449-541``, so one ``while_loop`` serves
+every rung, each masked once it is done).
+
+The draws (in K9a and K9c): the pair ``i, j``, the window offset and the
+budget split ``jL`` at ``(row, SLICE_BLOCK)``; shrink trip ``it``'s
+uniform from word 0 at ``(row, SHRINK_BLOCK | it)``.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..chunk_graph import EagerLoops
-from ..ops import shuffle_kernel
-from ..ops._wrap import complement_rows
-from ..ops.philox import (
-    SHRINK_BLOCK, SHRINK_MAX, SLICE_BLOCK, row_uniforms, word_uniforms)
-from ..utils import tree_flatten, tree_map
+from ..chunk_graph import BUCKET_FLOOR, EagerLoops
+from ..ops import shuffle_kernel, slice_kernel
+from ..ops.philox import SHRINK_MAX, rung_words
+from ..utils import tree_flatten
 from .base import robbins_monro_step
 from .red_blue import RedBlueMove, shuffled_order
 
 __all__ = ["EnsembleSliceMove"]
 
+#: the most trips a loop graph holds
+LOOP_BLOCK_MAX = 64
+
 
 class _Work:
-    """The slice move's persistent buffers for one ensemble shape: the
-    shuffled split's gathered ensemble, and one group's loop state."""
+    """The slice move's persistent buffers for ``T`` ensembles of one
+    shape: the shuffled split's gathered ensemble and K9's loop state
+    (:class:`~..ops.slice_kernel.LoopState`; its counters are these
+    attributes' views)."""
 
-    def __init__(self, nw, nd, ng, dtype, device, blobs):
-        def t(shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=device)
+    def __init__(self, x, ng, leaves):
+        T, nw, nd = x.shape
 
-        self.order = t(nw, torch.int64)
-        self.coords, self.log_prob = t((nw, nd)), t(nw)
-        self.count = t(nw, torch.int32)
-        self.accepted = t(nw, torch.bool)
-        self.blobs = tree_map(torch.zeros_like, blobs)
-        self.eta, self.y = t((ng, nd)), t(ng)
-        self.left, self.right = t(ng), t(ng)
-        self.exp_l, self.exp_r = t(ng, torch.bool), t(ng, torch.bool)
-        self.cnt_l, self.cnt_r = t(ng, torch.int32), t(ng, torch.int32)
-        self.j_l, self.j_r = t(ng, torch.int32), t(ng, torch.int32)
-        self.t_acc, self.lp_acc = t(ng), t(ng)
-        self.blobs_acc = tree_map(lambda b: torch.zeros_like(b[:ng]), blobs)
-        self.done = t(ng, torch.bool)
-        self.shrink_u = t((ng, 64))  # a block's shrink uniforms
-        self.it = t((), torch.int64)
-        self.flag = t((), torch.bool)
-        self.nexp, self.ncon = t((), torch.float32), t((), torch.float32)
-        self.nexp_sum, self.ncon_sum = (t((), torch.float32),
-                                        t((), torch.float32))
-        #: iterations [stepping out, shrinkage] the JAX loops would run,
-        #: and those run (masked ones included), summed over groups
-        self.iterations = t(2, torch.int64)
-        self.executed = t(2, torch.int64)
-        #: log-prob evaluations [stepping out, shrinkage] a walker-by-walker
-        #: loop needs, summed over walkers (only with ``count_evals``)
-        self.evals = t(2, torch.int64)
+        def t(shape, dt=x.dtype):
+            return torch.zeros(shape, dtype=dt, device=x.device)
+
+        self.order = t(T * nw, torch.int64)
+        self.coords, self.log_prob = t((T, nw, nd)), t((T, nw))
+        self.count = t((T, nw), torch.int32)
+        self.accepted = t((T, nw), torch.bool)
+        self.blobs = [torch.zeros_like(b) for b in leaves]
+        self.loop = slice_kernel.LoopState(T, ng, nd, x.dtype, x.device,
+                                           leaves)
+        # Rows past a list's length are evaluated and never read: finite
+        # points from the start (the ensemble's first row).
+        self.loop.pts.copy_(x[None, :, :1].expand_as(self.loop.pts))
+        c = self.loop.counters
+        #: iterations [stepping out, shrinkage] the JAX loops run, summed
+        #: over groups (and rungs)
+        self.iterations = c[0]
+        #: K9b / K9c trips run (those of a block past the lists' end
+        #: included)
+        self.executed = c[1]
+        #: evaluations [stepping out, shrinkage] a walker-by-walker loop
+        #: needs, summed over walkers (only with ``count_evals``)
+        self.evals = c[2]
+        #: rows evaluated [stepping out, shrinkage], the buckets' padding
+        #: included
+        self.rows = c[3]
 
 
-def _signature(blobs):
-    leaves, treedef = tree_flatten(blobs)
-    return treedef, tuple((tuple(b.shape), b.dtype) for b in leaves)
+def _signature(x, leaves):
+    return (tuple(x.shape), x.dtype, str(x.device),
+            tuple((tuple(b.shape), b.dtype) for b in leaves))
 
 
 class EnsembleSliceMove(RedBlueMove):
@@ -101,9 +115,10 @@ class EnsembleSliceMove(RedBlueMove):
         nsplits / randomize_split / live_dangerously: standard red-blue
             controls.
 
-    ``loop_block`` (an attribute, default 4, at most 64) is the masked
-    iterations per block replay on the card.  ``count_evals`` (an
-    attribute, default False, set before the first proposal) counts the
+    ``loop_block`` (an attribute, default 4, at most 64) is the trips a
+    block replay runs on the card; ``bucket_floor`` (default
+    ``chunk_graph.BUCKET_FLOOR``) the smallest bucket of evaluation rows
+    a rung.  ``count_evals`` (an attribute, default False) counts the
     evaluations each walker needs into ``_Work.evals``: an end that is
     still expanding within its budget, a walker not yet landed.
     """
@@ -112,7 +127,10 @@ class EnsembleSliceMove(RedBlueMove):
     blendable = False
     #: the chunk program runs its proposal by block replays
     looped = True
+    #: K9 takes the rung axis: a ladder proposes every rung at once
+    rung_batched = True
     loop_block = 4
+    bucket_floor = BUCKET_FLOOR
     count_evals = False
 
     def __init__(self, mu=1.0, max_steps=100, max_shrink=100,
@@ -146,11 +164,12 @@ class EnsembleSliceMove(RedBlueMove):
 
     def _fold_split_stats(self, carry, stats, model):
         """``frac_expand = sum(nexp) / max(sum(nexp) + sum(ncon), 1)``
-        over the splits' ``(nexp, ncon)``, in place."""
+        over the splits' ``(nexp, ncon)`` (integer counts, or JAX's
+        float32 sums), in place."""
         if not (self.tune_mu and isinstance(carry, dict)):
             return carry
-        nexp = sum(s[0] for s in stats)
-        ncon = sum(s[1] for s in stats)
+        nexp = sum(s[0] for s in stats).to(torch.float32)
+        ncon = sum(s[1] for s in stats).to(torch.float32)
         carry["frac_expand"].copy_(nexp / torch.clamp(nexp + ncon, min=1.0))
         return carry
 
@@ -161,223 +180,185 @@ class EnsembleSliceMove(RedBlueMove):
         err = 2.0 * (carry["frac_expand"] - 0.5)
         return robbins_monro_step(carry, err, self.tune_rate)
 
-    def work(self, state, ng):
-        """The persistent buffers for ``state``'s shape (made on first
-        use, which is eager: the chunk program warms up before it
-        records)."""
-        nw, nd = state.coords.shape
-        dev, dt = state.coords.device, state.coords.dtype
-        key = (nw, nd, ng, dt, str(dev), _signature(state.blobs))
+    def work(self, x, ng, leaves):
+        """The persistent buffers for the ``(T, nw, nd)`` ensemble ``x``
+        and its blob leaves (made on first use, which is eager: the chunk
+        program warms up before it records)."""
+        key = (ng, _signature(x, leaves))
         w = self._work.get(key)
         if w is None:
-            w = self._work[key] = _Work(nw, nd, ng, dt, dev, state.blobs)
+            w = self._work[key] = _Work(x, ng, leaves)
         return w
 
+    def _config(self):
+        return slice_kernel.SliceConfig(self.mu, self.max_steps,
+                                        self.max_shrink, self.count_evals)
+
     def propose(self, rng, state, model, carry, acc_count=None,
-                accepted=None, loops=None, log_acc_u=None):
+                accepted=None, loops=None, log_acc_u=None, draws=None):
         """One slice update of every group.  ``loops`` runs the segments
         and loops (:class:`~..chunk_graph.EagerLoops` by default);
         ``log_acc_u`` ``(nsplits, ng)`` injects the slice levels'
-        log-uniforms (the parity mode)."""
-        nwalkers, ndim = state.coords.shape
-        nglobal = model.nwalkers or nwalkers
-        if nglobal < 2 * model.global_ndim(ndim) and not self.live_dangerously:
-            raise RuntimeError(
-                "It is unadvisable to use a red-blue move with fewer "
-                "walkers than twice the number of dimensions."
-            )
-        if nwalkers % self.nsplits != 0:
-            raise ValueError(
-                f"nwalkers ({nwalkers}) must be divisible by "
-                f"nsplits ({self.nsplits})"
-            )
-        ng = nwalkers // self.nsplits
-        loops = loops or EagerLoops()
-        w = self.work(state, ng)
+        log-uniforms and ``draws`` (one dict a split, keys of
+        ``slice_kernel.DRAWS`` but ``log_u`` and ``shrink_u``) the other
+        draws (the parity mode)."""
+        ng = self._check_split(*state.coords.shape, model)
         if accepted is None:
-            accepted = torch.empty(nwalkers, dtype=torch.bool,
+            accepted = torch.empty(state.coords.shape[0], dtype=torch.bool,
                                    device=state.coords.device)
+        leaves = tree_flatten(state.blobs)[0]
+
+        def evaluate(q):
+            lp, blobs = model.compute_log_prob(q[0])
+            return lp[None], [b[None] for b in tree_flatten(blobs)[0]]
+
+        def fold(sums):
+            self._finish(carry, state, model, [(sums[0, 0], sums[1, 0])])
+
+        self._propose(
+            rng, (state.coords[None], state.log_prob[None],
+                  [b[None] for b in leaves],
+                  None if acc_count is None else acc_count[None],
+                  accepted[None]), evaluate, ng, carry, fold, loops,
+            log_acc_u, draws)
+        return state, accepted, carry
+
+    def propose_rungs(self, rng, state, model, carry, acc_count=None,
+                      accepted=None, loops=None):
+        """One slice update of every group of every rung of a ladder:
+        ``state``'s buffers are ``(T, nwalkers, ...)``, ``rng`` is
+        ``(RungKeys, offset)``, ``model.compute_log_prob`` maps ``(T, n,
+        ndim)`` rows to ``(T, n)`` log-probs and blobs, the carry's tensors
+        are ``(T,)``; ``acc_count`` and ``accepted`` ``(T, nwalkers)``."""
+        ng = self._check_split(*state.coords.shape[1:], model)
+        if accepted is None:
+            accepted = torch.empty(state.coords.shape[:2], dtype=torch.bool,
+                                   device=state.coords.device)
+
+        def evaluate(q):
+            lp, blobs = model.compute_log_prob(q)
+            return lp, tree_flatten(blobs)[0]
+
+        def fold(sums):
+            self._finish(carry, state, model, [tuple(sums)])
+
+        self._propose(
+            rng, (state.coords, state.log_prob,
+                  tree_flatten(state.blobs)[0], acc_count, accepted),
+            evaluate, ng, carry, fold, loops)
+        return state, accepted, carry
+
+    def _propose(self, rng, ens, evaluate, ng, carry, fold, loops=None,
+                 log_acc_u=None, draws=None):
+        """Every group of the ``(T, nw, ...)`` ensemble ``ens`` ``(coords,
+        log_prob, blob leaves, count, accepted)``, the shuffled split's
+        order, gather and scatter around them, then ``fold`` of the
+        proposal's ``(2, T)`` expansions and contractions (the carry's
+        update, in the last segment)."""
+        if not 1 <= self.loop_block <= LOOP_BLOCK_MAX:
+            raise ValueError(f"loop_block must be 1 to {LOOP_BLOCK_MAX}")
+        loops = loops or EagerLoops()
+        x, lp, leaves, count, accepted = ens
+        T, nw, _ = x.shape
+        w = self.work(x, ng, leaves)
         shuffled = self.randomize_split
         if shuffled:
-            ens = (w.coords, w.log_prob, w.blobs,
-                   None if acc_count is None else w.count, w.accepted)
+            gathered = (w.coords, w.log_prob, w.blobs,
+                        None if count is None else w.count, w.accepted)
         else:
-            ens = (state.coords, state.log_prob, state.blobs, acc_count,
-                   accepted)
+            gathered = ens
+
+        def flat(t):  # the rows of every rung as one axis (a view)
+            return t.view((-1,) + tuple(t.shape[2:]))
 
         def pairs(*extra):
             """(ensemble buffer, workspace buffer) of every buffer the
-            shuffled split moves."""
-            out = [(state.coords, w.coords), (state.log_prob, w.log_prob),
-                   *zip(tree_flatten(state.blobs)[0],
-                        tree_flatten(w.blobs)[0])]
-            if acc_count is not None:
-                out.append((acc_count, w.count))
-            return [list(x) for x in zip(*out, *extra)]
+            shuffled split moves, as flat rows."""
+            out = [(x, w.coords), (lp, w.log_prob), *zip(leaves, w.blobs)]
+            if count is not None:
+                out.append((count, w.count))
+            return [[flat(t) for t in c] for c in zip(*out, *extra)]
 
         def start():
             if shuffled:
-                shuffled_order(rng, nwalkers, self.nsplits,
-                               state.coords.device, out=w.order)
+                seed, offset = rng
+                if isinstance(seed, int):
+                    shuffled_order(rng, nw, self.nsplits, x.device,
+                                   out=w.order)
+                else:
+                    w3 = rung_words(seed, nw, self.nsplits, offset, x.device,
+                                    word=3)
+                    shuffle_kernel.group_order(w3.view(T, nw), self.nsplits,
+                                               out=w.order)
                 shuffle_kernel.gather_rows(w.order, *pairs())
-            w.nexp_sum.zero_()
-            w.ncon_sum.zero_()
+            w.loop.sums.zero_()
 
         loops.segment(("start",), start)
         for split in range(self.nsplits):
             log_u = None if log_acc_u is None else log_acc_u[split]
-            self._group(loops, w, rng, ens, split, ng, model, carry, log_u)
+            self._group(loops, w, rng, gathered, split, ng, evaluate, carry,
+                        log_u, None if draws is None else draws[split])
 
         def end():
             if shuffled:
                 shuffle_kernel.scatter_rows(
                     w.order, *pairs((accepted, w.accepted)))
-            self._finish(carry, state, model, [(w.nexp_sum, w.ncon_sum)])
+            fold(w.loop.sums)
 
         loops.segment(("end",), end)
-        return state, accepted, carry
 
-    def _group(self, loops, w, rng, ens, split, ng, model, carry, log_u):
+    def _group(self, loops, w, rng, ens, split, ng, evaluate, carry, log_u,
+               draws):
         """Stepping out, then shrinkage, for group ``split`` of ``ens``
-        ``(coords, log_prob, blobs, count, accepted)``; the group's rows
-        are updated in place."""
-        coords, log_prob, blobs, count, accepted = ens
+        ``(coords, log_prob, blob leaves, count, accepted)`` (``(T, nw,
+        ...)`` buffers); the group's rows are updated in place."""
+        x, lp, leaves, count, accepted = ens
         seed, offset = rng
-        nw = coords.shape[0]
-        nc = nw - ng
-        lo = split * ng
-        dev, dt = coords.device, coords.dtype
-        s, lp_s = coords[lo:lo + ng], log_prob[lo:lo + ng]
-        blobs_s = tree_map(lambda b: b[lo:lo + ng], blobs)
+        st, cfg, ns = w.loop, self._config(), self.nsplits
+        T = x.shape[0]
+        extra = dict(draws or {})
+        shrink_u = extra.pop("shrink_u", None)
+        if log_u is not None:
+            extra["log_u"] = log_u.reshape(T, ng)
 
         def setup():
-            u = row_uniforms(ng, 4, seed, offset, dev, dt, row0=lo,
-                             block=SLICE_BLOCK)
-            i = torch.clamp((u[:, 0] * nc).to(torch.int64), max=nc - 1)
-            j = torch.clamp((u[:, 1] * (nc - 1)).to(torch.int64),
-                            max=nc - 2)
-            j = torch.where(j >= i, j + 1, j)
-            ci = coords.index_select(0, complement_rows(i, split, ng))
-            cj = coords.index_select(0, complement_rows(j, split, ng))
-            # Read from the carry here, inside the segment, so a replay
-            # reads the tuned scale of its own proposal.
-            scale = self._tuned_scale(carry, dt)
-            mu = float(np.float32(self.mu))
-            if scale is not None:
-                mu = mu * scale
-            w.eta.copy_(mu * (ci - cj))
-            lu = log_u
-            if lu is None:
-                lu = torch.log(word_uniforms(ng, 1, split, seed, offset,
-                                             dev, 1, dt)[:, 0])
-            w.y.copy_(lp_s + lu)
-            w.left.copy_(-u[:, 2])
-            w.right.copy_(w.left + 1.0)
-            j_l = torch.clamp((u[:, 3] * self.max_steps).to(torch.int32),
-                              max=self.max_steps - 1)
-            w.j_l.copy_(j_l)
-            w.j_r.copy_((self.max_steps - 1) - j_l)
-            w.exp_l.fill_(True)
-            w.exp_r.fill_(True)
-            w.cnt_l.zero_()
-            w.cnt_r.zero_()
-            w.nexp.zero_()
-            w.it.zero_()
-            w.flag.fill_(self.max_steps > 0)
+            # The tuned scale is read from the carry here, inside the
+            # segment, so a replay reads its own proposal's.
+            scale = self._tuned_scale(carry, x.dtype)
+            slice_kernel.slice_setup(x, lp, split, ns, st, seed, offset, cfg,
+                                     scale=scale, extra=extra)
 
-        def step_out(b, block):
-            go = (w.it < self.max_steps) & (w.exp_l.any() | w.exp_r.any())
-            both = torch.cat((s + w.left[:, None] * w.eta,
-                              s + w.right[:, None] * w.eta))
-            lp2, _ = model.compute_log_prob(both)
-            need_l = go & w.exp_l & (w.cnt_l < w.j_l)
-            need_r = go & w.exp_r & (w.cnt_r < w.j_r)
-            if self.count_evals:
-                w.evals[0].add_(need_l.sum() + need_r.sum())
-            in_l = need_l & (lp2[:ng] > w.y)
-            in_r = need_r & (lp2[ng:] > w.y)
-            w.nexp.add_(in_l.sum(dtype=torch.float32)
-                        + in_r.sum(dtype=torch.float32))
-            w.left.sub_(in_l.to(dt))
-            w.right.add_(in_r.to(dt))
-            w.exp_l.copy_(in_l)
-            w.exp_r.copy_(in_r)
-            w.cnt_l.add_(in_l.to(torch.int32))
-            w.cnt_r.add_(in_r.to(torch.int32))
-            w.it.add_(go.to(torch.int64))
-            w.iterations[0].add_(go.to(torch.int64))
-            w.executed[0].add_(1)
-            w.flag.copy_((w.it < self.max_steps) & (in_l.any() | in_r.any()))
+        def step_out(b, block, bucket, parity):
+            q = st.pts[parity][:, :bucket]
+            lp_q, _ = evaluate(q)
+            slice_kernel.slice_step_out(x, lp_q, split, ns, st, bucket,
+                                        parity, cfg)
 
         def shrink_setup():
-            w.t_acc.zero_()
-            w.lp_acc.copy_(lp_s)
-            for a, b in zip(tree_flatten(w.blobs_acc)[0],
-                            tree_flatten(blobs_s)[0]):
-                a.copy_(b)
-            w.done.zero_()
-            w.ncon.zero_()
-            w.it.zero_()
-            w.flag.fill_(self.max_shrink > 0)
+            slice_kernel.slice_shrink(x, None, [], split, ns, st, 0, 0, seed,
+                                      offset, cfg, shrink_u)
 
-        def shrink(b, block):
-            go = (w.it < self.max_shrink) & ~w.done.all()
-            if block > w.shrink_u.shape[1]:
-                raise ValueError(f"loop_block must be at most "
-                                 f"{w.shrink_u.shape[1]}")
-            if b == 0:
-                # The block's uniforms in one Philox call: iteration b of
-                # a block that runs unmasked has it = it0 + b.
-                w.shrink_u[:, :block] = word_uniforms(
-                    ng, block, SHRINK_BLOCK | w.it, seed, offset, dev, 0, dt,
-                    lo)
-            t = w.left + w.shrink_u[:, b] * (w.right - w.left)
-            lp_t, blobs_t = model.compute_log_prob(s + t[:, None] * w.eta)
-            if blobs_t is not None and blobs_s is None:
+        def shrink(b, block, bucket, parity):
+            q = st.pts[parity][:, :bucket]
+            lp_q, blobs_q = evaluate(q)
+            if len(blobs_q) != len(leaves):
                 raise ValueError(
                     "If you start sampling with a given log_prob, you "
                     "also need to provide the current list of blobs at "
-                    "that position."
-                )
-            ok = lp_t > w.y
-            if self.count_evals:
-                w.evals[1].add_((go & ~w.done).sum())
-            newly = go & ok & ~w.done
-            w.t_acc.copy_(torch.where(newly, t, w.t_acc))
-            w.lp_acc.copy_(torch.where(newly, lp_t, w.lp_acc))
-            if blobs_t is not None:
-                for a, b in zip(tree_flatten(w.blobs_acc)[0],
-                                tree_flatten(blobs_t)[0]):
-                    m = newly.view((ng,) + (1,) * (a.dim() - 1))
-                    a.copy_(torch.where(m, b, a))
-            miss = go & ~ok & ~w.done
-            w.ncon.add_(miss.sum(dtype=torch.float32))
-            w.left.copy_(torch.where(miss & (t < 0), t, w.left))
-            w.right.copy_(torch.where(miss & (t >= 0), t, w.right))
-            w.done.copy_(w.done | (go & ok))
-            w.it.add_(go.to(torch.int64))
-            w.iterations[1].add_(go.to(torch.int64))
-            w.executed[1].add_(1)
-            w.flag.copy_((w.it < self.max_shrink) & ~w.done.all())
+                    "that position." if not leaves else
+                    "inconsistent use of blobs: the log-prob's blob "
+                    "structure differs from the state's")
+            slice_kernel.slice_shrink(x, lp_q, blobs_q, split, ns, st, bucket,
+                                      parity, seed, offset, cfg, shrink_u)
 
         def finish():
-            done = w.done
-            s.copy_(torch.where(done[:, None], s + w.t_acc[:, None] * w.eta,
-                                s))
-            lp_s.copy_(torch.where(done, w.lp_acc, lp_s))
-            for b, a in zip(tree_flatten(blobs_s)[0],
-                            tree_flatten(w.blobs_acc)[0]):
-                b.copy_(a)
-            accepted[lo:lo + ng] = done
-            if count is not None:
-                count[lo:lo + ng] += done
-            w.nexp_sum.add_(w.nexp)
-            w.ncon_sum.add_(w.ncon)
+            slice_kernel.slice_finish(x, lp, split, ns, st, accepted, count,
+                                      leaves)
 
         loops.segment(("setup", split), setup)
-        loops.loop(("step out", split), step_out, w.flag,
-                   start=self.max_steps > 0)
+        loops.compacted(("step out", split), step_out, st.length(), 2 * ng,
+                        self.bucket_floor, start=self.max_steps > 1)
         loops.segment(("shrink setup", split), shrink_setup)
-        loops.loop(("shrink", split), shrink, w.flag,
-                   start=self.max_shrink > 0)
+        loops.compacted(("shrink", split), shrink, st.length(), ng,
+                        self.bucket_floor, start=self.max_shrink > 0)
         loops.segment(("finish", split), finish)

@@ -51,6 +51,10 @@ KERNELS = {
     "dez_spread": ("dez_propose.cu", "emcee_dez_spread"),
     "dez_propose": ("dez_propose.cu", "emcee_dez_propose"),
     "dez_fold": ("dez_archive.cu", "emcee_dez_fold"),
+    "slice_setup": ("slice_loops.cu", "emcee_slice_setup"),
+    "slice_step_out": ("slice_loops.cu", "emcee_slice_step_out"),
+    "slice_shrink": ("slice_loops.cu", "emcee_slice_shrink"),
+    "slice_finish": ("slice_loops.cu", "emcee_slice_finish"),
 }
 
 _FLAGS = [
@@ -220,6 +224,11 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int,  # ntemps, threads
         _P,  # stream
     ],
+    **{name: [
+        _P,  # the arguments (host struct, ops/slice_kernel.py _Args)
+        _P,  # stream
+    ] for name in ("slice_setup", "slice_step_out", "slice_shrink",
+                   "slice_finish")},
 }
 
 

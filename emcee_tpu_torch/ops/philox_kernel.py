@@ -6,9 +6,9 @@ shuffled split's permutation bits (``emcee_tpu/moves/red_blue.py:218``,
 vmapped over the rungs by ``parallel/tempering.py:538``) and the normals
 and uniforms of the moves of plain torch (``moves/dime.py:320-351``,
 ``de_z.py:158-219``, ``walk.py:78-88``, ``gaussian.py:125-142``,
-``slice.py:168-257``, ``side.py:66-82``, ``kde.py:80``).  The port draws
-its own stream (``ops/philox.py``), so the kernel is held bit for bit
-against the plain version, :func:`philox_draw_plain`, which runs
+``side.py:66-82``, ``kde.py:80``; the slice move's draws are K9's).  The
+port draws its own stream (``ops/philox.py``), so the kernel is held bit
+for bit against the plain version, :func:`philox_draw_plain`, which runs
 :func:`~.philox.philox4x32_torch` (ten torch calls a round).  The kernel
 is ``csrc/philox_draw.cu``, laid out by :func:`draw_plan`: one thread a
 counter over every rung's counters in blocks of ``DRAW_THREADS``, a
