@@ -66,7 +66,7 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
 10. the moves of plain torch (MH, Gaussian, walk) and the KDE move (K7) at
    full width through K3 (K7's launches held to exactly 2 a KDE
    proposal: one a split for ``s`` and ``q``), K6, the diagnostics and
-   ``run_until_converged``;
+   ``run_until_converged`` (K6's calls on its kernels counted);
 11. blobs and io: K2 with blob leaves against its plain version bit for
    bit (six dtypes, five row shapes, 1-3, 17 and 33 leaves, unaligned
    bases, scalar leaves through registers, scalar and wider leaves in
@@ -340,13 +340,45 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    ensemble and with the rung axis.  ``python3 chip_smoke.py 23`` runs
    phases 0, 1 and 23 alone.
 
+24. K6, the diagnostics' fused chains (K6a ``acf_center`` / ``acf_power``
+   and K6b ``acf_reduce`` / ``tau_window``, ``csrc/acf.cu``; K6c
+   ``rank_keys`` / ``rank_scores`` and K6d ``psrf``, ``csrc/rhat.cu``;
+   K16 sorts the keys): (a) every K6 launch against its plain version on
+   the same inputs: the ACF at phase 4's shape (100 x 4000 x 5) in one
+   chunk and in 40, float64, ``n_t`` 1, 2, 3 and 33, a constant series
+   and integer draws, both windows, a thinned and a walker-sliced view
+   against their contiguous copies; R-hat split and not, rank-normalised
+   and raw, an odd length, integer ties, an all-tied column, NaN, +-0 and
+   +-inf draws, float64 (K16's two passes), the split halves and a
+   thinned view read in place, the rank passes in parameter groups
+   against one group, the raw PSRF of more draws than K16 sorts (the
+   rank passes refuse them); each public entry point on a CUDA tensor
+   (``integrated_time``, ``ess``, ``function_1d``, ``rhat``'s four
+   variants, ``DeviceBackend.get_autocorr_time``) with its launches held
+   and torch's sort, cumulative sums, scatters, ``ndtri`` and ``var``
+   refused; the keys, K16's order (== the stable
+   ``torch.sort``), the tie groups (the ranks), the medians, the mean ACF
+   and the windows bit for bit, the rest within ``K6_TOL``; each whole
+   route against the plain route on the card and the float64 host path;
+   (b) phase 10's ``run_until_converged`` at full width, the wrappers'
+   counts from 0: seconds and device kernels a check (beside the 1566 of
+   the plain route), launches, and a check's largest device-to-host copy
+   held to ``n_d x 8`` bytes; (c) each K6 wrapper alone at phase 4's
+   shape and at the monitor's last chain (CUDA events; R-hat's at the
+   route's first parameter group) beside its plain version, the library
+   call where one computes it (``acf_power``: ``torch.mul(F, F.conj())``)
+   and its bound, with cuFFT's ``rfft`` / ``irfft`` and
+   ``torch.sort(stable=True)`` of the same columns as yardsticks; (d) the
+   rows of K6a-K6d.  ``python3 chip_smoke.py 24`` runs phases 0, 1 and 24
+   alone.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22, 23.  Every phase raises on failure.  ``python3
+18, 19, 20, 21, 22, 23, 24.  Every phase raises on failure.  ``python3
 chip_smoke.py sass-diff TREE`` builds TREE's and this checkout's K1, K2,
 K5a, K5b, K11, K12, K13 and K15 and compares their SASS function by
 function.
 
-Three modes compare this checkout with another tree inside it (TREE,
+Four modes compare this checkout with another tree inside it (TREE,
 e.g. the parent commit unpacked by ``git archive`` into the git-ignored
 ``build/parent``; a TREE outside this checkout is refused):
 ``python3 chip_smoke.py main-path TREE`` runs phase 3's main path alone
@@ -354,7 +386,10 @@ with TREE's package, for turns of two trees; ``python3 chip_smoke.py
 kernel-turn TREE`` times K14 and K2's rung axis in the replays of
 workload 4 (with and without its blobs), of the DIME stage and of
 ``StretchMove()`` at 1e5 walkers with TREE's package (and K16 and K17
-where TREE has them), likewise; ``python3 chip_smoke.py phase-times TREE``
+where TREE has them), likewise; ``python3 chip_smoke.py check-turn TREE``
+times one convergence check at phase 24's monitor's last chain with
+TREE's package (its seconds, kernels and device memory), likewise;
+``python3 chip_smoke.py phase-times TREE``
 runs TREE's whole ``chip_smoke.py`` in a child process, echoes its
 output, and prints the seconds each phase took (each output line's wait
 charged to the phase it names) and the total.
@@ -417,7 +452,8 @@ K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
 #: the kernel functions a wrapper launches besides ``<wrapper>_kernel``
 #: (K2's rung axis has a kernel of its own)
 KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",),
-                  "group_order": ("group_rank_kernel", "group_merge_kernel")}
+                  "group_order": ("group_rank_kernel", "group_merge_kernel"),
+                  "rank_scores": ("rank_scan_kernel", "rank_finish_kernel")}
 
 
 def launched_by(name, key):
@@ -450,7 +486,14 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("slice_kernel", "slice_setup"),
            ("slice_kernel", "slice_step_out"),
            ("slice_kernel", "slice_shrink"),
-           ("slice_kernel", "slice_finish"))
+           ("slice_kernel", "slice_finish"),
+           ("autocorr_kernel", "acf_center"),
+           ("autocorr_kernel", "acf_power"),
+           ("autocorr_kernel", "acf_reduce"),
+           ("autocorr_kernel", "tau_window"),
+           ("autocorr_kernel", "rank_keys"),
+           ("autocorr_kernel", "rank_scores"),
+           ("autocorr_kernel", "psrf"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -2161,8 +2204,9 @@ def phase10_rest(torch, np, dev, card, chains, p0, out):
                                                   pair_mode="roll"))
     mon = ConvergenceMonitor(rhat_threshold=1.01)
     # K6's calls in this run, counted where they run on the card: the
-    # walker-averaged ACF (tau) and the rank-normalised R-hat.
-    k6_calls = {"_walker_mean_acf": 0, "_rhat_device": 0}
+    # walker-averaged ACF and its window (tau) and the rank-normalised
+    # R-hat, each on its kernels (phase 24 counts their launches).
+    k6_calls = {"_acf_kernels": 0, "_rhat_kernels": 0}
     saved = {name: getattr(ac, name) for name in k6_calls}
 
     def counting(name):
@@ -2236,10 +2280,12 @@ def phase10_rest(torch, np, dev, card, chains, p0, out):
         "ms": ms6, "plain_ms": plain6,
         "bound_ms": ch4.numel() * 4 / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
-        "note": "plain torch and cuFFT: Geyer tau and rank-normalised "
-                "R-hat of one chain; plain_ms is the float64 host path; "
-                "launches are the ACF and R-hat calls on the card in the "
-                "run_until_converged run, counted",
+        "note": "the whole chain on K6a-K6d, K16 and cuFFT (before "
+                "them: plain torch and cuFFT): Geyer tau and "
+                "rank-normalised R-hat of one chain; plain_ms is the "
+                "float64 host path; launches are the ACF and R-hat calls "
+                "on the card in the run_until_converged run, counted "
+                "(phase 24's rows count each kernel's)",
         "kernels_per_check": check_kernels,
         "shape": list(ch4.shape)}
     log(f"phase 10: K6 (Geyer tau + R-hat) on {tuple(ch4.shape)}: "
@@ -10051,6 +10097,790 @@ def phase23_rows(out, card):
     return rows
 
 
+#: K6's wrappers: K6a ``acf_center`` and ``acf_power``, K6b ``acf_reduce``
+#: and ``tau_window``, K6c ``rank_keys`` and ``rank_scores``, K6d ``psrf``
+K6_KERNELS = ("acf_center", "acf_power", "acf_reduce", "tau_window",
+              "rank_keys", "rank_scores", "psrf")
+#: the K6 wrappers of the ACF (K6a, K6b), timed on a walker chunk
+ACF_ROWS = K6_KERNELS[:4]
+#: device kernels of one convergence check at the monitor's last length on
+#: the plain torch + cuFFT route, as PERF.md's kernel table records it
+K6_OLD_KERNELS_PER_CHECK = 1566
+#: phase 24's tolerances, kernel against plain version where they are not
+#: bit for bit: the centred series (the mean summed in float64 in another
+#: order: ulps of the chain's largest value), the power spectrum (each
+#: product rounded once: ulps of the largest |F|^2), the walker sums
+#: (float64 in another order), Geyer's sum (float64, another order), the
+#: normal scores (CUDA's log and sqrt in Cephes' ndtri), the PSRF (Welford
+#: and Chan's combine against torch.var, float64) and whole routes against
+#: the plain route on the card (float32 walker sums there) and the float64
+#: host path (with an absolute floor for a tau near 0, as at n_t 2)
+K6_TOL = {"acf_center": 16, "acf_power": 8, "acf_reduce": 1e-12,
+          "geyer": 1e-12, "ndtri": 1e-12, "psrf": 1e-9,
+          "route": 1e-4, "route atol": 1e-6}
+
+
+def k6_chain(torch, dev, n_t, n_w, n_d, dtype=None, a=0.9, seed=0):
+    """An AR(1) chain ``(n_t, n_w, n_d)`` on the card (float64 built, then
+    ``dtype``, float32 by default)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.empty(n_t, n_w, n_d, dtype=torch.float64, device=dev)
+    x[0] = torch.randn(n_w, n_d, generator=g, dtype=torch.float64,
+                       device=dev)
+    for t in range(1, n_t):
+        x[t] = a * x[t - 1] + torch.randn(n_w, n_d, generator=g,
+                                          dtype=torch.float64, device=dev)
+    return x.to(dtype or torch.float32)
+
+
+def k6_close(torch, got, want, rtol, atol, what):
+    """Raise unless ``got`` is within ``atol + rtol |want|`` of ``want``
+    (NaN where ``want`` is NaN); returns the largest difference."""
+    got, want = got.double(), want.double()
+    if not bool(torch.isclose(got, want, rtol=rtol, atol=atol,
+                              equal_nan=True).all()):
+        raise AssertionError(f"{what}: kernel and plain version differ: "
+                             f"{got} vs {want}")
+    diff = (got - want).abs()
+    diff = diff[~diff.isnan()]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def k6_acf_check(torch, x, method, budget, errs, what):
+    """K6a and K6b on chain ``x`` launch by launch against their plain
+    versions on the same inputs (each chunk's centred series, its
+    spectrum's power, the walker sums; the window of the kernel's
+    partials), and the whole route against the plain route on the card;
+    returns the comparisons made."""
+    from emcee_tpu_torch.ops import autocorr as ac
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    n_t, n_w, n_d = x.shape
+    dev = x.device
+    plan = ak.acf_plan(n_t, n_w, n_d, x.element_size(), ak.plan_sms(dev),
+                       budget)
+    eps = torch.finfo(x.dtype).eps
+    part = torch.empty(plan.groups, n_t, n_d, dtype=torch.float64,
+                       device=dev)
+    part_p = torch.empty_like(part)
+    n = 0
+    for lo in range(0, n_w, plan.chunk):
+        w = min(plan.chunk, n_w - lo)
+        bk = torch.empty(w * n_d, plan.m2, dtype=x.dtype, device=dev)
+        bp = torch.empty_like(bk)
+        ak.acf_center(x, lo, w, bk)
+        ak.acf_center_plain(x, lo, w, bp)
+        scale = float(x[:, lo:lo + w].abs().max())
+        errs["acf_center"] = max(errs["acf_center"], k6_close(
+            torch, bk, bp, 0.0, K6_TOL["acf_center"] * eps * scale,
+            f"{what}: acf_center"))
+        s = torch.fft.rfft(bk, dim=-1)
+        sp = s.clone()
+        ak.acf_power(s)
+        ak.acf_power_plain(sp)
+        top = float(sp.real.abs().max())
+        errs["acf_power"] = max(errs["acf_power"], k6_close(
+            torch, torch.view_as_real(s), torch.view_as_real(sp), 0.0,
+            K6_TOL["acf_power"] * eps * top, f"{what}: acf_power"))
+        acf = torch.fft.irfft(s, n=plan.m2, dim=-1)
+        ak.acf_reduce(acf, part, n_t, n_d, w, plan.wg, lo == 0)
+        ak.acf_reduce_plain(acf, part_p, n_t, n_d, w, plan.wg, lo == 0)
+        errs["acf_reduce"] = max(errs["acf_reduce"], k6_close(
+            torch, part, part_p, K6_TOL["acf_reduce"],
+            K6_TOL["acf_reduce"] * (lo + w), f"{what}: acf_reduce"))
+        n += 3
+    outs = [torch.empty(n_t, n_d, dtype=torch.float64, device=dev),
+            torch.empty(n_d, dtype=torch.float64, device=dev),
+            torch.empty(n_d, dtype=torch.int64, device=dev)]
+    want = [torch.empty_like(o) for o in outs]
+    ak.tau_window(part, n_w, method, 5.0, *outs)
+    ak.tau_window_plain(part, n_w, method, 5.0, *want)
+    same_bits([outs[0], outs[2]], [want[0], want[2]],
+              f"{what}: tau_window's mean ACF and window")
+    if method == "sokal":
+        same_bits([outs[1]], [want[1]], f"{what}: Sokal's tau")
+    else:
+        errs["tau_window"] = max(errs["tau_window"], k6_close(
+            torch, outs[1], want[1], K6_TOL["geyer"], 0.0,
+            f"{what}: Geyer's tau"))
+    f, tau = ac._acf_kernels(x, method, 5.0, budget)
+    same_bits([f, tau], [outs[0], outs[1]], f"{what}: the route")
+    f_p = ac._walker_mean_acf(x, budget)
+    tau_p = (ac._tau_from_f(f_p.cpu().double().numpy(), 5.0)
+             if method == "sokal" else ac._tau_geyer(f_p).cpu().numpy())
+    errs["acf route"] = max(errs["acf route"], k6_close(
+        torch, tau.cpu(), torch.as_tensor(tau_p), K6_TOL["route"],
+        K6_TOL["route atol"], f"{what}: the route against the plain route"))
+    return n + 5
+
+
+def k6_pass_check(torch, draws, lo, hi, center, errs, what):
+    """One R-hat pass of K6c and K6d (the bulk pass, or the tail pass about
+    ``center``) launch by launch against the plain versions on the same
+    inputs: the keys, K16's order against ``torch.sort(stable=True)`` of
+    the pooled values, the groups' links, the medians, the scores and the
+    PSRF.  Returns ``(comparisons, the kernel's scores, medians,
+    psrf)``."""
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    d, S, dev = draws.d, draws.S, draws.x.device
+    lo_p, hi_p = torch.empty_like(lo), None if hi is None else \
+        torch.empty_like(hi)
+    ak.rank_keys(draws, lo, hi, center)
+    ak.rank_keys_plain(draws, lo_p, hi_p, center)
+    same_bits([lo] + ([hi] if hi is not None else []),
+              [lo_p] + ([hi_p] if hi is not None else []),
+              f"{what}: rank_keys")
+    sw = torch.empty_like(lo)
+    sh = None if hi is None else torch.empty_like(hi)
+    ak.stable_order(lo, hi, sw, sh)
+    v = ak.pooled_values(draws)
+    if center is not None:
+        v = (v - center[:, None]).abs()
+    # -0.0 as +0.0: they tie, as the keys and rankdata tie them
+    v = torch.where(v == 0, 0.0, v)
+    want = torch.sort(v, dim=1, stable=True).indices
+    same_bits([sw & 0xFFFFFFFF], [want], f"{what}: the stable order")
+    # the sorted words carry each position's key (and high word)
+    pos = sw & 0xFFFFFFFF
+    same_bits([(sw >> 32) & 0xFFFFFFFF] + ([] if sh is None else [
+        (sh >> 32) & 0xFFFFFFFF]), [lo.gather(1, pos)] + (
+        [] if hi is None else [hi.gather(1, pos)]),
+        f"{what}: the sorted words' keys")
+    grp, grp_p = (torch.empty(d * S, dtype=torch.int32, device=dev)
+                  for _ in range(2))
+    z, z_p = (torch.empty(d, S, dtype=torch.float64, device=dev)
+              for _ in range(2))
+    med, med_p = ((torch.empty(d, dtype=draws.x.dtype, device=dev)
+                   for _ in range(2)) if center is None else (None, None))
+    ak.rank_scores(draws, sw, sh, grp, z, med)
+    ak.rank_scores_plain(draws, sw, sh, grp_p, z_p, med_p)
+    same_bits([grp] + ([med] if med is not None else []),
+              [grp_p] + ([med_p] if med is not None else []),
+              f"{what}: rank_scores' groups and medians")
+    errs["rank_scores"] = max(errs["rank_scores"], k6_close(
+        torch, z, z_p, 0.0, K6_TOL["ndtri"], f"{what}: the normal scores"))
+    scores = ak.score_draws(z, draws.h, draws.C)
+    r, r_p = (torch.empty(d, dtype=torch.float64, device=dev)
+              for _ in range(2))
+    ak.psrf(scores, r)
+    ak.psrf_plain(scores, r_p)
+    errs["psrf"] = max(errs["psrf"], k6_close(
+        torch, r, r_p, K6_TOL["psrf"], 0.0, f"{what}: psrf"))
+    return 8, z, med, r
+
+
+def k6_rhat_check(torch, np, x, split, rank_normalized, errs, what):
+    """K6c and K6d on chain ``x`` pass by pass against their plain versions
+    (:func:`k6_pass_check`; the raw PSRF against the plain version of the
+    draws in float64, the kernel's accumulation type), and the whole route
+    against the plain route on the card and the float64 host path; returns
+    the comparisons made."""
+    from emcee_tpu_torch.ops import autocorr as ac
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    draws = ak.split_draws(x, split)
+    d, S, dev = draws.d, draws.S, x.device
+    got = ac._rhat_kernels(x, split, rank_normalized)
+    if not bool(x.isnan().any()):
+        # (scipy's rankdata makes a column with a NaN all NaN; the device
+        # routes rank NaNs last, as JAX's device path does)
+        host = ac.rhat(x.double().cpu().numpy(), split=split,
+                       rank_normalized=rank_normalized)
+        errs["rhat route"] = max(errs["rhat route"], k6_close(
+            torch, got.cpu(), torch.as_tensor(host), K6_TOL["route"], 0.0,
+            f"{what}: the route against the float64 host path"))
+    block = draws.block()
+    if not rank_normalized:
+        r = torch.empty(d, dtype=torch.float64, device=dev)
+        r_p = torch.empty_like(r)
+        ak.psrf(draws, r)
+        ak.psrf_plain(draws._replace(x=x.double()), r_p)
+        errs["psrf"] = max(errs["psrf"], k6_close(
+            torch, r, r_p, K6_TOL["psrf"], 0.0, f"{what}: raw psrf"))
+        same_bits([got], [r], f"{what}: the route")
+        plain = ac._psrf_device(block.double())
+        errs["psrf"] = max(errs["psrf"], k6_close(
+            torch, got, plain, K6_TOL["psrf"], 0.0,
+            f"{what}: the plain route"))
+        return 4
+    lo = torch.empty(d, S, dtype=torch.int64, device=dev)
+    hi = torch.empty_like(lo) if x.dtype == torch.float64 else None
+    n, _, med, bulk = k6_pass_check(torch, draws, lo, hi, None, errs,
+                                    f"{what} (bulk)")
+    m, _, _, tail = k6_pass_check(torch, draws, lo, hi, med, errs,
+                                  f"{what} (tail)")
+    same_bits([got], [torch.maximum(bulk, tail)], f"{what}: the route")
+    plain = ac._rhat_device(block)
+    errs["rhat route"] = max(errs["rhat route"], k6_close(
+        torch, got, plain, K6_TOL["psrf"], 0.0, f"{what}: the plain route"))
+    return n + m + 3
+
+
+def k6_sweep(torch, np, dev):
+    """(a) Every K6 launch against its plain version on the card: the ACF
+    at phase 4's shape (one chunk and 40), a thinned and a walker-sliced
+    view against their contiguous copies, float64, ``n_t`` 1, 2, 3 and 33,
+    a constant series (NaN) and integer draws, both windows; R-hat split
+    and not, rank-normalised and raw, at phase 4's shape, an odd length,
+    integer ties, an all-tied column (NaN), NaN, +-0 and +-inf draws,
+    float64 (the two-pass order), and the split halves and a thinned view
+    read in place against contiguous copies; the rank passes in parameter
+    groups against one group; the raw PSRF of more draws than K16 sorts.
+    Returns ``(comparisons, {check: largest difference})``."""
+    from emcee_tpu_torch.ops import autocorr as ac
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    errs = dict.fromkeys(("acf_center", "acf_power", "acf_reduce",
+                          "tau_window", "acf route", "rank_scores", "psrf",
+                          "rhat route"), 0.0)
+    n = 0
+    x4 = k6_chain(torch, dev, 100, 4000, 5)
+    big = ac.FFT_BUDGET
+    ints = torch.round(2 * k6_chain(torch, dev, 64, 300, 3, seed=2))
+    const = k6_chain(torch, dev, 40, 200, 3, seed=3)
+    const[..., 1] = 1.5
+    acf_cases = [("phase 4's shape", x4, big), ("40 chunks", x4, 1 << 20),
+                 ("float64", k6_chain(torch, dev, 64, 300, 3,
+                                      torch.float64, seed=1), big),
+                 ("integer draws", ints, big), ("a constant series", const,
+                                                  big)]
+    acf_cases += [(f"n_t {t}", k6_chain(torch, dev, t, 50, 2, seed=t), big)
+                  for t in (1, 2, 3, 33)]
+    for label, x, budget in acf_cases:
+        for method in ("sokal", "geyer"):
+            n += k6_acf_check(torch, x, method, budget, errs,
+                              f"phase 24: {label}, {method}")
+    long = k6_chain(torch, dev, 300, 1000, 5, seed=4)
+    for label, view in (("thinned", long[2::3]), ("walkers 100:900",
+                                                   long[:, 100:900])):
+        for method in ("sokal", "geyer"):
+            for budget in (big, 1 << 20):
+                got = ac._acf_kernels(view, method, 5.0, budget)
+                want = ac._acf_kernels(view.contiguous(), method, 5.0,
+                                       budget)
+                same_bits(got, want, f"phase 24: a {label} view")
+                n += 2
+    odd = k6_chain(torch, dev, 101, 300, 3, seed=5)
+    tied = k6_chain(torch, dev, 60, 200, 3, seed=6)
+    tied[..., 0] = 1.0
+    special = k6_chain(torch, dev, 60, 200, 3, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    pick = torch.rand(special.shape, generator=g, device=dev)
+    special[pick < 0.2] = 0.0
+    special[(pick >= 0.2) & (pick < 0.4)] = -0.0
+    special[(pick >= 0.4) & (pick < 0.41)] = float("nan")
+    special[..., 2][pick[..., 2] > 0.97] = float("inf")
+    special[..., 2][pick[..., 2] < 0.01] = -float("inf")
+    s64 = torch.round(4 * k6_chain(torch, dev, 60, 300, 3, torch.float64,
+                                   seed=9))
+    s64[torch.rand(s64.shape, generator=g, device=dev) < 0.1] = -0.0
+    s64[0, 0, 1] = float("nan")
+    rhat_cases = [("phase 4's shape", x4), ("an odd length", odd),
+                  ("integer ties", ints), ("an all-tied column", tied),
+                  ("NaN, +-0, +-inf", special), ("float64", s64),
+                  ("float64 AR(1)", k6_chain(torch, dev, 40, 100, 2,
+                                             torch.float64, seed=10))]
+    for label, x in rhat_cases:
+        for split, rn in ((True, True), (False, True), (True, False),
+                          (False, False)):
+            n += k6_rhat_check(torch, np, x, split, rn, errs,
+                               f"phase 24: R-hat, {label}, split={split}, "
+                               f"rank_normalized={rn}")
+    for label, view in (("second half", long[150:]), ("thinned",
+                                                      long[::2]),
+                        ("walkers 100:900", long[:, 100:900])):
+        for split in (True, False):
+            got = ac._rhat_kernels(view, split, True)
+            want = ac._rhat_kernels(view.contiguous(), split, True)
+            same_bits([got], [want], f"phase 24: R-hat of a {label} view")
+            n += 1
+    # the rank passes a parameter at a time and two at a time (the budget's
+    # groups) against one group, bit for bit
+    for label, x in (("phase 4's shape", x4), ("float64", s64)):
+        per = ak.split_draws(x, True).S * ak.RHAT_BYTES[
+            x.dtype == torch.float64]
+        want = ac._rhat_kernels(x, True, True)
+        for budget in (per, 2 * per):
+            got = ac._rhat_kernels(x, True, True, budget)
+            same_bits([got], [want], f"phase 24: R-hat of {label} in groups "
+                      f"of {budget // per}")
+            n += 1
+    # the raw PSRF of more draws a parameter than K16 sorts; the rank
+    # passes refuse them
+    wide = torch.randn(2048, (ak.DRAWS_MAX + 1) // 2048 + 1, 1, device=dev,
+                       generator=g)
+    draws = ak.split_draws(wide, False)
+    r, r_p = (torch.empty(1, dtype=torch.float64, device=dev)
+              for _ in range(2))
+    ak.psrf(draws, r)
+    ak.psrf_plain(draws._replace(x=wide.double()), r_p)
+    errs["psrf"] = max(errs["psrf"], k6_close(
+        torch, r, r_p, K6_TOL["psrf"], 0.0,
+        f"phase 24: raw psrf of {draws.S} draws"))
+    try:
+        ac._rhat_kernels(wide, False, True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"phase 24: ranks of {draws.S} draws a "
+                             f"parameter were not refused")
+    del wide, draws
+    return n + 2, errs
+
+
+#: the torch calls no K6 route may make on a CUDA tensor (the plain
+#: route's sort, cumulative sums, scatters, normal quantile and variance)
+K6_FORBIDDEN = (("torch", "sort"), ("torch", "argsort"), ("torch", "cumsum"),
+                ("torch", "cummax"), ("torch", "cummin"), ("torch", "var"),
+                ("torch.special", "ndtri"), ("torch.Tensor", "sort"),
+                ("torch.Tensor", "argsort"), ("torch.Tensor", "cumsum"),
+                ("torch.Tensor", "scatter_add_"), ("torch.Tensor", "var"))
+
+
+@contextlib.contextmanager
+def k6_forbidden(torch):
+    """Make every call of ``K6_FORBIDDEN`` and of K6's plain versions
+    raise while the block runs."""
+    import importlib
+
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    def refuse(name):
+        def call(*a, **kw):
+            raise AssertionError(f"phase 24: a K6 route called {name}")
+        return call
+
+    saved = []
+    for mod, name in K6_FORBIDDEN:
+        owner = (torch.Tensor if mod == "torch.Tensor"
+                 else importlib.import_module(mod))
+        saved.append((owner, name, getattr(owner, name)))
+    saved += [(ak, f"{k}_plain", getattr(ak, f"{k}_plain"))
+              for k in K6_KERNELS]
+    for owner, name, _ in saved:
+        setattr(owner, name, refuse(name))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def k6_entry_points(torch, np, dev):
+    """(a) Each public entry point on a CUDA tensor launches K6 (and K16
+    for R-hat), with the torch calls of ``K6_FORBIDDEN`` and every plain
+    version refused: ``integrated_time`` (both methods), ``ess``,
+    ``function_1d``, ``rhat`` (split or not, rank-normalised or raw) and
+    ``DeviceBackend.get_autocorr_time`` of a stored run (``thin=2``, a
+    strided view); each call's wrapper launches, counted from 0, held to
+    the route's.  Returns ``{call: launches}``."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+    from emcee_tpu_torch.autocorr import (
+        ess, function_1d, integrated_time, rhat)
+    from emcee_tpu_torch.backends import DeviceBackend
+
+    smp = EnsembleSampler(2000, ND, gaussian, vectorize=True, seed=5,
+                          device=dev, backend=DeviceBackend(),
+                          moves=moves.StretchMove(randomize_split=False,
+                                                  pair_mode="roll"))
+    p0 = np.random.default_rng(4).normal(size=(2000, ND)).astype(np.float32)
+    smp.run_mcmc(p0, 300, skip_initial_state_check=True)
+    x = smp.backend.chain[:smp.backend.iteration]
+    acf = {"acf_center": 1, "acf_power": 1, "acf_reduce": 1,
+           "tau_window": 1}
+    sort = {"rank_keys": 2, "rank_scores": 4, "psrf": 2}
+    calls = {
+        "integrated_time (Sokal)": (lambda: integrated_time(x, quiet=True),
+                                    acf),
+        "integrated_time (Geyer)": (lambda: integrated_time(
+            x, method="geyer", quiet=True), acf),
+        "ess": (lambda: ess(x, quiet=True), acf),
+        "function_1d": (lambda: function_1d(x[:, 0, 0]), acf),
+        "get_autocorr_time(thin=2)": (lambda: smp.get_autocorr_time(
+            thin=2, discard=20, quiet=True), acf),
+        "rhat": (lambda: rhat(x), sort),
+        "rhat(split=False)": (lambda: rhat(x, split=False), sort),
+        "rhat(rank_normalized=False)": (
+            lambda: rhat(x, rank_normalized=False), {"psrf": 1}),
+        "rhat(split=False, rank_normalized=False)": (
+            lambda: rhat(x, split=False, rank_normalized=False),
+            {"psrf": 1})}
+    out = {}
+    fns = wrappers()
+    for label, (fn, want) in calls.items():
+        for _, w in fns.values():
+            w.launches = 0
+        with k6_forbidden(torch):
+            got = fn()
+        torch.cuda.synchronize()
+        if not np.all(np.isfinite(got)):
+            raise AssertionError(f"phase 24: {label}: {got}")
+        counts = {k: w.launches for k, (_, w) in fns.items() if w.launches}
+        expect = dict(want)
+        if "rank_keys" in want:
+            expect["group_order"] = counts.get("group_order", 0)
+            if not expect["group_order"]:
+                raise AssertionError(f"phase 24: {label}: no K16 launch")
+        if counts != expect:
+            raise AssertionError(f"phase 24: {label}: launches {counts}, "
+                                 f"expected {expect}")
+        out[label] = counts
+    return out
+
+
+def k6_monitor(torch, np, dev, card, trace):
+    """(b) Phase 10's ``run_until_converged`` at full width (the main
+    path, ``DeviceBackend``, ``thin_by=10``, ``check_every=200``,
+    ``ConvergenceMonitor(rhat_threshold=1.01)``), every wrapper's count
+    set to 0 just before it; then one check at the final length: seconds
+    (host clock), kernels by the profiler, each wrapper's launches, and its
+    largest device-to-host copy, held to ``n_d x 8`` bytes."""
+    from emcee_tpu_torch import (
+        ConvergenceMonitor, EnsembleSampler, moves, run_until_converged)
+    from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.monitor import stored_chain
+
+    out = {}
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=21,
+                          device=dev, backend=DeviceBackend(),
+                          moves=moves.StretchMove(randomize_split=False,
+                                                  pair_mode="roll"))
+    p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
+    mon = ConvergenceMonitor(rhat_threshold=1.01)
+    with path_launches(out, "run_until_converged", K6_KERNELS
+                       + ("group_order",), "phase 24"):
+        t0 = time.perf_counter()
+        run_until_converged(smp, p0, max_steps=2000, check_every=200,
+                            monitor=mon, thin_by=10,
+                            skip_initial_state_check=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    chain = stored_chain(smp)
+
+    def check():
+        return ConvergenceMonitor(rhat_threshold=1.01).update(chain)
+
+    check()
+    with path_launches(out, "one check", K6_KERNELS + ("group_order",),
+                       "phase 24"):
+        t0 = time.perf_counter()
+        check()
+        torch.cuda.synchronize()
+        t_check = time.perf_counter() - t0
+    _, kernels = profile_window(torch, check)
+    per_check = sum(c for c, _ in kernels.values())
+    big, _ = d2h_bytes(torch, check, trace)
+    if big > ND * 8:
+        raise AssertionError(f"phase 24: a check copied {big} bytes to the "
+                             f"host (at most {ND * 8})")
+    # The same check on the plain route (the port's torch code before K6,
+    # on the card), for comparison in this run.
+    from emcee_tpu_torch.ops import autocorr as ac
+
+    kernel_route = ac._on_kernels
+    ac._on_kernels = lambda x: False
+    try:
+        check()
+        t0 = time.perf_counter()
+        plain = ConvergenceMonitor(rhat_threshold=1.01)
+        plain.update(chain)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        _, plain_kernels = profile_window(torch, check)
+    finally:
+        ac._on_kernels = kernel_route
+    mine = ConvergenceMonitor(rhat_threshold=1.01)
+    mine.update(chain)
+    if not (np.allclose(mine.tau, plain.tau, rtol=1e-4)
+            and np.allclose(mine.rhat, plain.rhat, rtol=1e-9)):
+        raise AssertionError(f"phase 24: a check on the kernels {mine.tau} "
+                             f"{mine.rhat}, on the plain route {plain.tau} "
+                             f"{plain.rhat}")
+    per_check_plain = sum(c for c, _ in plain_kernels.values())
+
+    def costliest(ks):
+        top = sorted(ks.items(), key=lambda kv: -kv[1][1])[:6]
+        return "; ".join(f"{k[:40]} {c} x {us / c:.1f} us" for k, (c, us)
+                         in top)
+    if not (np.isfinite(mon.tau).all() and np.isfinite(mon.rhat).all()):
+        raise AssertionError(f"phase 24: tau {mon.tau}, rhat {mon.rhat}")
+    out.update(iteration=smp.iteration, checks=len(mon.history),
+               seconds=total, seconds_per_check=t_check,
+               kernels_per_check=per_check,
+               kernels_per_check_before=K6_OLD_KERNELS_PER_CHECK,
+               plain_seconds_per_check=t_plain,
+               plain_kernels_per_check=per_check_plain,
+               costliest=costliest(kernels),
+               plain_costliest=costliest(plain_kernels),
+               kernels={k: c for k, (c, _) in kernels.items()},
+               largest_d2h_bytes=big, tau=mon.tau.tolist(),
+               rhat=mon.rhat.tolist(), shape=list(chain.shape))
+    ran = {k: v for k, v in out["launches"]["run_until_converged"].items()
+           if v}
+    log(f"phase 24: (b) run_until_converged (main path, DeviceBackend, "
+        f"check_every=200, thin_by=10, rhat_threshold=1.01): stopped at "
+        f"iteration {smp.iteration} after {len(mon.history)} checks, tau "
+        f"{np.array2string(mon.tau, precision=2)}, rhat "
+        f"{np.array2string(mon.rhat, precision=4)}, {total:.2f} s in all; "
+        f"one check at {tuple(chain.shape)}: {t_check * 1e3:.2f} ms, "
+        f"{per_check} device kernels (profiler; before K6: "
+        f"{K6_OLD_KERNELS_PER_CHECK}); on the plain route "
+        f"{t_plain * 1e3:.2f} ms and {per_check_plain} kernels; launches "
+        f"{ {k: v for k, v in out['launches']['one check'].items() if v} }"
+        f", largest device-to-host copy {big} bytes (at most {ND * 8}); "
+        f"the run's launches {ran} {card}")
+    log(f"phase 24: (b) a check's costliest kernels (profiler): on K6 "
+        f"{out['costliest']}; on the plain route {out['plain_costliest']}")
+    return out, chain
+
+
+def k6_bytes(name, n_t, n_d, w, m2, groups, S, item):
+    """The bytes K6 wrapper ``name``'s function must move (each input read
+    once, each output written once) at a chunk of ``w`` walkers (ACF; the
+    first chunk, whose partials are written, not added to) or ``S`` pooled
+    draws of ``n_d`` parameters (R-hat): a key of ``item`` bytes (the
+    draw's width; the int64 words are K16's interface), a position of 4
+    (``S < 2**29``), a float64 score, the medians' two draws and value."""
+    series = w * n_d
+    return {
+        "acf_center": series * n_t * item + series * m2 * item,
+        "acf_power": 2 * series * (m2 // 2 + 1) * 2 * item,
+        "acf_reduce": series * n_t * item + groups * n_t * n_d * 8,
+        "tau_window": groups * n_t * n_d * 8 + n_t * n_d * 8 + n_d * 16,
+        "rank_keys": 2 * S * n_d * item,
+        "rank_scores": S * n_d * (item + 4) + S * n_d * 8 + 3 * n_d * item,
+        "psrf": S * n_d * 8 + n_d * 8}[name]
+
+
+def k6_alone(torch, dev, card, acf_x, rhat_x, label):
+    """(c) Each K6 wrapper alone at ``acf_x``'s first walker chunk and at
+    the first parameter group (``rhat_group``, as the route takes them) of
+    ``rhat_x``'s split draws: device ms by CUDA events behind a sleep of
+    the card, for the kernel, its plain version (into buffers made
+    beforehand) and, for ``acf_power``, the one PyTorch call that computes
+    it (``torch.mul(F, F.conj(), out=...)``); its bound by bytes; and the
+    yardsticks: cuFFT's ``rfft`` and ``irfft`` of the chunk,
+    ``torch.sort(stable=True)`` of the group's pooled columns beside
+    ``rank_keys`` + K16 + ``rank_scores``."""
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    n_t, n_w, n_d = acf_x.shape
+    plan = ak.acf_plan(n_t, n_w, n_d, acf_x.element_size(),
+                       ak.plan_sms(dev))
+    w = plan.chunk
+    buf = torch.empty(w * n_d, plan.m2, dtype=acf_x.dtype, device=dev)
+    ak.acf_center(acf_x, 0, w, buf)
+    spec = torch.fft.rfft(buf, dim=-1)
+    acf = torch.fft.irfft(spec, n=plan.m2, dim=-1)
+    part = torch.empty(plan.groups, n_t, n_d, dtype=torch.float64,
+                       device=dev)
+    ak.acf_reduce(acf, part, n_t, n_d, w, plan.wg, True)
+    win = [torch.empty(n_t, n_d, dtype=torch.float64, device=dev),
+           torch.empty(n_d, dtype=torch.float64, device=dev),
+           torch.empty(n_d, dtype=torch.int64, device=dev)]
+    draws = ak.split_draws(rhat_x, True)
+    d = ak.rhat_group(draws.d, draws.S, rhat_x.dtype == torch.float64)
+    draws = draws._replace(x=draws.x[..., :d])
+    S = draws.S
+    lo = torch.empty(d, S, dtype=torch.int64, device=dev)
+    sw = torch.empty_like(lo)
+    grp = torch.empty(d * S, dtype=torch.int32, device=dev)
+    z = torch.empty(d, S, dtype=torch.float64, device=dev)
+    med = torch.empty(d, dtype=rhat_x.dtype, device=dev)
+    r = torch.empty(d, dtype=torch.float64, device=dev)
+    ak.rank_keys(draws, lo)
+    ak.stable_order(lo, None, sw)
+    scores = ak.score_draws(z, draws.h, draws.C)
+    # the plain versions' outputs, made before the timed calls
+    buf_p, part_p, lo_p, grp_p, z_p, med_p, r_p = (
+        torch.empty_like(t) for t in (buf, part, lo, grp, z, med, r))
+    win_p = [torch.empty_like(t) for t in win]
+    spec_p, spec_l = spec.clone(), torch.empty_like(spec)
+    calls = {
+        "acf_center": (lambda: ak.acf_center(acf_x, 0, w, buf),
+                       lambda: ak.acf_center_plain(acf_x, 0, w, buf_p)),
+        "acf_power": (lambda: ak.acf_power(spec),
+                      lambda: ak.acf_power_plain(spec_p)),
+        "acf_reduce": (lambda: ak.acf_reduce(acf, part, n_t, n_d, w,
+                                             plan.wg, True),
+                       lambda: ak.acf_reduce_plain(acf, part_p, n_t, n_d, w,
+                                                   plan.wg, True)),
+        # the chunk's mean ACF (its own walkers'), so the window ends where
+        # a chain's does
+        "tau_window": (lambda: ak.tau_window(part, w, "sokal", 5.0, *win),
+                       lambda: ak.tau_window_plain(part, w, "sokal", 5.0,
+                                                   *win_p)),
+        "rank_keys": (lambda: ak.rank_keys(draws, lo),
+                      lambda: ak.rank_keys_plain(draws, lo_p)),
+        "rank_scores": (lambda: ak.rank_scores(draws, sw, None, grp, z,
+                                               med),
+                        lambda: ak.rank_scores_plain(draws, sw, None, grp_p,
+                                                     z_p, med_p)),
+        "psrf": (lambda: ak.psrf(scores, r),
+                 lambda: ak.psrf_plain(scores, r_p))}
+    library = {"acf_power": lambda: torch.mul(spec, spec.conj(),
+                                              out=spec_l)}
+    cols = ak.pooled_values(draws).contiguous()
+    out = {"shape": {"acf": list(acf_x.shape), "chunk": w,
+                     "groups": plan.groups, "rhat_draws": [d, S]}}
+    item = acf_x.element_size()
+    for name, (fn, plain) in calls.items():
+        ms = behind_ms(torch, fn, lambda: None, reps=10)
+        plain_ms = behind_ms(torch, plain, lambda: None, reps=2)
+        lib_ms = (behind_ms(torch, library[name], lambda: None, reps=10)
+                  if name in library else None)
+        nbytes = k6_bytes(name, n_t, n_d if name in ACF_ROWS else d, w,
+                          plan.m2, plan.groups, S, item)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bytes=nbytes,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    # the library call computes what the plain version does
+    f = torch.fft.rfft(buf, dim=-1)
+    torch.mul(f, f.conj(), out=spec_l)
+    ak.acf_power_plain(f)
+    eps = torch.finfo(acf_x.dtype).eps
+    k6_close(torch, torch.view_as_real(spec_l), torch.view_as_real(f), 0.0,
+             K6_TOL["acf_power"] * eps * float(f.real.abs().max()),
+             f"phase 24: {label}: torch.mul(F, F.conj())")
+    del f
+    out["yardsticks"] = {
+        "rfft_ms": behind_ms(torch, lambda: torch.fft.rfft(buf, dim=-1),
+                             lambda: None, reps=10),
+        "irfft_ms": behind_ms(torch, lambda: torch.fft.irfft(
+            spec, n=plan.m2, dim=-1), lambda: None, reps=10),
+        "stable_order_ms": behind_ms(
+            torch, lambda: ak.stable_order(lo, None, sw), lambda: None,
+            reps=5),
+        "torch_sort_ms": behind_ms(
+            torch, lambda: torch.sort(cols, dim=1, stable=True),
+            lambda: None, reps=5)}
+    y = out["yardsticks"]
+    y["keys_sort_scores_ms"] = (out["rank_keys"]["ms"] + y["stable_order_ms"]
+                                + out["rank_scores"]["ms"])
+    for name in calls:
+        a = out[name]
+        lib = ("" if a["library_ms"] is None else
+               f", library {a['library_ms'] * 1e3:.2f} us")
+        log(f"phase 24: (c) {label}: {name}: {a['ms'] * 1e3:.2f} us a call "
+            f"(CUDA events), plain {a['plain_ms'] * 1e3:.1f} us{lib}, bound "
+            f"{a['bound_ms'] * 1e3:.3f} us ({a['bytes']} bytes) {card}")
+    log(f"phase 24: (c) {label}: yardsticks: rfft {y['rfft_ms'] * 1e3:.2f} "
+        f"us and irfft {y['irfft_ms'] * 1e3:.2f} us of the chunk; "
+        f"rank_keys + K16 + rank_scores {y['keys_sort_scores_ms'] * 1e3:.1f}"
+        f" us (K16 {y['stable_order_ms'] * 1e3:.1f}) against "
+        f"torch.sort(stable=True) of the same columns "
+        f"{y['torch_sort_ms'] * 1e3:.1f} us {card}")
+    return out
+
+
+def phase24(torch, np, dev, card):
+    """K6, the diagnostics' fused chains (see the module docstring, 24):
+    the sweep, the full-width ``run_until_converged``, each kernel alone
+    at phase 4's shape and at the monitor's last chain, and the rows of
+    K6a-K6d.  Returns its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"], out["errs"] = k6_sweep(torch, np, dev)
+    out["entry_points"] = k6_entry_points(torch, np, dev)
+    log(f"phase 24: (a) each entry point on a CUDA tensor, with "
+        f"{', '.join('.'.join(f) for f in K6_FORBIDDEN)} and every plain "
+        f"version refused, launches (from 0): {out['entry_points']}")
+    log(f"phase 24: (a) every K6 launch against its plain version: "
+        f"{out['sweep']} comparisons; the keys, K16's order (== "
+        f"torch.sort(stable=True)), the groups' links (the ranks), the "
+        f"medians, the mean ACF and windows bit for bit; largest "
+        f"differences elsewhere {out['errs']} (tolerances {K6_TOL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    trace = Path(__file__).resolve().parent / "build" / "d2h_trace24.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    out["monitor"], chain = k6_monitor(torch, np, dev, card, trace)
+    log(f"phase 24: (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    x4 = k6_chain(torch, dev, 100, 4000, ND)
+    out["alone"] = {
+        "phase 4": k6_alone(torch, dev, card, x4, x4, "phase 4's shape"),
+        "monitor": k6_alone(torch, dev, card, chain,
+                            chain[chain.shape[0] // 2:],
+                            "the monitor's last chain")}
+    log(f"phase 24: (c) {time.perf_counter() - t0:.1f} s")
+    return out, phase24_rows(out, card)
+
+
+def phase24_rows(out, card):
+    """(d) The rows of K6a-K6d's wrappers at the monitor's last chain (one
+    walker chunk for K6a and K6b, the first parameter group of the split
+    draws of its second half for K6c and K6d): device time a call by CUDA
+    events, the launches of phase 24's ``run_until_converged``, the
+    sweep's largest difference, the plain version, the library call where
+    one computes the function, and the bound."""
+    meta = {
+        "acf_center": ("csrc/acf.cu", "emcee_tpu/ops/autocorr.py:51-53",
+                       ("acf_center",)),
+        "acf_power": ("csrc/acf.cu", "emcee_tpu/ops/autocorr.py:54-55",
+                      ("acf_power",)),
+        "acf_reduce": ("csrc/acf.cu", "emcee_tpu/ops/autocorr.py:55-56, "
+                       ":67-69, :103-107", ("acf_reduce", "acf route")),
+        "tau_window": ("csrc/acf.cu", "emcee_tpu/ops/autocorr.py:75-85, "
+                       ":115-143", ("tau_window",)),
+        "rank_keys": ("csrc/rhat.cu", "emcee_tpu/ops/autocorr.py:237, "
+                      ":269, :354", ()),
+        "rank_scores": ("csrc/rhat.cu", "emcee_tpu/ops/autocorr.py:229-250,"
+                        " :262-266, :364", ("rank_scores",)),
+        "psrf": ("csrc/rhat.cu", "emcee_tpu/ops/autocorr.py:219-226, :271",
+                 ("psrf", "rhat route"))}
+    mon = out["monitor"]
+    rows = []
+    for name, (src, jax, err_keys) in meta.items():
+        a = out["alone"]["monitor"][name]
+        b = out["alone"]["phase 4"][name]
+        y = out["alone"]["monitor"]["yardsticks"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"emcee_tpu_torch/{src}", "replaces": jax,
+            "launches": mon["launches"]["run_until_converged"][name],
+            "max_abs_err": max((out["errs"][k] for k in err_keys),
+                               default=0.0),
+            "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": "bytes",
+            "library_ms": a["library_ms"], "bytes": a["bytes"],
+            "phase4_ms": b["ms"], "phase4_plain_ms": b["plain_ms"],
+            "phase4_library_ms": b["library_ms"],
+            "phase4_bound_ms": b["bound_ms"],
+            "launches_per_check": mon["launches"]["one check"][name],
+            **({"yardsticks": y} if name in ("acf_power",
+                                             "rank_scores") else {}),
+            "note": (f"K6 at the monitor's last chain {mon['shape']} (ACF: "
+                     f"one walker chunk of "
+                     f"{out['alone']['monitor']['shape']['chunk']}; R-hat: "
+                     f"the first parameter group of the split draws of "
+                     f"its second half, "
+                     f"{out['alone']['monitor']['shape']['rhat_draws']}): "
+                     f"ms, plain_ms and library_ms a call by CUDA events "
+                     f"behind a sleep of the card; launches counted from 0 "
+                     f"in phase 24's run_until_converged "
+                     f"({mon['checks']} checks); max_abs_err: the largest "
+                     f"difference over the sweep of phase 24 (a) "
+                     f"({out['sweep']} comparisons; 0.0: bit for bit); "
+                     + ("library_ms: torch.mul(F, F.conj(), out=...)"
+                        if name == "acf_power" else
+                        "library_ms: none, no single PyTorch call computes "
+                        "it (yardsticks: cuFFT's rfft / irfft, "
+                        "torch.sort(stable=True))"))})
+    for row in rows:
+        lib = ("" if row["library_ms"] is None else
+               f"; library {row['library_ms'] * 1e3:.2f} us")
+        log(f"phase 24: (d) {row['name']}: {row['ms'] * 1e3:.2f} us a call "
+            f"at the monitor's last chain, {row['phase4_ms'] * 1e3:.2f} at "
+            f"phase 4's shape; plain {row['plain_ms'] * 1e3:.1f} us{lib}; "
+            f"bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); launches "
+            f"{row['launches']} in the run, {row['launches_per_check']} a "
+            f"check {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -10085,6 +10915,61 @@ def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
         f"proposals), K1 {measured(k1 and k1 * 1e3, '.3f')} us, K2 "
         f"{measured(k2 and k2 * 1e3, '.3f')} us a launch ({n_prof} "
         f"proposals profiled) {card}")
+
+
+def check_turn(torch, np, dev, card, reps=3):
+    """One convergence check at the monitor's last chain, for two trees
+    timed in turns, one process each (``python3 chip_smoke.py check-turn
+    TREE``, TREE a checkout whose ``emcee_tpu_torch`` is imported): phase
+    24's ``run_until_converged`` (the same seeds, so the same chain), then
+    the best of ``reps`` checks by the host clock (synchronised), the
+    device memory a check allocates beyond what it is given, and a
+    profiled check's kernels.  Uses only what every tree with K6 has."""
+    import emcee_tpu_torch
+    from emcee_tpu_torch import (
+        ConvergenceMonitor, EnsembleSampler, moves, run_until_converged)
+    from emcee_tpu_torch.backends import DeviceBackend
+    from emcee_tpu_torch.monitor import stored_chain
+
+    tree = Path(emcee_tpu_torch.__file__).parent.parent
+    smp = EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=21,
+                          device=dev, backend=DeviceBackend(),
+                          moves=moves.StretchMove(randomize_split=False,
+                                                  pair_mode="roll"))
+    p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
+    run_until_converged(smp, p0, max_steps=2000, check_every=200,
+                        monitor=ConvergenceMonitor(rhat_threshold=1.01),
+                        thin_by=10, skip_initial_state_check=True)
+    chain = stored_chain(smp)
+    mon = ConvergenceMonitor(rhat_threshold=1.01)
+    mon.update(chain)
+
+    def check():
+        return ConvergenceMonitor(rhat_threshold=1.01).update(chain)
+
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    check()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    _, kernels = profile_window(torch, check)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"check turn: {tree}: one check at {tuple(chain.shape)}: "
+        f"{best * 1e3:.2f} ms (best of {reps}), "
+        f"{sum(c for c, _ in kernels.values())} kernels, {extra} bytes of "
+        f"device memory beyond the chain; tau "
+        f"{np.array2string(mon.tau, precision=4)}, rhat "
+        f"{np.array2string(mon.rhat, precision=6)}; costliest "
+        + "; ".join(f"{k[:40]} {c} x {us / c:.1f} us" for k, (c, us) in top)
+        + f" {card}")
 
 
 def kernel_turn(torch, np, dev, card, n_prof=64):
@@ -10314,7 +11199,8 @@ def _build_dir():
 
 
 def main() -> int:
-    turn = sys.argv[1:2] in (["main-path"], ["kernel-turn"])
+    turn = sys.argv[1:2] in (["main-path"], ["kernel-turn"],
+                             ["check-turn"])
     if turn and len(sys.argv) > 2:
         # The tree whose package the turn imports, ahead of this one's.
         sys.path.insert(0, str(inner_tree(sys.argv[2])))
@@ -10362,6 +11248,9 @@ def main() -> int:
         if sys.argv[1] == "main-path":
             _build.build_all(["stretch_propose", "accept_select"])
             main_path_turn(torch, np, dev, card)
+        elif sys.argv[1] == "check-turn":
+            _build.build_all()
+            check_turn(torch, np, dev, card)
         else:
             _build.build_all([k for k in (
                 "stretch_propose", "accept_select", "pt_swap", "philox_draw",
@@ -10386,12 +11275,12 @@ def main() -> int:
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
                         ["17"], ["18"], ["19"], ["20"], ["21"], ["22"],
-                        ["23"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 or 23 alone
-        # (a first check of the blobs, the extension moves, the gradient
-        # moves, tempering, K14, the DE family on every rung, the gradient
-        # moves on every rung, K7, the shuffled split's K16 and K17, K8,
-        # K10 or K9).
+                        ["23"], ["24"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23 or 24
+        # alone (a first check of the blobs, the extension moves, the
+        # gradient moves, tempering, K14, the DE family on every rung, the
+        # gradient moves on every rung, K7, the shuffled split's K16 and
+        # K17, K8, K10, K9 or K6).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
@@ -10399,7 +11288,8 @@ def main() -> int:
                  "16": phase16, "17": phase17,
                  "18": phase18, "19": phase19,
                  "20": phase20, "21": phase21,
-                 "22": phase22, "23": phase23}[sys.argv[1]]
+                 "22": phase22, "23": phase23,
+                 "24": phase24}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -11030,6 +11920,12 @@ def main() -> int:
     _, rows23 = phase23(torch, np, dev, card)
     rows += rows23
     log(f"phase 23: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 24. K6, the diagnostics' fused chains --------------------------------
+    t0 = time.perf_counter()
+    _, rows24 = phase24(torch, np, dev, card)
+    rows += rows24
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

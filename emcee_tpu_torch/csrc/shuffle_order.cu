@@ -22,7 +22,10 @@
 //
 // The sort key is one 64-bit word (key << 32 | index): the words are
 // distinct, so any correct sort of them is the stable sort of the keys,
-// and an unstable network such as a bitonic sort serves.
+// and an unstable network such as a bitonic sort serves.  Where the caller
+// gives `sorted`, the last launch also writes each segment's words in
+// sorted order, sorted[r * n + p] (R-hat's ranks, csrc/rhat.cu, read
+// their keys and positions so, contiguously); the order is then optional.
 //
 // Three routes (ops/shuffle_kernel.py shuffle_plan), the segment on the
 // grid's second dimension:
@@ -80,15 +83,20 @@ constexpr int kMergeThreads = 256;
 constexpr uint64_t kPad = ~0ull;
 
 // Member i of group j of segment r (sorted position p = i * nsplits + j)
-// is walker `idx` of the segment.
+// is walker `idx` of the segment, its sort word w; the order and the
+// sorted words where given.
 __device__ __forceinline__ void write_order(long long* __restrict__ order,
+                                            unsigned long long* __restrict__
+                                                sorted,
                                             int r, int n, int nsplits, int ng,
-                                            int p, uint32_t idx) {
+                                            int p, uint64_t w) {
+  const long long base = static_cast<long long>(r) * n;
+  if (sorted != nullptr) sorted[base + p] = w;
+  if (order == nullptr) return;
   const int i = p / nsplits;
   const int j = p - i * nsplits;
-  const long long base = static_cast<long long>(r) * n;
   order[base + static_cast<long long>(j) * ng + i] =
-      base + static_cast<long long>(idx);
+      base + static_cast<long long>(static_cast<uint32_t>(w));
 }
 
 // The sort word of walker i of a segment's keys: (key << 32) | i.
@@ -101,8 +109,8 @@ __device__ __forceinline__ uint64_t sort_word(const long long* __restrict__ k,
 // The rank route: block blockIdx.x of segment blockIdx.y ranks the
 // segment's words [blockIdx.x * kRankThreads, +kRankThreads).
 __global__ void __launch_bounds__(kRankThreads) group_rank_kernel(
-    const long long* __restrict__ keys, long long* __restrict__ order, int n,
-    int nsplits, int ng) {
+    const long long* __restrict__ keys, long long* __restrict__ order,
+    unsigned long long* __restrict__ sorted, int n, int nsplits, int ng) {
   __shared__ unsigned long long s[kRankMax];
   const int r = blockIdx.y;
   const long long* k = keys + static_cast<long long>(r) * n;
@@ -114,7 +122,7 @@ __global__ void __launch_bounds__(kRankThreads) group_rank_kernel(
   int p = 0;
 #pragma unroll 8
   for (int j = 0; j < n; ++j) p += s[j] < v;
-  write_order(order, r, n, nsplits, ng, p, static_cast<uint32_t>(v));
+  write_order(order, sorted, r, n, nsplits, ng, p, v);
 }
 
 // Sorts chunk blockIdx.x (of `chunk` walkers, a power of two) of segment
@@ -124,6 +132,7 @@ __global__ void __launch_bounds__(kRankThreads) group_rank_kernel(
 template <bool kFinal>
 __global__ void __launch_bounds__(kSortThreadsMax) group_order_kernel(
     const long long* __restrict__ keys, long long* __restrict__ order,
+    unsigned long long* __restrict__ sorted,
     unsigned long long* __restrict__ words, int n, int nsplits, int ng,
     int chunk) {
   extern __shared__ unsigned long long s[];
@@ -156,7 +165,7 @@ __global__ void __launch_bounds__(kSortThreadsMax) group_order_kernel(
   for (int p = threadIdx.x; p < len; p += blockDim.x) {
     const uint64_t w = s[p];
     if constexpr (kFinal) {
-      write_order(order, r, n, nsplits, ng, p, static_cast<uint32_t>(w));
+      write_order(order, sorted, r, n, nsplits, ng, p, w);
     } else {
       words[static_cast<long long>(r) * n + c0 + p] = w;
     }
@@ -185,7 +194,8 @@ template <bool kFinal>
 __global__ void __launch_bounds__(kMergeThreads) group_merge_kernel(
     const unsigned long long* __restrict__ src,
     unsigned long long* __restrict__ dst, long long* __restrict__ order,
-    int n, int nsplits, int ng, int run) {
+    unsigned long long* __restrict__ sorted, int n, int nsplits, int ng,
+    int run) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   const long long at = static_cast<long long>(blockIdx.y) * n;
@@ -205,8 +215,7 @@ __global__ void __launch_bounds__(kMergeThreads) group_merge_kernel(
     p = base + (i - run) + below(seg + base, run, v);
   }
   if constexpr (kFinal) {
-    write_order(order, blockIdx.y, n, nsplits, ng, p,
-                static_cast<uint32_t>(v));
+    write_order(order, sorted, blockIdx.y, n, nsplits, ng, p, v);
   } else {
     dst[at + p] = v;
   }
@@ -222,20 +231,22 @@ int merge_passes(int chunks) {
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/shuffle_kernel.py).  keys
-// (ntemps, n) int64 and order (ntemps * n) int64 are device pointers;
-// scratch holds 2 * ntemps * n words (the long route; unused, and may be
-// null, on the others).  chunk 0 takes the rank route (n <= kRankMax);
-// else chunk is a power of two from 2 to kChunkMax and threads the
-// sorting block's (a multiple of 32, at most kSortThreadsMax), and chunk
-// >= n takes the short route.  Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue, and no
-// launch, for arguments out of range).
+// (ntemps, n) int64, order (ntemps * n) int64 and sorted (ntemps * n)
+// words are device pointers, order or sorted (but not both) null for an
+// output not wanted; scratch holds 2 * ntemps * n words (the long route;
+// unused, and may be null, on the others).  chunk 0 takes the rank route
+// (n <= kRankMax); else chunk is a power of two from 2 to kChunkMax and
+// threads the sorting block's (a multiple of 32, at most kSortThreadsMax),
+// and chunk >= n takes the short route.  Returns cudaGetLastError() after
+// the launches (cudaErrorInvalidValue, and no launch, for arguments out of
+// range).
 extern "C" int emcee_group_order(const long long* keys, long long* order,
+                                 unsigned long long* sorted,
                                  unsigned long long* scratch, int ntemps,
                                  int n, int nsplits, int chunk, int threads,
                                  void* stream) {
   if (ntemps < 1 || ntemps > 65535 || n < 1 || nsplits < 1 ||
-      n % nsplits != 0) {
+      n % nsplits != 0 || (order == nullptr && sorted == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -243,7 +254,8 @@ extern "C" int emcee_group_order(const long long* keys, long long* order,
   if (chunk == 0) {
     if (n > kRankMax) return static_cast<int>(cudaErrorInvalidValue);
     group_rank_kernel<<<dim3((n + kRankThreads - 1) / kRankThreads, ntemps),
-                        kRankThreads, 0, st>>>(keys, order, n, nsplits, ng);
+                        kRankThreads, 0, st>>>(keys, order, sorted, n,
+                                               nsplits, ng);
     return static_cast<int>(cudaGetLastError());
   }
   if (chunk < 2 || chunk > kChunkMax ||
@@ -255,7 +267,7 @@ extern "C" int emcee_group_order(const long long* keys, long long* order,
   const size_t smem = sizeof(unsigned long long) * chunk;
   if (chunk >= n) {
     group_order_kernel<true><<<dim3(1, ntemps), threads, smem, st>>>(
-        keys, order, nullptr, n, nsplits, ng, chunk);
+        keys, order, sorted, nullptr, n, nsplits, ng, chunk);
     return static_cast<int>(cudaGetLastError());
   }
   const int chunks = (n + chunk - 1) / chunk;
@@ -263,17 +275,17 @@ extern "C" int emcee_group_order(const long long* keys, long long* order,
   unsigned long long* buf[2] = {
       scratch, scratch + static_cast<size_t>(ntemps) * n};
   group_order_kernel<false><<<dim3(chunks, ntemps), threads, smem, st>>>(
-      keys, order, buf[0], n, nsplits, ng, chunk);
+      keys, nullptr, nullptr, buf[0], n, nsplits, ng, chunk);
   const dim3 grid((n + kMergeThreads - 1) / kMergeThreads, ntemps);
   int run = chunk;
   for (int m = 0; m < merges; ++m, run *= 2) {
     const unsigned long long* src = buf[m & 1];
     if (m + 1 == merges) {
       group_merge_kernel<true><<<grid, kMergeThreads, 0, st>>>(
-          src, nullptr, order, n, nsplits, ng, run);
+          src, nullptr, order, sorted, n, nsplits, ng, run);
     } else {
       group_merge_kernel<false><<<grid, kMergeThreads, 0, st>>>(
-          src, buf[(m + 1) & 1], order, n, nsplits, ng, run);
+          src, buf[(m + 1) & 1], nullptr, nullptr, n, nsplits, ng, run);
     }
   }
   return static_cast<int>(cudaGetLastError());

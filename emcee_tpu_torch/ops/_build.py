@@ -55,6 +55,13 @@ KERNELS = {
     "slice_step_out": ("slice_loops.cu", "emcee_slice_step_out"),
     "slice_shrink": ("slice_loops.cu", "emcee_slice_shrink"),
     "slice_finish": ("slice_loops.cu", "emcee_slice_finish"),
+    "acf_center": ("acf.cu", "emcee_acf_center"),
+    "acf_power": ("acf.cu", "emcee_acf_power"),
+    "acf_reduce": ("acf.cu", "emcee_acf_reduce"),
+    "tau_window": ("acf.cu", "emcee_tau_window"),
+    "rank_keys": ("rhat.cu", "emcee_rank_keys"),
+    "rank_scores": ("rhat.cu", "emcee_rank_scores"),
+    "psrf": ("rhat.cu", "emcee_psrf"),
 }
 
 _FLAGS = [
@@ -171,7 +178,7 @@ _ARGTYPES = {
         _P,  # stream
     ],
     "group_order": [
-        _P, _P, _P,  # keys, order, scratch
+        _P, _P, _P, _P,  # keys, order, sorted words, scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps n nsplits
         ctypes.c_int, ctypes.c_int,  # plan: chunk threads
         _P,  # stream
@@ -229,6 +236,36 @@ _ARGTYPES = {
         _P,  # stream
     ] for name in ("slice_setup", "slice_step_out", "slice_shrink",
                    "slice_finish")},
+    "acf_center": [
+        _P, _P,  # x, out
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # strides
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nt lo nser
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nd m2 f64
+        _P,  # stream
+    ],
+    "acf_power": [
+        _P, ctypes.c_longlong,  # the spectrum, its complex values
+        ctypes.c_int, ctypes.c_int,  # f64, blocks
+        _P,  # stream
+    ],
+    "acf_reduce": [
+        _P, _P,  # acf, part
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nt nd m2
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nw wg groups
+        ctypes.c_int, ctypes.c_int,  # first, f64
+        _P,  # stream
+    ],
+    "tau_window": [
+        _P, _P, _P, _P,  # part, f, tau, win
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # groups nt nd
+        ctypes.c_double, ctypes.c_int,  # nw, method
+        ctypes.c_double, ctypes.c_double,  # c, floor
+        _P,  # stream
+    ],
+    **{name: [
+        _P,  # the arguments (host struct, ops/autocorr_kernel.py RhatArgs)
+        _P,  # stream
+    ] for name in ("rank_keys", "rank_scores", "psrf")},
 }
 
 

@@ -3,20 +3,25 @@
 The counterpart of ``emcee_tpu/ops/autocorr.py:27-200``: FFT-based
 normalized ACF per (walker, dim) series, walker-averaged in chunks, then
 Sokal's automated window ``tau = taus[argmin(arange < c * taus)]`` with a
-``tol * tau > n`` check.
+``tol * tau > n`` check, Geyer's initial monotone sequence
+(``:115-149``), and the rank-normalised split R-hat (``:219-371``).
 
-The FFTs run with ``torch.fft`` on the chain's device (cuFFT on the card,
-a library call as XLA's FFT was), so a device-resident chain does not
-leave the card.  With Sokal's window only the walker-averaged ACF
-``(n_t, n_d)`` comes back, and the windowing and the estimate are
-float64 on the host.  Geyer's initial monotone sequence
-(``emcee_tpu/ops/autocorr.py:115-149``) and the rank-normalised split
-R-hat (``:219-371``) run on the chain's device too, as torch operations:
-only their ``(n_d,)`` result leaves it.  The JAX package computes the
-estimates in float32 (reference defect R2, ``ops/autocorr.py:146``), so
-the two agree to float32 tolerance.  A numpy chain stays float64 on the
-host: its FFTs and Geyer's sums run in float64 torch on the CPU, and its
-R-hat in numpy and scipy, as the JAX host path computes it.
+Each entry point runs by its input:
+
+* a CUDA tensor takes K6 (:mod:`.autocorr_kernel`): the hand-written
+  passes around cuFFT (``torch.fft``), the walker sum and both windows in
+  float64 on the card, the keys, K16's stable sort, the tie-averaged ranks'
+  normal scores and the PSRF; only the ``(n_d,)`` result leaves the card
+  (a float16 or bfloat16 chain is widened to float32 there first);
+* a CPU tensor takes the plain versions below, as torch operations on
+  the CPU (Sokal's window float64 on the host);
+* a numpy chain stays float64 on the host: its FFTs and Geyer's sums run
+  in float64 torch on the CPU, and its R-hat in numpy and scipy, as the
+  JAX host path computes it.
+
+Nothing falls back from one route to another.  The JAX package computes
+the estimates in float32 (reference defect R2, ``ops/autocorr.py:146``),
+so the routes agree with it to float32 tolerance.
 """
 
 from __future__ import annotations
@@ -25,6 +30,10 @@ import logging
 
 import numpy as np
 import torch
+
+from . import autocorr_kernel as ak
+from .autocorr_kernel import (FFT_BUDGET, geyer_plain, next_pow_two,
+                              psrf_block, sokal_plain)
 
 __all__ = ["AutocorrError", "ess", "function_1d", "integrated_time",
            "next_pow_two", "rhat"]
@@ -41,13 +50,6 @@ class AutocorrError(Exception):
     def __init__(self, tau, *args, **kwargs):
         self.tau = tau
         super().__init__(*args, **kwargs)
-
-
-def next_pow_two(n: int) -> int:
-    i = 1
-    while i < n:
-        i <<= 1
-    return i
 
 
 def _as_tensor(x):
@@ -71,17 +73,31 @@ def function_1d(x):
     x = torch.atleast_1d(_as_tensor(x))
     if x.dim() != 1:
         raise ValueError("invalid dimensions for 1D autocorrelation function")
+    if _on_kernels(x):
+        x = _widen(x)
+        f, _ = _acf_kernels(x[:, None, None])
+        return f[:, 0].to(x.dtype).cpu().numpy()
     return _acf_batched(x).cpu().numpy()
 
 
-def _walker_mean_acf(x):
+def _on_kernels(x):
+    """Whether ``x`` takes K6: a CUDA tensor does."""
+    return isinstance(x, torch.Tensor) and x.is_cuda
+
+
+def _widen(x):
+    """A float16 or bfloat16 chain as float32 (on its device)."""
+    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+
+
+def _walker_mean_acf(x, budget=FFT_BUDGET):
     """(n_t, n_w, n_d) -> walker-averaged ACF (n_t, n_d), a tensor on the
     chain's device.  The walker average accumulates chunk by chunk, each
-    chunk budgeted at ~256 MB of FFT scratch (the padded spectra are
-    ``2 * next_pow_two(n_t)`` complex values per series)."""
+    chunk budgeted at ``budget`` bytes (~256 MB) of FFT scratch (the padded
+    spectra are ``2 * next_pow_two(n_t)`` complex values per series)."""
     n_t, n_w, n_d = x.shape
     per_walker = 2 * next_pow_two(n_t) * n_d * 2 * x.element_size()
-    chunk = max(1, min(n_w, (256 << 20) // max(per_walker, 1)))
+    chunk = max(1, min(n_w, budget // max(per_walker, 1)))
     f = None
     for lo in range(0, n_w, chunk):
         part = _acf_batched(x[:, lo:lo + chunk, :]).sum(dim=1)
@@ -90,35 +106,50 @@ def _walker_mean_acf(x):
 
 
 def _tau_from_f(f, c):
-    """Sokal windowing of the walker-averaged ACF ``f`` (n_t, n_d)."""
-    n_t = f.shape[0]
-    taus = 2.0 * np.cumsum(f, axis=0) - 1.0
-    mask = np.arange(n_t)[:, None] < c * taus
-    windows = np.where(mask.any(axis=0), np.argmin(mask, axis=0), n_t - 1)
-    return np.take_along_axis(taus, windows[None, :], axis=0)[0]
+    """Sokal windowing of the walker-averaged ACF ``f`` (n_t, n_d), a
+    float64 numpy array (:func:`.autocorr_kernel.sokal_plain`)."""
+    return sokal_plain(f, c)[0]
 
 
 def _tau_geyer(f):
-    """Geyer's (1992) initial-monotone-sequence tau from the
-    walker-averaged ACF ``f`` (n_t, n_d), a tensor, on its device: the
-    pair sums ``G_k = rho_2k + rho_2k+1``, truncated at the first that is
-    not positive, made monotone by a running minimum (``torch.cummin``),
-    and ``tau = -1 + 2 sum_k G_k``, floored at ``1 / log10(n_t)`` (Stan's
-    cap on ESS) as ``emcee_tpu/ops/autocorr.py:115-149`` computes it.
-    Returns an ``(n_d,)`` tensor (NaN when ``n_t < 2``)."""
-    n_t = f.shape[0]
-    npairs = n_t // 2
-    if npairs < 1:
-        return torch.full(f.shape[1:], float("nan"), dtype=f.dtype,
-                          device=f.device)
-    g = f[0:2 * npairs:2] + f[1:2 * npairs:2]
-    pos = g > 0.0
-    k_stop = torch.where((~pos).any(dim=0),
-                         pos.to(torch.int8).argmin(dim=0), npairs)
-    g_mono = torch.cummin(g, dim=0).values
-    keep = torch.arange(npairs, device=f.device)[:, None] < k_stop[None, :]
-    tau = -1.0 + 2.0 * torch.where(keep, g_mono, 0.0).sum(dim=0)
-    return tau.clamp_min(1.0 / np.log10(max(float(n_t), 10.0)))
+    """Geyer's tau from the walker-averaged ACF ``f`` (n_t, n_d), a
+    tensor, on its device (:func:`.autocorr_kernel.geyer_plain`); an
+    ``(n_d,)`` tensor, NaN when ``n_t < 2``."""
+    return geyer_plain(f)[0]
+
+
+def _acf_kernels(x, method="sokal", c=5.0, budget=FFT_BUDGET):
+    """K6a and K6b on the chain ``x`` ``(n_t, n_w, n_d)`` (float32 or
+    float64, read in place through its strides): per walker chunk of the
+    FFT budget, the centred series (``acf_center``), ``rfft``, ``|F|^2``
+    (``acf_power``), ``irfft`` into the same buffer and the walker sum
+    into float64 partials (``acf_reduce``); then the mean ACF and the
+    window (``tau_window``).  Returns ``(f, tau)``: the walker-averaged ACF
+    ``(n_t, n_d)`` and tau ``(n_d,)``, float64 tensors on ``x``'s
+    device."""
+    n_t, n_w, n_d = x.shape
+    dev = x.device
+    plan = ak.acf_plan(n_t, n_w, n_d, x.element_size(), ak.plan_sms(dev),
+                       budget)
+    cplx = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+    buf = torch.empty(plan.chunk * n_d, plan.m2, dtype=x.dtype, device=dev)
+    spec = torch.empty(plan.chunk * n_d, plan.m2 // 2 + 1, dtype=cplx,
+                       device=dev)
+    part = torch.empty(plan.groups, n_t, n_d, dtype=torch.float64,
+                       device=dev)
+    for lo in range(0, n_w, plan.chunk):
+        w = min(plan.chunk, n_w - lo)
+        b, s = buf[:w * n_d], spec[:w * n_d]
+        ak.acf_center(x, lo, w, b)
+        torch.fft.rfft(b, dim=-1, out=s)
+        ak.acf_power(s)
+        torch.fft.irfft(s, n=plan.m2, dim=-1, out=b)
+        ak.acf_reduce(b, part, n_t, n_d, w, plan.wg, lo == 0)
+    f = torch.empty(n_t, n_d, dtype=torch.float64, device=dev)
+    tau = torch.empty(n_d, dtype=torch.float64, device=dev)
+    win = torch.empty(n_d, dtype=torch.int64, device=dev)
+    ak.tau_window(part, n_w, method, c, f, tau, win)
+    return f, tau
 
 
 def integrated_time(x, c=5, tol=50, quiet=False, has_walkers=True,
@@ -138,11 +169,13 @@ def integrated_time(x, c=5, tol=50, quiet=False, has_walkers=True,
         raise ValueError(f"unknown method: {method!r}")
     x = _as_3d(x, has_walkers)
     n_t = x.shape[0]
-    f = _walker_mean_acf(x)
-    if method == "sokal":
-        tau_est = _tau_from_f(f.cpu().double().numpy(), float(c))
+    if _on_kernels(x):
+        tau_est = _acf_kernels(_widen(x), method, float(c))[1].cpu().numpy()
+    elif method == "sokal":
+        tau_est = _tau_from_f(_walker_mean_acf(x).cpu().double().numpy(),
+                              float(c))
     else:
-        tau_est = _tau_geyer(f).cpu().double().numpy()
+        tau_est = _tau_geyer(_walker_mean_acf(x)).cpu().double().numpy()
 
     flag = tol * tau_est > n_t
     if np.any(flag):
@@ -183,14 +216,9 @@ def ess(x, c=5, tol=50, quiet=False, has_walkers=True, method="sokal"):
     return shape[0] * n_w / tau
 
 
-def _psrf_device(x):
-    """Plain PSRF of an ``(n, m, d)`` tensor, on its device; a zero
-    within-chain variance gives NaN (0 / 0), as in the JAX package."""
-    n = x.shape[0]
-    between = n * x.mean(dim=0).var(dim=0, correction=1)
-    within = x.var(dim=0, correction=1).mean(dim=0)
-    var_hat = (n - 1) / n * within + between / n
-    return torch.sqrt(var_hat / within)
+#: plain PSRF of an ``(n, m, d)`` tensor, on its device (NaN for a zero
+#: within-chain variance, as in the JAX package)
+_psrf_device = psrf_block
 
 
 def _avg_ranks(v):
@@ -243,6 +271,49 @@ def _rhat_device(x):
     bulk = _psrf_device(z)
     tail = _psrf_device(_rank_normalize_device((x - median).abs())[0])
     return torch.maximum(bulk, tail)
+
+
+def _rhat_kernels(x, split, rank_normalized, budget=ak.RHAT_BUDGET):
+    """K6c and K6d on the chain ``x`` ``(n, m, d)`` (float32 or float64;
+    a split chain's halves read in place): ``psrf`` of the raw draws, or,
+    the parameters in groups of ``ak.rhat_group`` (the buffers within
+    ``budget`` bytes), for the bulk and then the folded draws ``|x -
+    median|`` the keys (``rank_keys``), K16's sorted words
+    (``stable_order``), the normal scores and the median
+    (``rank_scores``) and ``psrf`` (its maximum with the bulk value for
+    the tail).  The buffers serve both passes and every group.  Returns
+    the ``(d,)`` float64 R-hat on ``x``'s device."""
+    draws = ak.split_draws(x, split)
+    d, S, dev = draws.d, draws.S, x.device
+    out = torch.empty(d, dtype=torch.float64, device=dev)
+    if not rank_normalized:
+        ak.psrf(draws, out)
+        return out
+    if S > ak.DRAWS_MAX:
+        raise ValueError(f"rhat: {S} draws a parameter to rank; K16 sorts "
+                         f"at most {ak.DRAWS_MAX}")
+    f64 = x.dtype == torch.float64
+    g = ak.rhat_group(d, S, f64, budget)
+    lo, sw = (torch.empty(g, S, dtype=torch.int64, device=dev)
+              for _ in range(2))
+    hi, sh = ((torch.empty_like(lo), torch.empty_like(lo)) if f64
+              else (None, None))
+    grp = torch.empty(g * S, dtype=torch.int32, device=dev)
+    z = torch.empty(g, S, dtype=torch.float64, device=dev)
+    med = torch.empty(g, dtype=x.dtype, device=dev)
+    for j0 in range(0, d, g):
+        k = min(g, d - j0)
+        part = draws._replace(x=draws.x[..., j0:j0 + k])
+        keys = (lo[:k], None if hi is None else hi[:k])
+        words = (sw[:k], None if sh is None else sh[:k])
+        scores = ak.score_draws(z[:k], draws.h, draws.C)
+        for tail in (False, True):
+            ak.rank_keys(part, *keys, med[:k] if tail else None)
+            ak.stable_order(*keys, *words)
+            ak.rank_scores(part, *words, grp[:k * S], z[:k],
+                           None if tail else med[:k])
+            ak.psrf(scores, out[j0:j0 + k], prior=tail)
+    return out
 
 
 def _psrf(x):
@@ -300,16 +371,19 @@ def rhat(x, split=True, rank_normalized=True):
     if x.ndim != 3:
         raise ValueError("invalid dimensions")
     n = x.shape[0]
+    h = n // 2
+    if split and h < 2:
+        raise ValueError("need at least 4 steps for split R-hat")
+    if x.shape[1] * (2 if split else 1) < 2:
+        raise ValueError("R-hat needs at least 2 chains")
+    if _on_kernels(x):
+        x = _widen(x if x.is_floating_point() else x.double())
+        return _rhat_kernels(x, split, rank_normalized).cpu().numpy()
     if split:
-        h = n // 2
-        if h < 2:
-            raise ValueError("need at least 4 steps for split R-hat")
         if on_device:
             x = torch.cat([x[:h], x[n - h:]], dim=1)
         else:
             x = np.concatenate([x[:h], x[n - h:]], axis=1)
-    if x.shape[1] < 2:
-        raise ValueError("R-hat needs at least 2 chains")
     if on_device:
         x = x if x.is_floating_point() else x.double()
         r = _rhat_device(x) if rank_normalized else _psrf_device(x)

@@ -15,7 +15,10 @@ program and ``emcee_tpu/parallel/tempering.py:538`` vmaps over the rungs.
   most ``RANK_MAX`` walkers is ranked in shared memory (each thread counts
   the keys below its own; one launch), one of at most ``CHUNK_MAX`` sorted
   by one block's bitonic network (one launch), a longer one by chunks
-  sorted so and merge passes (:func:`shuffle_plan`).
+  sorted so and merge passes (:func:`shuffle_plan`).  :func:`sorted_words`
+  runs it with one split and writes the sort words ``(key << 32) | index``
+  in sorted order (the order optional), as R-hat's ranks read them
+  (``ops/autocorr_kernel.py``).
 * **K17, the rows** (:func:`gather_rows`, :func:`scatter_rows`,
   ``csrc/gather_rows.cu``): every buffer's rows through the order in one
   launch, each buffer a descriptor (bases, row bytes, copy unit) as K2's
@@ -25,7 +28,8 @@ program and ``emcee_tpu/parallel/tempering.py:538`` vmaps over the rungs.
 
 The plain versions are the route the port took before the kernels, moved
 here unchanged: ``torch.argsort(stable=True)``, the transpose and the
-base add (:func:`group_order_plain`); ``index_select`` and ``index_copy_``
+base add (:func:`group_order_plain`; ``torch.sort(stable=True)`` for
+:func:`sorted_words_plain`); ``index_select`` and ``index_copy_``
 a buffer (:func:`gather_rows_plain`, :func:`scatter_rows_plain`).  On the
 card the kernels equal them bit for bit and byte for byte.
 
@@ -50,7 +54,8 @@ from .accept_kernel import blob_unit
 __all__ = ["CHUNK_MAX", "MERGE_CHUNK_MIN", "ROWS_CAPACITY", "ShufflePlan",
            "gather_rows", "gather_rows_plain", "group_order",
            "group_order_plain", "rows_plan", "scatter_rows",
-           "scatter_rows_plain", "shuffle_plan"]
+           "scatter_rows_plain", "shuffle_plan", "sorted_words",
+           "sorted_words_plain"]
 
 #: the longest segment (and chunk) one block sorts in shared memory
 #: (kChunkMax in csrc/shuffle_order.cu): 4096 8-byte words, 32 KB
@@ -179,17 +184,58 @@ def group_order(words, nsplits, out=None):
     return out
 
 
-def _launch_order(plan, words, nsplits, out):
-    """Launch K16 with plan ``plan`` on checked arguments; scratch for the
-    long route comes from ``torch.empty`` (a graph records it in its
-    pool)."""
+def sorted_words_plain(keys, words, order=None):
+    """Plain K16 with one split: ``torch.sort(stable=True)`` of each row of
+    ``keys``, as the words ``(key << 32) | index`` into ``words`` and the
+    flat rows into ``order`` where given."""
+    T, n = _segments(keys)
+    vals, idx = torch.sort(keys.view(T, n), dim=-1, stable=True)
+    words.view(T, n).copy_((vals << 32) | idx)
+    if order is not None:
+        base = torch.arange(0, T * n, n, device=keys.device)
+        order.copy_((idx + base[:, None]).reshape(-1))
+
+
+def sorted_words(keys, words, order=None):
+    """K16 with one split on ``keys``' device: each segment's (row of
+    ``keys``) stable sort of its keys (int64 words below ``2**32``), as
+    the words ``(key << 32) | index in the segment`` in sorted order into
+    ``words`` (``keys``' shape, int64) and, where ``order`` ``(T * n,)``
+    is given, the flat rows as :func:`group_order` writes them.  The CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if keys.device.type == "cpu":
+        return sorted_words_plain(keys, words, order)
+    if keys.device.type != "cuda":
+        raise ValueError(f"no K16 kernel for device {keys.device}")
+    T, n = _segments(keys)
+    dev = keys.device
+    for name, t, shape in (("the sort keys", keys, tuple(keys.shape)),
+                           ("words", words, tuple(keys.shape)),
+                           ("order", order, (T * n,))):
+        if t is not None and (t.device != dev or t.dtype != torch.int64
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} int64 "
+                             f"tensor on {dev}")
+    if T > 65535 or T * n >= 2**31 or n >= 2**29:
+        raise ValueError(f"too many keys for K16: {T} x {n}")
+    plan = shuffle_plan(T, n, 1, device_sm_count(dev))
+    _launch_order(plan, keys, 1, order, words)
+
+
+def _launch_order(plan, words, nsplits, out, sorted_out=None):
+    """Launch K16 with plan ``plan`` on checked arguments (the order into
+    ``out``, the sorted words into ``sorted_out``, either None); scratch
+    for the long route comes from ``torch.empty`` (a graph records it in
+    its pool)."""
     T, n = _segments(words)
     scratch = None
     if plan.route == "long":
         scratch = torch.empty(2 * T * n, dtype=torch.int64,
                               device=words.device)
-    launch("group_order", words.device, words.data_ptr(), out.data_ptr(),
-           ptr(scratch), T, n, nsplits, plan.chunk, plan.threads)
+    launch("group_order", words.device, words.data_ptr(), ptr(out),
+           ptr(sorted_out), ptr(scratch), T, n, nsplits, plan.chunk,
+           plan.threads)
     count_launches(group_order, plan.launches)
 
 
