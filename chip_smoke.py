@@ -372,8 +372,33 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    rows of K6a-K6d.  ``python3 chip_smoke.py 24`` runs phases 0, 1 and 24
    alone.
 
+25. The side and walk moves (K5a's side mode, ``csrc/de_propose.cu``;
+   K8a and K8b's walk mode, ``csrc/dime_moments.cu``; K18a and K18b,
+   ``csrc/walk_propose.cu``): (a) every new kernel and mode against its
+   plain version on the same inputs, bit for bit (ndim 1-100, 37-5e4
+   walkers a split, 1, 3 and 16 rungs, both splits, scale unset and set,
+   a host offset and a device offset word, both pair modes, exact and
+   bootstrap subsets of s0 1 to nc - 1, the exact sort at nc 4096 and
+   above 4096 by K16 in two ranges of walkers, picks and normals staged
+   and drawn as summed, injected draws, each rung against the rung
+   alone, a singular complement); (b) each alone at 1e5 x 5-D and on
+   workload 4's ladder (CUDA events around graph replays) beside its
+   plain version, its bound and the library calls ``cholesky_ex``,
+   ``addmm`` / ``baddbmm`` and ``argsort(stable=True)``; (c)
+   ``SideMove(roll)``, ``WalkMove()`` and ``WalkMove(s=16)`` at 1e5 on the
+   blocked split (graph == plain eager chain, device us and kernels a
+   proposal, launches held exactly by device words: no K14) and a
+   singular walk complement (every proposal rejected, the chain
+   unchanged); (d) ``SideMove()``, ``SideMove(roll)``, ``WalkMove()`` and
+   ``WalkMove(s=16)`` on workload 4's ladder (``pt21_path``: graph ==
+   eager, batched == per-rung loop bit for bit, turns, launches, 512 kept
+   x 4 in phase 14's windows, both backends equal); (e) the rows, one
+   ensemble and with the rung axis.  ``python3 chip_smoke.py 25`` runs
+   phases 0, 1 and 25 alone.  Phase 10's walk moves and phase 12's side
+   move count these kernels too (K14 only for the shuffle's keys).
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22, 23, 24.  Every phase raises on failure.  ``python3
+18, 19, 20, 21, 22, 23, 24, 25.  Every phase raises on failure.  ``python3
 chip_smoke.py sass-diff TREE`` builds TREE's and this checkout's K1, K2,
 K5a, K5b, K11, K12, K13 and K15 and compares their SASS function by
 function.
@@ -386,7 +411,8 @@ with TREE's package, for turns of two trees; ``python3 chip_smoke.py
 kernel-turn TREE`` times K14 and K2's rung axis in the replays of
 workload 4 (with and without its blobs), of the DIME stage and of
 ``StretchMove()`` at 1e5 walkers with TREE's package (and K16 and K17
-where TREE has them), likewise; ``python3 chip_smoke.py check-turn TREE``
+where TREE has them; the DE-Z, slice, side and walk moves' device time
+and kernels a proposal), likewise; ``python3 chip_smoke.py check-turn TREE``
 times one convergence check at phase 24's monitor's last chain with
 TREE's package (its seconds, kernels and device memory), likewise;
 ``python3 chip_smoke.py phase-times TREE``
@@ -453,7 +479,8 @@ K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
 #: (K2's rung axis has a kernel of its own)
 KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",),
                   "group_order": ("group_rank_kernel", "group_merge_kernel"),
-                  "rank_scores": ("rank_scan_kernel", "rank_finish_kernel")}
+                  "rank_scores": ("rank_scan_kernel", "rank_finish_kernel"),
+                  "walk_subset": ("walk_sort_kernel", "walk_keys_kernel")}
 
 
 def launched_by(name, key):
@@ -493,7 +520,9 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("autocorr_kernel", "tau_window"),
            ("autocorr_kernel", "rank_keys"),
            ("autocorr_kernel", "rank_scores"),
-           ("autocorr_kernel", "psrf"))
+           ("autocorr_kernel", "psrf"),
+           ("walk_kernel", "walk_propose"),
+           ("walk_kernel", "walk_subset"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -2014,11 +2043,13 @@ def phase10(torch, np, dev, card, chains):
         z = normals(x.shape[0], x.shape[1], seed, offset, x.device)
         return x + 0.5 * z, torch.zeros(x.shape[0], device=x.device)
 
-    # (label, move, proposals, K2 and K14 launches a proposal).  K14: the
-    # normals (one draw; a split's each for the red-blue moves), the
-    # Gaussian move's random dimensions, the walk move's subset picks and
-    # the KDE move's kernel centres (one a split each), and the shuffled
-    # split's sort keys (one a proposal, the red-blue moves' default).
+    # (label, move, proposals, K2 and K14 launches a proposal[, other
+    # kernels a proposal]).  K14: the normals (one draw; a split's each for
+    # the red-blue moves), the Gaussian move's random dimensions and the
+    # KDE move's kernel centres (one a split each), and the shuffled
+    # split's sort keys (one a proposal, the red-blue moves' default); the
+    # walk move draws in its kernels (phase 25: K8a, K8b and K18a, or
+    # K18b).
     configs = (
         ("GaussianMove(0.5)", lambda: moves.GaussianMove(0.5), 64, 1, 1),
         ("GaussianMove(0.5, mode='random')",
@@ -2029,8 +2060,10 @@ def phase10(torch, np, dev, card, chains):
          1),
         ("MHMove(Philox normals)", lambda: moves.MHMove(mh_proposal), 64,
          1, 1),
-        ("WalkMove()", moves.WalkMove, 64, 2, 3),
-        ("WalkMove(s=16)", lambda: moves.WalkMove(s=16), 64, 2, 5),
+        ("WalkMove()", moves.WalkMove, 64, 2, 1,
+         {k: v for k, v in WALK_SHARED_PER.items() if k != "accept_select"}),
+        ("WalkMove(s=16)", lambda: moves.WalkMove(s=16), 64, 2, 1,
+         {"walk_subset": 2}),
         ("KDEMove()", moves.KDEMove, 8, 2, 5),
     )
     out = {"moves": {}}
@@ -3054,7 +3087,8 @@ def phase12(torch, np, dev, card):
     with path_launches(out, "blended", (
             "accept_select", "de_propose", "snooker_propose")):
         out["blended"] = phase12_blended(torch, np, dev, card)
-    with path_launches(out, "side_slice", ("accept_select",) + K9_KERNELS):
+    with path_launches(out, "side_slice",
+                       ("accept_select", "de_propose") + K9_KERNELS):
         out["side_slice"] = phase12_side_slice(torch, np, dev, card)
     with path_launches(out, "dez", ("accept_select",) + tuple(K10_KERNELS)):
         out["dez"] = phase12_dez(torch, np, dev, card)
@@ -3297,7 +3331,7 @@ def phase12_side_slice(torch, np, dev, card, n=64):
         torch, np, dev, card, p0,
         ("SideMove(pair_mode='roll', randomize_split=False)",
          lambda: moves.SideMove(pair_mode="roll", randomize_split=False),
-         n, 2, 4), zero, phase="phase 12: (d)")}
+         n, 2, 0, {"de_propose": 2}), zero, phase="phase 12: (d)")}
     # A slice proposal: K14 once (the shuffle's keys: K9a and K9c draw
     # their own), K9a, K9d and K9c's first list once a group, K9b and K9c
     # once a trip, held exactly by device words.
@@ -8448,10 +8482,10 @@ def k8_sweep(torch, dev):
         got = [t.clone() for t in carry]
         want = [t.clone() for t in carry]
         dk.dime_finish(dk.dime_moments(x, (0, 0), got[0], got[2], K), *got,
-                       cfg, update=True)
+                       cfg, mode="update")
         dk.dime_finish_plain(dk.dime_moments_plain(x, (0, 0), want[0],
                                                    want[2], K), *want, cfg,
-                             update=True)
+                             mode="update")
         same(got, want, f"{what}: the carry update")
         return outs
 
@@ -8617,7 +8651,7 @@ def k8_plan_sweep(torch, dev, card):
                     scratch, *carry, cfg)),
                 "update": replay_ms(torch, lambda: dk.dime_finish(
                     dk.dime_moments(x, (0, 0), upd[0], upd[2], 1,
-                                    rows=rows), *upd, cfg, update=True)),
+                                    rows=rows), *upd, cfg, mode="update")),
                 "blocks": part.shape[-3]}
     log("phase 21: (b) K8a + K8b at the DIME stage's shape (a split's "
         "5e4-row complement; the update's 1e5 rows) by (rows a run, runs a "
@@ -8663,7 +8697,7 @@ def k8_alone(torch, dev, card):
             "dime_propose": lambda: dk.dime_propose(x, 0, 2, table, 3, 5,
                                                     cfg),
             "update": lambda: dk.dime_finish(dk.dime_moments(
-                x, (0, 0), upd[0], upd[2], K), *upd, cfg, update=True),
+                x, (0, 0), upd[0], upd[2], K), *upd, cfg, mode="update"),
         }
         plain = {
             "dime_moments": lambda: dk.dime_moments_plain(
@@ -8764,7 +8798,8 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
     t0 = time.perf_counter()
 
     def carries(smp):
-        return tuple(v.clone() for v in smp._move_carries[0].values())
+        c = smp._move_carries[0]
+        return tuple(v.clone() for v in c.values()) if c else ()
 
     ends = []
     for plain in (False, True):
@@ -10881,6 +10916,537 @@ def phase24_rows(out, card):
     return rows
 
 
+# -- phase 25: the side and walk moves ---------------------------------------
+
+#: a proposal's launches of the side move (K5a's side mode, K2; no K14 on
+#: the blocked split)
+SIDE_PER = {"de_propose": 2, "accept_select": 2}
+#: of the walk move with the shared covariance: K8a, K8b's walk mode,
+#: K18a and K2
+WALK_SHARED_PER = {"dime_moments": 2, "dime_finish": 2, "walk_propose": 2,
+                   "accept_select": 2}
+#: of the walk move with a subset: K18b and K2
+WALK_SUBSET_PER = {"walk_subset": 2, "accept_select": 2}
+#: phase 25's moves at the main path's width (the blocked split) and their
+#: launches a proposal
+MAIN25 = {"SideMove(pair_mode='roll', randomize_split=False)": SIDE_PER,
+          "WalkMove(randomize_split=False)": WALK_SHARED_PER,
+          "WalkMove(s=16, randomize_split=False)": WALK_SUBSET_PER}
+#: on workload 4's ladder (the shuffled split adds K14, K16 and K17 once
+#: each, and K15 swaps)
+PT25 = {"SideMove()": SIDE_PER, "SideMove(pair_mode='roll')": SIDE_PER,
+        "WalkMove()": WALK_SHARED_PER, "WalkMove(s=16)": WALK_SUBSET_PER}
+PT25_PER = {k: v | {"pt_swap": 1, "philox_draw": 1} | SHUF4
+            for k, v in PT25.items()}
+#: proposals a replay of the per-rung loop (each proposal 16 rungs' work)
+PT25_LOOP_N = 4
+#: (rungs, walkers, ndim, (s0, exact_subset_max) cases) of the sweep: the
+#: ladder, ndim 100 for the factor, 1e5 walkers (bootstrap), the exact
+#: sort at nc = 4096 (one block a walker) and above 4096 (K16, two ranges
+#: of walkers), and s0 above what a block stages (6149 picks and normals:
+#: K18b draws them as it sums, bootstrap and after K16)
+K25_SWEEP = ((1, 256, 5, ((1, 4096), (2, 4096), (16, 4096), (127, 4096),
+                          (16, 0))),
+             (3, 74, 3, ((5, 4096), (5, 0))),
+             (16, 256, 5, ((16, 4096), (16, 0), (2, 4096))),
+             (1, 1000, 100, ((16, 4096),)),
+             (1, NW, ND, ((16, 0), (2, 0))),
+             (1, 8192, 2, ((4095, 4096), (16, 4096))),
+             (1, 8194, 1, ((4096, 8192), (2, 8192))),
+             (1, 12300, 1, ((6149, 0), (6149, 8192))))
+
+
+def move25(label):
+    """Phase 25's move ``label``."""
+    from emcee_tpu_torch import moves
+
+    return {
+        "SideMove(pair_mode='roll', randomize_split=False)":
+            lambda: moves.SideMove(pair_mode="roll", randomize_split=False),
+        "WalkMove(randomize_split=False)":
+            lambda: moves.WalkMove(randomize_split=False),
+        "WalkMove(s=16, randomize_split=False)":
+            lambda: moves.WalkMove(s=16, randomize_split=False),
+        "SideMove()": moves.SideMove,
+        "SideMove(pair_mode='roll')":
+            lambda: moves.SideMove(pair_mode="roll"),
+        "WalkMove()": moves.WalkMove,
+        "WalkMove(s=16)": lambda: moves.WalkMove(s=16),
+    }[label]()
+
+
+def pt25_sampler(dev, label, seed, backend=None):
+    return pt_sampler(dev, seed=seed, backend=backend, move=move25(label))
+
+
+def k25_sweep(torch, dev):
+    """(a) K5a's side mode, K8b's walk mode (after K8a), K18a and K18b
+    against their plain versions on the same inputs, bit for bit (the
+    bits, so NaN compares too): every shape of ``K25_SWEEP``, both splits,
+    scale unset and set (one a rung), the stream at a host offset and at
+    a device offset word, K5a's two pair modes, K18b's cases (exact and
+    bootstrap, ``s0`` 1 to ``nc - 1``), injected draws at the ladder's
+    shape, and a singular complement (a constant column: every factor
+    entry NaN).  Returns the number of comparisons."""
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import dime_kernel as mk
+    from emcee_tpu_torch.ops import walk_kernel as wk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(250)
+    word = torch.tensor(3, dtype=torch.int64, device=dev)
+    n = 0
+    shapes = list(K25_SWEEP) + [(1, 256, 3, ((4, 4096),), "singular")]
+    for T, nw, nd, cases, *flag in shapes:
+        lead = (T,) if T > 1 else ()
+        x = torch.randn(lead + (nw, nd), device=dev, generator=gen) + 2.0
+        if flag:
+            x[..., 1] = 0.5
+        ng = nw // 2
+        nc = nw - ng
+        keys = rung_keys(7, T, dev) if T > 1 else 7
+        scale = 0.5 + torch.rand(lead, device=dev, generator=gen)
+        for split in (0, 1):
+            for sc, off in ((None, 5), (scale, DeviceOffset(word, 2))):
+                what = (f"T {T}, nw {nw}, nd {nd}, split {split}, "
+                        f"{'scaled, device word' if sc is not None else ''}")
+                for pm in ("roll", "random"):
+                    kw = dict(gamma0=0.9, scale=sc, pair_mode=pm,
+                              seed=keys, offset=off, mode="side")
+                    same_bits(dk.de_propose(x, split, 2, **kw),
+                              dk.de_propose_plain(x, split, 2, **kw),
+                              f"K5a side {pm} {what}")
+                    n += 1
+                part = mk.dime_moments(x, (split * ng, ng), None, None, 1)
+                want = mk.dime_finish_plain(part, mode="walk")
+                L = mk.dime_finish(part.clone(), mode="walk")
+                same_bits((L,), (want,), f"K8b walk {what}")
+                if flag and not torch.isnan(L).all():
+                    raise AssertionError("phase 25: a singular complement's "
+                                         "factor is not NaN")
+                args = (x, split, 2, L, keys, off, sc)
+                same_bits(wk.walk_propose(*args), wk.walk_propose_plain(*args),
+                          f"K18a {what}")
+                n += 2
+                for s0, exact in cases:
+                    args = (x, split, 2, s0, exact, keys, off, sc)
+                    same_bits(wk.walk_subset(*args),
+                              wk.walk_subset_plain(*args),
+                              f"K18b s0 {s0} exact_max {exact} {what}")
+                    n += 1
+        if (T, nw) == (16, 256):
+            # Injected draws, rung by rung.
+            z = torch.randn(T, ng, nd, device=dev, generator=gen)
+            zs = torch.randn(T, ng, 16, device=dev, generator=gen)
+            picks = torch.randint(0, nc, (T, ng, 16), device=dev,
+                                  generator=gen)
+            part = mk.dime_moments(x, (0, ng), None, None, 1)
+            L = mk.dime_finish(part, mode="walk")
+            same_bits(wk.walk_propose(x, 0, 2, L, 7, 5, scale, z),
+                      wk.walk_propose_plain(x, 0, 2, L, 7, 5, scale, z),
+                      "K18a injected")
+            same_bits(wk.walk_subset(x, 0, 2, 16, 4096, 7, 5, scale, zs,
+                                     picks),
+                      wk.walk_subset_plain(x, 0, 2, 16, 4096, 7, 5, scale,
+                                           zs, picks), "K18b injected")
+            zi = torch.randn(T, ng, device=dev, generator=gen)
+            for pm, inj in (("roll", dict(u_shift=torch.rand(
+                    T, 2, device=dev, generator=gen))),
+                            ("random", dict(idx_a=torch.randint(
+                                0, nc, (T, ng), device=dev, generator=gen,
+                                dtype=torch.int32), idx_b=torch.randint(
+                                0, nc - 1, (T, ng), device=dev, generator=gen,
+                                dtype=torch.int32)))):
+                kw = dict(gamma0=0.9, scale=scale, pair_mode=pm,
+                          seed=7, offset=5, mode="side", z=zi, **inj)
+                same_bits(dk.de_propose(x, 1, 2, **kw),
+                          dk.de_propose_plain(x, 1, 2, **kw),
+                          f"K5a side {pm} injected")
+            n += 4
+            # Each rung of the axis equals that rung alone.
+            for r in (0, 5, 15):
+                part = mk.dime_moments(x[r].contiguous(), (0, ng), None,
+                                       None, 1)
+                Lr = mk.dime_finish(part, mode="walk")
+                same_bits((Lr,), (L[r],), f"K8b walk rung {r} alone")
+                for fn, args, full in (
+                        (wk.walk_propose, (Lr,), (L,)),
+                        (wk.walk_subset, (16, 4096), (16, 4096))):
+                    got = fn(x[r].contiguous(), 0, 2, *args, keys.seeds[r],
+                             5, scale[r].contiguous())
+                    all_r = fn(x, 0, 2, *full, keys, 5, scale)
+                    same_bits((got[0],), (all_r[0][r],),
+                              f"{fn.__name__} rung {r} alone")
+                n += 3
+    return n
+
+
+def k25_bounds(T, nw, nd, s0=16, exact=False):
+    """The least work of one launch of each kernel at a split of ``T``
+    rungs of ``nw`` walkers (``ng = nw / 2``), as ``{name: (bytes,
+    instructions, special-function results)}``, each input read once and
+    each output written once: K5a's side mode (the ensemble's rows read,
+    ``q`` and the factor written; a Philox block and a normal a walker,
+    roll pairs, three operations an element), K8b's
+    walk mode (the partials read, ``L`` written; Chan's combine a partial,
+    the factor's ``nd^3 / 3`` multiply-adds), K18a (the split's rows and
+    ``L`` read, ``q`` and the factor written; ``ceil(nd / 2)`` Philox
+    blocks and ``nd`` normals a walker and ``nd (nd + 1)`` operations)
+    and K18b (the ensemble's rows read, ``q`` and the factor written; the
+    picks' Philox blocks, or the exact subset's ``nc`` keys and a
+    selection of their ``s0`` smallest, ``nc ceil(log2 s0)`` compare-swaps
+    of four instructions (a heap of ``s0``; the kernel's full bitonic
+    sort does more); ``s0`` normals, five operations a pick and column).
+    K18b's picked rows as 32-byte sectors, the traffic its gathers issue
+    (most of it from L2), are ``sector_bytes`` of :func:`k25_sectors`."""
+    from emcee_tpu_torch.ops.dime_kernel import dime_plan
+
+    ng = nw // 2
+    nc = nw - ng
+    rows = T * ng
+    node = 1 + nd + nd * nd
+    nb = dime_plan(nc, nd).blocks
+    if exact:
+        picks = (-(-nc // 4) * PHILOX_INSTR
+                 + nc * max(1, (s0 - 1).bit_length()) * 4)
+    else:
+        picks = -(-s0 // 4) * PHILOX_INSTR
+    return {
+        "de_propose": (4 * T * (nw * nd + ng * nd + ng),
+                       rows * (PHILOX_INSTR + NORMAL_INSTR + 3 * nd),
+                       rows * NORMAL_SFU),
+        "dime_finish": (4 * T * (nb * node + nd * nd),
+                        T * (nb * node * 6 + nd ** 3 // 3 * 2 + nd * 4),
+                        T * nd),
+        "walk_propose": (4 * T * (2 * ng * nd + ng + nd * nd),
+                         rows * (-(-nd // 2) * PHILOX_INSTR
+                                 + nd * NORMAL_INSTR + nd * (nd + 1)),
+                         rows * nd * NORMAL_SFU),
+        "walk_subset": (4 * T * (nw * nd + ng * nd + ng),
+                        rows * (picks + -(-s0 // 2) * PHILOX_INSTR
+                                + s0 * NORMAL_INSTR + 5 * s0 * nd),
+                        rows * s0 * NORMAL_SFU),
+    }
+
+
+def k25_sectors(T, nw, nd, s0=16):
+    """K18b's picked rows as 32-byte sectors: the bytes its gathers
+    issue, each walker's ``s0`` rows."""
+    return T * (nw // 2) * s0 * -(-4 * nd // 32) * 32
+
+
+def k25_alone(torch, dev, card, T=1, nw=NW, nd=ND):
+    """(b) Each kernel alone at the shape of one ensemble of 1e5 x 5 (the
+    walk subset by bootstrap, ``nc`` = 5e4) or of ``T`` rungs of ``nw``
+    walkers (workload 4's ladder: the exact subset, ``nc`` = 128), ``s0``
+    16: device ms a call by CUDA events around graph replays
+    (``replay_ms``), a call back to back from Python, the plain versions
+    (CUDA events, eager), the yardsticks (``torch.linalg.cholesky_ex`` of
+    the covariance beside K8b's walk mode, ``torch.addmm(s, z, L^T,
+    alpha=adj)`` of the same normals beside K18a (``baddbmm`` on the rung
+    axis), ``torch.argsort(stable=True)`` of the ``(ng, nc)`` keys beside
+    K18b's exact picks) and the bounds (bytes, and instructions at the
+    issue rate)."""
+    from emcee_tpu_torch.moves.walk import complement, cov
+    from emcee_tpu_torch.ops import de_kernel as dk
+    from emcee_tpu_torch.ops import dime_kernel as mk
+    from emcee_tpu_torch.ops import walk_kernel as wk
+    from emcee_tpu_torch.ops.philox import normals, row_uniforms, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(251)
+    lead = (T,) if T > 1 else ()
+    ng = nw // 2
+    nc = nw - ng
+    exact = nc <= 4096
+    x = torch.randn(lead + (nw, nd), device=dev, generator=gen)
+    seed = rung_keys(5, T, dev) if T > 1 else 5
+    scale = 0.5 + torch.rand(lead, device=dev, generator=gen)
+    part = mk.dime_moments(x, (0, ng), None, None, 1)
+    L = mk.dime_finish(part.clone(), mode="walk")
+    c = cov(complement(x, 0, ng))
+    z = normals(ng, nd, seed, 5, dev, row0=0)
+    s = x[..., :ng, :]
+    keys = row_uniforms(ng, nc, seed, 5, dev) if exact else None
+    side = dict(gamma0=0.9, scale=scale, pair_mode="roll", seed=seed,
+                offset=5, mode="side")
+
+    def finish():  # the partials in shared memory: part is left as it was
+        return mk.dime_finish(part, mode="walk")
+
+    def finish_plain():
+        return mk.dime_finish_plain(part, mode="walk")
+
+    if T > 1:
+        addmm = (lambda: torch.baddbmm(s, z, L.mT, alpha=0.8))
+    else:
+        addmm = (lambda: torch.addmm(s, z, L.mT, alpha=0.8))
+    if not mk.finish_shared(part.shape[-3], nd, 1):
+        raise AssertionError("phase 25: K8b's partials do not fit shared "
+                             "memory at the timed shape")
+    calls = {
+        "de_propose": (lambda: dk.de_propose(x, 0, 2, **side),
+                       lambda: dk.de_propose_plain(x, 0, 2, **side), None),
+        "dime_finish": (finish, finish_plain,
+                        lambda: torch.linalg.cholesky_ex(c)),
+        "walk_propose": (
+            lambda: wk.walk_propose(x, 0, 2, L, seed, 5, scale),
+            lambda: wk.walk_propose_plain(x, 0, 2, L, seed, 5, scale),
+            addmm),
+        "walk_subset": (
+            lambda: wk.walk_subset(x, 0, 2, 16, 4096, seed, 5, scale),
+            lambda: wk.walk_subset_plain(x, 0, 2, 16, 4096, seed, 5, scale),
+            (lambda: torch.argsort(keys, dim=-1, stable=True))
+            if exact else None),
+    }
+    bounds = k25_bounds(T, nw, nd, 16, exact)
+    out = {}
+    for name, (fn, plain, lib) in calls.items():
+        nbytes, instr, sfu = bounds[name]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": instruction_bound(instr, sfu)}
+        out[name] = {"ms": replay_ms(torch, fn),
+                     "call_ms": cuda_ms(torch, fn, reps=50),
+                     "plain_ms": slow_ms(torch, plain, reps=3),
+                     "bound_ms": max(t.values()),
+                     "bound_by": max(t, key=t.get), "bytes": nbytes,
+                     "instructions": instr,
+                     "library_ms": None if lib is None else replay_ms(
+                         torch, lib)}
+    out["walk_subset"]["sector_bytes"] = k25_sectors(T, nw, nd)
+    out["dime_moments (K8a, for the walk)"] = {
+        "ms": replay_ms(torch, lambda: mk.dime_moments(x, (0, ng), None,
+                                                       None, 1))}
+    what = (f"one ensemble of {nw} x {nd}, the subset by bootstrap"
+            if T == 1 else f"{T} rungs x {nw} walkers x {nd}, the subset "
+            f"exact")
+    log(f"phase 25: (b) alone ({what}; s0 16), device us a call (graph "
+        f"replays): " + ", ".join(
+            f"{name} {v['ms'] * 1e3:.2f}" + (
+                f" (back to back {v['call_ms'] * 1e3:.2f}, plain "
+                f"{v['plain_ms'] * 1e3:.1f}, bound {v['bound_ms'] * 1e3:.3f}"
+                f" by {v['bound_by']}" + (
+                    f", library {v['library_ms'] * 1e3:.2f}"
+                    if v["library_ms"] is not None else "") + ")"
+                if "call_ms" in v else "")
+            for name, v in out.items()) + f" {card}")
+    return out
+
+
+def k25_stage(torch, np, dev, card, label, n=16):
+    """(c) ``label`` at the main path's width (1e5 x 5-D, the blocked
+    split): ``n`` graph-replayed proposals against the plain versions'
+    eager chain bit for bit; device us and kernels a proposal and each
+    kernel's us a launch in ``n`` replayed proposals (profiler); the
+    launches counted by device words (exactly ``MAIN25[label]`` a
+    proposal, no K14)."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    per = MAIN25[label]
+
+    def make():
+        return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=25,
+                               device=dev, moves=move25(label))
+
+    p0 = np.random.default_rng(4).normal(size=(NW, ND)).astype(np.float32)
+    acc = graph_vs_plain_chain(torch, make, p0, n=n)
+    smp = make()
+    smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True)
+    smp.run_mcmc(None, n, store=False)
+    host = []
+    for _ in range(2):
+        _, dt = drive(smp, None, n, store=False)
+        host.append(dt / n * 1e6)
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False), n,
+                      f"phase 25 {label} at 1e5", names=per)
+    counted, _ = counted_replays(
+        torch, dev, smp, n, lambda r: {k: v * n for k, v in per.items()},
+        f"phase 25 {label} at 1e5", store=False)
+    log(f"phase 25: (c) {label} at 1e5 x 5-D: {n} graph-replayed proposals "
+        f"equal the plain versions' eager chain bit for bit (acceptance "
+        f"{acc:.4f}); {n} replayed proposals: host "
+        f"{[round(v, 1) for v in host]} us, device "
+        f"{measured(win['device_us_per_proposal'])} us and "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(win['idle'], '.4f')}; us a launch: "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in win["ms_per_launch"].items())
+        + f"; launches { {k: v for k, v in counted.items() if v} } (device "
+        f"words, exactly {per} a proposal) {card}")
+    return dict(win=win, replayed_launches=counted, proposals_counted=n,
+                acceptance=acc, host_us=host)
+
+
+def k25_singular(torch, np, dev, card, n=8):
+    """(c) A walk complement whose covariance is singular (a constant
+    column): every factor is NaN, every proposal rejected, the chain
+    unchanged (graph replays, the shuffled split)."""
+    from emcee_tpu_torch import EnsembleSampler, moves
+
+    p0 = np.random.default_rng(6).normal(size=(1000, 3)).astype(np.float32)
+    p0[:, 1] = 0.25
+    smp = EnsembleSampler(1000, 3, gaussian, vectorize=True, seed=8,
+                          device=dev, moves=moves.WalkMove())
+    smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True)
+    st = smp.run_mcmc(None, n, store=False)
+    same = bool(np.array_equal(st.coords.cpu().numpy(), p0))
+    acc = int(smp.last_run_stats.accepted.sum())
+    log(f"phase 25: (c) a singular walk complement (1000 x 3, a constant "
+        f"column), {2 * n} proposals: accepted {acc}, chain unchanged "
+        f"{same} {card}")
+    if acc or not same:
+        raise AssertionError("phase 25: a singular walk complement moved "
+                             "the chain")
+    return {"accepted": acc, "unchanged": same}
+
+
+def phase25(torch, np, dev, card):
+    """The side and walk moves (see the module docstring, 25): the sweep,
+    the kernels alone at 1e5 and on the ladder, the three moves at the
+    main path's width, the singular complement, the four moves on
+    workload 4's ladder (every rung at once against the per-rung loop),
+    each path's launches counted from 0 just before it, and the rows of
+    K5a's side mode, K8b's walk mode, K18a and K18b, one ensemble and
+    with the rung axis.  Returns its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k25_sweep(torch, dev)
+    log(f"phase 25: (a) K5a's side mode, K8b's walk mode, K18a and K18b "
+        f"against their plain versions ((rungs, walkers, ndim) "
+        f"{[c[:3] for c in K25_SWEEP]} and a singular complement; both "
+        f"splits, scale unset and set, host offset and device word, "
+        f"injected draws, each rung against the rung alone, the exact sort "
+        f"at nc 4096 and 4097 by K16): {out['sweep']} comparisons, all bit "
+        f"for bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k25_alone(torch, dev, card)
+    out["alone_rungs"] = k25_alone(torch, dev, card, NT4, NW4, ND4)
+    log(f"phase 25: (b) {time.perf_counter() - t0:.1f} s")
+    for label, per in MAIN25.items():
+        t0 = time.perf_counter()
+        with path_launches(out, label, tuple(per), "phase 25"):
+            out[label] = k25_stage(torch, np, dev, card, label)
+        log(f"phase 25: (c) {label}: {time.perf_counter() - t0:.1f} s")
+    out["singular"] = k25_singular(torch, np, dev, card)
+    p0 = pt_p0(np)
+    for label, per in PT25_PER.items():
+        t0 = time.perf_counter()
+        with path_launches(out, label, tuple(per), "phase 25"):
+            r = out[label] = pt21_path(torch, np, dev, card, label, p0,
+                                       n_l=PT25_LOOP_N, sampler=pt25_sampler,
+                                       per=per, phase="phase 25")
+        log(f"phase 25: (d) {label} at {NT4} x {NW4} x {ND4}: 64 "
+            f"graph-replayed proposals of every rung at once equal the "
+            f"plain versions' eager chain and the per-rung loop bit for bit "
+            f"(swaps {r['swaps_64']}); in turns (batched, loop, loop, "
+            f"batched; replays of {r['proposals_counted']} and "
+            f"{r['loop_proposals_a_replay']} proposals), a proposal: host "
+            f"{[round(v, 1) for v in r['host_us'][True]]} / "
+            f"{[round(v, 1) for v in r['host_us'][False]]} us, device "
+            f"{[measured(v) for v in r['device_us'][True]]} / "
+            f"{[measured(v) for v in r['device_us'][False]]} us, kernels "
+            f"{[measured(v, '.0f') for v in r['kernels'][True]]} / "
+            f"{[measured(v, '.0f') for v in r['kernels'][False]]} (batched "
+            f"/ loop); batched launches in {r['proposals_counted']} "
+            f"proposals { {k: v for k, v in r['replayed_launches'].items() if v} }"
+            f" (device words; exactly {per} a proposal); us a launch in its "
+            f"replays: " + ", ".join(
+                f"{k} {measured(v and v * 1e3, '.3f')}"
+                for k, v in r["win"]["ms_per_launch"].items())
+            + f" {card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 25: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase25_rows(out, card)
+
+
+def phase25_rows(out, card):
+    """(e) The rows of K5a's side mode, K8b's walk mode, K18a and K18b at
+    the main path's width (device time a launch in the blocked moves'
+    replays by the profiler; launches by device words there; a call
+    alone, back to back and the plain version by CUDA events; the bound
+    and the yardstick) and with the rung axis (workload 4's ladder: the
+    same from its replays and at its shape)."""
+    meta = {
+        "de_propose": ("side mode", "emcee_tpu_torch/csrc/de_propose.cu",
+                       "emcee_tpu/moves/side.py:57-85",
+                       ("SideMove(pair_mode='roll', randomize_split=False)",
+                        "SideMove()"),
+                       "none: no single PyTorch call computes it"),
+        "dime_finish": ("walk mode", "emcee_tpu_torch/csrc/dime_moments.cu",
+                        "emcee_tpu/moves/walk.py:29-33, 73-79",
+                        ("WalkMove(randomize_split=False)", "WalkMove()"),
+                        "torch.linalg.cholesky_ex of the covariance"),
+        "walk_propose": (None, "emcee_tpu_torch/csrc/walk_propose.cu",
+                         "emcee_tpu/moves/walk.py:73-79",
+                         ("WalkMove(randomize_split=False)", "WalkMove()"),
+                         "torch.addmm(s, z, L^T, alpha) of the same normals "
+                         "(baddbmm on the rung axis)"),
+        "walk_subset": (None, "emcee_tpu_torch/csrc/walk_propose.cu",
+                        "emcee_tpu/moves/walk.py:81-97",
+                        ("WalkMove(s=16, randomize_split=False)",
+                         "WalkMove(s=16)"),
+                        "torch.argsort(stable=True) of the (ng, nc) keys "
+                        "beside the exact picks (null at 1e5: bootstrap)"),
+    }
+    rows = []
+    for rung in (False, True):
+        al = out["alone_rungs" if rung else "alone"]
+        for name, (mode, src, jax, paths, lib_note) in meta.items():
+            path = out[paths[rung]]
+            a = al[name]
+            label = name + (f" ({mode})" if mode else "")
+            shape = (f"with the rung axis at workload 4's shape ({NT4} rungs "
+                     f"x {NW4} walkers x {ND4}, {paths[1]}" if rung else
+                     f"at the main path's width (1e5 x 5-D, {paths[0]}")
+            rows.append({
+                "name": label[:-1] + ", rung axis)" if rung and mode
+                else label + (" (rung axis)" if rung else ""),
+                "route": "cuda", "source": src,
+                "replaces": jax + (" (vmapped by emcee_tpu/parallel/"
+                                   "tempering.py:449-541)" if rung else ""),
+                "launches": path["replayed_launches"][name],
+                "max_abs_err": 0.0,
+                "ms": path["win"]["ms_per_launch"][name],
+                "alone_ms": a["ms"], "call_ms": a["call_ms"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+                "bytes": a["bytes"], "instructions": a["instructions"],
+                **({"sector_bytes": a["sector_bytes"]}
+                   if "sector_bytes" in a else {}),
+                "launches_per_proposal": (path["replayed_launches"][name]
+                                          / path["proposals_counted"]),
+                "ptxas": {k: v for k, v in PTXAS.items()
+                          if f"{name}_kernel" in k or (
+                              name == "walk_subset" and (
+                                  "walk_sort_kernel" in k
+                                  or "walk_keys_kernel" in k))},
+                **({"path_device_us_batched_loop": (path["device_us"][True],
+                                                    path["device_us"][False]),
+                    "path_kernels_batched_loop": (path["kernels"][True],
+                                                  path["kernels"][False])}
+                   if rung else {}),
+                "note": (f"{shape}): ms in the path's replays (profiler); "
+                         f"alone_ms a call alone (CUDA events around graph "
+                         f"replays), call_ms back to back from Python; "
+                         f"launches counted on the card in "
+                         f"{path['proposals_counted']} replayed proposals; "
+                         f"max_abs_err: bit for bit over phase 25 (a)'s "
+                         f"{out['sweep']} comparisons; bound: the bytes "
+                         f"(each input once, each output once; sector_bytes: "
+                         f"K18b's picked rows as 32-byte sectors) and the "
+                         f"instructions needed at the issue rate; "
+                         f"library_ms: {lib_note}")})
+    for row in rows:
+        log(f"phase 25: (e) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['alone_ms'] * 1e3:.2f} us a call "
+            f"alone, {row['call_ms'] * 1e3:.2f} back to back, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), library "
+            f"{measured(row['library_ms'] and row['library_ms'] * 1e3, '.2f')}"
+            f" us; launches {row['launches']} {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -10986,7 +11552,10 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     path's width (1e5 walkers, the shuffled split), and of 16 of
     ``DEZMove()`` and of ``EnsembleSliceMove()`` at 1e5 walkers and on
     workload 4's ladder (the device time and kernels a proposal: K10 or K9
-    where the tree has it, else plain torch, rung by rung on the ladder);
+    where the tree has it, else plain torch, rung by rung on the ladder),
+    and of phase 25's side and walk moves at 1e5 walkers (the blocked
+    split) and on workload 4's ladder (K5a's side mode, K8 and K18 where
+    the tree has them, else plain torch);
     the host's µs a proposal of every path.  A tree with K16 and
     K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
     on the shuffled paths.  Uses only what every tree with K14 has."""
@@ -11031,9 +11600,18 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
         moves=moves.EnsembleSliceMove()), 8, None)
     runs["EnsembleSliceMove() on workload 4"] = (pt_sampler(
         dev, seed=89, move=moves.EnsembleSliceMove()), 8, None)
+    # The side and walk moves: K5a's side mode, K8a + K8b + K18a or K18b
+    # where the tree has them (every rung at once on the ladder), else
+    # plain torch (rung by rung); the device time and kernels only.
+    for label in MAIN25:
+        runs[f"{label} at 1e5"] = (EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=27, device=dev,
+            moves=move25(label)), 16, None)
+    for label in PT25:
+        runs[f"{label} on workload 4"] = (pt_sampler(
+            dev, seed=90, move=move25(label)), 16, None)
     for what, (smp, n, names) in runs.items():
-        if what in ("DIME stage", "StretchMove() at 1e5", "DEZMove() at 1e5",
-                    "EnsembleSliceMove() at 1e5"):
+        if what == "DIME stage" or what.endswith(" at 1e5"):
             smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
                          .astype(np.float32), n, store=False,
                          skip_initial_state_check=True)
@@ -11129,7 +11707,10 @@ def sass_diff(tree) -> int:
     parameter, so a tree's one-ensemble ``accept_select_kernel<...,
     false>`` is compared with this checkout's ``accept_select_kernel<...>``;
     K5a, K5b and K11 gained one, so a tree's ``de_propose_kernel<a, b>`` is
-    compared with this checkout's ``de_propose_kernel<a, b, false>``, and
+    compared with this checkout's ``de_propose_kernel<a, b, false>`` (K5a
+    gained the side mode's ``kSide`` last since, so a tree's
+    ``de_propose_kernel<a, b, c>`` is compared with ``<a, b, c, false>``,
+    and a tree before the rung axis finds none to compare), and
     K12 and K13 gained one as their only template parameter, so a tree's
     ``leapfrog_kernel`` is compared with ``leapfrog_kernel<false>``).
     Prints each function's verdict; returns 1 when a one-ensemble
@@ -11275,12 +11856,12 @@ def main() -> int:
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
                         ["17"], ["18"], ["19"], ["20"], ["21"], ["22"],
-                        ["23"], ["24"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23 or 24
-        # alone (a first check of the blobs, the extension moves, the
+                        ["23"], ["24"], ["25"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24 or
+        # 25 alone (a first check of the blobs, the extension moves, the
         # gradient moves, tempering, K14, the DE family on every rung, the
         # gradient moves on every rung, K7, the shuffled split's K16 and
-        # K17, K8, K10, K9 or K6).
+        # K17, K8, K10, K9, K6 or the side and walk moves).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
@@ -11289,7 +11870,7 @@ def main() -> int:
                  "18": phase18, "19": phase19,
                  "20": phase20, "21": phase21,
                  "22": phase22, "23": phase23,
-                 "24": phase24}[sys.argv[1]]
+                 "24": phase24, "25": phase25}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -11926,6 +12507,12 @@ def main() -> int:
     _, rows24 = phase24(torch, np, dev, card)
     rows += rows24
     log(f"phase 24: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 25. the side and walk moves -----------------------------------------
+    t0 = time.perf_counter()
+    _, rows25 = phase25(torch, np, dev, card)
+    rows += rows25
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -75,18 +75,19 @@ A proposal is the move step on every rung, then the even/odd swap (K15),
 which reads its parity and whether to swap from the offset word.  The
 move step is one rung-batched proposal (K1, K5a or K5b and K2 over all
 rungs, the log-prob once over ``T * ng`` rows) for a ``rung_batched``
-move (the stretch, DE and DE-snooker moves; the MALA, HMC, ensemble
-MALA and ensemble HMC moves through K11, K12, K13 and K2, the gradient
-once over ``T * n`` rows; the KDE move through K7 and K2; DIME through
-K8a-K8c and K2; DE-Z through K10a-K10c and K2; the slice move through
+move (the stretch, DE, DE-snooker and side moves; the walk move through
+K8a, K8b and K18a, or K18b, and K2; the MALA, HMC, ensemble MALA and
+ensemble HMC moves through K11, K12, K13 and K2, the gradient once over
+``T * n`` rows; the KDE move through K7 and K2; DIME through K8a-K8c
+and K2; DE-Z through K10a-K10c and K2; the slice move through
 K9a-K9d, every rung's lists in one ``(T, bucket, ndim)`` batch; their
 shuffled split through K14, K16 and K17), or else, and under the
 private ``batched=False`` switch, a loop over the rungs, each rung an
 ensemble of its own (its views of the buffers, its tempered model, its
 carry and its key).  Each move of a mixture takes its own way, so a
 chunk's runs of the stretch or DE moves propose every rung at once and
-its runs of, say, the walk move loop over the rungs.  The user blobs of the likelihood
-ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
+its runs of, say, the Gaussian move loop over the rungs.  The user blobs
+of the likelihood ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
 and ``logP`` (the tempered model's blobs are ``(logL, logP, user
 blobs)``): K2 selects them with the rows and K15 exchanges them with the
 walkers.  It is recorded, replayed and warmed up as :class:`ChunkProgram`

@@ -24,6 +24,16 @@
 //   q        = s + gamma (c[b] - c[a])
 //   factor   = 0                                           (symmetric)
 //
+// The side mode (kSide, a template parameter, so the DE instantiations
+// keep the code they had) is the side move's proposal (emcee_tpu/moves/
+// side.py:57-85, q = s + (sigma / sqrt 2) z (c_j - c_i)): the same pairs,
+// the same walker normal and the same zero factor, but no jitter:
+//   gamma    = (g / sqrt 2) z,  g = gamma0 [* scale]
+// with gamma0 the side move's sigma.  Untuned, g / sqrt 2 is the float32
+// quotient the JAX package computes once on the host (sigma / sqrt(2));
+// tuned, (sigma * scale) / sqrt 2, two float32 operations, as
+// moves/side.py rounds them.
+//
 // What bounds it on an H100: bytes.  Per walker it reads s and two
 // complement rows and writes q: at the workload-3 shape (ng = 5000,
 // ndim = 100) the function must move 6 MB (each input byte once), ~1.8 us
@@ -101,6 +111,8 @@ namespace {
 
 constexpr int kTileMax = 256;         // TILE_MAX in ops/_wrap.py
 constexpr int kThreadsMax = kTileMax + 32;
+// sqrt(2) rounded to float32, the side mode's divisor (jnp.sqrt(2.0)).
+constexpr float kRoot2 = 1.41421356237309505f;
 
 __device__ __forceinline__ float de_elem(float s, float ca, float cb,
                                          float gamma) {
@@ -133,7 +145,7 @@ __device__ __forceinline__ void partner_rows(int w, int pair_mode,
   rb = complement_row(b, lo, ng);
 }
 
-template <bool kVec, bool kStage, bool kRungs>
+template <bool kVec, bool kStage, bool kRungs, bool kSide>
 __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
     const float* __restrict__ coords, float* __restrict__ q,
     float* __restrict__ factor, int ng, int nd, int split, int nc, int tile,
@@ -199,7 +211,11 @@ __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
       z = philox_normal(w.x, w.z);
     }
     const float g = scale != nullptr ? __fmul_rn(gamma0, *scale) : gamma0;
-    s_gamma[t] = __fmul_rn(g, __fadd_rn(1.0f, __fmul_rn(sigma, z)));
+    if constexpr (kSide) {
+      s_gamma[t] = __fmul_rn(__fdiv_rn(g, kRoot2), z);
+    } else {
+      s_gamma[t] = __fmul_rn(g, __fadd_rn(1.0f, __fmul_rn(sigma, z)));
+    }
     factor[i] = 0.0f;
     if (pair_mode) {
       int a, b;
@@ -282,11 +298,27 @@ __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
   }
 }
 
+// The instantiation of a launch plan and mode.
+template <bool kSide>
+auto de_instance(int vec, int stage, bool rungs) {
+  return vec ? (stage ? (rungs ? de_propose_kernel<true, true, true, kSide>
+                               : de_propose_kernel<true, true, false, kSide>)
+                      : (rungs ? de_propose_kernel<true, false, true, kSide>
+                               : de_propose_kernel<true, false, false, kSide>))
+             : (stage ? (rungs ? de_propose_kernel<false, true, true, kSide>
+                               : de_propose_kernel<false, true, false, kSide>)
+                      : (rungs ? de_propose_kernel<false, false, true, kSide>
+                               : de_propose_kernel<false, false, false,
+                                                   kSide>));
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/de_kernel.py).  Every pointer
-// is a device pointer.  z == nullptr selects the in-kernel Philox normal;
-// in roll mode u_shift (two uniforms) overrides the in-kernel shift draw;
+// is a device pointer.  side != 0 selects the side mode (gamma0 the side
+// move's sigma; sigma unused).  z == nullptr selects the in-kernel Philox
+// normal; in roll mode u_shift (two uniforms) overrides the in-kernel shift
+// draw;
 // in random mode idx_a/idx_b (the raw picks, before b is moved past a)
 // override the in-kernel partner draw.  scale == nullptr means untuned.
 // The Philox offset is *offset_dev + offset (offset alone when offset_dev
@@ -302,22 +334,15 @@ __global__ void __launch_bounds__(kThreadsMax) de_propose_kernel(
 // Returns cudaGetLastError() after the launch.
 extern "C" int emcee_de_propose(
     const float* coords, float* q, float* factor, int ng, int nd, int split,
-    int nsplits, int pair_mode, float gamma0, const float* scale,
+    int nsplits, int pair_mode, int side, float gamma0, const float* scale,
     float sigma, const float* z, const float* u_shift, const int* idx_a,
     const int* idx_b, int tile, int grid, int threads, int vec, int stage,
     int smem, int ntemps, const long long* keys, unsigned long long seed,
     const long long* offset_dev, unsigned long long offset, void* stream) {
   const int nc = (nsplits - 1) * ng;
   const bool rungs = ntemps > 1 || keys != nullptr;
-  auto kernel =
-      vec ? (stage ? (rungs ? de_propose_kernel<true, true, true>
-                            : de_propose_kernel<true, true, false>)
-                   : (rungs ? de_propose_kernel<true, false, true>
-                            : de_propose_kernel<true, false, false>))
-          : (stage ? (rungs ? de_propose_kernel<false, true, true>
-                            : de_propose_kernel<false, true, false>)
-                   : (rungs ? de_propose_kernel<false, false, true>
-                            : de_propose_kernel<false, false, false>));
+  auto kernel = side ? de_instance<true>(vec, stage, rungs)
+                     : de_instance<false>(vec, stage, rungs);
   kernel<<<dim3(grid, ntemps), threads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       coords, q, factor, ng, nd, split, nc, tile, pair_mode, gamma0, scale,

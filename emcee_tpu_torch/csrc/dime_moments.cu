@@ -45,6 +45,15 @@
 // running sum of exp(logw).  The work sits in the partials' and the
 // table's global memory (L1 and L2 hold it), so any ndim fits.
 //
+// K8b's walk mode (emcee_tpu/moves/walk.py:29-33 and :73-79, the walk
+// move's shared covariance and its Cholesky factor): K = 1, the set a
+// split's complement (K8a as it is).  After the tree the block forms
+// S = M2 / (n - 1) (ddof 1, a division by the count) and writes rung r's
+// factor L (nd x nd) column by column, every entry NaN where a pivot is
+// not > 0, the upper triangle 0; no pooling, t-shape or weights.  The
+// tree merges 128-row runs by Chan's combine where the JAX package's _cov
+// takes two passes over all rows: the same covariance to float32 rounding.
+//
 // What bounds them on an H100: bytes, the rows once (1 MB of a split's
 // complement at 1e5 x 5).  K8a's blocks each run a serial chain of R rows
 // for each entry; K8b is one block of log2(blocks) tree levels and an nd-step
@@ -68,8 +77,50 @@ constexpr int kGroupMax = 8;
 // DIME_SMEM_MAX; above 48 KB by the kernel's opt-in).
 constexpr size_t kSharedMax = 160 * 1024;
 
+// K8b's modes (ops/dime_kernel.py FINISH_MODES).
+constexpr int kTable = 0, kUpdate = 1, kWalk = 2;
+
 __device__ __forceinline__ int set_row(int i, int skip_lo, int skip_n) {
   return i >= skip_lo ? i + skip_n : i;
+}
+
+// The lower Cholesky factor of the nd x nd matrix in L, in place, column
+// by column (pivot j by thread 0, then the column below it a thread a
+// row), every entry NaN where a pivot is not > 0, else the upper triangle
+// 0 (cholesky_ex with info != 0; ops/dime_kernel.py chol_columns_plain).
+// Every thread of the block calls it with L written and synchronized; it
+// ends synchronized.
+__device__ void factor_columns(float* L, int nd, int* fail) {
+  const int tid = threadIdx.x, bd = blockDim.x;
+  if (tid == 0) *fail = 0;
+  __syncthreads();
+  for (int j = 0; j < nd; ++j) {
+    if (tid == 0) {
+      float s = L[j * nd + j];
+      for (int k2 = 0; k2 < j; ++k2)
+        s = __fsub_rn(s, __fmul_rn(L[j * nd + k2], L[j * nd + k2]));
+      if (!(s > 0.0f)) *fail = 1;
+      L[j * nd + j] = __fsqrt_rn(s);
+    }
+    __syncthreads();
+    const float ljj = L[j * nd + j];
+    for (int i = j + 1 + tid; i < nd; i += bd) {
+      float t = L[i * nd + j];
+      for (int k2 = 0; k2 < j; ++k2)
+        t = __fsub_rn(t, __fmul_rn(L[i * nd + k2], L[j * nd + k2]));
+      L[i * nd + j] = __fdiv_rn(t, ljj);
+    }
+    __syncthreads();
+  }
+  const bool failed = *fail != 0;
+  for (int e = tid; e < nd * nd; e += bd) {
+    const int a = e / nd, b = e - a * nd;
+    if (failed)
+      L[e] = NAN;
+    else if (b > a)
+      L[e] = 0.0f;
+  }
+  __syncthreads();
 }
 
 // One level of the pairwise tree over `count` nodes of K partials each, in
@@ -264,7 +315,7 @@ __global__ void __launch_bounds__(256) dime_moments_kernel(
 template <bool kRungs, bool kShared>
 __global__ void __launch_bounds__(256) dime_finish_kernel(
     float* part_g, int nb, int nd, int K, float* cmean, float* ccov,
-    float* cw, float* table, float rho, float scale, int update) {
+    float* cw, float* table, float rho, float scale, int mode) {
   extern __shared__ float sh[];  // K totals, a flag, [partials, L, X]
   float* total = sh;
   int* fail = reinterpret_cast<int*>(sh + K);
@@ -273,9 +324,6 @@ __global__ void __launch_bounds__(256) dime_finish_kernel(
   const int nn = nd * nd;
   const int tid = threadIdx.x, bd = blockDim.x;
   part_g += static_cast<int64_t>(rung) * nb * K * node;
-  cmean += static_cast<int64_t>(rung) * K * nd;
-  ccov += static_cast<int64_t>(rung) * K * nn;
-  cw += static_cast<int64_t>(rung) * K;
   float* part = kShared ? sh + K + 1 : part_g;
   if constexpr (kShared) {
 #pragma unroll 4
@@ -285,6 +333,23 @@ __global__ void __launch_bounds__(256) dime_finish_kernel(
 
   // The tree.
   for (int s = 1; s < nb; s <<= 1) tree_level(part, nb, s, K, nd);
+
+  if (mode == kWalk) {
+    // S = M2 / (n - 1) in L's place, then its factor into the table.
+    float* out = table + static_cast<int64_t>(rung) * nn;
+    float* L = kShared ? part + static_cast<int64_t>(nb) * node : out;
+    const float nm1 = __fsub_rn(part[0], 1.0f);
+    for (int e = tid; e < nn; e += bd) L[e] = __fdiv_rn(part[1 + nd + e], nm1);
+    __syncthreads();
+    factor_columns(L, nd, fail);
+    if constexpr (kShared) {
+      for (int e = tid; e < nn; e += bd) out[e] = L[e];
+    }
+    return;
+  }
+  cmean += static_cast<int64_t>(rung) * K * nd;
+  ccov += static_cast<int64_t>(rung) * K * nn;
+  cw += static_cast<int64_t>(rung) * K;
 
   // Pool node 0 with the carry: cov into the cross-products' place.
   for (int e = tid; e < K * nn; e += bd) {
@@ -321,7 +386,7 @@ __global__ void __launch_bounds__(256) dime_finish_kernel(
     total[k] = __fadd_rn(__fmul_rn(rho, cw[k]), part[k * node]);
   __syncthreads();
 
-  if (update) {
+  if (mode == kUpdate) {
     for (int e = tid; e < K * nn; e += bd) {
       const int k = e / nn, ab = e - k * nn;
       ccov[e] = part[static_cast<int64_t>(k) * node + 1 + nd + ab];
@@ -363,35 +428,8 @@ __global__ void __launch_bounds__(256) dime_finish_kernel(
       L[e] = __fadd_rn(__fmul_rn(C[e], scale),
                        __fmul_rn(eps, a == b ? 1.0f : 0.0f));
     }
-    if (tid == 0) *fail = 0;
     __syncthreads();
-    for (int j = 0; j < nd; ++j) {
-      if (tid == 0) {
-        float s = L[j * nd + j];
-        for (int k2 = 0; k2 < j; ++k2)
-          s = __fsub_rn(s, __fmul_rn(L[j * nd + k2], L[j * nd + k2]));
-        if (!(s > 0.0f)) *fail = 1;
-        L[j * nd + j] = __fsqrt_rn(s);
-      }
-      __syncthreads();
-      const float ljj = L[j * nd + j];
-      for (int i = j + 1 + tid; i < nd; i += bd) {
-        float t = L[i * nd + j];
-        for (int k2 = 0; k2 < j; ++k2)
-          t = __fsub_rn(t, __fmul_rn(L[i * nd + k2], L[j * nd + k2]));
-        L[i * nd + j] = __fdiv_rn(t, ljj);
-      }
-      __syncthreads();
-    }
-    const bool failed = *fail != 0;
-    for (int e = tid; e < nn; e += bd) {
-      const int a = e / nd, b = e - a * nd;
-      if (failed)
-        L[e] = NAN;
-      else if (b > a)
-        L[e] = 0.0f;
-    }
-    __syncthreads();
+    factor_columns(L, nd, fail);
     // The inverse, a thread a column.
     for (int j = tid; j < nd; j += bd) {
       for (int i = 0; i < nd; ++i) {
@@ -457,7 +495,7 @@ int launch_moments(const float* x, float* part, const float* mean,
 template <bool kRungs, bool kShared>
 int launch_finish(float* part, int nb, int nd, int K, float* mean,
                   float* cov, float* w, float* table, float rho, float scale,
-                  int update, int ntemps, int threads, size_t smem,
+                  int mode, int ntemps, int threads, size_t smem,
                   cudaStream_t st) {
   auto kernel = dime_finish_kernel<kRungs, kShared>;
   if (smem > 48 * 1024) {
@@ -467,7 +505,7 @@ int launch_finish(float* part, int nb, int nd, int K, float* mean,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<ntemps, threads, smem, st>>>(part, nb, nd, K, mean, cov, w, table,
-                                        rho, scale, update);
+                                        rho, scale, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -485,7 +523,9 @@ int launch_finish(float* part, int nb, int nd, int K, float* mean,
 // emcee_dime_finish: part as written by emcee_dime_moments (overwritten),
 // the carry mean (ntemps, K, nd), cov (ntemps, K, nd, nd) and w (ntemps,
 // K), table (ntemps, K (nd + 2 nd^2 + 3)) out (null in update mode, which
-// writes the carry); rho and the t-shape's scale; one block of threads a
+// writes the carry); mode 0 the table, 1 the carry update, 2 the walk
+// move's factor (K = 1; table (ntemps, nd, nd) out, the carry pointers
+// null and unread); rho and the t-shape's scale; one block of threads a
 // rung; shared: the partials and the factor's scratch in shared memory
 // (K + 1 + nb K (1 + nd + nd^2) + 2 nd^2 floats, at most kSharedMax
 // bytes).  Each returns the first CUDA error (the shared-memory attribute,
@@ -525,7 +565,7 @@ extern "C" int emcee_dime_moments(const float* x, float* part,
 extern "C" int emcee_dime_finish(float* part, int nb, int nd, int K,
                                  float* mean, float* cov, float* w,
                                  float* table, float rho, float scale,
-                                 int update, int ntemps, int threads,
+                                 int mode, int ntemps, int threads,
                                  int shared, void* stream) {
   const size_t nn = static_cast<size_t>(nd) * nd;
   const size_t smem =
@@ -533,20 +573,21 @@ extern "C" int emcee_dime_finish(float* part, int nb, int nd, int K,
       (shared ? sizeof(float) * (static_cast<size_t>(nb) * K * (1 + nd + nn) +
                                  2 * nn)
               : 0);
-  if (threads < 32 || threads > 256 || smem > kSharedMax)
+  if (threads < 32 || threads > 256 || smem > kSharedMax || mode < kTable ||
+      mode > kWalk || (mode == kWalk && K != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (ntemps > 1)
     return shared ? launch_finish<true, true>(part, nb, nd, K, mean, cov, w,
-                                              table, rho, scale, update,
+                                              table, rho, scale, mode,
                                               ntemps, threads, smem, st)
                   : launch_finish<true, false>(part, nb, nd, K, mean, cov, w,
-                                               table, rho, scale, update,
+                                               table, rho, scale, mode,
                                                ntemps, threads, smem, st);
   return shared ? launch_finish<false, true>(part, nb, nd, K, mean, cov, w,
-                                             table, rho, scale, update,
+                                             table, rho, scale, mode,
                                              ntemps, threads, smem, st)
                 : launch_finish<false, false>(part, nb, nd, K, mean, cov, w,
-                                              table, rho, scale, update,
+                                              table, rho, scale, mode,
                                               ntemps, threads, smem, st);
 }

@@ -242,5 +242,5 @@ class DIMEMove(RedBlueMove):
         dime_kernel.dime_finish(part, carry["mean"], carry["cov"],
                                 carry["w"],
                                 self._config(model, coords.shape[-1]),
-                                update=True)
+                                mode="update")
         return carry

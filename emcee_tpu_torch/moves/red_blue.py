@@ -36,8 +36,8 @@ writes the same storage at every replay.
 
 The rung axis (parallel tempering, ``emcee_tpu/parallel/tempering.py:
 476-541``, which vmaps one move over the ladder): a move that sets
-``rung_batched`` (the stretch, DE, DE-snooker, KDE, DIME, DE-Z and the
-ensemble MALA and HMC moves; ``moves/gradient.py`` has the
+``rung_batched`` (the stretch, DE, DE-snooker, side, walk, KDE, DIME,
+DE-Z and the ensemble MALA and HMC moves; ``moves/gradient.py`` has the
 whole-ensemble MALA and HMC moves' own ``propose_rungs``, and
 ``moves/slice.py`` the slice move's, over K9's loops) proposes every
 rung of a ladder at once with :meth:`RedBlueMove.propose_rungs`.  The
@@ -45,6 +45,7 @@ state's buffers are then ``(T, nwalkers, ...)``, ``rng`` is ``(keys,
 offset)`` with ``keys`` the rungs' :class:`~..ops.philox.RungKeys`, and
 the model evaluates the ``(T, ng, ndim)`` proposals of every rung in one
 call.  Each split runs the move's proposal kernels (K1, K5a or K5b; the
+side move's K5a; the walk move's K8a, K8b and K18a, or K18b; the
 ensemble gradient moves' K11-K13 between their gradients; the KDE move's
 K7; DIME's K8a-K8c; DE-Z's K10a and K10b, and K10c once a proposal) and
 K2 once for all rungs, and a tuned move's scale is ``(T,)``, each

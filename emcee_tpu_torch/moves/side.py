@@ -4,24 +4,25 @@ The counterpart of ``emcee_tpu/moves/side.py:33-85``: the walker steps
 along the difference of two complement members with a Gaussian
 amplitude, ``q = s + (sigma / sqrt(2)) * z * (c_j - c_i)``, ``z ~ N(0,
 1)``, ``sigma = 2.38 / sqrt(ndim)`` by default; the Hastings factor is
-zero (``z`` is sign-symmetric and the pair exchangeable).  Plain torch;
-each split's accept/select is K2.
+zero (``z`` is sign-symmetric and the pair exchangeable).  The proposal
+is K5a's side mode (``ops/de_kernel.py``, ``csrc/de_propose.cu``); each
+split's accept/select is K2.
 
-The pairs are DE's (``ops/de_kernel.py`` :func:`~..ops.de_kernel.
-de_pairs`): in roll mode ``s1 = int(u1 * nc)`` and ``d = 1 + int(u2 *
-(nc - 1))`` from the split's ``ROLL_LANE`` words 0 and 1 (JAX takes the
-two uniforms as Phi of two normals), in random mode two picks from the
-``PAIR_BLOCK`` counter.  The amplitude ``z`` is the walker's Box-Muller
-normal on words 0 and 2 at ``(walker, split)``, as K5a's.
+The pairs are DE's (:func:`~..ops.de_kernel.de_pairs`): in roll mode
+``s1 = int(u1 * nc)`` and ``d = 1 + int(u2 * (nc - 1))`` from the split's
+``ROLL_LANE`` words 0 and 1 (JAX takes the two uniforms as Phi of two
+normals), in random mode two picks from the ``PAIR_BLOCK`` counter.  The
+amplitude ``z`` is the walker's Box-Muller normal on words 0 and 2 at
+``(walker, split)``, as K5a's.  K5a's rung axis lets
+:meth:`~.red_blue.RedBlueMove.propose_rungs` propose every rung of a
+tempered ladder in one launch a split.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..ops.de_kernel import de_pairs, walker_normal
-from ..ops._wrap import complement_rows
+from ..ops import de_kernel
 from .red_blue import RedBlueMove
 
 __all__ = ["SideMove"]
@@ -37,6 +38,7 @@ class SideMove(RedBlueMove):
     """
 
     tunable = True
+    rung_batched = True
 
     def __init__(self, sigma=None, pair_mode="random", **kwargs):
         self.sigma = sigma
@@ -52,29 +54,16 @@ class SideMove(RedBlueMove):
 
     def get_proposal(self, rng, coords, split, model, extra=None,
                      scale=None):
-        """The proposal of group ``split``.  ``extra`` injects the draws
-        as a dict: ``z`` ``(ng,)`` and ``u_shift`` ``(2,)`` (roll) or
+        """K5a's side mode for group ``split``.  ``extra`` injects the
+        draws as a dict: ``z`` ``(ng,)`` and ``u_shift`` ``(2,)`` (roll) or
         ``idx_a``, ``idx_b`` ``(ng,)`` (random; the raw picks, before
-        ``j`` is moved past ``i``)."""
-        extra = extra or {}
+        ``j`` is moved past ``i``); on the rung axis (``coords`` ``(T,
+        nwalkers, ndim)``, ``rng``'s seed a :class:`~..ops.philox.
+        RungKeys`) one row of each per rung."""
         seed, offset = rng
-        nw, nd = coords.shape
-        ng = nw // self.nsplits
-        dev, dt = coords.device, coords.dtype
-        z = extra.get("z")
-        if z is None:
-            z = walker_normal(ng, split, seed, offset, dev, dt)
-        a, b = de_pairs(ng, nw - ng, split, self.pair_mode, seed, offset,
-                        dev, extra.get("u_shift"), extra.get("idx_a"),
-                        extra.get("idx_b"))
-        ci = coords.index_select(0, complement_rows(a, split, ng))
-        cj = coords.index_select(0, complement_rows(b, split, ng))
-        # (sigma / sqrt(2)) in float32, as the JAX package computes it.
-        sigma = np.float32(self._sigma(model.global_ndim(nd)))
-        root2 = np.float32(np.sqrt(2.0))
-        coef = float(sigma / root2)
-        if scale is not None:
-            coef = (float(sigma) * scale) / float(root2)
-        s = coords[split * ng:(split + 1) * ng]
-        amp = (coef * z)[:, None]
-        return s + amp * (cj - ci), torch.zeros(ng, dtype=dt, device=dev)
+        return de_kernel.de_propose(
+            coords, split, self.nsplits,
+            gamma0=self._sigma(model.global_ndim(coords.shape[-1])),
+            scale=scale, pair_mode=self.pair_mode, seed=seed, offset=offset,
+            mode="side", **(extra or {}),
+        )

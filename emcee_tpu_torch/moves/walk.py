@@ -6,35 +6,38 @@ walkers (all of them by default).  A red-blue move, so each split's
 accept/select is K2.
 
 * **Shared covariance** (``s=None``): one covariance and one Cholesky
-  factor for every walker of the split, and ``q = s + (z @ L^T)`` with
-  ``z`` the walkers' normals.  The factor is ``torch.linalg.cholesky_ex``,
-  which reports failure in a tensor instead of checking on the host (a
-  recorded proposal cannot sync); a covariance that is not positive
-  definite gives a NaN factor, so every proposal is rejected, as with
-  JAX's NaN Cholesky.
+  factor for every walker of the split, and ``q = s + adj (z L^T)`` with
+  ``z`` the walkers' normals.  K8a (``ops/dime_kernel.py``
+  ``dime_moments``, ``K = 1``) reduces the complement in place into runs'
+  partials, K8b's walk mode merges them and factors ``M2 / (n - 1)``
+  column by column (every entry NaN where a pivot is not > 0, so every
+  proposal is rejected, as with JAX's NaN Cholesky), and K18a
+  (``ops/walk_kernel.py`` ``walk_propose``) draws the normals and forms
+  ``q``.
 * **Subset** (``s`` given): each walker's ``s0`` helpers are an exact
-  subset without replacement when ``nc <= exact_subset_max`` (a stable
-  argsort of ``nc`` Philox keys per walker), bootstrap picks otherwise,
-  as in the JAX package.  The step is ``dz = X_c^T z / sqrt(s0 - 1)``,
-  with ``X_c`` the subset centred on its mean and ``z ~ N(0, I_s0)``:
-  exactly ``N(0, Cov(subset))``, singular subsets included, with no
-  factorisation.  This is an expected difference of route, not of
-  distribution: the JAX package factors each walker's covariance by SVD
-  (``multivariate_normal(method="svd")``), and ``torch.linalg.svd`` and
-  ``eigh`` check on the host.
+  subset without replacement when ``nc <= exact_subset_max`` (the ``s0``
+  smallest of ``nc`` Philox keys per walker, ties by index), bootstrap
+  picks otherwise, as in the JAX package.  The step is ``dz = X_c^T z /
+  sqrt(s0 - 1)``, with ``X_c`` the subset centred on its mean and ``z ~
+  N(0, I_s0)``: exactly ``N(0, Cov(subset))``, singular subsets
+  included, with no factorisation.  This is an expected difference of
+  route, not of distribution: the JAX package factors each walker's
+  covariance by SVD (``multivariate_normal(method="svd")``).  K18b
+  (``walk_subset``) makes the picks, the mean and the step in one launch.
 
 The draws are the port's Philox stream (``ops/philox.py``): the normals
 at ``(row, NORMAL_BLOCK | k)`` and the subset picks or keys at ``(row,
-PICK_BLOCK | k)``, ``row`` the walker's row in the ensemble buffer.
+PICK_BLOCK | k)``, ``row`` the walker's row in the ensemble buffer.  The
+kernels' rung axis lets :meth:`~.red_blue.RedBlueMove.propose_rungs`
+propose every rung of a tempered ladder at once (each rung's factor from
+its own complement, its own key and scale).
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from ..ops.philox import normals, row_uniforms
+from ..ops import dime_kernel, walk_kernel
 from .red_blue import RedBlueMove
 
 __all__ = ["WalkMove", "cholesky_or_nan", "complement", "cov"]
@@ -80,6 +83,7 @@ class WalkMove(RedBlueMove):
     """
 
     tunable = True
+    rung_batched = True
 
     def __init__(self, s=None, exact_subset_max=4096, **kwargs):
         self.s = s
@@ -91,36 +95,22 @@ class WalkMove(RedBlueMove):
         """The proposal of group ``split``.  ``extra`` injects the draws
         (the parity mode) as a dict: ``z`` the normals (``(ng, ndim)``
         shared, ``(ng, s0)`` subset) and ``picks`` ``(ng, s0)`` int64
-        subset rows of the complement."""
+        subset rows of the complement; on the rung axis (``coords`` ``(T,
+        nwalkers, ndim)``, ``rng``'s seed a :class:`~..ops.philox.
+        RungKeys`) with a leading ``T`` axis."""
         extra = extra or {}
         seed, offset = rng
-        nw, nd = coords.shape
+        nw = coords.shape[-2]
         ng = nw // self.nsplits
         nc = nw - ng
-        s = coords[split * ng:(split + 1) * ng]
-        c = complement(coords, split, ng)
         s0 = nc if self.s is None else int(self.s)
-        adj = 1.0 if scale is None else scale
-        dev, dt = coords.device, coords.dtype
-        row0 = split * ng
         if s0 >= nc:
-            z = extra.get("z")
-            if z is None:
-                z = normals(ng, nd, seed, offset, dev, dt, row0=row0)
-            q = s + adj * (z @ cholesky_or_nan(cov(c)).T)
-            return q, torch.zeros(ng, dtype=dt, device=dev)
-        picks = extra.get("picks")
-        if picks is None:
-            if nc <= self.exact_subset_max:
-                keys = row_uniforms(ng, nc, seed, offset, dev, row0=row0)
-                picks = torch.argsort(keys, dim=1, stable=True)[:, :s0]
-            else:
-                u = row_uniforms(ng, s0, seed, offset, dev, row0=row0)
-                picks = torch.clamp((u * nc).to(torch.int64), max=nc - 1)
-        sub = c[picks]  # (ng, s0, nd)
-        xc = sub - sub.mean(dim=1, keepdim=True)
-        z = extra.get("z")
-        if z is None:
-            z = normals(ng, s0, seed, offset, dev, dt, row0=row0)
-        dz = torch.einsum("gs,gsd->gd", z, xc) / math.sqrt(s0 - 1)
-        return s + adj * dz, torch.zeros(ng, dtype=dt, device=dev)
+            part = dime_kernel.dime_moments(coords, (split * ng, ng), None,
+                                            None, 1)
+            chol = dime_kernel.dime_finish(part, mode="walk")
+            return walk_kernel.walk_propose(coords, split, self.nsplits, chol,
+                                            seed, offset, scale,
+                                            extra.get("z"))
+        return walk_kernel.walk_subset(
+            coords, split, self.nsplits, s0, self.exact_subset_max, seed,
+            offset, scale, extra.get("z"), extra.get("picks"))

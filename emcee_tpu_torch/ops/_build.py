@@ -62,6 +62,9 @@ KERNELS = {
     "rank_keys": ("rhat.cu", "emcee_rank_keys"),
     "rank_scores": ("rhat.cu", "emcee_rank_scores"),
     "psrf": ("rhat.cu", "emcee_psrf"),
+    "walk_propose": ("walk_propose.cu", "emcee_walk_propose"),
+    "walk_subset": ("walk_propose.cu", "emcee_walk_subset"),
+    "walk_keys": ("walk_propose.cu", "emcee_walk_keys"),
 }
 
 _FLAGS = [
@@ -107,7 +110,7 @@ _ARGTYPES = {
     "de_propose": [
         _P, _P, _P,  # coords, q, factor
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ng nd split nsplits
-        ctypes.c_int,  # pair_mode
+        ctypes.c_int, ctypes.c_int,  # pair_mode, side mode
         ctypes.c_float, _P, ctypes.c_float,  # gamma0, scale, sigma
         _P, _P, _P, _P,  # z, u_shift, idx_a, idx_b
         *[ctypes.c_int] * 6,  # plan: tile grid threads vec stage smem
@@ -201,7 +204,7 @@ _ARGTYPES = {
     "dime_finish": [
         _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # part nb nd K
         _P, _P, _P, _P,  # mean, cov, w, table
-        ctypes.c_float, ctypes.c_float, ctypes.c_int,  # rho scale update
+        ctypes.c_float, ctypes.c_float, ctypes.c_int,  # rho scale mode
         ctypes.c_int, ctypes.c_int,  # ntemps, plan: threads
         ctypes.c_int,  # the partials and the factor in shared memory
         _P,  # stream
@@ -266,6 +269,10 @@ _ARGTYPES = {
         _P,  # the arguments (host struct, ops/autocorr_kernel.py RhatArgs)
         _P,  # stream
     ] for name in ("rank_keys", "rank_scores", "psrf")},
+    **{name: [
+        _P,  # the arguments (host struct, ops/walk_kernel.py _Args)
+        _P,  # stream
+    ] for name in ("walk_propose", "walk_subset", "walk_keys")},
 }
 
 

@@ -2,7 +2,10 @@
 PyTorch.
 
 Held against ``emcee_tpu/moves/de.py:45-85`` (``DEMove.get_proposal``,
-both pair modes).  The kernel is ``csrc/de_propose.cu``.  It is bound by
+both pair modes), and in its side mode against ``emcee_tpu/moves/side.py:
+57-85`` (``SideMove.get_proposal``: ``q = s + (sigma / sqrt 2) z (c_j -
+c_i)``, the same pairs and walker normal, no jitter).  The kernel is
+``csrc/de_propose.cu``.  It is bound by
 bytes (6 MB per launch at workload 3's shape; no matrix product, so no
 tensor-core work), and tiled as K1 is (``_wrap.de_plan``): a block owns
 a tile of consecutive walkers; one thread per walker draws its normal
@@ -68,8 +71,15 @@ from .philox import (
     PAIR_BLOCK, RungKeys, box_muller, normals, roll_uniforms, row_uniforms,
     rung_keys, rung_words, to_uniform, walker_words)
 
-__all__ = ["de_gamma0", "de_pairs", "de_propose", "de_propose_plain",
-           "de_roll_shifts", "walker_normal"]
+__all__ = ["DE_MODES", "ROOT2_F32", "de_gamma0", "de_pairs", "de_propose",
+           "de_propose_plain", "de_roll_shifts", "walker_normal"]
+
+#: K5a's modes -> the kernel's code: the DE proposal (``gamma = gamma0
+#: scale (1 + sigma z)``), or the side move's (``gamma = (gamma0 scale /
+#: sqrt 2) z``, ``gamma0`` the side move's sigma, no jitter ``sigma``)
+DE_MODES = {"de": 0, "side": 1}
+#: sqrt(2) rounded to float32 (``jnp.sqrt(2.0)``), the side mode's divisor
+ROOT2_F32 = float(np.float32(np.sqrt(2.0)))
 
 
 def de_gamma0(gamma0, ndim_global):
@@ -150,15 +160,33 @@ def de_pairs(ng, nc, split, pair_mode, seed, offset, device, u_shift=None,
     return a, torch.where(b >= a, b + 1, b)
 
 
-def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
-                     pair_mode, seed=0, offset=0, z=None, u_shift=None,
-                     idx_a=None, idx_b=None):
+def _jitter(mode, sigma):
+    """The DE jitter ``sigma`` as float32 for ``mode``: required by
+    ``"de"``, refused by ``"side"`` (which has none; 0.0 is passed on)."""
+    if mode not in DE_MODES:
+        raise ValueError(f"unknown K5a mode: {mode!r}")
+    if mode == "side":
+        if sigma is not None:
+            raise ValueError("the side mode takes no sigma (its gamma0 is "
+                             "the side move's sigma)")
+        return 0.0
+    if sigma is None:
+        raise ValueError("the de mode needs sigma")
+    return float(np.float32(sigma))
+
+
+def de_propose_plain(coords, split, nsplits, *, gamma0, sigma=None,
+                     scale=None, pair_mode, seed=0, offset=0, z=None,
+                     u_shift=None, idx_a=None, idx_b=None, mode="de"):
     """Plain PyTorch K5a: returns ``(q (ng, ndim), factor (ng,))``, or on
     the rung axis ``(q (T, ng, ndim), factor (T, ng))``: every rung's
     words in one Philox pass under its own key, then the same arithmetic
     elementwise over the rungs, so each rung equals the same rung
-    proposed alone.  ``gamma0`` is the float32 value of
-    :func:`de_gamma0`."""
+    proposed alone.  ``mode`` (:data:`DE_MODES`): ``"de"``, ``gamma0``
+    the float32 value of :func:`de_gamma0` and ``sigma`` the jitter; or
+    ``"side"``, ``gamma0`` the side move's sigma (``gamma = (gamma0 scale
+    / sqrt 2) z``) and no ``sigma``."""
+    sigma = _jitter(mode, sigma)
     nw = coords.shape[-2]
     ng = nw // nsplits
     lo = split * ng
@@ -179,23 +207,34 @@ def de_propose_plain(coords, split, nsplits, *, gamma0, sigma, scale=None,
                               dim=-2)
     s = coords[..., lo:lo + ng, :]
     # Python floats rounded to float32 first, as the kernel receives them.
-    gamma0, sigma = float(np.float32(gamma0)), float(np.float32(sigma))
-    g = gamma0 if scale is None else gamma0 * scale[..., None]
-    gamma = g * (1.0 + sigma * z)
+    gamma0 = float(np.float32(gamma0))
+    if mode == "side":
+        # Divisions by tensors only: on the card torch turns a division by
+        # a Python number into a product by its reciprocal.
+        g = torch.full((), gamma0, dtype=coords.dtype, device=dev)
+        if scale is not None:
+            g = g * scale[..., None]
+        gamma = (g / torch.full((), ROOT2_F32, dtype=coords.dtype,
+                                device=dev)) * z
+    else:
+        g = gamma0 if scale is None else gamma0 * scale[..., None]
+        gamma = g * (1.0 + sigma * z)
     q = s + gamma[..., None] * (cb - ca)
     return q, torch.zeros(z.shape, dtype=coords.dtype, device=dev)
 
 
-def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
+def de_propose(coords, split, nsplits, *, gamma0, sigma=None, scale=None,
                pair_mode, seed=0, offset=0, z=None, u_shift=None,
-               idx_a=None, idx_b=None):
+               idx_a=None, idx_b=None, mode="de"):
     """K5a on the tensor's device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor.  Returns ``(q, factor)``."""
+    plain version for a CPU tensor.  Returns ``(q, factor)``.  Arguments
+    as :func:`de_propose_plain`."""
     kw = dict(gamma0=gamma0, sigma=sigma, scale=scale, pair_mode=pair_mode,
               seed=seed, offset=offset, z=z, u_shift=u_shift, idx_a=idx_a,
-              idx_b=idx_b)
+              idx_b=idx_b, mode=mode)
     if coords.device.type == "cpu":
         return de_propose_plain(coords, split, nsplits, **kw)
+    kw["sigma"] = _jitter(mode, sigma)
     if coords.device.type != "cuda":
         raise ValueError(f"no K5a kernel for device {coords.device}")
     check_pair_mode(pair_mode)
@@ -223,7 +262,8 @@ def de_propose(coords, split, nsplits, *, gamma0, sigma, scale=None,
 
 
 def _launch(plan, coords, q, factor, split, nsplits, *, gamma0, sigma,
-            scale, pair_mode, seed, offset, z, u_shift, idx_a, idx_b):
+            scale, pair_mode, seed, offset, z, u_shift, idx_a, idx_b,
+            mode="de"):
     """Launch K5a with launch plan ``plan`` on checked arguments."""
     dev = coords.device
     roll = pair_mode == "roll"
@@ -233,7 +273,7 @@ def _launch(plan, coords, q, factor, split, nsplits, *, gamma0, sigma,
         "de_propose", dev,
         coords.data_ptr(), q.data_ptr(), factor.data_ptr(),
         q.shape[-2], coords.shape[-1], split, nsplits, PAIR_MODES[pair_mode],
-        float(gamma0), ptr(scale), float(sigma), ptr(z),
+        DE_MODES[mode], float(gamma0), ptr(scale), float(sigma), ptr(z),
         ptr(u_shift if roll else None), ptr(None if roll else idx_a),
         ptr(None if roll else idx_b), *plan,
         *key_args(seed, dev, ntemps, injected=injected),

@@ -30,11 +30,14 @@ cuBLAS products and a cuSOLVER factor.  Three kernels take its place:
 * **K8b** :func:`dime_finish`: one block a rung.  It merges the partials
   by a pairwise tree (level ``s``: node ``p`` takes node ``p + s`` for
   ``p = 0, 2s, 4s, ...``) with Chan's combine, pools the result with the
-  carry, and then either writes the carry in place (``update``, the
-  carry update) or writes a table for K8c: the t-shape ``cov * (df - 2) /
+  carry, and then either writes the carry in place (``mode="update"``,
+  the carry update) or writes a table for K8c: the t-shape ``cov * (df - 2) /
   df + eps I`` factored column by column (every entry NaN where a pivot
   is not > 0, as ``cholesky_ex`` with ``info != 0``), its inverse row by
-  row, the log-determinants, the log-weights and their running sum.
+  row, the log-determinants, the log-weights and their running sum.  Its
+  walk mode (``mode="walk"``, ``K = 1``) is the walk move's shared factor
+  (``emcee_tpu/moves/walk.py:29-33, 73-79``): the tree, then ``M2 / (n -
+  1)`` factored column by column into ``(..., nd, nd)``, nothing pooled.
 * **K8c** :func:`dime_propose`: one thread a walker.  It draws at the
   port's counters (normals at ``(row, NORMAL_BLOCK | k)``, the DE jitter
   after them, four uniforms at ``(row, DIME_BLOCK)``, the chi-square at
@@ -81,7 +84,8 @@ from .philox import CHI2_BLOCK, DIME_BLOCK, box_muller, normals, row_uniforms
 from .philox import row_words, to_uniform
 
 __all__ = ["DIME_ROWS", "DIME_ROWS_MAX", "DimeConfig", "DimePlan",
-           "MT_CANDIDATES", "chi_square", "dime_finish", "dime_finish_plain",
+           "FINISH_MODES", "MT_CANDIDATES", "chi_square", "chol_columns_plain",
+           "dime_finish", "dime_finish_plain",
            "dime_moments", "dime_moments_plain", "dime_plan",
            "dime_propose", "dime_propose_plain", "logq_plain",
            "masked_moments_plain", "pool_plain", "table_size",
@@ -111,6 +115,9 @@ PROPOSE_THREADS = 128
 #: shape ``df / 2 > 1``, so a walker exhausts 10 with probability below
 #: 0.049**10 < 1e-12
 MT_CANDIDATES = 10
+#: K8b's modes -> the kernel's code (``kTable``, ``kUpdate``, ``kWalk`` in
+#: ``csrc/dime_moments.cu``)
+FINISH_MODES = {"table": 0, "update": 1, "walk": 2}
 
 
 class DimePlan(NamedTuple):
@@ -457,7 +464,14 @@ def t_shape_chol_plain(cov, df):
     tr = _serial_sum(torch.diagonal(cov, dim1=-2, dim2=-1))
     eps = 1e-6 * (tr / _num(nd, tr)) + 1e-12
     eye = torch.eye(nd, dtype=cov.dtype, device=cov.device)
-    S = cov * scale + eps[..., None, None] * eye
+    return chol_columns_plain(cov * scale + eps[..., None, None] * eye)
+
+
+def chol_columns_plain(S):
+    """The lower Cholesky factor of ``S`` (of each matrix of a batch),
+    column by column in K8b's order; every entry NaN where a pivot is not
+    > 0 (``cholesky_ex`` with ``info != 0``)."""
+    nd = S.shape[-1]
     L = torch.zeros_like(S)
     ok = torch.ones(S.shape[:-2], dtype=torch.bool, device=S.device)
     for j in range(nd):
@@ -503,15 +517,31 @@ def _weights(total):
     return logw, torch.stack(cdf, dim=-1)
 
 
-def dime_finish_plain(part, mean, cov, w, cfg, update=False):
+def _finish_mode(mode):
+    """``mode``'s kernel code (:data:`FINISH_MODES`), or a ValueError."""
+    if mode not in FINISH_MODES:
+        raise ValueError(f"mode must be one of {sorted(FINISH_MODES)}, got "
+                         f"{mode!r}")
+    return FINISH_MODES[mode]
+
+
+def dime_finish_plain(part, mean=None, cov=None, w=None, cfg=None,
+                      mode="table"):
     """Plain PyTorch K8b: the tree over ``part`` (K8a's), pooled with the
     carry ``mean``, ``cov``, ``w`` (each with the rung axis where ``part``
-    has one, and the component axis for ``K > 1``).  ``update``: write the
-    pooled moments into the carry in place and return None; otherwise
-    return the ``(..., table_size(nd, K))`` table."""
+    has one, and the component axis for ``K > 1``).  ``mode`` is one of
+    :data:`FINISH_MODES`: ``"table"`` returns the ``(..., table_size(nd,
+    K))`` table; ``"update"`` writes the pooled moments into the carry in
+    place and returns None; ``"walk"`` (``K = 1``; ``mean``, ``cov``,
+    ``w`` and ``cfg`` unread) returns the factor of ``M2 / (n - 1)``,
+    ``(..., nd, nd)``, the walk move's."""
+    code = _finish_mode(mode)
+    n, mu, m2 = _tree(part)
+    if code == FINISH_MODES["walk"]:
+        return chol_columns_plain(m2[..., 0, :, :]
+                                  / (n[..., 0] - 1.0)[..., None, None])
     lead = part.shape[:-3]
     K = int(cfg.components)
-    n, mu, m2 = _tree(part)
     nd = mu.shape[-1]
     dt = part.dtype
     mh = mean.reshape(lead + (K, nd)).to(dt)
@@ -519,7 +549,7 @@ def dime_finish_plain(part, mean, cov, w, cfg, update=False):
     wk = w.reshape(lead + (K,)).to(dt)
     cov_b = m2 / torch.clamp(n, min=1.0)[..., None, None]
     pm, pc, total = pool_plain(mh, ch, wk, n, mu, cov_b, cfg.rho)
-    if update:
+    if code == FINISH_MODES["update"]:
         mean.copy_(pm.reshape(mean.shape))
         cov.copy_(pc.reshape(cov.shape))
         w.copy_(total.reshape(w.shape))
@@ -532,14 +562,16 @@ def dime_finish_plain(part, mean, cov, w, cfg, update=False):
                       logdet, cdf), dim=-1)
 
 
-def dime_finish(part, mean, cov, w, cfg, update=False):
+def dime_finish(part, mean=None, cov=None, w=None, cfg=None, mode="table"):
     """K8b on the partials' device: the CUDA kernel for CUDA tensors (which
     uses ``part`` as its scratch: its values are gone after the call), the
     plain version for CPU tensors.  Arguments as
     :func:`dime_finish_plain`."""
+    code = _finish_mode(mode)
+    walk = code == FINISH_MODES["walk"]
     dev = part.device
     if dev.type == "cpu":
-        return dime_finish_plain(part, mean, cov, w, cfg, update)
+        return dime_finish_plain(part, mean, cov, w, cfg, mode)
     if dev.type != "cuda":
         raise ValueError(f"no K8b kernel for device {dev}")
     if part.dim() not in (3, 4):
@@ -548,20 +580,27 @@ def dime_finish(part, mean, cov, w, cfg, update=False):
     lead = tuple(int(t) for t in part.shape[:-3])
     nb, K, node = (int(t) for t in part.shape[-3:])
     nd = int(round(math.sqrt(node - 0.75) - 0.5))
-    if 1 + nd + nd * nd != node or K != int(cfg.components):
+    if 1 + nd + nd * nd != node or K != (1 if walk else int(cfg.components)):
         raise ValueError(f"bad K8b partials {tuple(part.shape)}")
-    kk = (K,) if K > 1 else ()
     check_f32("part", part, dev)
+    ntemps = lead[0] if lead else 1
+    if walk:
+        L = torch.empty(lead + (nd, nd), dtype=torch.float32, device=dev)
+        launch("dime_finish", dev, part.data_ptr(), nb, nd, 1, None, None,
+               None, L.data_ptr(), 0.0, 0.0, code, ntemps,
+               FINISH_THREADS, int(finish_shared(nb, nd, 1)))
+        count_launches(dime_finish)
+        return L
+    kk = (K,) if K > 1 else ()
     check_f32("mean", mean, dev, lead + kk + (nd,))
     check_f32("cov", cov, dev, lead + kk + (nd, nd))
     check_f32("w", w, dev, lead + kk)
-    ntemps = lead[0] if lead else 1
-    table = None if update else torch.empty(
+    table = None if code == FINISH_MODES["update"] else torch.empty(
         lead + (table_size(nd, K),), dtype=torch.float32, device=dev)
     scale = 1.0 if cfg.df is None else (cfg.df - 2.0) / cfg.df
     launch("dime_finish", dev, part.data_ptr(), nb, nd, K, mean.data_ptr(),
            cov.data_ptr(), w.data_ptr(), ptr(table), float(cfg.rho),
-           float(scale), int(bool(update)), ntemps, FINISH_THREADS,
+           float(scale), code, ntemps, FINISH_THREADS,
            int(finish_shared(nb, nd, K)))
     count_launches(dime_finish)
     return table

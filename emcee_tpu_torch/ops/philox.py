@@ -39,9 +39,10 @@ Stream layout (shared with the kernels):
   both are computed on the host (:func:`uniform_scalar`), so a chunk's
   move sequence is known before it runs;
 * the moves of plain torch (``moves/mh.py``, ``gaussian.py``,
-  ``walk.py``, ``kde.py``) draw from these, where ``row`` is the walker's
-  row in the proposal's ensemble buffer (``split * ng + i``; every
-  walker's row with ``nsplits=1``):
+  ``kde.py``) and the walk move's kernels (K18, ``csrc/walk_propose.cu``)
+  draw from these, where ``row`` is the walker's row in the proposal's
+  ensemble buffer (``split * ng + i``; every walker's row with
+  ``nsplits=1``):
 
   - counter ``(row, NORMAL_BLOCK | k, ...)``: standard normals ``2k``
     (words 0 and 2) and ``2k + 1`` (words 1 and 3) of the row, by

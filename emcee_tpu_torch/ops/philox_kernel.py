@@ -4,9 +4,9 @@ PyTorch.
 Held against the draws the JAX package fuses into their consumers: the
 shuffled split's permutation bits (``emcee_tpu/moves/red_blue.py:218``,
 vmapped over the rungs by ``parallel/tempering.py:538``) and the normals
-and uniforms of the moves of plain torch (``moves/dime.py:320-351``,
-``de_z.py:158-219``, ``walk.py:78-88``, ``gaussian.py:125-142``,
-``side.py:66-82``, ``kde.py:80``; the slice move's draws are K9's).  The
+and uniforms of the moves of plain torch (``moves/gaussian.py:125-142``,
+``kde.py:80``; DIME's, DE-Z's, the slice move's, the side move's and the
+walk move's draws are made in K8c, K10b, K9, K5a and K18).  The
 port draws its own stream (``ops/philox.py``), so the kernel is held bit
 for bit against the plain version, :func:`philox_draw_plain`, which runs
 :func:`~.philox.philox4x32_torch` (ten torch calls a round).  The kernel

@@ -14,9 +14,10 @@ move's kernels take the rung axis (the stretch, DE and DE-snooker moves:
 K1, K5a or K5b and K2 launch once a split for all rungs; the MALA, HMC,
 ensemble MALA and ensemble HMC moves: K11, K12, K13 and K2 launch once a
 step for all rungs; the KDE move: K7 and K2 launch once a split for all
-rungs; DIME: K8a, K8b and K8c; DE-Z: K10a, K10b and K10c; the slice
-move: K9a, K9d and K9c's first list once a split and K9b or K9c once a
-loop trip for all rungs, each rung's list in its own rows; the shuffled
+rungs; DIME: K8a, K8b and K8c; DE-Z: K10a, K10b and K10c; the side
+move: K5a's side mode; the walk move: K8a, K8b's walk mode and K18a, or
+K18b for a subset; the slice move: K9a, K9d and K9c's first list once a
+split and K9b or K9c once a loop trip for all rungs, each rung's list in its own rows; the shuffled
 split of any of them: K14 draws every rung's sort keys, K16 orders every
 rung's walkers in one launch and K17 gathers and scatters every rung's
 rows in one launch each way; the tempered log-prob, and its gradient, is
@@ -41,8 +42,8 @@ A weighted move list runs as the JAX package's does: one move a proposal
 for every rung, or one a block of ``mixture_block`` kept steps, drawn on
 the host from the chain's seed (``driver.move_sequence``); the chunk
 program runs each stretch of equal moves, the stretch, DE, DE-snooker,
-MALA, HMC, ensemble MALA, ensemble HMC, KDE, DIME, DE-Z and slice moves
-on every rung at once and any other move rung by rung.  Of the looped
+MALA, HMC, ensemble MALA, ensemble HMC, KDE, DIME, DE-Z, side, walk and
+slice moves on every rung at once and any other move rung by rung.  Of the looped
 moves, ``EnsembleSliceMove`` runs its loops for every rung at once (one
 read of the lists' lengths a block serves every rung), and
 ``ChEESHMCMove`` rung by rung, each rung's by replays of its own

@@ -142,7 +142,7 @@ def test_one_component_moments_factor_and_update_match_jax(warm, df):
     dk.dime_finish_plain(dk.dime_moments_plain(t(x), (0, 0), pc["mean"],
                                                pc["w"], 1),
                          pc["mean"], pc["cov"], pc["w"], cfg_of(jmove),
-                         update=True)
+                         mode="update")
     atol = history_atol(carry, np.asarray(x).mean(0), NW)
     for key in ("mean", "cov", "w"):
         np.testing.assert_allclose(pc[key], np.asarray(want[key]), TOL,
@@ -172,7 +172,7 @@ def test_mixture_quantities_and_update_match_jax(warm, k):
     close(got[5], np.cumsum(np.exp(np.asarray(want[3]))), 2 * TOL)
     want = jmove.update_carry(jx(carry), JState(jnp.asarray(x)), jmodel())
     dk.dime_finish_plain(part, pc["mean"], pc["cov"], pc["w"], cfg_of(jmove),
-                         update=True)
+                         mode="update")
     for key in ("mean", "cov", "w"):
         np.testing.assert_allclose(pc[key], np.asarray(want[key]), 2 * TOL,
                                    atol)
@@ -264,12 +264,12 @@ def test_rung_axis_equals_each_rung_alone(k, df, aimh):
     whole = dk.dime_moments_plain(x, (0, 0), stacked["mean"], stacked["w"],
                                   k)
     dk.dime_finish_plain(whole, stacked["mean"], stacked["cov"],
-                         stacked["w"], cfg, update=True)
+                         stacked["w"], cfg, mode="update")
     for r in range(Tn):
         pc = port(carries[r])
         dk.dime_finish_plain(dk.dime_moments_plain(
             x[r], (0, 0), pc["mean"], pc["w"], k), pc["mean"], pc["cov"],
-            pc["w"], cfg, update=True)
+            pc["w"], cfg, mode="update")
         for key in pc:
             assert torch.equal(pc[key], stacked[key][r]), key
 

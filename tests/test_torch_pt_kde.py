@@ -205,12 +205,15 @@ def test_batched_path_equals_the_per_rung_loop(make, kw):
 
 
 def test_rung_batched_flag():
-    """``KDEMove`` proposes every rung at once; ``WalkMove`` loops."""
+    """``KDEMove`` (and the walk move beside it) proposes every rung at
+    once; ``BlendedMove`` loops."""
     assert moves.KDEMove().rung_batched
     assert moves.KDEMove(max_complement=4).rung_batched
-    assert not moves.WalkMove().rung_batched
+    assert moves.WalkMove().rung_batched
+    blended = moves.BlendedMove([moves.DEMove(), moves.SideMove()])
+    assert not blended.rung_batched
     with pytest.raises(ValueError, match="one ensemble"):
-        moves.WalkMove().propose_rungs(
+        blended.propose_rungs(
             (rung_keys(0, T, "cpu"), 0), start(0), port_model(), ())
 
 
