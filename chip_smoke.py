@@ -63,8 +63,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    eager); K3's replay and host times; and a log-prob that synchronizes
    with the host is refused with an error.
 
-10. the moves of plain torch (MH, Gaussian, walk) and the KDE move (K7) at
-   full width through K3 (K7's launches held to exactly 2 a KDE
+10. the MH, Gaussian (K19), walk and KDE (K7) moves at full width
+   through K3 (K7's launches held to exactly 2 a KDE
    proposal: one a split for ``s`` and ``q``), K6, the diagnostics and
    ``run_until_converged`` (K6's calls on its kernels counted);
 11. blobs and io: K2 with blob leaves against its plain version bit for
@@ -91,8 +91,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    (1e5 x 3-D, K = 2, ``df=10``, 400 kept x 2; the mode fraction; 0
    exhaustions in a ``df=7.5`` twin; K8's launches held likewise) and both
    chi-square routes on the card (K-S, 0 exhaustions); (c)
-   ``BlendedMove`` on workload 3 through K5a + K5b in turns with the
-   sampler-level mixture (launches by the profiler); (d)
+   ``BlendedMove`` on workload 3 through K5a + K5b and K20 in turns with
+   the sampler-level mixture (launches by the profiler); (d)
    ``SideMove(roll)`` and ``EnsembleSliceMove()`` at 1e5 x 5-D (graph
    chains == eager chains; the slice move's K9 and K14 launches held
    exactly by device words beside the profiler's, its block replays,
@@ -397,8 +397,32 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    phases 0, 1 and 25 alone.  Phase 10's walk moves and phase 12's side
    move count these kernels too (K14 only for the shuffle's keys).
 
+26. The Gaussian, MH and blended moves on every rung (K19,
+   ``csrc/gaussian_propose.cu``; K20, ``csrc/blend_select.cu``): (a) K19
+   and K20 against their plain versions on the same inputs, bit for bit
+   (ndim 1-129, 1-1e5 walkers, 1, 2 and 16 rungs, every covariance and
+   mode, a factor and tuning, a host offset and a device offset word,
+   injected draws, 2-4 sub-moves, drawn, injected and out-of-range
+   choices, each rung against the rung alone) and K2's rung kernel at
+   ``nsplits=1``; (b) each alone at 1e5 x 5-D and on workload 4's ladder
+   (CUDA events around graph replays) beside its plain version, its bound
+   and the library calls ``torch.add(x, z, alpha)`` and ``addmm`` /
+   ``baddbmm`` (K20: none; a copy of its bytes as a yardstick); (c)
+   ``GaussianMove(0.5)``, its ``random`` mode, its full covariance,
+   phase 10's ``MHMove(Philox normals)`` and the DE + snooker blend at
+   1e5 on the blocked split (graph == plain eager chain, device us and
+   kernels a proposal, launches held exactly by device words: no K14 but
+   the MH function's); (d) the same moves and a three-way blend with the
+   side move on workload 4's ladder (``pt21_path``: graph == eager,
+   batched == per-rung loop bit for bit, turns, launches, kept x 4 stored,
+   both backends equal; the blends held to phase 14's windows, the
+   random-walk moves' windows reported); (e) the rows, one ensemble and
+   with the rung axis.  ``python3 chip_smoke.py 26`` runs phases 0, 1 and
+   26 alone.  Phase 10's Gaussian moves and phase 12's blend count these
+   kernels too.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22, 23, 24, 25.  Every phase raises on failure.  ``python3
+18, 19, 20, 21, 22, 23, 24, 25, 26.  Every phase raises on failure.  ``python3
 chip_smoke.py sass-diff TREE`` builds TREE's and this checkout's K1, K2,
 K5a, K5b, K11, K12, K13 and K15 and compares their SASS function by
 function.
@@ -411,10 +435,11 @@ with TREE's package, for turns of two trees; ``python3 chip_smoke.py
 kernel-turn TREE`` times K14 and K2's rung axis in the replays of
 workload 4 (with and without its blobs), of the DIME stage and of
 ``StretchMove()`` at 1e5 walkers with TREE's package (and K16 and K17
-where TREE has them; the DE-Z, slice, side and walk moves' device time
-and kernels a proposal), likewise; ``python3 chip_smoke.py check-turn TREE``
-times one convergence check at phase 24's monitor's last chain with
-TREE's package (its seconds, kernels and device memory), likewise;
+where TREE has them; the DE-Z, slice, side, walk, Gaussian, MH and
+blended moves' device time and kernels a proposal), likewise;
+``python3 chip_smoke.py check-turn TREE`` times one convergence check at
+phase 24's monitor's last chain with TREE's package (its seconds, kernels
+and device memory), likewise;
 ``python3 chip_smoke.py phase-times TREE``
 runs TREE's whole ``chip_smoke.py`` in a child process, echoes its
 output, and prints the seconds each phase took (each output line's wait
@@ -480,7 +505,9 @@ K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
 KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",),
                   "group_order": ("group_rank_kernel", "group_merge_kernel"),
                   "rank_scores": ("rank_scan_kernel", "rank_finish_kernel"),
-                  "walk_subset": ("walk_sort_kernel", "walk_keys_kernel")}
+                  "walk_subset": ("walk_sort_kernel", "walk_keys_kernel"),
+                  "gaussian_propose": ("gaussian_pairs_kernel",
+                                       "gaussian_advance_kernel")}
 
 
 def launched_by(name, key):
@@ -522,7 +549,9 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("autocorr_kernel", "rank_scores"),
            ("autocorr_kernel", "psrf"),
            ("walk_kernel", "walk_propose"),
-           ("walk_kernel", "walk_subset"))
+           ("walk_kernel", "walk_subset"),
+           ("gaussian_kernel", "gaussian_propose"),
+           ("blend_kernel", "blend_select"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -2033,32 +2062,29 @@ def phase10(torch, np, dev, card, chains):
     are phase 19's)."""
     from emcee_tpu_torch import moves
     from emcee_tpu_torch.ops import kde_kernel
-    from emcee_tpu_torch.ops.philox import normals
 
     p0 = np.random.default_rng(3).normal(size=(NW, ND)).astype(np.float32)
-    full = 0.25 * (np.eye(ND) + 0.5 * np.ones((ND, ND)))
-
-    def mh_proposal(rng, x):
-        seed, offset = rng
-        z = normals(x.shape[0], x.shape[1], seed, offset, x.device)
-        return x + 0.5 * z, torch.zeros(x.shape[0], device=x.device)
 
     # (label, move, proposals, K2 and K14 launches a proposal[, other
-    # kernels a proposal]).  K14: the normals (one draw; a split's each for
-    # the red-blue moves), the Gaussian move's random dimensions and the
-    # KDE move's kernel centres (one a split each), and the shuffled
-    # split's sort keys (one a proposal, the red-blue moves' default); the
-    # walk move draws in its kernels (phase 25: K8a, K8b and K18a, or
-    # K18b).
+    # kernels a proposal]).  K14: the MH function's normals (one draw; a
+    # split's each for the red-blue moves), the KDE move's kernel centres
+    # (one a split each), and the shuffled split's sort keys (one a
+    # proposal, the red-blue moves' default); the Gaussian move draws in
+    # K19 (phase 26; two launches in the sequential mode: the proposal and
+    # the index's advance), the walk move in its kernels (phase 25: K8a,
+    # K8b and K18a, or K18b).
     configs = (
-        ("GaussianMove(0.5)", lambda: moves.GaussianMove(0.5), 64, 1, 1),
+        ("GaussianMove(0.5)", lambda: moves.GaussianMove(0.5), 64, 1, 0,
+         {"gaussian_propose": 1}),
         ("GaussianMove(0.5, mode='random')",
-         lambda: moves.GaussianMove(0.5, mode="random"), 64, 1, 2),
+         lambda: moves.GaussianMove(0.5, mode="random"), 64, 1, 0,
+         {"gaussian_propose": 1}),
         ("GaussianMove(0.5, mode='sequential')",
-         lambda: moves.GaussianMove(0.5, mode="sequential"), 64, 1, 1),
-        ("GaussianMove(full cov)", lambda: moves.GaussianMove(full), 64, 1,
-         1),
-        ("MHMove(Philox normals)", lambda: moves.MHMove(mh_proposal), 64,
+         lambda: moves.GaussianMove(0.5, mode="sequential"), 64, 1, 0,
+         {"gaussian_propose": 2}),
+        ("GaussianMove(full cov)", lambda: moves.GaussianMove(FULL26), 64,
+         1, 0, {"gaussian_propose": 1}),
+        ("MHMove(Philox normals)", lambda: moves.MHMove(mh_normals), 64,
          1, 1),
         ("WalkMove()", moves.WalkMove, 64, 2, 1,
          {k: v for k, v in WALK_SHARED_PER.items() if k != "accept_select"}),
@@ -3085,7 +3111,8 @@ def phase12(torch, np, dev, card):
         out["dime_bimodal"] = phase12_bimodal(torch, np, dev, card)
     out["chi2"] = chi2_check(torch, np, dev, card)
     with path_launches(out, "blended", (
-            "accept_select", "de_propose", "snooker_propose")):
+            "accept_select", "de_propose", "snooker_propose",
+            "blend_select")):
         out["blended"] = phase12_blended(torch, np, dev, card)
     with path_launches(out, "side_slice",
                        ("accept_select", "de_propose") + K9_KERNELS):
@@ -3293,7 +3320,7 @@ def phase12_blended(torch, np, dev, card, n=1000):
             n_prof, "blended", lambda: {
                 "stretch_propose": 0, "accept_select": 2 * n_prof,
                 "de_propose": 2 * n_prof, "snooker_propose": 2 * n_prof,
-                "philox_draw": n_prof}),  # K14: the splits' choices
+                "blend_select": 2 * n_prof}),  # K20: a split's choice
         # The mixture's exact launches are phase 8's check.
         "mixture": busy_window(
             torch, lambda: drive(mix, None, n_prof, store=False), n_prof,
@@ -8777,7 +8804,8 @@ def pt21_sampler(dev, label, seed, backend=None):
 
 
 def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
-              kept=512, thin=4, sampler=None, per=None, phase="phase 21"):
+              kept=512, thin=4, sampler=None, per=None, phase="phase 21",
+              hold=True):
     """(d) ``label`` at workload 4's configuration: over 64 proposals the
     graph chain (every rung at once) against the plain versions' eager
     chain and against the per-rung loop, bit for bit (the carries too);
@@ -8788,8 +8816,9 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
     kept x 4 into ``PTDeviceBackend`` (the
     best of two timed runs: walker-steps/s, the cold rung's tau and
     ESS/s; held: a finite chain and tau, and phase 14's windows: the swap
-    acceptance, the cold mode fraction, the cold |x0|'s mean and spread)
-    and ``PTDeviceBackend`` == ``PTBackend`` from one seed."""
+    acceptance, the cold mode fraction, the cold |x0|'s mean and spread;
+    with ``hold`` False they are reported only) and ``PTDeviceBackend`` ==
+    ``PTBackend`` from one seed."""
     from emcee_tpu_torch.backends import PTBackend, PTDeviceBackend
 
     sampler = sampler or pt21_sampler
@@ -8900,7 +8929,7 @@ def pt21_path(torch, np, dev, card, label, p0, n_c=16, n_l=PT21_LOOP_N,
         f"{spread:.3f}), cold acceptance {res['cold_acceptance']:.3f}; "
         f"checks {checks}; {kept} kept x {thin} into PTDeviceBackend == "
         f"PTBackend {card} ({time.perf_counter() - t0:.1f} s)")
-    if not all(checks.values()):
+    if hold and not all(checks.values()):
         raise AssertionError(f"{phase}: {label}: workload 4 checks "
                              f"{checks}")
     return out
@@ -11447,6 +11476,531 @@ def phase25_rows(out, card):
     return rows
 
 
+# -- phase 26: the Gaussian, MH and blended moves on every rung ----------------
+
+#: the Gaussian move's full covariance at ND (phase 10's)
+FULL26 = [[0.375 if i == j else 0.125 for j in range(ND)] for i in range(ND)]
+#: a proposal's launches of the Gaussian move (K19, K2 at nsplits=1; no
+#: K14: K19 draws its own)
+GAUSS_PER = {"gaussian_propose": 1, "accept_select": 1}
+#: of phase 10's MH move (its function's normals by K14)
+MH_PER = {"philox_draw": 1, "accept_select": 1}
+#: of the blend of DE and DE-snooker (each split: K5a, K5b, K20, K2)
+BLEND_PER = {"de_propose": 2, "snooker_propose": 2, "blend_select": 2,
+             "accept_select": 2}
+#: of the three-way blend (K5a for DE and for the side move)
+BLEND3_PER = BLEND_PER | {"de_propose": 4}
+#: phase 26's moves at the main path's width and their launches a proposal
+MAIN26 = {"GaussianMove(0.5)": GAUSS_PER,
+          "GaussianMove(0.5, mode='random')": GAUSS_PER,
+          "GaussianMove(full cov)": GAUSS_PER,
+          "MHMove(Philox normals)": MH_PER,
+          "BlendedMove(DE 0.8, snooker 0.2, blocked)": BLEND_PER}
+#: on workload 4's ladder (MH's function runs once a rung: NT4 K14
+#: launches; the blends' shuffled split adds K14, K16 and K17 once each;
+#: K15 swaps)
+PT26 = {"GaussianMove(0.5)": GAUSS_PER,
+        "GaussianMove(0.5, mode='random')": GAUSS_PER,
+        "GaussianMove(full cov)": GAUSS_PER,
+        "MHMove(Philox normals)": MH_PER | {"philox_draw": NT4},
+        "BlendedMove(DE 0.8, snooker 0.2)":
+            BLEND_PER | {"philox_draw": 1} | SHUF4,
+        "BlendedMove(DE, snooker, side)":
+            BLEND3_PER | {"philox_draw": 1} | SHUF4}
+PT26_PER = {k: v | {"pt_swap": 1} for k, v in PT26.items()}
+#: the ladder moves held to phase 14's windows (the random-walk moves'
+#: windows are reported, not held: a Gaussian step of 0.5 does not cross
+#: between modes 8 apart)
+PT26_HELD = ("BlendedMove(DE 0.8, snooker 0.2)",
+             "BlendedMove(DE, snooker, side)")
+#: (rungs, walkers, ndim) of K19's sweep
+K19_SWEEP = ((1, 1, 5), (1, 31, 1), (1, 31, 33), (1, 5003, 2),
+             (1, 5003, 129), (1, NW, ND), (2, 31, 100), (16, 256, 5),
+             (16, 5003, 33))
+#: (cov, mode) of K19's sweep: a full covariance takes the vector mode only
+K19_CASES = (("scalar", "vector"), ("scalar", "random"),
+             ("scalar", "sequential"), ("diag", "vector"), ("diag", "random"),
+             ("diag", "sequential"), ("full", "vector"))
+#: (rungs, walkers a split, ndim, sub-moves) of K20's sweep
+K20_SWEEP = ((1, 1, 1, 2), (1, 31, 5, 3), (1, 5003, 100, 4), (1, 50000, 5, 2),
+             (2, 31, 33, 3), (16, 128, 5, 4), (16, 5003, 1, 2))
+#: (rungs, walkers, ndim) of K2's rung kernel at nsplits=1
+K2_NS1_SWEEP = ((1, 1, 1), (1, 31, 5), (2, 31, 33), (16, 256, 5),
+                (16, 5003, 2), (3, 50000, 5))
+
+
+def mh_normals(rng, x):
+    """Phase 10's MH proposal: ``x + 0.5 z`` of the port's Philox normals."""
+    import torch
+    from emcee_tpu_torch.ops.philox import normals
+
+    seed, offset = rng
+    z = normals(x.shape[0], x.shape[1], seed, offset, x.device)
+    return x + 0.5 * z, torch.zeros(x.shape[0], device=x.device)
+
+
+def move26(label):
+    """Phase 26's move ``label``."""
+    from emcee_tpu_torch import moves
+
+    def de_snooker(**kw):  # workload 3's pair (benchmarks/workload3.py:71-77)
+        return moves.BlendedMove(
+            [(moves.DEMove(pair_mode="roll"), 0.8),
+             (moves.DESnookerMove(pair_mode="roll", nsplits=2), 0.2)], **kw)
+
+    return {
+        "GaussianMove(0.5)": lambda: moves.GaussianMove(0.5),
+        "GaussianMove(0.5, mode='random')":
+            lambda: moves.GaussianMove(0.5, mode="random"),
+        "GaussianMove(full cov)": lambda: moves.GaussianMove(FULL26),
+        "MHMove(Philox normals)": lambda: moves.MHMove(mh_normals),
+        "BlendedMove(DE 0.8, snooker 0.2, blocked)":
+            lambda: de_snooker(randomize_split=False),
+        "BlendedMove(DE 0.8, snooker 0.2)": de_snooker,
+        "BlendedMove(DE, snooker, side)": lambda: moves.BlendedMove(
+            [(moves.DEMove(), 0.5),
+             (moves.DESnookerMove(pair_mode="roll", nsplits=2), 0.2),
+             (moves.SideMove(), 0.3)]),
+    }[label]()
+
+
+def pt26_sampler(dev, label, seed, backend=None):
+    return pt_sampler(dev, seed=seed, backend=backend, move=move26(label))
+
+
+def k19_scales(torch, np, dev, nd, gen):
+    """K19's ``(scale, L)`` of each covariance kind at ``nd``: a scalar, a
+    diagonal and a full covariance's Cholesky factor (factored in float64
+    on the host, as ``GaussianMove`` does)."""
+    a = np.random.default_rng(nd).normal(size=(nd, nd))
+    L = np.linalg.cholesky(a @ a.T / nd + 0.5 * np.eye(nd))
+    return {"scalar": (torch.tensor(0.7, device=dev), None),
+            "diag": (0.3 + torch.rand(nd, device=dev, generator=gen), None),
+            "full": (None, torch.tensor(L, dtype=torch.float32, device=dev))}
+
+
+def k26_sweep(torch, np, dev):
+    """(a) K19 and K20 against their plain versions on the same inputs, bit
+    for bit (the bits, so NaN compares too), and K2's rung kernel at
+    ``nsplits=1``: K19 over ``K19_SWEEP`` x ``K19_CASES``, without a factor
+    at a host offset and with a factor, per-rung ``log_adj`` and a device
+    offset word, the sequential index after both; injected draws and each
+    rung against the rung alone at 16 rungs; K20 over ``K20_SWEEP`` (2-4
+    sub-moves, a factor of one value among them) with the choice drawn at a
+    host offset and a device word, injected as an int, as a tensor and out
+    of range, and each rung against the rung alone; K2's rung kernel at
+    ``nsplits=1`` over ``K2_NS1_SWEEP``, with and without the ``logL`` /
+    ``logP`` leaves, each rung against the one-ensemble K2 of the rung
+    alone.  Returns the number of comparisons."""
+    from emcee_tpu_torch.ops import accept_kernel as ak
+    from emcee_tpu_torch.ops import blend_kernel as bk
+    from emcee_tpu_torch.ops import gaussian_kernel as gk
+    from emcee_tpu_torch.ops.philox import DeviceOffset, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(260)
+    word = torch.tensor(3, dtype=torch.int64, device=dev)
+    lf = math.log(2.5)
+    n = 0
+    for T, nw, nd in K19_SWEEP:
+        lead = (T,) if T > 1 else ()
+        x = torch.randn(lead + (nw, nd), device=dev, generator=gen)
+        keys = rung_keys(9, T, dev) if T > 1 else 9
+        log_adj = 0.3 * torch.randn(lead, device=dev, generator=gen)
+        index = (torch.arange(T, dtype=torch.int32, device=dev) * 3 - 1
+                 ).reshape(lead)
+        scales = k19_scales(torch, np, dev, nd, gen)
+        for kind, mode in K19_CASES:
+            scale, L = scales[kind]
+            for f, la, off in ((None, None, 5),
+                               (lf, log_adj, DeviceOffset(word, 2))):
+                i_k, i_p = index.clone(), index.clone()
+                args = (x, scale, L, keys, off, mode, f, la)
+                same_bits(gk.gaussian_propose(*args, i_k) + (i_k,),
+                          gk.gaussian_propose_plain(*args, i_p) + (i_p,),
+                          f"K19 {kind} {mode} T {T} nw {nw} nd {nd} "
+                          f"factor {f}")
+                n += 1
+            if T == 16:
+                inj = dict(z=torch.randn(T, nw, nd, device=dev, generator=gen),
+                           u=torch.rand(T, device=dev, generator=gen),
+                           dims=torch.randint(0, nd, (T, nw), device=dev,
+                                              generator=gen)
+                           if mode == "random" else None)
+                i_k, i_p = index.clone(), index.clone()
+                args = (x, scale, L, 9, 5, mode, lf, log_adj)
+                same_bits(gk.gaussian_propose(*args, i_k, **inj) + (i_k,),
+                          gk.gaussian_propose_plain(*args, i_p, **inj)
+                          + (i_p,), f"K19 {kind} {mode} injected")
+                i_all = index.clone()
+                all_r = gk.gaussian_propose(x, scale, L, keys, 5, mode, lf,
+                                            log_adj, i_all)
+                for r in (0, 7, 15):
+                    i_r = index[r].clone()
+                    got = gk.gaussian_propose(x[r].contiguous(), scale, L,
+                                              keys.seeds[r], 5, mode, lf,
+                                              log_adj[r].contiguous(), i_r)
+                    same_bits(got + (i_r,), (all_r[0][r], all_r[1][r],
+                                             i_all[r]),
+                              f"K19 {kind} {mode} rung {r} alone")
+                n += 4
+    for T, ng, nd, k in K20_SWEEP:
+        lead = (T,) if T > 1 else ()
+        keys = rung_keys(13, T, dev) if T > 1 else 13
+        qs = [torch.randn(lead + (ng, nd), device=dev, generator=gen)
+              for _ in range(k)]
+        fs = [torch.randn((), device=dev, generator=gen) if j == 1 else
+              torch.randn(lead + (ng,), device=dev, generator=gen)
+              for j in range(k)]
+        w = np.random.default_rng(k + ng).uniform(0.1, 1.0, size=k)
+        cdf = [float(c) for c in np.cumsum(w / w.sum())[:-1]]
+        chosen = torch.randint(0, k, lead, device=dev, generator=gen)
+        for split in (0, 1):
+            for choice, off in ((None, 5), (None, DeviceOffset(word, 7)),
+                                (k - 1, 5), (chosen, 5), (k + 2, 5)):
+                args = (qs, fs, cdf, keys, off, split, choice)
+                same_bits(bk.blend_select(*args), bk.blend_select_plain(*args),
+                          f"K20 T {T} ng {ng} nd {nd} k {k} split {split} "
+                          f"choice {choice if choice is None else 'given'}")
+                n += 1
+        if T == 16:
+            all_r = bk.blend_select(qs, fs, cdf, keys, 5, 1)
+            for r in (0, 9, 15):
+                got = bk.blend_select(
+                    [q[r].contiguous() for q in qs],
+                    [f if f.dim() == 0 else f[r].contiguous() for f in fs],
+                    cdf, keys.seeds[r], 5, 1)
+                same_bits(got, (all_r[0][r], all_r[1][r]),
+                          f"K20 rung {r} alone")
+                n += 1
+    for T, nw, nd in K2_NS1_SWEEP:
+        keys = rung_keys(11, T, dev)
+        coords = torch.randn(T, nw, nd, device=dev, generator=gen)
+        q = coords + 0.5 * torch.randn(T, nw, nd, device=dev, generator=gen)
+        lp = gaussian(coords.reshape(-1, nd)).reshape(T, nw)
+        lp_q = gaussian(q.reshape(-1, nd)).reshape(T, nw)
+        factor = 0.1 * torch.randn(T, nw, device=dev, generator=gen)
+        new_l = torch.randn(2, T, nw, device=dev, generator=gen)
+        for with_leaves in (False, True):
+            for off in (5, DeviceOffset(word, 2)):
+                outs = []
+                for fn in (ak.accept_select, ak.accept_select_plain):
+                    bufs = [coords.clone(), lp.clone(),
+                            torch.zeros(T, nw, dtype=torch.bool, device=dev),
+                            torch.ones(T, nw, dtype=torch.int32, device=dev),
+                            torch.zeros(2, T, nw, device=dev)]
+                    blobs = ([(new_l[0], bufs[4][0]), (new_l[1], bufs[4][1])]
+                             if with_leaves else ())
+                    fn(q, factor, lp_q, bufs[0], bufs[1], 0, 1, bufs[2],
+                       bufs[3], seed=keys, offset=off, blobs=blobs)
+                    outs.append(bufs)
+                same_bits(outs[0], outs[1], f"K2 rung kernel nsplits=1 T {T} "
+                          f"nw {nw} nd {nd} leaves {with_leaves}")
+                n += 1
+        if T == 16:
+            ref = [coords.clone(), lp.clone(),
+                   torch.zeros(T, nw, dtype=torch.bool, device=dev),
+                   torch.ones(T, nw, dtype=torch.int32, device=dev)]
+            ak.accept_select(q, factor, lp_q, ref[0], ref[1], 0, 1, ref[2],
+                             ref[3], seed=keys, offset=5)
+            for r in (0, 15):
+                bufs = [b[r].clone() for b in (coords, lp)] + [
+                    torch.zeros(nw, dtype=torch.bool, device=dev),
+                    torch.ones(nw, dtype=torch.int32, device=dev)]
+                ak.accept_select(q[r].contiguous(), factor[r].contiguous(),
+                                 lp_q[r].contiguous(), bufs[0], bufs[1], 0, 1,
+                                 bufs[2], bufs[3], seed=keys.seeds[r],
+                                 offset=5)
+                same_bits(bufs, [b[r] for b in ref],
+                          f"K2 nsplits=1 rung {r} alone")
+                n += 1
+    return n
+
+
+def k26_bounds(T, nw, nd, full=False, k=2):
+    """The least work of one launch at ``T`` rungs of ``nw`` walkers, as
+    ``{name: (bytes, instructions, special-function results)}``, each
+    input read once and each output written once: K19 (``x`` read, ``q``
+    and the factor written, ``L`` read for a full covariance; a Philox
+    block a pair of columns, a normal a column, and three operations a
+    column, or ``nd (nd + 1)`` for the full covariance's sum) and K20 with
+    ``k`` sub-moves (the chosen ``q`` and factor read and written; a Philox
+    block and ``k - 1`` compares a rung)."""
+    rows = T * nw
+    return {
+        "gaussian_propose": (
+            4 * (T * (2 * nw * nd + nw) + (nd * nd if full else 0)),
+            rows * (-(-nd // 2) * PHILOX_INSTR + nd * NORMAL_INSTR
+                    + (nd * (nd + 1) if full else 3 * nd)),
+            rows * nd * NORMAL_SFU),
+        "blend_select": (8 * T * (nw * nd + nw),
+                         T * (PHILOX_INSTR + k), 0),
+    }
+
+
+def k26_alone(torch, np, dev, card, T=1, nw=NW, nd=ND):
+    """(b) Each kernel alone at one ensemble of 1e5 x 5 or at ``T`` rungs
+    of ``nw`` walkers (workload 4's ladder): device ms a call by CUDA
+    events around graph replays (``replay_ms``), a call back to back from
+    Python, the plain version (CUDA events, eager), the library calls
+    (K19: ``torch.add(x, z, alpha=s)`` of the same normals for a scalar
+    scale, ``torch.addmm(x, z, L^T)`` for a full covariance, ``baddbmm``
+    on the rung axis; K20: none, with a copy of the same bytes,
+    ``Tensor.copy_``, as a yardstick) and the bounds (bytes, and
+    instructions at the issue rate)."""
+    from emcee_tpu_torch.ops import blend_kernel as bk
+    from emcee_tpu_torch.ops import gaussian_kernel as gk
+    from emcee_tpu_torch.ops.philox import normals, rung_keys
+
+    gen = torch.Generator(device=dev).manual_seed(261)
+    lead = (T,) if T > 1 else ()
+    x = torch.randn(lead + (nw, nd), device=dev, generator=gen)
+    seed = rung_keys(5, T, dev) if T > 1 else 5
+    scale = torch.tensor(math.sqrt(0.5), device=dev)
+    L = torch.tensor(np.linalg.cholesky(np.asarray(FULL26)),
+                     dtype=torch.float32, device=dev)
+    z = normals(nw, nd, seed, 5, dev)
+    ng = nw // 2
+    qs = [torch.randn(lead + (ng, nd), device=dev, generator=gen)
+          for _ in range(2)]
+    fs = [torch.zeros(lead + (ng,), device=dev) for _ in range(2)]
+    q_out = torch.empty_like(qs[0])
+    if T > 1:
+        full_lib = (lambda: torch.baddbmm(x, z, L.T.expand(T, nd, nd)))
+    else:
+        full_lib = (lambda: torch.addmm(x, z, L.T))
+    calls = {
+        "gaussian_propose": (
+            lambda: gk.gaussian_propose(x, scale, None, seed, 5),
+            lambda: gk.gaussian_propose_plain(x, scale, None, seed, 5),
+            lambda: torch.add(x, z, alpha=math.sqrt(0.5)), False),
+        "gaussian_propose (full cov)": (
+            lambda: gk.gaussian_propose(x, None, L, seed, 5),
+            lambda: gk.gaussian_propose_plain(x, None, L, seed, 5),
+            full_lib, True),
+        "blend_select": (
+            lambda: bk.blend_select(qs, fs, [0.8], seed, 5, 0),
+            lambda: bk.blend_select_plain(qs, fs, [0.8], seed, 5, 0),
+            None, False),
+    }
+    out = {}
+    for name, (fn, plain, lib, full) in calls.items():
+        key = name.split(" ")[0]
+        nbytes, instr, sfu = k26_bounds(T, ng if key == "blend_select"
+                                        else nw, nd, full)[key]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": instruction_bound(instr, sfu)}
+        out[name] = {"ms": replay_ms(torch, fn),
+                     "call_ms": cuda_ms(torch, fn, reps=50),
+                     "plain_ms": slow_ms(torch, plain, reps=3),
+                     "bound_ms": max(t.values()),
+                     "bound_by": max(t, key=t.get), "bytes": nbytes,
+                     "instructions": instr,
+                     "library_ms": None if lib is None else replay_ms(
+                         torch, lib)}
+    out["blend_select"]["copy_ms"] = replay_ms(
+        torch, lambda: q_out.copy_(qs[1]))
+    what = (f"one ensemble of {nw} x {nd}" if T == 1
+            else f"{T} rungs x {nw} walkers x {nd}")
+    log(f"phase 26: (b) alone ({what}; K20 two sub-moves of {ng} rows), "
+        f"device us a call (graph replays): " + ", ".join(
+            f"{name} {v['ms'] * 1e3:.2f} (back to back "
+            f"{v['call_ms'] * 1e3:.2f}, plain {v['plain_ms'] * 1e3:.1f}, "
+            f"bound {v['bound_ms'] * 1e3:.3f} by {v['bound_by']}"
+            + (f", library {v['library_ms'] * 1e3:.2f}"
+               if v["library_ms"] is not None else "")
+            + (f", copy of the bytes {v['copy_ms'] * 1e3:.2f}"
+               if "copy_ms" in v else "") + ")"
+            for name, v in out.items()) + f" {card}")
+    return out
+
+
+def k26_stage(torch, np, dev, card, label, n=16):
+    """(c) ``label`` at the main path's width (1e5 x 5-D): ``n``
+    graph-replayed proposals against the plain versions' eager chain bit
+    for bit; host us, device us and kernels a proposal and each kernel's
+    us a launch in ``n`` replayed proposals (profiler); the launches
+    counted by device words (exactly ``MAIN26[label]`` a proposal)."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    per = MAIN26[label]
+
+    def make():
+        return EnsembleSampler(NW, ND, gaussian, vectorize=True, seed=26,
+                               device=dev, moves=move26(label))
+
+    p0 = np.random.default_rng(4).normal(size=(NW, ND)).astype(np.float32)
+    acc = graph_vs_plain_chain(torch, make, p0, n=n)
+    smp = make()
+    smp.run_mcmc(p0, n, store=False, skip_initial_state_check=True)
+    smp.run_mcmc(None, n, store=False)
+    host = []
+    for _ in range(2):
+        _, dt = drive(smp, None, n, store=False)
+        host.append(dt / n * 1e6)
+    win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False), n,
+                      f"phase 26 {label} at 1e5", names=per)
+    counted, _ = counted_replays(
+        torch, dev, smp, n, lambda r: {k: v * n for k, v in per.items()},
+        f"phase 26 {label} at 1e5", store=False)
+    log(f"phase 26: (c) {label} at 1e5 x 5-D: {n} graph-replayed proposals "
+        f"equal the plain versions' eager chain bit for bit (acceptance "
+        f"{acc:.4f}); {n} replayed proposals: host "
+        f"{[round(v, 1) for v in host]} us, device "
+        f"{measured(win['device_us_per_proposal'])} us and "
+        f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(win['idle'], '.4f')}; us a launch: "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in win["ms_per_launch"].items())
+        + f"; launches { {k: v for k, v in counted.items() if v} } (device "
+        f"words, exactly {per} a proposal) {card}")
+    return dict(win=win, replayed_launches=counted, proposals_counted=n,
+                acceptance=acc, host_us=host)
+
+
+def phase26(torch, np, dev, card):
+    """The Gaussian, MH and blended moves (see the module docstring, 26):
+    the sweep, the kernels alone at 1e5 and on the ladder, the five moves
+    at the main path's width, the six moves on workload 4's ladder (every
+    rung at once against the per-rung loop), each path's launches counted
+    from 0 just before it, and the rows of K19 and K20, one ensemble and
+    with the rung axis.  Returns its numbers and the rows."""
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k26_sweep(torch, np, dev)
+    log(f"phase 26: (a) K19 ((rungs, walkers, ndim) {list(K19_SWEEP)}, every "
+        f"covariance and mode, with and without a factor and tuning, host "
+        f"offset and device word, injected draws, each rung against the "
+        f"rung alone), K20 ((rungs, walkers, ndim, sub-moves) "
+        f"{list(K20_SWEEP)}, drawn and injected choices) and K2's rung "
+        f"kernel at nsplits=1 ({list(K2_NS1_SWEEP)}, with and without leaves) "
+        f"against their plain versions: {out['sweep']} comparisons, all bit "
+        f"for bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k26_alone(torch, np, dev, card)
+    out["alone_rungs"] = k26_alone(torch, np, dev, card, NT4, NW4, ND4)
+    log(f"phase 26: (b) {time.perf_counter() - t0:.1f} s")
+    for label, per in MAIN26.items():
+        t0 = time.perf_counter()
+        with path_launches(out, label, tuple(per), "phase 26"):
+            out[label] = k26_stage(torch, np, dev, card, label)
+        log(f"phase 26: (c) {label}: {time.perf_counter() - t0:.1f} s")
+    p0 = pt_p0(np)
+    for label, per in PT26_PER.items():
+        t0 = time.perf_counter()
+        held = label in PT26_HELD
+        with path_launches(out, f"ladder {label}", tuple(per), "phase 26"):
+            r = out[f"ladder {label}"] = pt21_path(
+                torch, np, dev, card, label, p0, n_l=PT25_LOOP_N,
+                sampler=pt26_sampler, per=per, phase="phase 26",
+                kept=512 if held else 256, hold=held)
+        log(f"phase 26: (d) {label} at {NT4} x {NW4} x {ND4}: 64 "
+            f"graph-replayed proposals of every rung at once equal the "
+            f"plain versions' eager chain and the per-rung loop bit for bit "
+            f"(swaps {r['swaps_64']}); in turns (batched, loop, loop, "
+            f"batched; replays of {r['proposals_counted']} and "
+            f"{r['loop_proposals_a_replay']} proposals), a proposal: host "
+            f"{[round(v, 1) for v in r['host_us'][True]]} / "
+            f"{[round(v, 1) for v in r['host_us'][False]]} us, device "
+            f"{[measured(v) for v in r['device_us'][True]]} / "
+            f"{[measured(v) for v in r['device_us'][False]]} us, kernels "
+            f"{[measured(v, '.0f') for v in r['kernels'][True]]} / "
+            f"{[measured(v, '.0f') for v in r['kernels'][False]]} (batched "
+            f"/ loop); batched launches in {r['proposals_counted']} "
+            f"proposals { {k: v for k, v in r['replayed_launches'].items() if v} }"
+            f" (device words; exactly {per} a proposal); us a launch in its "
+            f"replays: " + ", ".join(
+                f"{k} {measured(v and v * 1e3, '.3f')}"
+                for k, v in r["win"]["ms_per_launch"].items())
+            + f"; phase 14's windows {'held' if held else 'reported'} "
+            f"{card} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 26: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase26_rows(out, card)
+
+
+def phase26_rows(out, card):
+    """(e) The rows of K19 and K20 at the main path's width (device time a
+    launch in the paths' replays by the profiler; launches by device words
+    there; a call alone, back to back and the plain version by CUDA
+    events; the bound and the library call) and with the rung axis
+    (workload 4's ladder: the same from its replays and at its shape)."""
+    meta = {
+        "gaussian_propose": (
+            "emcee_tpu_torch/csrc/gaussian_propose.cu",
+            "emcee_tpu/moves/gaussian.py:118-150",
+            ("GaussianMove(0.5)", "ladder GaussianMove(0.5)"),
+            "torch.add(x, z, alpha=scale) of the same normals (the full "
+            "covariance's torch.addmm(x, z, L^T) / baddbmm in "
+            "alone_full_cov)"),
+        "blend_select": (
+            "emcee_tpu_torch/csrc/blend_select.cu",
+            "emcee_tpu/moves/blended.py:87-120",
+            ("BlendedMove(DE 0.8, snooker 0.2, blocked)",
+             "ladder BlendedMove(DE 0.8, snooker 0.2)"),
+            "none: no single PyTorch call draws the choice and selects "
+            "(copy_ms: Tensor.copy_ of the same bytes)"),
+    }
+    rows = []
+    for rung in (False, True):
+        al = out["alone_rungs" if rung else "alone"]
+        for name, (src, jax, paths, lib_note) in meta.items():
+            path = out[paths[rung]]
+            a = al[name]
+            shape = (f"with the rung axis at workload 4's shape ({NT4} rungs "
+                     f"x {NW4} walkers x {ND4}, {paths[1]}" if rung else
+                     f"at the main path's width (1e5 x 5-D, {paths[0]}")
+            extra = {}
+            if name == "gaussian_propose":
+                f = al["gaussian_propose (full cov)"]
+                extra = {"alone_full_cov": {k: f[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+            else:
+                extra = {"copy_ms": a["copy_ms"]}
+            rows.append({
+                "name": name + (" (rung axis)" if rung else ""),
+                "route": "cuda", "source": src,
+                "replaces": jax + (" (vmapped by emcee_tpu/parallel/"
+                                   "tempering.py:538)" if rung else ""),
+                "launches": path["replayed_launches"][name],
+                "max_abs_err": 0.0,
+                "ms": path["win"]["ms_per_launch"][name],
+                "alone_ms": a["ms"], "call_ms": a["call_ms"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+                "bytes": a["bytes"], "instructions": a["instructions"],
+                **extra,
+                "launches_per_proposal": (path["replayed_launches"][name]
+                                          / path["proposals_counted"]),
+                "ptxas": {k: v for k, v in PTXAS.items()
+                          if launched_by(name, k)},
+                **({"path_device_us_batched_loop": (path["device_us"][True],
+                                                    path["device_us"][False]),
+                    "path_kernels_batched_loop": (path["kernels"][True],
+                                                  path["kernels"][False])}
+                   if rung else {}),
+                "note": (f"{shape}): ms in the path's replays (profiler); "
+                         f"alone_ms a call alone (CUDA events around graph "
+                         f"replays), call_ms back to back from Python; "
+                         f"launches counted on the card in "
+                         f"{path['proposals_counted']} replayed proposals; "
+                         f"max_abs_err: bit for bit over phase 26 (a)'s "
+                         f"{out['sweep']} comparisons; bound: the bytes "
+                         f"(each input once, each output once) and the "
+                         f"instructions needed at the issue rate; "
+                         f"library_ms: {lib_note}")})
+    for row in rows:
+        log(f"phase 26: (e) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['alone_ms'] * 1e3:.2f} us a call "
+            f"alone, {row['call_ms'] * 1e3:.2f} back to back, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), library "
+            f"{measured(row['library_ms'] and row['library_ms'] * 1e3, '.2f')}"
+            f" us; launches {row['launches']} {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -11555,7 +12109,8 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     where the tree has it, else plain torch, rung by rung on the ladder),
     and of phase 25's side and walk moves at 1e5 walkers (the blocked
     split) and on workload 4's ladder (K5a's side mode, K8 and K18 where
-    the tree has them, else plain torch);
+    the tree has them, else plain torch), and of phase 26's Gaussian, MH
+    and blended moves likewise (K19 and K20 where the tree has them);
     the host's µs a proposal of every path.  A tree with K16 and
     K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
     on the shuffled paths.  Uses only what every tree with K14 has."""
@@ -11610,6 +12165,16 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     for label in PT25:
         runs[f"{label} on workload 4"] = (pt_sampler(
             dev, seed=90, move=move25(label)), 16, None)
+    # The Gaussian, MH and blended moves: K19 and K20 where the tree has
+    # them (every rung at once on the ladder), else plain torch and K14
+    # (rung by rung); the device time and kernels only.
+    for label in MAIN26:
+        runs[f"{label} at 1e5"] = (EnsembleSampler(
+            NW, ND, gaussian, vectorize=True, seed=28, device=dev,
+            moves=move26(label)), 16, None)
+    for label in PT26:
+        runs[f"{label} on workload 4"] = (pt_sampler(
+            dev, seed=91, move=move26(label)), 16, None)
     for what, (smp, n, names) in runs.items():
         if what == "DIME stage" or what.endswith(" at 1e5"):
             smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
@@ -11856,12 +12421,13 @@ def main() -> int:
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
                         ["17"], ["18"], ["19"], ["20"], ["21"], ["22"],
-                        ["23"], ["24"], ["25"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24 or
-        # 25 alone (a first check of the blobs, the extension moves, the
+                        ["23"], ["24"], ["25"], ["26"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25
+        # or 26 alone (a first check of the blobs, the extension moves, the
         # gradient moves, tempering, K14, the DE family on every rung, the
         # gradient moves on every rung, K7, the shuffled split's K16 and
-        # K17, K8, K10, K9, K6 or the side and walk moves).
+        # K17, K8, K10, K9, K6, the side and walk moves or the Gaussian, MH
+        # and blended moves).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
@@ -11870,7 +12436,8 @@ def main() -> int:
                  "18": phase18, "19": phase19,
                  "20": phase20, "21": phase21,
                  "22": phase22, "23": phase23,
-                 "24": phase24, "25": phase25}[sys.argv[1]]
+                 "24": phase24, "25": phase25,
+                 "26": phase26}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -12513,6 +13080,12 @@ def main() -> int:
     _, rows25 = phase25(torch, np, dev, card)
     rows += rows25
     log(f"phase 25: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 26. the Gaussian, MH and blended moves on every rung ----------------
+    t0 = time.perf_counter()
+    _, rows26 = phase26(torch, np, dev, card)
+    rows += rows26
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

@@ -15,10 +15,11 @@ distance matrix), DIME's moments, factor and proposal are K8, DE-Z's
 spread, proposal and archive fold K10, the slice move's stepping-out
 and shrinkage K9 (loops over the walkers still looping), the side move
 K5a's side mode, and the walk move K8a, K8b's walk mode and K18a (the
-shared covariance) or K18b (each walker's subset); the autocorrelation
-and R-hat diagnostics' chains are K6.  The Gaussian and
-Metropolis-Hastings moves, the rest of the KDE move and the convergence
-monitor are plain PyTorch on the walkers' device.  Blobs ride through K2
+shared covariance) or K18b (each walker's subset), the Gaussian move's
+proposal K19 and the blended move's choice and select K20; the
+autocorrelation and R-hat diagnostics' chains are K6.  A
+Metropolis-Hastings move's function, the rest of the KDE move and the
+convergence monitor are plain PyTorch on the walkers' device.  Blobs ride through K2
 with the coordinates, into the host, device and HDF5 backends;
 ``checkpoint``
 saves and loads states.  ``PTSampler`` runs a tempered ladder: the
@@ -26,10 +27,12 @@ stretch, DE and DE-snooker moves propose every rung at once through the
 rung axis of K1, K5a, K5b and K2, the MALA, HMC, ensemble MALA and
 ensemble HMC moves through the rung axis of K11, K12, K13 and K2, the
 KDE move through K7's, DIME through K8's, DE-Z through K10's, the side
-move through K5a's, the walk move through K8's and K18's and the slice
-move through K9's (in mixtures too, ``mixture_block`` included;
-the shuffled split through K14, K16 and K17 for every rung at once),
-other moves (the looped ChEES move among them) rung by rung; the
+move through K5a's, the walk move through K8's and K18's, the slice
+move through K9's, the Gaussian move through K19's and the
+Metropolis-Hastings move's function a rung at a time into one K2 launch,
+the blended move through its sub-moves' and K20's (in mixtures too,
+``mixture_block`` included; the shuffled split through K14, K16 and K17
+for every rung at once), and the looped ChEES move rung by rung; the
 even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
 with them, the ladder may adapt, and the chain goes into the host
 ``PTBackend``, the device ``PTDeviceBackend`` or ``PTHDFBackend``.

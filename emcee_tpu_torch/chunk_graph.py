@@ -80,13 +80,15 @@ K8a, K8b and K18a, or K18b, and K2; the MALA, HMC, ensemble MALA and
 ensemble HMC moves through K11, K12, K13 and K2, the gradient once over
 ``T * n`` rows; the KDE move through K7 and K2; DIME through K8a-K8c
 and K2; DE-Z through K10a-K10c and K2; the slice move through
-K9a-K9d, every rung's lists in one ``(T, bucket, ndim)`` batch; their
-shuffled split through K14, K16 and K17), or else, and under the
-private ``batched=False`` switch, a loop over the rungs, each rung an
-ensemble of its own (its views of the buffers, its tempered model, its
-carry and its key).  Each move of a mixture takes its own way, so a
-chunk's runs of the stretch or DE moves propose every rung at once and
-its runs of, say, the Gaussian move loop over the rungs.  The user blobs
+K9a-K9d, every rung's lists in one ``(T, bucket, ndim)`` batch; the
+Gaussian move through K19 and K2; the MH move's function a rung at a
+time into one buffer, then K2 once; the blend through its sub-moves'
+kernels and K20; their shuffled split through K14, K16 and K17), or
+else (ChEES), and under the private ``batched=False`` switch, a loop over
+the rungs, each rung an ensemble of its own (its views of the buffers,
+its tempered model, its carry and its key).  Each move of a mixture
+takes its own way, so a chunk's runs of the stretch or DE moves propose
+every rung at once and its runs of ChEES loop over the rungs.  The user blobs
 of the likelihood ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
 and ``logP`` (the tempered model's blobs are ``(logL, logP, user
 blobs)``): K2 selects them with the rows and K15 exchanges them with the

@@ -10,18 +10,26 @@ accept/select (K2) follow.  Over the workload-3 pair
         (DESnookerMove(pair_mode="roll", nsplits=2), 0.2),
     ], randomize_split=False)
 
-K5a and K5b both launch in each split and one ``q`` is selected on the
-device (``torch.where``), so the choice never reaches the host.
+K5a and K5b both launch in each split, and K20 (``ops/blend_kernel.py``,
+``csrc/blend_select.cu``) draws the split's choice and copies the chosen
+``q`` and factor, so the choice never reaches the host.
 
 The choice of split ``j`` is an inverse CDF of the uniform at
-``(ROLL_LANE, BLEND_BLOCK | j, offset)``; every split's is drawn in one
-plain Philox call before the splits (a Philox of one counter is ~100
-small kernels however many counters it holds).  Sub-move ``k`` draws at
-the proposal's offset under a key of its own
-(:func:`~..ops.philox.sub_seed`), as the JAX package gives each its own
-``split(key, n + 1)`` stream.
+``(ROLL_LANE, BLEND_BLOCK | j, offset)``, drawn inside K20's launch of the
+split.  Sub-move ``k`` draws at the proposal's offset under a key of its
+own (:func:`~..ops.philox.sub_seed`), as the JAX package gives each its
+own ``split(key, n + 1)`` stream.
 ``mode="switch"`` computes every sub-proposal too (the same draws give
 the same ``q``; skipping the unchosen one is a later optimisation).
+
+The rung axis: the blend is ``rung_batched`` when every sub-move is
+(every blendable move is), so a ladder proposes every rung at once
+through :meth:`~.red_blue.RedBlueMove.propose_rungs`.  Each sub-move's
+proposal then runs on the ``(T, ng, d)`` rows under its sub-move keys
+(:func:`~..ops.philox.sub_keys`: rung ``r``'s key ``sub_seed(rung_seed(
+seed, r), k)``, so rung 0's is the one-ensemble stream; the tables are
+made once per ladder, on the host), and one K20 launch picks each rung's
+own choice.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.philox import BLEND_BLOCK, ROLL_LANE, sub_seed, word_uniforms
+from ..ops import blend_kernel
+from ..ops.philox import RungKeys, sub_keys, sub_seed
 from .red_blue import RedBlueMove
 
 __all__ = ["BlendedMove"]
@@ -85,48 +94,51 @@ class BlendedMove(RedBlueMove):
         self._cdf = [float(c) for c in np.cumsum(self._weights)[:-1]]
         kwargs.setdefault("nsplits", nsplits.pop())
         super().__init__(**kwargs)
+        # The sub-moves' key tables of a ladder, per (rungs' keys, device):
+        # made at the first (eager) proposal, so a recorded proposal copies
+        # nothing from the host.
+        self._keys = {}
+
+    @property
+    def rung_batched(self):
+        """True when every sub-move proposes every rung at once."""
+        return all(m.rung_batched for m in self._moves)
 
     def choice(self, u):
         """The sub-move index of uniforms ``u``: the inverse CDF of the
-        weights, on ``u``'s device."""
-        idx = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
-        for c in self._cdf:
-            idx = idx + (u >= c).to(torch.int64)
-        return idx
+        weights, on ``u``'s device (the choice K20 makes)."""
+        return blend_kernel.blend_choice(u, self._cdf)
 
-    def _split_draws(self, rng, device):
-        """Every split's choice, ``(nsplits,)`` int64, from one Philox
-        call over the counters ``(ROLL_LANE, BLEND_BLOCK | split)``."""
-        seed, offset = rng
-        u = word_uniforms(1, self.nsplits, BLEND_BLOCK, seed, offset, device,
-                          row0=ROLL_LANE)[0]
-        return self.choice(u)
+    def _sub_seeds(self, seed):
+        """Each sub-move's key under ``seed``: an int, or on the rung axis
+        a :class:`~..ops.philox.RungKeys` of every rung's sub-move key."""
+        if not isinstance(seed, RungKeys):
+            return [sub_seed(seed, k) for k in range(len(self._moves))]
+        key = (seed.seeds, str(seed.table.device))
+        if key not in self._keys:
+            self._keys[key] = [sub_keys(seed, k)
+                               for k in range(len(self._moves))]
+        return self._keys[key]
 
     def get_proposal(self, rng, coords, split, model, extra=None,
                      scale=None):
-        """Every sub-move's proposal of group ``split``, one selected.
-        ``extra`` is the split's choice (a 0-d tensor, from the engine),
-        or injects the draws as a dict: ``choice`` (an int or a 0-d
-        tensor) and ``moves``, a list of each sub-move's ``extra``."""
+        """Every sub-move's proposal of group ``split``, one selected by
+        K20 (``coords`` ``(nw, d)``, or ``(T, nw, d)`` under the rungs'
+        keys).  ``extra`` injects the choice (an int or a ``()`` / ``(T,)``
+        int64 tensor) or the draws as a dict: ``choice`` and ``moves``, a
+        list of each sub-move's ``extra``."""
         if not isinstance(extra, dict):
             extra = {"choice": extra}
         seed, offset = rng
-        dev = coords.device
-        ng = coords.shape[0] // self.nsplits
         idx = extra.get("choice")
-        if idx is None:
-            idx = self._split_draws(rng, dev)[split]
-        idx = torch.as_tensor(idx, device=dev)
+        if isinstance(idx, torch.Tensor):
+            idx = idx.to(device=coords.device, dtype=torch.int64)
         subs = extra.get("moves") or [None] * len(self._moves)
-        q = factors = None
-        for k, (m, sub) in enumerate(zip(self._moves, subs)):
-            qk, fk = m.get_proposal((sub_seed(seed, k), offset), coords,
-                                    split, model, extra=sub)
-            fk = fk.expand(ng)
-            if q is None:
-                q, factors = qk, fk
-            else:
-                pick = idx == k
-                q = torch.where(pick, qk, q)
-                factors = torch.where(pick, fk, factors)
-        return q, factors
+        qs, fs = [], []
+        for m, key, sub in zip(self._moves, self._sub_seeds(seed), subs):
+            qk, fk = m.get_proposal((key, offset), coords, split, model,
+                                    extra=sub)
+            qs.append(qk.contiguous())
+            fs.append(fk.contiguous())
+        return blend_kernel.blend_select(qs, fs, self._cdf, seed, offset,
+                                         split, idx)

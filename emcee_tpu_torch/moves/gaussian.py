@@ -6,13 +6,24 @@ diagonal or full-covariance proposals; the ``vector``, ``random`` and
 f))``; Robbins-Monro tuning of the scale toward ``tune_target``.  An
 :class:`~.mh.MHMove`, so the accept/select is K2 at ``nsplits=1``.
 
-The draws are the port's Philox stream (``ops/philox.py``): the normals
-at ``(walker, NORMAL_BLOCK | k)``, the ``random`` mode's dimension from
-word 0 at ``(walker, 0)``, the factor's uniform from word 0 at
-``(ROLL_LANE, 0)``.  The full covariance's step is ``z @ chol.T``, a
-plain ``torch.matmul``, as the JAX package leaves it to XLA.  The
-``sequential`` mode's dimension is a 0-d int32 carry, advanced in
-place, so a recorded proposal cycles at every replay.
+The proposal is K19 (``ops/gaussian_kernel.py``, ``csrc/
+gaussian_propose.cu``): one launch draws the port's Philox stream
+(``ops/philox.py``: the normals at ``(walker, NORMAL_BLOCK | k)``, the
+``random`` mode's dimension from word 0 at ``(walker, 0)``, the factor's
+uniform from word 0 at ``(ROLL_LANE, 0)``), forms the step (``z * scale``,
+or ``z L^T`` summed in column order for a full covariance) and the mask,
+and writes the zero factors.  The ``sequential`` mode's dimension is a 0-d
+int32 carry, read by K19 and advanced by a second launch after it, so a
+recorded proposal cycles at every replay.
+
+The rung axis: :meth:`~.mh.MHMove.propose_rungs` proposes every rung of a
+ladder in one K19 launch (each rung under its own key, with its own
+``log_adj`` and ``index``; the scale or factor shared), one log-prob over
+``T * n`` rows and one launch of K2's rung kernel.
+
+:func:`gaussian_step` is the step of the JAX formula from given draws
+(``z @ chol.T`` for a full covariance, which rounds otherwise than K19's
+column-order sum), kept as the tests' reference.
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.philox import normals, roll_uniforms, word_uniforms
+from ..ops import gaussian_kernel
 from .base import robbins_monro_tune
 from .mh import MHMove
 
@@ -132,24 +143,17 @@ class GaussianMove(MHMove):
         return self._consts[key]
 
     def _proposal(self, rng, x0, carry):
+        """K19 on ``x0`` (``(nw, nd)``, or ``(T, nw, nd)`` under the rungs'
+        keys with ``(T,)`` carries); returns ``(q, factors, carry)``."""
         seed, offset = rng
-        nw, nd = x0.shape
-        dev = x0.device
-        scale, chol = self._tensors(dev, x0.dtype)
-        dims = None
-        if self.mode == "random":
-            u = word_uniforms(nw, 1, 0, seed, offset, dev)[:, 0]
-            dims = torch.clamp((u * nd).to(torch.int64), max=nd - 1)
-        f = 1.0
-        if self._log_factor is not None:
-            lf = self._log_factor
-            u = roll_uniforms(seed, 0, offset, dev)[0].to(x0.dtype)
-            f = torch.exp(-lf + u * (2.0 * lf))
-        if isinstance(carry, dict) and "log_adj" in carry:
-            f = f * torch.exp(carry["log_adj"]).to(x0.dtype)
-        z = normals(nw, nd, seed, offset, dev, x0.dtype)
-        if self.mode == "sequential":
-            dims = carry["index"] % nd
-            carry["index"].copy_((carry["index"] + 1) % nd)
-        q = gaussian_step(x0, z, scale, chol, f, self.mode, dims)
-        return q, torch.zeros(nw, dtype=x0.dtype, device=dev), carry
+        scale, chol = self._tensors(x0.device, x0.dtype)
+        c = carry if isinstance(carry, dict) else {}
+        q, factors = gaussian_kernel.gaussian_propose(
+            x0, scale, chol, seed, offset, self.mode, self._log_factor,
+            c.get("log_adj"), c.get("index"))
+        return q, factors, carry
+
+    def _rung_proposals(self, rng, coords, carry):
+        """Every rung in one K19 launch."""
+        q, factors, _ = self._proposal(rng, coords, carry)
+        return q, factors

@@ -37,9 +37,10 @@ writes the same storage at every replay.
 The rung axis (parallel tempering, ``emcee_tpu/parallel/tempering.py:
 476-541``, which vmaps one move over the ladder): a move that sets
 ``rung_batched`` (the stretch, DE, DE-snooker, side, walk, KDE, DIME,
-DE-Z and the ensemble MALA and HMC moves; ``moves/gradient.py`` has the
-whole-ensemble MALA and HMC moves' own ``propose_rungs``, and
-``moves/slice.py`` the slice move's, over K9's loops) proposes every
+DE-Z, blended and the ensemble MALA and HMC moves; ``moves/gradient.py``
+has the whole-ensemble MALA and HMC moves' own ``propose_rungs``,
+``moves/mh.py`` the MH and Gaussian moves' and ``moves/slice.py`` the
+slice move's, over K9's loops) proposes every
 rung of a ladder at once with :meth:`RedBlueMove.propose_rungs`.  The
 state's buffers are then ``(T, nwalkers, ...)``, ``rng`` is ``(keys,
 offset)`` with ``keys`` the rungs' :class:`~..ops.philox.RungKeys`, and
@@ -47,7 +48,8 @@ the model evaluates the ``(T, ng, ndim)`` proposals of every rung in one
 call.  Each split runs the move's proposal kernels (K1, K5a or K5b; the
 side move's K5a; the walk move's K8a, K8b and K18a, or K18b; the
 ensemble gradient moves' K11-K13 between their gradients; the KDE move's
-K7; DIME's K8a-K8c; DE-Z's K10a and K10b, and K10c once a proposal) and
+K7; DIME's K8a-K8c; DE-Z's K10a and K10b, and K10c once a proposal; the
+blend's sub-moves' kernels and K20) and
 K2 once for all rungs, and a tuned move's scale is ``(T,)``, each
 rung's from its own carry; the shuffled split draws one permutation per
 rung (a stable argsort along the walker axis of each rung's Philox
@@ -187,16 +189,11 @@ class RedBlueMove(ScaleTunable, Move):
                 accepted=None):
         ng = self._check_split(*state.coords.shape, model)
         scale = self._tuned_scale(carry, state.coords.dtype)
-        extra_u = self._split_draws(rng, state.coords.device)
         if self.randomize_split:
             return self._propose_shuffled(
-                rng, state, model, carry, ng, scale, acc_count, accepted,
-                extra_u=extra_u,
-            )
+                rng, state, model, carry, ng, scale, acc_count, accepted)
         return self._propose_blocked(
-            rng, state, model, carry, ng, scale, acc_count,
-            extra_u=extra_u, accepted=accepted,
-        )
+            rng, state, model, carry, ng, scale, acc_count, accepted=accepted)
 
     def propose_rungs(self, rng, state, model, carry, acc_count=None,
                       accepted=None):
@@ -217,12 +214,6 @@ class RedBlueMove(ScaleTunable, Move):
                 rng, state, model, carry, ng, scale, acc_count, accepted)
         return self._propose_blocked(rng, state, model, carry, ng, scale,
                                      acc_count, accepted=accepted)
-
-    def _split_draws(self, rng, device):
-        """Per-split draws made once per proposal, before the splits
-        (``extra_u[split]`` reaches ``get_proposal`` as ``extra``), or
-        None: the JAX package's ``n_extra_uniforms`` slot."""
-        return None
 
     def _inner(self, rng, coords, log_prob, split, model, accepted,
                acc_count=None, log_u=None, extra=None, scale=None,

@@ -65,6 +65,8 @@ KERNELS = {
     "walk_propose": ("walk_propose.cu", "emcee_walk_propose"),
     "walk_subset": ("walk_propose.cu", "emcee_walk_subset"),
     "walk_keys": ("walk_propose.cu", "emcee_walk_keys"),
+    "gaussian_propose": ("gaussian_propose.cu", "emcee_gaussian_propose"),
+    "blend_select": ("blend_select.cu", "emcee_blend_select"),
 }
 
 _FLAGS = [
@@ -273,6 +275,14 @@ _ARGTYPES = {
         _P,  # the arguments (host struct, ops/walk_kernel.py _Args)
         _P,  # stream
     ] for name in ("walk_propose", "walk_subset", "walk_keys")},
+    "gaussian_propose": [
+        _P,  # the arguments (host struct, ops/gaussian_kernel.py _Args)
+        _P,  # stream
+    ],
+    "blend_select": [
+        _P,  # the arguments (host struct, ops/blend_kernel.py _Args)
+        _P,  # stream
+    ],
 }
 
 

@@ -38,11 +38,11 @@ Stream layout (shared with the kernels):
   ``mixture_block`` block, at the offset of the block's first proposal;
   both are computed on the host (:func:`uniform_scalar`), so a chunk's
   move sequence is known before it runs;
-* the moves of plain torch (``moves/mh.py``, ``gaussian.py``,
-  ``kde.py``) and the walk move's kernels (K18, ``csrc/walk_propose.cu``)
-  draw from these, where ``row`` is the walker's row in the proposal's
-  ensemble buffer (``split * ng + i``; every walker's row with
-  ``nsplits=1``):
+* the MH move's function (``moves/mh.py``), the KDE move (``kde.py``),
+  the Gaussian move's kernel (K19, ``csrc/gaussian_propose.cu``) and the
+  walk move's kernels (K18, ``csrc/walk_propose.cu``) draw from these,
+  where ``row`` is the walker's row in the proposal's ensemble buffer
+  (``split * ng + i``; every walker's row with ``nsplits=1``):
 
   - counter ``(row, NORMAL_BLOCK | k, ...)``: standard normals ``2k``
     (words 0 and 2) and ``2k + 1`` (words 1 and 3) of the row, by
@@ -71,9 +71,10 @@ Stream layout (shared with the kernels):
   split words that no other block reaches:
 
   - word 0 at ``(ROLL_LANE, BLEND_BLOCK | split, ...)``: the
-    ``BlendedMove`` choice of a split; sub-move ``k`` draws from a key of
-    its own (:func:`sub_seed`), so no counter it reads is the blend's or
-    K2's;
+    ``BlendedMove`` choice of a split (drawn in K20,
+    ``csrc/blend_select.cu``); sub-move ``k`` draws from a key of its own
+    (:func:`sub_seed`; :func:`sub_keys` on a ladder), so no counter it
+    reads is the blend's or K2's;
   - ``(row, DEZ_BLOCK | k, ...)``, k = 0, 1: the DE-Z picks ``i, j, a,
     b`` and ``e``, the ``g1_prob`` jump and the snooker select;
   - ``(row, DIME_BLOCK, ...)``: DIME's kernel select, its two DE picks
@@ -152,6 +153,7 @@ __all__ = [
     "SUBSAMPLE_BLOCK",
     "box_muller",
     "grad_uniform",
+    "keys_of",
     "normals",
     "philox4x32",
     "philox4x32_scalar",
@@ -165,6 +167,7 @@ __all__ = [
     "rung_words",
     "split_key",
     "split_offset",
+    "sub_keys",
     "sub_seed",
     "to_uniform",
     "uniform_scalar",
@@ -353,7 +356,21 @@ class RungKeys(NamedTuple):
 def rung_keys(seed, ntemps, device):
     """:class:`RungKeys` of ``ntemps`` rungs under ``seed`` on ``device``
     (made once per chain, outside any recorded graph)."""
-    seeds = tuple(rung_seed(seed, r) for r in range(ntemps))
+    return keys_of(tuple(rung_seed(seed, r) for r in range(ntemps)), device)
+
+
+def sub_keys(keys, k):
+    """:class:`RungKeys` of sub-move ``k`` of a ``BlendedMove`` on every
+    rung of ``keys``: rung ``r``'s key is ``sub_seed(keys.seeds[r], k)``,
+    so each rung's sub-move draws what it draws on that rung alone (made
+    on the host, outside any recorded graph)."""
+    return keys_of(tuple(sub_seed(s, k) for s in keys.seeds),
+                   keys.table.device)
+
+
+def keys_of(seeds, device):
+    """:class:`RungKeys` of the 64-bit keys ``seeds`` on ``device``."""
+    seeds = tuple(int(s) & 0xFFFFFFFFFFFFFFFF for s in seeds)
     table = torch.tensor([s - (1 << 64) if s >= 1 << 63 else s
                           for s in seeds], dtype=torch.int64, device=device)
     per = [_round_keys(split_key(s)) for s in seeds]

@@ -205,15 +205,16 @@ def test_batched_path_equals_the_per_rung_loop(make, kw):
 
 
 def test_rung_batched_flag():
-    """``KDEMove`` (and the walk move beside it) proposes every rung at
-    once; ``BlendedMove`` loops."""
+    """``KDEMove`` (and the walk move and the blend beside it) proposes
+    every rung at once; ``ChEESHMCMove`` loops."""
     assert moves.KDEMove().rung_batched
     assert moves.KDEMove(max_complement=4).rung_batched
     assert moves.WalkMove().rung_batched
-    blended = moves.BlendedMove([moves.DEMove(), moves.SideMove()])
-    assert not blended.rung_batched
+    assert moves.BlendedMove([moves.DEMove(), moves.SideMove()]).rung_batched
+    chees = moves.ChEESHMCMove(0.1)
+    assert not chees.rung_batched
     with pytest.raises(ValueError, match="one ensemble"):
-        blended.propose_rungs(
+        chees.propose_rungs(
             (rung_keys(0, T, "cpu"), 0), start(0), port_model(), ())
 
 

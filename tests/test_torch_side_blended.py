@@ -8,8 +8,9 @@ the port; both compute the same float32 expression (XLA may contract it
 into an FMA), hence rtol = atol = 1e-6.
 
 Blended: under an injected choice the port's proposal equals the chosen
-sub-move's proposal on its own stream bit for bit, and the choices'
-frequencies match the weights.  Then the fast statistical oracles of
+sub-move's proposal on its own stream bit for bit, the choice drawn in
+K20 (``ops/blend_kernel.py``) is the inverse CDF of its split's counter,
+and the choices' frequencies match the weights.  Then the fast statistical oracles of
 ``tests/integration/test_side.py`` and ``test_mixture.py`` (the rest
 ``slow``).
 """
@@ -28,6 +29,7 @@ from emcee_tpu.model import Model as JModel
 from emcee_tpu_torch import moves
 from emcee_tpu_torch.model import Model, wrap_log_prob_fn
 from emcee_tpu_torch.ops import philox
+from emcee_tpu_torch.ops.blend_kernel import blend_select
 from emcee_tpu_torch.ops.de_kernel import walker_normal
 from emcee_tpu_torch.ops.philox import (
     BLEND_BLOCK, ROLL_LANE, philox4x32, roll_uniforms, split_key, sub_seed,
@@ -149,9 +151,11 @@ def test_blended_equals_the_chosen_sub_move(choice, split):
                               model())
     assert torch.equal(q, q2)
     assert torch.equal(f, f2.expand(NW // 2))
-    # The engine's per-proposal draw: the choice of every split at once.
-    want = bl._split_draws((seed, offset), "cpu")[split]
-    got, _ = bl.get_proposal((seed, offset), x, split, model(), extra=want)
+    # The engine's draw (K20's): the choice of the split's uniform.
+    u = philox.word_uniforms(1, 1, BLEND_BLOCK | split, seed, offset, "cpu",
+                             row0=ROLL_LANE)[0, 0]
+    want = bl.choice(u)
+    got, _ = bl.get_proposal((seed, offset), x, split, model())
     q3, _ = bl.get_proposal((seed, offset), x, split, model(),
                             extra={"choice": int(want)})
     assert torch.equal(got, q3)
@@ -173,15 +177,18 @@ def test_blended_choice_frequencies_match_the_weights():
         freq = np.bincount(idx, minlength=3) / n
         sd = np.sqrt(weights * (1 - weights) / n)
         assert np.all(np.abs(freq - weights) < 5 * sd), freq
-    # The engine's draw is that counter's word.
+    # The engine's draw (K20's) is that counter's word: candidates of
+    # constant value k show which one it chose.
+    qs = [torch.full((NW // 2, ND), float(k)) for k in range(3)]
+    fs = [torch.zeros(NW // 2) for _ in range(3)]
     for off in (0, 9, 2**33 + 1):
-        got = bl._split_draws((seed, off), "cpu")
         for split in (0, 1):
+            got, _ = blend_select(qs, fs, bl._cdf, seed, off, split)
             w = philox.philox4x32_scalar(
                 (ROLL_LANE, BLEND_BLOCK | split, off & philox.MASK32,
                  off >> 32), split_key(seed))[0]
             u = (w >> 8) * 2.0**-24
-            assert int(got[split]) == int(np.searchsorted(
+            assert int(got[0, 0]) == int(np.searchsorted(
                 np.cumsum(weights)[:-1], u, side="right"))
 
 

@@ -42,6 +42,7 @@ from emcee_tpu_torch.ops.stretch_kernel import stretch_propose_plain
 from emcee_tpu_torch.ops.swap_kernel import tempered_log_prob
 from emcee_tpu_torch.parallel import PTState, default_beta_ladder
 from emcee_tpu_torch.state import State
+from tests.test_torch_mh_gaussian import philox_mh
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -277,6 +278,8 @@ def test_batched_path_equals_the_per_rung_loop(mv_kw):
     moves.DEMove(),
     moves.DESnookerMove(),
     moves.GaussianMove(0.5),
+    moves.BlendedMove([(moves.DEMove(), 0.6), (moves.SideMove(), 0.4)]),
+    moves.MHMove(philox_mh),
 ])
 def test_one_rung_at_beta_one_is_the_ensemble_sampler(mv):
     """A 1-rung ladder at beta = 1 draws exactly what EnsembleSampler
