@@ -421,8 +421,29 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    26 alone.  Phase 10's Gaussian moves and phase 12's blend count these
    kernels too.
 
+27. ChEES-HMC on every rung (K21a, its start, and K21b, its tuning
+   gradient, ``csrc/chees.cu``; K13's masked rung mode,
+   ``csrc/leapfrog.cu``): (a) the three against their plain versions on
+   the same inputs, bit for bit (K21a: 1-200 rungs and one ensemble's
+   ``()`` carry, carries over the clamps' ranges, the counter at its int32
+   ends, a cap that binds on some rungs; K13 masked: 2-32 rungs, 1-1000
+   rows, ndim 1-128, trips 0-5 a rung, the identity, a diagonal and the
+   full metric's two launches, every trip and one past the last, each rung
+   against the rung alone; K21b: one ensemble to 1e5 rows and 1-32 rungs,
+   ndim 1-128, one block a rung and forced blocks, the three metrics,
+   non-finite ``lnpdiff``, each rung against the rung alone); (b) each
+   alone at 1e5 x 5-D and on workload 4's ladder (CUDA events around graph
+   replays) beside its plain version and its bound (no library call
+   computes any of them), and K21b at 1e5 over 256-4096 rows a block; (c) ``ChEESHMCMove(0.5)`` at 1e5 and on workload
+   4's ladder, tuning and in production: host and device us and kernels a
+   proposal, one flag read a proposal, us a launch, the launches held
+   exactly by device words; (d) the rows of K21a and K21b, one ensemble
+   and with the rung axis, and of K13's masked rung mode.  ``python3
+   chip_smoke.py 27`` runs phases 0, 1 and 27 alone.  Phase 13 (c) and
+   phase 15 (f) run ChEES through these kernels too.
+
 Phases run in the order 0-5, 7, 8, 6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22, 23, 24, 25, 26.  Every phase raises on failure.  ``python3
+18, 19, 20, 21, 22, 23, 24, 25, 26, 27.  Every phase raises on failure.  ``python3
 chip_smoke.py sass-diff TREE`` builds TREE's and this checkout's K1, K2,
 K5a, K5b, K11, K12, K13 and K15 and compares their SASS function by
 function.
@@ -507,7 +528,8 @@ KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",),
                   "rank_scores": ("rank_scan_kernel", "rank_finish_kernel"),
                   "walk_subset": ("walk_sort_kernel", "walk_keys_kernel"),
                   "gaussian_propose": ("gaussian_pairs_kernel",
-                                       "gaussian_advance_kernel")}
+                                       "gaussian_advance_kernel"),
+                  "leapfrog": ("leapfrog_masked_kernel",)}
 
 
 def launched_by(name, key):
@@ -551,7 +573,9 @@ KERNELS = (("stretch_kernel", "stretch_propose"),
            ("walk_kernel", "walk_propose"),
            ("walk_kernel", "walk_subset"),
            ("gaussian_kernel", "gaussian_propose"),
-           ("blend_kernel", "blend_select"))
+           ("blend_kernel", "blend_select"),
+           ("chees_kernel", "chees_start"),
+           ("chees_kernel", "chees_gradient"))
 #: the shuffled split's kernels (K16, K17's gather and scatter)
 SHUFFLE_KERNELS = ("group_order", "gather_rows", "scatter_rows")
 #: their launches a shuffled proposal of workload 4's ladder (16 rungs of
@@ -2945,7 +2969,8 @@ def hdf_check(torch, np, sampler, st, card):
     return {"kept": kept, "seconds": dt}
 
 
-def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
+def busy_window(torch, run, n, what, expect=None, names=None, tries=4,
+                raw=False):
     """Device microseconds a proposal, kernel events a proposal and the
     idle share over a profiled window of ``run`` (``n`` proposals); with
     ``expect``, the kernels' launches are held to it
@@ -2959,7 +2984,9 @@ def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
     ``tries`` times (in the whole script it now and then drops events of
     a window, most of one at times); if every window dropped some, the
     per-proposal numbers are None (not measured) and ``ms_per_launch``
-    averages the launches it recorded (none recorded raises)."""
+    averages the launches it recorded (none recorded raises).  With
+    ``raw``, also the window's ``{kernel: (launches, us)}``
+    (``kernels``)."""
     want = {k: v * n for k, v in (names or {}).items()}
     for _ in range(tries):
         if expect is None:
@@ -2988,6 +3015,8 @@ def busy_window(torch, run, n, what, expect=None, names=None, tries=4):
                idle=1 - busy * 1e-6 / wall, launches=counts,
                top_us_per_proposal={key[:80]: us / n
                                     for key, (_, us) in top})
+    if raw:
+        out["kernels"] = kernels
     if want:
         ours_us = sum(us for key, (_, us) in kernels.items()
                       if any(launched_by(k, key) for k in want))
@@ -3945,7 +3974,8 @@ def phase13_chees(torch, np, dev, card, out, n=200):
         return st, dt, (ChunkProgram.replays - r0) / n, (
             ChunkProgram.flag_reads - f0) / n
 
-    with path_launches(out, "chees", GRAD_KERNELS, "phase 13"):
+    with path_launches(out, "chees", CHEES_KERNELS + ("chees_gradient",),
+                       "phase 13"):
         st, dt_tune, rep_tune, reads_tune = run(smp, p0, True)
         carry = smp._move_carries[0]
         log_t1 = float(carry["log_T"])
@@ -3979,13 +4009,21 @@ def phase13_chees(torch, np, dev, card, out, n=200):
         trips, trips_tune = rep - 2, rep_tune - 2
         n_cnt = 16
         # K13 launches trips + 1 times a proposal, which replays trips + 2
-        # graphs (start, trips - 1 steps, end, tune / advance).
+        # graphs (start, trips - 1 steps, end, tune / advance); K21a once
+        # a proposal, K21b's two launches a tuning one.
         counted, profiled = counted_replays(
-            torch, dev, smp, n_cnt, lambda r: {
-                "langevin_step": n_cnt, "langevin_factor": n_cnt,
-                "accept_select": n_cnt, "leapfrog": r - n_cnt,
-                "philox_draw": 0},
-            "ChEES", store=False)
+            torch, dev, smp, n_cnt, chees_expect(n_cnt, False, 0), "ChEES",
+            store=False)
+        # The tuning proposals' window, after the production comparisons
+        # (it tunes the carry on).
+        grads = k21b_launches(NW)
+        tune_per = dict(CHEES_PER, chees_gradient=grads)
+        win_t = busy_window(torch, lambda: drive(smp, None, n_cnt,
+                                                 store=False, tune=True),
+                            n_cnt, "ChEES tuning", names=tune_per)
+        counted_t, _ = counted_replays(
+            torch, dev, smp, n_cnt, chees_expect(n_cnt, True, grads),
+            "ChEES tuning", store=False, tune=True)
     res = dict(log_T_before=log_t0, log_T_after=log_t1, eps_after=eps1,
                trips_per_proposal=trips, trips_per_proposal_tune=trips_tune,
                flag_reads_per_proposal=reads,
@@ -3994,7 +4032,8 @@ def phase13_chees(torch, np, dev, card, out, n=200):
                walker_steps_per_s_tune=n * NW / dt_tune,
                eager_walker_steps_per_s=n * NW / dt_eager, acceptance=acc,
                mean_lp=mean_lp, replayed_launches=counted,
-               profiled_replayed=profiled, proposals_counted=n_cnt)
+               profiled_replayed=profiled, proposals_counted=n_cnt,
+               tune_window=win_t, replayed_launches_tune=counted_t)
     log(f"phase 13: (c) ChEESHMCMove(0.5) at 1e5 x 5-D: log T "
         f"{log_t0:.4f} -> {log_t1:.4f} after {n} tuning proposals (eps "
         f"{eps1:.4f}); trips a proposal {trips_tune:.2f} tuning, "
@@ -4003,7 +4042,15 @@ def phase13_chees(torch, np, dev, card, out, n=200):
         f"{n * NW / dt:.4e} production (replays; its first run records), "
         f"{n * NW / dt_eager:.4e} eager; acceptance {acc:.4f}, mean lp "
         f"{mean_lp:.4f} {card}; production replays == eager chain ({n} "
-        f"proposals); {replay_counts(counted, profiled, n_cnt)}")
+        f"proposals); {replay_counts(counted, profiled, n_cnt)}; tuning "
+        f"window ({n_cnt} replayed proposals): device "
+        f"{measured(win_t['device_us_per_proposal'])} us and "
+        f"{measured(win_t['kernels_per_proposal'], '.0f')} kernels a "
+        f"proposal, idle {measured(win_t['idle'], '.4f')}, us a launch "
+        + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                    for k, v in win_t["ms_per_launch"].items())
+        + f"; tuning launches { {k: v for k, v in counted_t.items() if v} } "
+        f"(device words)")
     return res
 
 
@@ -5402,15 +5449,16 @@ def pt15_adaptive(torch, np, dev, card, p0, reps=20):
                 host_us_per_chunk=float(np.median(times)) * 1e6)
 
 
-def pt15_looped(torch, np, dev, card, p0, n=32, n_timed=8):
+def pt15_looped(torch, np, dev, card, p0, n=32, n_timed=8, n_cnt=16):
     """(f) ``EnsembleSliceMove()`` and ``ChEESHMCMove(0.5)`` on every rung
     at workload 4's size, ``n`` proposals each: the graph chain against the
-    plain versions' eager chain, bit for bit (the slice move every rung at
-    once, ChEES each rung's loops by its own replays); the slice move also
-    against the forced per-rung loop's graph chain, bit for bit.  Then µs
-    and flag reads a proposal over ``n_timed`` more, and device µs and
-    kernels a proposal in a profiled window of 4, for each (the slice
-    move's per-rung loop too, in turns with its batched path)."""
+    plain versions' eager chain and against the forced per-rung loop's
+    graph chain, bit for bit (both moves every rung at once, one read a
+    loop block or a proposal serving every rung).  Then µs and flag reads
+    a proposal over ``n_timed`` more, and device µs and kernels a proposal
+    in a profiled window of 4, for each path (the per-rung loop in turns
+    with the batched path); ChEES's batched launches in ``n_cnt``
+    replayed proposals counted by device words (``chees_expect``)."""
     from emcee_tpu_torch import moves
     from emcee_tpu_torch.chunk_graph import ChunkProgram
 
@@ -5427,8 +5475,6 @@ def pt15_looped(torch, np, dev, card, p0, n=32, n_timed=8):
                        ("chees", lambda: moves.ChEESHMCMove(0.5))):
         ends, smps = [], {}
         for plain, batched in ((False, True), (True, True), (False, False)):
-            if name == "chees" and not batched:
-                continue
             smp = pt15_sampler(dev, seed=47, move=make())
             smp._use_graphs = not plain
             smp._batched = batched
@@ -5464,9 +5510,18 @@ def pt15_looped(torch, np, dev, card, p0, n=32, n_timed=8):
                      acc=float(smp.acceptance_fraction.mean()))
         turns = rows[True]["us_per_proposal"]
         out[name] = rows[True] | {"us_per_proposal": turns[0],
-                                  "us_per_proposal_turns": turns}
-        if False in rows:
-            out[name]["loop"] = rows[False]
+                                  "us_per_proposal_turns": turns,
+                                  "loop": rows[False]}
+        if name == "chees":
+            if rows[True]["flag_reads"] != 1.0:
+                raise AssertionError(f"phase 15: ChEES on every rung: "
+                                     f"{rows[True]['flag_reads']} flag "
+                                     "reads a proposal")
+            out[name]["replayed_launches"], _ = counted_replays(
+                torch, dev, smps[True], n_cnt,
+                chees_expect(n_cnt, False, 0, swaps=True),
+                "phase 15 ChEES on every rung", store=False)
+            out[name]["proposals_counted"] = n_cnt
     return out
 
 
@@ -5630,27 +5685,28 @@ def phase15(torch, np, dev, card):
         f"{ad['host_us_per_chunk']:.1f} us {card} "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    with path_launches(out, "looped", ("langevin_step", "leapfrog",
-                                       "pt_swap") + K9_KERNELS, "phase 15"):
+    with path_launches(out, "looped", CHEES_KERNELS + ("pt_swap",)
+                       + K9_KERNELS, "phase 15"):
         lo = out["looped"] = pt15_looped(torch, np, dev, card, p0)
-    sl = lo["slice"]["loop"]
     log("phase 15: (f) the looped moves on every rung, graph chain == eager "
-        "plain chain bit for bit, the slice move's batched path == its "
-        "per-rung loop bit for bit; " + "; ".join(
+        "plain chain and batched path == per-rung loop, bit for bit; "
+        + "; ".join(
             f"{k}: {v['us_per_proposal']:.1f} us a proposal, "
             f"{v['flag_reads']:.2f} flag reads a proposal "
             f"({v['flag_reads_per_rung']:.2f} a rung), device "
             f"{measured(v['device_us'])} us and "
-            f"{measured(v['kernels'], '.0f')} kernels a proposal"
+            f"{measured(v['kernels'], '.0f')} kernels a proposal; its "
+            f"per-rung loop: {[round(u, 1) for u in v['loop']['us_per_proposal']]}"
+            f" us a proposal (in turns with the batched path's "
+            f"{[round(u, 1) for u in v['us_per_proposal_turns']]}), "
+            f"{v['loop']['flag_reads']:.2f} flag reads, device "
+            f"{measured(v['loop']['device_us'])} us and "
+            f"{measured(v['loop']['kernels'], '.0f')} kernels a proposal"
             for k, v in lo.items())
-        + f"; the slice move's per-rung loop: "
-        f"{[round(u, 1) for u in sl['us_per_proposal']]} us a proposal "
-        f"(in turns with the batched path's "
-        f"{[round(u, 1) for u in lo['slice']['us_per_proposal_turns']]}), "
-        f"{sl['flag_reads']:.2f} flag reads, device "
-        f"{measured(sl['device_us'])} us and "
-        f"{measured(sl['kernels'], '.0f')} kernels a proposal {card} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        + f"; ChEES's batched launches in "
+        f"{lo['chees']['proposals_counted']} replayed proposals "
+        f"{ {k: v for k, v in lo['chees']['replayed_launches'].items() if v} }"
+        f" (device words) {card} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     mo = out["monitor"] = pt15_monitor(torch, np, dev, card, p0)
     log(f"phase 15: (g) run_until_converged on the tempered sampler (cold "
@@ -12001,6 +12057,461 @@ def phase26_rows(out, card):
     return rows
 
 
+#: K21a's sweep: rungs (None: one ensemble's ``()`` carry)
+K21A_SWEEP_T = (None, 1, 2, 3, 16, 32, 200)
+#: (step size, max_leapfrog) of K21a's sweep; the small caps bind on some
+#: rungs
+K21A_STEPS = ((0.05, 1024), (0.5, 4), (1.7, 1), (0.3, 2**20))
+#: (rungs, rows a rung, ndim) of the sweep of K13's masked rung mode
+K13M_SWEEP = ((2, 1, 1), (3, 31, 2), (16, 256, 5), (32, 256, 5),
+              (3, 1000, 128), (16, 37, 7))
+#: (rungs (None: one ensemble), rows a rung, ndim, rows a block (None: the
+#: plan's)) of K21b's sweep
+K21B_SWEEP = ((None, 1, 1, None), (None, 5003, 2, None), (None, NW, ND, None),
+              (None, 5003, 3, 512), (1, 2049, 7, None), (3, 37, 1, None),
+              (16, 256, 5, None), (32, 256, 128, None), (2, 3000, 16, 1024),
+              (16, 1000, 5, 256))
+#: a ChEES proposal's launches besides K13's (its trips + 2) and K21b's
+#: (a tuning proposal's: 1 with one block a rung, 2 at 1e5)
+CHEES_PER = {"langevin_step": 1, "chees_start": 1, "langevin_factor": 1,
+             "accept_select": 1}
+#: the kernels of a ChEES path (path_launches)
+CHEES_KERNELS = ("langevin_step", "chees_start", "langevin_factor",
+                 "leapfrog", "accept_select")
+
+
+def k21b_launches(rows):
+    """K21b's launches a call at ``rows`` walkers a rung (its plan's: 1
+    with one block a rung, 2 at 1e5)."""
+    from emcee_tpu_torch.ops.chees_kernel import grad_plan
+
+    return grad_plan(rows).launches
+
+
+def chees_expect(n, tune, grads, swaps=False):
+    """``counted_replays``' expectation of ``n`` ChEES proposals: each
+    replays start, its steps, end and the tune / advance segment, so K13's
+    launches (the first step, each replayed step, the last kick) are the
+    replays less ``n``; K21b ``grads`` a tuning proposal; K15 once a
+    proposal on a ladder."""
+    def expect(r):
+        out = {k: v * n for k, v in CHEES_PER.items()} | {
+            "leapfrog": r - n, "philox_draw": 0,
+            "chees_gradient": grads * n if tune else 0}
+        return out | ({"pt_swap": n} if swaps else {})
+
+    return expect
+
+
+def k27_sweep(torch, np, dev):
+    """(a) K21a, K13's masked rung mode and K21b against their plain
+    versions on the same inputs, bit for bit (NaN included).  K21a over
+    ``K21A_SWEEP_T`` x ``K21A_STEPS`` with carries spread over the
+    clamps' ranges (the counter at its int32 ends).  K13 masked over
+    ``K13M_SWEEP``: each rung's trips drawn in 0-5, the identity, a
+    diagonal and the full metric's two launches (kicks, then the drift by
+    another row), every buffer and the trip word after every trip, one
+    trip past the last, the done-counter back at 0; each rung against the
+    one-ensemble K13 of the rung alone stepping its own trips.  K21b over
+    ``K21B_SWEEP`` x the three metrics with a NaN, an infinite and a large
+    ``lnpdiff``, twice on the same scratch (the done-counters reset);
+    each rung against the rung alone.  Returns the number of
+    comparisons."""
+    from emcee_tpu_torch.ops import chees_kernel as ck
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+
+    gen = torch.Generator(device=dev).manual_seed(270)
+    n = 0
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    for T in K21A_SWEEP_T:
+        lead = () if T is None else (T,)
+        for step, cap in K21A_STEPS:
+            log_adj = (4.0 * randn(*lead)).clamp(-10.0, 10.0)
+            log_T = (5.0 * randn(*lead)).clamp(-15.0, 15.0)
+            cnt = torch.randint(-2**31, 2**31 - 1, lead, dtype=torch.int32,
+                                device=dev, generator=gen)
+            if T is not None and T > 2:
+                cnt[0], cnt[1] = 2**31 - 1, -2**31
+                log_T[2] = 15.0
+            outs = [ck.start_out(lead, dev) for _ in range(2)]
+            for o in outs:
+                o.trip.fill_(5)
+            ck.chees_start(log_adj, log_T, cnt, step, cap, outs[0])
+            ck.chees_start_plain(log_adj, log_T, cnt, step, cap, outs[1])
+            same_bits(outs[0], outs[1], f"K21a T {T} step {step} cap {cap}")
+            n += 1
+    metrics = ("id", "diag", "full")
+    for T, nw, nd in K13M_SWEEP:
+        x, p = randn(T, nw, nd), randn(T, nw, nd)
+        more = torch.randint(0, 6, (T,), dtype=torch.int64, device=dev,
+                             generator=gen)
+        more[0], more[-1] = 0, 5
+        gs = [randn(T, nw, nd) for _ in range(7)]
+        eps = 0.2 + 0.3 * rand(T)
+        d = 0.5 + rand(nd)
+        for kind in metrics:
+            kw = {"d": d} if kind == "diag" else {}
+            runs = []
+            for fn in (lk.leapfrog, lk.leapfrog_plain):
+                xb, pb = x.clone(), p.clone()
+                mask = lk.trip_mask(more, torch.zeros((), dtype=torch.int64,
+                                                      device=dev))
+                rec = []
+                for k in range(6):
+                    if kind == "full":
+                        fn(pb, gs[k], eps, kicks=2, mask=mask, advance=False)
+                        fn(pb.flip(-1).contiguous(), None, eps, kicks=0,
+                           x=xb, mask=mask)
+                    else:
+                        fn(pb, gs[k], eps, kicks=2, x=xb, mask=mask, **kw)
+                    rec.append((pb.clone(), xb.clone(), mask.trip.clone()))
+                if fn is lk.leapfrog and int(mask.done) != 0:
+                    raise AssertionError("K13 masked: the done-counter was "
+                                         "left at " + str(int(mask.done)))
+                runs.append(rec)
+            for k, (a, b) in enumerate(zip(*runs)):
+                same_bits(a, b, f"K13 masked {kind} T {T} nw {nw} nd {nd} "
+                          f"trip {k}")
+                n += 1
+            if kind != "full":
+                for r in (0, T - 1):
+                    xr, pr = x[r].clone(), p[r].clone()
+                    for k in range(int(more[r])):
+                        lk.leapfrog(pr, gs[k][r].contiguous(),
+                                    eps[r].contiguous(), kicks=2, x=xr, **kw)
+                    same_bits((pr, xr), (runs[0][-1][0][r], runs[0][-1][1][r]),
+                              f"K13 masked {kind} rung {r} alone")
+                    n += 1
+    for T, nw, nd, rows in K21B_SWEEP:
+        lead = () if T is None else (T,)
+        x, q, p = (randn(*lead, nw, nd) for _ in range(3))
+        lp, lp_q = randn(*lead, nw), randn(*lead, nw)
+        kin = 0.3 * randn(*lead, nw)
+        if nw > 4:
+            lp_q[..., 1] = float("nan")
+            lp_q[..., 2] = float("inf")
+            lp[..., 3] = float("-inf")
+            kin[..., 4] = 50.0
+        u, traj = rand(*lead), 0.5 + rand(*lead)
+        a = randn(nd, nd)
+        L = torch.linalg.cholesky(
+            a @ a.T + nd * torch.eye(nd, device=dev)).contiguous()
+        plan = ck.grad_plan(nw, rows)
+        scratch = ck.grad_scratch(T or 1, nd, plan, dev)
+        args = (x, q, p, lp, lp_q, kin, u, traj)
+        for kind in metrics:
+            kw = ({"d": 0.5 + rand(nd)} if kind == "diag" else
+                  {"L": L} if kind == "full" else {})
+            g_p = torch.zeros(lead, device=dev)
+            ck.chees_gradient_plain(*args, g_p, plan=plan, **kw)
+            for again in range(2):
+                g_k = torch.full(lead, float("nan"), device=dev)
+                ck._launch(plan, *args, g_k, scratch=scratch, **kw)
+                same_bits((g_k,), (g_p,), f"K21b {kind} T {T} nw {nw} nd "
+                          f"{nd} plan {plan} call {again}")
+                n += 1
+            if T is not None and T >= 16:
+                for r in (0, T - 1):
+                    g_r = torch.zeros((), device=dev)
+                    ck._launch(plan, *(t[r].contiguous() for t in args), g_r,
+                               **kw)
+                    same_bits((g_r,), (g_p[r],), f"K21b {kind} rung {r} "
+                              "alone")
+                    n += 1
+    return n
+
+
+def k27_bounds(T, nw, nd, full=False):
+    """The least work of one launch of each kernel at ``T`` rungs of
+    ``nw`` walkers, ``{name: (bytes, flops)}``, each input read once and
+    each output written once: K21a (a rung's three carry words in, eps,
+    u, T and more out, the two words), K21b (x, q, p, lp, lp_q and the
+    kinetic factor in, g out; ~10 flops a column and ~10 a walker) and K13
+    masked with every rung stepping (x, p, g in, x and p out; more and
+    the trip word)."""
+    rows = T * nw * nd
+    return {"chees_start": (T * (12 + 20) + 16, 20 * T),
+            "chees_gradient": (4 * (3 * rows + 3 * T * nw + 3 * T)
+                               + (4 * nd * nd if full else 0),
+                               T * nw * (10 * nd + 10)),
+            "leapfrog (masked rung mode)": (4 * 5 * rows + 8 * T + 16,
+                                            5 * rows)}
+
+
+def k27_alone(torch, dev, card, T=1, nw=NW, nd=ND):
+    """(b) Each kernel alone at one ensemble of 1e5 x 5 or at ``T`` rungs
+    of ``nw`` walkers (workload 4's ladder; K13's masked mode there, every
+    rung stepping): device ms a call by CUDA events around graph replays
+    (``replay_ms``), a call back to back from Python, the plain version
+    (CUDA events, eager) and the bounds.  No single PyTorch call computes
+    any of them (library_ms None)."""
+    from emcee_tpu_torch.ops import chees_kernel as ck
+    from emcee_tpu_torch.ops import langevin_kernel as lk
+
+    gen = torch.Generator(device=dev).manual_seed(271)
+    lead = (T,) if T > 1 else ()
+    log_adj = 0.1 * torch.randn(lead, device=dev, generator=gen)
+    log_T = 0.5 + 0.1 * torch.randn(lead, device=dev, generator=gen)
+    cnt = torch.full(lead, 7, dtype=torch.int32, device=dev)
+    so = ck.start_out(lead, dev)
+    x, q, p = (torch.randn(lead + (nw, nd), device=dev, generator=gen)
+               for _ in range(3))
+    lp, lp_q, kin = (torch.randn(lead + (nw,), device=dev, generator=gen)
+                     for _ in range(3))
+    u, traj = torch.rand(lead, device=dev), 1.0 + torch.rand(lead, device=dev)
+    g = torch.zeros(lead, device=dev)
+    plan = ck.grad_plan(nw)
+    scratch = ck.grad_scratch(T, nd, plan, dev)
+    grad_args = (x, q, p, lp, lp_q, kin, u, traj, g)
+    calls = {
+        "chees_start": (
+            lambda: ck.chees_start(log_adj, log_T, cnt, 0.5, 1024, so),
+            lambda: ck.chees_start_plain(log_adj, log_T, cnt, 0.5, 1024, so)),
+        "chees_gradient": (
+            lambda: ck.chees_gradient(*grad_args, scratch=scratch),
+            lambda: ck.chees_gradient_plain(*grad_args)),
+    }
+    if T > 1:
+        eps = 0.01 + 0.01 * torch.rand(T, device=dev)
+        mask = lk.trip_mask(torch.full((T,), 2**40, dtype=torch.int64,
+                                       device=dev),
+                            torch.zeros((), dtype=torch.int64, device=dev))
+        xm, pm, gm = x.clone(), p.clone(), q.clone()
+        calls["leapfrog (masked rung mode)"] = (
+            lambda: lk.leapfrog(pm, gm, eps, kicks=2, x=xm, mask=mask),
+            lambda: lk.leapfrog_plain(pm, gm, eps, kicks=2, x=xm, mask=mask))
+    bounds = k27_bounds(T, nw, nd)
+    out = {}
+    for name, (fn, plain) in calls.items():
+        nbytes, flops = bounds[name]
+        t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / F32_OPS_PER_S * 1e3}
+        out[name] = {"ms": replay_ms(torch, fn),
+                     "call_ms": cuda_ms(torch, fn, reps=50),
+                     "plain_ms": slow_ms(torch, plain, reps=3),
+                     "bound_ms": max(t.values()),
+                     "bound_by": max(t, key=t.get), "bytes": nbytes,
+                     "flops": flops, "library_ms": None}
+    out["chees_gradient"]["launches_a_call"] = plan.launches
+    what = (f"one ensemble of {nw} x {nd}" if T == 1
+            else f"{T} rungs x {nw} walkers x {nd}")
+    log(f"phase 27: (b) alone ({what}), device us a call (graph replays): "
+        + ", ".join(
+            f"{name} {v['ms'] * 1e3:.2f} (back to back "
+            f"{v['call_ms'] * 1e3:.2f}, plain {v['plain_ms'] * 1e3:.1f}, "
+            f"bound {v['bound_ms'] * 1e3:.4f} by {v['bound_by']})"
+            for name, v in out.items())
+        + f"; K21b {plan.launches} launch(es) a call (rows a block "
+        f"{plan.rows}, {plan.blocks} a rung) {card}")
+    return out
+
+
+#: K21b's rows a block timed at 1e5 walkers (phase 27 (b))
+K21B_ROWS = (256, 512, 1024, 2048, 4096)
+
+
+def k27_plan_sweep(torch, dev, card, nw=NW, nd=ND):
+    """(b) K21b at one ensemble of ``nw`` x ``nd`` under plans of
+    ``K21B_ROWS`` rows a block: device ms a call (CUDA events around graph
+    replays), each against the plan's plain version bit for bit."""
+    from emcee_tpu_torch.ops import chees_kernel as ck
+
+    gen = torch.Generator(device=dev).manual_seed(272)
+    args = [torch.randn(nw, nd, device=dev, generator=gen) for _ in range(3)]
+    args += [torch.randn(nw, device=dev, generator=gen) for _ in range(3)]
+    args += [torch.rand((), device=dev), 1.0 + torch.rand((), device=dev)]
+    out = {}
+    for rows in K21B_ROWS:
+        plan = ck.grad_plan(nw, rows)
+        scratch = ck.grad_scratch(1, nd, plan, dev)
+        g, g_p = torch.zeros((), device=dev), torch.zeros((), device=dev)
+        ck.chees_gradient_plain(*args, g_p, plan=plan)
+        ck._launch(plan, *args, g, scratch=scratch)
+        same_bits((g,), (g_p,), f"K21b rows {rows}")
+        out[rows] = replay_ms(torch, lambda: ck._launch(
+            plan, *args, g, scratch=scratch))
+    log(f"phase 27: (b) K21b at {nw} x {nd} by rows a block (blocks): "
+        + ", ".join(f"{r} ({-(-nw // r)}) {ms * 1e3:.2f} us"
+                    for r, ms in out.items()) + f" a call {card}")
+    return out
+
+
+def k27_stage(torch, np, dev, card, make, p0, label, grads, swaps, n=16):
+    """(c) ChEES on one path (``make()``'s sampler from ``p0``): a tuning
+    run and a production run record the segments; then, tuning and in
+    production, host us, device us and kernels a proposal in ``n``
+    replayed proposals (profiler; K21a and K21b us a launch, K13 masked's
+    from the same events) and the launches counted by device words
+    (``chees_expect``); the flag reads a proposal (one)."""
+    from emcee_tpu_torch.chunk_graph import ChunkProgram
+
+    smp = make()
+    smp.run_mcmc(p0, n, store=False, tune=True, skip_initial_state_check=True)
+    smp.run_mcmc(None, n, store=False)
+    res = {}
+    for tune in (True, False):
+        names = dict(CHEES_PER) | ({"chees_gradient": grads} if tune
+                                   else {}) | ({"pt_swap": 1} if swaps
+                                               else {})
+        what = f"phase 27 {label} {'tuning' if tune else 'production'}"
+        reads = ChunkProgram.flag_reads
+        t0 = time.perf_counter()
+        smp.run_mcmc(None, n, store=False, tune=tune)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / n * 1e6
+        reads = (ChunkProgram.flag_reads - reads) / n
+        win = busy_window(torch, lambda: smp.run_mcmc(
+            None, n, store=False, tune=tune), n, what, names=names,
+                          raw=True)
+        counted, _ = counted_replays(torch, dev, smp, n,
+                                     chees_expect(n, tune, grads, swaps),
+                                     what, store=False, tune=tune)
+        masked = device_ms(win.pop("kernels"), "leapfrog_masked")
+        res[tune] = dict(win=win, host_us=host, flag_reads=reads,
+                         replayed_launches=counted, proposals_counted=n,
+                         masked_ms=masked)
+        if reads != 1.0:
+            raise AssertionError(f"{what}: {reads} flag reads a proposal")
+        log(f"phase 27: (c) {label}, {'tuning' if tune else 'production'}: "
+            f"{n} replayed proposals: host {host:.1f} us, flag reads "
+            f"{reads:.2f} a proposal, device "
+            f"{measured(win['device_us_per_proposal'])} us and "
+            f"{measured(win['kernels_per_proposal'], '.0f')} kernels a "
+            f"proposal, idle {measured(win['idle'], '.4f')}; us a launch: "
+            + ", ".join(f"{k} {measured(v and v * 1e3, '.2f')}"
+                        for k, v in win["ms_per_launch"].items())
+            + f", K13 masked {measured(masked and masked * 1e3, '.2f')}; "
+            f"launches { {k: v for k, v in counted.items() if v} } (device "
+            f"words, exactly {n} x {names} and K13 the replays less {n}) "
+            f"{card}")
+    return res
+
+
+def phase27(torch, np, dev, card):
+    """ChEES-HMC's kernels (see the module docstring, 27): the sweep, each
+    kernel alone at 1e5 and on workload 4's ladder, ChEES at 1e5 and on
+    the ladder tuning and in production (each path's launches counted from
+    0 just before it), and the rows of K21a, K21b and K13's masked rung
+    mode.  Returns its numbers and the rows."""
+    from emcee_tpu_torch import moves
+
+    out = {}
+    t0 = time.perf_counter()
+    out["sweep"] = k27_sweep(torch, np, dev)
+    log(f"phase 27: (a) K21a (rungs {list(K21A_SWEEP_T)} x (step, "
+        f"max_leapfrog) {list(K21A_STEPS)}), K13's masked rung mode ((rungs, "
+        f"rows, ndim) {list(K13M_SWEEP)}, trips 0-5 a rung, the three "
+        f"metrics, every trip, each rung against the rung alone) and K21b "
+        f"({list(K21B_SWEEP)}, the three metrics, non-finite lnpdiff, each "
+        f"rung alone) against their plain versions: {out['sweep']} "
+        f"comparisons, all bit for bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["alone"] = k27_alone(torch, dev, card)
+    out["alone_rungs"] = k27_alone(torch, dev, card, NT4, NW4, ND4)
+    out["plans"] = k27_plan_sweep(torch, dev, card)
+    log(f"phase 27: (b) {time.perf_counter() - t0:.1f} s")
+    p0 = np.random.default_rng(13).normal(size=(NW, ND)).astype(np.float32)
+    t0 = time.perf_counter()
+    with path_launches(out, "ChEES at 1e5", CHEES_KERNELS
+                       + ("chees_gradient",), "phase 27"):
+        out["main"] = k27_stage(
+            torch, np, dev, card,
+            lambda: grad_sampler(dev, moves.ChEESHMCMove(0.5), 27), p0,
+            "ChEESHMCMove(0.5) at 1e5 x 5-D", k21b_launches(NW), False)
+    log(f"phase 27: (c) at 1e5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with path_launches(out, "ChEES on the ladder", CHEES_KERNELS
+                       + ("chees_gradient", "pt_swap"), "phase 27"):
+        out["ladder"] = k27_stage(
+            torch, np, dev, card,
+            lambda: pt_sampler(dev, seed=27, move=moves.ChEESHMCMove(0.5)),
+            pt_p0(np), f"ChEESHMCMove(0.5) on {NT4} x {NW4} x {ND4}",
+            k21b_launches(NW4), True)
+    log(f"phase 27: (c) on the ladder: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 27: kernel wrapper launches of each path, counted from 0 "
+        f"(recordings and eager runs): {out['launches']}")
+    return out, phase27_rows(out, card)
+
+
+def phase27_rows(out, card):
+    """(d) The rows of K21a and K21b at the main path's width (tuning
+    replays of ``ChEESHMCMove(0.5)`` at 1e5) and with the rung axis
+    (workload 4's ladder), and of K13's masked rung mode (the ladder's
+    replays): device time a launch in the path's replays (profiler),
+    launches by device words there, a call alone, back to back and the
+    plain version (CUDA events), and the bound."""
+    meta = {
+        "chees_start": ("emcee_tpu_torch/csrc/chees.cu",
+                        "emcee_tpu/moves/gradient.py:468-483"),
+        "chees_gradient": ("emcee_tpu_torch/csrc/chees.cu",
+                           "emcee_tpu/moves/gradient.py:514-548"),
+        "leapfrog (masked rung mode)": (
+            "emcee_tpu_torch/csrc/leapfrog.cu",
+            "emcee_tpu/moves/gradient.py:485-499"),
+    }
+    rows = []
+    for rung in (False, True):
+        path = out["ladder" if rung else "main"][True]
+        al = out["alone_rungs" if rung else "alone"]
+        shape = (f"workload 4's width ({NT4} x {NW4} x {ND4}" if rung
+                 else "the main path's width (1e5 x 5-D")
+        for name, (src, jax) in meta.items():
+            if name not in al:
+                continue
+            masked = name.startswith("leapfrog")
+            a = al[name]
+            n = path["proposals_counted"]
+            if masked:
+                # Every K13 launch but a proposal's first step and last
+                # kick (the one-ensemble rung kernel) is a masked trip.
+                ms = path["masked_ms"]
+                launches = path["replayed_launches"]["leapfrog"] - 2 * n
+            else:
+                ms = path["win"]["ms_per_launch"][name]
+                launches = path["replayed_launches"][name]
+            rows.append({
+                "name": name + (" (rung axis)" if rung and not masked
+                                else ""),
+                "route": "cuda", "source": src,
+                "replaces": jax + (" (vmapped by emcee_tpu/parallel/"
+                                   "tempering.py:538)" if rung else ""),
+                "launches": launches, "max_abs_err": 0.0, "ms": ms,
+                "alone_ms": a["ms"], "call_ms": a["call_ms"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": None,
+                "bytes": a["bytes"], "flops": a["flops"],
+                "launches_per_proposal": launches / n,
+                "ptxas": {k: v for k, v in PTXAS.items()
+                          if launched_by("leapfrog_masked" if masked
+                                         else name, k)},
+                "note": shape + ", ChEESHMCMove(0.5)'s tuning replays): "
+                "ms in the "
+                "path's replays (profiler; K13 masked: its own kernel's "
+                "events, its launches counted with K13's); alone_ms a call "
+                "alone (CUDA events around graph replays), call_ms back to "
+                "back from Python; launches counted on the card in "
+                f"{path['proposals_counted']} replayed proposals; "
+                f"max_abs_err: bit for bit over phase 27 (a)'s "
+                f"{out['sweep']} comparisons; bound: the bytes (each input "
+                "once, each output once) and the float32 operations; "
+                "library_ms: none, no single PyTorch call computes it"})
+    for row in rows:
+        log(f"phase 27: (d) {row['name']}: device "
+            f"{measured(row['ms'] and row['ms'] * 1e3, '.2f')} us/launch in "
+            f"its path's replays, {row['alone_ms'] * 1e3:.2f} us a call "
+            f"alone, {row['call_ms'] * 1e3:.2f} back to back, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}); launches "
+            f"{row['launches']} {card}")
+    return rows
+
+
 def main_path_turn(torch, np, dev, card, reps=3, n=4000, n_prof=1280):
     """Phase 3's main path alone, for two trees timed in turns, one
     process each (``python3 chip_smoke.py main-path TREE``, TREE a
@@ -12110,8 +12621,10 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     and of phase 25's side and walk moves at 1e5 walkers (the blocked
     split) and on workload 4's ladder (K5a's side mode, K8 and K18 where
     the tree has them, else plain torch), and of phase 26's Gaussian, MH
-    and blended moves likewise (K19 and K20 where the tree has them);
-    the host's µs a proposal of every path.  A tree with K16 and
+    and blended moves likewise (K19 and K20 where the tree has them), and
+    ``ChEESHMCMove(0.5)`` tuning at 1e5 walkers and on workload 4's ladder
+    tuning and not (K21a, K21b and K13's masked rung mode where the tree
+    has them); the host's µs a proposal of every path.  A tree with K16 and
     K17 (``ops/shuffle_kernel.py``) also gives their device time a launch
     on the shuffled paths.  Uses only what every tree with K14 has."""
     import importlib.util
@@ -12175,20 +12688,36 @@ def kernel_turn(torch, np, dev, card, n_prof=64):
     for label in PT26:
         runs[f"{label} on workload 4"] = (pt_sampler(
             dev, seed=91, move=move26(label)), 16, None)
+    # ChEES: K21a, K21b and K13's masked rung mode where the tree has them
+    # (every rung at once on the ladder), else its plain torch start and
+    # gradient (rung by rung on the ladder); tuning runs estimate the
+    # ChEES gradient.
+    tuned = {"ChEESHMCMove(0.5) tuning at 1e5",
+             "ChEESHMCMove(0.5) tuning on workload 4"}
+    runs["ChEESHMCMove(0.5) tuning at 1e5"] = (grad_sampler(
+        dev, moves.ChEESHMCMove(0.5), 29), 16, None)
+    for label in ("ChEESHMCMove(0.5) on workload 4",
+                  "ChEESHMCMove(0.5) tuning on workload 4"):
+        runs[label] = (pt_sampler(dev, seed=92,
+                                  move=moves.ChEESHMCMove(0.5)), 16, None)
     for what, (smp, n, names) in runs.items():
+        kw = {"tune": True} if what in tuned else {}
         if what == "DIME stage" or what.endswith(" at 1e5"):
             smp.run_mcmc(np.random.default_rng(4).normal(size=(NW, ND))
                          .astype(np.float32), n, store=False,
-                         skip_initial_state_check=True)
+                         skip_initial_state_check=True, **kw)
         else:
-            smp.run_mcmc(p0, 8, thin_by=4, skip_initial_state_check=True)
-        smp.run_mcmc(None, n, store=False)  # records the window's graphs
+            smp.run_mcmc(p0, 8, thin_by=4, skip_initial_state_check=True,
+                         **kw)
+        # records the window's graphs
+        smp.run_mcmc(None, n, store=False, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        smp.run_mcmc(None, n, store=False)
+        smp.run_mcmc(None, n, store=False, **kw)
         torch.cuda.synchronize()
         host_us = (time.perf_counter() - t0) / n * 1e6
-        win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False),
+        win = busy_window(torch, lambda: smp.run_mcmc(None, n, store=False,
+                                                      **kw),
                           n, what, names=names)
         log(f"kernel turn: {tree}: {what}: host {host_us:.1f} us, device "
             f"{measured(win['device_us_per_proposal'], '.2f')} us and "
@@ -12421,13 +12950,13 @@ def main() -> int:
 
     if sys.argv[1:] in (["11"], ["12"], ["13"], ["14"], ["15"], ["16"],
                         ["17"], ["18"], ["19"], ["20"], ["21"], ["22"],
-                        ["23"], ["24"], ["25"], ["26"]):
-        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25
-        # or 26 alone (a first check of the blobs, the extension moves, the
-        # gradient moves, tempering, K14, the DE family on every rung, the
-        # gradient moves on every rung, K7, the shuffled split's K16 and
-        # K17, K8, K10, K9, K6, the side and walk moves or the Gaussian, MH
-        # and blended moves).
+                        ["23"], ["24"], ["25"], ["26"], ["27"]):
+        # Phase 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,
+        # 26 or 27 alone (a first check of the blobs, the extension moves,
+        # the gradient moves, tempering, K14, the DE family on every rung,
+        # the gradient moves on every rung, K7, the shuffled split's K16 and
+        # K17, K8, K10, K9, K6, the side and walk moves, the Gaussian, MH
+        # and blended moves or ChEES's K21a, K21b and masked K13).
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         phase = {"11": phase11, "12": phase12, "13": phase13,
@@ -12437,7 +12966,7 @@ def main() -> int:
                  "20": phase20, "21": phase21,
                  "22": phase22, "23": phase23,
                  "24": phase24, "25": phase25,
-                 "26": phase26}[sys.argv[1]]
+                 "26": phase26, "27": phase27}[sys.argv[1]]
         _, rows_alone = phase(torch, np, dev, card)
         rows_alone = ([rows_alone] if isinstance(rows_alone, dict)
                       else rows_alone)
@@ -13086,6 +13615,12 @@ def main() -> int:
     _, rows26 = phase26(torch, np, dev, card)
     rows += rows26
     log(f"phase 26: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 27. ChEES-HMC's start, tuning gradient and masked trips -------------
+    t0 = time.perf_counter()
+    _, rows27 = phase27(torch, np, dev, card)
+    rows += rows27
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s in all")
     for thin, (r_s, r_f) in sorted(rates4.items()):
         log(f"summary: host Backend stored, thin_by {thin}: {r_s:.4e} "
             f"walker-steps/s (unstored {r_f:.4e}); split per kept step "

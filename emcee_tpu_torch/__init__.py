@@ -32,8 +32,9 @@ move through K9's, the Gaussian move through K19's and the
 Metropolis-Hastings move's function a rung at a time into one K2 launch,
 the blended move through its sub-moves' and K20's (in mixtures too,
 ``mixture_block`` included; the shuffled split through K14, K16 and K17
-for every rung at once), and the looped ChEES move rung by rung; the
-even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
+for every rung at once), and ChEES-HMC through K21a's and K21b's and
+K13's masked rung mode, one read of the longest trip count serving every
+rung; the even/odd swap is a kernel of its own (K15) that moves the walkers' blobs
 with them, the ladder may adapt, and the chain goes into the host
 ``PTBackend``, the device ``PTDeviceBackend`` or ``PTHDFBackend``.
 Entry points run on ``"cuda"`` unless the caller passes

@@ -50,10 +50,11 @@ list when it begins, so a recorded graph serves every block of that
 bucket; trips past a list's end change nothing, so the result equals
 the eager loop's (:class:`EagerLoops`, the same bucket rule at any block
 size) bit for bit.  A loop whose trip count is known on the device
-before it starts (ChEES-HMC's leapfrog steps) reads the count once and
-replays a graph of one iteration that many times (``repeat``).  Runs
-of such a move interleave with the other moves' whole-proposal graphs
-in the chunk's order.
+before it starts (ChEES-HMC's leapfrog steps; on a ladder the largest of
+the rungs' counts, each rung stepping only while it has trips left)
+reads the count once and replays a graph of one iteration that many
+times (``repeat``).  Runs of such a move interleave with the other
+moves' whole-proposal graphs in the chunk's order.
 
 Before a recording, one proposal of the same move runs eagerly on a
 scratch copy of the workspace (the warm-up that creates library handles
@@ -80,29 +81,28 @@ K8a, K8b and K18a, or K18b, and K2; the MALA, HMC, ensemble MALA and
 ensemble HMC moves through K11, K12, K13 and K2, the gradient once over
 ``T * n`` rows; the KDE move through K7 and K2; DIME through K8a-K8c
 and K2; DE-Z through K10a-K10c and K2; the slice move through
-K9a-K9d, every rung's lists in one ``(T, bucket, ndim)`` batch; the
-Gaussian move through K19 and K2; the MH move's function a rung at a
-time into one buffer, then K2 once; the blend through its sub-moves'
-kernels and K20; their shuffled split through K14, K16 and K17), or
-else (ChEES), and under the private ``batched=False`` switch, a loop over
-the rungs, each rung an ensemble of its own (its views of the buffers,
-its tempered model, its carry and its key).  Each move of a mixture
-takes its own way, so a chunk's runs of the stretch or DE moves propose
-every rung at once and its runs of ChEES loop over the rungs.  The user blobs
-of the likelihood ride in the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL``
-and ``logP`` (the tempered model's blobs are ``(logL, logP, user
-blobs)``): K2 selects them with the rows and K15 exchanges them with the
-walkers.  It is recorded, replayed and warmed up as :class:`ChunkProgram`
-is.  A looped move that is ``rung_batched`` (the slice move) runs one
-proposal of every rung under one :class:`GraphLoops`, one read of the
-lists' lengths a block serving every rung, as one vmapped JAX
-``while_loop`` serves the ladder; any other (ChEES), and every move
-under ``batched=False``, runs each rung's loops by the rung's own
-segment and loop replays (:class:`GraphLoops` tagged with the rung).
-Then one closing segment tunes every rung, swaps and advances the
-offset.  Either way a rung's loops end where its own would (JAX's
-vmapped ``while_loop`` masks each finished rung), so each rung's result
-is its own.
+K9a-K9d, every rung's lists in one ``(T, bucket, ndim)`` batch; ChEES
+through K21a, K11, K13 (its masked rung mode in the loop), K12, K21b
+when tuning and K2; the Gaussian move through K19 and K2; the MH move's
+function a rung at a time into one buffer, then K2 once; the blend
+through its sub-moves' kernels and K20; their shuffled split through
+K14, K16 and K17), or else, under the private ``batched=False`` switch
+(the reference the batched path is held to), a loop over the rungs, each
+rung an ensemble of its own (its views of the buffers, its tempered
+model, its carry and its key).  The user blobs of the likelihood ride in
+the workspace as ``(T, nwalkers, ...)`` buffers beside ``logL`` and
+``logP`` (the tempered model's blobs are ``(logL, logP, user blobs)``):
+K2 selects them with the rows and K15 exchanges them with the walkers.
+It is recorded, replayed and warmed up as :class:`ChunkProgram` is.  A
+looped move (the slice move, ChEES) runs one proposal of every rung
+under one :class:`GraphLoops`, one read a block (the slice move's lists'
+lengths, ChEES's largest trip count) serving every rung, as one vmapped
+JAX ``while_loop`` serves the ladder; under ``batched=False`` each
+rung's loops run by the rung's own segment and loop replays
+(:class:`GraphLoops` tagged with the rung).  Then one closing segment
+tunes every rung, swaps and advances the offset.  Either way a rung's
+loops end where its own would (JAX's vmapped ``while_loop`` masks each
+finished rung), so each rung's result is its own.
 """
 
 from __future__ import annotations
@@ -213,7 +213,7 @@ class EagerLoops:
 
     def repeat(self, key, body, count):
         """Run ``body()`` ``count`` times, ``count`` a 0-d integer tensor
-        read once."""
+        read once (on a ladder the largest of the rungs' counts)."""
         for _ in range(int(count)):
             body()
 
@@ -269,8 +269,9 @@ class GraphLoops:
 
     def repeat(self, key, body, count):
         """Replay the graph of ``body()`` ``count`` times: ``count``, a 0-d
-        integer tensor, is read once (one flag read); the graph is
-        recorded at its first replay."""
+        integer tensor (on a ladder the largest of the rungs' counts), is
+        read once (one flag read for every rung); the graph is recorded at
+        its first replay."""
         n = int(count)
         ChunkProgram.flag_reads += 1
         if n:
@@ -705,7 +706,8 @@ class TemperedProgram(ChunkProgram):
             state = State(ws.coords, ws.log_prob, self._blobs(ws))
             model = self.model(ws)
             move.propose_rungs((self.keys, off), state, model,
-                               ws.carries[i], ws.count, accepted=ws.accepted)
+                               ws.carries[i], ws.count, accepted=ws.accepted,
+                               **_tune_kw(move, tune))
             if tune:
                 # Every rung's carry at once, each on its own acceptance.
                 move.tune(ws.carries[i], state, ws.accepted, model)
@@ -721,13 +723,13 @@ class TemperedProgram(ChunkProgram):
     def looped_proposal(self, i, tune):
         """One tempered proposal of looped move ``i`` by replays, then one
         segment that tunes every rung, swaps and advances the offset.  A
-        ``rung_batched`` move (the slice move) proposes every rung at once
-        (:meth:`propose_rungs` under one :class:`GraphLoops`, whose reads
-        serve every rung); any other (ChEES), or every move under the
-        private ``batched=False`` switch, runs each rung's segments and
-        loops (:class:`GraphLoops` tagged with the rung, so each rung's
-        loops end on its own flag), ``T`` times the flag reads of one
-        ensemble.  The first one of a move is preceded by an eager
+        ``rung_batched`` move (the slice move, ChEES) proposes every rung
+        at once (:meth:`propose_rungs` under one :class:`GraphLoops`,
+        whose reads serve every rung); under the private
+        ``batched=False`` switch each rung's segments and loops run by
+        themselves (:class:`GraphLoops` tagged with the rung, so each
+        rung's loops end on its own flag), ``T`` times the flag reads of
+        one ensemble.  The first one of a move is preceded by an eager
         proposal on a scratch copy (the warm-up)."""
         move = self.moves[i]
         ws = self.ws
@@ -740,7 +742,8 @@ class TemperedProgram(ChunkProgram):
             model = self.model(ws)
             move.propose_rungs((self.keys, off), state, model,
                                ws.carries[i], ws.count, accepted=ws.accepted,
-                               loops=GraphLoops(self, i, move.loop_block))
+                               loops=GraphLoops(self, i, move.loop_block),
+                               **_tune_kw(move, tune))
             rungs = None
         else:
             rungs = []

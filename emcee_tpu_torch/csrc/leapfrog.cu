@@ -31,6 +31,20 @@
 // one-ensemble instantiation (kRungs false) compiles to the code of the
 // kernel before the axis.
 //
+// The masked rung mode (leapfrog_masked_kernel, ChEES-HMC on a ladder:
+// emcee_tpu/moves/gradient.py:485-499's while_loop under the vmap of
+// tempering.py:538, which runs until the last rung is done and keeps a
+// finished rung's p and q by a select): the host replays max(more) trips
+// of one recorded step, and block (b, r) moves rung r's rows only while
+// trip < more[r] (K21a, csrc/chees.cu, wrote more and zeroed trip); a
+// finished rung's rows are not written.  trip is a device word that every
+// block must read before any block moves it on, so each block's thread 0
+// reads it first, and the launch that ends a trip (advance) passes a
+// done-counter: the grid's last block writes trip + 1 and zeroes the
+// counter.  A full metric's trip is two launches (the kicks, then the
+// drift by p L^T) that read the same trip; the second advances it.  It is
+// a kernel of its own, so the two instantiations above keep their code.
+//
 // Arithmetic uses the _rn intrinsics (no FMA contraction), so every
 // rounding matches the plain version (ops/langevin_kernel.py
 // leapfrog_plain) bit for bit.
@@ -82,6 +96,53 @@ __global__ void __launch_bounds__(kThreads) leapfrog_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) leapfrog_masked_kernel(
+    const float* x_in, float* x_out, const float* p_in, float* p_out,
+    const float* __restrict__ g, const float* __restrict__ d,
+    const float* __restrict__ eps, int n, int nd, int kicks,
+    const long long* __restrict__ more, long long* trip, unsigned int* done,
+    int advance) {
+  __shared__ long long s_trip;
+  __shared__ int s_live;
+  const int rung = blockIdx.y;
+  if (threadIdx.x == 0) {
+    s_trip = *trip;
+    s_live = s_trip < more[rung];
+  }
+  __syncthreads();
+  const int64_t at = static_cast<int64_t>(rung) * n * nd;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (s_live && i < static_cast<int64_t>(n) * nd) {
+    const int j = static_cast<int>(i % nd);
+    const float e = eps[rung];
+    const float dj = d != nullptr ? d[j] : 1.0f;
+    float p = p_in[at + i];
+    if (kicks > 0) {
+      const float gi = g[at + i];
+      const float lt = d != nullptr ? __fmul_rn(gi, dj) : gi;
+      const float hk = __fmul_rn(__fmul_rn(0.5f, e), lt);
+      p = __fadd_rn(p, hk);
+      if (kicks == 2) p = __fadd_rn(p, hk);
+      p_out[at + i] = p;
+    }
+    if (x_in != nullptr) {
+      const float l = d != nullptr ? __fmul_rn(p, dj) : p;
+      x_out[at + i] = __fadd_rn(x_in[at + i], __fmul_rn(e, l));
+    }
+  }
+  if (advance && threadIdx.x == 0) {
+    // Thread 0 read trip before its add; the last block's write follows
+    // every block's add.
+    __threadfence();
+    const unsigned int blocks = gridDim.x * gridDim.y;
+    if (atomicAdd(done, 1u) == blocks - 1) {
+      *trip = s_trip + 1;
+      *done = 0;
+    }
+  }
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes (ops/langevin_kernel.py).  Every
@@ -101,5 +162,24 @@ extern "C" int emcee_leapfrog(const float* x_in, float* x_out,
   auto kernel = ntemps > 1 ? leapfrog_kernel<true> : leapfrog_kernel<false>;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x_in, x_out, p_in, p_out, g, d, eps, n, nd, kicks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The masked rung mode: emcee_leapfrog's arguments for ntemps rungs, and
+// more (ntemps,), the trip word and the done-counter (int64, int64,
+// uint32 device words; the counter 0 between launches); advance 1 in the
+// launch that ends a trip.
+extern "C" int emcee_leapfrog_masked(
+    const float* x_in, float* x_out, const float* p_in, float* p_out,
+    const float* g, const float* d, const float* eps, int n, int nd,
+    int kicks, int ntemps, const long long* more, long long* trip,
+    unsigned int* done, int advance, void* stream) {
+  const int64_t total = static_cast<int64_t>(n) * nd;
+  const dim3 grid(static_cast<int>((total + kThreads - 1) / kThreads),
+                  ntemps);
+  leapfrog_masked_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x_in, x_out, p_in, p_out, g, d, eps, n, nd, kicks, more, trip, done,
+      advance);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,24 +41,27 @@ jitter's ``v`` in ``[-1, 1)``) and the whole-ensemble moves ``log_u=``
 (the parity mode).
 
 ChEES's trip count ``ceil(u T / eps)`` (clipped to ``[1,
-max_leapfrog]``) is one device scalar, known before its loop starts, so
-the move is ``looped``: the chunk program reads the count once a
+max_leapfrog]``) is a device word, known before its loop starts, so the
+move is ``looped``: K21a (``ops/chees_kernel.py`` ``chees_start``) writes
+it with the step size and jitter, the chunk program reads it once a
 proposal and replays a one-step leapfrog graph that many times
 (``chunk_graph.GraphLoops.repeat``); eagerly the loop is
-``EagerLoops.repeat``, the JAX ``while_loop``'s steps one by one.
+``EagerLoops.repeat``, the JAX ``while_loop``'s steps one by one.  A
+tuning proposal's ChEES gradient is K21b (``chees_gradient``).
 
 On a tempered ladder (``emcee_tpu/parallel/tempering.py:538`` vmaps every
-move over the rungs) :class:`MALAMove`, :class:`HMCMove`,
-:class:`EnsembleMALAMove` and :class:`EnsembleHMCMove` are
-``rung_batched``: one proposal of every rung at once
-(``propose_rungs``), the state ``(T, nwalkers, ndim)``, ``rng`` ``(RungKeys,
-offset)``, the step size ``(T,)`` (each rung's tuned scale), one gradient
-of the tempered log-prob over ``T * n`` rows, and K11, K12, K13 and K2
-launched once a step for every rung (their rung axes).  Rung ``r`` ends
-exactly as the same move on rung ``r`` alone under its own key would
-leave it; where the full metrics' and the ensemble moves' products by
-``L`` run as one batched ``torch.matmul`` they may round otherwise than
-the rung's own (``ROADMAP.md`` section 3).  ChEES stays rung by rung.
+move over the rungs) every move here is ``rung_batched``: one proposal of
+every rung at once (``propose_rungs``), the state ``(T, nwalkers,
+ndim)``, ``rng`` ``(RungKeys, offset)``, the step size ``(T,)`` (each
+rung's tuned scale), one gradient of the tempered log-prob over ``T * n``
+rows, and K11, K12, K13 and K2 launched once a step for every rung (their
+rung axes).  ChEES reads the largest of the rungs' trip counts once and
+replays that many trips, each rung stepping (K13's masked rung mode) only
+while it has trips left, as JAX's vmapped ``while_loop`` masks a finished
+rung.  Rung ``r`` ends exactly as the same move on rung ``r`` alone under
+its own key would leave it; where the full metrics' and the ensemble
+moves' products by ``L`` run as one batched ``torch.matmul`` they may
+round otherwise than the rung's own (``ROADMAP.md`` section 3).
 """
 
 from __future__ import annotations
@@ -67,7 +70,8 @@ import numpy as np
 import torch
 
 from ..chunk_graph import EagerLoops
-from ..ops import accept_kernel, langevin_kernel
+from ..ops import accept_kernel, chees_kernel, langevin_kernel
+from ..ops.chees_kernel import van_der_corput
 from ..utils import tree_flatten, tree_unflatten
 from .base import Move, ScaleTunable, blob_pairs, robbins_monro_tune
 from .dime import full_float32
@@ -135,19 +139,6 @@ def batch_value_and_grad(model):
     return value_and_grad
 
 
-def van_der_corput(n):
-    """Base-2 van der Corput value of the integer tensor ``n >= 1``: the
-    32-bit bit reversal divided by 2^32, in int64 arithmetic with masks
-    (``gradient.py:348-359``)."""
-    n = n.to(torch.int64) & 0xFFFFFFFF
-    n = ((n & 0x55555555) << 1) | ((n >> 1) & 0x55555555)
-    n = ((n & 0x33333333) << 2) | ((n >> 2) & 0x33333333)
-    n = ((n & 0x0F0F0F0F) << 4) | ((n >> 4) & 0x0F0F0F0F)
-    n = ((n & 0x00FF00FF) << 8) | ((n >> 8) & 0x00FF00FF)
-    n = ((n << 16) | (n >> 16)) & 0xFFFFFFFF
-    return n.to(torch.float32) * 2.0**-32
-
-
 def _jittered(eps, jitter, v):
     """``eps (1 + jitter v)``, ``v`` in ``[-1, 1)``."""
     return eps * (1.0 + jitter * v)
@@ -183,18 +174,23 @@ class _Metric:
         return self.apply_L(v)
 
 
-def _leapfrog(metric, eps, p_in, p_out, g, kicks, x_in=None, x_out=None):
+def _leapfrog(metric, eps, p_in, p_out, g, kicks, x_in=None, x_out=None,
+              mask=None):
     """K13: ``kicks`` half-kicks of ``p_in`` by ``g`` into ``p_out``, then
     the drift of ``x_in`` into ``x_out`` when given.  A full metric kicks
-    with ``g L`` and drifts by a second launch with ``p L^T``."""
+    with ``g L`` and drifts by a second launch with ``p L^T``.  ``mask``
+    (a :class:`~..ops.langevin_kernel.TripMask`) steps only the rungs with
+    trips left; the last launch ends the trip."""
     lf = langevin_kernel.leapfrog
     if metric.kind != "full":
         lf(p_in, g, eps, d=metric.d, kicks=kicks, x=x_in, x_out=x_out,
-           p_out=p_out)
+           p_out=p_out, mask=mask)
         return
-    lf(p_in, metric.apply_LT(g), eps, kicks=kicks, p_out=p_out)
+    lf(p_in, metric.apply_LT(g), eps, kicks=kicks, p_out=p_out, mask=mask,
+       advance=x_in is None)
     if x_in is not None:
-        lf(metric.apply_L(p_out), None, eps, kicks=0, x=x_in, x_out=x_out)
+        lf(metric.apply_L(p_out), None, eps, kicks=0, x=x_in, x_out=x_out,
+           mask=mask)
 
 
 def _draw(shape, device, seed, offset, row0, given):
@@ -282,7 +278,7 @@ class _GradientMove(ScaleTunable, Move):
     on the host by numpy)."""
 
     #: True for the moves that propose every rung of a ladder at once
-    #: (:meth:`propose_rungs`); ChEES's trip loop stays rung by rung
+    #: (:meth:`propose_rungs`; every gradient move here)
     rung_batched = False
 
     def __init__(self, step_size, cov=None, tune_target=None,
@@ -355,7 +351,7 @@ class _GradientMove(ScaleTunable, Move):
         return eps if s is None else eps * s
 
     def propose_rungs(self, rng, state, model, carry, acc_count=None,
-                      accepted=None, extra=None, log_u=None):
+                      accepted=None, extra=None, log_u=None, **kw):
         """One proposal of every rung of a ladder (``rung_batched`` moves):
         ``state``'s buffers are ``(T, nwalkers, ...)``, ``rng`` is
         ``(RungKeys, offset)``, ``model.compute_log_prob`` maps ``(T, n,
@@ -363,8 +359,8 @@ class _GradientMove(ScaleTunable, Move):
         differentiated over all of them at once), the carry's tensors have
         a leading ``T`` axis, and ``acc_count`` and ``accepted`` are ``(T,
         nwalkers)``.  ``extra`` and ``log_u`` inject ``(T, ...)`` draws as
-        :meth:`propose` takes them.  Returns ``(state, accepted,
-        carry)``."""
+        :meth:`propose` takes them; ``kw`` (ChEES's ``loops`` and
+        ``tune``) goes on to it.  Returns ``(state, accepted, carry)``."""
         if not self.rung_batched:
             raise ValueError(f"{type(self).__name__} proposes one ensemble "
                              "at a time")
@@ -372,7 +368,7 @@ class _GradientMove(ScaleTunable, Move):
             raise ValueError("propose_rungs takes (ntemps, nwalkers, ndim) "
                              "coordinates")
         return self.propose(rng, state, model, carry, acc_count, accepted,
-                            extra=extra, log_u=log_u)
+                            extra=extra, log_u=log_u, **kw)
 
 
 class MALAMove(_GradientMove):
@@ -462,17 +458,28 @@ class HMCMove(_GradientMove):
 
 
 class _ChEESWork:
-    """ChEES's persistent buffers for one ensemble shape: what the
-    segments of a proposal hand on to each other."""
+    """ChEES's persistent buffers for one ensemble shape (``(nw, nd)``, or
+    ``(T, nw, nd)`` on the rung axis): what the segments of a proposal
+    hand on to each other."""
 
-    def __init__(self, nw, nd, dtype, device):
+    def __init__(self, shape, dtype, device):
         def t(shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=device)
 
-        self.q, self.p, self.p0 = t((nw, nd)), t((nw, nd)), t((nw, nd))
-        self.eps, self.u, self.T = t(()), t(()), t(())
-        #: leapfrog steps after the first, this proposal
-        self.more = t((), torch.int64)
+        lead = shape[:-2]
+        self.q, self.p, self.p0 = t(shape), t(shape), t(shape)
+        #: K21a's outputs: each rung's eps, u, T and leapfrog steps after
+        #: the first (``more``), the largest of them (``top``, read by the
+        #: host) and the trips run (``trip``)
+        self.start = chees_kernel.start_out(lead, device, dtype)
+        self.eps, self.u, self.T, self.more = self.start[:4]
+        #: K13's masked rung mode on a ladder of more than one rung
+        self.mask = (langevin_kernel.trip_mask(self.more, self.start.trip)
+                     if lead and lead[0] > 1 else None)
+        #: K21b's buffers (None where one block a rung serves)
+        self.scratch = chees_kernel.grad_scratch(
+            lead[0] if lead else 1, shape[-1],
+            chees_kernel.grad_plan(shape[-2]), device)
 
 
 class ChEESHMCMove(_GradientMove):
@@ -501,9 +508,11 @@ class ChEESHMCMove(_GradientMove):
     """
 
     wants_tune_flag = True
-    #: the trip count is a device scalar: the chunk program reads it once
-    #: a proposal and replays a one-step graph that many times
+    #: the trip count is a device word: the chunk program reads it once a
+    #: proposal (the largest of every rung's on a ladder) and replays a
+    #: one-step graph that many times
     looped = True
+    rung_batched = True
 
     def __init__(self, step_size, trajectory_length=1.0, max_leapfrog=1024,
                  cov=None, tune_target=0.651, tune_rate=0.2,
@@ -543,54 +552,54 @@ class ChEESHMCMove(_GradientMove):
     def work(self, x):
         key = (tuple(x.shape), x.dtype, str(x.device))
         if key not in self._work:
-            self._work[key] = _ChEESWork(*x.shape, x.dtype, x.device)
+            self._work[key] = _ChEESWork(tuple(x.shape), x.dtype, x.device)
         return self._work[key]
 
     def propose(self, rng, state, model, carry, acc_count=None,
                 accepted=None, loops=None, tune=False, extra=None,
                 log_u=None):
-        """One ChEES proposal of every walker, accepted through K2 in
-        place: a start segment (eps, the trip count, the momenta and the
-        first leapfrog step), the remaining steps by ``loops.repeat``
-        (:class:`~..chunk_graph.EagerLoops` by default), and an end
-        segment (the last gradient and kick, the factors, the ChEES
-        gradient when ``tune``, K2).  ``extra={"p0": ...}`` and ``log_u``
-        inject the draws (the parity mode)."""
+        """One ChEES proposal of every walker (of every rung, for ``(T,
+        nwalkers, ndim)`` buffers, a ``(T,)`` carry and ``RungKeys``),
+        accepted through K2 in place: a start segment (K21a: eps, the
+        jitter, T and the trip counts; K11's momenta; the first leapfrog
+        step), the remaining steps by ``loops.repeat`` of the largest trip
+        count (:class:`~..chunk_graph.EagerLoops` by default; on a ladder
+        each rung steps only while it has trips left), and an end segment
+        (the last gradient and kick, K12's factors, K21b's ChEES gradient
+        when ``tune``, K2).  ``extra={"p0": ...}`` and ``log_u`` inject
+        the draws (the parity mode)."""
         x = state.coords
         seed, offset = rng
         loops = loops or EagerLoops()
         w = self.work(x)
-        metric = self._metric(x.shape[1], x.device)
+        metric = self._metric(x.shape[-1], x.device)
         grad = batch_grad(model)
         p0 = (extra or {}).get("p0")
         if accepted is None:
-            accepted = torch.empty(x.shape[0], dtype=torch.bool,
+            accepted = torch.empty(x.shape[:-1], dtype=torch.bool,
                                    device=x.device)
 
         def start():
-            eps = self._eps(carry, x)
-            u = van_der_corput(carry["n"]).to(x.dtype)
-            T = torch.exp(carry["log_T"]).to(x.dtype)
-            # Clipped in float before the int cast, as the JAX package.
-            n_steps = torch.clamp(torch.ceil(u * T / eps), 1.0,
-                                  float(self.max_leapfrog))
-            w.eps.copy_(eps)
-            w.u.copy_(u)
-            w.T.copy_(T)
-            w.more.copy_(n_steps.to(torch.int64) - 1)
+            chees_kernel.chees_start(carry["log_adj"], carry["log_T"],
+                                     carry["n"], self.step_size,
+                                     self.max_leapfrog, w.start)
             w.p0.copy_(_draw(tuple(x.shape), x.device, seed, offset, 0, p0))
             _leapfrog(metric, w.eps, w.p0, w.p, grad(x), 1, x, w.q)
 
         def step():
-            _leapfrog(metric, w.eps, w.p, w.p, grad(w.q), 2, w.q, w.q)
+            _leapfrog(metric, w.eps, w.p, w.p, grad(w.q), 2, w.q, w.q,
+                      mask=w.mask)
 
         def end():
             lp_q, blobs_q, g = batch_value_and_grad(model)(w.q)
             _leapfrog(metric, w.eps, w.p, w.p, g, 1)
             f = langevin_kernel.langevin_factor(w.p0, w.p)
             if tune:
-                carry["g"].copy_(self._chees_gradient(
-                    w, x, state.log_prob, lp_q, f, metric))
+                full = metric.kind == "full"
+                chees_kernel.chees_gradient(
+                    x, w.q, w.p, state.log_prob, lp_q, f, w.u, w.T,
+                    carry["g"], d=metric.d, L=metric.m if full else None,
+                    scratch=w.scratch)
             else:
                 carry["g"].zero_()
             carry["n"].add_(1)
@@ -598,28 +607,9 @@ class ChEESHMCMove(_GradientMove):
                     log_u)
 
         loops.segment(("start",), start)
-        loops.repeat(("step",), step, w.more)
+        loops.repeat(("step",), step, w.start.top)
         loops.segment(("end", bool(tune)), end)
         return state, accepted, carry
-
-    @staticmethod
-    def _chees_gradient(w, x, lp, lp_q, kinetic, metric):
-        """The acceptance-weighted ChEES gradient with respect to ``log
-        T`` (``gradient.py:514-545``), from the pre-accept ensemble ``x``
-        and the proposal in the work buffers ``w``."""
-        q = w.q
-        lnpdiff = (lp_q - lp) + kinetic
-        alpha = torch.exp(torch.clamp(lnpdiff, max=0.0))
-        alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
-        dq = q - q.mean(dim=0)
-        dx = x - x.mean(dim=0)
-        delta = (dq * dq).sum(-1) - (dx * dx).sum(-1)
-        ddelta_dT = 2.0 * w.u * (dq * metric.apply_L(w.p)).sum(-1)
-        per_walker = 0.5 * delta * ddelta_dT
-        num = (alpha * per_walker).mean()
-        den = alpha.mean()
-        g = (w.T * num / (den + 1e-12)).to(torch.float32)
-        return torch.where(torch.isfinite(g), g, 0.0)
 
     def tune(self, carry, state, accepted, model=None):
         """Robbins-Monro on ``eps`` (with a ``tune_target``), then Adam

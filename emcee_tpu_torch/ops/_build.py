@@ -40,6 +40,7 @@ KERNELS = {
     "langevin_step": ("langevin_step.cu", "emcee_langevin_step"),
     "langevin_factor": ("langevin_factor.cu", "emcee_langevin_factor"),
     "leapfrog": ("leapfrog.cu", "emcee_leapfrog"),
+    "leapfrog_masked": ("leapfrog.cu", "emcee_leapfrog_masked"),
     "pt_swap": ("pt_swap.cu", "emcee_pt_swap"),
     "philox_draw": ("philox_draw.cu", "emcee_philox_draw"),
     "kde_logpdf": ("kde_logpdf.cu", "emcee_kde_logpdf"),
@@ -67,6 +68,8 @@ KERNELS = {
     "walk_keys": ("walk_propose.cu", "emcee_walk_keys"),
     "gaussian_propose": ("gaussian_propose.cu", "emcee_gaussian_propose"),
     "blend_select": ("blend_select.cu", "emcee_blend_select"),
+    "chees_start": ("chees.cu", "emcee_chees_start"),
+    "chees_gradient": ("chees.cu", "emcee_chees_gradient"),
 }
 
 _FLAGS = [
@@ -151,6 +154,15 @@ _ARGTYPES = {
         _P, _P, _P,  # g, d, eps
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd kicks
         ctypes.c_int,  # ntemps
+        _P,  # stream
+    ],
+    "leapfrog_masked": [
+        _P, _P, _P, _P,  # x_in, x_out, p_in, p_out
+        _P, _P, _P,  # g, d, eps
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n nd kicks
+        ctypes.c_int,  # ntemps
+        _P, _P, _P,  # more, trip, done
+        ctypes.c_int,  # advance
         _P,  # stream
     ],
     "pt_swap": [
@@ -281,6 +293,18 @@ _ARGTYPES = {
     ],
     "blend_select": [
         _P,  # the arguments (host struct, ops/blend_kernel.py _Args)
+        _P,  # stream
+    ],
+    "chees_start": [
+        _P, _P, _P,  # log_adj, log_T, n
+        ctypes.c_float, ctypes.c_float,  # step, max_leapfrog
+        ctypes.c_int,  # ntemps
+        _P, _P, _P, _P,  # eps, u, T, more
+        _P, _P,  # top, trip
+        _P,  # stream
+    ],
+    "chees_gradient": [
+        _P,  # the arguments (host struct, ops/chees_kernel.py _GradArgs)
         _P,  # stream
     ],
 }

@@ -33,7 +33,11 @@ kernels are what lies between the gradient evaluations.
   opening one of the next, added one after the other as the JAX scan
   adds them), then, with ``x`` given, the drift ``x = x + eps (d p)``.
   A full metric passes ``g L`` with ``d`` None for the kicks, then
-  drifts by a second launch with ``p = p L^T`` and ``kicks=0``.
+  drifts by a second launch with ``p = p L^T`` and ``kicks=0``.  Its
+  masked rung mode (``mask=``, a :class:`TripMask`; ChEES-HMC on a
+  ladder) moves rung ``r``'s rows only while the device word ``trip`` is
+  below ``more[r]``, and the launch that ends a trip (``advance``) adds
+  one to ``trip`` (its grid's last block, by a done-counter).
 
 Every operation rounds once (``__f*_rn`` in the kernels, no FMA), in the
 JAX expression's order; ``eps`` is a 0-d float32 tensor on the rows'
@@ -79,15 +83,34 @@ from ._wrap import (
     rng_args)
 from .philox import GRAD_BLOCK, RungKeys, grad_uniform, normals, rung_keys
 
-__all__ = ["LANGEVIN_BLOCKS_PER_SM", "LangevinPlan", "langevin_factor",
-           "langevin_factor_plain", "langevin_plan", "langevin_step",
-           "langevin_step_plain", "leapfrog", "leapfrog_plain"]
+__all__ = ["LANGEVIN_BLOCKS_PER_SM", "LangevinPlan", "TripMask",
+           "langevin_factor", "langevin_factor_plain", "langevin_plan",
+           "langevin_step", "langevin_step_plain", "leapfrog",
+           "leapfrog_plain", "trip_mask"]
 
 #: K11's threads a block and the blocks an SM holds at once (kThreads and
 #: kMinBlocks in csrc/langevin_step.cu, whose __launch_bounds__ keep the
 #: registers to that)
 LANGEVIN_THREADS = 256
 LANGEVIN_BLOCKS_PER_SM = 3
+
+
+class TripMask(NamedTuple):
+    """K13's masked rung mode: which rungs a trip of a replayed loop
+    steps.  ``more`` is each rung's trips (``(T,)`` int64), ``trip`` the
+    trips run so far (a 0-d int64 device word) and ``done`` the kernel's
+    done-counter (a 0-d int32 word, 0 between launches)."""
+
+    more: torch.Tensor
+    trip: torch.Tensor
+    done: torch.Tensor
+
+
+def trip_mask(more, trip):
+    """A :class:`TripMask` of ``more`` and ``trip`` with a done-counter of
+    its own."""
+    return TripMask(more, trip, torch.zeros((), dtype=torch.int32,
+                                            device=more.device))
 
 
 class LangevinPlan(NamedTuple):
@@ -301,10 +324,17 @@ langevin_factor.device_launches = None
 
 
 def leapfrog_plain(p, g, eps, *, d=None, kicks=1, x=None, x_out=None,
-                   p_out=None):
+                   p_out=None, mask=None, advance=True):
     """Plain PyTorch K13, writing the kernel's outputs; returns ``(x_out,
     p_out)`` (``x_out`` None without ``x``; ``p`` itself when
-    ``kicks=0``).  On the rung axis ``eps`` is ``(T,)``."""
+    ``kicks=0``).  On the rung axis ``eps`` is ``(T,)``; with ``mask`` (a
+    :class:`TripMask`) only the rungs with ``trip < more`` are written,
+    and ``advance`` adds one to ``trip``."""
+    live = None if mask is None else (mask.trip < mask.more)[:, None, None]
+
+    def put(out, new):
+        out.copy_(new if live is None else torch.where(live, new, out))
+
     eps = _per_rung(eps, 2)
     if kicks:
         lt = g if d is None else g * d
@@ -313,26 +343,30 @@ def leapfrog_plain(p, g, eps, *, d=None, kicks=1, x=None, x_out=None,
         if kicks == 2:
             pk = pk + hk
         p_out = p if p_out is None else p_out
-        p_out.copy_(pk)
+        put(p_out, pk)
     else:
         pk = p_out = p
-    if x is None:
-        return None, p_out
-    lp = pk if d is None else pk * d
-    x_out = x if x_out is None else x_out
-    x_out.copy_(x + eps * lp)
-    return x_out, p_out
+    if x is not None:
+        lp = pk if d is None else pk * d
+        x_out = x if x_out is None else x_out
+        put(x_out, x + eps * lp)
+    if mask is not None and advance:
+        mask.trip.add_(1)
+    return (None if x is None else x_out), p_out
 
 
-def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None):
+def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None,
+             mask=None, advance=True):
     """K13 on the rows' device: ``kicks`` (0, 1 or 2) half-kicks of ``p``
     by ``g`` into ``p_out`` (in place by default), then with ``x`` the
     drift into ``x_out`` (in place by default).  The CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  On the rung axis the rows
-    are ``(T, n, ndim)`` and ``eps`` is ``(T,)``.  Returns ``(x_out,
-    p_out)``."""
+    are ``(T, n, ndim)`` and ``eps`` is ``(T,)``; ``mask`` (a
+    :class:`TripMask` of the ``T`` rungs) takes the masked rung mode, in
+    which ``advance`` ends the trip.  Returns ``(x_out, p_out)``."""
     dev = p.device
-    kw = dict(d=d, kicks=kicks, x=x, x_out=x_out, p_out=p_out)
+    kw = dict(d=d, kicks=kicks, x=x, x_out=x_out, p_out=p_out, mask=mask,
+              advance=advance)
     if dev.type == "cpu":
         return leapfrog_plain(p, g, eps, **kw)
     if dev.type != "cuda":
@@ -364,12 +398,36 @@ def leapfrog(p, g, eps, *, d=None, kicks=1, x=None, x_out=None, p_out=None):
         raise ValueError("K13 with no kick and no drift does nothing")
     else:
         x_out = None
-    if n:
+    if mask is not None:
+        _check_mask(mask, dev, lead)
+        if n:
+            launch("leapfrog_masked", dev, ptr(x), ptr(x_out), p.data_ptr(),
+                   ptr(p_out), ptr(g if kicks else None), ptr(d),
+                   eps.data_ptr(), n, nd, int(kicks), ntemps,
+                   mask.more.data_ptr(), mask.trip.data_ptr(),
+                   mask.done.data_ptr(), int(bool(advance)))
+            count_launches(leapfrog)
+        elif advance:
+            mask.trip.add_(1)
+    elif n:
         launch("leapfrog", dev, ptr(x), ptr(x_out), p.data_ptr(),
                ptr(p_out), ptr(g if kicks else None), ptr(d), eps.data_ptr(),
                n, nd, int(kicks), ntemps)
         count_launches(leapfrog)
     return x_out, p if p_out is None else p_out
+
+
+def _check_mask(mask, dev, lead):
+    """A :class:`TripMask` of the ``lead = (T,)`` rungs on ``dev``."""
+    if not lead:
+        raise ValueError("the masked rung mode takes (T, n, ndim) rows")
+    for name, t, dt, shape in (("more", mask.more, torch.int64, lead),
+                               ("trip", mask.trip, torch.int64, ()),
+                               ("done", mask.done, torch.int32, ())):
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"the mask's {name} must be a contiguous {shape}"
+                             f" {dt} tensor on {dev}")
 
 
 leapfrog.launches = 0

@@ -41,14 +41,14 @@ host from the same steps (:meth:`PTSampler._count_proposed_delta`).
 A weighted move list runs as the JAX package's does: one move a proposal
 for every rung, or one a block of ``mixture_block`` kept steps, drawn on
 the host from the chain's seed (``driver.move_sequence``); the chunk
-program runs each stretch of equal moves, every move but ChEES (the
-stretch, DE, DE-snooker, MALA, HMC, ensemble MALA, ensemble HMC, KDE,
-DIME, DE-Z, side, walk, slice, Gaussian, MH and blended moves) on every
-rung at once and ChEES rung by rung.  Of the looped
-moves, ``EnsembleSliceMove`` runs its loops for every rung at once (one
-read of the lists' lengths a block serves every rung), and
-``ChEESHMCMove`` rung by rung, each rung's by replays of its own
-graphs.
+program runs each stretch of equal moves, every move (the stretch, DE,
+DE-snooker, MALA, HMC, ChEES, ensemble MALA, ensemble HMC, KDE, DIME,
+DE-Z, side, walk, slice, Gaussian, MH and blended moves) on every rung at
+once; only the private ``_batched = False`` switch runs them rung by
+rung.  The looped moves run their loops for every rung at once:
+``EnsembleSliceMove`` with one read of the lists' lengths a block,
+``ChEESHMCMove`` with one read of the largest trip count a proposal,
+each rung stepping only while it has trips left.
 
 User blobs of ``log_like_fn`` (the prior's are ignored) ride with the
 walkers: K2 selects them with the rows, K15 exchanges them with the

@@ -480,13 +480,18 @@ def test_batched_path_equals_the_per_rung_loop(make, kw, hold):
 
 
 def test_rung_batched_flags():
-    """The four moves propose every rung at once; ChEES loops."""
+    """The four moves and ChEES propose every rung at once; a user's
+    subclass that turns the flag off is refused on the rung axis."""
     for mv in (moves.MALAMove(0.5), moves.HMCMove(0.5),
-               moves.EnsembleMALAMove(), moves.EnsembleHMCMove()):
+               moves.EnsembleMALAMove(), moves.EnsembleHMCMove(),
+               moves.ChEESHMCMove(0.5)):
         assert mv.rung_batched, type(mv).__name__
-    assert not getattr(moves.ChEESHMCMove(0.5), "rung_batched", False)
+
+    class OneAtATime(moves.HMCMove):
+        rung_batched = False
+
     with pytest.raises(ValueError, match="one ensemble"):
-        moves.ChEESHMCMove(0.5).propose_rungs(
+        OneAtATime(0.5).propose_rungs(
             (rung_keys(0, 2, "cpu"), 0), State(torch.zeros(2, 4, 2),
                                                torch.zeros(2, 4)),
             port_model(BETAS[:2], 4), ())

@@ -205,16 +205,21 @@ def test_batched_path_equals_the_per_rung_loop(make, kw):
 
 
 def test_rung_batched_flag():
-    """``KDEMove`` (and the walk move and the blend beside it) proposes
-    every rung at once; ``ChEESHMCMove`` loops."""
+    """``KDEMove`` (and the walk move, the blend and ``ChEESHMCMove``
+    beside it) proposes every rung at once; a user's subclass without the
+    flag is refused on the rung axis."""
     assert moves.KDEMove().rung_batched
     assert moves.KDEMove(max_complement=4).rung_batched
     assert moves.WalkMove().rung_batched
     assert moves.BlendedMove([moves.DEMove(), moves.SideMove()]).rung_batched
-    chees = moves.ChEESHMCMove(0.1)
-    assert not chees.rung_batched
+    assert moves.ChEESHMCMove(0.1).rung_batched
+
+    class OneAtATime(moves.ChEESHMCMove):
+        rung_batched = False
+
+    assert not OneAtATime(0.1).rung_batched
     with pytest.raises(ValueError, match="one ensemble"):
-        chees.propose_rungs(
+        OneAtATime(0.1).propose_rungs(
             (rung_keys(0, T, "cpu"), 0), start(0), port_model(), ())
 
 
