@@ -263,9 +263,12 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    K17, the rows, ``csrc/gather_rows.cu``): (a) K16 against its plain
    version, ``torch.equal``, 1-64 segments of 2 to 200004 walkers, nsplits
    2-4, Philox keys at a host offset and a device word and injected keys
-   with ties (all equal, two values, sorted, reversed), through the
-   wrapper's plan and forced chunks (the rank, bitonic and merge routes),
-   and graph replays at a device offset word; (b) K17 against ``index_select`` /
+   with ties (all equal, two values, sorted, reversed, tied in every digit
+   but the top one, or in the top one only), through the wrapper's plan
+   and forced plans (the radix route's tiles, on the rank route's shapes
+   too), graph replays at a device offset word, and ``sorted_words``
+   (the sorted words and the order) at 4097 to 6e7 keys a segment, R-hat's
+   keys of 6e7 float32 normals among them; (b) K17 against ``index_select`` /
    ``index_copy_`` byte for byte (float32, float64, int64, int32, int16,
    int8 and bool, rows of 1-129 units, 1-34 buffers a call, bases off 16
    bytes, 1000 rows, workload 4's flat rung rows and 1e5 rows); (c) 64
@@ -279,8 +282,11 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
    K17 alone at both shapes beside their plain versions,
    ``torch.argsort(stable=True)`` of the same keys and the
    ``index_select`` / ``index_copy_`` calls of the plain route, K16's
-   bitonic block beside its rank route on the ladder and its chunks at
-   1e5; (e) the rows of K16 and K17.  ``python3 chip_smoke.py
+   radix route beside its rank route on the ladder; K16's
+   ``sorted_words`` of R-hat's 6e7 keys beside
+   ``torch.sort(stable=True)``; a user's red-blue
+   move written in the JAX package's shape (``MyStretch``) run on the
+   card; (e) the rows of K16 and K17.  ``python3 chip_smoke.py
    20`` runs phases 0, 1 and 20 alone.  Every shuffled path's exact
    launch counts (phases 10, 12-19) name K16 and K17.
 
@@ -465,6 +471,10 @@ and device memory), likewise;
 runs TREE's whole ``chip_smoke.py`` in a child process, echoes its
 output, and prints the seconds each phase took (each output line's wait
 charged to the phase it names) and the total.
+``python3 chip_smoke.py k16-tiles`` times K16's radix route with each of
+its tiles forced, at R-hat's 6e7 keys and at 2050 to 1e6 walkers a
+segment beside ``torch.argsort(stable=True)`` (the data behind the
+plan's tile rule).
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no
 result, without a CUDA device.
@@ -524,7 +534,10 @@ K5_SWEEP_TILES = {"de_propose": (4, 8, 16, 32, 64),
 #: the kernel functions a wrapper launches besides ``<wrapper>_kernel``
 #: (K2's rung axis has a kernel of its own)
 KERNEL_ALIASES = {"accept_select": ("accept_rungs_kernel",),
-                  "group_order": ("group_rank_kernel", "group_merge_kernel"),
+                  "group_order": ("group_rank_kernel", "radix_hist_kernel",
+                                  "radix_pass_kernel",
+                                  # a tree before the radix route, in turns
+                                  "group_merge_kernel"),
                   "rank_scores": ("rank_scan_kernel", "rank_finish_kernel"),
                   "walk_subset": ("walk_sort_kernel", "walk_keys_kernel"),
                   "gaussian_propose": ("gaussian_pairs_kernel",
@@ -599,8 +612,8 @@ def shuffle_per(T=1, n=NW, nsplits=2, loop=False):
     """K16's and K17's launches a shuffled proposal of ``T`` segments of
     ``n`` walkers (one ensemble, or every rung of a ladder at once; with
     ``loop`` rung by rung, ``T`` times one segment's): K16's plan on this
-    card (``shuffle_plan``: one launch on the rank and short routes, one and a merge
-    pass each on the long one) and one K17 each way."""
+    card (``shuffle_plan``: one launch on the rank route, a histogram and
+    four digit passes on the radix one) and one K17 each way."""
     import torch
     from emcee_tpu_torch.ops._wrap import sm_count
     from emcee_tpu_torch.ops.shuffle_kernel import shuffle_plan
@@ -4075,7 +4088,7 @@ def phase13_ensemble(torch, np, dev, card, out, n=200):
         smp = make()
         n_prof = 8
         # K14: the shuffled split's sort keys, one draw a proposal; K16
-        # (the long route at 1e4 walkers) and K17 its order and rows.
+        # (the radix route at 1e4 walkers) and K17 its order and rows.
         shuf = shuffle_per(1, NW3)
         with path_launches(out, path, tuple(per_split) + ("philox_draw",)
                            + SHUFFLE_KERNELS, "phase 13"):
@@ -7281,7 +7294,7 @@ PT19_TOL = 1e-4
 #: KDEMove()'s kernels a proposal at 1e5 walkers and on workload 4's
 #: ladder (every rung at once): K7 and K2 a split, K14 the shuffle's sort
 #: keys and a split's kernel centres and noise, K15 the swap, K16 and K17
-#: the shuffle's order and rows (at 1e5 walkers K16's long route:
+#: the shuffle's order and rows (at 1e5 walkers K16's radix route:
 #: :func:`shuffle_per`, added where it is used)
 PT19_PER = {"kde_logpdf": 2, "accept_select": 2, "philox_draw": 5,
             "pt_swap": 1} | SHUF4
@@ -7907,18 +7920,28 @@ def phase19_rows(torch, dev, out, card):
 
 # -- 20. the shuffled split: K16 and K17 --------------------------------------
 #: (segments, walkers a segment, nsplits) of K16's sweep: one walker pair
-#: to 2e5+ walkers, 1 to 64 rungs, both routes by the wrapper's plan
+#: to 2e5+ walkers, 1 to 64 rungs, both routes by the wrapper's plan (the
+#: radix route just above the rank route's limit, on T > 1 segments and
+#: at 1e5)
 K16_SWEEP = ((1, 2, 2), (1, 6, 3), (3, 24, 4), (16, 256, 2), (64, 256, 4),
-             (5, 1000, 2), (3, 2048, 2), (1, 4096, 4), (2, 4098, 3),
-             (1, 10_002, 2),
+             (5, 1000, 2), (3, 2048, 2), (1, 4096, 4), (1, 4097, 1),
+             (2, 4098, 3), (3, 5000, 2), (1, 10_002, 2),
              (1, 100_000, 2), (2, 100_000, 4), (1, 200_004, 3))
-#: the chunks K16's sweep forces beside the wrapper's plan (a chunk below a
-#: segment's walkers takes the long route)
-K16_CHUNKS = (None, 2, 64, 1024, 4096)
+#: the plans K16's sweep forces beside the wrapper's: each radix tile
+K16_FORCED = (None, ("tile", 256), ("tile", 1024), ("tile", 4096))
 #: the sort keys of K16's sweep: Philox word 3 at a host offset and at a
-#: device word, and injected keys with ties
+#: device word, and injected keys with ties (every digit but the top one
+#: tied: "low digits"; only the top one: "top digit")
 K16_KEYS = ("stream", "device word", "equal", "two values", "sorted",
-            "reversed")
+            "reversed", "low digits", "top digit")
+#: (segments, keys a segment) of ``sorted_words``' sweep, with the order;
+#: the last R-hat's one parameter at the monitor's last chain
+K16_WORDS = ((1, 4097), (3, 5000), (1, 100_000), (1, 60_000_000))
+#: (segments, walkers a segment) where ``k16-tiles`` times each radix tile
+#: (the plan's tile rule)
+K16_TILE_SHAPES = ((1, 2050), (1, 4096), (1, 10_000), (1, 50_000),
+                   (1, 100_000), (1, 300_000), (1, 1_000_000), (16, 10_000),
+                   (64, 4098))
 #: K17's sweep: dtypes, rows (in units of the dtype), and buffer counts
 K17_DTYPES = ("float32", "float64", "int64", "int32", "int16", "int8", "bool")
 K17_ROWS = ((), (2,), (3,), (5,), (17,), (129,))
@@ -7926,14 +7949,14 @@ K17_NBUFS = (1, 3, 18, 34)
 
 
 @contextlib.contextmanager
-def forced_shuffle_plan(chunk):
-    """K16's wrapper launching with ``chunk`` walkers a sorting block (the
-    plan's own where None)."""
+def forced_shuffle_plan(force):
+    """K16's wrapper launching with a forced plan: ``("tile", t)`` the
+    radix route's tile ``t`` (the plan's own where None)."""
     from emcee_tpu_torch.ops import shuffle_kernel as shk
 
     plan = shk.shuffle_plan
-    shk.shuffle_plan = lambda T, n, ns, n_sm: plan(T, n, ns, n_sm,
-                                                   chunk=chunk)
+    kw = dict([force]) if force else {}
+    shk.shuffle_plan = lambda T, n, ns, n_sm: plan(T, n, ns, n_sm, **kw)
     try:
         yield
     finally:
@@ -7957,18 +7980,36 @@ def k16_keys(torch, dev, kind, T, n, ns, gen, word):
     if kind == "two values":
         return torch.randint(0, 2, (T, n), device=dev, generator=gen) * (
             2**32 - 1)
+    if kind == "low digits":
+        return torch.randint(0, 256, (T, n), device=dev,
+                             generator=gen) << 24 | 0xABCDEF
+    if kind == "top digit":
+        return torch.randint(0, 1 << 24, (T, n), device=dev,
+                             generator=gen) | 0x5A << 24
     k = torch.randint(0, 5, (T, n), device=dev, generator=gen)
     k = torch.sort(k, dim=-1).values
     return k if kind == "sorted" else k.flip(-1).contiguous()
 
 
+def rhat_keys(torch, dev, n, seed=203):
+    """R-hat's sort keys of ``n`` float32 standard normals (``(1, n)``):
+    the order-preserving words ``rank_keys`` writes."""
+    from emcee_tpu_torch.ops.autocorr_kernel import order_keys_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(n, device=dev, generator=gen)
+    return order_keys_plain(v)[0].view(1, n)
+
+
 def k16_sweep(torch, dev):
     """(a) K16 against its plain version, ``torch.equal``: every shape of
     ``K16_SWEEP`` with every key kind of ``K16_KEYS`` through the wrapper's
-    plan and every forced chunk of ``K16_CHUNKS``; then the order recorded
-    in a CUDA graph with K14's keys at a device offset word, replayed at
-    four values of the word, at workload 4's shape (rank route) and at
-    1e5 walkers (long route).  Returns the comparisons."""
+    plan and every forced plan of ``K16_FORCED``; ``sorted_words`` with
+    the order at ``K16_WORDS`` (every key kind but the stream's, R-hat's
+    normals' keys at 6e7); then the order recorded in a CUDA graph with
+    K14's keys at a device offset word, replayed at four values of the
+    word, at workload 4's shape (rank route) and at 1e5 walkers (radix
+    route).  Returns the comparisons."""
     from emcee_tpu_torch.ops import shuffle_kernel as shk
     from emcee_tpu_torch.ops.philox import (
         DeviceOffset, rung_keys, rung_words, walker_words)
@@ -7980,14 +8021,38 @@ def k16_sweep(torch, dev):
         for kind in K16_KEYS:
             keys = k16_keys(torch, dev, kind, T, n, ns, gen, word)
             want = shk.group_order_plain(keys, ns)
-            for chunk in K16_CHUNKS:
-                with forced_shuffle_plan(chunk):
+            for force in K16_FORCED:
+                with forced_shuffle_plan(force):
                     got = shk.group_order(keys, ns)
                 if not torch.equal(got, want):
                     raise AssertionError(
-                        f"phase 20: K16 {T} x {n} / {ns}, {kind}, chunk "
-                        f"{chunk}: kernel and plain version differ")
+                        f"phase 20: K16 {T} x {n} / {ns}, {kind}, plan "
+                        f"{force}: kernel and plain version differ")
                 n_cmp += 1
+    for T, n in K16_WORDS:
+        kinds = (("R-hat's keys",) if n > 1e6 else
+                 ("R-hat's keys",) + K16_KEYS[2:])
+        for kind in kinds:
+            keys = (rhat_keys(torch, dev, n).expand(T, n).contiguous()
+                    if kind == "R-hat's keys" else
+                    k16_keys(torch, dev, kind, T, n, 1, gen, word))
+            want = [torch.empty(T, n, dtype=torch.int64, device=dev),
+                    torch.empty(T * n, dtype=torch.int64, device=dev)]
+            shk.sorted_words_plain(keys, *want)
+            for force in ((None,) if n > 1e6 else (None, ("tile", 256))):
+                got = [torch.empty_like(t) for t in want]
+                with forced_shuffle_plan(force):
+                    shk.sorted_words(keys, *got)
+                    alone = torch.empty_like(want[0])
+                    shk.sorted_words(keys, alone)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])
+                        and torch.equal(alone, want[0])):
+                    raise AssertionError(
+                        f"phase 20: K16's sorted words {T} x {n}, {kind}, "
+                        f"plan {force}: kernel and plain version differ")
+                n_cmp += 3
+            del keys, want, got, alone
     for T, n in ((NT4, NW4), (1, NW)):
         keys = rung_keys(2002, T, dev)
 
@@ -8204,19 +8269,157 @@ def shuffle_alone(torch, dev, card, shape, bufs):
             f"{r['library_ms'] * 1e3:.2f} us in graph replays / "
             f"{r['library_call_ms'] * 1e3:.2f} us back to back, bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({by}) {card}")
-    # The other routes forced: the bitonic block beside the rank route on
-    # the ladder, other chunks of the long route at 1e5.
-    chunks = {}
-    for chunk in ((256,) if plan.route == "rank" else (1024, 2048, 4096)):
-        with forced_shuffle_plan(chunk):
-            chunks[chunk] = replay_ms(torch,
-                                      lambda: shk.group_order(keys, 2))
-    res["group_order"]["device_ms_by_chunk"] = chunks
-    log(f"phase 20: (d) group_order at {T} x {n}, device us a call by "
-        f"forced chunk: " + ", ".join(
-            f"{k}: {v * 1e3:.2f}" for k, v in chunks.items())
-        + f" (the plan: {plan.route} route, chunk {plan.chunk}) {card}")
+    if plan.route == "rank":  # the radix route beside it
+        with forced_shuffle_plan(("tile", 256)):
+            ms = replay_ms(torch, lambda: shk.group_order(keys, 2))
+        res["group_order"]["device_ms_by_plan"] = {"tile 256": ms}
+        log(f"phase 20: (d) group_order at {T} x {n}, device us a call "
+            f"with the radix route forced (tile 256): {ms * 1e3:.2f} (the "
+            f"plan: rank route) {card}")
     return res
+
+
+def k16_long(torch, dev, card):
+    """(d) K16's radix route where it sorts most: ``sorted_words`` of
+    R-hat's 6e7 keys (one parameter at the monitor's last chain) with the
+    plan's tile beside ``torch.sort(stable=True)`` of the same keys and
+    the plain version, each a call behind the card's sleep (CUDA events),
+    and its bound (the keys read once, the words written once)."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+    from emcee_tpu_torch.ops._wrap import sm_count
+
+    n = K16_WORDS[-1][1]
+    keys = rhat_keys(torch, dev, n)
+    words = torch.empty_like(keys)
+    plan = shk.shuffle_plan(1, n, 1, sm_count(torch.cuda.current_device()))
+    out = {"keys": n, "plan": list(plan), "launches_per_call": plan.launches}
+    out["ms"] = behind_ms(torch, lambda: shk.sorted_words(keys, words),
+                          lambda: None, reps=10)
+    out["library_ms"] = behind_ms(
+        torch, lambda: torch.sort(keys, dim=-1, stable=True), lambda: None,
+        reps=10)
+    plain = [torch.empty_like(keys), None]
+    out["plain_ms"] = behind_ms(
+        torch, lambda: shk.sorted_words_plain(keys, plain[0]), lambda: None,
+        reps=3)
+    nbytes = 16 * n
+    out.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes", design_bytes=8 * n + 4 * 16 * n)
+    log(f"phase 20: (d) sorted_words of R-hat's {n} keys (float32 normals' "
+        f"order-preserving words): {out['ms']:.4f} ms a call "
+        f"({plan.launches} launches, tile {plan.chunk}, {plan.hist} "
+        f"histogram blocks), torch.sort(stable=True) "
+        f"{out['library_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms; bound "
+        f"{out['bound_ms']:.4f} ms (bytes, {nbytes}; the design moves "
+        f"{out['design_bytes']}) {card}")
+    return out
+
+
+def k16_tiles(torch, dev, card):
+    """``k16-tiles``: K16's radix route with each of ``RADIX_TILES``
+    forced, ``sorted_words`` of R-hat's 6e7 keys a call behind the card's
+    sleep (CUDA events), then ``group_order`` at ``K16_TILE_SHAPES`` in
+    graph replays beside ``torch.argsort(stable=True)`` (the data behind
+    the plan's tile rule)."""
+    from emcee_tpu_torch.ops import shuffle_kernel as shk
+    from emcee_tpu_torch.ops._wrap import sm_count
+    from emcee_tpu_torch.ops.philox import rung_keys, rung_words, walker_words
+
+    n = K16_WORDS[-1][1]
+    keys = rhat_keys(torch, dev, n)
+    words = torch.empty_like(keys)
+    by_tile = {}
+    for t in shk.RADIX_TILES:
+        with forced_shuffle_plan(("tile", t)):
+            by_tile[t] = behind_ms(torch, lambda: shk.sorted_words(
+                keys, words), lambda: None, reps=5)
+    log(f"k16-tiles: sorted_words of R-hat's {n} keys, ms a call by tile: "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in by_tile.items())
+        + f" {card}")
+    del keys, words
+    out = {"ms_by_tile_6e7": by_tile}
+    tiles = {}
+    for T, m in K16_TILE_SHAPES:
+        k = (walker_words(m, 2, 204, 3, dev, word=3) if T == 1 else
+             rung_words(rung_keys(204, T, dev), m, 2, 3, dev,
+                        word=3).view(T, m))
+        row = {"plan": shk.shuffle_plan(
+            T, m, 2, sm_count(torch.cuda.current_device())).chunk}
+        for t in shk.RADIX_TILES:
+            with forced_shuffle_plan(("tile", t)):
+                row[t] = replay_ms(torch, lambda: shk.group_order(k, 2))
+        row["argsort"] = replay_ms(
+            torch, lambda: torch.argsort(k, dim=-1, stable=True))
+        tiles[f"{T} x {m}"] = row
+    out["tiles_ms"] = tiles
+    log("k16-tiles: group_order by radix tile, device us a call in graph "
+        "replays (the plan's tile; argsort(stable=True)): " + "; ".join(
+            f"{shape}: " + ", ".join(
+                f"{k} {v * 1e3:.2f}" if k != "plan" else f"plan {v}"
+                for k, v in r.items())
+            for shape, r in tiles.items()) + f" {card}")
+    return out
+
+
+def my_stretch():
+    """A ``MyStretch()``: the docs' custom red-blue move in the JAX
+    package's shape, ``get_proposal(key, s, c_parts, model)``, with torch
+    and the port's Philox helpers (as ``tests/test_torch_custom_moves.py``
+    writes it)."""
+    import torch
+
+    from emcee_tpu_torch import moves
+    from emcee_tpu_torch.ops.philox import row_uniforms
+
+    class _MyStretch(moves.RedBlueMove):
+        def __init__(self, a=2.0, **kwargs):
+            self.a = a
+            super().__init__(**kwargs)
+
+        def get_proposal(self, key, s, c_parts, model):
+            seed, offset = key
+            c = torch.cat(c_parts, dim=0)
+            u = row_uniforms(s.shape[0], 2, seed, offset, s.device,
+                             dtype=s.dtype)
+            pick = (u[:, 0] * c.shape[0]).long().clamp_(max=c.shape[0] - 1)
+            partners = c[pick]
+            z = ((self.a - 1.0) * u[:, 1] + 1.0) ** 2 / self.a
+            q = partners - z[:, None] * (partners - s)
+            return q, (model.global_ndim(s.shape[1]) - 1.0) * torch.log(z)
+
+    return _MyStretch()
+
+
+def custom_move(torch, np, dev, card):
+    """(d) A user's red-blue move on the card: ``MyStretch()`` at 1e4
+    walkers, 5-D, the graph chain against the eager one bit for bit (64
+    proposals), then 200 recorded proposals: acceptance, the mean lp and
+    a finite chain."""
+    from emcee_tpu_torch import EnsembleSampler
+
+    nw = 10_000
+    p0 = np.random.default_rng(23).normal(size=(nw, ND)).astype(np.float32)
+    mv = my_stretch()
+    if not mv._jax_hook or mv.rung_batched:
+        raise AssertionError("phase 20: MyStretch takes the port's hook")
+    acc = graph_vs_plain_chain(torch, lambda: EnsembleSampler(
+        nw, ND, gaussian, vectorize=True, seed=78, device=dev,
+        moves=my_stretch()), p0)
+    smp = EnsembleSampler(nw, ND, gaussian, vectorize=True, seed=79,
+                          device=dev, moves=mv)
+    smp.run_mcmc(p0, 200, skip_initial_state_check=True)
+    chain = smp.get_chain()
+    lp = float(np.mean(smp.get_log_prob()[-50:]))
+    rate = float(np.mean(smp.acceptance_fraction))
+    if not (np.isfinite(chain).all() and 0.2 < rate < 0.8
+            and -3.5 < lp < -1.5):
+        raise AssertionError(f"phase 20: MyStretch on the card: acceptance "
+                             f"{rate}, mean lp {lp}")
+    log(f"phase 20: (d) MyStretch() (a red-blue move in the JAX package's "
+        f"shape) at {nw} x {ND}: graph chain == eager chain (64 proposals, "
+        f"acceptance {acc:.4f}); 200 proposals: acceptance {rate:.4f}, mean "
+        f"lp of the last 50 {lp:.4f} {card}")
+    return {"acceptance": rate, "mean_lp": lp, "chain_acceptance": acc}
 
 
 def pt20_chains(torch, np, dev):
@@ -8318,9 +8521,10 @@ def phase20(torch, np, dev, card):
     out["k16_comparisons"] = k16_sweep(torch, dev)
     log(f"phase 20: (a) K16 against its plain version (torch.equal): "
         f"segments x walkers / nsplits {K16_SWEEP}, keys {K16_KEYS}, the "
-        f"plan's chunk and forced chunks {K16_CHUNKS[1:]}, graph replays at "
-        f"a device offset word: {out['k16_comparisons']} comparisons, all "
-        f"identical ({time.perf_counter() - t0:.1f} s)")
+        f"plan's and forced plans {K16_FORCED[1:]}, sorted_words (words and "
+        f"order) at {K16_WORDS}, graph replays at a device offset word: "
+        f"{out['k16_comparisons']} comparisons, all identical "
+        f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     out["k17_comparisons"] = k17_sweep(torch, dev)
     log(f"phase 20: (b) K17 against index_select / index_copy_ (bytes): "
@@ -8357,6 +8561,8 @@ def phase20(torch, np, dev, card):
                                     shuffle_buffers(torch, one_pt)),
         "1e5": shuffle_alone(torch, dev, card, (1, NW),
                              shuffle_buffers(torch, one_1e5))}
+    out["long"] = k16_long(torch, dev, card)
+    out["custom"] = custom_move(torch, np, dev, card)
     log(f"phase 20: (d) {time.perf_counter() - t0:.1f} s")
     log(f"phase 20: kernel wrapper launches of each path, counted from 0 "
         f"(recordings and eager runs): {out['launches']}")
@@ -8364,9 +8570,9 @@ def phase20(torch, np, dev, card):
 
 
 def phase20_rows(out):
-    """(e) The rows of K16 and K17: at workload 4's shape (K16's short
-    route) the main keys, at 1e5 walkers (K16's long route) the ``_1e5``
-    ones.  ``ms`` is the device time of one call in the path's replays
+    """(e) The rows of K16 and K17: at workload 4's shape (K16's rank
+    route) the main keys, at 1e5 walkers (K16's radix route) the ``_1e5``
+    ones, K16's at R-hat's 6e7 keys the ``_6e7`` ones.  ``ms`` is the device time of one call in the path's replays
     (the profiler's mean a launch times the call's launches), ``launches``
     the replayed launches counted on the card."""
     mains, alone = out["main"], out["alone"]
@@ -8380,7 +8586,7 @@ def phase20_rows(out):
         "scatter_rows": ("emcee_tpu_torch/csrc/gather_rows.cu",
                          "emcee_tpu/moves/red_blue.py:252-264")}
     fns = {"group_order": ("group_rank_kernel", "group_order_kernel",
-                           "group_merge_kernel"),
+                           "radix_hist_kernel", "radix_pass_kernel"),
            "gather_rows": ("gather_rows_kernel",),
            "scatter_rows": ("scatter_rows_kernel",)}
     rows = []
@@ -8413,12 +8619,19 @@ def phase20_rows(out):
                "ptxas": {k: v for k, v in PTXAS.items()
                          if any(f in k for f in fns[name])}}
         if name == "group_order":
-            row["device_ms_by_chunk"] = a["device_ms_by_chunk"]
-            row["device_ms_by_chunk_1e5"] = b["device_ms_by_chunk"]
+            g = out["long"]
+            row["device_ms_by_plan"] = a["device_ms_by_plan"]
+            row.update(ms_6e7=g["ms"], library_ms_6e7=g["library_ms"],
+                       plain_ms_6e7=g["plain_ms"], bound_ms_6e7=g["bound_ms"],
+                       bound_by_6e7="bytes",
+                       launches_per_call_6e7=g["launches_per_call"])
         row["note"] = (
             f"workload 4's ladder ({NT4} rungs x {NW4} walkers; K16's rank "
             f"route) and, in the _1e5 keys, StretchMove() at {NW} walkers "
-            "(K16's long route: a sort and its merge passes a call): ms the "
+            "(K16's radix route: a histogram and four digit passes a call); "
+            "in the _6e7 keys sorted_words of R-hat's 6e7 keys, a call "
+            "behind the card's sleep (CUDA events), library torch.sort("
+            "stable=True): ms the "
             "device time of one call in the path's replays (profiler); "
             "alone_ms a call alone and library_ms in graph replays "
             "of 20 calls (CUDA events); "
@@ -10587,6 +10800,35 @@ def k6_forbidden(torch):
             setattr(owner, name, fn)
 
 
+@contextlib.contextmanager
+def k16_calls():
+    """Records the ``(T, n)`` of every K16 call of R-hat's route
+    (``autocorr_kernel.sorted_words``) into the list it yields."""
+    from emcee_tpu_torch.ops import autocorr_kernel as ak
+
+    fn, seen = ak.sorted_words, []
+
+    def record(keys, words, order=None):
+        seen.append(tuple(keys.shape) if keys.dim() == 2
+                    else (1, keys.shape[0]))
+        return fn(keys, words, order)
+
+    ak.sorted_words = record
+    try:
+        yield seen
+    finally:
+        ak.sorted_words = fn
+
+
+def k16_expected(torch, shapes):
+    """K16's launches for calls of ``shapes`` ``(T, n)`` by its plan."""
+    from emcee_tpu_torch.ops._wrap import sm_count
+    from emcee_tpu_torch.ops.shuffle_kernel import shuffle_plan
+
+    n_sm = sm_count(torch.cuda.current_device())
+    return sum(shuffle_plan(T, n, 1, n_sm).launches for T, n in shapes)
+
+
 def k6_entry_points(torch, np, dev):
     """(a) Each public entry point on a CUDA tensor launches K6 (and K16
     for R-hat), with the torch calls of ``K6_FORBIDDEN`` and every plain
@@ -10631,7 +10873,7 @@ def k6_entry_points(torch, np, dev):
     for label, (fn, want) in calls.items():
         for _, w in fns.values():
             w.launches = 0
-        with k6_forbidden(torch):
+        with k6_forbidden(torch), k16_calls() as k16:
             got = fn()
         torch.cuda.synchronize()
         if not np.all(np.isfinite(got)):
@@ -10639,7 +10881,8 @@ def k6_entry_points(torch, np, dev):
         counts = {k: w.launches for k, (_, w) in fns.items() if w.launches}
         expect = dict(want)
         if "rank_keys" in want:
-            expect["group_order"] = counts.get("group_order", 0)
+            # K16's plan's launches for each sort the route made
+            expect["group_order"] = k16_expected(torch, k16)
             if not expect["group_order"]:
                 raise AssertionError(f"phase 24: {label}: no K16 launch")
         if counts != expect:
@@ -10683,11 +10926,16 @@ def k6_monitor(torch, np, dev, card, trace):
 
     check()
     with path_launches(out, "one check", K6_KERNELS + ("group_order",),
-                       "phase 24"):
+                       "phase 24"), k16_calls() as k16:
         t0 = time.perf_counter()
         check()
         torch.cuda.synchronize()
         t_check = time.perf_counter() - t0
+    k16_want = k16_expected(torch, k16)
+    if out["launches"]["one check"].get("group_order", 0) != k16_want:
+        raise AssertionError(f"phase 24: a check's K16 launches "
+                             f"{out['launches']['one check']}, its plan's "
+                             f"{k16_want} ({k16})")
     _, kernels = profile_window(torch, check)
     per_check = sum(c for c, _ in kernels.values())
     big, _ = d2h_bytes(torch, check, trace)
@@ -10725,7 +10973,8 @@ def k6_monitor(torch, np, dev, card, trace):
                          in top)
     if not (np.isfinite(mon.tau).all() and np.isfinite(mon.rhat).all()):
         raise AssertionError(f"phase 24: tau {mon.tau}, rhat {mon.rhat}")
-    out.update(iteration=smp.iteration, checks=len(mon.history),
+    out.update(k16_launches_per_check=k16_want, k16_calls_per_check=len(k16),
+               iteration=smp.iteration, checks=len(mon.history),
                seconds=total, seconds_per_check=t_check,
                kernels_per_check=per_check,
                kernels_per_check_before=K6_OLD_KERNELS_PER_CHECK,
@@ -12793,8 +13042,9 @@ def sass_functions(lib):
 
 
 def sass_diff(tree) -> int:
-    """Build ``tree``'s and this checkout's K1, K2, K5a, K5b, K11, K12, K13
-    and K15 sources with the build's flags into ``build/sass`` and compare
+    """Build ``tree``'s and this checkout's K1, K2, K5a, K5b, K11, K12,
+    K13, K15 and K16 sources with the build's flags into ``build/sass``
+    and compare
     the SASS of every kernel function that both hold (K15's blob-free
     kernel gained the template parameter ``NoLeaves``, which the
     comparison drops from its name; K2's tiled kernel lost its rung
@@ -12808,7 +13058,8 @@ def sass_diff(tree) -> int:
     K12 and K13 gained one as their only template parameter, so a tree's
     ``leapfrog_kernel`` is compared with ``leapfrog_kernel<false>``).
     Prints each function's verdict; returns 1 when a one-ensemble
-    instantiation of K1, K2, K5a, K5b, K11, K12 or K13 differs, else 0."""
+    instantiation of K1, K2, K5a, K5b, K11, K12 or K13, or K16's rank
+    route (``group_rank_kernel``), differs, else 0."""
     import re
 
     from emcee_tpu_torch.ops import _build
@@ -12823,7 +13074,7 @@ def sass_diff(tree) -> int:
               "leapfrog_kernel")
     for src in ("stretch_propose.cu", "accept_select.cu", "pt_swap.cu",
                 "de_propose.cu", "snooker_propose.cu", "langevin_step.cu",
-                "langevin_factor.cu", "leapfrog.cu"):
+                "langevin_factor.cu", "leapfrog.cu", "shuffle_order.cu"):
         sass = {}
         for label, root in (("parent", tree), ("change", here)):
             lib = out_dir / f"{label}-{src}.so"
@@ -12834,8 +13085,10 @@ def sass_diff(tree) -> int:
                            for k, v in sass_functions(lib).items()}
         mapped = set()
         for fn in sorted(sass["parent"]):
-            one = fn.endswith(", false>") and fn.startswith((
-                "stretch_propose_kernel", "accept_select_kernel") + gained)
+            one = fn == "group_rank_kernel" or (
+                fn.endswith(", false>") and fn.startswith((
+                    "stretch_propose_kernel", "accept_select_kernel")
+                    + gained))
             mine = fn
             if fn.startswith("accept_select_kernel") and not any(
                     k.startswith("accept_select_kernel") and
@@ -12861,7 +13114,8 @@ def sass_diff(tree) -> int:
                     or fn in mapped):
                 log(f"sass-diff: {src}: {fn}: new in the change")
     log(f"sass-diff: one-ensemble K1 / K2 / K5a / K5b / K11 / K12 / K13 "
-        f"instantiations that differ from {tree}'s: {bad or 'none'}")
+        f"instantiations and K16's rank route that differ from {tree}'s: "
+        f"{bad or 'none'}")
     return 1 if bad else 0
 
 
@@ -12931,6 +13185,13 @@ def main() -> int:
                 "stretch_propose", "accept_select", "pt_swap", "philox_draw",
                 "group_order", "copy_rows") if k in _build.KERNELS])
             kernel_turn(torch, np, dev, card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["k16-tiles"]:
+        _build.build_all(["philox_draw", "group_order"])
+        log(json.dumps(k16_tiles(torch, dev, card)))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))

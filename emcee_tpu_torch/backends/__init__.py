@@ -1,5 +1,6 @@
 """Chain storage backends of the port."""
 
+from . import pt
 from .backend import Backend
 from .device import DeviceBackend
 from .hdf import HDFBackend, TempHDFBackend
@@ -14,6 +15,7 @@ __all__ = [
     "PTHDFBackend",
     "TempHDFBackend",
     "get_test_backends",
+    "pt",
 ]
 
 

@@ -6,7 +6,7 @@ proposals, the ``lax.switch`` of the move mixture and ``mixture_block``'s
 per-block switch, cached by ``(nkeep, thin_by, store, tune, blobs)``)
 together with ``:719-774`` (``_make_step``).  A shuffled move's order,
 gathers and scatters (K16 and K17) are recorded with its other kernels,
-the long route's scratch in the graph's own memory pool.  Eager PyTorch enqueues each
+the radix route's scratch in the graph's own memory pool.  Eager PyTorch enqueues each
 kernel from Python, which costs tens of microseconds of host time per
 launch against a few on the device; a CUDA graph enqueues a recorded
 sequence of them with one call, as the jitted scan does.

@@ -136,8 +136,8 @@ class BlendedMove(RedBlueMove):
         subs = extra.get("moves") or [None] * len(self._moves)
         qs, fs = [], []
         for m, key, sub in zip(self._moves, self._sub_seeds(seed), subs):
-            qk, fk = m.get_proposal((key, offset), coords, split, model,
-                                    extra=sub)
+            qk, fk = m._split_proposal((key, offset), coords, split, model,
+                                       extra=sub)
             qs.append(qk.contiguous())
             fs.append(fk.contiguous())
         return blend_kernel.blend_select(qs, fs, self._cdf, seed, offset,

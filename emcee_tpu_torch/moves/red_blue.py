@@ -73,7 +73,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import accept_kernel, shuffle_kernel
-from ..ops.philox import rung_words, walker_words
+from ..ops.philox import rung_words, split_seed, walker_words
 from ..utils import tree_flatten, tree_unflatten
 from .base import Move, ScaleTunable, blob_pairs
 
@@ -111,10 +111,30 @@ class RedBlueMove(ScaleTunable, Move):
             ``run_mcmc(..., tune=True)`` (tunable moves only).
         tune_rate: adaptation step size (decays as ``1/sqrt(t)``).
 
-    Subclasses implement ``get_proposal(rng, coords, split, model,
-    extra=None, scale=None) -> (q, factors)`` for group ``split`` of the
-    contiguous ensemble buffer ``coords`` (and take ``carry=`` when they
-    set ``wants_carry``).
+    A move written outside the port implements the JAX package's hook,
+    ``get_proposal(key, s, c_parts, model, **kw) -> (q, factors)``
+    (``docs/moves.md``, "Writing your own move"): ``s`` is the ``(ng,
+    ndim)`` group being updated and ``c_parts`` the tuple of the other
+    groups, in group order (views of the ensemble buffer, which the
+    shuffled split has gathered into group order first); ``kw`` holds
+    ``extra=``, ``scale=`` and ``carry=`` only where they are set, as
+    ``emcee_tpu/moves/red_blue.py:188-195`` passes them.  ``key`` is the
+    port's ``(seed, offset)``: ``seed`` the group's own key
+    (:func:`~..ops.philox.split_seed` of the chain's key and the split,
+    as the JAX package gives each split its own key), ``offset`` the
+    proposal's (an int, or a device word inside a recorded graph).  The
+    proposal draws with ``ops/philox.py``'s helpers under it:
+    ``row_uniforms(ng, k, seed, offset, s.device)`` and ``normals(ng, k,
+    seed, offset, s.device)`` (rows 0 .. ng - 1), or ``word_uniforms``;
+    it must not read the offset on the host.  Such a move is not
+    ``rung_batched``: a ladder runs it rung by rung.
+
+    The port's own moves keep a hook of their own, ``get_proposal(rng,
+    coords, split, model, extra=None, scale=None) -> (q, factors)`` for
+    group ``split`` of the contiguous ensemble buffer ``coords`` (and
+    ``carry=`` where they set ``wants_carry``): their kernels read the
+    rows in place.  The class that defines ``get_proposal`` decides which
+    hook a move has (:attr:`_jax_hook`).
     """
 
     tunable = False
@@ -130,6 +150,16 @@ class RedBlueMove(ScaleTunable, Move):
     #: True for moves whose kernels take the rung axis, so that
     #: :meth:`propose_rungs` proposes every rung of a ladder at once
     rung_batched = False
+    #: True where ``get_proposal`` is defined outside the port's moves
+    #: package: it then has the JAX package's shape (the class docstring)
+    _jax_hook = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if "get_proposal" in vars(cls):
+            cls._jax_hook = not cls.__module__.startswith(__package__ + ".")
+        if cls._jax_hook:
+            cls.rung_batched = False
 
     def __init__(self, nsplits=2, randomize_split=True, live_dangerously=False,
                  tune_target=None, tune_rate=0.2):
@@ -149,6 +179,26 @@ class RedBlueMove(ScaleTunable, Move):
         raise NotImplementedError(
             "The proposal must be implemented by subclasses"
         )
+
+    def _split_proposal(self, rng, coords, split, model, extra=None,
+                        scale=None, **kw):
+        """``(q, factors)`` of group ``split`` of ``coords`` through the
+        move's own hook: the port's, or the JAX package's shape for a
+        move written outside the port (the class docstring)."""
+        if not self._jax_hook:
+            return self.get_proposal(rng, coords, split, model, extra=extra,
+                                     scale=scale, **kw)
+        ng = coords.shape[0] // self.nsplits
+        parts = [coords[j * ng:(j + 1) * ng] for j in range(self.nsplits)]
+        if extra is not None:
+            kw["extra"] = extra
+        if scale is not None:
+            kw["scale"] = scale
+        seed, offset = rng
+        q, factors = self.get_proposal(
+            (split_seed(seed, split), offset), parts[split],
+            tuple(parts[:split] + parts[split + 1:]), model, **kw)
+        return q.contiguous(), factors.to(coords.dtype).contiguous()
 
     def update_carry(self, carry, state, model):
         """Post-proposal adaptation of the carry, in place (``wants_carry``
@@ -223,7 +273,7 @@ class RedBlueMove(ScaleTunable, Move):
         leaf of ``blobs`` are updated in place.  Returns the split's
         tuning statistics for :meth:`_fold_split_stats` (None here)."""
         kw = {"carry": carry} if self.wants_carry else {}
-        q, factors = self.get_proposal(
+        q, factors = self._split_proposal(
             rng, coords, split, model, extra=extra, scale=scale, **kw
         )
         new_lp, new_blobs = model.compute_log_prob(q)

@@ -197,7 +197,7 @@ _ARGTYPES = {
     "group_order": [
         _P, _P, _P, _P,  # keys, order, sorted words, scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ntemps n nsplits
-        ctypes.c_int, ctypes.c_int,  # plan: chunk threads
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plan: chunk threads hist
         _P,  # stream
     ],
     "copy_rows": [

@@ -108,7 +108,8 @@ RHAT_BUDGET = 1 << 30
 #: bytes a draw of one parameter takes in the rank passes, float32 and
 #: float64 draws: the keys and the sorted words (8 each; float64 twice,
 #: with the first pass's order and words and the gathered high words),
-#: the links (4), the scores (8) and K16's scratch (16)
+#: the links (4), the scores (8) and K16's scratch (16; its look-back
+#: words and digit counts add under a byte)
 RHAT_BYTES = {False: 8 + 8 + 4 + 8 + 16, True: 8 * 8 + 4 + 8 + 16}
 #: the keys' value for every NaN: above +inf's, one for float32 and one
 #: for float64 draws (as an int64 bit pattern)

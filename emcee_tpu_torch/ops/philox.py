@@ -62,7 +62,13 @@ Stream layout (shared with the kernels):
     subsample.
 
   A user's ``MHMove`` proposal may draw from :func:`normals` and
-  :func:`row_uniforms`; word 1 at ``(walker, 0, ...)`` is K2's.
+  :func:`row_uniforms`; word 1 at ``(walker, 0, ...)`` is K2's.  A
+  red-blue move written outside the port (``moves/red_blue.py``) draws
+  its proposal of split ``j`` under a key of its own,
+  :func:`split_seed` of the chain's key and ``j`` (derived at an offset
+  no chain reaches, as :func:`sub_seed`), with :func:`row_uniforms`,
+  :func:`normals` or :func:`word_uniforms` over its group's rows, so no
+  counter it reads is K2's.
 
 * the extension moves (``moves/side.py``, ``blended.py``, ``de_z.py``,
   ``dime.py``, ``slice.py``) draw their normals at ``NORMAL_BLOCK``
@@ -167,6 +173,7 @@ __all__ = [
     "rung_words",
     "split_key",
     "split_offset",
+    "split_seed",
     "sub_keys",
     "sub_seed",
     "to_uniform",
@@ -319,6 +326,15 @@ def sub_seed(seed, k):
     w = philox4x32_scalar((k, BLEND_BLOCK | 0xFFFFF, MASK32, MASK32),
                           split_key(seed))
     return w[0] | (w[1] << 32)
+
+
+def split_seed(seed, split):
+    """The 64-bit key under which a red-blue move written outside the port
+    draws its proposal of split ``split`` under ``seed``: words 0 and 1
+    of the main key's counter ``(2**32 - 1 - split, BLEND_BLOCK | 0xFFFFF,
+    2**32 - 1, 2**32 - 1)``, :func:`sub_seed`'s lanes counted down from
+    the top, so no sub-move's key is a split's."""
+    return sub_seed(seed, MASK32 - split)
 
 
 def rung_seed(seed, r):

@@ -13,12 +13,13 @@ program and ``emcee_tpu/parallel/tempering.py:538`` vmaps over the rungs.
   ``j * ng + i`` of segment ``r`` is ``r * n + perm_r[i * nsplits + j]``,
   ``perm_r`` the stable argsort of the segment's keys.  A segment of at
   most ``RANK_MAX`` walkers is ranked in shared memory (each thread counts
-  the keys below its own; one launch), one of at most ``CHUNK_MAX`` sorted
-  by one block's bitonic network (one launch), a longer one by chunks
-  sorted so and merge passes (:func:`shuffle_plan`).  :func:`sorted_words`
-  runs it with one split and writes the sort words ``(key << 32) | index``
-  in sorted order (the order optional), as R-hat's ranks read them
-  (``ops/autocorr_kernel.py``).
+  the keys below its own; one launch), a longer one sorted by a stable
+  LSD radix sort of the 32-bit keys, four 8-bit digits: a histogram
+  launch, then a launch a digit whose tiles find their place by a
+  decoupled look-back (:func:`shuffle_plan`; ``RADIX_PASSES + 1``
+  launches).  :func:`sorted_words` runs it with one split and writes the
+  sort words ``(key << 32) | index`` in sorted order (the order
+  optional), as R-hat's ranks read them (``ops/autocorr_kernel.py``).
 * **K17, the rows** (:func:`gather_rows`, :func:`scatter_rows`,
   ``csrc/gather_rows.cu``): every buffer's rows through the order in one
   launch, each buffer a descriptor (bases, row bytes, copy unit) as K2's
@@ -51,24 +52,32 @@ import torch
 from ._wrap import count_launches, device_sm_count, divisor, launch, ptr
 from .accept_kernel import blob_unit
 
-__all__ = ["CHUNK_MAX", "MERGE_CHUNK_MIN", "ROWS_CAPACITY", "ShufflePlan",
+__all__ = ["RADIX_TILES", "ROWS_CAPACITY", "ShufflePlan",
            "gather_rows", "gather_rows_plain", "group_order",
-           "group_order_plain", "rows_plan", "scatter_rows",
-           "scatter_rows_plain", "shuffle_plan", "sorted_words",
-           "sorted_words_plain"]
+           "group_order_plain", "radix_scratch", "rows_plan",
+           "scatter_rows", "scatter_rows_plain", "shuffle_plan",
+           "sorted_words", "sorted_words_plain"]
 
-#: the longest segment (and chunk) one block sorts in shared memory
-#: (kChunkMax in csrc/shuffle_order.cu): 4096 8-byte words, 32 KB
-CHUNK_MAX = 4096
-#: the longest segment the rank route takes (kRankMax): 16 KB of words
-#: that every block of the segment loads
+#: the longest segment the rank route takes (kRankMax in
+#: csrc/shuffle_order.cu): 16 KB of words that every block of the segment
+#: loads
 RANK_MAX = 2048
 #: the rank route's block, a thread a walker (kRankThreads)
 RANK_THREADS = 64
-#: the shortest chunk of the long route
-MERGE_CHUNK_MIN = 1024
-#: the sorting block's threads at most (kSortThreadsMax)
-SORT_THREADS_MAX = 1024
+#: the radix route's block (kRadixThreads): a thread a digit in the
+#: look-back
+RADIX_THREADS = 256
+#: the radix route's digit passes (kPasses) and bins a digit (kBins)
+RADIX_PASSES = 4
+RADIX_BINS = 256
+#: the statuses a look-back step reads at once (kLookBack)
+RADIX_LOOKBACK = 16
+#: the radix route's tiles, keys a block of a pass (256 threads x 1, 4
+#: or 16 keys: the kernel's instantiations), the plan's largest first
+RADIX_TILES = (4096, 1024, 256)
+#: keys a histogram block takes at least (the blocks of every segment
+#: stay within one a streaming multiprocessor)
+HIST_KEYS = 4096
 #: shared memory a block takes without opting in
 SMEM_LIMIT = 48 * 1024
 #: buffers one launch of K17 takes (kMaxBufs in csrc/gather_rows.cu)
@@ -80,59 +89,70 @@ ROWS_THREADS = 256
 class ShufflePlan(NamedTuple):
     """How K16 sorts ``T`` segments of ``n`` walkers."""
 
-    route: str  #: "rank", "short" (one block a segment) or "long"
-    chunk: int  #: walkers a sorting block takes, a power of two (0: rank)
+    route: str  #: "rank" or "radix"
+    chunk: int  #: keys a block of a radix pass sorts, its tile (0: rank)
     threads: int  #: a block's threads
-    chunks: int  #: blocks a segment of the (first) launch
-    merges: int  #: merge passes (0 but on the long route)
+    chunks: int  #: blocks a segment of a launch (the radix route's tiles)
+    hist: int  #: histogram blocks a segment (the radix route; else 0)
     smem: int  #: a block's shared memory, bytes
 
     @property
     def launches(self):
-        """Kernel launches of one call: the sort and every merge pass."""
-        return 1 + self.merges
+        """Kernel launches of one call: the radix route's histogram and
+        digit passes, else one."""
+        return 1 + RADIX_PASSES if self.route == "radix" else 1
 
 
-def _pow2_at_least(x):
-    return 1 << max(1, (x - 1).bit_length())
+def radix_smem(tile):
+    """A radix pass's static shared memory at ``tile`` keys a block: the
+    tile's words, the warps' digit counts, two block scans' words, the
+    digits' local starts and destinations."""
+    warps = RADIX_THREADS // 32
+    return 8 * tile + 4 * warps * RADIX_BINS + 4 * 2 * warps + (
+        4 + 4) * RADIX_BINS
 
 
-def shuffle_plan(T, n, ns, n_sm, chunk=None):
+def radix_scratch(plan, T, n):
+    """int64 words of the radix route's scratch (``emcee_group_order``'s
+    layout): the passes' two buffers of ``T n`` words, then 32-bit words:
+    two status buffers of every tile's digits and the histogram blocks'
+    counts (0 on the rank route)."""
+    if plan.route != "radix":
+        return 0
+    u32 = (2 * T * plan.chunks * RADIX_BINS
+           + T * plan.hist * RADIX_PASSES * RADIX_BINS)
+    return 2 * T * n + -(-u32 // 2)
+
+
+def shuffle_plan(T, n, ns, n_sm, tile=None):
     """K16's route and launch shape for ``T`` segments of ``n`` walkers
     split ``ns`` ways, on a card of ``n_sm`` SMs.
 
     Rank route, ``n <= RANK_MAX``: blocks of ``RANK_THREADS``, a thread a
     walker, each block loading its segment's words (16 KB at most, static
-    shared memory) and ranking its own; one launch.  Short route, ``n <=
-    CHUNK_MAX``: one block a segment sorts the next power of two of words
-    (the chunk) in shared memory, half a chunk of threads (32 to
-    ``SORT_THREADS_MAX``), and writes the order; one launch.  Long route:
-    chunks of the largest power of two from ``CHUNK_MAX`` down to
-    ``MERGE_CHUNK_MIN`` whose sorting blocks of every segment still fill
-    the card (``T * chunks >= n_sm``), then ``ceil(log2(chunks))`` merge
-    passes, the sorted runs merged pairwise.  ``chunk`` forces the bitonic routes' chunk (a power of two, 2
-    to ``CHUNK_MAX``; below ``n`` it takes the long route)."""
+    shared memory) and ranking its own; one launch.  Radix route above:
+    ``RADIX_THREADS`` a block, the largest of ``RADIX_TILES`` whose tiles
+    of every segment fill half the card (``2 T tiles >= n_sm``; else the
+    smallest, 256 keys), and a histogram launch of at least ``HIST_KEYS``
+    keys a block, at most ``n_sm`` blocks in all; ``1 +
+    RADIX_PASSES`` launches.  (On an H100 that rule took the fastest of
+    these tiles at one segment of 4096 to 6e7 keys and at 16 x 1e4 and 64
+    x 4098, but for one of 5e4: ``chip_smoke.py k16-tiles``.)  ``tile``
+    forces the radix route with that tile (one of ``RADIX_TILES``), at any
+    ``n``."""
     if T < 1 or n < 1 or ns < 1 or n % ns:
         raise ValueError(f"bad segments: {T} x {n} walkers in {ns} splits")
-    if chunk is None and n <= RANK_MAX:
+    if tile is None and n <= RANK_MAX:
         return ShufflePlan("rank", 0, RANK_THREADS, -(-n // RANK_THREADS), 0,
                            8 * RANK_MAX)
-    if chunk is None:
-        if n <= CHUNK_MAX:
-            chunk = _pow2_at_least(n)
-        else:
-            chunk = CHUNK_MAX
-            while chunk > MERGE_CHUNK_MIN and T * -(-n // chunk) < n_sm:
-                chunk //= 2
-    elif not (2 <= chunk <= CHUNK_MAX and chunk & (chunk - 1) == 0):
-        raise ValueError(f"chunk must be a power of two in [2, {CHUNK_MAX}],"
-                         f" got {chunk}")
-    threads = min(SORT_THREADS_MAX, max(32, chunk // 2))
-    if chunk >= n:
-        return ShufflePlan("short", chunk, threads, 1, 0, 8 * chunk)
-    chunks = -(-n // chunk)
-    return ShufflePlan("long", chunk, threads, chunks,
-                       (chunks - 1).bit_length(), 8 * chunk)
+    if tile is None:
+        tile = next((t for t in RADIX_TILES if 2 * T * -(-n // t) >= n_sm),
+                    RADIX_TILES[-1])
+    elif tile not in RADIX_TILES:
+        raise ValueError(f"tile must be one of {RADIX_TILES}, got {tile}")
+    hist = max(1, min(-(-n // HIST_KEYS), -(-n_sm // T)))
+    return ShufflePlan("radix", tile, RADIX_THREADS, -(-n // tile), hist,
+                       radix_smem(tile))
 
 
 def _segments(words):
@@ -225,17 +245,18 @@ def sorted_words(keys, words, order=None):
 
 def _launch_order(plan, words, nsplits, out, sorted_out=None):
     """Launch K16 with plan ``plan`` on checked arguments (the order into
-    ``out``, the sorted words into ``sorted_out``, either None); scratch
-    for the long route comes from ``torch.empty`` (a graph records it in
-    its pool)."""
+    ``out``, the sorted words into ``sorted_out``, either None); the radix
+    route's scratch (:func:`radix_scratch`) comes from ``torch.empty`` (a
+    graph records it in its pool; the kernels zero what must start at
+    zero)."""
     T, n = _segments(words)
     scratch = None
-    if plan.route == "long":
-        scratch = torch.empty(2 * T * n, dtype=torch.int64,
+    if plan.route == "radix":
+        scratch = torch.empty(radix_scratch(plan, T, n), dtype=torch.int64,
                               device=words.device)
     launch("group_order", words.device, words.data_ptr(), ptr(out),
            ptr(sorted_out), ptr(scratch), T, n, nsplits, plan.chunk,
-           plan.threads)
+           plan.threads, plan.hist)
     count_launches(group_order, plan.launches)
 
 

@@ -22,7 +22,7 @@ tempering.py:449-541``.  The kernels are ``csrc/walk_propose.cu``:
   sums).  An exact subset of at most :data:`SORT_MAX` rows is sorted by
   one block a walker in shared memory;
   a larger one's keys are written by the kernel (``walk_keys``), sorted
-  by K16 (``shuffle_kernel.sorted_words``, its long route) a range of
+  by K16 (``shuffle_kernel.sorted_words``, its radix route) a range of
   walkers at a time, and read back as the picks.
 
 Every sum runs from +0.0 in a fixed order and every operation rounds

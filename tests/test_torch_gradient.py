@@ -18,7 +18,8 @@ chain).  Also: ``batch_grad`` against ``jax.grad`` with
 forward pass at ``q`` against ``compute_log_prob``, bit for bit; every
 constructor ``ValueError``; the refusal of a log-prob without a
 gradient; the tune flag reaching a ``wants_tune_flag`` move only in a
-tuning run, through the graph path and the eager path.
+tuning run, through the graph path and the eager path; an ensemble move
+inside a ``BlendedMove`` with ``StretchMove()`` against the JAX blend.
 """
 
 import jax
@@ -41,6 +42,7 @@ from emcee_tpu_torch.chunk_graph import ChunkProgram
 from emcee_tpu_torch.model import Model, wrap_log_prob_fn
 from emcee_tpu_torch.moves import gradient
 from emcee_tpu_torch.moves.gradient import batch_grad, batch_value_and_grad
+from emcee_tpu_torch.ops.philox import sub_seed
 from emcee_tpu_torch.state import State
 
 NW, ND = 32, 3
@@ -286,6 +288,51 @@ def test_ensemble_next_state_matches_jax(cls, n, jitter):
         np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
         close(st.coords, want.coords)
         close(st.log_prob, want.log_prob)
+
+
+@pytest.mark.parametrize("split", [0, 1])
+@pytest.mark.parametrize("cls,n,jitter", [("mala", 1, 0.0),
+                                          ("hmc", 3, 0.2)])
+def test_ensemble_move_in_a_blend_matches_jax(cls, n, jitter, split):
+    """An ensemble gradient move blended with ``StretchMove()``: its
+    proposal through the port's ``BlendedMove`` against the JAX blend's
+    (``emcee_tpu/moves/blended.py``: the gradient move draws under the
+    blend's ``keys[1]``, injected here), and the stretch branch against
+    ``StretchMove`` alone under its sub-move key, bit for bit."""
+    jmove, move = ensemble_pair(cls, n, jitter)
+    x, _ = start(5)
+    ng = NW // 2
+    s = x[split * ng:(split + 1) * ng]
+    c = x[(1 - split) * ng:(2 - split) * ng]
+    key = jax.random.key(40 + split)
+    jblend = jmoves.BlendedMove([(jmove, 1.0), (jmoves.StretchMove(), 0.0)])
+    jq, jf = jblend.get_proposal(key, jnp.asarray(s), (c,), spy([]))
+    draws = ensemble_draws(jax.random.split(key, 3)[1], cls, jitter, ng)
+    blend = moves.BlendedMove([(move, 1.0), (moves.StretchMove(), 0.0)])
+    xt = torch.from_numpy(x)
+    q, f = blend.get_proposal((9, 4), xt, split, model(),
+                              extra={"moves": [draws, None]})
+    close(q, jq)
+    close(f, jf)
+    q1, f1 = blend.get_proposal((9, 4), xt, split, model(),
+                                extra={"choice": 1})
+    q2, f2 = moves.StretchMove().get_proposal(
+        (sub_seed(9, 1), 4), xt, split, model())
+    assert torch.equal(q1, q2) and torch.equal(f1, f2.expand(ng))
+
+
+@pytest.mark.parametrize("cls", [moves.EnsembleMALAMove,
+                                 moves.EnsembleHMCMove])
+def test_ensemble_move_blended_with_stretch_runs(cls):
+    """``BlendedMove([EnsembleMALAMove(), StretchMove()])`` (and HMC)
+    through ``EnsembleSampler``: the engine reaches each sub-move through
+    its own hook."""
+    s = emcee_tpu_torch.EnsembleSampler(
+        16, ND, lp_t, vectorize=True, seed=2, device="cpu",
+        moves=moves.BlendedMove([cls(0.4), moves.StretchMove()]))
+    s.run_mcmc(np.random.default_rng(3).normal(size=(16, ND)), 20)
+    assert np.isfinite(s.get_chain()).all()
+    assert 0.2 < s.acceptance_fraction.mean() < 1.0
 
 
 def lp1_t(x):

@@ -19,7 +19,8 @@ diagonal, injected ``z``, the ``(T,)`` jitter), K12 (both modes) and K13
 the one-ensemble plain versions under ``keys.seeds[r]``, at an int offset
 and at a device offset word; ``PTSampler`` with each move proposing every
 rung at once against the forced per-rung loop (the private ``_batched``
-switch), with user blobs, tuning and a mixture with ``StretchMove()``.
+switch), with user blobs, tuning, a mixture with ``StretchMove()`` and
+an ensemble move blended with it (``BlendedMove``).
 The ensemble moves' per-rung products by ``L`` are one batched matmul
 there, which on the CPU rounds otherwise than the rung's own ``mm``
 (``ROADMAP.md`` section 3): their batched path is held to the loop at
@@ -433,6 +434,11 @@ PRODUCTS = "products"  # the ensemble moves' batched matmuls: to 1e-5
      dict(tune=True), PRODUCTS),
     (lambda: [(moves.EnsembleHMCMove(0.4, n_leapfrog=2), 0.5),
               (moves.StretchMove(), 0.5)], dict(mixture_block=2), PRODUCTS),
+    (lambda: moves.BlendedMove([moves.EnsembleMALAMove(0.8),
+                                moves.StretchMove()]), {}, PRODUCTS),
+    (lambda: moves.BlendedMove([(moves.EnsembleHMCMove(0.4, n_leapfrog=2),
+                                 0.6), (moves.StretchMove(), 0.4)]), {},
+     PRODUCTS),
 ])
 def test_batched_path_equals_the_per_rung_loop(make, kw, hold):
     """Every rung at once (K11-K13 and K2 with the rung axis, the gradient

@@ -8,7 +8,8 @@
   on injected keys with ties (all equal, two values, sorted, reversed).
 * The kernels' algorithms, replayed in numpy step by step as the CUDA
   sources run them (``csrc/shuffle_order.cu``: the ranks by count, the
-  bitonic network of a block, the merge passes and the order's write; ``csrc/gather_rows.cu``:
+  radix route's histogram blocks, each pass's warp ranks by digit,
+  look-back prefixes and scatter, and the order's write; ``csrc/gather_rows.cu``:
   the descriptors' blocks, the unit index's magic division and the unit
   copies), equal the plain versions: the kernels cannot run here, so
   their index arithmetic is held here and their bits on the card
@@ -16,8 +17,8 @@
 * The plain gather and scatter equal ``index_select`` / ``index_copy_``
   for every blob dtype and row shape, through the wrappers.
 * ``shuffle_plan`` (hypothesis): every walker of a segment in exactly one
-  chunk, the route by length, the launches, threads and shared memory
-  within the block's limits; ``rows_plan``: every unit of every buffer in
+  rank block or radix tile (and histogram block), the route by length, the
+  launches, threads, shared memory and scratch within their limits; ``rows_plan``: every unit of every buffer in
   exactly one thread, launches of ``ROWS_CAPACITY`` buffers.
 """
 
@@ -107,25 +108,6 @@ def test_plain_order_is_stable_on_tied_keys(kind, T, n, nsplits):
 PAD = np.uint64(2**64 - 1)
 
 
-def bitonic(s):
-    """``group_order_kernel``'s network over one block's words ``s`` (a
-    power of two of them), stage by stage as the block runs it."""
-    chunk = s.shape[0]
-    t = np.arange(chunk // 2)
-    size = 2
-    while size <= chunk:
-        stride = size >> 1
-        while stride > 0:
-            lo = 2 * t - (t & (stride - 1))
-            hi = lo + stride
-            a, b = s[lo].copy(), s[hi].copy()
-            swap = (a > b) == ((lo & size) == 0)
-            s[lo[swap]], s[hi[swap]] = b[swap], a[swap]
-            stride >>= 1
-        size <<= 1
-    return s
-
-
 def write_order(order, r, n, nsplits, p, w):
     ng = n // nsplits
     i, j = p // nsplits, p % nsplits
@@ -133,69 +115,186 @@ def write_order(order, r, n, nsplits, p, w):
         np.int64)
 
 
-def emulate_group_order(keys, nsplits, plan):
+def look_back_replay(cnt, inclusive, rng):
+    """The prefixes ``radix_pass_kernel``'s look-back finds for every tile
+    after the first of every segment and digit (``cnt`` and ``inclusive``
+    ``(T, tiles, bins)``: the tiles' counts and inclusive prefixes), all
+    tiles at once: windows of ``RADIX_LOOKBACK`` statuses from the
+    nearest, each status an aggregate or a prefix (tile 0 always a
+    prefix), some not yet published at the first step, so the walk stops
+    there and reads again.  Returns ``(T, tiles, bins)``, the first tile's
+    row 0."""
+    T, tiles, bins = cnt.shape
+    prefix = rng.random((T, tiles, bins)) < 0.3
+    prefix[:, 0] = True
+    late = rng.random((T, tiles, bins)) < 0.2  # unpublished at first
+    value = np.where(prefix, inclusive, cnt)
+    r_ix, t_ix, d_ix = np.indices((T, tiles, bins))
+    k = t_ix.copy()  # the statuses below k are still to be summed
+    total = np.zeros((T, tiles, bins), np.int64)
+    done = t_ix == 0
+    first = True
+    while not done.all():
+        stop = done.copy()  # ended this step: a prefix or a late status
+        step = np.zeros((T, tiles, bins), np.int64)
+        for j in range(shk.RADIX_LOOKBACK):
+            at = k - 1 - j
+            i = np.maximum(at, 0)
+            live = (at >= 0) & ~stop
+            unpublished = live & late[r_ix, i, d_ix] & first
+            stop |= unpublished
+            add = live & ~unpublished
+            total += np.where(add, value[r_ix, i, d_ix], 0)
+            step += add
+            ended = add & prefix[r_ix, i, d_ix]
+            done |= ended
+            stop |= ended
+        k = np.where(done, k, k - step)
+        assert np.all(done | (k >= 1))  # tile 0's prefix ends every walk
+        first = False
+    return total
+
+
+def radix_ranks(digits, items):
+    """Each word's rank among its warp's words of its digit, as the warps
+    of ``radix_pass_kernel`` count them: ``digits`` ``(..., items * 32)``
+    a warp (``RADIX_BINS`` for a padding lane), 32 at a time in order,
+    the lanes below with the same digit (``__match_any_sync``) beside a
+    running count a digit; returns the ranks and the warps' counts."""
+    lead = digits.shape[:-1]
+    count = np.zeros(lead + (shk.RADIX_BINS + 1,), np.int64)
+    rank = np.empty(digits.shape, np.int64)
+    below = np.tril(np.ones((32, 32), bool), -1)  # [lane, lower lane]
+    for i in range(items):
+        d = digits[..., i * 32:(i + 1) * 32]
+        peers = d[..., :, None] == d[..., None, :]
+        lower = (peers & below).sum(-1)
+        c = np.take_along_axis(count, d, axis=-1)
+        rank[..., i * 32:(i + 1) * 32] = c + lower
+        leader = lower == 0
+        np.put_along_axis(count, np.where(leader, d, shk.RADIX_BINS),
+                          np.where(leader, c + peers.sum(-1), 0), axis=-1)
+    return rank, count[..., :shk.RADIX_BINS]
+
+
+def emulate_radix(keys, plan, rng):
+    """The radix route as ``emcee_group_order`` launches it: the histogram
+    blocks' counts, then each pass's tiles ranking their words by digit,
+    their prefixes by the look-back and the scatter of each tile in digit
+    order.  Returns each segment's sorted words."""
+    T, n = keys.shape
+    tile, tiles = plan.chunk, plan.chunks
+    warps = plan.threads // 32
+    items = tile // plan.threads
+    bins = shk.RADIX_BINS
+    k32 = keys.astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    per = -(-n // plan.hist)
+    part = np.zeros((T, plan.hist, shk.RADIX_PASSES, bins), np.int64)
+    for b in range(plan.hist):
+        blk = k32[:, b * per:min(n, (b + 1) * per)]
+        for p in range(shk.RADIX_PASSES):
+            d = ((blk >> np.uint64(8 * p)) & np.uint64(bins - 1)).astype(
+                np.int64)
+            for r in range(T):
+                part[r, b, p] = np.bincount(d[r], minlength=bins)
+    words = (k32 << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    live = np.arange(tiles * tile) < n
+    r_ix, t_ix, w_ix = (x[..., None] for x in np.indices((T, tiles, warps)))
+    for p in range(shk.RADIX_PASSES):
+        shift = np.uint64(32 + 8 * p)
+        w = np.zeros((T, tiles * tile), np.uint64)
+        w[:, :n] = words
+        d = ((w >> shift) & np.uint64(bins - 1)).astype(np.int64)
+        d[:, ~live] = bins
+        d = d.reshape(T, tiles, warps, items * 32)
+        rank, count = radix_ranks(d, items)
+        warp_off = np.cumsum(count, axis=2) - count
+        cnt = count.sum(axis=2)  # (T, tiles, bins)
+        local = np.cumsum(cnt, axis=-1) - cnt
+        total = part[:, :, p].sum(axis=1)
+        bucket = np.cumsum(total, axis=-1) - total  # tile 0's starts
+        inclusive = bucket[:, None] + np.cumsum(cnt, axis=1)
+        before = look_back_replay(cnt, inclusive, rng)
+        before[:, 0] = bucket
+        # Each tile's words in digit order in shared memory, then out.
+        ok = d < bins
+        dc = np.minimum(d, bins - 1)
+        slot = local[r_ix, t_ix, dc] + warp_off[r_ix, t_ix, w_ix, dc] + rank
+        smem = np.zeros((T, tiles, tile), np.uint64)
+        rr = np.broadcast_to(r_ix, d.shape)[ok]
+        tt = np.broadcast_to(t_ix, d.shape)[ok]
+        assert not np.any(np.bincount(
+            (rr * tiles + tt) * tile + slot[ok]) > 1)
+        smem[rr, tt, slot[ok]] = w.reshape(d.shape)[ok]
+        sd = ((smem >> shift) & np.uint64(bins - 1)).astype(np.int64)
+        q = np.take_along_axis(before - local, sd, axis=-1) + np.arange(tile)
+        out = np.full((T, n), PAD)
+        at = live.reshape(tiles, tile)
+        for r in range(T):
+            out[r, q[r][at]] = smem[r][at]
+        words = out
+    return words
+
+
+def emulate_group_order(keys, nsplits, plan, rng=None):
     """K16 as ``emcee_group_order`` launches it with ``plan``."""
     T, n = keys.shape
     order = np.full(T * n, -1, np.int64)
+    words = ((keys.astype(np.uint64) << np.uint64(32))
+             | np.arange(n, dtype=np.uint64))
+    if plan.route == "radix":
+        sw = emulate_radix(keys, plan, rng or np.random.default_rng(0))
+        for r in range(T):
+            write_order(order, r, n, nsplits, np.arange(n), sw[r])
+        return order
     for r in range(T):
-        words = ((keys[r].astype(np.uint64) << np.uint64(32))
-                 | np.arange(n, dtype=np.uint64))
-        if plan.route == "rank":
-            for b in range(plan.chunks):  # a thread a word: its rank
-                e = np.arange(b * plan.threads,
-                              min((b + 1) * plan.threads, n))
-                p = (words[None, :] < words[e, None]).sum(axis=1)
-                write_order(order, r, n, nsplits, p, words[e])
-            continue
-        if plan.route == "short":
-            s = np.full(plan.chunk, PAD)
-            s[:n] = words
-            s = bitonic(s)
-            write_order(order, r, n, nsplits, np.arange(n), s[:n])
-            continue
-        seg = np.empty(n, np.uint64)
-        for c in range(plan.chunks):
-            c0 = c * plan.chunk
-            ln = min(plan.chunk, n - c0)
-            s = np.full(plan.chunk, PAD)
-            s[:ln] = words[c0:c0 + ln]
-            seg[c0:c0 + ln] = bitonic(s)[:ln]
-        run, ways = plan.chunk, 2  # merged pairwise
-        for m in range(plan.merges):
-            e = np.arange(n)
-            g0 = e - e % (ways * run)
-            mine = (e - g0) // run
-            p = e - mine * run
-            for q in range(ways):  # each sibling run's words below
-                b0 = np.minimum(g0 + q * run, n)
-                b1 = np.minimum(g0 + (q + 1) * run, n)
-                for lo, hi in set(zip(b0.tolist(), b1.tolist())):
-                    at = (b0 == lo) & (mine != q)
-                    p[at] += np.searchsorted(seg[lo:hi], seg[at], "left")
-            assert np.array_equal(np.sort(p), np.arange(n))
-            if m + 1 == plan.merges:
-                write_order(order, r, n, nsplits, p, seg)
-            else:
-                nxt = np.empty_like(seg)
-                nxt[p] = seg
-                seg = nxt
-            run *= ways
+        for b in range(plan.chunks):  # a thread a word: its rank
+            e = np.arange(b * plan.threads, min((b + 1) * plan.threads, n))
+            p = (words[r][None, :] < words[r][e, None]).sum(axis=1)
+            write_order(order, r, n, nsplits, p, words[r][e])
     return order
 
 
 @pytest.mark.parametrize("kind", ["equal", "two values", "sorted",
                                   "reversed", "random"])
-@pytest.mark.parametrize("T,n,nsplits,chunk", [
+@pytest.mark.parametrize("T,n,nsplits,force", [
     (16, 256, 2, None), (3, 15, 3, None), (2, 2, 2, None), (1, 1, 1, None),
-    (2, 2048, 4, None), (1, 3000, 2, None), (2, 300, 3, 512), (2, 37, 1, 4),
-    (1, 100, 4, 8), (3, 96, 2, 32), (1, 5003, 1, None), (2, 9000, 3, None),
-    (1, 20_000, 2, None), (2, 1000, 2, 16)])
-def test_k16_algorithm_equals_the_plain_order(kind, T, n, nsplits, chunk):
+    (2, 2048, 4, None), (1, 3000, 2, None), (2, 300, 3, ("tile", 256)),
+    (2, 37, 1, ("tile", 256)), (1, 100, 4, ("tile", 256)),
+    (3, 96, 2, ("tile", 256)), (1, 5003, 1, None), (2, 9000, 3, None),
+    (1, 20_000, 2, None), (2, 1000, 2, ("tile", 256)),
+    (3, 4098, 1, None), (2, 5000, 2, ("tile", 256)),
+    (1, 20_000, 2, ("tile", 256)), (4, 6000, 3, ("tile", 4096))])
+def test_k16_algorithm_equals_the_plain_order(kind, T, n, nsplits, force):
+    """Every route by the plan, and the radix route forced on short
+    segments; the last four shapes: a segment just above the rank route's
+    limit, ``T > 1`` long segments, tens of tiles and ties across
+    tiles."""
     keys = tied_keys(kind, T, n, np.random.default_rng(3 * n + T))
-    plan = shk.shuffle_plan(T, n, nsplits, 132, chunk=chunk)
+    plan = shk.shuffle_plan(T, n, nsplits, 132, tile=force and force[1])
     want = shk.group_order_plain(torch.from_numpy(keys), nsplits).numpy()
-    np.testing.assert_array_equal(emulate_group_order(keys, nsplits, plan),
-                                  want)
+    got = emulate_group_order(keys, nsplits, plan,
+                              np.random.default_rng(n + 7 * T))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("T,n,tile", [(1, 20_000, None), (3, 5000, 256)])
+def test_k16_radix_sorted_words_and_order_equal_the_plain_version(T, n,
+                                                                  tile):
+    """``sorted_words`` with ``order`` (one split): the radix route's last
+    pass writes the sorted words and the flat rows."""
+    keys = tied_keys("random", T, n, np.random.default_rng(n))
+    keys[:, ::7] = 5  # ties across tiles
+    plan = shk.shuffle_plan(T, n, 1, 132, tile=tile)
+    assert plan.route == "radix"
+    words = torch.empty(T, n, dtype=torch.int64)
+    order = torch.empty(T * n, dtype=torch.int64)
+    shk.sorted_words(torch.from_numpy(keys), words, order)
+    sw = emulate_radix(keys, plan, np.random.default_rng(1))
+    np.testing.assert_array_equal(sw.view(np.int64), words.numpy())
+    np.testing.assert_array_equal(
+        emulate_group_order(keys, 1, plan, np.random.default_rng(2)),
+        order.numpy())
 
 
 def emulate_copy_rows(order, bufs, descs, blocks, scatter):
@@ -310,8 +409,8 @@ def test_wrappers_raise_on_other_devices():
         shk.gather_rows(meta, [meta])
     with pytest.raises(ValueError, match="no K17 kernel"):
         shk.scatter_rows(meta, [meta], [meta])
-    with pytest.raises(ValueError, match="power of two"):
-        shk.shuffle_plan(1, 100, 2, 132, chunk=48)
+    with pytest.raises(ValueError, match="tile must be one of"):
+        shk.shuffle_plan(1, 100, 2, 132, tile=512)
     with pytest.raises(ValueError, match="bad segments"):
         shk.shuffle_plan(1, 9, 2, 132)
 
@@ -319,11 +418,11 @@ def test_wrappers_raise_on_other_devices():
 @settings(max_examples=200, deadline=None)
 @given(T=st.integers(1, 64), n_per=st.integers(1, 60_000),
        ns=st.integers(1, 4), n_sm=st.sampled_from([1, 78, 132, 144]),
-       force=st.sampled_from([None, 2, 64, 1024, 4096]))
-def test_shuffle_plan_covers_every_walker_once(T, n_per, ns, n_sm, force):
+       tile=st.sampled_from([None, 256, 1024, 4096]))
+def test_shuffle_plan_covers_every_walker_once(T, n_per, ns, n_sm, tile):
     n = n_per * ns
-    plan = shk.shuffle_plan(T, n, ns, n_sm, chunk=force)
-    if force is None and n <= shk.RANK_MAX:
+    plan = shk.shuffle_plan(T, n, ns, n_sm, tile=tile)
+    if tile is None and n <= shk.RANK_MAX:
         assert plan == (
             "rank", 0, shk.RANK_THREADS, -(-n // shk.RANK_THREADS), 0,
             8 * shk.RANK_MAX)
@@ -331,26 +430,26 @@ def test_shuffle_plan_covers_every_walker_once(T, n_per, ns, n_sm, force):
             plan.chunks * plan.threads)
         assert plan.launches == 1 and plan.smem <= shk.SMEM_LIMIT
         return
+    # The radix route: tiles of 256 threads x 1, 4 or 16 keys cover every
+    # key of a segment once; the histogram blocks too.
     chunk = plan.chunk
-    assert chunk & (chunk - 1) == 0 and 2 <= chunk <= shk.CHUNK_MAX
+    assert plan.route == "radix" and chunk == (tile or chunk)
+    assert chunk in shk.RADIX_TILES and plan.threads == shk.RADIX_THREADS
+    assert chunk // plan.threads in (1, 4, 16)
     assert (plan.chunks - 1) * chunk < n <= plan.chunks * chunk
-    assert plan.route == ("short" if chunk >= n else "long")
-    if force is None:
-        assert plan.route == ("short" if n <= shk.CHUNK_MAX else "long")
-        assert n > shk.RANK_MAX
-        if plan.route == "short":
-            assert chunk // 2 < max(n, 2) <= chunk
-        else:
-            assert chunk >= shk.MERGE_CHUNK_MIN
-            assert (chunk == shk.MERGE_CHUNK_MIN
-                    or T * plan.chunks >= n_sm)
-    assert plan.launches == 1 + plan.merges
-    ways = 2
-    assert ways**plan.merges >= plan.chunks > ways ** (plan.merges - 1) or (
-        plan.chunks == 1 and plan.merges == 0)
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
-    assert plan.threads <= max(32, chunk // 2)
-    assert plan.smem == 8 * chunk <= shk.SMEM_LIMIT
+    if tile is None:  # the largest tile whose tiles fill half the card
+        fill = [t for t in shk.RADIX_TILES if 2 * T * -(-n // t) >= n_sm]
+        assert chunk == (fill[0] if fill else 256)
+    per = -(-n // plan.hist)
+    assert 1 <= plan.hist <= n and (plan.hist - 1) * per < n <= (
+        plan.hist * per)
+    assert T * plan.hist <= max(T, n_sm + T)
+    assert plan.launches == 1 + shk.RADIX_PASSES == 5
+    assert plan.smem == shk.radix_smem(chunk) <= shk.SMEM_LIMIT
+    # The scratch: two buffers of words, then the 32-bit status words and
+    # digit counts.
+    u32 = 2 * T * plan.chunks * 256 + T * plan.hist * 4 * 256
+    assert shk.radix_scratch(plan, T, n) * 2 >= 4 * T * n + u32
 
 
 @settings(max_examples=200, deadline=None)
